@@ -1,6 +1,6 @@
-"""Smoke run of fft_tpu_torch on one NVIDIA GPU: the tiny LM's serving path
-at full width (6 layers, d=512, 8 heads, seq 2048), random weights from
-seed 0, through the port's own entry points.
+"""Smoke run of fft_tpu_torch on one NVIDIA GPU: the tiny LM's serving and
+training paths at full width (6 layers, d=512, 8 heads, seq 2048), random
+weights from seed 0, through the port's own entry points.
 
     python3 chip_smoke.py
 
@@ -8,8 +8,9 @@ Phases, in order; any failure raises and the exit code is nonzero:
 
 1. build     compile and load the CUDA kernels from fft_tpu_torch/csrc.
 2. kernels   each kernel against its plain PyTorch version on the card at
-             the slice's shapes (rel_err = max|a-b| / max|b| <= 2e-5), with
-             the median ms of both over CUDA events.
+             the slices' shapes (rel_err = max|a-b| / max|b| <= 2e-5, each
+             output of the backward on its own), with the median ms of both
+             over CUDA events.
 3. score     lm_apply on 4 x 2048 tokens; logits within rel_err 1e-4 of
              the same model and weights on the CPU (where the kernels'
              plain versions run); tokens/s on the card.
@@ -17,7 +18,16 @@ Phases, in order; any failure raises and the exit code is nonzero:
              (prefill ms, decode ms/token; prefill logits and the first
              teacher-forced decode logits against the CPU), then the CLI's
              generate on its default 4-byte prompt.
-5. launches  every kernel of the path was launched during phases 3-4.
+5. launches  every kernel of the serving path was launched during phases
+             3-4.
+6. train     one train_step at 2 x 2048: loss and every parameter gradient
+             within rel_err 1e-4 of the same model and batch on the CPU,
+             with the CPU's modReLUs on the card's side of their kinks (see
+             same_modrelu_side);
+             5 steps at 8 x 2048 (step ms, training tokens/s, peak device
+             memory); the CLI's train-lm for 3 steps.  Every kernel of the
+             training path (kf_spectra, fused_causal_mix and its backward)
+             was launched during the phase.
 
 Prints one JSON line per phase, the card's name and power limit as
 nvidia-smi gives them, a JSON line of per-kernel results, and last
@@ -29,6 +39,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -39,26 +50,45 @@ import torch
 SEED = 0
 REL_KERNEL = 2e-5      # direct fp32 DFTs vs cuFFT, different sum orders
 REL_MODEL = 1e-4       # 6 layers of fp32 FFT round trips, GPU vs CPU
-SOURCE = "fft_tpu_torch/csrc/causal.cu"
+SOURCES = {
+    "kf_spectra": "fft_tpu_torch/csrc/causal.cu",
+    "fused_causal_mix": "fft_tpu_torch/csrc/causal.cu",
+    "banded_inverse": "fft_tpu_torch/csrc/causal.cu",
+    "fused_causal_mix_bwd": "fft_tpu_torch/csrc/causal_bwd.cu",
+}
 REPLACES = {
     "kf_spectra": "fft_tpu/kernels/pallas_causal.py:1428",
     "fused_causal_mix": "fft_tpu/kernels/pallas_causal.py:592",
     "banded_inverse": "fft_tpu/kernels/pallas_causal.py:167",
+    "fused_causal_mix_bwd": "fft_tpu/kernels/pallas_causal.py:1921",
 }
+SERVE_KERNELS = ("kf_spectra", "fused_causal_mix", "banded_inverse")
+TRAIN_KERNELS = ("kf_spectra", "fused_causal_mix", "fused_causal_mix_bwd")
 
 
 def emit(**kw) -> None:
     print(json.dumps(kw), flush=True)
 
 
-def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+def rel_err(a, b) -> float:
+    """max|a-b| / max|b|; for tuples of outputs, the worst output's."""
+    if isinstance(a, tuple):
+        return max(rel_err(x, y) for x, y in zip(a, b))
     a, b = a.detach().double().cpu(), b.detach().double().cpu()
     return float((a - b).abs().max() / b.abs().max())
 
 
-def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+def max_abs(a, b) -> float:
+    if isinstance(a, tuple):
+        return max(max_abs(x, y) for x, y in zip(a, b))
     return float((a.detach().double().cpu()
                   - b.detach().double().cpu()).abs().max())
+
+
+def all_finite(a) -> bool:
+    if isinstance(a, tuple):
+        return all(all_finite(x) for x in a)
+    return bool(torch.isfinite(a).all())
 
 
 def median_ms(fn, reps: int = 10, rounds: int = 7) -> float:
@@ -114,6 +144,17 @@ def phase_kernels(kc, dev):
                                                           cols),
             lambda v=v, kr=kr, ki=ki: kc.fused_causal_mix_ref(v, kr, ki,
                                                               chunk, cols)))
+    bb = 8                                  # the training batch
+    for nc in (8, 16):
+        v, ybar = randn(bb, nc * chunk, d), randn(bb, nc * chunk, d)
+        kr, ki = (randn(bb, nc, chunk + 1, nc * cols) for _ in range(2))
+        cases.append((
+            "fused_causal_mix_bwd",
+            f"B={bb} nc={nc} C={chunk} d={d} cols={cols}",
+            lambda v=v, kr=kr, ki=ki, yb=ybar: kc.fused_causal_mix_bwd(
+                v, kr, ki, yb, chunk, cols),
+            lambda v=v, kr=kr, ki=ki, yb=ybar: kc.fused_causal_mix_bwd_ref(
+                v, kr, ki, yb, chunk, cols)))
     for c in (4, 100):
         args = (randn(b, 1, c + 1, d), randn(b, 1, c + 1, d),
                 randn(b, 1, 1, c + 1, cols), randn(b, 1, 1, c + 1, cols))
@@ -128,7 +169,7 @@ def phase_kernels(kc, dev):
         torch.cuda.synchronize()
         err = rel_err(got, want)
         abs_err = max_abs(got, want)
-        if not (err <= REL_KERNEL and torch.isfinite(got).all()):
+        if not (err <= REL_KERNEL and all_finite(got)):
             raise AssertionError(f"{name} [{shape}]: rel_err {err} > "
                                  f"{REL_KERNEL} or non-finite")
         # alternate plain, kernel, kernel, plain on the same card
@@ -139,6 +180,119 @@ def phase_kernels(kc, dev):
         emit(phase="kernels", kernel=name, **case)
         results.setdefault(name, []).append(case)
     return results
+
+
+@contextlib.contextmanager
+def same_modrelu_side(record: bool, sides: list):
+    """The gate's modReLU, ReLU(|z| + b) z / sqrt(|z|^2 + eps^2), has a kink
+    at |z| + b = 0.  A few of the ~6.3e6 gate values of a full-width step at
+    batch 2 can lie within fp32 rounding of it, so the card and the CPU can
+    take different sides there; the gradient then jumps by that value's
+    whole share (each bias entry sums only B * nc = 32 values) and moves
+    the mixer parameters upstream of it by up to a few 1e-4, which says
+    nothing about the kernels.  With
+    ``record`` the card's run appends, per call, which side each value took;
+    otherwise the CPU's run takes those sides, in call order."""
+    from fft_tpu_torch.layers import spectre
+    plain = spectre.modrelu
+
+    def modrelu(z, bias, eps=1e-4):
+        mag = z.abs()
+        if record:
+            sides.append((mag + bias > 0).detach().cpu())
+            return plain(z, bias, eps)
+        keep = sides.pop(0)
+        mag_stable = torch.sqrt(mag * mag + eps * eps)
+        return z * (torch.where(keep, mag + bias, 0.0) / mag_stable)
+
+    spectre.modrelu = modrelu
+    try:
+        yield
+    finally:
+        spectre.modrelu = plain
+
+
+def phase_train(cfg, dev) -> None:
+    """Gradient parity with the CPU, 5 steps at the CLI's batch, the CLI."""
+    from fft_tpu_torch import cli
+    from fft_tpu_torch.models.lm import lm_hidden, lm_init
+    from fft_tpu_torch.train import TrainConfig, train_init, train_step
+    from fft_tpu_torch.train.data import CharDataset
+
+    data = CharDataset()                      # the synthetic corpus
+    seq = cfg.max_seq
+
+    def state_on(device):
+        model = lm_init(cfg, torch.Generator().manual_seed(SEED), device)
+        return train_init(model, TrainConfig(), seed=SEED + 1)
+
+    batch = next(data.batches(2, seq, seed=SEED))
+    gpu, cpu = state_on(dev), state_on("cpu")
+    sides = []
+    with same_modrelu_side(True, sides):
+        got = train_step(gpu, batch)
+        torch.cuda.synchronize()
+    with same_modrelu_side(False, list(sides)):
+        want = train_step(cpu, batch)
+    # how many gate values the CPU's own forward puts on the other side
+    cpu_sides = []
+    with torch.no_grad(), same_modrelu_side(True, cpu_sides):
+        lm_hidden(cpu.model, torch.as_tensor(batch[:, :-1]).long())
+    flips = sum(int((a != b).sum()) for a, b in zip(sides, cpu_sides))
+    loss, ref_loss = float(got["loss"]), float(want["loss"])
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    grad_errs = {}
+    for (name, pg), (_, pc) in zip(gpu.model.named_parameters(),
+                                   cpu.model.named_parameters()):
+        if pc.grad is None or pg.grad is None:   # the unused wavelet MLP
+            if pc.grad is not pg.grad:
+                raise AssertionError(f"train: {name} has a gradient on one "
+                                     "device only")
+            continue
+        grad_errs[name] = rel_err(pg.grad, pc.grad)
+    worst = max(grad_errs, key=grad_errs.get)
+    if not (math.isfinite(loss) and loss_err <= REL_MODEL
+            and grad_errs[worst] <= REL_MODEL):
+        raise AssertionError(f"train: loss rel_err {loss_err}, worst "
+                             f"gradient {worst} rel_err {grad_errs[worst]} "
+                             f"(limit {REL_MODEL})")
+    emit(phase="train_parity", batch=2, seq=seq, loss=loss,
+         cpu_loss=ref_loss, loss_rel_err=loss_err,
+         max_grad_rel_err=grad_errs[worst], worst_grad=worst,
+         tensors=len(grad_errs), modrelu_sides_aligned=flips)
+    del gpu, cpu, got, want
+
+    state = state_on(dev)
+    batches = data.batches(8, seq, seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, norms = [], [], []
+    for _ in range(5):
+        batch = next(batches)
+        t0 = time.perf_counter()
+        m = train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"train: non-finite loss {losses} or grad_norm "
+                             f"{norms}")
+    ms = statistics.median(step_ms[1:])       # the first builds cuFFT plans
+    emit(phase="train_steps", batch=8, seq=seq, step_ms=step_ms,
+         median_step_ms=ms, tokens_per_s=8 * seq / (ms / 1e3), loss=losses,
+         grad_norm=norms, peak_memory_bytes=peak)
+    del state
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["train-lm", "--device", "cuda", "--steps", "3"])
+    recs = [json.loads(line) for line in buf.getvalue().splitlines()
+            if line.startswith("{")]
+    if not recs or not all(math.isfinite(r["loss"]) for r in recs):
+        raise AssertionError(f"cli train-lm printed {buf.getvalue()!r}")
+    emit(phase="cli_train_lm", steps=3, lines=recs)
 
 
 def main() -> int:
@@ -240,19 +394,33 @@ def main() -> int:
     emit(phase="cli_generate", prompt="the ", steps=steps, chars=len(text))
 
     # 5. launches ------------------------------------------------------------
-    launches = dict(kc.LAUNCHES)
-    emit(phase="launches", **launches)
-    missing = [k for k, n in launches.items() if n == 0]
+    serve_launches = dict(kc.LAUNCHES)
+    emit(phase="launches", **serve_launches)
+    missing = [k for k in SERVE_KERNELS if serve_launches[k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
+        raise AssertionError(f"kernels never launched on the serving path: "
+                             f"{missing}")
+
+    # 6. train ---------------------------------------------------------------
+    kc.reset_launches()                       # the training path starts here
+    phase_train(cfg, dev)
+    train_launches = dict(kc.LAUNCHES)
+    emit(phase="train_launches", **train_launches)
+    missing = [k for k in TRAIN_KERNELS if train_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the training path: "
                              f"{missing}")
 
     summary = []
     for name, cases in kernel_results.items():
-        main_case = cases[-1] if name == "fused_causal_mix" else cases[0]
+        main_case = (cases[-1] if name.startswith("fused_causal_mix")
+                     else cases[0])
         summary.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=launches[name],
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=REPLACES[name],
+            launches=serve_launches[name] + train_launches[name],
+            launches_by_path=dict(serve=serve_launches[name],
+                                  train=train_launches[name]),
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             shape=main_case["shape"], cases=cases))

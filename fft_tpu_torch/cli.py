@@ -1,40 +1,114 @@
-"""Command-line entry point (mirror of ``fft_tpu/cli.py``, ``generate``
-only).
+"""Command-line entry point (mirror of ``fft_tpu/cli.py``: ``train-lm`` and
+``generate``).
 
 Usage:
+    python -m fft_tpu_torch.cli train-lm [--preset tiny] [--steps N]
+        [--batch B] [--seq L] [--lr LR] [--data FILE] [--metrics FILE]
+        [--log-every N] [--eval-every N] [--seed S] [--device cpu|cuda]
     python -m fft_tpu_torch.cli generate [--preset tiny] [--seq L]
         [--prompt TEXT] [--steps N] [--temperature T] [--seed S]
         [--device cpu|cuda]
 
-Random weights from ``--seed``; byte-level tokens (vocab 256).
+Random weights from ``--seed``; byte-level tokens (vocab 256).  Training
+runs on a text file, or on the synthetic corpus when no ``--data`` is given.
+Flags of the JAX CLI whose modules are still queued raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import argparse
+import pathlib
 import sys
 
 import numpy as np
 import torch
 
 
-def _not_ported(flag: str) -> NotImplementedError:
+# ROADMAP.md items ('Modules to port') of the flags not ported yet
+_CKPT = "module 7, checkpoint, CLI and parallel/"
+_PARALLEL = "module 7, DP/TP/SP/PP on torch.distributed"
+_BPE = "module 7, BPE vocab and the tokenize command"
+_BF16 = "bf16 fast mode"
+_350M = "module 5, the 350M model"
+
+
+def _not_ported(flag: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{flag} is not ported to fft_tpu_torch yet (see ROADMAP.md, "
-        "'Modules to port': checkpoint/CLI, BPE vocab, bf16 fast mode, "
-        "350M model)")
+        f"'Modules to port': {item})")
+
+
+def cmd_train_lm(args) -> None:
+    from fft_tpu_torch.models.lm import lm_init, tiny_lm_config
+    from fft_tpu_torch.train import TrainConfig, lm_loss, train_init, \
+        train_step
+    from fft_tpu_torch.train.data import CharDataset
+    from fft_tpu_torch.utils import MetricsLogger
+
+    if args.preset != "tiny":
+        raise _not_ported(f"--preset {args.preset}", _350M)
+    for flag, value, item in (
+            ("--ckpt", args.ckpt, _CKPT), ("--resume", args.resume, _CKPT),
+            ("--bf16", args.bf16, _BF16),
+            ("--profile", args.profile, "module 7, utils/prof.py"),
+            ("--dp", args.dp > 1, _PARALLEL), ("--sp", args.sp > 1, _PARALLEL),
+            ("--tp", args.tp > 1, _PARALLEL), ("--pp", args.pp > 1, _PARALLEL),
+            ("--vocab-size past 256",
+             args.vocab_size is not None and args.vocab_size > 256, _BPE)):
+        if value:
+            raise _not_ported(flag, item)
+    if args.data is not None and (
+            args.data.endswith(".tokens")
+            or pathlib.Path(args.data + ".vocab.json").exists()):
+        raise _not_ported("a .tokens BPE corpus", _BPE)
+
+    device = torch.device(args.device)
+    vocab = {"vocab_size": args.vocab_size} if args.vocab_size else {}
+    cfg = tiny_lm_config(seq=args.seq, **vocab)
+    model = lm_init(cfg, torch.Generator().manual_seed(args.seed), device)
+    tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps)
+    state = train_init(model, tcfg, seed=args.seed + 1)
+
+    data = CharDataset(path=args.data)
+    batches = data.batches(args.batch, args.seq, seed=args.seed)
+    eval_batches = None
+    if args.eval_every:
+        # a separately seeded held-out stream, as the JAX CLI
+        eval_batches = data.batches(args.batch, args.seq,
+                                    seed=args.seed + 7919)
+    logger = MetricsLogger(args.metrics, print_every=args.log_every)
+    tokens_per_step = args.batch * args.seq
+    try:
+        for i, batch in zip(range(args.steps), batches):
+            metrics = train_step(state, batch)
+            if i % args.log_every == 0 or i == args.steps - 1:
+                rec = {"loss": metrics["loss"],
+                       "grad_norm": metrics["grad_norm"]}
+                if eval_batches is not None and i % args.eval_every == 0:
+                    model.eval()
+                    with torch.no_grad():
+                        ce = float(lm_loss(model, torch.as_tensor(
+                            next(eval_batches)).to(device, torch.int64)))
+                    model.train()
+                    rec["eval_loss"] = ce
+                    rec["eval_ppl"] = float(np.exp(min(ce, 20.0)))
+                logger.log(i, rec, tokens=tokens_per_step)
+    finally:
+        logger.close()
 
 
 def cmd_generate(args) -> None:
     from fft_tpu_torch.models.lm import lm_generate, lm_init, tiny_lm_config
 
     if args.preset != "tiny":
-        raise _not_ported(f"--preset {args.preset}")
-    for flag, value in (("--ckpt", args.ckpt), ("--vocab", args.vocab),
-                        ("--vocab-size", args.vocab_size),
-                        ("--bf16", args.bf16)):
+        raise _not_ported(f"--preset {args.preset}", _350M)
+    for flag, value, item in (("--ckpt", args.ckpt, _CKPT),
+                              ("--vocab", args.vocab, _BPE),
+                              ("--vocab-size", args.vocab_size, _BPE),
+                              ("--bf16", args.bf16, _BF16)):
         if value:
-            raise _not_ported(flag)
+            raise _not_ported(flag, item)
     device = torch.device(args.device)
     cfg = tiny_lm_config(seq=args.seq)
     model = lm_init(cfg, torch.Generator().manual_seed(args.seed), device)
@@ -52,6 +126,33 @@ def cmd_generate(args) -> None:
 def main(argv=None):
     p = argparse.ArgumentParser(prog="fft_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    lm = sub.add_parser("train-lm")
+    lm.add_argument("--preset", default="tiny", choices=["tiny", "350m"])
+    lm.add_argument("--steps", type=int, default=1000)
+    lm.add_argument("--batch", type=int, default=8)
+    lm.add_argument("--seq", type=int, default=2048)
+    lm.add_argument("--lr", type=float, default=3e-4)
+    lm.add_argument("--data", default=None, help="UTF-8 text corpus")
+    lm.add_argument("--vocab-size", type=int, default=None,
+                    help="override the preset's vocab size (at most 256)")
+    lm.add_argument("--ckpt", default=None)
+    lm.add_argument("--resume", action="store_true")
+    lm.add_argument("--bf16", action="store_true")
+    lm.add_argument("--metrics", default=None, help="JSONL metrics file")
+    lm.add_argument("--log-every", type=int, default=10)
+    lm.add_argument("--eval-every", type=int, default=0,
+                    help="held-out loss/perplexity every N steps")
+    lm.add_argument("--profile", default=None)
+    lm.add_argument("--dp", type=int, default=1)
+    lm.add_argument("--sp", type=int, default=1)
+    lm.add_argument("--tp", type=int, default=1)
+    lm.add_argument("--pp", type=int, default=1)
+    lm.add_argument("--seed", type=int, default=0)
+    lm.add_argument("--device", default="cpu",
+                    help="torch device, e.g. cpu or cuda")
+    lm.set_defaults(fn=cmd_train_lm)
+
     gen = sub.add_parser("generate")
     gen.add_argument("--preset", default="tiny", choices=["tiny", "350m"])
     gen.add_argument("--seq", type=int, default=2048)

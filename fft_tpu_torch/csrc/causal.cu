@@ -1,5 +1,5 @@
 // Segmented causal spectral mix on Hopper: the three kernels of the causal
-// LM's serving path, as a plain C interface loaded with ctypes
+// LM's forward, as a plain C interface loaded with ctypes
 // (fft_tpu_torch/kernels/build.py builds this file with nvcc for sm_90a).
 //
 // Replaces, from fft_tpu/kernels/pallas_causal.py:
@@ -7,57 +7,19 @@
 //   fused_causal_mix <- _fused_causal_call    (:592, pallas_call :707)
 //   kf_spectra       <- _kf_spectra_call      (:1428, pallas_call :1482)
 //
-// All three are direct DFTs in fp32 against twiddle tables that the host
-// builds in float64 and rounds once to fp32 (no __sinf/__cosf, no fast
-// math).  A thread walks the exponent index m = (k * t) mod n by adding t
-// after every k, so a twiddle is one shared-memory read and the index math
-// is exact.  The TPU kernels' one-hot selector matmuls are index arithmetic
-// here: channel ch reads gate group ch / (d / cols), lane l = c * cols + g.
+// Direct DFTs against host twiddle tables (causal_common.cuh).  The TPU
+// kernels' one-hot selector matmuls are index arithmetic here: channel ch
+// reads gate group ch / (d / cols), lane l = c * cols + g.
 //
-// Block shape: 32 lanes (channels or gate lanes, the contiguous axis, so
-// every global access of a warp is one 128-byte row) x 8 rows.  Each thread
-// owns kPer outputs of one lane.  What bounds them on the H100: the inner
-// loops do one broadcast shared-memory read per two FMAs, so they run at
-// the shared-memory instruction throughput, well below the fp32 FMA peak;
-// the direct DFTs also do O(n) work per output where an FFT does
-// O(log n).  A later change moves the DFTs onto staged radix passes or
-// tensor-core matmuls.
+// What bounds them on the H100: the inner loops do one broadcast
+// shared-memory read per two FMAs, so they run at the shared-memory
+// instruction throughput, well below the fp32 FMA peak; the direct DFTs
+// also do O(n) work per output where an FFT does O(log n).  A later change
+// moves the DFTs onto staged radix passes or tensor-core matmuls.
 
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "causal_common.cuh"
 
 namespace {
-
-constexpr int kLanes = 32;               // contiguous lanes per block
-constexpr int kRows = 8;                 // thread rows per block
-constexpr int kThreads = kLanes * kRows;
-constexpr int kPer = 17;                 // outputs per thread per tile
-constexpr int kTile = kRows * kPer;      // 136 >= 129 bins of chunk 128
-constexpr int kSegT = 64;                // time rows staged per pass
-constexpr int kFreqT = 64;               // gate bins staged per pass
-
-// Kernel-segment spectra K[b, c, j, f, g] (chunk c, lag j) in the two
-// layouts the TPU kernels take.
-struct ChunkMajorK {   // (B, nc_c, nc_j, F2, cols): banded_inverse
-  const float* re;
-  const float* im;
-  int nc, f2, cols;
-  __device__ __forceinline__ size_t at(int b, int c, int j, int f,
-                                       int g) const {
-    return ((((size_t)b * nc + c) * nc + j) * f2 + f) * cols + g;
-  }
-};
-
-struct ProducerK {     // (B, nc_j, F2, nc_c * cols): fused_causal_mix
-  const float* re;
-  const float* im;
-  int nc, f2, cols;
-  __device__ __forceinline__ size_t at(int b, int c, int j, int f,
-                                       int g) const {
-    return (((size_t)b * nc + j) * f2 + f) * ((size_t)nc * cols) +
-           (size_t)c * cols + g;
-  }
-};
 
 // Banded causal sum and partial inverse of one output chunk:
 //   acc[f]  = sum_{j <= c} K[c, j, f, g(ch)] * V[c - j, f, ch]
@@ -127,69 +89,6 @@ banded_inverse_kernel(const float* __restrict__ vfr,
       const int t = t0 + ty + kRows * i;
       if (t < chunk)
         out[(((size_t)b * nc + c) * chunk + t) * d + ch] = y[i] * scale;
-    }
-  }
-}
-
-// Segment spectra V[s] = rfft_2C([v_{s-1} | v_s]) (v_{-1} = 0) of raw
-// values v (B, N, d) into planes (B, nc, F2, d).  grid = (d / 32, nc, B).
-// Segment s is the contiguous window of rows (s-1)C .. (s+1)C-1 of v.
-__global__ void __launch_bounds__(kThreads)
-segment_rfft_kernel(const float* __restrict__ v, float* __restrict__ vfr,
-                    float* __restrict__ vfi, const float2* __restrict__ tw,
-                    int nc, int chunk, int d) {
-  extern __shared__ float smem[];
-  const int n2 = 2 * chunk;
-  const int f2 = chunk + 1;
-  const long n = (long)nc * chunk;
-  float2* tws = reinterpret_cast<float2*>(smem);
-  float* xs = smem + 2 * n2;                  // (kSegT, 32) staged rows
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int ch = blockIdx.x * kLanes + tx;
-  const int s = blockIdx.y, b = blockIdx.z;
-  const long row0 = (long)(s - 1) * chunk;
-
-  for (int i = ty * kLanes + tx; i < n2; i += kThreads) tws[i] = tw[i];
-  for (int f0 = 0; f0 < f2; f0 += kTile) {
-    float xr[kPer], xi[kPer];
-    int idx[kPer], fr[kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int f = f0 + ty + kRows * i;
-      xr[i] = 0.f;
-      xi[i] = 0.f;
-      idx[i] = 0;
-      fr[i] = f < f2 ? f : 0;
-    }
-    for (int t0 = 0; t0 < n2; t0 += kSegT) {
-      __syncthreads();
-      for (int r = ty; r < kSegT; r += kRows) {
-        const long tr = row0 + t0 + r;
-        xs[r * kLanes + tx] = (t0 + r < n2 && tr >= 0 && tr < n)
-                                  ? v[((size_t)b * n + tr) * d + ch]
-                                  : 0.f;
-      }
-      __syncthreads();
-      for (int r = 0; r < kSegT; ++r) {
-        const float x = xs[r * kLanes + tx];
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) {
-          const float2 w = tws[idx[i]];       // exp(+i 2 pi f t / 2C)
-          xr[i] = fmaf(x, w.x, xr[i]);
-          xi[i] = fmaf(-x, w.y, xi[i]);
-          idx[i] += fr[i];
-          if (idx[i] >= n2) idx[i] -= n2;
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int f = f0 + ty + kRows * i;
-      if (f < f2) {
-        const size_t o = (((size_t)b * nc + s) * f2 + f) * d + ch;
-        vfr[o] = xr[i];
-        vfi[o] = xi[i];
-      }
     }
   }
 }
@@ -306,13 +205,8 @@ kf_spectra_kernel(const float* __restrict__ gr, const float* __restrict__ gi,
   }
 }
 
-// Dynamic shared memory of each kernel, in bytes.  kernels/causal.py
+// Dynamic shared memory of the other kernels, in bytes.  kernels/causal.py
 // holds the same formulas for its predicates (a block may use 227 KB).
-size_t segment_smem(int chunk) {
-  return (size_t)(2 * chunk) * sizeof(float2) +
-         (size_t)kSegT * kLanes * sizeof(float);
-}
-
 size_t kf_smem(int n_fft, int chunk) {
   return (size_t)(n_fft + 2 * chunk) * sizeof(float2) +
          (size_t)(2 * kFreqT + chunk) * kLanes * sizeof(float);
@@ -359,16 +253,9 @@ int fft_fused_causal_mix(const float* v, const float* kfr, const float* kfi,
                          int b, int nc, int chunk, int d, int cols,
                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = segment_smem(chunk);
-  cudaError_t err = cudaFuncSetAttribute(
-      segment_rfft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(d / kLanes, nc, b), block(kLanes, kRows);
-  segment_rfft_kernel<<<grid, block, smem, st>>>(
-      v, vfr, vfi, reinterpret_cast<const float2*>(tw), nc, chunk, d);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int err = launch_segment_rfft<false>(v, vfr, vfi, tw, b, nc, chunk,
+                                             d, st);
+  if (err != 0) return err;
   const ProducerK k{kfr, kfi, nc, chunk + 1, cols};
   return launch_banded(vfr, vfi, k, tw, out, b, nc, chunk, d, st);
 }

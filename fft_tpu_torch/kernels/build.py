@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` are compiled at first use with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface under ``fft_tpu_torch/build/``
-(listed in ``.gitignore``), then loaded with ``ctypes``.  The library's name
+``csrc/*.cu`` are compiled at first use with ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, then linked into one shared
+library with a plain C interface under ``fft_tpu_torch/build/`` (listed in
+``.gitignore``) and loaded with ``ctypes``.  The library's name
 carries a hash of the sources and flags, so an edited source is rebuilt and
 an unchanged one is loaded as it is.  Nothing here runs at import time.
 """
@@ -24,7 +25,7 @@ BUILD_DIR = PKG_DIR / "build"
 # No --use_fast_math: __sinf/__cosf-class shortcuts break the 1e-5 parity
 # budget.  -Xptxas -v reports registers, shared memory and spills per kernel.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +34,7 @@ _SIGNATURES = {
     "fft_banded_inverse": ([_P] * 6 + [_I] * 5 + [_P], _I),
     "fft_fused_causal_mix": ([_P] * 7 + [_I] * 5 + [_P], _I),
     "fft_kf_spectra": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    "fft_fused_causal_mix_bwd": ([_P] * 12 + [_I] * 5 + [_P], _I),
 }
 
 _LIB = None
@@ -65,6 +67,43 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libfft_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
+def _build(path: pathlib.Path) -> str:
+    """Compile every ``csrc/*.cu`` in parallel, link them into ``path``;
+    return nvcc's output.  Raises if any step fails."""
+    nvcc = _nvcc()
+    obj_dir = BUILD_DIR / f"obj.{os.getpid()}"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    try:
+        jobs = []
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            obj = obj_dir / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((src.name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = "", []
+        for name, _, proc in jobs:
+            out, _ = proc.communicate()
+            log += out
+            if proc.returncode != 0:
+                failed.append(f"{name} ({proc.returncode})")
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+             *(str(obj) for _, obj, _ in jobs)],
+            capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{log}")
+        os.replace(tmp, path)
+    finally:
+        shutil.rmtree(obj_dir, ignore_errors=True)
+    return log
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; cached per process."""
     global _LIB
@@ -74,15 +113,7 @@ def load_library() -> ctypes.CDLL:
     t0 = time.perf_counter()
     log = ""
     if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in CSRC_DIR.glob("*.cu")]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, path)
+        log = _build(path)
     lib = ctypes.CDLL(str(path))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -1,8 +1,8 @@
 """The segmented causal mix's kernels (counterpart of
 ``fft_tpu/kernels/pallas_causal.py``).
 
-Three kernels, written by hand in CUDA C++ for Hopper (``csrc/causal.cu``),
-each beside its plain PyTorch version:
+Four kernels, written by hand in CUDA C++ for Hopper (``csrc/causal.cu``,
+``csrc/causal_bwd.cu``), each beside its plain PyTorch version:
 
 - ``banded_inverse``   replaces ``_banded_inverse_call`` (pallas_causal.py
   :167): banded causal sum + partial irFFT over precomputed spectra.
@@ -10,11 +10,21 @@ each beside its plain PyTorch version:
   rFFTs of the raw values, then the same banded sum + partial irFFT.
 - ``kf_spectra``       replaces ``_kf_spectra_call`` (:1428): gate ->
   per-segment 2C spectra of the length-N gate kernels.
+- ``fused_causal_mix_bwd`` replaces ``_fused_causal_bwd_call`` (:1921):
+  the exact adjoint of ``fused_causal_mix``.
 
 Each public function takes fp32 tensors.  A tensor on the CPU goes to the
 plain version (``*_ref``); a tensor on a CUDA device goes to the kernel, or
 the call raises.  Nothing falls back.  Every kernel launch adds one to
 ``LAUNCHES[name]``, so a run can show that it went through the kernels.
+
+``kf_spectra``, ``fused_causal_mix`` and ``banded_inverse`` are
+``torch.autograd.Function``s on both devices, with the residuals and
+backward of the JAX package's ``custom_vjp``s: ``fused_causal_mix``'s
+backward is ``fused_causal_mix_bwd``; the other two take the VJP of their
+plain versions, as JAX does (pallas_causal.py:288-293, :1708-1714).  Inputs
+and outputs are real planes, so no complex cotangent (whose convention
+differs between JAX and torch) crosses a Function.
 
 What bounds the kernels on the H100, and the design's answer: all three
 are direct DFTs against shared-memory twiddle tables, bounded by the
@@ -37,7 +47,8 @@ import torch
 from fft_tpu_torch.kernels.build import load_library
 from fft_tpu_torch.ops import fftops
 
-LAUNCHES = {"kf_spectra": 0, "fused_causal_mix": 0, "banded_inverse": 0}
+LAUNCHES = {"kf_spectra": 0, "fused_causal_mix": 0, "banded_inverse": 0,
+            "fused_causal_mix_bwd": 0}
 
 # Shapes of the CUDA blocks (csrc/causal.cu: kLanes, kSegT, kFreqT) and the
 # dynamic shared memory a Hopper block may use.
@@ -120,13 +131,22 @@ def banded_supported(nc: int, f2: int, d: int, cols: int) -> bool:
             and _banded_smem(chunk) <= _SMEM_MAX)
 
 
+def _adjoint_smem(chunk: int) -> int:
+    return 2 * chunk * 8 + 4 * _FREQ_T * _LANES * 4
+
+
 def fused_mix_supported(nc: int, chunk: int, d: int, cols: int) -> bool:
-    """fused_causal_mix: banded_inverse's bounds for its second launch.
-    The floor of 128 is not the kernel's: it keeps the prompt-length
-    dispatch the one the reference picks (prompts shorter than one chunk
-    go to banded_inverse)."""
+    """fused_causal_mix and its backward: banded_inverse's bounds for the
+    second launch, and gate groups that the backward's warp reduction
+    covers (a group's d_g channels divide 32 lanes or are whole 32-lane
+    tiles).  The floor of 128 is not the kernels': it keeps the prompt-
+    length dispatch the one the reference picks (prompts shorter than one
+    chunk go to banded_inverse)."""
+    d_g = d // cols if cols else 0
     return (chunk >= 128 and banded_supported(nc, chunk + 1, d, cols)
-            and _segment_smem(chunk) <= _SMEM_MAX)
+            and d_g >= 1 and (_LANES % d_g == 0 or d_g % _LANES == 0)
+            and _segment_smem(chunk) <= _SMEM_MAX
+            and _adjoint_smem(chunk) <= _SMEM_MAX)
 
 
 def kf_spectra_supported(n_fft: int, chunk: int, lanes: int) -> bool:
@@ -188,6 +208,49 @@ def kf_spectra_ref(g_r, g_i, n_fft: int, chunk: int):
     return kf.real, kf.imag
 
 
+def fused_causal_mix_bwd_ref(v, kfr, kfi, ybar, chunk: int, cols: int):
+    """(vbar, kfr_bar, kfi_bar), the adjoint of fused_causal_mix in the
+    primal layouts: the port of ``_fused_causal_bwd`` (pallas_causal.py
+    :1096-1182), with torch.fft and index arithmetic in place of the one-hot
+    group maps.  With A = R + iI the cotangent of each chunk's banded sum:
+    Kbar[dl] = group-sum(A_c conj(V_{c-dl})), Vbar_j = sum_c conj(K[c-j])
+    A_c, then the adjoint of the segment rFFT and the overlap-add."""
+    b, n, d = v.shape
+    nc = n // chunk
+    f2 = chunk + 1
+    d_g = d // cols
+    vf = segment_spectra(v, chunk)                    # (B, nc, F2, d)
+    ar, ai = (torch.from_numpy(m).to(v.device) for m in _inv_rows_np(chunk))
+    yb = ybar.float().reshape(b, nc, chunk, d)
+    acc = torch.complex(torch.einsum("tf,bctd->bcfd", ar, yb),
+                        torch.einsum("tf,bctd->bcfd", ai, yb))
+    kf = torch.complex(kfr, kfi).reshape(b, nc, f2, nc, cols)  # (B,dl,F2,c,G)
+
+    kbar = torch.zeros_like(kf)
+    vbar_f = torch.zeros_like(vf)
+    for dl in range(nc):
+        # Kbar[dl][c] for c >= dl, summed over each group's channels
+        prod = acc[:, dl:] * vf[:, :nc - dl].conj()   # (B, nc-dl, F2, d)
+        kbar[:, dl, :, dl:] = prod.reshape(
+            b, nc - dl, f2, cols, d_g).sum(-1).transpose(1, 2)
+        # Vbar_j += conj(K[dl][c = j + dl]) * A_{j + dl}
+        k_sel = kf[:, dl, :, dl:].transpose(1, 2)     # (B, nc-dl, F2, G)
+        vbar_f[:, :nc - dl] += (k_sel.conj().repeat_interleave(d_g, dim=-1)
+                                * acc[:, dl:])
+    kbar = kbar.reshape(kfr.shape)
+
+    # adjoint of rfft_2C = 2C * irfft(w * Z), w = 1 at DC and Nyquist, 1/2
+    # elsewhere (pallas_causal.py:1083-1093); then the overlap-add
+    w = torch.full((f2, 1), 0.5, device=v.device)
+    w[0] = 1.0
+    w[-1] = 1.0
+    segbar = 2 * chunk * fftops.irfft(vbar_f * w, 2 * chunk, dim=-2)
+    vbar = segbar[:, :, chunk:].clone()
+    vbar[:, :-1] += segbar[:, 1:, :chunk]
+    return vbar.reshape(b, n, d), kbar.real.contiguous(), \
+        kbar.imag.contiguous()
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -223,7 +286,7 @@ def _launch(name: str, device: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def banded_inverse(vfr, vfi, kfr, kfi, chunk: int) -> torch.Tensor:
+def _banded_inverse(vfr, vfi, kfr, kfi, chunk: int) -> torch.Tensor:
     """y (B, nc, C, d) = partial_irfft(sum_j K[c, j] (.) V[c - j]).
 
     vfr/vfi: (B, nc, F2, d) segment spectra; kfr/kfi: (B, nc_c, nc_j, F2,
@@ -255,7 +318,7 @@ def banded_inverse(vfr, vfi, kfr, kfi, chunk: int) -> torch.Tensor:
     return out
 
 
-def fused_causal_mix(v, kfr, kfi, chunk: int, cols: int) -> torch.Tensor:
+def _fused_causal_mix(v, kfr, kfi, chunk: int, cols: int) -> torch.Tensor:
     """y (B, N, d): segmented causal mix of raw values v against kernel-
     segment spectra kfr/kfi in the producer layout (B, nc_j, F2,
     nc_c*cols), lane l = c*cols + g.
@@ -287,7 +350,7 @@ def fused_causal_mix(v, kfr, kfi, chunk: int, cols: int) -> torch.Tensor:
     return out
 
 
-def kf_spectra(g_r, g_i, n_fft: int, chunk: int):
+def _kf_spectra(g_r, g_i, n_fft: int, chunk: int):
     """(kfr, kfi) (B, nc, F2, L): per-segment 2C-spectra of the length-
     n_fft gate kernels, lanes in the producer layout l = c*cols + g.
 
@@ -317,3 +380,118 @@ def kf_spectra(g_r, g_i, n_fft: int, chunk: int):
             g_r.data_ptr(), g_i.data_ptr(), twn.data_ptr(), tw2.data_ptr(),
             kfr.data_ptr(), kfi.data_ptr(), b, n_fft, chunk, lanes)
     return kfr, kfi
+
+
+def fused_causal_mix_bwd(v, kfr, kfi, ybar, chunk: int, cols: int):
+    """(vbar (B, N, d), kfr_bar, kfi_bar in K's producer layout): the
+    adjoint of ``fused_causal_mix`` at (v, kfr, kfi) for the cotangent
+    ``ybar`` (B, N, d).  K is per batch element: no sum over B.
+
+    Replaces ``_fused_causal_bwd_call`` (pallas_causal.py:1921).  Five
+    launches on the current stream (``csrc/causal_bwd.cu``): segment
+    spectra of v, the adjoint partial irFFT of ybar, Kbar with each gate
+    group reduced by warp shuffles (deterministic, no atomics), Vbar, and
+    the adjoint segment rFFT with the overlap-add.  The four (B, nc, F2, d)
+    spectra go through HBM scratch between launches."""
+    if _on_cpu(v, kfr, kfi, ybar):
+        return fused_causal_mix_bwd_ref(v, kfr, kfi, ybar, chunk, cols)
+    b, n, d = v.shape
+    nc = n // chunk
+    f2 = chunk + 1
+    if nc * chunk != n or not fused_mix_supported(nc, chunk, d, cols):
+        raise ValueError(f"fused_causal_mix_bwd: unsupported shape n={n} "
+                         f"chunk={chunk} d={d} cols={cols}")
+    _check("v", v, (b, n, d))
+    _check("kfr", kfr, (b, nc, f2, nc * cols))
+    _check("kfi", kfi, (b, nc, f2, nc * cols))
+    _check("ybar", ybar, (b, n, d))
+    tw = _twiddles(2 * chunk, v.device)
+    scratch = [torch.empty((b, nc, f2, d), dtype=torch.float32,
+                           device=v.device) for _ in range(4)]
+    vbar = torch.empty_like(v)
+    kbr = torch.empty_like(kfr)
+    kbi = torch.empty_like(kfi)
+    _launch("fused_causal_mix_bwd", v.device,
+            v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), ybar.data_ptr(),
+            tw.data_ptr(), *(t.data_ptr() for t in scratch),
+            vbar.data_ptr(), kbr.data_ptr(), kbi.data_ptr(), b, nc, chunk,
+            d, cols)
+    return vbar, kbr, kbi
+
+
+# ---------------------------------------------------------------------------
+# Autograd: the JAX package's custom_vjps (pallas_causal.py:272-296,
+# :1185-1223, :1692-1717) as torch.autograd.Functions
+# ---------------------------------------------------------------------------
+
+def _vjp_of(fn, primals, cotangents):
+    """VJP of a plain version: rerun it on detached inputs under grad mode
+    and pull the cotangents back (what jax.vjp of the jnp reference does)."""
+    with torch.enable_grad():
+        xs = [p.detach().requires_grad_() for p in primals]
+        outs = fn(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        return torch.autograd.grad(outs, xs, cotangents)
+
+
+class _BandedInverse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, vfr, vfi, kfr, kfi, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(vfr, vfi, kfr, kfi)
+        return _banded_inverse(vfr, vfi, kfr, kfi, chunk)
+
+    @staticmethod
+    def backward(ctx, ybar):
+        grads = _vjp_of(
+            lambda *a: banded_inverse_ref(*a, ctx.chunk), ctx.saved_tensors,
+            (ybar,))
+        return (*grads, None)
+
+
+class _FusedCausalMix(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v, kfr, kfi, chunk, cols):
+        ctx.chunk, ctx.cols = chunk, cols
+        ctx.save_for_backward(v, kfr, kfi)
+        return _fused_causal_mix(v, kfr, kfi, chunk, cols)
+
+    @staticmethod
+    def backward(ctx, ybar):
+        v, kfr, kfi = ctx.saved_tensors
+        vbar, kbr, kbi = fused_causal_mix_bwd(
+            v, kfr, kfi, ybar.contiguous(), ctx.chunk, ctx.cols)
+        return vbar, kbr, kbi, None, None
+
+
+class _KfSpectra(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g_r, g_i, n_fft, chunk):
+        ctx.n_fft, ctx.chunk = n_fft, chunk
+        ctx.save_for_backward(g_r, g_i)
+        return _kf_spectra(g_r, g_i, n_fft, chunk)
+
+    @staticmethod
+    def backward(ctx, kbr, kbi):
+        grads = _vjp_of(
+            lambda a, b: kf_spectra_ref(a, b, ctx.n_fft, ctx.chunk),
+            ctx.saved_tensors, (kbr, kbi))
+        return (*grads, None, None)
+
+
+def banded_inverse(vfr, vfi, kfr, kfi, chunk: int) -> torch.Tensor:
+    """y (B, nc, C, d) = partial_irfft(sum_j K[c, j] (.) V[c - j]),
+    differentiable; see ``_banded_inverse`` for the shapes and the kernel."""
+    return _BandedInverse.apply(vfr, vfi, kfr, kfi, chunk)
+
+
+def fused_causal_mix(v, kfr, kfi, chunk: int, cols: int) -> torch.Tensor:
+    """y (B, N, d), differentiable (backward: ``fused_causal_mix_bwd``); see
+    ``_fused_causal_mix`` for the shapes and the kernel."""
+    return _FusedCausalMix.apply(v, kfr, kfi, chunk, cols)
+
+
+def kf_spectra(g_r, g_i, n_fft: int, chunk: int):
+    """(kfr, kfi) (B, nc, F2, L), differentiable; see ``_kf_spectra`` for
+    the shapes and the kernel."""
+    return _KfSpectra.apply(g_r, g_i, n_fft, chunk)

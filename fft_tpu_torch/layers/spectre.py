@@ -4,8 +4,9 @@ Heads are stacked on a leading axis of their parameters (the JAX package
 ``vmap``s them) and run together as batched einsums.  Only what the causal
 block needs is ported: the gate, the chunk-causal gates with the mean
 pooler, the causal head with its 2N-FFT branch, the segmented multihead
-branch and the block with its additive spectral memory.  The forward is
-deterministic (eval); dropout, the wavelet branch, the non-causal mix, the
+branch and the block with its additive spectral memory.  Dropout on the
+mixed values is on under ``module.train()`` and draws its mask from an
+explicit ``torch.Generator``.  The wavelet branch, the non-causal mix, the
 DCT/attention poolers and Toeplitz gates are queued in ROADMAP.md and raise
 ``NotImplementedError``.
 """
@@ -87,6 +88,20 @@ class SpectreHeads(nn.Module):
         self.modrelu_bias.fill_(-0.1)
 
 
+def dropout(y: torch.Tensor, p: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout as the JAX package writes it: keep each value with
+    probability 1 - p and scale the kept ones by 1 / (1 - p).  The mask
+    comes from ``generator`` (on y's device); the two frameworks' random
+    bits differ, so only the distribution matches JAX's."""
+    if generator is None:
+        raise ValueError("dropout in training mode draws from an explicit "
+                         "torch.Generator: pass generator=")
+    keep = 1.0 - p
+    mask = torch.rand(y.shape, generator=generator, device=y.device) < keep
+    return torch.where(mask, y / keep, torch.zeros_like(y))
+
+
 def _heads_linear(x: torch.Tensor, w: torch.Tensor,
                   b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-head linear: x (..., H, i), w (H, o, i) -> (..., H, o)."""
@@ -134,11 +149,15 @@ def spectre_head_apply_causal(
     causal_chunk: int = 128,
     causal_impl: str = "fft2n",
     memory_fft: Optional[torch.Tensor] = None,   # (F_half, H, hd) complex
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
 ):
     """Causal spectral gating of every head: chunk c's kernel irfft(gate_c)
     is applied as a linear convolution over the past, through 2N-point FFTs
     (or the segmented algorithm when the chunks tile N).  Requires
-    N <= n_fft.  Returns (mixed (B, N, H, hd), q_pool (B, H, hd))."""
+    N <= n_fft.  With ``deterministic`` false and dropout_p > 0 the mixed
+    values go through dropout drawn from ``generator`` (spectre.py:252-255).
+    Returns (mixed (B, N, H, hd), q_pool (B, H, hd))."""
     b, n, h, hd = x.shape
     if n > cfg.n_fft:
         raise ValueError(f"sequence {n} exceeds n_fft {cfg.n_fft}")
@@ -171,6 +190,8 @@ def spectre_head_apply_causal(
         y = y + fftops.irfft(memory_fft, cfg.n_fft, dim=0)[:n]
     q_pool = layernorm_apply(q.sum(dim=1) / cfg.n_fft, heads.q_norm_w,
                              heads.q_norm_b)
+    if not deterministic and cfg.dropout_p > 0.0:
+        y = dropout(y, cfg.dropout_p, generator)
     return y, q_pool
 
 
@@ -211,8 +232,10 @@ class SpectreMultiHead(nn.Module):
             fc.bias.copy_(b)
 
     def forward(self, x: torch.Tensor,
-                memory_fft: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x (B, N, d); memory_fft (F_half, d) complex or None."""
+                memory_fft: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x (B, N, d); memory_fft (F_half, d) complex or None.  In train
+        mode with dropout_p > 0, dropout masks come from ``generator``."""
         cfg = self.cfg
         hcfg = self.heads.cfg
         b, n, d = x.shape
@@ -233,12 +256,15 @@ class SpectreMultiHead(nn.Module):
             if memory_fft is not None:
                 mixed = mixed + fftops.irfft(memory_fft, cfg.n_fft,
                                              dim=0)[:n]
+            if self.training and cfg.dropout_p > 0.0:
+                mixed = dropout(mixed, cfg.dropout_p, generator)
             return self.out_proj(mixed)
         mem_h = (None if memory_fft is None
                  else memory_fft.reshape(cfg.f_half, h, hd))
         mixed, _ = spectre_head_apply_causal(
             self.heads, hcfg, xh, causal_chunk=cfg.causal_chunk,
-            causal_impl=cfg.causal_impl, memory_fft=mem_h)
+            causal_impl=cfg.causal_impl, memory_fft=mem_h,
+            generator=generator, deterministic=not self.training)
         return self.out_proj(mixed.reshape(b, n, d))
 
 
@@ -250,8 +276,9 @@ def spectre_multihead_init(cfg: SpectreConfig,
 
 
 def spectre_multihead_apply(mix: SpectreMultiHead, x: torch.Tensor, *,
-                            memory_fft: Optional[torch.Tensor] = None):
-    return mix(x, memory_fft=memory_fft)
+                            memory_fft: Optional[torch.Tensor] = None,
+                            generator: Optional[torch.Generator] = None):
+    return mix(x, memory_fft=memory_fft, generator=generator)
 
 
 class MLP(nn.Module):
@@ -309,8 +336,10 @@ class SpectreBlock(nn.Module):
             mem = torch.cat([mem, mem.new_zeros((pad, mem.shape[1]))])
         return mem
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.mix(self.ln1(x), memory_fft=self.memory_complex())
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = x + self.mix(self.ln1(x), memory_fft=self.memory_complex(),
+                         generator=generator)
         return x + self.mlp(self.ln2(x))
 
 
@@ -321,5 +350,7 @@ def spectre_block_init(cfg: SpectreConfig,
     return block
 
 
-def spectre_block_apply(block: SpectreBlock, x: torch.Tensor) -> torch.Tensor:
-    return block(x)
+def spectre_block_apply(block: SpectreBlock, x: torch.Tensor, *,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+    return block(x, generator=generator)

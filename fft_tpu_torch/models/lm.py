@@ -2,9 +2,10 @@
 
 Token + learned positional embeddings, a stack of causal SPECTRE blocks
 (a Python loop over a ``ModuleList`` where the JAX package scans stacked
-layers), final LayerNorm and a tied LM head.  Serving only: the forward,
+layers), final LayerNorm and a tied LM head.  Serving: the forward,
 batched prefill into per-layer decode caches, the O(F)-per-token decode
-step and generation.
+step and generation, all without autograd.  Training calls the
+differentiable ``lm_hidden`` and ``lm_head_matrix`` (``fft_tpu_torch.train``).
 """
 
 from __future__ import annotations
@@ -101,18 +102,25 @@ def lm_init(cfg: LMConfig, generator: torch.Generator,
     return model.to(device).eval()
 
 
-def lm_hidden(model: SpectreLM, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, N) -> final-LN hidden states (B, N, d)."""
+def lm_hidden(model: SpectreLM, tokens: torch.Tensor, *,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """tokens (B, N) -> final-LN hidden states (B, N, d); differentiable.
+    In train mode, dropout draws from ``generator``."""
     h = model.embed(tokens)
     for block in model.blocks:
-        h = block(h)
+        h = block(h, generator=generator)
     return model.ln_f(h)
+
+
+def lm_head_matrix(model: SpectreLM) -> torch.Tensor:
+    """(d, vocab): the tied LM head, tok_emb transposed."""
+    return model.tok_emb.T
 
 
 @torch.no_grad()
 def lm_apply(model: SpectreLM, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, N) -> logits (B, N, vocab)."""
-    return lm_hidden(model, tokens) @ model.tok_emb.T
+    return lm_hidden(model, tokens) @ lm_head_matrix(model)
 
 
 def lm_decode_init(model: SpectreLM, batch: int) -> List[PrefixFFTCache]:

@@ -1,0 +1,211 @@
+"""Training loop (mirror of ``fft_tpu/train/loop.py``): AdamW with global-
+norm clipping and a warmup-cosine schedule, written out as optax composes
+them, the chunked next-token loss, and the train step.
+
+Everything trains except the frozen spectral memory, which is a buffer of
+``SpectreBlock`` and so is outside the optimizer, as ``optax.masked`` keeps
+it in the JAX package.  Unlike ``torch.optim.AdamW`` the update follows
+optax to the formula: weight decay on every parameter (LayerNorms, biases
+and embeddings included), no epsilon added to the clipping norm, lr 0 at
+the first update.
+
+The JAX train step is a pure function of its state; here ``train_step``
+updates the model, the optimizer's moments and the step count in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Iterable, List, Optional
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from fft_tpu_torch.models.lm import SpectreLM, lm_head_matrix, lm_hidden
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.01
+    beta1: float = 0.9
+    beta2: float = 0.95
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    grad_clip: float = 1.0
+    min_lr_ratio: float = 0.1
+    # AdamW first-moment dtype; only None (fp32) is ported
+    mu_dtype: Optional[str] = None
+
+
+def make_schedule(tcfg: TrainConfig) -> Callable[[int], float]:
+    """``optax.warmup_cosine_decay_schedule(init_value=0.0, peak_value=lr,
+    warmup_steps, decay_steps=max(total_steps, warmup_steps + 1),
+    end_value=lr * min_lr_ratio)``: linear from 0 over the warmup (so the
+    first update, count 0, has lr 0), then cosine over decay_steps -
+    warmup_steps down to end_value."""
+    peak = tcfg.learning_rate
+    warmup = tcfg.warmup_steps
+    decay = max(tcfg.total_steps, warmup + 1) - warmup
+    end = peak * tcfg.min_lr_ratio
+    alpha = 0.0 if peak == 0.0 else end / peak
+
+    def schedule(count: int) -> float:
+        if count < warmup:
+            frac = 1.0 - max(count, 0) / warmup
+            return -peak * frac + peak
+        t = min(count - warmup, decay)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * t / decay))
+        return peak * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm), as
+    the norm of the per-tensor norms."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+class AdamW:
+    """``optax.chain(clip_by_global_norm(grad_clip), adamw(schedule, b1, b2,
+    eps=1e-8, weight_decay))`` over ``params``, fp32 moments:
+
+        g      = g                       if |g| < grad_clip
+                 g / |g| * grad_clip     otherwise
+        mu     = (1 - b1) g + b1 mu,  nu = (1 - b2) g^2 + b2 nu
+        u      = mu / (1 - b1^k) / (sqrt(nu / (1 - b2^k)) + eps) + wd p
+        p     += -lr(k - 1) u                                   (k = count)
+
+    Each line is one multi-tensor (``torch._foreach_*``) op over all
+    parameters: a per-parameter loop costs ~1300 launches a step at the
+    tiny LM, host-bound on the card.  The clip stays on the device (no
+    sync on the norm).
+    """
+
+    eps = 1e-8
+
+    def __init__(self, params: Iterable[torch.nn.Parameter],
+                 tcfg: TrainConfig):
+        if tcfg.mu_dtype is not None:
+            raise NotImplementedError(
+                f"mu_dtype={tcfg.mu_dtype!r} is not ported to fft_tpu_torch "
+                "yet: it is queued with the bf16 fast mode (see ROADMAP.md, "
+                "'Modules to port')")
+        self.tcfg = tcfg
+        self.schedule = make_schedule(tcfg)
+        self.params: List[torch.nn.Parameter] = list(params)
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, grads: List[Optional[torch.Tensor]]) -> torch.Tensor:
+        """One update from ``grads`` (in the order of ``params``; None is a
+        zero gradient, as JAX gives an unused leaf).  Returns the global
+        norm of the unclipped gradients."""
+        c = self.tcfg
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(self.params, grads)]
+        norm = global_norm(grads)
+        grads = torch._foreach_mul(grads, torch.where(
+            norm < c.grad_clip, 1.0, c.grad_clip / norm))
+        lr = self.schedule(self.count)
+        self.count += 1
+        bc1 = 1.0 - c.beta1 ** self.count
+        bc2 = 1.0 - c.beta2 ** self.count
+        torch._foreach_mul_(self.mu, c.beta1)
+        torch._foreach_add_(self.mu, grads, alpha=1.0 - c.beta1)
+        torch._foreach_mul_(self.nu, c.beta2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - c.beta2)
+        denom = torch._foreach_div(self.nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        u = torch._foreach_div(self.mu, bc1)
+        torch._foreach_div_(u, denom)
+        torch._foreach_add_(u, self.params, alpha=c.weight_decay)
+        torch._foreach_add_(self.params, u, alpha=-lr)
+        return norm
+
+
+def make_optimizer(tcfg: TrainConfig,
+                   params: Iterable[torch.nn.Parameter]) -> AdamW:
+    return AdamW(params, tcfg)
+
+
+def _chunk_ce(hc: torch.Tensor, head: torch.Tensor,
+              tc: torch.Tensor) -> torch.Tensor:
+    logits = (hc @ head).float()
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           tc.reshape(-1), reduction="sum")
+
+
+def chunked_softmax_ce(h: torch.Tensor, head: torch.Tensor,
+                       targets: torch.Tensor,
+                       logits_chunk: int = 2048) -> torch.Tensor:
+    """Mean next-token CE from hidden states (B, N, d), head (d, vocab) and
+    targets (B, N), without keeping the full (B, N, vocab) fp32 logits: the
+    head matmul + softmax runs in sequence chunks that backward recomputes
+    (``torch.utils.checkpoint``, as the JAX package's ``jax.checkpoint``)."""
+    n = h.shape[1]
+    chunk = min(logits_chunk, n)
+    if n % chunk:
+        chunk = n                        # one shot, as the JAX package
+    total = h.new_zeros((), dtype=torch.float32)
+    for i in range(n // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + checkpoint(_chunk_ce, h[:, sl], head, targets[:, sl],
+                                   use_reentrant=False)
+    return total / (targets.shape[0] * n)
+
+
+def lm_loss(model: SpectreLM, tokens: torch.Tensor, *,
+            generator: Optional[torch.Generator] = None,
+            logits_chunk: int = 2048) -> torch.Tensor:
+    """Next-token cross entropy; tokens (B, N+1) int64 -> scalar mean nats.
+    Dropout (train mode, dropout_p > 0) draws from ``generator``."""
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    h = lm_hidden(model, inputs, generator=generator)
+    return chunked_softmax_ce(h, lm_head_matrix(model), targets,
+                              logits_chunk)
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: SpectreLM
+    optimizer: AdamW
+    step: int
+    generator: torch.Generator       # dropout masks (JAX: the rng key)
+
+
+def train_init(model: SpectreLM, tcfg: TrainConfig,
+               seed: int = 0) -> TrainState:
+    """Put ``model`` in train mode and build its optimizer; the dropout
+    generator lives on the model's device, seeded with ``seed``."""
+    model.train()
+    device = model.tok_emb.device
+    generator = torch.Generator(device=device).manual_seed(seed)
+    return TrainState(model=model,
+                      optimizer=make_optimizer(tcfg, model.parameters()),
+                      step=0, generator=generator)
+
+
+def train_step(state: TrainState, batch) -> dict:
+    """One optimizer step on an LM batch (B, N+1) of token ids (numpy or
+    torch).  Returns {"loss", "grad_norm" (unclipped), "step"} as the JAX
+    train step's metrics; the parameter gradients stay in ``.grad``."""
+    model = state.model
+    tokens = torch.as_tensor(batch).to(model.tok_emb.device,
+                                       dtype=torch.int64)
+    for p in state.optimizer.params:
+        p.grad = None
+    loss = lm_loss(model, tokens, generator=state.generator)
+    loss.backward()
+    grad_norm = state.optimizer.step(
+        [p.grad for p in state.optimizer.params])
+    metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
+               "step": state.step}
+    state.step += 1
+    return metrics

@@ -87,6 +87,69 @@ def test_kf_spectra_kernel(dev):
         assert _rel(a, w.contiguous()) < TOL
 
 
+@pytest.mark.parametrize("nc,d,cols", [(8, 512, 32), (16, 512, 32),
+                                        (3, 256, 4), (2, 256, 64)])
+def test_fused_causal_mix_bwd_kernel(dev, nc, d, cols):
+    """The tiny LM's shapes (16-channel gate groups), and groups wider than
+    a warp (64 channels) and narrower (4 channels)."""
+    g = torch.Generator().manual_seed(100 + nc)
+    b, chunk = 2, 128
+    v = _randn(g, dev, b, nc * chunk, d)
+    kr = _randn(g, dev, b, nc, chunk + 1, nc * cols)
+    ki = _randn(g, dev, b, nc, chunk + 1, nc * cols)
+    ybar = _randn(g, dev, b, nc * chunk, d)
+    before = kc.LAUNCHES["fused_causal_mix_bwd"]
+    got = kc.fused_causal_mix_bwd(v, kr, ki, ybar, chunk, cols)
+    torch.cuda.synchronize()
+    assert kc.LAUNCHES["fused_causal_mix_bwd"] == before + 1
+    want = kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk, cols)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        assert _rel(a, w) < TOL
+
+
+def _grads_on(device, fn, inputs, weights):
+    xs = [x.to(device).requires_grad_() for x in inputs]
+    outs = fn(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    loss = sum((o * w.to(device)).sum() for o, w in zip(outs, weights))
+    loss.backward()
+    return [x.grad for x in xs]
+
+
+def test_backward_through_each_wrapper(dev):
+    """backward() through the three Functions on the card reaches a
+    gradient for every input, equal to the CPU's (plain versions)."""
+    g = torch.Generator().manual_seed(9)
+    b, nc, chunk, d, cols = 2, 4, 128, 256, 16
+    f2 = chunk + 1
+    cases = [
+        ("fused_causal_mix",
+         lambda v, kr, ki: kc.fused_causal_mix(v, kr, ki, chunk, cols),
+         [(b, nc * chunk, d), (b, nc, f2, nc * cols), (b, nc, f2, nc * cols)],
+         [(b, nc * chunk, d)]),
+        ("kf_spectra",
+         lambda gr, gi: kc.kf_spectra(gr, gi, nc * chunk, chunk),
+         [(b, nc * chunk // 2 + 1, 64)] * 2, [(b, nc, f2, 64)] * 2),
+        ("banded_inverse",
+         lambda *a: kc.banded_inverse(*a, chunk),
+         [(b, nc, f2, d)] * 2 + [(b, nc, nc, f2, cols)] * 2,
+         [(b, nc, chunk, d)]),
+    ]
+    for name, fn, in_shapes, out_shapes in cases:
+        inputs = [torch.randn(s, generator=g) for s in in_shapes]
+        weights = [torch.randn(s, generator=g) for s in out_shapes]
+        bwd_before = kc.LAUNCHES["fused_causal_mix_bwd"]
+        got = _grads_on(dev, fn, inputs, weights)
+        torch.cuda.synchronize()
+        if name == "fused_causal_mix":
+            assert kc.LAUNCHES["fused_causal_mix_bwd"] == bwd_before + 1
+        want = _grads_on("cpu", fn, inputs, weights)
+        for a, w in zip(got, want):
+            assert a is not None and a.device.type == "cuda", name
+            assert _rel(a.cpu(), w) < 1e-4, name
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     v = torch.zeros((1, 256, 64), dtype=torch.float64, device=dev)
     k = torch.zeros((1, 2, 129, 8), device=dev)
