@@ -1,6 +1,7 @@
 """Smoke run of fft_tpu_torch on one NVIDIA GPU: the tiny LM's serving and
-training paths at full width (6 layers, d=512, 8 heads, seq 2048), random
-weights from seed 0, through the port's own entry points.
+training paths at full width (6 layers, d=512, 8 heads, seq 2048) and
+BASELINE config 1's non-causal block (B=8, L=1024, d=512) forward and
+backward, random weights from seed 0, through the port's own entry points.
 
     python3 chip_smoke.py
 
@@ -10,7 +11,10 @@ Phases, in order; any failure raises and the exit code is nonzero:
 2. kernels   each kernel against its plain PyTorch version on the card at
              the slices' shapes (rel_err = max|a-b| / max|b| <= 2e-5, each
              output of the backward on its own), with the median ms of both
-             over CUDA events.
+             over CUDA events, the median ms of one PyTorch composition of
+             the same function where there is one (library_ms; cuFFT), and
+             the least time the card could take (bound_ms: bytes over 3.35
+             TB/s or FFT-equivalent operations over 67 TFLOP/s fp32).
 3. score     lm_apply on 4 x 2048 tokens; logits within rel_err 1e-4 of
              the same model and weights on the CPU (where the kernels'
              plain versions run); tokens/s on the card.
@@ -28,6 +32,17 @@ Phases, in order; any failure raises and the exit code is nonzero:
              memory); the CLI's train-lm for 3 steps.  Every kernel of the
              training path (kf_spectra, fused_causal_mix and its backward)
              was launched during the phase.
+7. block     BASELINE config 1's block (fft_impl="pallas", mean pooling,
+             memory 16, fp32): forward within rel_err 2e-5 of the same
+             weights and input on the CPU, every parameter gradient of
+             sum(y^2) within 1e-4 (modReLU kink sides aligned); 5 timed
+             steps of forward, backward and update through
+             fft_tpu_torch.bench.run (step ms, tokens/s, peak memory); the
+             bench's CLI once; the same block with the original
+             constructor's defaults (DCT pooling, wavelet rate 0.1, no
+             memory) for one finite training step and eval-mode forward
+             parity with the CPU.  Both spectral-mix kernels were launched
+             during the phase.
 
 Prints one JSON line per phase, the card's name and power limit as
 nvidia-smi gives them, a JSON line of per-kernel results, and last
@@ -37,6 +52,7 @@ nvidia-smi gives them, a JSON line of per-kernel results, and last
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -50,13 +66,18 @@ import torch
 SEED = 0
 REL_KERNEL = 2e-5      # direct fp32 DFTs vs cuFFT, different sum orders
 REL_MODEL = 1e-4       # 6 layers of fp32 FFT round trips, GPU vs CPU
+REL_BLOCK = 2e-5       # one block, fp32 FFTs in another order than the CPU's
 SOURCES = {
+    "direct_mix": "fft_tpu_torch/csrc/spectral_mix.cu",
+    "direct_mix_bwd": "fft_tpu_torch/csrc/spectral_mix.cu",
     "kf_spectra": "fft_tpu_torch/csrc/causal.cu",
     "fused_causal_mix": "fft_tpu_torch/csrc/causal.cu",
     "banded_inverse": "fft_tpu_torch/csrc/causal.cu",
     "fused_causal_mix_bwd": "fft_tpu_torch/csrc/causal_bwd.cu",
 }
 REPLACES = {
+    "direct_mix": "fft_tpu/kernels/pallas_fft.py:301",
+    "direct_mix_bwd": "fft_tpu/kernels/pallas_fft.py:449",
     "kf_spectra": "fft_tpu/kernels/pallas_causal.py:1428",
     "fused_causal_mix": "fft_tpu/kernels/pallas_causal.py:592",
     "banded_inverse": "fft_tpu/kernels/pallas_causal.py:167",
@@ -64,6 +85,11 @@ REPLACES = {
 }
 SERVE_KERNELS = ("kf_spectra", "fused_causal_mix", "banded_inverse")
 TRAIN_KERNELS = ("kf_spectra", "fused_causal_mix", "fused_causal_mix_bwd")
+BLOCK_KERNELS = ("direct_mix", "direct_mix_bwd")
+# the card's peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s, fp32
+# FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 
 
 def emit(**kw) -> None:
@@ -121,50 +147,100 @@ def wall_ms(fn, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
-def phase_kernels(kc, dev):
-    """Each kernel vs its plain version at the slice's shapes."""
+def fft_ops(n: int) -> float:
+    """Operations of one real FFT of length n (the usual 2.5 n log2 n)."""
+    return 2.5 * n * math.log2(n)
+
+
+def bound(nbytes: float, ops: float):
+    """(least ms the card could take, "bytes" or "operations"): each input
+    byte read once and each output byte written once over the HBM rate,
+    against the FFT-equivalent operations over the fp32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def causal_work(b, nc, chunk, d, cols):
+    """(bytes of v or y, bytes of the K pairs the banded sum reads, banded
+    complex multiply-adds' operations, one pass of segment FFTs' operations)
+    for the causal kernels; only K[c, j] with j <= c is ever read."""
+    tri = nc * (nc + 1) // 2
+    return (4 * b * nc * chunk * d, 4 * 2 * b * tri * (chunk + 1) * cols,
+            8 * b * d * tri * (chunk + 1), b * d * nc * fft_ops(2 * chunk))
+
+
+def mix_work(b, n, d, cols):
+    """(bytes of v, bytes of one gate pair, per-channel FFT operations)."""
+    return 4 * b * n * d, 4 * 2 * b * (n // 2 + 1) * cols, b * d * fft_ops(n)
+
+
+def phase_kernels(kc, sm, dev):
+    """Each kernel vs its plain version at the slices' shapes."""
     g = torch.Generator().manual_seed(SEED)
 
     def randn(*shape):
         return torch.randn(shape, generator=g).to(dev)
 
-    cases = []          # (kernel name, shape label, kernel fn, plain fn)
+    # (kernel name, shape label, kernel fn, plain fn, library fn or None,
+    #  (bytes, operations), main case of the kernel?)
+    cases = []
     b, n_fft, chunk, lanes = 4, 2048, 128, 512
+    nc = n_fft // chunk
     gr, gi = randn(b, n_fft // 2 + 1, lanes), randn(b, n_fft // 2 + 1, lanes)
-    cases.append(("kf_spectra", f"B={b} n_fft={n_fft} C={chunk} L={lanes}",
-                  lambda: torch.cat(kc.kf_spectra(gr, gi, n_fft, chunk)),
-                  lambda: torch.cat(kc.kf_spectra_ref(gr, gi, n_fft, chunk))))
+    cases.append((
+        "kf_spectra", f"B={b} n_fft={n_fft} C={chunk} L={lanes}",
+        lambda: torch.cat(kc.kf_spectra(gr, gi, n_fft, chunk)),
+        lambda: torch.cat(kc.kf_spectra_ref(gr, gi, n_fft, chunk)),
+        lambda: torch.fft.rfft(torch.fft.irfft(
+            torch.complex(gr, gi), n_fft, dim=1).reshape(
+                b, nc, chunk, lanes), 2 * chunk, dim=2),
+        (4 * 2 * b * (n_fft // 2 + 1) * lanes
+         + 4 * 2 * b * nc * (chunk + 1) * lanes,
+         b * lanes * (fft_ops(n_fft) + nc * fft_ops(2 * chunk))), True))
     d, cols = 512, 32
     for nc in (8, 16):
         v = randn(b, nc * chunk, d)
         kr, ki = (randn(b, nc, chunk + 1, nc * cols) for _ in range(2))
+        vb, kb, mac, seg = causal_work(b, nc, chunk, d, cols)
         cases.append((
             "fused_causal_mix", f"B={b} nc={nc} C={chunk} d={d} cols={cols}",
             lambda v=v, kr=kr, ki=ki: kc.fused_causal_mix(v, kr, ki, chunk,
                                                           cols),
             lambda v=v, kr=kr, ki=ki: kc.fused_causal_mix_ref(v, kr, ki,
-                                                              chunk, cols)))
+                                                              chunk, cols),
+            None, (2 * vb + kb, 2 * seg + mac), nc == 16))
     bb = 8                                  # the training batch
     for nc in (8, 16):
         v, ybar = randn(bb, nc * chunk, d), randn(bb, nc * chunk, d)
         kr, ki = (randn(bb, nc, chunk + 1, nc * cols) for _ in range(2))
+        vb, kb, mac, seg = causal_work(bb, nc, chunk, d, cols)
         cases.append((
             "fused_causal_mix_bwd",
             f"B={bb} nc={nc} C={chunk} d={d} cols={cols}",
             lambda v=v, kr=kr, ki=ki, yb=ybar: kc.fused_causal_mix_bwd(
                 v, kr, ki, yb, chunk, cols),
             lambda v=v, kr=kr, ki=ki, yb=ybar: kc.fused_causal_mix_bwd_ref(
-                v, kr, ki, yb, chunk, cols)))
+                v, kr, ki, yb, chunk, cols),
+            None, (3 * vb + 2 * kb, 3 * seg + 2 * mac), nc == 16))
     for c in (4, 100):
         args = (randn(b, 1, c + 1, d), randn(b, 1, c + 1, d),
                 randn(b, 1, 1, c + 1, cols), randn(b, 1, 1, c + 1, cols))
+        _, kb, mac, _ = causal_work(b, 1, c, d, cols)
         cases.append((
             "banded_inverse", f"B={b} nc=1 C={c} d={d} cols={cols}",
             lambda args=args, c=c: kc.banded_inverse(*args, c),
-            lambda args=args, c=c: kc.banded_inverse_ref(*args, c)))
+            lambda args=args, c=c: kc.banded_inverse_ref(*args, c),
+            None, (4 * b * (2 * (c + 1) + c) * d + kb,
+                   mac + b * d * fft_ops(2 * c)), c == 4))
+    # the spectral mix: BASELINE config 1 (B=8, N=1024, d=512, H*G=32, with
+    # and without memory), then N=2048 and N=256
+    for n, mem in ((1024, True), (1024, False), (2048, True), (256, True)):
+        cases += mix_cases(sm, randn, 8, n, d, cols, mem,
+                           main=(n == 1024 and mem))
 
     results = {}
-    for name, shape, kern, plain in cases:
+    for name, shape, kern, plain, lib, work, main in cases:
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = rel_err(got, want)
@@ -174,12 +250,55 @@ def phase_kernels(kc, dev):
                                  f"{REL_KERNEL} or non-finite")
         # alternate plain, kernel, kernel, plain on the same card
         p1, k1, k2, p2 = (median_ms(f) for f in (plain, kern, kern, plain))
+        bound_ms, bound_by = bound(*work)
         case = dict(shape=shape, rel_err=err, max_abs_err=abs_err,
                     ms=statistics.median([k1, k2]),
-                    plain_ms=statistics.median([p1, p2]))
+                    plain_ms=statistics.median([p1, p2]),
+                    library_ms=None if lib is None else median_ms(lib),
+                    bound_ms=bound_ms, bound_by=bound_by, main=main)
         emit(phase="kernels", kernel=name, **case)
         results.setdefault(name, []).append(case)
     return results
+
+
+def mix_cases(sm, randn, b, n, d, cols, mem, main):
+    """direct_mix and direct_mix_bwd at one shape, each beside the cuFFT
+    composition of the same function (which the port never calls)."""
+    fh, d_g = n // 2 + 1, d // cols
+    v, ybar = randn(b, n, d), randn(b, n, d)
+    gr, gi = randn(b, fh, cols), randn(b, fh, cols)
+    mem_t = randn(n, d) if mem else None
+    gc = torch.complex(gr, gi)[..., None]
+    coef = torch.full((fh, 1), 2.0, device=v.device)
+    coef[0] = coef[-1] = 1.0
+
+    def lib_fwd():
+        x = torch.fft.rfft(v, dim=1).view(b, fh, cols, d_g)
+        y = torch.fft.irfft((x * gc).view(b, fh, d), n, dim=1)
+        return y if mem_t is None else y + mem_t
+
+    def lib_bwd():
+        u = torch.fft.rfft(ybar, dim=1).view(b, fh, cols, d_g) * (coef[
+            ..., None] / n)
+        x = torch.fft.rfft(v, dim=1).view(b, fh, cols, d_g)
+        vbar = n * torch.fft.irfft((gc.conj() * u / coef[..., None]).view(
+            b, fh, d), n, dim=1)
+        return vbar, (u * x.conj()).sum(-1)
+
+    vb, gb, ops = mix_work(b, n, d, cols)
+    cases = [(
+        "direct_mix", f"B={b} N={n} d={d} cols={cols} mem={int(mem)}",
+        lambda: sm.direct_mix(v, gr, gi, mem_t, n),
+        lambda: sm.direct_mix_ref(v, gr, gi, mem_t, n), lib_fwd,
+        (2 * vb + gb + (4 * n * d if mem else 0),
+         2 * ops + 6 * b * fh * d + (b * n * d if mem else 0)), main)]
+    if mem:                 # the adjoint takes no memory: once per shape
+        cases.append((
+            "direct_mix_bwd", f"B={b} N={n} d={d} cols={cols}",
+            lambda: sm.direct_mix_bwd(v, gr, gi, ybar, n),
+            lambda: sm.direct_mix_bwd_ref(v, gr, gi, ybar, n), lib_bwd,
+            (3 * vb + 2 * gb, 3 * ops + 16 * b * fh * d), main))
+    return cases
 
 
 @contextlib.contextmanager
@@ -295,6 +414,98 @@ def phase_train(cfg, dev) -> None:
     emit(phase="cli_train_lm", steps=3, lines=recs)
 
 
+def phase_block(dev) -> None:
+    """BASELINE config 1's block: parity with the CPU, timed steps through
+    the bench, the bench's CLI, and the original constructor's defaults."""
+    from fft_tpu_torch import bench
+    from fft_tpu_torch.layers.spectre import (
+        spectre_block_apply, spectre_block_init,
+    )
+
+    cfg = bench.config1()
+
+    def block_on(device, c=cfg):
+        return spectre_block_init(c, torch.Generator().manual_seed(SEED),
+                                  device)
+
+    x = torch.randn((bench.B, bench.L, bench.D),
+                    generator=torch.Generator().manual_seed(SEED + 2))
+    gpu, cpu = block_on(dev), block_on("cpu")
+    sides = []
+    with same_modrelu_side(True, sides):
+        y = spectre_block_apply(gpu, x.to(dev))
+        (y ** 2).sum().backward()
+        torch.cuda.synchronize()
+    with same_modrelu_side(False, list(sides)):
+        y_cpu = spectre_block_apply(cpu, x)
+        (y_cpu ** 2).sum().backward()
+    cpu_sides = []
+    with torch.no_grad(), same_modrelu_side(True, cpu_sides):
+        cpu(x)
+    flips = sum(int((a != b).sum()) for a, b in zip(sides, cpu_sides))
+    err = rel_err(y, y_cpu)
+    grad_errs = {}
+    for (name, pg), (_, pc) in zip(gpu.named_parameters(),
+                                   cpu.named_parameters()):
+        if pc.grad is None or pg.grad is None:   # the unused wavelet MLP
+            if pc.grad is not pg.grad:
+                raise AssertionError(f"block: {name} has a gradient on one "
+                                     "device only")
+            continue
+        grad_errs[name] = rel_err(pg.grad, pc.grad)
+    worst = max(grad_errs, key=grad_errs.get)
+    if not (all_finite(y) and err <= REL_BLOCK
+            and grad_errs[worst] <= REL_MODEL):
+        raise AssertionError(f"block: forward rel_err {err} (limit "
+                             f"{REL_BLOCK}), worst gradient {worst} rel_err "
+                             f"{grad_errs[worst]} (limit {REL_MODEL})")
+    emit(phase="block_parity", batch=bench.B, seq=bench.L, rel_err=err,
+         max_grad_rel_err=grad_errs[worst], worst_grad=worst,
+         tensors=len(grad_errs), modrelu_sides_aligned=flips)
+    del gpu, cpu, y, y_cpu
+
+    res = bench.run(steps=5, device=dev, seed=SEED)
+    emit(phase="block_steps", steps=5, **res)
+    proc = subprocess.run(
+        [sys.executable, "-m", "fft_tpu_torch.bench", "--steps", "3"],
+        capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"python -m fft_tpu_torch.bench failed "
+                             f"({proc.returncode}): {proc.stderr[-2000:]}")
+    rec = json.loads(lines[-1])
+    if not math.isfinite(rec["value"]):
+        raise AssertionError(f"bench printed {rec}")
+    emit(phase="cli_bench", **rec)
+
+    # the original constructor's defaults: DCT pooling, wavelet rate 0.1
+    # (on for a row with probability 0.1 in training), no memory
+    dcfg = dataclasses.replace(cfg, pooling_type="dct", wavelet_on_rate=0.1,
+                               memory_size=0)
+    seed = next(s for s in range(100) if bool((torch.rand(
+        (bench.B, 1, 1), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(s)) < 0.1).any()))
+    gpu = block_on(dev, dcfg).train()
+    y = spectre_block_apply(
+        gpu, x.to(dev),
+        generator=torch.Generator(device=dev).manual_seed(seed))
+    (y ** 2).sum().backward()
+    grads = [p.grad for p in gpu.parameters()]
+    if not (all_finite(y) and all(g is not None and all_finite(g)
+                                  for g in grads)):
+        raise AssertionError("defaults block: non-finite output or a "
+                             "missing or non-finite gradient in training")
+    with torch.no_grad():
+        err = rel_err(spectre_block_apply(gpu.eval(), x.to(dev)),
+                      spectre_block_apply(block_on("cpu", dcfg), x))
+    if err > REL_BLOCK:
+        raise AssertionError(f"defaults block: eval forward rel_err {err} > "
+                             f"{REL_BLOCK}")
+    emit(phase="block_defaults", pooling="dct", wavelet_on_rate=0.1,
+         generator_seed=seed, train_finite=True, tensors=len(grads),
+         eval_rel_err=err)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -306,6 +517,7 @@ def main() -> int:
     from fft_tpu_torch import cli
     from fft_tpu_torch.kernels import build
     from fft_tpu_torch.kernels import causal as kc
+    from fft_tpu_torch.kernels import spectral_mix as sm
     from fft_tpu_torch.models.lm import (
         lm_apply, lm_decode_step, lm_generate, lm_init, lm_prefill,
         tiny_lm_config,
@@ -325,7 +537,14 @@ def main() -> int:
         print(build.BUILD_INFO["log"].strip(), flush=True)
 
     # 2. kernels vs plain ----------------------------------------------------
-    kernel_results = phase_kernels(kc, dev)
+    kernel_results = phase_kernels(kc, sm, dev)
+
+    def reset_launches():
+        kc.reset_launches()
+        sm.reset_launches()
+
+    def launches():
+        return {**kc.LAUNCHES, **sm.LAUNCHES}
 
     # 3. score ---------------------------------------------------------------
     cfg = tiny_lm_config()
@@ -336,7 +555,7 @@ def main() -> int:
     prompts = torch.randint(0, cfg.vocab_size, (4, 1024), generator=tg)
     steps = 64
 
-    kc.reset_launches()                       # the main path starts here
+    reset_launches()                          # the serving path starts here
     logits = lm_apply(model, toks.to(dev))
     torch.cuda.synchronize()
     ref = lm_apply(model_cpu, toks)
@@ -394,36 +613,51 @@ def main() -> int:
     emit(phase="cli_generate", prompt="the ", steps=steps, chars=len(text))
 
     # 5. launches ------------------------------------------------------------
-    serve_launches = dict(kc.LAUNCHES)
+    serve_launches = launches()
     emit(phase="launches", **serve_launches)
     missing = [k for k in SERVE_KERNELS if serve_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the serving path: "
                              f"{missing}")
+    # the later phases' peak memory is their own
+    del model, model_cpu, logits, ref, out, p_logits, caches, r_logits
+    del r_caches, d_logits, rd_logits
 
     # 6. train ---------------------------------------------------------------
-    kc.reset_launches()                       # the training path starts here
+    reset_launches()                          # the training path starts here
     phase_train(cfg, dev)
-    train_launches = dict(kc.LAUNCHES)
+    train_launches = launches()
     emit(phase="train_launches", **train_launches)
     missing = [k for k in TRAIN_KERNELS if train_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the training path: "
                              f"{missing}")
 
+    # 7. block -------------------------------------------------------------
+    reset_launches()                          # the block's path starts here
+    phase_block(dev)
+    block_launches = launches()
+    emit(phase="block_launches", **block_launches)
+    missing = [k for k in BLOCK_KERNELS if block_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the block path: "
+                             f"{missing}")
+
     summary = []
     for name, cases in kernel_results.items():
-        main_case = (cases[-1] if name.startswith("fused_causal_mix")
-                     else cases[0])
+        main_case = next(c for c in cases if c["main"])
+        by_path = dict(serve=serve_launches[name],
+                       train=train_launches[name],
+                       block=block_launches[name])
         summary.append(dict(
             name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name],
-            launches=serve_launches[name] + train_launches[name],
-            launches_by_path=dict(serve=serve_launches[name],
-                                  train=train_launches[name]),
+            replaces=REPLACES[name], launches=sum(by_path.values()),
+            launches_by_path=by_path,
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
-            shape=main_case["shape"], cases=cases))
+            bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
+            library_ms=main_case["library_ms"], shape=main_case["shape"],
+            cases=cases))
     print(smi, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

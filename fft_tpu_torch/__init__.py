@@ -3,16 +3,23 @@
 A port of ``fft_tpu`` (JAX on a TPU), which stays beside it as the
 reference.  Module paths and function names mirror the JAX package's:
 
-- ``fft_tpu_torch.ops``      modReLU, cubic interpolation, mean pooling,
-  the single-position irFFT and the rFFT phasor;
-- ``fft_tpu_torch.layers``   the causal SPECTRE block as ``nn.Module``s and
-  the segmented causal mix;
+- ``fft_tpu_torch.ops``      modReLU, cubic interpolation, the mean, DCT
+  and attention poolers, the Toeplitz convolution, the Haar pyramid, the
+  single-position irFFT and the rFFT phasor;
+- ``fft_tpu_torch.layers``   the SPECTRE head, multihead and block, causal
+  and not, as ``nn.Module``s, the wavelet refinement and the segmented
+  causal mix;
 - ``fft_tpu_torch.kernels``  hand-written CUDA kernels for sm_90a, each
-  beside its plain PyTorch version;
+  beside its plain PyTorch version: the causal mix and the non-causal
+  spectral mix;
 - ``fft_tpu_torch.decode``   the prefix-FFT decode cache;
 - ``fft_tpu_torch.models``   the causal tiny LM: forward, prefill, decode,
   generation;
-- ``fft_tpu_torch.convert``  the weight bridge from and to the JAX tree.
+- ``fft_tpu_torch.convert``  the weight bridge from and to the JAX trees
+  of a block and of the LM;
+- ``fft_tpu_torch.bench``    BASELINE config 1's block, timed on the card.
+
+Entry points run on the card unless the caller asks for the CPU.
 
 This package imports torch and numpy, never JAX.
 """

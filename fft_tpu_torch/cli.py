@@ -4,13 +4,15 @@
 Usage:
     python -m fft_tpu_torch.cli train-lm [--preset tiny] [--steps N]
         [--batch B] [--seq L] [--lr LR] [--data FILE] [--metrics FILE]
-        [--log-every N] [--eval-every N] [--seed S] [--device cpu|cuda]
+        [--log-every N] [--eval-every N] [--seed S] [--device cuda|cpu]
     python -m fft_tpu_torch.cli generate [--preset tiny] [--seq L]
         [--prompt TEXT] [--steps N] [--temperature T] [--seed S]
-        [--device cpu|cuda]
+        [--device cuda|cpu]
 
-Random weights from ``--seed``; byte-level tokens (vocab 256).  Training
-runs on a text file, or on the synthetic corpus when no ``--data`` is given.
+Random weights from ``--seed``; byte-level tokens (vocab 256).  Both run
+on the card unless ``--device cpu`` is given; without a card they fail at
+once.  Training runs on a text file, or on the synthetic corpus when no
+``--data`` is given.
 Flags of the JAX CLI whose modules are still queued raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
@@ -44,7 +46,7 @@ def cmd_train_lm(args) -> None:
     from fft_tpu_torch.train import TrainConfig, lm_loss, train_init, \
         train_step
     from fft_tpu_torch.train.data import CharDataset
-    from fft_tpu_torch.utils import MetricsLogger
+    from fft_tpu_torch.utils import MetricsLogger, resolve_device
 
     if args.preset != "tiny":
         raise _not_ported(f"--preset {args.preset}", _350M)
@@ -63,7 +65,7 @@ def cmd_train_lm(args) -> None:
             or pathlib.Path(args.data + ".vocab.json").exists()):
         raise _not_ported("a .tokens BPE corpus", _BPE)
 
-    device = torch.device(args.device)
+    device = resolve_device(args.device)
     vocab = {"vocab_size": args.vocab_size} if args.vocab_size else {}
     cfg = tiny_lm_config(seq=args.seq, **vocab)
     model = lm_init(cfg, torch.Generator().manual_seed(args.seed), device)
@@ -100,6 +102,7 @@ def cmd_train_lm(args) -> None:
 
 def cmd_generate(args) -> None:
     from fft_tpu_torch.models.lm import lm_generate, lm_init, tiny_lm_config
+    from fft_tpu_torch.utils import resolve_device
 
     if args.preset != "tiny":
         raise _not_ported(f"--preset {args.preset}", _350M)
@@ -109,7 +112,7 @@ def cmd_generate(args) -> None:
                               ("--bf16", args.bf16, _BF16)):
         if value:
             raise _not_ported(flag, item)
-    device = torch.device(args.device)
+    device = resolve_device(args.device)
     cfg = tiny_lm_config(seq=args.seq)
     model = lm_init(cfg, torch.Generator().manual_seed(args.seed), device)
     prompt_ids = torch.from_numpy(
@@ -149,8 +152,8 @@ def main(argv=None):
     lm.add_argument("--tp", type=int, default=1)
     lm.add_argument("--pp", type=int, default=1)
     lm.add_argument("--seed", type=int, default=0)
-    lm.add_argument("--device", default="cpu",
-                    help="torch device, e.g. cpu or cuda")
+    lm.add_argument("--device", default="cuda",
+                    help="torch device: cuda (the default) or cpu")
     lm.set_defaults(fn=cmd_train_lm)
 
     gen = sub.add_parser("generate")
@@ -164,8 +167,8 @@ def main(argv=None):
     gen.add_argument("--vocab", default=None)
     gen.add_argument("--vocab-size", type=int, default=None)
     gen.add_argument("--seed", type=int, default=0)
-    gen.add_argument("--device", default="cpu",
-                     help="torch device, e.g. cpu or cuda")
+    gen.add_argument("--device", default="cuda",
+                     help="torch device: cuda (the default) or cpu")
     gen.set_defaults(fn=cmd_generate)
     args = p.parse_args(argv)
     args.fn(args)

@@ -1,11 +1,15 @@
-"""Weight bridge between the JAX LM parameter tree and the port's
-``state_dict``.
+"""Weight bridge between the JAX parameter trees and the port's
+``state_dict``s: one SPECTRE block (``spectre_block_init``'s tree <->
+``SpectreBlock.state_dict()``) and the LM, which stacks the block's tree
+over layers.
 
-The JAX tree is taken as nested dicts of numpy arrays
-(``jax.tree.map(np.asarray, params)``).  Its layout:
+The JAX trees are taken as nested dicts of numpy arrays
+(``jax.tree.map(np.asarray, params)``).  Their layout:
 
 - linear kernels are (fan_in, fan_out); the port's are (fan_out, fan_in);
-- per-head parameters are stacked on axis 0 (vmap over heads);
+- per-head parameters are stacked on axis 0 (vmap over heads), among them
+  the attention pooler's ``pool`` MLP and the real (2, klen)
+  ``toeplitz_kernel`` pair where the config has them;
 - blocks are stacked on axis 0 (scan over layers);
 - ``modrelu_bias`` is (G, F_half) per head; ``memory_fft`` is a real
   (2, bins, d) pair, the same in both;
@@ -16,11 +20,12 @@ Both directions only transpose and slice, so a round trip is bit-exact.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from fft_tpu_torch.config import SpectreConfig
 from fft_tpu_torch.models.lm import LMConfig
 
 # port name in SpectreHeads -> (JAX path under "heads", is a linear kernel)
@@ -34,6 +39,13 @@ _HEAD_KEYS = {
     "q_norm_w": (("q_norm", "scale"), False),
     "q_norm_b": (("q_norm", "bias"), False),
     "modrelu_bias": (("modrelu_bias",), False),
+}
+# the attention pooler's scorer (pooling_type="attention")
+_POOL_KEYS = {
+    "pool_fc1_w": (("pool", "fc1", "w"), True),
+    "pool_fc1_b": (("pool", "fc1", "b"), False),
+    "pool_fc2_w": (("pool", "fc2", "w"), True),
+    "pool_fc2_b": (("pool", "fc2", "b"), False),
 }
 
 # port name in SpectreBlock -> (JAX path in the block, is a linear kernel)
@@ -66,14 +78,55 @@ def _set(tree, path, value):
     tree[path[-1]] = value
 
 
-def _block_entries(cfg: LMConfig):
-    """(port key suffix, JAX path in a block, transpose?) for one block."""
+def _block_entries(cfg: SpectreConfig):
+    """(port key in SpectreBlock, JAX path in a block, transpose?)."""
     for name, (path, lin) in _BLOCK_KEYS.items():
         yield name, path, lin
-    for name, (path, lin) in _HEAD_KEYS.items():
+    heads = dict(_HEAD_KEYS)
+    if cfg.pooling_type == "attention":
+        heads.update(_POOL_KEYS)
+    if cfg.use_toeplitz:
+        heads["toeplitz_kernel"] = (("toeplitz_kernel",), False)
+    for name, (path, lin) in heads.items():
         yield f"mix.heads.{name}", ("mix", "heads") + path, lin
-    if cfg.block.memory_freq_bins > 0:
+    if cfg.memory_freq_bins > 0:
         yield "memory_fft", ("memory_fft",), False
+
+
+def block_from_jax_params(tree, cfg: SpectreConfig,
+                          layer: Optional[int] = None
+                          ) -> Dict[str, torch.Tensor]:
+    """JAX block params (nested dicts of numpy arrays) -> the port's
+    ``state_dict`` for ``SpectreBlock(cfg)``.  ``layer`` picks one block of
+    a tree whose leaves are stacked over layers (the LM's)."""
+    sd = {}
+    for name, path, lin in _block_entries(cfg):
+        a = np.asarray(_get(tree, path))
+        if layer is not None:
+            a = a[layer]
+        if lin:
+            a = np.swapaxes(a, -1, -2)
+        sd[name] = torch.from_numpy(np.array(a, order="C"))    # a copy
+    return sd
+
+
+def block_to_jax_params(state_dict, cfg: SpectreConfig):
+    """``SpectreBlock.state_dict()`` -> JAX block params as nested dicts of
+    numpy arrays, heads stacked on axis 0."""
+    tree = {}
+    for name, path, lin in _block_entries(cfg):
+        a = state_dict[name].detach().cpu().numpy()
+        if lin:
+            a = np.swapaxes(a, -1, -2)
+        _set(tree, path, np.ascontiguousarray(a))
+    return tree
+
+
+def _stack(trees):
+    """Nested dicts of equal structure -> one, leaves stacked on axis 0."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.ascontiguousarray(np.stack(trees))
 
 
 def from_jax_params(tree, cfg: LMConfig) -> Dict[str, torch.Tensor]:
@@ -87,15 +140,9 @@ def from_jax_params(tree, cfg: LMConfig) -> Dict[str, torch.Tensor]:
         "ln_f.weight": torch.from_numpy(np.array(tree["ln_f"]["scale"])),
         "ln_f.bias": torch.from_numpy(np.array(tree["ln_f"]["bias"])),
     }
-    blocks = tree["blocks"]
-    for name, path, lin in _block_entries(cfg):
-        stacked = np.asarray(_get(blocks, path))       # (layers, ...)
-        for i in range(cfg.num_layers):
-            a = stacked[i]
-            if lin:
-                a = np.swapaxes(a, -1, -2)
-            sd[f"blocks.{i}.{name}"] = torch.from_numpy(
-                np.ascontiguousarray(a))
+    for i in range(cfg.num_layers):
+        block = block_from_jax_params(tree["blocks"], cfg.block, layer=i)
+        sd.update((f"blocks.{i}.{k}", t) for k, t in block.items())
     return sd
 
 
@@ -105,15 +152,15 @@ def to_jax_params(state_dict, cfg: LMConfig):
     def arr(key):
         return state_dict[key].detach().cpu().numpy()
 
-    tree = {
+    blocks = []
+    for i in range(cfg.num_layers):
+        prefix = f"blocks.{i}."
+        blocks.append(block_to_jax_params(
+            {k[len(prefix):]: t for k, t in state_dict.items()
+             if k.startswith(prefix)}, cfg.block))
+    return {
         "tok_emb": arr("tok_emb"),
         "pos_emb": arr("pos_emb"),
         "ln_f": {"scale": arr("ln_f.weight"), "bias": arr("ln_f.bias")},
-        "blocks": {},
+        "blocks": _stack(blocks),
     }
-    for name, path, lin in _block_entries(cfg):
-        layers = [arr(f"blocks.{i}.{name}") for i in range(cfg.num_layers)]
-        if lin:
-            layers = [np.swapaxes(a, -1, -2) for a in layers]
-        _set(tree["blocks"], path, np.ascontiguousarray(np.stack(layers)))
-    return tree

@@ -35,6 +35,8 @@ _SIGNATURES = {
     "fft_fused_causal_mix": ([_P] * 7 + [_I] * 5 + [_P], _I),
     "fft_kf_spectra": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "fft_fused_causal_mix_bwd": ([_P] * 12 + [_I] * 5 + [_P], _I),
+    "fft_direct_mix": ([_P] * 6 + [_I] * 5 + [_P], _I),
+    "fft_direct_mix_bwd": ([_P] * 10 + [_I] * 5 + [_P], _I),
 }
 
 _LIB = None

@@ -44,18 +44,18 @@ import functools
 import numpy as np
 import torch
 
-from fft_tpu_torch.kernels.build import load_library
+from fft_tpu_torch.kernels.common import (
+    SMEM_MAX, check, launch, on_cpu, twiddles,
+)
 from fft_tpu_torch.ops import fftops
 
 LAUNCHES = {"kf_spectra": 0, "fused_causal_mix": 0, "banded_inverse": 0,
             "fused_causal_mix_bwd": 0}
 
-# Shapes of the CUDA blocks (csrc/causal.cu: kLanes, kSegT, kFreqT) and the
-# dynamic shared memory a Hopper block may use.
+# Shapes of the CUDA blocks (csrc/causal.cu: kLanes, kSegT, kFreqT).
 _LANES = 32
 _SEG_T = 64
 _FREQ_T = 64
-_SMEM_MAX = 232448
 
 
 def reset_launches() -> None:
@@ -65,7 +65,7 @@ def reset_launches() -> None:
 
 # ---------------------------------------------------------------------------
 # Host constants (numpy, float64 -> f32; _inv_rows_np copies
-# pallas_causal.py:79-93)
+# pallas_causal.py:79-93; twiddles in kernels/common.py)
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
@@ -84,26 +84,6 @@ def _inv_rows_np(chunk: int):
     ai[:, 0] = 0.0                      # irfft drops Im at DC
     ai[:, -1] = 0.0                     # ... and Nyquist
     return ar, ai
-
-
-@functools.lru_cache(maxsize=None)
-def _twiddles_np(n: int) -> np.ndarray:
-    """(n, 2) [cos, sin](2 pi m / n), computed in float64 and rounded once;
-    the exact zeros (sin at 0 and pi, cos at pi/2 and 3pi/2) stay zero."""
-    ang = 2.0 * np.pi * np.arange(n) / n
-    tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1)
-    tw[np.abs(tw) < 1e-12] = 0.0
-    return tw.astype(np.float32)
-
-
-_TWIDDLES = {}
-
-
-def _twiddles(n: int, device: torch.device) -> torch.Tensor:
-    key = (n, str(device))
-    if key not in _TWIDDLES:
-        _TWIDDLES[key] = torch.from_numpy(_twiddles_np(n)).to(device)
-    return _TWIDDLES[key]
 
 
 # ---------------------------------------------------------------------------
@@ -128,7 +108,7 @@ def banded_supported(nc: int, f2: int, d: int, cols: int) -> bool:
     2C twiddles sit in shared memory, which bounds the chunk at 853."""
     chunk = f2 - 1
     return (nc >= 1 and chunk >= 1 and d % _LANES == 0 and d % cols == 0
-            and _banded_smem(chunk) <= _SMEM_MAX)
+            and _banded_smem(chunk) <= SMEM_MAX)
 
 
 def _adjoint_smem(chunk: int) -> int:
@@ -145,8 +125,8 @@ def fused_mix_supported(nc: int, chunk: int, d: int, cols: int) -> bool:
     d_g = d // cols if cols else 0
     return (chunk >= 128 and banded_supported(nc, chunk + 1, d, cols)
             and d_g >= 1 and (_LANES % d_g == 0 or d_g % _LANES == 0)
-            and _segment_smem(chunk) <= _SMEM_MAX
-            and _adjoint_smem(chunk) <= _SMEM_MAX)
+            and _segment_smem(chunk) <= SMEM_MAX
+            and _adjoint_smem(chunk) <= SMEM_MAX)
 
 
 def kf_spectra_supported(n_fft: int, chunk: int, lanes: int) -> bool:
@@ -155,7 +135,7 @@ def kf_spectra_supported(n_fft: int, chunk: int, lanes: int) -> bool:
     in shared memory."""
     return (n_fft % 2 == 0 and chunk >= 1 and n_fft % chunk == 0
             and 2 * chunk <= n_fft and lanes % _LANES == 0
-            and _kf_smem(n_fft, chunk) <= _SMEM_MAX)
+            and _kf_smem(n_fft, chunk) <= SMEM_MAX)
 
 
 # ---------------------------------------------------------------------------
@@ -255,37 +235,6 @@ def fused_causal_mix_bwd_ref(v, kfr, kfi, ybar, chunk: int, cols: int):
 # Wrappers
 # ---------------------------------------------------------------------------
 
-def _on_cpu(*tensors) -> bool:
-    devices = {t.device.type for t in tensors}
-    if devices == {"cpu"}:
-        return True
-    if devices != {"cuda"} or len({t.device for t in tensors}) != 1:
-        raise ValueError(f"tensors on {sorted(str(t.device) for t in tensors)}"
-                         "; the kernels take tensors on one CUDA device")
-    return False
-
-
-def _check(name: str, t: torch.Tensor, shape) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: float32 only, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, want {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Call the library's ``fft_<name>`` on ``device`` and PyTorch's current
-    stream there; raise on a nonzero cudaError_t, else count the launch."""
-    fn = getattr(load_library(), f"fft_{name}")
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
-                           f"{err}")
-    LAUNCHES[name] += 1
-
-
 def _banded_inverse(vfr, vfi, kfr, kfi, chunk: int) -> torch.Tensor:
     """y (B, nc, C, d) = partial_irfft(sum_j K[c, j] (.) V[c - j]).
 
@@ -297,7 +246,7 @@ def _banded_inverse(vfr, vfi, kfr, kfi, chunk: int) -> torch.Tensor:
     from L2/HBM once per term, the summed spectrum stays in shared memory,
     and the partial inverse is a direct sum bound by shared-memory
     instructions; at the prompt shapes (nc=1) the launch dominates."""
-    if _on_cpu(vfr, vfi, kfr, kfi):
+    if on_cpu(vfr, vfi, kfr, kfi):
         return banded_inverse_ref(vfr, vfi, kfr, kfi, chunk)
     b, nc, f2, d = vfr.shape
     cols = kfr.shape[-1]
@@ -308,13 +257,13 @@ def _banded_inverse(vfr, vfi, kfr, kfi, chunk: int) -> torch.Tensor:
                            ("vfi", vfi, (b, nc, f2, d)),
                            ("kfr", kfr, (b, nc, nc, f2, cols)),
                            ("kfi", kfi, (b, nc, nc, f2, cols))):
-        _check(name, t, shape)
-    tw = _twiddles(2 * chunk, vfr.device)
+        check(name, t, shape)
+    tw = twiddles(2 * chunk, vfr.device)
     out = torch.empty((b, nc, chunk, d), dtype=torch.float32,
                       device=vfr.device)
-    _launch("banded_inverse", vfr.device,
-            vfr.data_ptr(), vfi.data_ptr(), kfr.data_ptr(), kfi.data_ptr(),
-            tw.data_ptr(), out.data_ptr(), b, nc, chunk, d, cols)
+    launch(LAUNCHES, "banded_inverse", vfr.device,
+           vfr.data_ptr(), vfi.data_ptr(), kfr.data_ptr(), kfi.data_ptr(),
+           tw.data_ptr(), out.data_ptr(), b, nc, chunk, d, cols)
     return out
 
 
@@ -328,7 +277,7 @@ def _fused_causal_mix(v, kfr, kfi, chunk: int, cols: int) -> torch.Tensor:
     block's shared memory), then the banded sum and partial inverse of
     ``banded_inverse`` on the producer layout.  Bound by shared-memory
     instructions in both; v is read twice (once per overlapping segment)."""
-    if _on_cpu(v, kfr, kfi):
+    if on_cpu(v, kfr, kfi):
         return fused_causal_mix_ref(v, kfr, kfi, chunk, cols)
     b, n, d = v.shape
     nc = n // chunk
@@ -336,17 +285,17 @@ def _fused_causal_mix(v, kfr, kfi, chunk: int, cols: int) -> torch.Tensor:
     if nc * chunk != n or not fused_mix_supported(nc, chunk, d, cols):
         raise ValueError(f"fused_causal_mix: unsupported shape n={n} "
                          f"chunk={chunk} d={d} cols={cols}")
-    _check("v", v, (b, n, d))
-    _check("kfr", kfr, (b, nc, f2, nc * cols))
-    _check("kfi", kfi, (b, nc, f2, nc * cols))
-    tw = _twiddles(2 * chunk, v.device)
+    check("v", v, (b, n, d))
+    check("kfr", kfr, (b, nc, f2, nc * cols))
+    check("kfi", kfi, (b, nc, f2, nc * cols))
+    tw = twiddles(2 * chunk, v.device)
     vfr = torch.empty((b, nc, f2, d), dtype=torch.float32, device=v.device)
     vfi = torch.empty_like(vfr)
     out = torch.empty((b, n, d), dtype=torch.float32, device=v.device)
-    _launch("fused_causal_mix", v.device,
-            v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), tw.data_ptr(),
-            vfr.data_ptr(), vfi.data_ptr(), out.data_ptr(), b, nc, chunk, d,
-            cols)
+    launch(LAUNCHES, "fused_causal_mix", v.device,
+           v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), tw.data_ptr(),
+           vfr.data_ptr(), vfi.data_ptr(), out.data_ptr(), b, nc, chunk, d,
+           cols)
     return out
 
 
@@ -362,23 +311,23 @@ def _kf_spectra(g_r, g_i, n_fft: int, chunk: int):
     depends on another.  The direct inverse costs O(N) per output, so the
     kernel is bound by shared-memory instructions over 2.2e6 (k, t) pairs per
     lane at n_fft 2048 and loses to cuFFT; a staged FFT is the cure."""
-    if _on_cpu(g_r, g_i):
+    if on_cpu(g_r, g_i):
         return kf_spectra_ref(g_r, g_i, n_fft, chunk)
     b, fh, lanes = g_r.shape
     if fh != n_fft // 2 + 1 or not kf_spectra_supported(n_fft, chunk, lanes):
         raise ValueError(f"kf_spectra: unsupported shape n_fft={n_fft} "
                          f"chunk={chunk} lanes={lanes}")
-    _check("g_r", g_r, (b, fh, lanes))
-    _check("g_i", g_i, (b, fh, lanes))
+    check("g_r", g_r, (b, fh, lanes))
+    check("g_i", g_i, (b, fh, lanes))
     nc = n_fft // chunk
-    twn = _twiddles(n_fft, g_r.device)
-    tw2 = _twiddles(2 * chunk, g_r.device)
+    twn = twiddles(n_fft, g_r.device)
+    tw2 = twiddles(2 * chunk, g_r.device)
     kfr = torch.empty((b, nc, chunk + 1, lanes), dtype=torch.float32,
                       device=g_r.device)
     kfi = torch.empty_like(kfr)
-    _launch("kf_spectra", g_r.device,
-            g_r.data_ptr(), g_i.data_ptr(), twn.data_ptr(), tw2.data_ptr(),
-            kfr.data_ptr(), kfi.data_ptr(), b, n_fft, chunk, lanes)
+    launch(LAUNCHES, "kf_spectra", g_r.device,
+           g_r.data_ptr(), g_i.data_ptr(), twn.data_ptr(), tw2.data_ptr(),
+           kfr.data_ptr(), kfi.data_ptr(), b, n_fft, chunk, lanes)
     return kfr, kfi
 
 
@@ -393,7 +342,7 @@ def fused_causal_mix_bwd(v, kfr, kfi, ybar, chunk: int, cols: int):
     group reduced by warp shuffles (deterministic, no atomics), Vbar, and
     the adjoint segment rFFT with the overlap-add.  The four (B, nc, F2, d)
     spectra go through HBM scratch between launches."""
-    if _on_cpu(v, kfr, kfi, ybar):
+    if on_cpu(v, kfr, kfi, ybar):
         return fused_causal_mix_bwd_ref(v, kfr, kfi, ybar, chunk, cols)
     b, n, d = v.shape
     nc = n // chunk
@@ -401,21 +350,21 @@ def fused_causal_mix_bwd(v, kfr, kfi, ybar, chunk: int, cols: int):
     if nc * chunk != n or not fused_mix_supported(nc, chunk, d, cols):
         raise ValueError(f"fused_causal_mix_bwd: unsupported shape n={n} "
                          f"chunk={chunk} d={d} cols={cols}")
-    _check("v", v, (b, n, d))
-    _check("kfr", kfr, (b, nc, f2, nc * cols))
-    _check("kfi", kfi, (b, nc, f2, nc * cols))
-    _check("ybar", ybar, (b, n, d))
-    tw = _twiddles(2 * chunk, v.device)
+    check("v", v, (b, n, d))
+    check("kfr", kfr, (b, nc, f2, nc * cols))
+    check("kfi", kfi, (b, nc, f2, nc * cols))
+    check("ybar", ybar, (b, n, d))
+    tw = twiddles(2 * chunk, v.device)
     scratch = [torch.empty((b, nc, f2, d), dtype=torch.float32,
                            device=v.device) for _ in range(4)]
     vbar = torch.empty_like(v)
     kbr = torch.empty_like(kfr)
     kbi = torch.empty_like(kfi)
-    _launch("fused_causal_mix_bwd", v.device,
-            v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), ybar.data_ptr(),
-            tw.data_ptr(), *(t.data_ptr() for t in scratch),
-            vbar.data_ptr(), kbr.data_ptr(), kbi.data_ptr(), b, nc, chunk,
-            d, cols)
+    launch(LAUNCHES, "fused_causal_mix_bwd", v.device,
+           v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), ybar.data_ptr(),
+           tw.data_ptr(), *(t.data_ptr() for t in scratch),
+           vbar.data_ptr(), kbr.data_ptr(), kbi.data_ptr(), b, nc, chunk,
+           d, cols)
     return vbar, kbr, kbi
 
 

@@ -1,14 +1,25 @@
-"""SPECTRE layers for causal models (mirror of ``fft_tpu/layers/spectre.py``).
+"""SPECTRE layers (mirror of ``fft_tpu/layers/spectre.py``).
 
 Heads are stacked on a leading axis of their parameters (the JAX package
-``vmap``s them) and run together as batched einsums.  Only what the causal
-block needs is ported: the gate, the chunk-causal gates with the mean
-pooler, the causal head with its 2N-FFT branch, the segmented multihead
-branch and the block with its additive spectral memory.  Dropout on the
-mixed values is on under ``module.train()`` and draws its mask from an
-explicit ``torch.Generator``.  The wavelet branch, the non-causal mix, the
-DCT/attention poolers and Toeplitz gates are queued in ROADMAP.md and raise
-``NotImplementedError``.
+``vmap``s them) and run together as batched einsums.  Ported:
+
+- the gate (Toeplitz anchor smoothing, cubic or ``interp_reference_compat``
+  interpolation, modReLU) and the mean, DCT and attention poolers;
+- the non-causal head (``spectre_head_apply``) and multihead: the fused
+  all-heads branch (``fft_impl="pallas"``, the spectral-mix kernels of
+  ``fft_tpu_torch.kernels.spectral_mix``) and the per-head branch
+  (``fft_impl="auto"``: ``torch.fft``, cuFFT on the card);
+- the wavelet refinement, its wavelet path detached;
+- the causal head, chunk gates (mean pooler) and segmented multihead
+  branch;
+- the block with its frozen additive spectral memory.
+
+Randomness comes from an explicit ``torch.Generator``: dropout on the mixed
+values and the wavelet's on-mask draw only under ``module.train()``, which
+takes the place of the JAX package's ``deterministic=False``.
+``compute_dtype="bfloat16"``, the ``sp_mesh`` arguments and causal models
+with the DCT or attention pooler raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -17,14 +28,25 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from fft_tpu_torch.config import SpectreConfig, SpectreHeadConfig
+from fft_tpu_torch.kernels.spectral_mix import spectral_mix, unfused_mix
 from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS, segmented_causal_mix
 from fft_tpu_torch.layers.common import (
     gelu_exact, layernorm_apply, linear_init,
 )
-from fft_tpu_torch.ops import fftops, interp_complex_1d, modrelu
+from fft_tpu_torch.ops import (
+    attention_pool, complex_circular_conv1d, dct_pool, fftops,
+    haar_decompose, haar_reconstruct, interp_complex_1d,
+    interp_complex_1d_ref_compat, mean_pool, modrelu,
+)
+from fft_tpu_torch.utils.device import resolve_device
+
+
+# hidden width of the attention pooler's scorer (spectre.py:159-172)
+_POOL_HIDDEN = 256
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -34,12 +56,6 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 def _check_head_config(cfg: SpectreHeadConfig) -> None:
-    if cfg.pooling_type != "mean":
-        raise _not_ported(f"pooling_type={cfg.pooling_type!r}")
-    if cfg.use_toeplitz:
-        raise _not_ported("the Toeplitz gate")
-    if cfg.interp_reference_compat:
-        raise _not_ported("interp_reference_compat")
     if cfg.compute_dtype != "float32":
         raise _not_ported(f"compute_dtype={cfg.compute_dtype!r}")
     if cfg.fft_impl not in ("auto", "pallas"):
@@ -52,7 +68,9 @@ class SpectreHeads(nn.Module):
     """The per-head parameters of one multihead mixer, stacked over heads.
 
     Linear weights are (H, fan_out, fan_in); ``modrelu_bias`` is (H, G,
-    F_half)."""
+    F_half).  The attention pooler adds its scorer ``pool_fc1_*`` (hd ->
+    256) and ``pool_fc2_*`` (256 -> 1); the Toeplitz gate adds
+    ``toeplitz_kernel``, a real (H, 2, 2 bw + 1) [re; im] pair."""
 
     def __init__(self, cfg: SpectreHeadConfig, num_heads: int):
         super().__init__()
@@ -69,6 +87,14 @@ class SpectreHeads(nn.Module):
         self.q_norm_w = nn.Parameter(torch.empty(h, hd))
         self.q_norm_b = nn.Parameter(torch.empty(h, hd))
         self.modrelu_bias = nn.Parameter(torch.empty(h, g, cfg.f_half))
+        if cfg.pooling_type == "attention":
+            self.pool_fc1_w = nn.Parameter(torch.empty(h, _POOL_HIDDEN, hd))
+            self.pool_fc1_b = nn.Parameter(torch.empty(h, _POOL_HIDDEN))
+            self.pool_fc2_w = nn.Parameter(torch.empty(h, 1, _POOL_HIDDEN))
+            self.pool_fc2_b = nn.Parameter(torch.empty(h, 1))
+        if cfg.use_toeplitz:
+            self.toeplitz_kernel = nn.Parameter(
+                torch.empty(h, 2, 2 * cfg.toeplitz_bw + 1))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -86,6 +112,19 @@ class SpectreHeads(nn.Module):
         self.q_norm_b.zero_()
         # -0.1 = near-identity gate
         self.modrelu_bias.fill_(-0.1)
+        if self.cfg.pooling_type == "attention":
+            w, b = linear_init(hd, _POOL_HIDDEN, generator, True, (h,))
+            self.pool_fc1_w.copy_(w)
+            self.pool_fc1_b.copy_(b)
+            w, b = linear_init(_POOL_HIDDEN, 1, generator, True, (h,))
+            self.pool_fc2_w.copy_(w)
+            self.pool_fc2_b.copy_(b)
+        if self.cfg.use_toeplitz:
+            # complex randn / sqrt(klen): each plane N(0, 1 / (2 klen))
+            klen = self.toeplitz_kernel.shape[-1]
+            self.toeplitz_kernel.copy_(
+                torch.randn(self.toeplitz_kernel.shape, generator=generator)
+                / math.sqrt(2.0 * klen))
 
 
 def dropout(y: torch.Tensor, p: float,
@@ -112,14 +151,56 @@ def _heads_linear(x: torch.Tensor, w: torch.Tensor,
 def spectre_gate(heads: SpectreHeads, cfg: SpectreHeadConfig,
                  descriptor: torch.Tensor) -> torch.Tensor:
     """Content-adaptive complex gate from a pooled descriptor (..., H, hd)
-    -> (..., H, G, F_half) complex64."""
+    -> (..., H, G, F_half) complex64: the gate MLP's anchors, smoothed by
+    the Toeplitz kernel when ``use_toeplitz``, interpolated to F_half bins,
+    then modReLU."""
     h = gelu_exact(_heads_linear(descriptor, heads.gate_fc1_w,
                                  heads.gate_fc1_b))
     raw = _heads_linear(h, heads.gate_fc2_w, heads.gate_fc2_b).float()
     raw = raw.reshape(*raw.shape[:-1], cfg.num_groups, cfg.buckets, 2)
     anchor = torch.complex(raw[..., 0], raw[..., 1])        # (..., H, G, Bk)
-    gate = interp_complex_1d(anchor, cfg.f_half)
+    if cfg.use_toeplitz:
+        tk = heads.toeplitz_kernel                           # (H, 2, klen)
+        kernel = torch.complex(tk[:, 0], tk[:, 1])[:, None]  # (H, 1, klen)
+        anchor = anchor + complex_circular_conv1d(anchor, kernel)
+    if cfg.interp_reference_compat:
+        gate = interp_complex_1d_ref_compat(anchor, cfg.f_half)
+    else:
+        gate = interp_complex_1d(anchor, cfg.f_half)
     return modrelu(gate, heads.modrelu_bias)
+
+
+def _pool_descriptor(heads: SpectreHeads, cfg: SpectreHeadConfig,
+                     q: torch.Tensor) -> torch.Tensor:
+    """The configured pooler over the sequence, then the query LayerNorm:
+    q (B, N, H, hd) -> (B, H, hd)."""
+    b, n, h, hd = q.shape
+    if cfg.pooling_type == "attention":
+        pooled = attention_pool(q.transpose(1, 2), heads.pool_fc1_w,
+                                heads.pool_fc1_b, heads.pool_fc2_w,
+                                heads.pool_fc2_b)
+    elif cfg.pooling_type == "dct":
+        pooled = dct_pool(q.reshape(b, n, h * hd)).reshape(b, h, hd)
+    else:
+        pooled = mean_pool(q.transpose(1, 2))
+    return layernorm_apply(pooled, heads.q_norm_w, heads.q_norm_b)
+
+
+def _with_pos_phase(gate: torch.Tensor,
+                    pos_phase: Optional[torch.Tensor]) -> torch.Tensor:
+    """gate (B, H, G, F) times an absolute-position phase (B, F) or (F,)."""
+    if pos_phase is None:
+        return gate
+    if pos_phase.dim() == 2:
+        return gate * pos_phase[:, None, None, :]
+    return gate * pos_phase
+
+
+def _compact_gate(gate: torch.Tensor) -> torch.Tensor:
+    """(B, H, G, F) -> (B, F, H * G): one column per (head, group), so
+    channel ch = h * hd + j reads column ch // d_group."""
+    b, h, g, f = gate.shape
+    return gate.permute(0, 3, 1, 2).reshape(b, f, h * g)
 
 
 def causal_chunk_gates(heads: SpectreHeads, cfg: SpectreHeadConfig,
@@ -195,10 +276,44 @@ def spectre_head_apply_causal(
     return y, q_pool
 
 
+def spectre_head_apply(
+    heads: SpectreHeads,
+    cfg: SpectreHeadConfig,
+    x: torch.Tensor,                      # (B, N, H, hd) tokens per head
+    *,
+    pos_phase: Optional[torch.Tensor] = None,    # (B, F_half) or (F_half,)
+    memory_fft: Optional[torch.Tensor] = None,   # (F_half, H, hd) complex
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+    sp_mesh=None,
+    sp_layout: str = "contiguous",
+):
+    """Full-sequence (non-causal) spectral gating of every head
+    (spectre.py:479-557): y = irfft(gate * rfft(v) [+ memory], n_fft)[:N]
+    through ``torch.fft`` (``unfused_mix``).  Requires N <= n_fft.  With
+    ``deterministic`` false and dropout_p > 0 the output goes through
+    dropout drawn from ``generator``.  Returns (mixed (B, N, H, hd), q_pool
+    (B, H, hd)).  ``sp_mesh`` (sequence parallelism) is not ported."""
+    _no_sp_mesh(sp_mesh, sp_layout)
+    b, n, h, hd = x.shape
+    if n > cfg.n_fft:
+        raise ValueError(f"sequence {n} exceeds n_fft {cfg.n_fft}")
+    q = _heads_linear(x, heads.w_q)
+    v = _heads_linear(x, heads.w_v)
+    q_pool = _pool_descriptor(heads, cfg, q)
+    gate = _with_pos_phase(spectre_gate(heads, cfg, q_pool), pos_phase)
+    mem = None if memory_fft is None else memory_fft.reshape(cfg.f_half,
+                                                             h * hd)
+    out = unfused_mix(v.reshape(b, n, h * hd), _compact_gate(gate), mem,
+                      cfg.n_fft)[:, :n].reshape(b, n, h, hd)
+    if not deterministic and cfg.dropout_p > 0.0:
+        out = dropout(out, cfg.dropout_p, generator)
+    return out, q_pool
+
+
 class WaveletRefinement(nn.Module):
-    """The wavelet branch's gate MLP.  Its weights are carried so that a
-    JAX checkpoint round-trips; causal models run with wavelet_on_rate=0 and
-    never apply it."""
+    """The wavelet branch's gate MLP, Linear-SiLU-Linear-Sigmoid from the
+    pooled descriptor (d -> d -> d)."""
 
     def __init__(self, embed_dim: int):
         super().__init__()
@@ -206,16 +321,50 @@ class WaveletRefinement(nn.Module):
         self.fc2 = nn.Linear(embed_dim, embed_dim)
 
 
+def wavelet_refinement_apply(
+    wavelet: WaveletRefinement,
+    v: torch.Tensor,                      # (B, N, d) mixed tokens
+    q_pool: torch.Tensor,                 # (B, d) pooled descriptor
+    on_rate: float,
+    *,
+    generator: Optional[torch.Generator] = None,
+    training: bool = False,
+    reference_compat: bool = False,
+) -> torch.Tensor:
+    """Gated straight-through wavelet residual (spectre.py:819-887):
+    v + stop_grad(haar_reconstruct(haar_decompose(v))) * gate * mask.  The
+    gate MLP trains; the wavelet path is detached.  The mask is per batch
+    row: always on for on_rate >= 1; else, in training, drawn with
+    probability on_rate from ``generator``, and off outside training."""
+    if on_rate <= 0.0 or (on_rate < 1.0 and not training):
+        return v
+    gate = torch.sigmoid(wavelet.fc2(F.silu(wavelet.fc1(q_pool))))[:, None]
+    with torch.no_grad():
+        coeffs, lengths = haar_decompose(v.detach().transpose(-1, -2),
+                                         reference_compat=reference_compat)
+        v_ref = haar_reconstruct(coeffs, lengths).transpose(-1, -2)
+    if on_rate >= 1.0:
+        return v + v_ref * gate
+    if generator is None:
+        raise ValueError("the wavelet branch in training mode draws its "
+                         "on-mask from an explicit torch.Generator: pass "
+                         "generator=")
+    mask = torch.rand((v.shape[0], 1, 1), generator=generator,
+                      device=v.device) < on_rate
+    return v + v_ref * gate * mask.to(v.dtype)
+
+
 class SpectreMultiHead(nn.Module):
-    """Multi-head causal SPECTRE mixer."""
+    """Multi-head SPECTRE mixer, causal or not (``cfg.causal``)."""
 
     def __init__(self, cfg: SpectreConfig):
         super().__init__()
-        if not cfg.causal:
-            raise _not_ported("the non-causal mix")
-        if cfg.wavelet_on_rate != 0.0:
+        if cfg.causal and cfg.wavelet_on_rate != 0.0:
             raise ValueError("the wavelet branch is non-causal; set "
                              "wavelet_on_rate=0 for causal models")
+        if cfg.causal and cfg.pooling_type != "mean":
+            raise _not_ported(f"causal pooling_type={cfg.pooling_type!r} "
+                              "(the streaming descriptors, module 4)")
         self.cfg = cfg
         self.heads = SpectreHeads(cfg.head_config(), cfg.num_heads)
         self.out_proj = nn.Linear(cfg.embed_dim, cfg.embed_dim, bias=False)
@@ -233,9 +382,57 @@ class SpectreMultiHead(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 memory_fft: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """x (B, N, d); memory_fft (F_half, d) complex or None.  In train
-        mode with dropout_p > 0, dropout masks come from ``generator``."""
+                generator: Optional[torch.Generator] = None,
+                pos_phase: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B, N, d); memory_fft (F_half, d) complex or None; pos_phase
+        (B, F_half) or (F_half,) complex, non-causal only.  In train mode,
+        dropout masks and the wavelet's on-mask come from ``generator``."""
+        if self.cfg.causal:
+            if pos_phase is not None:
+                raise ValueError("pos_phase is for the non-causal mix")
+            return self._forward_causal(x, memory_fft, generator)
+        return self._forward_noncausal(x, memory_fft, generator, pos_phase)
+
+    def _forward_noncausal(self, x, memory_fft, generator, pos_phase):
+        cfg = self.cfg
+        hcfg = self.heads.cfg
+        b, n, d = x.shape
+        h, hd = cfg.num_heads, cfg.head_dim
+        if n > cfg.n_fft:
+            raise ValueError(f"sequence {n} exceeds n_fft {cfg.n_fft}")
+        xh = x.reshape(b, n, h, hd)
+        if cfg.fft_impl == "pallas":
+            # all heads' mixes are channel-pointwise: ONE d-wide call of the
+            # spectral-mix kernels, with the compact (B, F, H*G) gate
+            q = _heads_linear(xh, self.heads.w_q)
+            v = _heads_linear(xh, self.heads.w_v)
+            q_pool = _pool_descriptor(self.heads, hcfg, q)
+            gate = _compact_gate(_with_pos_phase(
+                spectre_gate(self.heads, hcfg, q_pool), pos_phase))
+            v_all = F.pad(v.reshape(b, n, d), (0, 0, 0, cfg.n_fft - n))
+            # the memory enters additively: its irfft is a constant that
+            # the kernel adds on its store
+            mem_t = (None if memory_fft is None else fftops.irfft(
+                memory_fft, cfg.n_fft, dim=0).contiguous())
+            mixed = spectral_mix(v_all, gate.real.contiguous(),
+                                 gate.imag.contiguous(), mem_t,
+                                 cfg.n_fft)[:, :n]
+            if self.training and cfg.dropout_p > 0.0:
+                mixed = dropout(mixed, cfg.dropout_p, generator)
+        else:
+            mem_h = (None if memory_fft is None
+                     else memory_fft.reshape(cfg.f_half, h, hd))
+            mixed, q_pool = spectre_head_apply(
+                self.heads, hcfg, xh, pos_phase=pos_phase, memory_fft=mem_h,
+                generator=generator, deterministic=not self.training)
+            mixed = mixed.reshape(b, n, d)
+        refined = wavelet_refinement_apply(
+            self.wavelet, mixed, q_pool.reshape(b, d), cfg.wavelet_on_rate,
+            generator=generator, training=self.training,
+            reference_compat=cfg.wavelet_reference_compat)
+        return self.out_proj(refined)
+
+    def _forward_causal(self, x, memory_fft, generator):
         cfg = self.cfg
         hcfg = self.heads.cfg
         b, n, d = x.shape
@@ -268,17 +465,31 @@ class SpectreMultiHead(nn.Module):
         return self.out_proj(mixed.reshape(b, n, d))
 
 
-def spectre_multihead_init(cfg: SpectreConfig,
-                           generator: torch.Generator) -> SpectreMultiHead:
+def spectre_multihead_init(cfg: SpectreConfig, generator: torch.Generator,
+                           device=None) -> SpectreMultiHead:
+    """A mixer with the JAX package's init distributions, drawn on the CPU
+    from ``generator``, on ``device`` (the card unless ``"cpu"``), in eval
+    mode (the JAX default ``deterministic=True``)."""
+    device = resolve_device(device)
     mix = SpectreMultiHead(cfg)
     mix.reset_parameters(generator)
-    return mix
+    return mix.to(device).eval()
+
+
+def _no_sp_mesh(sp_mesh, sp_layout: str) -> None:
+    if sp_mesh is not None:
+        raise _not_ported(f"sp_mesh (sp_layout={sp_layout!r}; module 7, "
+                          "DP/TP/SP/PP on torch.distributed)")
 
 
 def spectre_multihead_apply(mix: SpectreMultiHead, x: torch.Tensor, *,
                             memory_fft: Optional[torch.Tensor] = None,
-                            generator: Optional[torch.Generator] = None):
-    return mix(x, memory_fft=memory_fft, generator=generator)
+                            generator: Optional[torch.Generator] = None,
+                            pos_phase: Optional[torch.Tensor] = None,
+                            sp_mesh=None, sp_layout: str = "contiguous"):
+    _no_sp_mesh(sp_mesh, sp_layout)
+    return mix(x, memory_fft=memory_fft, generator=generator,
+               pos_phase=pos_phase)
 
 
 class MLP(nn.Module):
@@ -343,14 +554,22 @@ class SpectreBlock(nn.Module):
         return x + self.mlp(self.ln2(x))
 
 
-def spectre_block_init(cfg: SpectreConfig,
-                       generator: torch.Generator) -> SpectreBlock:
+def spectre_block_init(cfg: SpectreConfig, generator: torch.Generator,
+                       device=None) -> SpectreBlock:
+    """A block with the JAX package's init distributions, drawn on the CPU
+    from ``generator`` (one seed gives one block on every device), on
+    ``device`` (the card unless ``"cpu"``), in eval mode (the JAX default
+    ``deterministic=True``; ``.train()`` turns on dropout and the wavelet
+    draw)."""
+    device = resolve_device(device)
     block = SpectreBlock(cfg)
     block.reset_parameters(generator)
-    return block
+    return block.to(device).eval()
 
 
 def spectre_block_apply(block: SpectreBlock, x: torch.Tensor, *,
-                        generator: Optional[torch.Generator] = None
+                        generator: Optional[torch.Generator] = None,
+                        sp_mesh=None, sp_layout: str = "contiguous"
                         ) -> torch.Tensor:
+    _no_sp_mesh(sp_mesh, sp_layout)
     return block(x, generator=generator)

@@ -22,6 +22,7 @@ from fft_tpu_torch.decode.cache import (
     spectre_block_prefill,
 )
 from fft_tpu_torch.layers.spectre import SpectreBlock, _not_ported
+from fft_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,7 +97,9 @@ def lm_init(cfg: LMConfig, generator: torch.Generator,
             device=None) -> SpectreLM:
     """A model with the JAX package's init distributions, drawn on the CPU
     from ``generator`` (a CPU generator, so one seed gives one model on
-    every device), then moved to ``device``."""
+    every device), then moved to ``device``: the card unless ``"cpu"`` is
+    asked for (``resolve_device``)."""
+    device = resolve_device(device)
     model = SpectreLM(cfg)
     model.reset_parameters(generator)
     return model.to(device).eval()

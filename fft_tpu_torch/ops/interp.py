@@ -5,7 +5,8 @@ Keys cubic convolution (a = -0.75, PyTorch's bicubic coefficient),
 ``align_corners=True`` endpoints and border clamping, planned on the host in
 numpy.  The planner is a copy of the JAX package's cubic mode, not an import
 of it; the linear and nearest modes, which no SPECTRE gate uses, are not
-ported.
+ported.  ``interp_complex_1d_ref_compat`` reproduces the original's pairing
+of real and imaginary planes (``interp_reference_compat``).
 """
 
 from __future__ import annotations
@@ -67,3 +68,16 @@ def interp_complex_1d(x: torch.Tensor, size: int) -> torch.Tensor:
     if x.is_complex():
         return torch.complex(x.real @ m, x.imag @ m)
     return x @ m
+
+
+def interp_complex_1d_ref_compat(x: torch.Tensor, size: int) -> torch.Tensor:
+    """The original's cubic gate interpolation, with its real/imag pairing:
+    it stacks the planes of a (..., G, K) gate as [Re g_0..g_{G-1}; Im
+    g_0..g_{G-1}], interpolates each real row, then pairs rows (2m, 2m+1)
+    as group m's real and imaginary parts (so for G=4 group 0 becomes
+    Re g_0 + i Re g_1).  Identity to ``interp_complex_1d`` at G == 1.
+
+    x: (..., G, K) complex -> (..., G, size) complex."""
+    stacked = torch.cat([x.real, x.imag], dim=-2)
+    up = interp_complex_1d(stacked, size)
+    return torch.complex(up[..., 0::2, :], up[..., 1::2, :])

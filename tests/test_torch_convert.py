@@ -120,7 +120,7 @@ def test_port_init_matches_jax_init_distributions():
     bridge with the same structure and shapes, and every leaf has the same
     mean and spread (the two RNGs give different numbers)."""
     cfg = small_lm_config(memory_size=16)
-    model = tlm.lm_init(cfg, torch.Generator().manual_seed(0))
+    model = tlm.lm_init(cfg, torch.Generator().manual_seed(0), "cpu")
     tree = to_jax_params(model.state_dict(), cfg)
     ref = jlm.lm_init(jax.random.key(0), jax_lm_config(cfg))
     assert jax.tree.structure(tree) == jax.tree.structure(ref)
@@ -140,6 +140,7 @@ def _run_isolated(code: str, env=None):
 
 def test_port_never_imports_jax():
     code = ("import sys; import fft_tpu_torch, fft_tpu_torch.kernels.causal, "
+            "fft_tpu_torch.kernels.spectral_mix, fft_tpu_torch.bench, "
             "fft_tpu_torch.cli, fft_tpu_torch.convert, fft_tpu_torch.models, "
             "fft_tpu_torch.decode, fft_tpu_torch.layers; "
             "bad = sorted(m for m in sys.modules "
@@ -153,6 +154,7 @@ def test_kernel_module_imports_without_nvcc():
     env = dict(os.environ, PATH="/nonexistent", CUDA_HOME="/nonexistent",
                CUDA_PATH="/nonexistent")
     code = ("import fft_tpu_torch.kernels.causal as kc, "
+            "fft_tpu_torch.kernels.spectral_mix as sm, "
             "fft_tpu_torch.kernels.build as kb; "
             "assert kb._LIB is None; print('ok')")
     proc = _run_isolated(code, env)

@@ -1,6 +1,6 @@
 """The CUDA kernels of fft_tpu_torch against their plain PyTorch versions,
-on the card, at the tiny LM's shapes.  Imports no JAX, so it runs on a
-machine without it:
+on the card, at the tiny LM's and BASELINE config 1's shapes.  Imports no
+JAX, so it runs on a machine without it:
 
     FFT_TPU_REAL=1 python -m pytest tests/test_torch_kernels.py -q
 
@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from fft_tpu_torch.kernels import causal as kc
+from fft_tpu_torch.kernels import spectral_mix as sm
 
 # max|a-b| / max|b|, as tests/golden_utils.py: direct fp32 DFTs against
 # cuFFT, both accumulating in fp32 in different orders
@@ -163,3 +164,67 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     gr = torch.zeros((1, 8193, 512), device=dev)
     with pytest.raises(ValueError):           # past the shared memory
         kc.kf_spectra(gr, gr, 16384, 1024)
+
+
+# n_fft, d_g: config 1's 1024 with 16-channel groups; groups of 8 and 64
+# channels (a tile holds whole groups, a group spans whole tiles)
+MIX_CASES = [(n, dg) for n in (64, 256, 1024, 2048) for dg in (8, 16, 64)]
+
+
+def _mix_inputs(dev, n_fft, d_g, seed, b=2, d=512):
+    g = torch.Generator().manual_seed(seed)
+    cols, fh = d // d_g, n_fft // 2 + 1
+    return (_randn(g, dev, b, n_fft, d), _randn(g, dev, b, fh, cols),
+            _randn(g, dev, b, fh, cols), _randn(g, dev, n_fft, d),
+            _randn(g, dev, b, n_fft, d))
+
+
+@pytest.mark.parametrize("n_fft,d_g", MIX_CASES)
+def test_direct_mix_kernel(dev, n_fft, d_g):
+    v, gr, gi, mem_t, _ = _mix_inputs(dev, n_fft, d_g, n_fft + d_g)
+    for m in (mem_t, None):
+        before = sm.LAUNCHES["direct_mix"]
+        got = sm.direct_mix(v, gr, gi, m, n_fft)
+        torch.cuda.synchronize()
+        assert sm.LAUNCHES["direct_mix"] == before + 1
+        assert _rel(got, sm.direct_mix_ref(v, gr, gi, m, n_fft)) < TOL
+
+
+@pytest.mark.parametrize("n_fft,d_g", MIX_CASES)
+def test_direct_mix_bwd_kernel(dev, n_fft, d_g):
+    v, gr, gi, _, ybar = _mix_inputs(dev, n_fft, d_g, 7 * n_fft + d_g)
+    before = sm.LAUNCHES["direct_mix_bwd"]
+    got = sm.direct_mix_bwd(v, gr, gi, ybar, n_fft)
+    torch.cuda.synchronize()
+    assert sm.LAUNCHES["direct_mix_bwd"] == before + 1
+    want = sm.direct_mix_bwd_ref(v, gr, gi, ybar, n_fft)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        assert _rel(a, w) < TOL
+
+
+def test_spectral_mix_backward_on_card(dev):
+    """backward() through the spectral_mix Function on the card runs
+    direct_mix_bwd and gives every input the CPU's gradient."""
+    n_fft = 1024
+    inputs = [t.cpu() for t in _mix_inputs(dev, n_fft, 16, 3)[:4]]
+    w = torch.randn((2, n_fft, 512),
+                    generator=torch.Generator().manual_seed(4))
+    before = sm.LAUNCHES["direct_mix_bwd"]
+    got = _grads_on(dev, lambda *a: sm.spectral_mix(*a, n_fft), inputs, [w])
+    torch.cuda.synchronize()
+    assert sm.LAUNCHES["direct_mix_bwd"] == before + 1
+    want = _grads_on("cpu", lambda *a: sm.spectral_mix(*a, n_fft), inputs,
+                     [w])
+    for a, b in zip(got, want):
+        assert a is not None and a.device.type == "cuda"
+        assert _rel(a.cpu(), b) < 1e-4
+
+
+def test_direct_mix_refuses_what_the_kernels_do_not_take(dev):
+    for n_fft, err, match in ((4096, NotImplementedError, "module 6"),
+                              (16384, NotImplementedError, "module 6"),
+                              (1000, ValueError, "unsupported")):
+        v, gr, gi, _, _ = _mix_inputs(dev, n_fft, 16, 0, b=1, d=64)
+        with pytest.raises(err, match=match):
+            sm.direct_mix(v, gr, gi, None, n_fft)

@@ -101,9 +101,11 @@ def test_generate_runs_prefill_then_decode():
 def test_cli_generate_and_not_ported_flags():
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        assert cli.main(["generate", "--seq", "256", "--steps", "3"]) == 0
+        assert cli.main(["generate", "--device", "cpu", "--seq", "256",
+                         "--steps", "3"]) == 0
     assert buf.getvalue().startswith("the ")
     for extra in (["--ckpt", "x"], ["--bf16"], ["--preset", "350m"],
                   ["--vocab", "v.json"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(["generate", "--seq", "256", "--steps", "1", *extra])
+            cli.main(["generate", "--device", "cpu", "--seq", "256", "--steps",
+                      "1", *extra])

@@ -173,3 +173,85 @@ def test_causal_block_parity(n_fft, chunk, n, impl, mem, d, branch):
     assert set(BRANCH_CALLS) == {branch}
     assert rel_err(got_mix, ref_mix) < TOL
     assert rel_err(got_blk, ref_blk) < TOL
+
+
+# ---------------------------------------------------------------------------
+# The non-causal block's ops: DCT, poolers, Toeplitz conv, ref-compat
+# interpolation, Haar pyramid
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [50, 128])
+def test_dct2_and_dct_pool_parity(n):
+    from fft_tpu.ops.dct import dct_pool_weights as jweights
+    x = np.random.default_rng(n).standard_normal((2, n, 16)).astype(
+        np.float32)
+    for norm in (None, "ortho"):
+        ref = np.asarray(jops.dct2(jnp.asarray(x), norm=norm))
+        assert rel_err(tops.dct2(torch.from_numpy(x), norm=norm).numpy(),
+                       ref) < TOL
+    ref = np.asarray(jops.dct_pool(jnp.asarray(x)))
+    assert rel_err(tops.dct_pool(torch.from_numpy(x)).numpy(), ref) < TOL
+    assert np.array_equal(tops.dct_pool_weights(n).numpy(),
+                          np.asarray(jweights(n)))
+
+
+def test_attention_pool_parity():
+    rng = np.random.default_rng(4)
+    d, hidden = 16, 256
+    x = rng.standard_normal((2, 12, d)).astype(np.float32)
+    p = {"w1": rng.standard_normal((d, hidden)) / 4,
+         "b1": 0.1 * rng.standard_normal(hidden),
+         "w2": rng.standard_normal((hidden, 1)) / 16,
+         "b2": 0.1 * rng.standard_normal(1)}
+    p = {k: a.astype(np.float32) for k, a in p.items()}
+    ref = np.asarray(jops.attention_pool(
+        {k: jnp.asarray(a) for k, a in p.items()}, jnp.asarray(x)))
+    t = {k: torch.from_numpy(a) for k, a in p.items()}
+    got = tops.attention_pool(torch.from_numpy(x), t["w1"].T, t["b1"],
+                              t["w2"].T, t["b2"]).numpy()
+    assert rel_err(got, ref) < TOL
+
+
+@pytest.mark.parametrize("length,klen", [(9, 9), (22, 9), (5, 3)])
+def test_complex_circular_conv1d_parity(length, klen):
+    rng = np.random.default_rng(length)
+    x, k = _cplx(rng, (2, 3, length)), _cplx(rng, (klen,))
+    ref = np.asarray(jops.complex_circular_conv1d(jnp.asarray(x),
+                                                  jnp.asarray(k)))
+    got = tops.complex_circular_conv1d(torch.from_numpy(x),
+                                       torch.from_numpy(k)).numpy()
+    assert rel_err(got, ref) < TOL
+
+
+@pytest.mark.parametrize("groups,size", [(4, 65), (1, 33), (3, 129)])
+def test_interp_ref_compat_parity(groups, size):
+    x = _cplx(np.random.default_rng(groups), (2, groups, 8))
+    ref = np.asarray(jinterp.interp_complex_1d_ref_compat(jnp.asarray(x),
+                                                          size))
+    got = tops.interp_complex_1d_ref_compat(torch.from_numpy(x),
+                                            size).numpy()
+    assert rel_err(got, ref) < TOL
+
+
+@pytest.mark.parametrize("length", [64, 197])
+@pytest.mark.parametrize("compat", [False, True])
+def test_haar_pyramid_parity(length, compat):
+    """Every coefficient of the pyramid and the reconstruction, at a
+    power-of-two and an odd length (ViT's 197).  The original's pyramid
+    (reference_compat) cannot reconstruct an odd length, in JAX or here."""
+    x = np.random.default_rng(length).standard_normal(
+        (2, 3, length)).astype(np.float32)
+    ref_c, ref_l = jops.haar_decompose(jnp.asarray(x),
+                                       reference_compat=compat)
+    got_c, got_l = tops.haar_decompose(torch.from_numpy(x),
+                                       reference_compat=compat)
+    assert got_l == ref_l and len(got_c) == len(ref_c)
+    for a, r in zip(got_c, ref_c):
+        assert a.shape == r.shape and rel_err(a.numpy(), np.asarray(r)) < TOL
+    if compat and length % 2:
+        return
+    ref = np.asarray(jops.haar_reconstruct(ref_c, ref_l))
+    got = tops.haar_reconstruct(got_c, got_l).numpy()
+    assert rel_err(got, ref) < TOL
+    if not compat:
+        assert rel_err(got, x) < TOL            # perfect reconstruction

@@ -325,7 +325,8 @@ def test_cli_train_lm_runs_two_steps(tmp_path):
     out = tmp_path / "m.jsonl"
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        assert cli.main(["train-lm", "--seq", "256", "--batch", "2",
+        assert cli.main(["train-lm", "--device", "cpu", "--seq", "256",
+                         "--batch", "2",
                          "--steps", "2", "--log-every", "1",
                          "--eval-every", "1", "--metrics", str(out)]) == 0
     lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
@@ -346,7 +347,8 @@ def test_cli_train_lm_runs_two_steps(tmp_path):
 ])
 def test_cli_train_lm_not_ported_flags_raise(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["train-lm", "--seq", "256", "--steps", "1", *extra])
+        cli.main(["train-lm", "--device", "cpu", "--seq", "256", "--steps",
+                  "1", *extra])
 
 
 def test_lm_loss_eval_mode_has_no_graph():
