@@ -1,7 +1,9 @@
 """Smoke run of fft_tpu_torch on one NVIDIA GPU: the tiny LM's serving and
-training paths at full width (6 layers, d=512, 8 heads, seq 2048) and
+training paths at full width (6 layers, d=512, 8 heads, seq 2048),
 BASELINE config 1's non-causal block (B=8, L=1024, d=512) forward and
-backward, random weights from seed 0, through the port's own entry points.
+backward, and BASELINE config 4, SPECTRE-350M at seq 16384 (24 layers,
+d=1024, 16 heads, vocab 50432), serving and training, random weights from
+seed 0, through the port's own entry points.
 
     python3 chip_smoke.py
 
@@ -43,6 +45,19 @@ Phases, in order; any failure raises and the exit code is nonzero:
              memory) for one finite training step and eval-mode forward
              parity with the CPU.  Both spectral-mix kernels were launched
              during the phase.
+8. 350m      SPECTRE-350M (spectre_350m_config, seq 16384, chunk 2048).
+             Parity at 2 layers and 8192 tokens (nc=4: kf_seg_rfft, the v3
+             mix and its backward): logits, loss and every gradient of a
+             train_step within 1e-4 of the CPU.  Then at full depth:
+             scoring 1 x 16384 (ms, tokens/s), prefill of 8192 and 1024
+             tokens, decode ms/token, the CLI's generate --preset 350m
+             --seq 16384, one scoring call and one 1024-token prefill under
+             torch.profiler; every serving kernel of the slice launched and
+             no causal mix on the plain composition.  3 train_steps at 1 x
+             16384 (step ms, tokens/s, peak memory, finite loss), one more
+             under torch.profiler (device time by kernel, idle share), the
+             CLI's train-lm --preset 350m on a text file; kf_seg_rfft,
+             fused_causal_mix_v3 and fused_causal_mix_bwd_v3 launched.
 
 Prints one JSON line per phase, the card's name and power limit as
 nvidia-smi gives them, a JSON line of per-kernel results, and last
@@ -74,6 +89,9 @@ SOURCES = {
     "fused_causal_mix": "fft_tpu_torch/csrc/causal.cu",
     "banded_inverse": "fft_tpu_torch/csrc/causal.cu",
     "fused_causal_mix_bwd": "fft_tpu_torch/csrc/causal_bwd.cu",
+    "kf_seg_rfft": "fft_tpu_torch/csrc/causal_long.cu",
+    "fused_causal_mix_v3": "fft_tpu_torch/csrc/causal_long.cu",
+    "fused_causal_mix_bwd_v3": "fft_tpu_torch/csrc/causal_long.cu",
 }
 REPLACES = {
     "direct_mix": "fft_tpu/kernels/pallas_fft.py:301",
@@ -82,10 +100,18 @@ REPLACES = {
     "fused_causal_mix": "fft_tpu/kernels/pallas_causal.py:592",
     "banded_inverse": "fft_tpu/kernels/pallas_causal.py:167",
     "fused_causal_mix_bwd": "fft_tpu/kernels/pallas_causal.py:1921",
+    "kf_seg_rfft": "fft_tpu/kernels/pallas_causal.py:1596",
+    "fused_causal_mix_v3": "fft_tpu/kernels/pallas_causal.py:931",
+    "fused_causal_mix_bwd_v3": "fft_tpu/kernels/pallas_causal.py:2307",
 }
 SERVE_KERNELS = ("kf_spectra", "fused_causal_mix", "banded_inverse")
 TRAIN_KERNELS = ("kf_spectra", "fused_causal_mix", "fused_causal_mix_bwd")
 BLOCK_KERNELS = ("direct_mix", "direct_mix_bwd")
+# the 350M's paths at seq 16384: its long-context kernels (the CLI's 4-byte
+# prompt runs banded_inverse)
+SERVE_350M_KERNELS = ("kf_seg_rfft", "fused_causal_mix_v3", "banded_inverse")
+TRAIN_350M_KERNELS = ("kf_seg_rfft", "fused_causal_mix_v3",
+                      "fused_causal_mix_bwd_v3")
 # the card's peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s, fp32
 # FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -233,6 +259,7 @@ def phase_kernels(kc, sm, dev):
             lambda args=args, c=c: kc.banded_inverse_ref(*args, c),
             None, (4 * b * (2 * (c + 1) + c) * d + kb,
                    mac + b * d * fft_ops(2 * c)), c == 4))
+    cases += long_cases(kc, randn)
     # the spectral mix: BASELINE config 1 (B=8, N=1024, d=512, H*G=32, with
     # and without memory), then N=2048 and N=256
     for n, mem in ((1024, True), (1024, False), (2048, True), (256, True)):
@@ -259,6 +286,54 @@ def phase_kernels(kc, sm, dev):
         emit(phase="kernels", kernel=name, **case)
         results.setdefault(name, []).append(case)
     return results
+
+
+def long_cases(kc, randn):
+    """The 350M's long-context kernels: one layer at seq 16384 (d=1024, 16
+    heads x 4 groups = 64 gate columns, chunk 2048, nc=8), the 8192- and
+    1024-token prompts' mixes, and #5 at the 8-lane tile's chunks."""
+    cases = []
+    b, chunk, d, cols = 1, 2048, 1024, 64
+    n, lanes = 16384, 8 * 64
+    kt = randn(b, n, lanes)
+    cases.append((
+        "kf_seg_rfft", f"B={b} N={n} C={chunk} L={lanes}",
+        lambda: torch.cat(kc.kf_seg_rfft(kt, chunk)),
+        lambda: torch.cat(kc.kf_seg_rfft_ref(kt, chunk)),
+        lambda: torch.fft.rfft(kt.view(b, n // chunk, chunk, lanes),
+                               2 * chunk, dim=2),
+        (4 * b * n * lanes + 4 * 2 * b * (n // chunk) * (chunk + 1) * lanes,
+         b * lanes * (n // chunk) * fft_ops(2 * chunk)), True))
+    for nc, c in ((8, chunk), (4, chunk), (1, 1024)):
+        v, ybar = randn(b, nc * c, d), randn(b, nc * c, d)
+        kr, ki = (randn(b, nc, c + 1, nc * cols) for _ in range(2))
+        vb, kb, mac, seg = causal_work(b, nc, c, d, cols)
+        shape = f"B={b} nc={nc} C={c} d={d} cols={cols}"
+        cases.append((
+            "fused_causal_mix_v3", shape,
+            lambda v=v, kr=kr, ki=ki, c=c: kc.fused_causal_mix(v, kr, ki, c,
+                                                               cols),
+            lambda v=v, kr=kr, ki=ki, c=c: kc.fused_causal_mix_ref(
+                v, kr, ki, c, cols),
+            None, (2 * vb + kb, 2 * seg + mac), nc == 8))
+        cases.append((
+            "fused_causal_mix_bwd_v3", shape,
+            lambda v=v, kr=kr, ki=ki, yb=ybar, c=c: kc.fused_causal_mix_bwd(
+                v, kr, ki, yb, c, cols),
+            lambda v=v, kr=kr, ki=ki, yb=ybar, c=c:
+                kc.fused_causal_mix_bwd_ref(v, kr, ki, yb, c, cols),
+            None, (3 * vb + 2 * kb, 3 * seg + 2 * mac), nc == 8))
+    for c in (1024, 1500):
+        args = (randn(b, 1, c + 1, d), randn(b, 1, c + 1, d),
+                randn(b, 1, 1, c + 1, cols), randn(b, 1, 1, c + 1, cols))
+        _, kb, mac, _ = causal_work(b, 1, c, d, cols)
+        cases.append((
+            "banded_inverse", f"B={b} nc=1 C={c} d={d} cols={cols}",
+            lambda args=args, c=c: kc.banded_inverse(*args, c),
+            lambda args=args, c=c: kc.banded_inverse_ref(*args, c),
+            None, (4 * b * (2 * (c + 1) + c) * d + kb,
+                   mac + b * d * fft_ops(2 * c)), False))
+    return cases
 
 
 def mix_cases(sm, randn, b, n, d, cols, mem, main):
@@ -331,57 +406,66 @@ def same_modrelu_side(record: bool, sides: list):
         spectre.modrelu = plain
 
 
-def phase_train(cfg, dev) -> None:
-    """Gradient parity with the CPU, 5 steps at the CLI's batch, the CLI."""
-    from fft_tpu_torch import cli
+def train_parity(cfg, dev, tokens) -> dict:
+    """One train_step of ``cfg`` from seed 0 on the card and on the CPU
+    (modReLU kink sides aligned): loss and every parameter gradient."""
     from fft_tpu_torch.models.lm import lm_hidden, lm_init
     from fft_tpu_torch.train import TrainConfig, train_init, train_step
-    from fft_tpu_torch.train.data import CharDataset
-
-    data = CharDataset()                      # the synthetic corpus
-    seq = cfg.max_seq
 
     def state_on(device):
         model = lm_init(cfg, torch.Generator().manual_seed(SEED), device)
         return train_init(model, TrainConfig(), seed=SEED + 1)
 
-    batch = next(data.batches(2, seq, seed=SEED))
     gpu, cpu = state_on(dev), state_on("cpu")
     sides = []
     with same_modrelu_side(True, sides):
-        got = train_step(gpu, batch)
+        got = train_step(gpu, tokens)
         torch.cuda.synchronize()
     with same_modrelu_side(False, list(sides)):
-        want = train_step(cpu, batch)
-    # how many gate values the CPU's own forward puts on the other side
+        want = train_step(cpu, tokens)
     cpu_sides = []
     with torch.no_grad(), same_modrelu_side(True, cpu_sides):
-        lm_hidden(cpu.model, torch.as_tensor(batch[:, :-1]).long())
-    flips = sum(int((a != b).sum()) for a, b in zip(sides, cpu_sides))
+        lm_hidden(cpu.model, torch.as_tensor(tokens[:, :-1]).long())
+    # the card's forward, then its recompute in backward when remat is on
+    fwd_sides = sides[:len(cpu_sides)]
+    flips = sum(int((a != b).sum()) for a, b in zip(fwd_sides, cpu_sides))
     loss, ref_loss = float(got["loss"]), float(want["loss"])
-    loss_err = abs(loss - ref_loss) / abs(ref_loss)
     grad_errs = {}
     for (name, pg), (_, pc) in zip(gpu.model.named_parameters(),
                                    cpu.model.named_parameters()):
         if pc.grad is None or pg.grad is None:   # the unused wavelet MLP
             if pc.grad is not pg.grad:
-                raise AssertionError(f"train: {name} has a gradient on one "
-                                     "device only")
+                raise AssertionError(f"{name} has a gradient on one device "
+                                     "only")
             continue
         grad_errs[name] = rel_err(pg.grad, pc.grad)
     worst = max(grad_errs, key=grad_errs.get)
-    if not (math.isfinite(loss) and loss_err <= REL_MODEL
-            and grad_errs[worst] <= REL_MODEL):
-        raise AssertionError(f"train: loss rel_err {loss_err}, worst "
-                             f"gradient {worst} rel_err {grad_errs[worst]} "
-                             f"(limit {REL_MODEL})")
-    emit(phase="train_parity", batch=2, seq=seq, loss=loss,
-         cpu_loss=ref_loss, loss_rel_err=loss_err,
-         max_grad_rel_err=grad_errs[worst], worst_grad=worst,
-         tensors=len(grad_errs), modrelu_sides_aligned=flips)
-    del gpu, cpu, got, want
+    return dict(loss=loss, cpu_loss=ref_loss,
+                loss_rel_err=abs(loss - ref_loss) / abs(ref_loss),
+                max_grad_rel_err=grad_errs[worst], worst_grad=worst,
+                tensors=len(grad_errs), modrelu_sides_aligned=flips,
+                finite=math.isfinite(loss))
 
-    state = state_on(dev)
+
+def phase_train(cfg, dev) -> None:
+    """Gradient parity with the CPU, 5 steps at the CLI's batch, the CLI."""
+    from fft_tpu_torch import cli
+    from fft_tpu_torch.models.lm import lm_init
+    from fft_tpu_torch.train import TrainConfig, train_init, train_step
+    from fft_tpu_torch.train.data import CharDataset
+
+    data = CharDataset()                      # the synthetic corpus
+    seq = cfg.max_seq
+    res = train_parity(cfg, dev, next(data.batches(2, seq, seed=SEED)))
+    emit(phase="train_parity", batch=2, seq=seq, **res)
+    if not (res["finite"] and res["loss_rel_err"] <= REL_MODEL
+            and res["max_grad_rel_err"] <= REL_MODEL):
+        raise AssertionError(f"train: loss rel_err {res['loss_rel_err']}, "
+                             f"worst gradient {res['worst_grad']} rel_err "
+                             f"{res['max_grad_rel_err']} (limit {REL_MODEL})")
+
+    state = train_init(lm_init(cfg, torch.Generator().manual_seed(SEED), dev),
+                       TrainConfig(), seed=SEED + 1)
     batches = data.batches(8, seq, seed=SEED)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -504,6 +588,174 @@ def phase_block(dev) -> None:
     emit(phase="block_defaults", pooling="dct", wavelet_on_rate=0.1,
          generator_seed=seed, train_finite=True, tensors=len(grads),
          eval_rel_err=err)
+
+
+def phase_350m_parity(dev, kc) -> None:
+    """SPECTRE-350M cut to 2 layers, 8192 tokens: the kf_seg branch and the
+    long-chunk kernels (nc = 4) on the card against the CPU."""
+    from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS
+    from fft_tpu_torch.models.lm import lm_apply, lm_init, spectre_350m_config
+
+    cfg = dataclasses.replace(spectre_350m_config(), num_layers=2)
+    n = 8192
+    tokens = torch.randint(0, cfg.vocab_size, (1, n + 1),
+                           generator=torch.Generator().manual_seed(SEED + 3))
+    kc.reset_launches()
+    BRANCH_CALLS.clear()
+    gpu = lm_init(cfg, torch.Generator().manual_seed(SEED), dev)
+    logits = lm_apply(gpu, tokens[:, :n].to(dev))
+    torch.cuda.synchronize()
+    branches = dict(BRANCH_CALLS)
+    del gpu
+    ref = lm_apply(lm_init(cfg, torch.Generator().manual_seed(SEED), "cpu"),
+                   tokens[:, :n])
+    logit_err = rel_err(logits, ref)
+    finite = all_finite(logits)
+    del logits, ref
+    res = train_parity(cfg, dev, tokens.numpy().astype("int32"))
+    used = {k: v for k, v in kc.LAUNCHES.items() if v}
+    emit(phase="350m_parity", layers=cfg.num_layers, seq=n,
+         chunk=cfg.block.causal_chunk, logits_rel_err=logit_err,
+         branches=branches, launches=used, **res)
+    if not (finite and res["finite"] and logit_err <= REL_MODEL
+            and res["loss_rel_err"] <= REL_MODEL
+            and res["max_grad_rel_err"] <= REL_MODEL):
+        raise AssertionError(f"350m parity: logits {logit_err}, loss "
+                             f"{res['loss_rel_err']}, worst gradient "
+                             f"{res['worst_grad']} {res['max_grad_rel_err']} "
+                             f"(limit {REL_MODEL})")
+    if branches != {"kf_seg": cfg.num_layers} or not all(
+            used.get(k) for k in TRAIN_350M_KERNELS):
+        raise AssertionError(f"350m parity took {branches}, launched {used}")
+
+
+def phase_350m(dev, reset_launches, launches):
+    """SPECTRE-350M at seq 16384, full depth: scoring, prefill, decode, the
+    CLI's generate (the serving path), then train steps, a profiled step
+    and the CLI's train-lm (the training path).  Returns the launches of
+    the two paths."""
+    import tempfile
+
+    from fft_tpu_torch import bench, cli
+    from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS
+    from fft_tpu_torch.models.lm import (
+        lm_apply, lm_decode_step, lm_init, lm_prefill, spectre_350m_config,
+    )
+    from fft_tpu_torch.train import TrainConfig, train_init, train_step
+    from fft_tpu_torch.train.data import synthetic_corpus
+
+    cfg = spectre_350m_config()
+    seq = cfg.max_seq
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq + 1),
+                           generator=torch.Generator().manual_seed(SEED + 4))
+    model = lm_init(cfg, torch.Generator().manual_seed(SEED), dev)
+    params = sum(p.numel() for p in model.parameters())
+    x = tokens[:, :seq].to(dev)
+
+    reset_launches()                          # the 350M's serving path
+    BRANCH_CALLS.clear()
+    logits = lm_apply(model, x)
+    torch.cuda.synchronize()
+    if not (logits.shape == (1, seq, cfg.vocab_size) and all_finite(logits)):
+        raise AssertionError(f"350m score: shape {tuple(logits.shape)} or "
+                             "non-finite")
+    del logits
+    score_ms = wall_ms(lambda: lm_apply(model, x), rounds=3)
+    prefill_ms = {}
+    for length in (8192, 1024):
+        prompt = x[:, :length]
+        lg, caches = lm_prefill(model, prompt)
+        if not all_finite(lg):
+            raise AssertionError(f"350m prefill {length}: non-finite")
+        del lg, caches
+        prefill_ms[length] = wall_ms(lambda: lm_prefill(model, prompt),
+                                     rounds=3)
+    profiles = {
+        "score": bench._profile(lambda: lm_apply(model, x),
+                                torch.cuda.synchronize, 1),
+        "prefill_1024": bench._profile(lambda: lm_prefill(model, x[:, :1024]),
+                                       torch.cuda.synchronize, 1)}
+    lg, caches = lm_prefill(model, x[:, :1024])
+    tok = lg.argmax(-1)
+    torch.cuda.synchronize()
+    steps = 16
+    t0 = time.perf_counter()
+    for i in range(steps):
+        lg, caches = lm_decode_step(model, tok, 1024 + i, caches)
+        tok = lg.argmax(-1)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+    if not all_finite(lg):
+        raise AssertionError("350m decode: non-finite logits")
+    del lg, caches
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["generate", "--device", "cuda", "--preset", "350m",
+                  "--seq", str(seq), "--steps", str(steps)])
+    if not buf.getvalue().startswith("the "):
+        raise AssertionError(f"cli generate --preset 350m printed "
+                             f"{buf.getvalue()!r}")
+    serve = launches()
+    serve_branches = dict(BRANCH_CALLS)
+    emit(phase="350m_serve", params=params, seq=seq,
+         chunk=cfg.block.causal_chunk, score_ms=score_ms,
+         score_tokens_per_s=seq / (score_ms / 1e3),
+         prefill_ms={str(k): v for k, v in prefill_ms.items()},
+         decode_ms_per_token=decode_ms, cli_generate_chars=len(buf.getvalue()),
+         branches=serve_branches, launches=serve, profiles=profiles)
+    missing = [k for k in SERVE_350M_KERNELS if serve[k] == 0]
+    if missing or serve_branches.get("composition"):
+        raise AssertionError(f"350m serving: kernels never launched "
+                             f"{missing}, branches {serve_branches}")
+
+    reset_launches()                          # the 350M's training path
+    BRANCH_CALLS.clear()
+    state = train_init(model, TrainConfig(), seed=SEED + 1)
+    batches = [torch.randint(0, cfg.vocab_size, (1, seq + 1),
+                             generator=torch.Generator().manual_seed(s))
+               for s in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        m = train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"350m train: non-finite loss {losses}")
+    ms = statistics.median(step_ms[1:])
+    prof = bench._profile(lambda: train_step(state, batches[0]),
+                          torch.cuda.synchronize, 1)
+    emit(phase="350m_train", batch=1, seq=seq, step_ms=step_ms,
+         median_step_ms=ms, tokens_per_s=seq / (ms / 1e3), loss=losses,
+         peak_memory_bytes=peak, profile=prof)
+    del state, model, x
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/corpus.txt"
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(synthetic_corpus(200_000, seed=SEED))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["train-lm", "--device", "cuda", "--preset", "350m",
+                      "--data", path, "--seq", str(seq), "--batch", "1",
+                      "--steps", "2", "--log-every", "1"])
+    recs = [json.loads(line) for line in buf.getvalue().splitlines()
+            if line.startswith("{")]
+    if not recs or not all(math.isfinite(r["loss"]) for r in recs):
+        raise AssertionError(f"cli train-lm --preset 350m printed "
+                             f"{buf.getvalue()!r}")
+    train = launches()
+    train_branches = dict(BRANCH_CALLS)
+    emit(phase="350m_cli_train_lm", steps=2, lines=recs,
+         branches=train_branches, launches=train)
+    missing = [k for k in TRAIN_350M_KERNELS if train[k] == 0]
+    if missing or train_branches.get("composition"):
+        raise AssertionError(f"350m training: kernels never launched "
+                             f"{missing}, branches {train_branches}")
+    return serve, train
 
 
 def main() -> int:
@@ -643,12 +895,18 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the block path: "
                              f"{missing}")
 
+    # 8. 350m --------------------------------------------------------------
+    phase_350m_parity(dev, kc)
+    serve_350m, train_350m = phase_350m(dev, reset_launches, launches)
+
     summary = []
     for name, cases in kernel_results.items():
         main_case = next(c for c in cases if c["main"])
         by_path = dict(serve=serve_launches[name],
                        train=train_launches[name],
-                       block=block_launches[name])
+                       block=block_launches[name],
+                       serve_350m=serve_350m[name],
+                       train_350m=train_350m[name])
         summary.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=sum(by_path.values()),

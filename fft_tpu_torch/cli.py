@@ -2,17 +2,19 @@
 ``generate``).
 
 Usage:
-    python -m fft_tpu_torch.cli train-lm [--preset tiny] [--steps N]
+    python -m fft_tpu_torch.cli train-lm [--preset tiny|350m] [--steps N]
         [--batch B] [--seq L] [--lr LR] [--data FILE] [--metrics FILE]
         [--log-every N] [--eval-every N] [--seed S] [--device cuda|cpu]
-    python -m fft_tpu_torch.cli generate [--preset tiny] [--seq L]
+    python -m fft_tpu_torch.cli generate [--preset tiny|350m] [--seq L]
         [--prompt TEXT] [--steps N] [--temperature T] [--seed S]
         [--device cuda|cpu]
 
-Random weights from ``--seed``; byte-level tokens (vocab 256).  Both run
-on the card unless ``--device cpu`` is given; without a card they fail at
-once.  Training runs on a text file, or on the synthetic corpus when no
-``--data`` is given.
+Random weights from ``--seed``; byte-level tokens (ids below 256, in the
+350M's 50432-entry vocab too, as the JAX CLI does without ``--vocab``).
+Both run on the card unless ``--device cpu`` is given; without a card they
+fail at once.  Training runs on a text file, or, for the tiny preset, on
+the synthetic corpus when no ``--data`` is given (the JAX CLI builds a BPE
+corpus for the 350M there, which is not ported).
 Flags of the JAX CLI whose modules are still queued raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
@@ -32,7 +34,6 @@ _CKPT = "module 7, checkpoint, CLI and parallel/"
 _PARALLEL = "module 7, DP/TP/SP/PP on torch.distributed"
 _BPE = "module 7, BPE vocab and the tokenize command"
 _BF16 = "bf16 fast mode"
-_350M = "module 5, the 350M model"
 
 
 def _not_ported(flag: str, item: str) -> NotImplementedError:
@@ -41,15 +42,26 @@ def _not_ported(flag: str, item: str) -> NotImplementedError:
         f"'Modules to port': {item})")
 
 
+def _lm_config(args):
+    """The preset's LMConfig at ``--seq`` (and ``--vocab-size``, if given)."""
+    from fft_tpu_torch.models.lm import spectre_350m_config, tiny_lm_config
+    vocab = ({"vocab_size": args.vocab_size}
+             if getattr(args, "vocab_size", None) else {})
+    make = spectre_350m_config if args.preset == "350m" else tiny_lm_config
+    return make(seq=args.seq, **vocab)
+
+
 def cmd_train_lm(args) -> None:
-    from fft_tpu_torch.models.lm import lm_init, tiny_lm_config
+    from fft_tpu_torch.models.lm import lm_init
     from fft_tpu_torch.train import TrainConfig, lm_loss, train_init, \
         train_step
     from fft_tpu_torch.train.data import CharDataset
     from fft_tpu_torch.utils import MetricsLogger, resolve_device
 
-    if args.preset != "tiny":
-        raise _not_ported(f"--preset {args.preset}", _350M)
+    if args.preset == "350m" and args.data is None:
+        # the JAX CLI trains the 350M on a BPE corpus it builds here
+        raise _not_ported("--preset 350m without --data (a BPE corpus)",
+                          _BPE)
     for flag, value, item in (
             ("--ckpt", args.ckpt, _CKPT), ("--resume", args.resume, _CKPT),
             ("--bf16", args.bf16, _BF16),
@@ -66,8 +78,7 @@ def cmd_train_lm(args) -> None:
         raise _not_ported("a .tokens BPE corpus", _BPE)
 
     device = resolve_device(args.device)
-    vocab = {"vocab_size": args.vocab_size} if args.vocab_size else {}
-    cfg = tiny_lm_config(seq=args.seq, **vocab)
+    cfg = _lm_config(args)
     model = lm_init(cfg, torch.Generator().manual_seed(args.seed), device)
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps)
     state = train_init(model, tcfg, seed=args.seed + 1)
@@ -101,11 +112,9 @@ def cmd_train_lm(args) -> None:
 
 
 def cmd_generate(args) -> None:
-    from fft_tpu_torch.models.lm import lm_generate, lm_init, tiny_lm_config
+    from fft_tpu_torch.models.lm import lm_generate, lm_init
     from fft_tpu_torch.utils import resolve_device
 
-    if args.preset != "tiny":
-        raise _not_ported(f"--preset {args.preset}", _350M)
     for flag, value, item in (("--ckpt", args.ckpt, _CKPT),
                               ("--vocab", args.vocab, _BPE),
                               ("--vocab-size", args.vocab_size, _BPE),
@@ -113,7 +122,7 @@ def cmd_generate(args) -> None:
         if value:
             raise _not_ported(flag, item)
     device = resolve_device(args.device)
-    cfg = tiny_lm_config(seq=args.seq)
+    cfg = _lm_config(args)
     model = lm_init(cfg, torch.Generator().manual_seed(args.seed), device)
     prompt_ids = torch.from_numpy(
         np.frombuffer(args.prompt.encode("utf-8"), np.uint8)

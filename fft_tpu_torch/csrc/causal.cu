@@ -24,29 +24,32 @@ namespace {
 // Banded causal sum and partial inverse of one output chunk:
 //   acc[f]  = sum_{j <= c} K[c, j, f, g(ch)] * V[c - j, f, ch]
 //   y[t]    = irfft_2C(acc)[C + t],  t = 0..C-1
-// V (B, nc, F2, d) planes; y (B, nc, C, d).  grid = (d / 32, nc, B).
-// Shared memory: the 2C twiddles and acc (F2 x 32, both planes), with the
-// irfft weights folded in (DC and Nyquist once with Im dropped, the other
-// bins twice).
-template <class K>
+// V (B, nc, F2, d) planes; y (B, nc, C, d).  grid = (d / kL, nc, B), block
+// (kL, kThreads / kL).  Shared memory: the 2C twiddles and acc (F2 x kL,
+// both planes), with the irfft weights folded in (DC and Nyquist once with
+// Im dropped, the other bins twice).  kL = 32 lanes up to chunk 853; the
+// 8-lane tile takes chunks up to 2904 (the 350M's prompts up to 2048).
+template <class K, int kL>
 __global__ void __launch_bounds__(kThreads)
 banded_inverse_kernel(const float* __restrict__ vfr,
                       const float* __restrict__ vfi, K k,
                       const float2* __restrict__ tw,
                       float* __restrict__ out, int nc, int chunk, int d) {
+  constexpr int kR = kThreads / kL;           // thread rows
+  constexpr int kT = kR * kPer;               // output rows per tile pass
   extern __shared__ float smem[];
   const int n2 = 2 * chunk;
   const int f2 = chunk + 1;
   float2* tws = reinterpret_cast<float2*>(smem);
   float* accr = smem + 2 * n2;
-  float* acci = accr + f2 * kLanes;
+  float* acci = accr + f2 * kL;
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int ch = blockIdx.x * kLanes + tx;
+  const int ch = blockIdx.x * kL + tx;
   const int c = blockIdx.y, b = blockIdx.z;
   const int g = ch / (d / k.cols);
 
-  for (int i = ty * kLanes + tx; i < n2; i += kThreads) tws[i] = tw[i];
-  for (int f = ty; f < f2; f += kRows) {
+  for (int i = ty * kL + tx; i < n2; i += kThreads) tws[i] = tw[i];
+  for (int f = ty; f < f2; f += kR) {
     float ar = 0.f, ai = 0.f;
     for (int j = 0; j <= c; ++j) {
       const size_t vo = (((size_t)b * nc + (c - j)) * f2 + f) * d + ch;
@@ -57,25 +60,25 @@ banded_inverse_kernel(const float* __restrict__ vfr,
       ai = fmaf(gr, xi, fmaf(gi, xr, ai));
     }
     const bool edge = (f == 0) || (f == chunk);
-    accr[f * kLanes + tx] = edge ? ar : 2.f * ar;
-    acci[f * kLanes + tx] = edge ? 0.f : 2.f * ai;
+    accr[f * kL + tx] = edge ? ar : 2.f * ar;
+    acci[f * kL + tx] = edge ? 0.f : 2.f * ai;
   }
   __syncthreads();
 
   const float scale = 1.f / (float)n2;
-  for (int t0 = 0; t0 < chunk; t0 += kTile) {
+  for (int t0 = 0; t0 < chunk; t0 += kT) {
     float y[kPer];
     int idx[kPer], row[kPer];
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
-      const int t = t0 + ty + kRows * i;
+      const int t = t0 + ty + kR * i;
       y[i] = 0.f;
       idx[i] = 0;
       row[i] = t < chunk ? chunk + t : 0;     // output row of irfft_2C
     }
     for (int f = 0; f < f2; ++f) {
-      const float xr = accr[f * kLanes + tx];
-      const float xi = acci[f * kLanes + tx];
+      const float xr = accr[f * kL + tx];
+      const float xi = acci[f * kL + tx];
 #pragma unroll
       for (int i = 0; i < kPer; ++i) {
         const float2 w = tws[idx[i]];         // exp(+i 2 pi f row / 2C)
@@ -86,7 +89,7 @@ banded_inverse_kernel(const float* __restrict__ vfr,
     }
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
-      const int t = t0 + ty + kRows * i;
+      const int t = t0 + ty + kR * i;
       if (t < chunk)
         out[(((size_t)b * nc + c) * chunk + t) * d + ch] = y[i] * scale;
     }
@@ -212,22 +215,22 @@ size_t kf_smem(int n_fft, int chunk) {
          (size_t)(2 * kFreqT + chunk) * kLanes * sizeof(float);
 }
 
-size_t banded_smem(int chunk) {
+size_t banded_smem(int chunk, int lanes) {
   return (size_t)(2 * chunk) * sizeof(float2) +
-         (size_t)2 * (chunk + 1) * kLanes * sizeof(float);
+         (size_t)2 * (chunk + 1) * lanes * sizeof(float);
 }
 
-template <class K>
+template <class K, int kL>
 int launch_banded(const float* vfr, const float* vfi, K k, const float* tw,
                   float* out, int b, int nc, int chunk, int d,
                   cudaStream_t stream) {
-  const size_t smem = banded_smem(chunk);
+  const size_t smem = banded_smem(chunk, kL);
   cudaError_t err = cudaFuncSetAttribute(
-      banded_inverse_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      banded_inverse_kernel<K, kL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(d / kLanes, nc, b), block(kLanes, kRows);
-  banded_inverse_kernel<K><<<grid, block, smem, stream>>>(
+  const dim3 grid(d / kL, nc, b), block(kL, kThreads / kL);
+  banded_inverse_kernel<K, kL><<<grid, block, smem, stream>>>(
       vfr, vfi, k, reinterpret_cast<const float2*>(tw), out, nc, chunk, d);
   return (int)cudaGetLastError();
 }
@@ -237,13 +240,19 @@ int launch_banded(const float* vfr, const float* vfi, K k, const float* tw,
 extern "C" {
 
 // y (B, nc, C, d) from segment spectra planes (B, nc, C+1, d) and chunk-
-// major K planes (B, nc, nc, C+1, cols).  tw: (2C, 2) twiddles.
+// major K planes (B, nc, nc, C+1, cols).  tw: (2C, 2) twiddles.  lanes:
+// the channel tile, 32 or 8 (kernels/causal.py picks the widest that fits).
 int fft_banded_inverse(const float* vfr, const float* vfi, const float* kfr,
                        const float* kfi, const float* tw, float* out, int b,
-                       int nc, int chunk, int d, int cols, void* stream) {
+                       int nc, int chunk, int d, int cols, int lanes,
+                       void* stream) {
   const ChunkMajorK k{kfr, kfi, nc, chunk + 1, cols};
-  return launch_banded(vfr, vfi, k, tw, out, b, nc, chunk, d,
-                       static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (lanes == 8)
+    return launch_banded<ChunkMajorK, 8>(vfr, vfi, k, tw, out, b, nc, chunk,
+                                         d, st);
+  return launch_banded<ChunkMajorK, kLanes>(vfr, vfi, k, tw, out, b, nc,
+                                            chunk, d, st);
 }
 
 // y (B, N, d) from raw values v (B, N, d) and producer-layout K planes
@@ -257,7 +266,8 @@ int fft_fused_causal_mix(const float* v, const float* kfr, const float* kfi,
                                              d, st);
   if (err != 0) return err;
   const ProducerK k{kfr, kfi, nc, chunk + 1, cols};
-  return launch_banded(vfr, vfi, k, tw, out, b, nc, chunk, d, st);
+  return launch_banded<ProducerK, kLanes>(vfr, vfi, k, tw, out, b, nc,
+                                          chunk, d, st);
 }
 
 // K planes (B, nc, C+1, L) from gate planes (B, N/2+1, L).

@@ -37,58 +37,11 @@
 // reads and writes the whole tile) and __syncthreads between stages; HBM
 // traffic is one read of the inputs and one write of the outputs.
 
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "fft_common.cuh"
 
 namespace {
 
 constexpr int kMixThreads = 256;
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-__device__ __forceinline__ int bitrev(int t, int log2n) {
-  return (int)(__brev((unsigned)t) >> (32 - log2n));
-}
-
-// In-place radix-2 FFTs of `seqs` sequences of length n = 2^log2n; element
-// t of sequence q sits at buf[t * stride + q * step].  sign -1: forward
-// (exp(-i 2 pi k t / n)), +1: inverse, unnormalized.  kDit: decimation in
-// time, bit-reversed input and natural output; else decimation in
-// frequency, natural input and bit-reversed output.  tw[m] = (cos, sin)
-// (2 pi m / n), m < n / 2.  Ends with __syncthreads.
-template <bool kDit>
-__device__ void fft_stages(float2* buf, int n, int log2n, int seqs,
-                           int stride, int step, const float2* tw,
-                           float sign) {
-  const int half = n >> 1;
-  const int work = half * seqs;
-  for (int s = 0; s < log2n; ++s) {
-    const int h = kDit ? (1 << s) : (half >> s);   // butterfly span
-    const int tstep = half / h;
-    for (int i = threadIdx.x; i < work; i += blockDim.x) {
-      const int q = i % seqs, j = i / seqs;
-      const int pos = j & (h - 1);
-      const int i0 = ((j - pos) << 1) + pos;
-      float2* a = buf + (size_t)i0 * stride + q * step;
-      float2* b = a + (size_t)h * stride;
-      const float2 t = tw[pos * tstep];
-      const float2 w = make_float2(t.x, sign * t.y);
-      const float2 av = *a;
-      if (kDit) {
-        const float2 bw = cmul(*b, w);
-        *a = make_float2(av.x + bw.x, av.y + bw.y);
-        *b = make_float2(av.x - bw.x, av.y - bw.y);
-      } else {
-        const float2 bv = *b;
-        *a = make_float2(av.x + bv.x, av.y + bv.y);
-        *b = cmul(make_float2(av.x - bv.x, av.y - bv.y), w);
-      }
-    }
-    __syncthreads();
-  }
-}
 
 // y (B, N, d) = irfft(g * rfft(v)) [+ mem_t].  grid = (d / ct, B); ct
 // channels (ct / 2 complex sequences) per block.  Shared memory: N / 2
@@ -135,8 +88,7 @@ direct_mix_kernel(const float* __restrict__ v, const float* __restrict__ gr,
       ma.y = 0.f;
       mb.y = 0.f;
     }
-    z[k * np + p] = make_float2(ma.x - mb.y, ma.y + mb.x);
-    if (km != k) z[km * np + p] = make_float2(ma.x + mb.y, mb.x - ma.y);
+    pack_pair(z + p, k, n, np, ma, mb);
   }
   __syncthreads();
   fft_stages<false>(z, n, log2n, np, np, 1, tw, 1.f);
@@ -218,9 +170,7 @@ direct_mix_bwd_kernel(const float* __restrict__ v,
         q[e] = make_float2((g_r * yr + g_i * yi) * inv_n,
                            edge ? 0.f : (g_r * yi - g_i * yr) * inv_n);
       }
-      z[k * ct + c] = make_float2(q[0].x - q[1].y, q[0].y + q[1].x);
-      if (km != k)
-        z[km * ct + c] = make_float2(q[0].x + q[1].y, q[1].x - q[0].y);
+      pack_pair(z + c, k, n, ct, q[0], q[1]);
     }
     const size_t po = ((size_t)b * (half + 1) + k) * units_row +
                       (c0 / unit) + uu;
@@ -255,12 +205,6 @@ __global__ void group_sum_kernel(const float* __restrict__ pr,
     gbr[o] = sr;
     gbi[o] = si;
   }
-}
-
-int log2_of(int n) {
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  return l;
 }
 
 size_t mix_smem(int n, int complex_cols) {

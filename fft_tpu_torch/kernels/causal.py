@@ -1,8 +1,9 @@
 """The segmented causal mix's kernels (counterpart of
 ``fft_tpu/kernels/pallas_causal.py``).
 
-Four kernels, written by hand in CUDA C++ for Hopper (``csrc/causal.cu``,
-``csrc/causal_bwd.cu``), each beside its plain PyTorch version:
+Seven kernels, written by hand in CUDA C++ for Hopper (``csrc/causal.cu``,
+``csrc/causal_bwd.cu``, ``csrc/causal_long.cu``), each beside its plain
+PyTorch version:
 
 - ``banded_inverse``   replaces ``_banded_inverse_call`` (pallas_causal.py
   :167): banded causal sum + partial irFFT over precomputed spectra.
@@ -12,29 +13,45 @@ Four kernels, written by hand in CUDA C++ for Hopper (``csrc/causal.cu``,
   per-segment 2C spectra of the length-N gate kernels.
 - ``fused_causal_mix_bwd`` replaces ``_fused_causal_bwd_call`` (:1921):
   the exact adjoint of ``fused_causal_mix``.
+- ``kf_seg_rfft``      replaces ``_kf_seg_rfft_call`` (:1596): rfft_2C of
+  each zero-padded C-row segment of the gate kernels k_time.
+- ``fused_causal_mix_v3`` replaces ``_fused_causal_call_v3`` (:931) and
+  ``fused_causal_mix_bwd_v3`` replaces ``_fused_causal_bwd_call_v3``
+  (:2307): the same two functions as ``fused_causal_mix`` and its adjoint
+  at the long chunks (up to 2048) past the first pair's shared memory.
+
+``fused_causal_mix`` and ``fused_causal_mix_bwd`` pick the kernel on the
+card by the predicates: the direct-DFT pair where ``fused_mix_supported``
+holds, else the FFT pair where ``fused_mix_v3_supported`` holds, else they
+raise.  ``banded_inverse`` takes a 32-channel tile up to chunk 853 and an
+8-channel tile past it.
 
 Each public function takes fp32 tensors.  A tensor on the CPU goes to the
 plain version (``*_ref``); a tensor on a CUDA device goes to the kernel, or
 the call raises.  Nothing falls back.  Every kernel launch adds one to
 ``LAUNCHES[name]``, so a run can show that it went through the kernels.
 
-``kf_spectra``, ``fused_causal_mix`` and ``banded_inverse`` are
-``torch.autograd.Function``s on both devices, with the residuals and
-backward of the JAX package's ``custom_vjp``s: ``fused_causal_mix``'s
-backward is ``fused_causal_mix_bwd``; the other two take the VJP of their
-plain versions, as JAX does (pallas_causal.py:288-293, :1708-1714).  Inputs
+``kf_spectra``, ``kf_seg_rfft``, ``fused_causal_mix`` and
+``banded_inverse`` are ``torch.autograd.Function``s on both devices, with
+the residuals and backward of the JAX package's ``custom_vjp``s:
+``fused_causal_mix``'s backward is ``fused_causal_mix_bwd``; the other
+three take the VJP of their plain versions, as JAX does
+(pallas_causal.py:288-293, :1669-1674, :1708-1714).  Inputs
 and outputs are real planes, so no complex cotangent (whose convention
 differs between JAX and torch) crosses a Function.
 
-What bounds the kernels on the H100, and the design's answer: all three
-are direct DFTs against shared-memory twiddle tables, bounded by the
-shared-memory instruction throughput of their inner loops, not by HBM (the
-spectra they read fit the 50 MB L2 at the tiny LM's shapes).  The
-sequential delta axis of the TPU kernel (scratch carried across grid steps)
-becomes a loop over lags inside one block per output chunk; the segment
-spectra of ``fused_causal_mix`` (557 KB per 32-channel tile at nc=16, past
-the 227 KB a block may hold) go through an HBM scratch between two
-launches.
+What bounds the kernels on the H100, and the design's answer: those of
+``causal.cu`` and ``causal_bwd.cu`` are direct DFTs against shared-memory
+twiddle tables, bounded by the shared-memory instruction throughput of
+their inner loops, not by HBM (the spectra they read fit the 50 MB L2 at
+the tiny LM's shapes).  The sequential delta axis of the TPU kernel
+(scratch carried across grid steps) becomes a loop over lags inside one
+block per output chunk; the segment spectra of ``fused_causal_mix`` (557
+KB per 32-channel tile at nc=16, past the 227 KB a block may hold) go
+through an HBM scratch between two launches.  At chunk 2048 a direct DFT
+costs 16x the tiny LM's work per element, so ``causal_long.cu`` runs
+radix-2 FFTs in shared memory, 8 channels a block; its banded sums are
+bound by reading the segment spectra once per lag.
 """
 
 from __future__ import annotations
@@ -50,12 +67,22 @@ from fft_tpu_torch.kernels.common import (
 from fft_tpu_torch.ops import fftops
 
 LAUNCHES = {"kf_spectra": 0, "fused_causal_mix": 0, "banded_inverse": 0,
-            "fused_causal_mix_bwd": 0}
+            "fused_causal_mix_bwd": 0, "kf_seg_rfft": 0,
+            "fused_causal_mix_v3": 0, "fused_causal_mix_bwd_v3": 0}
 
-# Shapes of the CUDA blocks (csrc/causal.cu: kLanes, kSegT, kFreqT).
+# Shapes of the CUDA blocks (csrc/causal.cu: kLanes, kSegT, kFreqT; the
+# 8-lane tile of banded_inverse_kernel; csrc/causal_long.cu: kTileCh,
+# kPairs).
 _LANES = 32
+_LANES_NARROW = 8
 _SEG_T = 64
 _FREQ_T = 64
+_LONG_TILE = 8
+_LONG_PAIRS = 4
+
+# The reference's dispatch threshold for kf_seg_rfft (pallas_causal.py
+# :1527): the segmented spectra of k_time come from the kernel at n >= 8192.
+KF_SEG_MIN_N = 8192
 
 
 def reset_launches() -> None:
@@ -90,8 +117,20 @@ def _inv_rows_np(chunk: int):
 # Predicates: what the Hopper kernels accept
 # ---------------------------------------------------------------------------
 
-def _banded_smem(chunk: int) -> int:
-    return 2 * chunk * 8 + 2 * (chunk + 1) * _LANES * 4
+def _banded_smem(chunk: int, lanes: int = _LANES) -> int:
+    return 2 * chunk * 8 + 2 * (chunk + 1) * lanes * 4
+
+
+def _banded_lanes(chunk: int, d: int):
+    """The channel tile of banded_inverse_kernel: 32 lanes where one
+    chunk's summed spectrum of 32 channels fits shared memory (chunk <=
+    853), 8 lanes for the longer chunks (up to 2904); None otherwise."""
+    if _banded_smem(chunk, _LANES) <= SMEM_MAX:
+        return _LANES if d % _LANES == 0 else None
+    if (d % _LANES_NARROW == 0
+            and _banded_smem(chunk, _LANES_NARROW) <= SMEM_MAX):
+        return _LANES_NARROW
+    return None
 
 
 def _segment_smem(chunk: int) -> int:
@@ -103,12 +142,12 @@ def _kf_smem(n_fft: int, chunk: int) -> int:
 
 
 def banded_supported(nc: int, f2: int, d: int, cols: int) -> bool:
-    """banded_inverse: channels tile by 32 and split evenly into gate
-    groups; one chunk's summed spectrum (both planes, 32 channels) and the
-    2C twiddles sit in shared memory, which bounds the chunk at 853."""
+    """banded_inverse: channels split evenly into gate groups and tile by
+    32 or 8; one chunk's summed spectrum (both planes, one tile) and the 2C
+    twiddles sit in shared memory (``_banded_lanes``)."""
     chunk = f2 - 1
-    return (nc >= 1 and chunk >= 1 and d % _LANES == 0 and d % cols == 0
-            and _banded_smem(chunk) <= SMEM_MAX)
+    return (nc >= 1 and chunk >= 1 and d % cols == 0
+            and _banded_lanes(chunk, d) is not None)
 
 
 def _adjoint_smem(chunk: int) -> int:
@@ -124,9 +163,37 @@ def fused_mix_supported(nc: int, chunk: int, d: int, cols: int) -> bool:
     chunk go to banded_inverse)."""
     d_g = d // cols if cols else 0
     return (chunk >= 128 and banded_supported(nc, chunk + 1, d, cols)
+            and _banded_lanes(chunk, d) == _LANES
             and d_g >= 1 and (_LANES % d_g == 0 or d_g % _LANES == 0)
             and _segment_smem(chunk) <= SMEM_MAX
             and _adjoint_smem(chunk) <= SMEM_MAX)
+
+
+def _long_smem(chunk: int) -> int:
+    """causal_long.cu's FFT blocks: C twiddles and the (2C, kPairs) complex
+    tile."""
+    return (chunk + 2 * chunk * _LONG_PAIRS) * 8
+
+
+def _pow2(x: int) -> bool:
+    return x >= 1 and x & (x - 1) == 0
+
+
+def fused_mix_v3_supported(nc: int, chunk: int, d: int, cols: int) -> bool:
+    """fused_causal_mix_v3 and its backward: radix-2 FFTs of 2C points
+    over 8-channel tiles whose (2C, 4) complex tile fits shared memory
+    (chunk <= 2048), gate groups splitting d evenly.  The floor of 128 is
+    #6's (the prompt-length dispatch the reference picks)."""
+    return (nc >= 1 and chunk >= 128 and _pow2(chunk) and d % _LONG_TILE == 0
+            and cols >= 1 and d % cols == 0
+            and _long_smem(chunk) <= SMEM_MAX)
+
+
+def kf_seg_rfft_supported(n: int, chunk: int, lanes: int) -> bool:
+    """kf_seg_rfft: whole power-of-two segments, lanes tiled by 8, and the
+    (2C, 4) complex tile in shared memory."""
+    return (_pow2(chunk) and n >= chunk and n % chunk == 0
+            and lanes % _LONG_TILE == 0 and _long_smem(chunk) <= SMEM_MAX)
 
 
 def kf_spectra_supported(n_fft: int, chunk: int, lanes: int) -> bool:
@@ -177,6 +244,15 @@ def fused_causal_mix_ref(v, kfr, kfi, chunk: int, cols: int) -> torch.Tensor:
     ki = kfi.reshape(b, nc, f2, nc, cols).permute(0, 3, 1, 2, 4)
     y = banded_inverse_ref(vf.real, vf.imag, kr, ki, chunk)
     return y.reshape(b, n, d)
+
+
+def kf_seg_rfft_ref(kt, chunk: int):
+    """(kfr, kfi) (B, nc, F2, L) = rfft_2C of each zero-padded C-row
+    segment of ``kt`` (B, nc*C, L)."""
+    b, n, lanes = kt.shape
+    kf = fftops.rfft(kt.reshape(b, n // chunk, chunk, lanes), 2 * chunk,
+                     dim=-2)
+    return kf.real, kf.imag
 
 
 def kf_spectra_ref(g_r, g_i, n_fft: int, chunk: int):
@@ -242,10 +318,11 @@ def _banded_inverse(vfr, vfi, kfr, kfi, chunk: int) -> torch.Tensor:
     cols) chunk-major kernel-segment spectra (cols = head-groups).
 
     Replaces ``_banded_inverse_call`` (pallas_causal.py:167).  One block
-    per (output chunk, 32 channels, batch): the lag loop reads K and V
-    from L2/HBM once per term, the summed spectrum stays in shared memory,
-    and the partial inverse is a direct sum bound by shared-memory
-    instructions; at the prompt shapes (nc=1) the launch dominates."""
+    per (output chunk, 32 channels, batch), 8 channels past chunk 853: the
+    lag loop reads K and V from L2/HBM once per term, the summed spectrum
+    stays in shared memory, and the partial inverse is a direct sum bound by
+    shared-memory instructions; at the tiny LM's prompt shapes (nc=1) the
+    launch dominates."""
     if on_cpu(vfr, vfi, kfr, kfi):
         return banded_inverse_ref(vfr, vfi, kfr, kfi, chunk)
     b, nc, f2, d = vfr.shape
@@ -253,6 +330,7 @@ def _banded_inverse(vfr, vfi, kfr, kfi, chunk: int) -> torch.Tensor:
     if f2 != chunk + 1 or not banded_supported(nc, f2, d, cols):
         raise ValueError(f"banded_inverse: unsupported shape nc={nc} "
                          f"chunk={chunk} d={d} cols={cols}")
+    lanes = _banded_lanes(chunk, d)
     for name, t, shape in (("vfr", vfr, (b, nc, f2, d)),
                            ("vfi", vfi, (b, nc, f2, d)),
                            ("kfr", kfr, (b, nc, nc, f2, cols)),
@@ -263,7 +341,7 @@ def _banded_inverse(vfr, vfi, kfr, kfi, chunk: int) -> torch.Tensor:
                       device=vfr.device)
     launch(LAUNCHES, "banded_inverse", vfr.device,
            vfr.data_ptr(), vfi.data_ptr(), kfr.data_ptr(), kfi.data_ptr(),
-           tw.data_ptr(), out.data_ptr(), b, nc, chunk, d, cols)
+           tw.data_ptr(), out.data_ptr(), b, nc, chunk, d, cols, lanes)
     return out
 
 
@@ -272,19 +350,21 @@ def _fused_causal_mix(v, kfr, kfi, chunk: int, cols: int) -> torch.Tensor:
     segment spectra kfr/kfi in the producer layout (B, nc_j, F2,
     nc_c*cols), lane l = c*cols + g.
 
-    Replaces ``_fused_causal_call`` (pallas_causal.py:592).  Two launches:
-    direct-DFT segment spectra into an HBM scratch (they do not fit a
-    block's shared memory), then the banded sum and partial inverse of
-    ``banded_inverse`` on the producer layout.  Bound by shared-memory
-    instructions in both; v is read twice (once per overlapping segment)."""
+    Replaces ``_fused_causal_call`` (pallas_causal.py:592) where
+    ``fused_mix_supported`` holds: two launches, direct-DFT segment spectra
+    into an HBM scratch (they do not fit a block's shared memory), then the
+    banded sum and partial inverse of ``banded_inverse`` on the producer
+    layout, bound by shared-memory instructions in both; v is read twice
+    (once per overlapping segment).  Elsewhere, where
+    ``fused_mix_v3_supported`` holds, ``_fused_causal_call_v3`` (:931),
+    which JAX takes past its v2 kernel's memory: the same two launches with
+    radix-2 FFTs in shared memory (``csrc/causal_long.cu``)."""
     if on_cpu(v, kfr, kfi):
         return fused_causal_mix_ref(v, kfr, kfi, chunk, cols)
     b, n, d = v.shape
     nc = n // chunk
     f2 = chunk + 1
-    if nc * chunk != n or not fused_mix_supported(nc, chunk, d, cols):
-        raise ValueError(f"fused_causal_mix: unsupported shape n={n} "
-                         f"chunk={chunk} d={d} cols={cols}")
+    name = _mix_kernel("fused_causal_mix", n, chunk, d, cols)
     check("v", v, (b, n, d))
     check("kfr", kfr, (b, nc, f2, nc * cols))
     check("kfi", kfi, (b, nc, f2, nc * cols))
@@ -292,11 +372,50 @@ def _fused_causal_mix(v, kfr, kfi, chunk: int, cols: int) -> torch.Tensor:
     vfr = torch.empty((b, nc, f2, d), dtype=torch.float32, device=v.device)
     vfi = torch.empty_like(vfr)
     out = torch.empty((b, n, d), dtype=torch.float32, device=v.device)
-    launch(LAUNCHES, "fused_causal_mix", v.device,
+    launch(LAUNCHES, name, v.device,
            v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), tw.data_ptr(),
            vfr.data_ptr(), vfi.data_ptr(), out.data_ptr(), b, nc, chunk, d,
            cols)
     return out
+
+
+def _mix_kernel(base: str, n: int, chunk: int, d: int, cols: int) -> str:
+    """The kernel of ``base`` (fused_causal_mix or its _bwd) that takes
+    this shape on the card: the direct-DFT one, else the FFT one (_v3);
+    raises where neither does."""
+    nc = n // chunk
+    if nc * chunk == n and fused_mix_supported(nc, chunk, d, cols):
+        return base
+    if nc * chunk == n and fused_mix_v3_supported(nc, chunk, d, cols):
+        return base + "_v3"
+    raise ValueError(f"{base}: unsupported shape n={n} chunk={chunk} d={d} "
+                     f"cols={cols} (neither {base} nor {base}_v3 takes it)")
+
+
+def _kf_seg_rfft(kt, chunk: int):
+    """(kfr, kfi) (B, nc, F2, L): rfft_2C of each zero-padded C-row segment
+    of the gate kernels kt (B, nc*C, L), lanes l = c*cols + g.
+
+    Replaces ``_kf_seg_rfft_call`` (pallas_causal.py:1596).  One block per
+    (segment, 8 lanes, batch): the segment and its C zeros as four complex
+    sequences (lane pairs) in shared memory, one radix-2 FFT, untangled on
+    the store.  Bound by the FFT's shared-memory passes; kt is read once and
+    the spectra written once."""
+    if on_cpu(kt):
+        return kf_seg_rfft_ref(kt, chunk)
+    b, n, lanes = kt.shape
+    if not kf_seg_rfft_supported(n, chunk, lanes):
+        raise ValueError(f"kf_seg_rfft: unsupported shape n={n} "
+                         f"chunk={chunk} lanes={lanes}")
+    check("kt", kt, (b, n, lanes))
+    nc = n // chunk
+    tw = twiddles(2 * chunk, kt.device)
+    kfr = torch.empty((b, nc, chunk + 1, lanes), dtype=torch.float32,
+                      device=kt.device)
+    kfi = torch.empty_like(kfr)
+    launch(LAUNCHES, "kf_seg_rfft", kt.device, kt.data_ptr(), tw.data_ptr(),
+           kfr.data_ptr(), kfi.data_ptr(), b, n, chunk, lanes)
+    return kfr, kfi
 
 
 def _kf_spectra(g_r, g_i, n_fft: int, chunk: int):
@@ -336,20 +455,22 @@ def fused_causal_mix_bwd(v, kfr, kfi, ybar, chunk: int, cols: int):
     adjoint of ``fused_causal_mix`` at (v, kfr, kfi) for the cotangent
     ``ybar`` (B, N, d).  K is per batch element: no sum over B.
 
-    Replaces ``_fused_causal_bwd_call`` (pallas_causal.py:1921).  Five
-    launches on the current stream (``csrc/causal_bwd.cu``): segment
-    spectra of v, the adjoint partial irFFT of ybar, Kbar with each gate
-    group reduced by warp shuffles (deterministic, no atomics), Vbar, and
-    the adjoint segment rFFT with the overlap-add.  The four (B, nc, F2, d)
-    spectra go through HBM scratch between launches."""
+    Replaces ``_fused_causal_bwd_call`` (pallas_causal.py:1921) where
+    ``fused_mix_supported`` holds: five launches on the current stream
+    (``csrc/causal_bwd.cu``): segment spectra of v, the adjoint partial
+    irFFT of ybar, Kbar with each gate group reduced by warp shuffles
+    (deterministic, no atomics), Vbar, and the adjoint segment rFFT with the
+    overlap-add.  The four (B, nc, F2, d) spectra go through HBM scratch
+    between launches.  Elsewhere, where ``fused_mix_v3_supported`` holds,
+    ``_fused_causal_bwd_call_v3`` (:2307): the same five steps with radix-2
+    FFTs in shared memory and each Kbar element summed by one thread
+    (``csrc/causal_long.cu``); Kbar is exactly 0 for c < delta."""
     if on_cpu(v, kfr, kfi, ybar):
         return fused_causal_mix_bwd_ref(v, kfr, kfi, ybar, chunk, cols)
     b, n, d = v.shape
     nc = n // chunk
     f2 = chunk + 1
-    if nc * chunk != n or not fused_mix_supported(nc, chunk, d, cols):
-        raise ValueError(f"fused_causal_mix_bwd: unsupported shape n={n} "
-                         f"chunk={chunk} d={d} cols={cols}")
+    name = _mix_kernel("fused_causal_mix_bwd", n, chunk, d, cols)
     check("v", v, (b, n, d))
     check("kfr", kfr, (b, nc, f2, nc * cols))
     check("kfi", kfi, (b, nc, f2, nc * cols))
@@ -360,7 +481,7 @@ def fused_causal_mix_bwd(v, kfr, kfi, ybar, chunk: int, cols: int):
     vbar = torch.empty_like(v)
     kbr = torch.empty_like(kfr)
     kbi = torch.empty_like(kfi)
-    launch(LAUNCHES, "fused_causal_mix_bwd", v.device,
+    launch(LAUNCHES, name, v.device,
            v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), ybar.data_ptr(),
            tw.data_ptr(), *(t.data_ptr() for t in scratch),
            vbar.data_ptr(), kbr.data_ptr(), kbi.data_ptr(), b, nc, chunk,
@@ -413,6 +534,20 @@ class _FusedCausalMix(torch.autograd.Function):
         return vbar, kbr, kbi, None, None
 
 
+class _KfSegRfft(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, kt, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(kt)
+        return _kf_seg_rfft(kt, chunk)
+
+    @staticmethod
+    def backward(ctx, kbr, kbi):
+        grads = _vjp_of(lambda k: kf_seg_rfft_ref(k, ctx.chunk),
+                        ctx.saved_tensors, (kbr, kbi))
+        return (*grads, None)
+
+
 class _KfSpectra(torch.autograd.Function):
     @staticmethod
     def forward(ctx, g_r, g_i, n_fft, chunk):
@@ -438,6 +573,12 @@ def fused_causal_mix(v, kfr, kfi, chunk: int, cols: int) -> torch.Tensor:
     """y (B, N, d), differentiable (backward: ``fused_causal_mix_bwd``); see
     ``_fused_causal_mix`` for the shapes and the kernel."""
     return _FusedCausalMix.apply(v, kfr, kfi, chunk, cols)
+
+
+def kf_seg_rfft(kt, chunk: int):
+    """(kfr, kfi) (B, nc, F2, L), differentiable; see ``_kf_seg_rfft`` for
+    the shapes and the kernel."""
+    return _KfSegRfft.apply(kt, chunk)
 
 
 def kf_spectra(g_r, g_i, n_fft: int, chunk: int):

@@ -6,9 +6,13 @@
     K_c^(j) = rfft_2C(k_c[jC:(j+1)C])                   (kernel segments)
 
 The branch structure is the JAX package's; the predicates are those of the
-Hopper kernels (``fft_tpu_torch.kernels.causal``).  The kernel functions
-run their plain PyTorch versions on CPU tensors, so one dispatch serves
-both devices.  ``BRANCH_CALLS`` counts the branch each call took.
+Hopper kernels (``fft_tpu_torch.kernels.causal``).  The fused mix runs
+where either of its kernels takes the shape: the direct-DFT one up to chunk
+853, the FFT one (#7's port) for power-of-two chunks up to 2048.  Past both
+the banded kernel takes the chunk (up to 2904), so on the card the plain
+composition runs only where the reference runs jnp too.  The kernel
+functions run their plain PyTorch versions on CPU tensors, so one dispatch
+serves both devices.  ``BRANCH_CALLS`` counts the branch each call took.
 """
 
 from __future__ import annotations
@@ -21,8 +25,17 @@ from fft_tpu_torch.config import SpectreHeadConfig
 from fft_tpu_torch.kernels import causal as kc
 from fft_tpu_torch.ops import fftops
 
-# "kf_fused" | "fused" | "banded" | "composition" (here), "fft2n" (spectre)
+# "kf_fused" | "kf_seg" | "fused" | "banded" | "composition" (here),
+# "fft2n" (spectre)
 BRANCH_CALLS = collections.Counter()
+
+
+def _segment_rfft(k_time: torch.Tensor, n: int, chunk: int) -> torch.Tensor:
+    """rfft_2C of each zero-padded chunk of k_time[:, :n] -> (B, j, F2,
+    c*G) complex."""
+    b, _, lanes = k_time.shape
+    k_seg = k_time[:, :n].reshape(b, n // chunk, chunk, lanes)
+    return fftops.rfft(k_seg, 2 * chunk, dim=-2)
 
 
 def segmented_causal_mix(
@@ -41,7 +54,8 @@ def segmented_causal_mix(
         raise ValueError(f"sequence {n} is not a multiple of chunk {chunk}")
     c2 = 2 * chunk
     f2 = chunk + 1
-    fused_ok = kc.fused_mix_supported(nc, chunk, d, g_groups)
+    fused_ok = (kc.fused_mix_supported(nc, chunk, d, g_groups)
+                or kc.fused_mix_v3_supported(nc, chunk, d, g_groups))
 
     # lane-folded producer layout: lane l = c*G + g
     g_l = gate.permute(0, 3, 1, 2).reshape(b, gate.shape[-1], nc * g_groups)
@@ -54,15 +68,21 @@ def segmented_causal_mix(
         return kc.fused_causal_mix(v.contiguous(), kfr, kfi, chunk, g_groups)
 
     k_time = fftops.irfft(g_l, cfg.n_fft, dim=-2)           # (B, N, c*G)
-    k_seg = k_time[:, :n].reshape(b, nc, chunk, nc * g_groups)
-    kf_l = fftops.rfft(k_seg, c2, dim=-2)                   # (B, j, F2, c*G)
 
     if fused_ok:
-        BRANCH_CALLS["fused"] += 1
-        return kc.fused_causal_mix(v.contiguous(), kf_l.real.contiguous(),
-                                   kf_l.imag.contiguous(), chunk, g_groups)
+        if (n >= kc.KF_SEG_MIN_N
+                and kc.kf_seg_rfft_supported(n, chunk, nc * g_groups)):
+            # one kernel over k_time in place of the segment rfft_2Cs
+            BRANCH_CALLS["kf_seg"] += 1
+            kfr, kfi = kc.kf_seg_rfft(k_time[:, :n].contiguous(), chunk)
+        else:
+            BRANCH_CALLS["fused"] += 1
+            kf_l = _segment_rfft(k_time, n, chunk)
+            kfr, kfi = kf_l.real.contiguous(), kf_l.imag.contiguous()
+        return kc.fused_causal_mix(v.contiguous(), kfr, kfi, chunk, g_groups)
 
     # chunk-major (B, c, j, F2, G) for the remaining paths
+    kf_l = _segment_rfft(k_time, n, chunk)
     kf = kf_l.reshape(b, nc, f2, nc, g_groups).permute(0, 3, 1, 2, 4)
     vf = kc.segment_spectra(v, chunk)                      # (B, nc, F2, d)
 

@@ -2,7 +2,9 @@
 
 Token + learned positional embeddings, a stack of causal SPECTRE blocks
 (a Python loop over a ``ModuleList`` where the JAX package scans stacked
-layers), final LayerNorm and a tied LM head.  Serving: the forward,
+layers, each block under ``torch.utils.checkpoint`` when ``remat`` is set,
+as the JAX package's ``jax.checkpoint``), final LayerNorm and a tied LM
+head.  Serving: the forward,
 batched prefill into per-layer decode caches, the O(F)-per-token decode
 step and generation, all without autograd.  Training calls the
 differentiable ``lm_hidden`` and ``lm_head_matrix`` (``fft_tpu_torch.train``).
@@ -15,12 +17,14 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from fft_tpu_torch.config import SpectreConfig
 from fft_tpu_torch.decode.cache import (
     PrefixFFTCache, cache_init, spectre_block_decode_step,
     spectre_block_prefill,
 )
+from fft_tpu_torch.layers.causal_chunk import preferred_causal_chunk
 from fft_tpu_torch.layers.spectre import SpectreBlock, _not_ported
 from fft_tpu_torch.utils.device import resolve_device
 
@@ -54,6 +58,25 @@ def tiny_lm_config(vocab_size: int = 256, seq: int = 2048) -> LMConfig:
         block=SpectreConfig(
             embed_dim=512, num_heads=8, n_fft=seq, pooling_type="mean",
             wavelet_on_rate=0.0, causal=True, causal_chunk=128,
+            memory_size=0),
+    )
+
+
+def spectre_350m_config(vocab_size: int = 50432,
+                        seq: int = 16384) -> LMConfig:
+    """Config 4: long-context causal SPECTRE-350M, seq 16k-64k: 24 layers,
+    d=1024, 16 heads x 4 groups, each block rematerialized in backward.
+    The causal chunk is the reference's choice for this seq (at least 512;
+    2048 from seq 16k), since it is part of the model."""
+    return LMConfig(
+        vocab_size=vocab_size,
+        num_layers=24,
+        max_seq=seq,
+        remat=True,
+        block=SpectreConfig(
+            embed_dim=1024, num_heads=16, n_fft=seq, pooling_type="mean",
+            wavelet_on_rate=0.0, causal=True,
+            causal_chunk=max(512, preferred_causal_chunk(seq, 1024)),
             memory_size=0),
     )
 
@@ -105,13 +128,40 @@ def lm_init(cfg: LMConfig, generator: torch.Generator,
     return model.to(device).eval()
 
 
+def _checkpointed(block: SpectreBlock, h: torch.Tensor,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """block(h) whose activations are recomputed in backward.  The
+    recompute replays the forward's draws from ``generator`` and then puts
+    the generator back where backward found it."""
+    if generator is None:
+        return checkpoint(block, h, use_reentrant=False)
+    start = generator.get_state()
+    ran = []
+
+    def run(x):
+        if not ran:                        # the forward
+            ran.append(True)
+            return block(x, generator=generator)
+        now = generator.get_state()        # the recompute in backward
+        generator.set_state(start)
+        try:
+            return block(x, generator=generator)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, h, use_reentrant=False)
+
+
 def lm_hidden(model: SpectreLM, tokens: torch.Tensor, *,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """tokens (B, N) -> final-LN hidden states (B, N, d); differentiable.
-    In train mode, dropout draws from ``generator``."""
+    In train mode, dropout draws from ``generator``.  With ``cfg.remat``
+    and grad enabled, each block is rematerialized in backward."""
     h = model.embed(tokens)
+    remat = model.cfg.remat and torch.is_grad_enabled()
     for block in model.blocks:
-        h = block(h, generator=generator)
+        h = (_checkpointed(block, h, generator) if remat
+             else block(h, generator=generator))
     return model.ln_f(h)
 
 

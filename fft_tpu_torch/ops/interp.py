@@ -61,10 +61,24 @@ def _interp_matrix_np(k: int, size: int) -> np.ndarray:
     return m
 
 
+_MATRICES = {}
+
+
+def _interp_matrix(k: int, size: int, device: torch.device) -> torch.Tensor:
+    """``_interp_matrix_np`` on ``device``, copied there once: a copy from
+    pageable host memory on every call would first wait for the card's
+    stream to drain."""
+    key = (k, size, str(device))
+    if key not in _MATRICES:
+        _MATRICES[key] = torch.from_numpy(_interp_matrix_np(k, size)).to(
+            device)
+    return _MATRICES[key]
+
+
 def interp_complex_1d(x: torch.Tensor, size: int) -> torch.Tensor:
     """Cubic interpolation of ``x (..., K)`` (complex or real) to
     ``(..., size)``; anchor 0 -> bin 0, anchor K-1 -> bin size-1."""
-    m = torch.from_numpy(_interp_matrix_np(x.shape[-1], size)).to(x.device)
+    m = _interp_matrix(x.shape[-1], size, x.device)
     if x.is_complex():
         return torch.complex(x.real @ m, x.imag @ m)
     return x @ m

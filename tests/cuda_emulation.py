@@ -8,7 +8,8 @@ code or its speed.
 Supported: __global__/__device__ functions, dim3 launches written as
 ``kernel<<<grid, block, smem, stream>>>(...)``, ``extern __shared__``
 arrays, float2, __brev, __syncthreads, cudaFuncSetAttribute and
-cudaGetLastError (both succeed).  Warp shuffles and atomics are not.
+cudaGetLastError (both succeed), and ``#include "x.cuh"`` of the source's
+own directory (inlined).  Warp shuffles and atomics are not.
 """
 
 from __future__ import annotations
@@ -88,9 +89,23 @@ def compiler() -> str | None:
     return shutil.which("g++")
 
 
+def _inline_includes(source: pathlib.Path, seen: set) -> str:
+    """``source`` with each ``#include "x.cuh"`` of its own directory
+    replaced by that file's text (once), so the rewrites below reach the
+    headers' kernels too."""
+    def sub(m):
+        path = source.parent / m.group(1)
+        if path in seen:
+            return ""
+        seen.add(path)
+        return _inline_includes(path, seen)
+    return re.sub(r'^#include "([^"]+)"$', sub, source.read_text(),
+                  flags=re.M)
+
+
 def build(source: pathlib.Path, out_dir: pathlib.Path) -> ctypes.CDLL:
     """Compile ``source`` for the CPU into ``out_dir`` and load it."""
-    src = source.read_text()
+    src = _inline_includes(source, set())
     src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
                  r"\1* \2 = reinterpret_cast<\1*>(emu_smem_ptr);", src)
     src = re.sub(r"(\w+(?:<[^<>]*>)?)<<<(.*?)>>>\(",

@@ -143,10 +143,16 @@ def test_dispatch_matches_tpu_at_tiny_lm_widths(n):
 
 def test_predicates_hold_the_shared_memory_bounds():
     """The chunk and window limits follow from the 227 KB a Hopper block
-    may use (the JAX package's VMEM models do not apply)."""
-    assert kc.banded_supported(1, 854, 512, 32)
-    assert not kc.banded_supported(1, 855, 512, 32)
+    may use (the JAX package's VMEM models do not apply): banded_inverse's
+    32-channel tile to chunk 853, its 8-channel tile to 2904; #6 only with
+    the 32-channel tile."""
+    assert kc._banded_lanes(853, 512) == 32
+    assert kc._banded_lanes(854, 512) == 8
+    assert kc.banded_supported(1, 2905, 512, 32)
+    assert not kc.banded_supported(1, 2906, 512, 32)
     assert kc.fused_mix_supported(16, 128, 512, 32)
+    assert kc.fused_mix_supported(1, 853, 512, 32)
+    assert not kc.fused_mix_supported(1, 854, 512, 32)
     assert not kc.fused_mix_supported(1, 64, 512, 32)
     assert kc.kf_spectra_supported(2048, 128, 512)
     assert not kc.kf_spectra_supported(2048, 128, 16)

@@ -1,14 +1,17 @@
-"""The spectral-mix CUDA kernels (fft_tpu_torch/csrc/spectral_mix.cu) run
-on the CPU through tests/cuda_emulation.py, against their plain PyTorch
-versions: the kernels' index arithmetic, shared-memory layout and barriers
-at small shapes, on a machine without nvcc or a card.  Same bound as on
-the card (max|a-b| / max|b| < 2e-5: radix-2 FFTs against pocketfft, both
-fp32).  Skips where there is no host C++ compiler."""
+"""CUDA kernels of fft_tpu_torch/csrc run on the CPU through
+tests/cuda_emulation.py, against their plain PyTorch versions: the kernels'
+index arithmetic, shared-memory layout and barriers at small shapes, on a
+machine without nvcc or a card.  spectral_mix.cu (#1, #2), causal_long.cu
+(#9, #7, #11, at chunks up to 2048) and causal.cu's banded_inverse at the
+long chunks of its 8-lane tile.  Same bound as on the card (max|a-b| /
+max|b| < 2e-5: FFTs or direct DFTs against pocketfft, all fp32).  Skips
+where there is no host C++ compiler."""
 
 import pytest
 import torch
 
 from fft_tpu_torch.kernels import build as kb
+from fft_tpu_torch.kernels import causal as kc
 from fft_tpu_torch.kernels import spectral_mix as sm
 from fft_tpu_torch.kernels.common import twiddles_np
 from tests import cuda_emulation
@@ -16,17 +19,34 @@ from tests import cuda_emulation
 TOL = 2e-5
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def _emulated(tmp_path_factory, source, names):
     if cuda_emulation.compiler() is None:
         pytest.skip("needs a host C++ compiler (g++)")
-    lib = cuda_emulation.build(kb.CSRC_DIR / "spectral_mix.cu",
+    lib = cuda_emulation.build(kb.CSRC_DIR / source,
                                tmp_path_factory.mktemp("emu"))
-    for name in ("fft_direct_mix", "fft_direct_mix_bwd"):
+    for name in names:
         argtypes, restype = kb._SIGNATURES[name]
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = restype
     return lib
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    return _emulated(tmp_path_factory, "spectral_mix.cu",
+                     ("fft_direct_mix", "fft_direct_mix_bwd"))
+
+
+@pytest.fixture(scope="module")
+def long_lib(tmp_path_factory):
+    return _emulated(tmp_path_factory, "causal_long.cu",
+                     ("fft_kf_seg_rfft", "fft_fused_causal_mix_v3",
+                      "fft_fused_causal_mix_bwd_v3"))
+
+
+@pytest.fixture(scope="module")
+def causal_lib(tmp_path_factory):
+    return _emulated(tmp_path_factory, "causal.cu", ("fft_banded_inverse",))
 
 
 def _ptr(t):
@@ -88,3 +108,99 @@ def test_plain_adjoint_is_autograd_of_the_plain_forward():
                                  n)
     for t, w in zip((v, gr, gi), want):
         assert _rel(t.grad, w) < 1e-5
+
+
+def _randn(g, *shape):
+    return torch.randn(shape, generator=g)
+
+
+def _tw(chunk):
+    return torch.from_numpy(twiddles_np(2 * chunk))
+
+
+# (b, n, chunk, lanes): #9 at small chunks, and one 8-lane tile at 2048
+KF_SEG_CASES = [(2, 64, 16, 16), (1, 24, 8, 8), (1, 4096, 2048, 8)]
+
+
+@pytest.mark.parametrize("b,n,chunk,lanes", KF_SEG_CASES)
+def test_emulated_kf_seg_rfft(long_lib, b, n, chunk, lanes):
+    assert kc.kf_seg_rfft_supported(n, chunk, lanes)
+    g = torch.Generator().manual_seed(n + lanes)
+    kt = _randn(g, b, n, lanes)
+    kfr = torch.empty(b, n // chunk, chunk + 1, lanes)
+    kfi = torch.empty_like(kfr)
+    assert long_lib.fft_kf_seg_rfft(_ptr(kt), _ptr(_tw(chunk)), _ptr(kfr),
+                                    _ptr(kfi), b, n, chunk, lanes,
+                                    None) == 0
+    want = kc.kf_seg_rfft_ref(kt, chunk)
+    assert _rel(kfr, want[0]) < TOL and _rel(kfi, want[1]) < TOL
+
+
+# (b, nc, chunk, d, cols): gate groups of 8, 1 (a channel pair spans two
+# groups) and 16 channels; one 8-channel tile at chunk 2048
+LONG_CASES = [(2, 3, 16, 16, 2), (1, 2, 8, 32, 4), (1, 3, 4, 16, 16),
+              (1, 2, 2048, 8, 1)]
+
+
+def _long_inputs(b, nc, chunk, d, cols):
+    g = torch.Generator().manual_seed(nc * chunk + d + cols)
+    n, f2 = nc * chunk, chunk + 1
+    return (_randn(g, b, n, d), _randn(g, b, nc, f2, nc * cols),
+            _randn(g, b, nc, f2, nc * cols), _randn(g, b, n, d))
+
+
+@pytest.mark.parametrize("b,nc,chunk,d,cols", LONG_CASES)
+def test_emulated_fused_causal_mix_v3(long_lib, b, nc, chunk, d, cols):
+    v, kr, ki, _ = _long_inputs(b, nc, chunk, d, cols)
+    scratch = [torch.empty(b, nc, chunk + 1, d) for _ in range(2)]
+    y = torch.empty_like(v)
+    assert long_lib.fft_fused_causal_mix_v3(
+        _ptr(v), _ptr(kr), _ptr(ki), _ptr(_tw(chunk)),
+        *(_ptr(t) for t in scratch), _ptr(y), b, nc, chunk, d, cols,
+        None) == 0
+    assert _rel(y, kc.fused_causal_mix_ref(v, kr, ki, chunk, cols)) < TOL
+
+
+@pytest.mark.parametrize("b,nc,chunk,d,cols", LONG_CASES)
+def test_emulated_fused_causal_mix_bwd_v3(long_lib, b, nc, chunk, d, cols):
+    """Each output on its own, and Kbar exactly 0 where c < delta."""
+    v, kr, ki, ybar = _long_inputs(b, nc, chunk, d, cols)
+    scratch = [torch.full((b, nc, chunk + 1, d), float("nan"))
+               for _ in range(4)]
+    out = [torch.empty_like(v), torch.full_like(kr, float("nan")),
+           torch.full_like(ki, float("nan"))]
+    assert long_lib.fft_fused_causal_mix_bwd_v3(
+        _ptr(v), _ptr(kr), _ptr(ki), _ptr(ybar), _ptr(_tw(chunk)),
+        *(_ptr(t) for t in scratch), *(_ptr(t) for t in out), b, nc, chunk,
+        d, cols, None) == 0
+    want = kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk, cols)
+    for got, w in zip(out, want):
+        assert _rel(got, w) < TOL
+    kbar = out[1].reshape(b, nc, chunk + 1, nc, cols)     # (B, dl, F2, c, G)
+    for dl in range(nc):
+        assert torch.equal(kbar[:, dl, :, :dl],
+                           torch.zeros_like(kbar[:, dl, :, :dl]))
+
+
+# (b, nc, chunk, d, cols): banded_inverse's 8-lane tile past the 32-lane
+# tile's chunk 853 (the 350M's prompts whose length is no multiple of 128),
+# and the same tile at a small chunk (which the wrapper gives 32 lanes)
+BANDED_CASES = [(1, 1, 1500, 8, 1), (1, 2, 900, 16, 2), (2, 3, 10, 8, 2)]
+
+
+@pytest.mark.parametrize("b,nc,chunk,d,cols", BANDED_CASES)
+def test_emulated_banded_inverse_narrow_tile(causal_lib, b, nc, chunk, d,
+                                             cols):
+    lanes = 8
+    if chunk > 853:
+        assert kc._banded_lanes(chunk, d) == lanes
+        assert kc.banded_supported(nc, chunk + 1, d, cols)
+    g = torch.Generator().manual_seed(chunk + d)
+    f2 = chunk + 1
+    args = [_randn(g, b, nc, f2, d), _randn(g, b, nc, f2, d),
+            _randn(g, b, nc, nc, f2, cols), _randn(g, b, nc, nc, f2, cols)]
+    y = torch.empty(b, nc, chunk, d)
+    assert causal_lib.fft_banded_inverse(
+        *(_ptr(t) for t in args), _ptr(_tw(chunk)), _ptr(y), b, nc, chunk,
+        d, cols, lanes, None) == 0
+    assert _rel(y, kc.banded_inverse_ref(*args, chunk)) < TOL

@@ -1,5 +1,6 @@
 """The CUDA kernels of fft_tpu_torch against their plain PyTorch versions,
-on the card, at the tiny LM's and BASELINE config 1's shapes.  Imports no
+on the card, at the tiny LM's, BASELINE config 1's and the 350M's shapes
+(the long-chunk kernels #9, #7 and #11, and #5 past chunk 853).  Imports no
 JAX, so it runs on a machine without it:
 
     FFT_TPU_REAL=1 python -m pytest tests/test_torch_kernels.py -q
@@ -107,6 +108,111 @@ def test_fused_causal_mix_bwd_kernel(dev, nc, d, cols):
     for a, w in zip(got, want):
         assert a.shape == w.shape
         assert _rel(a, w) < TOL
+
+
+# (b, nc, chunk, d, cols): the 350M's layer at seq 16384 and its 8192- and
+# 1024-token prompts, and small shapes that #6 does not take (d not a
+# multiple of 32) with 8- and 1-channel gate groups
+LONG_CASES = [(1, 8, 2048, 1024, 64), (1, 4, 2048, 1024, 64),
+              (1, 1, 1024, 1024, 64), (2, 3, 256, 40, 5), (1, 2, 128, 48, 48)]
+
+
+def _long_inputs(dev, b, nc, chunk, d, cols):
+    g = torch.Generator().manual_seed(nc * chunk + d + cols)
+    n, f2 = nc * chunk, chunk + 1
+    assert not kc.fused_mix_supported(nc, chunk, d, cols)
+    assert kc.fused_mix_v3_supported(nc, chunk, d, cols)
+    return (_randn(g, dev, b, n, d), _randn(g, dev, b, nc, f2, nc * cols),
+            _randn(g, dev, b, nc, f2, nc * cols), _randn(g, dev, b, n, d))
+
+
+@pytest.mark.parametrize("b,nc,chunk,d,cols", LONG_CASES)
+def test_fused_causal_mix_v3_kernel(dev, b, nc, chunk, d, cols):
+    v, kr, ki, _ = _long_inputs(dev, b, nc, chunk, d, cols)
+    before = kc.LAUNCHES["fused_causal_mix_v3"]
+    got = kc.fused_causal_mix(v, kr, ki, chunk, cols)
+    torch.cuda.synchronize()
+    assert kc.LAUNCHES["fused_causal_mix_v3"] == before + 1
+    assert _rel(got, kc.fused_causal_mix_ref(v, kr, ki, chunk, cols)) < TOL
+
+
+@pytest.mark.parametrize("b,nc,chunk,d,cols", LONG_CASES)
+def test_fused_causal_mix_bwd_v3_kernel(dev, b, nc, chunk, d, cols):
+    """Each output on its own; Kbar exactly 0 where c < delta."""
+    v, kr, ki, ybar = _long_inputs(dev, b, nc, chunk, d, cols)
+    before = kc.LAUNCHES["fused_causal_mix_bwd_v3"]
+    got = kc.fused_causal_mix_bwd(v, kr, ki, ybar, chunk, cols)
+    torch.cuda.synchronize()
+    assert kc.LAUNCHES["fused_causal_mix_bwd_v3"] == before + 1
+    want = kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk, cols)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        assert _rel(a, w) < TOL
+    kbar = got[1].reshape(b, nc, chunk + 1, nc, cols)
+    for dl in range(nc):
+        assert int(torch.count_nonzero(kbar[:, dl, :, :dl])) == 0
+
+
+@pytest.mark.parametrize("b,n,chunk,lanes", [(1, 16384, 2048, 512),
+                                             (2, 8192, 2048, 256),
+                                             (1, 1024, 128, 64)])
+def test_kf_seg_rfft_kernel(dev, b, n, chunk, lanes):
+    g = torch.Generator().manual_seed(n + lanes)
+    kt = _randn(g, dev, b, n, lanes)
+    before = kc.LAUNCHES["kf_seg_rfft"]
+    got = kc.kf_seg_rfft(kt, chunk)
+    torch.cuda.synchronize()
+    assert kc.LAUNCHES["kf_seg_rfft"] == before + 1
+    for a, w in zip(got, kc.kf_seg_rfft_ref(kt, chunk)):
+        assert _rel(a, w.contiguous()) < TOL
+
+
+@pytest.mark.parametrize("chunk", [854, 1024, 1500, 2048])
+def test_banded_inverse_kernel_long_chunks(dev, chunk):
+    """The 8-lane tile past the 32-lane tile's chunk 853 (the 350M's prompts
+    shorter than 2048)."""
+    g = torch.Generator().manual_seed(chunk)
+    b, nc, d, cols = 1, 1, 1024, 64
+    f2 = chunk + 1
+    assert kc._banded_lanes(chunk, d) == 8
+    args = [_randn(g, dev, b, nc, f2, d), _randn(g, dev, b, nc, f2, d),
+            _randn(g, dev, b, nc, nc, f2, cols),
+            _randn(g, dev, b, nc, nc, f2, cols)]
+    got = kc.banded_inverse(*args, chunk)
+    torch.cuda.synchronize()
+    assert _rel(got, kc.banded_inverse_ref(*args, chunk)) < TOL
+
+
+def test_long_chunk_backward_through_each_wrapper(dev):
+    """backward() on the card through kf_seg_rfft, fused_causal_mix at a
+    chunk only #7 takes (its backward is #11) and banded_inverse at a long
+    chunk: every input's gradient equals the CPU's."""
+    g = torch.Generator().manual_seed(19)
+    b, nc, chunk, d, cols = 1, 2, 1024, 64, 8
+    f2 = chunk + 1
+    cases = [
+        ("kf_seg_rfft", lambda kt: kc.kf_seg_rfft(kt, chunk),
+         [(b, nc * chunk, nc * cols)], [(b, nc, f2, nc * cols)] * 2),
+        ("fused_causal_mix",
+         lambda v, kr, ki: kc.fused_causal_mix(v, kr, ki, chunk, cols),
+         [(b, nc * chunk, d), (b, nc, f2, nc * cols), (b, nc, f2, nc * cols)],
+         [(b, nc * chunk, d)]),
+        ("banded_inverse", lambda *a: kc.banded_inverse(*a, chunk),
+         [(b, nc, f2, d)] * 2 + [(b, nc, nc, f2, cols)] * 2,
+         [(b, nc, chunk, d)]),
+    ]
+    for name, fn, in_shapes, out_shapes in cases:
+        inputs = [torch.randn(s, generator=g) for s in in_shapes]
+        weights = [torch.randn(s, generator=g) for s in out_shapes]
+        bwd_before = kc.LAUNCHES["fused_causal_mix_bwd_v3"]
+        got = _grads_on(dev, fn, inputs, weights)
+        torch.cuda.synchronize()
+        if name == "fused_causal_mix":
+            assert kc.LAUNCHES["fused_causal_mix_bwd_v3"] == bwd_before + 1
+        want = _grads_on("cpu", fn, inputs, weights)
+        for a, w in zip(got, want):
+            assert a is not None and a.device.type == "cuda", name
+            assert _rel(a.cpu(), w) < 1e-4, name
 
 
 def _grads_on(device, fn, inputs, weights):

@@ -104,8 +104,18 @@ def test_cli_generate_and_not_ported_flags():
         assert cli.main(["generate", "--device", "cpu", "--seq", "256",
                          "--steps", "3"]) == 0
     assert buf.getvalue().startswith("the ")
-    for extra in (["--ckpt", "x"], ["--bf16"], ["--preset", "350m"],
-                  ["--vocab", "v.json"]):
+    for extra in (["--ckpt", "x"], ["--bf16"], ["--vocab", "v.json"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(["generate", "--device", "cpu", "--seq", "256", "--steps",
                       "1", *extra])
+
+
+def test_cli_generate_350m_preset():
+    """--preset 350m builds the full-width 24-layer model (at a short
+    --seq here) and, as the JAX CLI without --vocab, feeds the prompt's
+    bytes into its 50432-entry vocab."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert cli.main(["generate", "--device", "cpu", "--preset", "350m",
+                         "--seq", "128", "--steps", "2"]) == 0
+    assert buf.getvalue().startswith("the ")

@@ -351,6 +351,14 @@ def test_cli_train_lm_not_ported_flags_raise(extra):
                   "1", *extra])
 
 
+def test_cli_train_lm_350m_without_data_names_bpe():
+    """The JAX CLI trains the 350M on a BPE corpus it builds when no --data
+    is given; that corpus is module 7's."""
+    with pytest.raises(NotImplementedError, match="BPE"):
+        cli.main(["train-lm", "--device", "cpu", "--preset", "350m",
+                  "--seq", "256", "--steps", "1"])
+
+
 def test_lm_loss_eval_mode_has_no_graph():
     cfg = small_lm_config()
     _, model = lm_pair(cfg, seed=1)
