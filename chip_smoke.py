@@ -2,8 +2,9 @@
 training paths at full width (6 layers, d=512, 8 heads, seq 2048),
 BASELINE config 1's non-causal block (B=8, L=1024, d=512) forward and
 backward, and BASELINE config 4, SPECTRE-350M at seq 16384 (24 layers,
-d=1024, 16 heads, vocab 50432), serving and training, random weights from
-seed 0, through the port's own entry points.
+d=1024, 16 heads, vocab 50432), serving and training, with both LMs'
+decode through kernel #12, random weights from seed 0, through the port's
+own entry points.
 
     python3 chip_smoke.py
 
@@ -13,19 +14,36 @@ Phases, in order; any failure raises and the exit code is nonzero:
 2. kernels   each kernel against its plain PyTorch version on the card at
              the slices' shapes (rel_err = max|a-b| / max|b| <= 2e-5, each
              output of the backward on its own), with the median ms of both
-             over CUDA events, the median ms of one PyTorch composition of
-             the same function where there is one (library_ms; cuFFT), and
+             over CUDA events (ms: back-to-back calls, so a call the host
+             launches more slowly than the card runs it counts the host's
+             time) and the device-busy ms of both from torch.profiler
+             (device_ms, plain_device_ms), the median ms of one PyTorch
+             composition of the same function where there is one
+             (library_ms; cuFFT), and
              the least time the card could take (bound_ms: bytes over 3.35
              TB/s or FFT-equivalent operations over 67 TFLOP/s fp32).
 3. score     lm_apply on 4 x 2048 tokens; logits within rel_err 1e-4 of
              the same model and weights on the CPU (where the kernels'
              plain versions run); tokens/s on the card.
-4. generate  lm_generate on 4 prompts of 1024 tokens for 64 greedy steps
-             (prefill ms, decode ms/token; prefill logits and the first
-             teacher-forced decode logits against the CPU), then the CLI's
-             generate on its default 4-byte prompt.
+4. generate  lm_generate on 4 prompts of 1024 tokens for 64 greedy steps,
+             fused_decode_mix launched once a layer per decode step;
+             prefill logits and 8 teacher-forced decode logits against the
+             CPU; prefill ms and decode ms/token with the fused branch
+             (kernels.decode.ENABLE) and with the plain one, in turns, and
+             a profile of 8 steps of each; then the CLI's generate on its
+             default 4-byte prompt.
 5. launches  every kernel of the serving path was launched during phases
              3-4.
+   4c.       (run after 5, on launch counts of their own) one tiny-LM block
+             (B=4, d=512, 8 heads, n_fft 2048): prefill 2048 tokens, then
+             64 fused decode steps past the window's wrap; outputs, the
+             final prefix and the query sum within rel_err 2e-5 of the
+             CPU's.
+   4d.       a 2-layer causal LM at the tiny width with DCT pooling and the
+             "window" decode descriptor: lm_apply and 8 teacher-forced
+             decode steps within 1e-4 of the CPU.  kf_spectra,
+             fused_causal_mix and fused_decode_mix were launched during
+             4c-4d.
 6. train     one train_step at 2 x 2048: loss and every parameter gradient
              within rel_err 1e-4 of the same model and batch on the CPU,
              with the CPU's modReLUs on the card's side of their kinks (see
@@ -44,16 +62,21 @@ Phases, in order; any failure raises and the exit code is nonzero:
              constructor's defaults (DCT pooling, wavelet rate 0.1, no
              memory) for one finite training step and eval-mode forward
              parity with the CPU.  Both spectral-mix kernels were launched
-             during the phase.
+             during the phase.  Then one forward of a block at n_fft
+             16384 (B=1, N=16384, d=512, fft_impl="pallas") within 2e-5 of
+             the CPU, on the d-wide composition (MIX_BRANCH_CALLS "wide").
 8. 350m      SPECTRE-350M (spectre_350m_config, seq 16384, chunk 2048).
              Parity at 2 layers and 8192 tokens (nc=4: kf_seg_rfft, the v3
              mix and its backward): logits, loss and every gradient of a
-             train_step within 1e-4 of the CPU.  Then at full depth:
-             scoring 1 x 16384 (ms, tokens/s), prefill of 8192 and 1024
-             tokens, decode ms/token, the CLI's generate --preset 350m
-             --seq 16384, one scoring call and one 1024-token prefill under
-             torch.profiler; every serving kernel of the slice launched and
-             no causal mix on the plain composition.  3 train_steps at 1 x
+             train_step within 1e-4 of the CPU; 4 teacher-forced decode
+             steps after a 1024-token prefill within 1e-4.  Then at full
+             depth: scoring 1 x 16384 (ms, tokens/s), prefill of 8192 and
+             1024 tokens, decode ms/token with the fused and the plain
+             branch in turns (and a profile of 4 steps of each), the CLI's
+             generate --preset 350m --seq 16384 (fused_decode_mix once a
+             layer per decode step), one scoring call and one 1024-token
+             prefill under torch.profiler; every serving kernel of the
+             slice launched and no causal mix on the plain composition.  3 train_steps at 1 x
              16384 (step ms, tokens/s, peak memory, finite loss), one more
              under torch.profiler (device time by kernel, idle share), the
              CLI's train-lm --preset 350m on a text file; kf_seg_rfft,
@@ -82,6 +105,7 @@ SEED = 0
 REL_KERNEL = 2e-5      # direct fp32 DFTs vs cuFFT, different sum orders
 REL_MODEL = 1e-4       # 6 layers of fp32 FFT round trips, GPU vs CPU
 REL_BLOCK = 2e-5       # one block, fp32 FFTs in another order than the CPU's
+REL_DECODE = 2e-5      # decode outputs (COMPONENTS.md 2.4)
 SOURCES = {
     "direct_mix": "fft_tpu_torch/csrc/spectral_mix.cu",
     "direct_mix_bwd": "fft_tpu_torch/csrc/spectral_mix.cu",
@@ -92,6 +116,7 @@ SOURCES = {
     "kf_seg_rfft": "fft_tpu_torch/csrc/causal_long.cu",
     "fused_causal_mix_v3": "fft_tpu_torch/csrc/causal_long.cu",
     "fused_causal_mix_bwd_v3": "fft_tpu_torch/csrc/causal_long.cu",
+    "fused_decode_mix": "fft_tpu_torch/csrc/decode.cu",
 }
 REPLACES = {
     "direct_mix": "fft_tpu/kernels/pallas_fft.py:301",
@@ -103,13 +128,19 @@ REPLACES = {
     "kf_seg_rfft": "fft_tpu/kernels/pallas_causal.py:1596",
     "fused_causal_mix_v3": "fft_tpu/kernels/pallas_causal.py:931",
     "fused_causal_mix_bwd_v3": "fft_tpu/kernels/pallas_causal.py:2307",
+    "fused_decode_mix": "fft_tpu/kernels/pallas_decode.py:71",
 }
-SERVE_KERNELS = ("kf_spectra", "fused_causal_mix", "banded_inverse")
+SERVE_KERNELS = ("kf_spectra", "fused_causal_mix", "banded_inverse",
+                 "fused_decode_mix")
+# phases 4c and 4d: a block's prefill and decode past the wrap, and a
+# DCT-pooled LM's scoring, prefill and window-descriptor decode
+DECODE_KERNELS = ("kf_spectra", "fused_causal_mix", "fused_decode_mix")
 TRAIN_KERNELS = ("kf_spectra", "fused_causal_mix", "fused_causal_mix_bwd")
 BLOCK_KERNELS = ("direct_mix", "direct_mix_bwd")
 # the 350M's paths at seq 16384: its long-context kernels (the CLI's 4-byte
 # prompt runs banded_inverse)
-SERVE_350M_KERNELS = ("kf_seg_rfft", "fused_causal_mix_v3", "banded_inverse")
+SERVE_350M_KERNELS = ("kf_seg_rfft", "fused_causal_mix_v3", "banded_inverse",
+                      "fused_decode_mix")
 TRAIN_350M_KERNELS = ("kf_seg_rfft", "fused_causal_mix_v3",
                       "fused_causal_mix_bwd_v3")
 # the card's peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s, fp32
@@ -160,6 +191,18 @@ def median_ms(fn, reps: int = 10, rounds: int = 7) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """Device-busy ms a call over ``reps`` calls, from torch.profiler's CUDA
+    kernel spans (their union): unlike ``median_ms`` it leaves out the
+    gaps where the card waits for the host to launch the next kernel."""
+    from fft_tpu_torch import bench
+
+    fn()
+    torch.cuda.synchronize()
+    return bench._profile(fn, torch.cuda.synchronize,
+                          reps)["device_busy_ms_per_step"]
+
+
 def wall_ms(fn, rounds: int = 5) -> float:
     """Median host wall time of fn() ending in a synchronize."""
     fn()
@@ -201,7 +244,7 @@ def mix_work(b, n, d, cols):
     return 4 * b * n * d, 4 * 2 * b * (n // 2 + 1) * cols, b * d * fft_ops(n)
 
 
-def phase_kernels(kc, sm, dev):
+def phase_kernels(kc, sm, kd, dev):
     """Each kernel vs its plain version at the slices' shapes."""
     g = torch.Generator().manual_seed(SEED)
 
@@ -260,6 +303,7 @@ def phase_kernels(kc, sm, dev):
             None, (4 * b * (2 * (c + 1) + c) * d + kb,
                    mac + b * d * fft_ops(2 * c)), c == 4))
     cases += long_cases(kc, randn)
+    cases += decode_cases(kd, randn)
     # the spectral mix: BASELINE config 1 (B=8, N=1024, d=512, H*G=32, with
     # and without memory), then N=2048 and N=256
     for n, mem in ((1024, True), (1024, False), (2048, True), (256, True)):
@@ -281,6 +325,8 @@ def phase_kernels(kc, sm, dev):
         case = dict(shape=shape, rel_err=err, max_abs_err=abs_err,
                     ms=statistics.median([k1, k2]),
                     plain_ms=statistics.median([p1, p2]),
+                    device_ms=device_ms(kern),
+                    plain_device_ms=device_ms(plain),
                     library_ms=None if lib is None else median_ms(lib),
                     bound_ms=bound_ms, bound_by=bound_by, main=main)
         emit(phase="kernels", kernel=name, **case)
@@ -333,6 +379,45 @@ def long_cases(kc, randn):
             lambda args=args, c=c: kc.banded_inverse_ref(*args, c),
             None, (4 * b * (2 * (c + 1) + c) * d + kb,
                    mac + b * d * fft_ops(2 * c)), False))
+    return cases
+
+
+def decode_cases(kd, randn):
+    """#12 at the tiny LM's decode shape (B=4, H=8, n 2048) and the 350M's
+    (B=1, H=16, n 16384), hd 64, 4 gate groups: evict 0 at the first step
+    after a 1024-token prompt (the generate paths' steps) and evict 1 at
+    the window's last slot.  The kernel and the plain version each update
+    their own copy of one prefix in place; the first calls are compared
+    (the prefix and y each on its own), later ones only timed.  No PyTorch
+    call computes the fused step (library_ms null)."""
+    cases = []
+    for b, h, n in ((4, 8, 2048), (1, 16, 16384)):
+        hd, groups, f = 64, 4, n // 2 + 1
+        for evict, j in ((0, 1024), (1, n - 1)):
+            prefix = torch.complex(randn(b, h, f, hd), randn(b, h, f, hd))
+            gate = torch.complex(randn(b, h, groups, f),
+                                 randn(b, h, groups, f))
+            v_t, v_buf = randn(b, h, hd), randn(b, h, n, hd)
+            args = (gate, v_t, v_buf, evict, j, j)
+
+            def kern(p=prefix.clone(), args=args):
+                y = kd.fused_decode_mix(p, *args)
+                return torch.view_as_real(p), y
+
+            def plain(p=prefix, args=args):
+                y = kd.fused_decode_mix_ref(p, *args)
+                return torch.view_as_real(p), y
+
+            # the prefix read and written, the gate, v_t, the evicted row
+            # and y; per element 2 multiply-adds, a complex product and
+            # the irFFT's 2 multiply-adds
+            nbytes = (2 * 8 * b * h * f * hd + 8 * b * h * groups * f
+                      + 3 * 4 * b * h * hd)
+            cases.append((
+                "fused_decode_mix",
+                f"B={b} H={h} n={n} hd={hd} G={groups} evict={evict}",
+                kern, plain, None, (nbytes, 14 * b * h * f * hd),
+                n == 16384 and evict == 0))
     return cases
 
 
@@ -498,6 +583,172 @@ def phase_train(cfg, dev) -> None:
     emit(phase="cli_train_lm", steps=3, lines=recs)
 
 
+def teacher_forced(model, model_cpu, prompts, toks, dev):
+    """(prefill logits' rel_err, worst decode step's rel_err) of ``model``
+    on the card against ``model_cpu``: one prefill of ``prompts`` (on the
+    CPU), then one decode step per column of ``toks`` fed on both sides
+    (greedy tokens are not compared: argmax ties flip on 1e-6
+    differences)."""
+    from fft_tpu_torch.models.lm import lm_decode_step, lm_prefill
+
+    length = prompts.shape[1]
+    logits, caches = lm_prefill(model, prompts.to(dev))
+    ref, ref_caches = lm_prefill(model_cpu, prompts)
+    p_err = rel_err(logits, ref)
+    errs = []
+    for i in range(toks.shape[1]):
+        tok = toks[:, i]
+        logits, caches = lm_decode_step(model, tok.to(dev), length + i,
+                                        caches)
+        ref, ref_caches = lm_decode_step(model_cpu, tok.cpu(), length + i,
+                                         ref_caches)
+        if not all_finite(logits):
+            raise AssertionError(f"decode step {i}: non-finite logits")
+        errs.append(rel_err(logits, ref))
+    return p_err, max(errs)
+
+
+def both_branches(kd, run, profile):
+    """Median of ``run()`` (ms a token) with kernels.decode.ENABLE off and
+    on, in turns (plain, fused, fused, plain, twice each after a warm-up),
+    and ``profile()`` under each; ENABLE is put back as it was."""
+    default = kd.ENABLE
+    times, profs = {False: [], True: []}, {}
+    try:
+        for flag in (False, True):
+            kd.ENABLE = flag
+            run()
+        for flag in (False, True, True, False):
+            kd.ENABLE = flag
+            times[flag] += [run(), run()]
+        for flag in (False, True):
+            kd.ENABLE = flag
+            profs[flag] = profile()
+    finally:
+        kd.ENABLE = default
+    return {k: statistics.median(v) for k, v in times.items()}, profs
+
+
+def decode_profile(model, prompt, pos, tok, steps):
+    """torch.profiler over ``steps`` decode steps after a prefill."""
+    from fft_tpu_torch import bench
+    from fft_tpu_torch.models.lm import lm_decode_step, lm_prefill
+
+    _, caches = lm_prefill(model, prompt)
+    state = {"i": 0}
+
+    def step():
+        lm_decode_step(model, tok, pos + state["i"], caches)
+        state["i"] += 1
+
+    step()
+    torch.cuda.synchronize()
+    return bench._profile(step, torch.cuda.synchronize, steps)
+
+
+def phase_decode_wrap(cfg, dev) -> None:
+    """4c: one block at the tiny LM's width (B=4, d=512, 8 heads, n_fft
+    2048): prefill the full window, then 64 fused decode steps, each
+    evicting the window's oldest token, fed fresh random tokens; outputs,
+    the final prefix and query sum against the same on the CPU."""
+    from fft_tpu_torch.decode.cache import (
+        cache_init, spectre_block_decode_step, spectre_block_prefill,
+    )
+    from fft_tpu_torch.kernels import decode as kd
+    from fft_tpu_torch.layers.spectre import spectre_block_init
+
+    bc, b, steps = cfg.block, 4, 64
+    g = torch.Generator().manual_seed(SEED + 5)
+    x = torch.randn((b, bc.n_fft, bc.embed_dim), generator=g)
+    xs = torch.randn((steps, b, bc.embed_dim), generator=g)
+
+    def run(device):
+        block = spectre_block_init(bc, torch.Generator().manual_seed(SEED),
+                                   device)
+        with torch.no_grad():
+            cache = spectre_block_prefill(
+                block, x.to(device), cache_init(b, bc.num_heads, bc.n_fft,
+                                                bc.head_dim, device=device))
+            outs = []
+            for i in range(steps):
+                y, cache = spectre_block_decode_step(block, xs[i].to(device),
+                                                     cache)
+                outs.append(y)
+        return (torch.stack(outs), torch.view_as_real(cache.prefix),
+                cache.sum_q), cache.t
+
+    before = kd.LAUNCHES["fused_decode_mix"]
+    got, t = run(dev)
+    torch.cuda.synchronize()
+    launched = kd.LAUNCHES["fused_decode_mix"] - before
+    want, _ = run("cpu")
+    errs = [rel_err(a, w) for a, w in zip(got, want)]
+    emit(phase="decode_wrap", batch=b, n_fft=bc.n_fft, steps=steps,
+         last_t=t, evicting_steps=steps, fused_decode_launches=launched,
+         rel_err_outputs=errs[0], rel_err_prefix=errs[1],
+         rel_err_sum_q=errs[2])
+    if not (all_finite(got) and max(errs) <= REL_DECODE and launched == steps
+            and t == bc.n_fft + steps - 1):
+        raise AssertionError(f"decode past the wrap: rel_err {errs} (limit "
+                             f"{REL_DECODE}), {launched} launches")
+
+
+def phase_pooler_lm(cfg, dev) -> None:
+    """4d: a 2-layer causal LM at the tiny width with the DCT pooler (its
+    chunk gates) and the window descriptor (its decode): lm_apply on 2 x
+    2048 and 8 teacher-forced decode steps after a 1024-token prefill,
+    against the CPU."""
+    from fft_tpu_torch.models.lm import lm_apply, lm_init
+
+    pcfg = dataclasses.replace(
+        cfg, num_layers=2, block=dataclasses.replace(
+            cfg.block, pooling_type="dct", decode_descriptor="window"))
+    gpu = lm_init(pcfg, torch.Generator().manual_seed(SEED), dev)
+    cpu = lm_init(pcfg, torch.Generator().manual_seed(SEED), "cpu")
+    toks = torch.randint(0, pcfg.vocab_size, (2, pcfg.max_seq),
+                         generator=torch.Generator().manual_seed(SEED + 6))
+    logits = lm_apply(gpu, toks.to(dev))
+    torch.cuda.synchronize()
+    a_err = rel_err(logits, lm_apply(cpu, toks))
+    p_err, d_err = teacher_forced(gpu, cpu, toks[:, :1024],
+                                  toks[:, 1024:1032], dev)
+    emit(phase="pooler_lm", pooling="dct", decode_descriptor="window",
+         layers=2, apply_rel_err=a_err, prefill_rel_err=p_err,
+         decode_rel_err=d_err, teacher_forced_steps=8)
+    if not (all_finite(logits) and max(a_err, p_err, d_err) <= REL_MODEL):
+        raise AssertionError(f"pooler LM: lm_apply {a_err}, prefill {p_err}"
+                             f", decode {d_err} (limit {REL_MODEL})")
+
+
+def phase_wide_block(dev) -> None:
+    """A block at n_fft 16384 (B=1, N=16384, d=512, fft_impl="pallas"):
+    past the spectral-mix kernels the reference runs the d-wide
+    composition, and so does the port (it raised naming kernel #4 before)."""
+    from fft_tpu_torch import bench
+    from fft_tpu_torch.layers.spectre import (
+        MIX_BRANCH_CALLS, spectre_block_apply, spectre_block_init,
+    )
+
+    cfg = bench.config1(16384)
+    x = torch.randn((1, 16384, cfg.embed_dim),
+                    generator=torch.Generator().manual_seed(SEED + 7))
+    MIX_BRANCH_CALLS.clear()
+    with torch.no_grad():
+        y = spectre_block_apply(spectre_block_init(
+            cfg, torch.Generator().manual_seed(SEED), dev), x.to(dev))
+        torch.cuda.synchronize()
+        branches = dict(MIX_BRANCH_CALLS)
+        err = rel_err(y, spectre_block_apply(spectre_block_init(
+            cfg, torch.Generator().manual_seed(SEED), "cpu"), x))
+    emit(phase="wide_block", n_fft=cfg.n_fft, batch=1, seq=16384,
+         d=cfg.embed_dim, fft_impl=cfg.fft_impl, branches=branches,
+         rel_err=err)
+    if not (all_finite(y) and err <= REL_BLOCK
+            and branches == {"wide": 1}):
+        raise AssertionError(f"wide block: rel_err {err} (limit {REL_BLOCK}),"
+                             f" branches {branches}")
+
+
 def phase_block(dev) -> None:
     """BASELINE config 1's block: parity with the CPU, timed steps through
     the bench, the bench's CLI, and the original constructor's defaults."""
@@ -606,21 +857,27 @@ def phase_350m_parity(dev, kc) -> None:
     logits = lm_apply(gpu, tokens[:, :n].to(dev))
     torch.cuda.synchronize()
     branches = dict(BRANCH_CALLS)
-    del gpu
-    ref = lm_apply(lm_init(cfg, torch.Generator().manual_seed(SEED), "cpu"),
-                   tokens[:, :n])
+    cpu = lm_init(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    ref = lm_apply(cpu, tokens[:, :n])
     logit_err = rel_err(logits, ref)
     finite = all_finite(logits)
     del logits, ref
+    tf_prefill_err, tf_decode_err = teacher_forced(
+        gpu, cpu, tokens[:, :1024], tokens[:, 1024:1028], dev)
+    del gpu, cpu
     res = train_parity(cfg, dev, tokens.numpy().astype("int32"))
     used = {k: v for k, v in kc.LAUNCHES.items() if v}
     emit(phase="350m_parity", layers=cfg.num_layers, seq=n,
          chunk=cfg.block.causal_chunk, logits_rel_err=logit_err,
+         decode_prefill_rel_err=tf_prefill_err,
+         decode_rel_err=tf_decode_err, teacher_forced_steps=4,
          branches=branches, launches=used, **res)
     if not (finite and res["finite"] and logit_err <= REL_MODEL
+            and max(tf_prefill_err, tf_decode_err) <= REL_MODEL
             and res["loss_rel_err"] <= REL_MODEL
             and res["max_grad_rel_err"] <= REL_MODEL):
-        raise AssertionError(f"350m parity: logits {logit_err}, loss "
+        raise AssertionError(f"350m parity: logits {logit_err}, decode "
+                             f"{tf_prefill_err} / {tf_decode_err}, loss "
                              f"{res['loss_rel_err']}, worst gradient "
                              f"{res['worst_grad']} {res['max_grad_rel_err']} "
                              f"(limit {REL_MODEL})")
@@ -629,7 +886,7 @@ def phase_350m_parity(dev, kc) -> None:
         raise AssertionError(f"350m parity took {branches}, launched {used}")
 
 
-def phase_350m(dev, reset_launches, launches):
+def phase_350m(dev, kd, reset_launches, launches):
     """SPECTRE-350M at seq 16384, full depth: scoring, prefill, decode, the
     CLI's generate (the serving path), then train steps, a profiled step
     and the CLI's train-lm (the training path).  Returns the launches of
@@ -675,33 +932,51 @@ def phase_350m(dev, reset_launches, launches):
                                 torch.cuda.synchronize, 1),
         "prefill_1024": bench._profile(lambda: lm_prefill(model, x[:, :1024]),
                                        torch.cuda.synchronize, 1)}
-    lg, caches = lm_prefill(model, x[:, :1024])
-    tok = lg.argmax(-1)
-    torch.cuda.synchronize()
     steps = 16
-    t0 = time.perf_counter()
-    for i in range(steps):
-        lg, caches = lm_decode_step(model, tok, 1024 + i, caches)
+    finite = []
+
+    def decode_run():
+        lg, caches = lm_prefill(model, x[:, :1024])
         tok = lg.argmax(-1)
-    torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
-    if not all_finite(lg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            lg, caches = lm_decode_step(model, tok, 1024 + i, caches)
+            tok = lg.argmax(-1)
+        torch.cuda.synchronize()
+        finite.append(all_finite(lg))
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    decode_ms, decode_prof = both_branches(
+        kd, decode_run, lambda: decode_profile(
+            model, x[:, :1024], 1024, x[:, 1024], 4))
+    if not all(finite):
         raise AssertionError("350m decode: non-finite logits")
-    del lg, caches
+    before = kd.LAUNCHES["fused_decode_mix"]
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         cli.main(["generate", "--device", "cuda", "--preset", "350m",
                   "--seq", str(seq), "--steps", str(steps)])
+    cli_launches = kd.LAUNCHES["fused_decode_mix"] - before
     if not buf.getvalue().startswith("the "):
         raise AssertionError(f"cli generate --preset 350m printed "
                              f"{buf.getvalue()!r}")
+    if cli_launches != cfg.num_layers * (steps - 1):
+        raise AssertionError(f"cli generate --preset 350m: fused_decode_mix "
+                             f"launched {cli_launches} times, not once a "
+                             f"layer per decode step")
     serve = launches()
     serve_branches = dict(BRANCH_CALLS)
     emit(phase="350m_serve", params=params, seq=seq,
          chunk=cfg.block.causal_chunk, score_ms=score_ms,
          score_tokens_per_s=seq / (score_ms / 1e3),
          prefill_ms={str(k): v for k, v in prefill_ms.items()},
-         decode_ms_per_token=decode_ms, cli_generate_chars=len(buf.getvalue()),
+         decode_ms_per_token=decode_ms[True],
+         decode_ms_per_token_plain=decode_ms[False],
+         decode_profile_fused=decode_prof[True],
+         decode_profile_plain=decode_prof[False],
+         cli_generate_chars=len(buf.getvalue()),
+         cli_fused_decode_launches=cli_launches,
          branches=serve_branches, launches=serve, profiles=profiles)
     missing = [k for k in SERVE_350M_KERNELS if serve[k] == 0]
     if missing or serve_branches.get("composition"):
@@ -769,6 +1044,7 @@ def main() -> int:
     from fft_tpu_torch import cli
     from fft_tpu_torch.kernels import build
     from fft_tpu_torch.kernels import causal as kc
+    from fft_tpu_torch.kernels import decode as kd
     from fft_tpu_torch.kernels import spectral_mix as sm
     from fft_tpu_torch.models.lm import (
         lm_apply, lm_decode_step, lm_generate, lm_init, lm_prefill,
@@ -789,14 +1065,15 @@ def main() -> int:
         print(build.BUILD_INFO["log"].strip(), flush=True)
 
     # 2. kernels vs plain ----------------------------------------------------
-    kernel_results = phase_kernels(kc, sm, dev)
+    kernel_results = phase_kernels(kc, sm, kd, dev)
 
     def reset_launches():
         kc.reset_launches()
         sm.reset_launches()
+        kd.reset_launches()
 
     def launches():
-        return {**kc.LAUNCHES, **sm.LAUNCHES}
+        return {**kc.LAUNCHES, **sm.LAUNCHES, **kd.LAUNCHES}
 
     # 3. score ---------------------------------------------------------------
     cfg = tiny_lm_config()
@@ -821,20 +1098,19 @@ def main() -> int:
          tokens_per_s=4 * cfg.max_seq / (ms / 1e3))
 
     # 4. generate ------------------------------------------------------------
+    before = kd.LAUNCHES["fused_decode_mix"]
     out = lm_generate(model, prompts.to(dev), steps=steps)
     torch.cuda.synchronize()
+    gen_launches = kd.LAUNCHES["fused_decode_mix"] - before
     if not (out.shape == (4, steps) and int(out.min()) >= 0
             and int(out.max()) < cfg.vocab_size):
         raise AssertionError(f"generate: bad tokens {tuple(out.shape)}")
-    p_logits, caches = lm_prefill(model, prompts.to(dev))
-    r_logits, r_caches = lm_prefill(model_cpu, prompts)
-    p_err = rel_err(p_logits, r_logits)
-    nxt = out[:, 0]
-    d_logits, _ = lm_decode_step(model, nxt, 1024, caches)
-    rd_logits, _ = lm_decode_step(model_cpu, nxt.cpu(), 1024, r_caches)
-    d_err = rel_err(d_logits, rd_logits)
-    if not (p_err <= REL_MODEL and d_err <= REL_MODEL
-            and torch.isfinite(d_logits).all()):
+    if gen_launches != cfg.num_layers * (steps - 1):
+        raise AssertionError(f"generate: fused_decode_mix launched "
+                             f"{gen_launches} times, not once a layer per "
+                             f"decode step ({cfg.num_layers} x {steps - 1})")
+    p_err, d_err = teacher_forced(model, model_cpu, prompts, out[:, :8], dev)
+    if not (p_err <= REL_MODEL and d_err <= REL_MODEL):
         raise AssertionError(f"generate: prefill rel_err {p_err}, decode "
                              f"rel_err {d_err} (limit {REL_MODEL})")
     prefill_ms = wall_ms(lambda: lm_prefill(model, prompts.to(dev)))
@@ -850,11 +1126,16 @@ def main() -> int:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / steps
 
-    decode_run()
-    decode_ms = statistics.median(decode_run() for _ in range(3))
+    decode_ms, decode_prof = both_branches(
+        kd, decode_run, lambda: decode_profile(model, prompts.to(dev), 1024,
+                                               out[:, 0], 8))
     emit(phase="generate", batch=4, prompt=1024, steps=steps,
-         prefill_rel_err=p_err, decode_rel_err=d_err, prefill_ms=prefill_ms,
-         decode_ms_per_token=decode_ms)
+         fused_decode_launches=gen_launches, prefill_rel_err=p_err,
+         decode_rel_err=d_err, teacher_forced_steps=8, prefill_ms=prefill_ms,
+         decode_ms_per_token=decode_ms[True],
+         decode_ms_per_token_plain=decode_ms[False],
+         decode_profile_fused=decode_prof[True],
+         decode_profile_plain=decode_prof[False])
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -872,8 +1153,18 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the serving path: "
                              f"{missing}")
     # the later phases' peak memory is their own
-    del model, model_cpu, logits, ref, out, p_logits, caches, r_logits
-    del r_caches, d_logits, rd_logits
+    del model, model_cpu, logits, ref, out
+
+    # 4c, 4d. decode past the window's wrap; the pooler descriptors ---------
+    reset_launches()                          # their own path starts here
+    phase_decode_wrap(cfg, dev)
+    phase_pooler_lm(cfg, dev)
+    decode_launches = launches()
+    emit(phase="decode_launches", **decode_launches)
+    missing = [k for k in DECODE_KERNELS if decode_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched past the wrap or on "
+                             f"the pooler LM: {missing}")
 
     # 6. train ---------------------------------------------------------------
     reset_launches()                          # the training path starts here
@@ -888,6 +1179,7 @@ def main() -> int:
     # 7. block -------------------------------------------------------------
     reset_launches()                          # the block's path starts here
     phase_block(dev)
+    phase_wide_block(dev)
     block_launches = launches()
     emit(phase="block_launches", **block_launches)
     missing = [k for k in BLOCK_KERNELS if block_launches[k] == 0]
@@ -897,12 +1189,13 @@ def main() -> int:
 
     # 8. 350m --------------------------------------------------------------
     phase_350m_parity(dev, kc)
-    serve_350m, train_350m = phase_350m(dev, reset_launches, launches)
+    serve_350m, train_350m = phase_350m(dev, kd, reset_launches, launches)
 
     summary = []
     for name, cases in kernel_results.items():
         main_case = next(c for c in cases if c["main"])
         by_path = dict(serve=serve_launches[name],
+                       decode=decode_launches[name],
                        train=train_launches[name],
                        block=block_launches[name],
                        serve_350m=serve_350m[name],
@@ -913,6 +1206,8 @@ def main() -> int:
             launches_by_path=by_path,
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
+            device_ms=main_case["device_ms"],
+            plain_device_ms=main_case["plain_device_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
             library_ms=main_case["library_ms"], shape=main_case["shape"],
             cases=cases))

@@ -16,16 +16,23 @@ The JAX trees are taken as nested dicts of numpy arrays
 - the embeddings are tied (``tok_emb`` is the LM head).
 
 Both directions only transpose and slice, so a round trip is bit-exact.
+
+The decode caches bridge too (``cache_from_jax``/``cache_to_jax``), so both
+sides can start from one state: JAX's ``PrefixFFTCache`` keeps the window
+rFFT as real ``prefix_re``/``prefix_im`` planes and, for the LM, stacks
+every field over layers; the port keeps one complex64 ``prefix`` and a list
+of caches, one a layer.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from fft_tpu_torch.config import SpectreConfig
+from fft_tpu_torch.decode.cache import PrefixFFTCache
 from fft_tpu_torch.models.lm import LMConfig
 
 # port name in SpectreHeads -> (JAX path under "heads", is a linear kernel)
@@ -164,3 +171,47 @@ def to_jax_params(state_dict, cfg: LMConfig):
         "ln_f": {"scale": arr("ln_f.weight"), "bias": arr("ln_f.bias")},
         "blocks": _stack(blocks),
     }
+
+
+_CACHE_FIELDS = ("prefix_re", "prefix_im", "v_buf", "q_buf", "sum_q", "t")
+
+
+def cache_from_jax(tree, device=None
+                   ) -> Union[PrefixFFTCache, List[PrefixFFTCache]]:
+    """JAX's ``PrefixFFTCache`` (its NamedTuple, or a dict with its field
+    names; arrays or numpy arrays) -> the port's cache on ``device`` (the
+    CPU unless given), or a list of caches, one a layer, when the fields
+    are stacked over layers (``t`` of shape (L,), as ``lm_prefill``
+    returns them)."""
+    fields = {k: np.asarray(tree[k] if isinstance(tree, dict)
+                            else getattr(tree, k)) for k in _CACHE_FIELDS}
+
+    def one(i):
+        a = {k: (v if i is None else v[i]) for k, v in fields.items()}
+        t = {k: torch.from_numpy(np.array(a[k], dtype=np.float32))
+             for k in _CACHE_FIELDS[:-1]}
+        return PrefixFFTCache(
+            prefix=torch.complex(t["prefix_re"], t["prefix_im"]).to(device),
+            v_buf=t["v_buf"].to(device), q_buf=t["q_buf"].to(device),
+            sum_q=t["sum_q"].to(device), t=int(a["t"]))
+
+    if fields["t"].ndim == 0:
+        return one(None)
+    return [one(i) for i in range(fields["t"].shape[0])]
+
+
+def cache_to_jax(caches: Union[PrefixFFTCache, List[PrefixFFTCache]]):
+    """The port's cache (or list of caches, one a layer) -> a dict of numpy
+    arrays with the fields of JAX's ``PrefixFFTCache`` (stacked over layers
+    for a list); ``PrefixFFTCache(**d)`` of ``jnp.asarray``s rebuilds it."""
+    def one(c: PrefixFFTCache):
+        def arr(x):
+            return np.ascontiguousarray(x.detach().cpu().numpy())
+        return {"prefix_re": arr(c.prefix.real),
+                "prefix_im": arr(c.prefix.imag), "v_buf": arr(c.v_buf),
+                "q_buf": arr(c.q_buf), "sum_q": arr(c.sum_q),
+                "t": np.asarray(c.t, np.int32)}
+
+    if isinstance(caches, PrefixFFTCache):
+        return one(caches)
+    return _stack([one(c) for c in caches])

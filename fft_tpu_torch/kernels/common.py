@@ -46,9 +46,9 @@ def on_cpu(*tensors) -> bool:
     return False
 
 
-def check(name: str, t: torch.Tensor, shape) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: float32 only, got {t.dtype}")
+def check(name: str, t: torch.Tensor, shape, dtype=torch.float32) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: {dtype} only, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, want {shape}")
     if not t.is_contiguous():

@@ -31,8 +31,12 @@ buffer, so no gradient flows to it.
 A tensor on the CPU goes to the plain version; a tensor on a CUDA device
 goes to the kernel, or the call raises: any shape outside
 ``direct_supported`` raises, n_fft 4096-8192 naming ROADMAP module 6
-(kernel #3) and 16384 and up naming kernel #4.  Nothing falls back.  Every
-launch adds one to ``LAUNCHES[name]``.
+(kernel #3) and 16384 and up naming kernel #4.  Nothing falls back.  The
+layer calls these kernels only where the reference's dispatch picks its
+fused kernels (``layers.spectre._mix_branch``): at n_fft >= 16384 it runs
+the d-wide ``unfused_mix``, as the reference does with ``TWOPASS_ENABLE``
+off, so only n_fft 4096-8192 raises on the layer's path.  Every launch
+adds one to ``LAUNCHES[name]``.
 
 What bounds the kernels on the H100, and the design's answer: the TPU
 kernel's dense DFT matrices cost 17 GFLOP at B=8, N=1024, d=512 (0.26 ms

@@ -10,20 +10,23 @@ Heads are stacked on a leading axis of their parameters (the JAX package
   ``fft_tpu_torch.kernels.spectral_mix``) and the per-head branch
   (``fft_impl="auto"``: ``torch.fft``, cuFFT on the card);
 - the wavelet refinement, its wavelet path detached;
-- the causal head, chunk gates (mean pooler) and segmented multihead
-  branch;
+- the causal head, chunk gates (all three poolers, as the decode
+  descriptors see them) and segmented multihead branch;
 - the block with its frozen additive spectral memory.
+
+The non-causal multihead picks its branch by the JAX package's rule
+(``_mix_branch``, counted in ``MIX_BRANCH_CALLS``).
 
 Randomness comes from an explicit ``torch.Generator``: dropout on the mixed
 values and the wavelet's on-mask draw only under ``module.train()``, which
 takes the place of the JAX package's ``deterministic=False``.
-``compute_dtype="bfloat16"``, the ``sp_mesh`` arguments and causal models
-with the DCT or attention pooler raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+``compute_dtype="bfloat16"`` and the ``sp_mesh`` arguments raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import Optional
 
@@ -38,8 +41,8 @@ from fft_tpu_torch.layers.common import (
     gelu_exact, layernorm_apply, linear_init,
 )
 from fft_tpu_torch.ops import (
-    attention_pool, complex_circular_conv1d, dct_pool, fftops,
-    haar_decompose, haar_reconstruct, interp_complex_1d,
+    attention_pool, complex_circular_conv1d, dct_pool, dct_pool_weights,
+    fftops, haar_decompose, haar_reconstruct, interp_complex_1d,
     interp_complex_1d_ref_compat, mean_pool, modrelu,
 )
 from fft_tpu_torch.utils.device import resolve_device
@@ -206,18 +209,51 @@ def _compact_gate(gate: torch.Tensor) -> torch.Tensor:
 def causal_chunk_gates(heads: SpectreHeads, cfg: SpectreHeadConfig,
                        q: torch.Tensor, n_chunks: int,
                        causal_chunk: int) -> torch.Tensor:
-    """Per-chunk gates from causal cumulative descriptors: the mean pooler
-    over tokens up to and including each chunk's first position, divided by
-    n_fft as decode does (so causal_chunk=1 reproduces decode).
+    """Per-chunk gates from causal cumulative descriptors: the configured
+    pooler over tokens up to and including each chunk's first position,
+    zero-padded to the n_fft window, which is what decode's descriptor sees
+    at that step (``sum_q / N`` for mean, the ``"window"`` pooler for DCT
+    and attention), so causal_chunk=1 reproduces decode.  Every pooler is a
+    chunk-cumulative prefix sum:
+
+    - mean: the prefix sum of q, divided by n_fft;
+    - dct: the prefix sum of q weighted by ``dct_pool_weights`` (the DCT
+      pooler is linear);
+    - attention: the softmax over the padded window is the prefix sum of
+      exp(score) q over the prefix sum of exp(score) plus (n_fft - tokens)
+      exp(score(0)) for the zero slots.
 
     q: (B, N, H, hd) -> (B, nc, H, G, F_half) complex."""
     b, n = q.shape[:2]
     pad_n = n_chunks * causal_chunk
-    if pad_n > n:
-        q = torch.cat([q, q.new_zeros((b, pad_n - n) + q.shape[2:])], dim=1)
-    sums = q.reshape(b, n_chunks, causal_chunk, *q.shape[2:]).sum(dim=2)
-    excl = torch.cumsum(sums, dim=1) - sums
-    descr = (excl + q[:, ::causal_chunk]) / cfg.n_fft
+
+    def chunk_cum(x):
+        """(B, n, ...) -> (B, nc, ...): the sum over tokens [0, c C]."""
+        if pad_n > n:
+            x = torch.cat([x, x.new_zeros((b, pad_n - n) + x.shape[2:])],
+                          dim=1)
+        sums = x.reshape(b, n_chunks, causal_chunk, *x.shape[2:]).sum(dim=2)
+        excl = torch.cumsum(sums, dim=1) - sums
+        return excl + x[:, ::causal_chunk]
+
+    if cfg.pooling_type == "dct":
+        wbar = dct_pool_weights(cfg.n_fft, device=q.device)[:n]
+        descr = chunk_cum(q * wbar[:, None, None])
+    elif cfg.pooling_type == "attention":
+        s = _heads_linear(gelu_exact(_heads_linear(
+            q, heads.pool_fc1_w, heads.pool_fc1_b)), heads.pool_fc2_w,
+            heads.pool_fc2_b)                                # (B, n, H, 1)
+        s0 = _heads_linear(gelu_exact(heads.pool_fc1_b), heads.pool_fc2_w,
+                           heads.pool_fc2_b)                 # (H, 1)
+        m = torch.maximum(s.amax(dim=1, keepdim=True), s0)  # (B, 1, H, 1)
+        es = torch.exp(s - m)
+        starts = torch.arange(n_chunks, device=q.device) * causal_chunk
+        n_pad = (cfg.n_fft - (starts + 1)).to(q.dtype)
+        denom = (chunk_cum(es)
+                 + n_pad[None, :, None, None] * torch.exp(s0 - m))
+        descr = chunk_cum(q * es) / denom
+    else:
+        descr = chunk_cum(q) / cfg.n_fft
     descr = layernorm_apply(descr, heads.q_norm_w, heads.q_norm_b)
     return spectre_gate(heads, cfg, descr)
 
@@ -354,6 +390,52 @@ def wavelet_refinement_apply(
     return v + v_ref * gate * mask.to(v.dtype)
 
 
+# "fused" | "wide" | "per_head": the branch each non-causal multihead call
+# took (_mix_branch)
+MIX_BRANCH_CALLS = collections.Counter()
+
+
+def _reference_mix_supported(n_fft: int) -> bool:
+    """The reference's ``pallas_fft.pallas_mix_supported`` with its
+    ``TWOPASS_ENABLE`` off (pallas_fft.py:52, :55-93): the whole-slab
+    kernels' (f1, f2) plan of n_fft / 2 exists and n_fft <= 8192."""
+    if n_fft % 2 or n_fft < 8 or n_fft > 8192:
+        return False
+    n2 = n_fft // 2
+    f1 = min(n2, 128)
+    return n2 % f1 == 0 and n2 // f1 <= 128
+
+
+def _reference_plan_exists(n: int) -> bool:
+    """The reference's ``matfft.plan_factors(n) is not None``
+    (matfft.py:51-108): n even, n >= 4, and n / 2 has no prime factor
+    left above 128 once 2, 3, 5, 7, 11 and 13 are divided out."""
+    if n < 4 or n % 2:
+        return False
+    m = n // 2
+    for p in (2, 3, 5, 7, 11, 13):
+        while m % p == 0:
+            m //= p
+    return m <= 128
+
+
+def _mix_branch(cfg: SpectreConfig) -> str:
+    """The reference's dispatch of the non-causal multihead
+    (fft_tpu/layers/spectre.py:433-449): with ``fft_impl="pallas"`` and d a
+    multiple of 128, the spectral-mix kernels where they take n_fft
+    ("fused": #1/#2 on the card, which raise naming #3 at 4096-8192), the
+    d-wide composition at n_fft >= 16384 ("wide": cuFFT on the card); the
+    per-head branch otherwise."""
+    d = cfg.embed_dim
+    if cfg.fft_impl != "pallas" or d % 128:
+        return "per_head"
+    if _reference_mix_supported(cfg.n_fft):
+        return "fused"
+    if cfg.n_fft >= 16384 and _reference_plan_exists(cfg.n_fft):
+        return "wide"
+    return "per_head"
+
+
 class SpectreMultiHead(nn.Module):
     """Multi-head SPECTRE mixer, causal or not (``cfg.causal``)."""
 
@@ -362,9 +444,6 @@ class SpectreMultiHead(nn.Module):
         if cfg.causal and cfg.wavelet_on_rate != 0.0:
             raise ValueError("the wavelet branch is non-causal; set "
                              "wavelet_on_rate=0 for causal models")
-        if cfg.causal and cfg.pooling_type != "mean":
-            raise _not_ported(f"causal pooling_type={cfg.pooling_type!r} "
-                              "(the streaming descriptors, module 4)")
         self.cfg = cfg
         self.heads = SpectreHeads(cfg.head_config(), cfg.num_heads)
         self.out_proj = nn.Linear(cfg.embed_dim, cfg.embed_dim, bias=False)
@@ -401,22 +480,28 @@ class SpectreMultiHead(nn.Module):
         if n > cfg.n_fft:
             raise ValueError(f"sequence {n} exceeds n_fft {cfg.n_fft}")
         xh = x.reshape(b, n, h, hd)
-        if cfg.fft_impl == "pallas":
-            # all heads' mixes are channel-pointwise: ONE d-wide call of the
-            # spectral-mix kernels, with the compact (B, F, H*G) gate
+        branch = _mix_branch(cfg)
+        MIX_BRANCH_CALLS[branch] += 1
+        if branch != "per_head":
+            # all heads' mixes are channel-pointwise: ONE d-wide mix with the
+            # compact (B, F, H*G) gate
             q = _heads_linear(xh, self.heads.w_q)
             v = _heads_linear(xh, self.heads.w_v)
             q_pool = _pool_descriptor(self.heads, hcfg, q)
             gate = _compact_gate(_with_pos_phase(
                 spectre_gate(self.heads, hcfg, q_pool), pos_phase))
             v_all = F.pad(v.reshape(b, n, d), (0, 0, 0, cfg.n_fft - n))
-            # the memory enters additively: its irfft is a constant that
-            # the kernel adds on its store
-            mem_t = (None if memory_fft is None else fftops.irfft(
-                memory_fft, cfg.n_fft, dim=0).contiguous())
-            mixed = spectral_mix(v_all, gate.real.contiguous(),
-                                 gate.imag.contiguous(), mem_t,
-                                 cfg.n_fft)[:, :n]
+            if branch == "fused":
+                # the memory enters additively: its irfft is a constant that
+                # the kernel adds on its store
+                mem_t = (None if memory_fft is None else fftops.irfft(
+                    memory_fft, cfg.n_fft, dim=0).contiguous())
+                mixed = spectral_mix(v_all, gate.real.contiguous(),
+                                     gate.imag.contiguous(), mem_t,
+                                     cfg.n_fft)[:, :n]
+            else:
+                mixed = unfused_mix(v_all, gate, memory_fft,
+                                    cfg.n_fft)[:, :n]
             if self.training and cfg.dropout_p > 0.0:
                 mixed = dropout(mixed, cfg.dropout_p, generator)
         else:

@@ -209,6 +209,23 @@ def lm_prefill(model: SpectreLM, tokens: torch.Tensor
 
 
 @torch.no_grad()
+def lm_prefill_split(model: SpectreLM, tokens: torch.Tensor
+                     ) -> Tuple[torch.Tensor, List[PrefixFFTCache]]:
+    """``lm_prefill`` in two loops, the JAX package's public split of the
+    same math: the forward collecting each layer's input hidden states,
+    then the cache build over them.  Returns what ``lm_prefill`` returns."""
+    h = model.embed(tokens)
+    inputs = []
+    for block in model.blocks:
+        inputs.append(h)
+        h = block(h)
+    caches = lm_decode_init(model, tokens.shape[0])
+    for i, (block, h_in) in enumerate(zip(model.blocks, inputs)):
+        caches[i] = spectre_block_prefill(block, h_in, caches[i])
+    return model.logits(h[:, -1]), caches
+
+
+@torch.no_grad()
 def lm_generate(model: SpectreLM, prompt: torch.Tensor, steps: int, *,
                 generator: Optional[torch.Generator] = None,
                 temperature: float = 0.0) -> torch.Tensor:

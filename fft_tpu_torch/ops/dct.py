@@ -22,13 +22,21 @@ def _dct_pool_weights_np(n: int, dct_components: int) -> np.ndarray:
     return w.mean(axis=0).astype(np.float32)
 
 
+_WEIGHTS = {}
+
+
 def dct_pool_weights(n: int, dct_components: int = 64,
                      device=None) -> torch.Tensor:
     """Per-position weights ``w`` (n,) with ``dct_pool(x) == sum_n
     x[..., n, :] * w[n]`` for length-n sequences: the mean of the first K
-    unnormalized DCT-II basis rows."""
-    return torch.from_numpy(_dct_pool_weights_np(n, dct_components)).to(
-        device)
+    unnormalized DCT-II basis rows.  Copied to ``device`` once per (n, K,
+    device) and shared: a copy from pageable host memory on every call
+    would first wait for the card's stream to drain.  Do not write to it."""
+    key = (n, dct_components, str(torch.device(device or "cpu")))
+    if key not in _WEIGHTS:
+        _WEIGHTS[key] = torch.from_numpy(
+            _dct_pool_weights_np(n, dct_components)).to(device)
+    return _WEIGHTS[key]
 
 
 def dct2(x: torch.Tensor, norm: str | None = None) -> torch.Tensor:

@@ -140,7 +140,8 @@ def _run_isolated(code: str, env=None):
 
 def test_port_never_imports_jax():
     code = ("import sys; import fft_tpu_torch, fft_tpu_torch.kernels.causal, "
-            "fft_tpu_torch.kernels.spectral_mix, fft_tpu_torch.bench, "
+            "fft_tpu_torch.kernels.spectral_mix, fft_tpu_torch.kernels.decode, "
+            "fft_tpu_torch.bench, "
             "fft_tpu_torch.cli, fft_tpu_torch.convert, fft_tpu_torch.models, "
             "fft_tpu_torch.decode, fft_tpu_torch.layers; "
             "bad = sorted(m for m in sys.modules "
@@ -155,6 +156,7 @@ def test_kernel_module_imports_without_nvcc():
                CUDA_PATH="/nonexistent")
     code = ("import fft_tpu_torch.kernels.causal as kc, "
             "fft_tpu_torch.kernels.spectral_mix as sm, "
+            "fft_tpu_torch.kernels.decode as kd, "
             "fft_tpu_torch.kernels.build as kb; "
             "assert kb._LIB is None; print('ok')")
     proc = _run_isolated(code, env)

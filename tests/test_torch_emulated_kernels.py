@@ -2,16 +2,19 @@
 tests/cuda_emulation.py, against their plain PyTorch versions: the kernels'
 index arithmetic, shared-memory layout and barriers at small shapes, on a
 machine without nvcc or a card.  spectral_mix.cu (#1, #2), causal_long.cu
-(#9, #7, #11, at chunks up to 2048) and causal.cu's banded_inverse at the
-long chunks of its 8-lane tile.  Same bound as on the card (max|a-b| /
-max|b| < 2e-5: FFTs or direct DFTs against pocketfft, all fp32).  Skips
-where there is no host C++ compiler."""
+(#9, #7, #11, at chunks up to 2048), causal.cu's banded_inverse at the
+long chunks of its 8-lane tile, and decode.cu (#12).  Same bound as on the
+card (max|a-b| / max|b| < 2e-5: FFTs or direct DFTs against pocketfft, all
+fp32).  Skips where there is no host C++ compiler."""
+
+import functools
 
 import pytest
 import torch
 
 from fft_tpu_torch.kernels import build as kb
 from fft_tpu_torch.kernels import causal as kc
+from fft_tpu_torch.kernels import decode as kd
 from fft_tpu_torch.kernels import spectral_mix as sm
 from fft_tpu_torch.kernels.common import twiddles_np
 from tests import cuda_emulation
@@ -204,3 +207,89 @@ def test_emulated_banded_inverse_narrow_tile(causal_lib, b, nc, chunk, d,
         *(_ptr(t) for t in args), _ptr(_tw(chunk)), _ptr(y), b, nc, chunk,
         d, cols, lanes, None) == 0
     assert _rel(y, kc.banded_inverse_ref(*args, chunk)) < TOL
+
+
+@pytest.fixture(scope="module")
+def decode_lib(tmp_path_factory):
+    return _emulated(tmp_path_factory, "decode.cu", ("fft_fused_decode_mix",))
+
+
+def _decode_inputs(b, h, n, hd, groups, seed):
+    g = torch.Generator().manual_seed(seed)
+    f = n // 2 + 1
+    prefix = torch.complex(_randn(g, b, h, f, hd), _randn(g, b, h, f, hd))
+    gate = torch.complex(_randn(g, b, h, groups, f),
+                         _randn(g, b, h, groups, f))
+    return prefix, gate, _randn(g, b, h, hd), _randn(g, b, h, n, hd)
+
+
+def _emulated_decode(lib, prefix, gate, v_t, v_buf, evict, j, pos):
+    """prefix updated in place, y: the C entry as the wrapper calls it."""
+    b, h, f, hd = prefix.shape
+    n = v_buf.shape[-2]
+    partial = torch.empty(b, h, -(-f // kd._TILE), hd)
+    y = torch.empty(b, h, hd)
+    assert lib.fft_fused_decode_mix(
+        _ptr(torch.view_as_real(prefix)), _ptr(torch.view_as_real(gate)),
+        _ptr(v_t), _ptr(v_buf), _ptr(partial), _ptr(y), b * h, n, hd,
+        gate.shape[-2], evict, j, pos, kd._TILE, kd._rows(hd), None) == 0
+    return y
+
+
+# (b, h, n, hd, groups, evict, j, pos): F below one tile (n=16, F=9) and
+# above (n=256, F=129: three tiles, the last of one row); hd 64 / G 4 (the
+# LMs' heads) and hd 8 / G 2; the 350M's n=16384 at its last slot, where
+# the angle's float32 roundings show
+DECODE_CASES = [(2, 2, 16, 8, 2, 0, 5, 5), (1, 2, 16, 64, 4, 1, 0, 15),
+                (2, 1, 256, 64, 4, 1, 128, 255), (1, 2, 256, 8, 2, 0, 255, 3),
+                (1, 1, 16384, 8, 2, 1, 16383, 16383)]
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_case(b, h, n, hd, groups, evict, j, pos):
+    """The inputs of a case and the plain version's prefix and y, shared by
+    the checks of decode.cu and of its broken copy (clone before use: the
+    kernel updates the prefix in place)."""
+    prefix, gate, v_t, v_buf = _decode_inputs(b, h, n, hd, groups, n + hd)
+    want_prefix = prefix.clone()
+    want = kd.fused_decode_mix_ref(want_prefix, gate, v_t, v_buf, evict, j,
+                                   pos)
+    return (prefix, gate, v_t, v_buf), want_prefix, want
+
+
+@pytest.mark.parametrize("b,h,n,hd,groups,evict,j,pos", DECODE_CASES)
+def test_emulated_fused_decode_mix(decode_lib, b, h, n, hd, groups, evict,
+                                   j, pos):
+    """The prefix and y each on its own against the plain version."""
+    assert kd.decode_supported(hd, groups)
+    (prefix, gate, v_t, v_buf), want_prefix, want = _decode_case(
+        b, h, n, hd, groups, evict, j, pos)
+    prefix = prefix.clone()
+    y = _emulated_decode(decode_lib, prefix, gate, v_t, v_buf, evict, j, pos)
+    assert _rel(prefix, want_prefix) < TOL
+    assert _rel(y, want) < TOL
+
+
+def test_emulated_decode_with_the_phase_rounded_another_way_fails(
+        tmp_path_factory):
+    """A copy of decode.cu that forms the angle as w * (k * j), one
+    rounding fewer than the plain version's (w * k) * j, disagrees with it
+    at n = 16384: the check above sees a phase error of a few ulps."""
+    if cuda_emulation.compiler() is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    src = (kb.CSRC_DIR / "decode.cu").read_text()
+    good = "const float a = (w_ins * k) * (float)j;"
+    assert good in src
+    out = tmp_path_factory.mktemp("broken")
+    broken = out / "decode.cu"
+    broken.write_text(src.replace(good,
+                                  "const float a = w_ins * (k * (float)j);"))
+    lib = cuda_emulation.build(broken, out)
+    argtypes, restype = kb._SIGNATURES["fft_fused_decode_mix"]
+    lib.fft_fused_decode_mix.argtypes = argtypes
+    lib.fft_fused_decode_mix.restype = restype
+    case = DECODE_CASES[-1]
+    (prefix, gate, v_t, v_buf), want_prefix, _ = _decode_case(*case)
+    prefix = prefix.clone()
+    _emulated_decode(lib, prefix, gate, v_t, v_buf, *case[-3:])
+    assert _rel(prefix, want_prefix) > TOL

@@ -1,6 +1,7 @@
 """The CUDA kernels of fft_tpu_torch against their plain PyTorch versions,
 on the card, at the tiny LM's, BASELINE config 1's and the 350M's shapes
-(the long-chunk kernels #9, #7 and #11, and #5 past chunk 853).  Imports no
+(the long-chunk kernels #9, #7 and #11, #5 past chunk 853, and the decode
+kernel #12 at both LMs' decode shapes).  Imports no
 JAX, so it runs on a machine without it:
 
     FFT_TPU_REAL=1 python -m pytest tests/test_torch_kernels.py -q
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from fft_tpu_torch.kernels import causal as kc
+from fft_tpu_torch.kernels import decode as kd
 from fft_tpu_torch.kernels import spectral_mix as sm
 
 # max|a-b| / max|b|, as tests/golden_utils.py: direct fp32 DFTs against
@@ -334,3 +336,30 @@ def test_direct_mix_refuses_what_the_kernels_do_not_take(dev):
         v, gr, gi, _, _ = _mix_inputs(dev, n_fft, 16, 0, b=1, d=64)
         with pytest.raises(err, match=match):
             sm.direct_mix(v, gr, gi, None, n_fft)
+
+
+# (B, H, n, hd, G): the tiny LM's decode at batch 4 and the 350M's at 1
+DECODE_CASES = [(4, 8, 2048, 64, 4), (1, 16, 16384, 64, 4)]
+
+
+@pytest.mark.parametrize("b,h,n,hd,groups", DECODE_CASES)
+@pytest.mark.parametrize("evict", [0, 1])
+def test_fused_decode_mix_kernel(dev, b, h, n, hd, groups, evict):
+    """In place: the kernel's updated prefix and y against the plain
+    version's from the same state, at the last ring slot and position."""
+    g = torch.Generator().manual_seed(n + evict)
+    f = n // 2 + 1
+    prefix = torch.complex(_randn(g, dev, b, h, f, hd),
+                           _randn(g, dev, b, h, f, hd))
+    gate = torch.complex(_randn(g, dev, b, h, groups, f),
+                         _randn(g, dev, b, h, groups, f))
+    v_t, v_buf = _randn(g, dev, b, h, hd), _randn(g, dev, b, h, n, hd)
+    want_prefix = prefix.clone()
+    before = kd.LAUNCHES["fused_decode_mix"]
+    got = kd.fused_decode_mix(prefix, gate, v_t, v_buf, evict, n - 1, n - 1)
+    torch.cuda.synchronize()
+    assert kd.LAUNCHES["fused_decode_mix"] == before + 1
+    want = kd.fused_decode_mix_ref(want_prefix, gate, v_t, v_buf, evict,
+                                   n - 1, n - 1)
+    assert _rel(prefix, want_prefix) < TOL
+    assert _rel(got, want) < TOL
