@@ -1,10 +1,10 @@
 """Smoke run of fft_tpu_torch on one NVIDIA GPU: the tiny LM's serving and
 training paths at full width (6 layers, d=512, 8 heads, seq 2048),
 BASELINE config 1's non-causal block (B=8, L=1024, d=512) forward and
-backward, and BASELINE config 4, SPECTRE-350M at seq 16384 (24 layers,
-d=1024, 16 heads, vocab 50432), serving and training, with both LMs'
-decode through kernel #12, random weights from seed 0, through the port's
-own entry points.
+backward, the same block past n_fft 2048 (kernels #3 and #4), and BASELINE
+config 4, SPECTRE-350M at seq 16384 (24 layers, d=1024, 16 heads, vocab
+50432), serving and training, with both LMs' decode through kernel #12,
+random weights from seed 0, through the port's own entry points.
 
     python3 chip_smoke.py
 
@@ -22,6 +22,8 @@ Phases, in order; any failure raises and the exit code is nonzero:
              (library_ms; cuFFT), and
              the least time the card could take (bound_ms: bytes over 3.35
              TB/s or FFT-equivalent operations over 67 TFLOP/s fp32).
+             staged_mix (#3) also at every n_fft = 256 m, m = 9..32,
+             untimed.
 3. score     lm_apply on 4 x 2048 tokens; logits within rel_err 1e-4 of
              the same model and weights on the CPU (where the kernels'
              plain versions run); tokens/s on the card.
@@ -65,6 +67,23 @@ Phases, in order; any failure raises and the exit code is nonzero:
              during the phase.  Then one forward of a block at n_fft
              16384 (B=1, N=16384, d=512, fft_impl="pallas") within 2e-5 of
              the CPU, on the d-wide composition (MIX_BRANCH_CALLS "wide").
+   7b.       (launch counts of its own) the config-1 block at n_fft = L =
+             4096, B=2 and 8192, B=1 (fft_impl="pallas": staged_mix, #3,
+             forward; autograd through unfused_mix backward): forward
+             within 2e-5 and every gradient within 1e-4 of the CPU, the
+             fused branch taken, 5 timed steps through bench.run (step ms,
+             tokens/s, peak memory) and 3 profiled; the mix's backward
+             alone (ms) beside the gate product and irfft of the forward
+             that its autograd re-runs and drops.  staged_mix was
+             launched and direct_mix_bwd was not.
+   7c.       (launch counts of its own) with kernels.spectral_mix.
+             TWOPASS_ENABLE on (restored after): block forwards at n_fft
+             16384 and 65536, B=1, within 2e-5 of the CPU on the fused
+             branch (twopass_mix, #4); then at 16384, 32768 and 65536 the
+             block's forward ms with the flag on and off in turns, the
+             fused branch's mem_t ms, and a profile of the forward with
+             each.  twopass_mix was launched once in each block forward
+             with the flag on (phase 2 times #4 alone against cuFFT).
 8. 350m      SPECTRE-350M (spectre_350m_config, seq 16384, chunk 2048).
              Parity at 2 layers and 8192 tokens (nc=4: kf_seg_rfft, the v3
              mix and its backward): logits, loss and every gradient of a
@@ -117,6 +136,8 @@ SOURCES = {
     "fused_causal_mix_v3": "fft_tpu_torch/csrc/causal_long.cu",
     "fused_causal_mix_bwd_v3": "fft_tpu_torch/csrc/causal_long.cu",
     "fused_decode_mix": "fft_tpu_torch/csrc/decode.cu",
+    "staged_mix": "fft_tpu_torch/csrc/staged_mix.cu",
+    "twopass_mix": "fft_tpu_torch/csrc/twopass_mix.cu",
 }
 REPLACES = {
     "direct_mix": "fft_tpu/kernels/pallas_fft.py:301",
@@ -129,6 +150,8 @@ REPLACES = {
     "fused_causal_mix_v3": "fft_tpu/kernels/pallas_causal.py:931",
     "fused_causal_mix_bwd_v3": "fft_tpu/kernels/pallas_causal.py:2307",
     "fused_decode_mix": "fft_tpu/kernels/pallas_decode.py:71",
+    "staged_mix": "fft_tpu/kernels/pallas_fft.py:630",
+    "twopass_mix": "fft_tpu/kernels/pallas_fft.py:1156",
 }
 SERVE_KERNELS = ("kf_spectra", "fused_causal_mix", "banded_inverse",
                  "fused_decode_mix")
@@ -137,6 +160,8 @@ SERVE_KERNELS = ("kf_spectra", "fused_causal_mix", "banded_inverse",
 DECODE_KERNELS = ("kf_spectra", "fused_causal_mix", "fused_decode_mix")
 TRAIN_KERNELS = ("kf_spectra", "fused_causal_mix", "fused_causal_mix_bwd")
 BLOCK_KERNELS = ("direct_mix", "direct_mix_bwd")
+# phase 7b: the block at n_fft 4096/8192 (7c counts #4 per forward)
+BLOCK_LONG_KERNELS = ("staged_mix",)
 # the 350M's paths at seq 16384: its long-context kernels (the CLI's 4-byte
 # prompt runs banded_inverse)
 SERVE_350M_KERNELS = ("kf_seg_rfft", "fused_causal_mix_v3", "banded_inverse",
@@ -309,7 +334,9 @@ def phase_kernels(kc, sm, kd, dev):
     for n, mem in ((1024, True), (1024, False), (2048, True), (256, True)):
         cases += mix_cases(sm, randn, 8, n, d, cols, mem,
                            main=(n == 1024 and mem))
+    cases += long_mix_cases(sm, randn)
 
+    staged_sweep(sm, randn)
     results = {}
     for name, shape, kern, plain, lib, work, main in cases:
         got, want = kern(), plain()
@@ -421,6 +448,72 @@ def decode_cases(kd, randn):
     return cases
 
 
+def lib_mix(v, gr, gi, mem_t, n):
+    """The cuFFT composition of the forward mix (which the port never
+    calls): rfft, the gate broadcast over each group's channels, irfft."""
+    b, _, d = v.shape
+    fh, cols = n // 2 + 1, gr.shape[-1]
+    x = torch.fft.rfft(v, dim=1).view(b, fh, cols, d // cols)
+    y = torch.fft.irfft((x * torch.complex(gr, gi)[..., None]).view(
+        b, fh, d), n, dim=1)
+    return y if mem_t is None else y + mem_t
+
+
+def fwd_mix_work(b, n, d, cols, mem):
+    """(bytes, operations) of the forward mix: v, the gate pair and mem_t
+    read once, y written once; two FFTs, the gate's complex products and
+    mem_t's adds."""
+    vb, gb, ops = mix_work(b, n, d, cols)
+    return (2 * vb + gb + (4 * n * d if mem else 0),
+            2 * ops + 6 * b * (n // 2 + 1) * d + (b * n * d if mem else 0))
+
+
+def long_mix_cases(sm, randn):
+    """#3 at config 1's block lengths (4096 at B=2, 8192 at B=1) and at the
+    odd factors 9, 17 and 31 (2304, 4352, 7936); #4 at 16384, 32768 and
+    65536, B=1; d=512 (128 at 4352), 32 gate columns, each with and
+    without memory, beside the cuFFT composition."""
+    cases = []
+    for name, fn, plain, shapes in (
+            ("staged_mix", sm.staged_mix, sm.staged_mix_ref,
+             ((2, 4096, 512), (1, 8192, 512), (1, 2304, 512),
+              (1, 4352, 128), (1, 7936, 512))),
+            ("twopass_mix", sm.twopass_mix, sm.twopass_mix_ref,
+             ((1, 16384, 512), (1, 32768, 512), (1, 65536, 512)))):
+        for b, n, d in shapes:
+            fh, cols = n // 2 + 1, 32
+            v, gr, gi = randn(b, n, d), randn(b, fh, cols), randn(b, fh, cols)
+            mem_t = randn(n, d)
+            for mem in (True, False):
+                args = (v, gr, gi, mem_t if mem else None, n)
+                cases.append((
+                    name, f"B={b} N={n} d={d} cols={cols} mem={int(mem)}",
+                    lambda fn=fn, args=args: fn(*args),
+                    lambda plain=plain, args=args: plain(*args),
+                    lambda args=args: lib_mix(*args),
+                    fwd_mix_work(b, n, d, cols, mem),
+                    mem and n in (4096, 16384)))
+    return cases
+
+
+def staged_sweep(sm, randn) -> None:
+    """#3 at every n_fft = 256 m, m = 9..32, against its plain version (each
+    odd factor's instance of the kernel; B=1, d=128, 32 gate columns, with
+    memory), untimed."""
+    errs = {}
+    for m in range(9, 33):
+        n = 256 * m
+        args = (randn(1, n, 128), randn(1, n // 2 + 1, 32),
+                randn(1, n // 2 + 1, 32), randn(n, 128), n)
+        got, want = sm.staged_mix(*args), sm.staged_mix_ref(*args)
+        torch.cuda.synchronize()
+        errs[n] = rel_err(got, want)
+        if not (errs[n] <= REL_KERNEL and all_finite(got)):
+            raise AssertionError(f"staged_mix n_fft {n}: rel_err {errs[n]} "
+                                 f"> {REL_KERNEL} or non-finite")
+    emit(phase="kernels_staged_sweep", d=128, rel_err=errs)
+
+
 def mix_cases(sm, randn, b, n, d, cols, mem, main):
     """direct_mix and direct_mix_bwd at one shape, each beside the cuFFT
     composition of the same function (which the port never calls)."""
@@ -433,9 +526,7 @@ def mix_cases(sm, randn, b, n, d, cols, mem, main):
     coef[0] = coef[-1] = 1.0
 
     def lib_fwd():
-        x = torch.fft.rfft(v, dim=1).view(b, fh, cols, d_g)
-        y = torch.fft.irfft((x * gc).view(b, fh, d), n, dim=1)
-        return y if mem_t is None else y + mem_t
+        return lib_mix(v, gr, gi, mem_t, n)
 
     def lib_bwd():
         u = torch.fft.rfft(ybar, dim=1).view(b, fh, cols, d_g) * (coef[
@@ -450,8 +541,7 @@ def mix_cases(sm, randn, b, n, d, cols, mem, main):
         "direct_mix", f"B={b} N={n} d={d} cols={cols} mem={int(mem)}",
         lambda: sm.direct_mix(v, gr, gi, mem_t, n),
         lambda: sm.direct_mix_ref(v, gr, gi, mem_t, n), lib_fwd,
-        (2 * vb + gb + (4 * n * d if mem else 0),
-         2 * ops + 6 * b * fh * d + (b * n * d if mem else 0)), main)]
+        fwd_mix_work(b, n, d, cols, mem), main)]
     if mem:                 # the adjoint takes no memory: once per shape
         cases.append((
             "direct_mix_bwd", f"B={b} N={n} d={d} cols={cols}",
@@ -749,28 +839,27 @@ def phase_wide_block(dev) -> None:
                              f" branches {branches}")
 
 
-def phase_block(dev) -> None:
-    """BASELINE config 1's block: parity with the CPU, timed steps through
-    the bench, the bench's CLI, and the original constructor's defaults."""
-    from fft_tpu_torch import bench
+def block_parity(cfg, x, dev) -> dict:
+    """A block of ``cfg`` from seed 0 on the card and on the CPU (modReLU
+    kink sides aligned): forward within REL_BLOCK, every parameter
+    gradient of sum(y^2) within REL_MODEL; also the non-causal branches
+    the card's forward took."""
     from fft_tpu_torch.layers.spectre import (
-        spectre_block_apply, spectre_block_init,
+        MIX_BRANCH_CALLS, spectre_block_apply, spectre_block_init,
     )
 
-    cfg = bench.config1()
-
-    def block_on(device, c=cfg):
-        return spectre_block_init(c, torch.Generator().manual_seed(SEED),
+    def block_on(device):
+        return spectre_block_init(cfg, torch.Generator().manual_seed(SEED),
                                   device)
 
-    x = torch.randn((bench.B, bench.L, bench.D),
-                    generator=torch.Generator().manual_seed(SEED + 2))
     gpu, cpu = block_on(dev), block_on("cpu")
     sides = []
+    MIX_BRANCH_CALLS.clear()
     with same_modrelu_side(True, sides):
         y = spectre_block_apply(gpu, x.to(dev))
         (y ** 2).sum().backward()
         torch.cuda.synchronize()
+    branches = dict(MIX_BRANCH_CALLS)
     with same_modrelu_side(False, list(sides)):
         y_cpu = spectre_block_apply(cpu, x)
         (y_cpu ** 2).sum().backward()
@@ -791,13 +880,33 @@ def phase_block(dev) -> None:
     worst = max(grad_errs, key=grad_errs.get)
     if not (all_finite(y) and err <= REL_BLOCK
             and grad_errs[worst] <= REL_MODEL):
-        raise AssertionError(f"block: forward rel_err {err} (limit "
-                             f"{REL_BLOCK}), worst gradient {worst} rel_err "
-                             f"{grad_errs[worst]} (limit {REL_MODEL})")
-    emit(phase="block_parity", batch=bench.B, seq=bench.L, rel_err=err,
-         max_grad_rel_err=grad_errs[worst], worst_grad=worst,
-         tensors=len(grad_errs), modrelu_sides_aligned=flips)
-    del gpu, cpu, y, y_cpu
+        raise AssertionError(f"block n_fft {cfg.n_fft}: forward rel_err "
+                             f"{err} (limit {REL_BLOCK}), worst gradient "
+                             f"{worst} rel_err {grad_errs[worst]} (limit "
+                             f"{REL_MODEL})")
+    return dict(batch=x.shape[0], seq=x.shape[1], n_fft=cfg.n_fft,
+                rel_err=err, max_grad_rel_err=grad_errs[worst],
+                worst_grad=worst, tensors=len(grad_errs),
+                modrelu_sides_aligned=flips, branches=branches)
+
+
+def phase_block(dev) -> None:
+    """BASELINE config 1's block: parity with the CPU, timed steps through
+    the bench, the bench's CLI, and the original constructor's defaults."""
+    from fft_tpu_torch import bench
+    from fft_tpu_torch.layers.spectre import (
+        spectre_block_apply, spectre_block_init,
+    )
+
+    cfg = bench.config1()
+
+    def block_on(device, c=cfg):
+        return spectre_block_init(c, torch.Generator().manual_seed(SEED),
+                                  device)
+
+    x = torch.randn((bench.B, bench.L, bench.D),
+                    generator=torch.Generator().manual_seed(SEED + 2))
+    emit(phase="block_parity", **block_parity(cfg, x, dev))
 
     res = bench.run(steps=5, device=dev, seed=SEED)
     emit(phase="block_steps", steps=5, **res)
@@ -839,6 +948,131 @@ def phase_block(dev) -> None:
     emit(phase="block_defaults", pooling="dct", wavelet_on_rate=0.1,
          generator_seed=seed, train_finite=True, tensors=len(grads),
          eval_rel_err=err)
+
+
+def phase_block_long(dev) -> None:
+    """7b: the config-1 block at n_fft = L = 4096 (B=2) and 8192 (B=1):
+    parity with the CPU on the fused branch (#3 forward), then 5 timed
+    steps through the bench, and the mix's backward at the block's shape
+    beside the part of it that autograd computes and drops."""
+    from fft_tpu_torch import bench
+    from fft_tpu_torch.kernels import spectral_mix as sm
+    from fft_tpu_torch.ops import fftops
+
+    for seq, batch in ((4096, 2), (8192, 1)):
+        cfg = bench.config1(seq)
+        x = torch.randn((batch, seq, bench.D),
+                        generator=torch.Generator().manual_seed(SEED + seq))
+        res = block_parity(cfg, x, dev)
+        emit(phase="block_long_parity", **res)
+        if res["branches"] != {"fused": 1}:
+            raise AssertionError(f"block n_fft {seq} took {res['branches']}")
+        steps = bench.run(steps=5, batch=batch, seq=seq, device=dev,
+                          seed=SEED, profile_steps=3)
+        emit(phase="block_long_steps", steps=5, **steps)
+        if not math.isfinite(steps["loss"]):
+            raise AssertionError(f"block n_fft {seq}: loss {steps['loss']}")
+        # above n_fft 2048 the backward is autograd through unfused_mix,
+        # which re-runs its forward: the gate product and the irfft of that
+        # forward are computed and dropped
+        cols = cfg.num_heads * cfg.num_groups
+        g = torch.Generator().manual_seed(SEED + seq + 1)
+        v, ybar = (torch.randn((batch, seq, bench.D), generator=g).to(dev)
+                   for _ in range(2))
+        gr, gi = (torch.randn((batch, seq // 2 + 1, cols),
+                              generator=g).to(dev) for _ in range(2))
+        x_f = fftops.rfft(v, seq, dim=-2)
+        g_e = torch.complex(gr, gi).repeat_interleave(bench.D // cols, -1)
+
+        def bwd():
+            return sm._unfused_vjp(v, gr, gi, ybar, seq)
+
+        def dropped():
+            return fftops.irfft(g_e * x_f, seq, dim=-2)
+
+        emit(phase="block_long_backward", n_fft=seq, batch=batch, cols=cols,
+             mix_bwd_ms=median_ms(bwd, reps=3, rounds=5),
+             mix_bwd_device_ms=device_ms(bwd, reps=3),
+             dropped_forward_ms=median_ms(dropped, reps=3, rounds=5),
+             dropped_forward_device_ms=device_ms(dropped, reps=3))
+        del v, ybar, gr, gi, x_f, g_e     # the next length's peak is its own
+
+
+def flag_turns(sm, run) -> dict:
+    """Median ms of ``run()`` with TWOPASS_ENABLE on ("twopass") and off
+    ("wide"), in turns (off, on, on, off)."""
+    times = {False: [], True: []}
+    for flag in (False, True, True, False):
+        sm.TWOPASS_ENABLE = flag
+        times[flag].append(median_ms(run, reps=3, rounds=5))
+    return {"twopass": statistics.median(times[True]),
+            "wide": statistics.median(times[False])}
+
+
+def phase_twopass(dev, sm) -> int:
+    """7c: with TWOPASS_ENABLE on, the block at n_fft 16384 and 65536 (B=1)
+    on the fused branch (#4) against the CPU; then at 16384, 32768 and
+    65536 the block's forward with the flag on and off in turns, the fused
+    branch's mem_t, and a profile of the forward with each.  The flag is
+    put back as it was.  Only block forwards launch kernels here; returns
+    how many ran with the flag on (each launches #4 once)."""
+    from fft_tpu_torch import bench
+    from fft_tpu_torch.layers.spectre import (
+        MIX_BRANCH_CALLS, spectre_block_apply, spectre_block_init,
+    )
+    from fft_tpu_torch.ops import fftops
+
+    forwards_on = 0
+
+    def forward(block, x):
+        nonlocal forwards_on
+        forwards_on += bool(sm.TWOPASS_ENABLE)
+        return spectre_block_apply(block, x)
+
+    default = sm.TWOPASS_ENABLE
+    try:
+        for n in (16384, 32768, 65536):
+            cfg = bench.config1(n)
+            x = torch.randn((1, n, cfg.embed_dim),
+                            generator=torch.Generator().manual_seed(SEED + n))
+            rec = dict(n_fft=n, batch=1, seq=n)
+            with torch.no_grad():
+                gpu = spectre_block_init(
+                    cfg, torch.Generator().manual_seed(SEED), dev)
+                xd = x.to(dev)
+                if n != 32768:
+                    sm.TWOPASS_ENABLE = True
+                    MIX_BRANCH_CALLS.clear()
+                    y = forward(gpu, xd)
+                    torch.cuda.synchronize()
+                    branches = dict(MIX_BRANCH_CALLS)
+                    err = rel_err(y, spectre_block_apply(spectre_block_init(
+                        cfg, torch.Generator().manual_seed(SEED), "cpu"), x))
+                    rec.update(rel_err=err, branches=branches)
+                    if not (all_finite(y) and err <= REL_BLOCK
+                            and branches == {"fused": 1}):
+                        raise AssertionError(
+                            f"two-pass block n_fft {n}: rel_err {err} "
+                            f"(limit {REL_BLOCK}), branches {branches}")
+                    del y
+                rec["block_forward_ms"] = flag_turns(
+                    sm, lambda: forward(gpu, xd))
+                # what the fused branch adds in every forward: the memory's
+                # time-domain constant, made contiguous for the kernel
+                mem = gpu.memory_complex()
+                rec["mem_t_ms"] = median_ms(
+                    lambda: fftops.irfft(mem, n, dim=0).contiguous(), reps=3,
+                    rounds=5)
+                for flag, key in ((False, "wide"), (True, "twopass")):
+                    sm.TWOPASS_ENABLE = flag
+                    rec["forward_profile_" + key] = bench._profile(
+                        lambda: forward(gpu, xd), torch.cuda.synchronize, 2)
+            sm.TWOPASS_ENABLE = default
+            emit(phase="twopass_block", **rec)
+            del gpu, xd
+    finally:
+        sm.TWOPASS_ENABLE = default
+    return forwards_on
 
 
 def phase_350m_parity(dev, kc) -> None:
@@ -1187,6 +1421,26 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the block path: "
                              f"{missing}")
 
+    # 7b, 7c. the block past n_fft 2048 ------------------------------------
+    reset_launches()                          # #3's path starts here
+    phase_block_long(dev)
+    block_long_launches = launches()
+    emit(phase="block_long_launches", **block_long_launches)
+    missing = [k for k in BLOCK_LONG_KERNELS if block_long_launches[k] == 0]
+    if missing or block_long_launches["direct_mix_bwd"]:
+        raise AssertionError(f"block past n_fft 2048: never launched "
+                             f"{missing}, or #2 launched "
+                             f"{block_long_launches['direct_mix_bwd']} times")
+    reset_launches()                          # #4's path starts here
+    forwards_on = phase_twopass(dev, sm)
+    twopass_launches = launches()
+    emit(phase="twopass_launches", block_forwards_on=forwards_on,
+         **twopass_launches)
+    if not forwards_on or twopass_launches["twopass_mix"] != forwards_on:
+        raise AssertionError(f"two-pass block: twopass_mix launched "
+                             f"{twopass_launches['twopass_mix']} times in "
+                             f"{forwards_on} forwards with the flag on")
+
     # 8. 350m --------------------------------------------------------------
     phase_350m_parity(dev, kc)
     serve_350m, train_350m = phase_350m(dev, kd, reset_launches, launches)
@@ -1198,6 +1452,8 @@ def main() -> int:
                        decode=decode_launches[name],
                        train=train_launches[name],
                        block=block_launches[name],
+                       block_long=block_long_launches[name],
+                       twopass=twopass_launches[name],
                        serve_350m=serve_350m[name],
                        train_350m=train_350m[name])
         summary.append(dict(

@@ -1,9 +1,10 @@
 // Radix-2 FFTs in shared memory, shared by the spectral mix
-// (spectral_mix.cu) and the long-chunk causal kernels (causal_long.cu).
+// (spectral_mix.cu, staged_mix.cu, twopass_mix.cu) and the long-chunk
+// causal kernels (causal_long.cu).
 //
 // Twiddles are rounded once from float64 on the host (no __sinf/__cosf, no
 // fast math): tw[m] = (cos, sin)(2 pi m / n) for m < n / 2.  Lengths are
-// powers of two up to 4096 (the 2C-point segment transforms at C = 2048).
+// powers of two up to 8192 (the staged mix's power-of-two factor).
 // No warp shuffles and no atomics, so tests/cuda_emulation.py can run every
 // kernel built on these on the CPU.
 
@@ -26,17 +27,18 @@ __device__ __forceinline__ int bitrev(int t, int log2n) {
 // t of sequence q sits at buf[t * stride + q * step].  sign -1: forward
 // (exp(-i 2 pi k t / n)), +1: inverse, unnormalized.  kDit: decimation in
 // time, bit-reversed input and natural output; else decimation in
-// frequency, natural input and bit-reversed output.  Ends with
-// __syncthreads.
+// frequency, natural input and bit-reversed output.  tw_step: the table
+// holds the twiddles of a length tw_step * n (tw[m * tw_step] is
+// (cos, sin)(2 pi m / n)).  Ends with __syncthreads.
 template <bool kDit>
 __device__ void fft_stages(float2* buf, int n, int log2n, int seqs,
                            int stride, int step, const float2* tw,
-                           float sign) {
+                           float sign, int tw_step = 1) {
   const int half = n >> 1;
   const int work = half * seqs;
   for (int s = 0; s < log2n; ++s) {
     const int h = kDit ? (1 << s) : (half >> s);   // butterfly span
-    const int tstep = half / h;
+    const int tstep = half / h * tw_step;
     for (int i = threadIdx.x; i < work; i += blockDim.x) {
       const int q = i % seqs, j = i / seqs;
       const int pos = j & (h - 1);
@@ -68,6 +70,28 @@ __device__ __forceinline__ void pack_pair(float2* z, int k, int n, int seqs,
   z[(size_t)k * seqs] = make_float2(xa.x - xb.y, xa.y + xb.x);
   const int km = (n - k) & (n - 1);
   if (km != k) z[(size_t)km * seqs] = make_float2(xa.x + xb.y, xb.x - xa.y);
+}
+
+// The spectral mix's step between its transforms, at one frequency
+// k <= n / 2 of a channel pair packed as a + i b (channels ca, ca + 1):
+// from zk = Z[k] and zm = Z[n - k] untangle A[k] and B[k], multiply each
+// by its gate group's column of the compact gate row (gr, gi: row k), drop
+// Im at DC and Nyquist (irfft does), and leave in zk and zm what Z[k] and
+// Z[n - k] take so that one inverse returns both products as a + i b.
+__device__ __forceinline__ void gate_pair(float2& zk, float2& zm,
+                                          const float* gr, const float* gi,
+                                          int ca, int dg, int k, int half) {
+  const float2 xa = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
+  const float2 xb = make_float2(0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
+  const int ga = ca / dg, gb = (ca + 1) / dg;
+  float2 ma = cmul(make_float2(gr[ga], gi[ga]), xa);
+  float2 mb = cmul(make_float2(gr[gb], gi[gb]), xb);
+  if (k == 0 || k == half) {
+    ma.y = 0.f;
+    mb.y = 0.f;
+  }
+  zk = make_float2(ma.x - mb.y, ma.y + mb.x);
+  zm = make_float2(ma.x + mb.y, mb.x - ma.y);
 }
 
 inline int log2_of(int n) {

@@ -71,24 +71,15 @@ direct_mix_kernel(const float* __restrict__ v, const float* __restrict__ gr,
   fft_stages<true>(z, n, log2n, np, np, 1, tw, -1.f);
 
   // untangle the two channels' spectra, gate them, and pack the Hermitian
-  // extensions of both products back into one sequence
+  // extensions of both products back into one sequence (gate_pair)
   for (int i = tid; i < (half + 1) * np; i += nt) {
     const int p = i % np, k = i / np;
     const int km = (n - k) & (n - 1);
-    const float2 zk = z[k * np + p], zm = z[km * np + p];
-    const float2 xa = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
-    const float2 xb = make_float2(0.5f * (zk.y + zm.y),
-                                  -0.5f * (zk.x - zm.x));
-    const int ca = c0 + 2 * p;
     const size_t go = ((size_t)b * (half + 1) + k) * cols;
-    const int ga = ca / dg, gb = (ca + 1) / dg;
-    float2 ma = cmul(make_float2(gr[go + ga], gi[go + ga]), xa);
-    float2 mb = cmul(make_float2(gr[go + gb], gi[go + gb]), xb);
-    if (k == 0 || k == half) {                  // irfft drops these
-      ma.y = 0.f;
-      mb.y = 0.f;
-    }
-    pack_pair(z + p, k, n, np, ma, mb);
+    float2 zk = z[k * np + p], zm = z[km * np + p];
+    gate_pair(zk, zm, gr + go, gi + go, c0 + 2 * p, dg, k, half);
+    z[k * np + p] = zk;
+    if (km != k) z[km * np + p] = zm;
   }
   __syncthreads();
   fft_stages<false>(z, n, log2n, np, np, 1, tw, 1.f);

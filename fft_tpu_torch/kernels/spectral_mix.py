@@ -1,20 +1,33 @@
-"""The non-causal spectral mix's kernels (counterpart of the direct path of
+"""The non-causal spectral mix's kernels (counterpart of the fused paths of
 ``fft_tpu/kernels/pallas_fft.py``).
 
-Two kernels, written by hand in CUDA C++ for Hopper
-(``csrc/spectral_mix.cu``), each beside its plain PyTorch version:
+Four kernels, written by hand in CUDA C++ for Hopper, each beside its plain
+PyTorch version:
 
-- ``direct_mix``     replaces ``_direct_mix_call`` (pallas_fft.py:301):
+- ``direct_mix``     replaces ``_direct_mix_call`` (pallas_fft.py:301),
+  n_fft a power of two from 8 to 2048 (``csrc/spectral_mix.cu``):
   y = irfft(gate * rfft(v)) + irfft(mem) in one HBM pass.
 - ``direct_mix_bwd`` replaces ``_direct_mix_bwd_call`` (:449): the exact
   adjoint, (vbar, gbar_r, gbar_i), in one pass (two launches when a gate
   group is wider than a block's channel tile).
+- ``staged_mix``     replaces ``_fused_mix_call`` (:630), n_fft = 256 m,
+  m = 9..32 (2304-8192, ``csrc/staged_mix.cu``): the same function in one
+  HBM pass, a mixed-radix FFT (radix 2 and one odd factor up to 31).
+- ``twopass_mix``    replaces ``_twopass_mix_call`` (:1156), n_fft 16384,
+  32768 and 65536 (``csrc/twopass_mix.cu``): the same function as a
+  four-step FFT over three launches through a device-memory scratch.
 
 ``spectral_mix`` is the ``torch.autograd.Function`` over them (the JAX
-package's ``spectral_mix`` custom_vjp, :824-875); ``unfused_mix`` is the
-plain composition (``_unfused_mix``, :795), which the per-head branch of
-the layer runs.  Inputs and outputs of the Function are real planes, so
-JAX's conjugate cotangent of a complex value (:854) never crosses it.
+package's ``spectral_mix`` custom_vjp, :824-875): its forward runs the
+kernel that ``mix_kernel`` picks by n_fft and ``TWOPASS_ENABLE``, where
+the layer asks whether to take its fused branch; its backward is ``direct_mix_bwd`` up to
+n_fft 2048 and, above, autograd through ``unfused_mix`` (cuFFT on the
+card), as JAX's ``_mix_bwd`` takes ``jax.vjp`` of ``_unfused_mix``
+(:869-872): neither #3 nor #4 has a backward kernel.  ``unfused_mix`` is
+the plain composition (``_unfused_mix``, :795), which the layer's wide and
+per-head branches run.  Inputs and outputs of the Function are real
+planes, so JAX's conjugate cotangent of a complex value (:854) never
+crosses it.
 
 Deviation from the JAX package: JAX routes #2 only in fast (bf16) mode and
 takes ``jax.vjp`` of the matmul composition in fp32, because on the TPU
@@ -25,24 +38,24 @@ CPU the backward is its plain version.
 The gate is compact, (B, F, cols) with F = n_fft // 2 + 1 and one column
 per (head, group); channel ch reads column ch // (d // cols).  Memory
 enters as the time-domain constant mem_t = irfft(mem) (N, d), added on the
-kernel's store (pallas_fft.py:736-750); the block's memory is a frozen
-buffer, so no gradient flows to it.
+kernel's store (pallas_fft.py:736-750, :763-772, :784-790 compute the same
+linear map); the block's memory is a frozen buffer, so no gradient flows
+to it.
 
 A tensor on the CPU goes to the plain version; a tensor on a CUDA device
-goes to the kernel, or the call raises: any shape outside
-``direct_supported`` raises, n_fft 4096-8192 naming ROADMAP module 6
-(kernel #3) and 16384 and up naming kernel #4.  Nothing falls back.  The
-layer calls these kernels only where the reference's dispatch picks its
-fused kernels (``layers.spectre._mix_branch``): at n_fft >= 16384 it runs
-the d-wide ``unfused_mix``, as the reference does with ``TWOPASS_ENABLE``
-off, so only n_fft 4096-8192 raises on the layer's path.  Every launch
-adds one to ``LAUNCHES[name]``.
+goes to the kernel, or the call raises naming the kernel and the reason
+(``_require``): each wrapper takes its own n_fft range, and a shape its
+kernel refuses raises ``ValueError``.  Nothing falls back.  ``mix_kernel``
+is the reference's dispatch to its fused kernels: #4 only with
+``TWOPASS_ENABLE`` on, which mirrors ``pallas_fft.TWOPASS_ENABLE`` and its
+default.  Every launch adds one to ``LAUNCHES[name]``.
 
 What bounds the kernels on the H100, and the design's answer: the TPU
-kernel's dense DFT matrices cost 17 GFLOP at B=8, N=1024, d=512 (0.26 ms
+kernels' dense DFT matrices cost 17 GFLOP at B=8, N=1024, d=512 (0.26 ms
 at the card's 67 TFLOP/s fp32, 23x the 11 us HBM bound); the kernels run
-radix-2 FFTs in shared memory instead, one block per (channel tile, batch
-row), reading v once and writing y once.  See the source for the rest.
+FFTs in shared memory instead, one block per (channel tile, batch row),
+reading v once and writing y once (#4: plus a scratch round trip).  See
+the sources for the rest.
 """
 
 from __future__ import annotations
@@ -54,10 +67,21 @@ import torch
 from fft_tpu_torch.kernels.common import check, launch, on_cpu, twiddles
 from fft_tpu_torch.ops import fftops
 
-LAUNCHES = {"direct_mix": 0, "direct_mix_bwd": 0}
+LAUNCHES = {"direct_mix": 0, "direct_mix_bwd": 0, "staged_mix": 0,
+            "twopass_mix": 0}
+
+# The layer's fused branch runs #4 at n_fft 16384-65536 only when this is
+# on: the reference's pallas_fft.TWOPASS_ENABLE and its default (off: on a
+# v5e #4 measured 1.41 ms against the composition's 1.32 at 16384, a TPU
+# calibration still to be re-derived on the H100).
+TWOPASS_ENABLE = False
+# #4's lengths (the reference's _TP_DBLK, pallas_fft.py:925)
+TWOPASS_SIZES = (16384, 32768, 65536)
 
 # floats of one forward block's tile of v (64 KB of shared memory)
 _TILE_FLOATS = 16384
+# channels per #3 block: 128 blocks at B=1, d=512; 160 KB at n_fft 8192
+_STAGED_TILE = 4
 
 
 def reset_launches() -> None:
@@ -86,21 +110,81 @@ def direct_supported(n_fft: int, d: int, cols: int) -> bool:
             and (ct_bwd % d_g == 0 or d_g % ct_bwd == 0))
 
 
+def staged_supported(n_fft: int, d: int, cols: int) -> bool:
+    """What #3 takes: every shape the layer's fused branch sends it,
+    n_fft = 256 m with 9 <= m <= 32, d a multiple of 128, cols dividing
+    d."""
+    return (n_fft % 256 == 0 and 9 <= n_fft // 256 <= 32 and d % 128 == 0
+            and cols >= 1 and d % cols == 0)
+
+
+def twopass_supported(n_fft: int, d: int, cols: int) -> bool:
+    """What #4 takes: n_fft 16384, 32768 or 65536, d a multiple of 128,
+    cols dividing d."""
+    return (n_fft in TWOPASS_SIZES and d % 128 == 0 and cols >= 1
+            and d % cols == 0)
+
+
+def _range_kernel(n_fft: int) -> str:
+    """The forward kernel whose range holds n_fft: ``direct_mix`` (#1) up to
+    2048, ``staged_mix`` (#3) up to 8192, ``twopass_mix`` (#4) above."""
+    if n_fft <= 2048:
+        return "direct_mix"
+    return "staged_mix" if n_fft <= 8192 else "twopass_mix"
+
+
+def mix_kernel(n_fft: int) -> Optional[str]:
+    """The forward kernel that the layer's fused branch runs at n_fft, or
+    None where the reference's dispatch (``pallas_mix_supported``,
+    pallas_fft.py:55-93) runs no mix kernel: the kernel of n_fft's range
+    where the whole-slab plan of n_fft / 2 exists (even n_fft up to 8192)
+    or, with ``TWOPASS_ENABLE`` on, at ``TWOPASS_SIZES``."""
+    if n_fft % 2 == 0 and 8 <= n_fft <= 8192:
+        n2 = n_fft // 2
+        f1 = min(n2, 128)
+        routed = n2 % f1 == 0 and n2 // f1 <= 128
+    else:
+        routed = TWOPASS_ENABLE and n_fft in TWOPASS_SIZES
+    return _range_kernel(n_fft) if routed else None
+
+
+# wrapper -> (its TPU kernel, what its kernel takes, the predicate)
+_KERNELS = {
+    "direct_mix": ("#1 (pallas_fft.py::_direct_mix_call)",
+                   "a power-of-two n_fft from 8 to 2048, whole channel "
+                   "tiles, gate groups of an even number of channels",
+                   direct_supported),
+    "direct_mix_bwd": ("#2 (pallas_fft.py::_direct_mix_bwd_call)",
+                       "a power-of-two n_fft from 8 to 2048, whole channel "
+                       "tiles, gate groups of an even number of channels",
+                       direct_supported),
+    "staged_mix": ("#3 (pallas_fft.py::_fused_mix_call)",
+                   "n_fft = 256 m with 9 <= m <= 32, d a multiple of 128, "
+                   "cols dividing d", staged_supported),
+    "twopass_mix": ("#4 (pallas_fft.py::_twopass_mix_call)",
+                    f"n_fft in {TWOPASS_SIZES}, d a multiple of 128, cols "
+                    "dividing d", twopass_supported),
+}
+
+
+def mix_supported(n_fft: int, d: int, cols: int) -> bool:
+    """Whether the fused branch runs a kernel at n_fft (``mix_kernel``) and
+    that kernel takes (n_fft, d, cols)."""
+    name = mix_kernel(n_fft)
+    return name is not None and _KERNELS[name][2](n_fft, d, cols)
+
+
 def _require(name: str, n_fft: int, d: int, cols: int) -> None:
-    if direct_supported(n_fft, d, cols):
+    """Raise ``ValueError`` naming wrapper ``name``'s kernel and why, unless
+    that kernel takes (n_fft, d, cols)."""
+    kernel, takes, ok = _KERNELS[name]
+    if ok(n_fft, d, cols):
         return
-    if 4096 <= n_fft <= 8192:
-        raise NotImplementedError(
-            f"{name}: n_fft={n_fft} is the staged fused mix, TPU kernel #3 "
-            "(pallas_fft.py::_fused_mix_call), not ported to fft_tpu_torch "
-            "yet (see ROADMAP.md, 'Modules to port': module 6)")
-    if n_fft > 8192:
-        raise NotImplementedError(
-            f"{name}: n_fft={n_fft} is the two-pass mix, TPU kernel #4 "
-            "(pallas_fft.py::_twopass_mix_call), not ported to fft_tpu_torch "
-            "yet (see ROADMAP.md, 'Modules to port': module 6)")
-    raise ValueError(f"{name}: unsupported shape n_fft={n_fft} d={d} "
-                     f"cols={cols} (see direct_supported)")
+    owner = _range_kernel(n_fft)
+    why = (f"n_fft={n_fft} is {_KERNELS[owner][0]}'s range ({owner})"
+           if owner != name.removesuffix("_bwd") else
+           f"unsupported shape n_fft={n_fft} d={d} cols={cols}")
+    raise ValueError(f"{name}: kernel {kernel} takes {takes}; {why}")
 
 
 # ---------------------------------------------------------------------------
@@ -127,6 +211,12 @@ def direct_mix_ref(v, g_r, g_i, mem_t: Optional[torch.Tensor],
     g = torch.complex(_expand(g_r, d), _expand(g_i, d))
     y = fftops.irfft(g * fftops.rfft(v, n_fft, dim=-2), n_fft, dim=-2)
     return y if mem_t is None else y + mem_t
+
+
+# #3 and #4 compute #1's function at longer n_fft: the same composition is
+# the plain version of each
+staged_mix_ref = direct_mix_ref
+twopass_mix_ref = direct_mix_ref
 
 
 def direct_mix_bwd_ref(v, g_r, g_i, ybar, n_fft: int):
@@ -169,6 +259,19 @@ def unfused_mix(v, gate, memory_fft: Optional[torch.Tensor],
 # Wrappers
 # ---------------------------------------------------------------------------
 
+def _check_forward(v, g_r, g_i, mem_t, n_fft):
+    """(b, d, cols) after checking a forward kernel's arguments."""
+    b, _, d = v.shape
+    cols = g_r.shape[-1]
+    fh = n_fft // 2 + 1
+    check("v", v, (b, n_fft, d))
+    check("g_r", g_r, (b, fh, cols))
+    check("g_i", g_i, (b, fh, cols))
+    if mem_t is not None:
+        check("mem_t", mem_t, (n_fft, d))
+    return b, d, cols
+
+
 def direct_mix(v, g_r, g_i, mem_t: Optional[torch.Tensor],
                n_fft: int) -> torch.Tensor:
     """y (B, n_fft, d) = irfft(g * rfft(v)) [+ mem_t]; v (B, n_fft, d),
@@ -182,15 +285,8 @@ def direct_mix(v, g_r, g_i, mem_t: Optional[torch.Tensor],
     tensors = [v, g_r, g_i] + ([] if mem_t is None else [mem_t])
     if on_cpu(*tensors):
         return direct_mix_ref(v, g_r, g_i, mem_t, n_fft)
-    b, n, d = v.shape
-    cols = g_r.shape[-1]
-    _require("direct_mix", n_fft, d, cols)
-    fh = n_fft // 2 + 1
-    check("v", v, (b, n_fft, d))
-    check("g_r", g_r, (b, fh, cols))
-    check("g_i", g_i, (b, fh, cols))
-    if mem_t is not None:
-        check("mem_t", mem_t, (n_fft, d))
+    _require("direct_mix", n_fft, v.shape[-1], g_r.shape[-1])
+    b, d, cols = _check_forward(v, g_r, g_i, mem_t, n_fft)
     y = torch.empty_like(v)
     launch(LAUNCHES, "direct_mix", v.device,
            v.data_ptr(), g_r.data_ptr(), g_i.data_ptr(),
@@ -237,18 +333,91 @@ def direct_mix_bwd(v, g_r, g_i, ybar, n_fft: int):
     return vbar, gbr, gbi
 
 
+def staged_mix(v, g_r, g_i, mem_t: Optional[torch.Tensor],
+               n_fft: int) -> torch.Tensor:
+    """y (B, n_fft, d) = irfft(g * rfft(v)) [+ mem_t] at n_fft = 256 m, m =
+    9..32; the shapes of ``direct_mix``.  Not differentiable:
+    ``spectral_mix`` is.
+
+    Replaces ``_fused_mix_call`` (pallas_fft.py:630).  One block per
+    (4-channel tile, batch row): each channel pair rides one complex FFT of
+    n_fft points in shared memory, radix-2 stages over the power-of-two
+    factor and a direct DFT over the odd one, gated at each frequency's
+    stage-order row; mem_t is added on the store."""
+    tensors = [v, g_r, g_i] + ([] if mem_t is None else [mem_t])
+    if on_cpu(*tensors):
+        return staged_mix_ref(v, g_r, g_i, mem_t, n_fft)
+    _require("staged_mix", n_fft, v.shape[-1], g_r.shape[-1])
+    b, d, cols = _check_forward(v, g_r, g_i, mem_t, n_fft)
+    y = torch.empty_like(v)
+    launch(LAUNCHES, "staged_mix", v.device,
+           v.data_ptr(), g_r.data_ptr(), g_i.data_ptr(),
+           None if mem_t is None else mem_t.data_ptr(),
+           twiddles(n_fft, v.device).data_ptr(), y.data_ptr(), b, n_fft, d,
+           cols, _STAGED_TILE)
+    return y
+
+
+def twopass_mix(v, g_r, g_i, mem_t: Optional[torch.Tensor],
+                n_fft: int) -> torch.Tensor:
+    """y (B, n_fft, d) = irfft(g * rfft(v)) [+ mem_t] at n_fft 16384, 32768
+    or 65536; the shapes of ``direct_mix``.  Not differentiable:
+    ``spectral_mix`` is.
+
+    Replaces ``_twopass_mix_call`` (pallas_fft.py:1156).  A four-step FFT
+    n = n1 n2 over three launches: column FFTs and the twiddle into a
+    (B, n_fft, d) scratch, then row FFTs, untangle, gate and inverse rows in
+    place (each block holding the row pair k2, n2 - k2), then the inverse
+    columns with mem_t added on the store."""
+    tensors = [v, g_r, g_i] + ([] if mem_t is None else [mem_t])
+    if on_cpu(*tensors):
+        return twopass_mix_ref(v, g_r, g_i, mem_t, n_fft)
+    _require("twopass_mix", n_fft, v.shape[-1], g_r.shape[-1])
+    b, d, cols = _check_forward(v, g_r, g_i, mem_t, n_fft)
+    y = torch.empty_like(v)
+    scratch = torch.empty_like(v)
+    launch(LAUNCHES, "twopass_mix", v.device,
+           v.data_ptr(), g_r.data_ptr(), g_i.data_ptr(),
+           None if mem_t is None else mem_t.data_ptr(),
+           twiddles(n_fft, v.device).data_ptr(), scratch.data_ptr(),
+           y.data_ptr(), b, n_fft, d, cols)
+    return y
+
+
+_FORWARD = {"direct_mix": direct_mix, "staged_mix": staged_mix,
+            "twopass_mix": twopass_mix}
+
+
+def _unfused_vjp(v, g_r, g_i, ybar, n_fft: int):
+    """(vbar, gbar_r, gbar_i): autograd through ``unfused_mix``, JAX's
+    ``jax.vjp`` of ``_unfused_mix`` (pallas_fft.py:869-872)."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_() for t in (v, g_r, g_i)]
+        y = unfused_mix(xs[0], torch.complex(xs[1], xs[2]), None, n_fft)
+        return torch.autograd.grad(y, xs, ybar)
+
+
 class _SpectralMix(torch.autograd.Function):
     @staticmethod
     def forward(ctx, v, g_r, g_i, mem_t, n_fft):
+        name = mix_kernel(n_fft)
+        if name is None:
+            raise ValueError(
+                f"spectral_mix: no mix kernel runs at n_fft={n_fft} "
+                f"(TWOPASS_ENABLE={TWOPASS_ENABLE}); the layer's wide or "
+                f"per-head branch takes it")
         ctx.n_fft = n_fft
         ctx.save_for_backward(v, g_r, g_i)
-        return direct_mix(v, g_r, g_i, mem_t, n_fft)
+        return _FORWARD[name](v, g_r, g_i, mem_t, n_fft)
 
     @staticmethod
     def backward(ctx, ybar):
         v, g_r, g_i = ctx.saved_tensors
         ybar = ybar.contiguous()
-        vbar, gbr, gbi = direct_mix_bwd(v, g_r, g_i, ybar, ctx.n_fft)
+        if ctx.n_fft <= 2048:
+            vbar, gbr, gbi = direct_mix_bwd(v, g_r, g_i, ybar, ctx.n_fft)
+        else:
+            vbar, gbr, gbi = _unfused_vjp(v, g_r, g_i, ybar, ctx.n_fft)
         # mem_t is added on the store: its cotangent is ybar summed over B
         mbar = ybar.sum(0) if ctx.needs_input_grad[3] else None
         return vbar, gbr, gbi, mbar, None
@@ -256,8 +425,9 @@ class _SpectralMix(torch.autograd.Function):
 
 def spectral_mix(v, g_r, g_i, mem_t: Optional[torch.Tensor],
                  n_fft: int) -> torch.Tensor:
-    """y (B, n_fft, d) = irfft(g * rfft(v)) [+ mem_t], differentiable
-    (backward: ``direct_mix_bwd``; mem_t's cotangent is ybar summed over
-    the batch, and the block's frozen memory asks for none).  See
-    ``direct_mix`` for the shapes."""
+    """y (B, n_fft, d) = irfft(g * rfft(v)) [+ mem_t], differentiable.  The
+    forward is the kernel of n_fft's range (``mix_kernel``); the backward
+    ``direct_mix_bwd`` up to n_fft 2048, autograd through ``unfused_mix``
+    above; mem_t's cotangent is ybar summed over the batch, and the block's
+    frozen memory asks for none.  See ``direct_mix`` for the shapes."""
     return _SpectralMix.apply(v, g_r, g_i, mem_t, n_fft)

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fft_tpu_torch.config import SpectreConfig, SpectreHeadConfig
+from fft_tpu_torch.kernels import spectral_mix as spectral_mix_kernels
 from fft_tpu_torch.kernels.spectral_mix import spectral_mix, unfused_mix
 from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS, segmented_causal_mix
 from fft_tpu_torch.layers.common import (
@@ -395,17 +396,6 @@ def wavelet_refinement_apply(
 MIX_BRANCH_CALLS = collections.Counter()
 
 
-def _reference_mix_supported(n_fft: int) -> bool:
-    """The reference's ``pallas_fft.pallas_mix_supported`` with its
-    ``TWOPASS_ENABLE`` off (pallas_fft.py:52, :55-93): the whole-slab
-    kernels' (f1, f2) plan of n_fft / 2 exists and n_fft <= 8192."""
-    if n_fft % 2 or n_fft < 8 or n_fft > 8192:
-        return False
-    n2 = n_fft // 2
-    f1 = min(n2, 128)
-    return n2 % f1 == 0 and n2 // f1 <= 128
-
-
 def _reference_plan_exists(n: int) -> bool:
     """The reference's ``matfft.plan_factors(n) is not None``
     (matfft.py:51-108): n even, n >= 4, and n / 2 has no prime factor
@@ -423,13 +413,14 @@ def _mix_branch(cfg: SpectreConfig) -> str:
     """The reference's dispatch of the non-causal multihead
     (fft_tpu/layers/spectre.py:433-449): with ``fft_impl="pallas"`` and d a
     multiple of 128, the spectral-mix kernels where they take n_fft
-    ("fused": #1/#2 on the card, which raise naming #3 at 4096-8192), the
-    d-wide composition at n_fft >= 16384 ("wide": cuFFT on the card); the
-    per-head branch otherwise."""
+    ("fused": ``spectral_mix.mix_kernel`` picks #1/#2 up to 2048, #3 at
+    2304-8192, #4 at 16384-65536 with ``TWOPASS_ENABLE`` on), else the d-wide composition at
+    n_fft >= 16384 ("wide": cuFFT on the card); the per-head branch
+    otherwise."""
     d = cfg.embed_dim
     if cfg.fft_impl != "pallas" or d % 128:
         return "per_head"
-    if _reference_mix_supported(cfg.n_fft):
+    if spectral_mix_kernels.mix_kernel(cfg.n_fft) is not None:
         return "fused"
     if cfg.n_fft >= 16384 and _reference_plan_exists(cfg.n_fft):
         return "wide"
@@ -493,7 +484,7 @@ class SpectreMultiHead(nn.Module):
             v_all = F.pad(v.reshape(b, n, d), (0, 0, 0, cfg.n_fft - n))
             if branch == "fused":
                 # the memory enters additively: its irfft is a constant that
-                # the kernel adds on its store
+                # the kernel (#1, #3 or #4 by n_fft) adds on its store
                 mem_t = (None if memory_fft is None else fftops.irfft(
                     memory_fft, cfg.n_fft, dim=0).contiguous())
                 mixed = spectral_mix(v_all, gate.real.contiguous(),

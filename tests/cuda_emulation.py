@@ -45,7 +45,11 @@ inline unsigned __brev(unsigned v) {
 }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8
+};
 template <class F> inline cudaError_t cudaFuncSetAttribute(F, int, int) {
   return 0;
 }

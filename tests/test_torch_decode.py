@@ -30,6 +30,7 @@ from fft_tpu_torch.config import SpectreConfig
 from fft_tpu_torch.convert import cache_from_jax, cache_to_jax
 from fft_tpu_torch.decode import cache as tdc
 from fft_tpu_torch.kernels import decode as kd
+from fft_tpu_torch.kernels import spectral_mix as sm
 from fft_tpu_torch.layers import spectre as tsp
 from fft_tpu_torch.models import lm as tlm
 from tests.golden_utils import load, map_head_params, rel_err
@@ -445,7 +446,8 @@ def test_eviction_drift_bounded(port_fused):
 # ---------------------------------------------------------------------------
 
 def _jax_branch(n_fft: int, d: int) -> str:
-    """fft_tpu/layers/spectre.py:433-449 on the card (TWOPASS_ENABLE off)."""
+    """fft_tpu/layers/spectre.py:433-449 on the card, with
+    pf.TWOPASS_ENABLE as it is set."""
     if pf.pallas_mix_supported(n_fft) and d % 128 == 0:
         return "fused"
     if n_fft >= 16384 and d % 128 == 0 and plan_factors(n_fft) is not None:
@@ -453,29 +455,43 @@ def _jax_branch(n_fft: int, d: int) -> str:
     return "per_head"
 
 
-def test_reference_dispatch_predicates_are_the_references():
-    sizes = list(range(4, 600)) + [1000, 1024, 4096, 6000, 8192, 8194,
-                                   16384, 16386, 3 * 8192, 17 * 1024,
-                                   65536, 2 * 257 * 64, 2 * 131 * 128]
-    for n in sizes:
-        assert tsp._reference_mix_supported(n) == \
-            pf.pallas_mix_supported(n), n
-        assert tsp._reference_plan_exists(n) == \
-            (plan_factors(n) is not None), n
+def _twopass_flags(monkeypatch, on: bool) -> None:
+    """The reference's TWOPASS_ENABLE and the port's, both set to ``on``."""
+    monkeypatch.setattr(pf, "TWOPASS_ENABLE", on)
+    monkeypatch.setattr(sm, "TWOPASS_ENABLE", on)
+
+
+def test_reference_dispatch_predicates_are_the_references(monkeypatch):
+    """With both TWOPASS_ENABLE flags off, then both on."""
+    sizes = list(range(4, 600)) + [1000, 1024, 2304, 4096, 4352, 6000, 7936,
+                                   8192, 8194, 16384, 16386, 3 * 8192,
+                                   17 * 1024, 32768, 65536, 131072,
+                                   2 * 257 * 64, 2 * 131 * 128]
+    for on in (False, True):
+        _twopass_flags(monkeypatch, on)
+        for n in sizes:
+            assert (sm.mix_kernel(n) is not None) == \
+                pf.pallas_mix_supported(n), (n, on)
+            assert tsp._reference_plan_exists(n) == \
+                (plan_factors(n) is not None), n
 
 
 @pytest.mark.parametrize("n_fft,d,heads", [(1024, 512, 8), (1024, 96, 3),
-                                           (16384, 256, 2)])
-def test_multihead_dispatch_matches_jax_rule(n_fft, d, heads):
+                                           (16384, 256, 2), (4352, 256, 2),
+                                           (32768, 128, 2)])
+def test_multihead_dispatch_matches_jax_rule(n_fft, d, heads, monkeypatch):
+    """With both TWOPASS_ENABLE flags off, then both on."""
     cfg = SpectreConfig(embed_dim=d, num_heads=heads, n_fft=n_fft,
                         pooling_type="mean", wavelet_on_rate=0.0,
                         memory_size=0, fft_impl="pallas")
-    tsp.MIX_BRANCH_CALLS.clear()
     mix = tsp.SpectreMultiHead(cfg)
     mix.reset_parameters(torch.Generator().manual_seed(0))
-    with torch.no_grad():
-        mix.eval()(torch.zeros(1, 16, d))
-    assert dict(tsp.MIX_BRANCH_CALLS) == {_jax_branch(n_fft, d): 1}
+    for on in (False, True):
+        _twopass_flags(monkeypatch, on)
+        tsp.MIX_BRANCH_CALLS.clear()
+        with torch.no_grad():
+            mix.eval()(torch.zeros(1, 16, d))
+        assert dict(tsp.MIX_BRANCH_CALLS) == {_jax_branch(n_fft, d): 1}, on
 
 
 def test_wide_branch_block_matches_jax():

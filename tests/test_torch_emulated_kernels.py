@@ -1,9 +1,10 @@
 """CUDA kernels of fft_tpu_torch/csrc run on the CPU through
 tests/cuda_emulation.py, against their plain PyTorch versions: the kernels'
 index arithmetic, shared-memory layout and barriers at small shapes, on a
-machine without nvcc or a card.  spectral_mix.cu (#1, #2), causal_long.cu
-(#9, #7, #11, at chunks up to 2048), causal.cu's banded_inverse at the
-long chunks of its 8-lane tile, and decode.cu (#12).  Same bound as on the
+machine without nvcc or a card.  spectral_mix.cu (#1, #2), staged_mix.cu
+(#3, at odd factors 9 and 17), twopass_mix.cu (#4 at n_fft 16384),
+causal_long.cu (#9, #7, #11, at chunks up to 2048), causal.cu's
+banded_inverse at the long chunks of its 8-lane tile, and decode.cu (#12).  Same bound as on the
 card (max|a-b| / max|b| < 2e-5: FFTs or direct DFTs against pocketfft, all
 fp32).  Skips where there is no host C++ compiler."""
 
@@ -94,6 +95,70 @@ def test_emulated_kernels_match_plain_versions(lib, n, d, cols, mem):
         ct // 2, None) == 0
     for got, want in zip(out, sm.direct_mix_bwd_ref(v, gr, gi, ybar, n)):
         assert _rel(got, want) < TOL
+
+
+@pytest.fixture(scope="module")
+def staged_lib(tmp_path_factory):
+    return _emulated(tmp_path_factory, "staged_mix.cu", ("fft_staged_mix",))
+
+
+@pytest.fixture(scope="module")
+def twopass_lib(tmp_path_factory):
+    return _emulated(tmp_path_factory, "twopass_mix.cu", ("fft_twopass_mix",))
+
+
+def _mix_args(b, n, d, cols, mem, seed):
+    g = torch.Generator().manual_seed(seed)
+    fh = n // 2 + 1
+    return (_randn(g, b, n, d), _randn(g, b, fh, cols), _randn(g, b, fh, cols),
+            _randn(g, n, d) if mem else None)
+
+
+# (b, n_fft, cols, memory) of #3 on one 4-channel tile (the wrapper's
+# _STAGED_TILE): odd factors 9 (n = 256 * 9), 17 and 31 (primes) and 1 (the
+# radix-2 stages alone), gate groups of 1, 2 and 4 channels
+STAGED_CASES = [(2, 2304, 4, True), (1, 4352, 2, False), (1, 7936, 4, True),
+                (1, 4096, 1, True)]
+
+
+@pytest.mark.parametrize("b,n,cols,mem", STAGED_CASES)
+def test_emulated_staged_mix(staged_lib, b, n, cols, mem):
+    d = sm._STAGED_TILE
+    v, gr, gi, mem_t = _mix_args(b, n, d, cols, mem, n + cols)
+    y = torch.empty_like(v)
+    assert staged_lib.fft_staged_mix(
+        _ptr(v), _ptr(gr), _ptr(gi), _ptr(mem_t),
+        _ptr(torch.from_numpy(twiddles_np(n))), _ptr(y), b, n, d, cols, d,
+        None) == 0
+    assert _rel(y, sm.staged_mix_ref(v, gr, gi, mem_t, n)) < TOL
+
+
+@pytest.mark.parametrize("m", range(9, 33))
+def test_emulated_staged_mix_every_length(staged_lib, m):
+    """Every n_fft = 256 m the layer sends #3, so every odd factor's
+    instance of the kernel (O = 1, 3, ..., 31), on one tile without
+    memory."""
+    n, d, cols = 256 * m, sm._STAGED_TILE, 2
+    v, gr, gi, _ = _mix_args(1, n, d, cols, False, m)
+    y = torch.empty_like(v)
+    assert staged_lib.fft_staged_mix(
+        _ptr(v), _ptr(gr), _ptr(gi), None,
+        _ptr(torch.from_numpy(twiddles_np(n))), _ptr(y), 1, n, d, cols, d,
+        None) == 0
+    assert _rel(y, sm.staged_mix_ref(v, gr, gi, None, n)) < TOL
+
+
+def test_emulated_twopass_mix(twopass_lib):
+    """#4 at n_fft 16384 on its smallest tile, 4 channel pairs (d = 8), with
+    memory and 2-channel gate groups."""
+    b, n, d, cols = 1, 16384, 8, 4
+    v, gr, gi, mem_t = _mix_args(b, n, d, cols, True, 5)
+    y, scratch = torch.empty_like(v), torch.empty_like(v)
+    assert twopass_lib.fft_twopass_mix(
+        _ptr(v), _ptr(gr), _ptr(gi), _ptr(mem_t),
+        _ptr(torch.from_numpy(twiddles_np(n))), _ptr(scratch), _ptr(y), b, n,
+        d, cols, None) == 0
+    assert _rel(y, sm.twopass_mix_ref(v, gr, gi, mem_t, n)) < TOL
 
 
 def test_plain_adjoint_is_autograd_of_the_plain_forward():

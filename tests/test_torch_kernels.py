@@ -1,7 +1,8 @@
 """The CUDA kernels of fft_tpu_torch against their plain PyTorch versions,
 on the card, at the tiny LM's, BASELINE config 1's and the 350M's shapes
-(the long-chunk kernels #9, #7 and #11, #5 past chunk 853, and the decode
-kernel #12 at both LMs' decode shapes).  Imports no
+(the long-chunk kernels #9, #7 and #11, #5 past chunk 853, the decode
+kernel #12 at both LMs' decode shapes, and the non-causal mix past n_fft
+2048: #3 at 2304-8192 and #4 at 16384-65536).  Imports no
 JAX, so it runs on a machine without it:
 
     FFT_TPU_REAL=1 python -m pytest tests/test_torch_kernels.py -q
@@ -330,12 +331,82 @@ def test_spectral_mix_backward_on_card(dev):
 
 
 def test_direct_mix_refuses_what_the_kernels_do_not_take(dev):
-    for n_fft, err, match in ((4096, NotImplementedError, "module 6"),
-                              (16384, NotImplementedError, "module 6"),
-                              (1000, ValueError, "unsupported")):
+    for n_fft, match in ((4096, "#3 .*range"), (16384, "#4 .*range"),
+                         (1000, "unsupported")):
         v, gr, gi, _, _ = _mix_inputs(dev, n_fft, 16, 0, b=1, d=64)
-        with pytest.raises(err, match=match):
+        with pytest.raises(ValueError, match=match):
             sm.direct_mix(v, gr, gi, None, n_fft)
+
+
+# (b, n_fft, d, cols): config 1's block at 4096 (B=2) and 8192 (B=1), odd
+# factors 9, 17 and 31
+STAGED_CASES = [(2, 4096, 512, 32), (1, 8192, 512, 32), (1, 2304, 512, 32),
+                (1, 4352, 128, 32), (1, 7936, 512, 32)]
+
+
+@pytest.mark.parametrize("b,n_fft,d,cols", STAGED_CASES)
+def test_staged_mix_kernel(dev, b, n_fft, d, cols):
+    v, gr, gi, mem_t, _ = _mix_inputs(dev, n_fft, d // cols, n_fft, b=b, d=d)
+    for m in (mem_t, None):
+        before = sm.LAUNCHES["staged_mix"]
+        got = sm.staged_mix(v, gr, gi, m, n_fft)
+        torch.cuda.synchronize()
+        assert sm.LAUNCHES["staged_mix"] == before + 1
+        assert _rel(got, sm.staged_mix_ref(v, gr, gi, m, n_fft)) < TOL
+
+
+@pytest.mark.parametrize("m", range(9, 33))
+def test_staged_mix_kernel_every_length(dev, m):
+    """Every n_fft = 256 m the layer sends #3 (each odd factor's instance
+    of the kernel), at d=128 with 4-channel gate groups."""
+    n_fft = 256 * m
+    v, gr, gi, mem_t, _ = _mix_inputs(dev, n_fft, 4, m, b=1, d=128)
+    got = sm.staged_mix(v, gr, gi, mem_t, n_fft)
+    torch.cuda.synchronize()
+    assert _rel(got, sm.staged_mix_ref(v, gr, gi, mem_t, n_fft)) < TOL
+
+
+@pytest.mark.parametrize("n_fft", [16384, 32768, 65536])
+def test_twopass_mix_kernel(dev, n_fft):
+    v, gr, gi, mem_t, _ = _mix_inputs(dev, n_fft, 16, n_fft, b=1, d=512)
+    for m in (mem_t, None):
+        before = sm.LAUNCHES["twopass_mix"]
+        got = sm.twopass_mix(v, gr, gi, m, n_fft)
+        torch.cuda.synchronize()
+        assert sm.LAUNCHES["twopass_mix"] == before + 1
+        assert _rel(got, sm.twopass_mix_ref(v, gr, gi, m, n_fft)) < TOL
+
+
+def test_staged_and_twopass_refuse_what_their_kernels_do_not_take(dev):
+    v, gr, gi, _, _ = _mix_inputs(dev, 4096, 16, 0, b=1, d=96)
+    with pytest.raises(ValueError, match="#3 .*unsupported"):
+        sm.staged_mix(v, gr, gi, None, 4096)
+    v, gr, gi, _, _ = _mix_inputs(dev, 8192, 16, 0, b=1, d=128)
+    with pytest.raises(ValueError, match="#4 .*#3"):
+        sm.twopass_mix(v, gr, gi, None, 8192)
+    with pytest.raises(ValueError, match="contiguous"):
+        sm.staged_mix(v.transpose(1, 2).contiguous().transpose(1, 2), gr,
+                      gi, None, 8192)
+
+
+def test_spectral_mix_backward_on_card_past_2048(dev):
+    """backward() through the spectral_mix Function at n_fft 4096 on the
+    card: #3 forward, autograd through unfused_mix (cuFFT) backward, never
+    #2; every input's gradient equals the CPU's."""
+    n_fft = 4096
+    inputs = [t.cpu() for t in _mix_inputs(dev, n_fft, 16, 5, b=1)[:4]]
+    w = torch.randn((1, n_fft, 512),
+                    generator=torch.Generator().manual_seed(6))
+    before = dict(sm.LAUNCHES)
+    got = _grads_on(dev, lambda *a: sm.spectral_mix(*a, n_fft), inputs, [w])
+    torch.cuda.synchronize()
+    assert sm.LAUNCHES["staged_mix"] == before["staged_mix"] + 1
+    assert sm.LAUNCHES["direct_mix_bwd"] == before["direct_mix_bwd"]
+    want = _grads_on("cpu", lambda *a: sm.spectral_mix(*a, n_fft), inputs,
+                     [w])
+    for a, b in zip(got, want):
+        assert a is not None and a.device.type == "cuda"
+        assert _rel(a.cpu(), b) < 1e-4
 
 
 # (B, H, n, hd, G): the tiny LM's decode at batch 4 and the 350M's at 1

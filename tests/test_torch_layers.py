@@ -369,7 +369,7 @@ def test_bench_runs_on_the_cpu_when_asked():
     out = bench.run(steps=2, batch=1, seq=64, device="cpu")
     assert out["device"] == "cpu" and np.isfinite(out["value"])
     assert out["value"] > 0 and len(out["step_ms_all"]) == 2
-    assert sm.LAUNCHES == {"direct_mix": 0, "direct_mix_bwd": 0}
+    assert set(sm.LAUNCHES.values()) == {0}
 
 
 def test_sequence_parallel_arguments_raise():

@@ -137,7 +137,9 @@ def test_cpu_tensors_take_the_plain_versions():
     sm.direct_mix(torch.from_numpy(v), *_planes(gate), None, n)
     sm.direct_mix_bwd(torch.from_numpy(v), *_planes(gate),
                       torch.from_numpy(ybar), n)
-    assert sm.LAUNCHES == {"direct_mix": 0, "direct_mix_bwd": 0}
+    for fn in (sm.staged_mix, sm.twopass_mix):
+        fn(torch.from_numpy(v), *_planes(gate), None, n)
+    assert set(sm.LAUNCHES.values()) == {0}
 
 
 @pytest.mark.parametrize("n_fft,d,cols,ok", [
@@ -145,20 +147,68 @@ def test_cpu_tensors_take_the_plain_versions():
     (2048, 512, 32, True),      # two backward tiles per group
     (8, 64, 16, True),
     (64, 512, 8, True),         # 64-channel groups
-    (4096, 512, 32, False),     # kernel #3's range
     (1000, 512, 32, False),     # not a power of two
     (1024, 512, 512, False),    # one-channel groups
     (1024, 96, 32, False),      # 3-channel groups
     (1024, 40, 4, False),       # d not a whole number of tiles
+    (2304, 512, 32, True),      # kernel #3 from m = 9 ...
+    (4096, 512, 32, True),
+    (4352, 128, 32, True),      # ... at the prime m = 17 ...
+    (7936, 512, 512, True),     # ... with one-channel groups ...
+    (8192, 512, 32, True),      # ... to m = 32
+    (5000, 512, 32, False),     # not 256 m
+    (4096, 96, 32, False),      # d not a multiple of 128
+    (16384, 512, 32, True),     # kernel #4
+    (65536, 128, 8, True),
+    (131072, 512, 32, False),   # past #4's sizes
+    (16384, 64, 32, False),     # d not a multiple of 128
 ])
-def test_support_predicate(n_fft, d, cols, ok):
-    assert sm.direct_supported(n_fft, d, cols) is ok
+def test_support_predicate(n_fft, d, cols, ok, monkeypatch):
+    """The predicate of the kernel whose range holds n_fft, with
+    ``TWOPASS_ENABLE`` on so that #4's sizes reach their kernel."""
+    monkeypatch.setattr(sm, "TWOPASS_ENABLE", True)
+    assert sm.mix_supported(n_fft, d, cols) is ok
 
 
-@pytest.mark.parametrize("n_fft,err", [
-    (4096, NotImplementedError), (8192, NotImplementedError),
-    (16384, NotImplementedError), (1000, ValueError)])
-def test_unsupported_sizes_raise_naming_their_roadmap_item(n_fft, err):
-    match = "module 6" if err is NotImplementedError else "unsupported"
-    with pytest.raises(err, match=match):
-        sm._require("direct_mix", n_fft, 512, 32)
+@pytest.mark.parametrize("name,n_fft,d,match", [
+    ("direct_mix", 1000, 512, "#1 .*unsupported"),
+    ("direct_mix", 2304, 512, "#3 .*range"),
+    ("direct_mix", 4096, 512, "#3 .*range"),
+    ("direct_mix", 16384, 512, "#4 .*range"),
+    ("staged_mix", 5000, 512, "#3 .*unsupported"),
+    ("staged_mix", 4096, 96, "#3 .*unsupported"),
+    ("twopass_mix", 8192, 512, "#4 .*#3 .*range"),
+    ("twopass_mix", 20000, 512, "#4 .*unsupported"),
+])
+def test_unsupported_sizes_raise_naming_their_roadmap_item(name, n_fft, d,
+                                                           match):
+    """Each wrapper refuses what its kernel does not take, naming the
+    kernel and why: another kernel's range or a shape it refuses."""
+    with pytest.raises(ValueError, match=match):
+        sm._require(name, n_fft, d, 32)
+
+
+@pytest.mark.parametrize("name,n_fft", [
+    ("direct_mix", 1024), ("staged_mix", 2304), ("staged_mix", 3072),
+    ("staged_mix", 4096), ("staged_mix", 8192), ("twopass_mix", 16384),
+    ("twopass_mix", 65536)])
+def test_each_kernel_takes_its_range(name, n_fft, monkeypatch):
+    monkeypatch.setattr(sm, "TWOPASS_ENABLE", True)
+    assert sm.mix_kernel(n_fft) == name
+    sm._require(name, n_fft, 512, 32)
+
+
+@pytest.mark.parametrize("n_fft", [16384, 32768, 65536])
+def test_twopass_sizes_follow_the_flag(n_fft, monkeypatch):
+    """With ``TWOPASS_ENABLE`` off (its default) no mix kernel runs at #4's
+    sizes: the layer takes its wide branch, and ``spectral_mix`` refuses
+    them rather than run #4 or a plain version."""
+    assert sm.TWOPASS_ENABLE is False
+    assert sm.mix_kernel(n_fft) is None
+    assert not sm.mix_supported(n_fft, 512, 32)
+    v = torch.zeros(1, n_fft, 128)
+    g = torch.zeros(1, n_fft // 2 + 1, 32)
+    with pytest.raises(ValueError, match="TWOPASS_ENABLE=False"):
+        sm.spectral_mix(v, g, g, None, n_fft)
+    monkeypatch.setattr(sm, "TWOPASS_ENABLE", True)
+    assert sm.mix_kernel(n_fft) == "twopass_mix"
