@@ -4,7 +4,12 @@ BASELINE config 1's non-causal block (B=8, L=1024, d=512) forward and
 backward, the same block past n_fft 2048 (kernels #3 and #4), and BASELINE
 config 4, SPECTRE-350M at seq 16384 (24 layers, d=1024, 16 heads, vocab
 50432), serving and training, with both LMs' decode through kernel #12,
-random weights from seed 0, through the port's own entry points.
+random weights from seed 0, through the port's own entry points.  The
+tiny LM's causal mix runs kernels #8 kf_spectra and #6 fused_causal_mix as
+shared-memory FFTs (csrc/causal_fft.cu); their direct-DFT kernels
+(csrc/causal.cu: kf_spectra_direct, fused_causal_mix_direct), which the
+wrappers keep for shapes the FFT kernels do not take, are checked and
+timed beside them in phase 2 and must not launch on the tiny LM's paths.
 
     python3 chip_smoke.py
 
@@ -23,10 +28,16 @@ Phases, in order; any failure raises and the exit code is nonzero:
              the least time the card could take (bound_ms: bytes over 3.35
              TB/s or FFT-equivalent operations over 67 TFLOP/s fp32).
              staged_mix (#3) also at every n_fft = 256 m, m = 9..32,
-             untimed.
+             untimed.  #8 and #6 at the tiny LM's shapes (B=4, n_fft
+             2048, C=128, L=512; nc 8 and 16, d=512, 32 gate columns)
+             through the FFT kernel, the direct kernel and, for #6, #7's
+             kernel (fused_causal_mix_v3, which takes chunk 128 too), all
+             in one call; then the FFT kernels over the tile plans that
+             fit shared memory (kernels_tile_sweep).
 3. score     lm_apply on 4 x 2048 tokens; logits within rel_err 1e-4 of
              the same model and weights on the CPU (where the kernels'
-             plain versions run); tokens/s on the card.
+             plain versions run); tokens/s on the card, and 3 calls under
+             torch.profiler (device time by kernel, idle share).
 4. generate  lm_generate on 4 prompts of 1024 tokens for 64 greedy steps,
              fused_decode_mix launched once a layer per decode step;
              prefill logits and 8 teacher-forced decode logits against the
@@ -35,7 +46,7 @@ Phases, in order; any failure raises and the exit code is nonzero:
              a profile of 8 steps of each; then the CLI's generate on its
              default 4-byte prompt.
 5. launches  every kernel of the serving path was launched during phases
-             3-4.
+             3-4, and neither direct-DFT kernel (TINY_DIRECT) was.
    4c.       (run after 5, on launch counts of their own) one tiny-LM block
              (B=4, d=512, 8 heads, n_fft 2048): prefill 2048 tokens, then
              64 fused decode steps past the window's wrap; outputs, the
@@ -45,15 +56,16 @@ Phases, in order; any failure raises and the exit code is nonzero:
              "window" decode descriptor: lm_apply and 8 teacher-forced
              decode steps within 1e-4 of the CPU.  kf_spectra,
              fused_causal_mix and fused_decode_mix were launched during
-             4c-4d.
+             4c-4d, and neither direct-DFT kernel was.
 6. train     one train_step at 2 x 2048: loss and every parameter gradient
              within rel_err 1e-4 of the same model and batch on the CPU,
              with the CPU's modReLUs on the card's side of their kinks (see
              same_modrelu_side);
              5 steps at 8 x 2048 (step ms, training tokens/s, peak device
-             memory); the CLI's train-lm for 3 steps.  Every kernel of the
-             training path (kf_spectra, fused_causal_mix and its backward)
-             was launched during the phase.
+             memory) and 2 under torch.profiler; the CLI's train-lm for 3
+             steps.  Every kernel of the training path (kf_spectra,
+             fused_causal_mix and its backward) was launched during the
+             phase, and neither direct-DFT kernel was.
 7. block     BASELINE config 1's block (fft_impl="pallas", mean pooling,
              memory 16, fp32): forward within rel_err 2e-5 of the same
              weights and input on the CPU, every parameter gradient of
@@ -128,8 +140,10 @@ REL_DECODE = 2e-5      # decode outputs (COMPONENTS.md 2.4)
 SOURCES = {
     "direct_mix": "fft_tpu_torch/csrc/spectral_mix.cu",
     "direct_mix_bwd": "fft_tpu_torch/csrc/spectral_mix.cu",
-    "kf_spectra": "fft_tpu_torch/csrc/causal.cu",
-    "fused_causal_mix": "fft_tpu_torch/csrc/causal.cu",
+    "kf_spectra": "fft_tpu_torch/csrc/causal_fft.cu",
+    "fused_causal_mix": "fft_tpu_torch/csrc/causal_fft.cu",
+    "kf_spectra_direct": "fft_tpu_torch/csrc/causal.cu",
+    "fused_causal_mix_direct": "fft_tpu_torch/csrc/causal.cu",
     "banded_inverse": "fft_tpu_torch/csrc/causal.cu",
     "fused_causal_mix_bwd": "fft_tpu_torch/csrc/causal_bwd.cu",
     "kf_seg_rfft": "fft_tpu_torch/csrc/causal_long.cu",
@@ -144,6 +158,8 @@ REPLACES = {
     "direct_mix_bwd": "fft_tpu/kernels/pallas_fft.py:449",
     "kf_spectra": "fft_tpu/kernels/pallas_causal.py:1428",
     "fused_causal_mix": "fft_tpu/kernels/pallas_causal.py:592",
+    "kf_spectra_direct": "fft_tpu/kernels/pallas_causal.py:1428",
+    "fused_causal_mix_direct": "fft_tpu/kernels/pallas_causal.py:592",
     "banded_inverse": "fft_tpu/kernels/pallas_causal.py:167",
     "fused_causal_mix_bwd": "fft_tpu/kernels/pallas_causal.py:1921",
     "kf_seg_rfft": "fft_tpu/kernels/pallas_causal.py:1596",
@@ -159,6 +175,9 @@ SERVE_KERNELS = ("kf_spectra", "fused_causal_mix", "banded_inverse",
 # DCT-pooled LM's scoring, prefill and window-descriptor decode
 DECODE_KERNELS = ("kf_spectra", "fused_causal_mix", "fused_decode_mix")
 TRAIN_KERNELS = ("kf_spectra", "fused_causal_mix", "fused_causal_mix_bwd")
+# the direct-DFT #8 and #6 (causal.cu): launched on none of the tiny LM's
+# paths (serving, 4c-4d, training), which the FFT kernels take
+TINY_DIRECT = ("kf_spectra_direct", "fused_causal_mix_direct")
 BLOCK_KERNELS = ("direct_mix", "direct_mix_bwd")
 # phase 7b: the block at n_fft 4096/8192 (7c counts #4 per forward)
 BLOCK_LONG_KERNELS = ("staged_mix",)
@@ -282,28 +301,39 @@ def phase_kernels(kc, sm, kd, dev):
     b, n_fft, chunk, lanes = 4, 2048, 128, 512
     nc = n_fft // chunk
     gr, gi = randn(b, n_fft // 2 + 1, lanes), randn(b, n_fft // 2 + 1, lanes)
-    cases.append((
-        "kf_spectra", f"B={b} n_fft={n_fft} C={chunk} L={lanes}",
-        lambda: torch.cat(kc.kf_spectra(gr, gi, n_fft, chunk)),
-        lambda: torch.cat(kc.kf_spectra_ref(gr, gi, n_fft, chunk)),
-        lambda: torch.fft.rfft(torch.fft.irfft(
-            torch.complex(gr, gi), n_fft, dim=1).reshape(
-                b, nc, chunk, lanes), 2 * chunk, dim=2),
-        (4 * 2 * b * (n_fft // 2 + 1) * lanes
-         + 4 * 2 * b * nc * (chunk + 1) * lanes,
-         b * lanes * (fft_ops(n_fft) + nc * fft_ops(2 * chunk))), True))
+    kf_work = (4 * 2 * b * (n_fft // 2 + 1) * lanes
+               + 4 * 2 * b * nc * (chunk + 1) * lanes,
+               b * lanes * (fft_ops(n_fft) + nc * fft_ops(2 * chunk)))
+    # the two output planes as a tuple (rel_err takes each on its own): a
+    # torch.cat would add a copy of 17 MB to the time of a 0.06 ms kernel
+    for name, fn in (("kf_spectra", kc.kf_spectra),
+                     ("kf_spectra_direct", kc.kf_spectra_direct)):
+        cases.append((
+            name, f"B={b} n_fft={n_fft} C={chunk} L={lanes}",
+            lambda fn=fn: fn(gr, gi, n_fft, chunk),
+            lambda: kc.kf_spectra_ref(gr, gi, n_fft, chunk),
+            lambda: torch.fft.rfft(torch.fft.irfft(
+                torch.complex(gr, gi), n_fft, dim=1).reshape(
+                    b, nc, chunk, lanes), 2 * chunk, dim=2),
+            kf_work, True))
     d, cols = 512, 32
     for nc in (8, 16):
         v = randn(b, nc * chunk, d)
         kr, ki = (randn(b, nc, chunk + 1, nc * cols) for _ in range(2))
         vb, kb, mac, seg = causal_work(b, nc, chunk, d, cols)
-        cases.append((
-            "fused_causal_mix", f"B={b} nc={nc} C={chunk} d={d} cols={cols}",
-            lambda v=v, kr=kr, ki=ki: kc.fused_causal_mix(v, kr, ki, chunk,
-                                                          cols),
-            lambda v=v, kr=kr, ki=ki: kc.fused_causal_mix_ref(v, kr, ki,
-                                                              chunk, cols),
-            None, (2 * vb + kb, 2 * seg + mac), nc == 16))
+        # #7's kernel (causal_long.cu) takes chunk 128 too: a data point
+        for name, fn in (
+                ("fused_causal_mix", kc.fused_causal_mix),
+                ("fused_causal_mix_direct", kc.fused_causal_mix_direct),
+                ("fused_causal_mix_v3", lambda *a: kc._launch_mix(
+                    "fused_causal_mix_v3", *a))):
+            cases.append((
+                name, f"B={b} nc={nc} C={chunk} d={d} cols={cols}",
+                lambda fn=fn, v=v, kr=kr, ki=ki: fn(v, kr, ki, chunk, cols),
+                lambda v=v, kr=kr, ki=ki: kc.fused_causal_mix_ref(
+                    v, kr, ki, chunk, cols),
+                None, (2 * vb + kb, 2 * seg + mac),
+                nc == 16 and name != "fused_causal_mix_v3"))
     bb = 8                                  # the training batch
     for nc in (8, 16):
         v, ybar = randn(bb, nc * chunk, d), randn(bb, nc * chunk, d)
@@ -337,6 +367,7 @@ def phase_kernels(kc, sm, kd, dev):
     cases += long_mix_cases(sm, randn)
 
     staged_sweep(sm, randn)
+    tile_sweep(kc, randn)
     results = {}
     for name, shape, kern, plain, lib, work, main in cases:
         got, want = kern(), plain()
@@ -359,6 +390,46 @@ def phase_kernels(kc, sm, kd, dev):
         emit(phase="kernels", kernel=name, **case)
         results.setdefault(name, []).append(case)
     return results
+
+
+def tile_sweep(kc, randn) -> None:
+    """#8's and #6's FFT kernels (causal_fft.cu) at the tiny LM's scoring
+    shapes (B=4, n_fft 2048, C 128, L 512; nc 16, d 512, 32 gate columns)
+    over the tile plans that fit shared memory: lane or channel pairs a
+    block (np) and segments or windows a pass (gs); median ms over CUDA
+    events of each, the wrappers' own plan marked.  Each plan's output is
+    held to the plain version first."""
+    b, n_fft, chunk, lanes, d, cols = 4, 2048, 128, 512, 512, 32
+    nc = n_fft // chunk
+    gr, gi = randn(b, n_fft // 2 + 1, lanes), randn(b, n_fft // 2 + 1, lanes)
+    v = randn(b, n_fft, d)
+    kr, ki = (randn(b, nc, chunk + 1, nc * cols) for _ in range(2))
+    runs = []
+    for plan in ((4, 8), (4, 4), (4, 2), (2, 4)):
+        if kc._kf_fft_smem(n_fft, chunk, *plan) <= kc.SMEM_MAX:
+            runs.append(("kf_spectra", plan, kc.kf_fft_plan(n_fft, chunk,
+                                                            lanes),
+                         lambda plan=plan: kc._launch_kf(
+                             "kf_spectra", gr, gi, n_fft, chunk, plan),
+                         lambda: kc.kf_spectra_ref(gr, gi, n_fft, chunk)))
+    for plan in ((4, 4), (4, 2), (2, 4), (2, 2)):
+        ng = kc._tile_groups(d, cols, 2 * plan[0])
+        if kc._mix_fft_smem(nc, chunk, *plan, ng) <= kc.SMEM_MAX:
+            runs.append(("fused_causal_mix", plan,
+                         kc.mix_fft_plan(nc, chunk, d, cols),
+                         lambda plan=plan: kc._launch_mix(
+                             "fused_causal_mix", v, kr, ki, chunk, cols,
+                             plan),
+                         lambda: kc.fused_causal_mix_ref(v, kr, ki, chunk,
+                                                         cols)))
+    rows = []
+    for name, plan, chosen, kern, plain in runs:
+        err = rel_err(kern(), plain())
+        if not err <= REL_KERNEL:
+            raise AssertionError(f"{name} plan {plan}: rel_err {err}")
+        rows.append(dict(kernel=name, plan=list(plan), rel_err=err,
+                         ms=median_ms(kern), chosen=tuple(plan) == chosen))
+    emit(phase="kernels_tile_sweep", rows=rows)
 
 
 def long_cases(kc, randn):
@@ -561,14 +632,16 @@ def same_modrelu_side(record: bool, sides: list):
     the mixer parameters upstream of it by up to a few 1e-4, which says
     nothing about the kernels.  With
     ``record`` the card's run appends, per call, which side each value took;
-    otherwise the CPU's run takes those sides, in call order."""
+    otherwise the CPU's run takes those sides, in call order.  A value
+    exactly on the kink (|z| = -b in fp32, as |z| = 0.1 meets the initial
+    bias of -0.1) counts as on: torch.clamp's gradient passes there."""
     from fft_tpu_torch.layers import spectre
     plain = spectre.modrelu
 
     def modrelu(z, bias, eps=1e-4):
         mag = z.abs()
         if record:
-            sides.append((mag + bias > 0).detach().cpu())
+            sides.append((mag + bias >= 0).detach().cpu())
             return plain(z, bias, eps)
         keep = sides.pop(0)
         mag_stable = torch.sqrt(mag * mag + eps * eps)
@@ -623,8 +696,9 @@ def train_parity(cfg, dev, tokens) -> dict:
 
 
 def phase_train(cfg, dev) -> None:
-    """Gradient parity with the CPU, 5 steps at the CLI's batch, the CLI."""
-    from fft_tpu_torch import cli
+    """Gradient parity with the CPU, 5 steps at the CLI's batch and 2 more
+    under torch.profiler, the CLI."""
+    from fft_tpu_torch import bench, cli
     from fft_tpu_torch.models.lm import lm_init
     from fft_tpu_torch.train import TrainConfig, train_init, train_step
     from fft_tpu_torch.train.data import CharDataset
@@ -658,9 +732,11 @@ def phase_train(cfg, dev) -> None:
         raise AssertionError(f"train: non-finite loss {losses} or grad_norm "
                              f"{norms}")
     ms = statistics.median(step_ms[1:])       # the first builds cuFFT plans
+    prof = bench._profile(lambda: train_step(state, batch),
+                          torch.cuda.synchronize, 2)
     emit(phase="train_steps", batch=8, seq=seq, step_ms=step_ms,
          median_step_ms=ms, tokens_per_s=8 * seq / (ms / 1e3), loss=losses,
-         grad_norm=norms, peak_memory_bytes=peak)
+         grad_norm=norms, peak_memory_bytes=peak, profile=prof)
     del state
 
     buf = io.StringIO()
@@ -1275,7 +1351,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from fft_tpu_torch import cli
+    from fft_tpu_torch import bench, cli
     from fft_tpu_torch.kernels import build
     from fft_tpu_torch.kernels import causal as kc
     from fft_tpu_torch.kernels import decode as kd
@@ -1328,8 +1404,11 @@ def main() -> int:
         raise AssertionError(f"score: rel_err {err} > {REL_MODEL}, shape "
                              f"{tuple(logits.shape)} or non-finite")
     ms = wall_ms(lambda: lm_apply(model, toks.to(dev)))
+    toks_dev = toks.to(dev)
+    prof = bench._profile(lambda: lm_apply(model, toks_dev),
+                          torch.cuda.synchronize, 3)
     emit(phase="score", batch=4, seq=cfg.max_seq, rel_err=err, ms=ms,
-         tokens_per_s=4 * cfg.max_seq / (ms / 1e3))
+         tokens_per_s=4 * cfg.max_seq / (ms / 1e3), profile=prof)
 
     # 4. generate ------------------------------------------------------------
     before = kd.LAUNCHES["fused_decode_mix"]
@@ -1383,9 +1462,10 @@ def main() -> int:
     serve_launches = launches()
     emit(phase="launches", **serve_launches)
     missing = [k for k in SERVE_KERNELS if serve_launches[k] == 0]
-    if missing:
+    direct = {k: serve_launches[k] for k in TINY_DIRECT if serve_launches[k]}
+    if missing or direct:
         raise AssertionError(f"kernels never launched on the serving path: "
-                             f"{missing}")
+                             f"{missing}; direct kernels launched: {direct}")
     # the later phases' peak memory is their own
     del model, model_cpu, logits, ref, out
 
@@ -1396,9 +1476,12 @@ def main() -> int:
     decode_launches = launches()
     emit(phase="decode_launches", **decode_launches)
     missing = [k for k in DECODE_KERNELS if decode_launches[k] == 0]
-    if missing:
+    direct = {k: decode_launches[k] for k in TINY_DIRECT
+              if decode_launches[k]}
+    if missing or direct:
         raise AssertionError(f"kernels never launched past the wrap or on "
-                             f"the pooler LM: {missing}")
+                             f"the pooler LM: {missing}; direct kernels "
+                             f"launched: {direct}")
 
     # 6. train ---------------------------------------------------------------
     reset_launches()                          # the training path starts here
@@ -1406,9 +1489,10 @@ def main() -> int:
     train_launches = launches()
     emit(phase="train_launches", **train_launches)
     missing = [k for k in TRAIN_KERNELS if train_launches[k] == 0]
-    if missing:
+    direct = {k: train_launches[k] for k in TINY_DIRECT if train_launches[k]}
+    if missing or direct:
         raise AssertionError(f"kernels never launched on the training path: "
-                             f"{missing}")
+                             f"{missing}; direct kernels launched: {direct}")
 
     # 7. block -------------------------------------------------------------
     reset_launches()                          # the block's path starts here

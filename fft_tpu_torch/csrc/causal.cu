@@ -3,19 +3,21 @@
 // (fft_tpu_torch/kernels/build.py builds this file with nvcc for sm_90a).
 //
 // Replaces, from fft_tpu/kernels/pallas_causal.py:
-//   banded_inverse   <- _banded_inverse_call  (:167, pallas_call :205)
-//   fused_causal_mix <- _fused_causal_call    (:592, pallas_call :707)
-//   kf_spectra       <- _kf_spectra_call      (:1428, pallas_call :1482)
+//   banded_inverse          <- _banded_inverse_call  (:167, pallas_call :205)
+//   fused_causal_mix_direct <- _fused_causal_call    (:592, pallas_call :707)
+//   kf_spectra_direct       <- _kf_spectra_call      (:1428, pallas_call :1482)
 //
 // Direct DFTs against host twiddle tables (causal_common.cuh).  The TPU
 // kernels' one-hot selector matmuls are index arithmetic here: channel ch
-// reads gate group ch / (d / cols), lane l = c * cols + g.
+// reads gate group ch / (d / cols), lane l = c * cols + g.  causal_fft.cu
+// computes #6 and #8 with FFTs in shared memory, one launch each; the
+// direct pair here takes only the shapes whose lengths do not factor there
+// or whose tiles do not fit a block (kernels/causal.py picks).
 //
 // What bounds them on the H100: the inner loops do one broadcast
 // shared-memory read per two FMAs, so they run at the shared-memory
 // instruction throughput, well below the fp32 FMA peak; the direct DFTs
-// also do O(n) work per output where an FFT does O(log n).  A later change
-// moves the DFTs onto staged radix passes or tensor-core matmuls.
+// also do O(n) work per output where an FFT does O(log n).
 
 #include "causal_common.cuh"
 
@@ -257,10 +259,11 @@ int fft_banded_inverse(const float* vfr, const float* vfi, const float* kfr,
 
 // y (B, N, d) from raw values v (B, N, d) and producer-layout K planes
 // (B, nc, C+1, nc*cols).  vfr/vfi: (B, nc, C+1, d) scratch.
-int fft_fused_causal_mix(const float* v, const float* kfr, const float* kfi,
-                         const float* tw, float* vfr, float* vfi, float* out,
-                         int b, int nc, int chunk, int d, int cols,
-                         void* stream) {
+int fft_fused_causal_mix_direct(const float* v, const float* kfr,
+                                const float* kfi, const float* tw,
+                                float* vfr, float* vfi, float* out, int b,
+                                int nc, int chunk, int d, int cols,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int err = launch_segment_rfft<false>(v, vfr, vfi, tw, b, nc, chunk,
                                              d, st);
@@ -272,9 +275,10 @@ int fft_fused_causal_mix(const float* v, const float* kfr, const float* kfi,
 
 // K planes (B, nc, C+1, L) from gate planes (B, N/2+1, L).
 // twn: (N, 2) twiddles, tw2: (2C, 2) twiddles.
-int fft_kf_spectra(const float* gr, const float* gi, const float* twn,
-                   const float* tw2, float* kfr, float* kfi, int b,
-                   int n_fft, int chunk, int lanes, void* stream) {
+int fft_kf_spectra_direct(const float* gr, const float* gi,
+                          const float* twn, const float* tw2, float* kfr,
+                          float* kfi, int b, int n_fft, int chunk, int lanes,
+                          void* stream) {
   const size_t smem = kf_smem(n_fft, chunk);
   cudaError_t err = cudaFuncSetAttribute(
       kf_spectra_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

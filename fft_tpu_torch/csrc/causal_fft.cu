@@ -1,0 +1,634 @@
+// The tiny LM's causal mix on Hopper with FFTs in shared memory: kernels #8
+// and #6 as one launch each, a plain C interface loaded with ctypes
+// (fft_tpu_torch/kernels/build.py builds this file with nvcc for sm_90a).
+//
+// Replaces, from fft_tpu/kernels/pallas_causal.py:
+//   kf_spectra       <- _kf_spectra_call    (:1428, pallas_call :1482)
+//   fused_causal_mix <- _fused_causal_call  (:592, pallas_call :707)
+//
+// causal.cu computes the same two functions with direct DFTs (O(n) work an
+// output); kernels/causal.py takes those kernels (kf_spectra_direct,
+// fused_causal_mix_direct) only for the shapes whose lengths do not factor
+// here or whose tiles do not fit a block.
+//
+// Lengths n = P * O: P a power of two (at least 4), O odd up to 31.  The
+// P-point transforms are radix-2 stages over interleaved sequences
+// (element t of sequence q at buf[t * seqs + q]), two stages a pass where
+// the count allows (a radix-4 butterfly of four elements in registers), so
+// a 2048-point transform is 6 passes over shared memory, not 11.  Odd O
+// adds the mixed-radix step of staged_mix.cu (a twiddle and an O-point
+// direct DFT per column, spectrum in stage order: X[k2 + P k1] at row
+// O k2 + k1); here O is a runtime value, since only the tiny LM's powers of
+// two are on the main path.  Two real lanes ride one complex sequence
+// (a + i b) and are untangled where their spectra are read.  Twiddles are
+// rounded once from float64 on the host (a table of n / 2 entries for each
+// length; no fast math).  No warp shuffles and no atomics, so tests/cuda_emulation.py
+// runs both kernels on the CPU.
+//
+// kf_spectra_fft_kernel, grid (lanes / (2 NP), B): NP lane pairs a block.
+//   The N/2 + 1 gate rows of the pairs are read once and packed as
+//   A + i B; one N-point inverse FFT gives both lanes' k_time as re / im.
+//   Each segment j is [k_j ; 0]: its 2C-point forward FFT folds the zero
+//   half into the load (the first decimation-in-time stage of x and 0 is
+//   x twice), gs segments a pass.  The spectra are untangled on the store.
+//   HBM: the gate read once, the spectra written once.
+// fused_mix_fft_kernel, grid (d / (2 NP), B): NP channel pairs a block.
+//   The windows [v_{s-1} | v_s] are loaded gs at a time (each row of v read
+//   once a group), FFT'd, and the nc spectra stay resident in shared memory
+//   untangled per channel (C slots: DC and Nyquist share slot 0, both
+//   real).  Then per output chunk c the K column c (producer layout, one
+//   complex value per lag and bin for each gate group the tile touches) is
+//   staged in shared memory by async copies (cp.async, issued one chunk
+//   ahead, so their L2 latency hides behind the previous chunk), the
+//   banded sum runs in registers, and one 2C-point inverse FFT of the
+//   packed pair gives rows C..2C-1.
+//   HBM: v read once, K's lower triangle read once a tile, y written once;
+//   no scratch.
+//
+// What bounds them on the H100.  #8: shared-memory passes and the barriers
+// between them (a radix-4 pass reads and writes each element once), not
+// HBM (34 MB at the tiny LM's B=4, 0.010 ms at 3.35 TB/s): radix-4 passes
+// halve the passes, and a 107 KB block (4 lane pairs, 4 segments a pass)
+// lets two blocks share an SM.  #6: reading K.  In the producer layout the
+// K values one block needs (one gate group, lanes c * cols + g) sit one to
+// a 32-byte sector, so a block issues a scattered sector read per lag, bin
+// and plane (35K at nc = 16, C = 128), and every tile of a group octet reads
+// the same sectors; these reads share the L1 / shared-memory pipe with the
+// FFT and banded-sum traffic.  The design issues them as async copies one
+// chunk ahead, walks only the lags j <= c, and runs 512 threads a block;
+// the segment spectra (128 KB for 8 channels at nc = 16) keep a block to 8
+// channels and one block an SM.  Cutting the K reads further needs blocks
+// that share K columns (thread-block clusters) or a K layout whose group
+// lanes are contiguous, which #8 and #10 share.
+
+#include <cuda_pipeline.h>
+
+#include "causal_common.cuh"
+#include "fft_common.cuh"
+
+namespace {
+
+// threads a block; #6's banded sum has one (bin, channel pair) a thread at
+// C = 128 with 512 (chip_smoke.py's kernels_tile_sweep set both)
+constexpr int kKfThreads = 256;
+constexpr int kMixThreads = 512;
+constexpr int kMaxOdd = 31;
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+
+// W = (cos, sign sin)(2 pi m / M) from tw[idx] = (cos, sin)
+__device__ __forceinline__ float2 signed_tw(const float2* tw, int idx,
+                                            float sign) {
+  const float2 t = tw[idx];
+  return make_float2(t.x, sign * t.y);
+}
+
+// Row of time t of a length-(P O) transform: t = t1 + O t2 at row
+// t1 + O bitrev(t2) (the input order of the forward, the output order of
+// the inverse).
+__device__ __forceinline__ int time_row(int t, int o, int log2p) {
+  if (o == 1) return bitrev(t, log2p);
+  return t % o + o * bitrev(t / o, log2p);
+}
+
+// Row of frequency k in stage order: X[k2 + P k1] at row O k2 + k1.
+__device__ __forceinline__ int freq_row(int k, int o, int log2p) {
+  if (o == 1) return k;
+  return o * (k & ((1 << log2p) - 1)) + (k >> log2p);
+}
+
+// The work items i = tid, tid + nt, ... of a block, split as
+// i = r * seqs + q without a division in the loop.
+struct Walk {
+  int q, r, dq, dr;
+  __device__ explicit Walk(int seqs)
+      : q((int)threadIdx.x % seqs), r((int)threadIdx.x / seqs),
+        dq((int)blockDim.x % seqs), dr((int)blockDim.x / seqs) {}
+  __device__ void next(int seqs) {
+    q += dq;
+    r += dr;
+    if (q >= seqs) {
+      q -= seqs;
+      ++r;
+    }
+  }
+};
+
+// One radix-2 stage of span h = 2^s over P-point sequences.  tw[m *
+// tw_step] = (cos, sin)(2 pi m / P).  Ends with __syncthreads.
+template <bool kDit>
+__device__ void radix2_pass(float2* buf, int log2p, int s, int seqs,
+                            const float2* tw, int tw_step, float sign) {
+  const int h = 1 << s;
+  const int rows = 1 << (log2p - 1);
+  const int tmul = (1 << (log2p - 1 - s)) * tw_step;   // P / 2h
+  for (Walk it(seqs); it.r < rows; it.next(seqs)) {
+    const int pos = it.r & (h - 1);
+    const int i0 = ((it.r - pos) << 1) + pos;
+    float2* a = buf + (size_t)i0 * seqs + it.q;
+    float2* b = a + (size_t)h * seqs;
+    const float2 w = signed_tw(tw, pos * tmul, sign);
+    const float2 av = *a, bv = *b;
+    if (kDit) {
+      const float2 bw = cmul(bv, w);
+      *a = cadd(av, bw);
+      *b = csub(av, bw);
+    } else {
+      *a = cadd(av, bv);
+      *b = cmul(csub(av, bv), w);
+    }
+  }
+  __syncthreads();
+}
+
+// Radix-2 stages s and s + 1 (spans h = 2^s and 2h) in one pass: four
+// elements i0 + {0, h, 2h, 3h} a butterfly, in registers.  Decimation in
+// time runs span h then 2h; in frequency, 2h then h.  Ends with
+// __syncthreads.
+template <bool kDit>
+__device__ void radix4_pass(float2* buf, int log2p, int s, int seqs,
+                            const float2* tw, int tw_step, float sign) {
+  const int h = 1 << s;
+  const int rows = 1 << (log2p - 2);
+  const int tmul2 = (1 << (log2p - 2 - s)) * tw_step;  // P / 4h
+  for (Walk it(seqs); it.r < rows; it.next(seqs)) {
+    const int pos = it.r & (h - 1);
+    const int i0 = ((it.r - pos) << 2) + pos;
+    float2* x = buf + (size_t)i0 * seqs + it.q;
+    const size_t hs = (size_t)h * seqs;
+    const float2 w1 = signed_tw(tw, 2 * pos * tmul2, sign);  // W_2h^pos
+    const float2 w2 = signed_tw(tw, pos * tmul2, sign);      // W_4h^pos
+    // W_4h^(pos + h) = W_4h^pos * W_4 = W_4h^pos * (sign i)
+    const float2 w3 = make_float2(-sign * w2.y, sign * w2.x);
+    const float2 x0 = x[0], x1 = x[hs], x2 = x[2 * hs], x3 = x[3 * hs];
+    if (kDit) {
+      const float2 b1 = cmul(x1, w1), b3 = cmul(x3, w1);
+      const float2 a0 = cadd(x0, b1), a1 = csub(x0, b1);
+      const float2 a2 = cadd(x2, b3), a3 = csub(x2, b3);
+      const float2 c2 = cmul(a2, w2), c3 = cmul(a3, w3);
+      x[0] = cadd(a0, c2);
+      x[2 * hs] = csub(a0, c2);
+      x[hs] = cadd(a1, c3);
+      x[3 * hs] = csub(a1, c3);
+    } else {
+      const float2 a0 = cadd(x0, x2), a2 = cmul(csub(x0, x2), w2);
+      const float2 a1 = cadd(x1, x3), a3 = cmul(csub(x1, x3), w3);
+      x[0] = cadd(a0, a1);
+      x[hs] = cmul(csub(a0, a1), w1);
+      x[2 * hs] = cadd(a2, a3);
+      x[3 * hs] = cmul(csub(a2, a3), w1);
+    }
+  }
+  __syncthreads();
+}
+
+// In-place P-point transforms (P = 2^log2p) of `seqs` interleaved
+// sequences.  kDit: bit-reversed input, natural output; else natural input,
+// bit-reversed output.  sign -1: forward, +1: inverse, unnormalized.
+// first: decimation-in-time stages below it are skipped (done on the load).
+template <bool kDit>
+__device__ void fft_passes(float2* buf, int log2p, int seqs,
+                           const float2* tw, int tw_step, float sign,
+                           int first) {
+  if (kDit) {
+    int s = first;
+    if ((log2p - s) & 1) {
+      radix2_pass<true>(buf, log2p, s, seqs, tw, tw_step, sign);
+      ++s;
+    }
+    for (; s < log2p; s += 2)
+      radix4_pass<true>(buf, log2p, s, seqs, tw, tw_step, sign);
+  } else {
+    int s = log2p;          // stages left: spans 2^(s-1) .. 1
+    for (; s >= 2; s -= 2)
+      radix4_pass<false>(buf, log2p, s - 2, seqs, tw, tw_step, sign);
+    if (s == 1) radix2_pass<false>(buf, log2p, 0, seqs, tw, tw_step, sign);
+  }
+}
+
+// In place, for every column (k2, q) of a length n = P * O transform: the
+// O-point DFT over the rows O k2 + j, j < O, with the twiddle e^{sign 2 pi
+// i j k2 / n} on input j (forward, sign -1) or on output j (inverse, +1).
+// tw holds the roots of n * stride (half of them).  Ends with
+// __syncthreads.
+__device__ void odd_pass(float2* z, int o, int p_len, int seqs,
+                         const float2* tw, int stride, int half,
+                         float sign) {
+  for (Walk it(seqs); it.r < p_len; it.next(seqs)) {
+    const int k2 = it.r;
+    float2* col = z + (size_t)o * k2 * seqs + it.q;
+    float2 x[kMaxOdd];
+    for (int j = 0; j < o; ++j) {
+      x[j] = col[(size_t)j * seqs];
+      if (sign < 0.f) {
+        const float2 w = root(tw, j * k2 * stride, half);
+        x[j] = cmul(x[j], make_float2(w.x, -w.y));
+      }
+    }
+    for (int k = 0; k < o; ++k) {
+      float2 acc = x[0];
+      for (int j = 1; j < o; ++j) {
+        const float2 w = root(tw, (j * k) % o * p_len * stride, half);
+        acc = cmac(make_float2(w.x, sign * w.y), x[j], acc);
+      }
+      if (sign > 0.f) acc = cmul(acc, root(tw, k * k2 * stride, half));
+      col[(size_t)k * seqs] = acc;
+    }
+  }
+  __syncthreads();
+}
+
+// (a, b) with Z = FFT(a + i b) for real a, b: A[k] and B[k] from Z[k] and
+// Z[n - k].
+__device__ __forceinline__ void untangle(float2 zk, float2 zm, float2& a,
+                                         float2& b) {
+  a = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
+  b = make_float2(0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
+}
+
+// Kernel-segment spectra of the gate, for lanes l0 .. l0 + 2 NP - 1:
+//   k[t]    = irfft_N(g[:, l])[j C + t],   t = 0..C-1
+//   K[j, f] = rfft_2C([k ; 0])[f],        f = 0..C
+// g planes (B, N/2 + 1, L); K planes (B, nc, C + 1, L).  N = P O, 2C =
+// P2 O2.  Shared memory: N/2 twiddles of N and C of 2C (2C need not
+// divide N: nc may be odd), the (N, NP) tile of packed k_time and the
+// (2C, gs NP) tile of gs segments.
+template <int NP>
+__global__ void __launch_bounds__(kKfThreads)
+kf_spectra_fft_kernel(const float* __restrict__ gr,
+                      const float* __restrict__ gi,
+                      const float2* __restrict__ twn_g,
+                      const float2* __restrict__ tw2_g,
+                      float* __restrict__ kfr, float* __restrict__ kfi,
+                      int n_fft, int log2p, int o, int chunk, int log2p2,
+                      int o2, int lanes, int gs) {
+  extern __shared__ float2 smem2[];
+  const int half = n_fft / 2, fh = half + 1, p_len = n_fft / o;
+  const int n2 = 2 * chunk, p2 = n2 / o2, nc = n_fft / chunk;
+  const int f2 = chunk + 1;
+  const int l0 = blockIdx.x * 2 * NP, b = blockIdx.y;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const size_t row2 = (size_t)lanes / 2;       // float2 per row of g or K
+  float2* tw = smem2;
+  float2* tw2 = tw + half;
+  float2* z = tw2 + chunk;                     // z[row * NP + p]
+  float2* w = z + (size_t)n_fft * NP;          // w[row * gs NP + q]
+
+  for (int i = tid; i < half; i += nt) tw[i] = twn_g[i];
+  for (int i = tid; i < chunk; i += nt) tw2[i] = tw2_g[i];
+  // the pairs' Hermitian halves, Im dropped at DC and Nyquist (irfft
+  // does), packed as Z = A + i B at stage-order rows
+  const float2* gr2 = reinterpret_cast<const float2*>(gr) +
+                      (size_t)b * fh * row2 + l0 / 2;
+  const float2* gi2 = reinterpret_cast<const float2*>(gi) +
+                      (size_t)b * fh * row2 + l0 / 2;
+  for (int i = tid; i < fh * NP; i += nt) {
+    const int p = i % NP, k = i / NP;
+    const float2 re = gr2[(size_t)k * row2 + p], im = gi2[(size_t)k * row2 + p];
+    const bool edge = (k == 0) || (k == half);
+    const float2 xa = make_float2(re.x, edge ? 0.f : im.x);
+    const float2 xb = make_float2(re.y, edge ? 0.f : im.y);
+    z[(size_t)freq_row(k, o, log2p) * NP + p] =
+        make_float2(xa.x - xb.y, xa.y + xb.x);
+    if (k != 0 && k != half)
+      z[(size_t)freq_row(n_fft - k, o, log2p) * NP + p] =
+          make_float2(xa.x + xb.y, xb.x - xa.y);
+  }
+  __syncthreads();
+  if (o > 1) odd_pass(z, o, p_len, NP, tw, 1, half, 1.f);
+  fft_passes<false>(z, log2p, o * NP, tw, o, 1.f, 0);
+  // z: N k_time[t] (lane a + i lane b) at time_row(t)
+
+  const float inv_n = 1.f / (float)n_fft;
+  float2* kr2 = reinterpret_cast<float2*>(kfr);
+  float2* ki2 = reinterpret_cast<float2*>(kfi);
+  for (int j0 = 0; j0 < nc; j0 += gs) {
+    const int g = nc - j0 < gs ? nc - j0 : gs, s = g * NP;
+    // [k_j ; 0]: t = t1 + O2 t2 with t2 < P2 / 2 goes to the rows of
+    // positions 2 m and 2 m + 1, m = bitrev(t2), of the decimation in time
+    for (int i = tid; i < chunk * s; i += nt) {
+      const int q = i % s, t = i / s;
+      const int jj = q / NP, p = q % NP;
+      const int tt = (j0 + jj) * chunk + t;
+      const float2 kv = z[(size_t)time_row(tt, o, log2p) * NP + p];
+      const float2 x = make_float2(kv.x * inv_n, kv.y * inv_n);
+      const int t1 = t % o2, m = bitrev(t / o2, log2p2 - 1);
+      w[(size_t)(t1 + o2 * 2 * m) * s + q] = x;
+      w[(size_t)(t1 + o2 * (2 * m + 1)) * s + q] = x;
+    }
+    __syncthreads();
+    fft_passes<true>(w, log2p2, o2 * s, tw2, o2, -1.f, 1);
+    if (o2 > 1) odd_pass(w, o2, p2, s, tw2, 1, chunk, -1.f);
+    // q fastest: a warp reads contiguous rows of w and writes 32-byte
+    // runs of K
+    for (Walk it(s); it.r < f2; it.next(s)) {
+      const int q = it.q, f = it.r, jj = q / NP, p = q % NP;
+      const int fm = f == 0 ? 0 : n2 - f;
+      float2 a, bb;
+      untangle(w[(size_t)freq_row(f, o2, log2p2) * s + q],
+               w[(size_t)freq_row(fm, o2, log2p2) * s + q], a, bb);
+      const size_t ko = (((size_t)b * nc + j0 + jj) * f2 + f) * row2 +
+                        l0 / 2 + p;
+      kr2[ko] = make_float2(a.x, bb.x);
+      ki2[ko] = make_float2(a.y, bb.y);
+    }
+    __syncthreads();
+  }
+}
+
+// Gate groups the channel tile [c0, c0 + ct) touches, at most, over the
+// tiles of d channels (kernels/causal.py holds the same formula).
+int tile_groups(int d, int cols, int ct) {
+  const int d_g = d / cols;
+  int most = 1;
+  for (int c0 = 0; c0 < d; c0 += ct) {
+    const int n = (c0 + ct - 1) / d_g - c0 / d_g + 1;
+    if (n > most) most = n;
+  }
+  return most;
+}
+
+// Async copies of the K column of output chunk c (lags j <= c, the gate
+// groups gfirst .. gfirst + ng - 1) into ks[(j C + f) ng + gl], slot f = 0
+// taking Re K[j][0] and Re K[j][C], then one commit.  In the producer
+// layout each value is a 4-byte read from its own 32-byte sector, so a
+// block keeps the next chunk's loads in flight while it computes this one.
+__device__ void stage_k(float2* ks, ProducerK k, int b, int c, int nc,
+                        int chunk, int ng, int gfirst) {
+  const int f2 = chunk + 1, row = f2 * ng;
+  const size_t lanes = (size_t)nc * k.cols;
+  const size_t k0 = (size_t)b * nc * f2 * lanes + (size_t)c * k.cols +
+                    gfirst;
+  float* dst0 = reinterpret_cast<float*>(ks);
+  for (Walk it(row); it.r <= c; it.next(row)) {        // lag j = it.r
+    const int f = ng == 1 ? it.q : it.q / ng;
+    const int gl = ng == 1 ? 0 : it.q % ng;
+    if (gfirst + gl >= k.cols) continue;
+    const size_t ko = k0 + ((size_t)it.r * f2 + f) * lanes + gl;
+    float* dst =
+        dst0 + 2 * (((size_t)it.r * chunk + (f == chunk ? 0 : f)) * ng + gl);
+    if (f == chunk) {
+      __pipeline_memcpy_async(dst + 1, k.re + ko, 4);
+    } else {
+      __pipeline_memcpy_async(dst, k.re + ko, 4);
+      if (f != 0) __pipeline_memcpy_async(dst + 1, k.im + ko, 4);
+    }
+  }
+  __pipeline_commit();
+}
+
+// y (B, N, d): the segmented causal mix of v against K planes in the
+// producer layout (B, nc_j, C + 1, nc * cols), for channels c0 .. c0 +
+// 2 NP - 1.  2C = P O.  Shared memory: C twiddles (of 2C), the nc segment
+// spectra (vs[(s C + f) 2 NP + ch], slot f = 0 holding (Re V[0], Re V[C]),
+// both real), the (2C, gs NP) transform tile, and two buffers of one
+// chunk's staged K column (ks[(j C + f) ng + gl], slot 0 holding
+// (Re K[j][0], Re K[j][C])): one is read while the next chunk's column
+// arrives in the other.
+template <int NP>
+__global__ void __launch_bounds__(kMixThreads)
+fused_mix_fft_kernel(const float* __restrict__ v, ProducerK k,
+                     const float2* __restrict__ tw_g, float* __restrict__ y,
+                     int nc, int chunk, int log2p, int o, int d, int gs,
+                     int ng) {
+  constexpr int kCt = 2 * NP;                  // channels a block
+  extern __shared__ float2 smem2[];
+  const int n2 = 2 * chunk, p_len = n2 / o;
+  const int d_g = d / k.cols;
+  const int c0 = blockIdx.x * kCt, b = blockIdx.y;
+  const int gfirst = c0 / d_g;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const size_t row2 = (size_t)d / 2;
+  float2* tw = smem2;
+  float2* vs = tw + chunk;
+  float2* w = vs + (size_t)nc * chunk * kCt;
+  float2* ks = w + (size_t)n2 * gs * NP;        // two buffers of ks_len
+  const size_t ks_len = (size_t)nc * chunk * ng;
+  const float2* v2 = reinterpret_cast<const float2*>(v) +
+                     (size_t)b * nc * chunk * row2 + c0 / 2;
+  float2* y2 = reinterpret_cast<float2*>(y) +
+               (size_t)b * nc * chunk * row2 + c0 / 2;
+
+  for (int i = tid; i < chunk; i += nt) tw[i] = tw_g[i];
+  // chunk 0's K column loads while the segment spectra are taken
+  stage_k(ks, k, b, 0, nc, chunk, ng, gfirst);
+
+  // ---- segment spectra V_s = rfft_2C([v_{s-1} | v_s]), gs a pass --------
+  for (int s0 = 0; s0 < nc; s0 += gs) {
+    const int g = nc - s0 < gs ? nc - s0 : gs, s = g * NP;
+    // rows (s0 - 1) C .. (s0 + g) C - 1: chunk u of them is the upper half
+    // of window s0 + u - 1 and the lower half of window s0 + u
+    for (int i = tid; i < (g + 1) * chunk * NP; i += nt) {
+      const int p = i % NP, rr = i / NP;
+      const long row = (long)(s0 - 1) * chunk + rr;
+      const float2 x = row >= 0 ? v2[(size_t)row * row2 + p]
+                                : make_float2(0.f, 0.f);
+      const int u = rr / chunk, t = rr % chunk;
+      if (u >= 1)
+        w[(size_t)time_row(chunk + t, o, log2p) * s + (u - 1) * NP + p] = x;
+      if (u < g) w[(size_t)time_row(t, o, log2p) * s + u * NP + p] = x;
+    }
+    __syncthreads();
+    fft_passes<true>(w, log2p, o * s, tw, o, -1.f, 0);
+    if (o > 1) odd_pass(w, o, p_len, s, tw, 1, chunk, -1.f);
+    for (Walk it(s); it.r < chunk; it.next(s)) {
+      const int q = it.q, f = it.r, ss = q / NP, p = q % NP;
+      float2 va, vb;
+      if (f == 0) {
+        const float2 z0 = w[(size_t)freq_row(0, o, log2p) * s + q];
+        const float2 zc = w[(size_t)freq_row(chunk, o, log2p) * s + q];
+        va = make_float2(z0.x, zc.x);
+        vb = make_float2(z0.y, zc.y);
+      } else {
+        untangle(w[(size_t)freq_row(f, o, log2p) * s + q],
+                 w[(size_t)freq_row(n2 - f, o, log2p) * s + q], va, vb);
+      }
+      float2* dst = vs + ((size_t)(s0 + ss) * chunk + f) * kCt + 2 * p;
+      dst[0] = va;
+      dst[1] = vb;
+    }
+    __syncthreads();
+  }
+
+  // ---- per output chunk: banded sum, one inverse FFT, rows C..2C-1 ------
+  const float inv_n2 = 1.f / (float)n2;
+  for (int c = 0, buf = 0; c < nc; ++c, buf ^= 1) {
+    __pipeline_wait_prior(0);
+    __syncthreads();                           // ks[buf] has landed
+    if (c + 1 < nc)                            // the next chunk's K, async
+      stage_k(ks + (size_t)(buf ^ 1) * ks_len, k, b, c + 1, nc, chunk, ng,
+              gfirst);
+    const float2* ksb = ks + (size_t)buf * ks_len;
+    for (int i = tid; i < chunk * NP; i += nt) {
+      const int p = i % NP, f = i / NP;
+      const int ga = (c0 + 2 * p) / d_g - gfirst;
+      const int gb = (c0 + 2 * p + 1) / d_g - gfirst;
+      // lag j reads K at kp + j kstep and V_{c-j} at vp - j vstep
+      const float2* kp = ksb + (size_t)f * ng;
+      const float2* vp = vs + ((size_t)c * chunk + f) * kCt + 2 * p;
+      const int kstep = chunk * ng, vstep = chunk * kCt;
+      float2 aa = make_float2(0.f, 0.f), ab = make_float2(0.f, 0.f);
+      if (f == 0) {            // DC and Nyquist: real products
+        for (int j = 0; j <= c; ++j, kp += kstep, vp -= vstep) {
+          const float2 va = vp[0], vb = vp[1];
+          const float2 ka = kp[ga], kb = kp[gb];
+          aa.x = fmaf(ka.x, va.x, aa.x);
+          aa.y = fmaf(ka.y, va.y, aa.y);
+          ab.x = fmaf(kb.x, vb.x, ab.x);
+          ab.y = fmaf(kb.y, vb.y, ab.y);
+        }
+        w[(size_t)freq_row(0, o, log2p) * NP + p] = make_float2(aa.x, ab.x);
+        w[(size_t)freq_row(chunk, o, log2p) * NP + p] =
+            make_float2(aa.y, ab.y);
+      } else {
+#pragma unroll 4
+        for (int j = 0; j <= c; ++j, kp += kstep, vp -= vstep) {
+          aa = cmac(kp[ga], vp[0], aa);
+          ab = cmac(kp[gb], vp[1], ab);
+        }
+        w[(size_t)freq_row(f, o, log2p) * NP + p] =
+            make_float2(aa.x - ab.y, aa.y + ab.x);
+        w[(size_t)freq_row(n2 - f, o, log2p) * NP + p] =
+            make_float2(aa.x + ab.y, ab.x - aa.y);
+      }
+    }
+    __syncthreads();
+    if (o > 1) odd_pass(w, o, p_len, NP, tw, 1, chunk, 1.f);
+    fft_passes<false>(w, log2p, o * NP, tw, o, 1.f, 0);
+    for (int i = tid; i < chunk * NP; i += nt) {
+      const int p = i % NP, t = i / NP;
+      const float2 r = w[(size_t)time_row(chunk + t, o, log2p) * NP + p];
+      y2[((size_t)c * chunk + t) * row2 + p] =
+          make_float2(r.x * inv_n2, r.y * inv_n2);
+    }
+    // the next chunk syncs before it writes w or refills this ks buffer
+  }
+}
+
+// Dynamic shared memory of the two kernels, in bytes.  kernels/causal.py
+// holds the same formulas for its shape choice (a block may use 227 KB).
+size_t kf_fft_smem(int n_fft, int chunk, int np, int gs) {
+  return ((size_t)n_fft / 2 + (size_t)chunk + (size_t)n_fft * np +
+          (size_t)gs * 2 * chunk * np) * sizeof(float2);
+}
+
+size_t mix_fft_smem(int nc, int chunk, int np, int gs, int ng) {
+  return ((size_t)chunk + (size_t)nc * chunk * 2 * np +
+          (size_t)2 * chunk * gs * np + (size_t)2 * nc * chunk * ng) *
+         sizeof(float2);
+}
+
+// n = P * O with O odd <= kMaxOdd and P >= 4 a power of two; false
+// otherwise.
+bool split_odd(int n, int* log2p, int* o) {
+  int odd = n;
+  while (odd % 2 == 0) odd /= 2;
+  const int p = n / odd;
+  if (odd > kMaxOdd || p < 4) return false;
+  *o = odd;
+  *log2p = log2_of(p);
+  return true;
+}
+
+template <int NP>
+int launch_kf(const float* gr, const float* gi, const float* twn,
+              const float* tw2, float* kfr, float* kfi, int b, int n_fft,
+              int chunk, int lanes, int gs, cudaStream_t st) {
+  int log2p, o, log2p2, o2;
+  if (!split_odd(n_fft, &log2p, &o) || !split_odd(2 * chunk, &log2p2, &o2) ||
+      lanes % (2 * NP) != 0 || gs < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = kf_fft_smem(n_fft, chunk, NP, gs);
+  cudaError_t err = cudaFuncSetAttribute(
+      kf_spectra_fft_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kf_spectra_fft_kernel<NP><<<dim3(lanes / (2 * NP), b), kKfThreads, smem,
+                              st>>>(
+      gr, gi, reinterpret_cast<const float2*>(twn),
+      reinterpret_cast<const float2*>(tw2), kfr, kfi, n_fft, log2p, o, chunk,
+      log2p2, o2, lanes, gs);
+  return (int)cudaGetLastError();
+}
+
+template <int NP>
+int launch_mix(const float* v, const float* kfr, const float* kfi,
+               const float* tw, float* out, int b, int nc, int chunk, int d,
+               int cols, int gs, cudaStream_t st) {
+  int log2p, o;
+  if (!split_odd(2 * chunk, &log2p, &o) || d % (2 * NP) != 0 ||
+      cols < 1 || d % cols != 0 || gs < 1)
+    return (int)cudaErrorInvalidValue;
+  const int ng = tile_groups(d, cols, 2 * NP);
+  const size_t smem = mix_fft_smem(nc, chunk, NP, gs, ng);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_mix_fft_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const ProducerK k{kfr, kfi, nc, chunk + 1, cols};
+  fused_mix_fft_kernel<NP><<<dim3(d / (2 * NP), b), kMixThreads, smem,
+                             st>>>(
+      v, k, reinterpret_cast<const float2*>(tw), out, nc, chunk, log2p, o, d,
+      gs, ng);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// K planes (B, nc, C+1, L) from gate planes (B, N/2+1, L).  twn: (N, 2),
+// tw2: (2C, 2) twiddles (the first halves are read).  np: lane pairs a
+// block (1, 2 or 4); gs: segments a pass.  Returns cudaErrorInvalidValue
+// for lengths that do not split as P * O (O odd <= 31, P >= 4) and for
+// other tiles.
+int fft_kf_spectra(const float* gr, const float* gi, const float* twn,
+                   const float* tw2, float* kfr, float* kfi, int b,
+                   int n_fft, int chunk, int lanes, int np, int gs,
+                   void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (np) {
+    case 1:
+      return launch_kf<1>(gr, gi, twn, tw2, kfr, kfi, b, n_fft, chunk,
+                          lanes, gs, st);
+    case 2:
+      return launch_kf<2>(gr, gi, twn, tw2, kfr, kfi, b, n_fft, chunk,
+                          lanes, gs, st);
+    case 4:
+      return launch_kf<4>(gr, gi, twn, tw2, kfr, kfi, b, n_fft, chunk,
+                          lanes, gs, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// y (B, N, d) from raw values v (B, N, d) and producer-layout K planes
+// (B, nc, C+1, nc*cols).  tw: (2C, 2) twiddles (the first C are read).
+// np: channel pairs a block (1, 2 or 4); gs: windows a forward pass.
+int fft_fused_causal_mix(const float* v, const float* kfr, const float* kfi,
+                         const float* tw, float* out, int b, int nc,
+                         int chunk, int d, int cols, int np, int gs,
+                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (np) {
+    case 1:
+      return launch_mix<1>(v, kfr, kfi, tw, out, b, nc, chunk, d, cols, gs,
+                           st);
+    case 2:
+      return launch_mix<2>(v, kfr, kfi, tw, out, b, nc, chunk, d, cols, gs,
+                           st);
+    case 4:
+      return launch_mix<4>(v, kfr, kfi, tw, out, b, nc, chunk, d, cols, gs,
+                           st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

@@ -53,11 +53,6 @@ constexpr int kKernelSeg = 0;    // rows sC .. sC+C-1, then C zeros
 constexpr int kValueSeg = 1;     // rows (s-1)C .. (s+1)C-1, zeros before 0
 constexpr int kAdjointSeg = 2;   // C zeros, then rows sC .. sC+C-1
 
-__device__ __forceinline__ float2 cmac(float2 k, float2 v, float2 acc) {
-  return make_float2(fmaf(k.x, v.x, fmaf(-k.y, v.y, acc.x)),
-                     fmaf(k.x, v.y, fmaf(k.y, v.x, acc.y)));
-}
-
 // Spectra of the 2C-row windows of x (B, N, w) into planes (B, nc, C+1, w).
 // grid = (w / 8, nc, B).  Shared memory: C twiddles and the (2C, kPairs)
 // complex tile, lanes (2p, 2p+1) packed as a + i b.  kAdjointSeg scales bin

@@ -19,6 +19,20 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 
+// acc + k * v, complex, as fused multiply-adds
+__device__ __forceinline__ float2 cmac(float2 k, float2 v, float2 acc) {
+  return make_float2(fmaf(k.x, v.x, fmaf(-k.y, v.y, acc.x)),
+                     fmaf(k.x, v.y, fmaf(k.y, v.x, acc.y)));
+}
+
+// e^{+2 pi i j / n} for 0 <= j < n, from the table of its first half
+// (half = n / 2 entries)
+__device__ __forceinline__ float2 root(const float2* tw, int j, int half) {
+  if (j < half) return tw[j];
+  const float2 w = tw[j - half];
+  return make_float2(-w.x, -w.y);
+}
+
 __device__ __forceinline__ int bitrev(int t, int log2n) {
   return (int)(__brev((unsigned)t) >> (32 - log2n));
 }

@@ -47,13 +47,6 @@ namespace {
 
 constexpr int kStagedThreads = 256;
 
-// e^{+2 pi i j / n} from the table of the first n / 2 (0 <= j < n)
-__device__ __forceinline__ float2 root(const float2* tw, int j, int half) {
-  if (j < half) return tw[j];
-  const float2 w = tw[j - half];
-  return make_float2(-w.x, -w.y);
-}
-
 // In place, for every column (k2, p) of the tile: the O-point DFT over the
 // rows O k2 + j, j < O, with the twiddle e^{sign 2 pi i j k2 / n} applied
 // to input j (forward, sign -1) or to output j (inverse, sign +1).  Ends

@@ -1,9 +1,9 @@
 """The segmented causal mix's kernels (counterpart of
 ``fft_tpu/kernels/pallas_causal.py``).
 
-Seven kernels, written by hand in CUDA C++ for Hopper (``csrc/causal.cu``,
-``csrc/causal_bwd.cu``, ``csrc/causal_long.cu``), each beside its plain
-PyTorch version:
+Seven functions, computed by kernels written by hand in CUDA C++ for
+Hopper (``csrc/causal_fft.cu``, ``csrc/causal.cu``, ``csrc/causal_bwd.cu``,
+``csrc/causal_long.cu``), each beside its plain PyTorch version:
 
 - ``banded_inverse``   replaces ``_banded_inverse_call`` (pallas_causal.py
   :167): banded causal sum + partial irFFT over precomputed spectra.
@@ -21,10 +21,16 @@ PyTorch version:
   at the long chunks (up to 2048) past the first pair's shared memory.
 
 ``fused_causal_mix`` and ``fused_causal_mix_bwd`` pick the kernel on the
-card by the predicates: the direct-DFT pair where ``fused_mix_supported``
-holds, else the FFT pair where ``fused_mix_v3_supported`` holds, else they
-raise.  ``banded_inverse`` takes a 32-channel tile up to chunk 853 and an
-8-channel tile past it.
+card by the predicates: #6's where ``fused_mix_supported`` holds, else the
+long-chunk pair (#7, #11) where ``fused_mix_v3_supported`` holds, else they
+raise.  Inside #6's range and ``kf_spectra_supported``'s, the shape picks
+one of two kernels (``kf_spectra_kernel``, ``_mix_kernel``): the FFT kernel
+of ``causal_fft.cu`` (launch names ``kf_spectra``, ``fused_causal_mix``)
+wherever its lengths factor as P * O (O odd <= 31) and its tiles fit
+shared memory, which holds at every shape of the tiny LM's paths; the
+direct-DFT kernel of ``causal.cu`` (``kf_spectra_direct``,
+``fused_causal_mix_direct``) elsewhere.  ``banded_inverse`` takes a
+32-channel tile up to chunk 853 and an 8-channel tile past it.
 
 Each public function takes fp32 tensors.  A tensor on the CPU goes to the
 plain version (``*_ref``); a tensor on a CUDA device goes to the kernel, or
@@ -40,18 +46,22 @@ three take the VJP of their plain versions, as JAX does
 and outputs are real planes, so no complex cotangent (whose convention
 differs between JAX and torch) crosses a Function.
 
-What bounds the kernels on the H100, and the design's answer: those of
-``causal.cu`` and ``causal_bwd.cu`` are direct DFTs against shared-memory
-twiddle tables, bounded by the shared-memory instruction throughput of
-their inner loops, not by HBM (the spectra they read fit the 50 MB L2 at
-the tiny LM's shapes).  The sequential delta axis of the TPU kernel
-(scratch carried across grid steps) becomes a loop over lags inside one
-block per output chunk; the segment spectra of ``fused_causal_mix`` (557
-KB per 32-channel tile at nc=16, past the 227 KB a block may hold) go
-through an HBM scratch between two launches.  At chunk 2048 a direct DFT
-costs 16x the tiny LM's work per element, so ``causal_long.cu`` runs
-radix-2 FFTs in shared memory, 8 channels a block; its banded sums are
-bound by reading the segment spectra once per lag.
+What bounds the kernels on the H100, and the design's answer:
+``causal_fft.cu``'s #8 and #6 run radix-4/radix-2 FFTs in shared memory,
+one launch each, bound by shared-memory passes and barriers: #8 holds a
+lane pair's N-point k_time and then its segments' 2C-point spectra on
+chip; #6 keeps a channel tile's nc segment spectra resident (128 KB for 8
+channels at nc=16) and runs each output chunk's banded sum and inverse on
+chip, so nothing goes through HBM scratch.  Those of ``causal.cu`` and
+``causal_bwd.cu`` are direct DFTs against shared-memory twiddle tables,
+bounded by the shared-memory instruction throughput of their inner loops,
+not by HBM (the spectra they read fit the 50 MB L2 at the tiny LM's
+shapes); the sequential delta axis of the TPU kernel (scratch carried
+across grid steps) becomes a loop over lags inside one block per output
+chunk.  At chunk 2048 a direct DFT costs 16x the tiny LM's work per
+element, so ``causal_long.cu`` runs radix-2 FFTs in shared memory, 8
+channels a block; its banded sums are bound by reading the segment
+spectra once per lag.
 """
 
 from __future__ import annotations
@@ -68,7 +78,8 @@ from fft_tpu_torch.ops import fftops
 
 LAUNCHES = {"kf_spectra": 0, "fused_causal_mix": 0, "banded_inverse": 0,
             "fused_causal_mix_bwd": 0, "kf_seg_rfft": 0,
-            "fused_causal_mix_v3": 0, "fused_causal_mix_bwd_v3": 0}
+            "fused_causal_mix_v3": 0, "fused_causal_mix_bwd_v3": 0,
+            "kf_spectra_direct": 0, "fused_causal_mix_direct": 0}
 
 # Shapes of the CUDA blocks (csrc/causal.cu: kLanes, kSegT, kFreqT; the
 # 8-lane tile of banded_inverse_kernel; csrc/causal_long.cu: kTileCh,
@@ -79,6 +90,14 @@ _SEG_T = 64
 _FREQ_T = 64
 _LONG_TILE = 8
 _LONG_PAIRS = 4
+# csrc/causal_fft.cu: lane or channel pairs a block (widest first), the
+# largest odd factor of a length, and the most segments (#8) or windows
+# (#6) one pass transforms together; chosen with chip_smoke.py's
+# kernels_tile_sweep at the tiny LM's shapes (PERF.md, Findings)
+_FFT_PAIRS = (4, 2, 1)
+_MAX_ODD = 31
+_KF_SEGS = 4
+_MIX_WINDOWS = 4
 
 # The reference's dispatch threshold for kf_seg_rfft (pallas_causal.py
 # :1527): the segmented spectra of k_time come from the kernel at n >= 8192.
@@ -203,6 +222,94 @@ def kf_spectra_supported(n_fft: int, chunk: int, lanes: int) -> bool:
     return (n_fft % 2 == 0 and chunk >= 1 and n_fft % chunk == 0
             and 2 * chunk <= n_fft and lanes % _LANES == 0
             and _kf_smem(n_fft, chunk) <= SMEM_MAX)
+
+
+# ---------------------------------------------------------------------------
+# The shape choice inside #6's and #8's ranges: the FFT kernels of
+# csrc/causal_fft.cu where their lengths factor and their tiles fit, the
+# direct-DFT kernels of csrc/causal.cu elsewhere
+# ---------------------------------------------------------------------------
+
+def _split_odd(n: int):
+    """(P, O) with n = P * O, O odd <= 31 and P >= 4 a power of two (the
+    lengths causal_fft.cu transforms), else None."""
+    if n < 4:
+        return None
+    o = n
+    while o % 2 == 0:
+        o //= 2
+    p = n // o
+    return (p, o) if o <= _MAX_ODD and p >= 4 else None
+
+
+def _kf_fft_smem(n_fft: int, chunk: int, np_: int, gs: int) -> int:
+    """causal_fft.cu's kf_fft_smem: N/2 and C twiddles, the (N, np) k_time
+    tile, gs segments' (2C, np) tiles."""
+    return (n_fft // 2 + chunk + n_fft * np_ + gs * 2 * chunk * np_) * 8
+
+
+def _tile_groups(d: int, cols: int, ct: int) -> int:
+    """causal_fft.cu's tile_groups: the most gate groups a tile of ct
+    channels touches."""
+    d_g = d // cols
+    return max((c0 + ct - 1) // d_g - c0 // d_g + 1 for c0 in range(0, d, ct))
+
+
+def _mix_fft_smem(nc: int, chunk: int, np_: int, gs: int, ng: int) -> int:
+    """causal_fft.cu's mix_fft_smem: C twiddles, the nc resident segment
+    spectra of 2 np channels, the (2C, gs np) transform tile, two buffers of
+    one chunk's staged K column of ng groups."""
+    return (chunk + nc * chunk * 2 * np_ + 2 * chunk * gs * np_
+            + 2 * nc * chunk * ng) * 8
+
+
+def kf_fft_plan(n_fft: int, chunk: int, lanes: int):
+    """(np, gs) of ``kf_spectra``'s FFT kernel: the widest lane-pair tile
+    whose N-point tile and at least one segment's 2C-point tile fit shared
+    memory, with as many segments a pass (up to 4) as fit; None where the
+    lengths do not factor or nothing fits (the direct kernel runs)."""
+    if (not kf_spectra_supported(n_fft, chunk, lanes)
+            or _split_odd(n_fft) is None or _split_odd(2 * chunk) is None):
+        return None
+    nc = n_fft // chunk
+    for np_ in _FFT_PAIRS:
+        if lanes % (2 * np_):
+            continue
+        for gs in range(min(nc, _KF_SEGS), 0, -1):
+            if _kf_fft_smem(n_fft, chunk, np_, gs) <= SMEM_MAX:
+                return np_, gs
+    return None
+
+
+def mix_fft_plan(nc: int, chunk: int, d: int, cols: int):
+    """(np, gs) of ``fused_causal_mix``'s FFT kernel: the widest
+    channel-pair tile whose nc resident segment spectra, transform tile and
+    staged K columns fit shared memory, with up to 4 windows a forward
+    pass; None where 2C does not factor or nothing fits (the direct kernel
+    runs)."""
+    if (not fused_mix_supported(nc, chunk, d, cols)
+            or _split_odd(2 * chunk) is None):
+        return None
+    for np_ in _FFT_PAIRS:
+        if d % (2 * np_):
+            continue
+        ng = _tile_groups(d, cols, 2 * np_)
+        for gs in range(min(nc, _MIX_WINDOWS), 0, -1):
+            if _mix_fft_smem(nc, chunk, np_, gs, ng) <= SMEM_MAX:
+                return np_, gs
+    return None
+
+
+def kf_spectra_kernel(n_fft: int, chunk: int, lanes: int) -> str:
+    """The kernel ``kf_spectra`` launches for this shape on the card:
+    ``kf_spectra`` (the FFT kernel) where ``kf_fft_plan`` has a plan, else
+    ``kf_spectra_direct``; raises where ``kf_spectra_supported`` fails."""
+    if not kf_spectra_supported(n_fft, chunk, lanes):
+        raise ValueError(f"kf_spectra: unsupported shape n_fft={n_fft} "
+                         f"chunk={chunk} lanes={lanes}")
+    if kf_fft_plan(n_fft, chunk, lanes) is not None:
+        return "kf_spectra"
+    return "kf_spectra_direct"
 
 
 # ---------------------------------------------------------------------------
@@ -351,27 +458,60 @@ def _fused_causal_mix(v, kfr, kfi, chunk: int, cols: int) -> torch.Tensor:
     nc_c*cols), lane l = c*cols + g.
 
     Replaces ``_fused_causal_call`` (pallas_causal.py:592) where
-    ``fused_mix_supported`` holds: two launches, direct-DFT segment spectra
-    into an HBM scratch (they do not fit a block's shared memory), then the
-    banded sum and partial inverse of ``banded_inverse`` on the producer
-    layout, bound by shared-memory instructions in both; v is read twice
-    (once per overlapping segment).  Elsewhere, where
-    ``fused_mix_v3_supported`` holds, ``_fused_causal_call_v3`` (:931),
-    which JAX takes past its v2 kernel's memory: the same two launches with
-    radix-2 FFTs in shared memory (``csrc/causal_long.cu``)."""
+    ``fused_mix_supported`` holds.  Where ``mix_fft_plan`` has a plan (every
+    shape of the tiny LM's paths), one launch of ``csrc/causal_fft.cu``:
+    per (channel tile, batch row) the segment spectra by FFTs in shared
+    memory, kept there, then each output chunk's banded sum and inverse
+    FFT; v read once, no scratch.  Elsewhere in that range
+    ``fused_causal_mix_direct`` (``csrc/causal.cu``): two launches,
+    direct-DFT segment spectra into an HBM scratch, then the banded sum
+    and partial inverse of ``banded_inverse`` on the producer layout.
+    Past that range, where ``fused_mix_v3_supported`` holds,
+    ``_fused_causal_call_v3`` (:931), which JAX takes past its v2 kernel's
+    memory: two launches with radix-2 FFTs in shared memory
+    (``csrc/causal_long.cu``)."""
+    if on_cpu(v, kfr, kfi):
+        return fused_causal_mix_ref(v, kfr, kfi, chunk, cols)
+    name = _mix_kernel("fused_causal_mix", v.shape[1], chunk, v.shape[2],
+                       cols)
+    return _launch_mix(name, v, kfr, kfi, chunk, cols)
+
+
+def fused_causal_mix_direct(v, kfr, kfi, chunk: int, cols: int):
+    """y (B, N, d) as ``fused_causal_mix`` computes it, always through the
+    direct-DFT kernel (``csrc/causal.cu``) on CUDA tensors, wherever
+    ``fused_mix_supported`` holds; the plain version on CPU tensors.  No
+    autograd: it exists to set the two kernels side by side at one
+    shape."""
     if on_cpu(v, kfr, kfi):
         return fused_causal_mix_ref(v, kfr, kfi, chunk, cols)
     b, n, d = v.shape
+    if n % chunk or not fused_mix_supported(n // chunk, chunk, d, cols):
+        raise ValueError(f"fused_causal_mix_direct: unsupported shape n={n} "
+                         f"chunk={chunk} d={d} cols={cols}")
+    return _launch_mix("fused_causal_mix_direct", v, kfr, kfi, chunk, cols)
+
+
+def _launch_mix(name: str, v, kfr, kfi, chunk: int, cols: int, plan=None):
+    """Launch ``name`` (fused_causal_mix, its _direct or its _v3) on CUDA
+    tensors; ``plan``: the FFT kernel's (np, gs), ``mix_fft_plan``'s unless
+    given."""
+    b, n, d = v.shape
     nc = n // chunk
     f2 = chunk + 1
-    name = _mix_kernel("fused_causal_mix", n, chunk, d, cols)
     check("v", v, (b, n, d))
     check("kfr", kfr, (b, nc, f2, nc * cols))
     check("kfi", kfi, (b, nc, f2, nc * cols))
     tw = twiddles(2 * chunk, v.device)
+    out = torch.empty((b, n, d), dtype=torch.float32, device=v.device)
+    if name == "fused_causal_mix":
+        launch(LAUNCHES, name, v.device,
+               v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), tw.data_ptr(),
+               out.data_ptr(), b, nc, chunk, d, cols,
+               *(plan or mix_fft_plan(nc, chunk, d, cols)))
+        return out
     vfr = torch.empty((b, nc, f2, d), dtype=torch.float32, device=v.device)
     vfi = torch.empty_like(vfr)
-    out = torch.empty((b, n, d), dtype=torch.float32, device=v.device)
     launch(LAUNCHES, name, v.device,
            v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), tw.data_ptr(),
            vfr.data_ptr(), vfi.data_ptr(), out.data_ptr(), b, nc, chunk, d,
@@ -381,10 +521,15 @@ def _fused_causal_mix(v, kfr, kfi, chunk: int, cols: int) -> torch.Tensor:
 
 def _mix_kernel(base: str, n: int, chunk: int, d: int, cols: int) -> str:
     """The kernel of ``base`` (fused_causal_mix or its _bwd) that takes
-    this shape on the card: the direct-DFT one, else the FFT one (_v3);
-    raises where neither does."""
+    this shape on the card: #6's (#10's) where ``fused_mix_supported``
+    holds, else the long-chunk one (_v3); raises where neither does.  In
+    #6's range the forward is the FFT kernel where ``mix_fft_plan`` has a
+    plan, else the direct-DFT one (_direct)."""
     nc = n // chunk
     if nc * chunk == n and fused_mix_supported(nc, chunk, d, cols):
+        if (base == "fused_causal_mix"
+                and mix_fft_plan(nc, chunk, d, cols) is None):
+            return base + "_direct"
         return base
     if nc * chunk == n and fused_mix_v3_supported(nc, chunk, d, cols):
         return base + "_v3"
@@ -424,18 +569,39 @@ def _kf_spectra(g_r, g_i, n_fft: int, chunk: int):
 
     g_r/g_i: (B, n_fft//2+1, L) gate spectrum planes.
 
-    Replaces ``_kf_spectra_call`` (pallas_causal.py:1428).  One block per
-    (segment, 32 lanes, batch) evaluates that segment's C taps of the
-    length-N inverse as a direct DFT, then their 2C spectrum; no block
-    depends on another.  The direct inverse costs O(N) per output, so the
-    kernel is bound by shared-memory instructions over 2.2e6 (k, t) pairs per
-    lane at n_fft 2048 and loses to cuFFT; a staged FFT is the cure."""
+    Replaces ``_kf_spectra_call`` (pallas_causal.py:1428).  Where
+    ``kf_fft_plan`` has a plan (the tiny LM's shapes among them), one
+    launch of ``csrc/causal_fft.cu``: per (lane-pair tile, batch row) one
+    N-point inverse FFT of each packed lane pair in shared memory, then
+    the 2C-point forward FFT of each zero-padded segment; the gate is read
+    once and the spectra written once.  Elsewhere ``kf_spectra_direct``
+    (``csrc/causal.cu``): one block per (segment, 32 lanes, batch)
+    evaluates that segment's C taps of the length-N inverse as a direct
+    DFT, then their 2C spectrum, O(N) work an output."""
     if on_cpu(g_r, g_i):
         return kf_spectra_ref(g_r, g_i, n_fft, chunk)
+    return _launch_kf(kf_spectra_kernel(n_fft, chunk, g_r.shape[-1]), g_r,
+                      g_i, n_fft, chunk)
+
+
+def kf_spectra_direct(g_r, g_i, n_fft: int, chunk: int):
+    """(kfr, kfi) as ``kf_spectra`` computes them, always through the
+    direct-DFT kernel (``csrc/causal.cu``) on CUDA tensors, wherever
+    ``kf_spectra_supported`` holds; the plain version on CPU tensors.  No
+    autograd: it exists to set the two kernels side by side at one
+    shape."""
+    if on_cpu(g_r, g_i):
+        return kf_spectra_ref(g_r, g_i, n_fft, chunk)
+    kf_spectra_kernel(n_fft, chunk, g_r.shape[-1])      # raises off range
+    return _launch_kf("kf_spectra_direct", g_r, g_i, n_fft, chunk)
+
+
+def _launch_kf(name: str, g_r, g_i, n_fft: int, chunk: int, plan=None):
+    """Launch ``name`` (kf_spectra or kf_spectra_direct) on CUDA tensors;
+    ``plan``: the FFT kernel's (np, gs), ``kf_fft_plan``'s unless given."""
     b, fh, lanes = g_r.shape
-    if fh != n_fft // 2 + 1 or not kf_spectra_supported(n_fft, chunk, lanes):
-        raise ValueError(f"kf_spectra: unsupported shape n_fft={n_fft} "
-                         f"chunk={chunk} lanes={lanes}")
+    if fh != n_fft // 2 + 1:
+        raise ValueError(f"kf_spectra: {fh} gate rows for n_fft={n_fft}")
     check("g_r", g_r, (b, fh, lanes))
     check("g_i", g_i, (b, fh, lanes))
     nc = n_fft // chunk
@@ -444,7 +610,13 @@ def _kf_spectra(g_r, g_i, n_fft: int, chunk: int):
     kfr = torch.empty((b, nc, chunk + 1, lanes), dtype=torch.float32,
                       device=g_r.device)
     kfi = torch.empty_like(kfr)
-    launch(LAUNCHES, "kf_spectra", g_r.device,
+    if name == "kf_spectra":
+        launch(LAUNCHES, name, g_r.device,
+               g_r.data_ptr(), g_i.data_ptr(), twn.data_ptr(),
+               tw2.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), b, n_fft,
+               chunk, lanes, *(plan or kf_fft_plan(n_fft, chunk, lanes)))
+        return kfr, kfi
+    launch(LAUNCHES, name, g_r.device,
            g_r.data_ptr(), g_i.data_ptr(), twn.data_ptr(), tw2.data_ptr(),
            kfr.data_ptr(), kfi.data_ptr(), b, n_fft, chunk, lanes)
     return kfr, kfi

@@ -8,8 +8,10 @@ code or its speed.
 Supported: __global__/__device__ functions, dim3 launches written as
 ``kernel<<<grid, block, smem, stream>>>(...)``, ``extern __shared__``
 arrays, float2, __brev, __syncthreads, cudaFuncSetAttribute and
-cudaGetLastError (both succeed), and ``#include "x.cuh"`` of the source's
-own directory (inlined).  Warp shuffles and atomics are not.
+cudaGetLastError (both succeed), cuda_pipeline.h's async copies
+(``__pipeline_memcpy_async`` copies at once; commit and wait do nothing),
+and ``#include "x.cuh"`` of the source's own directory (inlined).  Warp
+shuffles and atomics are not.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ SHIM = r"""
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstring>
 #include <thread>
 #include <vector>
 #define __global__
@@ -54,6 +57,14 @@ template <class F> inline cudaError_t cudaFuncSetAttribute(F, int, int) {
   return 0;
 }
 inline cudaError_t cudaGetLastError() { return 0; }
+// cuda_pipeline.h's async copies (cp.async), done at once: the kernel's
+// wait and barrier before the first read then order nothing further
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n,
+                                    size_t = 0) {
+  std::memcpy(dst, src, n);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
 inline thread_local dim3 threadIdx;
 inline dim3 blockIdx, blockDim, gridDim;
 inline std::barrier<>* emu_barrier = nullptr;
@@ -115,7 +126,8 @@ def build(source: pathlib.Path, out_dir: pathlib.Path) -> ctypes.CDLL:
     src = re.sub(r"(\w+(?:<[^<>]*>)?)<<<(.*?)>>>\(",
                  lambda m: f"emu_launch({m.group(1)}, {m.group(2)}, ",
                  src, flags=re.S)
-    (out_dir / "cuda_runtime.h").write_text("#pragma once\n")
+    for header in ("cuda_runtime.h", "cuda_pipeline.h"):
+        (out_dir / header).write_text("#pragma once\n")
     (out_dir / "emu_shim.h").write_text(SHIM)
     cpp = out_dir / (source.stem + ".cpp")
     cpp.write_text(src)

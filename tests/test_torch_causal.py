@@ -13,7 +13,7 @@ import fft_tpu.kernels.pallas_causal as pc
 from fft_tpu_torch.kernels import causal as kc
 from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS
 from fft_tpu_torch.layers.spectre import SpectreMultiHead
-from fft_tpu_torch.models.lm import tiny_lm_config
+from fft_tpu_torch.models.lm import spectre_350m_config, tiny_lm_config
 from tests.golden_utils import rel_err
 
 TOL = 1e-5
@@ -157,3 +157,35 @@ def test_predicates_hold_the_shared_memory_bounds():
     assert kc.kf_spectra_supported(2048, 128, 512)
     assert not kc.kf_spectra_supported(2048, 128, 16)
     assert not kc.kf_spectra_supported(32768, 128, 512)
+
+
+def test_shape_choice_between_the_fft_and_direct_kernels():
+    """Inside #6's and #8's ranges the wrappers pick a kernel by shape:
+    the FFT kernels (causal_fft.cu) at every shape of the tiny LM's paths
+    (n_fft 2048, C 128, nc 1..16, d 512, 32 gate columns), the direct ones
+    (causal.cu) where 2C has an odd factor past 31.  The 350M's long
+    chunks stay on #7 and #11, and #10 keeps its one kernel."""
+    blk = tiny_lm_config().block
+    d, cols = blk.embed_dim, blk.num_heads * blk.num_groups
+    n_fft, chunk = blk.n_fft, blk.causal_chunk
+    assert kc.kf_spectra_kernel(n_fft, chunk, n_fft // chunk * cols) == \
+        "kf_spectra"
+    for nc in range(1, n_fft // chunk + 1):
+        assert kc._mix_kernel("fused_causal_mix", nc * chunk, chunk, d,
+                              cols) == "fused_causal_mix"
+        assert kc._mix_kernel("fused_causal_mix_bwd", nc * chunk, chunk, d,
+                              cols) == "fused_causal_mix_bwd"
+    big = spectre_350m_config(seq=16384).block
+    d, cols = big.embed_dim, big.num_heads * big.num_groups
+    for n in (16384, 8192, 2048):
+        assert kc._mix_kernel("fused_causal_mix", n, 2048, d, cols) == \
+            "fused_causal_mix_v3"
+        assert kc._mix_kernel("fused_causal_mix_bwd", n, 2048, d, cols) == \
+            "fused_causal_mix_bwd_v3"
+    assert kc._mix_kernel("fused_causal_mix", 3 * 129, 129, 512, 32) == \
+        "fused_causal_mix_direct"
+    assert kc._mix_kernel("fused_causal_mix_bwd", 3 * 129, 129, 512, 32) == \
+        "fused_causal_mix_bwd"
+    assert kc.kf_spectra_kernel(4 * 129, 129, 64) == "kf_spectra_direct"
+    with pytest.raises(ValueError):
+        kc.kf_spectra_kernel(32768, 128, 512)

@@ -358,3 +358,101 @@ def test_emulated_decode_with_the_phase_rounded_another_way_fails(
     prefix = prefix.clone()
     _emulated_decode(lib, prefix, gate, v_t, v_buf, *case[-3:])
     assert _rel(prefix, want_prefix) > TOL
+
+
+@pytest.fixture(scope="module")
+def fft_lib(tmp_path_factory):
+    return _emulated(tmp_path_factory, "causal_fft.cu",
+                     ("fft_kf_spectra", "fft_fused_causal_mix"))
+
+
+def _emulated_kf(lib, g_r, g_i, n_fft, chunk, np_, gs):
+    b, _, lanes = g_r.shape
+    kfr = torch.empty(b, n_fft // chunk, chunk + 1, lanes)
+    kfi = torch.empty_like(kfr)
+    assert lib.fft_kf_spectra(
+        _ptr(g_r), _ptr(g_i), _ptr(torch.from_numpy(twiddles_np(n_fft))),
+        _ptr(_tw(chunk)), _ptr(kfr), _ptr(kfi), b, n_fft, chunk, lanes, np_,
+        gs, None) == 0
+    return kfr, kfi
+
+
+# (b, n_fft, chunk, lanes, np, gs): the tiny LM's n_fft 2048 / C 128 (nc
+# 16) on the plan's 4-pair tile, 16 segments a pass and 5 (a partial last
+# pass); nc 3 with odd factors in both lengths (1152 = 128 * 9, 2C = 768 =
+# 256 * 3: 2C does not divide n_fft); C = 384 with n_fft = 512 * 3; 2- and
+# 1-pair tiles
+KF_FFT_CASES = [(1, 2048, 128, 16, 4, 16), (2, 2048, 128, 8, 4, 5),
+                (1, 1152, 384, 8, 4, 2), (1, 1536, 384, 8, 2, 3),
+                (2, 256, 64, 4, 1, 4)]
+
+
+@pytest.mark.parametrize("b,n_fft,chunk,lanes,np_,gs", KF_FFT_CASES)
+def test_emulated_kf_spectra_fft(fft_lib, b, n_fft, chunk, lanes, np_, gs):
+    assert kc.kf_fft_plan(n_fft, chunk, 32 * lanes) is not None
+    g = torch.Generator().manual_seed(n_fft + lanes + gs)
+    g_r, g_i = (_randn(g, b, n_fft // 2 + 1, lanes) for _ in range(2))
+    got = _emulated_kf(fft_lib, g_r, g_i, n_fft, chunk, np_, gs)
+    want = kc.kf_spectra_ref(g_r, g_i, n_fft, chunk)
+    assert _rel(got[0], want[0]) < TOL and _rel(got[1], want[1]) < TOL
+
+
+def _emulated_mix(lib, v, kr, ki, chunk, cols, np_, gs):
+    b, n, d = v.shape
+    y = torch.empty_like(v)
+    assert lib.fft_fused_causal_mix(
+        _ptr(v), _ptr(kr), _ptr(ki), _ptr(_tw(chunk)), _ptr(y), b,
+        n // chunk, chunk, d, cols, np_, gs, None) == 0
+    return y
+
+
+# (b, nc, chunk, d, cols, np, gs): the tiny LM's C 128 at nc 16 (one
+# 16-channel gate group) on the plan's tile, and nc 1 and 3; C = 384 (2C =
+# 256 * 3); gate groups of 4 channels (cols 64 at d 256: a tile touches 2)
+# and of 1 (a channel pair spans 2); 2- and 1-pair tiles, a partial last
+# forward pass
+MIX_FFT_CASES = [(1, 16, 128, 16, 1, 4, 4), (2, 1, 128, 16, 1, 4, 1),
+                 (1, 3, 128, 32, 4, 4, 3), (1, 2, 384, 16, 2, 4, 2),
+                 (1, 2, 128, 256, 64, 4, 2), (1, 3, 128, 16, 16, 2, 2),
+                 (1, 5, 64, 8, 2, 1, 2)]
+
+
+@pytest.mark.parametrize("b,nc,chunk,d,cols,np_,gs", MIX_FFT_CASES)
+def test_emulated_fused_causal_mix_fft(fft_lib, b, nc, chunk, d, cols, np_,
+                                       gs):
+    v, kr, ki, _ = _long_inputs(b, nc, chunk, d, cols)
+    got = _emulated_mix(fft_lib, v, kr, ki, chunk, cols, np_, gs)
+    assert _rel(got, kc.fused_causal_mix_ref(v, kr, ki, chunk, cols)) < TOL
+
+
+def test_emulated_fft_kernels_with_the_untangle_flipped_fail(
+        tmp_path_factory):
+    """A copy of causal_fft.cu whose untangle takes B[k] with the wrong
+    sign of its real part disagrees with the plain versions: the checks
+    above see it."""
+    if cuda_emulation.compiler() is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    src = (kb.CSRC_DIR / "causal_fft.cu").read_text()
+    good = "b = make_float2(0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));"
+    assert src.count(good) == 1
+    out = tmp_path_factory.mktemp("broken_fft")
+    broken = out / "causal_fft.cu"
+    broken.write_text(src.replace(
+        good, "b = make_float2(-0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));"))
+    (out / "causal_common.cuh").write_text(
+        (kb.CSRC_DIR / "causal_common.cuh").read_text())
+    (out / "fft_common.cuh").write_text(
+        (kb.CSRC_DIR / "fft_common.cuh").read_text())
+    lib = cuda_emulation.build(broken, out)
+    for name in ("fft_kf_spectra", "fft_fused_causal_mix"):
+        argtypes, restype = kb._SIGNATURES[name]
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = restype
+    g = torch.Generator().manual_seed(3)
+    g_r, g_i = (_randn(g, 1, 129, 8) for _ in range(2))
+    got = _emulated_kf(lib, g_r, g_i, 256, 64, 4, 4)
+    want = kc.kf_spectra_ref(g_r, g_i, 256, 64)
+    assert _rel(got[0], want[0]) > TOL
+    v, kr, ki, _ = _long_inputs(1, 2, 64, 8, 2)
+    got = _emulated_mix(lib, v, kr, ki, 64, 2, 4, 2)
+    assert _rel(got, kc.fused_causal_mix_ref(v, kr, ki, 64, 2)) > TOL

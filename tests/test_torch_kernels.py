@@ -1,6 +1,7 @@
 """The CUDA kernels of fft_tpu_torch against their plain PyTorch versions,
 on the card, at the tiny LM's, BASELINE config 1's and the 350M's shapes
-(the long-chunk kernels #9, #7 and #11, #5 past chunk 853, the decode
+(#8 and #6 through the FFT kernels of causal_fft.cu and the direct ones of
+causal.cu, the long-chunk kernels #9, #7 and #11, #5 past chunk 853, the decode
 kernel #12 at both LMs' decode shapes, and the non-causal mix past n_fft
 2048: #3 at 2304-8192 and #4 at 16384-65536).  Imports no
 JAX, so it runs on a machine without it:
@@ -41,18 +42,94 @@ def _randn(g, dev, *shape):
     return torch.randn(shape, generator=g).to(dev)
 
 
+def _mix_inputs_at(dev, b, nc, chunk, d, cols, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (_randn(g, dev, b, nc * chunk, d),
+            _randn(g, dev, b, nc, chunk + 1, nc * cols),
+            _randn(g, dev, b, nc, chunk + 1, nc * cols))
+
+
 @pytest.mark.parametrize("nc", [8, 16])
 def test_fused_causal_mix_kernel(dev, nc):
-    g = torch.Generator().manual_seed(nc)
+    """The tiny LM's shapes go to the FFT kernel (causal_fft.cu), never to
+    the direct one."""
     b, chunk, d, cols = 4, 128, 512, 32
-    v = _randn(g, dev, b, nc * chunk, d)
-    kr = _randn(g, dev, b, nc, chunk + 1, nc * cols)
-    ki = _randn(g, dev, b, nc, chunk + 1, nc * cols)
-    before = kc.LAUNCHES["fused_causal_mix"]
+    v, kr, ki = _mix_inputs_at(dev, b, nc, chunk, d, cols, nc)
+    before = dict(kc.LAUNCHES)
     got = kc.fused_causal_mix(v, kr, ki, chunk, cols)
     torch.cuda.synchronize()
-    assert kc.LAUNCHES["fused_causal_mix"] == before + 1
+    assert kc.LAUNCHES["fused_causal_mix"] == before["fused_causal_mix"] + 1
+    assert (kc.LAUNCHES["fused_causal_mix_direct"]
+            == before["fused_causal_mix_direct"])
     assert _rel(got, kc.fused_causal_mix_ref(v, kr, ki, chunk, cols)) < TOL
+
+
+# (b, nc, chunk, d, cols): the tiny LM's prompts of 128 and 384 tokens and
+# its training batch; an odd factor in 2C (C = 384); gate groups narrower
+# than the channel tile (cols 64 at d 256) and of one channel; nc 32, whose
+# spectra take the 2-pair tile
+MIX_FFT_CASES = [(4, 1, 128, 512, 32), (4, 3, 128, 512, 32),
+                 (8, 16, 128, 512, 32), (2, 3, 384, 256, 64),
+                 (2, 4, 128, 256, 256), (2, 32, 128, 512, 32)]
+
+
+@pytest.mark.parametrize("b,nc,chunk,d,cols", MIX_FFT_CASES)
+def test_fused_causal_mix_fft_kernel_shapes(dev, b, nc, chunk, d, cols):
+    assert kc.mix_fft_plan(nc, chunk, d, cols) is not None
+    v, kr, ki = _mix_inputs_at(dev, b, nc, chunk, d, cols, nc * chunk + d)
+    before = dict(kc.LAUNCHES)
+    got = kc.fused_causal_mix(v, kr, ki, chunk, cols)
+    torch.cuda.synchronize()
+    assert kc.LAUNCHES["fused_causal_mix"] == before["fused_causal_mix"] + 1
+    assert (kc.LAUNCHES["fused_causal_mix_direct"]
+            == before["fused_causal_mix_direct"])
+    assert _rel(got, kc.fused_causal_mix_ref(v, kr, ki, chunk, cols)) < TOL
+
+
+@pytest.mark.parametrize("nc", [8, 16])
+def test_direct_kernels_at_the_tiny_lm_shapes(dev, nc):
+    """The direct-DFT kernels (causal.cu), called on their own at the
+    shapes the FFT kernels take on the main path, agree with the plain
+    versions too."""
+    b, chunk, d, cols = 4, 128, 512, 32
+    v, kr, ki = _mix_inputs_at(dev, b, nc, chunk, d, cols, 40 + nc)
+    g = torch.Generator().manual_seed(nc)
+    gr = _randn(g, dev, b, 1025, nc * cols)
+    gi = _randn(g, dev, b, 1025, nc * cols)
+    before = dict(kc.LAUNCHES)
+    y = kc.fused_causal_mix_direct(v, kr, ki, chunk, cols)
+    kf = kc.kf_spectra_direct(gr, gi, 2048, chunk)
+    torch.cuda.synchronize()
+    assert (kc.LAUNCHES["fused_causal_mix_direct"]
+            == before["fused_causal_mix_direct"] + 1)
+    assert kc.LAUNCHES["kf_spectra_direct"] == before["kf_spectra_direct"] + 1
+    assert kc.LAUNCHES["fused_causal_mix"] == before["fused_causal_mix"]
+    assert _rel(y, kc.fused_causal_mix_ref(v, kr, ki, chunk, cols)) < TOL
+    for a, w in zip(kf, kc.kf_spectra_ref(gr, gi, 2048, chunk)):
+        assert _rel(a, w.contiguous()) < TOL
+
+
+def test_direct_kernels_take_what_the_fft_kernels_do_not(dev):
+    """2C = 258 has the odd factor 129: the wrappers' shape choice sends
+    #6 and #8 to the direct kernels there."""
+    b, nc, chunk, d, cols = 2, 3, 129, 512, 32
+    v, kr, ki = _mix_inputs_at(dev, b, nc, chunk, d, cols, 7)
+    g = torch.Generator().manual_seed(7)
+    n_fft, lanes = 4 * chunk, 64
+    gr = _randn(g, dev, b, n_fft // 2 + 1, lanes)
+    gi = _randn(g, dev, b, n_fft // 2 + 1, lanes)
+    before = dict(kc.LAUNCHES)
+    y = kc.fused_causal_mix(v, kr, ki, chunk, cols)
+    kf = kc.kf_spectra(gr, gi, n_fft, chunk)
+    torch.cuda.synchronize()
+    assert (kc.LAUNCHES["fused_causal_mix_direct"]
+            == before["fused_causal_mix_direct"] + 1)
+    assert kc.LAUNCHES["kf_spectra_direct"] == before["kf_spectra_direct"] + 1
+    assert kc.LAUNCHES["fused_causal_mix"] == before["fused_causal_mix"]
+    assert kc.LAUNCHES["kf_spectra"] == before["kf_spectra"]
+    assert _rel(y, kc.fused_causal_mix_ref(v, kr, ki, chunk, cols)) < TOL
+    for a, w in zip(kf, kc.kf_spectra_ref(gr, gi, n_fft, chunk)):
+        assert _rel(a, w.contiguous()) < TOL
 
 
 @pytest.mark.parametrize("chunk", [4, 100])
@@ -80,13 +157,26 @@ def test_banded_inverse_kernel_several_chunks(dev):
     assert _rel(got, kc.banded_inverse_ref(*args, chunk)) < TOL
 
 
-def test_kf_spectra_kernel(dev):
-    g = torch.Generator().manual_seed(0)
-    b, n_fft, chunk, lanes = 4, 2048, 128, 512
+# (b, n_fft, chunk, lanes): the tiny LM's scoring and training batches;
+# odd factors in n_fft (1152 = 128 * 9, 768 = 256 * 3) and in 2C (C = 384),
+# nc = 3 (2C does not divide n_fft); n_fft 8192 on the 2-pair tile and
+# 16384 on the 1-pair tile
+KF_CASES = [(4, 2048, 128, 512), (8, 2048, 128, 512), (2, 1152, 384, 96),
+            (2, 768, 256, 96), (1, 8192, 128, 2048), (1, 16384, 128, 4096)]
+
+
+@pytest.mark.parametrize("b,n_fft,chunk,lanes", KF_CASES)
+def test_kf_spectra_kernel(dev, b, n_fft, chunk, lanes):
+    """The FFT kernel (causal_fft.cu) takes every one of these shapes."""
+    assert kc.kf_spectra_kernel(n_fft, chunk, lanes) == "kf_spectra"
+    g = torch.Generator().manual_seed(n_fft + b)
     gr = _randn(g, dev, b, n_fft // 2 + 1, lanes)
     gi = _randn(g, dev, b, n_fft // 2 + 1, lanes)
+    before = dict(kc.LAUNCHES)
     got = kc.kf_spectra(gr, gi, n_fft, chunk)
     torch.cuda.synchronize()
+    assert kc.LAUNCHES["kf_spectra"] == before["kf_spectra"] + 1
+    assert kc.LAUNCHES["kf_spectra_direct"] == before["kf_spectra_direct"]
     want = kc.kf_spectra_ref(gr, gi, n_fft, chunk)
     for a, w in zip(got, want):
         assert _rel(a, w.contiguous()) < TOL
