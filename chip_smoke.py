@@ -33,7 +33,14 @@ Phases, in order; any failure raises and the exit code is nonzero:
              through the FFT kernel, the direct kernel and, for #6, #7's
              kernel (fused_causal_mix_v3, which takes chunk 128 too), all
              in one call; then the FFT kernels over the tile plans that
-             fit shared memory (kernels_tile_sweep).
+             fit shared memory (kernels_tile_sweep).  #7 and #11
+             (causal_long.cu, three launches each: segment FFTs, the
+             bin-major banded sum in place, one inverse FFT a chunk) at the
+             350M's layer (nc 8, C 2048), its prompts (nc 4; nc 1 at C
+             1024) and nc 4 at C 1024, then over their transform tile plans
+             at the 350M's layer (kernels_long_tile_sweep), and their
+             device time by CUDA kernel at those shapes and #7's at C 128,
+             nc 16 (kernels_launch_split).
 3. score     lm_apply on 4 x 2048 tokens; logits within rel_err 1e-4 of
              the same model and weights on the CPU (where the kernels'
              plain versions run); tokens/s on the card, and 3 calls under
@@ -112,6 +119,8 @@ Phases, in order; any failure raises and the exit code is nonzero:
              under torch.profiler (device time by kernel, idle share), the
              CLI's train-lm --preset 350m on a text file; kf_seg_rfft,
              fused_causal_mix_v3 and fused_causal_mix_bwd_v3 launched.
+             The profiles report causal_long.cu's kernels' device time on
+             its own (matched_ms_per_step).
 
 Prints one JSON line per phase, the card's name and power limit as
 nvidia-smi gives them, a JSON line of per-kernel results, and last
@@ -187,6 +196,10 @@ SERVE_350M_KERNELS = ("kf_seg_rfft", "fused_causal_mix_v3", "banded_inverse",
                       "fused_decode_mix")
 TRAIN_350M_KERNELS = ("kf_seg_rfft", "fused_causal_mix_v3",
                       "fused_causal_mix_bwd_v3")
+# causal_long.cu's CUDA kernels (#9, #7, #11), by name in a profile
+LONG_KERNEL_NAMES = ("segment_fft_kernel", "window_fft_kernel",
+                     "banded_bins_kernel", "bwd_bins_kernel",
+                     "chunk_inverse_kernel")
 # the card's peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s, fp32
 # FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -368,6 +381,8 @@ def phase_kernels(kc, sm, kd, dev):
 
     staged_sweep(sm, randn)
     tile_sweep(kc, randn)
+    long_tile_sweep(kc, randn)
+    long_launch_split(kc, randn)
     results = {}
     for name, shape, kern, plain, lib, work, main in cases:
         got, want = kern(), plain()
@@ -432,10 +447,76 @@ def tile_sweep(kc, randn) -> None:
     emit(phase="kernels_tile_sweep", rows=rows)
 
 
+def long_tile_sweep(kc, randn) -> None:
+    """#7's and #11's kernels (causal_long.cu) at the 350M's layer (B=1,
+    nc=8, C=2048, d=1024, 64 gate columns) over the transform tile plans:
+    channel pairs a block (np) and threads a block; median ms over CUDA
+    events of each, ``kc.LONG_PLAN`` marked.  Each plan's output is held to
+    the plain version first."""
+    b, nc, chunk, d, cols = 1, 8, 2048, 1024, 64
+    v, ybar = randn(b, nc * chunk, d), randn(b, nc * chunk, d)
+    kr, ki = (randn(b, nc, chunk + 1, nc * cols) for _ in range(2))
+    want_fwd = kc.fused_causal_mix_ref(v, kr, ki, chunk, cols)
+    want_bwd = kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk, cols)
+    rows = []
+    for plan in ((4, 512), (4, 256), (2, 512), (2, 256), (1, 512),
+                 (1, 256)):
+        for name, kern, want in (
+                ("fused_causal_mix_v3",
+                 lambda plan=plan: kc._launch_mix(
+                     "fused_causal_mix_v3", v, kr, ki, chunk, cols, plan),
+                 want_fwd),
+                ("fused_causal_mix_bwd_v3",
+                 lambda plan=plan: kc._launch_bwd(
+                     "fused_causal_mix_bwd_v3", v, kr, ki, ybar, chunk, cols,
+                     plan),
+                 want_bwd)):
+            err = rel_err(kern(), want)
+            if not err <= REL_KERNEL:
+                raise AssertionError(f"{name} plan {plan}: rel_err {err}")
+            rows.append(dict(kernel=name, plan=list(plan), rel_err=err,
+                             ms=median_ms(kern),
+                             chosen=plan == tuple(kc.LONG_PLAN)))
+    emit(phase="kernels_long_tile_sweep", rows=rows)
+
+
+def long_launch_split(kc, randn) -> None:
+    """#7's and #11's device time by CUDA kernel (torch.profiler over 10
+    calls) at the 350M's layer (B=1, nc=8, C=2048, d=1024, 64 gate
+    columns), its 8192- and 1024-token prompts (nc=4; nc=1 at C=1024), and
+    #7's kernel at the tiny LM's nc=16, C=128 (d=512, 32 columns): which of
+    their launches takes the time."""
+    from fft_tpu_torch import bench
+
+    rows = []
+    for b, nc, c, d, cols in ((1, 8, 2048, 1024, 64), (1, 4, 2048, 1024, 64),
+                              (1, 1, 1024, 1024, 64), (4, 16, 128, 512, 32)):
+        v, ybar = randn(b, nc * c, d), randn(b, nc * c, d)
+        kr, ki = (randn(b, nc, c + 1, nc * cols) for _ in range(2))
+        runs = [("fused_causal_mix_v3",
+                 lambda v=v, kr=kr, ki=ki, c=c, cols=cols: kc._launch_mix(
+                     "fused_causal_mix_v3", v, kr, ki, c, cols))]
+        if not kc.fused_mix_supported(nc, c, d, cols):
+            runs.append(("fused_causal_mix_bwd_v3",
+                         lambda v=v, kr=kr, ki=ki, yb=ybar, c=c, cols=cols:
+                         kc.fused_causal_mix_bwd(v, kr, ki, yb, c, cols)))
+        for name, fn in runs:
+            fn()
+            torch.cuda.synchronize()
+            prof = bench._profile(fn, torch.cuda.synchronize, 10)
+            rows.append(dict(kernel=name,
+                             shape=f"B={b} nc={nc} C={c} d={d} cols={cols}",
+                             ms=median_ms(fn),
+                             device_ms=prof["device_busy_ms_per_step"],
+                             by_launch=prof["top_kernels_ms_per_step"]))
+    emit(phase="kernels_launch_split", rows=rows)
+
+
 def long_cases(kc, randn):
     """The 350M's long-context kernels: one layer at seq 16384 (d=1024, 16
     heads x 4 groups = 64 gate columns, chunk 2048, nc=8), the 8192- and
-    1024-token prompts' mixes, and #5 at the 8-lane tile's chunks."""
+    1024-token prompts' mixes (nc=4; nc=1 at C=1024), nc=4 at C=1024, and
+    #5 at the 8-lane tile's chunks."""
     cases = []
     b, chunk, d, cols = 1, 2048, 1024, 64
     n, lanes = 16384, 8 * 64
@@ -448,7 +529,7 @@ def long_cases(kc, randn):
                                2 * chunk, dim=2),
         (4 * b * n * lanes + 4 * 2 * b * (n // chunk) * (chunk + 1) * lanes,
          b * lanes * (n // chunk) * fft_ops(2 * chunk)), True))
-    for nc, c in ((8, chunk), (4, chunk), (1, 1024)):
+    for nc, c in ((8, chunk), (4, chunk), (4, 1024), (1, 1024)):
         v, ybar = randn(b, nc * c, d), randn(b, nc * c, d)
         kr, ki = (randn(b, nc, c + 1, nc * cols) for _ in range(2))
         vb, kb, mac, seg = causal_work(b, nc, c, d, cols)
@@ -1239,9 +1320,10 @@ def phase_350m(dev, kd, reset_launches, launches):
                                      rounds=3)
     profiles = {
         "score": bench._profile(lambda: lm_apply(model, x),
-                                torch.cuda.synchronize, 1),
+                                torch.cuda.synchronize, 1, LONG_KERNEL_NAMES),
         "prefill_1024": bench._profile(lambda: lm_prefill(model, x[:, :1024]),
-                                       torch.cuda.synchronize, 1)}
+                                       torch.cuda.synchronize, 1,
+                                       LONG_KERNEL_NAMES)}
     steps = 16
     finite = []
 
@@ -1313,7 +1395,7 @@ def phase_350m(dev, kd, reset_launches, launches):
         raise AssertionError(f"350m train: non-finite loss {losses}")
     ms = statistics.median(step_ms[1:])
     prof = bench._profile(lambda: train_step(state, batches[0]),
-                          torch.cuda.synchronize, 1)
+                          torch.cuda.synchronize, 1, LONG_KERNEL_NAMES)
     emit(phase="350m_train", batch=1, seq=seq, step_ms=step_ms,
          median_step_ms=ms, tokens_per_s=seq / (ms / 1e3), loss=losses,
          peak_memory_bytes=peak, profile=prof)

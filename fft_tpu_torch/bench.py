@@ -61,9 +61,10 @@ def _card(device: torch.device) -> dict:
             "name_power_limit": smi.stdout.strip()}
 
 
-def _profile(step, sync, steps: int) -> dict:
+def _profile(step, sync, steps: int, match=()) -> dict:
     """Kernel time by name and the device's idle share over ``steps``
-    steps, from torch.profiler's CUDA events."""
+    steps, from torch.profiler's CUDA events; ``match``: substrings of
+    kernel names whose summed time a step is reported on its own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -89,7 +90,10 @@ def _profile(step, sync, steps: int) -> dict:
             "idle_share": 1.0 - busy_ms / wall_ms,
             "kernels_per_step": len(spans) / steps,
             "top_kernels_ms_per_step": [[name[:90], us / 1e3 / steps]
-                                        for name, us in top]}
+                                        for name, us in top],
+            "matched_ms_per_step": {
+                m: sum(us for name, us in by_name.items() if m in name)
+                / 1e3 / steps for m in match}}
 
 
 def run(steps: int = 10, batch: int = B, seq: int = L, device=None,

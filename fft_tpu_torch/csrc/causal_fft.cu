@@ -74,21 +74,6 @@ constexpr int kKfThreads = 256;
 constexpr int kMixThreads = 512;
 constexpr int kMaxOdd = 31;
 
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
-}
-
-__device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(a.x - b.x, a.y - b.y);
-}
-
-// W = (cos, sign sin)(2 pi m / M) from tw[idx] = (cos, sin)
-__device__ __forceinline__ float2 signed_tw(const float2* tw, int idx,
-                                            float sign) {
-  const float2 t = tw[idx];
-  return make_float2(t.x, sign * t.y);
-}
-
 // Row of time t of a length-(P O) transform: t = t1 + O t2 at row
 // t1 + O bitrev(t2) (the input order of the forward, the output order of
 // the inverse).
@@ -101,115 +86,6 @@ __device__ __forceinline__ int time_row(int t, int o, int log2p) {
 __device__ __forceinline__ int freq_row(int k, int o, int log2p) {
   if (o == 1) return k;
   return o * (k & ((1 << log2p) - 1)) + (k >> log2p);
-}
-
-// The work items i = tid, tid + nt, ... of a block, split as
-// i = r * seqs + q without a division in the loop.
-struct Walk {
-  int q, r, dq, dr;
-  __device__ explicit Walk(int seqs)
-      : q((int)threadIdx.x % seqs), r((int)threadIdx.x / seqs),
-        dq((int)blockDim.x % seqs), dr((int)blockDim.x / seqs) {}
-  __device__ void next(int seqs) {
-    q += dq;
-    r += dr;
-    if (q >= seqs) {
-      q -= seqs;
-      ++r;
-    }
-  }
-};
-
-// One radix-2 stage of span h = 2^s over P-point sequences.  tw[m *
-// tw_step] = (cos, sin)(2 pi m / P).  Ends with __syncthreads.
-template <bool kDit>
-__device__ void radix2_pass(float2* buf, int log2p, int s, int seqs,
-                            const float2* tw, int tw_step, float sign) {
-  const int h = 1 << s;
-  const int rows = 1 << (log2p - 1);
-  const int tmul = (1 << (log2p - 1 - s)) * tw_step;   // P / 2h
-  for (Walk it(seqs); it.r < rows; it.next(seqs)) {
-    const int pos = it.r & (h - 1);
-    const int i0 = ((it.r - pos) << 1) + pos;
-    float2* a = buf + (size_t)i0 * seqs + it.q;
-    float2* b = a + (size_t)h * seqs;
-    const float2 w = signed_tw(tw, pos * tmul, sign);
-    const float2 av = *a, bv = *b;
-    if (kDit) {
-      const float2 bw = cmul(bv, w);
-      *a = cadd(av, bw);
-      *b = csub(av, bw);
-    } else {
-      *a = cadd(av, bv);
-      *b = cmul(csub(av, bv), w);
-    }
-  }
-  __syncthreads();
-}
-
-// Radix-2 stages s and s + 1 (spans h = 2^s and 2h) in one pass: four
-// elements i0 + {0, h, 2h, 3h} a butterfly, in registers.  Decimation in
-// time runs span h then 2h; in frequency, 2h then h.  Ends with
-// __syncthreads.
-template <bool kDit>
-__device__ void radix4_pass(float2* buf, int log2p, int s, int seqs,
-                            const float2* tw, int tw_step, float sign) {
-  const int h = 1 << s;
-  const int rows = 1 << (log2p - 2);
-  const int tmul2 = (1 << (log2p - 2 - s)) * tw_step;  // P / 4h
-  for (Walk it(seqs); it.r < rows; it.next(seqs)) {
-    const int pos = it.r & (h - 1);
-    const int i0 = ((it.r - pos) << 2) + pos;
-    float2* x = buf + (size_t)i0 * seqs + it.q;
-    const size_t hs = (size_t)h * seqs;
-    const float2 w1 = signed_tw(tw, 2 * pos * tmul2, sign);  // W_2h^pos
-    const float2 w2 = signed_tw(tw, pos * tmul2, sign);      // W_4h^pos
-    // W_4h^(pos + h) = W_4h^pos * W_4 = W_4h^pos * (sign i)
-    const float2 w3 = make_float2(-sign * w2.y, sign * w2.x);
-    const float2 x0 = x[0], x1 = x[hs], x2 = x[2 * hs], x3 = x[3 * hs];
-    if (kDit) {
-      const float2 b1 = cmul(x1, w1), b3 = cmul(x3, w1);
-      const float2 a0 = cadd(x0, b1), a1 = csub(x0, b1);
-      const float2 a2 = cadd(x2, b3), a3 = csub(x2, b3);
-      const float2 c2 = cmul(a2, w2), c3 = cmul(a3, w3);
-      x[0] = cadd(a0, c2);
-      x[2 * hs] = csub(a0, c2);
-      x[hs] = cadd(a1, c3);
-      x[3 * hs] = csub(a1, c3);
-    } else {
-      const float2 a0 = cadd(x0, x2), a2 = cmul(csub(x0, x2), w2);
-      const float2 a1 = cadd(x1, x3), a3 = cmul(csub(x1, x3), w3);
-      x[0] = cadd(a0, a1);
-      x[hs] = cmul(csub(a0, a1), w1);
-      x[2 * hs] = cadd(a2, a3);
-      x[3 * hs] = cmul(csub(a2, a3), w1);
-    }
-  }
-  __syncthreads();
-}
-
-// In-place P-point transforms (P = 2^log2p) of `seqs` interleaved
-// sequences.  kDit: bit-reversed input, natural output; else natural input,
-// bit-reversed output.  sign -1: forward, +1: inverse, unnormalized.
-// first: decimation-in-time stages below it are skipped (done on the load).
-template <bool kDit>
-__device__ void fft_passes(float2* buf, int log2p, int seqs,
-                           const float2* tw, int tw_step, float sign,
-                           int first) {
-  if (kDit) {
-    int s = first;
-    if ((log2p - s) & 1) {
-      radix2_pass<true>(buf, log2p, s, seqs, tw, tw_step, sign);
-      ++s;
-    }
-    for (; s < log2p; s += 2)
-      radix4_pass<true>(buf, log2p, s, seqs, tw, tw_step, sign);
-  } else {
-    int s = log2p;          // stages left: spans 2^(s-1) .. 1
-    for (; s >= 2; s -= 2)
-      radix4_pass<false>(buf, log2p, s - 2, seqs, tw, tw_step, sign);
-    if (s == 1) radix2_pass<false>(buf, log2p, 0, seqs, tw, tw_step, sign);
-  }
 }
 
 // In place, for every column (k2, q) of a length n = P * O transform: the

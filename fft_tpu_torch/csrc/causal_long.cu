@@ -7,59 +7,84 @@
 //   fused_causal_mix_v3     <- _fused_causal_call_v3      (:931, pallas_call :1020)
 //   fused_causal_mix_bwd_v3 <- _fused_causal_bwd_call_v3  (:2307, pallas_call :2413)
 //
-// #7 and #11 compute what #6 and #10 compute (causal.cu, causal_bwd.cu);
-// what differs is the chunk.  Every kernel of the causal mix runs 2C-point
-// real transforms per segment and channel.  The direct DFTs of causal.cu
-// cost O(C) an output, 16x the tiny LM's work per element at C = 2048, and
-// their 32-channel spectra no longer fit a block's shared memory past
-// C = 853.  Here each transform is a radix-2 FFT in shared memory
-// (fft_common.cuh, as spectral_mix.cu): a block holds kPairs complex
-// sequences of 2C points, two real channels packed into each, so 8
-// channels x 4096 points are 128 KB beside 16 KB of twiddles.
+// #7 and #11 compute what #6 and #10 compute (causal_fft.cu, causal_bwd.cu);
+// what differs is the chunk.  At C = 2048 one channel's nc segment spectra
+// are nc * 16 KB, so no block holds a channel tile's spectra (#6's design)
+// and the work splits by what each step needs at once: a segment transform
+// needs the 2C points of one window and channel, the banded sum over lags
+// needs the nc segments of one bin and channel (and, for Kbar, every
+// channel of a gate group).  The (B, nc, C+1, d) spectra go through HBM
+// between the two, each plane read once and written once a launch.
 //
 // Launches (all on the caller's stream, blocks independent, no atomics, no
 // warp shuffles, so every sum runs in a fixed order and results repeat bit
-// for bit):
-//   segment_fft_kernel   rfft_2C of each segment window of 8 lanes:
-//                        [k_s ; 0] (#9), [v_{s-1} | v_s] (#7, #11), and
-//                        [0 | ybar_s] scaled by the partial-irFFT weights
-//                        (the adjoint of #7's last step, #11)
-//   banded_fft_kernel    #7: acc_c = sum_{dl <= c} K[dl][:, c*cols + g] V_{c-dl}
-//                        per (chunk, 8 channels) in registers, then rows
-//                        C..2C-1 of irfft_2C(acc) by one inverse FFT
-//   kbar_long_kernel     #11: Kbar[dl][f][c*cols+g] = sum over the group's
-//                        channels of A_c conj(V_{c-dl}), exactly 0 for c < dl
-//   vbar_long_kernel     #11: Vbar_j = sum_{c >= j} conj(K[c-j]) A_c
-//   segment_adjoint_kernel  #11: the adjoint segment rFFT and the overlap-add
-//                        of segments s and s+1 as one inverse FFT
+// for bit; tests/cuda_emulation.py runs each on the CPU):
+//   segment_fft_kernel   #9: rfft_2C([k_s ; 0]) of 8 lanes, radix-2 stages
+//   window_fft_kernel    #7, #11: rfft_2C([v_{s-1} | v_s]) and (#11, the
+//                        same launch) rfft_2C([0 | ybar_s]) scaled by the
+//                        partial-irFFT weights, the adjoint of #7's last
+//                        step; NP channel pairs a block packed as a + i b
+//   banded_bins_kernel   #7: acc_c[f, ch] = sum_{dl <= c} K[dl][f][c*cols +
+//                        g] V_{c-dl}[f, ch], bin-major, written over V
+//   bwd_bins_kernel      #11: Kbar[dl][f][c*cols + g] = sum over the
+//                        group's channels of A_c conj(V_{c-dl}), exactly 0
+//                        for dl > c; then Vbar_j = sum_{c >= j} conj(K[c-j])
+//                        A_c, written over V
+//   chunk_inverse_kernel #7: rows C..2C-1 of irfft_2C(acc_c); #11: the
+//                        adjoint segment rFFT and the overlap-add of
+//                        segments s and s+1 as one inverse FFT
 //
-// What bounds them on the H100: the FFT launches by shared-memory traffic
-// (12 radix-2 passes over the tile at 2C = 4096) and one block of 144 KB
-// an SM; the banded sums by reading the (B, nc, C+1, d) segment spectra
-// once per lag from L2/HBM (nc (nc+1) / 2 segment reads, 604 MB at the 350M
-// shape).  Fusing the banded sum's reads across chunks is later work.
+// What bounds them on the H100, at the 350M's shape (B=1, nc=8, d=1024,
+// 64 gate columns): #7's three launches must move ~0.7 GB through HBM (v
+// read, the 134 MB of V planes written, read and written again, read, y
+// written; K's lower triangle read once), #11's ~1.2 GB, ~0.2 and ~0.35
+// ms at 3.35 TB/s.  The bin-major sums give every thread one (bin,
+// channel): a warp reads 32 neighbouring channels of one bin, so V, A and
+// Vbar move as 128-byte rows, each V_s is loaded once per 8 outputs (at nc
+// <= 8 once, all 8 loads in flight together), the 8 sums stay in registers,
+// and K's pairs for the block's groups are staged in shared memory by
+// async copies, then read as broadcasts; what is left in their way is the
+// latency of short blocks (PERF.md, Findings PR 8).  The transforms take
+// 4096 points in four passes over shared memory (span1_pass, two 16-element
+// register passes, a radix-4 pass), with a twiddle table for each stage so
+// that a stage's neighbouring positions read neighbouring words; a window
+// arrives by async copies in bit-reversed row order, so the tile is
+// written in natural order (a row of x is its own 32-byte sector anyway),
+// and the inverse is stored by walking the tile in row order.  At 2C =
+// 4096 the 4-pair tile (160 KB) gives a block an SM, so its load, passes
+// and store take turns: a block loops over the segments (one twiddle
+// table, no tail wave), and those turns, not HBM, bound the transforms.
+
+#include <cuda_pipeline.h>
 
 #include "causal_common.cuh"
 #include "fft_common.cuh"
 
 namespace {
 
+// #9's block: 8 lanes (4 complex sequences), 256 threads
 constexpr int kLongThreads = 256;
-constexpr int kPairs = 4;                 // complex sequences per block
-constexpr int kTileCh = 2 * kPairs;       // channels (or lanes) per block
+constexpr int kPairs = 4;
+constexpr int kTileCh = 2 * kPairs;
+// the window FFTs and inverses: at most this many threads a block
+constexpr int kFftThreads = 512;
+// dynamic shared memory a Hopper block may use
+constexpr size_t kSmemMax = 232448;
+// the bin-major sums: a warp a bin row, 8 rows a block
+constexpr int kRowThreads = 32;
+constexpr int kBinRows = 8;
+constexpr int kBinThreads = kRowThreads * kBinRows;
+constexpr int kBatch = 4;     // bins a thread of an inverse loads at once
+constexpr int kMaxGroups = 8; // gate groups a bin-major block holds
+constexpr int kTileC = 8;     // outputs a thread sums at once (#7, Vbar)
+constexpr int kPairT = 4;     // Kbar: a 4 x 4 tile of (c, s) pairs a round
+// a row of Kbar partials in shared memory, padded: the group sums read
+// one partial of 16 rows at once, which then sit in distinct banks
+constexpr int kPartRow = kRowThreads + 1;
 
-// What the 2C-row window of segment s holds (row r of x is x[b, r, :]).
-constexpr int kKernelSeg = 0;    // rows sC .. sC+C-1, then C zeros
-constexpr int kValueSeg = 1;     // rows (s-1)C .. (s+1)C-1, zeros before 0
-constexpr int kAdjointSeg = 2;   // C zeros, then rows sC .. sC+C-1
-
-// Spectra of the 2C-row windows of x (B, N, w) into planes (B, nc, C+1, w).
-// grid = (w / 8, nc, B).  Shared memory: C twiddles and the (2C, kPairs)
-// complex tile, lanes (2p, 2p+1) packed as a + i b.  kAdjointSeg scales bin
-// f by coef_f / 2C (1 at DC and Nyquist, 2 elsewhere) and zeroes the
-// imaginary parts there: the adjoint of the partial irFFT rows C..2C-1
-// (pallas_causal.py:2342-2348).
-template <int kMode>
+// K planes (B, nc, C+1, L) = rfft_2C([k_s ; 0]) for lanes l0..l0+7 of kt
+// (B, N, L).  grid = (L / 8, nc, B).  Shared memory: C twiddles and the
+// (2C, kPairs) complex tile, lanes (2p, 2p+1) packed as a + i b.
 __global__ void __launch_bounds__(kLongThreads)
 segment_fft_kernel(const float* __restrict__ x,
                    const float2* __restrict__ tw_g, float* __restrict__ outr,
@@ -79,22 +104,13 @@ segment_fft_kernel(const float* __restrict__ x,
   for (int i = tid; i < chunk; i += nt) tw[i] = tw_g[i];
   for (int i = tid; i < n2 * kPairs; i += nt) {
     const int p = i % kPairs, t = i / kPairs;
-    long row;
-    bool valid;
-    if (kMode == kKernelSeg) {
-      row = (long)s * chunk + t;
-      valid = t < chunk;
-    } else {
-      row = (long)(s - 1) * chunk + t;
-      valid = kMode == kValueSeg ? row >= 0 : t >= chunk;
-    }
+    const long row = (long)s * chunk + t;
     z[bitrev(t, log2n) * kPairs + p] =
-        valid ? x2[(size_t)row * row2 + p] : make_float2(0.f, 0.f);
+        t < chunk ? x2[(size_t)row * row2 + p] : make_float2(0.f, 0.f);
   }
   __syncthreads();
   fft_stages<true>(z, n2, log2n, kPairs, kPairs, 1, tw, -1.f);
 
-  const float inv_n2 = 1.f / (float)n2;
   float2* or2 = reinterpret_cast<float2*>(outr);
   float2* oi2 = reinterpret_cast<float2*>(outi);
   for (int i = tid; i < f2 * kPairs; i += nt) {
@@ -103,235 +119,716 @@ segment_fft_kernel(const float* __restrict__ x,
     const float2 zk = z[k * kPairs + p], zm = z[km * kPairs + p];
     // untangle: lane a = (Z[k] + conj Z[-k]) / 2, lane b = (Z[k] - conj
     // Z[-k]) / 2i; the imaginary parts at DC and Nyquist come out 0
-    float ar = 0.5f * (zk.x + zm.x), ai = 0.5f * (zk.y - zm.y);
-    float br = 0.5f * (zk.y + zm.y), bi = -0.5f * (zk.x - zm.x);
-    if (kMode == kAdjointSeg) {
-      const bool edge = (k == 0) || (k == chunk);
-      const float sc = edge ? inv_n2 : 2.f * inv_n2;
-      ar *= sc;
-      br *= sc;
-      ai = edge ? 0.f : ai * sc;
-      bi = edge ? 0.f : bi * sc;
-    }
     const size_t o = (((size_t)b * nc + s) * f2 + k) * row2 + l0 / 2 + p;
-    or2[o] = make_float2(ar, br);
-    oi2[o] = make_float2(ai, bi);
+    or2[o] = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y + zm.y));
+    oi2[o] = make_float2(0.5f * (zk.y - zm.y), -0.5f * (zk.x - zm.x));
   }
 }
 
-// y (B, N, d): chunk c's rows of irfft_2C(acc_c)[C:], acc_c[f, ch] =
-// sum_{dl <= c} K[dl][f][c*cols + g(ch)] V_{c-dl}[f, ch], K in the producer
-// layout, V planes (B, nc, C+1, d).  grid = (d / 8, nc, B).  The lag loop
-// runs in registers per (bin, channel pair), in the order of the plain
-// version (dl = 0, 1, ..); the summed spectrum is packed for one inverse
-// FFT (imaginary parts at DC and Nyquist dropped, as irfft does).
-__global__ void __launch_bounds__(kLongThreads)
-banded_fft_kernel(const float* __restrict__ vfr,
-                  const float* __restrict__ vfi, ProducerK k,
-                  const float2* __restrict__ tw_g, float* __restrict__ y,
-                  int nc, int chunk, int log2n, int d) {
-  extern __shared__ float2 smem2[];
-  const int n2 = 2 * chunk, f2 = chunk + 1, d_g = d / k.cols;
-  const int c0 = blockIdx.x * kTileCh, c = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  float2* tw = smem2;
-  float2* z = tw + chunk;
-  const size_t row2 = (size_t)d / 2;
-  const float2* vr2 = reinterpret_cast<const float2*>(vfr);
-  const float2* vi2 = reinterpret_cast<const float2*>(vfi);
-
-  for (int i = tid; i < chunk; i += nt) tw[i] = tw_g[i];
-  for (int i = tid; i < f2 * kPairs; i += nt) {
-    const int p = i % kPairs, f = i / kPairs;
-    const int ga = (c0 + 2 * p) / d_g, gb = (c0 + 2 * p + 1) / d_g;
-    float2 xa = make_float2(0.f, 0.f), xb = make_float2(0.f, 0.f);
-    for (int dl = 0; dl <= c; ++dl) {
-      const size_t vo =
-          (((size_t)b * nc + (c - dl)) * f2 + f) * row2 + c0 / 2 + p;
-      const float2 vr = vr2[vo], vi = vi2[vo];
-      const size_t ka = k.at(b, c, dl, f, ga), kb = k.at(b, c, dl, f, gb);
-      xa = cmac(make_float2(k.re[ka], k.im[ka]), make_float2(vr.x, vi.x),
-                xa);
-      xb = cmac(make_float2(k.re[kb], k.im[kb]), make_float2(vr.y, vi.y),
-                xb);
+// The radix-4 pass of spans 1 and 2 (stages 0 and 1) over `seqs`
+// interleaved sequences, as fft_common.cuh's radix4_pass computes it at s
+// = 0 (twiddles 1, 1 and sign i): decimation in time runs span 1 then 2,
+// in frequency 2 then 1.  There the m-th access of every thread hits
+// element m of its 4-row butterfly, 4 seqs float2 apart, so a warp's
+// accesses share banks; here the thread of butterfly r takes element (m +
+// r) mod 4 at its m-th access, which spreads them.  Ends with
+// __syncthreads.
+template <bool kDit>
+__device__ void span1_pass(float2* buf, int log2n, int seqs, float sign) {
+  const int rows = 1 << (log2n - 2);
+  for (Walk it(seqs); it.r < rows; it.next(seqs)) {
+    float2* x = buf + (size_t)(it.r << 2) * seqs + it.q;
+    const int rot = it.r & 3;
+    float2 e0, e1, e2, e3;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int k = (m + rot) & 3;
+      const float2 t = x[k * seqs];
+      if (k == 0) e0 = t;
+      else if (k == 1) e1 = t;
+      else if (k == 2) e2 = t;
+      else e3 = t;
     }
-    if (f == 0 || f == chunk) {
-      xa.y = 0.f;
-      xb.y = 0.f;
+    float2 o0, o1, o2, o3;
+    if (kDit) {
+      const float2 a0 = cadd(e0, e1), a1 = csub(e0, e1);
+      const float2 a2 = cadd(e2, e3), a3 = csub(e2, e3);
+      const float2 c3 = make_float2(-sign * a3.y, sign * a3.x);
+      o0 = cadd(a0, a2);
+      o2 = csub(a0, a2);
+      o1 = cadd(a1, c3);
+      o3 = csub(a1, c3);
+    } else {
+      const float2 a0 = cadd(e0, e2), a2 = csub(e0, e2);
+      const float2 a1 = cadd(e1, e3), d3 = csub(e1, e3);
+      const float2 a3 = make_float2(-sign * d3.y, sign * d3.x);
+      o0 = cadd(a0, a1);
+      o1 = csub(a0, a1);
+      o2 = cadd(a2, a3);
+      o3 = csub(a2, a3);
     }
-    pack_pair(z + p, f, n2, kPairs, xa, xb);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int k = (m + rot) & 3;
+      x[k * seqs] = k == 0 ? o0 : k == 1 ? o1 : k == 2 ? o2 : o3;
+    }
   }
   __syncthreads();
-  fft_stages<false>(z, n2, log2n, kPairs, kPairs, 1, tw, 1.f);
+}
 
-  const float scale = 1.f / (float)n2;
-  float2* y2 = reinterpret_cast<float2*>(y);
-  for (int i = tid; i < chunk * kPairs; i += nt) {
-    const int p = i % kPairs, t = i / kPairs;
-    const float2 o = z[bitrev(chunk + t, log2n) * kPairs + p];
-    y2[(((size_t)b * nc + c) * chunk + t) * row2 + c0 / 2 + p] =
-        make_float2(o.x * scale, o.y * scale);
+// Async copies of the twiddles of an n-point transform (n = 2^log2n), a
+// table for each radix-2 stage: span H (1, 2, .., n/2) at tws[H - 1 + p] =
+// (cos, sin)(2 pi p / 2H), p < H, from tw_g[m] = (cos, sin)(2 pi m / n), m
+// < n/2, which is the last stage's table.  Threads at neighbouring
+// positions of one stage then read neighbouring words (in tw_g the stride
+// of a stage's positions is n / 2H words, which puts them in one bank).
+// Only reg_pass reads the tables before the last, so they are gathered
+// only for it (all).  Not committed: the caller's commit takes them.
+__device__ void stage_twiddles(float2* tws, const float2* tw_g, int log2n,
+                               bool all) {
+  const int n = 1 << log2n;
+  const int first = all ? 0 : n / 2 - 1;
+  for (int i = first + threadIdx.x; i < n - 1; i += blockDim.x) {
+    const int span = 1 << (31 - __clz(i + 1));  // H with H - 1 <= i < 2H - 1
+    const int p = i - (span - 1);
+    __pipeline_memcpy_async(tws + i, tw_g + (size_t)p * (n / (2 * span)),
+                            sizeof(float2));
   }
 }
 
-// Kbar planes (B, nc_dl, C+1, nc*cols) from A = (rr, ri) and V = (vfr,
-// vfi), all (B, nc, C+1, d).  One thread per (b, f, lane l = c*cols + g)
-// writes Kbar[dl][f][l] for every dl: the group's channels summed in order
-// for dl <= c, exactly 0 for dl > c (no primal term; the TPU kernel leaves
-// those blocks unwritten and masks them afterwards, pallas_causal.py
-// :2478-2489).
-__global__ void __launch_bounds__(kLongThreads)
-kbar_long_kernel(const float* __restrict__ rr, const float* __restrict__ ri,
-                 const float* __restrict__ vfr,
-                 const float* __restrict__ vfi, float* __restrict__ kbr,
-                 float* __restrict__ kbi, int batch, int nc, int chunk, int d,
-                 int cols) {
-  const int f2 = chunk + 1, d_g = d / cols;
-  const size_t lanes = (size_t)nc * cols;
-  const size_t total = (size_t)batch * f2 * lanes;
-  for (size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x; o < total;
-       o += (size_t)gridDim.x * blockDim.x) {
-    const int l = (int)(o % lanes);
-    const size_t rest = o / lanes;
-    const int f = (int)(rest % f2), b = (int)(rest / f2);
-    const int c = l / cols, g = l % cols;
-    const size_t ao = (((size_t)b * nc + c) * f2 + f) * d + (size_t)g * d_g;
-    for (int dl = 0; dl < nc; ++dl) {
-      float pr = 0.f, pi = 0.f;
-      if (dl <= c) {
-        const size_t vo = ao - (size_t)dl * f2 * d;   // segment c - dl
-        for (int e = 0; e < d_g; ++e) {
-          const float ar = rr[ao + e], ai = ri[ao + e];
-          const float xr = vfr[vo + e], xi = vfi[vo + e];
-          pr = fmaf(ar, xr, fmaf(ai, xi, pr));        // Re(A conj(V))
-          pi = fmaf(ai, xr, fmaf(-ar, xi, pi));       // Im(A conj(V))
+// Radix-2 stages s .. s + K - 1 of n-point transforms (n = 2^log2n) over
+// `seqs` interleaved sequences in one pass: each thread holds the 2^K
+// elements i0 + m 2^s of a butterfly group in registers.  Decimation in
+// time runs the spans up (natural output from bit-reversed input), in
+// frequency down; the twiddles come from stage_twiddles' table, sign -1
+// forward, +1 inverse.  Ends with __syncthreads.
+template <bool kDit, int K>
+__device__ void reg_pass(float2* buf, int log2n, int s, int seqs,
+                         const float2* tws, float sign) {
+  constexpr int R = 1 << K;
+  const int h = 1 << s;
+  const size_t hs = (size_t)h * seqs;
+  for (Walk it(seqs); it.r < (1 << (log2n - K)); it.next(seqs)) {
+    const int pos = it.r & (h - 1);
+    float2* x = buf + (size_t)(((it.r - pos) << K) + pos) * seqs + it.q;
+    float2 e[R];
+#pragma unroll
+    for (int m = 0; m < R; ++m) e[m] = x[m * hs];
+#pragma unroll
+    for (int tt = 0; tt < K; ++tt) {
+      const int t = kDit ? tt : K - 1 - tt;     // span h 2^t
+      const int span = h << t;
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        if (m & (1 << t)) continue;
+        const float2 tw = tws[span - 1 + pos + (m & ((1 << t) - 1)) * h];
+        const float2 w = make_float2(tw.x, sign * tw.y);
+        const float2 a = e[m], b = e[m + (1 << t)];
+        if (kDit) {
+          const float2 bw = cmul(b, w);
+          e[m] = cadd(a, bw);
+          e[m + (1 << t)] = csub(a, bw);
+        } else {
+          e[m] = cadd(a, b);
+          e[m + (1 << t)] = cmul(csub(a, b), w);
         }
       }
-      const size_t ko = (((size_t)b * nc + dl) * f2 + f) * lanes + l;
-      kbr[ko] = pr;
-      kbi[ko] = pi;
     }
+#pragma unroll
+    for (int m = 0; m < R; ++m) x[m * hs] = e[m];
+  }
+  __syncthreads();
+}
+
+// n-point transforms of `seqs` interleaved sequences in place (n = 2^log2n
+// >= 4): stages 0 and 1 by span1_pass, then (kWide) 4 a pass by reg_pass,
+// sixteen elements a thread, the rest by fft_common.cuh's radix-4 and
+// radix-2 passes (their twiddle table is the last stage's, tws + n/2 - 1),
+// so 2C = 4096 takes 4 passes over shared memory.  kDit: bit-reversed
+// input, natural output, sign -1; else natural input, bit-reversed output,
+// sign +1 (unnormalized).
+template <bool kDit, bool kWide>
+__device__ void long_fft(float2* buf, int log2n, int seqs,
+                         const float2* tws) {
+  const float sign = kDit ? -1.f : 1.f;
+  const float2* tw = tws + (1 << (log2n - 1)) - 1;
+  if (kDit) {
+    span1_pass<true>(buf, log2n, seqs, sign);
+    int s = 2;
+    for (; kWide && log2n - s >= 4; s += 4)
+      reg_pass<true, 4>(buf, log2n, s, seqs, tws, sign);
+    fft_passes<true>(buf, log2n, seqs, tw, 1, sign, s);
+  } else {
+    int top = log2n;                            // stages top-1 .. 2 left
+    for (; kWide && top - 2 >= 4; top -= 4)
+      reg_pass<false, 4>(buf, log2n, top - 4, seqs, tws, sign);
+    for (; top - 2 >= 2; top -= 2)
+      radix4_pass<false>(buf, log2n, top - 2, seqs, tw, 1, sign);
+    if (top == 3) radix2_pass<false>(buf, log2n, 2, seqs, tw, 1, sign);
+    span1_pass<false>(buf, log2n, seqs, sign);
   }
 }
 
-// Vbar planes (B, nc, C+1, d): Vbar_j = sum_{c >= j} conj(K[c-j]) A_c, K
-// in the producer layout, in the plain version's order (c = j, j+1, ..).
-// One thread per output element.
-__global__ void __launch_bounds__(kLongThreads)
-vbar_long_kernel(const float* __restrict__ rr, const float* __restrict__ ri,
-                 ProducerK k, float* __restrict__ vbr,
-                 float* __restrict__ vbi, int batch, int nc, int chunk,
-                 int d) {
-  const int f2 = chunk + 1, d_g = d / k.cols;
-  const size_t total = (size_t)batch * nc * f2 * d;
-  for (size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x; o < total;
-       o += (size_t)gridDim.x * blockDim.x) {
-    const int ch = (int)(o % d);
-    size_t rest = o / d;
-    const int f = (int)(rest % f2);
-    rest /= f2;
-    const int j = (int)(rest % nc), b = (int)(rest / nc);
-    const int g = ch / d_g;
-    float sr = 0.f, si = 0.f;
-    for (int c = j; c < nc; ++c) {
-      const size_t ao = (((size_t)b * nc + c) * f2 + f) * d + ch;
-      const size_t ko = k.at(b, c, c - j, f, g);
-      const float ar = rr[ao], ai = ri[ao];
-      const float gr = k.re[ko], gi = k.im[ko];
-      sr = fmaf(gr, ar, fmaf(gi, ai, sr));            // Re(conj(K) A)
-      si = fmaf(gr, ai, fmaf(-gi, ar, si));           // Im(conj(K) A)
-    }
-    vbr[o] = sr;
-    vbi[o] = si;
+// Async copies of window s of x2 (rows (s-1)C .. (s+1)C-1; with adj, C
+// zeros then rows sC .. sC+C-1) into tile z, row u holding time bitrev(u)
+// (the decimation in time's input order); zeros are stored.  Not
+// committed.
+template <int NP>
+__device__ void load_window(float2* z, const float2* x2, int s, bool adj,
+                            int chunk, int log2n, size_t row2) {
+  for (int i = threadIdx.x; i < 2 * chunk * NP; i += blockDim.x) {
+    const int p = i % NP, t = bitrev(i / NP, log2n);
+    const long row = (long)(s - 1) * chunk + t;
+    if (adj ? t >= chunk : row >= 0)
+      __pipeline_memcpy_async(z + i, x2 + (size_t)row * row2 + p,
+                              sizeof(float2));
+    else
+      z[i] = make_float2(0.f, 0.f);
   }
 }
 
-// vbar (B, N, d) from Vbar planes (B, nc, C+1, d): chunk s, row t is
+// Spectra of the 2C-row windows into planes (B, nc, C+1, d), channels c0
+// .. c0 + 2 NP - 1.  grid = (d / 2NP, nc / spb, B) for V alone, (.., 2B)
+// for V and A: block z < B transforms [v_{s-1} | v_s] (v_{-1} = 0) into (vfr,
+// vfi); z >= B transforms [0 | ybar_s] into (afr, afi), bin f scaled by
+// coef_f / 2C (1 at DC and Nyquist, 2 elsewhere) with the imaginary parts
+// there zeroed: the adjoint of the partial irFFT rows C..2C-1
+// (pallas_causal.py:2342-2348).  A block takes one channel tile and
+// windows blockIdx.y * spb .. + spb - 1 in turn.  Shared memory: the
+// 2C-entry stage twiddle table and the (2C, NP) complex tile.
+template <int NP, bool kWide>
+__global__ void __launch_bounds__(kFftThreads)
+window_fft_kernel(const float* __restrict__ v, const float* __restrict__ ybar,
+                  const float2* __restrict__ tw_g, float* __restrict__ vfr,
+                  float* __restrict__ vfi, float* __restrict__ afr,
+                  float* __restrict__ afi, int batch, int nc, int chunk,
+                  int log2n, int d, int spb) {
+  extern __shared__ float2 smem2[];
+  const int n2 = 2 * chunk, f2 = chunk + 1;
+  const bool adj = (int)blockIdx.z >= batch;
+  const int b = adj ? (int)blockIdx.z - batch : (int)blockIdx.z;
+  const int c0 = blockIdx.x * 2 * NP;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  float2* tws = smem2;                          // stage_twiddles' table
+  float2* z = tws + n2;                         // z[u * NP + p]
+  const size_t row2 = (size_t)d / 2;            // float2 per row
+  const float2* x2 = reinterpret_cast<const float2*>(adj ? ybar : v) +
+                     (size_t)b * nc * chunk * row2 + c0 / 2;
+  const int s0 = blockIdx.y * spb;
+  const int s1 = nc - s0 < spb ? nc : s0 + spb;
+
+  stage_twiddles(tws, tw_g, log2n, kWide);
+  const float inv_n2 = 1.f / (float)n2;
+  float2* or2 = reinterpret_cast<float2*>(adj ? afr : vfr);
+  float2* oi2 = reinterpret_cast<float2*>(adj ? afi : vfi);
+  for (int s = s0; s < s1; ++s) {
+    load_window<NP>(z, x2, s, adj, chunk, log2n, row2);
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    long_fft<true, kWide>(z, log2n, NP, tws);
+    for (int i = tid; i < f2 * NP; i += nt) {
+      const int p = i % NP, k = i / NP;
+      const int km = (n2 - k) & (n2 - 1);
+      const float2 zk = z[k * NP + p], zm = z[km * NP + p];
+      // untangle as segment_fft_kernel
+      float ar = 0.5f * (zk.x + zm.x), ai = 0.5f * (zk.y - zm.y);
+      float br = 0.5f * (zk.y + zm.y), bi = -0.5f * (zk.x - zm.x);
+      if (adj) {
+        const bool edge = (k == 0) || (k == chunk);
+        const float sc = edge ? inv_n2 : 2.f * inv_n2;
+        ar *= sc;
+        br *= sc;
+        ai = edge ? 0.f : ai * sc;
+        bi = edge ? 0.f : bi * sc;
+      }
+      const size_t o = (((size_t)b * nc + s) * f2 + k) * row2 + c0 / 2 + p;
+      or2[o] = make_float2(ar, br);
+      oi2[o] = make_float2(ai, bi);
+    }
+    __syncthreads();                            // z is free again
+  }
+}
+
+// kAdjoint false (#7): y (B, N, d), chunk c's rows = rows C..2C-1 of
+// irfft_2C(acc_c), acc planes (B, nc, C+1, d), the imaginary parts at DC
+// and Nyquist dropped (irfft does).
+// kAdjoint true (#11): vbar (B, N, d) from Vbar planes: chunk s, row t is
 // segbar_s[C + t] + segbar_{s+1}[t], segbar_s[t] = sum_{f <= C}
 // Re(Vbar_s[f] e^{+i 2 pi f t / 2C}), the adjoint of the segment rFFT.
 // segbar_s = IFFT(H_s) with H_s the Hermitian spectrum Re Vbar at DC and
 // Nyquist, Vbar / 2 between; a shift by C is (-1)^f, so the two terms are
-// one inverse FFT of (-1)^f H_s + H_{s+1}, rows 0..C-1.  grid = (d / 8, nc,
-// B).
-__global__ void __launch_bounds__(kLongThreads)
-segment_adjoint_kernel(const float* __restrict__ vbr,
-                       const float* __restrict__ vbi,
-                       const float2* __restrict__ tw_g,
-                       float* __restrict__ out, int nc, int chunk,
-                       int log2n, int d) {
+// one inverse FFT of (-1)^f H_s + H_{s+1}, rows 0..C-1.
+// grid = (d / 2NP, nc / spb, B): a block takes one channel tile and spb
+// chunks in turn.  The decimation in frequency leaves time t in tile row
+// bitrev(t): the store walks the rows in order.
+template <bool kAdjoint, int NP, bool kWide>
+__global__ void __launch_bounds__(kFftThreads)
+chunk_inverse_kernel(const float* __restrict__ xr,
+                     const float* __restrict__ xi,
+                     const float2* __restrict__ tw_g, float* __restrict__ out,
+                     int nc, int chunk, int log2n, int d, int spb) {
   extern __shared__ float2 smem2[];
   const int n2 = 2 * chunk, f2 = chunk + 1;
-  const int c0 = blockIdx.x * kTileCh, s = blockIdx.y, b = blockIdx.z;
+  const int c0 = blockIdx.x * 2 * NP, b = blockIdx.z;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const bool has_next = s + 1 < nc;
-  float2* tw = smem2;
-  float2* z = tw + chunk;
+  float2* tws = smem2;                          // stage_twiddles' table
+  float2* z = tws + n2;
   const size_t row2 = (size_t)d / 2;
-  const float2* vr2 = reinterpret_cast<const float2*>(vbr);
-  const float2* vi2 = reinterpret_cast<const float2*>(vbi);
+  const float2* xr2 = reinterpret_cast<const float2*>(xr);
+  const float2* xi2 = reinterpret_cast<const float2*>(xi);
 
-  for (int i = tid; i < chunk; i += nt) tw[i] = tw_g[i];
-  for (int i = tid; i < f2 * kPairs; i += nt) {
-    const int p = i % kPairs, f = i / kPairs;
-    const bool edge = (f == 0) || (f == chunk);
-    const float wgt = edge ? 1.f : 0.5f;
-    const float sw = (f & 1) ? -wgt : wgt;          // (-1)^f weight
-    const size_t o = (((size_t)b * nc + s) * f2 + f) * row2 + c0 / 2 + p;
-    const float2 vr = vr2[o], vi = vi2[o];          // .x lane a, .y lane b
-    float2 ga = make_float2(sw * vr.x, edge ? 0.f : sw * vi.x);
-    float2 gb = make_float2(sw * vr.y, edge ? 0.f : sw * vi.y);
-    if (has_next) {
-      const size_t on = o + (size_t)f2 * row2;
-      const float2 nr = vr2[on], ni = vi2[on];
-      ga.x += wgt * nr.x;
-      gb.x += wgt * nr.y;
-      if (!edge) {
-        ga.y += wgt * ni.x;
-        gb.y += wgt * ni.y;
+  stage_twiddles(tws, tw_g, log2n, kWide);
+  __pipeline_commit();
+  const size_t seg = (size_t)f2 * row2;         // one segment's plane
+  const float scale = kAdjoint ? 1.f : 1.f / (float)n2;
+  const int t0 = kAdjoint ? 0 : chunk;          // the rows kept
+  const int s0 = blockIdx.y * spb;
+  const int s1 = nc - s0 < spb ? nc : s0 + spb;
+  for (int s = s0; s < s1; ++s) {
+    // kBatch bins a thread in flight: their loads first, then the packing
+    const bool next = kAdjoint && s + 1 < nc;
+    const size_t x0 = ((size_t)b * nc + s) * seg + c0 / 2;
+    for (int i0 = tid; i0 < f2 * NP; i0 += kBatch * nt) {
+      float2 re[kBatch], im[kBatch], nr[kBatch], ni[kBatch];
+#pragma unroll
+      for (int r = 0; r < kBatch; ++r) {
+        const int i = i0 + r * nt;
+        if (i >= f2 * NP) continue;
+        const size_t o = x0 + (size_t)(i / NP) * row2 + i % NP;
+        re[r] = xr2[o];                          // .x lane a, .y lane b
+        im[r] = xi2[o];
+        if (next) {
+          nr[r] = xr2[o + seg];
+          ni[r] = xi2[o + seg];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kBatch; ++r) {
+        const int i = i0 + r * nt;
+        if (i >= f2 * NP) continue;
+        const int p = i % NP, f = i / NP;
+        const bool edge = (f == 0) || (f == chunk);
+        float2 ga, gb;
+        if (kAdjoint) {
+          const float wgt = edge ? 1.f : 0.5f;
+          const float sw = (f & 1) ? -wgt : wgt;   // (-1)^f weight
+          ga = make_float2(sw * re[r].x, edge ? 0.f : sw * im[r].x);
+          gb = make_float2(sw * re[r].y, edge ? 0.f : sw * im[r].y);
+          if (next) {
+            ga.x += wgt * nr[r].x;
+            gb.x += wgt * nr[r].y;
+            if (!edge) {
+              ga.y += wgt * ni[r].x;
+              gb.y += wgt * ni[r].y;
+            }
+          }
+        } else {
+          ga = make_float2(re[r].x, edge ? 0.f : im[r].x);
+          gb = make_float2(re[r].y, edge ? 0.f : im[r].y);
+        }
+        pack_pair(z + p, f, n2, NP, ga, gb);
       }
     }
-    pack_pair(z + p, f, n2, kPairs, ga, gb);
-  }
-  __syncthreads();
-  fft_stages<false>(z, n2, log2n, kPairs, kPairs, 1, tw, 1.f);
-
-  float2* o2 = reinterpret_cast<float2*>(out);
-  for (int i = tid; i < chunk * kPairs; i += nt) {
-    const int p = i % kPairs, t = i / kPairs;
-    o2[(((size_t)b * nc + s) * chunk + t) * row2 + c0 / 2 + p] =
-        z[bitrev(t, log2n) * kPairs + p];
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    long_fft<false, kWide>(z, log2n, NP, tws);
+    float2* o2 = reinterpret_cast<float2*>(out) +
+                 ((size_t)b * nc + s) * chunk * row2 + c0 / 2;
+    for (int i = tid; i < n2 * NP; i += nt) {
+      const int p = i % NP, t = bitrev(i / NP, log2n) - t0;
+      if (t < 0 || t >= chunk) continue;
+      const float2 r = z[i];
+      o2[(size_t)t * row2 + p] = make_float2(r.x * scale, r.y * scale);
+    }
+    __syncthreads();                            // z is free again
   }
 }
 
-// Dynamic shared memory of the FFT kernels, in bytes: C twiddles and the
-// (2C, kPairs) complex tile.  kernels/causal.py holds the same formula.
-size_t long_smem(int chunk) {
+// The channels a block of the bin-major kernels takes: whole gate groups,
+// at most kMaxGroups of them.  Groups of d_g <= 32 channels go m =
+// min(32 / d_g, 8, cols) to a block, one channel a thread of the bin row
+// (threads past the block's width idle); a wider group takes a block of
+// its own in slices of 32 channels, thread tx taking channel tx of each.
+// grid = (bin_blocks_x(d, cols), ceil((C+1) / 8), B), thread (row, tx) at
+// bin blockIdx.y * 8 + row.
+struct BinTile {
+  int d_g, gfirst, ngroups, ch0, width, slices;
+  __device__ BinTile(int d, int cols) {
+    d_g = d / cols;
+    if (d_g <= kRowThreads) {
+      int m = kRowThreads / d_g < kMaxGroups ? kRowThreads / d_g : kMaxGroups;
+      m = m < cols ? m : cols;
+      gfirst = blockIdx.x * m;
+      ngroups = cols - gfirst < m ? cols - gfirst : m;
+    } else {
+      gfirst = blockIdx.x;
+      ngroups = 1;
+    }
+    ch0 = gfirst * d_g;
+    width = ngroups * d_g;
+    slices = (width + kRowThreads - 1) / kRowThreads;
+  }
+};
+
+int bin_blocks_x(int d, int cols) {
+  const int d_g = d / cols;
+  if (d_g > kRowThreads) return cols;
+  int m = kRowThreads / d_g < kMaxGroups ? kRowThreads / d_g : kMaxGroups;
+  m = m < cols ? m : cols;
+  return (cols + m - 1) / m;
+}
+
+// Async copies of K[c - s][f][c*cols + g] for the 8 x 8 (c, s) pairs c =
+// c0 + jc, s = s0 + js with s <= c < nc, the block's bin rows f0..f0+7
+// and groups gfirst..gfirst+ng-1, into ks[((jc * 8 + js) * 8 + row) * ng +
+// gl] (re, im), then one commit.  Neighbouring copies take neighbouring
+// groups, contiguous in the producer layout.
+__device__ void stage_k_pairs(float2* ks, ProducerK k, int b, int f0,
+                              int f2, int nc, int c0, int s0, int gfirst,
+                              int ng) {
+  float* dst = reinterpret_cast<float*>(ks);
+  const int nct = nc - c0 < kTileC ? nc - c0 : kTileC;   // c, s < nc
+  const int nst = nc - s0 < kTileC ? nc - s0 : kTileC;
+  const int total = nct * nst * kBinRows * ng;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int gl = i % ng;
+    int rest = i / ng;
+    const int row = rest % kBinRows;
+    rest /= kBinRows;
+    const int js = rest % nst, jc = rest / nst;
+    const int c = c0 + jc, s = s0 + js, f = f0 + row;
+    if (s > c || f >= f2) continue;
+    const size_t ko = k.at(b, c, c - s, f, gfirst + gl);
+    const int slot = ((jc * kTileC + js) * kBinRows + row) * ng + gl;
+    __pipeline_memcpy_async(dst + 2 * slot, k.re + ko, sizeof(float));
+    __pipeline_memcpy_async(dst + 2 * slot + 1, k.im + ko, sizeof(float));
+  }
+  __pipeline_commit();
+}
+
+// #7's banded sum, over the V planes (vr, vi) (B, nc, C+1, d) in place:
+// acc_c[f, ch] = sum_{dl <= c} K[dl][f][c*cols + g(ch)] V_{c-dl}[f, ch], K
+// in the producer layout.  A thread owns (bin, channel) and sums 8
+// outputs c0..c0+7 at once in registers, in the plain version's order (dl
+// = 0, 1, ..: s = c - dl falling), over segment blocks s0 = c0, c0 - 8, ..:
+// per block the 8 V_s are loaded together and the K pairs staged in
+// shared memory by async copies.  Output tiles run from the last down,
+// since tile c0 overwrites V_c0..V_c0+7, which only outputs >= c0 read.
+// Shared memory: the staged pairs (kBinSmem).
+__global__ void __launch_bounds__(kBinThreads, 4)
+banded_bins_kernel(float* vr, float* vi, ProducerK k, int nc, int chunk,
+                   int d) {
+  extern __shared__ float2 ks[];
+  const BinTile tile(d, k.cols);
+  const int f2 = chunk + 1, f0 = blockIdx.y * kBinRows;
+  const int tx = threadIdx.x % kRowThreads, row = threadIdx.x / kRowThreads;
+  const int f = f0 + row, b = blockIdx.z, ng = tile.ngroups;
+  const size_t plane = (size_t)f2 * d;          // one segment's plane
+  for (int sl = 0; sl < tile.slices; ++sl) {
+    const int e = tx + sl * kRowThreads;
+    const bool mine = f < f2 && e < tile.width;
+    const int ch = tile.ch0 + e;
+    const int gl = mine ? ch / tile.d_g - tile.gfirst : 0;
+    const size_t o = mine ? (size_t)b * nc * plane + (size_t)f * d + ch : 0;
+    for (int c0 = (nc - 1) / kTileC * kTileC; c0 >= 0; c0 -= kTileC) {
+      float2 acc[kTileC];
+#pragma unroll
+      for (int j = 0; j < kTileC; ++j) acc[j] = make_float2(0.f, 0.f);
+      for (int s0 = c0; s0 >= 0; s0 -= kTileC) {
+        stage_k_pairs(ks, k, b, f0, f2, nc, c0, s0, tile.gfirst, ng);
+        float2 x[kTileC];
+#pragma unroll
+        for (int j = 0; j < kTileC; ++j) {
+          const size_t so = o + (size_t)(s0 + j) * plane;
+          x[j] = mine && s0 + j < nc ? make_float2(vr[so], vi[so])
+                                     : make_float2(0.f, 0.f);
+        }
+        __pipeline_wait_prior(0);
+        __syncthreads();                        // ks has landed
+        if (mine) {
+#pragma unroll
+          for (int js = kTileC - 1; js >= 0; --js)
+#pragma unroll
+            for (int jc = 0; jc < kTileC; ++jc)
+              if (s0 + js <= c0 + jc && c0 + jc < nc)
+                acc[jc] = cmac(
+                    ks[((jc * kTileC + js) * kBinRows + row) * ng + gl],
+                    x[js], acc[jc]);
+        }
+        __syncthreads();                        // ks is staged anew
+      }
+#pragma unroll
+      for (int j = 0; j < kTileC; ++j) {
+        if (mine && c0 + j < nc) {
+          vr[o + (size_t)(c0 + j) * plane] = acc[j].x;
+          vi[o + (size_t)(c0 + j) * plane] = acc[j].y;
+        }
+      }
+    }
+  }
+}
+
+// #11's sums from A = (ar, ai) and V = (vr, vi), planes (B, nc, C+1, d):
+// Kbar planes (B, nc_dl, C+1, nc*cols) in K's producer layout, then Vbar
+// written over V.  Kbar[dl][f][c*cols + g] = sum_{e in g} A_c[f, e]
+// conj(V_{c-dl}[f, e]) for dl <= c, exactly 0 for dl > c (no primal term;
+// the TPU kernel leaves those blocks unwritten and masks them afterwards,
+// pallas_causal.py:2478-2489): per 4 x 4 tile of (c, s = c - dl) pairs
+// each thread sums its channels' products (channel order), the tile goes
+// to shared memory, and one thread per (pair, bin, group) sums its group's
+// partials in thread order.  Vbar_j[f, ch] = sum_{c >= j} conj(K[c-j][f][c
+// * cols + g]) A_c[f, ch] in the plain version's order (c = j, j+1, ..), 8
+// outputs a thread at once over blocks of 8 c, the K pairs staged as in
+// banded_bins_kernel; it overwrites V once every Kbar tile has read it
+// (the block holds whole groups, so no other block reads these channels).
+// Shared memory (kBinSmem): the (16, 8, 33) complex tile of partials, then
+// the staged pairs.
+__global__ void __launch_bounds__(kBinThreads, 4)
+bwd_bins_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
+                float* vr, float* vi, ProducerK k, float* __restrict__ kbr,
+                float* __restrict__ kbi, int nc, int chunk, int d) {
+  extern __shared__ float2 ks[];      // Kbar: ks[(pair * 8 + row) * 33 + tx]
+  const BinTile tile(d, k.cols);
+  const int f2 = chunk + 1, f0 = blockIdx.y * kBinRows;
+  const int tx = threadIdx.x % kRowThreads, row = threadIdx.x / kRowThreads;
+  const int f = f0 + row, b = blockIdx.z, ng = tile.ngroups;
+  const size_t plane = (size_t)f2 * d;
+  const size_t base = (size_t)b * nc * plane + (size_t)f * d + tile.ch0;
+  // the partials one group sums: its d_g threads, or all 32 of a row
+  const int span = tile.d_g < kRowThreads ? tile.d_g : kRowThreads;
+  constexpr int kPairs2 = kPairT * kPairT;
+  const int tiles = (nc + kPairT - 1) / kPairT;
+
+  for (int ct = 0; ct < tiles; ++ct) {
+    for (int st = 0; st <= ct; ++st) {
+      float2 acc[kPairT][kPairT];
+#pragma unroll
+      for (int i = 0; i < kPairT; ++i)
+#pragma unroll
+        for (int j = 0; j < kPairT; ++j) acc[i][j] = make_float2(0.f, 0.f);
+      for (int e = tx; f < f2 && e < tile.width; e += kRowThreads) {
+        float2 a[kPairT], x[kPairT];
+#pragma unroll
+        for (int j = 0; j < kPairT; ++j) {
+          const int c = ct * kPairT + j, s = st * kPairT + j;
+          const size_t co = base + e + (size_t)c * plane;
+          const size_t so = base + e + (size_t)s * plane;
+          a[j] = c < nc ? make_float2(ar[co], ai[co]) : make_float2(0.f, 0.f);
+          x[j] = s < nc ? make_float2(vr[so], vi[so]) : make_float2(0.f, 0.f);
+        }
+#pragma unroll
+        for (int i = 0; i < kPairT; ++i)
+#pragma unroll
+          for (int j = 0; j < kPairT; ++j) {         // A_c conj(V_s)
+            acc[i][j].x = fmaf(a[i].x, x[j].x, fmaf(a[i].y, x[j].y,
+                                                     acc[i][j].x));
+            acc[i][j].y = fmaf(a[i].y, x[j].x, fmaf(-a[i].x, x[j].y,
+                                                     acc[i][j].y));
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < kPairT; ++i)
+#pragma unroll
+        for (int j = 0; j < kPairT; ++j)
+          ks[((i * kPairT + j) * kBinRows + row) * kPartRow + tx] = acc[i][j];
+      __syncthreads();
+      const int nout = kPairs2 * kBinRows * ng;
+      for (int o = threadIdx.x; o < nout; o += kBinThreads) {
+        const int gl = o % ng, rest = o / ng;
+        const int rr = rest % kBinRows, pr = rest / kBinRows;
+        const int c = ct * kPairT + pr / kPairT, s = st * kPairT + pr % kPairT;
+        if (c >= nc || s > c || f0 + rr >= f2) continue;
+        const float2* src = ks + (pr * kBinRows + rr) * kPartRow + gl * span;
+        float sr = 0.f, si = 0.f;
+        for (int e = 0; e < span; ++e) {
+          sr += src[e].x;
+          si += src[e].y;
+        }
+        const size_t ko = k.at(b, c, c - s, f0 + rr, tile.gfirst + gl);
+        kbr[ko] = sr;
+        kbi[ko] = si;
+      }
+      __syncthreads();          // ks is rewritten, V may be overwritten
+    }
+  }
+  const int nz = nc * nc * kBinRows * ng;
+  for (int o = threadIdx.x; o < nz; o += kBinThreads) {
+    const int gl = o % ng;
+    int rest = o / ng;
+    const int rr = rest % kBinRows;
+    rest /= kBinRows;
+    const int c = rest % nc, dl = rest / nc;
+    if (c >= dl || f0 + rr >= f2) continue;
+    const size_t ko = k.at(b, c, dl, f0 + rr, tile.gfirst + gl);
+    kbr[ko] = 0.f;
+    kbi[ko] = 0.f;
+  }
+
+  for (int sl = 0; sl < tile.slices; ++sl) {
+    const int e = tx + sl * kRowThreads;
+    const bool mine = f < f2 && e < tile.width;
+    const int gl = mine ? (tile.ch0 + e) / tile.d_g - tile.gfirst : 0;
+    const size_t o = mine ? base + e : 0;
+    for (int j0 = 0; j0 < nc; j0 += kTileC) {
+      float2 acc[kTileC];
+#pragma unroll
+      for (int j = 0; j < kTileC; ++j) acc[j] = make_float2(0.f, 0.f);
+      for (int c0 = j0; c0 < nc; c0 += kTileC) {
+        stage_k_pairs(ks, k, b, f0, f2, nc, c0, j0, tile.gfirst, ng);
+        float2 a[kTileC];
+#pragma unroll
+        for (int j = 0; j < kTileC; ++j) {
+          const size_t co = o + (size_t)(c0 + j) * plane;
+          a[j] = mine && c0 + j < nc ? make_float2(ar[co], ai[co])
+                                     : make_float2(0.f, 0.f);
+        }
+        __pipeline_wait_prior(0);
+        __syncthreads();                        // ks has landed
+        if (mine) {
+#pragma unroll
+          for (int jc = 0; jc < kTileC; ++jc)
+#pragma unroll
+            for (int jj = 0; jj < kTileC; ++jj)
+              if (j0 + jj <= c0 + jc && c0 + jc < nc) {   // conj(K) A
+                const float2 g =
+                    ks[((jc * kTileC + jj) * kBinRows + row) * ng + gl];
+                acc[jj].x = fmaf(g.x, a[jc].x, fmaf(g.y, a[jc].y,
+                                                    acc[jj].x));
+                acc[jj].y = fmaf(g.x, a[jc].y, fmaf(-g.y, a[jc].x,
+                                                    acc[jj].y));
+              }
+        }
+        __syncthreads();                        // ks is staged anew
+      }
+#pragma unroll
+      for (int j = 0; j < kTileC; ++j) {
+        if (mine && j0 + j < nc) {
+          vr[o + (size_t)(j0 + j) * plane] = acc[j].x;
+          vi[o + (size_t)(j0 + j) * plane] = acc[j].y;
+        }
+      }
+    }
+  }
+}
+
+// Dynamic shared memory, in bytes, of #9's block (C twiddles and the (2C,
+// kPairs) complex tile; kernels/causal.py::_long_smem) and of #7's and
+// #11's transforms (the 2C-entry stage twiddle table and the (2C, NP)
+// tile).
+size_t seg_smem(int chunk) {
   return ((size_t)chunk + (size_t)2 * chunk * kPairs) * sizeof(float2);
 }
 
-template <class F>
-cudaError_t set_smem(F kernel, int chunk) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)long_smem(chunk));
+size_t fft_tile_smem(int chunk, int np) {
+  return (size_t)2 * chunk * (1 + np) * sizeof(float2);
 }
 
-template <int kMode>
-int launch_segment_fft(const float* x, const float* tw, float* outr,
-                       float* outi, int b, int nc, int chunk, int w,
-                       cudaStream_t st) {
-  cudaError_t err = set_smem(segment_fft_kernel<kMode>, chunk);
+// The bin-major kernels' shared memory: the staged K pairs of up to
+// kMaxGroups groups (32 KB), or (bwd_bins_kernel) the 4 x 4 tile of Kbar
+// partials (33 KB).
+constexpr size_t kPairSmem =
+    (size_t)kTileC * kTileC * kBinRows * kMaxGroups * sizeof(float2);
+constexpr size_t kPartSmem =
+    (size_t)kPairT * kPairT * kBinRows * kPartRow * sizeof(float2);
+constexpr size_t kBinSmem = kPairSmem > kPartSmem ? kPairSmem : kPartSmem;
+
+template <class F>
+cudaError_t set_smem(F kernel, size_t bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// The checks both C entries share: a power-of-two chunk, channels split
+// evenly into gate groups and tiled by 2 NP, whole warps up to 512 threads.
+bool long_shape_ok(int chunk, int d, int cols, int np, int threads) {
+  return chunk >= 2 && (chunk & (chunk - 1)) == 0 && cols >= 1 &&
+         d % cols == 0 && d % (2 * np) == 0 && threads >= 32 &&
+         threads <= kFftThreads && threads % 32 == 0;
+}
+
+// Whether the transforms run 4-stage passes (kWide): where each of the
+// block's threads then has a butterfly group of 16.  Short transforms keep
+// to radix-4 passes, and their kernels to the registers those need.
+bool wide_passes(int log2n, int np, int threads) {
+  return log2n >= 6 && (1 << (log2n - 4)) * np >= threads;
+}
+
+// What the C entries pass down (the backward's ybar, rr/ri and Kbar planes
+// are null in the forward).
+struct LongArgs {
+  bool bwd;
+  const float *v, *kfr, *kfi, *ybar, *tw;
+  float *vfr, *vfi, *rr, *ri, *out, *kbr, *kbi;
+  int b, nc, chunk, d, cols, threads;
+  cudaStream_t st;
+};
+
+// The three launches of #7 (fwd) or of #11 (bwd) on the NP-pair tile.
+template <int NP, bool kWide>
+int launch_long(const LongArgs& a) {
+  const float2* tw2 = reinterpret_cast<const float2*>(a.tw);
+  const int log2n = log2_of(2 * a.chunk);
+  const size_t smem = fft_tile_smem(a.chunk, NP);
+  // where a transform block has an SM to itself it takes every segment in
+  // turn (one twiddle table, no tail wave), else one segment a block
+  const int spb = smem > kSmemMax / 2 ? a.nc : 1;
+  const dim3 fft_grid(a.d / (2 * NP), a.nc / spb, a.b);
+  const dim3 bin_grid(bin_blocks_x(a.d, a.cols),
+                      (a.chunk + 1 + kBinRows - 1) / kBinRows, a.b);
+  const ProducerK k{a.kfr, a.kfi, a.nc, a.chunk + 1, a.cols};
+  cudaError_t err = set_smem(window_fft_kernel<NP, kWide>, smem);
   if (err != cudaSuccess) return (int)err;
-  segment_fft_kernel<kMode><<<dim3(w / kTileCh, nc, b), kLongThreads,
-                              long_smem(chunk), st>>>(
-      x, reinterpret_cast<const float2*>(tw), outr, outi, nc, chunk,
-      log2_of(2 * chunk), w);
+  window_fft_kernel<NP, kWide><<<dim3(a.d / (2 * NP), a.nc / spb,
+                                      a.bwd ? 2 * a.b : a.b),
+                                 a.threads, smem, a.st>>>(
+      a.v, a.ybar, tw2, a.vfr, a.vfi, a.rr, a.ri, a.b, a.nc, a.chunk, log2n,
+      a.d, spb);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (a.bwd) {
+    bwd_bins_kernel<<<bin_grid, kBinThreads, kBinSmem, a.st>>>(
+        a.rr, a.ri, a.vfr, a.vfi, k, a.kbr, a.kbi, a.nc, a.chunk, a.d);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    err = set_smem(chunk_inverse_kernel<true, NP, kWide>, smem);
+    if (err != cudaSuccess) return (int)err;
+    chunk_inverse_kernel<true, NP, kWide><<<fft_grid, a.threads, smem,
+                                            a.st>>>(
+        a.vfr, a.vfi, tw2, a.out, a.nc, a.chunk, log2n, a.d, spb);
+  } else {
+    banded_bins_kernel<<<bin_grid, kBinThreads, kBinSmem, a.st>>>(
+        a.vfr, a.vfi, k, a.nc, a.chunk, a.d);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    err = set_smem(chunk_inverse_kernel<false, NP, kWide>, smem);
+    if (err != cudaSuccess) return (int)err;
+    chunk_inverse_kernel<false, NP, kWide><<<fft_grid, a.threads, smem,
+                                             a.st>>>(
+        a.vfr, a.vfi, tw2, a.out, a.nc, a.chunk, log2n, a.d, spb);
+  }
   return (int)cudaGetLastError();
 }
 
-int grid_1d(size_t total) {
-  const size_t blocks = (total + kLongThreads - 1) / kLongThreads;
-  return (int)(blocks < 65535 * 16 ? blocks : 65535 * 16);
+template <int NP>
+int launch_long_tile(const LongArgs& a) {
+  return wide_passes(log2_of(2 * a.chunk), NP, a.threads)
+             ? launch_long<NP, true>(a)
+             : launch_long<NP, false>(a);
+}
+
+// np: channel pairs a transform block (1, 2 or 4); cudaErrorInvalidValue
+// for other plans and shapes.
+int launch_long_np(const LongArgs& a, int np) {
+  if (!long_shape_ok(a.chunk, a.d, a.cols, np, a.threads))
+    return (int)cudaErrorInvalidValue;
+  switch (np) {
+    case 1:
+      return launch_long_tile<1>(a);
+    case 2:
+      return launch_long_tile<2>(a);
+    case 4:
+      return launch_long_tile<4>(a);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -342,68 +839,47 @@ extern "C" {
 // tw: (2C, 2) twiddles (the first C are read).
 int fft_kf_seg_rfft(const float* kt, const float* tw, float* kfr, float* kfi,
                     int b, int n, int chunk, int lanes, void* stream) {
-  return launch_segment_fft<kKernelSeg>(kt, tw, kfr, kfi, b, n / chunk,
-                                        chunk, lanes,
-                                        static_cast<cudaStream_t>(stream));
+  const int nc = n / chunk;
+  const size_t smem = seg_smem(chunk);
+  cudaError_t err = set_smem(segment_fft_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  segment_fft_kernel<<<dim3(lanes / kTileCh, nc, b), kLongThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      kt, reinterpret_cast<const float2*>(tw), kfr, kfi, nc, chunk,
+      log2_of(2 * chunk), lanes);
+  return (int)cudaGetLastError();
 }
 
 // y (B, N, d) from raw values v (B, N, d) and producer-layout K planes
-// (B, nc, C+1, nc*cols).  vfr/vfi: (B, nc, C+1, d) scratch.
+// (B, nc, C+1, nc*cols).  vfr/vfi: (B, nc, C+1, d) scratch.  np: channel
+// pairs a transform block (1, 2 or 4); threads: its threads (a multiple of
+// 32 up to 512).  Returns cudaErrorInvalidValue for other plans and shapes.
 int fft_fused_causal_mix_v3(const float* v, const float* kfr,
                             const float* kfi, const float* tw, float* vfr,
                             float* vfi, float* out, int b, int nc, int chunk,
-                            int d, int cols, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = launch_segment_fft<kValueSeg>(v, tw, vfr, vfi, b, nc, chunk, d,
-                                          st);
-  if (err != 0) return err;
-  cudaError_t cerr = set_smem(banded_fft_kernel, chunk);
-  if (cerr != cudaSuccess) return (int)cerr;
-  const ProducerK k{kfr, kfi, nc, chunk + 1, cols};
-  banded_fft_kernel<<<dim3(d / kTileCh, nc, b), kLongThreads,
-                      long_smem(chunk), st>>>(
-      vfr, vfi, k, reinterpret_cast<const float2*>(tw), out, nc, chunk,
-      log2_of(2 * chunk), d);
-  return (int)cudaGetLastError();
+                            int d, int cols, int np, int threads,
+                            void* stream) {
+  const LongArgs a{false,   v,       kfr,     kfi, nullptr, tw,
+                   vfr,     vfi,     nullptr, nullptr,      out,
+                   nullptr, nullptr, b,       nc,  chunk,   d,
+                   cols,    threads, static_cast<cudaStream_t>(stream)};
+  return launch_long_np(a, np);
 }
 
 // vbar (B, N, d) and Kbar planes (B, nc, C+1, nc*cols) from v, ybar (B, N,
 // d) and producer-layout K planes.  vfr/vfi, rr/ri: (B, nc, C+1, d)
-// scratch; Vbar is written over V (launch 3 is V's last reader).
+// scratch; Vbar is written over V.  np, threads: as fft_fused_causal_mix_v3.
 int fft_fused_causal_mix_bwd_v3(const float* v, const float* kfr,
                                 const float* kfi, const float* ybar,
                                 const float* tw, float* vfr, float* vfi,
                                 float* rr, float* ri, float* vbar,
                                 float* kbr, float* kbi, int b, int nc,
-                                int chunk, int d, int cols, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = launch_segment_fft<kValueSeg>(v, tw, vfr, vfi, b, nc, chunk, d,
-                                          st);
-  if (err != 0) return err;
-  err = launch_segment_fft<kAdjointSeg>(ybar, tw, rr, ri, b, nc, chunk, d,
-                                        st);
-  if (err != 0) return err;
-
-  const int f2 = chunk + 1;
-  kbar_long_kernel<<<grid_1d((size_t)b * f2 * nc * cols), kLongThreads, 0,
-                     st>>>(rr, ri, vfr, vfi, kbr, kbi, b, nc, chunk, d,
-                           cols);
-  cudaError_t cerr = cudaGetLastError();
-  if (cerr != cudaSuccess) return (int)cerr;
-
-  const ProducerK k{kfr, kfi, nc, f2, cols};
-  vbar_long_kernel<<<grid_1d((size_t)b * nc * f2 * d), kLongThreads, 0,
-                     st>>>(rr, ri, k, vfr, vfi, b, nc, chunk, d);
-  cerr = cudaGetLastError();
-  if (cerr != cudaSuccess) return (int)cerr;
-
-  cerr = set_smem(segment_adjoint_kernel, chunk);
-  if (cerr != cudaSuccess) return (int)cerr;
-  segment_adjoint_kernel<<<dim3(d / kTileCh, nc, b), kLongThreads,
-                           long_smem(chunk), st>>>(
-      vfr, vfi, reinterpret_cast<const float2*>(tw), vbar, nc, chunk,
-      log2_of(2 * chunk), d);
-  return (int)cudaGetLastError();
+                                int chunk, int d, int cols, int np,
+                                int threads, void* stream) {
+  const LongArgs a{true, v,  kfr,  kfi, ybar, tw,    vfr, vfi,  rr,
+                   ri,   vbar, kbr, kbi, b,    nc,    chunk, d, cols,
+                   threads, static_cast<cudaStream_t>(stream)};
+  return launch_long_np(a, np);
 }
 
 }  // extern "C"

@@ -59,9 +59,12 @@ not by HBM (the spectra they read fit the 50 MB L2 at the tiny LM's
 shapes); the sequential delta axis of the TPU kernel (scratch carried
 across grid steps) becomes a loop over lags inside one block per output
 chunk.  At chunk 2048 a direct DFT costs 16x the tiny LM's work per
-element, so ``causal_long.cu`` runs radix-2 FFTs in shared memory, 8
-channels a block; its banded sums are bound by reading the segment
-spectra once per lag.
+element and no block holds a channel tile's nc segment spectra, so
+``causal_long.cu``'s #7 and #11 run three launches each, bound by HBM:
+segment FFTs in shared memory into (B, nc, F2, d) planes, a bin-major
+banded sum (a thread owns one bin and channel, reads each segment once
+and sums in registers; #11's Kbar sums each gate group through shared
+memory) written over those planes, and one inverse FFT per chunk.
 """
 
 from __future__ import annotations
@@ -82,7 +85,7 @@ LAUNCHES = {"kf_spectra": 0, "fused_causal_mix": 0, "banded_inverse": 0,
             "kf_spectra_direct": 0, "fused_causal_mix_direct": 0}
 
 # Shapes of the CUDA blocks (csrc/causal.cu: kLanes, kSegT, kFreqT; the
-# 8-lane tile of banded_inverse_kernel; csrc/causal_long.cu: kTileCh,
+# 8-lane tile of banded_inverse_kernel; csrc/causal_long.cu: #9's kTileCh,
 # kPairs).
 _LANES = 32
 _LANES_NARROW = 8
@@ -90,6 +93,10 @@ _SEG_T = 64
 _FREQ_T = 64
 _LONG_TILE = 8
 _LONG_PAIRS = 4
+# csrc/causal_long.cu: #7's and #11's transform tile, (channel pairs a
+# block, threads a block), chosen with chip_smoke.py's
+# kernels_long_tile_sweep at the 350M's shape (PERF.md, Findings)
+LONG_PLAN = (4, 512)
 # csrc/causal_fft.cu: lane or channel pairs a block (widest first), the
 # largest odd factor of a length, and the most segments (#8) or windows
 # (#6) one pass transforms together; chosen with chip_smoke.py's
@@ -189,7 +196,7 @@ def fused_mix_supported(nc: int, chunk: int, d: int, cols: int) -> bool:
 
 
 def _long_smem(chunk: int) -> int:
-    """causal_long.cu's FFT blocks: C twiddles and the (2C, kPairs) complex
+    """causal_long.cu's #9 block: C twiddles and the (2C, 4) complex
     tile."""
     return (chunk + 2 * chunk * _LONG_PAIRS) * 8
 
@@ -199,10 +206,12 @@ def _pow2(x: int) -> bool:
 
 
 def fused_mix_v3_supported(nc: int, chunk: int, d: int, cols: int) -> bool:
-    """fused_causal_mix_v3 and its backward: radix-2 FFTs of 2C points
-    over 8-channel tiles whose (2C, 4) complex tile fits shared memory
-    (chunk <= 2048), gate groups splitting d evenly.  The floor of 128 is
-    #6's (the prompt-length dispatch the reference picks)."""
+    """fused_causal_mix_v3 and its backward: power-of-two chunks up to
+    2048 (where #9's block fits shared memory, and so does #7's and #11's
+    widest transform tile, the 2C-entry twiddle table and 4 channel pairs:
+    160 KB), d tiled by 8, gate groups splitting d evenly; the bin-major
+    sums take any nc and any group width.  The floor of 128 is #6's (the
+    prompt-length dispatch the reference picks)."""
     return (nc >= 1 and chunk >= 128 and _pow2(chunk) and d % _LONG_TILE == 0
             and cols >= 1 and d % cols == 0
             and _long_smem(chunk) <= SMEM_MAX)
@@ -468,8 +477,9 @@ def _fused_causal_mix(v, kfr, kfi, chunk: int, cols: int) -> torch.Tensor:
     and partial inverse of ``banded_inverse`` on the producer layout.
     Past that range, where ``fused_mix_v3_supported`` holds,
     ``_fused_causal_call_v3`` (:931), which JAX takes past its v2 kernel's
-    memory: two launches with radix-2 FFTs in shared memory
-    (``csrc/causal_long.cu``)."""
+    memory: three launches of ``csrc/causal_long.cu`` through a (B, nc,
+    F2, d) scratch (segment FFTs, the bin-major banded sum in place, one
+    inverse FFT per chunk)."""
     if on_cpu(v, kfr, kfi):
         return fused_causal_mix_ref(v, kfr, kfi, chunk, cols)
     name = _mix_kernel("fused_causal_mix", v.shape[1], chunk, v.shape[2],
@@ -495,6 +505,7 @@ def fused_causal_mix_direct(v, kfr, kfi, chunk: int, cols: int):
 def _launch_mix(name: str, v, kfr, kfi, chunk: int, cols: int, plan=None):
     """Launch ``name`` (fused_causal_mix, its _direct or its _v3) on CUDA
     tensors; ``plan``: the FFT kernel's (np, gs), ``mix_fft_plan``'s unless
+    given, or _v3's transform tile (np, threads), ``LONG_PLAN`` unless
     given."""
     b, n, d = v.shape
     nc = n // chunk
@@ -512,10 +523,11 @@ def _launch_mix(name: str, v, kfr, kfi, chunk: int, cols: int, plan=None):
         return out
     vfr = torch.empty((b, nc, f2, d), dtype=torch.float32, device=v.device)
     vfi = torch.empty_like(vfr)
+    tile = tuple(plan or LONG_PLAN) if name == "fused_causal_mix_v3" else ()
     launch(LAUNCHES, name, v.device,
            v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), tw.data_ptr(),
            vfr.data_ptr(), vfi.data_ptr(), out.data_ptr(), b, nc, chunk, d,
-           cols)
+           cols, *tile)
     return out
 
 
@@ -634,15 +646,27 @@ def fused_causal_mix_bwd(v, kfr, kfi, ybar, chunk: int, cols: int):
     (deterministic, no atomics), Vbar, and the adjoint segment rFFT with the
     overlap-add.  The four (B, nc, F2, d) spectra go through HBM scratch
     between launches.  Elsewhere, where ``fused_mix_v3_supported`` holds,
-    ``_fused_causal_bwd_call_v3`` (:2307): the same five steps with radix-2
-    FFTs in shared memory and each Kbar element summed by one thread
-    (``csrc/causal_long.cu``); Kbar is exactly 0 for c < delta."""
+    ``_fused_causal_bwd_call_v3`` (:2307): three launches of
+    ``csrc/causal_long.cu`` through the same scratch: the segment FFTs of v
+    and of ybar's adjoint partial irFFT in one, Kbar (each gate group
+    summed through shared memory in a fixed order) and Vbar bin-major in
+    one, and the adjoint segment FFT with the overlap-add; Kbar is exactly
+    0 for c < delta."""
     if on_cpu(v, kfr, kfi, ybar):
         return fused_causal_mix_bwd_ref(v, kfr, kfi, ybar, chunk, cols)
+    name = _mix_kernel("fused_causal_mix_bwd", v.shape[1], chunk, v.shape[2],
+                       cols)
+    return _launch_bwd(name, v, kfr, kfi, ybar, chunk, cols)
+
+
+def _launch_bwd(name: str, v, kfr, kfi, ybar, chunk: int, cols: int,
+                plan=None):
+    """Launch ``name`` (fused_causal_mix_bwd or its _v3) on CUDA tensors;
+    ``plan``: _v3's transform tile (np, threads), ``LONG_PLAN`` unless
+    given."""
     b, n, d = v.shape
     nc = n // chunk
     f2 = chunk + 1
-    name = _mix_kernel("fused_causal_mix_bwd", n, chunk, d, cols)
     check("v", v, (b, n, d))
     check("kfr", kfr, (b, nc, f2, nc * cols))
     check("kfi", kfi, (b, nc, f2, nc * cols))
@@ -657,7 +681,8 @@ def fused_causal_mix_bwd(v, kfr, kfi, ybar, chunk: int, cols: int):
            v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), ybar.data_ptr(),
            tw.data_ptr(), *(t.data_ptr() for t in scratch),
            vbar.data_ptr(), kbr.data_ptr(), kbi.data_ptr(), b, nc, chunk,
-           d, cols)
+           d, cols, *(tuple(plan or LONG_PLAN)
+                      if name == "fused_causal_mix_bwd_v3" else ()))
     return vbar, kbr, kbi
 
 

@@ -7,7 +7,7 @@ code or its speed.
 
 Supported: __global__/__device__ functions, dim3 launches written as
 ``kernel<<<grid, block, smem, stream>>>(...)``, ``extern __shared__``
-arrays, float2, __brev, __syncthreads, cudaFuncSetAttribute and
+arrays, float2, __brev, __clz, __syncthreads, cudaFuncSetAttribute and
 cudaGetLastError (both succeed), cuda_pipeline.h's async copies
 (``__pipeline_memcpy_async`` copies at once; commit and wait do nothing),
 and ``#include "x.cuh"`` of the source's own directory (inlined).  Warp
@@ -41,6 +41,7 @@ struct dim3 {
 };
 struct float2 { float x, y; };
 inline float2 make_float2(float a, float b) { return float2{a, b}; }
+inline int __clz(int v) { return v == 0 ? 32 : __builtin_clz((unsigned)v); }
 inline unsigned __brev(unsigned v) {
   unsigned r = 0;
   for (int i = 0; i < 32; ++i) { r = (r << 1) | (v & 1); v >>= 1; }

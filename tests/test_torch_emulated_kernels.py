@@ -204,10 +204,17 @@ def test_emulated_kf_seg_rfft(long_lib, b, n, chunk, lanes):
     assert _rel(kfr, want[0]) < TOL and _rel(kfi, want[1]) < TOL
 
 
-# (b, nc, chunk, d, cols): gate groups of 8, 1 (a channel pair spans two
-# groups) and 16 channels; one 8-channel tile at chunk 2048
-LONG_CASES = [(2, 3, 16, 16, 2), (1, 2, 8, 32, 4), (1, 3, 4, 16, 16),
-              (1, 2, 2048, 8, 1)]
+# (b, nc, chunk, d, cols, np, threads): gate groups of 8, 1 (a channel
+# pair spans two groups) and 16 channels; one 8-channel group at chunk
+# 2048; nc 16 (two 8-output tiles, ten 4 x 4 Kbar tiles); a 32-channel
+# group filling a bin row and 4-channel groups 8 to a row; a 64-channel
+# group, two channels a thread; each transform tile plan (np channel pairs,
+# threads a block) passed explicitly (at chunk 2048 the 4-pair tile takes
+# an SM, and its blocks loop over the segments)
+LONG_CASES = [(2, 3, 16, 16, 2, 2, 512), (1, 2, 8, 32, 4, 4, 256),
+              (1, 3, 4, 16, 16, 1, 64), (1, 2, 2048, 8, 1, 4, 512),
+              (1, 16, 8, 16, 4, 2, 96), (1, 3, 16, 32, 1, 4, 128),
+              (1, 2, 16, 32, 8, 2, 256), (1, 2, 8, 64, 1, 4, 512)]
 
 
 def _long_inputs(b, nc, chunk, d, cols):
@@ -217,30 +224,48 @@ def _long_inputs(b, nc, chunk, d, cols):
             _randn(g, b, nc, f2, nc * cols), _randn(g, b, n, d))
 
 
-@pytest.mark.parametrize("b,nc,chunk,d,cols", LONG_CASES)
-def test_emulated_fused_causal_mix_v3(long_lib, b, nc, chunk, d, cols):
-    v, kr, ki, _ = _long_inputs(b, nc, chunk, d, cols)
-    scratch = [torch.empty(b, nc, chunk + 1, d) for _ in range(2)]
+def _emulated_mix_v3(lib, v, kr, ki, chunk, cols, np_, threads):
+    b, n, d = v.shape
+    nc = n // chunk
+    scratch = [torch.full((b, nc, chunk + 1, d), float("nan"))
+               for _ in range(2)]
     y = torch.empty_like(v)
-    assert long_lib.fft_fused_causal_mix_v3(
+    assert lib.fft_fused_causal_mix_v3(
         _ptr(v), _ptr(kr), _ptr(ki), _ptr(_tw(chunk)),
-        *(_ptr(t) for t in scratch), _ptr(y), b, nc, chunk, d, cols,
-        None) == 0
-    assert _rel(y, kc.fused_causal_mix_ref(v, kr, ki, chunk, cols)) < TOL
+        *(_ptr(t) for t in scratch), _ptr(y), b, nc, chunk, d, cols, np_,
+        threads, None) == 0
+    return y
 
 
-@pytest.mark.parametrize("b,nc,chunk,d,cols", LONG_CASES)
-def test_emulated_fused_causal_mix_bwd_v3(long_lib, b, nc, chunk, d, cols):
-    """Each output on its own, and Kbar exactly 0 where c < delta."""
-    v, kr, ki, ybar = _long_inputs(b, nc, chunk, d, cols)
+def _emulated_bwd_v3(lib, v, kr, ki, ybar, chunk, cols, np_, threads):
+    b, n, d = v.shape
+    nc = n // chunk
     scratch = [torch.full((b, nc, chunk + 1, d), float("nan"))
                for _ in range(4)]
     out = [torch.empty_like(v), torch.full_like(kr, float("nan")),
            torch.full_like(ki, float("nan"))]
-    assert long_lib.fft_fused_causal_mix_bwd_v3(
+    assert lib.fft_fused_causal_mix_bwd_v3(
         _ptr(v), _ptr(kr), _ptr(ki), _ptr(ybar), _ptr(_tw(chunk)),
         *(_ptr(t) for t in scratch), *(_ptr(t) for t in out), b, nc, chunk,
-        d, cols, None) == 0
+        d, cols, np_, threads, None) == 0
+    return out
+
+
+@pytest.mark.parametrize("b,nc,chunk,d,cols,np_,threads", LONG_CASES)
+def test_emulated_fused_causal_mix_v3(long_lib, b, nc, chunk, d, cols, np_,
+                                      threads):
+    v, kr, ki, _ = _long_inputs(b, nc, chunk, d, cols)
+    y = _emulated_mix_v3(long_lib, v, kr, ki, chunk, cols, np_, threads)
+    assert _rel(y, kc.fused_causal_mix_ref(v, kr, ki, chunk, cols)) < TOL
+
+
+@pytest.mark.parametrize("b,nc,chunk,d,cols,np_,threads", LONG_CASES)
+def test_emulated_fused_causal_mix_bwd_v3(long_lib, b, nc, chunk, d, cols,
+                                          np_, threads):
+    """Each output on its own, and Kbar exactly 0 where c < delta."""
+    v, kr, ki, ybar = _long_inputs(b, nc, chunk, d, cols)
+    out = _emulated_bwd_v3(long_lib, v, kr, ki, ybar, chunk, cols, np_,
+                           threads)
     want = kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk, cols)
     for got, w in zip(out, want):
         assert _rel(got, w) < TOL
@@ -248,6 +273,32 @@ def test_emulated_fused_causal_mix_bwd_v3(long_lib, b, nc, chunk, d, cols):
     for dl in range(nc):
         assert torch.equal(kbar[:, dl, :, :dl],
                            torch.zeros_like(kbar[:, dl, :, :dl]))
+
+
+def test_emulated_kbar_with_a_channel_dropped_fails(tmp_path_factory):
+    """A copy of causal_long.cu whose Kbar group sums skip each group's
+    first channel disagrees with the plain version (and only in Kbar): the
+    check above sees it."""
+    if cuda_emulation.compiler() is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    src = (kb.CSRC_DIR / "causal_long.cu").read_text()
+    good = "for (int e = 0; e < span; ++e) {"
+    assert src.count(good) == 1
+    out = tmp_path_factory.mktemp("broken_long")
+    broken = out / "causal_long.cu"
+    broken.write_text(src.replace(good, "for (int e = 1; e < span; ++e) {"))
+    for header in ("causal_common.cuh", "fft_common.cuh"):
+        (out / header).write_text((kb.CSRC_DIR / header).read_text())
+    lib = cuda_emulation.build(broken, out)
+    argtypes, restype = kb._SIGNATURES["fft_fused_causal_mix_bwd_v3"]
+    lib.fft_fused_causal_mix_bwd_v3.argtypes = argtypes
+    lib.fft_fused_causal_mix_bwd_v3.restype = restype
+    b, nc, chunk, d, cols = 1, 3, 16, 32, 8
+    v, kr, ki, ybar = _long_inputs(b, nc, chunk, d, cols)
+    got = _emulated_bwd_v3(lib, v, kr, ki, ybar, chunk, cols, 2, 128)
+    want = kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk, cols)
+    assert _rel(got[0], want[0]) < TOL
+    assert _rel(got[1], want[1]) > TOL and _rel(got[2], want[2]) > TOL
 
 
 # (b, nc, chunk, d, cols): banded_inverse's 8-lane tile past the 32-lane

@@ -204,10 +204,13 @@ def test_fused_causal_mix_bwd_kernel(dev, nc, d, cols):
 
 
 # (b, nc, chunk, d, cols): the 350M's layer at seq 16384 and its 8192- and
-# 1024-token prompts, and small shapes that #6 does not take (d not a
-# multiple of 32) with 8- and 1-channel gate groups
+# 1024-token prompts; nc 16 at chunk 2048 (seq 32768: a check for longer
+# contexts, not a shape of the 350M's paths); small shapes that #6 does not
+# take (d not a multiple of 32) with 8- and 1-channel gate groups, and one
+# 136-channel group (several channels a thread of the bin-major sums)
 LONG_CASES = [(1, 8, 2048, 1024, 64), (1, 4, 2048, 1024, 64),
-              (1, 1, 1024, 1024, 64), (2, 3, 256, 40, 5), (1, 2, 128, 48, 48)]
+              (1, 1, 1024, 1024, 64), (1, 16, 2048, 1024, 64),
+              (2, 3, 256, 40, 5), (1, 2, 128, 48, 48), (1, 3, 256, 136, 1)]
 
 
 def _long_inputs(dev, b, nc, chunk, d, cols):
@@ -244,6 +247,23 @@ def test_fused_causal_mix_bwd_v3_kernel(dev, b, nc, chunk, d, cols):
     kbar = got[1].reshape(b, nc, chunk + 1, nc, cols)
     for dl in range(nc):
         assert int(torch.count_nonzero(kbar[:, dl, :, :dl])) == 0
+
+
+@pytest.mark.parametrize("plan", [(1, 64), (1, 256), (1, 512), (2, 256),
+                                  (2, 512), (4, 256), (4, 512)])
+def test_long_kernels_every_tile_plan(dev, plan):
+    """Each transform tile plan (channel pairs, threads a block) of #7 and
+    #11 that chip_smoke.py's sweep times, at a small shape."""
+    b, nc, chunk, d, cols = 2, 3, 256, 40, 5
+    v, kr, ki, ybar = _long_inputs(dev, b, nc, chunk, d, cols)
+    y = kc._launch_mix("fused_causal_mix_v3", v, kr, ki, chunk, cols, plan)
+    got = kc._launch_bwd("fused_causal_mix_bwd_v3", v, kr, ki, ybar, chunk,
+                         cols, plan)
+    torch.cuda.synchronize()
+    assert _rel(y, kc.fused_causal_mix_ref(v, kr, ki, chunk, cols)) < TOL
+    for a, w in zip(got, kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk,
+                                                    cols)):
+        assert _rel(a, w) < TOL
 
 
 @pytest.mark.parametrize("b,n,chunk,lanes", [(1, 16384, 2048, 512),
