@@ -6,10 +6,12 @@ config 4, SPECTRE-350M at seq 16384 (24 layers, d=1024, 16 heads, vocab
 50432), serving and training, with both LMs' decode through kernel #12,
 random weights from seed 0, through the port's own entry points.  The
 tiny LM's causal mix runs kernels #8 kf_spectra and #6 fused_causal_mix as
-shared-memory FFTs (csrc/causal_fft.cu); their direct-DFT kernels
-(csrc/causal.cu: kf_spectra_direct, fused_causal_mix_direct), which the
-wrappers keep for shapes the FFT kernels do not take, are checked and
-timed beside them in phase 2 and must not launch on the tiny LM's paths.
+shared-memory FFTs and its backward #10 fused_causal_mix_bwd as FFTs and
+bin-major sums (csrc/causal_fft.cu); their direct-DFT kernels
+(csrc/causal.cu: kf_spectra_direct, fused_causal_mix_direct;
+csrc/causal_bwd.cu: fused_causal_mix_bwd_direct), which the wrappers keep
+for shapes the FFT kernels do not take, are checked and timed beside them
+in phase 2 and must not launch on the tiny LM's paths.
 
     python3 chip_smoke.py
 
@@ -33,14 +35,19 @@ Phases, in order; any failure raises and the exit code is nonzero:
              through the FFT kernel, the direct kernel and, for #6, #7's
              kernel (fused_causal_mix_v3, which takes chunk 128 too), all
              in one call; then the FFT kernels over the tile plans that
-             fit shared memory (kernels_tile_sweep).  #7 and #11
-             (causal_long.cu, three launches each: segment FFTs, the
+             fit shared memory (kernels_tile_sweep).  #10 at the tiny LM's
+             training batch (B=8, nc 16 and 8) through its FFT kernel, its
+             direct kernel and #11's, and at C=384 (2C = 256 * 3), Kbar
+             exactly 0 where c < delta; then #10's FFT kernel over its
+             plans and #9 over its blocks (kernels_bwd_seg_sweep).  #7 and
+             #11 (causal_long.cu, three launches each: segment FFTs, the
              bin-major banded sum in place, one inverse FFT a chunk) at the
              350M's layer (nc 8, C 2048), its prompts (nc 4; nc 1 at C
              1024) and nc 4 at C 1024, then over their transform tile plans
              at the 350M's layer (kernels_long_tile_sweep), and their
-             device time by CUDA kernel at those shapes and #7's at C 128,
-             nc 16 (kernels_launch_split).
+             device time by CUDA kernel at those shapes, #7's at C 128,
+             nc 16, #10 (all three kernels) at the tiny LM's training
+             shape and #9 at the 350M's (kernels_launch_split).
 3. score     lm_apply on 4 x 2048 tokens; logits within rel_err 1e-4 of
              the same model and weights on the CPU (where the kernels'
              plain versions run); tokens/s on the card, and 3 calls under
@@ -53,7 +60,7 @@ Phases, in order; any failure raises and the exit code is nonzero:
              a profile of 8 steps of each; then the CLI's generate on its
              default 4-byte prompt.
 5. launches  every kernel of the serving path was launched during phases
-             3-4, and neither direct-DFT kernel (TINY_DIRECT) was.
+             3-4, and no direct-DFT kernel (TINY_DIRECT) was.
    4c.       (run after 5, on launch counts of their own) one tiny-LM block
              (B=4, d=512, 8 heads, n_fft 2048): prefill 2048 tokens, then
              64 fused decode steps past the window's wrap; outputs, the
@@ -63,16 +70,18 @@ Phases, in order; any failure raises and the exit code is nonzero:
              "window" decode descriptor: lm_apply and 8 teacher-forced
              decode steps within 1e-4 of the CPU.  kf_spectra,
              fused_causal_mix and fused_decode_mix were launched during
-             4c-4d, and neither direct-DFT kernel was.
+             4c-4d, and no direct-DFT kernel was.
 6. train     one train_step at 2 x 2048: loss and every parameter gradient
              within rel_err 1e-4 of the same model and batch on the CPU,
              with the CPU's modReLUs on the card's side of their kinks (see
              same_modrelu_side);
              5 steps at 8 x 2048 (step ms, training tokens/s, peak device
-             memory) and 2 under torch.profiler; the CLI's train-lm for 3
+             memory; fused_causal_mix_bwd launched once a layer a step,
+             its direct kernel never) and 2 under torch.profiler (#10's
+             kernels' device time on its own); the CLI's train-lm for 3
              steps.  Every kernel of the training path (kf_spectra,
              fused_causal_mix and its backward) was launched during the
-             phase, and neither direct-DFT kernel was.
+             phase, and no direct-DFT kernel was.
 7. block     BASELINE config 1's block (fft_impl="pallas", mean pooling,
              memory 16, fp32): forward within rel_err 2e-5 of the same
              weights and input on the CPU, every parameter gradient of
@@ -154,7 +163,8 @@ SOURCES = {
     "kf_spectra_direct": "fft_tpu_torch/csrc/causal.cu",
     "fused_causal_mix_direct": "fft_tpu_torch/csrc/causal.cu",
     "banded_inverse": "fft_tpu_torch/csrc/causal.cu",
-    "fused_causal_mix_bwd": "fft_tpu_torch/csrc/causal_bwd.cu",
+    "fused_causal_mix_bwd": "fft_tpu_torch/csrc/causal_fft.cu",
+    "fused_causal_mix_bwd_direct": "fft_tpu_torch/csrc/causal_bwd.cu",
     "kf_seg_rfft": "fft_tpu_torch/csrc/causal_long.cu",
     "fused_causal_mix_v3": "fft_tpu_torch/csrc/causal_long.cu",
     "fused_causal_mix_bwd_v3": "fft_tpu_torch/csrc/causal_long.cu",
@@ -171,6 +181,7 @@ REPLACES = {
     "fused_causal_mix_direct": "fft_tpu/kernels/pallas_causal.py:592",
     "banded_inverse": "fft_tpu/kernels/pallas_causal.py:167",
     "fused_causal_mix_bwd": "fft_tpu/kernels/pallas_causal.py:1921",
+    "fused_causal_mix_bwd_direct": "fft_tpu/kernels/pallas_causal.py:1921",
     "kf_seg_rfft": "fft_tpu/kernels/pallas_causal.py:1596",
     "fused_causal_mix_v3": "fft_tpu/kernels/pallas_causal.py:931",
     "fused_causal_mix_bwd_v3": "fft_tpu/kernels/pallas_causal.py:2307",
@@ -184,9 +195,11 @@ SERVE_KERNELS = ("kf_spectra", "fused_causal_mix", "banded_inverse",
 # DCT-pooled LM's scoring, prefill and window-descriptor decode
 DECODE_KERNELS = ("kf_spectra", "fused_causal_mix", "fused_decode_mix")
 TRAIN_KERNELS = ("kf_spectra", "fused_causal_mix", "fused_causal_mix_bwd")
-# the direct-DFT #8 and #6 (causal.cu): launched on none of the tiny LM's
-# paths (serving, 4c-4d, training), which the FFT kernels take
-TINY_DIRECT = ("kf_spectra_direct", "fused_causal_mix_direct")
+# the direct-DFT #8, #6 (causal.cu) and #10 (causal_bwd.cu): launched on
+# none of the tiny LM's paths (serving, 4c-4d, training), which the FFT
+# kernels take
+TINY_DIRECT = ("kf_spectra_direct", "fused_causal_mix_direct",
+               "fused_causal_mix_bwd_direct")
 BLOCK_KERNELS = ("direct_mix", "direct_mix_bwd")
 # phase 7b: the block at n_fft 4096/8192 (7c counts #4 per forward)
 BLOCK_LONG_KERNELS = ("staged_mix",)
@@ -196,8 +209,12 @@ SERVE_350M_KERNELS = ("kf_seg_rfft", "fused_causal_mix_v3", "banded_inverse",
                       "fused_decode_mix")
 TRAIN_350M_KERNELS = ("kf_seg_rfft", "fused_causal_mix_v3",
                       "fused_causal_mix_bwd_v3")
+# #10's CUDA kernels (causal_fft.cu), by name in the tiny LM's training
+# profile
+BWD_KERNEL_NAMES = ("bwd_window_kernel", "bwd_bins_fft_kernel",
+                    "bwd_inverse_kernel")
 # causal_long.cu's CUDA kernels (#9, #7, #11), by name in a profile
-LONG_KERNEL_NAMES = ("segment_fft_kernel", "window_fft_kernel",
+LONG_KERNEL_NAMES = ("seg_rfft_kernel", "window_fft_kernel",
                      "banded_bins_kernel", "bwd_bins_kernel",
                      "chunk_inverse_kernel")
 # the card's peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s, fp32
@@ -347,19 +364,7 @@ def phase_kernels(kc, sm, kd, dev):
                     v, kr, ki, chunk, cols),
                 None, (2 * vb + kb, 2 * seg + mac),
                 nc == 16 and name != "fused_causal_mix_v3"))
-    bb = 8                                  # the training batch
-    for nc in (8, 16):
-        v, ybar = randn(bb, nc * chunk, d), randn(bb, nc * chunk, d)
-        kr, ki = (randn(bb, nc, chunk + 1, nc * cols) for _ in range(2))
-        vb, kb, mac, seg = causal_work(bb, nc, chunk, d, cols)
-        cases.append((
-            "fused_causal_mix_bwd",
-            f"B={bb} nc={nc} C={chunk} d={d} cols={cols}",
-            lambda v=v, kr=kr, ki=ki, yb=ybar: kc.fused_causal_mix_bwd(
-                v, kr, ki, yb, chunk, cols),
-            lambda v=v, kr=kr, ki=ki, yb=ybar: kc.fused_causal_mix_bwd_ref(
-                v, kr, ki, yb, chunk, cols),
-            None, (3 * vb + 2 * kb, 3 * seg + 2 * mac), nc == 16))
+    cases += bwd_cases(kc, randn)
     for c in (4, 100):
         args = (randn(b, 1, c + 1, d), randn(b, 1, c + 1, d),
                 randn(b, 1, 1, c + 1, cols), randn(b, 1, 1, c + 1, cols))
@@ -382,6 +387,7 @@ def phase_kernels(kc, sm, kd, dev):
     staged_sweep(sm, randn)
     tile_sweep(kc, randn)
     long_tile_sweep(kc, randn)
+    bwd_seg_sweep(kc, randn)
     long_launch_split(kc, randn)
     results = {}
     for name, shape, kern, plain, lib, work, main in cases:
@@ -405,6 +411,81 @@ def phase_kernels(kc, sm, kd, dev):
         emit(phase="kernels", kernel=name, **case)
         results.setdefault(name, []).append(case)
     return results
+
+
+def bwd_cases(kc, randn):
+    """#10 at the tiny LM's training batch (B=8, C=128, d=512, 32 gate
+    columns; nc 16, the main case, and 8) through the FFT kernel, the
+    direct kernel and #11's (fused_causal_mix_bwd_v3, which takes chunk 128
+    too), all in one call; the FFT kernel at a chunk that is no power of
+    two (C=384: 2C = 256 * 3).  Kbar must be exactly 0 where c < delta
+    (checked here, on the first call of each case)."""
+    cases = []
+    d, cols = 512, 32
+    three = ("fused_causal_mix_bwd", "fused_causal_mix_bwd_direct",
+             "fused_causal_mix_bwd_v3")
+    for b, nc, chunk, names in ((8, 16, 128, three), (8, 8, 128, three),
+                                (4, 3, 384, three[:1])):
+        v, ybar = randn(b, nc * chunk, d), randn(b, nc * chunk, d)
+        kr, ki = (randn(b, nc, chunk + 1, nc * cols) for _ in range(2))
+        vb, kb, mac, seg = causal_work(b, nc, chunk, d, cols)
+        fns = {"fused_causal_mix_bwd": kc.fused_causal_mix_bwd,
+               "fused_causal_mix_bwd_direct": kc.fused_causal_mix_bwd_direct,
+               "fused_causal_mix_bwd_v3": lambda *a: kc._launch_bwd(
+                   "fused_causal_mix_bwd_v3", *a)}
+        for name in names:
+            def kern(name=name, v=v, kr=kr, ki=ki, yb=ybar, c=chunk,
+                     nc=nc, b=b, first=[True]):
+                out = fns[name](v, kr, ki, yb, c, cols)
+                if first[0]:
+                    first[0] = False
+                    kbar = out[1].view(b, nc, c + 1, nc, cols)
+                    for dl in range(1, nc):
+                        if torch.count_nonzero(kbar[:, dl, :, :dl]):
+                            raise AssertionError(
+                                f"{name}: Kbar nonzero at c < delta {dl}")
+                return out
+            cases.append((
+                name, f"B={b} nc={nc} C={chunk} d={d} cols={cols}", kern,
+                lambda v=v, kr=kr, ki=ki, yb=ybar, c=chunk:
+                    kc.fused_causal_mix_bwd_ref(v, kr, ki, yb, c, cols),
+                None, (3 * vb + 2 * kb, 3 * seg + 2 * mac),
+                nc == 16 and name != "fused_causal_mix_bwd_v3"))
+    return cases
+
+
+def bwd_seg_sweep(kc, randn) -> None:
+    """#10's FFT kernel at the tiny LM's training shape (B=8, nc=16, C=128,
+    d=512, 32 gate columns) over its plans (channel pairs np and windows gs
+    a transform block, threads bt a bin-major block), and #9 at the 350M's
+    layer (B=1, N=16384, C=2048, L=512) over threads a block; median ms
+    over CUDA events of each, the wrappers' own choice marked.  Each output
+    is held to the plain version first."""
+    b, nc, chunk, d, cols = 8, 16, 128, 512, 32
+    v, ybar = randn(b, nc * chunk, d), randn(b, nc * chunk, d)
+    kr, ki = (randn(b, nc, chunk + 1, nc * cols) for _ in range(2))
+    want = kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk, cols)
+    runs = [("fused_causal_mix_bwd", plan,
+             tuple(plan) == kc.bwd_fft_plan(nc, chunk, d, cols),
+             lambda plan=plan: kc._launch_bwd("fused_causal_mix_bwd", v, kr,
+                                              ki, ybar, chunk, cols, plan),
+             want)
+            for plan in ((4, 4, 256), (4, 4, 128), (4, 4, 512), (4, 2, 256),
+                         (4, 8, 256), (2, 4, 256))]
+    n, c, lanes = 16384, 2048, 512
+    kt = randn(1, n, lanes)
+    want_seg = kc.kf_seg_rfft_ref(kt, c)
+    runs += [("kf_seg_rfft", (threads,), threads == kc.SEG_THREADS,
+              lambda threads=threads: kc._kf_seg_rfft(kt, c, threads),
+              want_seg) for threads in (512, 384, 256)]
+    rows = []
+    for name, plan, chosen, kern, want_out in runs:
+        err = rel_err(kern(), want_out)
+        if not err <= REL_KERNEL:
+            raise AssertionError(f"{name} plan {plan}: rel_err {err}")
+        rows.append(dict(kernel=name, plan=list(plan), rel_err=err,
+                         ms=median_ms(kern), chosen=chosen))
+    emit(phase="kernels_bwd_seg_sweep", rows=rows)
 
 
 def tile_sweep(kc, randn) -> None:
@@ -481,25 +562,47 @@ def long_tile_sweep(kc, randn) -> None:
 
 
 def long_launch_split(kc, randn) -> None:
-    """#7's and #11's device time by CUDA kernel (torch.profiler over 10
-    calls) at the 350M's layer (B=1, nc=8, C=2048, d=1024, 64 gate
-    columns), its 8192- and 1024-token prompts (nc=4; nc=1 at C=1024), and
-    #7's kernel at the tiny LM's nc=16, C=128 (d=512, 32 columns): which of
-    their launches takes the time."""
+    """Device time by CUDA kernel (torch.profiler over 10 calls): #7 and
+    #11 at the 350M's layer (B=1, nc=8, C=2048, d=1024, 64 gate columns),
+    its 8192- and 1024-token prompts (nc=4; nc=1 at C=1024), #7's kernel
+    at the tiny LM's nc=16, C=128 (d=512, 32 columns); at the tiny LM's
+    training shape (B=8, nc=16, C=128, d=512, 32 columns) #10 as the
+    wrapper dispatches it, #11's kernel and #10's direct kernel; #9 at the
+    350M's layer (B=1, N=16384, C=2048, L=512): which launches take the
+    time.  It takes any tree's ``kernels.causal`` (an older tree has no
+    ``fused_causal_mix_bwd_direct``: there ``fused_causal_mix_bwd`` is
+    the direct kernel), so one call can time two trees' kernels."""
     from fft_tpu_torch import bench
 
     rows = []
     for b, nc, c, d, cols in ((1, 8, 2048, 1024, 64), (1, 4, 2048, 1024, 64),
-                              (1, 1, 1024, 1024, 64), (4, 16, 128, 512, 32)):
+                              (1, 1, 1024, 1024, 64), (4, 16, 128, 512, 32),
+                              (8, 16, 128, 512, 32)):
         v, ybar = randn(b, nc * c, d), randn(b, nc * c, d)
         kr, ki = (randn(b, nc, c + 1, nc * cols) for _ in range(2))
-        runs = [("fused_causal_mix_v3",
-                 lambda v=v, kr=kr, ki=ki, c=c, cols=cols: kc._launch_mix(
-                     "fused_causal_mix_v3", v, kr, ki, c, cols))]
+        runs = []
+        if b < 8:
+            runs.append(("fused_causal_mix_v3",
+                         lambda v=v, kr=kr, ki=ki, c=c, cols=cols:
+                         kc._launch_mix("fused_causal_mix_v3", v, kr, ki, c,
+                                        cols)))
         if not kc.fused_mix_supported(nc, c, d, cols):
             runs.append(("fused_causal_mix_bwd_v3",
                          lambda v=v, kr=kr, ki=ki, yb=ybar, c=c, cols=cols:
                          kc.fused_causal_mix_bwd(v, kr, ki, yb, c, cols)))
+        elif b == 8:
+            runs += [("fused_causal_mix_bwd",
+                      lambda v=v, kr=kr, ki=ki, yb=ybar, c=c, cols=cols:
+                      kc.fused_causal_mix_bwd(v, kr, ki, yb, c, cols)),
+                     ("fused_causal_mix_bwd_v3",
+                      lambda v=v, kr=kr, ki=ki, yb=ybar, c=c, cols=cols:
+                      kc._launch_bwd("fused_causal_mix_bwd_v3", v, kr, ki,
+                                     yb, c, cols))]
+            if hasattr(kc, "fused_causal_mix_bwd_direct"):
+                runs.append(("fused_causal_mix_bwd_direct",
+                             lambda v=v, kr=kr, ki=ki, yb=ybar, c=c,
+                             cols=cols: kc.fused_causal_mix_bwd_direct(
+                                 v, kr, ki, yb, c, cols)))
         for name, fn in runs:
             fn()
             torch.cuda.synchronize()
@@ -509,6 +612,16 @@ def long_launch_split(kc, randn) -> None:
                              ms=median_ms(fn),
                              device_ms=prof["device_busy_ms_per_step"],
                              by_launch=prof["top_kernels_ms_per_step"]))
+    b, n, c, lanes = 1, 16384, 2048, 512
+    kt = randn(b, n, lanes)
+    fn = lambda: kc.kf_seg_rfft(kt, c)                       # noqa: E731
+    fn()
+    torch.cuda.synchronize()
+    prof = bench._profile(fn, torch.cuda.synchronize, 10)
+    rows.append(dict(kernel="kf_seg_rfft",
+                     shape=f"B={b} N={n} C={c} L={lanes}", ms=median_ms(fn),
+                     device_ms=prof["device_busy_ms_per_step"],
+                     by_launch=prof["top_kernels_ms_per_step"]))
     emit(phase="kernels_launch_split", rows=rows)
 
 
@@ -521,10 +634,12 @@ def long_cases(kc, randn):
     b, chunk, d, cols = 1, 2048, 1024, 64
     n, lanes = 16384, 8 * 64
     kt = randn(b, n, lanes)
+    # the two output planes as a tuple, as #8's: a torch.cat would add a
+    # copy of 67 MB to the kernel's time
     cases.append((
         "kf_seg_rfft", f"B={b} N={n} C={chunk} L={lanes}",
-        lambda: torch.cat(kc.kf_seg_rfft(kt, chunk)),
-        lambda: torch.cat(kc.kf_seg_rfft_ref(kt, chunk)),
+        lambda: kc.kf_seg_rfft(kt, chunk),
+        lambda: kc.kf_seg_rfft_ref(kt, chunk),
         lambda: torch.fft.rfft(kt.view(b, n // chunk, chunk, lanes),
                                2 * chunk, dim=2),
         (4 * b * n * lanes + 4 * 2 * b * (n // chunk) * (chunk + 1) * lanes,
@@ -777,9 +892,11 @@ def train_parity(cfg, dev, tokens) -> dict:
 
 
 def phase_train(cfg, dev) -> None:
-    """Gradient parity with the CPU, 5 steps at the CLI's batch and 2 more
-    under torch.profiler, the CLI."""
+    """Gradient parity with the CPU, 5 steps at the CLI's batch (#10's FFT
+    kernel launched once a layer a step, its direct kernel never) and 2
+    more under torch.profiler, the CLI."""
     from fft_tpu_torch import bench, cli
+    from fft_tpu_torch.kernels import causal as kc
     from fft_tpu_torch.models.lm import lm_init
     from fft_tpu_torch.train import TrainConfig, train_init, train_step
     from fft_tpu_torch.train.data import CharDataset
@@ -800,6 +917,8 @@ def phase_train(cfg, dev) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses, norms = [], [], []
+    bwd_before = {k: kc.LAUNCHES[k] for k in ("fused_causal_mix_bwd",
+                                              "fused_causal_mix_bwd_direct")}
     for _ in range(5):
         batch = next(batches)
         t0 = time.perf_counter()
@@ -809,15 +928,21 @@ def phase_train(cfg, dev) -> None:
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     peak = torch.cuda.max_memory_allocated()
+    bwd = {k: kc.LAUNCHES[k] - n for k, n in bwd_before.items()}
+    if (bwd["fused_causal_mix_bwd"] != 5 * cfg.num_layers
+            or bwd["fused_causal_mix_bwd_direct"]):
+        raise AssertionError(f"train: #10's launches in 5 steps {bwd}, not "
+                             f"once a layer a step through the FFT kernel")
     if not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError(f"train: non-finite loss {losses} or grad_norm "
                              f"{norms}")
     ms = statistics.median(step_ms[1:])       # the first builds cuFFT plans
     prof = bench._profile(lambda: train_step(state, batch),
-                          torch.cuda.synchronize, 2)
+                          torch.cuda.synchronize, 2, BWD_KERNEL_NAMES)
     emit(phase="train_steps", batch=8, seq=seq, step_ms=step_ms,
          median_step_ms=ms, tokens_per_s=8 * seq / (ms / 1e3), loss=losses,
-         grad_norm=norms, peak_memory_bytes=peak, profile=prof)
+         grad_norm=norms, peak_memory_bytes=peak, bwd_launches_5_steps=bwd,
+         profile=prof)
     del state
 
     buf = io.StringIO()

@@ -1,5 +1,9 @@
-// The backward of the segmented causal mix on Hopper: the exact adjoint of
-// fused_causal_mix (causal.cu), as a plain C interface loaded with ctypes.
+// The backward of the segmented causal mix on Hopper with direct DFTs: the
+// exact adjoint of fused_causal_mix (causal.cu), as a plain C interface
+// loaded with ctypes.  kernels/causal.py launches it under the name
+// fused_causal_mix_bwd_direct, only for the shapes whose 2C does not split
+// as P * O (O odd <= 31) or whose tiles do not fit causal_fft.cu's #10
+// kernels, which take every shape of the tiny LM's training path.
 //
 // Replaces _fused_causal_bwd_call (fft_tpu/kernels/pallas_causal.py:1921,
 // pallas_call :2036), the VJP of _fused_causal_call; the math is
@@ -29,10 +33,10 @@
 //
 // What bounds it on the H100: launches 1, 2 and 5 are direct DFTs, bound
 // like the forward's by one broadcast shared-memory read per two to four
-// FMAs; launch 3 by its shuffles (8 per 4 FMAs at 16-channel groups) and
-// its strided writes of Kbar; launch 4 by L2 reads of K and A.  The
-// simple design keeps every block independent; fusing 1-3 and 4-5 so the
-// spectra stay on chip is later work.
+// FMAs (at the tiny LM's training shape 3.02 ms of device time on an
+// H100, of which launch 5 takes 1.11, Kbar 0.69, launch 1 0.68: PERF.md);
+// launch 3 by its shuffles (8 per 4 FMAs at 16-channel groups) and its
+// strided writes of Kbar; launch 4 by L2 reads of K and A.
 
 #include "causal_common.cuh"
 
@@ -209,12 +213,13 @@ extern "C" {
 // cotangent ybar (both (B, N, d)) and producer-layout K planes (B, nc,
 // C+1, nc*cols).  tw: (2C, 2) twiddles.  vfr/vfi, rr/ri: (B, nc, C+1, d)
 // scratch.
-int fft_fused_causal_mix_bwd(const float* v, const float* kfr,
-                             const float* kfi, const float* ybar,
-                             const float* tw, float* vfr, float* vfi,
-                             float* rr, float* ri, float* vbar, float* kbr,
-                             float* kbi, int b, int nc, int chunk, int d,
-                             int cols, void* stream) {
+int fft_fused_causal_mix_bwd_direct(const float* v, const float* kfr,
+                                    const float* kfi, const float* ybar,
+                                    const float* tw, float* vfr, float* vfi,
+                                    float* rr, float* ri, float* vbar,
+                                    float* kbr, float* kbi, int b, int nc,
+                                    int chunk, int d, int cols,
+                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err = launch_segment_rfft<false>(v, vfr, vfi, tw, b, nc, chunk, d,
                                        st);

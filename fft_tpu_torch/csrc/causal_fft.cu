@@ -1,15 +1,18 @@
 // The tiny LM's causal mix on Hopper with FFTs in shared memory: kernels #8
-// and #6 as one launch each, a plain C interface loaded with ctypes
-// (fft_tpu_torch/kernels/build.py builds this file with nvcc for sm_90a).
+// and #6 as one launch each and #10 as three, a plain C interface loaded
+// with ctypes (fft_tpu_torch/kernels/build.py builds this file with nvcc
+// for sm_90a).
 //
 // Replaces, from fft_tpu/kernels/pallas_causal.py:
-//   kf_spectra       <- _kf_spectra_call    (:1428, pallas_call :1482)
-//   fused_causal_mix <- _fused_causal_call  (:592, pallas_call :707)
+//   kf_spectra           <- _kf_spectra_call        (:1428, pallas_call :1482)
+//   fused_causal_mix     <- _fused_causal_call      (:592, pallas_call :707)
+//   fused_causal_mix_bwd <- _fused_causal_bwd_call  (:1921, pallas_call :2036)
 //
-// causal.cu computes the same two functions with direct DFTs (O(n) work an
-// output); kernels/causal.py takes those kernels (kf_spectra_direct,
-// fused_causal_mix_direct) only for the shapes whose lengths do not factor
-// here or whose tiles do not fit a block.
+// causal.cu and causal_bwd.cu compute the same three functions with direct
+// DFTs (O(n) work an output); kernels/causal.py takes those kernels
+// (kf_spectra_direct, fused_causal_mix_direct, fused_causal_mix_bwd_direct)
+// only for the shapes whose lengths do not factor here or whose tiles do
+// not fit a block.
 //
 // Lengths n = P * O: P a power of two (at least 4), O odd up to 31.  The
 // P-point transforms are radix-2 stages over interleaved sequences
@@ -22,8 +25,8 @@
 // two are on the main path.  Two real lanes ride one complex sequence
 // (a + i b) and are untangled where their spectra are read.  Twiddles are
 // rounded once from float64 on the host (a table of n / 2 entries for each
-// length; no fast math).  No warp shuffles and no atomics, so tests/cuda_emulation.py
-// runs both kernels on the CPU.
+// length; no fast math).  No warp shuffles and no atomics, so
+// tests/cuda_emulation.py runs every kernel here on the CPU.
 //
 // kf_spectra_fft_kernel, grid (lanes / (2 NP), B): NP lane pairs a block.
 //   The N/2 + 1 gate rows of the pairs are read once and packed as
@@ -60,6 +63,32 @@
 // channels and one block an SM.  Cutting the K reads further needs blocks
 // that share K columns (thread-block clusters) or a K layout whose group
 // lanes are contiguous, which #8 and #10 share.
+//
+// #10, the adjoint of #6 (the math: pallas_causal.py:1096-1182), three
+// launches on the caller's stream through two complex (B, nc, C+1, d)
+// scratch planes, V and A:
+//   bwd_window_kernel   the segment FFTs of [v_{s-1} | v_s] into V and of
+//                       [0 | ybar_s], scaled by the partial-irFFT weights,
+//                       into A; gs windows of NP channel pairs a block
+//   bwd_bins_fft_kernel Kbar (each gate group summed in a fixed order) and
+//                       Vbar over V, bin-major
+//   bwd_inverse_kernel  the adjoint segment rFFT and the overlap-add, one
+//                       inverse FFT a chunk, into vbar
+// Why three launches: a segment transform needs all bins of one window and
+// channel, Kbar needs every channel of a gate group and every segment of
+// one bin; neither set fits one block with the other, so the spectra go
+// through HBM between them.  What bounds it: HBM.  At the tiny LM's
+// training shape (B=8, nc=16, d=512, 16-channel groups) one complex plane
+// set is 67.6 MB and the three launches move ~0.6 GB (~0.18 ms at 3.35
+// TB/s).  The design's answers: the transforms take many windows a block
+// and write V and A as whole 64-byte runs of a bin row; a bin-major block
+// takes one bin and 256 channels (16 groups), stages A, V and K's triangle
+// for them in shared memory by async copies issued together, so K's
+// producer-layout rows are read as whole sectors and Kbar's rows written
+// as whole runs, and every staged value is read from shared memory by the
+// outputs that need it (A and V once from HBM); each thread's bin, group
+// and channel are fixed for the block, so the loops carry no divisions.
+// (PERF.md's findings have the trace that led there.)
 
 #include <cuda_pipeline.h>
 
@@ -73,6 +102,11 @@ namespace {
 constexpr int kKfThreads = 256;
 constexpr int kMixThreads = 512;
 constexpr int kMaxOdd = 31;
+// #10: threads of a transform block; the most threads of a bin-major block
+constexpr int kBwdThreads = 256;
+constexpr int kBinT = 512;
+// dynamic shared memory a Hopper block may use
+constexpr size_t kSmemMax = 232448;
 
 // Row of time t of a length-(P O) transform: t = t1 + O t2 at row
 // t1 + O bitrev(t2) (the input order of the forward, the output order of
@@ -387,6 +421,289 @@ fused_mix_fft_kernel(const float* __restrict__ v, ProducerK k,
   }
 }
 
+// ---- #10: the adjoint of fused_mix_fft_kernel, three launches -----------
+//
+// Complex planes (B, nc, C + 1, d) of float2, a channel's (re, im) at
+// [(b nc + s) (C + 1) + f] d + ch: V (segment spectra of v), A (ybar's
+// adjoint partial irFFT), Vbar (written over V).
+
+// V_s = rfft_2C([v_{s-1} | v_s]) (v_{-1} = 0) for blockIdx.z < batch, else
+// A_s = rfft_2C([0 | ybar_s]) * coef_f / 2C (1 at DC and Nyquist, 2
+// elsewhere; Im there zeroed: the adjoint of the partial irFFT rows
+// C..2C-1, pallas_causal.py:1122-1127), channels c0 .. c0 + 2 NP - 1 and
+// windows s0 .. s0 + gs - 1 of one batch row.  2C = P O.  Shared memory:
+// C twiddles (of 2C) and the (2C, gs NP) tile.
+template <int NP>
+__global__ void __launch_bounds__(kBwdThreads)
+bwd_window_kernel(const float* __restrict__ v, const float* __restrict__ ybar,
+                  const float2* __restrict__ tw_g, float2* __restrict__ vf,
+                  float2* __restrict__ af, int batch, int nc, int chunk,
+                  int log2p, int o, int d, int gs) {
+  extern __shared__ float2 smem2[];
+  const int n2 = 2 * chunk, p_len = n2 / o, f2 = chunk + 1;
+  const bool adj = (int)blockIdx.z >= batch;
+  const int b = adj ? (int)blockIdx.z - batch : (int)blockIdx.z;
+  const int c0 = blockIdx.x * 2 * NP, s0 = blockIdx.y * gs;
+  const int g = nc - s0 < gs ? nc - s0 : gs, s = g * NP;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const size_t row2 = (size_t)d / 2;
+  float2* tw = smem2;
+  float2* w = tw + chunk;                      // w[row * s + q]
+  const float2* x2 = reinterpret_cast<const float2*>(adj ? ybar : v) +
+                     (size_t)b * nc * chunk * row2 + c0 / 2;
+
+  for (int i = tid; i < chunk; i += nt) tw[i] = tw_g[i];
+  if (adj) {
+    // chunk u of rows s0 C .. (s0 + g) C - 1 is the upper half of window
+    // s0 + u, whose lower half is zeros
+    for (int i = tid; i < g * chunk * NP; i += nt) {
+      const int p = i % NP, rr = i / NP, u = rr / chunk, t = rr % chunk;
+      const int q = u * NP + p;
+      w[(size_t)time_row(chunk + t, o, log2p) * s + q] =
+          x2[((size_t)s0 * chunk + rr) * row2 + p];
+      w[(size_t)time_row(t, o, log2p) * s + q] = make_float2(0.f, 0.f);
+    }
+  } else {
+    // rows (s0 - 1) C .. (s0 + g) C - 1, each read once: chunk u of them is
+    // the upper half of window s0 + u - 1 and the lower half of s0 + u
+    for (int i = tid; i < (g + 1) * chunk * NP; i += nt) {
+      const int p = i % NP, rr = i / NP;
+      const long row = (long)(s0 - 1) * chunk + rr;
+      const float2 x = row >= 0 ? x2[(size_t)row * row2 + p]
+                                : make_float2(0.f, 0.f);
+      const int u = rr / chunk, t = rr % chunk;
+      if (u >= 1)
+        w[(size_t)time_row(chunk + t, o, log2p) * s + (u - 1) * NP + p] = x;
+      if (u < g) w[(size_t)time_row(t, o, log2p) * s + u * NP + p] = x;
+    }
+  }
+  __syncthreads();
+  fft_passes<true>(w, log2p, o * s, tw, o, -1.f, 0);
+  if (o > 1) odd_pass(w, o, p_len, s, tw, 1, chunk, -1.f);
+  // q fastest: a warp writes 2 NP-channel runs of a bin row
+  const float inv_n2 = 1.f / (float)n2;
+  float2* out = (adj ? af : vf) + ((size_t)b * nc + s0) * f2 * d + c0;
+  for (Walk it(s); it.r < f2; it.next(s)) {
+    const int q = it.q, f = it.r, ss = q / NP, p = q % NP;
+    const int fm = f == 0 ? 0 : n2 - f;
+    float2 va, vb;
+    untangle(w[(size_t)freq_row(f, o, log2p) * s + q],
+             w[(size_t)freq_row(fm, o, log2p) * s + q], va, vb);
+    if (adj) {
+      const bool edge = (f == 0) || (f == chunk);
+      const float sc = edge ? inv_n2 : 2.f * inv_n2;
+      va = make_float2(va.x * sc, edge ? 0.f : va.y * sc);
+      vb = make_float2(vb.x * sc, edge ? 0.f : vb.y * sc);
+    }
+    float2* dst = out + ((size_t)ss * f2 + f) * d + 2 * p;
+    dst[0] = va;
+    dst[1] = vb;
+  }
+}
+
+// Kbar planes (B, nc_dl, C + 1, nc cols) in K's producer layout and Vbar
+// (over V), bin-major.  A block takes `rows` bins and whole gate groups (ng
+// of them, ng d_g channels) of one batch row and stages, by async copies
+// issued together: A_c and V_c of its bins and channels for every c < nc
+// (a bin row of a segment holds a slot of padding after each group, so
+// that threads summing different groups read distinct banks) and K[dl][f][c
+// cols + g] for c >= dl (for one (dl, f) the lanes c cols + g are
+// contiguous in the producer layout: whole sectors).  The nc^2 (dl, c)
+// pairs are listed in shared memory, those with c >= dl first.  Then
+//   Kbar[dl][f][c cols + g] = sum_{e in g} A_c[f, e] conj(V_{c-dl}[f, e]):
+//     one thread an output (pair, bin, group), the group's channels summed
+//     in order, even and odd ones apart and then added: no atomics, no
+//     shuffles, the same bits every run; neighbouring threads take
+//     neighbouring groups, so a warp writes whole runs of a Kbar row;
+//     exactly 0 for c < dl;
+//   Vbar_j[f, ch] = sum_{c >= j} conj(K[c-j][f][c cols + g]) A_c[f, ch]:
+//     one thread a (bin, channel), in the plain version's order (dl = c - j
+//     rising), written over V (staged before any write).
+// A thread's bin, group and channel are fixed for the whole block (bt is
+// rows ng d_g threads), so the loops carry no divisions.  Shared memory
+// (bins_smem): A and V (nc rows prow), K's triangle (tri(dl, c) = dl nc -
+// dl (dl - 1) / 2 + c - dl), the pair list.
+__global__ void __launch_bounds__(kBinT)
+bwd_bins_fft_kernel(const float2* __restrict__ af, float2* vf, ProducerK k,
+                    float* __restrict__ kbr, float* __restrict__ kbi, int nc,
+                    int d, int ng, int rows) {
+  extern __shared__ float2 smem2[];
+  const int f2 = k.f2, d_g = d / k.cols, prow = ng * (d_g + 1);
+  const int tid = threadIdx.x;
+  const int gfirst = blockIdx.x * ng, f0 = blockIdx.y * rows, b = blockIdx.z;
+  const int ngt = k.cols - gfirst < ng ? k.cols - gfirst : ng;
+  const int wt = ngt * d_g;                    // channels of this tile
+  const int pairs = nc * (nc + 1) / 2;
+  const size_t seg = (size_t)rows * prow;      // one segment's staged rows
+  float2* as = smem2;                          // as[(c rows + r) prow + slot]
+  float2* vs = as + (size_t)nc * seg;
+  float2* ks = vs + (size_t)nc * seg;          // ks[(tri rows + r) ng + gl]
+  int* pt = reinterpret_cast<int*>(ks + (size_t)pairs * rows * ng);
+  const size_t plane = (size_t)f2 * d, lanes = (size_t)nc * k.cols;
+  const size_t base = ((size_t)b * nc * f2 + f0) * d + (size_t)gfirst * d_g;
+  // channel threads: (bin r_e, channel e); output threads: (bin r_o, group
+  // g) of pair slot p_o, `slots` pairs at once
+  const int r_e = tid / wt, e = tid % wt, gl_e = e / d_g;
+  const bool chan = r_e < rows && f0 + r_e < f2;
+  const int npt = rows * ngt, slots = blockDim.x / npt;
+  const int g = tid % ngt, r_o = tid / ngt % rows, p_o = tid / npt;
+  const bool out = p_o < slots && f0 + r_o < f2;
+
+  if (chan) {
+    const float2* a_g = af + base + (size_t)r_e * d + e;
+    const float2* v_g = vf + base + (size_t)r_e * d + e;
+    const size_t so = (size_t)r_e * prow + e + gl_e;
+    for (int c = 0; c < nc; ++c) {
+      __pipeline_memcpy_async(as + so + c * seg, a_g + c * plane,
+                              sizeof(float2));
+      __pipeline_memcpy_async(vs + so + c * seg, v_g + c * plane,
+                              sizeof(float2));
+    }
+  }
+  for (int q = tid; q < nc * nc; q += blockDim.x) {
+    int dl, c;
+    if (q < pairs) {                           // c >= dl, dl-major
+      dl = 0;
+      c = q;
+      while (c >= nc - dl) c -= nc - dl++;
+      c += dl;
+    } else {                                   // c < dl
+      dl = 1;
+      c = q - pairs;
+      while (c >= dl) c -= dl++;
+    }
+    pt[q] = (dl << 16) | c;
+  }
+  __syncthreads();                             // the pair list is written
+  float* kd = reinterpret_cast<float*>(ks);
+  if (out) {
+    const size_t k_g = (((size_t)b * nc) * f2 + f0 + r_o) * lanes + gfirst + g;
+    for (int p = p_o; p < pairs; p += slots) {
+      const int dl = pt[p] >> 16, c = pt[p] & 0xffff;
+      const size_t ko = k_g + (size_t)dl * f2 * lanes + (size_t)c * k.cols;
+      const size_t slot = ((size_t)p * rows + r_o) * ng + g;
+      __pipeline_memcpy_async(kd + 2 * slot, k.re + ko, sizeof(float));
+      __pipeline_memcpy_async(kd + 2 * slot + 1, k.im + ko, sizeof(float));
+    }
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  if (out) {
+    const size_t k_g = (((size_t)b * nc) * f2 + f0 + r_o) * lanes + gfirst + g;
+    const float2* a_o = as + (size_t)r_o * prow + g * (d_g + 1);
+    const float2* v_o = vs + (size_t)r_o * prow + g * (d_g + 1);
+    for (int p = p_o; p < nc * nc; p += slots) {
+      const int dl = pt[p] >> 16, c = pt[p] & 0xffff;
+      float sr = 0.f, si = 0.f;
+      if (c >= dl) {                           // A_c conj(V_{c-dl})
+        const float2* ap = a_o + (size_t)c * seg;
+        const float2* xp = v_o + (size_t)(c - dl) * seg;
+        float sr1 = 0.f, si1 = 0.f;
+        int j = 0;
+#pragma unroll 4
+        for (; j + 1 < d_g; j += 2) {
+          const float2 a0 = ap[j], x0 = xp[j], a1 = ap[j + 1], x1 = xp[j + 1];
+          sr = fmaf(a0.x, x0.x, fmaf(a0.y, x0.y, sr));
+          si = fmaf(a0.y, x0.x, fmaf(-a0.x, x0.y, si));
+          sr1 = fmaf(a1.x, x1.x, fmaf(a1.y, x1.y, sr1));
+          si1 = fmaf(a1.y, x1.x, fmaf(-a1.x, x1.y, si1));
+        }
+        if (j < d_g) {
+          const float2 a0 = ap[j], x0 = xp[j];
+          sr = fmaf(a0.x, x0.x, fmaf(a0.y, x0.y, sr));
+          si = fmaf(a0.y, x0.x, fmaf(-a0.x, x0.y, si));
+        }
+        sr += sr1;
+        si += si1;
+      }
+      const size_t ko = k_g + (size_t)dl * f2 * lanes + (size_t)c * k.cols;
+      kbr[ko] = sr;
+      kbi[ko] = si;
+    }
+  }
+
+  if (chan) {
+    const float2* ap = as + (size_t)r_e * prow + e + gl_e;
+    const float2* kp = ks + (size_t)r_e * ng + gl_e;
+    float2* o = vf + base + (size_t)r_e * d + e;
+    const size_t kstep = (size_t)rows * ng;
+    for (int j = 0; j < nc; ++j) {
+      float2 s = make_float2(0.f, 0.f);
+      // K[dl][c = j + dl] sits at tri(dl, j + dl) = start(dl) + j, where
+      // start(dl + 1) = start(dl) + nc - dl
+      for (int c = j, t = j; c < nc; t += nc - (c - j), ++c) {
+        const float2 kv = kp[t * kstep], av = ap[c * seg];
+        s.x = fmaf(kv.x, av.x, fmaf(kv.y, av.y, s.x));
+        s.y = fmaf(kv.x, av.y, fmaf(-kv.y, av.x, s.y));
+      }
+      o[(size_t)j * plane] = s;
+    }
+  }
+}
+
+// vbar (B, N, d) from the Vbar planes: chunk s, row t is segbar_s[C + t] +
+// segbar_{s+1}[t], segbar_s[t] = sum_{f <= C} Re(Vbar_s[f] e^{+i 2 pi f t /
+// 2C}), the adjoint of the segment rFFT.  As causal_long.cu's
+// chunk_inverse_kernel: segbar_s = IFFT(H_s), H_s Hermitian with Re Vbar at
+// DC and Nyquist and Vbar / 2 between, and a shift by C is (-1)^f, so the
+// two terms are one inverse FFT of (-1)^f H_s + H_{s+1}, rows 0..C-1.
+// Channels c0 .. c0 + 2 NP - 1, chunks s0 .. s0 + gs - 1.  Shared memory:
+// C twiddles and the (2C, gs NP) tile.
+template <int NP>
+__global__ void __launch_bounds__(kBwdThreads)
+bwd_inverse_kernel(const float2* __restrict__ vb,
+                   const float2* __restrict__ tw_g, float* __restrict__ vbar,
+                   int nc, int chunk, int log2p, int o, int d, int gs) {
+  extern __shared__ float2 smem2[];
+  const int n2 = 2 * chunk, p_len = n2 / o, f2 = chunk + 1;
+  const int c0 = blockIdx.x * 2 * NP, s0 = blockIdx.y * gs, b = blockIdx.z;
+  const int g = nc - s0 < gs ? nc - s0 : gs, s = g * NP;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const size_t plane = (size_t)f2 * d, row2 = (size_t)d / 2;
+  float2* tw = smem2;
+  float2* w = tw + chunk;                      // w[row * s + q]
+  const float2* src = vb + ((size_t)b * nc + s0) * plane + c0;
+
+  for (int i = tid; i < chunk; i += nt) tw[i] = tw_g[i];
+  for (Walk it(s); it.r < f2; it.next(s)) {
+    const int q = it.q, f = it.r, ss = q / NP, p = q % NP;
+    const bool edge = (f == 0) || (f == chunk);
+    const float wgt = edge ? 1.f : 0.5f;
+    const float sw = (f & 1) ? -wgt : wgt;     // (-1)^f weight
+    const float2* cur = src + (size_t)ss * plane + (size_t)f * d + 2 * p;
+    const float2 xa = cur[0], xb = cur[1];
+    float2 ga = make_float2(sw * xa.x, edge ? 0.f : sw * xa.y);
+    float2 gb = make_float2(sw * xb.x, edge ? 0.f : sw * xb.y);
+    if (s0 + ss + 1 < nc) {
+      const float2 na = cur[plane], nb = cur[plane + 1];
+      ga.x += wgt * na.x;
+      gb.x += wgt * nb.x;
+      if (!edge) {
+        ga.y += wgt * na.y;
+        gb.y += wgt * nb.y;
+      }
+    }
+    // one inverse of Z = Ga + i Gb returns both lanes as re / im
+    w[(size_t)freq_row(f, o, log2p) * s + q] =
+        make_float2(ga.x - gb.y, ga.y + gb.x);
+    if (!edge)
+      w[(size_t)freq_row(n2 - f, o, log2p) * s + q] =
+          make_float2(ga.x + gb.y, gb.x - ga.y);
+  }
+  __syncthreads();
+  if (o > 1) odd_pass(w, o, p_len, s, tw, 1, chunk, 1.f);
+  fft_passes<false>(w, log2p, o * s, tw, o, 1.f, 0);
+  float2* out = reinterpret_cast<float2*>(vbar) +
+                ((size_t)b * nc + s0) * chunk * row2 + c0 / 2;
+  for (Walk it(s); it.r < chunk; it.next(s)) {
+    const int q = it.q, t = it.r, ss = q / NP, p = q % NP;
+    out[((size_t)ss * chunk + t) * row2 + p] =
+        w[(size_t)time_row(t, o, log2p) * s + q];
+  }
+}
+
 // Dynamic shared memory of the two kernels, in bytes.  kernels/causal.py
 // holds the same formulas for its shape choice (a block may use 227 KB).
 size_t kf_fft_smem(int n_fft, int chunk, int np, int gs) {
@@ -398,6 +715,27 @@ size_t mix_fft_smem(int nc, int chunk, int np, int gs, int ng) {
   return ((size_t)chunk + (size_t)nc * chunk * 2 * np +
           (size_t)2 * chunk * gs * np + (size_t)2 * nc * chunk * ng) *
          sizeof(float2);
+}
+
+// #10's transform blocks: C twiddles and the (2C, gs np) tile.  Its
+// bin-major blocks of bt threads: whole gate groups, ng of them (ng d_g <=
+// bt channels), rows = bt / (ng d_g) bins a block; shared memory for A and
+// V (nc segments of rows padded bin rows), K's triangle and the pair
+// table.
+size_t bwd_fft_smem(int chunk, int np, int gs) {
+  return ((size_t)chunk + (size_t)2 * chunk * gs * np) * sizeof(float2);
+}
+
+void bin_tile(int d, int cols, int bt, int* ng, int* rows) {
+  const int d_g = d / cols;
+  *ng = bt / d_g < cols ? bt / d_g : cols;
+  *rows = bt / (*ng * d_g);
+}
+
+size_t bins_smem(int nc, int ng, int rows, int d_g) {
+  const size_t pairs = (size_t)nc * (nc + 1) / 2;
+  return ((size_t)2 * nc * rows * ng * (d_g + 1) + pairs * rows * ng) *
+             sizeof(float2) + (size_t)nc * nc * sizeof(int);
 }
 
 // n = P * O with O odd <= kMaxOdd and P >= 4 a power of two; false
@@ -455,6 +793,56 @@ int launch_mix(const float* v, const float* kfr, const float* kfi,
   return (int)cudaGetLastError();
 }
 
+// #10's three launches on the NP-pair transform tile: the windows of v and
+// ybar into V and A, the bin-major Kbar and Vbar, the inverse into vbar.
+template <int NP>
+int launch_bwd(const float* v, const float* kfr, const float* kfi,
+               const float* ybar, const float* tw, float* vf, float* af,
+               float* vbar, float* kbr, float* kbi, int b, int nc, int chunk,
+               int d, int cols, int gs, int bt, cudaStream_t st) {
+  int log2p, o;
+  if (!split_odd(2 * chunk, &log2p, &o) || d % (2 * NP) != 0 || cols < 1 ||
+      d % cols != 0 || nc < 1 || nc > 255 || gs < 1 || bt < 32 ||
+      bt > kBinT || bt % 32 != 0 || d / cols > bt)
+    return (int)cudaErrorInvalidValue;
+  const float2* tw2 = reinterpret_cast<const float2*>(tw);
+  float2* vf2 = reinterpret_cast<float2*>(vf);
+  float2* af2 = reinterpret_cast<float2*>(af);
+  const size_t smem = bwd_fft_smem(chunk, NP, gs);
+  const int windows = (nc + gs - 1) / gs;
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_window_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  bwd_window_kernel<NP><<<dim3(d / (2 * NP), windows, 2 * b), kBwdThreads,
+                          smem, st>>>(v, ybar, tw2, vf2, af2, b, nc, chunk,
+                                      log2p, o, d, gs);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  int ng, rows;
+  bin_tile(d, cols, bt, &ng, &rows);
+  const size_t bsmem = bins_smem(nc, ng, rows, d / cols);
+  if (bsmem > kSmemMax) return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(bwd_bins_fft_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bsmem);
+  if (err != cudaSuccess) return (int)err;
+  const ProducerK k{kfr, kfi, nc, chunk + 1, cols};
+  bwd_bins_fft_kernel<<<dim3((cols + ng - 1) / ng, (chunk + rows) / rows, b),
+                        bt, bsmem, st>>>(af2, vf2, k, kbr, kbi, nc, d, ng,
+                                         rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  err = cudaFuncSetAttribute(bwd_inverse_kernel<NP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  bwd_inverse_kernel<NP><<<dim3(d / (2 * NP), windows, b), kBwdThreads,
+                           smem, st>>>(vf2, tw2, vbar, nc, chunk, log2p, o,
+                                       d, gs);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -502,6 +890,37 @@ int fft_fused_causal_mix(const float* v, const float* kfr, const float* kfi,
     case 4:
       return launch_mix<4>(v, kfr, kfi, tw, out, b, nc, chunk, d, cols, gs,
                            st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// vbar (B, N, d) and Kbar planes (B, nc, C+1, nc*cols) from raw values v,
+// cotangent ybar (both (B, N, d)) and producer-layout K planes (B, nc,
+// C+1, nc*cols).  tw: (2C, 2) twiddles (the first C are read).  vf, af:
+// (B, nc, C+1, d, 2) scratch (Vbar is written over vf).  np: channel pairs
+// a transform block (1, 2 or 4); gs: windows a transform block; bt:
+// threads a bin-major block (a multiple of 32 up to 512).  Returns
+// cudaErrorInvalidValue where 2C does not split as P * O, a gate group is
+// wider than bt channels, a bin-major block's staging does not fit shared
+// memory, or the tile does not divide d.
+int fft_fused_causal_mix_bwd(const float* v, const float* kfr,
+                             const float* kfi, const float* ybar,
+                             const float* tw, float* vf, float* af,
+                             float* vbar, float* kbr, float* kbi, int b,
+                             int nc, int chunk, int d, int cols, int np,
+                             int gs, int bt, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (np) {
+    case 1:
+      return launch_bwd<1>(v, kfr, kfi, ybar, tw, vf, af, vbar, kbr, kbi, b,
+                           nc, chunk, d, cols, gs, bt, st);
+    case 2:
+      return launch_bwd<2>(v, kfr, kfi, ybar, tw, vf, af, vbar, kbr, kbi, b,
+                           nc, chunk, d, cols, gs, bt, st);
+    case 4:
+      return launch_bwd<4>(v, kfr, kfi, ybar, tw, vf, af, vbar, kbr, kbi, b,
+                           nc, chunk, d, cols, gs, bt, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

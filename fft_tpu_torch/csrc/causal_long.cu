@@ -19,7 +19,10 @@
 // Launches (all on the caller's stream, blocks independent, no atomics, no
 // warp shuffles, so every sum runs in a fixed order and results repeat bit
 // for bit; tests/cuda_emulation.py runs each on the CPU):
-//   segment_fft_kernel   #9: rfft_2C([k_s ; 0]) of 8 lanes, radix-2 stages
+//   seg_rfft_kernel      #9: rfft_2C([k_s ; 0]) as two C-point FFTs of the
+//                        segment (even bins) and of the segment times
+//                        e^{-i pi t / C} (odd bins): the zero half is never
+//                        loaded or transformed; NP lane pairs a block
 //   window_fft_kernel    #7, #11: rfft_2C([v_{s-1} | v_s]) and (#11, the
 //                        same launch) rfft_2C([0 | ybar_s]) scaled by the
 //                        partial-irFFT weights, the adjoint of #7's last
@@ -54,6 +57,13 @@
 // 4096 the 4-pair tile (160 KB) gives a block an SM, so its load, passes
 // and store take turns: a block loops over the segments (one twiddle
 // table, no tail wave), and those turns, not HBM, bound the transforms.
+// #9 (B=1, N=16384, L=512 at the 350M's layer) must read kt (32 MB) and
+// write the K planes (67 MB), 0.030 ms at 3.35 TB/s: its blocks walk the
+// (8 lanes, segment) items, one block an SM (224 KB: the staging buffer,
+// the tile of 2 x 4 sequences of 2048 points, the twiddle tables), and the
+// next item's rows arrive by async copies while this item's four passes
+// (the first from the staging buffer, two 16-element register passes, a
+// radix-2 pass) and its store run.
 
 #include <cuda_pipeline.h>
 
@@ -62,12 +72,11 @@
 
 namespace {
 
-// #9's block: 8 lanes (4 complex sequences), 256 threads
-constexpr int kLongThreads = 256;
-constexpr int kPairs = 4;
-constexpr int kTileCh = 2 * kPairs;
 // the window FFTs and inverses: at most this many threads a block
 constexpr int kFftThreads = 512;
+// #9's block: 4 lane pairs, each packed as a + i b (8 lanes: a row of kt
+// is one 32-byte sector; 2 or 1 pairs ran 1.4-3x slower, PERF.md)
+constexpr int kPairs = 4;
 // dynamic shared memory a Hopper block may use
 constexpr size_t kSmemMax = 232448;
 // the bin-major sums: a warp a bin row, 8 rows a block
@@ -81,49 +90,6 @@ constexpr int kPairT = 4;     // Kbar: a 4 x 4 tile of (c, s) pairs a round
 // a row of Kbar partials in shared memory, padded: the group sums read
 // one partial of 16 rows at once, which then sit in distinct banks
 constexpr int kPartRow = kRowThreads + 1;
-
-// K planes (B, nc, C+1, L) = rfft_2C([k_s ; 0]) for lanes l0..l0+7 of kt
-// (B, N, L).  grid = (L / 8, nc, B).  Shared memory: C twiddles and the
-// (2C, kPairs) complex tile, lanes (2p, 2p+1) packed as a + i b.
-__global__ void __launch_bounds__(kLongThreads)
-segment_fft_kernel(const float* __restrict__ x,
-                   const float2* __restrict__ tw_g, float* __restrict__ outr,
-                   float* __restrict__ outi, int nc, int chunk, int log2n,
-                   int w) {
-  extern __shared__ float2 smem2[];
-  const int n2 = 2 * chunk, f2 = chunk + 1;
-  const long n = (long)nc * chunk;
-  const int l0 = blockIdx.x * kTileCh, s = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  float2* tw = smem2;
-  float2* z = tw + chunk;                       // z[t * kPairs + p]
-  const size_t row2 = (size_t)w / 2;            // float2 per row of x
-  const float2* x2 =
-      reinterpret_cast<const float2*>(x) + (size_t)b * n * row2 + l0 / 2;
-
-  for (int i = tid; i < chunk; i += nt) tw[i] = tw_g[i];
-  for (int i = tid; i < n2 * kPairs; i += nt) {
-    const int p = i % kPairs, t = i / kPairs;
-    const long row = (long)s * chunk + t;
-    z[bitrev(t, log2n) * kPairs + p] =
-        t < chunk ? x2[(size_t)row * row2 + p] : make_float2(0.f, 0.f);
-  }
-  __syncthreads();
-  fft_stages<true>(z, n2, log2n, kPairs, kPairs, 1, tw, -1.f);
-
-  float2* or2 = reinterpret_cast<float2*>(outr);
-  float2* oi2 = reinterpret_cast<float2*>(outi);
-  for (int i = tid; i < f2 * kPairs; i += nt) {
-    const int p = i % kPairs, k = i / kPairs;
-    const int km = (n2 - k) & (n2 - 1);
-    const float2 zk = z[k * kPairs + p], zm = z[km * kPairs + p];
-    // untangle: lane a = (Z[k] + conj Z[-k]) / 2, lane b = (Z[k] - conj
-    // Z[-k]) / 2i; the imaginary parts at DC and Nyquist come out 0
-    const size_t o = (((size_t)b * nc + s) * f2 + k) * row2 + l0 / 2 + p;
-    or2[o] = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y + zm.y));
-    oi2[o] = make_float2(0.5f * (zk.y - zm.y), -0.5f * (zk.x - zm.x));
-  }
-}
 
 // The radix-4 pass of spans 1 and 2 (stages 0 and 1) over `seqs`
 // interleaved sequences, as fft_common.cuh's radix4_pass computes it at s
@@ -266,6 +232,156 @@ __device__ void long_fft(float2* buf, int log2n, int seqs,
       radix4_pass<false>(buf, log2n, top - 2, seqs, tw, 1, sign);
     if (top == 3) radix2_pass<false>(buf, log2n, 2, seqs, tw, 1, sign);
     span1_pass<false>(buf, log2n, seqs, sign);
+  }
+}
+
+// #9 -------------------------------------------------------------------
+//
+// rfft_2C([x ; 0]) of a C-row segment (C = 2^log2c) with two lanes packed
+// as z = a + i b: the even bins are the C-point FFT of z and the odd bins
+// the C-point FFT of z_t e^{-i pi t / C}, Z[2m] = A[m], Z[2m+1] = B[m], so
+// the zero half is never loaded, stored or transformed.  Each lane pair
+// gives two sequences (A at q = p, B at q = NP + p), transformed by
+// decimation in time from bit-reversed input.
+
+// Async copies of item it's C rows of x2 (lane tile, segment, batch row:
+// the lane tile fastest) into st, row u holding time bitrev(u).  Not
+// committed.
+template <int NP>
+__device__ void load_segment(float2* st, const float2* x2, int it, int tiles,
+                             int nc, int chunk, int log2c, size_t row2) {
+  const int lt = it % tiles, s = (it / tiles) % nc, b = it / (tiles * nc);
+  const float2* src = x2 + ((size_t)b * nc + s) * chunk * row2 + lt * NP;
+  for (int i = threadIdx.x; i < chunk * NP; i += blockDim.x) {
+    const int p = i % NP, u = i / NP;
+    const int t = log2c > 0 ? bitrev(u, log2c) : 0;
+    __pipeline_memcpy_async(st + i, src + (size_t)t * row2 + p,
+                            sizeof(float2));
+  }
+}
+
+// From the staged rows st (NP sequences, bit-reversed order) the 2 NP
+// sequences of z: A = z and B = z_t e^{-i pi t / C} (wb[u] = e^{+i pi
+// bitrev(u) / C}), with DIT stages 0 and 1 done on the way (log2c >= 2;
+// else copied, no stage).  As span1_pass, the thread of butterfly r takes
+// element (m + r) mod 4 at its m-th access, which spreads the banks.
+// Returns the first stage left; ends with __syncthreads (st is free).
+template <int NP>
+__device__ int seg_first_pass(float2* z, const float2* st, const float2* wb,
+                              int chunk, int log2c) {
+  constexpr int S = 2 * NP;
+  if (log2c < 2) {
+    for (int i = threadIdx.x; i < chunk * NP; i += blockDim.x) {
+      const int p = i % NP, u = i / NP;
+      const float2 x = st[i], w = wb[u];
+      z[(size_t)u * S + p] = x;
+      z[(size_t)u * S + NP + p] = cmul(x, make_float2(w.x, -w.y));
+    }
+    __syncthreads();
+    return 0;
+  }
+  for (Walk it(NP); it.r < (chunk >> 2); it.next(NP)) {
+    const int u0 = it.r << 2, p = it.q, rot = it.r & 3;
+    float2 a0, a1, a2, a3, b0, b1, b2, b3;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int k = (m + rot) & 3;
+      const float2 x = st[(size_t)(u0 + k) * NP + p], w = wb[u0 + k];
+      const float2 y = cmul(x, make_float2(w.x, -w.y));
+      if (k == 0) { a0 = x; b0 = y; }
+      else if (k == 1) { a1 = x; b1 = y; }
+      else if (k == 2) { a2 = x; b2 = y; }
+      else { a3 = x; b3 = y; }
+    }
+    // radix-4 DIT butterflies (spans 1 and 2), forward: W_4 = -i
+    const float2 pa0 = cadd(a0, a1), pa1 = csub(a0, a1);
+    const float2 pa2 = cadd(a2, a3), da3 = csub(a2, a3);
+    const float2 pa3 = make_float2(da3.y, -da3.x);
+    const float2 pb0 = cadd(b0, b1), pb1 = csub(b0, b1);
+    const float2 pb2 = cadd(b2, b3), db3 = csub(b2, b3);
+    const float2 pb3 = make_float2(db3.y, -db3.x);
+    const float2 oa[4] = {cadd(pa0, pa2), cadd(pa1, pa3), csub(pa0, pa2),
+                          csub(pa1, pa3)};
+    const float2 ob[4] = {cadd(pb0, pb2), cadd(pb1, pb3), csub(pb0, pb2),
+                          csub(pb1, pb3)};
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int k = (m + rot) & 3;
+      float2* row = z + (size_t)(u0 + k) * S;
+      row[p] = k == 0 ? oa[0] : k == 1 ? oa[1] : k == 2 ? oa[2] : oa[3];
+      row[NP + p] = k == 0 ? ob[0] : k == 1 ? ob[1] : k == 2 ? ob[2] : ob[3];
+    }
+  }
+  __syncthreads();
+  return 2;
+}
+
+// K planes (B, nc, C+1, L) = rfft_2C([x_s ; 0]) of x (B, N, L).  Blocks
+// walk the items it = blockIdx.x, + gridDim.x, .. (NP lane pairs of one
+// segment and batch row), so a block keeps one twiddle table and there is
+// no tail wave; the next item's rows arrive by async copies into the
+// staging buffer while this item's passes run.  Shared memory: the C-point
+// stage twiddle tables (C - 1, padded to C), wb (C), the staging buffer
+// (C, NP) and the tile (C, 2 NP).
+template <int NP, bool kWide>
+__global__ void __launch_bounds__(kFftThreads)
+seg_rfft_kernel(const float* __restrict__ x, const float2* __restrict__ tw_g,
+                float* __restrict__ outr, float* __restrict__ outi,
+                int batch, int nc, int chunk, int log2c, int lanes) {
+  extern __shared__ float2 smem2[];
+  constexpr int S = 2 * NP;
+  const int f2 = chunk + 1, tiles = lanes / (2 * NP);
+  const int items = tiles * nc * batch;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  float2* tws = smem2;                          // stage tables, spans < C
+  float2* wb = tws + chunk;
+  float2* st = wb + chunk;                      // st[u * NP + p]
+  float2* z = st + (size_t)chunk * NP;          // z[u * S + q]
+  const size_t row2 = (size_t)lanes / 2;
+  const float2* x2 = reinterpret_cast<const float2*>(x);
+  float2* or2 = reinterpret_cast<float2*>(outr);
+  float2* oi2 = reinterpret_cast<float2*>(outi);
+
+  // span H at tws[H - 1 + p] = (cos, sin)(2 pi p / 2H) = tw_g[p C / H]
+  for (int i = tid; i < chunk - 1; i += nt) {
+    const int span = 1 << (31 - __clz(i + 1));
+    __pipeline_memcpy_async(tws + i, tw_g + (size_t)(i - (span - 1)) *
+                                               (chunk / span),
+                            sizeof(float2));
+  }
+  for (int u = tid; u < chunk; u += nt)
+    __pipeline_memcpy_async(wb + u, tw_g + (log2c > 0 ? bitrev(u, log2c) : 0),
+                            sizeof(float2));
+  int it = blockIdx.x;
+  if (it < items)
+    load_segment<NP>(st, x2, it, tiles, nc, chunk, log2c, row2);
+  __pipeline_commit();
+  for (; it < items; it += gridDim.x) {
+    __pipeline_wait_prior(0);
+    __syncthreads();                            // item it's rows are in st
+    int s = seg_first_pass<NP>(z, st, wb, chunk, log2c);
+    if (it + (int)gridDim.x < items)
+      load_segment<NP>(st, x2, it + gridDim.x, tiles, nc, chunk, log2c, row2);
+    __pipeline_commit();
+    for (; kWide && log2c - s >= 4; s += 4)
+      reg_pass<true, 4>(z, log2c, s, S, tws, -1.f);
+    fft_passes<true>(z, log2c, S, tws + (chunk >> 1) - 1, 1, -1.f, s);
+
+    // bin k of the pair: Z[k] and Z[2C - k] from A (k even) or B (k odd);
+    // lane a = (Z[k] + conj Z[-k]) / 2, lane b = (Z[k] - conj Z[-k]) / 2i,
+    // Im exactly 0 at DC and Nyquist
+    const int lt = it % tiles, seg = (it / tiles) % nc, b = it / (tiles * nc);
+    const size_t o0 = ((size_t)b * nc + seg) * f2 * row2 + lt * NP;
+    for (Walk w(NP); w.r < f2; w.next(NP)) {
+      const int p = w.q, k = w.r, m = k >> 1, odd = k & 1;
+      const int mm = odd ? chunk - m - 1 : (chunk - m) & (chunk - 1);
+      const int q = odd ? NP + p : p;
+      const float2 zk = z[(size_t)m * S + q], zm = z[(size_t)mm * S + q];
+      const size_t o = o0 + (size_t)k * row2 + p;
+      or2[o] = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y + zm.y));
+      oi2[o] = make_float2(0.5f * (zk.y - zm.y), -0.5f * (zk.x - zm.x));
+    }
+    __syncthreads();                            // z is free again
   }
 }
 
@@ -712,12 +828,12 @@ bwd_bins_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
   }
 }
 
-// Dynamic shared memory, in bytes, of #9's block (C twiddles and the (2C,
-// kPairs) complex tile; kernels/causal.py::_long_smem) and of #7's and
-// #11's transforms (the 2C-entry stage twiddle table and the (2C, NP)
-// tile).
+// Dynamic shared memory, in bytes, of #9's block (the stage tables and wb,
+// C each, the (C, kPairs) staging buffer and the (C, 2 kPairs) tile;
+// kernels/causal.py::_seg_smem) and of #7's and #11's transforms (the
+// 2C-entry stage twiddle table and the (2C, NP) tile).
 size_t seg_smem(int chunk) {
-  return ((size_t)chunk + (size_t)2 * chunk * kPairs) * sizeof(float2);
+  return (size_t)chunk * (2 + 3 * kPairs) * sizeof(float2);
 }
 
 size_t fft_tile_smem(int chunk, int np) {
@@ -835,18 +951,33 @@ int launch_long_np(const LongArgs& a, int np) {
 
 extern "C" {
 
-// K planes (B, nc, C+1, L) = rfft_2C([kt segment ; 0]) from kt (B, N, L).
-// tw: (2C, 2) twiddles (the first C are read).
+// K planes (B, nc, C+1, L) = rfft_2C([kt segment ; 0]) from kt (B, N, L),
+// C a power of two.  tw: (2C, 2) twiddles (the first C are read).
+// threads: a block's threads (a multiple of 32 up to 512); sms: the card's
+// multiprocessors (the grid is as many blocks as fit on them at once, or
+// one an item).  cudaErrorInvalidValue for other shapes.
 int fft_kf_seg_rfft(const float* kt, const float* tw, float* kfr, float* kfi,
-                    int b, int n, int chunk, int lanes, void* stream) {
-  const int nc = n / chunk;
+                    int b, int n, int chunk, int lanes, int threads, int sms,
+                    void* stream) {
+  if (chunk < 1 || (chunk & (chunk - 1)) != 0 || n % chunk != 0 ||
+      lanes % (2 * kPairs) != 0 || threads < 32 || threads > kFftThreads ||
+      threads % 32 != 0 || sms < 1)
+    return (int)cudaErrorInvalidValue;
+  const int nc = n / chunk, log2c = log2_of(chunk);
   const size_t smem = seg_smem(chunk);
-  cudaError_t err = set_smem(segment_fft_kernel, smem);
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  const int items = lanes / (2 * kPairs) * nc * b;
+  int per_sm = (int)(kSmemMax / smem);
+  if (per_sm > 2048 / threads) per_sm = 2048 / threads;
+  const int grid = items < sms * per_sm ? items : sms * per_sm;
+  const auto kernel = wide_passes(log2c, 2 * kPairs, threads)
+                          ? seg_rfft_kernel<kPairs, true>
+                          : seg_rfft_kernel<kPairs, false>;
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  segment_fft_kernel<<<dim3(lanes / kTileCh, nc, b), kLongThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      kt, reinterpret_cast<const float2*>(tw), kfr, kfi, nc, chunk,
-      log2_of(2 * chunk), lanes);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      kt, reinterpret_cast<const float2*>(tw), kfr, kfi, b, nc, chunk, log2c,
+      lanes);
   return (int)cudaGetLastError();
 }
 

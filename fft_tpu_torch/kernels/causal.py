@@ -21,16 +21,18 @@ Hopper (``csrc/causal_fft.cu``, ``csrc/causal.cu``, ``csrc/causal_bwd.cu``,
   at the long chunks (up to 2048) past the first pair's shared memory.
 
 ``fused_causal_mix`` and ``fused_causal_mix_bwd`` pick the kernel on the
-card by the predicates: #6's where ``fused_mix_supported`` holds, else the
-long-chunk pair (#7, #11) where ``fused_mix_v3_supported`` holds, else they
-raise.  Inside #6's range and ``kf_spectra_supported``'s, the shape picks
-one of two kernels (``kf_spectra_kernel``, ``_mix_kernel``): the FFT kernel
-of ``causal_fft.cu`` (launch names ``kf_spectra``, ``fused_causal_mix``)
-wherever its lengths factor as P * O (O odd <= 31) and its tiles fit
-shared memory, which holds at every shape of the tiny LM's paths; the
-direct-DFT kernel of ``causal.cu`` (``kf_spectra_direct``,
-``fused_causal_mix_direct``) elsewhere.  ``banded_inverse`` takes a
-32-channel tile up to chunk 853 and an 8-channel tile past it.
+card by the predicates: #6's (#10's) where ``fused_mix_supported`` holds,
+else the long-chunk pair (#7, #11) where ``fused_mix_v3_supported`` holds,
+else they raise.  Inside #6's range and ``kf_spectra_supported``'s, the
+shape picks one of two kernels (``kf_spectra_kernel``, ``_mix_kernel``):
+the FFT kernel of ``causal_fft.cu`` (launch names ``kf_spectra``,
+``fused_causal_mix``, ``fused_causal_mix_bwd``) wherever its lengths
+factor as P * O (O odd <= 31) and its tiles fit shared memory, which holds
+at every shape of the tiny LM's paths; the direct-DFT kernel of
+``causal.cu`` or ``causal_bwd.cu`` (``kf_spectra_direct``,
+``fused_causal_mix_direct``, ``fused_causal_mix_bwd_direct``) elsewhere.
+``banded_inverse`` takes a 32-channel tile up to chunk 853 and an
+8-channel tile past it.
 
 Each public function takes fp32 tensors.  A tensor on the CPU goes to the
 plain version (``*_ref``); a tensor on a CUDA device goes to the kernel, or
@@ -52,11 +54,14 @@ one launch each, bound by shared-memory passes and barriers: #8 holds a
 lane pair's N-point k_time and then its segments' 2C-point spectra on
 chip; #6 keeps a channel tile's nc segment spectra resident (128 KB for 8
 channels at nc=16) and runs each output chunk's banded sum and inverse on
-chip, so nothing goes through HBM scratch.  Those of ``causal.cu`` and
-``causal_bwd.cu`` are direct DFTs against shared-memory twiddle tables,
-bounded by the shared-memory instruction throughput of their inner loops,
-not by HBM (the spectra they read fit the 50 MB L2 at the tiny LM's
-shapes); the sequential delta axis of the TPU kernel (scratch carried
+chip, so nothing goes through HBM scratch.  Its #10 is three launches
+bound by HBM: window FFTs into two complex (B, nc, F2, d) scratch planes,
+a bin-major launch that stages a bin's A, V and K triangle for 256
+channels in shared memory and writes Kbar and Vbar, and one inverse FFT a
+chunk.  Those of ``causal.cu`` and ``causal_bwd.cu`` are direct DFTs
+against shared-memory twiddle tables, bounded by the shared-memory
+instruction throughput of their inner loops, not by HBM (the spectra they
+read fit the 50 MB L2 at the tiny LM's shapes); the sequential delta axis of the TPU kernel (scratch carried
 across grid steps) becomes a loop over lags inside one block per output
 chunk.  At chunk 2048 a direct DFT costs 16x the tiny LM's work per
 element and no block holds a channel tile's nc segment spectra, so
@@ -82,17 +87,21 @@ from fft_tpu_torch.ops import fftops
 LAUNCHES = {"kf_spectra": 0, "fused_causal_mix": 0, "banded_inverse": 0,
             "fused_causal_mix_bwd": 0, "kf_seg_rfft": 0,
             "fused_causal_mix_v3": 0, "fused_causal_mix_bwd_v3": 0,
-            "kf_spectra_direct": 0, "fused_causal_mix_direct": 0}
+            "kf_spectra_direct": 0, "fused_causal_mix_direct": 0,
+            "fused_causal_mix_bwd_direct": 0}
 
 # Shapes of the CUDA blocks (csrc/causal.cu: kLanes, kSegT, kFreqT; the
-# 8-lane tile of banded_inverse_kernel; csrc/causal_long.cu: #9's kTileCh,
-# kPairs).
+# 8-lane tile of banded_inverse_kernel; csrc/causal_long.cu: #9's lane
+# pairs kPairs, 8 lanes).
 _LANES = 32
 _LANES_NARROW = 8
 _SEG_T = 64
 _FREQ_T = 64
 _LONG_TILE = 8
 _LONG_PAIRS = 4
+# threads of #9's block (csrc/causal_long.cu), chosen with chip_smoke.py's
+# kernels_bwd_seg_sweep at the 350M's shape (PERF.md, Findings)
+SEG_THREADS = 512
 # csrc/causal_long.cu: #7's and #11's transform tile, (channel pairs a
 # block, threads a block), chosen with chip_smoke.py's
 # kernels_long_tile_sweep at the 350M's shape (PERF.md, Findings)
@@ -105,6 +114,9 @@ _FFT_PAIRS = (4, 2, 1)
 _MAX_ODD = 31
 _KF_SEGS = 4
 _MIX_WINDOWS = 4
+_BWD_WINDOWS = 2
+# threads of #10's bin-major block (chip_smoke.py's kernels_bwd_seg_sweep)
+_BWD_BIN_THREADS = 256
 
 # The reference's dispatch threshold for kf_seg_rfft (pallas_causal.py
 # :1527): the segmented spectra of k_time come from the kernel at n >= 8192.
@@ -195,10 +207,11 @@ def fused_mix_supported(nc: int, chunk: int, d: int, cols: int) -> bool:
             and _adjoint_smem(chunk) <= SMEM_MAX)
 
 
-def _long_smem(chunk: int) -> int:
-    """causal_long.cu's #9 block: C twiddles and the (2C, 4) complex
-    tile."""
-    return (chunk + 2 * chunk * _LONG_PAIRS) * 8
+def _seg_smem(chunk: int) -> int:
+    """causal_long.cu's seg_smem, #9's block: the C-point stage twiddles and
+    the pre-twiddles (C each), the (C, 4) staging buffer and the (C, 8)
+    complex tile."""
+    return chunk * (2 + 3 * _LONG_PAIRS) * 8
 
 
 def _pow2(x: int) -> bool:
@@ -214,14 +227,14 @@ def fused_mix_v3_supported(nc: int, chunk: int, d: int, cols: int) -> bool:
     prompt-length dispatch the reference picks)."""
     return (nc >= 1 and chunk >= 128 and _pow2(chunk) and d % _LONG_TILE == 0
             and cols >= 1 and d % cols == 0
-            and _long_smem(chunk) <= SMEM_MAX)
+            and _seg_smem(chunk) <= SMEM_MAX)
 
 
 def kf_seg_rfft_supported(n: int, chunk: int, lanes: int) -> bool:
-    """kf_seg_rfft: whole power-of-two segments, lanes tiled by 8, and the
-    (2C, 4) complex tile in shared memory."""
+    """kf_seg_rfft: whole power-of-two segments, lanes tiled by 8, and #9's
+    block (``_seg_smem``) in shared memory."""
     return (_pow2(chunk) and n >= chunk and n % chunk == 0
-            and lanes % _LONG_TILE == 0 and _long_smem(chunk) <= SMEM_MAX)
+            and lanes % _LONG_TILE == 0 and _seg_smem(chunk) <= SMEM_MAX)
 
 
 def kf_spectra_supported(n_fft: int, chunk: int, lanes: int) -> bool:
@@ -306,6 +319,51 @@ def mix_fft_plan(nc: int, chunk: int, d: int, cols: int):
         for gs in range(min(nc, _MIX_WINDOWS), 0, -1):
             if _mix_fft_smem(nc, chunk, np_, gs, ng) <= SMEM_MAX:
                 return np_, gs
+    return None
+
+
+def _bins_tile(d: int, cols: int, bt: int):
+    """causal_fft.cu's bin_tile for #10's bin-major block of bt threads:
+    (gate groups a block, bins a block)."""
+    d_g = d // cols
+    ng = min(bt // d_g, cols)
+    return ng, bt // (ng * d_g)
+
+
+def _bins_smem(nc: int, d: int, cols: int, bt: int) -> int:
+    """causal_fft.cu's bins_smem: A and V of the block's bins and channels
+    (a padding slot a group), K's triangle and the list of (dl, c)
+    pairs."""
+    ng, rows = _bins_tile(d, cols, bt)
+    pairs = nc * (nc + 1) // 2
+    return ((2 * nc * rows * ng * (d // cols + 1) + pairs * rows * ng) * 8
+            + nc * nc * 4)
+
+
+def _bwd_fft_smem(chunk: int, np_: int, gs: int) -> int:
+    """causal_fft.cu's bwd_fft_smem: C twiddles and the (2C, gs np) tile
+    of #10's transforms."""
+    return (chunk + 2 * chunk * gs * np_) * 8
+
+
+def bwd_fft_plan(nc: int, chunk: int, d: int, cols: int):
+    """(np, gs, bt) of ``fused_causal_mix_bwd``'s FFT kernel
+    (csrc/causal_fft.cu): inside ``fused_mix_supported``, where 2C factors
+    as P * O and a bin-major block of bt threads holds whole gate groups and
+    stages its bins' nc segments of A and V and K's triangle in shared
+    memory; the widest channel-pair tile that divides d, with up to 2
+    windows a transform block.  None elsewhere (the direct kernel runs)."""
+    bt = _BWD_BIN_THREADS
+    if (not fused_mix_supported(nc, chunk, d, cols)
+            or _split_odd(2 * chunk) is None or d // cols > bt
+            or _bins_smem(nc, d, cols, bt) > SMEM_MAX):
+        return None
+    for np_ in _FFT_PAIRS:
+        if d % (2 * np_):
+            continue
+        for gs in range(min(nc, _BWD_WINDOWS), 0, -1):
+            if _bwd_fft_smem(chunk, np_, gs) <= SMEM_MAX:
+                return np_, gs, bt
     return None
 
 
@@ -535,12 +593,13 @@ def _mix_kernel(base: str, n: int, chunk: int, d: int, cols: int) -> str:
     """The kernel of ``base`` (fused_causal_mix or its _bwd) that takes
     this shape on the card: #6's (#10's) where ``fused_mix_supported``
     holds, else the long-chunk one (_v3); raises where neither does.  In
-    #6's range the forward is the FFT kernel where ``mix_fft_plan`` has a
-    plan, else the direct-DFT one (_direct)."""
+    that range each is the FFT kernel of causal_fft.cu where its plan
+    (``mix_fft_plan``, ``bwd_fft_plan``) has one, else the direct-DFT one
+    (_direct)."""
     nc = n // chunk
     if nc * chunk == n and fused_mix_supported(nc, chunk, d, cols):
-        if (base == "fused_causal_mix"
-                and mix_fft_plan(nc, chunk, d, cols) is None):
+        plan = mix_fft_plan if base == "fused_causal_mix" else bwd_fft_plan
+        if plan(nc, chunk, d, cols) is None:
             return base + "_direct"
         return base
     if nc * chunk == n and fused_mix_v3_supported(nc, chunk, d, cols):
@@ -549,15 +608,19 @@ def _mix_kernel(base: str, n: int, chunk: int, d: int, cols: int) -> str:
                      f"cols={cols} (neither {base} nor {base}_v3 takes it)")
 
 
-def _kf_seg_rfft(kt, chunk: int):
+def _kf_seg_rfft(kt, chunk: int, threads=None):
     """(kfr, kfi) (B, nc, F2, L): rfft_2C of each zero-padded C-row segment
     of the gate kernels kt (B, nc*C, L), lanes l = c*cols + g.
 
-    Replaces ``_kf_seg_rfft_call`` (pallas_causal.py:1596).  One block per
-    (segment, 8 lanes, batch): the segment and its C zeros as four complex
-    sequences (lane pairs) in shared memory, one radix-2 FFT, untangled on
-    the store.  Bound by the FFT's shared-memory passes; kt is read once and
-    the spectra written once."""
+    Replaces ``_kf_seg_rfft_call`` (pallas_causal.py:1596).  One launch of
+    ``csrc/causal_long.cu``'s ``seg_rfft_kernel``: a block per SM walks the
+    (8 lanes, segment, batch row) items, four lane pairs packed as a + i b
+    (``threads`` a block, ``SEG_THREADS`` unless given); the zero half is
+    never touched (the even bins are a C-point FFT of the segment, the odd
+    bins one of the segment times e^{-i pi t / C}), the next item's rows
+    arrive by async copies while this one's passes run, and the spectra are
+    untangled on the store.  kt is read once and the spectra written
+    once."""
     if on_cpu(kt):
         return kf_seg_rfft_ref(kt, chunk)
     b, n, lanes = kt.shape
@@ -571,8 +634,14 @@ def _kf_seg_rfft(kt, chunk: int):
                       device=kt.device)
     kfi = torch.empty_like(kfr)
     launch(LAUNCHES, "kf_seg_rfft", kt.device, kt.data_ptr(), tw.data_ptr(),
-           kfr.data_ptr(), kfi.data_ptr(), b, n, chunk, lanes)
+           kfr.data_ptr(), kfi.data_ptr(), b, n, chunk, lanes,
+           threads or SEG_THREADS, _sm_count(kt.device))
     return kfr, kfi
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _kf_spectra(g_r, g_i, n_fft: int, chunk: int):
@@ -640,12 +709,19 @@ def fused_causal_mix_bwd(v, kfr, kfi, ybar, chunk: int, cols: int):
     ``ybar`` (B, N, d).  K is per batch element: no sum over B.
 
     Replaces ``_fused_causal_bwd_call`` (pallas_causal.py:1921) where
-    ``fused_mix_supported`` holds: five launches on the current stream
-    (``csrc/causal_bwd.cu``): segment spectra of v, the adjoint partial
-    irFFT of ybar, Kbar with each gate group reduced by warp shuffles
-    (deterministic, no atomics), Vbar, and the adjoint segment rFFT with the
-    overlap-add.  The four (B, nc, F2, d) spectra go through HBM scratch
-    between launches.  Elsewhere, where ``fused_mix_v3_supported`` holds,
+    ``fused_mix_supported`` holds.  Where ``bwd_fft_plan`` has a plan
+    (every shape of the tiny LM's training path), three launches of
+    ``csrc/causal_fft.cu`` through two complex (B, nc, F2, d) scratch
+    planes: the segment FFTs of v's windows and of [0 | ybar_s] (the
+    adjoint of the partial irFFT) in shared memory, several windows a
+    block; a bin-major launch whose blocks stage one bin's nc segments of
+    both for 256 channels and K's triangle in shared memory (whole sectors
+    of K's rows read), then write Kbar (each gate group summed in a fixed
+    order, no atomics) and Vbar over V; and one inverse FFT per chunk (the
+    adjoint segment rFFT with the overlap-add).  Elsewhere in
+    that range ``fused_causal_mix_bwd_direct`` (``csrc/causal_bwd.cu``,
+    direct DFTs, five launches).  Past it, where
+    ``fused_mix_v3_supported`` holds,
     ``_fused_causal_bwd_call_v3`` (:2307): three launches of
     ``csrc/causal_long.cu`` through the same scratch: the segment FFTs of v
     and of ybar's adjoint partial irFFT in one, Kbar (each gate group
@@ -659,11 +735,28 @@ def fused_causal_mix_bwd(v, kfr, kfi, ybar, chunk: int, cols: int):
     return _launch_bwd(name, v, kfr, kfi, ybar, chunk, cols)
 
 
+def fused_causal_mix_bwd_direct(v, kfr, kfi, ybar, chunk: int, cols: int):
+    """(vbar, kfr_bar, kfi_bar) as ``fused_causal_mix_bwd`` computes them,
+    always through the direct-DFT kernel (``csrc/causal_bwd.cu``) on CUDA
+    tensors, wherever ``fused_mix_supported`` holds; the plain version on
+    CPU tensors.  It exists to set the two kernels side by side at one
+    shape."""
+    if on_cpu(v, kfr, kfi, ybar):
+        return fused_causal_mix_bwd_ref(v, kfr, kfi, ybar, chunk, cols)
+    b, n, d = v.shape
+    if n % chunk or not fused_mix_supported(n // chunk, chunk, d, cols):
+        raise ValueError(f"fused_causal_mix_bwd_direct: unsupported shape "
+                         f"n={n} chunk={chunk} d={d} cols={cols}")
+    return _launch_bwd("fused_causal_mix_bwd_direct", v, kfr, kfi, ybar,
+                       chunk, cols)
+
+
 def _launch_bwd(name: str, v, kfr, kfi, ybar, chunk: int, cols: int,
                 plan=None):
-    """Launch ``name`` (fused_causal_mix_bwd or its _v3) on CUDA tensors;
-    ``plan``: _v3's transform tile (np, threads), ``LONG_PLAN`` unless
-    given."""
+    """Launch ``name`` (fused_causal_mix_bwd, its _direct or its _v3) on
+    CUDA tensors; ``plan``: the FFT kernel's (np, gs, bt),
+    ``bwd_fft_plan``'s unless given, or _v3's transform tile (np,
+    threads), ``LONG_PLAN`` unless given."""
     b, n, d = v.shape
     nc = n // chunk
     f2 = chunk + 1
@@ -672,17 +765,24 @@ def _launch_bwd(name: str, v, kfr, kfi, ybar, chunk: int, cols: int,
     check("kfi", kfi, (b, nc, f2, nc * cols))
     check("ybar", ybar, (b, n, d))
     tw = twiddles(2 * chunk, v.device)
-    scratch = [torch.empty((b, nc, f2, d), dtype=torch.float32,
-                           device=v.device) for _ in range(4)]
     vbar = torch.empty_like(v)
     kbr = torch.empty_like(kfr)
     kbi = torch.empty_like(kfi)
+    if name == "fused_causal_mix_bwd":
+        # V and A as complex planes (re, im interleaved); Vbar over V
+        scratch = [torch.empty((b, nc, f2, d, 2), dtype=torch.float32,
+                               device=v.device) for _ in range(2)]
+        tile = tuple(plan or bwd_fft_plan(nc, chunk, d, cols))
+    else:
+        scratch = [torch.empty((b, nc, f2, d), dtype=torch.float32,
+                               device=v.device) for _ in range(4)]
+        tile = (tuple(plan or LONG_PLAN)
+                if name == "fused_causal_mix_bwd_v3" else ())
     launch(LAUNCHES, name, v.device,
            v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), ybar.data_ptr(),
            tw.data_ptr(), *(t.data_ptr() for t in scratch),
            vbar.data_ptr(), kbr.data_ptr(), kbi.data_ptr(), b, nc, chunk,
-           d, cols, *(tuple(plan or LONG_PLAN)
-                      if name == "fused_causal_mix_bwd_v3" else ()))
+           d, cols, *tile)
     return vbar, kbr, kbi
 
 

@@ -160,11 +160,11 @@ def test_predicates_hold_the_shared_memory_bounds():
 
 
 def test_shape_choice_between_the_fft_and_direct_kernels():
-    """Inside #6's and #8's ranges the wrappers pick a kernel by shape:
+    """Inside #6's, #8's and #10's ranges the wrappers pick a kernel by shape:
     the FFT kernels (causal_fft.cu) at every shape of the tiny LM's paths
     (n_fft 2048, C 128, nc 1..16, d 512, 32 gate columns), the direct ones
-    (causal.cu) where 2C has an odd factor past 31.  The 350M's long
-    chunks stay on #7 and #11, and #10 keeps its one kernel."""
+    (causal.cu, causal_bwd.cu) where 2C has an odd factor past 31.  The
+    350M's long chunks stay on #7 and #11."""
     blk = tiny_lm_config().block
     d, cols = blk.embed_dim, blk.num_heads * blk.num_groups
     n_fft, chunk = blk.n_fft, blk.causal_chunk
@@ -185,7 +185,7 @@ def test_shape_choice_between_the_fft_and_direct_kernels():
     assert kc._mix_kernel("fused_causal_mix", 3 * 129, 129, 512, 32) == \
         "fused_causal_mix_direct"
     assert kc._mix_kernel("fused_causal_mix_bwd", 3 * 129, 129, 512, 32) == \
-        "fused_causal_mix_bwd"
+        "fused_causal_mix_bwd_direct"
     assert kc.kf_spectra_kernel(4 * 129, 129, 64) == "kf_spectra_direct"
     with pytest.raises(ValueError):
         kc.kf_spectra_kernel(32768, 128, 512)

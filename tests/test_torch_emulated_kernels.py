@@ -186,22 +186,29 @@ def _tw(chunk):
     return torch.from_numpy(twiddles_np(2 * chunk))
 
 
-# (b, n, chunk, lanes): #9 at small chunks, and one 8-lane tile at 2048
-KF_SEG_CASES = [(2, 64, 16, 16), (1, 24, 8, 8), (1, 4096, 2048, 8)]
+# (b, n, chunk, lanes, threads, sms): #9 at chunks 2 to 2048 (2: a copy
+# and one radix-2 stage; 4: the first pass alone; 2048: the 16-element
+# register passes) with more items than blocks, so a block walks several
+# and loads the next one's rows during this one's passes
+KF_SEG_CASES = [(2, 64, 16, 16, 256, 1), (1, 24, 8, 8, 64, 1),
+                (1, 4096, 2048, 8, 512, 1), (2, 512, 128, 16, 128, 1),
+                (1, 16, 4, 8, 32, 1), (1, 8, 2, 16, 32, 1),
+                (1, 1024, 256, 8, 256, 2), (1, 4096, 1024, 16, 384, 1)]
 
 
-@pytest.mark.parametrize("b,n,chunk,lanes", KF_SEG_CASES)
-def test_emulated_kf_seg_rfft(long_lib, b, n, chunk, lanes):
+@pytest.mark.parametrize("b,n,chunk,lanes,threads,sms", KF_SEG_CASES)
+def test_emulated_kf_seg_rfft(long_lib, b, n, chunk, lanes, threads, sms):
     assert kc.kf_seg_rfft_supported(n, chunk, lanes)
     g = torch.Generator().manual_seed(n + lanes)
     kt = _randn(g, b, n, lanes)
-    kfr = torch.empty(b, n // chunk, chunk + 1, lanes)
-    kfi = torch.empty_like(kfr)
+    kfr = torch.full((b, n // chunk, chunk + 1, lanes), float("nan"))
+    kfi = torch.full_like(kfr, float("nan"))
     assert long_lib.fft_kf_seg_rfft(_ptr(kt), _ptr(_tw(chunk)), _ptr(kfr),
-                                    _ptr(kfi), b, n, chunk, lanes,
-                                    None) == 0
+                                    _ptr(kfi), b, n, chunk, lanes, threads,
+                                    sms, None) == 0
     want = kc.kf_seg_rfft_ref(kt, chunk)
     assert _rel(kfr, want[0]) < TOL and _rel(kfi, want[1]) < TOL
+    assert torch.equal(kfi[:, :, 0], torch.zeros_like(kfi[:, :, 0]))
 
 
 # (b, nc, chunk, d, cols, np, threads): gate groups of 8, 1 (a channel
@@ -414,7 +421,8 @@ def test_emulated_decode_with_the_phase_rounded_another_way_fails(
 @pytest.fixture(scope="module")
 def fft_lib(tmp_path_factory):
     return _emulated(tmp_path_factory, "causal_fft.cu",
-                     ("fft_kf_spectra", "fft_fused_causal_mix"))
+                     ("fft_kf_spectra", "fft_fused_causal_mix",
+                      "fft_fused_causal_mix_bwd"))
 
 
 def _emulated_kf(lib, g_r, g_i, n_fft, chunk, np_, gs):
@@ -507,3 +515,72 @@ def test_emulated_fft_kernels_with_the_untangle_flipped_fail(
     v, kr, ki, _ = _long_inputs(1, 2, 64, 8, 2)
     got = _emulated_mix(lib, v, kr, ki, 64, 2, 4, 2)
     assert _rel(got, kc.fused_causal_mix_ref(v, kr, ki, 64, 2)) > TOL
+
+
+def _emulated_bwd_fft(lib, v, kr, ki, ybar, chunk, cols, np_, gs, bt):
+    b, n, d = v.shape
+    nc = n // chunk
+    scratch = [torch.full((b, nc, chunk + 1, d, 2), float("nan"))
+               for _ in range(2)]
+    out = [torch.empty_like(v), torch.full_like(kr, float("nan")),
+           torch.full_like(ki, float("nan"))]
+    assert lib.fft_fused_causal_mix_bwd(
+        _ptr(v), _ptr(kr), _ptr(ki), _ptr(ybar), _ptr(_tw(chunk)),
+        *(_ptr(t) for t in scratch), *(_ptr(t) for t in out), b, nc, chunk,
+        d, cols, np_, gs, bt, None) == 0
+    return out
+
+
+# (b, nc, chunk, d, cols, np, gs, bt) of #10's FFT kernels: the tiny LM's
+# C 128 at nc 16 (one 16-channel gate group), nc 1 and 3; 2C = 384 = 128 *
+# 3; gate groups of 1, 2, 4, 8, 16 and 32 channels; 32-channel groups at d
+# 288, whose bin-major tiles hold 8 groups and then 1; a small chunk with a
+# partial last transform block (nc 5, 2 windows a block); each tile plan
+# and bin-major block size passed explicitly, several bins a bin-major
+# block where its groups are narrow
+BWD_FFT_CASES = [(1, 16, 128, 16, 1, 4, 4, 256), (2, 1, 128, 16, 2, 4, 1, 64),
+                 (1, 3, 128, 32, 32, 4, 3, 128), (1, 2, 192, 16, 4, 2, 2, 256),
+                 (1, 3, 64, 64, 2, 1, 2, 512), (1, 2, 16, 288, 9, 4, 2, 256),
+                 (1, 5, 8, 8, 4, 4, 2, 96)]
+
+
+@pytest.mark.parametrize("b,nc,chunk,d,cols,np_,gs,bt", BWD_FFT_CASES)
+def test_emulated_fused_causal_mix_bwd_fft(fft_lib, b, nc, chunk, d, cols,
+                                           np_, gs, bt):
+    """Each output on its own, and Kbar exactly 0 where c < delta."""
+    v, kr, ki, ybar = _long_inputs(b, nc, chunk, d, cols)
+    out = _emulated_bwd_fft(fft_lib, v, kr, ki, ybar, chunk, cols, np_, gs,
+                            bt)
+    want = kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk, cols)
+    for got, w in zip(out, want):
+        assert _rel(got, w) < TOL
+    kbar = out[1].reshape(b, nc, chunk + 1, nc, cols)     # (B, dl, F2, c, G)
+    for dl in range(nc):
+        assert torch.equal(kbar[:, dl, :, :dl],
+                           torch.zeros_like(kbar[:, dl, :, :dl]))
+
+
+def test_emulated_fft_bwd_with_a_channel_dropped_fails(tmp_path_factory):
+    """A copy of causal_fft.cu whose #10 Kbar group sums skip each group's
+    first channel disagrees with the plain version (and only in Kbar): the
+    check above sees it."""
+    if cuda_emulation.compiler() is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    src = (kb.CSRC_DIR / "causal_fft.cu").read_text()
+    good = "int j = 0;\n#pragma unroll 4"
+    assert src.count(good) == 1
+    out = tmp_path_factory.mktemp("broken_bwd")
+    broken = out / "causal_fft.cu"
+    broken.write_text(src.replace(good, "int j = 1;\n#pragma unroll 4"))
+    for header in ("causal_common.cuh", "fft_common.cuh"):
+        (out / header).write_text((kb.CSRC_DIR / header).read_text())
+    lib = cuda_emulation.build(broken, out)
+    argtypes, restype = kb._SIGNATURES["fft_fused_causal_mix_bwd"]
+    lib.fft_fused_causal_mix_bwd.argtypes = argtypes
+    lib.fft_fused_causal_mix_bwd.restype = restype
+    b, nc, chunk, d, cols = 1, 3, 16, 32, 4
+    v, kr, ki, ybar = _long_inputs(b, nc, chunk, d, cols)
+    got = _emulated_bwd_fft(lib, v, kr, ki, ybar, chunk, cols, 4, 2, 256)
+    want = kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk, cols)
+    assert _rel(got[0], want[0]) < TOL
+    assert _rel(got[1], want[1]) > TOL and _rel(got[2], want[2]) > TOL

@@ -193,13 +193,91 @@ def test_fused_causal_mix_bwd_kernel(dev, nc, d, cols):
     kr = _randn(g, dev, b, nc, chunk + 1, nc * cols)
     ki = _randn(g, dev, b, nc, chunk + 1, nc * cols)
     ybar = _randn(g, dev, b, nc * chunk, d)
-    before = kc.LAUNCHES["fused_causal_mix_bwd"]
+    before = dict(kc.LAUNCHES)
     got = kc.fused_causal_mix_bwd(v, kr, ki, ybar, chunk, cols)
     torch.cuda.synchronize()
-    assert kc.LAUNCHES["fused_causal_mix_bwd"] == before + 1
+    assert (kc.LAUNCHES["fused_causal_mix_bwd"]
+            == before["fused_causal_mix_bwd"] + 1)
+    assert (kc.LAUNCHES["fused_causal_mix_bwd_direct"]
+            == before["fused_causal_mix_bwd_direct"])
     want = kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk, cols)
     for a, w in zip(got, want):
         assert a.shape == w.shape
+        assert _rel(a, w) < TOL
+    _assert_kbar_zero_past_c(got[1], b, nc, chunk, cols)
+
+
+def _assert_kbar_zero_past_c(kbar, b, nc, chunk, cols):
+    kbar = kbar.reshape(b, nc, chunk + 1, nc, cols)      # (B, dl, F2, c, G)
+    for dl in range(nc):
+        assert int(torch.count_nonzero(kbar[:, dl, :, :dl])) == 0
+
+
+# (b, nc, chunk, d, cols): the tiny LM's training batch at nc 16, its
+# 128-token prompt (nc 1); 2C = 768 = 256 * 3; nc 3 with 1-channel groups;
+# 8-channel groups at d 384, whose bin-major blocks take 32 groups and then
+# 16
+BWD_FFT_CASES = [(8, 16, 128, 512, 32), (4, 1, 128, 512, 32),
+                 (2, 3, 384, 256, 64), (2, 3, 128, 64, 64),
+                 (1, 4, 128, 384, 48)]
+
+
+@pytest.mark.parametrize("b,nc,chunk,d,cols", BWD_FFT_CASES)
+def test_fused_causal_mix_bwd_fft_kernel_shapes(dev, b, nc, chunk, d, cols):
+    """#10's FFT kernel (causal_fft.cu) at these shapes, each output on its
+    own, Kbar exactly 0 where c < delta, and the direct kernel not
+    launched."""
+    assert kc.bwd_fft_plan(nc, chunk, d, cols) is not None
+    v, kr, ki = _mix_inputs_at(dev, b, nc, chunk, d, cols, nc * chunk + d)
+    ybar = _randn(torch.Generator().manual_seed(chunk), dev, b, nc * chunk,
+                  d)
+    before = dict(kc.LAUNCHES)
+    got = kc.fused_causal_mix_bwd(v, kr, ki, ybar, chunk, cols)
+    torch.cuda.synchronize()
+    assert (kc.LAUNCHES["fused_causal_mix_bwd"]
+            == before["fused_causal_mix_bwd"] + 1)
+    assert (kc.LAUNCHES["fused_causal_mix_bwd_direct"]
+            == before["fused_causal_mix_bwd_direct"])
+    for a, w in zip(got, kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk,
+                                                    cols)):
+        assert _rel(a, w) < TOL
+    _assert_kbar_zero_past_c(got[1], b, nc, chunk, cols)
+
+
+@pytest.mark.parametrize("nc", [8, 16])
+def test_fused_causal_mix_bwd_direct_kernel(dev, nc):
+    """The direct-DFT #10 (causal_bwd.cu), called on its own at the tiny
+    LM's training shapes, which the FFT kernel takes on the main path."""
+    b, chunk, d, cols = 4, 128, 512, 32
+    v, kr, ki = _mix_inputs_at(dev, b, nc, chunk, d, cols, 60 + nc)
+    ybar = _randn(torch.Generator().manual_seed(nc), dev, b, nc * chunk, d)
+    before = dict(kc.LAUNCHES)
+    got = kc.fused_causal_mix_bwd_direct(v, kr, ki, ybar, chunk, cols)
+    torch.cuda.synchronize()
+    assert (kc.LAUNCHES["fused_causal_mix_bwd_direct"]
+            == before["fused_causal_mix_bwd_direct"] + 1)
+    assert (kc.LAUNCHES["fused_causal_mix_bwd"]
+            == before["fused_causal_mix_bwd"])
+    for a, w in zip(got, kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk,
+                                                    cols)):
+        assert _rel(a, w) < TOL
+
+
+def test_fused_causal_mix_bwd_direct_takes_chunk_129(dev):
+    """2C = 258 has the odd factor 129: the wrapper sends #10 to the direct
+    kernel there."""
+    b, nc, chunk, d, cols = 2, 3, 129, 512, 32
+    v, kr, ki = _mix_inputs_at(dev, b, nc, chunk, d, cols, 8)
+    ybar = _randn(torch.Generator().manual_seed(9), dev, b, nc * chunk, d)
+    before = dict(kc.LAUNCHES)
+    got = kc.fused_causal_mix_bwd(v, kr, ki, ybar, chunk, cols)
+    torch.cuda.synchronize()
+    assert (kc.LAUNCHES["fused_causal_mix_bwd_direct"]
+            == before["fused_causal_mix_bwd_direct"] + 1)
+    assert (kc.LAUNCHES["fused_causal_mix_bwd"]
+            == before["fused_causal_mix_bwd"])
+    for a, w in zip(got, kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk,
+                                                    cols)):
         assert _rel(a, w) < TOL
 
 
@@ -249,6 +327,36 @@ def test_fused_causal_mix_bwd_v3_kernel(dev, b, nc, chunk, d, cols):
         assert int(torch.count_nonzero(kbar[:, dl, :, :dl])) == 0
 
 
+@pytest.mark.parametrize("plan", [(4, 4, 256), (4, 4, 128), (4, 4, 512),
+                                  (4, 2, 256), (4, 8, 256), (2, 4, 256),
+                                  (1, 4, 64)])
+def test_fused_causal_mix_bwd_every_tile_plan(dev, plan):
+    """Each plan (channel pairs and windows a transform block, threads a
+    bin-major block) of #10's FFT kernel that chip_smoke.py's sweep times,
+    at a small shape."""
+    b, nc, chunk, d, cols = 2, 5, 128, 64, 4
+    v, kr, ki = _mix_inputs_at(dev, b, nc, chunk, d, cols, 3)
+    ybar = _randn(torch.Generator().manual_seed(4), dev, b, nc * chunk, d)
+    got = kc._launch_bwd("fused_causal_mix_bwd", v, kr, ki, ybar, chunk,
+                         cols, plan)
+    torch.cuda.synchronize()
+    for a, w in zip(got, kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk,
+                                                    cols)):
+        assert _rel(a, w) < TOL
+
+
+@pytest.mark.parametrize("threads", [32, 256, 384, 512])
+def test_kf_seg_rfft_every_block_size(dev, threads):
+    """#9 at the threads a block chip_smoke.py's sweep times (and 32), at
+    chunk 2048 with more items than blocks."""
+    g = torch.Generator().manual_seed(threads)
+    kt = _randn(g, dev, 2, 16384, 512)
+    got = kc._kf_seg_rfft(kt, 2048, threads)
+    torch.cuda.synchronize()
+    for a, w in zip(got, kc.kf_seg_rfft_ref(kt, 2048)):
+        assert _rel(a, w.contiguous()) < TOL
+
+
 @pytest.mark.parametrize("plan", [(1, 64), (1, 256), (1, 512), (2, 256),
                                   (2, 512), (4, 256), (4, 512)])
 def test_long_kernels_every_tile_plan(dev, plan):
@@ -268,7 +376,9 @@ def test_long_kernels_every_tile_plan(dev, plan):
 
 @pytest.mark.parametrize("b,n,chunk,lanes", [(1, 16384, 2048, 512),
                                              (2, 8192, 2048, 256),
-                                             (1, 1024, 128, 64)])
+                                             (1, 1024, 128, 64),
+                                             (2, 4096, 1024, 8),
+                                             (1, 64, 2, 16)])
 def test_kf_seg_rfft_kernel(dev, b, n, chunk, lanes):
     g = torch.Generator().manual_seed(n + lanes)
     kt = _randn(g, dev, b, n, lanes)
