@@ -30,7 +30,10 @@ Phases, in order; any failure raises and the exit code is nonzero:
              the least time the card could take (bound_ms: bytes over 3.35
              TB/s or FFT-equivalent operations over 67 TFLOP/s fp32).
              staged_mix (#3) also at every n_fft = 256 m, m = 9..32,
-             untimed.  #8 and #6 at the tiny LM's shapes (B=4, n_fft
+             untimed; #3 at 4096 x 2 and 8192 x 1 and twopass_mix (#4) at
+             16384-65536 over every plan of their shared kernel
+             (csrc/mix_fft.cuh) that fits a block (kernels_mix_plan_sweep)
+             and by CUDA kernel (kernels_mix_launch_split).  #8 and #6 at the tiny LM's shapes (B=4, n_fft
              2048, C=128, L=512; nc 8 and 16, d=512, 32 gate columns)
              through the FFT kernel, the direct kernel and, for #6, #7's
              kernel (fused_causal_mix_v3, which takes chunk 128 too), all
@@ -385,6 +388,8 @@ def phase_kernels(kc, sm, kd, dev):
     cases += long_mix_cases(sm, randn)
 
     staged_sweep(sm, randn)
+    mix_plan_sweep(sm, randn)
+    mix_launch_split(sm, randn)
     tile_sweep(kc, randn)
     long_tile_sweep(kc, randn)
     bwd_seg_sweep(kc, randn)
@@ -623,6 +628,79 @@ def long_launch_split(kc, randn) -> None:
                      device_ms=prof["device_busy_ms_per_step"],
                      by_launch=prof["top_kernels_ms_per_step"]))
     emit(phase="kernels_launch_split", rows=rows)
+
+
+def mix_launch_split(sm, randn) -> None:
+    """Device time by CUDA kernel (torch.profiler over 10 calls) of the
+    forward mix past n_fft 2048 at phase 2's shapes (long_mix_cases), with
+    memory: #3 at config 1's 4096 x 2 and 8192 x 1 and at the odd factors
+    9, 17 and 31, #4 at 16384, 32768 and 65536, 32 gate columns.  It takes
+    any tree's ``kernels.spectral_mix``, so one call can time two trees'
+    kernels."""
+    from fft_tpu_torch import bench
+
+    rows = []
+    for name, b, n, d in (("staged_mix", 2, 4096, 512),
+                          ("staged_mix", 1, 8192, 512),
+                          ("staged_mix", 1, 2304, 512),
+                          ("staged_mix", 1, 4352, 128),
+                          ("staged_mix", 1, 7936, 512),
+                          ("twopass_mix", 1, 16384, 512),
+                          ("twopass_mix", 1, 32768, 512),
+                          ("twopass_mix", 1, 65536, 512)):
+        cols = 32
+        args = (randn(b, n, d), randn(b, n // 2 + 1, cols),
+                randn(b, n // 2 + 1, cols), randn(n, d), n)
+        fn = lambda f=getattr(sm, name), a=args: f(*a)       # noqa: E731
+        fn()
+        torch.cuda.synchronize()
+        prof = bench._profile(fn, torch.cuda.synchronize, 10)
+        rows.append(dict(kernel=name,
+                         shape=f"B={b} N={n} d={d} cols={cols} mem=1",
+                         ms=median_ms(fn),
+                         device_ms=prof["device_busy_ms_per_step"],
+                         by_launch=prof["top_kernels_ms_per_step"]))
+        del args, fn
+    emit(phase="kernels_mix_launch_split", rows=rows)
+
+
+def mix_plan_sweep(sm, randn) -> None:
+    """#3 at config 1's 4096 x 2 and 8192 x 1 and at the odd factors 9 and
+    31 (2304, 7936), #4 at 16384, 32768 and 65536 (B=1), d=512, 32 gate
+    columns, with memory, over the plans of their kernel (csrc/mix_fft.cuh)
+    whose tile fits a block: CTAs a cluster (cs), channel pairs a CTA (np),
+    threads a CTA; median ms over CUDA events and device ms of each, the
+    wrappers' own plan marked.  Each plan's output is held to the plain
+    version first."""
+    rows = []
+    for name, b, n in (("staged_mix", 2, 4096), ("staged_mix", 1, 8192),
+                       ("staged_mix", 1, 2304), ("staged_mix", 1, 7936),
+                       ("twopass_mix", 1, 16384), ("twopass_mix", 1, 32768),
+                       ("twopass_mix", 1, 65536)):
+        d, cols = 512, 32
+        args = (randn(b, n, d), randn(b, n // 2 + 1, cols),
+                randn(b, n // 2 + 1, cols), randn(n, d), n)
+        want = sm.twopass_mix_ref(*args)
+        chosen = (sm.staged_plan(n) if name == "staged_mix"
+                  else sm.TWOPASS_PLAN[n])
+        odd = n // (n & -n) > 1
+        for plan in ((cs, np_, threads)
+                     for cs, np_ in sm.LONG_INSTANCES[name + "_odd" * odd]
+                     for threads in ((128, 256) if odd else (256, 512))
+                     if sm.long_plan_fits(n, (cs, np_, threads))):
+            def kern(name=name, args=args, plan=plan):
+                return sm._launch_long(name, *args, plan)
+
+            err = rel_err(kern(), want)
+            if not err <= REL_KERNEL:
+                raise AssertionError(f"{name} n_fft {n} plan {plan}: "
+                                     f"rel_err {err}")
+            rows.append(dict(kernel=name, shape=f"B={b} N={n} d={d}",
+                             plan=list(plan), rel_err=err,
+                             ms=median_ms(kern), device_ms=device_ms(kern),
+                             chosen=plan == tuple(chosen)))
+        del args, want
+    emit(phase="kernels_mix_plan_sweep", rows=rows)
 
 
 def long_cases(kc, randn):

@@ -91,57 +91,6 @@ constexpr int kPairT = 4;     // Kbar: a 4 x 4 tile of (c, s) pairs a round
 // one partial of 16 rows at once, which then sit in distinct banks
 constexpr int kPartRow = kRowThreads + 1;
 
-// The radix-4 pass of spans 1 and 2 (stages 0 and 1) over `seqs`
-// interleaved sequences, as fft_common.cuh's radix4_pass computes it at s
-// = 0 (twiddles 1, 1 and sign i): decimation in time runs span 1 then 2,
-// in frequency 2 then 1.  There the m-th access of every thread hits
-// element m of its 4-row butterfly, 4 seqs float2 apart, so a warp's
-// accesses share banks; here the thread of butterfly r takes element (m +
-// r) mod 4 at its m-th access, which spreads them.  Ends with
-// __syncthreads.
-template <bool kDit>
-__device__ void span1_pass(float2* buf, int log2n, int seqs, float sign) {
-  const int rows = 1 << (log2n - 2);
-  for (Walk it(seqs); it.r < rows; it.next(seqs)) {
-    float2* x = buf + (size_t)(it.r << 2) * seqs + it.q;
-    const int rot = it.r & 3;
-    float2 e0, e1, e2, e3;
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int k = (m + rot) & 3;
-      const float2 t = x[k * seqs];
-      if (k == 0) e0 = t;
-      else if (k == 1) e1 = t;
-      else if (k == 2) e2 = t;
-      else e3 = t;
-    }
-    float2 o0, o1, o2, o3;
-    if (kDit) {
-      const float2 a0 = cadd(e0, e1), a1 = csub(e0, e1);
-      const float2 a2 = cadd(e2, e3), a3 = csub(e2, e3);
-      const float2 c3 = make_float2(-sign * a3.y, sign * a3.x);
-      o0 = cadd(a0, a2);
-      o2 = csub(a0, a2);
-      o1 = cadd(a1, c3);
-      o3 = csub(a1, c3);
-    } else {
-      const float2 a0 = cadd(e0, e2), a2 = csub(e0, e2);
-      const float2 a1 = cadd(e1, e3), d3 = csub(e1, e3);
-      const float2 a3 = make_float2(-sign * d3.y, sign * d3.x);
-      o0 = cadd(a0, a1);
-      o1 = csub(a0, a1);
-      o2 = cadd(a2, a3);
-      o3 = csub(a2, a3);
-    }
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int k = (m + rot) & 3;
-      x[k * seqs] = k == 0 ? o0 : k == 1 ? o1 : k == 2 ? o2 : o3;
-    }
-  }
-  __syncthreads();
-}
-
 // Async copies of the twiddles of an n-point transform (n = 2^log2n), a
 // table for each radix-2 stage: span H (1, 2, .., n/2) at tws[H - 1 + p] =
 // (cos, sin)(2 pi p / 2H), p < H, from tw_g[m] = (cos, sin)(2 pi m / n), m
@@ -159,79 +108,6 @@ __device__ void stage_twiddles(float2* tws, const float2* tw_g, int log2n,
     const int p = i - (span - 1);
     __pipeline_memcpy_async(tws + i, tw_g + (size_t)p * (n / (2 * span)),
                             sizeof(float2));
-  }
-}
-
-// Radix-2 stages s .. s + K - 1 of n-point transforms (n = 2^log2n) over
-// `seqs` interleaved sequences in one pass: each thread holds the 2^K
-// elements i0 + m 2^s of a butterfly group in registers.  Decimation in
-// time runs the spans up (natural output from bit-reversed input), in
-// frequency down; the twiddles come from stage_twiddles' table, sign -1
-// forward, +1 inverse.  Ends with __syncthreads.
-template <bool kDit, int K>
-__device__ void reg_pass(float2* buf, int log2n, int s, int seqs,
-                         const float2* tws, float sign) {
-  constexpr int R = 1 << K;
-  const int h = 1 << s;
-  const size_t hs = (size_t)h * seqs;
-  for (Walk it(seqs); it.r < (1 << (log2n - K)); it.next(seqs)) {
-    const int pos = it.r & (h - 1);
-    float2* x = buf + (size_t)(((it.r - pos) << K) + pos) * seqs + it.q;
-    float2 e[R];
-#pragma unroll
-    for (int m = 0; m < R; ++m) e[m] = x[m * hs];
-#pragma unroll
-    for (int tt = 0; tt < K; ++tt) {
-      const int t = kDit ? tt : K - 1 - tt;     // span h 2^t
-      const int span = h << t;
-#pragma unroll
-      for (int m = 0; m < R; ++m) {
-        if (m & (1 << t)) continue;
-        const float2 tw = tws[span - 1 + pos + (m & ((1 << t) - 1)) * h];
-        const float2 w = make_float2(tw.x, sign * tw.y);
-        const float2 a = e[m], b = e[m + (1 << t)];
-        if (kDit) {
-          const float2 bw = cmul(b, w);
-          e[m] = cadd(a, bw);
-          e[m + (1 << t)] = csub(a, bw);
-        } else {
-          e[m] = cadd(a, b);
-          e[m + (1 << t)] = cmul(csub(a, b), w);
-        }
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < R; ++m) x[m * hs] = e[m];
-  }
-  __syncthreads();
-}
-
-// n-point transforms of `seqs` interleaved sequences in place (n = 2^log2n
-// >= 4): stages 0 and 1 by span1_pass, then (kWide) 4 a pass by reg_pass,
-// sixteen elements a thread, the rest by fft_common.cuh's radix-4 and
-// radix-2 passes (their twiddle table is the last stage's, tws + n/2 - 1),
-// so 2C = 4096 takes 4 passes over shared memory.  kDit: bit-reversed
-// input, natural output, sign -1; else natural input, bit-reversed output,
-// sign +1 (unnormalized).
-template <bool kDit, bool kWide>
-__device__ void long_fft(float2* buf, int log2n, int seqs,
-                         const float2* tws) {
-  const float sign = kDit ? -1.f : 1.f;
-  const float2* tw = tws + (1 << (log2n - 1)) - 1;
-  if (kDit) {
-    span1_pass<true>(buf, log2n, seqs, sign);
-    int s = 2;
-    for (; kWide && log2n - s >= 4; s += 4)
-      reg_pass<true, 4>(buf, log2n, s, seqs, tws, sign);
-    fft_passes<true>(buf, log2n, seqs, tw, 1, sign, s);
-  } else {
-    int top = log2n;                            // stages top-1 .. 2 left
-    for (; kWide && top - 2 >= 4; top -= 4)
-      reg_pass<false, 4>(buf, log2n, top - 4, seqs, tws, sign);
-    for (; top - 2 >= 2; top -= 2)
-      radix4_pass<false>(buf, log2n, top - 2, seqs, tw, 1, sign);
-    if (top == 3) radix2_pass<false>(buf, log2n, 2, seqs, tw, 1, sign);
-    span1_pass<false>(buf, log2n, seqs, sign);
   }
 }
 

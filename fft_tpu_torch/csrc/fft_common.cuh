@@ -1,12 +1,12 @@
-// FFTs in shared memory: radix-2 stages (fft_stages) shared by the
-// spectral mix (spectral_mix.cu, staged_mix.cu, twopass_mix.cu) and #9
-// (causal_long.cu), and passes of two radix-2 stages each (fft_passes:
-// radix-4 butterflies in registers) shared by the causal mix's FFT kernels
-// (causal_fft.cu; causal_long.cu's #7 and #11).
+// FFTs in shared memory: radix-2 stages (fft_stages, spectral_mix.cu's
+// #1 and #2), passes of two radix-2 stages each (fft_passes: radix-4
+// butterflies in registers; causal_fft.cu) and passes of four (long_fft:
+// sixteen elements a thread; causal_long.cu's #9, #7 and #11 and the long
+// spectral mix of mix_fft.cuh, #3 and #4).
 //
 // Twiddles are rounded once from float64 on the host (no __sinf/__cosf, no
 // fast math): tw[m] = (cos, sin)(2 pi m / n) for m < n / 2.  Lengths are
-// powers of two up to 8192 (the staged mix's power-of-two factor).
+// powers of two up to 16384.
 // No warp shuffles and no atomics, so tests/cuda_emulation.py can run every
 // kernel built on these on the CPU.
 
@@ -202,6 +202,134 @@ __device__ void fft_passes(float2* buf, int log2p, int seqs,
   }
 }
 
+// The radix-4 pass of spans 1 and 2 (stages 0 and 1) over `seqs`
+// interleaved sequences, as radix4_pass computes it at s = 0 (twiddles
+// 1, 1 and sign i): decimation in time runs span 1 then 2, in frequency
+// 2 then 1.  There the m-th access of every thread hits
+// element m of its 4-row butterfly, 4 seqs float2 apart, so a warp's
+// accesses share banks; here the thread of butterfly r takes element (m +
+// r) mod 4 at its m-th access, which spreads them.  Ends with
+// __syncthreads.
+template <bool kDit>
+__device__ void span1_pass(float2* buf, int log2n, int seqs, float sign) {
+  const int rows = 1 << (log2n - 2);
+  for (Walk it(seqs); it.r < rows; it.next(seqs)) {
+    float2* x = buf + (size_t)(it.r << 2) * seqs + it.q;
+    const int rot = it.r & 3;
+    float2 e0, e1, e2, e3;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int k = (m + rot) & 3;
+      const float2 t = x[k * seqs];
+      if (k == 0) e0 = t;
+      else if (k == 1) e1 = t;
+      else if (k == 2) e2 = t;
+      else e3 = t;
+    }
+    float2 o0, o1, o2, o3;
+    if (kDit) {
+      const float2 a0 = cadd(e0, e1), a1 = csub(e0, e1);
+      const float2 a2 = cadd(e2, e3), a3 = csub(e2, e3);
+      const float2 c3 = make_float2(-sign * a3.y, sign * a3.x);
+      o0 = cadd(a0, a2);
+      o2 = csub(a0, a2);
+      o1 = cadd(a1, c3);
+      o3 = csub(a1, c3);
+    } else {
+      const float2 a0 = cadd(e0, e2), a2 = csub(e0, e2);
+      const float2 a1 = cadd(e1, e3), d3 = csub(e1, e3);
+      const float2 a3 = make_float2(-sign * d3.y, sign * d3.x);
+      o0 = cadd(a0, a1);
+      o1 = csub(a0, a1);
+      o2 = cadd(a2, a3);
+      o3 = csub(a2, a3);
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int k = (m + rot) & 3;
+      x[k * seqs] = k == 0 ? o0 : k == 1 ? o1 : k == 2 ? o2 : o3;
+    }
+  }
+  __syncthreads();
+}
+
+// Radix-2 stages s .. s + K - 1 of n-point transforms (n = 2^log2n) over
+// `seqs` interleaved sequences in one pass: each thread holds the 2^K
+// elements i0 + m 2^s of a butterfly group in registers.  Decimation in
+// time runs the spans up (natural output from bit-reversed input), in
+// frequency down; sign -1 forward, +1 inverse.  The twiddles: a table for
+// each stage, span H at tws[H - 1 + p] = (cos, sin)(2 pi p / 2H), p < H,
+// so that neighbouring positions of a stage read neighbouring words
+// (causal_long.cu gathers it into shared memory; the spectral mix reads
+// kernels/common.py's stage_twiddles from device memory).  Ends with
+// __syncthreads.
+template <bool kDit, int K>
+__device__ void reg_pass(float2* buf, int log2n, int s, int seqs,
+                         const float2* tws, float sign) {
+  constexpr int R = 1 << K;
+  const int h = 1 << s;
+  const size_t hs = (size_t)h * seqs;
+  for (Walk it(seqs); it.r < (1 << (log2n - K)); it.next(seqs)) {
+    const int pos = it.r & (h - 1);
+    float2* x = buf + (size_t)(((it.r - pos) << K) + pos) * seqs + it.q;
+    float2 e[R];
+#pragma unroll
+    for (int m = 0; m < R; ++m) e[m] = x[m * hs];
+#pragma unroll
+    for (int tt = 0; tt < K; ++tt) {
+      const int t = kDit ? tt : K - 1 - tt;     // span h 2^t
+      const int span = h << t;
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        if (m & (1 << t)) continue;
+        const float2 tw = tws[span - 1 + pos + (m & ((1 << t) - 1)) * h];
+        const float2 w = make_float2(tw.x, sign * tw.y);
+        const float2 a = e[m], b = e[m + (1 << t)];
+        if (kDit) {
+          const float2 bw = cmul(b, w);
+          e[m] = cadd(a, bw);
+          e[m + (1 << t)] = csub(a, bw);
+        } else {
+          e[m] = cadd(a, b);
+          e[m + (1 << t)] = cmul(csub(a, b), w);
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < R; ++m) x[m * hs] = e[m];
+  }
+  __syncthreads();
+}
+
+// n-point transforms of `seqs` interleaved sequences in place (n = 2^log2n
+// >= 4): stages 0 and 1 by span1_pass, then (kWide) 4 a pass by reg_pass,
+// sixteen elements a thread, the rest by radix4_pass and radix2_pass
+// (their twiddle table is the last stage's, tws + n/2 - 1),
+// so 2C = 4096 takes 4 passes over shared memory.  kDit: bit-reversed
+// input, natural output, sign -1; else natural input, bit-reversed output,
+// sign +1 (unnormalized).
+template <bool kDit, bool kWide>
+__device__ void long_fft(float2* buf, int log2n, int seqs,
+                         const float2* tws) {
+  const float sign = kDit ? -1.f : 1.f;
+  const float2* tw = tws + (1 << (log2n - 1)) - 1;
+  if (kDit) {
+    span1_pass<true>(buf, log2n, seqs, sign);
+    int s = 2;
+    for (; kWide && log2n - s >= 4; s += 4)
+      reg_pass<true, 4>(buf, log2n, s, seqs, tws, sign);
+    fft_passes<true>(buf, log2n, seqs, tw, 1, sign, s);
+  } else {
+    int top = log2n;                            // stages top-1 .. 2 left
+    for (; kWide && top - 2 >= 4; top -= 4)
+      reg_pass<false, 4>(buf, log2n, top - 4, seqs, tws, sign);
+    for (; top - 2 >= 2; top -= 2)
+      radix4_pass<false>(buf, log2n, top - 2, seqs, tw, 1, sign);
+    if (top == 3) radix2_pass<false>(buf, log2n, 2, seqs, tw, 1, sign);
+    span1_pass<false>(buf, log2n, seqs, sign);
+  }
+}
+
 // Pack the Hermitian halves xa[0..n/2], xb[0..n/2] of two real sequences'
 // spectra into one complex spectrum z = Xa + i Xb (z[k] and z[n - k]), so
 // that one inverse transform returns a + i b.
@@ -214,24 +342,32 @@ __device__ __forceinline__ void pack_pair(float2* z, int k, int n, int seqs,
 
 // The spectral mix's step between its transforms, at one frequency
 // k <= n / 2 of a channel pair packed as a + i b (channels ca, ca + 1):
-// from zk = Z[k] and zm = Z[n - k] untangle A[k] and B[k], multiply each
-// by its gate group's column of the compact gate row (gr, gi: row k), drop
-// Im at DC and Nyquist (irfft does), and leave in zk and zm what Z[k] and
-// Z[n - k] take so that one inverse returns both products as a + i b.
-__device__ __forceinline__ void gate_pair(float2& zk, float2& zm,
-                                          const float* gr, const float* gi,
-                                          int ca, int dg, int k, int half) {
+// from zk = Z[k] and zm = Z[n - k] untangle A[k] and B[k], multiply them
+// by their gates ga and gb, drop Im at DC and Nyquist (irfft does), and
+// leave in zk and zm what Z[k] and Z[n - k] take so that one inverse
+// returns both products as a + i b.
+__device__ __forceinline__ void gate_pair(float2& zk, float2& zm, float2 ga,
+                                          float2 gb, int k, int half) {
   const float2 xa = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
   const float2 xb = make_float2(0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
-  const int ga = ca / dg, gb = (ca + 1) / dg;
-  float2 ma = cmul(make_float2(gr[ga], gi[ga]), xa);
-  float2 mb = cmul(make_float2(gr[gb], gi[gb]), xb);
+  float2 ma = cmul(ga, xa);
+  float2 mb = cmul(gb, xb);
   if (k == 0 || k == half) {
     ma.y = 0.f;
     mb.y = 0.f;
   }
   zk = make_float2(ma.x - mb.y, ma.y + mb.x);
   zm = make_float2(ma.x + mb.y, mb.x - ma.y);
+}
+
+// gate_pair with the gate columns read from the compact gate row (gr, gi:
+// row k), channel ca's and ca + 1's
+__device__ __forceinline__ void gate_pair(float2& zk, float2& zm,
+                                          const float* gr, const float* gi,
+                                          int ca, int dg, int k, int half) {
+  const int ga = ca / dg, gb = (ca + 1) / dg;
+  gate_pair(zk, zm, make_float2(gr[ga], gi[ga]), make_float2(gr[gb], gi[gb]),
+            k, half);
 }
 
 inline int log2_of(int n) {

@@ -24,14 +24,34 @@ def twiddles_np(n: int) -> np.ndarray:
     return tw.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def stage_twiddles_np(n: int) -> np.ndarray:
+    """(n, 2) per-stage twiddles of an n-point radix-2 transform: span H =
+    1, 2, .., n/2 at rows H - 1 + p, p < H, holding (cos, sin)(2 pi p /
+    2H) (``twiddles_np(2H)``'s first H rows), so that neighbouring
+    positions of a stage read neighbouring words; the last row is
+    padding."""
+    rows = [twiddles_np(2 * h)[:h] for h in (1 << s for s in range(
+        n.bit_length() - 1))]
+    return np.concatenate(rows + [np.zeros((1, 2), np.float32)])
+
+
 _TWIDDLES = {}
 
 
-def twiddles(n: int, device: torch.device) -> torch.Tensor:
-    key = (n, str(device))
+def _on(table, name: str, n: int, device: torch.device) -> torch.Tensor:
+    key = (name, n, str(device))
     if key not in _TWIDDLES:
-        _TWIDDLES[key] = torch.from_numpy(twiddles_np(n)).to(device)
+        _TWIDDLES[key] = torch.from_numpy(table(n)).to(device)
     return _TWIDDLES[key]
+
+
+def twiddles(n: int, device: torch.device) -> torch.Tensor:
+    return _on(twiddles_np, "roots", n, device)
+
+
+def stage_twiddles(n: int, device: torch.device) -> torch.Tensor:
+    return _on(stage_twiddles_np, "stages", n, device)
 
 
 def on_cpu(*tensors) -> bool:

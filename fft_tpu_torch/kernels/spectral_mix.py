@@ -14,8 +14,17 @@ PyTorch version:
   m = 9..32 (2304-8192, ``csrc/staged_mix.cu``): the same function in one
   HBM pass, a mixed-radix FFT (radix 2 and one odd factor up to 31).
 - ``twopass_mix``    replaces ``_twopass_mix_call`` (:1156), n_fft 16384,
-  32768 and 65536 (``csrc/twopass_mix.cu``): the same function as a
-  four-step FFT over three launches through a device-memory scratch.
+  32768 and 65536 (``csrc/twopass_mix.cu``): the same function in one
+  launch, each channel pair's spectrum held in the shared memory of a
+  thread block cluster's CTAs, the step between the two transforms done
+  across them through distributed shared memory.
+
+#3 and #4 share one kernel body (``csrc/mix_fft.cuh``): n_fft = CS L, CTA
+r of a cluster's transform holds the rows r + CS t of its channel pairs,
+transforms them in shared memory by passes of sixteen elements a thread,
+and the CS-point DFT across the CTAs, the untangle and the gate run in
+place; a plan (``TWOPASS_PLAN``, ``staged_plan``) sets CS, the channel
+pairs a CTA and the threads.
 
 ``spectral_mix`` is the ``torch.autograd.Function`` over them (the JAX
 package's ``spectral_mix`` custom_vjp, :824-875): its forward runs the
@@ -53,9 +62,10 @@ default.  Every launch adds one to ``LAUNCHES[name]``.
 What bounds the kernels on the H100, and the design's answer: the TPU
 kernels' dense DFT matrices cost 17 GFLOP at B=8, N=1024, d=512 (0.26 ms
 at the card's 67 TFLOP/s fp32, 23x the 11 us HBM bound); the kernels run
-FFTs in shared memory instead, one block per (channel tile, batch row),
-reading v once and writing y once (#4: plus a scratch round trip).  See
-the sources for the rest.
+FFTs in shared memory instead, reading v once and writing y once, one
+block per (channel tile, batch row) for #1 and #2, one cluster of CTAs
+per (channel tile, batch row) for #3 and #4.  See the sources for the
+rest.
 """
 
 from __future__ import annotations
@@ -64,7 +74,9 @@ from typing import Optional
 
 import torch
 
-from fft_tpu_torch.kernels.common import check, launch, on_cpu, twiddles
+from fft_tpu_torch.kernels.common import (
+    SMEM_MAX, check, launch, on_cpu, stage_twiddles, twiddles,
+)
 from fft_tpu_torch.ops import fftops
 
 LAUNCHES = {"direct_mix": 0, "direct_mix_bwd": 0, "staged_mix": 0,
@@ -80,8 +92,24 @@ TWOPASS_SIZES = (16384, 32768, 65536)
 
 # floats of one forward block's tile of v (64 KB of shared memory)
 _TILE_FLOATS = 16384
-# channels per #3 block: 128 blocks at B=1, d=512; 160 KB at n_fft 8192
-_STAGED_TILE = 4
+# The plans of #3 and #4 (csrc/mix_fft.cuh): (CTAs a thread block
+# cluster, channel pairs a CTA, threads a CTA), from chip_smoke.py's
+# kernels_mix_plan_sweep (PERF.md, Findings PR 10).  #4 at each of its
+# lengths; #3 at the lengths whose odd factor is 1, and _STAGED_ODD_PLAN at
+# the others (one CTA: the odd factor's DFT runs inside it).
+TWOPASS_PLAN = {16384: (8, 4, 256), 32768: (8, 4, 512),
+                65536: (16, 4, 512)}
+STAGED_PLAN = {4096: (2, 4, 256), 8192: (2, 4, 512)}
+_STAGED_ODD_PLAN = (1, 2, 256)
+# The (cs, np) the C entries have kernels for (staged_mix.cu,
+# twopass_mix.cu; #3's at odd factor 1, then at the others); any thread
+# count up to the launch bound goes with each
+LONG_INSTANCES = {
+    "staged_mix": ((1, 2), (1, 4), (2, 2), (2, 4), (4, 4)),
+    "staged_mix_odd": ((1, 1), (1, 2)),
+    "twopass_mix": ((1, 2), (2, 2), (2, 4), (4, 2), (4, 4), (8, 2), (8, 4),
+                    (16, 4)),
+}
 
 
 def reset_launches() -> None:
@@ -333,29 +361,63 @@ def direct_mix_bwd(v, g_r, g_i, ybar, n_fft: int):
     return vbar, gbr, gbi
 
 
+def long_plan_fits(n_fft: int, plan) -> bool:
+    """Whether a CTA of #3's or #4's kernel fits a block's shared memory at
+    n_fft with ``plan`` (cs, np, threads): its tile of n_fft / cs rows of np
+    channel pairs, the twiddle table of its P = n_fft / (cs O) points and
+    the gates of its cross-step items (csrc/mix_fft.cuh)."""
+    cs, np_, threads = plan
+    rows = n_fft // cs
+    rounds = -(-(rows // 2 * np_) // (cs * threads))
+    gates = (rounds * (threads // np_) + 1) * cs
+    return ((rows * np_ + rows * (n_fft & -n_fft) // n_fft) * 8 + gates * 8
+            <= SMEM_MAX)
+
+
+def staged_plan(n_fft: int):
+    """#3's plan (CTAs a cluster, channel pairs a CTA, threads a CTA) at
+    n_fft."""
+    return STAGED_PLAN.get(n_fft, _STAGED_ODD_PLAN)
+
+
+def _launch_long(name: str, v, g_r, g_i, mem_t, n_fft: int, plan):
+    """y from one launch of #3 or #4 (``name``) with ``plan`` (cs, np,
+    threads); the wrappers pass their own plans, chip_smoke.py's sweep
+    others.  The kernel's per-stage twiddles are those of its P-point
+    transforms, P = n_fft / (cs O), O the odd part of n_fft."""
+    b, d, cols = _check_forward(v, g_r, g_i, mem_t, n_fft)
+    cs, np_, threads = plan
+    odd = n_fft // (n_fft & -n_fft)
+    y = torch.empty_like(v)
+    launch(LAUNCHES, name, v.device,
+           v.data_ptr(), g_r.data_ptr(), g_i.data_ptr(),
+           None if mem_t is None else mem_t.data_ptr(),
+           twiddles(n_fft, v.device).data_ptr(),
+           stage_twiddles(n_fft // (cs * odd), v.device).data_ptr(),
+           y.data_ptr(), b, n_fft, d, cols, cs, np_, threads)
+    return y
+
+
 def staged_mix(v, g_r, g_i, mem_t: Optional[torch.Tensor],
                n_fft: int) -> torch.Tensor:
     """y (B, n_fft, d) = irfft(g * rfft(v)) [+ mem_t] at n_fft = 256 m, m =
     9..32; the shapes of ``direct_mix``.  Not differentiable:
     ``spectral_mix`` is.
 
-    Replaces ``_fused_mix_call`` (pallas_fft.py:630).  One block per
-    (4-channel tile, batch row): each channel pair rides one complex FFT of
-    n_fft points in shared memory, radix-2 stages over the power-of-two
-    factor and a direct DFT over the odd one, gated at each frequency's
-    stage-order row; mem_t is added on the store."""
+    Replaces ``_fused_mix_call`` (pallas_fft.py:630).  #4's kernel body
+    (``csrc/mix_fft.cuh``) with the plan ``staged_plan`` gives: at n_fft
+    4096 and 8192 a cluster of CTAs a tile of channel pairs, each CTA's
+    share transformed by passes of sixteen elements a thread, the step
+    across the CTAs through distributed shared memory; at the lengths with
+    an odd factor O one CTA a tile, the O-point DFT between the
+    power-of-two passes, gated at each frequency's stage-order row.  Each
+    channel pair rides one complex FFT; mem_t is added on the store."""
     tensors = [v, g_r, g_i] + ([] if mem_t is None else [mem_t])
     if on_cpu(*tensors):
         return staged_mix_ref(v, g_r, g_i, mem_t, n_fft)
     _require("staged_mix", n_fft, v.shape[-1], g_r.shape[-1])
-    b, d, cols = _check_forward(v, g_r, g_i, mem_t, n_fft)
-    y = torch.empty_like(v)
-    launch(LAUNCHES, "staged_mix", v.device,
-           v.data_ptr(), g_r.data_ptr(), g_i.data_ptr(),
-           None if mem_t is None else mem_t.data_ptr(),
-           twiddles(n_fft, v.device).data_ptr(), y.data_ptr(), b, n_fft, d,
-           cols, _STAGED_TILE)
-    return y
+    return _launch_long("staged_mix", v, g_r, g_i, mem_t, n_fft,
+                        staged_plan(n_fft))
 
 
 def twopass_mix(v, g_r, g_i, mem_t: Optional[torch.Tensor],
@@ -364,24 +426,20 @@ def twopass_mix(v, g_r, g_i, mem_t: Optional[torch.Tensor],
     or 65536; the shapes of ``direct_mix``.  Not differentiable:
     ``spectral_mix`` is.
 
-    Replaces ``_twopass_mix_call`` (pallas_fft.py:1156).  A four-step FFT
-    n = n1 n2 over three launches: column FFTs and the twiddle into a
-    (B, n_fft, d) scratch, then row FFTs, untangle, gate and inverse rows in
-    place (each block holding the row pair k2, n2 - k2), then the inverse
-    columns with mem_t added on the store."""
+    Replaces ``_twopass_mix_call`` (pallas_fft.py:1156).  One launch
+    (``csrc/twopass_mix.cu``, ``csrc/mix_fft.cuh``): a thread block
+    cluster of CS CTAs (``TWOPASS_PLAN``) takes a tile of channel pairs,
+    each CTA the rows r + CS t; each CTA's n_fft / CS-point transforms run
+    in its shared memory, the CS-point DFT across the CTAs, the untangle,
+    the gate and its inverse read and write the CTAs' tiles in place
+    through distributed shared memory, then each CTA's inverse transforms
+    store y with mem_t added.  Only y is allocated: no scratch."""
     tensors = [v, g_r, g_i] + ([] if mem_t is None else [mem_t])
     if on_cpu(*tensors):
         return twopass_mix_ref(v, g_r, g_i, mem_t, n_fft)
     _require("twopass_mix", n_fft, v.shape[-1], g_r.shape[-1])
-    b, d, cols = _check_forward(v, g_r, g_i, mem_t, n_fft)
-    y = torch.empty_like(v)
-    scratch = torch.empty_like(v)
-    launch(LAUNCHES, "twopass_mix", v.device,
-           v.data_ptr(), g_r.data_ptr(), g_i.data_ptr(),
-           None if mem_t is None else mem_t.data_ptr(),
-           twiddles(n_fft, v.device).data_ptr(), scratch.data_ptr(),
-           y.data_ptr(), b, n_fft, d, cols)
-    return y
+    return _launch_long("twopass_mix", v, g_r, g_i, mem_t, n_fft,
+                        TWOPASS_PLAN[n_fft])
 
 
 _FORWARD = {"direct_mix": direct_mix, "staged_mix": staged_mix,

@@ -6,12 +6,19 @@ index arithmetic, shared-memory layout and barriers, not the GPU compiler's
 code or its speed.
 
 Supported: __global__/__device__ functions, dim3 launches written as
-``kernel<<<grid, block, smem, stream>>>(...)``, ``extern __shared__``
-arrays, float2, __brev, __clz, __syncthreads, cudaFuncSetAttribute and
-cudaGetLastError (both succeed), cuda_pipeline.h's async copies
-(``__pipeline_memcpy_async`` copies at once; commit and wait do nothing),
-and ``#include "x.cuh"`` of the source's own directory (inlined).  Warp
-shuffles and atomics are not.
+``kernel<<<grid, block, smem, stream>>>(...)`` or as ``cudaLaunchKernelEx``
+with a ``cudaLaunchConfig_t`` (its cluster dimension attribute included),
+``extern __shared__`` arrays, float2, float4, __noinline__, __brev, __clz,
+__syncthreads, cudaFuncSetAttribute, cudaGetLastError and the occupancy
+queries (all succeed; a query finds room for one block or cluster),
+cuda_pipeline.h's async copies (``__pipeline_memcpy_async`` copies at once;
+commit and wait do nothing), cooperative_groups' thread block clusters
+(``this_cluster()``, ``block_rank()``, ``map_shared_rank()``, ``sync()``),
+and ``#include "x.cuh"`` of the source's own directory (inlined).  A
+cluster's blocks run together: all their threads at once, each block with
+its own shared memory and barrier, one barrier for ``cluster.sync()``;
+clusters (a block is a cluster of one) run one after another.  Warp
+shuffles and atomics are not supported.
 """
 
 from __future__ import annotations
@@ -28,19 +35,25 @@ SHIM = r"""
 #include <cmath>
 #include <cstddef>
 #include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__
 #define __launch_bounds__(...)
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
 inline float2 make_float2(float a, float b) { return float2{a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) {
+  return float4{a, b, c, d};
+}
 inline int __clz(int v) { return v == 0 ? 32 : __builtin_clz((unsigned)v); }
 inline unsigned __brev(unsigned v) {
   unsigned r = 0;
@@ -52,7 +65,9 @@ typedef int cudaError_t;
 enum {
   cudaSuccess = 0,
   cudaErrorInvalidValue = 1,
-  cudaFuncAttributeMaxDynamicSharedMemorySize = 8
+  cudaErrorInvalidConfiguration = 9,
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributeNonPortableClusterSizeAllowed = 11
 };
 template <class F> inline cudaError_t cudaFuncSetAttribute(F, int, int) {
   return 0;
@@ -66,37 +81,112 @@ inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n,
 }
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(size_t) {}
-inline thread_local dim3 threadIdx;
-inline dim3 blockIdx, blockDim, gridDim;
-inline std::barrier<>* emu_barrier = nullptr;
+inline dim3 blockDim, gridDim;
+// what a thread knows of its block and cluster (blocks of a cluster run
+// at once, so all of it is the thread's own)
+inline thread_local dim3 threadIdx, blockIdx;
+inline thread_local std::barrier<>* emu_barrier = nullptr;
+inline thread_local std::barrier<>* emu_cluster_barrier = nullptr;
+inline thread_local void* emu_smem_ptr = nullptr;
+inline thread_local void* const* emu_cluster_smem = nullptr;
+inline thread_local unsigned emu_cluster_rank = 0;
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
-inline std::vector<double> emu_smem;
-inline void* emu_smem_ptr = nullptr;
-// Blocks run one after another; a block's threads run together.  Shared
-// memory starts as garbage, not zeros, so a read before a write shows.
+namespace cooperative_groups {
+struct cluster_group {
+  unsigned block_rank() const { return emu_cluster_rank; }
+  // the address in block `rank`'s shared memory at the offset that addr
+  // has in this block's
+  template <class T> T* map_shared_rank(T* addr, unsigned rank) const {
+    const std::ptrdiff_t off =
+        reinterpret_cast<char*>(addr) - static_cast<char*>(emu_smem_ptr);
+    return reinterpret_cast<T*>(static_cast<char*>(emu_cluster_smem[rank])
+                                + off);
+  }
+  void sync() const { emu_cluster_barrier->arrive_and_wait(); }
+};
+inline cluster_group this_cluster() { return cluster_group(); }
+}  // namespace cooperative_groups
+// Clusters of cx blocks along x run one after another; a cluster's threads
+// run together.  Shared memory starts as garbage, not zeros, so a read
+// before a write shows.
 template <class F, class... A>
-void emu_launch(F kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t,
-                A... args) {
+void emu_run(F kernel, dim3 grid, dim3 block, size_t smem, unsigned cx,
+             A... args) {
   blockDim = block;
   gridDim = grid;
   const unsigned nt = block.x * block.y * block.z;
   for (unsigned bz = 0; bz < grid.z; ++bz)
     for (unsigned by = 0; by < grid.y; ++by)
-      for (unsigned bx = 0; bx < grid.x; ++bx) {
-        blockIdx = dim3(bx, by, bz);
-        emu_smem.assign(smem / 8 + 1, -12345.678);
-        emu_smem_ptr = emu_smem.data();
-        std::barrier<> bar((std::ptrdiff_t)nt);
-        emu_barrier = &bar;
+      for (unsigned bx = 0; bx < grid.x; bx += cx) {
+        std::vector<std::vector<double>> mem(
+            cx, std::vector<double>(smem / 8 + 1, -12345.678));
+        std::vector<void*> bases;
+        std::vector<std::unique_ptr<std::barrier<>>> bars;
+        for (unsigned c = 0; c < cx; ++c) {
+          bases.push_back(mem[c].data());
+          bars.emplace_back(new std::barrier<>((std::ptrdiff_t)nt));
+        }
+        std::barrier<> cluster_bar((std::ptrdiff_t)(nt * cx));
         std::vector<std::thread> ts;
-        for (unsigned t = 0; t < nt; ++t)
-          ts.emplace_back([&, t] {
-            threadIdx = dim3(t % block.x, (t / block.x) % block.y,
-                             t / (block.x * block.y));
-            kernel(args...);
-          });
+        for (unsigned c = 0; c < cx; ++c)
+          for (unsigned t = 0; t < nt; ++t)
+            ts.emplace_back([&, c, t] {
+              threadIdx = dim3(t % block.x, (t / block.x) % block.y,
+                               t / (block.x * block.y));
+              blockIdx = dim3(bx + c, by, bz);
+              emu_smem_ptr = bases[c];
+              emu_barrier = bars[c].get();
+              emu_cluster_barrier = &cluster_bar;
+              emu_cluster_smem = bases.data();
+              emu_cluster_rank = c;
+              kernel(args...);
+            });
         for (auto& th : ts) th.join();
       }
+}
+template <class F, class... A>
+void emu_launch(F kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t,
+                A... args) {
+  emu_run(kernel, grid, block, smem, 1, args...);
+}
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttributeValue {
+  struct { unsigned x, y, z; } clusterDim;
+};
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  cudaLaunchAttributeValue val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <class... E, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
+                               void (*kernel)(E...), A&&... args) {
+  unsigned cx = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension)
+      cx = cfg->attrs[i].val.clusterDim.x;
+  if (cx == 0 || cfg->gridDim.x % cx) return cudaErrorInvalidValue;
+  emu_run(kernel, cfg->gridDim, cfg->blockDim, cfg->dynamicSmemBytes, cx,
+          static_cast<E>(args)...);
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveClusters(int* n, F,
+                                           const cudaLaunchConfig_t*) {
+  *n = 1;
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
+                                                          size_t) {
+  *n = 1;
+  return cudaSuccess;
 }
 """
 
@@ -127,7 +217,8 @@ def build(source: pathlib.Path, out_dir: pathlib.Path) -> ctypes.CDLL:
     src = re.sub(r"(\w+(?:<[^<>]*>)?)<<<(.*?)>>>\(",
                  lambda m: f"emu_launch({m.group(1)}, {m.group(2)}, ",
                  src, flags=re.S)
-    for header in ("cuda_runtime.h", "cuda_pipeline.h"):
+    for header in ("cuda_runtime.h", "cuda_pipeline.h",
+                   "cooperative_groups.h"):
         (out_dir / header).write_text("#pragma once\n")
     (out_dir / "emu_shim.h").write_text(SHIM)
     cpp = out_dir / (source.stem + ".cpp")

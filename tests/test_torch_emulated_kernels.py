@@ -2,7 +2,9 @@
 tests/cuda_emulation.py, against their plain PyTorch versions: the kernels'
 index arithmetic, shared-memory layout and barriers at small shapes, on a
 machine without nvcc or a card.  spectral_mix.cu (#1, #2), staged_mix.cu
-(#3, at odd factors 9 and 17), twopass_mix.cu (#4 at n_fft 16384),
+(#3, at every length), twopass_mix.cu (#4, clusters of 1-8 CTAs at small
+n_fft and the wrapper's plan at 16384; a copy whose step across the
+cluster reads one CTA alone must fail),
 causal_long.cu (#9, #7, #11, at chunks up to 2048), causal.cu's
 banded_inverse at the long chunks of its 8-lane tile, and decode.cu (#12).  Same bound as on the
 card (max|a-b| / max|b| < 2e-5: FFTs or direct DFTs against pocketfft, all
@@ -17,7 +19,7 @@ from fft_tpu_torch.kernels import build as kb
 from fft_tpu_torch.kernels import causal as kc
 from fft_tpu_torch.kernels import decode as kd
 from fft_tpu_torch.kernels import spectral_mix as sm
-from fft_tpu_torch.kernels.common import twiddles_np
+from fft_tpu_torch.kernels.common import stage_twiddles_np, twiddles_np
 from tests import cuda_emulation
 
 TOL = 2e-5
@@ -114,51 +116,136 @@ def _mix_args(b, n, d, cols, mem, seed):
             _randn(g, n, d) if mem else None)
 
 
-# (b, n_fft, cols, memory) of #3 on one 4-channel tile (the wrapper's
-# _STAGED_TILE): odd factors 9 (n = 256 * 9), 17 and 31 (primes) and 1 (the
-# radix-2 stages alone), gate groups of 1, 2 and 4 channels
+def _emulated_long_mix(fn, v, gr, gi, mem_t, n, plan):
+    """y from the C entry of #3 or #4 (``fn``) with ``plan`` (cs, np,
+    threads), the per-stage twiddles of its P = n / (cs O) points, as
+    ``sm._launch_long`` passes them on the card; y starts as NaN."""
+    b, _, d = v.shape
+    cs, np_, threads = plan
+    odd = n // (n & -n)
+    y = torch.full_like(v, float("nan"))
+    assert fn(_ptr(v), _ptr(gr), _ptr(gi), _ptr(mem_t),
+              _ptr(torch.from_numpy(twiddles_np(n))),
+              _ptr(torch.from_numpy(stage_twiddles_np(n // (cs * odd)))),
+              _ptr(y), b, n, d, gr.shape[-1], cs, np_, threads, None) == 0
+    return y
+
+
+# (b, n_fft, cols, memory) of #3 with the wrapper's plan on 8 channels:
+# odd factors 9 (n = 256 * 9), 17 and 31 (primes) and 1 (4096, one CTA a
+# tile; 8192, a cluster of two), gate groups of 1, 2 and 4 channels
 STAGED_CASES = [(2, 2304, 4, True), (1, 4352, 2, False), (1, 7936, 4, True),
-                (1, 4096, 1, True)]
+                (1, 4096, 1, True), (1, 8192, 2, True)]
 
 
 @pytest.mark.parametrize("b,n,cols,mem", STAGED_CASES)
 def test_emulated_staged_mix(staged_lib, b, n, cols, mem):
-    d = sm._STAGED_TILE
+    d = 8
     v, gr, gi, mem_t = _mix_args(b, n, d, cols, mem, n + cols)
-    y = torch.empty_like(v)
-    assert staged_lib.fft_staged_mix(
-        _ptr(v), _ptr(gr), _ptr(gi), _ptr(mem_t),
-        _ptr(torch.from_numpy(twiddles_np(n))), _ptr(y), b, n, d, cols, d,
-        None) == 0
+    y = _emulated_long_mix(staged_lib.fft_staged_mix, v, gr, gi, mem_t, n,
+                           sm.staged_plan(n))
     assert _rel(y, sm.staged_mix_ref(v, gr, gi, mem_t, n)) < TOL
 
 
 @pytest.mark.parametrize("m", range(9, 33))
 def test_emulated_staged_mix_every_length(staged_lib, m):
     """Every n_fft = 256 m the layer sends #3, so every odd factor's
-    instance of the kernel (O = 1, 3, ..., 31), on one tile without
-    memory."""
-    n, d, cols = 256 * m, sm._STAGED_TILE, 2
+    odd_pass (O = 1, 3, ..., 31), with the wrapper's plan, on one or two
+    tiles without memory."""
+    n, d, cols = 256 * m, 8, 2
     v, gr, gi, _ = _mix_args(1, n, d, cols, False, m)
-    y = torch.empty_like(v)
-    assert staged_lib.fft_staged_mix(
-        _ptr(v), _ptr(gr), _ptr(gi), None,
-        _ptr(torch.from_numpy(twiddles_np(n))), _ptr(y), 1, n, d, cols, d,
-        None) == 0
+    y = _emulated_long_mix(staged_lib.fft_staged_mix, v, gr, gi, None, n,
+                           sm.staged_plan(n))
     assert _rel(y, sm.staged_mix_ref(v, gr, gi, None, n)) < TOL
 
 
 def test_emulated_twopass_mix(twopass_lib):
-    """#4 at n_fft 16384 on its smallest tile, 4 channel pairs (d = 8), with
-    memory and 2-channel gate groups."""
+    """#4 at n_fft 16384 with the wrapper's plan, on one tile, with memory
+    and 2-channel gate groups."""
     b, n, d, cols = 1, 16384, 8, 4
     v, gr, gi, mem_t = _mix_args(b, n, d, cols, True, 5)
-    y, scratch = torch.empty_like(v), torch.empty_like(v)
-    assert twopass_lib.fft_twopass_mix(
-        _ptr(v), _ptr(gr), _ptr(gi), _ptr(mem_t),
-        _ptr(torch.from_numpy(twiddles_np(n))), _ptr(scratch), _ptr(y), b, n,
-        d, cols, None) == 0
+    y = _emulated_long_mix(twopass_lib.fft_twopass_mix, v, gr, gi, mem_t, n,
+                           sm.TWOPASS_PLAN[n])
     assert _rel(y, sm.twopass_mix_ref(v, gr, gi, mem_t, n)) < TOL
+
+
+# (b, n_fft, d, cols, memory, (cs, np, threads)): #4's kernel at P = n / cs
+# of 64-256 points a CTA with clusters of 1, 2, 4, 8 and 16 CTAs, two and
+# four channel pairs a CTA, gate groups of 1, 2, 3 and 4 channels, several
+# clusters and batch rows; P = 512 and 8192, whose last three stages take
+# one pass; gate groups of 16 and 32 channels, which a CTA's pairs share
+# (their gates staged in shared memory)
+CLUSTER_CASES = [(1, 128, 4, 2, True, (1, 2, 64)),
+                 (2, 256, 8, 4, False, (2, 2, 64)),
+                 (1, 512, 8, 2, True, (2, 4, 64)),
+                 (1, 512, 12, 4, True, (4, 2, 32)),
+                 (1, 1024, 16, 16, False, (4, 4, 128)),
+                 (2, 1024, 24, 8, True, (8, 2, 64)),
+                 (1, 2048, 16, 4, True, (8, 4, 64)),
+                 (1, 4096, 8, 2, True, (16, 4, 64)),
+                 (2, 1024, 12, 6, False, (4, 2, 64)),
+                 (1, 512, 4, 2, True, (1, 2, 64)),
+                 (1, 16384, 4, 1, True, (2, 2, 256)),
+                 (1, 1024, 32, 2, True, (8, 4, 64)),
+                 (2, 2048, 32, 1, False, (16, 4, 32))]
+
+
+@pytest.mark.parametrize("b,n,d,cols,mem,plan", CLUSTER_CASES)
+def test_emulated_twopass_mix_clusters(twopass_lib, b, n, d, cols, mem,
+                                       plan):
+    v, gr, gi, mem_t = _mix_args(b, n, d, cols, mem, n + d + cols)
+    y = _emulated_long_mix(twopass_lib.fft_twopass_mix, v, gr, gi, mem_t, n,
+                           plan)
+    assert _rel(y, sm.twopass_mix_ref(v, gr, gi, mem_t, n)) < TOL
+
+
+def test_emulated_twopass_reading_its_own_rank_fails(tmp_path_factory):
+    """A copy of mix_fft.cuh whose cross-CTA step reads and writes its own
+    CTA's shared memory in place of every rank's disagrees with the plain
+    version wherever a cluster has more than one CTA (and only there): the
+    checks above see the step across the cluster."""
+    if cuda_emulation.compiler() is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    src = (kb.CSRC_DIR / "mix_fft.cuh").read_text()
+    good = "return cg::this_cluster().map_shared_rank(z, q);"
+    assert src.count(good) == 1
+    out = tmp_path_factory.mktemp("broken_cluster")
+    (out / "mix_fft.cuh").write_text(src.replace(
+        good, "return cg::this_cluster().map_shared_rank(\n"
+        "        z, cg::this_cluster().block_rank());"))
+    for name in ("twopass_mix.cu", "fft_common.cuh"):
+        (out / name).write_text((kb.CSRC_DIR / name).read_text())
+    lib = cuda_emulation.build(out / "twopass_mix.cu", out)
+    argtypes, restype = kb._SIGNATURES["fft_twopass_mix"]
+    lib.fft_twopass_mix.argtypes = argtypes
+    lib.fft_twopass_mix.restype = restype
+    n, d, cols = 512, 8, 2
+    v, gr, gi, mem_t = _mix_args(1, n, d, cols, True, 3)
+    want = sm.twopass_mix_ref(v, gr, gi, mem_t, n)
+    for plan, broken in (((1, 2, 32), False), ((4, 2, 32), True),
+                         ((16, 4, 32), True)):
+        y = _emulated_long_mix(lib.fft_twopass_mix, v, gr, gi, mem_t, n,
+                               plan)
+        assert (_rel(y, want) > TOL) == broken
+
+
+def test_mix_ablation_cuts_apply():
+    """fft_tpu_torch.kernels.mix_ablation's copies of mix_fft.cuh each take
+    out exactly the parts they name: every cut finds its text once, and the
+    whole kernel is the source as it is."""
+    from fft_tpu_torch.kernels import mix_ablation as ma
+    whole = ma._sources("whole")
+    assert whole["mix_fft.cuh"] == (kb.CSRC_DIR / "mix_fft.cuh").read_text()
+    for cut, edits in ma._CUTS.items():
+        for old, _ in edits:
+            assert sum(t.count(old) for t in whole.values()) == 1, (cut, old)
+    for variant in ma.VARIANTS[1:]:
+        texts = ma._sources(variant)
+        assert texts != whole
+        for cut in variant[2:].split("_no"):
+            for old, new in ma._CUTS[cut]:
+                assert old not in "".join(texts.values())
+                assert new in "".join(texts.values())
 
 
 def test_plain_adjoint_is_autograd_of_the_plain_forward():

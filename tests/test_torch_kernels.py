@@ -597,6 +597,41 @@ def test_twopass_mix_kernel(dev, n_fft):
         assert _rel(got, sm.twopass_mix_ref(v, gr, gi, m, n_fft)) < TOL
 
 
+# (wrapper, B, n_fft, (cs, np, threads)): every instance of the kernel that
+# #3 and #4 share (csrc/mix_fft.cuh), beside the plans the wrappers pick
+PLAN_CASES = [("twopass_mix", 1, 16384, (cs, np_, 256))
+              for cs, np_ in sm.LONG_INSTANCES["twopass_mix"]
+              if sm.long_plan_fits(16384, (cs, np_, 256))]
+PLAN_CASES += [("staged_mix", 2, 4096, (cs, np_, 512))
+               for cs, np_ in sm.LONG_INSTANCES["staged_mix"]]
+PLAN_CASES += [("staged_mix", 1, 2304, (1, np_, 128)) for np_ in (1, 2)]
+
+
+@pytest.mark.parametrize("name,b,n_fft,plan", PLAN_CASES)
+def test_long_mix_kernel_plans(dev, name, b, n_fft, plan):
+    v, gr, gi, mem_t, _ = _mix_inputs(dev, n_fft, 16, n_fft + plan[0], b=b,
+                                      d=128)
+    got = sm._launch_long(name, v, gr, gi, mem_t, n_fft, plan)
+    torch.cuda.synchronize()
+    assert _rel(got, sm.twopass_mix_ref(v, gr, gi, mem_t, n_fft)) < TOL
+
+
+def test_twopass_mix_allocates_no_scratch(dev):
+    """One call of #4 at n_fft 65536 raises the peak of allocated device
+    memory by y's bytes and no more (a small slack): the spectrum stays in
+    the cluster's shared memory."""
+    n_fft = 65536
+    v, gr, gi, mem_t, _ = _mix_inputs(dev, n_fft, 16, 7, b=1, d=512)
+    sm.twopass_mix(v, gr, gi, mem_t, n_fft)      # the twiddle tables
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    y = sm.twopass_mix(v, gr, gi, mem_t, n_fft)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated(dev) - before
+    assert y.numel() * 4 <= grown <= y.numel() * 4 + (1 << 20)
+
+
 def test_staged_and_twopass_refuse_what_their_kernels_do_not_take(dev):
     v, gr, gi, _, _ = _mix_inputs(dev, 4096, 16, 0, b=1, d=96)
     with pytest.raises(ValueError, match="#3 .*unsupported"):
