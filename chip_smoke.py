@@ -29,11 +29,15 @@ Phases, in order; any failure raises and the exit code is nonzero:
              (library_ms; cuFFT), and
              the least time the card could take (bound_ms: bytes over 3.35
              TB/s or FFT-equivalent operations over 67 TFLOP/s fp32).
-             staged_mix (#3) also at every n_fft = 256 m, m = 9..32,
-             untimed; #3 at 4096 x 2 and 8192 x 1 and twopass_mix (#4) at
-             16384-65536 over every plan of their shared kernel
-             (csrc/mix_fft.cuh) that fits a block (kernels_mix_plan_sweep)
-             and by CUDA kernel (kernels_mix_launch_split).  #8 and #6 at the tiny LM's shapes (B=4, n_fft
+             direct_mix (#1) and direct_mix_bwd (#2) also at every n_fft
+             up to 2048 that the layer fuses, with gate groups of 1, 3, 6,
+             16 and 64 channels (kernels_direct_sweep), and staged_mix
+             (#3) at every n_fft = 256 m, m = 9..32, untimed; #1 and #2 at
+             n_fft 512-2048, #3 at 4096 x 2 and 8192 x 1 and twopass_mix
+             (#4) at 16384-65536 over every plan of their kernels
+             (kernels_mix_plan_sweep; #1, #3 and #4 share
+             csrc/mix_fft.cuh) and by CUDA kernel, #1 and #2 at config 1
+             (kernels_mix_launch_split).  #8 and #6 at the tiny LM's shapes (B=4, n_fft
              2048, C=128, L=512; nc 8 and 16, d=512, 32 gate columns)
              through the FFT kernel, the direct kernel and, for #6, #7's
              kernel (fused_causal_mix_v3, which takes chunk 128 too), all
@@ -90,8 +94,11 @@ Phases, in order; any failure raises and the exit code is nonzero:
              weights and input on the CPU, every parameter gradient of
              sum(y^2) within 1e-4 (modReLU kink sides aligned); 5 timed
              steps of forward, backward and update through
-             fft_tpu_torch.bench.run (step ms, tokens/s, peak memory); the
-             bench's CLI once; the same block with the original
+             fft_tpu_torch.bench.run (step ms, tokens/s, peak memory) and
+             3 profiled (device busy ms a step); the bench's CLI once;
+             the same block at n_fft = L = 1536 (256 * 3), B=4, with the
+             same parity limits, on the fused branch, direct_mix and
+             direct_mix_bwd launched; the same block with the original
              constructor's defaults (DCT pooling, wavelet rate 0.1, no
              memory) for one finite training step and eval-mode forward
              parity with the CPU.  Both spectral-mix kernels were launched
@@ -387,6 +394,7 @@ def phase_kernels(kc, sm, kd, dev):
                            main=(n == 1024 and mem))
     cases += long_mix_cases(sm, randn)
 
+    direct_sweep(sm, randn)
     staged_sweep(sm, randn)
     mix_plan_sweep(sm, randn)
     mix_launch_split(sm, randn)
@@ -630,17 +638,20 @@ def long_launch_split(kc, randn) -> None:
     emit(phase="kernels_launch_split", rows=rows)
 
 
-def mix_launch_split(sm, randn) -> None:
+def mix_launch_split(sm, randn, kernels=None) -> None:
     """Device time by CUDA kernel (torch.profiler over 10 calls) of the
-    forward mix past n_fft 2048 at phase 2's shapes (long_mix_cases), with
-    memory: #3 at config 1's 4096 x 2 and 8192 x 1 and at the odd factors
-    9, 17 and 31, #4 at 16384, 32768 and 65536, 32 gate columns.  It takes
-    any tree's ``kernels.spectral_mix``, so one call can time two trees'
-    kernels."""
+    non-causal mix at phase 2's shapes, 32 gate columns: #1 (with memory)
+    and #2 at config 1's B=8, n_fft 1024, d=512; the forward past n_fft 2048
+    (long_mix_cases), with memory: #3 at config 1's 4096 x 2 and 8192 x 1
+    and at the odd factors 9, 17 and 31, #4 at 16384, 32768 and 65536.  It
+    takes any tree's ``kernels.spectral_mix``, so one call can time two
+    trees' kernels; ``kernels`` (names) keeps those rows alone."""
     from fft_tpu_torch import bench
 
     rows = []
-    for name, b, n, d in (("staged_mix", 2, 4096, 512),
+    for name, b, n, d in (("direct_mix", 8, 1024, 512),
+                          ("direct_mix_bwd", 8, 1024, 512),
+                          ("staged_mix", 2, 4096, 512),
                           ("staged_mix", 1, 8192, 512),
                           ("staged_mix", 1, 2304, 512),
                           ("staged_mix", 1, 4352, 128),
@@ -648,15 +659,20 @@ def mix_launch_split(sm, randn) -> None:
                           ("twopass_mix", 1, 16384, 512),
                           ("twopass_mix", 1, 32768, 512),
                           ("twopass_mix", 1, 65536, 512)):
+        if kernels is not None and name not in kernels:
+            continue
         cols = 32
+        # #2 takes the cotangent (B, N, d) where the forwards take mem_t
+        last = randn(b, n, d) if name == "direct_mix_bwd" else randn(n, d)
         args = (randn(b, n, d), randn(b, n // 2 + 1, cols),
-                randn(b, n // 2 + 1, cols), randn(n, d), n)
+                randn(b, n // 2 + 1, cols), last, n)
         fn = lambda f=getattr(sm, name), a=args: f(*a)       # noqa: E731
         fn()
         torch.cuda.synchronize()
         prof = bench._profile(fn, torch.cuda.synchronize, 10)
         rows.append(dict(kernel=name,
-                         shape=f"B={b} N={n} d={d} cols={cols} mem=1",
+                         shape=f"B={b} N={n} d={d} cols={cols} "
+                               f"mem={int(name != 'direct_mix_bwd')}",
                          ms=median_ms(fn),
                          device_ms=prof["device_busy_ms_per_step"],
                          by_launch=prof["top_kernels_ms_per_step"]))
@@ -664,15 +680,54 @@ def mix_launch_split(sm, randn) -> None:
     emit(phase="kernels_mix_launch_split", rows=rows)
 
 
+def direct_plans(sm, n):
+    """#1's plans (cs, np, threads) at n_fft: cs 2 only at powers of two
+    (an odd factor or a direct DFT runs in one CTA)."""
+    pow2 = n & (n - 1) == 0
+    return [(cs, np_, threads) for cs, np_ in sm.DIRECT_INSTANCES
+            if cs == 1 or pow2 for threads in (128, 256, 512)]
+
+
 def mix_plan_sweep(sm, randn) -> None:
-    """#3 at config 1's 4096 x 2 and 8192 x 1 and at the odd factors 9 and
-    31 (2304, 7936), #4 at 16384, 32768 and 65536 (B=1), d=512, 32 gate
-    columns, with memory, over the plans of their kernel (csrc/mix_fft.cuh)
-    whose tile fits a block: CTAs a cluster (cs), channel pairs a CTA (np),
-    threads a CTA; median ms over CUDA events and device ms of each, the
+    """#1 (with memory) and #2 at n_fft 512, 1024 (config 1), 1536 and 2048
+    with B n_fft = 8192 tokens, over their plans (#1: CTAs a cluster, channel
+    pairs a CTA, threads a CTA; #2: channel pairs a CTA, threads a CTA); #3
+    at config 1's 4096 x 2 and 8192 x 1 and at the odd factors 9 and 31
+    (2304, 7936), #4 at 16384, 32768 and 65536 (B=1), with memory, over the
+    plans of their kernel (csrc/mix_fft.cuh) whose tile fits a block; d=512,
+    32 gate columns; median ms over CUDA events and device ms of each, the
     wrappers' own plan marked.  Each plan's output is held to the plain
     version first."""
     rows = []
+    d, cols = 512, 32
+    for n in (512, 1024, 1536, 2048):
+        b = 8192 // n
+        args = (randn(b, n, d), randn(b, n // 2 + 1, cols),
+                randn(b, n // 2 + 1, cols))
+        mem_t, ybar = randn(n, d), randn(b, n, d)
+        want = sm.direct_mix_ref(*args, mem_t, n)
+        want_bwd = sm.direct_mix_bwd_ref(*args, ybar, n)
+        for name, plans, chosen, kern, ref in (
+                ("direct_mix", direct_plans(sm, n), sm.direct_plan(n),
+                 lambda plan, a=args, m=mem_t, n=n: sm._launch_direct(
+                     *a, m, n, plan), want),
+                ("direct_mix_bwd",
+                 [(np_, t) for np_ in sm.BWD_INSTANCES
+                  for t in (128, 256, 512)], sm.bwd_plan(n),
+                 lambda plan, a=args, y=ybar, n=n: sm._launch_bwd(
+                     *a, y, n, plan), want_bwd)):
+            for plan in plans:
+                err = rel_err(kern(plan), ref)
+                if not err <= REL_KERNEL:
+                    raise AssertionError(f"{name} n_fft {n} plan {plan}: "
+                                         f"rel_err {err}")
+                rows.append(dict(
+                    kernel=name, shape=f"B={b} N={n} d={d}",
+                    plan=list(plan), rel_err=err,
+                    ms=median_ms(lambda k=kern, p=plan: k(p)),
+                    device_ms=device_ms(lambda k=kern, p=plan: k(p)),
+                    chosen=tuple(plan) == tuple(chosen)))
+        del args, mem_t, ybar, want, want_bwd
     for name, b, n in (("staged_mix", 2, 4096), ("staged_mix", 1, 8192),
                        ("staged_mix", 1, 2304), ("staged_mix", 1, 7936),
                        ("twopass_mix", 1, 16384), ("twopass_mix", 1, 32768),
@@ -839,6 +894,37 @@ def long_mix_cases(sm, randn):
                     fwd_mix_work(b, n, d, cols, mem),
                     mem and n in (4096, 16384)))
     return cases
+
+
+def direct_sweep(sm, randn) -> None:
+    """#1 (with memory) and #2 at every n_fft up to 2048 that the layer
+    fuses (``mix_kernel``: the even n_fft from 8 to 256, 256 m up to 2048)
+    with gate groups of 1, 3, 6, 16 and 64 channels (B=2, d=384), against
+    their plain versions, untimed."""
+    worst = {}
+    d = 384
+    for n in range(8, 2049, 2):
+        if sm.mix_kernel(n) != "direct_mix":
+            continue
+        fh = n // 2 + 1
+        v, ybar, mem_t = randn(2, n, d), randn(2, n, d), randn(n, d)
+        for d_g in (1, 3, 6, 16, 64):
+            gr, gi = randn(2, fh, d // d_g), randn(2, fh, d // d_g)
+            for name, got, want in (
+                    ("direct_mix", sm.direct_mix(v, gr, gi, mem_t, n),
+                     sm.direct_mix_ref(v, gr, gi, mem_t, n)),
+                    ("direct_mix_bwd", sm.direct_mix_bwd(v, gr, gi, ybar, n),
+                     sm.direct_mix_bwd_ref(v, gr, gi, ybar, n))):
+                torch.cuda.synchronize()
+                err = rel_err(got, want)
+                if not (err <= REL_KERNEL and all_finite(got)):
+                    raise AssertionError(f"{name} n_fft {n} d_g {d_g}: "
+                                         f"rel_err {err} > {REL_KERNEL} or "
+                                         "non-finite")
+                worst[name] = max(worst.get(name, 0.0), err)
+    emit(phase="kernels_direct_sweep", d=d, group_widths=[1, 3, 6, 16, 64],
+         lengths=sum(sm.mix_kernel(n) == "direct_mix"
+                     for n in range(8, 2049, 2)), worst_rel_err=worst)
 
 
 def staged_sweep(sm, randn) -> None:
@@ -1268,7 +1354,8 @@ def phase_block(dev) -> None:
                     generator=torch.Generator().manual_seed(SEED + 2))
     emit(phase="block_parity", **block_parity(cfg, x, dev))
 
-    res = bench.run(steps=5, device=dev, seed=SEED)
+    # step ms, and the device's busy ms a step from 3 profiled steps
+    res = bench.run(steps=5, device=dev, seed=SEED, profile_steps=3)
     emit(phase="block_steps", steps=5, **res)
     proc = subprocess.run(
         [sys.executable, "-m", "fft_tpu_torch.bench", "--steps", "3"],
@@ -1308,6 +1395,26 @@ def phase_block(dev) -> None:
     emit(phase="block_defaults", pooling="dct", wavelet_on_rate=0.1,
          generator_seed=seed, train_finite=True, tensors=len(grads),
          eval_rel_err=err)
+
+
+def phase_block_1536(dev, sm) -> None:
+    """The config-1 block at n_fft = L = 1536 (256 * 3), B=4: parity with
+    the CPU on the fused branch, direct_mix and direct_mix_bwd launched
+    (the lengths 768-1792 raised on the card before #1 and #2 took odd
+    factors)."""
+    from fft_tpu_torch import bench
+
+    cfg = bench.config1(1536)
+    x = torch.randn((4, 1536, bench.D),
+                    generator=torch.Generator().manual_seed(SEED + 9))
+    before = dict(sm.LAUNCHES)
+    rec = block_parity(cfg, x, dev)
+    launched = {k: sm.LAUNCHES[k] - before[k]
+                for k in ("direct_mix", "direct_mix_bwd")}
+    emit(phase="block_1536", launches=launched, **rec)
+    if rec["branches"] != {"fused": 1} or not all(launched.values()):
+        raise AssertionError(f"block at n_fft 1536: branches "
+                             f"{rec['branches']}, launches {launched}")
 
 
 def phase_block_long(dev) -> None:
@@ -1782,6 +1889,7 @@ def main() -> int:
     # 7. block -------------------------------------------------------------
     reset_launches()                          # the block's path starts here
     phase_block(dev)
+    phase_block_1536(dev, sm)
     phase_wide_block(dev)
     block_launches = launches()
     emit(phase="block_launches", **block_launches)

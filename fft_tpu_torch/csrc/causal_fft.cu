@@ -108,20 +108,6 @@ constexpr int kBinT = 512;
 // dynamic shared memory a Hopper block may use
 constexpr size_t kSmemMax = 232448;
 
-// Row of time t of a length-(P O) transform: t = t1 + O t2 at row
-// t1 + O bitrev(t2) (the input order of the forward, the output order of
-// the inverse).
-__device__ __forceinline__ int time_row(int t, int o, int log2p) {
-  if (o == 1) return bitrev(t, log2p);
-  return t % o + o * bitrev(t / o, log2p);
-}
-
-// Row of frequency k in stage order: X[k2 + P k1] at row O k2 + k1.
-__device__ __forceinline__ int freq_row(int k, int o, int log2p) {
-  if (o == 1) return k;
-  return o * (k & ((1 << log2p) - 1)) + (k >> log2p);
-}
-
 // In place, for every column (k2, q) of a length n = P * O transform: the
 // O-point DFT over the rows O k2 + j, j < O, with the twiddle e^{sign 2 pi
 // i j k2 / n} on input j (forward, sign -1) or on output j (inverse, +1).
@@ -152,14 +138,6 @@ __device__ void odd_pass(float2* z, int o, int p_len, int seqs,
     }
   }
   __syncthreads();
-}
-
-// (a, b) with Z = FFT(a + i b) for real a, b: A[k] and B[k] from Z[k] and
-// Z[n - k].
-__device__ __forceinline__ void untangle(float2 zk, float2 zm, float2& a,
-                                         float2& b) {
-  a = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
-  b = make_float2(0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
 }
 
 // Kernel-segment spectra of the gate, for lanes l0 .. l0 + 2 NP - 1:

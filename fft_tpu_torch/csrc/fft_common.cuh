@@ -1,8 +1,13 @@
-// FFTs in shared memory: radix-2 stages (fft_stages, spectral_mix.cu's
-// #1 and #2), passes of two radix-2 stages each (fft_passes: radix-4
-// butterflies in registers; causal_fft.cu) and passes of four (long_fft:
-// sixteen elements a thread; causal_long.cu's #9, #7 and #11 and the long
-// spectral mix of mix_fft.cuh, #3 and #4).
+// FFTs in shared memory: passes of one or two radix-2 stages each
+// (fft_passes: radix-4 butterflies in registers; causal_fft.cu) and of
+// four (long_fft: sixteen elements a thread; causal_long.cu's #9, #7 and
+// #11 and the spectral mix of mix_fft.cuh, #1 to #4).
+//
+// The passes take `batch` tiles of transforms stacked along the rows (tile
+// j at rows j n .. j n + n - 1, the same `seqs` sequences in each): a
+// butterfly's rows never cross a multiple of n, so the row loop simply
+// runs batch times as far (the backward of the spectral mix transforms v
+// and ybar, two tiles, in one set of passes).
 //
 // Twiddles are rounded once from float64 on the host (no __sinf/__cosf, no
 // fast math): tw[m] = (cos, sin)(2 pi m / n) for m < n / 2.  Lengths are
@@ -37,45 +42,6 @@ __device__ __forceinline__ float2 root(const float2* tw, int j, int half) {
 
 __device__ __forceinline__ int bitrev(int t, int log2n) {
   return (int)(__brev((unsigned)t) >> (32 - log2n));
-}
-
-// In-place radix-2 FFTs of `seqs` sequences of length n = 2^log2n; element
-// t of sequence q sits at buf[t * stride + q * step].  sign -1: forward
-// (exp(-i 2 pi k t / n)), +1: inverse, unnormalized.  kDit: decimation in
-// time, bit-reversed input and natural output; else decimation in
-// frequency, natural input and bit-reversed output.  tw_step: the table
-// holds the twiddles of a length tw_step * n (tw[m * tw_step] is
-// (cos, sin)(2 pi m / n)).  Ends with __syncthreads.
-template <bool kDit>
-__device__ void fft_stages(float2* buf, int n, int log2n, int seqs,
-                           int stride, int step, const float2* tw,
-                           float sign, int tw_step = 1) {
-  const int half = n >> 1;
-  const int work = half * seqs;
-  for (int s = 0; s < log2n; ++s) {
-    const int h = kDit ? (1 << s) : (half >> s);   // butterfly span
-    const int tstep = half / h * tw_step;
-    for (int i = threadIdx.x; i < work; i += blockDim.x) {
-      const int q = i % seqs, j = i / seqs;
-      const int pos = j & (h - 1);
-      const int i0 = ((j - pos) << 1) + pos;
-      float2* a = buf + (size_t)i0 * stride + q * step;
-      float2* b = a + (size_t)h * stride;
-      const float2 t = tw[pos * tstep];
-      const float2 w = make_float2(t.x, sign * t.y);
-      const float2 av = *a;
-      if (kDit) {
-        const float2 bw = cmul(*b, w);
-        *a = make_float2(av.x + bw.x, av.y + bw.y);
-        *b = make_float2(av.x - bw.x, av.y - bw.y);
-      } else {
-        const float2 bv = *b;
-        *a = make_float2(av.x + bv.x, av.y + bv.y);
-        *b = cmul(make_float2(av.x - bv.x, av.y - bv.y), w);
-      }
-    }
-    __syncthreads();
-  }
 }
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
@@ -114,9 +80,10 @@ struct Walk {
 // tw_step] = (cos, sin)(2 pi m / P).  Ends with __syncthreads.
 template <bool kDit>
 __device__ void radix2_pass(float2* buf, int log2p, int s, int seqs,
-                            const float2* tw, int tw_step, float sign) {
+                            const float2* tw, int tw_step, float sign,
+                            int batch = 1) {
   const int h = 1 << s;
-  const int rows = 1 << (log2p - 1);
+  const int rows = (1 << (log2p - 1)) * batch;
   const int tmul = (1 << (log2p - 1 - s)) * tw_step;   // P / 2h
   for (Walk it(seqs); it.r < rows; it.next(seqs)) {
     const int pos = it.r & (h - 1);
@@ -143,9 +110,10 @@ __device__ void radix2_pass(float2* buf, int log2p, int s, int seqs,
 // __syncthreads.
 template <bool kDit>
 __device__ void radix4_pass(float2* buf, int log2p, int s, int seqs,
-                            const float2* tw, int tw_step, float sign) {
+                            const float2* tw, int tw_step, float sign,
+                            int batch = 1) {
   const int h = 1 << s;
-  const int rows = 1 << (log2p - 2);
+  const int rows = (1 << (log2p - 2)) * batch;
   const int tmul2 = (1 << (log2p - 2 - s)) * tw_step;  // P / 4h
   for (Walk it(seqs); it.r < rows; it.next(seqs)) {
     const int pos = it.r & (h - 1);
@@ -185,20 +153,21 @@ __device__ void radix4_pass(float2* buf, int log2p, int s, int seqs,
 template <bool kDit>
 __device__ void fft_passes(float2* buf, int log2p, int seqs,
                            const float2* tw, int tw_step, float sign,
-                           int first) {
+                           int first, int batch = 1) {
   if (kDit) {
     int s = first;
     if ((log2p - s) & 1) {
-      radix2_pass<true>(buf, log2p, s, seqs, tw, tw_step, sign);
+      radix2_pass<true>(buf, log2p, s, seqs, tw, tw_step, sign, batch);
       ++s;
     }
     for (; s < log2p; s += 2)
-      radix4_pass<true>(buf, log2p, s, seqs, tw, tw_step, sign);
+      radix4_pass<true>(buf, log2p, s, seqs, tw, tw_step, sign, batch);
   } else {
     int s = log2p;          // stages left: spans 2^(s-1) .. 1
     for (; s >= 2; s -= 2)
-      radix4_pass<false>(buf, log2p, s - 2, seqs, tw, tw_step, sign);
-    if (s == 1) radix2_pass<false>(buf, log2p, 0, seqs, tw, tw_step, sign);
+      radix4_pass<false>(buf, log2p, s - 2, seqs, tw, tw_step, sign, batch);
+    if (s == 1)
+      radix2_pass<false>(buf, log2p, 0, seqs, tw, tw_step, sign, batch);
   }
 }
 
@@ -211,8 +180,9 @@ __device__ void fft_passes(float2* buf, int log2p, int seqs,
 // r) mod 4 at its m-th access, which spreads them.  Ends with
 // __syncthreads.
 template <bool kDit>
-__device__ void span1_pass(float2* buf, int log2n, int seqs, float sign) {
-  const int rows = 1 << (log2n - 2);
+__device__ void span1_pass(float2* buf, int log2n, int seqs, float sign,
+                           int batch = 1) {
+  const int rows = (1 << (log2n - 2)) * batch;
   for (Walk it(seqs); it.r < rows; it.next(seqs)) {
     float2* x = buf + (size_t)(it.r << 2) * seqs + it.q;
     const int rot = it.r & 3;
@@ -265,11 +235,12 @@ __device__ void span1_pass(float2* buf, int log2n, int seqs, float sign) {
 // __syncthreads.
 template <bool kDit, int K>
 __device__ void reg_pass(float2* buf, int log2n, int s, int seqs,
-                         const float2* tws, float sign) {
+                         const float2* tws, float sign, int batch = 1) {
   constexpr int R = 1 << K;
   const int h = 1 << s;
   const size_t hs = (size_t)h * seqs;
-  for (Walk it(seqs); it.r < (1 << (log2n - K)); it.next(seqs)) {
+  const int rows = (1 << (log2n - K)) * batch;
+  for (Walk it(seqs); it.r < rows; it.next(seqs)) {
     const int pos = it.r & (h - 1);
     float2* x = buf + (size_t)(((it.r - pos) << K) + pos) * seqs + it.q;
     float2 e[R];
@@ -310,24 +281,50 @@ __device__ void reg_pass(float2* buf, int log2n, int s, int seqs,
 // sign +1 (unnormalized).
 template <bool kDit, bool kWide>
 __device__ void long_fft(float2* buf, int log2n, int seqs,
-                         const float2* tws) {
+                         const float2* tws, int batch = 1) {
   const float sign = kDit ? -1.f : 1.f;
   const float2* tw = tws + (1 << (log2n - 1)) - 1;
   if (kDit) {
-    span1_pass<true>(buf, log2n, seqs, sign);
+    span1_pass<true>(buf, log2n, seqs, sign, batch);
     int s = 2;
     for (; kWide && log2n - s >= 4; s += 4)
-      reg_pass<true, 4>(buf, log2n, s, seqs, tws, sign);
-    fft_passes<true>(buf, log2n, seqs, tw, 1, sign, s);
+      reg_pass<true, 4>(buf, log2n, s, seqs, tws, sign, batch);
+    fft_passes<true>(buf, log2n, seqs, tw, 1, sign, s, batch);
   } else {
     int top = log2n;                            // stages top-1 .. 2 left
     for (; kWide && top - 2 >= 4; top -= 4)
-      reg_pass<false, 4>(buf, log2n, top - 4, seqs, tws, sign);
+      reg_pass<false, 4>(buf, log2n, top - 4, seqs, tws, sign, batch);
     for (; top - 2 >= 2; top -= 2)
-      radix4_pass<false>(buf, log2n, top - 2, seqs, tw, 1, sign);
-    if (top == 3) radix2_pass<false>(buf, log2n, 2, seqs, tw, 1, sign);
-    span1_pass<false>(buf, log2n, seqs, sign);
+      radix4_pass<false>(buf, log2n, top - 2, seqs, tw, 1, sign, batch);
+    if (top == 3)
+      radix2_pass<false>(buf, log2n, 2, seqs, tw, 1, sign, batch);
+    span1_pass<false>(buf, log2n, seqs, sign, batch);
   }
+}
+
+// Row of time t of a length-(P O) transform (P = 2^log2p): t = t1 + O t2
+// at row t1 + O bitrev(t2) (the input order of the forward, the output
+// order of the inverse; P = 1: row t).  The map is its own inverse: the
+// time of row t too.
+__device__ __forceinline__ int time_row(int t, int o, int log2p) {
+  if (log2p == 0) return t;
+  if (o == 1) return bitrev(t, log2p);
+  return t % o + o * bitrev(t / o, log2p);
+}
+
+// Row of frequency k in stage order after the forward transform:
+// X[k2 + P k1] at row O k2 + k1 (k itself where O = 1 or P = 1).
+__device__ __forceinline__ int freq_row(int k, int o, int log2p) {
+  if (o == 1 || log2p == 0) return k;
+  return o * (k & ((1 << log2p) - 1)) + (k >> log2p);
+}
+
+// (a, b) with Z = FFT(a + i b) for real a, b: A[k] and B[k] from Z[k] and
+// Z[n - k].
+__device__ __forceinline__ void untangle(float2 zk, float2 zm, float2& a,
+                                         float2& b) {
+  a = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
+  b = make_float2(0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
 }
 
 // Pack the Hermitian halves xa[0..n/2], xb[0..n/2] of two real sequences'
@@ -348,8 +345,8 @@ __device__ __forceinline__ void pack_pair(float2* z, int k, int n, int seqs,
 // returns both products as a + i b.
 __device__ __forceinline__ void gate_pair(float2& zk, float2& zm, float2 ga,
                                           float2 gb, int k, int half) {
-  const float2 xa = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
-  const float2 xb = make_float2(0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
+  float2 xa, xb;
+  untangle(zk, zm, xa, xb);
   float2 ma = cmul(ga, xa);
   float2 mb = cmul(gb, xb);
   if (k == 0 || k == half) {

@@ -1,6 +1,7 @@
-// The non-causal spectral mix past n_fft 2048 on Hopper, one kernel body
-// for #3 (staged_mix.cu, n_fft = 256 m, m = 9..32) and #4 (twopass_mix.cu,
-// n_fft 16384, 32768 and 65536):
+// The non-causal spectral mix on Hopper, one kernel body for #1
+// (spectral_mix.cu, every n_fft up to 2048 that the layer fuses), #3
+// (staged_mix.cu, n_fft = 256 m, m = 9..32) and #4 (twopass_mix.cu, n_fft
+// 16384, 32768 and 65536):
 //
 //   y = irfft(gate * rfft(v), n) + mem_t
 //
@@ -12,7 +13,11 @@
 // riding one complex sequence a + i b.  n = CS L and L = P O (P a power of
 // two, O odd, 1-31; O > 1 only with CS = 1).  CTA r of the cluster holds
 // the L rows t = r + CS tl of its pairs in its shared memory, z[row NP +
-// p]:
+// p].  A kernel instance takes odd factors up to kOdd (a template on each,
+// 0: none); at CS = 1 it takes every other length (an odd factor past
+// kOdd, or P < 4: the even n_fft up to 256 of #1) as P = 1, O = L: the
+// L-point DFT of step 2 direct, out of place through a copy beside the
+// tile (direct_pass), the rows in natural order.
 //
 // 1. Load by async copies of 16 bytes (8 where NP = 1), a warp's copies
 //    covering whole 32-byte sectors of v: local time tl = t1 + O t2 goes
@@ -55,7 +60,8 @@
 // items arrive there too, by async copies issued with v's: 4 loads of
 // scattered gate rows an item, each waited for in the cross step, had
 // cost as much as the step's other work.  Shared memory a CTA: (L NP + P)
-// 8 bytes and 8 bytes a (column, CTA of the cluster) of its items.
+// 8 bytes, 8 bytes a (column, CTA of the cluster) of its items, and L NP
+// 8 bytes more for direct_pass's copy where P = 1.
 //
 // No warp shuffles and no atomics: tests/cuda_emulation.py runs it on the
 // CPU, a cluster's CTAs together.  The sources that include this header
@@ -75,10 +81,14 @@ namespace cg = cooperative_groups;
 
 // dynamic shared memory a Hopper block may use
 constexpr size_t kMixSmemMax = 232448;
-// threads a CTA, at most (the odd factors' kernels: half, for the O-point
-// DFT's registers)
+// threads a CTA, at most (kernels with odd factors past 7: half, for the
+// O-point DFT's registers)
 constexpr int kMixThreads = 512;
 constexpr int kMixOddThreads = 256;
+
+__host__ __device__ constexpr int mix_threads_max(int odd) {
+  return odd > 7 ? kMixOddThreads : kMixThreads;
+}
 
 // d * e^{sign 2 pi i m / 16}: the roots of the CS-point DFTs; the exact
 // ones without a multiply
@@ -172,22 +182,23 @@ __device__ __forceinline__ float2* cta_tile(float2* z, int q) {
     return z;
 }
 
-// In place, for every column (k2, p) of a CTA's L = P O points: the O-point
-// DFT over the rows O k2 + j, j < O, with the twiddle e^{sign 2 pi i j k2 /
-// L} on input j (forward, sign -1) or on output j (inverse, +1).  tw: the
-// n-point table, n = stride L.  Ends with __syncthreads.
+// In place, for every column (k2, p) of a CTA's L = P O points (of each of
+// `batch` tiles stacked along the rows): the O-point DFT over the rows O k2
+// + j, j < O, with the twiddle e^{sign 2 pi i j k2 / L} on input j
+// (forward, sign -1) or on output j (inverse, +1).  tw: the n-point table,
+// n = stride L.  Ends with __syncthreads.
 template <int O, int NP>
 __device__ void odd_pass(float2* z, int p_len, int stride, const float2* tw,
-                         int half, float sign) {
+                         int half, float sign, int batch) {
   float2 wo[O];
 #pragma unroll
   for (int m = 0; m < O; ++m) {
     const float2 w = root(tw, m * p_len * stride, half);
     wo[m] = make_float2(w.x, sign * w.y);
   }
-  for (Walk it(NP); it.r < p_len; it.next(NP)) {
-    const int k2 = it.r;
-    float2* col = z + (size_t)O * k2 * NP + it.q;
+  for (Walk it(NP); it.r < p_len * batch; it.next(NP)) {
+    const int k2 = it.r & (p_len - 1);
+    float2* col = z + (size_t)O * it.r * NP + it.q;
     float2 x[O];
 #pragma unroll
     for (int j = 0; j < O; ++j) {
@@ -209,14 +220,16 @@ __device__ void odd_pass(float2* z, int p_len, int stride, const float2* tw,
   __syncthreads();
 }
 
-// odd_pass at the runtime odd factor o, 3 <= o <= 31
-template <int NP>
+// odd_pass at the runtime odd factor o, 3 <= o <= kOdd (31 at most)
+template <int NP, int kOdd>
 __device__ void odd_pass_any(float2* z, int o, int p_len, int stride,
-                             const float2* tw, int half, float sign) {
+                             const float2* tw, int half, float sign,
+                             int batch = 1) {
   switch (o) {
-#define FFT_ODD_CASE(O)                                          \
-  case O:                                                        \
-    odd_pass<O, NP>(z, p_len, stride, tw, half, sign);           \
+#define FFT_ODD_CASE(O)                                                   \
+  case O:                                                                 \
+    if constexpr (O <= kOdd)                                              \
+      odd_pass<O, NP>(z, p_len, stride, tw, half, sign, batch);           \
     break;
     FFT_ODD_CASE(3)
     FFT_ODD_CASE(5)
@@ -239,7 +252,48 @@ __device__ void odd_pass_any(float2* z, int o, int p_len, int stride,
   }
 }
 
-// The P-point transforms of a tile in place (P = 2^log2p >= 4): long_fft's
+// The L-point DFTs of a CTA's sequences (NP of each of `batch` tiles
+// stacked along the rows) for L with no templated split (P = 1, CS = 1, L
+// <= 256 as the wrappers route it): X[k] = sum_t x[t] e^{sign 2 pi i t k /
+// L}, natural order in and out, through scr (batch L NP entries).  tw: the
+// L-point table.  Ends with __syncthreads.
+template <int NP>
+__device__ void direct_pass(float2* z, float2* scr, int len, int batch,
+                            const float2* tw, float sign) {
+  const int half = len >> 1;
+  for (int i = threadIdx.x; i < len * NP * batch; i += blockDim.x)
+    scr[i] = z[i];
+  __syncthreads();
+  for (Walk it(NP); it.r < len * batch; it.next(NP)) {
+    const int tile = it.r / len, k = it.r - tile * len;
+    const float2* x = scr + (size_t)tile * len * NP + it.q;
+    float2 acc = make_float2(0.f, 0.f);
+    for (int t = 0, m = 0; t < len; ++t) {        // m = t k mod L
+      const float2 w = root(tw, m, half);
+      acc = cmac(make_float2(w.x, sign * w.y), x[(size_t)t * NP], acc);
+      m += k;
+      if (m >= len) m -= len;
+    }
+    z[(size_t)it.r * NP + it.q] = acc;
+  }
+  __syncthreads();
+}
+
+// The odd factor's step of a CTA's L-point transforms, forward (sign -1,
+// after the P-point passes) or inverse (+1, before them): the templated
+// O-point pass, or the whole L-point DFT where P = 1.
+template <int NP, int kOdd>
+__device__ void mix_odd_step(float2* z, float2* scr, int o, int p_len,
+                             int stride, const float2* tw, int half,
+                             float sign, int batch = 1) {
+  if (p_len == 1)
+    direct_pass<NP>(z, scr, o, batch, tw, sign);
+  else
+    odd_pass_any<NP, kOdd>(z, o, p_len, stride, tw, half, sign, batch);
+}
+
+// The P-point transforms of a tile in place (P = 2^log2p >= 4, or 1: no
+// transform), of each of `batch` tiles stacked along the rows: long_fft's
 // passes, except that a P with three stages left after the sixteen-element
 // passes (P = 512, 8192) takes them in one pass of eight elements a thread
 // rather than a radix-2 and a radix-4 pass.  kDit: bit-reversed input,
@@ -247,23 +301,24 @@ __device__ void odd_pass_any(float2* z, int o, int p_len, int stride,
 // +1 (unnormalized).
 template <bool kDit>
 __device__ void tile_fft(float2* buf, int log2p, int seqs,
-                         const float2* tws) {
+                         const float2* tws, int batch = 1) {
+  if (log2p == 0) return;
   if ((log2p - 2) % 4 != 3) {
-    long_fft<kDit, true>(buf, log2p, seqs, tws);
+    long_fft<kDit, true>(buf, log2p, seqs, tws, batch);
     return;
   }
   const float sign = kDit ? -1.f : 1.f;
   if (kDit) {
-    span1_pass<true>(buf, log2p, seqs, sign);
+    span1_pass<true>(buf, log2p, seqs, sign, batch);
     int s = 2;
     for (; log2p - s > 3; s += 4)
-      reg_pass<true, 4>(buf, log2p, s, seqs, tws, sign);
-    reg_pass<true, 3>(buf, log2p, s, seqs, tws, sign);
+      reg_pass<true, 4>(buf, log2p, s, seqs, tws, sign, batch);
+    reg_pass<true, 3>(buf, log2p, s, seqs, tws, sign, batch);
   } else {
-    reg_pass<false, 3>(buf, log2p, log2p - 3, seqs, tws, sign);
+    reg_pass<false, 3>(buf, log2p, log2p - 3, seqs, tws, sign, batch);
     for (int top = log2p - 3; top > 2; top -= 4)
-      reg_pass<false, 4>(buf, log2p, top - 4, seqs, tws, sign);
-    span1_pass<false>(buf, log2p, seqs, sign);
+      reg_pass<false, 4>(buf, log2p, top - 4, seqs, tws, sign, batch);
+    span1_pass<false>(buf, log2p, seqs, sign, batch);
   }
 }
 
@@ -275,7 +330,7 @@ __device__ void tile_fft(float2* buf, int log2p, int seqs,
 // row block of this batch row; gs0, gsh: where the tile's pairs share one
 // gate column (else null), that column's gates at rows L k1 and L / 2 + L
 // k1 or their mirrors, staged (real parts, then CS imaginary parts).
-template <int CS, int NP, bool kOdd>
+template <int CS, int NP, int kOdd>
 __device__ __noinline__ void cross_self(float2* z, const float2* tw,
                                         const float* gr, const float* gi,
                                         const float* gs0, const float* gsh,
@@ -284,9 +339,7 @@ __device__ __noinline__ void cross_self(float2* z, const float2* tw,
                                         int cols) {
   constexpr int kLogCS = CS > 1 ? small_log2(CS) : 1;
   const int half = n >> 1, cb = len / 2;
-  const size_t rb = (size_t)(kOdd ? o * (cb & ((1 << log2p) - 1)) +
-                                        (cb >> log2p)
-                                  : cb) * NP + p;
+  const size_t rb = (size_t)freq_row(cb, kOdd ? o : 1, log2p) * NP + p;
   float2 wp[kLogCS];                           // e^{+2 pi i 2^j (L / 2) / n}
 #pragma unroll
   for (int j = 0; j < kLogCS; ++j) wp[j] = root(tw, cb << j, half);
@@ -338,9 +391,9 @@ __device__ __noinline__ void cross_self(float2* z, const float2* tw,
 
 // y (B, n, d) = irfft(g * rfft(v)) [+ mem_t] for the NP channel pairs of
 // cluster blockIdx.x / CS, batch row blockIdx.y; see the header.  log2p:
-// log2 P; o: O (1 unless kOdd).
-template <int CS, int NP, bool kOdd>
-__global__ void __launch_bounds__(kOdd ? kMixOddThreads : kMixThreads)
+// log2 P; o: O (1 unless kOdd; L where P = 1).
+template <int CS, int NP, int kOdd>
+__global__ void __launch_bounds__(mix_threads_max(kOdd))
 mix_fft_kernel(const float* __restrict__ v, const float* __restrict__ gr,
                const float* __restrict__ gi,
                const float* __restrict__ mem_t,
@@ -369,6 +422,7 @@ mix_fft_kernel(const float* __restrict__ v, const float* __restrict__ gr,
   float* gs_r = reinterpret_cast<float*>(tws_s + p_len);
   float* gs_i = gs_r + gcount;
   float* gs_h = gs_i + gcount;       // column L / 2's: CS real, CS imaginary
+  float2* scr = reinterpret_cast<float2*>(gs_h + 2 * CS);  // P = 1: a copy
   const bool staged = ca0 / dg == (ca0 + 2 * NP - 1) / dg;
 
   // 1. rows t = r + CS (t1 + O bitrev(t2)) into rows t1 + O t2 of the tile
@@ -379,8 +433,7 @@ mix_fft_kernel(const float* __restrict__ v, const float* __restrict__ gr,
   constexpr int kChunk = NP * 8 / kCopy;
   for (int i = tid; i < len * kChunk; i += nt) {
     const int u = i / kChunk, c = i % kChunk;
-    const int t1 = kOdd ? u % o : 0, j = kOdd ? u / o : u;
-    const int t = r + CS * (t1 + o * bitrev(j, log2p));
+    const int t = r + CS * time_row(u, kOdd ? o : 1, log2p);
     __pipeline_memcpy_async(
         reinterpret_cast<char*>(z + (size_t)u * NP) + c * kCopy,
         reinterpret_cast<const char*>(v2 + (size_t)t * row2) + c * kCopy,
@@ -411,7 +464,8 @@ mix_fft_kernel(const float* __restrict__ v, const float* __restrict__ gr,
 
   // 2. the CTA's L-point forward transforms
   tile_fft<true>(z, log2p, seqs, tws_s);
-  if constexpr (kOdd) odd_pass_any<NP>(z, o, p_len, CS, tw, half, -1.f);
+  if constexpr (kOdd > 0)
+    mix_odd_step<NP, kOdd>(z, scr, o, p_len, CS, tw, half, -1.f);
 
   // 3. across the cluster: an item c < L / 2 takes the column pair {c, L -
   // c}; c = 0 takes the two columns that pair within themselves, 0 and
@@ -429,10 +483,8 @@ mix_fft_kernel(const float* __restrict__ v, const float* __restrict__ gr,
       continue;
     }
     const int cb = len - c;
-    const size_t ra = (size_t)(kOdd ? o * (c & (p_len - 1)) + (c >> log2p)
-                                    : c) * NP + p;
-    const size_t rb = (size_t)(kOdd ? o * (cb & (p_len - 1)) + (cb >> log2p)
-                                    : cb) * NP + p;
+    const size_t ra = (size_t)freq_row(c, kOdd ? o : 1, log2p) * NP + p;
+    const size_t rb = (size_t)freq_row(cb, kOdd ? o : 1, log2p) * NP + p;
     const int ca = ca0 + 2 * p, gca = ca / dg, gcb = (ca + 1) / dg;
     const int gsi = (j * gper + tid / NP) * CS;
     // e^{+2 pi i 2^j c / n}: each CTA's twiddle is a product of these
@@ -479,7 +531,8 @@ mix_fft_kernel(const float* __restrict__ v, const float* __restrict__ gr,
     __syncthreads();
 
   // 4. the inverse, 1 / n, mem_t, y back at the rows v came from
-  if constexpr (kOdd) odd_pass_any<NP>(z, o, p_len, CS, tw, half, 1.f);
+  if constexpr (kOdd > 0)
+    mix_odd_step<NP, kOdd>(z, scr, o, p_len, CS, tw, half, 1.f);
   tile_fft<false>(z, log2p, seqs, tws_s);
   const float scale = 1.f / (float)n;
   float2* y2 = reinterpret_cast<float2*>(y) + base;
@@ -488,8 +541,8 @@ mix_fft_kernel(const float* __restrict__ v, const float* __restrict__ gr,
                          : reinterpret_cast<const float2*>(mem_t) + pair0;
   for (int i = tid; i < len * kChunk; i += nt) {
     const int u = i / kChunk, c = i % kChunk;
-    const int t1 = kOdd ? u % o : 0, j = kOdd ? u / o : u;
-    const size_t t = (size_t)(r + CS * (t1 + o * bitrev(j, log2p)));
+    const size_t t =
+        (size_t)(r + CS * time_row(u, kOdd ? o : 1, log2p));
     if constexpr (NP == 1) {
       float2 e = z[u];
       e = make_float2(e.x * scale, e.y * scale);
@@ -511,28 +564,39 @@ mix_fft_kernel(const float* __restrict__ v, const float* __restrict__ gr,
   }
 }
 
+// Whether a CTA's L = P o rows split as the kernel instance with odd
+// factors up to kOdd takes them at CS: P a power of two of at least 4 and
+// o = 1 or an odd factor up to kOdd, or (kOdd > 0, CS = 1) P = 1, o = L.
+__host__ inline bool mix_split_ok(int len, int o, int cs, int k_odd) {
+  if (o < 1 || len % o) return false;
+  const int p_len = len / o;
+  if (p_len == 1) return k_odd > 0 && cs == 1;
+  return p_len >= 4 && (p_len & (p_len - 1)) == 0 &&
+         (o == 1 || (o % 2 == 1 && o <= k_odd && cs == 1));
+}
+
 // One launch of mix_fft_kernel<CS, NP, kOdd> over B batch rows and d / (2
 // NP) clusters of CS CTAs.  Returns cudaErrorInvalidValue for a shape or
-// plan the kernel does not take (L = n / CS = P o with P a power of two of
-// at least 4, d a multiple of 2 NP, the tile within a block's shared
-// memory, threads a multiple of 32 within the launch bound) and
+// plan the kernel does not take (L = n / CS split as mix_split_ok says, d
+// a multiple of 2 NP, the tile within a block's shared memory, threads a
+// multiple of 32 within the launch bound) and
 // cudaErrorInvalidConfiguration where the card fits no such cluster
 // (cudaOccupancyMaxActiveClusters is 0).
-template <int CS, int NP, bool kOdd>
+template <int CS, int NP, int kOdd>
 int launch_mix_fft(const float* v, const float* gr, const float* gi,
                    const float* mem_t, const float* tw, const float* tws,
                    float* y, int b, int n, int d, int cols, int o,
                    int threads, cudaStream_t st) {
-  const int len = n / CS, p_len = len / o;
+  const int len = n / CS, p_len = o > 0 ? len / o : 0;
   const size_t smem =
       ((size_t)len * NP + p_len) * sizeof(float2) +
       2 * sizeof(float) *
           ((size_t)cross_rounds(len, NP, CS, threads) * (threads / NP) + 1) *
-          CS;
-  if (len * CS != n || p_len * o != len || p_len < 4 ||
-      (p_len & (p_len - 1)) || d % (2 * NP) || cols < 1 || d % cols ||
-      smem > kMixSmemMax || threads < 32 || threads % 32 ||
-      threads > (kOdd ? kMixOddThreads : kMixThreads))
+          CS +
+      (p_len == 1 ? (size_t)len * NP * sizeof(float2) : 0);
+  if (len * CS != n || !mix_split_ok(len, o, CS, kOdd) || d % (2 * NP) ||
+      cols < 1 || d % cols || smem > kMixSmemMax || threads < 32 ||
+      threads % 32 || threads > mix_threads_max(kOdd))
     return (int)cudaErrorInvalidValue;
   auto kernel = mix_fft_kernel<CS, NP, kOdd>;
   cudaError_t err = cudaFuncSetAttribute(

@@ -1,6 +1,7 @@
-// Non-causal spectral mix on Hopper: y = irfft(gate * rfft(v)) + irfft(mem)
-// and its exact adjoint, as a plain C interface loaded with ctypes
-// (fft_tpu_torch/kernels/build.py builds this file with nvcc for sm_90a).
+// Non-causal spectral mix up to n_fft 2048 on Hopper: y = irfft(gate *
+// rfft(v)) + irfft(mem) and its exact adjoint, as a plain C interface
+// loaded with ctypes (fft_tpu_torch/kernels/build.py builds this file with
+// nvcc for sm_90a).
 //
 // Replaces, from fft_tpu/kernels/pallas_fft.py:
 //   direct_mix     <- _direct_mix_call      (:301, pallas_call :362)
@@ -8,253 +9,357 @@
 //
 // The TPU kernels write both transforms as dense (2F, N) and (N, 2F) DFT
 // matrices to fill the MXU: 17 GFLOP at B=8, N=1024, d=512, some 23x the
-// HBM bound on this card without tensor cores.  Here each block runs
-// radix-2 FFTs in shared memory instead (O(N log N) per channel):
+// HBM bound on this card without fp32 tensor cores.  Here both run FFTs in
+// shared memory (O(N log N) a channel) and take every n_fft the layer
+// fuses up to 2048: the even n_fft from 8 to 256 and 256 m, m = 2..8.
 //
-// - One block per (channel tile, batch row).  The tile's columns of v (and
-//   of ybar) are read from HBM once, transformed, gated and transformed
-//   back in shared memory, and written once.
-// - Two real sequences ride one complex FFT: the forward packs channels
-//   (2p, 2p+1) as a + i b; the backward packs v and ybar of one channel,
-//   then channel pairs for the inverse.  Their spectra are untangled with
-//   X_a[k] = (Z[k] + conj Z[N-k]) / 2, X_b[k] = (Z[k] - conj Z[N-k]) / 2i.
-// - The forward transform is decimation in time (bit-reversed load,
-//   natural output), the inverse decimation in frequency (natural input,
-//   bit-reversed output read back on the store), so no pass reorders.
-// - Twiddles are rounded once from float64 on the host (as in causal.cu);
-//   no fast math.  The imaginary parts at DC and Nyquist are dropped before
-//   the inverse, as torch.fft.irfft does (pallas_fft.py:232-233).
-// - The gate is the compact (B, F, cols) plane pair: channel ch reads
-//   column ch / (d / cols), index arithmetic in place of the TPU kernel's
-//   one-hot matmul.
-// - Memory is the time-domain constant irfft(mem), added on the store.
-// - The backward reduces the gate cotangent over each group's channels
-//   in a fixed order inside the block (a group spans whole tiles or a tile
-//   holds whole groups), then, for groups wider than a tile, over the tiles
-//   in a second small launch: no atomics, results repeat bit for bit.
+// #1 is an instance of mix_fft.cuh's kernel (#3's and #4's body): a
+// cluster of CS CTAs (1 or 2) a tile of NP channel pairs, each pair one
+// complex sequence a + i b, v loaded by async copies of whole sectors,
+// passes of sixteen elements a thread, the gate in place, y stored by
+// 16-byte pieces with mem_t added.  n = CS P O: the instance of odd factors
+// up to 7 takes 768, 1280, 1536 and 1792 (O = 3, 5, 3, 7) and the small
+// n = P O with P >= 4; the other n up to 256 (n = 2 mod 4, odd factors
+// 9-127) run as one direct n-point DFT a sequence (P = 1), tiny work.
 //
-// What bounds them: the FFTs' shared-memory traffic (each radix-2 stage
-// reads and writes the whole tile) and __syncthreads between stages; HBM
-// traffic is one read of the inputs and one write of the outputs.
+// #2, mix_bwd_kernel below, is the adjoint: for the cotangent ybar,
+//   U = (c_k / N) rfft(ybar)     (c_k = 1 at DC and Nyquist, else 2)
+//   vbar = N irfft(conj(g) U / c)
+//   gbar_k = sum over the group's channels of U_k conj(rfft(v)_k)
+// A CTA takes NP channel pairs of one batch row whole (L = n rows, CS = 1):
+// v and ybar by async copies into two tiles (pairs of v; pairs of ybar),
+// the forward transforms of both tiles in one set of passes, then at each
+// frequency pair {k, n - k} of a pair the untangle, the pair's vbar
+// spectrum conj(g) Y / N packed back into v's tile and each channel's gate
+// term U conj(X) written over ybar's tile, in place (each address has one
+// owner).  The gate cotangent sums those terms over each group's channels
+// in channel order: a thread block cluster of T CTAs (launched with a
+// cluster dimension) spans whole groups (T 2 NP channels a multiple of the
+// group width, T <= 8), and its CTAs read each other's terms through
+// distributed shared memory, so config 1's 16-channel groups take one
+// launch and no scratch.  A group wider than 8 CTAs' channels (or of a
+// width that no such cluster spans, e.g. 9 channels) cannot be summed
+// inside one cluster: each CTA writes its part of the groups it touches to
+// a scratch plane and a second launch (group_sum_kernel) sums the parts in
+// CTA order.  Then the inverse transforms of v's tile and vbar stored by
+// 16-byte pieces.  Per-channel terms leave no channel-order question
+// between CTAs: no atomics, and the cotangent repeats bit for bit.
+//
+// Twiddles are rounded once from float64 on the host (no fast math).  The
+// imaginary parts at DC and Nyquist are dropped before each inverse, as
+// torch.fft.irfft does (pallas_fft.py:232-233).  What bounds them on the
+// H100: HBM in principle (v and y once, and ybar and vbar once more for
+// #2: 0.011 and 0.016 ms at config 1); in practice (python -m
+// fft_tpu_torch.kernels.mix_ablation direct / bwd) the loads and stores
+// of 32-byte pieces of 2 KB rows, about half of either kernel's time,
+// then the passes, and for #2 the step at the frequency pairs and the
+// group sums, with two CTAs an SM (about 100 registers a thread) to
+// overlap them.  Plans (kernels/spectral_mix.py::DIRECT_PLAN, BWD_PLAN,
+// from chip_smoke.py's kernels_mix_plan_sweep).
+//
+// No warp shuffles and no atomics: tests/cuda_emulation.py runs it on the
+// CPU, a cluster's CTAs together.
 
-#include "fft_common.cuh"
+#include "mix_fft.cuh"
 
 namespace {
 
-constexpr int kMixThreads = 256;
+// the largest odd factor the templated passes take here (768 ... 1792)
+constexpr int kDirectOdd = 7;
+// CTAs a cluster of the backward, at most (portable cluster sizes)
+constexpr int kBwdClusterMax = 8;
 
-// y (B, N, d) = irfft(g * rfft(v)) [+ mem_t].  grid = (d / ct, B); ct
-// channels (ct / 2 complex sequences) per block.  Shared memory: N / 2
-// twiddles and the (N, ct / 2) complex tile.
-__global__ void __launch_bounds__(kMixThreads)
-direct_mix_kernel(const float* __restrict__ v, const float* __restrict__ gr,
-                  const float* __restrict__ gi,
-                  const float* __restrict__ mem_t,
-                  const float2* __restrict__ tw_g, float* __restrict__ y,
-                  int n, int log2n, int d, int cols, int ct) {
-  extern __shared__ float2 smem2[];
-  const int half = n >> 1, np = ct >> 1, dg = d / cols;
-  const int c0 = blockIdx.x * ct, b = blockIdx.y;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  float2* tw = smem2;
-  float2* z = tw + half;                        // z[t * np + p]
-  const size_t row2 = (size_t)d / 2;            // float2 per row of v
-  const float2* v2 = reinterpret_cast<const float2*>(v) +
-                     (size_t)b * n * row2 + c0 / 2;
-
-  for (int i = tid; i < half; i += nt) tw[i] = tw_g[i];
-  for (int i = tid; i < n * np; i += nt) {
-    const int p = i % np, t = i / np;
-    z[bitrev(t, log2n) * np + p] = v2[(size_t)t * row2 + p];
-  }
-  __syncthreads();
-  fft_stages<true>(z, n, log2n, np, np, 1, tw, -1.f);
-
-  // untangle the two channels' spectra, gate them, and pack the Hermitian
-  // extensions of both products back into one sequence (gate_pair)
-  for (int i = tid; i < (half + 1) * np; i += nt) {
-    const int p = i % np, k = i / np;
-    const int km = (n - k) & (n - 1);
-    const size_t go = ((size_t)b * (half + 1) + k) * cols;
-    float2 zk = z[k * np + p], zm = z[km * np + p];
-    gate_pair(zk, zm, gr + go, gi + go, c0 + 2 * p, dg, k, half);
-    z[k * np + p] = zk;
-    if (km != k) z[km * np + p] = zm;
-  }
-  __syncthreads();
-  fft_stages<false>(z, n, log2n, np, np, 1, tw, 1.f);
-
-  const float scale = 1.f / (float)n;
-  float2* y2 = reinterpret_cast<float2*>(y) + (size_t)b * n * row2 + c0 / 2;
-  const float2* m2 = reinterpret_cast<const float2*>(mem_t);
-  for (int i = tid; i < n * np; i += nt) {
-    const int p = i % np, t = i / np;
-    const float2 w = z[bitrev(t, log2n) * np + p];
-    float2 o = make_float2(w.x * scale, w.y * scale);
-    if (m2 != nullptr) {
-      const float2 m = m2[(size_t)t * row2 + c0 / 2 + p];
-      o.x += m.x;
-      o.y += m.y;
-    }
-    y2[(size_t)t * row2 + p] = o;
-  }
+// CTA q's shared memory at the address that `p` has in this CTA's
+template <class T>
+__device__ __forceinline__ T* rank_ptr(T* p, int q, int tcl) {
+  return tcl > 1 ? cg::this_cluster().map_shared_rank(p, q) : p;
 }
 
-// The adjoint of direct_mix_kernel at (v, g) for the cotangent ybar:
-//   U = (c_k / N) rfft(ybar)     (c_k = 1 at DC and Nyquist, else 2)
-//   vbar = sum_k Re(conj(g_k) U_k e^{+i 2 pi k t / N})
-//   gbar_k = sum over the group's channels of U_k conj(rfft(v)_k)
-// grid = (d / ct, B).  Shared memory: N / 2 twiddles and the (N, ct)
-// complex tile, v + i ybar per channel.  Each item of the gate loop owns
-// one frequency pair (k, N - k) and one unit of `unit` channels of one
-// group, reduced in channel order; it writes the unit's gate cotangent to
-// gpr/gpi (B, F, d / unit).
-__global__ void __launch_bounds__(kMixThreads)
-direct_mix_bwd_kernel(const float* __restrict__ v,
-                      const float* __restrict__ ybar,
-                      const float* __restrict__ gr,
-                      const float* __restrict__ gi,
-                      const float2* __restrict__ tw_g,
-                      float* __restrict__ vbar, float* __restrict__ gpr,
-                      float* __restrict__ gpi, int n, int log2n, int d,
-                      int cols, int ct, int unit) {
+__device__ __forceinline__ void block_or_cluster_sync(int tcl) {
+  if (tcl > 1)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
+}
+
+// u conj(x)
+__device__ __forceinline__ float2 mul_conj(float2 u, float2 x) {
+  return make_float2(fmaf(u.x, x.x, u.y * x.y), fmaf(u.y, x.x, -u.x * x.y));
+}
+
+// (vbar (B, n, d), gbar planes (B, F, cols)) for the NP channel pairs of
+// CTA blockIdx.x, batch row blockIdx.y; see the header.  L = n = P o
+// (P = 1: o = n, the direct DFT).  tcl: CTAs a cluster.  parts: (B, F, d /
+// (2 NP tcl), 2) float2, the parts of groups a cluster does not hold
+// whole, or null where it holds every group it touches whole.
+template <int NP, int kOdd>
+__global__ void __launch_bounds__(mix_threads_max(kOdd))
+mix_bwd_kernel(const float* __restrict__ v, const float* __restrict__ ybar,
+               const float* __restrict__ gr, const float* __restrict__ gi,
+               const float2* __restrict__ tw, const float2* __restrict__ tws,
+               float* __restrict__ vbar, float* __restrict__ gbr,
+               float* __restrict__ gbi, float2* __restrict__ parts, int n,
+               int log2p, int o, int d, int cols, int tcl) {
   extern __shared__ float2 smem2[];
-  const int half = n >> 1, dg = d / cols, units = ct / unit;
-  const int c0 = blockIdx.x * ct, b = blockIdx.y;
+  constexpr int W = 2 * NP;                       // channels a CTA
+  const int half = n >> 1, fh = half + 1, p_len = 1 << log2p;
+  const size_t plane = (size_t)n * NP;
+  float2* z = smem2;             // pairs of v, then their vbar spectra
+  float2* zy = z + plane;        // pairs of ybar, then each channel's term
+  float2* tws_s = zy + plane;    // tws, P entries
+  float2* scr = tws_s + p_len;   // P = 1: direct_pass's copy of both tiles
+  const int dg = d / cols, seqs = o * NP;
   const int tid = threadIdx.x, nt = blockDim.x;
-  float2* tw = smem2;
-  float2* z = tw + half;                        // z[t * ct + c]
-  const size_t base = (size_t)b * n * d + c0;
+  const int rank = tcl > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int pair0 = blockIdx.x * NP, b = blockIdx.y, ca0 = 2 * pair0;
+  const size_t row2 = (size_t)d / 2;              // float2 a row of v
+  const size_t base = (size_t)b * n * row2 + pair0;
+  const size_t g0 = (size_t)b * fh;
 
-  for (int i = tid; i < half; i += nt) tw[i] = tw_g[i];
-  for (int i = tid; i < n * ct; i += nt) {
-    const int c = i % ct, t = i / ct;
-    const size_t o = base + (size_t)t * d + c;
-    z[bitrev(t, log2n) * ct + c] = make_float2(v[o], ybar[o]);
+  // 1. rows t1 + o bitrev(t2) of v and ybar into rows t1 + o t2 of the
+  // tiles, a row in kChunk pieces of kCopy bytes, one a thread
+  constexpr int kCopy = NP < 2 ? 8 : 16;
+  constexpr int kChunk = NP * 8 / kCopy;
+  const char* vb = reinterpret_cast<const char*>(
+      reinterpret_cast<const float2*>(v) + base);
+  const char* yb = reinterpret_cast<const char*>(
+      reinterpret_cast<const float2*>(ybar) + base);
+  for (int i = tid; i < n * kChunk; i += nt) {
+    const int u = i / kChunk, c = i % kChunk;
+    const size_t src =
+        (size_t)time_row(u, o, log2p) * row2 * sizeof(float2) +
+        c * kCopy;
+    char* dst = reinterpret_cast<char*>(z + (size_t)u * NP) + c * kCopy;
+    __pipeline_memcpy_async(dst, vb + src, kCopy);
+    __pipeline_memcpy_async(dst + plane * sizeof(float2), yb + src, kCopy);
   }
+  for (int i = tid; i < p_len / 2; i += nt)
+    __pipeline_memcpy_async(tws_s + 2 * i, tws + 2 * i, 2 * sizeof(float2));
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
   __syncthreads();
-  fft_stages<true>(z, n, log2n, ct, ct, 1, tw, -1.f);
 
+  // 2. the forward transforms of both tiles
+  tile_fft<true>(z, log2p, seqs, tws_s, 2);
+  if constexpr (kOdd > 0)
+    mix_odd_step<NP, kOdd>(z, scr, o, p_len, 1, tw, half, -1.f, 2);
+
+  // 3. at frequency c and n - c of pair p (c = 0: DC and Nyquist, each its
+  // own partner): X and Y of both channels; vbar's spectrum conj(g) Y / n
+  // (Im dropped at DC and Nyquist) packed into v's tile, and U conj(X) of
+  // channel a at row(c), of channel b at row(n - c) (at DC and Nyquist,
+  // where both are real, a's and b's in one entry) into ybar's tile
   const float inv_n = 1.f / (float)n;
-  const size_t units_row = (size_t)d / unit;
-  for (int i = tid; i < (half + 1) * units; i += nt) {
-    const int uu = i % units, k = i / units;
-    const int km = (n - k) & (n - 1);
-    const bool edge = (k == 0) || (k == half);
-    const float cu = edge ? inv_n : 2.f * inv_n;        // c_k / N
-    const size_t go = ((size_t)b * (half + 1) + k) * cols;
-    const int grp = (c0 + uu * unit) / dg;
-    const float g_r = gr[go + grp], g_i = gi[go + grp];
-    float sr = 0.f, si = 0.f;
-    for (int c = uu * unit; c < (uu + 1) * unit; c += 2) {
-      float2 q[2];
+  for (Walk it(NP); it.r < half; it.next(NP)) {
+    const int p = it.q, c = it.r;
+    const int ga = (ca0 + 2 * p) / dg, gb = (ca0 + 2 * p + 1) / dg;
+    if (c == 0) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float2 zk = z[k * ct + c + e], zm = z[km * ct + c + e];
-        // X: spectrum of v; Y: spectrum of ybar
-        const float xr = 0.5f * (zk.x + zm.x), xi = 0.5f * (zk.y - zm.y);
-        const float yr = 0.5f * (zk.y + zm.y), yi = -0.5f * (zk.x - zm.x);
-        const float ur = cu * yr, ui = cu * yi;
-        sr = fmaf(ur, xr, fmaf(ui, xi, sr));
-        si = fmaf(ui, xr, fmaf(-ur, xi, si));
-        // conj(g) Y / N: the Hermitian half of vbar's spectrum
-        q[e] = make_float2((g_r * yr + g_i * yi) * inv_n,
-                           edge ? 0.f : (g_r * yi - g_i * yr) * inv_n);
+        const int f = e ? half : 0;
+        const size_t r = (size_t)freq_row(f, o, log2p) * NP + p;
+        const float2 x = z[r], y = zy[r];     // (a, b), each real
+        const size_t go = (g0 + f) * cols;
+        z[r] = make_float2(gr[go + ga] * y.x * inv_n,
+                           gr[go + gb] * y.y * inv_n);
+        zy[r] = make_float2(y.x * inv_n * x.x, y.y * inv_n * x.y);
       }
-      pack_pair(z + c, k, n, ct, q[0], q[1]);
+      continue;
     }
-    const size_t po = ((size_t)b * (half + 1) + k) * units_row +
-                      (c0 / unit) + uu;
-    gpr[po] = sr;
-    gpi[po] = si;
+    const size_t ra = (size_t)freq_row(c, o, log2p) * NP + p;
+    const size_t rb = (size_t)freq_row(n - c, o, log2p) * NP + p;
+    float2 xa, xb, ya, yb;
+    untangle(z[ra], z[rb], xa, xb);
+    untangle(zy[ra], zy[rb], ya, yb);
+    const size_t go = (g0 + c) * cols;
+    const float2 qa = mul_conj(ya, make_float2(gr[go + ga], gi[go + ga]));
+    const float2 qb = mul_conj(yb, make_float2(gr[go + gb], gi[go + gb]));
+    const float2 sa = make_float2(qa.x * inv_n, qa.y * inv_n);
+    const float2 sb = make_float2(qb.x * inv_n, qb.y * inv_n);
+    z[ra] = make_float2(sa.x - sb.y, sa.y + sb.x);
+    z[rb] = make_float2(sa.x + sb.y, sb.x - sa.y);
+    const float cu = 2.f * inv_n;
+    zy[ra] = mul_conj(make_float2(cu * ya.x, cu * ya.y), xa);
+    zy[rb] = mul_conj(make_float2(cu * yb.x, cu * yb.y), xb);
   }
-  __syncthreads();
-  // vbar of channels (c, c + 1) is the inverse of the sequence in slot c
-  fft_stages<false>(z, n, log2n, ct / 2, ct, 2, tw, 1.f);
+  block_or_cluster_sync(tcl);
 
-  for (int i = tid; i < n * ct; i += nt) {
-    const int c = i % ct, t = i / ct;
-    const float2 w = z[bitrev(t, log2n) * ct + (c & ~1)];
-    vbar[base + (size_t)t * d + c] = (c & 1) ? w.y : w.x;
+  // 4. the gate cotangent: item (f, group) of the cluster's channels cc0 ..
+  // cc0 + T W - 1 sums its group's terms there in channel order
+  const int wc = W * tcl, cc0 = ca0 - rank * W;
+  const int gfirst = cc0 / dg, ng = (cc0 + wc - 1) / dg - gfirst + 1;
+  for (int i = rank * nt + tid; i < fh * ng; i += tcl * nt) {
+    const int f = i / ng, g = gfirst + i % ng;
+    const int lo = g * dg > cc0 ? g * dg : cc0;
+    const int hi = g * dg + dg < cc0 + wc ? g * dg + dg : cc0 + wc;
+    const bool edge = f == 0 || f == half;
+    const int ra = freq_row(f, o, log2p) * NP;
+    const int rb = edge ? ra : freq_row(n - f, o, log2p) * NP;
+    float sr = 0.f, si = 0.f;
+    for (int ch = lo; ch < hi; ++ch) {
+      const int lc = ch - cc0, q = lc / W, e = lc & 1;
+      const float2 t = rank_ptr(zy, q, tcl)[(e ? rb : ra) + (lc % W) / 2];
+      if (edge) {
+        sr += e ? t.y : t.x;
+      } else {
+        sr += t.x;
+        si += t.y;
+      }
+    }
+    if (lo == g * dg && hi == g * dg + dg) {
+      gbr[(g0 + f) * cols + g] = sr;
+      gbi[(g0 + f) * cols + g] = si;
+    } else {
+      parts[((g0 + f) * (d / wc) + blockIdx.x / tcl) * 2 + (g - gfirst)] =
+          make_float2(sr, si);
+    }
   }
+
+  // 5. the inverse of v's tile (bit-reversed output: each row back to the
+  // row of v it came from), vbar stored by 16-byte pieces
+  if constexpr (kOdd > 0)
+    mix_odd_step<NP, kOdd>(z, scr, o, p_len, 1, tw, half, 1.f);
+  tile_fft<false>(z, log2p, seqs, tws_s, 1);
+  float2* vb2 = reinterpret_cast<float2*>(vbar) + base;
+  for (int i = tid; i < n * kChunk; i += nt) {
+    const int u = i / kChunk, c = i % kChunk;
+    const size_t t = (size_t)time_row(u, o, log2p);
+    if constexpr (NP == 1)
+      vb2[t * row2] = z[u];
+    else
+      reinterpret_cast<float4*>(vb2 + t * row2)[c] =
+          reinterpret_cast<const float4*>(z + (size_t)u * NP)[c];
+  }
+  // the cluster's other CTAs may still read this CTA's terms
+  if (tcl > 1) cg::this_cluster().sync();
 }
 
-// gbar[row, g] = sum_{j < r} part[row, g * r + j]: the gate cotangent of
-// groups wider than a tile, summed over their tiles in order.
-__global__ void group_sum_kernel(const float* __restrict__ pr,
-                                 const float* __restrict__ pi,
+// gbar[row, g] = the sum of group g's parts over the clusters it spans, in
+// cluster order (the parts of groups no cluster holds whole)
+__global__ void group_sum_kernel(const float2* __restrict__ parts,
                                  float* __restrict__ gbr,
-                                 float* __restrict__ gbi, size_t total,
-                                 int r) {
-  for (size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x; o < total;
-       o += (size_t)gridDim.x * blockDim.x) {
+                                 float* __restrict__ gbi, size_t rows,
+                                 int cols, int dg, int wc, int ncl) {
+  for (size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+       o < rows * cols; o += (size_t)gridDim.x * blockDim.x) {
+    const size_t row = o / cols;
+    const int g = (int)(o % cols);
     float sr = 0.f, si = 0.f;
-    for (int j = 0; j < r; ++j) {
-      sr += pr[o * r + j];
-      si += pi[o * r + j];
+    for (int cl = g * dg / wc; cl <= (g * dg + dg - 1) / wc; ++cl) {
+      const float2 t = parts[(row * ncl + cl) * 2 + (g - cl * wc / dg)];
+      sr += t.x;
+      si += t.y;
     }
     gbr[o] = sr;
     gbi[o] = si;
   }
 }
 
-size_t mix_smem(int n, int complex_cols) {
-  return ((size_t)n / 2 + (size_t)n * complex_cols) * sizeof(float2);
+template <int NP, int kOdd>
+int launch_mix_bwd(const float* v, const float* ybar, const float* gr,
+                   const float* gi, const float* tw, const float* tws,
+                   float* vbar, float* gbr, float* gbi, float* parts, int b,
+                   int n, int d, int cols, int o, int threads, int tcl,
+                   cudaStream_t st) {
+  const int p_len = o > 0 ? n / o : 0, dg = cols > 0 ? d / cols : 0;
+  const int wc = 2 * NP * tcl;
+  const size_t smem =
+      ((size_t)2 * n * NP + p_len + (p_len == 1 ? (size_t)2 * n * NP : 0)) *
+      sizeof(float2);
+  // not whole: a group wider than the cluster, so at most two groups a
+  // cluster and two parts a (row, cluster)
+  const bool whole = dg > 0 && wc % dg == 0;
+  if (!mix_split_ok(n, o, 1, kOdd) || cols < 1 || d % cols || tcl < 1 ||
+      tcl > kBwdClusterMax || d % wc || (parts == nullptr) != whole ||
+      (!whole && dg <= wc) ||
+      smem > kMixSmemMax || threads < 32 || threads % 32 ||
+      threads > mix_threads_max(kOdd))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = mix_bwd_kernel<NP, kOdd>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(d / (2 * NP), b);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = tcl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = tcl > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, v, ybar, gr, gi,
+                           reinterpret_cast<const float2*>(tw),
+                           reinterpret_cast<const float2*>(tws), vbar, gbr,
+                           gbi, reinterpret_cast<float2*>(parts), n,
+                           log2_of(p_len), o, d, cols, tcl);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess || whole) return (int)err;
+  const size_t rows = (size_t)b * (n / 2 + 1);
+  const int sum_threads = 256;
+  const int blocks =
+      (int)((rows * cols + sum_threads - 1) / sum_threads);
+  group_sum_kernel<<<blocks, sum_threads, 0, st>>>(
+      reinterpret_cast<const float2*>(parts), gbr, gbi, rows, cols, dg, wc,
+      d / wc);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// y (B, N, d) from v (B, N, d), gate planes (B, N/2+1, cols) and mem_t
-// (N, d) or NULL.  tw: (N, 2) twiddles (the first N/2 are read).
-// ct: channels per block (even, divides d).
+// y (B, n, d) from v (B, n, d), gate planes (B, n/2+1, cols) and mem_t
+// (n, d) or NULL.  tw: (n, 2) twiddles (the first n/2 are read); tws:
+// stage_twiddles of P = n / (cs o).  o: the odd factor the kernel's split
+// takes (1; 3, 5 or 7 with P >= 4; or n / cs with P = 1, cs = 1).  Plan: cs
+// CTAs a cluster (1, 2), np channel pairs a CTA (2, 4), threads a CTA.
+// Returns cudaErrorInvalidValue for a split or plan without an instance.
 int fft_direct_mix(const float* v, const float* gr, const float* gi,
-                   const float* mem_t, const float* tw, float* y, int b,
-                   int n, int d, int cols, int ct, void* stream) {
-  const size_t smem = mix_smem(n, ct / 2);
-  cudaError_t err = cudaFuncSetAttribute(
-      direct_mix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(d / ct, b);
-  direct_mix_kernel<<<grid, kMixThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      v, gr, gi, mem_t, reinterpret_cast<const float2*>(tw), y, n,
-      log2_of(n), d, cols, ct);
-  return (int)cudaGetLastError();
+                   const float* mem_t, const float* tw, const float* tws,
+                   float* y, int b, int n, int d, int cols, int o, int cs,
+                   int np, int threads, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FFT_DIRECT_CASE(CS, NP, ODD)                                      \
+  if (cs == CS && np == NP && (o > 1) == (ODD > 0))                      \
+    return launch_mix_fft<CS, NP, ODD>(v, gr, gi, mem_t, tw, tws, y, b, n, \
+                                       d, cols, o, threads, st);
+  FFT_DIRECT_CASE(1, 2, 0)
+  FFT_DIRECT_CASE(1, 4, 0)
+  FFT_DIRECT_CASE(2, 2, 0)
+  FFT_DIRECT_CASE(2, 4, 0)
+  FFT_DIRECT_CASE(1, 2, kDirectOdd)
+  FFT_DIRECT_CASE(1, 4, kDirectOdd)
+#undef FFT_DIRECT_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
-// (vbar (B, N, d), gbar planes (B, N/2+1, cols)) from v, ybar (B, N, d)
-// and gate planes (B, N/2+1, cols).  ct: channels per block; unit =
-// min(d / cols, ct) (even; one divides the other).  gpr/gpi: (B, N/2+1,
-// d / unit) scratch, used only when unit < d / cols (else the gate
-// cotangent is written to gbr/gbi directly).
+// (vbar (B, n, d), gbar planes (B, n/2+1, cols)) from v, ybar (B, n, d) and
+// gate planes (B, n/2+1, cols).  tw, tws and o as fft_direct_mix's at cs =
+// 1.  Plan: np channel pairs a CTA (2, 4), threads a CTA, tcl CTAs a
+// cluster (1-8, 2 np tcl dividing d).  parts: NULL where 2 np tcl is a
+// multiple of d / cols (the cluster holds whole groups: one launch), else
+// (B, n/2+1, d / (2 np tcl), 2) complex scratch (a second launch sums it).
 int fft_direct_mix_bwd(const float* v, const float* ybar, const float* gr,
-                       const float* gi, const float* tw, float* vbar,
-                       float* gbr, float* gbi, float* gpr, float* gpi, int b,
-                       int n, int d, int cols, int ct, void* stream) {
+                       const float* gi, const float* tw, const float* tws,
+                       float* vbar, float* gbr, float* gbi, float* parts,
+                       int b, int n, int d, int cols, int o, int np,
+                       int threads, int tcl, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int dg = d / cols;
-  const int unit = dg < ct ? dg : ct;
-  const bool direct = unit == dg;
-  const size_t smem = mix_smem(n, ct);
-  cudaError_t err = cudaFuncSetAttribute(
-      direct_mix_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(d / ct, b);
-  direct_mix_bwd_kernel<<<grid, kMixThreads, smem, st>>>(
-      v, ybar, gr, gi, reinterpret_cast<const float2*>(tw), vbar,
-      direct ? gbr : gpr, direct ? gbi : gpi, n, log2_of(n), d, cols, ct,
-      unit);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || direct) return (int)err;
-  const size_t total = (size_t)b * (n / 2 + 1) * cols;
-  const int blocks = (int)((total + kMixThreads - 1) / kMixThreads);
-  group_sum_kernel<<<blocks, kMixThreads, 0, st>>>(gpr, gpi, gbr, gbi, total,
-                                                   dg / unit);
-  return (int)cudaGetLastError();
+#define FFT_BWD_CASE(NP, ODD)                                             \
+  if (np == NP && (o > 1) == (ODD > 0))                                  \
+    return launch_mix_bwd<NP, ODD>(v, ybar, gr, gi, tw, tws, vbar, gbr,    \
+                                   gbi, parts, b, n, d, cols, o, threads, \
+                                   tcl, st);
+  FFT_BWD_CASE(2, 0)
+  FFT_BWD_CASE(4, 0)
+  FFT_BWD_CASE(2, kDirectOdd)
+  FFT_BWD_CASE(4, kDirectOdd)
+#undef FFT_BWD_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -53,10 +53,10 @@ int fft_staged_mix(const float* v, const float* gr, const float* gi,
   int o = n;
   while (o > 0 && o % 2 == 0) o /= 2;
   if (o > 31) return (int)cudaErrorInvalidValue;
-#define FFT_STAGED_CASE(CS, NP, ODD)                                      \
-  if (cs == CS && np == NP && (o > 1) == ODD)                             \
-    return launch_mix_fft<CS, NP, ODD>(v, gr, gi, mem_t, tw, tws, y, b, n, \
-                                       d, cols, o, threads, st);
+#define FFT_STAGED_CASE(CS, NP, ODD)                                     \
+  if (cs == CS && np == NP && (o > 1) == ODD)                            \
+    return launch_mix_fft<CS, NP, ODD ? 31 : 0>(                         \
+        v, gr, gi, mem_t, tw, tws, y, b, n, d, cols, o, threads, st);
   FFT_STAGED_CASE(1, 2, false)
   FFT_STAGED_CASE(1, 4, false)
   FFT_STAGED_CASE(2, 2, false)

@@ -56,8 +56,8 @@ int fft_twopass_mix(const float* v, const float* gr, const float* gi,
   if (n & (n - 1)) return (int)cudaErrorInvalidValue;
 #define FFT_TWOPASS_CASE(CS, NP)                                          \
   if (cs == CS && np == NP)                                               \
-    return launch_mix_fft<CS, NP, false>(v, gr, gi, mem_t, tw, tws, y, b, \
-                                         n, d, cols, 1, threads, st);
+    return launch_mix_fft<CS, NP, 0>(v, gr, gi, mem_t, tw, tws, y, b, n,  \
+                                     d, cols, 1, threads, st);
   FFT_TWOPASS_CASE(1, 2)
   FFT_TWOPASS_CASE(2, 2)
   FFT_TWOPASS_CASE(2, 4)

@@ -1,20 +1,29 @@
-"""Where the time of #3's and #4's kernel goes (``csrc/mix_fft.cuh``):
-build copies of the kernel with parts taken out and time them beside the
-whole kernel, in one process on one card.  The copies compute wrong
-results; they only say what each part costs.
+"""Where the time of the non-causal mix's kernels goes: build copies of a
+kernel with parts taken out and time them beside the whole kernel, in one
+process on one card.  The copies compute wrong results; they only say
+what each part costs.
 
-    python -m fft_tpu_torch.kernels.mix_ablation [VARIANTS] [SHAPES]
+    python -m fft_tpu_torch.kernels.mix_ablation [KERNEL] [VARIANTS] [SHAPES]
 
-VARIANTS, comma-separated (default all): ``whole`` (the kernel as it is),
-``nofft`` (no P-point transforms), ``nocross`` (no step across the
-cluster), ``nofft_nocross`` (loads and stores alone), ``nogate`` (the gate
+KERNEL: ``mix`` (the default: #3's and #4's body, ``csrc/mix_fft.cuh``,
+through twopass_mix.cu's C entry), ``direct`` (#1: the same body through
+spectral_mix.cu's) or ``bwd`` (#2, spectral_mix.cu's backward kernel).
+VARIANTS, comma-separated (default all of the kernel's).  ``mix`` and
+``direct``: ``whole`` (the kernel as it is), ``nofft`` (no P-point
+transforms), ``nocross`` (no step across the cluster: the gate at CS =
+1), ``nofft_nocross`` (loads and stores alone), ``nogate`` (the gate
 multiply left out), ``noself`` (the item of columns 0 and L / 2 left
 out), ``nostage`` (the gates read from device memory in the step, not
-staged beside the tile).  SHAPES: ``B:N:cs:np:threads`` entries,
-comma-separated (default: the wrappers' plans at config 1's and #4's
-lengths).  Prints one line a (shape, variant): median ms over CUDA events
-of 20 calls, 5 rounds; d=512, 32 gate columns, with memory.  Each copy is
-built with nvcc into a directory under the system's temporary directory.
+staged beside the tile).  ``bwd``: ``whole``, ``nofft`` (no transforms,
+either way), ``nogate`` (no step at the frequency pairs), ``nosum`` (no
+group sums, so no reads of the other CTAs' terms), ``nofft_nogate_nosum``
+(loads, stores and barriers alone).  SHAPES: comma-separated
+``B:N:cs:np:threads`` entries (``bwd``: ``B:N:np:threads``; default: the
+wrappers' plans at config 1's and #4's lengths, or at config 1 for
+``direct`` and ``bwd``).  Prints one line a (shape, variant): median ms
+over CUDA events of 20 calls, 5 rounds; d=512, 32 gate columns, with
+memory (the forwards).  Each copy is built with nvcc into a directory
+under the system's temporary directory.
 """
 
 from __future__ import annotations
@@ -48,34 +57,54 @@ _CUTS = {
 }
 VARIANTS = ("whole", "nofft", "nocross", "nofft_nocross", "nogate",
             "noself", "nostage")
+# the same for #2's kernel (spectral_mix.cu)
+_BWD_CUTS = {
+    "fft": [("  tile_fft<true>(z, log2p, seqs, tws_s, 2);",
+             "  __syncthreads();"),
+            ("  tile_fft<false>(z, log2p, seqs, tws_s, 1);",
+             "  __syncthreads();")],
+    "gate": [("for (Walk it(NP); it.r < half; it.next(NP)) {",
+              "for (Walk it(NP); it.r < 0; it.next(NP)) {")],
+    "sum": [("i < fh * ng; i += tcl * nt) {", "i < 0; i += tcl * nt) {")],
+}
+BWD_VARIANTS = ("whole", "nofft", "nogate", "nosum", "nofft_nogate_nosum")
 SHAPES = ((2, 4096) + sm.STAGED_PLAN[4096], (1, 8192) + sm.STAGED_PLAN[8192],
           *((1, n) + plan for n, plan in sm.TWOPASS_PLAN.items()))
+# kernel -> (the source built, its C entry, cuts, variants, shapes)
+_KERNELS = {
+    "mix": ("twopass_mix.cu", "fft_twopass_mix", _CUTS, VARIANTS, SHAPES),
+    "direct": ("spectral_mix.cu", "fft_direct_mix", _CUTS, VARIANTS,
+               ((8, 1024) + sm.direct_plan(1024),)),
+    "bwd": ("spectral_mix.cu", "fft_direct_mix_bwd", _BWD_CUTS, BWD_VARIANTS,
+            ((8, 1024) + sm.bwd_plan(1024),)),
+}
 
 
-def _sources(variant: str) -> dict:
-    """mix_fft.cuh, fft_common.cuh and twopass_mix.cu with ``variant``'s
-    parts taken out."""
+def _sources(variant: str, kernel: str = "mix") -> dict:
+    """mix_fft.cuh, fft_common.cuh and ``kernel``'s source with
+    ``variant``'s parts taken out."""
+    source, _, cuts, _, _ = _KERNELS[kernel]
     texts = {name: (kb.CSRC_DIR / name).read_text()
-             for name in ("mix_fft.cuh", "fft_common.cuh", "twopass_mix.cu")}
-    cuts = [] if variant == "whole" else variant[2:].split("_no")
-    for cut in cuts:
-        for old, new in _CUTS[cut]:
+             for name in ("mix_fft.cuh", "fft_common.cuh", source)}
+    for cut in ([] if variant == "whole" else variant[2:].split("_no")):
+        for old, new in cuts[cut]:
             name = next(n for n, t in texts.items() if old in t)
             texts[name] = texts[name].replace(old, new, 1)
     return texts
 
 
-def _build(variants, out: pathlib.Path) -> dict:
-    """variant -> the loaded library of twopass_mix.cu's C entry over that
-    copy of the kernel; the copies build in parallel."""
+def _build(kernel: str, variants, out: pathlib.Path) -> dict:
+    """variant -> ``kernel``'s C entry in the loaded library of that copy;
+    the copies build in parallel."""
+    source, entry = _KERNELS[kernel][:2]
     jobs = []
     for variant in variants:
         d = out / variant
         d.mkdir(parents=True)
-        for name, text in _sources(variant).items():
+        for name, text in _sources(variant, kernel).items():
             (d / name).write_text(text)
         cmd = [kb._nvcc(), *kb.NVCC_FLAGS, "-shared", "-o",
-               str(d / "lib.so"), str(d / "twopass_mix.cu")]
+               str(d / "lib.so"), str(d / source)]
         jobs.append((variant, d, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -84,9 +113,8 @@ def _build(variants, out: pathlib.Path) -> dict:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on variant {variant}:\n{log}")
-        lib = ctypes.CDLL(str(d / "lib.so"))
-        fn = lib.fft_twopass_mix
-        fn.argtypes, fn.restype = kb._SIGNATURES["fft_twopass_mix"]
+        fn = getattr(ctypes.CDLL(str(d / "lib.so")), entry)
+        fn.argtypes, fn.restype = kb._SIGNATURES[entry]
         libs[variant] = fn
     return libs
 
@@ -107,56 +135,86 @@ def _median_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
-def run(variants=VARIANTS, shapes=SHAPES) -> list:
-    """Rows (B, N, plan, variant, ms); the whole kernel's output is held to
-    the plain version first."""
+def _case(kernel: str, shape, g, stream):
+    """(the C entry's arguments as ``kernel``'s wrapper passes them at
+    ``shape``, its outputs, the plain version's outputs, the tensors the
+    arguments point into, to be kept alive while they are used)."""
+    b, n = shape[:2]
+    d, cols, dev = 512, 32, torch.device("cuda")
+    v, last = (torch.randn(s, generator=g).to(dev)
+               for s in ((b, n, d), (b, n, d) if kernel == "bwd" else (n, d)))
+    gr, gi = (torch.randn((b, n // 2 + 1, cols), generator=g).to(dev)
+              for _ in range(2))
+    tw = twiddles(n, dev)
+    if kernel == "bwd":
+        np_, threads = shape[2:]
+        o = sm.direct_split(n)
+        parts = sm.bwd_parts(b, n, d, cols, np_, dev)
+        outs = (torch.empty_like(v), torch.empty_like(gr),
+                torch.empty_like(gi))
+        args = (v.data_ptr(), last.data_ptr(), gr.data_ptr(), gi.data_ptr(),
+                tw.data_ptr(), stage_twiddles(n // o, dev).data_ptr(),
+                *(t.data_ptr() for t in outs),
+                None if parts is None else parts.data_ptr(), b, n, d, cols,
+                o, np_, threads, sm.bwd_cluster(d // cols, np_), stream)
+        return (args, outs, sm.direct_mix_bwd_ref(v, gr, gi, last, n),
+                (v, last, gr, gi, parts))
+    cs, np_, threads = shape[2:]
+    y = torch.empty_like(v)
+    head = (v.data_ptr(), gr.data_ptr(), gi.data_ptr(), last.data_ptr(),
+            tw.data_ptr())
+    if kernel == "direct":
+        o = sm.direct_split(n, cs)
+        args = (*head, stage_twiddles(n // (cs * o), dev).data_ptr(),
+                y.data_ptr(), b, n, d, cols, o, cs, np_, threads, stream)
+    else:
+        args = (*head, stage_twiddles(n // cs, dev).data_ptr(),
+                y.data_ptr(), b, n, d, cols, cs, np_, threads, stream)
+    return (args, (y,), (sm.twopass_mix_ref(v, gr, gi, last, n),),
+            (v, last, gr, gi))
+
+
+def run(variants=VARIANTS, shapes=SHAPES, kernel: str = "mix") -> list:
+    """Rows (B, N, plan, variant, ms); the whole kernel's outputs are held
+    to the plain version first."""
     if not torch.cuda.is_available():
         raise RuntimeError("mix_ablation times the kernel on a CUDA device")
     g = torch.Generator().manual_seed(0)
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
-        libs = _build(variants, pathlib.Path(tmp))
+        libs = _build(kernel, variants, pathlib.Path(tmp))
         stream = torch.cuda.current_stream().cuda_stream
-        for b, n, cs, np_, threads in shapes:
-            d, cols, dev = 512, 32, torch.device("cuda")
-            v, mem_t = (torch.randn(s, generator=g).to(dev)
-                        for s in ((b, n, d), (n, d)))
-            gr, gi = (torch.randn((b, n // 2 + 1, cols),
-                                  generator=g).to(dev) for _ in range(2))
-            tw = twiddles(n, dev)
-            tws = stage_twiddles(n // cs, dev)
-            y = torch.empty_like(v)
+        for shape in shapes:
+            args, outs, want, inputs = _case(kernel, shape, g, stream)
             for variant, fn in libs.items():
-                def call(fn=fn):
-                    err = fn(v.data_ptr(), gr.data_ptr(), gi.data_ptr(),
-                             mem_t.data_ptr(), tw.data_ptr(), tws.data_ptr(),
-                             y.data_ptr(), b, n, d, cols, cs, np_, threads,
-                             stream)
+                def call(fn=fn, variant=variant):
+                    err = fn(*args)
                     if err:
                         raise RuntimeError(f"{variant}: cudaError_t {err}")
                 call()
                 if variant == "whole":
-                    want = sm.twopass_mix_ref(v, gr, gi, mem_t, n)
-                    rel = float((y - want).abs().max() / want.abs().max())
-                    if not rel <= 2e-5:
-                        raise AssertionError(f"N={n}: rel_err {rel}")
-                rows.append((b, n, (cs, np_, threads), variant,
+                    for got, w in zip(outs, want):
+                        rel = float((got - w).abs().max() / w.abs().max())
+                        if not rel <= 2e-5:
+                            raise AssertionError(f"{shape}: rel_err {rel}")
+                rows.append((*shape[:2], tuple(shape[2:]), variant,
                              _median_ms(call)))
                 print(*rows[-1], flush=True)
-            del v, mem_t, gr, gi, y
+            del args, outs, want, inputs
     return rows
 
 
 def main(argv) -> None:
-    variants = argv[0].split(",") if argv else VARIANTS
+    kernel = argv.pop(0) if argv and argv[0] in _KERNELS else "mix"
+    variants = argv[0].split(",") if argv else _KERNELS[kernel][3]
     shapes = (tuple(tuple(int(x) for x in s.split(":"))
                     for s in argv[1].split(",")) if len(argv) > 1
-              else SHAPES)
+              else _KERNELS[kernel][4])
     if torch.cuda.is_available():
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
                              text=True).stdout.strip(), flush=True)
-    run(variants, shapes)
+    run(variants, shapes, kernel)
 
 
 if __name__ == "__main__":

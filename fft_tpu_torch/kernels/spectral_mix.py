@@ -5,11 +5,12 @@ Four kernels, written by hand in CUDA C++ for Hopper, each beside its plain
 PyTorch version:
 
 - ``direct_mix``     replaces ``_direct_mix_call`` (pallas_fft.py:301),
-  n_fft a power of two from 8 to 2048 (``csrc/spectral_mix.cu``):
-  y = irfft(gate * rfft(v)) + irfft(mem) in one HBM pass.
+  every n_fft up to 2048 that the layer fuses: the even ones from 8 to 256
+  and 256 m, m = 2..8 (``csrc/spectral_mix.cu``): y = irfft(gate *
+  rfft(v)) + irfft(mem) in one HBM pass.
 - ``direct_mix_bwd`` replaces ``_direct_mix_bwd_call`` (:449): the exact
-  adjoint, (vbar, gbar_r, gbar_i), in one pass (two launches when a gate
-  group is wider than a block's channel tile).
+  adjoint, (vbar, gbar_r, gbar_i), in one pass and one launch (two when a
+  gate group is wider than a thread block cluster's channels).
 - ``staged_mix``     replaces ``_fused_mix_call`` (:630), n_fft = 256 m,
   m = 9..32 (2304-8192, ``csrc/staged_mix.cu``): the same function in one
   HBM pass, a mixed-radix FFT (radix 2 and one odd factor up to 31).
@@ -19,12 +20,15 @@ PyTorch version:
   thread block cluster's CTAs, the step between the two transforms done
   across them through distributed shared memory.
 
-#3 and #4 share one kernel body (``csrc/mix_fft.cuh``): n_fft = CS L, CTA
-r of a cluster's transform holds the rows r + CS t of its channel pairs,
-transforms them in shared memory by passes of sixteen elements a thread,
-and the CS-point DFT across the CTAs, the untangle and the gate run in
-place; a plan (``TWOPASS_PLAN``, ``staged_plan``) sets CS, the channel
-pairs a CTA and the threads.
+#1, #3 and #4 share one kernel body (``csrc/mix_fft.cuh``): n_fft = CS L,
+CTA r of a cluster's transform holds the rows r + CS t of its channel
+pairs, transforms them in shared memory by passes of sixteen elements a
+thread, and the CS-point DFT across the CTAs, the untangle and the gate
+run in place; a plan (``direct_plan``, ``staged_plan``, ``TWOPASS_PLAN``)
+sets CS, the channel pairs a CTA and the threads.  #2 transforms v and
+ybar of a CTA's channel pairs in one set of those passes; a cluster of
+CTAs along the channels sums each gate group's terms (``bwd_plan``,
+``bwd_cluster``).
 
 ``spectral_mix`` is the ``torch.autograd.Function`` over them (the JAX
 package's ``spectral_mix`` custom_vjp, :824-875): its forward runs the
@@ -62,14 +66,14 @@ default.  Every launch adds one to ``LAUNCHES[name]``.
 What bounds the kernels on the H100, and the design's answer: the TPU
 kernels' dense DFT matrices cost 17 GFLOP at B=8, N=1024, d=512 (0.26 ms
 at the card's 67 TFLOP/s fp32, 23x the 11 us HBM bound); the kernels run
-FFTs in shared memory instead, reading v once and writing y once, one
-block per (channel tile, batch row) for #1 and #2, one cluster of CTAs
-per (channel tile, batch row) for #3 and #4.  See the sources for the
-rest.
+FFTs in shared memory instead, reading v (and ybar) once and writing y
+(or vbar) once, one CTA or cluster of CTAs per (channel pairs, batch
+row).  See the sources for the rest.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -90,8 +94,24 @@ TWOPASS_ENABLE = False
 # #4's lengths (the reference's _TP_DBLK, pallas_fft.py:925)
 TWOPASS_SIZES = (16384, 32768, 65536)
 
-# floats of one forward block's tile of v (64 KB of shared memory)
-_TILE_FLOATS = 16384
+# The largest odd factor of n_fft that #1's and #2's templated odd pass
+# takes (spectral_mix.cu's kDirectOdd: 768 = 256 * 3 ... 1792 = 256 * 7);
+# past it, or where n_fft has no factor 4 (n = 2 mod 4), the kernels take
+# the whole transform as one direct DFT (n_fft <= 256 there)
+DIRECT_ODD = 7
+# #1's plans (CTAs a cluster, channel pairs a CTA, threads a CTA) and #2's
+# (channel pairs a CTA, threads a CTA), keyed by n_fft, from chip_smoke.py's
+# kernels_mix_plan_sweep; the defaults elsewhere (cs 2 needs a power of two)
+DIRECT_PLAN = {2048: (1, 4, 256)}
+_DIRECT_DEFAULT = (1, 4, 128)
+BWD_PLAN = {512: (4, 128), 2048: (4, 512)}
+_BWD_DEFAULT = (4, 256)
+# The (cs, np) of #1's instances (spectral_mix.cu; cs 1 alone at the
+# lengths with an odd factor or a direct DFT) and #2's np
+DIRECT_INSTANCES = ((1, 2), (1, 4), (2, 2), (2, 4))
+BWD_INSTANCES = (2, 4)
+# CTAs a cluster of #2, at most (spectral_mix.cu's kBwdClusterMax)
+BWD_CLUSTER_MAX = 8
 # The plans of #3 and #4 (csrc/mix_fft.cuh): (CTAs a thread block
 # cluster, channel pairs a CTA, threads a CTA), from chip_smoke.py's
 # kernels_mix_plan_sweep (PERF.md, Findings PR 10).  #4 at each of its
@@ -117,25 +137,59 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _tile(n_fft: int) -> int:
-    """Channels per forward block: 16, or 8 at n_fft 2048; the backward
-    holds v and ybar per channel and takes half as many."""
-    return min(16, _TILE_FLOATS // n_fft)
-
-
 def direct_supported(n_fft: int, d: int, cols: int) -> bool:
-    """What the Hopper kernels take: a power-of-two n_fft from 8 to 2048
-    (the TPU kernel also takes the other even sizes up to 2048; they raise
-    here), whole channel tiles, and gate groups of an even number of
-    channels that either fill whole backward tiles or divide one."""
-    if not (8 <= n_fft <= 2048 and n_fft & (n_fft - 1) == 0):
-        return False
-    if cols < 1 or d % cols:
-        return False
-    ct, d_g = _tile(n_fft), d // cols
-    ct_bwd = ct // 2
-    return (d % ct == 0 and d_g % 2 == 0
-            and (ct_bwd % d_g == 0 or d_g % ct_bwd == 0))
+    """What #1 and #2 take: every n_fft up to 2048 that the layer's fused
+    branch sends them (``mix_kernel``: the even n_fft from 8 to 256 and
+    256 m, m = 2..8), any gate columns dividing d, and d a multiple of 8
+    (whole CTAs of four channel pairs; the layer's d is a multiple of
+    128)."""
+    return (n_fft <= 2048 and mix_kernel(n_fft) == "direct_mix"
+            and cols >= 1 and d % cols == 0 and d % 8 == 0)
+
+
+def direct_split(n_fft: int, cs: int = 1) -> int:
+    """The odd factor o of the kernels' split of L = n_fft / cs = P o: 1
+    (P a power of two of at least 4), the odd part of L where it is at most
+    ``DIRECT_ODD`` and P >= 4 (cs 1), else L itself (P = 1, the direct
+    DFT, cs 1)."""
+    length = n_fft // cs
+    odd = length // (length & -length)
+    if length // odd >= 4 and (odd == 1 or (odd <= DIRECT_ODD and cs == 1)):
+        return odd
+    return length
+
+
+def direct_plan(n_fft: int):
+    """#1's plan (CTAs a cluster, channel pairs a CTA, threads a CTA)."""
+    return DIRECT_PLAN.get(n_fft, _DIRECT_DEFAULT)
+
+
+def bwd_plan(n_fft: int):
+    """#2's plan (channel pairs a CTA, threads a CTA)."""
+    return BWD_PLAN.get(n_fft, _BWD_DEFAULT)
+
+
+def bwd_cluster(d_g: int, np_: int) -> int:
+    """CTAs a cluster of #2 for gate groups of d_g channels and CTAs of
+    np_ channel pairs: the fewest whose channels are a multiple of d_g, so
+    that a cluster holds whole groups (1 for d_g dividing 2 np_, 2 for
+    config 1's 16 at np_ 4, 3 for 3 or 6), or 1 where that takes more than
+    ``BWD_CLUSTER_MAX`` (the groups' parts then go through scratch and a
+    second launch, ``bwd_parts``)."""
+    w = 2 * np_
+    t = math.lcm(d_g, w) // w
+    return t if t <= BWD_CLUSTER_MAX else 1
+
+
+def bwd_parts(b: int, n_fft: int, d: int, cols: int, np_: int, device):
+    """#2's scratch, or None where its clusters hold whole groups: the
+    parts of the (at most two) groups each cluster touches, (B, F, clusters,
+    2) complex as (..., 2) float pairs; the second launch sums them."""
+    wc = 2 * np_ * bwd_cluster(d // cols, np_)
+    if wc % (d // cols) == 0:
+        return None
+    return torch.empty((b, n_fft // 2 + 1, d // wc, 2, 2),
+                       dtype=torch.float32, device=device)
 
 
 def staged_supported(n_fft: int, d: int, cols: int) -> bool:
@@ -179,12 +233,11 @@ def mix_kernel(n_fft: int) -> Optional[str]:
 # wrapper -> (its TPU kernel, what its kernel takes, the predicate)
 _KERNELS = {
     "direct_mix": ("#1 (pallas_fft.py::_direct_mix_call)",
-                   "a power-of-two n_fft from 8 to 2048, whole channel "
-                   "tiles, gate groups of an even number of channels",
-                   direct_supported),
+                   "the even n_fft from 8 to 256 and 256 m up to 2048, d a "
+                   "multiple of 8, cols dividing d", direct_supported),
     "direct_mix_bwd": ("#2 (pallas_fft.py::_direct_mix_bwd_call)",
-                       "a power-of-two n_fft from 8 to 2048, whole channel "
-                       "tiles, gate groups of an even number of channels",
+                       "the even n_fft from 8 to 256 and 256 m up to 2048, "
+                       "d a multiple of 8, cols dividing d",
                        direct_supported),
     "staged_mix": ("#3 (pallas_fft.py::_fused_mix_call)",
                    "n_fft = 256 m with 9 <= m <= 32, d a multiple of 128, "
@@ -306,21 +359,32 @@ def direct_mix(v, g_r, g_i, mem_t: Optional[torch.Tensor],
     g_r/g_i (B, n_fft // 2 + 1, cols), mem_t (n_fft, d) or None.  Not
     differentiable: ``spectral_mix`` is.
 
-    Replaces ``_direct_mix_call`` (pallas_fft.py:301).  One block per
-    (channel tile, batch row): the tile's channel pairs ride one complex
-    FFT each, forward in time decimation, gate, inverse in frequency
-    decimation, all in shared memory; mem_t is added on the store."""
+    Replaces ``_direct_mix_call`` (pallas_fft.py:301).  One launch of
+    ``csrc/mix_fft.cuh``'s kernel with the plan ``direct_plan`` gives: a
+    cluster of 1 or 2 CTAs a tile of channel pairs, each pair riding one
+    complex FFT (passes of sixteen elements a thread, an odd factor up to
+    7 between them, or one direct DFT at the even n_fft up to 256 with no
+    such split), the gate in place, mem_t added on the store."""
     tensors = [v, g_r, g_i] + ([] if mem_t is None else [mem_t])
     if on_cpu(*tensors):
         return direct_mix_ref(v, g_r, g_i, mem_t, n_fft)
     _require("direct_mix", n_fft, v.shape[-1], g_r.shape[-1])
+    return _launch_direct(v, g_r, g_i, mem_t, n_fft, direct_plan(n_fft))
+
+
+def _launch_direct(v, g_r, g_i, mem_t, n_fft: int, plan):
+    """y from one launch of #1 with ``plan`` (cs, np, threads); the wrapper
+    passes its own plan, chip_smoke.py's sweep others."""
     b, d, cols = _check_forward(v, g_r, g_i, mem_t, n_fft)
+    cs, np_, threads = plan
+    o = direct_split(n_fft, cs)
     y = torch.empty_like(v)
     launch(LAUNCHES, "direct_mix", v.device,
            v.data_ptr(), g_r.data_ptr(), g_i.data_ptr(),
            None if mem_t is None else mem_t.data_ptr(),
-           twiddles(n_fft, v.device).data_ptr(), y.data_ptr(), b, n_fft, d,
-           cols, _tile(n_fft))
+           twiddles(n_fft, v.device).data_ptr(),
+           stage_twiddles(n_fft // (cs * o), v.device).data_ptr(),
+           y.data_ptr(), b, n_fft, d, cols, o, cs, np_, threads)
     return y
 
 
@@ -328,36 +392,42 @@ def direct_mix_bwd(v, g_r, g_i, ybar, n_fft: int):
     """(vbar (B, n_fft, d), gbar_r, gbar_i (B, F, cols)): the adjoint of
     ``direct_mix`` at (v, g) for the cotangent ybar (B, n_fft, d).
 
-    Replaces ``_direct_mix_bwd_call`` (pallas_fft.py:449).  One block per
-    (channel tile, batch row) packs v + i ybar per channel into one FFT,
-    forms conj(g) U and U conj(X), reduces the gate cotangent over each
-    group's channels in a fixed order, and runs the inverse on channel
-    pairs.  Groups wider than the tile get a second launch that sums their
-    tiles' partials (no atomics)."""
+    Replaces ``_direct_mix_bwd_call`` (pallas_fft.py:449).  One launch
+    (``csrc/spectral_mix.cu``) with the plan ``bwd_plan``: a CTA transforms
+    v and ybar of its channel pairs in one set of passes, forms each pair's
+    conj(g) U and each channel's U conj(X) in place, and a cluster of
+    ``bwd_cluster`` CTAs along the channels sums each gate group's terms in
+    channel order (no atomics); groups wider than a cluster go through
+    ``bwd_parts`` and a second launch."""
     if on_cpu(v, g_r, g_i, ybar):
         return direct_mix_bwd_ref(v, g_r, g_i, ybar, n_fft)
-    b, n, d = v.shape
+    _require("direct_mix_bwd", n_fft, v.shape[-1], g_r.shape[-1])
+    return _launch_bwd(v, g_r, g_i, ybar, n_fft, bwd_plan(n_fft))
+
+
+def _launch_bwd(v, g_r, g_i, ybar, n_fft: int, plan):
+    """(vbar, gbar_r, gbar_i) from #2 with ``plan`` (np, threads); the
+    wrapper passes its own plan, chip_smoke.py's sweep others."""
+    b, _, d = v.shape
     cols = g_r.shape[-1]
-    _require("direct_mix_bwd", n_fft, d, cols)
     fh = n_fft // 2 + 1
     check("v", v, (b, n_fft, d))
     check("g_r", g_r, (b, fh, cols))
     check("g_i", g_i, (b, fh, cols))
     check("ybar", ybar, (b, n_fft, d))
-    ct = _tile(n_fft) // 2
-    unit = min(d // cols, ct)
+    np_, threads = plan
+    o = direct_split(n_fft)
+    parts = bwd_parts(b, n_fft, d, cols, np_, v.device)
     vbar = torch.empty_like(v)
     gbr, gbi = torch.empty_like(g_r), torch.empty_like(g_i)
-    parts = [None, None]
-    if unit < d // cols:
-        parts = [torch.empty((b, fh, d // unit), dtype=torch.float32,
-                             device=v.device) for _ in range(2)]
     launch(LAUNCHES, "direct_mix_bwd", v.device,
            v.data_ptr(), ybar.data_ptr(), g_r.data_ptr(), g_i.data_ptr(),
-           twiddles(n_fft, v.device).data_ptr(), vbar.data_ptr(),
+           twiddles(n_fft, v.device).data_ptr(),
+           stage_twiddles(n_fft // o, v.device).data_ptr(), vbar.data_ptr(),
            gbr.data_ptr(), gbi.data_ptr(),
-           *(None if p is None else p.data_ptr() for p in parts),
-           b, n_fft, d, cols, ct)
+           None if parts is None else parts.data_ptr(),
+           b, n_fft, d, cols, o, np_, threads,
+           bwd_cluster(d // cols, np_))
     return vbar, gbr, gbi
 
 

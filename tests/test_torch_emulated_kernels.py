@@ -63,8 +63,59 @@ def _rel(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
-# (n_fft, d, cols, memory): 2- to 64-channel groups, tiles holding whole
-# groups and groups spanning tiles (the second, group-sum launch)
+def _emulated_direct(lib, v, gr, gi, mem_t, n, plan):
+    """y from #1's C entry with ``plan`` (cs, np, threads) and the split and
+    twiddles ``sm._launch_direct`` passes on the card; y starts as NaN."""
+    b, _, d = v.shape
+    cs, np_, threads = plan
+    o = sm.direct_split(n, cs)
+    y = torch.full_like(v, float("nan"))
+    assert lib.fft_direct_mix(
+        _ptr(v), _ptr(gr), _ptr(gi), _ptr(mem_t),
+        _ptr(torch.from_numpy(twiddles_np(n))),
+        _ptr(torch.from_numpy(stage_twiddles_np(n // (cs * o)))), _ptr(y),
+        b, n, d, gr.shape[-1], o, cs, np_, threads, None) == 0
+    return y
+
+
+def _emulated_bwd(lib, v, gr, gi, ybar, n, plan):
+    """(vbar, gbar_r, gbar_i) from #2's C entry with ``plan`` (np, threads),
+    the cluster and scratch ``sm._launch_bwd`` passes on the card; the
+    outputs start as NaN."""
+    b, _, d = v.shape
+    cols = gr.shape[-1]
+    np_, threads = plan
+    o = sm.direct_split(n)
+    parts = sm.bwd_parts(b, n, d, cols, np_, "cpu")
+    out = [torch.full_like(t, float("nan")) for t in (v, gr, gi)]
+    assert lib.fft_direct_mix_bwd(
+        _ptr(v), _ptr(ybar), _ptr(gr), _ptr(gi),
+        _ptr(torch.from_numpy(twiddles_np(n))),
+        _ptr(torch.from_numpy(stage_twiddles_np(n // o))),
+        *(_ptr(t) for t in out), _ptr(parts), b, n, d, cols, o, np_, threads,
+        sm.bwd_cluster(d // cols, np_), None) == 0
+    return out
+
+
+def _check_direct_pair(lib, b, n, d, cols, mem, fwd_plan, bwd_plan):
+    """#1 and #2 at one shape against their plain versions."""
+    assert sm.direct_supported(n, d, cols)
+    g = torch.Generator().manual_seed(n + d + cols)
+    fh = n // 2 + 1
+    v, ybar = (torch.randn(b, n, d, generator=g) for _ in range(2))
+    gr, gi = (torch.randn(b, fh, cols, generator=g) for _ in range(2))
+    mem_t = torch.randn(n, d, generator=g) if mem else None
+    y = _emulated_direct(lib, v, gr, gi, mem_t, n, fwd_plan)
+    assert _rel(y, sm.direct_mix_ref(v, gr, gi, mem_t, n)) < TOL
+    got = _emulated_bwd(lib, v, gr, gi, ybar, n, bwd_plan)
+    for a, want in zip(got, sm.direct_mix_bwd_ref(v, gr, gi, ybar, n)):
+        assert _rel(a, want) < TOL
+
+
+# (n_fft, d, cols, memory): 1- to 64-channel groups, CTAs holding whole
+# groups, clusters of 2 to 8 CTAs holding them, and groups wider than any
+# cluster (their parts summed by the second launch), with the wrappers'
+# plans
 CASES = [(8, 32, 16, True), (64, 32, 4, False), (64, 32, 2, True),
          (256, 64, 8, True), (256, 64, 1, False), (1024, 32, 2, True),
          (2048, 16, 1, True), (2048, 32, 16, False)]
@@ -72,31 +123,66 @@ CASES = [(8, 32, 16, True), (64, 32, 4, False), (64, 32, 2, True),
 
 @pytest.mark.parametrize("n,d,cols,mem", CASES)
 def test_emulated_kernels_match_plain_versions(lib, n, d, cols, mem):
-    assert sm.direct_supported(n, d, cols)
-    g = torch.Generator().manual_seed(n + d + cols)
-    b, fh = 2, n // 2 + 1
-    v, ybar = (torch.randn(b, n, d, generator=g) for _ in range(2))
-    gr, gi = (torch.randn(b, fh, cols, generator=g) for _ in range(2))
-    mem_t = torch.randn(n, d, generator=g) if mem else None
-    tw = torch.from_numpy(twiddles_np(n))
-    ct = sm._tile(n)
+    _check_direct_pair(lib, 2, n, d, cols, mem, sm.direct_plan(n),
+                       sm.bwd_plan(n))
 
-    y = torch.empty_like(v)
-    assert lib.fft_direct_mix(_ptr(v), _ptr(gr), _ptr(gi), _ptr(mem_t),
-                              _ptr(tw), _ptr(y), b, n, d, cols, ct,
-                              None) == 0
-    assert _rel(y, sm.direct_mix_ref(v, gr, gi, mem_t, n)) < TOL
 
-    unit = min(d // cols, ct // 2)
-    out = [torch.empty_like(v), torch.empty_like(gr), torch.empty_like(gi)]
-    parts = ([torch.empty(b, fh, d // unit) for _ in range(2)]
-             if unit < d // cols else [None, None])
-    assert lib.fft_direct_mix_bwd(
-        _ptr(v), _ptr(ybar), _ptr(gr), _ptr(gi), _ptr(tw),
-        *(_ptr(t) for t in out), *(_ptr(p) for p in parts), b, n, d, cols,
-        ct // 2, None) == 0
-    for got, want in zip(out, sm.direct_mix_bwd_ref(v, gr, gi, ybar, n)):
-        assert _rel(got, want) < TOL
+# (n_fft, d, cols, memory, #1's plan, #2's plan) at the lengths with no
+# power-of-two split: n = 2 mod 4 (10, 66 = 2 * 33, 254 = 2 * 127: one
+# direct DFT), odd factors past 31 (132 = 4 * 33) and past 7 with P >= 4
+# (36 = 4 * 9), the templated odd factors 3 (12, 768, 1536) and 5 (40);
+# gate groups of 1, 3 and 6 channels (clusters of 3 CTAs) and 5 (5 CTAs);
+# both instances' channel pairs a CTA, #1 with a cluster of 2 at 512;
+# groups that no cluster of up to 8 CTAs holds whole (9 channels, 128),
+# their parts summed by the second launch
+ODD_CASES = [(10, 8, 8, True, (1, 4, 64), (4, 64)),
+             (66, 24, 8, False, (1, 2, 64), (4, 64)),
+             (254, 24, 4, True, (1, 4, 128), (2, 64)),
+             (132, 16, 16, True, (1, 4, 64), (2, 64)),
+             (36, 40, 8, False, (1, 2, 32), (4, 32)),
+             (12, 8, 8, True, (1, 4, 32), (2, 32)),
+             (40, 24, 4, True, (1, 2, 64), (2, 64)),
+             (768, 24, 8, True, (1, 4, 128), (4, 128)),
+             (1536, 24, 4, False, (1, 4, 256), (4, 256)),
+             (512, 48, 8, True, (2, 4, 64), (2, 64)),
+             (16, 72, 8, True, (2, 4, 32), (4, 32)),
+             (66, 128, 1, False, (1, 4, 64), (4, 64))]
+
+
+def test_emulated_bwd_with_a_channel_dropped_fails(tmp_path_factory):
+    """A copy of spectral_mix.cu whose #2 gate sums skip each group's
+    first channel disagrees with the plain version in the gate cotangent
+    alone (vbar stays right), in a cluster of 2 CTAs and in one CTA: the
+    checks above see the group sum."""
+    if cuda_emulation.compiler() is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    src = (kb.CSRC_DIR / "spectral_mix.cu").read_text()
+    good = "for (int ch = lo; ch < hi; ++ch) {"
+    assert src.count(good) == 1
+    out = tmp_path_factory.mktemp("broken_mix_bwd")
+    (out / "spectral_mix.cu").write_text(src.replace(
+        good, "for (int ch = lo + 1; ch < hi; ++ch) {"))
+    for name in ("mix_fft.cuh", "fft_common.cuh"):
+        (out / name).write_text((kb.CSRC_DIR / name).read_text())
+    lib = cuda_emulation.build(out / "spectral_mix.cu", out)
+    argtypes, restype = kb._SIGNATURES["fft_direct_mix_bwd"]
+    lib.fft_direct_mix_bwd.argtypes = argtypes
+    lib.fft_direct_mix_bwd.restype = restype
+    for n, d, cols in ((64, 16, 1), (64, 16, 4)):
+        g = torch.Generator().manual_seed(n + cols)
+        v, ybar = (torch.randn(1, n, d, generator=g) for _ in range(2))
+        gr, gi = (torch.randn(1, n // 2 + 1, cols, generator=g)
+                  for _ in range(2))
+        got = _emulated_bwd(lib, v, gr, gi, ybar, n, (4, 64))
+        want = sm.direct_mix_bwd_ref(v, gr, gi, ybar, n)
+        assert _rel(got[0], want[0]) < TOL
+        assert _rel(got[1], want[1]) > TOL and _rel(got[2], want[2]) > TOL
+
+
+@pytest.mark.parametrize("n,d,cols,mem,fwd_plan,bwd_plan", ODD_CASES)
+def test_emulated_direct_mix_every_split(lib, n, d, cols, mem, fwd_plan,
+                                         bwd_plan):
+    _check_direct_pair(lib, 1, n, d, cols, mem, fwd_plan, bwd_plan)
 
 
 @pytest.fixture(scope="module")
@@ -230,22 +316,26 @@ def test_emulated_twopass_reading_its_own_rank_fails(tmp_path_factory):
 
 
 def test_mix_ablation_cuts_apply():
-    """fft_tpu_torch.kernels.mix_ablation's copies of mix_fft.cuh each take
-    out exactly the parts they name: every cut finds its text once, and the
-    whole kernel is the source as it is."""
+    """fft_tpu_torch.kernels.mix_ablation's copies of mix_fft.cuh (#3 and
+    #4 through twopass_mix.cu, #1 through spectral_mix.cu) and of #2's
+    kernel each take out exactly the parts they name: every cut finds its
+    text once, and the whole kernel is the source as it is."""
     from fft_tpu_torch.kernels import mix_ablation as ma
-    whole = ma._sources("whole")
-    assert whole["mix_fft.cuh"] == (kb.CSRC_DIR / "mix_fft.cuh").read_text()
-    for cut, edits in ma._CUTS.items():
-        for old, _ in edits:
-            assert sum(t.count(old) for t in whole.values()) == 1, (cut, old)
-    for variant in ma.VARIANTS[1:]:
-        texts = ma._sources(variant)
-        assert texts != whole
-        for cut in variant[2:].split("_no"):
-            for old, new in ma._CUTS[cut]:
-                assert old not in "".join(texts.values())
-                assert new in "".join(texts.values())
+    for kernel, (_, _, cuts, variants, _) in ma._KERNELS.items():
+        whole = ma._sources("whole", kernel)
+        for name, text in whole.items():
+            assert text == (kb.CSRC_DIR / name).read_text()
+        for cut, edits in cuts.items():
+            for old, _ in edits:
+                assert sum(t.count(old) for t in whole.values()) == 1, (
+                    kernel, cut, old)
+        for variant in variants[1:]:
+            texts = ma._sources(variant, kernel)
+            assert texts != whole
+            for cut in variant[2:].split("_no"):
+                for old, new in cuts[cut]:
+                    assert old not in "".join(texts.values())
+                    assert new in "".join(texts.values())
 
 
 def test_plain_adjoint_is_autograd_of_the_plain_forward():
@@ -573,22 +663,20 @@ def test_emulated_fused_causal_mix_fft(fft_lib, b, nc, chunk, d, cols, np_,
 
 def test_emulated_fft_kernels_with_the_untangle_flipped_fail(
         tmp_path_factory):
-    """A copy of causal_fft.cu whose untangle takes B[k] with the wrong
-    sign of its real part disagrees with the plain versions: the checks
-    above see it."""
+    """A copy of causal_fft.cu whose untangle (fft_common.cuh's) takes B[k]
+    with the wrong sign of its real part disagrees with the plain versions:
+    the checks above see it."""
     if cuda_emulation.compiler() is None:
         pytest.skip("needs a host C++ compiler (g++)")
-    src = (kb.CSRC_DIR / "causal_fft.cu").read_text()
+    src = (kb.CSRC_DIR / "fft_common.cuh").read_text()
     good = "b = make_float2(0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));"
     assert src.count(good) == 1
     out = tmp_path_factory.mktemp("broken_fft")
-    broken = out / "causal_fft.cu"
-    broken.write_text(src.replace(
+    (out / "fft_common.cuh").write_text(src.replace(
         good, "b = make_float2(-0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));"))
-    (out / "causal_common.cuh").write_text(
-        (kb.CSRC_DIR / "causal_common.cuh").read_text())
-    (out / "fft_common.cuh").write_text(
-        (kb.CSRC_DIR / "fft_common.cuh").read_text())
+    for name in ("causal_fft.cu", "causal_common.cuh"):
+        (out / name).write_text((kb.CSRC_DIR / name).read_text())
+    broken = out / "causal_fft.cu"
     lib = cuda_emulation.build(broken, out)
     for name in ("fft_kf_spectra", "fft_fused_causal_mix"):
         argtypes, restype = kb._SIGNATURES[name]

@@ -496,11 +496,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 
 # n_fft, d_g: config 1's 1024 with 16-channel groups; groups of 8 and 64
-# channels (a tile holds whole groups, a group spans whole tiles)
-MIX_CASES = [(n, dg) for n in (64, 256, 1024, 2048) for dg in (8, 16, 64)]
+# channels (a CTA holds whole groups, clusters of 2 and 8 CTAs do); the
+# odd factor 3 (768, 1536), n = 2 mod 4 (254 = 2 * 127, a direct DFT);
+# one-channel groups, groups of 3 and 6 channels (d = 384) and one group
+# of all 512 channels (the second launch)
+MIX_CASES = ([(n, dg) for n in (64, 256, 1024, 2048) for dg in (8, 16, 64)]
+             + [(768, 16), (1536, 16), (254, 16), (1024, 1), (1536, 3),
+                (254, 6), (768, 512)])
 
 
-def _mix_inputs(dev, n_fft, d_g, seed, b=2, d=512):
+def _mix_inputs(dev, n_fft, d_g, seed, b=2, d=None):
+    d = d or (384 if d_g % 3 == 0 else 512)
     g = torch.Generator().manual_seed(seed)
     cols, fh = d // d_g, n_fft // 2 + 1
     return (_randn(g, dev, b, n_fft, d), _randn(g, dev, b, fh, cols),
@@ -530,6 +536,26 @@ def test_direct_mix_bwd_kernel(dev, n_fft, d_g):
     for a, w in zip(got, want):
         assert a.shape == w.shape
         assert _rel(a, w) < TOL
+
+
+def test_direct_mix_bwd_is_one_launch_at_config1(dev):
+    """#2 at config 1 (B=8, n_fft 1024, d=512, 16-channel groups) is one
+    CUDA kernel launch (torch.profiler's device events), no group-sum
+    kernel, and repeats bit for bit."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    v, gr, gi, _, ybar = _mix_inputs(dev, 1024, 16, 5, b=8)
+    first = sm.direct_mix_bwd(v, gr, gi, ybar, 1024)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = sm.direct_mix_bwd(v, gr, gi, ybar, 1024)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "mix_bwd_kernel" in kernels[0], kernels
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 def test_spectral_mix_backward_on_card(dev):

@@ -147,10 +147,17 @@ def test_cpu_tensors_take_the_plain_versions():
     (2048, 512, 32, True),      # two backward tiles per group
     (8, 64, 16, True),
     (64, 512, 8, True),         # 64-channel groups
-    (1000, 512, 32, False),     # not a power of two
-    (1024, 512, 512, False),    # one-channel groups
-    (1024, 96, 32, False),      # 3-channel groups
-    (1024, 40, 4, False),       # d not a whole number of tiles
+    (1000, 512, 32, False),     # not fused: 1000 / 2 is no multiple of 128
+    (1024, 512, 512, True),     # one-channel groups
+    (1024, 96, 32, True),       # 3-channel groups (clusters of 3 CTAs)
+    (1024, 40, 4, True),        # 10-channel groups (clusters of 5 CTAs)
+    (1024, 36, 4, False),       # d not a whole number of 8-channel CTAs
+    (10, 128, 8, True),         # n = 2 mod 4 (a direct DFT)
+    (254, 128, 128, True),      # 2 * 127
+    (768, 768, 128, True),      # 256 * 3, 6-channel groups
+    (1536, 512, 1, True),       # 512 * 3, one 512-channel group
+    (1792, 512, 32, True),      # 256 * 7
+    (2050, 512, 32, False),     # past #1's range, and not 256 m
     (2304, 512, 32, True),      # kernel #3 from m = 9 ...
     (4096, 512, 32, True),
     (4352, 128, 32, True),      # ... at the prime m = 17 ...
@@ -212,3 +219,79 @@ def test_twopass_sizes_follow_the_flag(n_fft, monkeypatch):
         sm.spectral_mix(v, g, g, None, n_fft)
     monkeypatch.setattr(sm, "TWOPASS_ENABLE", True)
     assert sm.mix_kernel(n_fft) == "twopass_mix"
+
+
+@pytest.mark.parametrize("d,cols", [(128, 8), (128, 128), (384, 128),
+                                    (768, 128)])
+def test_direct_kernels_take_every_length_jax_fuses(d, cols):
+    """Every n_fft up to 2048 on which JAX's fused mix runs its direct
+    kernel (pf.pallas_mix_supported and pf._direct_supported: the even n_fft
+    from 8 to 256 and 256 m) is one that #1 and #2 take, with gate groups of
+    16, 1, 3 and 6 channels; no other n_fft up to 2048 is."""
+    for n in range(1, 2049):
+        fused = pf.pallas_mix_supported(n) and pf._direct_supported(n)
+        assert sm.direct_supported(n, d, cols) is fused, n
+        assert (sm.mix_kernel(n) == "direct_mix") is fused, n
+
+
+@pytest.mark.parametrize("n", [10, 66, 254, 768, 1536])
+def test_direct_kernels_match_pallas_at_every_split(n):
+    """The plain #1 (with the time-domain memory) and #2 against
+    _direct_mix_call and _direct_mix_bwd_call in interpret mode at lengths
+    with no power-of-two split (n = 2 mod 4, odd factors 33 and 127) and
+    with odd factors 3 (768 = 256 * 3, 1536 = 512 * 3), d=128 and 8-channel
+    gate groups."""
+    v, gate, mem, ybar = _inputs(n, d=128, hg=16, seed=n + 1)
+    mem_t = fftops.irfft(torch.from_numpy(mem), n, dim=0)
+    gr, gi = _planes(gate)
+    ref = pf._direct_mix_call(jnp.asarray(v), jnp.asarray(gr.numpy()),
+                              jnp.asarray(gi.numpy()),
+                              jnp.asarray(mem_t.numpy()), n_fft=n,
+                              interpret=True)
+    got = sm.direct_mix(torch.from_numpy(v), gr, gi, mem_t, n)
+    assert rel_err(got.numpy(), np.asarray(ref)) < TOL
+    ref = pf._direct_mix_bwd_call(jnp.asarray(v), jnp.asarray(gr.numpy()),
+                                  jnp.asarray(gi.numpy()), jnp.asarray(ybar),
+                                  n_fft=n, interpret=True)
+    got = sm.direct_mix_bwd(torch.from_numpy(v), gr, gi,
+                            torch.from_numpy(ybar), n)
+    for a, r in zip(got, ref):
+        assert rel_err(a.numpy(), np.asarray(r)) < TOL
+
+
+def test_block_at_n_fft_768_matches_jax_pallas_path():
+    """A 2-head d=128 block with memory 8 at n_fft = L = 768 (256 * 3),
+    fft_impl="pallas": both take the fused branch (JAX's #1 in interpret
+    mode; the port's direct_mix and direct_mix_bwd, here their plain
+    versions), forward and every gradient against JAX's."""
+    from tests.test_torch_layers import (
+        _cfg, _check_grads, _jax_block_apply, block_pair,
+    )
+    from fft_tpu_torch.layers import spectre as tsp
+
+    cfg = _cfg(n_fft=768)
+    params, block = block_pair(cfg, seed=50)
+    x = np.random.default_rng(51).standard_normal((1, 768, 128)).astype(
+        np.float32)
+    tsp.MIX_BRANCH_CALLS.clear()
+    with torch.no_grad():
+        got = block(torch.from_numpy(x)).numpy()
+    assert dict(tsp.MIX_BRANCH_CALLS) == {"fused": 1}
+    assert rel_err(got, _jax_block_apply(params, cfg, x)) < TOL
+    _check_grads(params, block, cfg, x)
+
+
+def test_config1_backward_is_one_launch_without_scratch():
+    """At config 1 (d=512, 32 gate columns: 16-channel groups) and the other
+    layer shapes whose groups a cluster of up to 8 CTAs holds whole, #2's
+    wrapper asks for no scratch (so its C entry makes one launch); groups
+    wider than 8 CTAs' channels take the scratch and the second launch."""
+    np_ = sm.bwd_plan(1024)[0]
+    assert sm.bwd_cluster(16, np_) * 2 * np_ % 16 == 0
+    for n, d, cols in ((1024, 512, 32), (2048, 512, 32), (256, 384, 128),
+                       (768, 768, 128), (1024, 512, 512)):
+        np_ = sm.bwd_plan(n)[0]
+        assert sm.bwd_cluster(d // cols, np_) <= sm.BWD_CLUSTER_MAX
+        assert sm.bwd_parts(2, n, d, cols, np_, "cpu") is None, (n, d, cols)
+    parts = sm.bwd_parts(2, 1024, 512, 1, 4, "cpu")
+    assert parts is not None and parts.shape == (2, 513, 64, 2, 2)
