@@ -54,7 +54,15 @@ Phases, in order; any failure raises and the exit code is nonzero:
              at the 350M's layer (kernels_long_tile_sweep), and their
              device time by CUDA kernel at those shapes, #7's at C 128,
              nc 16, #10 (all three kernels) at the tiny LM's training
-             shape and #9 at the 350M's (kernels_launch_split).
+             shape and #9 at the 350M's (kernels_launch_split).  #5
+             (banded_fft_kernel, csrc/causal.cu) at the CLI's prompt (B=4,
+             C=4 and 100, d=512) and the 350M's prompts (B=1, d=1024, 64
+             columns, C in BANDED_LONG_CHUNKS: 2C a power of two, with an
+             odd factor, Bluestein at M = 4096, 8192, 16384), beside the
+             banded sum and torch.fft.irfft (library_ms); over its tile
+             plans (kernels_banded_plan_sweep); by CUDA kernel with the
+             direct #6 (kernels_banded_launch_split); its wrapper's host
+             time piece by piece (kernels_banded_host_split).
 3. score     lm_apply on 4 x 2048 tokens; logits within rel_err 1e-4 of
              the same model and weights on the CPU (where the kernels'
              plain versions run); tokens/s on the card, and 3 calls under
@@ -126,9 +134,14 @@ Phases, in order; any failure raises and the exit code is nonzero:
              Parity at 2 layers and 8192 tokens (nc=4: kf_seg_rfft, the v3
              mix and its backward): logits, loss and every gradient of a
              train_step within 1e-4 of the CPU; 4 teacher-forced decode
-             steps after a 1024-token prefill within 1e-4.  Then at full
+             steps after a 1024-token prefill within 1e-4; a 1500-token
+             prompt (chunk 1500, nc=1: banded_inverse, Bluestein): lm_apply
+             logits, prefill logits and 2 decode steps within 1e-4, #5 once
+             a layer a call.  Then at full
              depth: scoring 1 x 16384 (ms, tokens/s), prefill of 8192 and
-             1024 tokens, decode ms/token with the fused and the plain
+             1024 tokens, and of 1500 (ms, and one call profiled: device
+             busy ms, idle share; banded_inverse launched once a layer a
+             prefill), decode ms/token with the fused and the plain
              branch in turns (and a profile of 4 steps of each), the CLI's
              generate --preset 350m --seq 16384 (fused_decode_mix once a
              layer per decode step), one scoring call and one 1024-token
@@ -144,6 +157,14 @@ Phases, in order; any failure raises and the exit code is nonzero:
 Prints one JSON line per phase, the card's name and power limit as
 nvidia-smi gives them, a JSON line of per-kernel results, and last
 {"ok": true, "device": {...}}.  Without a CUDA device it fails at once.
+
+``tree_compare`` times #5 and the 350M's 1500-token prefill for whichever
+tree's ``fft_tpu_torch`` the process imports; to set two trees side by
+side in one call, run in each tree's root, in turns:
+
+    python -c 'import importlib.util as u, sys; sys.path.insert(0, "."); \
+      s = u.spec_from_file_location("cs", "PATH/chip_smoke.py"); \
+      m = u.module_from_spec(s); s.loader.exec_module(m); m.tree_compare()'
 """
 
 from __future__ import annotations
@@ -375,16 +396,7 @@ def phase_kernels(kc, sm, kd, dev):
                 None, (2 * vb + kb, 2 * seg + mac),
                 nc == 16 and name != "fused_causal_mix_v3"))
     cases += bwd_cases(kc, randn)
-    for c in (4, 100):
-        args = (randn(b, 1, c + 1, d), randn(b, 1, c + 1, d),
-                randn(b, 1, 1, c + 1, cols), randn(b, 1, 1, c + 1, cols))
-        _, kb, mac, _ = causal_work(b, 1, c, d, cols)
-        cases.append((
-            "banded_inverse", f"B={b} nc=1 C={c} d={d} cols={cols}",
-            lambda args=args, c=c: kc.banded_inverse(*args, c),
-            lambda args=args, c=c: kc.banded_inverse_ref(*args, c),
-            None, (4 * b * (2 * (c + 1) + c) * d + kb,
-                   mac + b * d * fft_ops(2 * c)), c == 4))
+    cases += banded_cases(kc, randn, b, (4, 100), d, cols)
     cases += long_cases(kc, randn)
     cases += decode_cases(kd, randn)
     # the spectral mix: BASELINE config 1 (B=8, N=1024, d=512, H*G=32, with
@@ -402,6 +414,9 @@ def phase_kernels(kc, sm, kd, dev):
     long_tile_sweep(kc, randn)
     bwd_seg_sweep(kc, randn)
     long_launch_split(kc, randn)
+    banded_plan_sweep(kc, randn)
+    banded_launch_split(kc, randn)
+    banded_host_split(kc, randn)
     results = {}
     for name, shape, kern, plain, lib, work, main in cases:
         got, want = kern(), plain()
@@ -762,7 +777,7 @@ def long_cases(kc, randn):
     """The 350M's long-context kernels: one layer at seq 16384 (d=1024, 16
     heads x 4 groups = 64 gate columns, chunk 2048, nc=8), the 8192- and
     1024-token prompts' mixes (nc=4; nc=1 at C=1024), nc=4 at C=1024, and
-    #5 at the 8-lane tile's chunks."""
+    #5 at the other prompts' chunks (BANDED_LONG_CHUNKS)."""
     cases = []
     b, chunk, d, cols = 1, 2048, 1024, 64
     n, lanes = 16384, 8 * 64
@@ -796,17 +811,177 @@ def long_cases(kc, randn):
             lambda v=v, kr=kr, ki=ki, yb=ybar, c=c:
                 kc.fused_causal_mix_bwd_ref(v, kr, ki, yb, c, cols),
             None, (3 * vb + 2 * kb, 3 * seg + 2 * mac), nc == 8))
-    for c in (1024, 1500):
-        args = (randn(b, 1, c + 1, d), randn(b, 1, c + 1, d),
-                randn(b, 1, 1, c + 1, cols), randn(b, 1, 1, c + 1, cols))
-        _, kb, mac, _ = causal_work(b, 1, c, d, cols)
+    return cases + banded_cases(kc, randn, b, BANDED_LONG_CHUNKS, d, cols)
+
+
+# #5 at the 350M's prompts (B=1, d=1024, 64 gate columns, nc=1): the
+# power-of-two chunk, Bluestein's M = 4096, 8192 and 16384 (a prime among
+# them), the odd factor 3; 1500 is the main case
+BANDED_LONG_CHUNKS = (1024, 854, 1499, 1500, 1536, 2047, 2904)
+
+
+def banded_inputs(randn, b, nc, c, d, cols):
+    return (randn(b, nc, c + 1, d), randn(b, nc, c + 1, d),
+            randn(b, nc, nc, c + 1, cols), randn(b, nc, nc, c + 1, cols))
+
+
+def banded_work(b, nc, c, d, cols):
+    """(bytes, operations) of #5: V's planes and K's lower triangle read
+    once, y written once; the banded complex multiply-adds and one real
+    inverse FFT of 2C a channel and chunk."""
+    _, kb, mac, seg = causal_work(b, nc, c, d, cols)
+    return 4 * b * nc * (2 * (c + 1) + c) * d + kb, mac + seg
+
+
+def lib_banded(vfr, vfi, kfr, kfi, c):
+    """#5 as PyTorch ops (which the port never calls): the banded sum of
+    complex products over the lags, then torch.fft.irfft (cuFFT) of 2C and
+    rows C..2C-1."""
+    b, nc, f2, d = vfr.shape
+    cols = kfr.shape[-1]
+    vf = torch.complex(vfr, vfi).view(b, nc, f2, cols, d // cols)
+    kf = torch.complex(kfr, kfi)
+    acc = kf[:, :, 0, :, :, None] * vf
+    for j in range(1, nc):
+        acc[:, j:] += kf[:, j:, j, :, :, None] * vf[:, :nc - j]
+    return torch.fft.irfft(acc.view(b, nc, f2, d), 2 * c, dim=2)[:, :, c:]
+
+
+def banded_cases(kc, randn, b, chunks, d, cols):
+    """#5 at nc=1 and each chunk, with the cuFFT composition beside it."""
+    cases = []
+    for c in chunks:
+        args = banded_inputs(randn, b, 1, c, d, cols)
         cases.append((
             "banded_inverse", f"B={b} nc=1 C={c} d={d} cols={cols}",
             lambda args=args, c=c: kc.banded_inverse(*args, c),
             lambda args=args, c=c: kc.banded_inverse_ref(*args, c),
-            None, (4 * b * (2 * (c + 1) + c) * d + kb,
-                   mac + b * d * fft_ops(2 * c)), False))
+            lambda args=args, c=c: lib_banded(*args, c),
+            banded_work(b, 1, c, d, cols), c == 1500))
     return cases
+
+
+# (B, C, d, cols) of banded_plan_sweep: a chunk for each path and tile
+# length (rows 8 to 16384), the 350M's width (d=1024, 64 gate columns) but
+# at the CLI's prompt and C=100, 129 (the tiny LM's width)
+BANDED_SWEEP = ((4, 4, 512, 32), (4, 100, 512, 32), (1, 1024, 1024, 64),
+                (1, 2048, 1024, 64), (1, 768, 1024, 64),
+                (1, 1280, 1024, 64), (1, 1536, 1024, 64),
+                (1, 300, 1024, 64), (4, 129, 512, 32), (1, 500, 1024, 64),
+                (1, 854, 1024, 64), (1, 1500, 1024, 64),
+                (1, 2904, 1024, 64))
+
+
+def banded_plan_sweep(kc, randn) -> None:
+    """#5's kernel (csrc/causal.cu's banded_fft_kernel) over its tile
+    plans, channel pairs a block (np) and threads a block, where the block
+    fits; at each shape of BANDED_SWEEP (nc=1); median ms over CUDA events
+    and device ms of each, ``kc.banded_fft_plan``'s marked.  Each plan's
+    output is held to the plain version first."""
+    rows = []
+    for b, c, d, cols in BANDED_SWEEP:
+        args = banded_inputs(randn, b, 1, c, d, cols)
+        want = kc.banded_inverse_ref(*args, c)
+        length, o, *chosen = kc.banded_fft_plan(c)
+        for plan in ((np_, threads) for np_ in (1, 2, 4)
+                     for threads in (128, 256, 512)):
+            if (o > 1 and plan[1] > 256) or kc._banded_fft_smem(
+                    c, length, o, plan[0]) > kc.SMEM_MAX:
+                continue
+
+            def kern(args=args, c=c, plan=plan):
+                return kc._banded_inverse(*args, c, plan)
+
+            err = rel_err(kern(), want)
+            if not err <= REL_KERNEL:
+                raise AssertionError(f"banded_inverse C={c} plan {plan}: "
+                                     f"rel_err {err}")
+            rows.append(dict(shape=f"B={b} nc=1 C={c} d={d} cols={cols}",
+                             transform=[length, o], plan=list(plan),
+                             rel_err=err, ms=median_ms(kern),
+                             device_ms=device_ms(kern),
+                             chosen=list(plan) == chosen))
+        del args, want
+    emit(phase="kernels_banded_plan_sweep", rows=rows)
+
+
+def banded_host_split(kc, randn) -> None:
+    """Where #5's host time goes at the CLI's prompt (B=4, nc=1, C=4,
+    d=512, 32 columns), whose kernel takes ~0.003 ms: host microseconds a
+    call (perf_counter over 2000 calls, no synchronize) of the public
+    function, its wrapper alone, and the wrapper's pieces: the cached
+    per-shape lookup, the output's allocation, the stream handle (the
+    accessor ``launch`` uses and ``torch.cuda.current_stream``'s), the
+    ctypes call that launches the kernel, and the Function around it."""
+    from fft_tpu_torch.kernels.build import load_library
+
+    b, c, d, cols = 4, 4, 512, 32
+    args = banded_inputs(randn, b, 1, c, d, cols)
+    dev = args[0].device
+    kc.banded_inverse(*args, c)
+    _, out_shape, _, address = kc._banded_call(b, 1, c, d, cols, dev)
+    out = torch.empty(out_shape, device=dev)
+    fn = load_library().fft_banded_inverse
+    ptrs = [t.data_ptr() for t in (*args, out)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    pieces = (
+        ("banded_inverse", lambda: kc.banded_inverse(*args, c)),
+        ("_banded_inverse", lambda: kc._banded_inverse(*args, c)),
+        ("_banded_call (cached)",
+         lambda: kc._banded_call(b, 1, c, d, cols, dev)),
+        ("torch.empty", lambda: torch.empty(out_shape, dtype=torch.float32,
+                                            device=dev)),
+        ("raw stream handle",
+         lambda: torch._C._cuda_getCurrentRawStream(dev.index)),
+        ("current_stream().cuda_stream",
+         lambda: torch.cuda.current_stream(dev).cuda_stream),
+        ("ctypes launch", lambda: fn(*ptrs, address, stream)),
+        ("_BandedInverse.apply", lambda: kc._BandedInverse.apply(*args, c)))
+    rows = {}
+    for name, f in pieces:
+        f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            f()
+        rows[name] = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+    emit(phase="kernels_banded_host_split", shape=f"B={b} nc=1 C={c} d={d} "
+         f"cols={cols}", us_per_call=rows)
+
+
+def banded_launch_split(kc, randn) -> list:
+    """#5 at phase 2's shapes (the CLI's prompt, B=4, C=4, d=512, 32
+    columns; the 350M's prompts, B=1, d=1024, 64 columns, C 1024, 1499,
+    1500) and the direct #6 at phase 2's (B=4, nc 16, C=128, d=512) and
+    at C=129, nc=3, where the wrappers take it: ms between CUDA events and
+    device ms by CUDA kernel (torch.profiler over 10 calls).  It takes any
+    tree's ``kernels.causal``, so one call can time two trees' kernels."""
+    from fft_tpu_torch import bench
+
+    rows = []
+    runs = []
+    for b, c, d, cols in ((4, 4, 512, 32), (1, 1024, 1024, 64),
+                          (1, 1499, 1024, 64), (1, 1500, 1024, 64)):
+        args = banded_inputs(randn, b, 1, c, d, cols)
+        runs.append(("banded_inverse", f"B={b} nc=1 C={c} d={d} cols={cols}",
+                     lambda a=args, c=c: kc.banded_inverse(*a, c)))
+    for b, nc, c, d, cols in ((4, 16, 128, 512, 32), (4, 3, 129, 512, 32)):
+        v = randn(b, nc * c, d)
+        kr, ki = (randn(b, nc, c + 1, nc * cols) for _ in range(2))
+        runs.append(("fused_causal_mix_direct",
+                     f"B={b} nc={nc} C={c} d={d} cols={cols}",
+                     lambda v=v, kr=kr, ki=ki, c=c, cols=cols:
+                     kc.fused_causal_mix_direct(v, kr, ki, c, cols)))
+    for name, shape, fn in runs:
+        fn()
+        torch.cuda.synchronize()
+        prof = bench._profile(fn, torch.cuda.synchronize, 10)
+        rows.append(dict(kernel=name, shape=shape, ms=median_ms(fn),
+                         device_ms=prof["device_busy_ms_per_step"],
+                         by_launch=prof["top_kernels_ms_per_step"]))
+    emit(phase="kernels_banded_launch_split", rows=rows)
+    return rows
 
 
 def decode_cases(kd, randn):
@@ -1565,6 +1740,22 @@ def phase_350m_parity(dev, kc) -> None:
     del logits, ref
     tf_prefill_err, tf_decode_err = teacher_forced(
         gpu, cpu, tokens[:, :1024], tokens[:, 1024:1028], dev)
+    # a 1500-token prompt: chunk 1500, nc = 1, banded_inverse (Bluestein)
+    BRANCH_CALLS.clear()
+    banded_before = kc.LAUNCHES["banded_inverse"]
+    logits = lm_apply(gpu, tokens[:, :1500].to(dev))
+    ref = lm_apply(cpu, tokens[:, :1500])
+    p1500_logit_err = rel_err(logits, ref)
+    finite = finite and all_finite(logits)
+    del logits, ref
+    p1500_prefill_err, p1500_decode_err = teacher_forced(
+        gpu, cpu, tokens[:, :1500], tokens[:, 1500:1502], dev)
+    p1500 = dict(logits_rel_err=p1500_logit_err,
+                 prefill_rel_err=p1500_prefill_err,
+                 decode_rel_err=p1500_decode_err,
+                 branches=dict(BRANCH_CALLS),
+                 banded_launches=kc.LAUNCHES["banded_inverse"]
+                 - banded_before)
     del gpu, cpu
     res = train_parity(cfg, dev, tokens.numpy().astype("int32"))
     used = {k: v for k, v in kc.LAUNCHES.items() if v}
@@ -1572,9 +1763,11 @@ def phase_350m_parity(dev, kc) -> None:
          chunk=cfg.block.causal_chunk, logits_rel_err=logit_err,
          decode_prefill_rel_err=tf_prefill_err,
          decode_rel_err=tf_decode_err, teacher_forced_steps=4,
-         branches=branches, launches=used, **res)
+         branches=branches, launches=used, prompt_1500=p1500, **res)
     if not (finite and res["finite"] and logit_err <= REL_MODEL
             and max(tf_prefill_err, tf_decode_err) <= REL_MODEL
+            and max(p1500_logit_err, p1500_prefill_err,
+                    p1500_decode_err) <= REL_MODEL
             and res["loss_rel_err"] <= REL_MODEL
             and res["max_grad_rel_err"] <= REL_MODEL):
         raise AssertionError(f"350m parity: logits {logit_err}, decode "
@@ -1585,6 +1778,56 @@ def phase_350m_parity(dev, kc) -> None:
     if branches != {"kf_seg": cfg.num_layers} or not all(
             used.get(k) for k in TRAIN_350M_KERNELS):
         raise AssertionError(f"350m parity took {branches}, launched {used}")
+    # lm_apply and two prefills (teacher_forced's, the CPU's not counted)
+    if (p1500["branches"] != {"banded": 4 * cfg.num_layers}
+            or p1500["banded_launches"] != 2 * cfg.num_layers):
+        raise AssertionError(f"350m parity at 1500 tokens: {p1500}")
+
+
+def prefill_350m(model, x, length: int) -> dict:
+    """The 350M's prefill of x's first ``length`` tokens: finite logits,
+    the median wall ms of 3 calls ending in a synchronize, and one call
+    under torch.profiler (device busy ms, idle share, kernels by name);
+    ``calls``: the prefills run."""
+    from fft_tpu_torch import bench
+    from fft_tpu_torch.models.lm import lm_prefill
+
+    prompt = x[:, :length]
+    lg, _ = lm_prefill(model, prompt)
+    if not all_finite(lg):
+        raise AssertionError(f"350m prefill {length}: non-finite")
+    del lg
+    ms = wall_ms(lambda: lm_prefill(model, prompt), rounds=3)
+    prof = bench._profile(lambda: lm_prefill(model, prompt),
+                          torch.cuda.synchronize, 1, ("banded_fft_kernel",
+                                                      "banded_inverse"))
+    return dict(ms=ms, profile=prof, calls=1 + 1 + 3 + 1)
+
+
+def tree_compare() -> None:
+    """#5's side of a comparison of two trees in one call: run from a
+    process whose ``fft_tpu_torch`` is the tree to time (this file loaded
+    by its path), it emits banded_launch_split and the full-depth 350M's
+    1500-token prefill (prefill_350m) for that tree."""
+    from fft_tpu_torch.kernels import causal as kc
+    from fft_tpu_torch.models.lm import lm_init, spectre_350m_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    banded_launch_split(kc, randn)
+    cfg = spectre_350m_config()
+    model = lm_init(cfg, torch.Generator().manual_seed(SEED), dev)
+    x = torch.randint(0, cfg.vocab_size, (1, 1500),
+                      generator=torch.Generator().manual_seed(SEED + 4)
+                      ).to(dev)
+    res = prefill_350m(model, x, 1500)
+    emit(phase="tree_compare_prefill_1500", tree=kc.__file__,
+         ms=res["ms"], profile=res["profile"])
 
 
 def phase_350m(dev, kd, reset_launches, launches):
@@ -1628,12 +1871,22 @@ def phase_350m(dev, kd, reset_launches, launches):
         del lg, caches
         prefill_ms[length] = wall_ms(lambda: lm_prefill(model, prompt),
                                      rounds=3)
+    # a prompt of 854-2047 tokens but 1024: #5 once a layer
+    before = launches()["banded_inverse"]
+    p1500 = prefill_350m(model, x, 1500)
+    banded_1500 = launches()["banded_inverse"] - before
+    if banded_1500 != cfg.num_layers * p1500["calls"]:
+        raise AssertionError(f"350m prefill 1500: banded_inverse launched "
+                             f"{banded_1500} times in {p1500['calls']} "
+                             f"prefills of {cfg.num_layers} layers")
+    prefill_ms[1500] = p1500["ms"]
     profiles = {
         "score": bench._profile(lambda: lm_apply(model, x),
                                 torch.cuda.synchronize, 1, LONG_KERNEL_NAMES),
         "prefill_1024": bench._profile(lambda: lm_prefill(model, x[:, :1024]),
                                        torch.cuda.synchronize, 1,
-                                       LONG_KERNEL_NAMES)}
+                                       LONG_KERNEL_NAMES),
+        "prefill_1500": p1500["profile"]}
     steps = 16
     finite = []
 

@@ -1,5 +1,5 @@
-// Segmented causal spectral mix on Hopper: the three kernels of the causal
-// LM's forward, as a plain C interface loaded with ctypes
+// Segmented causal spectral mix on Hopper: #5 and the direct-DFT #8 and
+// #6 of the causal LM's forward, as a plain C interface loaded with ctypes
 // (fft_tpu_torch/kernels/build.py builds this file with nvcc for sm_90a).
 //
 // Replaces, from fft_tpu/kernels/pallas_causal.py:
@@ -7,94 +7,272 @@
 //   fused_causal_mix_direct <- _fused_causal_call    (:592, pallas_call :707)
 //   kf_spectra_direct       <- _kf_spectra_call      (:1428, pallas_call :1482)
 //
-// Direct DFTs against host twiddle tables (causal_common.cuh).  The TPU
-// kernels' one-hot selector matmuls are index arithmetic here: channel ch
-// reads gate group ch / (d / cols), lane l = c * cols + g.  causal_fft.cu
-// computes #6 and #8 with FFTs in shared memory, one launch each; the
-// direct pair here takes only the shapes whose lengths do not factor there
-// or whose tiles do not fit a block (kernels/causal.py picks).
+// banded_fft_kernel (#5, and the second launch of the direct #6) computes
+//   acc_c[f, ch] = sum_{j <= c} K[b, c, j, f, g(ch)] V[b, c - j, f, ch]
+//   y[b, c, t, ch] = irfft_2C(acc_c)[C + t],  t = 0..C-1
+// with Im dropped at DC and Nyquist, as irfft does.  A block owns NP
+// channel pairs (a, b) of one output chunk c and batch row: it sums the
+// lags bin by bin from HBM (V and K read once each, kBatch bins a thread in
+// flight), packs the pair's Hermitian spectra as one complex spectrum Z[k]
+// = A_a[k] + i A_b[k] (k <= C; conj(A_a[2C-k]) + i conj(A_b[2C-k]) above)
+// in shared memory, runs one inverse transform of length n = 2C on chip and
+// writes rows C..2C-1, Re to channel a and Im to channel b.  Two paths:
+//   n = P O (P >= 4 a power of two, O odd <= 31; kernels/causal.py::
+//     _split_odd): the O-point pass of mix_fft.cuh and the P-point passes
+//     of fft_common.cuh (tile_fft), the spectrum in stage order (X[k2 + P
+//     k1] at row O k2 + k1), as causal_fft.cu's #6 runs them; 1 / n on the
+//     store.
+//   every other n (every odd C, most C of 854-2047): Bluestein's chirp-z
+//     transform through power-of-two passes.  With w[m] = e^{i pi m^2 / n},
+//     y[t] = w[t] sum_k (Z[k] w[k]) conj(w[t - k]); only t in [C, 2C) is
+//     kept, so t - k runs over 3C - 1 values and a cyclic convolution of
+//     length M >= 3C - 1 (a power of two, at least 64) gives it: the tile
+//     holds Z w in its first 2C rows (the rest zero: never stored, never
+//     loaded), one M-point transform (sign +1, bit-reversed out), the
+//     product with the host's spectrum of the wrapped conj(w) (in
+//     bit-reversed order, 1 / (M n) folded in) inside the pass that ends
+//     it and starts one M-point transform (sign -1, natural out), then
+//     w[t] on the kept rows.  The chirp and the spectrum are built on the
+//     host in float64 (m^2 mod 2n in integers) and rounded once to fp32
+//     (kernels/causal.py::bluestein_np).
+// The stage twiddles of the power-of-two transforms and the odd pass's
+// 2C-point roots are read from device memory (through L1): copied into
+// shared memory beside the tile they ran no faster (PERF.md, Findings).
 //
-// What bounds them on the H100: the inner loops do one broadcast
-// shared-memory read per two FMAs, so they run at the shared-memory
-// instruction throughput, well below the fp32 FMA peak; the direct DFTs
-// also do O(n) work per output where an FFT does O(log n).
+// What bounds it on the H100: its bytes are V once, K's lower triangle once
+// and y once (at the 350M's 1500-token prompt, B=1, d=1024: 19 MB, 0.006 ms
+// at 3.35 TB/s), but a pair's transform moves its whole tile through shared
+// memory four or five times each way and the block's tile (n or M points
+// of NP pairs, up to 128 KB) sets how many blocks share an SM, so the
+// passes and their barriers, not HBM, take the time; Bluestein's M is 1.4
+// to 2.8 times n and runs two transforms.  The design's answers: the
+// widest tile of pairs that fits (whole 32-byte sectors of V and y at 4
+// pairs), the zero rows past 2C never touched, the spectrum's product
+// inside a pass.  Its first design summed the partial inverse directly,
+// C (C + 1) terms a channel at one shared-memory read per two FMAs.
+//
+// The direct-DFT kernels (kf_spectra_kernel and the first launch of the
+// direct #6, causal_common.cuh's segment_rfft_kernel) run only for shapes
+// whose lengths do not factor in causal_fft.cu or whose tiles do not fit a
+// block (kernels/causal.py picks); their inner loops do one broadcast
+// shared-memory read per two FMAs, O(n) work an output.
+//
+// No warp shuffles and no atomics: tests/cuda_emulation.py runs every
+// kernel here on the CPU.
+
+#include <stdint.h>
 
 #include "causal_common.cuh"
+#include "fft_common.cuh"
+#include "mix_fft.cuh"
 
 namespace {
 
-// Banded causal sum and partial inverse of one output chunk:
-//   acc[f]  = sum_{j <= c} K[c, j, f, g(ch)] * V[c - j, f, ch]
-//   y[t]    = irfft_2C(acc)[C + t],  t = 0..C-1
-// V (B, nc, F2, d) planes; y (B, nc, C, d).  grid = (d / kL, nc, B), block
-// (kL, kThreads / kL).  Shared memory: the 2C twiddles and acc (F2 x kL,
-// both planes), with the irfft weights folded in (DC and Nyquist once with
-// Im dropped, the other bins twice).  kL = 32 lanes up to chunk 853; the
-// 8-lane tile takes chunks up to 2904 (the 350M's prompts up to 2048).
-template <class K, int kL>
-__global__ void __launch_bounds__(kThreads)
-banded_inverse_kernel(const float* __restrict__ vfr,
-                      const float* __restrict__ vfi, K k,
-                      const float2* __restrict__ tw,
-                      float* __restrict__ out, int nc, int chunk, int d) {
-  constexpr int kR = kThreads / kL;           // thread rows
-  constexpr int kT = kR * kPer;               // output rows per tile pass
-  extern __shared__ float smem[];
-  const int n2 = 2 * chunk;
-  const int f2 = chunk + 1;
-  float2* tws = reinterpret_cast<float2*>(smem);
-  float* accr = smem + 2 * n2;
-  float* acci = accr + f2 * kL;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int ch = blockIdx.x * kL + tx;
-  const int c = blockIdx.y, b = blockIdx.z;
-  const int g = ch / (d / k.cols);
-
-  for (int i = ty * kL + tx; i < n2; i += kThreads) tws[i] = tw[i];
-  for (int f = ty; f < f2; f += kR) {
-    float ar = 0.f, ai = 0.f;
-    for (int j = 0; j <= c; ++j) {
-      const size_t vo = (((size_t)b * nc + (c - j)) * f2 + f) * d + ch;
-      const size_t ko = k.at(b, c, j, f, g);
-      const float xr = vfr[vo], xi = vfi[vo];
-      const float gr = k.re[ko], gi = k.im[ko];
-      ar = fmaf(gr, xr, fmaf(-gi, xi, ar));
-      ai = fmaf(gr, xi, fmaf(gi, xr, ai));
+// Bluestein's middle step in one pass over a tile of M-point sequences
+// (M = 2^log2m): per 4-row group, the last pass of the transform of sign
+// +1 (spans 2 and 1, decimation in frequency, as span1_pass<false>), the
+// product with spec at the group's rows, and the first pass of the
+// transform of sign -1 (spans 1 and 2, decimation in time, as
+// span1_pass<true>); a group's thread takes its elements in a rotated
+// order, as span1_pass does, to spread the banks.  Ends with
+// __syncthreads.
+template <int NP>
+__device__ void span1_chirp_pass(float2* buf, int log2m,
+                                 const float2* __restrict__ spec) {
+  const int groups = 1 << (log2m - 2);
+  for (Walk it(NP); it.r < groups; it.next(NP)) {
+    float2* x = buf + (size_t)(it.r << 2) * NP + it.q;
+    const float2* w = spec + (it.r << 2);
+    const int rot = it.r & 3;
+    float2 e[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int k = (m + rot) & 3;
+      const float2 t = x[k * NP];
+      if (k == 0) e[0] = t;
+      else if (k == 1) e[1] = t;
+      else if (k == 2) e[2] = t;
+      else e[3] = t;
     }
-    const bool edge = (f == 0) || (f == chunk);
-    accr[f * kL + tx] = edge ? ar : 2.f * ar;
-    acci[f * kL + tx] = edge ? 0.f : 2.f * ai;
+    // sign +1, spans 2 then 1
+    const float2 a0 = cadd(e[0], e[2]), a2 = csub(e[0], e[2]);
+    const float2 a1 = cadd(e[1], e[3]), d3 = csub(e[1], e[3]);
+    const float2 a3 = make_float2(-d3.y, d3.x);
+    const float2 f0 = cmul(cadd(a0, a1), w[0]), f1 = cmul(csub(a0, a1), w[1]);
+    const float2 f2 = cmul(cadd(a2, a3), w[2]), f3 = cmul(csub(a2, a3), w[3]);
+    // sign -1, spans 1 then 2
+    const float2 b0 = cadd(f0, f1), b1 = csub(f0, f1);
+    const float2 b2 = cadd(f2, f3), b3 = csub(f2, f3);
+    const float2 c3 = make_float2(b3.y, -b3.x);
+    e[0] = cadd(b0, b2);
+    e[2] = csub(b0, b2);
+    e[1] = cadd(b1, c3);
+    e[3] = csub(b1, c3);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int k = (m + rot) & 3;
+      x[k * NP] = k == 0 ? e[0] : k == 1 ? e[1] : k == 2 ? e[2] : e[3];
+    }
   }
   __syncthreads();
+}
 
-  const float scale = 1.f / (float)n2;
-  for (int t0 = 0; t0 < chunk; t0 += kT) {
-    float y[kPer];
-    int idx[kPer], row[kPer];
+// Bluestein's cyclic convolution of a tile of M-point sequences (M =
+// 2^log2m >= 64, rows from `live` on zero) with the host's spectrum: the
+// passes of tile_fft<false> (sign +1; its first, a register pass, loads
+// only the rows below `live`), the product with spec in the bit-reversed
+// row order they leave, and the passes of tile_fft<true> (sign -1), the
+// product and the two passes of spans 1 and 2 that meet there in one
+// (span1_chirp_pass).  Natural row order out.
+template <int NP>
+__device__ void chirp_convolve(float2* z, int log2m, const float2* tws,
+                               const float2* spec, int live) {
+  const float2* tw = tws + (1 << (log2m - 1)) - 1;   // the last span's
+  const bool three = (log2m - 2) % 4 == 3;            // tile_fft's split
+  int top = log2m - (three ? 3 : 4);
+  if (three)
+    reg_pass<false, 3, true>(z, log2m, top, NP, tws, 1.f, 1, live);
+  else
+    reg_pass<false, 4, true>(z, log2m, top, NP, tws, 1.f, 1, live);
+  for (; top - 2 >= 4; top -= 4)
+    reg_pass<false, 4>(z, log2m, top - 4, NP, tws, 1.f);
+  for (; top - 2 >= 2; top -= 2)
+    radix4_pass<false>(z, log2m, top - 2, NP, tw, 1, 1.f);
+  if (top == 3) radix2_pass<false>(z, log2m, 2, NP, tw, 1, 1.f);
+  span1_chirp_pass<NP>(z, log2m, spec);
+  int s = 2;
+  if (three) {
+    for (; log2m - s > 3; s += 4)
+      reg_pass<true, 4>(z, log2m, s, NP, tws, -1.f);
+    reg_pass<true, 3>(z, log2m, s, NP, tws, -1.f);
+    return;
+  }
+  for (; log2m - s >= 4; s += 4) reg_pass<true, 4>(z, log2m, s, NP, tws, -1.f);
+  fft_passes<true>(z, log2m, NP, tw, 1, -1.f, s);
+}
+
+// the transform paths of banded_fft_kernel: a power of two (O = 1), an odd
+// factor 3..31, Bluestein
+constexpr int kPow2 = 0;
+constexpr int kOddP = 1;
+constexpr int kChirp = 2;
+constexpr int kBandedOdd = 31;      // the largest odd factor of path 1
+constexpr int kBatch = 4;           // bins a thread sums at once
+constexpr int kMaxDevices = 64;     // devices a process launches on
+
+// threads a block, at most: the O-point pass holds 2 O complex values a
+// thread, so its instances take half
+__host__ __device__ constexpr int banded_threads_max(int path) {
+  return path == kOddP ? 256 : 512;
+}
+
+// y (B, nc, C, d) for channels c0 .. c0 + 2 NP - 1 of output chunk c =
+// blockIdx.y, batch row blockIdx.z, from segment spectra planes vfr/vfi
+// (B, nc, C + 1, d) and K (either layout).  kPow2 / kOddP: the tile holds
+// n = 2C = 2^log2l o rows; kChirp: M = 2^log2l rows.  tw: the 2C-point
+// roots (C entries read); tws: the stage twiddles of the 2^log2l-point
+// transform; chirp: w[m], m < 2C; spec: the spectrum of the wrapped
+// conj(w), row order.  Shared memory: the (rows, NP) tile, z[row NP + p].
+template <class K, int NP, int kPath>
+__global__ void __launch_bounds__(banded_threads_max(kPath))
+banded_fft_kernel(const float* __restrict__ vfr,
+                  const float* __restrict__ vfi, K k,
+                  const float2* __restrict__ tw,
+                  const float2* __restrict__ tws,
+                  const float2* __restrict__ chirp,
+                  const float2* __restrict__ spec, float* __restrict__ out,
+                  int nc, int chunk, int d, int log2l, int o) {
+  extern __shared__ float2 smem2[];
+  const int n2 = 2 * chunk, f2 = chunk + 1, len = 1 << log2l;
+  const int rows = kPath == kChirp ? len : n2;
+  const int c0 = blockIdx.x * 2 * NP, c = blockIdx.y, b = blockIdx.z;
+  const int d_g = d / k.cols;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  float2* z = smem2;                          // rows past 2C: never read
+
+  // ---- the banded sum over lags, bin by bin, and the pair's packing -----
+  const size_t row2 = (size_t)d / 2;          // float2 per row of a plane
+  const size_t plane = (size_t)f2 * row2;     // one segment's spectrum
+  const float2* vr2 = reinterpret_cast<const float2*>(vfr) + c0 / 2;
+  const float2* vi2 = reinterpret_cast<const float2*>(vfi) + c0 / 2;
+  const int items = f2 * NP;
+  for (int i0 = tid; i0 < items; i0 += kBatch * nt) {
+    float2 aa[kBatch], ab[kBatch];
+    int ga[kBatch], gb[kBatch];
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int t = t0 + ty + kR * i;
-      y[i] = 0.f;
-      idx[i] = 0;
-      row[i] = t < chunk ? chunk + t : 0;     // output row of irfft_2C
+    for (int r = 0; r < kBatch; ++r) {
+      const int p = (i0 + r * nt) % NP;
+      aa[r] = ab[r] = make_float2(0.f, 0.f);
+      ga[r] = (c0 + 2 * p) / d_g;
+      gb[r] = (c0 + 2 * p + 1) / d_g;
     }
-    for (int f = 0; f < f2; ++f) {
-      const float xr = accr[f * kL + tx];
-      const float xi = acci[f * kL + tx];
+    for (int j = 0; j <= c; ++j) {
+      const float2* vr = vr2 + ((size_t)b * nc + c - j) * plane;
+      const float2* vi = vi2 + ((size_t)b * nc + c - j) * plane;
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const float2 w = tws[idx[i]];         // exp(+i 2 pi f row / 2C)
-        y[i] = fmaf(xr, w.x, fmaf(-xi, w.y, y[i]));
-        idx[i] += row[i];
-        if (idx[i] >= n2) idx[i] -= n2;
+      for (int r = 0; r < kBatch; ++r) {
+        const int i = i0 + r * nt;
+        if (i >= items) continue;
+        const int p = i % NP, f = i / NP;
+        const float2 xr = vr[(size_t)f * row2 + p];  // .x channel a, .y b
+        const float2 xi = vi[(size_t)f * row2 + p];
+        const size_t ka = k.at(b, c, j, f, ga[r]);
+        const size_t kb = k.at(b, c, j, f, gb[r]);
+        aa[r] = cmac(make_float2(k.re[ka], k.im[ka]),
+                     make_float2(xr.x, xi.x), aa[r]);
+        ab[r] = cmac(make_float2(k.re[kb], k.im[kb]),
+                     make_float2(xr.y, xi.y), ab[r]);
       }
     }
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int t = t0 + ty + kR * i;
-      if (t < chunk)
-        out[(((size_t)b * nc + c) * chunk + t) * d + ch] = y[i] * scale;
+    for (int r = 0; r < kBatch; ++r) {
+      const int i = i0 + r * nt;
+      if (i >= items) continue;
+      const int p = i % NP, f = i / NP, fm = f == 0 ? 0 : n2 - f;
+      float2 xa = aa[r], xb = ab[r];
+      if (f == 0 || f == chunk) {             // irfft drops Im there
+        xa.y = 0.f;
+        xb.y = 0.f;
+      }
+      float2 zk = make_float2(xa.x - xb.y, xa.y + xb.x);
+      float2 zm = make_float2(xa.x + xb.y, xb.x - xa.y);
+      int rk = f, rm = fm;
+      if (kPath == kChirp) {
+        zk = cmul(zk, chirp[f]);
+        zm = cmul(zm, chirp[fm]);
+      } else {
+        rk = freq_row(f, o, log2l);
+        rm = freq_row(fm, o, log2l);
+      }
+      z[(size_t)rk * NP + p] = zk;
+      if (fm != f) z[(size_t)rm * NP + p] = zm;
     }
+  }
+  __syncthreads();
+
+  // ---- the inverse, rows C..2C-1 stored -----------------------------------
+  float2* o2 = reinterpret_cast<float2*>(out) +
+               ((size_t)b * nc + c) * chunk * row2 + c0 / 2;
+  if (kPath != kChirp) {
+    if (kPath == kOddP)
+      odd_pass_any<NP, kBandedOdd>(z, o, len, 1, tw, chunk, 1.f);
+    tile_fft<false>(z, log2l, o * NP, tws);
+    // time t sits at row time_row(t), a map that is its own inverse: walk
+    // the tile in row order
+    const float scale = 1.f / (float)n2;
+    for (int i = tid; i < n2 * NP; i += nt) {
+      const int p = i % NP, t = time_row(i / NP, o, log2l) - chunk;
+      if (t < 0) continue;
+      const float2 y = z[i];
+      o2[(size_t)t * row2 + p] = make_float2(y.x * scale, y.y * scale);
+    }
+    return;
+  }
+  chirp_convolve<NP>(z, log2l, tws, spec, n2);
+  for (int i = tid; i < chunk * NP; i += nt) {
+    const int p = i % NP, t = i / NP;
+    o2[(size_t)t * row2 + p] =
+        cmul(z[(size_t)(chunk + t) * NP + p], chirp[chunk + t]);
   }
 }
 
@@ -210,31 +388,94 @@ kf_spectra_kernel(const float* __restrict__ gr, const float* __restrict__ gi,
   }
 }
 
-// Dynamic shared memory of the other kernels, in bytes.  kernels/causal.py
-// holds the same formulas for its predicates (a block may use 227 KB).
+// Dynamic shared memory of kf_spectra_kernel, in bytes.  kernels/causal.py
+// holds the same formula for its predicate (a block may use 227 KB).
 size_t kf_smem(int n_fft, int chunk) {
   return (size_t)(n_fft + 2 * chunk) * sizeof(float2) +
          (size_t)(2 * kFreqT + chunk) * kLanes * sizeof(float);
 }
 
-size_t banded_smem(int chunk, int lanes) {
-  return (size_t)(2 * chunk) * sizeof(float2) +
-         (size_t)2 * (chunk + 1) * lanes * sizeof(float);
+// What the wrappers pass for a shape, cached there (kernels/causal.py::
+// _banded_call): the tables' addresses (the 2C-point roots, the stage
+// twiddles of the len-point transform, Bluestein's chirp and spectrum, the
+// last two unread where o > 0), the shape, the transform (len: P, or
+// Bluestein's M; o: the odd factor, 1 for a power of two, 0 for
+// Bluestein), the plan (np channel pairs and threads a block) and the
+// device, as 64-bit integers in this order.
+struct BandedParams {
+  int64_t tw, tws, chirp, spec, b, nc, chunk, d, cols, len, o, np, threads,
+      dev;
+};
+
+// Dynamic shared memory of banded_fft_kernel, in bytes: the (rows, np)
+// tile, rows = 2C or Bluestein's M (kernels/causal.py::_banded_fft_smem).
+size_t banded_fft_smem(const BandedParams& a) {
+  return (size_t)(a.o == 0 ? a.len : 2 * a.chunk) * a.np * sizeof(float2);
 }
 
-template <class K, int kL>
-int launch_banded(const float* vfr, const float* vfi, K k, const float* tw,
-                  float* out, int b, int nc, int chunk, int d,
-                  cudaStream_t stream) {
-  const size_t smem = banded_smem(chunk, kL);
-  cudaError_t err = cudaFuncSetAttribute(
-      banded_inverse_kernel<K, kL>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(d / kL, nc, b), block(kL, kThreads / kL);
-  banded_inverse_kernel<K, kL><<<grid, block, smem, stream>>>(
-      vfr, vfi, k, reinterpret_cast<const float2*>(tw), out, nc, chunk, d);
+template <class T>
+const T* at(int64_t address) {
+  return reinterpret_cast<const T*>(address);
+}
+
+// One launch; the shared-memory attribute is set once for each device and
+// size (the largest so far), not on every call.
+template <class K, int NP, int kPath>
+int launch_banded_fft(const BandedParams& a, const float* vfr,
+                      const float* vfi, K k, float* out, cudaStream_t st) {
+  static size_t smem_set[kMaxDevices] = {};
+  const size_t smem = banded_fft_smem(a);
+  if (smem > smem_set[a.dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        banded_fft_kernel<K, NP, kPath>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[a.dev] = smem;
+  }
+  const dim3 grid((unsigned)(a.d / (2 * NP)), (unsigned)a.nc,
+                  (unsigned)a.b);
+  banded_fft_kernel<K, NP, kPath><<<grid, (unsigned)a.threads, smem, st>>>(
+      vfr, vfi, k, at<float2>(a.tw), at<float2>(a.tws), at<float2>(a.chirp),
+      at<float2>(a.spec), out, (int)a.nc, (int)a.chunk, (int)a.d,
+      log2_of((int)a.len), a.o == 0 ? 1 : (int)a.o);
   return (int)cudaGetLastError();
+}
+
+template <class K, int NP>
+int launch_banded_path(const BandedParams& a, const float* vfr,
+                       const float* vfi, K k, float* out, cudaStream_t st) {
+  if (a.o == 0)
+    return launch_banded_fft<K, NP, kChirp>(a, vfr, vfi, k, out, st);
+  if (a.o == 1)
+    return launch_banded_fft<K, NP, kPow2>(a, vfr, vfi, k, out, st);
+  return launch_banded_fft<K, NP, kOddP>(a, vfr, vfi, k, out, st);
+}
+
+// The plan and shape checks, then the launch on the NP-pair tile;
+// cudaErrorInvalidValue for what the kernel does not take.
+template <class K>
+int launch_banded(const BandedParams& a, const float* vfr, const float* vfi,
+                  K k, float* out, cudaStream_t st) {
+  const bool pow2 = a.len >= 4 && (a.len & (a.len - 1)) == 0;
+  const bool covers = a.o == 0 ? a.len >= 3 * a.chunk - 1
+                               : a.o % 2 == 1 && a.o <= kBandedOdd &&
+                                     a.len * a.o == 2 * a.chunk;
+  const int path = a.o == 0 ? kChirp : a.o == 1 ? kPow2 : kOddP;
+  if (a.chunk < 1 || a.b < 1 || a.nc < 1 || a.cols < 1 ||
+      a.d % a.cols != 0 || !pow2 || !covers ||
+      (a.np != 1 && a.np != 2 && a.np != 4) || a.d % (2 * a.np) != 0 ||
+      a.threads < 32 || a.threads % 32 != 0 ||
+      a.threads > banded_threads_max(path) || a.dev < 0 ||
+      a.dev >= kMaxDevices || banded_fft_smem(a) > kMixSmemMax)
+    return (int)cudaErrorInvalidValue;
+  switch (a.np) {
+    case 1:
+      return launch_banded_path<K, 1>(a, vfr, vfi, k, out, st);
+    case 2:
+      return launch_banded_path<K, 2>(a, vfr, vfi, k, out, st);
+    default:
+      return launch_banded_path<K, 4>(a, vfr, vfi, k, out, st);
+  }
 }
 
 }  // namespace
@@ -242,35 +483,36 @@ int launch_banded(const float* vfr, const float* vfi, K k, const float* tw,
 extern "C" {
 
 // y (B, nc, C, d) from segment spectra planes (B, nc, C+1, d) and chunk-
-// major K planes (B, nc, nc, C+1, cols).  tw: (2C, 2) twiddles.  lanes:
-// the channel tile, 32 or 8 (kernels/causal.py picks the widest that fits).
+// major K planes (B, nc, nc, C+1, cols); params: BandedParams' 14 integers.
 int fft_banded_inverse(const float* vfr, const float* vfi, const float* kfr,
-                       const float* kfi, const float* tw, float* out, int b,
-                       int nc, int chunk, int d, int cols, int lanes,
+                       const float* kfi, float* out, const int64_t* params,
                        void* stream) {
-  const ChunkMajorK k{kfr, kfi, nc, chunk + 1, cols};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (lanes == 8)
-    return launch_banded<ChunkMajorK, 8>(vfr, vfi, k, tw, out, b, nc, chunk,
-                                         d, st);
-  return launch_banded<ChunkMajorK, kLanes>(vfr, vfi, k, tw, out, b, nc,
-                                            chunk, d, st);
+  const BandedParams& a = *reinterpret_cast<const BandedParams*>(params);
+  return launch_banded(
+      a, vfr, vfi,
+      ChunkMajorK{kfr, kfi, (int)a.nc, (int)a.chunk + 1, (int)a.cols}, out,
+      static_cast<cudaStream_t>(stream));
 }
 
 // y (B, N, d) from raw values v (B, N, d) and producer-layout K planes
-// (B, nc, C+1, nc*cols).  vfr/vfi: (B, nc, C+1, d) scratch.
+// (B, nc, C+1, nc*cols): the direct-DFT segment spectra into the (B, nc,
+// C+1, d) scratch planes vfr/vfi, then banded_fft_kernel on them; params
+// as fft_banded_inverse's (tw, its first table, is the segment
+// transform's too).
 int fft_fused_causal_mix_direct(const float* v, const float* kfr,
-                                const float* kfi, const float* tw,
-                                float* vfr, float* vfi, float* out, int b,
-                                int nc, int chunk, int d, int cols,
+                                const float* kfi, float* vfr, float* vfi,
+                                float* out, const int64_t* params,
                                 void* stream) {
+  const BandedParams& a = *reinterpret_cast<const BandedParams*>(params);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = launch_segment_rfft<false>(v, vfr, vfi, tw, b, nc, chunk,
-                                             d, st);
+  const int err = launch_segment_rfft<false>(
+      v, vfr, vfi, at<float>(a.tw), (int)a.b, (int)a.nc, (int)a.chunk,
+      (int)a.d, st);
   if (err != 0) return err;
-  const ProducerK k{kfr, kfi, nc, chunk + 1, cols};
-  return launch_banded<ProducerK, kLanes>(vfr, vfi, k, tw, out, b, nc,
-                                          chunk, d, st);
+  return launch_banded(
+      a, vfr, vfi,
+      ProducerK{kfr, kfi, (int)a.nc, (int)a.chunk + 1, (int)a.cols}, out,
+      st);
 }
 
 // K planes (B, nc, C+1, L) from gate planes (B, N/2+1, L).

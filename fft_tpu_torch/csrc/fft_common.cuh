@@ -231,21 +231,26 @@ __device__ void span1_pass(float2* buf, int log2n, int seqs, float sign,
 // each stage, span H at tws[H - 1 + p] = (cos, sin)(2 pi p / 2H), p < H,
 // so that neighbouring positions of a stage read neighbouring words
 // (causal_long.cu gathers it into shared memory; the spectral mix reads
-// kernels/common.py's stage_twiddles from device memory).  Ends with
+// kernels/common.py's stage_twiddles from device memory).  kLive (one
+// tile): the rows from `live` on hold zeros and are not loaded.  Ends with
 // __syncthreads.
-template <bool kDit, int K>
+template <bool kDit, int K, bool kLive = false>
 __device__ void reg_pass(float2* buf, int log2n, int s, int seqs,
-                         const float2* tws, float sign, int batch = 1) {
+                         const float2* tws, float sign, int batch = 1,
+                         int live = 0) {
   constexpr int R = 1 << K;
   const int h = 1 << s;
   const size_t hs = (size_t)h * seqs;
   const int rows = (1 << (log2n - K)) * batch;
   for (Walk it(seqs); it.r < rows; it.next(seqs)) {
     const int pos = it.r & (h - 1);
-    float2* x = buf + (size_t)(((it.r - pos) << K) + pos) * seqs + it.q;
+    const int row0 = ((it.r - pos) << K) + pos;
+    float2* x = buf + (size_t)row0 * seqs + it.q;
     float2 e[R];
 #pragma unroll
-    for (int m = 0; m < R; ++m) e[m] = x[m * hs];
+    for (int m = 0; m < R; ++m)
+      e[m] = !kLive || row0 + m * h < live ? x[m * hs]
+                                           : make_float2(0.f, 0.f);
 #pragma unroll
     for (int tt = 0; tt < K; ++tt) {
       const int t = kDit ? tt : K - 1 - tt;     // span h 2^t

@@ -31,8 +31,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> (argtypes, restype)
 _SIGNATURES = {
-    "fft_banded_inverse": ([_P] * 6 + [_I] * 6 + [_P], _I),
-    "fft_fused_causal_mix_direct": ([_P] * 7 + [_I] * 5 + [_P], _I),
+    "fft_banded_inverse": ([_P] * 7, _I),
+    "fft_fused_causal_mix_direct": ([_P] * 8, _I),
     "fft_kf_spectra_direct": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "fft_fused_causal_mix": ([_P] * 5 + [_I] * 7 + [_P], _I),
     "fft_kf_spectra": ([_P] * 6 + [_I] * 6 + [_P], _I),

@@ -31,8 +31,9 @@ factor as P * O (O odd <= 31) and its tiles fit shared memory, which holds
 at every shape of the tiny LM's paths; the direct-DFT kernel of
 ``causal.cu`` or ``causal_bwd.cu`` (``kf_spectra_direct``,
 ``fused_causal_mix_direct``, ``fused_causal_mix_bwd_direct``) elsewhere.
-``banded_inverse`` takes a 32-channel tile up to chunk 853 and an
-8-channel tile past it.
+``banded_inverse`` is one launch of ``causal.cu``'s ``banded_fft_kernel``
+(its plan from ``banded_fft_plan``), which is also the direct
+``fused_causal_mix``'s second launch.
 
 Each public function takes fp32 tensors.  A tensor on the CPU goes to the
 plain version (``*_ref``); a tensor on a CUDA device goes to the kernel, or
@@ -54,13 +55,18 @@ one launch each, bound by shared-memory passes and barriers: #8 holds a
 lane pair's N-point k_time and then its segments' 2C-point spectra on
 chip; #6 keeps a channel tile's nc segment spectra resident (128 KB for 8
 channels at nc=16) and runs each output chunk's banded sum and inverse on
-chip, so nothing goes through HBM scratch.  Its #10 is three launches
-bound by HBM: window FFTs into two complex (B, nc, F2, d) scratch planes,
-a bin-major launch that stages a bin's A, V and K triangle for 256
-channels in shared memory and writes Kbar and Vbar, and one inverse FFT a
-chunk.  Those of ``causal.cu`` and ``causal_bwd.cu`` are direct DFTs
-against shared-memory twiddle tables, bounded by the shared-memory
-instruction throughput of their inner loops, not by HBM (the spectra they
+chip, so nothing goes through HBM scratch.  ``causal.cu``'s #5 does the
+same banded sum and inverse with the spectra read from HBM: a block per
+channel-pair tile, output chunk and batch row packs each pair's summed
+spectra as one complex spectrum and runs one inverse of length 2C on chip
+(P O passes, or Bluestein's chirp-z through power-of-two passes where 2C
+does not split so), bound by its transforms' shared-memory passes.  Its
+#10 is three launches bound by HBM: window FFTs into two complex (B, nc,
+F2, d) scratch planes, a bin-major launch that stages a bin's A, V and K
+triangle for 256 channels in shared memory and writes Kbar and Vbar, and
+one inverse FFT a chunk.  The direct #8, the direct #6's segment spectra
+and ``causal_bwd.cu``'s kernels are direct DFTs against shared-memory
+twiddle tables, bounded by the shared-memory instruction throughput of their inner loops, not by HBM (the spectra they
 read fit the 50 MB L2 at the tiny LM's shapes); the sequential delta axis of the TPU kernel (scratch carried
 across grid steps) becomes a loop over lags inside one block per output
 chunk.  At chunk 2048 a direct DFT costs 16x the tiny LM's work per
@@ -74,13 +80,14 @@ memory) written over those planes, and one inverse FFT per chunk.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
 from fft_tpu_torch.kernels.common import (
-    SMEM_MAX, check, launch, on_cpu, twiddles,
+    SMEM_MAX, check, launch, on_cpu, stage_twiddles, twiddles,
 )
 from fft_tpu_torch.ops import fftops
 
@@ -90,12 +97,9 @@ LAUNCHES = {"kf_spectra": 0, "fused_causal_mix": 0, "banded_inverse": 0,
             "kf_spectra_direct": 0, "fused_causal_mix_direct": 0,
             "fused_causal_mix_bwd_direct": 0}
 
-# Shapes of the CUDA blocks (csrc/causal.cu: kLanes, kSegT, kFreqT; the
-# 8-lane tile of banded_inverse_kernel; csrc/causal_long.cu: #9's lane
-# pairs kPairs, 8 lanes).
+# Shapes of the CUDA blocks (csrc/causal_common.cuh: kLanes, kFreqT;
+# csrc/causal_long.cu: #9's lane pairs kPairs, 8 lanes).
 _LANES = 32
-_LANES_NARROW = 8
-_SEG_T = 64
 _FREQ_T = 64
 _LONG_TILE = 8
 _LONG_PAIRS = 4
@@ -117,6 +121,23 @@ _MIX_WINDOWS = 4
 _BWD_WINDOWS = 2
 # threads of #10's bin-major block (chip_smoke.py's kernels_bwd_seg_sweep)
 _BWD_BIN_THREADS = 256
+# csrc/causal.cu's banded_fft_kernel (#5, the direct #6's second launch):
+# channel pairs a block, the widest that fits shared memory, and threads a
+# block, the tile's rows / 2 within these bounds (256 at most with an odd
+# factor): the best plans at every path and tile length of chip_smoke.py's
+# kernels_banded_plan_sweep (PERF.md, Findings)
+_BANDED_PAIRS = (4, 2, 1)
+_BANDED_THREADS = (128, 512)
+# banded_inverse's range: its first design's (a 32-channel tile of one
+# chunk's summed spectrum in shared memory to chunk 853, an 8-channel tile
+# to 2904), kept so that segmented_causal_mix picks the branch it picked
+# before; the FFT kernel takes any d % 8 and chunks past 2904 too
+_BANDED_WIDE_MAX = 853
+_BANDED_MAX = 2904
+# the longest chunk #6's branch takes: the same first design's bound for
+# its second launch, kept for the same reason; past it #7 (power-of-two
+# chunks) and #5 take the prompts
+_FUSED_MAX = _BANDED_WIDE_MAX
 
 # The reference's dispatch threshold for kf_seg_rfft (pallas_causal.py
 # :1527): the segmented spectra of k_time come from the kernel at n >= 8192.
@@ -151,60 +172,111 @@ def _inv_rows_np(chunk: int):
     return ar, ai
 
 
+def banded_transform(chunk: int):
+    """(L, O) of banded_fft_kernel's inverse transform of length n = 2C:
+    L = P and O odd where n = P O (P >= 4 a power of two, O <= 31), else
+    O = 0 and L = M, Bluestein's cyclic length, the least power of two >= 3C
+    - 1 (rows C..2C-1 of the output need t - k over 3C - 1 values), at
+    least 64 (the kernel's first pass is a register pass)."""
+    split = _split_odd(2 * chunk)
+    if split is not None:
+        return split
+    m = 64
+    while m < 3 * chunk - 1:
+        m *= 2
+    return m, 0
+
+
+def _bitrev(n: int) -> np.ndarray:
+    """The bit-reversal permutation of range(n), n a power of two."""
+    bits = n.bit_length() - 1
+    idx = np.arange(n)
+    rev = np.zeros(n, dtype=np.int64)
+    for i in range(bits):
+        rev |= ((idx >> i) & 1) << (bits - 1 - i)
+    return rev
+
+
+@functools.lru_cache(maxsize=None)
+def bluestein_np(chunk: int):
+    """(chirp (2C, 2), spectrum (M, 2)) fp32 for Bluestein's path of
+    banded_fft_kernel, built in float64 and rounded once: w[m] = e^{i pi
+    m^2 / n} (n = 2C; the phase from m^2 mod 2n in integers, so no float
+    square loses it) and the spectrum G(h) / (M n) of the wrapped conj(w),
+    h[m] = conj(w[m]) for m < n and h[M - m] = conj(w[m]) for 0 < m < C,
+    G the unnormalized transform of sign +1, in bit-reversed row order (the
+    order the kernel's first transform leaves its rows in).  Then rows C..2C-1
+    of the inverse of Z are w[t] G^-(G(Z w) G(h) / (M n))[t] with G^- the
+    transform of sign -1."""
+    n = 2 * chunk
+    m_len, o = banded_transform(chunk)
+    assert o == 0, f"chunk {chunk} takes the P O path"
+    m = np.arange(n, dtype=np.int64)
+    w = np.exp(1j * np.pi * ((m * m) % (2 * n)) / n)
+    h = np.zeros(m_len, dtype=np.complex128)
+    h[:n] = np.conj(w)
+    h[m_len - np.arange(1, chunk)] = np.conj(w[1:chunk])
+    spec = np.fft.ifft(h)[_bitrev(m_len)] / n       # G(h) = M ifft(h)
+
+    def planes(x):
+        out = np.stack([x.real, x.imag], axis=-1)
+        out[np.abs(out) < 1e-12] = 0.0
+        return out.astype(np.float32)
+
+    return planes(w), planes(spec)
+
+
+def _banded_fft_smem(chunk: int, length: int, o: int, np_: int) -> int:
+    """causal.cu's banded_fft_smem: the (rows, np) tile, rows = 2C or
+    Bluestein's M."""
+    return (length if o == 0 else 2 * chunk) * np_ * 8
+
+
+def banded_fft_plan(chunk: int):
+    """(L, O, np, threads) of banded_fft_kernel at this chunk:
+    ``banded_transform``'s (L, O), the widest tile of channel pairs of
+    ``_BANDED_PAIRS`` that fits shared memory, and threads a block from
+    ``_BANDED_THREADS``."""
+    length, o = banded_transform(chunk)
+    rows = length if o == 0 else 2 * chunk
+    np_ = next(p for p in _BANDED_PAIRS
+               if _banded_fft_smem(chunk, length, o, p) <= SMEM_MAX)
+    lo, hi = _BANDED_THREADS
+    threads = min(max(rows // 2, lo), hi if o <= 1 else 256)
+    return length, o, np_, threads
+
+
 # ---------------------------------------------------------------------------
 # Predicates: what the Hopper kernels accept
 # ---------------------------------------------------------------------------
-
-def _banded_smem(chunk: int, lanes: int = _LANES) -> int:
-    return 2 * chunk * 8 + 2 * (chunk + 1) * lanes * 4
-
-
-def _banded_lanes(chunk: int, d: int):
-    """The channel tile of banded_inverse_kernel: 32 lanes where one
-    chunk's summed spectrum of 32 channels fits shared memory (chunk <=
-    853), 8 lanes for the longer chunks (up to 2904); None otherwise."""
-    if _banded_smem(chunk, _LANES) <= SMEM_MAX:
-        return _LANES if d % _LANES == 0 else None
-    if (d % _LANES_NARROW == 0
-            and _banded_smem(chunk, _LANES_NARROW) <= SMEM_MAX):
-        return _LANES_NARROW
-    return None
-
-
-def _segment_smem(chunk: int) -> int:
-    return 2 * chunk * 8 + _SEG_T * _LANES * 4
-
 
 def _kf_smem(n_fft: int, chunk: int) -> int:
     return (n_fft + 2 * chunk) * 8 + (2 * _FREQ_T + chunk) * _LANES * 4
 
 
 def banded_supported(nc: int, f2: int, d: int, cols: int) -> bool:
-    """banded_inverse: channels split evenly into gate groups and tile by
-    32 or 8; one chunk's summed spectrum (both planes, one tile) and the 2C
-    twiddles sit in shared memory (``_banded_lanes``)."""
+    """banded_inverse: any nc, chunks up to 2904, channels split evenly
+    into gate groups, d a multiple of 32 up to chunk 853 and of 8 past it
+    (the range of its first design, ``_BANDED_MAX``)."""
     chunk = f2 - 1
-    return (nc >= 1 and chunk >= 1 and d % cols == 0
-            and _banded_lanes(chunk, d) is not None)
-
-
-def _adjoint_smem(chunk: int) -> int:
-    return 2 * chunk * 8 + 4 * _FREQ_T * _LANES * 4
+    tile = _LANES if chunk <= _BANDED_WIDE_MAX else 8
+    return (nc >= 1 and 1 <= chunk <= _BANDED_MAX and d % cols == 0
+            and d % tile == 0)
 
 
 def fused_mix_supported(nc: int, chunk: int, d: int, cols: int) -> bool:
-    """fused_causal_mix and its backward: banded_inverse's bounds for the
-    second launch, and gate groups that the backward's warp reduction
-    covers (a group's d_g channels divide 32 lanes or are whole 32-lane
-    tiles).  The floor of 128 is not the kernels': it keeps the prompt-
-    length dispatch the one the reference picks (prompts shorter than one
-    chunk go to banded_inverse)."""
+    """fused_causal_mix and its backward: chunks 128 to ``_FUSED_MAX``
+    (853), 32-channel tiles (the direct kernels' segment transforms), and
+    gate groups that the backward's warp reduction covers (a group's d_g
+    channels divide 32 lanes or are whole 32-lane tiles).  Neither bound
+    on the chunk is the kernels': they keep the prompt-length dispatch the
+    one the reference picks (prompts shorter than one chunk go to
+    banded_inverse, longer chunks to #7 or #5).  Up to chunk 853 every
+    block of the direct kernels fits shared memory."""
     d_g = d // cols if cols else 0
-    return (chunk >= 128 and banded_supported(nc, chunk + 1, d, cols)
-            and _banded_lanes(chunk, d) == _LANES
-            and d_g >= 1 and (_LANES % d_g == 0 or d_g % _LANES == 0)
-            and _segment_smem(chunk) <= SMEM_MAX
-            and _adjoint_smem(chunk) <= SMEM_MAX)
+    return (128 <= chunk <= _FUSED_MAX and nc >= 1 and d % _LANES == 0
+            and d_g >= 1 and d % cols == 0
+            and (_LANES % d_g == 0 or d_g % _LANES == 0))
 
 
 def _seg_smem(chunk: int) -> int:
@@ -485,37 +557,86 @@ def fused_causal_mix_bwd_ref(v, kfr, kfi, ybar, chunk: int, cols: int):
 # Wrappers
 # ---------------------------------------------------------------------------
 
-def _banded_inverse(vfr, vfi, kfr, kfi, chunk: int) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _banded_tables(chunk: int, device: torch.device):
+    """banded_fft_kernel's tables on ``device``: the 2C-point roots, the
+    stage twiddles of its power-of-two transform, and Bluestein's chirp and
+    spectrum (the P O path reads neither: the roots stand in)."""
+    length, o = banded_transform(chunk)
+    tables = [twiddles(2 * chunk, device), stage_twiddles(length, device)]
+    if o == 0:
+        return tables + [torch.from_numpy(t).to(device)
+                         for t in bluestein_np(chunk)]
+    return tables + tables[:1] * 2
+
+
+def _banded_params(b, nc, chunk, d, cols, device, tile=None):
+    """causal.cu's BandedParams for a shape: the tables' addresses, the
+    shape, the transform, the tile (np, threads; ``banded_fft_plan``'s
+    unless given) and the device's index (0 for the CPU, where only the
+    CPU emulation of the kernel reads it), as a ctypes array of 14
+    int64."""
+    length, o, np_, threads = banded_fft_plan(chunk)
+    np_, threads = tile or (np_, threads)
+    return (ctypes.c_int64 * 14)(
+        *(t.data_ptr() for t in _banded_tables(chunk, device)), b, nc,
+        chunk, d, cols, length, o, np_, threads, device.index or 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _banded_call(b: int, nc: int, chunk: int, d: int, cols: int,
+                 device: torch.device):
+    """What a launch of banded_fft_kernel needs at this shape, computed
+    once: raises where ``banded_supported`` fails; else (the four inputs'
+    shapes, y's shape, the parameter block and its address)."""
+    f2 = chunk + 1
+    if not banded_supported(nc, f2, d, cols):
+        raise ValueError(f"banded_inverse: unsupported shape nc={nc} "
+                         f"chunk={chunk} d={d} cols={cols}")
+    params = _banded_params(b, nc, chunk, d, cols, device)
+    return (((b, nc, f2, d),) * 2 + ((b, nc, nc, f2, cols),) * 2,
+            (b, nc, chunk, d), params, ctypes.addressof(params))
+
+
+def _banded_inverse(vfr, vfi, kfr, kfi, chunk: int,
+                    plan=None) -> torch.Tensor:
     """y (B, nc, C, d) = partial_irfft(sum_j K[c, j] (.) V[c - j]).
 
     vfr/vfi: (B, nc, F2, d) segment spectra; kfr/kfi: (B, nc_c, nc_j, F2,
     cols) chunk-major kernel-segment spectra (cols = head-groups).
 
-    Replaces ``_banded_inverse_call`` (pallas_causal.py:167).  One block
-    per (output chunk, 32 channels, batch), 8 channels past chunk 853: the
-    lag loop reads K and V from L2/HBM once per term, the summed spectrum
-    stays in shared memory, and the partial inverse is a direct sum bound by
-    shared-memory instructions; at the tiny LM's prompt shapes (nc=1) the
-    launch dominates."""
-    if on_cpu(vfr, vfi, kfr, kfi):
+    Replaces ``_banded_inverse_call`` (pallas_causal.py:167).  One launch of
+    ``csrc/causal.cu``'s ``banded_fft_kernel``: a block per (channel-pair
+    tile, output chunk, batch row) sums the lags bin by bin from HBM, packs
+    each pair's Hermitian spectra as one complex spectrum in shared memory
+    and runs one inverse transform of length 2C on chip (P O passes where
+    2C = P O, Bluestein's chirp-z through power-of-two passes elsewhere),
+    then writes rows C..2C-1.  The per-shape work (predicate, plan, tables)
+    is cached in ``_banded_call``; ``plan``: the tile (np, threads),
+    ``banded_fft_plan``'s unless given."""
+    if vfr.device.type != "cuda" and on_cpu(vfr, vfi, kfr, kfi):
         return banded_inverse_ref(vfr, vfi, kfr, kfi, chunk)
-    b, nc, f2, d = vfr.shape
+    b, nc, _, d = vfr.shape
     cols = kfr.shape[-1]
-    if f2 != chunk + 1 or not banded_supported(nc, f2, d, cols):
-        raise ValueError(f"banded_inverse: unsupported shape nc={nc} "
-                         f"chunk={chunk} d={d} cols={cols}")
-    lanes = _banded_lanes(chunk, d)
-    for name, t, shape in (("vfr", vfr, (b, nc, f2, d)),
-                           ("vfi", vfi, (b, nc, f2, d)),
-                           ("kfr", kfr, (b, nc, nc, f2, cols)),
-                           ("kfi", kfi, (b, nc, nc, f2, cols))):
-        check(name, t, shape)
-    tw = twiddles(2 * chunk, vfr.device)
-    out = torch.empty((b, nc, chunk, d), dtype=torch.float32,
-                      device=vfr.device)
-    launch(LAUNCHES, "banded_inverse", vfr.device,
-           vfr.data_ptr(), vfi.data_ptr(), kfr.data_ptr(), kfi.data_ptr(),
-           tw.data_ptr(), out.data_ptr(), b, nc, chunk, d, cols, lanes)
+    dev = vfr.device
+    shapes, out_shape, params, address = _banded_call(b, nc, chunk, d, cols,
+                                                      dev)
+    f32 = torch.float32
+    if not (vfi.device == kfr.device == kfi.device == dev
+            and vfr.dtype == vfi.dtype == kfr.dtype == kfi.dtype == f32
+            and (vfr.shape, vfi.shape, kfr.shape, kfi.shape) == shapes
+            and vfr.is_contiguous() and vfi.is_contiguous()
+            and kfr.is_contiguous() and kfi.is_contiguous()):
+        on_cpu(vfr, vfi, kfr, kfi)              # raises for mixed devices
+        for name, t, shape in zip(("vfr", "vfi", "kfr", "kfi"),
+                                  (vfr, vfi, kfr, kfi), shapes):
+            check(name, t, shape)
+    if plan is not None:
+        params = _banded_params(b, nc, chunk, d, cols, dev, plan)
+        address = ctypes.addressof(params)
+    out = torch.empty(out_shape, dtype=f32, device=dev)
+    launch(LAUNCHES, "banded_inverse", dev, vfr.data_ptr(), vfi.data_ptr(),
+           kfr.data_ptr(), kfi.data_ptr(), out.data_ptr(), address)
     return out
 
 
@@ -563,8 +684,9 @@ def fused_causal_mix_direct(v, kfr, kfi, chunk: int, cols: int):
 def _launch_mix(name: str, v, kfr, kfi, chunk: int, cols: int, plan=None):
     """Launch ``name`` (fused_causal_mix, its _direct or its _v3) on CUDA
     tensors; ``plan``: the FFT kernel's (np, gs), ``mix_fft_plan``'s unless
-    given, or _v3's transform tile (np, threads), ``LONG_PLAN`` unless
-    given."""
+    given, _v3's transform tile (np, threads), ``LONG_PLAN`` unless given,
+    or _direct's banded_fft_kernel tile (np, threads),
+    ``banded_fft_plan``'s unless given."""
     b, n, d = v.shape
     nc = n // chunk
     f2 = chunk + 1
@@ -581,11 +703,17 @@ def _launch_mix(name: str, v, kfr, kfi, chunk: int, cols: int, plan=None):
         return out
     vfr = torch.empty((b, nc, f2, d), dtype=torch.float32, device=v.device)
     vfi = torch.empty_like(vfr)
-    tile = tuple(plan or LONG_PLAN) if name == "fused_causal_mix_v3" else ()
+    if name == "fused_causal_mix_v3":
+        launch(LAUNCHES, name, v.device,
+               v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), tw.data_ptr(),
+               vfr.data_ptr(), vfi.data_ptr(), out.data_ptr(), b, nc, chunk,
+               d, cols, *(plan or LONG_PLAN))
+        return out
+    # the direct kernel's second launch is #5's body on the producer layout
+    params = _banded_params(b, nc, chunk, d, cols, v.device, plan)
     launch(LAUNCHES, name, v.device,
-           v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), tw.data_ptr(),
-           vfr.data_ptr(), vfi.data_ptr(), out.data_ptr(), b, nc, chunk, d,
-           cols, *tile)
+           v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), vfr.data_ptr(),
+           vfi.data_ptr(), out.data_ptr(), ctypes.addressof(params))
     return out
 
 
@@ -862,8 +990,14 @@ class _KfSpectra(torch.autograd.Function):
 
 def banded_inverse(vfr, vfi, kfr, kfi, chunk: int) -> torch.Tensor:
     """y (B, nc, C, d) = partial_irfft(sum_j K[c, j] (.) V[c - j]),
-    differentiable; see ``_banded_inverse`` for the shapes and the kernel."""
-    return _BandedInverse.apply(vfr, vfi, kfr, kfi, chunk)
+    differentiable; see ``_banded_inverse`` for the shapes and the kernel.
+    Where no gradient is wanted (grad mode off, or no input requiring one)
+    the kernel's wrapper runs without the Function around it."""
+    if torch.is_grad_enabled() and (vfr.requires_grad or vfi.requires_grad
+                                    or kfr.requires_grad
+                                    or kfi.requires_grad):
+        return _BandedInverse.apply(vfr, vfi, kfr, kfi, chunk)
+    return _banded_inverse(vfr, vfi, kfr, kfi, chunk)
 
 
 def fused_causal_mix(v, kfr, kfi, chunk: int, cols: int) -> torch.Tensor:

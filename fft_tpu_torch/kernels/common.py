@@ -75,13 +75,26 @@ def check(name: str, t: torch.Tensor, shape, dtype=torch.float32) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+_ENTRIES = {}
+
+
 def launch(counts: dict, name: str, device: torch.device, *args) -> None:
     """Call the library's ``fft_<name>`` on ``device`` and PyTorch's current
     stream there; raise on a nonzero cudaError_t, else add one to
-    ``counts[name]``."""
-    fn = getattr(load_library(), f"fft_{name}")
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    ``counts[name]``.  The device is made current only where it is not;
+    the stream's handle comes from PyTorch's raw accessor (the one its
+    compiled kernels launch with), ~0.2 us a call where
+    ``torch.cuda.current_stream(device).cuda_stream`` took 11 on the card's
+    host (PERF.md, Findings)."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn = _ENTRIES[name] = getattr(load_library(), f"fft_{name}")
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
                            f"{err}")

@@ -1,13 +1,14 @@
-"""Where the time of the non-causal mix's kernels goes: build copies of a
-kernel with parts taken out and time them beside the whole kernel, in one
-process on one card.  The copies compute wrong results; they only say
-what each part costs.
+"""Where the time of the non-causal mix's kernels and of #5 goes: build
+copies of a kernel with parts taken out and time them beside the whole
+kernel, in one process on one card.  The copies compute wrong results;
+they only say what each part costs.
 
     python -m fft_tpu_torch.kernels.mix_ablation [KERNEL] [VARIANTS] [SHAPES]
 
 KERNEL: ``mix`` (the default: #3's and #4's body, ``csrc/mix_fft.cuh``,
 through twopass_mix.cu's C entry), ``direct`` (#1: the same body through
-spectral_mix.cu's) or ``bwd`` (#2, spectral_mix.cu's backward kernel).
+spectral_mix.cu's), ``bwd`` (#2, spectral_mix.cu's backward kernel) or
+``banded`` (#5, causal.cu's banded_fft_kernel).
 VARIANTS, comma-separated (default all of the kernel's).  ``mix`` and
 ``direct``: ``whole`` (the kernel as it is), ``nofft`` (no P-point
 transforms), ``nocross`` (no step across the cluster: the gate at CS =
@@ -17,13 +18,17 @@ out), ``nostage`` (the gates read from device memory in the step, not
 staged beside the tile).  ``bwd``: ``whole``, ``nofft`` (no transforms,
 either way), ``nogate`` (no step at the frequency pairs), ``nosum`` (no
 group sums, so no reads of the other CTAs' terms), ``nofft_nogate_nosum``
-(loads, stores and barriers alone).  SHAPES: comma-separated
-``B:N:cs:np:threads`` entries (``bwd``: ``B:N:np:threads``; default: the
-wrappers' plans at config 1's and #4's lengths, or at config 1 for
-``direct`` and ``bwd``).  Prints one line a (shape, variant): median ms
+(loads, stores and barriers alone).  ``banded``: ``whole``, ``nofft`` (no
+inverse transforms: neither the P O passes nor Bluestein's), ``nosum``
+(no banded sum: V and K never read), ``nofft_nosum`` (the packing and the
+store alone).  SHAPES: comma-separated ``B:N:cs:np:threads`` entries
+(``bwd``: ``B:N:np:threads``; ``banded``: ``B:C:np:threads``, nc = 1;
+default: the wrappers' plans at config 1's and #4's lengths, at config 1
+for ``direct`` and ``bwd``, at the 350M's prompts of 1500, 1024 and 854
+tokens for ``banded``).  Prints one line a (shape, variant): median ms
 over CUDA events of 20 calls, 5 rounds; d=512, 32 gate columns, with
-memory (the forwards).  Each copy is built with nvcc into a directory
-under the system's temporary directory.
+memory (the forwards); ``banded`` d=1024, 64 gate columns.  Each copy is
+built with nvcc into a directory under the system's temporary directory.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import tempfile
 import torch
 
 from fft_tpu_torch.kernels import build as kb
+from fft_tpu_torch.kernels import causal as kc
 from fft_tpu_torch.kernels import spectral_mix as sm
 from fft_tpu_torch.kernels.common import stage_twiddles, twiddles
 
@@ -68,6 +74,18 @@ _BWD_CUTS = {
     "sum": [("i < fh * ng; i += tcl * nt) {", "i < 0; i += tcl * nt) {")],
 }
 BWD_VARIANTS = ("whole", "nofft", "nogate", "nosum", "nofft_nogate_nosum")
+# the same for #5's kernel (causal.cu)
+_BANDED_CUTS = {
+    "fft": [("  chirp_convolve<NP>(z, log2l, tws, spec, n2);",
+             "  __syncthreads();"),
+            ("odd_pass_any<NP, kBandedOdd>(z, o, len, 1, tw, chunk, 1.f);",
+             "__syncthreads();"),
+            ("    tile_fft<false>(z, log2l, o * NP, tws);",
+             "    __syncthreads();")],
+    "sum": [("    for (int j = 0; j <= c; ++j) {",
+             "    for (int j = 0; j < 0; ++j) {")],
+}
+BANDED_VARIANTS = ("whole", "nofft", "nosum", "nofft_nosum")
 SHAPES = ((2, 4096) + sm.STAGED_PLAN[4096], (1, 8192) + sm.STAGED_PLAN[8192],
           *((1, n) + plan for n, plan in sm.TWOPASS_PLAN.items()))
 # kernel -> (the source built, its C entry, cuts, variants, shapes)
@@ -77,7 +95,13 @@ _KERNELS = {
                ((8, 1024) + sm.direct_plan(1024),)),
     "bwd": ("spectral_mix.cu", "fft_direct_mix_bwd", _BWD_CUTS, BWD_VARIANTS,
             ((8, 1024) + sm.bwd_plan(1024),)),
+    "banded": ("causal.cu", "fft_banded_inverse", _BANDED_CUTS,
+               BANDED_VARIANTS,
+               tuple((1, c) + kc.banded_fft_plan(c)[2:]
+                     for c in (1500, 1024, 854))),
 }
+# headers a kernel's source includes besides mix_fft.cuh and fft_common.cuh
+_HEADERS = {"banded": ("causal_common.cuh",)}
 
 
 def _sources(variant: str, kernel: str = "mix") -> dict:
@@ -85,7 +109,8 @@ def _sources(variant: str, kernel: str = "mix") -> dict:
     ``variant``'s parts taken out."""
     source, _, cuts, _, _ = _KERNELS[kernel]
     texts = {name: (kb.CSRC_DIR / name).read_text()
-             for name in ("mix_fft.cuh", "fft_common.cuh", source)}
+             for name in ("mix_fft.cuh", "fft_common.cuh",
+                          *_HEADERS.get(kernel, ()), source)}
     for cut in ([] if variant == "whole" else variant[2:].split("_no")):
         for old, new in cuts[cut]:
             name = next(n for n, t in texts.items() if old in t)
@@ -140,6 +165,8 @@ def _case(kernel: str, shape, g, stream):
     ``shape``, its outputs, the plain version's outputs, the tensors the
     arguments point into, to be kept alive while they are used)."""
     b, n = shape[:2]
+    if kernel == "banded":
+        return _banded_case(shape, g, stream)
     d, cols, dev = 512, 32, torch.device("cuda")
     v, last = (torch.randn(s, generator=g).to(dev)
                for s in ((b, n, d), (b, n, d) if kernel == "bwd" else (n, d)))
@@ -172,6 +199,20 @@ def _case(kernel: str, shape, g, stream):
                 y.data_ptr(), b, n, d, cols, cs, np_, threads, stream)
     return (args, (y,), (sm.twopass_mix_ref(v, gr, gi, last, n),),
             (v, last, gr, gi))
+
+
+def _banded_case(shape, g, stream):
+    """_case for #5 at (B, C, np, threads), nc = 1, d=1024, 64 gate
+    columns, with the wrapper's transform, tables and parameter block."""
+    b, c, np_, threads = shape
+    d, cols, dev = 1024, 64, torch.device("cuda")
+    ins = [torch.randn(s, generator=g).to(dev)
+           for s in ((b, 1, c + 1, d),) * 2 + ((b, 1, 1, c + 1, cols),) * 2]
+    y = torch.empty((b, 1, c, d), device=dev)
+    params = kc._banded_params(b, 1, c, d, cols, dev, (np_, threads))
+    args = (*(t.data_ptr() for t in ins), y.data_ptr(),
+            ctypes.addressof(params), stream)
+    return args, (y,), (kc.banded_inverse_ref(*ins, c),), (ins, params)
 
 
 def run(variants=VARIANTS, shapes=SHAPES, kernel: str = "mix") -> list:

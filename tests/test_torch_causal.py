@@ -1,8 +1,13 @@
 """The causal kernels' plain PyTorch versions against the JAX Pallas kernels
 (run in interpret mode on the CPU, as tests/test_pallas_causal.py runs
-them), the CPU routing of the wrappers, and the prompt-length dispatch at
-the tiny LM's own widths.  The CUDA kernels themselves are checked on the
-card by tests/test_torch_kernels.py and chip_smoke.py."""
+them), the CPU routing of the wrappers, the prompt-length dispatch at
+the tiny LM's own widths, and a numpy model of #5's FFT kernel (both
+transform paths with the host's tables) with the branch choice its
+predicates keep.  The CUDA kernels themselves are checked on the card by
+tests/test_torch_kernels.py and chip_smoke.py (and on the CPU by
+tests/test_torch_emulated_kernels.py)."""
+
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +16,7 @@ import torch
 
 import fft_tpu.kernels.pallas_causal as pc
 from fft_tpu_torch.kernels import causal as kc
+from fft_tpu_torch.kernels.common import twiddles_np
 from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS
 from fft_tpu_torch.layers.spectre import SpectreMultiHead
 from fft_tpu_torch.models.lm import spectre_350m_config, tiny_lm_config
@@ -142,12 +148,11 @@ def test_dispatch_matches_tpu_at_tiny_lm_widths(n):
 
 
 def test_predicates_hold_the_shared_memory_bounds():
-    """The chunk and window limits follow from the 227 KB a Hopper block
-    may use (the JAX package's VMEM models do not apply): banded_inverse's
-    32-channel tile to chunk 853, its 8-channel tile to 2904; #6 only with
-    the 32-channel tile."""
-    assert kc._banded_lanes(853, 512) == 32
-    assert kc._banded_lanes(854, 512) == 8
+    """The chunk and window limits of the Hopper kernels (the JAX package's
+    VMEM models do not apply): banded_inverse takes chunks to 2904, 853 and
+    854 both through Bluestein's 4096-point transform; #6 to chunk 853."""
+    assert kc.banded_transform(853) == (4096, 0)
+    assert kc.banded_transform(854) == (4096, 0)
     assert kc.banded_supported(1, 2905, 512, 32)
     assert not kc.banded_supported(1, 2906, 512, 32)
     assert kc.fused_mix_supported(16, 128, 512, 32)
@@ -189,3 +194,224 @@ def test_shape_choice_between_the_fft_and_direct_kernels():
     assert kc.kf_spectra_kernel(4 * 129, 129, 64) == "kf_spectra_direct"
     with pytest.raises(ValueError):
         kc.kf_spectra_kernel(32768, 128, 512)
+
+
+# ---------------------------------------------------------------------------
+# banded_inverse's FFT kernel (csrc/causal.cu): a numpy model of its two
+# paths, the branch dispatch kept from the parent's predicates, the wrapper
+# ---------------------------------------------------------------------------
+
+def _bit_reversed(m: int) -> np.ndarray:
+    bits = m.bit_length() - 1
+    return np.array([int(format(i, f"0{bits}b")[::-1], 2) if bits else 0
+                     for i in range(m)])
+
+
+def _packed_spectra(vfr, vfi, kfr, kfi, chunk):
+    """The banded sum and the kernel's pair packing in numpy: Z (B, nc,
+    2C, d/2) with Z[k] = A_a[k] + i A_b[k] for k <= C (Im dropped at DC and
+    Nyquist) and conj(A_a[2C-k]) + i conj(A_b[2C-k]) above."""
+    b, nc, f2, d = vfr.shape
+    cols = kfr.shape[-1]
+    v = (vfr + 1j * vfi).astype(np.complex128)
+    k = np.repeat((kfr + 1j * kfi).astype(np.complex128), d // cols, -1)
+    acc = np.zeros_like(v)
+    for c in range(nc):
+        for j in range(c + 1):
+            acc[:, c] += k[:, c, j] * v[:, c - j]
+    acc[:, :, 0].imag = 0.0
+    acc[:, :, chunk].imag = 0.0
+    a, bb = acc[..., 0::2], acc[..., 1::2]
+    z = np.zeros((b, nc, 2 * chunk, d // 2), dtype=np.complex128)
+    z[:, :, :f2] = a + 1j * bb
+    z[:, :, f2:] = (np.conj(a) + 1j * np.conj(bb))[:, :, 1:chunk][:, :, ::-1]
+    return z
+
+
+def _model_banded(vfr, vfi, kfr, kfi, chunk):
+    """banded_fft_kernel's inverse of the packed spectra, path by path, with
+    the port's fp32 host tables: 2C = P O as the odd pass (twiddle on the
+    output) then the P-point pass; else Bluestein with the chirp, M and
+    spectrum of ``kc.bluestein_np`` (spectrum in bit-reversed row order).
+    Returns y (B, nc, C, d)."""
+    n = 2 * chunk
+    z = _packed_spectra(vfr, vfi, kfr, kfi, chunk)
+    length, o = kc.banded_transform(chunk)
+    if o:
+        assert length * o == n and length >= 4 and o % 2 == 1 and o <= 31
+        tw = twiddles_np(n).astype(np.float64)
+        root = tw[:, 0] + 1j * tw[:, 1]                  # e^{2 pi i m / n}
+        zs = z.reshape(*z.shape[:2], o, length, -1)      # [k1, k2]
+        k1, t1 = np.arange(o)[:, None], np.arange(o)[None, :]
+        dft_o = root[(k1 * t1 % o) * length]             # e^{2 pi i k1 t1/O}
+        xp = np.einsum("bckqp,kt->bctqp", zs, dft_o)     # [t1, k2]
+        xp *= root[(np.arange(o)[:, None] * np.arange(length)[None, :])
+                   % n][None, None, :, :, None]
+        y = length * np.fft.ifft(xp, axis=3)             # [t1, t2]
+        y = y.transpose(0, 1, 3, 2, 4).reshape(z.shape) / n   # t1 + O t2
+    else:
+        assert length >= 3 * chunk - 1 and length & (length - 1) == 0
+        chirp, spec = (t[..., 0] + 1j * t[..., 1].astype(np.float64)
+                       for t in kc.bluestein_np(chunk))
+        a = np.zeros((*z.shape[:2], length, z.shape[-1]), np.complex128)
+        a[:, :, :n] = z * chirp[:, None]
+        rows = _bit_reversed(length)
+        g = length * np.fft.ifft(a, axis=2)[:, :, rows]  # sign +1, rows
+        g *= spec[:, None]
+        nat = np.empty_like(g)
+        nat[:, :, rows] = g
+        y = np.fft.fft(nat, axis=2)[:, :, :n] * chirp[:, None]
+    y = y[:, :, chunk:]
+    out = np.empty((*y.shape[:3], 2 * y.shape[-1]))
+    out[..., 0::2], out[..., 1::2] = y.real, y.imag
+    return out
+
+
+@pytest.mark.parametrize("chunk,nc", [(4, 1), (7, 2), (100, 3), (853, 1),
+                                      (854, 1), (1499, 1), (1500, 1),
+                                      (2047, 1), (2904, 1)])
+def test_banded_fft_model_matches_pallas(chunk, nc):
+    """Both paths of banded_fft_kernel's plan (2C = P O at 4 and 100; every
+    other chunk through Bluestein at M = 64, 4096, 8192 and 16384), modelled
+    in numpy with the host's tables, against JAX's banded_inverse in
+    interpret mode and the plain version, within 1e-5."""
+    rng = np.random.default_rng(chunk)
+    b, d, cols = 1, 128, 8
+    f2 = chunk + 1
+    arrs = _planes(rng, (b, nc, f2, d), (b, nc, f2, d),
+                   (b, nc, nc, f2, cols), (b, nc, nc, f2, cols))
+    want = np.asarray(pc.banded_inverse(*map(jnp.asarray, arrs), chunk,
+                                        False, True))
+    got = _model_banded(*arrs, chunk)
+    assert rel_err(got, want) < TOL
+    ref = kc.banded_inverse_ref(*map(torch.from_numpy, arrs), chunk).numpy()
+    assert rel_err(got, ref) < TOL
+
+
+def test_bluestein_tables_are_exact_where_they_can_be():
+    """The chirp's phase comes from m^2 mod 2n in integers: at n near 4096
+    a float square would lose it.  w[0] = 1 exactly, |w| = 1, and the chirp
+    repeats with period n (n even)."""
+    for chunk in (854, 2047, 2904):
+        chirp, spec = kc.bluestein_np(chunk)
+        n, m = 2 * chunk, np.arange(2 * chunk, dtype=np.int64)
+        w = np.exp(1j * np.pi * ((m * m) % (2 * n)) / n)
+        assert np.abs(chirp[:, 0] + 1j * chirp[:, 1] - w).max() < 1e-7
+        assert tuple(chirp[0]) == (1.0, 0.0)
+        assert spec.shape == (kc.banded_transform(chunk)[0], 2)
+        assert spec.dtype == np.float32
+
+
+def _parent_banded_supported(nc, f2, d, cols):
+    """banded_supported as the parent tree computed it: a 32-channel tile
+    of one chunk's summed spectrum plus the 2C twiddles in 227 KB (chunk <=
+    853, d % 32), else an 8-channel tile (chunk <= 2904, d % 8)."""
+    chunk = f2 - 1
+    smem = 232448
+
+    def tile(lanes):
+        return 2 * chunk * 8 + 2 * (chunk + 1) * lanes * 4
+
+    if tile(32) <= smem:
+        lanes = 32 if d % 32 == 0 else None
+    else:
+        lanes = 8 if d % 8 == 0 and tile(8) <= smem else None
+    return nc >= 1 and chunk >= 1 and d % cols == 0 and lanes is not None
+
+
+def _parent_fused_mix_supported(nc, chunk, d, cols):
+    """fused_mix_supported as the parent tree computed it."""
+    d_g = d // cols if cols else 0
+    return (chunk >= 128 and _parent_banded_supported(nc, chunk + 1, d, cols)
+            and chunk <= 853 and d % 32 == 0
+            and d_g >= 1 and (32 % d_g == 0 or d_g % 32 == 0))
+
+
+@pytest.mark.parametrize("chunk", [4, 127, 128, 129, 700, 853, 854, 1024,
+                                   1500, 2048, 2904, 2905])
+def test_dispatch_keeps_the_parents_branches(chunk, monkeypatch):
+    """Over (nc, d, cols) at each chunk, 853/854 at d = 512 and 1024
+    included, banded_supported and the branch segmented_causal_mix takes
+    are what the parent's predicates gave (hard-coded above; the kf and v3
+    predicates this change leaves alone).  The kernels are stubbed: only
+    the branch is under test."""
+    from fft_tpu_torch.layers import causal_seg
+
+    def zeros_like_y(v, *a):
+        return torch.zeros_like(v)
+
+    monkeypatch.setattr(kc, "fused_causal_mix", zeros_like_y)
+    monkeypatch.setattr(kc, "banded_inverse",
+                        lambda vr, *a: torch.zeros(vr.shape[0], vr.shape[1],
+                                                   vr.shape[2] - 1,
+                                                   vr.shape[3]))
+    monkeypatch.setattr(kc, "kf_seg_rfft", lambda kt, c: (None, None))
+    for nc in (1, 2, 3):
+        for d, cols in ((512, 32), (1024, 64), (64, 8), (40, 5), (16, 16)):
+            n = nc * chunk
+            want_banded = _parent_banded_supported(nc, chunk + 1, d, cols)
+            assert kc.banded_supported(nc, chunk + 1, d, cols) == want_banded
+            fused = (_parent_fused_mix_supported(nc, chunk, d, cols)
+                     or kc.fused_mix_v3_supported(nc, chunk, d, cols))
+            if fused and n >= kc.KF_SEG_MIN_N and kc.kf_seg_rfft_supported(
+                    n, chunk, nc * cols):
+                want = "kf_seg"
+            elif fused:
+                want = "fused"
+            else:
+                want = "banded" if want_banded else "composition"
+            if n * d > 3_000_000 and want == "composition":
+                continue                   # the plain composition is slow
+            # n_fft = 2n: long enough for the segments, never the kf branch
+            v = torch.zeros(1, n, d)
+            gate = torch.zeros(1, nc, cols, n + 1, dtype=torch.complex64)
+            BRANCH_CALLS.clear()
+            causal_seg.segmented_causal_mix(v, gate,
+                                            SimpleNamespace(n_fft=2 * n),
+                                            chunk)
+            assert dict(BRANCH_CALLS) == {want: 1}, (nc, chunk, d, cols)
+
+
+def test_banded_inverse_skips_the_function_without_gradients():
+    """Without a gradient to take (grad mode off, or no input requiring
+    one) banded_inverse runs its wrapper without the Function and returns
+    what the Function path returns; inputs that require a gradient still
+    go through it and get the plain version's VJP."""
+    rng = np.random.default_rng(5)
+    b, nc, chunk, d, cols = 1, 2, 12, 16, 4
+    f2 = chunk + 1
+    arrs = [torch.from_numpy(a) for a in _planes(
+        rng, (b, nc, f2, d), (b, nc, f2, d), (b, nc, nc, f2, cols),
+        (b, nc, nc, f2, cols))]
+    with torch.no_grad():
+        fast = kc.banded_inverse(*arrs, chunk)
+    assert fast.grad_fn is None
+    plain = kc.banded_inverse(*arrs, chunk)
+    assert plain.grad_fn is None
+    xs = [a.clone().requires_grad_() for a in arrs]
+    y = kc.banded_inverse(*xs, chunk)
+    assert type(y.grad_fn).__name__ == "_BandedInverseBackward"
+    assert torch.equal(y.detach(), fast) and torch.equal(plain, fast)
+    w = torch.from_numpy(_planes(rng, (b, nc, chunk, d))[0])
+    (y * w).sum().backward()
+    ys = [a.clone().requires_grad_() for a in arrs]
+    (kc.banded_inverse_ref(*ys, chunk) * w).sum().backward()
+    for x, r in zip(xs, ys):
+        assert torch.allclose(x.grad, r.grad, rtol=0, atol=0)
+
+
+def test_banded_tables_are_cached_per_chunk_and_device():
+    """The tables are built once for each (chunk, device): the 2C-point
+    roots, the stage twiddles of the plan's transform and, for
+    Bluestein, its chirp and spectrum."""
+    cpu = torch.device("cpu")
+    for chunk, n_tables in ((1024, 2), (1500, 4)):
+        tables = kc._banded_tables(chunk, cpu)
+        assert tables is kc._banded_tables(chunk, cpu)
+        length, o = kc.banded_transform(chunk)
+        assert tuple(tables[0].shape) == (2 * chunk, 2)
+        assert tuple(tables[1].shape) == (length, 2)
+        if o == 0:
+            assert tuple(tables[2].shape) == (2 * chunk, 2)
+            assert tuple(tables[3].shape) == (length, 2)
+        assert len({id(t) for t in tables}) == n_tables

@@ -6,10 +6,12 @@ machine without nvcc or a card.  spectral_mix.cu (#1, #2), staged_mix.cu
 n_fft and the wrapper's plan at 16384; a copy whose step across the
 cluster reads one CTA alone must fail),
 causal_long.cu (#9, #7, #11, at chunks up to 2048), causal.cu's
-banded_inverse at the long chunks of its 8-lane tile, and decode.cu (#12).  Same bound as on the
+banded_inverse (#5: both transform paths, every tile plan, both K layouts
+through the direct #6), and decode.cu (#12).  Same bound as on the
 card (max|a-b| / max|b| < 2e-5: FFTs or direct DFTs against pocketfft, all
 fp32).  Skips where there is no host C++ compiler."""
 
+import ctypes
 import functools
 
 import pytest
@@ -52,7 +54,8 @@ def long_lib(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def causal_lib(tmp_path_factory):
-    return _emulated(tmp_path_factory, "causal.cu", ("fft_banded_inverse",))
+    return _emulated(tmp_path_factory, "causal.cu",
+                     ("fft_banded_inverse", "fft_fused_causal_mix_direct"))
 
 
 def _ptr(t):
@@ -485,28 +488,130 @@ def test_emulated_kbar_with_a_channel_dropped_fails(tmp_path_factory):
     assert _rel(got[1], want[1]) > TOL and _rel(got[2], want[2]) > TOL
 
 
-# (b, nc, chunk, d, cols): banded_inverse's 8-lane tile past the 32-lane
-# tile's chunk 853 (the 350M's prompts whose length is no multiple of 128),
-# and the same tile at a small chunk (which the wrapper gives 32 lanes)
+def _emulated_banded(lib, args, chunk, plan=None):
+    """y from #5's C entry with the wrapper's transform, tables and
+    parameter block, and ``plan`` (np, threads; ``kc.banded_fft_plan``'s
+    unless given, threads capped at 128 for the emulation's speed); y
+    starts as NaN."""
+    b, nc, _, d = args[0].shape
+    _, _, np_, threads = kc.banded_fft_plan(chunk)
+    params = kc._banded_params(b, nc, chunk, d, args[2].shape[-1],
+                               torch.device("cpu"),
+                               plan or (np_, min(threads, 128)))
+    y = torch.full((b, nc, chunk, d), float("nan"))
+    assert lib.fft_banded_inverse(*(_ptr(t) for t in args), _ptr(y),
+                                  ctypes.addressof(params), None) == 0
+    return y
+
+
+def _banded_args(b, nc, chunk, d, cols):
+    g = torch.Generator().manual_seed(chunk + d)
+    f2 = chunk + 1
+    return [_randn(g, b, nc, f2, d), _randn(g, b, nc, f2, d),
+            _randn(g, b, nc, nc, f2, cols), _randn(g, b, nc, nc, f2, cols)]
+
+
+# (b, nc, chunk, d, cols): chunks past the first design's 32-channel tile
+# (853; the 350M's prompts whose length is no multiple of 128) and a small
+# chunk at nc = 3, now Bluestein at M = 8192 and 4096 and 2C = 4 * 5
 BANDED_CASES = [(1, 1, 1500, 8, 1), (1, 2, 900, 16, 2), (2, 3, 10, 8, 2)]
 
 
 @pytest.mark.parametrize("b,nc,chunk,d,cols", BANDED_CASES)
 def test_emulated_banded_inverse_narrow_tile(causal_lib, b, nc, chunk, d,
                                              cols):
-    lanes = 8
-    if chunk > 853:
-        assert kc._banded_lanes(chunk, d) == lanes
-        assert kc.banded_supported(nc, chunk + 1, d, cols)
-    g = torch.Generator().manual_seed(chunk + d)
-    f2 = chunk + 1
-    args = [_randn(g, b, nc, f2, d), _randn(g, b, nc, f2, d),
-            _randn(g, b, nc, nc, f2, cols), _randn(g, b, nc, nc, f2, cols)]
-    y = torch.empty(b, nc, chunk, d)
-    assert causal_lib.fft_banded_inverse(
-        *(_ptr(t) for t in args), _ptr(_tw(chunk)), _ptr(y), b, nc, chunk,
-        d, cols, lanes, None) == 0
+    if chunk > 853:          # the range's 8-channel part; the kernel takes
+        assert kc.banded_supported(nc, chunk + 1, d, cols)   # d % 8 anywhere
+    assert kc.banded_transform(chunk) == {1500: (8192, 0), 900: (4096, 0),
+                                          10: (4, 5)}[chunk]
+    args = _banded_args(b, nc, chunk, d, cols)
+    y = _emulated_banded(causal_lib, args, chunk)
     assert _rel(y, kc.banded_inverse_ref(*args, chunk)) < TOL
+
+
+# (b, nc, chunk, d, cols, plan): both paths at every tile of channel pairs,
+# at nc = 3 too:
+# 2C = 2^11 (the 350M's 1024-token prompt), 2C = 1024 * 3, 2C = 8 * 25;
+# Bluestein at a prime chunk (M = 4096), at 1500 (M = 8192), at chunk 1, 3
+# and 37 (M = 64, 64, 128) and at M = 16384 (2904)
+BANDED_PLAN_CASES = [
+    (1, 1, 1024, 16, 2, (4, 128)), (1, 1, 1024, 8, 1, (2, 64)),
+    (1, 1, 1536, 8, 2, (1, 64)), (2, 3, 100, 16, 4, (4, 96)),
+    (1, 1, 1201, 8, 1, (2, 128)), (1, 1, 1500, 16, 4, (2, 64)),
+    (2, 3, 37, 8, 2, (1, 32)), (1, 3, 1, 8, 1, (4, 32)),
+    (1, 2, 3, 8, 8, (2, 32)), (1, 1, 2904, 8, 1, (1, 128)),
+]
+
+
+@pytest.mark.parametrize("b,nc,chunk,d,cols,plan", BANDED_PLAN_CASES)
+def test_emulated_banded_fft_plans(causal_lib, b, nc, chunk, d, cols, plan):
+    args = _banded_args(b, nc, chunk, d, cols)
+    y = _emulated_banded(causal_lib, args, chunk, plan)
+    assert _rel(y, kc.banded_inverse_ref(*args, chunk)) < TOL
+
+
+# (b, nc, chunk, d, cols): the direct #6, whose second launch is #5's body
+# on the producer layout: 2C = 2^8, Bluestein at chunk 129 and 853
+@pytest.mark.parametrize("b,nc,chunk,d,cols", [
+    (2, 2, 128, 32, 2), (1, 3, 129, 32, 4), (1, 2, 853, 32, 8)])
+def test_emulated_direct_mix_runs_the_banded_body(causal_lib, b, nc, chunk,
+                                                  d, cols):
+    g = torch.Generator().manual_seed(chunk)
+    f2 = chunk + 1
+    v = _randn(g, b, nc * chunk, d)
+    kr, ki = (_randn(g, b, nc, f2, nc * cols) for _ in range(2))
+    _, _, np_, threads = kc.banded_fft_plan(chunk)
+    params = kc._banded_params(b, nc, chunk, d, cols, torch.device("cpu"),
+                               (np_, min(threads, 128)))
+    y = torch.full_like(v, float("nan"))
+    vfr, vfi = torch.empty(b, nc, f2, d), torch.empty(b, nc, f2, d)
+    assert causal_lib.fft_fused_causal_mix_direct(
+        _ptr(v), _ptr(kr), _ptr(ki), _ptr(vfr), _ptr(vfi), _ptr(y),
+        ctypes.addressof(params), None) == 0
+    assert _rel(y, kc.fused_causal_mix_ref(v, kr, ki, chunk, cols)) < TOL
+
+
+def test_emulated_banded_refuses_what_it_does_not_take(causal_lib):
+    """The C entry returns cudaErrorInvalidValue (1) for a transform that
+    does not cover 2C, an M below 3C - 1, a tile not dividing d or not 1, 2
+    or 4 pairs, threads past the odd path's 256 or no multiple of 32, or a
+    block past 227 KB; nothing is written."""
+    cpu = torch.device("cpu")
+    for chunk, length, o, np_, threads in (
+            (100, 8, 5, 1, 32), (100, 256, 0, 1, 32), (100, 8, 25, 3, 32),
+            (100, 8, 25, 4, 512), (100, 8, 25, 1, 48),
+            (2904, 16384, 0, 2, 128)):
+        args = _banded_args(1, 1, chunk, 8, 1)
+        params = kc._banded_params(1, 1, chunk, 8, 1, cpu)
+        params[9:13] = [length, o, np_, threads]
+        y = torch.full((1, 1, chunk, 8), float("nan"))
+        assert causal_lib.fft_banded_inverse(
+            *(_ptr(t) for t in args), _ptr(y), ctypes.addressof(params),
+            None) == 1
+        assert torch.isnan(y).all()
+
+
+def test_emulated_banded_keeping_im_at_dc_and_nyquist_fails(
+        tmp_path_factory):
+    """A copy of causal.cu whose packing keeps Im at DC and Nyquist (irfft
+    drops it) must fail against the plain version: random spectra have
+    nonzero Im there, so the parity checks see the drop."""
+    src = (kb.CSRC_DIR / "causal.cu").read_text()
+    good = "        xa.y = 0.f;\n        xb.y = 0.f;\n"
+    assert src.count(good) == 1
+    out = tmp_path_factory.mktemp("broken_banded")
+    broken = out / "causal.cu"
+    broken.write_text(src.replace(good, ""))
+    for header in ("causal_common.cuh", "fft_common.cuh", "mix_fft.cuh"):
+        (out / header).write_text((kb.CSRC_DIR / header).read_text())
+    lib = cuda_emulation.build(broken, out)
+    argtypes, restype = kb._SIGNATURES["fft_banded_inverse"]
+    lib.fft_banded_inverse.argtypes = argtypes
+    lib.fft_banded_inverse.restype = restype
+    for chunk in (16, 13):                   # 2C = 2^5; Bluestein
+        args = _banded_args(1, 1, chunk, 8, 2)
+        y = _emulated_banded(lib, args, chunk)
+        assert _rel(y, kc.banded_inverse_ref(*args, chunk)) > TOL
 
 
 @pytest.fixture(scope="module")

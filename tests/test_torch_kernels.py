@@ -390,20 +390,77 @@ def test_kf_seg_rfft_kernel(dev, b, n, chunk, lanes):
         assert _rel(a, w.contiguous()) < TOL
 
 
-@pytest.mark.parametrize("chunk", [854, 1024, 1500, 2048])
+@pytest.mark.parametrize("chunk", [854, 1024, 1500, 2048, 1499, 2047, 2904])
 def test_banded_inverse_kernel_long_chunks(dev, chunk):
-    """The 8-lane tile past the 32-lane tile's chunk 853 (the 350M's prompts
-    shorter than 2048)."""
+    """The chunks past the first design's 32-lane tile (853): the 350M's
+    prompts shorter than 2048, through 2C = P O (1024, 2048) or Bluestein
+    (M = 4096, 8192, 16384)."""
     g = torch.Generator().manual_seed(chunk)
     b, nc, d, cols = 1, 1, 1024, 64
     f2 = chunk + 1
-    assert kc._banded_lanes(chunk, d) == 8
+    assert kc.banded_fft_plan(chunk)[:2] == {
+        854: (4096, 0), 1024: (2048, 1), 1500: (8192, 0), 2048: (4096, 1),
+        1499: (8192, 0), 2047: (8192, 0), 2904: (16384, 0)}[chunk]
     args = [_randn(g, dev, b, nc, f2, d), _randn(g, dev, b, nc, f2, d),
             _randn(g, dev, b, nc, nc, f2, cols),
             _randn(g, dev, b, nc, nc, f2, cols)]
     got = kc.banded_inverse(*args, chunk)
     torch.cuda.synchronize()
     assert _rel(got, kc.banded_inverse_ref(*args, chunk)) < TOL
+
+
+@pytest.mark.parametrize("chunk,d", [(4, 512), (100, 512), (1024, 1024),
+                                     (1536, 1024), (1500, 1024)])
+def test_banded_inverse_every_plan(dev, chunk, d):
+    """#5's kernel at every tile plan that fits a block (channel pairs,
+    threads) against the plain version: 2C a power of two, with an odd
+    factor, Bluestein."""
+    g = torch.Generator().manual_seed(chunk)
+    b, nc, cols = (4, 1, 32) if d == 512 else (1, 1, 64)
+    f2 = chunk + 1
+    args = [_randn(g, dev, b, nc, f2, d), _randn(g, dev, b, nc, f2, d),
+            _randn(g, dev, b, nc, nc, f2, cols),
+            _randn(g, dev, b, nc, nc, f2, cols)]
+    want = kc.banded_inverse_ref(*args, chunk)
+    length, o, *_ = kc.banded_fft_plan(chunk)
+    for np_ in (1, 2, 4):
+        for threads in (128, 256, 512):
+            if ((o > 1 and threads > 256) or kc._banded_fft_smem(
+                    chunk, length, o, np_) > kc.SMEM_MAX):
+                continue
+            got = kc._banded_inverse(*args, chunk, (np_, threads))
+            torch.cuda.synchronize()
+            assert _rel(got, want) < TOL, (np_, threads)
+
+
+def test_banded_inverse_without_gradients_skips_the_function(dev):
+    """Under no_grad, and for inputs that require no gradient, #5 launches
+    once through its wrapper alone, with the Function path's result; a
+    shape, dtype or layout the kernel does not take raises naming it."""
+    g = torch.Generator().manual_seed(3)
+    b, nc, chunk, d, cols = 1, 2, 1500, 64, 8
+    f2 = chunk + 1
+    args = [_randn(g, dev, b, nc, f2, d), _randn(g, dev, b, nc, f2, d),
+            _randn(g, dev, b, nc, nc, f2, cols),
+            _randn(g, dev, b, nc, nc, f2, cols)]
+    before = kc.LAUNCHES["banded_inverse"]
+    with torch.no_grad():
+        fast = kc.banded_inverse(*args, chunk)
+    xs = [a.clone().requires_grad_() for a in args]
+    slow = kc.banded_inverse(*xs, chunk)
+    torch.cuda.synchronize()
+    assert kc.LAUNCHES["banded_inverse"] == before + 2
+    assert fast.grad_fn is None and slow.grad_fn is not None
+    assert torch.equal(fast, slow.detach())
+    with pytest.raises(ValueError, match="banded_inverse"):
+        kc.banded_inverse(*args, 2905)
+    with pytest.raises(TypeError):
+        kc.banded_inverse(args[0].double(), *args[1:], chunk)
+    with pytest.raises(ValueError, match="contiguous"):
+        kc.banded_inverse(args[0].transpose(2, 3).contiguous().transpose(
+            2, 3), *args[1:], chunk)
+    with pytest.raises(ValueError):
+        kc.banded_inverse(args[0].cpu(), *args[1:], chunk)
 
 
 def test_long_chunk_backward_through_each_wrapper(dev):

@@ -119,7 +119,8 @@ def test_long_chunk_predicates():
     """At the 350M's widths (d=1024, 64 gate columns) #6 stops where its
     32-channel spectra leave shared memory; #7's port takes the power-of-
     two chunks up to 2048, kf_seg_rfft the 512 gate lanes at nc = 8, and
-    the banded kernel's 8-channel tile every chunk up to 2904."""
+    the banded kernel every chunk up to 2904 (Bluestein's 4096-point
+    transform at 853 and 854)."""
     assert not kc.fused_mix_supported(8, 2048, 1024, 64)
     assert kc.fused_mix_v3_supported(8, 2048, 1024, 64)
     assert kc.fused_mix_v3_supported(1, 1024, 1024, 64)
@@ -127,8 +128,8 @@ def test_long_chunk_predicates():
     assert not kc.fused_mix_v3_supported(1, 4096, 1024, 64)
     assert kc.kf_seg_rfft_supported(16384, 2048, 512)
     assert not kc.kf_seg_rfft_supported(16384, 2048, 12)
-    assert kc._banded_lanes(853, 1024) == 32
-    assert kc._banded_lanes(854, 1024) == 8
+    assert kc.banded_fft_plan(853)[:2] == (4096, 0)
+    assert kc.banded_fft_plan(854)[:2] == (4096, 0)
     assert kc.banded_supported(1, 2905, 1024, 64)
     assert not kc.banded_supported(1, 2906, 1024, 64)
 
