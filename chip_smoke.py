@@ -149,10 +149,27 @@ Phases, in order; any failure raises and the exit code is nonzero:
              slice launched and no causal mix on the plain composition.  3 train_steps at 1 x
              16384 (step ms, tokens/s, peak memory, finite loss), one more
              under torch.profiler (device time by kernel, idle share), the
-             CLI's train-lm --preset 350m on a text file; kf_seg_rfft,
+             CLI's train-lm --preset 350m on a text file (through the
+             native loader, which it must say it used); kf_seg_rfft,
              fused_causal_mix_v3 and fused_causal_mix_bwd_v3 launched.
              The profiles report causal_long.cu's kernels' device time on
              its own (matched_ms_per_step).
+   8b.       (launch counts of its own) 350m_ckpt, in a temporary HOME:
+             train-lm --preset 350m --seq 16384 --batch 1 --steps 4 --ckpt
+             DIR --ckpt-every 2 under the supervisor's subprocess runner
+             with FFT_TPU_FAULT_STEP=3, on the default BPE corpus (built by
+             the first child) through the native loader: one restart from
+             the step-2 checkpoint, steps 0-3 logged with finite losses,
+             checkpoints 2 and 4 kept.  The step-4 checkpoint restored on
+             the card equals its files bit for bit (restore s), then is
+             written again (snapshot ms, write s); the corpus is built
+             again (BPE s) and must equal the child's; one more step
+             resumed in-process (kf_seg_rfft, fused_causal_mix_v3 and its
+             backward launched); generate --ckpt DIR --vocab CORPUS
+             --steps 8 prints the text of the model restored in-process
+             with restore_checkpoint and lm_generate on the same encoded
+             prompt, fused_decode_mix launched once a layer per decode step
+             and banded_inverse once a layer at the prompt.
 
 Prints one JSON line per phase, the card's name and power limit as
 nvidia-smi gives them, a JSON line of per-kernel results, and last
@@ -174,6 +191,8 @@ import dataclasses
 import io
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -248,6 +267,10 @@ BWD_KERNEL_NAMES = ("bwd_window_kernel", "bwd_bins_fft_kernel",
 LONG_KERNEL_NAMES = ("seg_rfft_kernel", "window_fft_kernel",
                      "banded_bins_kernel", "bwd_bins_kernel",
                      "chunk_inverse_kernel")
+# what the CLI's train-lm prints when the native C++ loader samples a text
+# file (and a BPE stream)
+NATIVE_LINE = "using native C++ data loader"
+NATIVE_BPE_LINE = "using native C++ data loader (uint16 BPE tokens)"
 # the card's peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s, fp32
 # FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -1974,17 +1997,239 @@ def phase_350m(dev, kd, reset_launches, launches):
                       "--steps", "2", "--log-every", "1"])
     recs = [json.loads(line) for line in buf.getvalue().splitlines()
             if line.startswith("{")]
-    if not recs or not all(math.isfinite(r["loss"]) for r in recs):
+    notes = [line for line in buf.getvalue().splitlines()
+             if not line.startswith("{")]
+    if (not recs or not all(math.isfinite(r["loss"]) for r in recs)
+            or notes != [NATIVE_LINE]):
         raise AssertionError(f"cli train-lm --preset 350m printed "
                              f"{buf.getvalue()!r}")
     train = launches()
     train_branches = dict(BRANCH_CALLS)
-    emit(phase="350m_cli_train_lm", steps=2, lines=recs,
+    emit(phase="350m_cli_train_lm", steps=2, lines=recs, notes=notes,
          branches=train_branches, launches=train)
     missing = [k for k in TRAIN_350M_KERNELS if train[k] == 0]
     if missing or train_branches.get("composition"):
         raise AssertionError(f"350m training: kernels never launched "
                              f"{missing}, branches {train_branches}")
+    return serve, train
+
+
+@contextlib.contextmanager
+def stdout_fd_to(path: str):
+    """File descriptor 1, which child processes inherit, written to
+    ``path`` for the duration."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    try:
+        os.dup2(fd, 1)
+        yield
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(fd)
+        os.close(saved)
+
+
+def differing_keys(a: dict, b: dict) -> list:
+    """The keys of two nested dicts of tensors (and numbers, strings) whose
+    values differ: a bit-for-bit comparison."""
+    bad = [] if sorted(a) == sorted(b) else ["<keys>"]
+    for k in set(a) & set(b):
+        x, y = a[k], b[k]
+        if isinstance(x, dict):
+            bad += [f"{k}.{sub}" for sub in differing_keys(x, y)]
+        elif isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                    and torch.equal(x, y.to(x.device))):
+                bad.append(k)
+        elif x != y:
+            bad.append(k)
+    return bad
+
+
+def phase_350m_ckpt(dev, reset_launches, launches):
+    """SPECTRE-350M at seq 16384, full depth: train-lm on the default BPE
+    corpus under the supervisor's subprocess runner, killed at step 3 by an
+    injected fault and resumed from the step-2 checkpoint; the step-4
+    checkpoint restored bit for bit and written again (snapshot and write
+    times); one more step resumed in-process (the training path's
+    launches); generate --ckpt --vocab against the restored model (the
+    serving path's).  Returns the launches of the two paths."""
+    import tempfile
+
+    from fft_tpu_torch import cli
+    from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS
+    from fft_tpu_torch.models.lm import (lm_generate, lm_init,
+                                         spectre_350m_config)
+    from fft_tpu_torch.train import TrainConfig, train_init
+    from fft_tpu_torch.train import checkpoint as ck
+    from fft_tpu_torch.train.bpe import Tokenizer, tokenize_file, \
+        vocab_sidecar
+    from fft_tpu_torch.train.data import synthetic_corpus
+    from fft_tpu_torch.train.supervisor import supervise
+
+    cfg = spectre_350m_config()
+    seq, layers = cfg.max_seq, cfg.num_layers
+    torch.cuda.empty_cache()                  # the children need the card
+    home = os.environ.get("HOME")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckdir = f"{tmp}/ckpt"
+        corpus = f"{tmp}/.cache/fft_tpu_torch/synth_v{cfg.vocab_size}.tokens"
+        free = {"start": shutil.disk_usage(tmp).free}
+        argv = ["train-lm", "--device", "cuda", "--preset", "350m", "--seq",
+                str(seq), "--batch", "1", "--steps", "4", "--ckpt", ckdir,
+                "--ckpt-every", "2", "--log-every", "1"]
+        os.environ["HOME"] = tmp              # the corpus cache
+        try:
+            # 1. the supervisor's own runner: python -m fft_tpu_torch.cli
+            os.environ["FFT_TPU_FAULT_STEP"] = "3"
+            t0 = time.perf_counter()
+            try:
+                with stdout_fd_to(f"{tmp}/children.log"):
+                    restarts = supervise(argv, max_restarts=1)
+            finally:
+                del os.environ["FFT_TPU_FAULT_STEP"]
+            supervised_s = time.perf_counter() - t0
+            with open(f"{tmp}/children.log", encoding="utf-8") as f:
+                child = f.read().splitlines()
+            recs = [json.loads(ln) for ln in child if ln.startswith("{")]
+            notes = [ln for ln in child if not ln.startswith("{")]
+            kept = sorted(int(p) for p in os.listdir(ckdir) if p.isdigit())
+            free["children"] = shutil.disk_usage(tmp).free
+            want = [f"building BPE corpus at {corpus} ...", NATIVE_BPE_LINE,
+                    "resumed at step 2", NATIVE_BPE_LINE]
+            losses = [r["loss"] for r in recs]
+            if (restarts != 1 or ck.latest_step(ckdir) != 4
+                    or kept != [2, 4] or notes != want
+                    or [r["step"] for r in recs] != [0, 1, 2, 3]
+                    or not all(math.isfinite(v) for v in losses)):
+                raise AssertionError(
+                    f"350m supervised train-lm: {restarts} restarts, kept "
+                    f"{kept}, printed {child}")
+            ckpt_bytes = sum(os.path.getsize(f"{ckdir}/4/{name}")
+                             for name in os.listdir(f"{ckdir}/4"))
+
+            # 2. the step-4 checkpoint restored on the card, bit for bit
+            state = train_init(lm_init(cfg, torch.Generator().manual_seed(
+                SEED + 9), dev), TrainConfig(total_steps=4), seed=SEED + 9)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck.restore_checkpoint(ckdir, state, step=4)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            files = {name: torch.load(f"{ckdir}/4/{name}",
+                                      map_location="cpu", weights_only=True)
+                     for name in (ck.MODEL_FILE, ck.TRAIN_FILE)}
+            differ = differing_keys(ck.snapshot(state), files)
+            on_card = all(t.device.type == "cuda" for t in
+                          [*state.model.state_dict().values(),
+                           *state.optimizer.mu, *state.optimizer.nu])
+            if (differ or state.step != 4 or state.optimizer.count != 4
+                    or state.generator.device.type != "cuda"
+                    or not on_card):
+                raise AssertionError(f"350m restore: differs at {differ[:8]}"
+                                     f", step {state.step}, on card "
+                                     f"{on_card}")
+            del files
+            # ... and written again: the snapshot the train loop waits for,
+            # then the write on the writer's thread
+            writer = ck.AsyncCheckpointWriter(f"{tmp}/again")
+            t0 = time.perf_counter()
+            writer.save(state, 4)
+            snapshot_ms = (time.perf_counter() - t0) * 1e3
+            writer.wait()
+            write_s = time.perf_counter() - t0 - snapshot_ms / 1e3
+            free["peak"] = shutil.disk_usage(tmp).free
+            shutil.rmtree(f"{tmp}/again")
+            del state, writer
+            torch.cuda.empty_cache()
+
+            # 3. the corpus the first child built, built again here
+            t0 = time.perf_counter()
+            tok = tokenize_file(synthetic_corpus(2_000_000),
+                                f"{tmp}/rebuilt.tokens",
+                                vocab_size=cfg.vocab_size)
+            bpe_s = time.perf_counter() - t0
+            with open(corpus, "rb") as a, \
+                    open(f"{tmp}/rebuilt.tokens", "rb") as b:
+                rebuilt_equal = a.read() == b.read()
+            corpus_tokens = os.path.getsize(corpus) // 2
+            if not rebuilt_equal:
+                raise AssertionError("350m BPE corpus: a rebuild differs "
+                                     "from the first child's")
+
+            # 4. one more step resumed in-process: the training path
+            reset_launches()
+            BRANCH_CALLS.clear()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                cli.main(argv[:10] + ["5"] + argv[11:] + ["--resume"])
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+            train = launches()
+            train_branches = dict(BRANCH_CALLS)
+            lines = buf.getvalue().splitlines()
+            resumed = [json.loads(ln) for ln in lines if ln.startswith("{")]
+            if (lines[:2] != ["resumed at step 4", NATIVE_BPE_LINE]
+                    or [r["step"] for r in resumed] != [4]
+                    or not math.isfinite(resumed[0]["loss"])
+                    or ck.latest_step(ckdir) != 5):
+                raise AssertionError(f"350m in-process resume printed "
+                                     f"{lines}")
+            missing = [k for k in TRAIN_350M_KERNELS if train[k] == 0]
+            if missing or train_branches.get("composition"):
+                raise AssertionError(f"350m resumed training: never launched "
+                                     f"{missing}, branches {train_branches}")
+            torch.cuda.empty_cache()
+
+            # 5. serving the checkpoint through the tokenizer
+            steps = 8
+            reset_launches()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli.main(["generate", "--device", "cuda", "--preset", "350m",
+                          "--seq", str(seq), "--ckpt", ckdir, "--vocab",
+                          corpus, "--steps", str(steps)])
+            serve = launches()
+            text = buf.getvalue()
+            state = train_init(lm_init(cfg, torch.Generator().manual_seed(
+                SEED + 9), dev), TrainConfig(), seed=SEED + 9)
+            ck.restore_checkpoint(ckdir, state)
+            tokenizer = Tokenizer.load(vocab_sidecar(corpus))
+            prompt = torch.from_numpy(tokenizer.encode("the ").astype(
+                "int64"))[None].to(dev)
+            out = lm_generate(state.model.eval(), prompt, steps=steps)
+            want_text = "the " + tokenizer.decode(out[0].tolist()) + "\n"
+            del state
+            torch.cuda.empty_cache()
+        finally:
+            if home is None:
+                os.environ.pop("HOME", None)
+            else:
+                os.environ["HOME"] = home
+    step_ms = [seq / r["tokens_per_sec"] * 1e3 for r in recs
+               if "tokens_per_sec" in r]
+    emit(phase="350m_ckpt", layers=layers, seq=seq, restarts=restarts,
+         kept=kept, child_notes=notes, losses=losses,
+         resumed_loss=resumed[0]["loss"], step_ms=step_ms,
+         supervised_s=supervised_s, resume_one_step_s=resume_s,
+         checkpoint_bytes=ckpt_bytes, snapshot_ms=snapshot_ms,
+         write_s=write_s, restore_s=restore_s, bpe_build_s=bpe_s,
+         merges=len(tok.merges), corpus_tokens=corpus_tokens,
+         prompt_tokens=int(prompt.shape[1]), generated=text,
+         generated_ids=out[0].tolist(),
+         free_disk_bytes=free, train_launches=train,
+         train_branches=train_branches, serve_launches=serve)
+    if text != want_text:
+        raise AssertionError(f"350m generate --ckpt --vocab printed {text!r}, "
+                             f"the restored model {want_text!r}")
+    if (serve["fused_decode_mix"] != layers * (steps - 1)
+            or serve["banded_inverse"] != layers):
+        raise AssertionError(f"350m generate --ckpt --vocab: launches "
+                             f"{serve}, not #12 once a layer per decode step "
+                             f"and #5 once a layer at the prompt")
     return serve, train
 
 
@@ -2175,6 +2420,9 @@ def main() -> int:
     phase_350m_parity(dev, kc)
     serve_350m, train_350m = phase_350m(dev, kd, reset_launches, launches)
 
+    # 8b. 350m checkpoints, restart, BPE -----------------------------------
+    serve_ckpt, train_ckpt = phase_350m_ckpt(dev, reset_launches, launches)
+
     summary = []
     for name, cases in kernel_results.items():
         main_case = next(c for c in cases if c["main"])
@@ -2185,7 +2433,9 @@ def main() -> int:
                        block_long=block_long_launches[name],
                        twopass=twopass_launches[name],
                        serve_350m=serve_350m[name],
-                       train_350m=train_350m[name])
+                       train_350m=train_350m[name],
+                       ckpt_train_350m=train_ckpt[name],
+                       ckpt_serve_350m=serve_ckpt[name])
         summary.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=sum(by_path.values()),

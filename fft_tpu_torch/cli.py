@@ -1,20 +1,28 @@
-"""Command-line entry point (mirror of ``fft_tpu/cli.py``: ``train-lm`` and
-``generate``).
+"""Command-line entry point (mirror of ``fft_tpu/cli.py``: ``train-lm``,
+``tokenize`` and ``generate``).
 
 Usage:
     python -m fft_tpu_torch.cli train-lm [--preset tiny|350m] [--steps N]
-        [--batch B] [--seq L] [--lr LR] [--data FILE] [--metrics FILE]
+        [--batch B] [--seq L] [--lr LR] [--data FILE] [--vocab-size V]
+        [--ckpt DIR] [--ckpt-every N] [--resume] [--metrics FILE]
         [--log-every N] [--eval-every N] [--seed S] [--device cuda|cpu]
+    python -m fft_tpu_torch.cli tokenize --out FILE [--data TEXT]
+        [--vocab-size V] [--max-merges M] [--chars N]
     python -m fft_tpu_torch.cli generate [--preset tiny|350m] [--seq L]
-        [--prompt TEXT] [--steps N] [--temperature T] [--seed S]
-        [--device cuda|cpu]
+        [--ckpt DIR] [--vocab FILE] [--vocab-size V] [--prompt TEXT]
+        [--steps N] [--temperature T] [--seed S] [--device cuda|cpu]
 
-Random weights from ``--seed``; byte-level tokens (ids below 256, in the
-350M's 50432-entry vocab too, as the JAX CLI does without ``--vocab``).
-Both run on the card unless ``--device cpu`` is given; without a card they
-fail at once.  Training runs on a text file, or, for the tiny preset, on
-the synthetic corpus when no ``--data`` is given (the JAX CLI builds a BPE
-corpus for the 350M there, which is not ported).
+``train-lm`` and ``generate`` run on the card unless ``--device cpu`` is
+given; without a card they fail at once.  Training reads a text file or a
+``.tokens`` BPE stream (with its ``.vocab.json`` sidecar, from
+``tokenize``) through the native C++ loader, falling back to the Python
+one as the JAX CLI does; without ``--data`` the tiny preset trains on the
+synthetic corpus and the 350M on a BPE corpus built from it (cached under
+``~/.cache/fft_tpu_torch/``).  ``--ckpt`` checkpoints every
+``--ckpt-every`` steps and at the end, ``--resume`` continues from the
+latest checkpoint (``python -m fft_tpu_torch.train.supervisor`` restarts a
+failed run that way).  ``generate`` takes weights from ``--ckpt`` (else
+random from ``--seed``) and a BPE tokenizer from ``--vocab`` (else bytes).
 Flags of the JAX CLI whose modules are still queued raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
@@ -22,6 +30,8 @@ Flags of the JAX CLI whose modules are still queued raise
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import pathlib
 import sys
 
@@ -30,9 +40,7 @@ import torch
 
 
 # ROADMAP.md items ('Modules to port') of the flags not ported yet
-_CKPT = "module 7, checkpoint, CLI and parallel/"
-_PARALLEL = "module 7, DP/TP/SP/PP on torch.distributed"
-_BPE = "module 7, BPE vocab and the tokenize command"
+_PARALLEL = "module 7c, parallel/ on torch.distributed"
 _BF16 = "bf16 fast mode"
 
 
@@ -51,87 +59,209 @@ def _lm_config(args):
     return make(seq=args.seq, **vocab)
 
 
+def _default_bpe_corpus(vocab_size: int) -> str:
+    """Build (once, cached) a BPE-tokenized synthetic corpus, so the
+    50k-vocab preset trains on its declared vocab with no dataset on
+    disk."""
+    from fft_tpu_torch.train.bpe import is_token_file, tokenize_file
+    from fft_tpu_torch.train.data import synthetic_corpus
+
+    cache = pathlib.Path.home() / ".cache" / "fft_tpu_torch"
+    cache.mkdir(parents=True, exist_ok=True)
+    out = cache / f"synth_v{vocab_size}.tokens"
+    if not is_token_file(str(out)):
+        print(f"building BPE corpus at {out} ...")
+        tokenize_file(synthetic_corpus(2_000_000), str(out),
+                      vocab_size=vocab_size)
+    return str(out)
+
+
+def _check_vocab(tok_vocab: int, model_vocab: int) -> None:
+    # user input: must survive python -O
+    if tok_vocab > model_vocab:
+        raise SystemExit(f"corpus vocab {tok_vocab} exceeds model vocab "
+                         f"{model_vocab}")
+
+
+def _make_batches(args, data_path, token_mode: bool, seed: int):
+    """The training (or held-out) stream: the native loader over
+    ``data_path``, else the Python loader, as the JAX CLI picks them."""
+    from fft_tpu_torch.train.data import CharDataset, TokenDataset
+    from fft_tpu_torch.train.native_loader import (NativeCharLoader,
+                                                   NativeLoaderUnavailable)
+    if data_path is not None:
+        try:
+            it = iter(NativeCharLoader(
+                data_path, args.batch, args.seq, seed=seed,
+                elem_size=2 if token_mode else 1))
+            print("using native C++ data loader"
+                  + (" (uint16 BPE tokens)" if token_mode else ""))
+            return it
+        except (NativeLoaderUnavailable, OSError) as e:
+            print(f"native loader unavailable ({e}); using Python loader")
+        if token_mode:
+            return TokenDataset(data_path).batches(args.batch, args.seq,
+                                                   seed=seed)
+    return CharDataset(path=data_path).batches(args.batch, args.seq,
+                                               seed=seed)
+
+
 def cmd_train_lm(args) -> None:
     from fft_tpu_torch.models.lm import lm_init
-    from fft_tpu_torch.train import TrainConfig, lm_loss, train_init, \
-        train_step
-    from fft_tpu_torch.train.data import CharDataset
+    from fft_tpu_torch.train import TrainConfig, train_init
+    from fft_tpu_torch.train.bpe import Tokenizer, is_token_file, \
+        vocab_sidecar
+    from fft_tpu_torch.train.checkpoint import (
+        AsyncCheckpointWriter, latest_step, restore_checkpoint)
     from fft_tpu_torch.utils import MetricsLogger, resolve_device
 
-    if args.preset == "350m" and args.data is None:
-        # the JAX CLI trains the 350M on a BPE corpus it builds here
-        raise _not_ported("--preset 350m without --data (a BPE corpus)",
-                          _BPE)
     for flag, value, item in (
-            ("--ckpt", args.ckpt, _CKPT), ("--resume", args.resume, _CKPT),
             ("--bf16", args.bf16, _BF16),
-            ("--profile", args.profile, "module 7, utils/prof.py"),
+            ("--profile", args.profile, "module 7b, utils/prof.py"),
             ("--dp", args.dp > 1, _PARALLEL), ("--sp", args.sp > 1, _PARALLEL),
-            ("--tp", args.tp > 1, _PARALLEL), ("--pp", args.pp > 1, _PARALLEL),
-            ("--vocab-size past 256",
-             args.vocab_size is not None and args.vocab_size > 256, _BPE)):
+            ("--tp", args.tp > 1, _PARALLEL), ("--pp", args.pp > 1, _PARALLEL)):
         if value:
             raise _not_ported(flag, item)
-    if args.data is not None and (
-            args.data.endswith(".tokens")
-            or pathlib.Path(args.data + ".vocab.json").exists()):
-        raise _not_ported("a .tokens BPE corpus", _BPE)
 
     device = resolve_device(args.device)
     cfg = _lm_config(args)
+    data_path = args.data
+    if data_path is None and args.preset == "350m":
+        data_path = _default_bpe_corpus(cfg.vocab_size)
+    token_mode = is_token_file(data_path)
+    if token_mode:
+        _check_vocab(Tokenizer.load(vocab_sidecar(data_path)).vocab_size,
+                     cfg.vocab_size)
     model = lm_init(cfg, torch.Generator().manual_seed(args.seed), device)
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps)
     state = train_init(model, tcfg, seed=args.seed + 1)
 
-    data = CharDataset(path=args.data)
-    batches = data.batches(args.batch, args.seq, seed=args.seed)
-    eval_batches = None
-    if args.eval_every:
-        # a separately seeded held-out stream, as the JAX CLI
-        eval_batches = data.batches(args.batch, args.seq,
-                                    seed=args.seed + 7919)
+    start = 0
+    if args.resume and args.ckpt and latest_step(args.ckpt) is not None:
+        restore_checkpoint(args.ckpt, state)
+        start = state.step
+        print(f"resumed at step {start}")
+
+    # Resumed runs re-seed by the resumed step so the stream continues with
+    # fresh batches instead of repeating the run's first ones.
+    batches = _make_batches(args, data_path, token_mode, args.seed + start)
+    ckpt_writer = AsyncCheckpointWriter(args.ckpt) if args.ckpt else None
     logger = MetricsLogger(args.metrics, print_every=args.log_every)
-    tokens_per_step = args.batch * args.seq
+    # a separately seeded held-out stream: eval never consumes (or overlaps
+    # with) training batches
+    eval_batches = (_make_batches(args, data_path, token_mode,
+                                  args.seed + 7919)
+                    if args.eval_every else None)
+    # Fault injection for recovery drills (train/supervisor.py): crash at
+    # step FFT_TPU_FAULT_STEP on fresh runs only (a transient failure: a
+    # resumed run sails past it).
+    fault_step = int(os.environ.get("FFT_TPU_FAULT_STEP", "0"))
     try:
-        for i, batch in zip(range(args.steps), batches):
-            metrics = train_step(state, batch)
-            if i % args.log_every == 0 or i == args.steps - 1:
-                rec = {"loss": metrics["loss"],
-                       "grad_norm": metrics["grad_norm"]}
-                if eval_batches is not None and i % args.eval_every == 0:
-                    model.eval()
-                    with torch.no_grad():
-                        ce = float(lm_loss(model, torch.as_tensor(
-                            next(eval_batches)).to(device, torch.int64)))
-                    model.train()
-                    rec["eval_loss"] = ce
-                    rec["eval_ppl"] = float(np.exp(min(ce, 20.0)))
-                logger.log(i, rec, tokens=tokens_per_step)
+        _train_lm_loop(args, state, batches, eval_batches, ckpt_writer,
+                       logger, start, fault_step)
     finally:
         logger.close()
+        # Drain any in-flight checkpoint write even when the loop raises: a
+        # crash must not lose the last checkpoint the supervisor resumes
+        # from.  A deferred write error must not replace a training
+        # exception already propagating (the real crash cause): log it.
+        if ckpt_writer is not None:
+            in_flight_exc = sys.exc_info()[0] is not None
+            try:
+                ckpt_writer.wait()
+            except Exception as ckpt_err:
+                if not in_flight_exc:
+                    raise
+                print(f"async checkpoint write failed during crash "
+                      f"handling: {ckpt_err!r}", file=sys.stderr)
+
+
+def _train_lm_loop(args, state, batches, eval_batches, ckpt_writer, logger,
+                   start: int, fault_step: int) -> None:
+    from fft_tpu_torch.train import lm_loss, train_step
+
+    model = state.model
+    device = model.tok_emb.device
+    tokens_per_step = args.batch * args.seq
+    for i, batch in zip(range(start, args.steps), batches):
+        if fault_step and start == 0 and i + 1 == fault_step:
+            raise RuntimeError(f"injected fault at step {i + 1}")
+        metrics = train_step(state, batch)
+        if i % args.log_every == 0 or i == args.steps - 1:
+            rec = {"loss": metrics["loss"],
+                   "grad_norm": metrics["grad_norm"]}
+            if eval_batches is not None and i % args.eval_every == 0:
+                model.eval()
+                with torch.no_grad():
+                    ce = float(lm_loss(model, torch.as_tensor(
+                        next(eval_batches)).to(device, torch.int64)))
+                model.train()
+                rec["eval_loss"] = ce
+                rec["eval_ppl"] = float(np.exp(min(ce, 20.0)))
+            logger.log(i, rec, tokens=tokens_per_step)
+        if ckpt_writer is not None and (i + 1) % args.ckpt_every == 0:
+            # the snapshot to host memory is synchronous; the disk write
+            # overlaps the next training steps
+            ckpt_writer.save(state, i + 1)
+    # Final save, unless the loop just checkpointed the last step or the
+    # run resumed past its end (writing the restored state under a
+    # directory named args.steps would mislabel it).
+    if (ckpt_writer is not None and start < args.steps
+            and args.steps % args.ckpt_every != 0):
+        ckpt_writer.save(state, args.steps)
+
+
+def cmd_tokenize(args) -> None:
+    """Train a byte-level BPE tokenizer on a text corpus and write the
+    uint16 token stream and its vocab sidecar (train/bpe.py)."""
+    from fft_tpu_torch.train.bpe import tokenize_file
+    from fft_tpu_torch.train.data import synthetic_corpus
+
+    text = (pathlib.Path(args.data).read_text(encoding="utf-8")
+            if args.data else synthetic_corpus(args.chars))
+    tok = tokenize_file(text, args.out, vocab_size=args.vocab_size,
+                        max_merges=args.max_merges)
+    n_tok = pathlib.Path(args.out).stat().st_size // 2
+    print(json.dumps({
+        "out": args.out, "vocab_size": tok.vocab_size,
+        "merges_learned": len(tok.merges), "chars": len(text),
+        "tokens": n_tok,
+        "compression": round(len(text) / max(n_tok, 1), 3),
+    }))
 
 
 def cmd_generate(args) -> None:
     from fft_tpu_torch.models.lm import lm_generate, lm_init
     from fft_tpu_torch.utils import resolve_device
 
-    for flag, value, item in (("--ckpt", args.ckpt, _CKPT),
-                              ("--vocab", args.vocab, _BPE),
-                              ("--vocab-size", args.vocab_size, _BPE),
-                              ("--bf16", args.bf16, _BF16)):
-        if value:
-            raise _not_ported(flag, item)
+    if args.bf16:
+        raise _not_ported("--bf16", _BF16)
     device = resolve_device(args.device)
     cfg = _lm_config(args)
     model = lm_init(cfg, torch.Generator().manual_seed(args.seed), device)
-    prompt_ids = torch.from_numpy(
-        np.frombuffer(args.prompt.encode("utf-8"), np.uint8)
-        .astype(np.int64))[None].to(device)
+    if args.ckpt:
+        from fft_tpu_torch.train.checkpoint import restore_model
+        restore_model(args.ckpt, model)
+    tok = None
+    if args.vocab:
+        from fft_tpu_torch.train.bpe import Tokenizer, is_token_file, \
+            vocab_sidecar
+        path = (vocab_sidecar(args.vocab) if is_token_file(args.vocab)
+                else args.vocab)
+        tok = Tokenizer.load(path)
+        _check_vocab(tok.vocab_size, cfg.vocab_size)
+        prompt_ids = tok.encode(args.prompt).astype(np.int64)
+    else:
+        prompt_ids = np.frombuffer(args.prompt.encode("utf-8"),
+                                   np.uint8).astype(np.int64)
+    prompt = torch.from_numpy(prompt_ids)[None].to(device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    toks = lm_generate(model, prompt_ids, steps=args.steps, generator=gen,
+    toks = lm_generate(model, prompt, steps=args.steps, generator=gen,
                        temperature=args.temperature)
-    text = bytes(int(t) % 256 for t in toks[0].tolist()).decode(
-        "utf-8", errors="replace")
+    ids = toks[0].tolist()
+    text = (tok.decode(ids) if tok is not None
+            else bytes(int(t) % 256 for t in ids).decode(
+                "utf-8", errors="replace"))
     print(args.prompt + text)
 
 
@@ -145,10 +275,13 @@ def main(argv=None):
     lm.add_argument("--batch", type=int, default=8)
     lm.add_argument("--seq", type=int, default=2048)
     lm.add_argument("--lr", type=float, default=3e-4)
-    lm.add_argument("--data", default=None, help="UTF-8 text corpus")
+    lm.add_argument("--data", default=None,
+                    help="text corpus, or a .tokens BPE stream (with its "
+                         ".vocab.json sidecar) from the tokenize command")
     lm.add_argument("--vocab-size", type=int, default=None,
-                    help="override the preset's vocab size (at most 256)")
+                    help="override the preset's vocab size")
     lm.add_argument("--ckpt", default=None)
+    lm.add_argument("--ckpt-every", type=int, default=500)
     lm.add_argument("--resume", action="store_true")
     lm.add_argument("--bf16", action="store_true")
     lm.add_argument("--metrics", default=None, help="JSONL metrics file")
@@ -165,6 +298,17 @@ def main(argv=None):
                     help="torch device: cuda (the default) or cpu")
     lm.set_defaults(fn=cmd_train_lm)
 
+    tz = sub.add_parser("tokenize")
+    tz.add_argument("--data", default=None,
+                    help="UTF-8 text corpus (default: synthetic)")
+    tz.add_argument("--out", required=True,
+                    help="output token stream (.tokens)")
+    tz.add_argument("--vocab-size", type=int, default=50432)
+    tz.add_argument("--max-merges", type=int, default=None)
+    tz.add_argument("--chars", type=int, default=2_000_000,
+                    help="synthetic corpus size when no --data")
+    tz.set_defaults(fn=cmd_tokenize)
+
     gen = sub.add_parser("generate")
     gen.add_argument("--preset", default="tiny", choices=["tiny", "350m"])
     gen.add_argument("--seq", type=int, default=2048)
@@ -173,7 +317,9 @@ def main(argv=None):
     gen.add_argument("--prompt", default="the ")
     gen.add_argument("--steps", type=int, default=64)
     gen.add_argument("--temperature", type=float, default=0.0)
-    gen.add_argument("--vocab", default=None)
+    gen.add_argument("--vocab", default=None,
+                     help="BPE vocab json (or .tokens file) for "
+                          "encode/decode")
     gen.add_argument("--vocab-size", type=int, default=None)
     gen.add_argument("--seed", type=int, default=0)
     gen.add_argument("--device", default="cuda",

@@ -1,8 +1,8 @@
-"""Char-level LM batches (mirror of ``fft_tpu/train/data.py``).
+"""LM batches (mirror of ``fft_tpu/train/data.py``): byte-level windows of
+a text corpus and windows of a uint16 BPE token stream.
 
 numpy, copied rather than imported (importing ``fft_tpu`` pulls in JAX), so
-one seed gives the same corpus and the same batches in both packages.  The
-BPE ``TokenDataset`` is queued with the ``tokenize`` command (ROADMAP.md).
+one seed gives the same corpus and the same batches in both packages.
 """
 
 from __future__ import annotations
@@ -48,6 +48,29 @@ class CharDataset:
         """Yields (B, seq_len + 1) int32 windows forever."""
         rng = np.random.default_rng(seed)
         n = len(self.data) - seq_len - 1
+        while True:
+            starts = rng.integers(0, n, batch_size)
+            batch = np.stack([self.data[s:s + seq_len + 1] for s in starts])
+            yield batch.astype(np.int32)
+
+
+class TokenDataset:
+    """Random windows over a uint16 BPE token stream (``train/bpe.py``'s
+    ``tokenize_file`` output): the Python fallback with the same batch
+    contract as the native loader's ``elem_size=2`` path."""
+
+    def __init__(self, path: str):
+        from fft_tpu_torch.train.bpe import Tokenizer, vocab_sidecar
+        self.data = np.memmap(path, dtype="<u2", mode="r")
+        self.tokenizer = Tokenizer.load(vocab_sidecar(path))
+        self.vocab_size = self.tokenizer.vocab_size
+
+    def batches(self, batch_size: int, seq_len: int, seed: int = 0
+                ) -> Iterator[np.ndarray]:
+        """Yields (B, seq_len + 1) int32 windows forever."""
+        rng = np.random.default_rng(seed)
+        n = len(self.data) - seq_len - 1
+        assert n > 0, "corpus shorter than one window"
         while True:
             starts = rng.integers(0, n, batch_size)
             batch = np.stack([self.data[s:s + seq_len + 1] for s in starts])

@@ -143,7 +143,10 @@ def test_port_never_imports_jax():
             "fft_tpu_torch.kernels.spectral_mix, fft_tpu_torch.kernels.decode, "
             "fft_tpu_torch.bench, "
             "fft_tpu_torch.cli, fft_tpu_torch.convert, fft_tpu_torch.models, "
-            "fft_tpu_torch.decode, fft_tpu_torch.layers; "
+            "fft_tpu_torch.decode, fft_tpu_torch.layers, "
+            "fft_tpu_torch.train.bpe, fft_tpu_torch.train.checkpoint, "
+            "fft_tpu_torch.train.data, fft_tpu_torch.train.native_loader, "
+            "fft_tpu_torch.train.supervisor; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'fft_tpu.'))"
             " or m == 'fft_tpu'); print(bad); sys.exit(1 if bad else 0)")
@@ -157,7 +160,8 @@ def test_kernel_module_imports_without_nvcc():
     code = ("import fft_tpu_torch.kernels.causal as kc, "
             "fft_tpu_torch.kernels.spectral_mix as sm, "
             "fft_tpu_torch.kernels.decode as kd, "
-            "fft_tpu_torch.kernels.build as kb; "
-            "assert kb._LIB is None; print('ok')")
+            "fft_tpu_torch.kernels.build as kb, "
+            "fft_tpu_torch.train.native_loader as nl; "
+            "assert kb._LIB is None and nl._LIB is None; print('ok')")
     proc = _run_isolated(code, env)
     assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr

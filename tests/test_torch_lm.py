@@ -104,10 +104,9 @@ def test_cli_generate_and_not_ported_flags():
         assert cli.main(["generate", "--device", "cpu", "--seq", "256",
                          "--steps", "3"]) == 0
     assert buf.getvalue().startswith("the ")
-    for extra in (["--ckpt", "x"], ["--bf16"], ["--vocab", "v.json"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(["generate", "--device", "cpu", "--seq", "256", "--steps",
-                      "1", *extra])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(["generate", "--device", "cpu", "--seq", "256", "--steps",
+                  "1", "--bf16"])
 
 
 def test_cli_generate_350m_preset():

@@ -340,23 +340,13 @@ def test_cli_train_lm_runs_two_steps(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--ckpt", "ckpt_dir"], ["--resume"], ["--bf16"], ["--dp", "2"],
-    ["--sp", "2"], ["--tp", "2"], ["--pp", "2"], ["--profile", "trace"],
-    ["--data", "corpus.tokens"], ["--vocab-size", "512"],
-    ["--preset", "350m"],
+    ["--bf16"], ["--dp", "2"], ["--sp", "2"], ["--tp", "2"], ["--pp", "2"],
+    ["--profile", "trace"],
 ])
 def test_cli_train_lm_not_ported_flags_raise(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["train-lm", "--device", "cpu", "--seq", "256", "--steps",
                   "1", *extra])
-
-
-def test_cli_train_lm_350m_without_data_names_bpe():
-    """The JAX CLI trains the 350M on a BPE corpus it builds when no --data
-    is given; that corpus is module 7's."""
-    with pytest.raises(NotImplementedError, match="BPE"):
-        cli.main(["train-lm", "--device", "cpu", "--preset", "350m",
-                  "--seq", "256", "--steps", "1"])
 
 
 def test_lm_loss_eval_mode_has_no_graph():
