@@ -3,7 +3,9 @@ training paths at full width (6 layers, d=512, 8 heads, seq 2048),
 BASELINE config 1's non-causal block (B=8, L=1024, d=512) forward and
 backward, the same block past n_fft 2048 (kernels #3 and #4), and BASELINE
 config 4, SPECTRE-350M at seq 16384 (24 layers, d=1024, 16 heads, vocab
-50432), serving and training, with both LMs' decode through kernel #12,
+50432), serving and training, and at seq 32768 and 65536 in fp32 and in
+bf16 (#7's and #11's bf16 instances), with both LMs' decode through kernel
+#12,
 random weights from seed 0, through the port's own entry points.  The
 tiny LM's causal mix runs kernels #8 kf_spectra and #6 fused_causal_mix as
 shared-memory FFTs and its backward #10 fused_causal_mix_bwd as FFTs and
@@ -26,7 +28,8 @@ Phases, in order; any failure raises and the exit code is nonzero:
              time) and the device-busy ms of both from torch.profiler
              (device_ms, plain_device_ms), the median ms of one PyTorch
              composition of the same function where there is one
-             (library_ms; cuFFT), and
+             (library_ms, and its device-busy ms, library_device_ms;
+             cuFFT), and
              the least time the card could take (bound_ms: bytes over 3.35
              TB/s or FFT-equivalent operations over 67 TFLOP/s fp32).
              direct_mix (#1) and direct_mix_bwd (#2) also at every n_fft
@@ -62,7 +65,11 @@ Phases, in order; any failure raises and the exit code is nonzero:
              banded sum and torch.fft.irfft (library_ms); over its tile
              plans (kernels_banded_plan_sweep); by CUDA kernel with the
              direct #6 (kernels_banded_launch_split); its wrapper's host
-             time piece by piece (kernels_banded_host_split).
+             time piece by piece (kernels_banded_host_split).  #9, #7 and
+             #11 at the 350M's layer at seq 32768 and 65536 (nc 16 and
+             32, long_nc_cases), #7 and #11 also through their bf16
+             instances on the same inputs rounded to bf16 (rel_err <=
+             1e-2 on the bf16 outputs; fewer timed calls).
 3. score     lm_apply on 4 x 2048 tokens; logits within rel_err 1e-4 of
              the same model and weights on the CPU (where the kernels'
              plain versions run); tokens/s on the card, and 3 calls under
@@ -170,6 +177,25 @@ Phases, in order; any failure raises and the exit code is nonzero:
              with restore_checkpoint and lm_generate on the same encoded
              prompt, fused_decode_mix launched once a layer per decode step
              and banded_inverse once a layer at the prompt.
+   8c.       (launch counts of their own) 350m_long: SPECTRE-350M at seq
+             32768 and 65536 (chunk 2048, nc 16 and 32), fp32 and bf16.
+             Parity at 2 layers, full width, 32768 tokens, each mode:
+             lm_apply's logits and a train_step's loss and every
+             gradient against the CPU (modReLU sides aligned; in fp32
+             1e-4 max-wise; in bf16 the loss within 1e-2, the logits and
+             the whole gradient vector within 2e-2 in relative L2: see
+             REL_BF16_MODEL), and the card's bf16 loss within 1e-2 of its
+             fp32 loss.  Then at full depth, each (seq, mode):
+             scoring 1 x S, a prefill of S/2 tokens, 8 decode steps (ms),
+             3 train_steps (step ms, peak memory from a reset) and one
+             under torch.profiler (busy ms, idle share); kf_seg on every
+             forward, #9, #7 and #11 launched in the mode's instance only
+             (the bf16 ones counted apart), #12 once a layer a decode
+             step.  Then, in a temporary HOME, the CLI's train-lm
+             --preset 350m --seq 65536 --bf16 --batch 1 --steps 2 on the
+             default BPE corpus (native loader; finite losses, the second
+             not above the first by 5%) and generate --preset 350m --seq
+             65536 --bf16.
 
 Prints one JSON line per phase, the card's name and power limit as
 nvidia-smi gives them, a JSON line of per-kernel results, and last
@@ -205,6 +231,18 @@ REL_KERNEL = 2e-5      # direct fp32 DFTs vs cuFFT, different sum orders
 REL_MODEL = 1e-4       # 6 layers of fp32 FFT round trips, GPU vs CPU
 REL_BLOCK = 2e-5       # one block, fp32 FFTs in another order than the CPU's
 REL_DECODE = 2e-5      # decode outputs (COMPONENTS.md 2.4)
+# bf16: a kernel's bf16 output against its plain version on the same bf16
+# inputs (one rounding to bf16 on each side), and a bf16 model's loss on
+# the card against the CPU's and against fp32's (BASELINE.md's bf16
+# budget)
+REL_BF16 = 1e-2
+# bf16: the 2-layer 350M's logits and whole gradient vector on the card
+# against the same bf16 model on the CPU, in relative L2.  Two correct bf16
+# runs that accumulate in other orders round their GEMMs, prefix sums and
+# LayerNorm inputs to other bf16 values (7e4 modReLU kinks flip at 32768
+# tokens): 0.88e-2 and 1.01e-2 on an H100 80GB HBM3 at 700 W (max-wise
+# 1.0e-2 and 2.0e-2, q_norm_w), so REL_BF16 held max-wise is out of reach
+REL_BF16_MODEL = 2e-2
 SOURCES = {
     "direct_mix": "fft_tpu_torch/csrc/spectral_mix.cu",
     "direct_mix_bwd": "fft_tpu_torch/csrc/spectral_mix.cu",
@@ -218,6 +256,8 @@ SOURCES = {
     "kf_seg_rfft": "fft_tpu_torch/csrc/causal_long.cu",
     "fused_causal_mix_v3": "fft_tpu_torch/csrc/causal_long.cu",
     "fused_causal_mix_bwd_v3": "fft_tpu_torch/csrc/causal_long.cu",
+    "fused_causal_mix_v3_bf16": "fft_tpu_torch/csrc/causal_long.cu",
+    "fused_causal_mix_bwd_v3_bf16": "fft_tpu_torch/csrc/causal_long.cu",
     "fused_decode_mix": "fft_tpu_torch/csrc/decode.cu",
     "staged_mix": "fft_tpu_torch/csrc/staged_mix.cu",
     "twopass_mix": "fft_tpu_torch/csrc/twopass_mix.cu",
@@ -235,6 +275,8 @@ REPLACES = {
     "kf_seg_rfft": "fft_tpu/kernels/pallas_causal.py:1596",
     "fused_causal_mix_v3": "fft_tpu/kernels/pallas_causal.py:931",
     "fused_causal_mix_bwd_v3": "fft_tpu/kernels/pallas_causal.py:2307",
+    "fused_causal_mix_v3_bf16": "fft_tpu/kernels/pallas_causal.py:931",
+    "fused_causal_mix_bwd_v3_bf16": "fft_tpu/kernels/pallas_causal.py:2307",
     "fused_decode_mix": "fft_tpu/kernels/pallas_decode.py:71",
     "staged_mix": "fft_tpu/kernels/pallas_fft.py:630",
     "twopass_mix": "fft_tpu/kernels/pallas_fft.py:1156",
@@ -259,6 +301,13 @@ SERVE_350M_KERNELS = ("kf_seg_rfft", "fused_causal_mix_v3", "banded_inverse",
                       "fused_decode_mix")
 TRAIN_350M_KERNELS = ("kf_seg_rfft", "fused_causal_mix_v3",
                       "fused_causal_mix_bwd_v3")
+# the 350M at seq 32768 and 65536 (phase 8c), fp32 and bf16: #7 and #11
+# by their launch names in each mode (the bf16 instances counted apart)
+LONG_SEQS = (32768, 65536)
+LONG_MIX = {"float32": ("fused_causal_mix_v3", "fused_causal_mix_bwd_v3"),
+            "bfloat16": ("fused_causal_mix_v3_bf16",
+                         "fused_causal_mix_bwd_v3_bf16")}
+OTHER_MODE = {"float32": "bfloat16", "bfloat16": "float32"}
 # #10's CUDA kernels (causal_fft.cu), by name in the tiny LM's training
 # profile
 BWD_KERNEL_NAMES = ("bwd_window_kernel", "bwd_bins_fft_kernel",
@@ -287,6 +336,31 @@ def rel_err(a, b) -> float:
         return max(rel_err(x, y) for x, y in zip(a, b))
     a, b = a.detach().double().cpu(), b.detach().double().cpu()
     return float((a - b).abs().max() / b.abs().max())
+
+
+def rel_err_rows(a, b, rows: int = 2048) -> float:
+    """rel_err of two (B, N, ...) tensors taken over slices of ``rows``
+    along dim 1, on b's device: whole-tensor float64 copies of a 32768 x
+    50432 logits tensor would take tens of GB of host memory."""
+    num = den = 0.0
+    for i in range(0, b.shape[1], rows):
+        x = a[:, i:i + rows].to(b.device).double()
+        y = b[:, i:i + rows].double()
+        num = max(num, float((x - y).abs().max()))
+        den = max(den, float(y.abs().max()))
+    return num / den
+
+
+def rel_l2_rows(a, b, rows: int = 2048) -> float:
+    """||a - b|| / ||b|| of two (B, N, ...) tensors, over slices of ``rows``
+    along dim 1 on b's device (see rel_err_rows)."""
+    num = den = 0.0
+    for i in range(0, b.shape[1], rows):
+        x = a[:, i:i + rows].to(b.device).double()
+        y = b[:, i:i + rows].double()
+        num += float(((x - y) ** 2).sum())
+        den += float((y ** 2).sum())
+    return math.sqrt(num / den)
 
 
 def max_abs(a, b) -> float:
@@ -421,6 +495,7 @@ def phase_kernels(kc, sm, kd, dev):
     cases += bwd_cases(kc, randn)
     cases += banded_cases(kc, randn, b, (4, 100), d, cols)
     cases += long_cases(kc, randn)
+    cases += long_nc_cases(kc, randn)
     cases += decode_cases(kd, randn)
     # the spectral mix: BASELINE config 1 (B=8, N=1024, d=512, H*G=32, with
     # and without memory), then N=2048 and N=256
@@ -440,24 +515,42 @@ def phase_kernels(kc, sm, kd, dev):
     banded_plan_sweep(kc, randn)
     banded_launch_split(kc, randn)
     banded_host_split(kc, randn)
+    return run_cases(cases)
+
+
+def run_cases(cases) -> dict:
+    """Each case's kernel against its plain version (rel_err within the
+    case's limit, finite), then both timed in turns, the library call and
+    the bound; emits one line a case and returns them by kernel name."""
     results = {}
-    for name, shape, kern, plain, lib, work, main in cases:
+    for name, shape, kern, plain, lib, work, main, *opts in cases:
+        # opts: {"tol": the limit (REL_KERNEL unless given), "reps",
+        # "rounds": fewer timed calls where the plain version is slow}
+        opts = opts[0] if opts else {}
+        tol = opts.get("tol", REL_KERNEL)
+        reps, rounds = opts.get("reps", 10), opts.get("rounds", 7)
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = rel_err(got, want)
         abs_err = max_abs(got, want)
-        if not (err <= REL_KERNEL and all_finite(got)):
+        finite = all_finite(got)
+        del got, want
+        if not (err <= tol and finite):
             raise AssertionError(f"{name} [{shape}]: rel_err {err} > "
-                                 f"{REL_KERNEL} or non-finite")
+                                 f"{tol} or non-finite")
         # alternate plain, kernel, kernel, plain on the same card
-        p1, k1, k2, p2 = (median_ms(f) for f in (plain, kern, kern, plain))
+        p1, k1, k2, p2 = (median_ms(f, reps, rounds)
+                          for f in (plain, kern, kern, plain))
         bound_ms, bound_by = bound(*work)
-        case = dict(shape=shape, rel_err=err, max_abs_err=abs_err,
+        case = dict(shape=shape, rel_err=err, tol=tol, max_abs_err=abs_err,
                     ms=statistics.median([k1, k2]),
                     plain_ms=statistics.median([p1, p2]),
-                    device_ms=device_ms(kern),
-                    plain_device_ms=device_ms(plain),
-                    library_ms=None if lib is None else median_ms(lib),
+                    device_ms=device_ms(kern, reps),
+                    plain_device_ms=device_ms(plain, reps),
+                    library_ms=(None if lib is None
+                                else median_ms(lib, reps, rounds)),
+                    library_device_ms=(None if lib is None
+                                       else device_ms(lib, reps)),
                     bound_ms=bound_ms, bound_by=bound_by, main=main)
         emit(phase="kernels", kernel=name, **case)
         results.setdefault(name, []).append(case)
@@ -835,6 +928,55 @@ def long_cases(kc, randn):
                 kc.fused_causal_mix_bwd_ref(v, kr, ki, yb, c, cols),
             None, (3 * vb + 2 * kb, 3 * seg + 2 * mac), nc == 8))
     return cases + banded_cases(kc, randn, b, BANDED_LONG_CHUNKS, d, cols)
+
+
+def long_nc_cases(kc, randn):
+    """The 350M's layer at seq 32768 and 65536 (B=1, C=2048, d=1024, 64
+    gate columns; nc 16 and 32): #9 over the layer's k_time (nc x 64
+    lanes), #7 and #11 in fp32, and their bf16 instances on the same
+    inputs rounded to bf16 (REL_BF16 on the outputs; the main cases of the
+    bf16 instances are nc 32, the CLI's seq 65536).  Fewer timed calls:
+    the plain versions take a few hundred ms a call at nc 32."""
+    cases = []
+    b, chunk, d, cols = 1, 2048, 1024, 64
+    quick = dict(reps=2, rounds=3)
+    for nc in (16, 32):
+        n, lanes = nc * chunk, nc * cols
+        kt = randn(b, n, lanes)
+        cases.append((
+            "kf_seg_rfft", f"B={b} N={n} C={chunk} L={lanes}",
+            lambda kt=kt: kc.kf_seg_rfft(kt, chunk),
+            lambda kt=kt: kc.kf_seg_rfft_ref(kt, chunk),
+            lambda kt=kt, n=n, lanes=lanes: torch.fft.rfft(
+                kt.view(b, n // chunk, chunk, lanes), 2 * chunk, dim=2),
+            (4 * b * n * lanes + 4 * 2 * b * nc * (chunk + 1) * lanes,
+             b * lanes * nc * fft_ops(2 * chunk)), False, quick))
+        del kt
+        v, ybar = randn(b, n, d), randn(b, n, d)
+        kr, ki = (randn(b, nc, chunk + 1, nc * cols) for _ in range(2))
+        vb, kb, mac, seg = causal_work(b, nc, chunk, d, cols)
+        shape = f"B={b} nc={nc} C={chunk} d={d} cols={cols}"
+        for dt, suffix, tol in ((torch.float32, "", REL_KERNEL),
+                                (torch.bfloat16, "_bf16", REL_BF16)):
+            vv, yy = v.to(dt), ybar.to(dt)
+            act = vb * dt.itemsize // 4          # v's (or y's) bytes
+            opts = dict(quick, tol=tol)
+            main = bool(suffix) and nc == 32
+            cases.append((
+                "fused_causal_mix_v3" + suffix, shape,
+                lambda vv=vv, kr=kr, ki=ki: kc.fused_causal_mix(
+                    vv, kr, ki, chunk, cols),
+                lambda vv=vv, kr=kr, ki=ki: kc.fused_causal_mix_ref(
+                    vv, kr, ki, chunk, cols),
+                None, (2 * act + kb, 2 * seg + mac), main, opts))
+            cases.append((
+                "fused_causal_mix_bwd_v3" + suffix, shape,
+                lambda vv=vv, kr=kr, ki=ki, yy=yy: kc.fused_causal_mix_bwd(
+                    vv, kr, ki, yy, chunk, cols),
+                lambda vv=vv, kr=kr, ki=ki, yy=yy:
+                    kc.fused_causal_mix_bwd_ref(vv, kr, ki, yy, chunk, cols),
+                None, (3 * act + 2 * kb, 3 * seg + 2 * mac), main, opts))
+    return cases
 
 
 # #5 at the 350M's prompts (B=1, d=1024, 64 gate columns, nc=1): the
@@ -1237,6 +1379,7 @@ def train_parity(cfg, dev, tokens) -> dict:
     flips = sum(int((a != b).sum()) for a, b in zip(fwd_sides, cpu_sides))
     loss, ref_loss = float(got["loss"]), float(want["loss"])
     grad_errs = {}
+    diff_sq = ref_sq = 0.0             # the whole gradient vector's L2
     for (name, pg), (_, pc) in zip(gpu.model.named_parameters(),
                                    cpu.model.named_parameters()):
         if pc.grad is None or pg.grad is None:   # the unused wavelet MLP
@@ -1245,8 +1388,12 @@ def train_parity(cfg, dev, tokens) -> dict:
                                      "only")
             continue
         grad_errs[name] = rel_err(pg.grad, pc.grad)
+        g, r = pg.grad.double().cpu(), pc.grad.double()
+        diff_sq += float(((g - r) ** 2).sum())
+        ref_sq += float((r ** 2).sum())
     worst = max(grad_errs, key=grad_errs.get)
     return dict(loss=loss, cpu_loss=ref_loss,
+                grads_rel_l2=math.sqrt(diff_sq / ref_sq),
                 loss_rel_err=abs(loss - ref_loss) / abs(ref_loss),
                 max_grad_rel_err=grad_errs[worst], worst_grad=worst,
                 tensors=len(grad_errs), modrelu_sides_aligned=flips,
@@ -2014,6 +2161,305 @@ def phase_350m(dev, kd, reset_launches, launches):
     return serve, train
 
 
+def phase_350m_long_parity(dev, kc) -> dict:
+    """SPECTRE-350M cut to 2 layers at seq 32768 (nc = 16, the kf_seg
+    branch), in fp32 and in bf16: lm_apply's logits, and a train_step's
+    loss and every gradient, on the card against the same model on the CPU
+    (modReLU kink sides aligned); then the card's bf16 loss against its
+    fp32 loss within REL_BF16, as the JAX package holds its bf16 LM
+    (tests/test_bf16.py:29; the logits' own distance is reported).
+
+    fp32: logits, loss and each gradient max-wise within REL_MODEL.  bf16:
+    the loss within REL_BF16, the logits and the whole gradient vector in
+    relative L2 (||a - b|| / ||b||) within REL_BF16_MODEL; each tensor's
+    max-wise error is reported.  Returns the card's fp32 and bf16
+    losses."""
+    from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS
+    from fft_tpu_torch.models.lm import lm_apply, lm_init, spectre_350m_config
+
+    seq = LONG_SEQS[0]
+    base = dataclasses.replace(spectre_350m_config(seq=seq), num_layers=2)
+    tokens = torch.randint(0, base.vocab_size, (1, seq + 1),
+                           generator=torch.Generator().manual_seed(SEED + 5))
+    card_logits, losses = {}, {}
+    for mode in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, block=dataclasses.replace(
+            base.block, compute_dtype=mode))
+        tol = REL_MODEL if mode == "float32" else REL_BF16_MODEL
+        fwd, bwd = LONG_MIX[mode]
+        kc.reset_launches()
+        BRANCH_CALLS.clear()
+        gpu = lm_init(cfg, torch.Generator().manual_seed(SEED), dev)
+        logits = lm_apply(gpu, tokens[:, :seq].to(dev))
+        torch.cuda.synchronize()
+        branches = dict(BRANCH_CALLS)
+        del gpu
+        cpu = lm_init(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        ref = lm_apply(cpu, tokens[:, :seq])
+        del cpu
+        logit_err = rel_err_rows(ref, logits)
+        logit_l2 = rel_l2_rows(ref, logits)
+        finite = all_finite(logits)
+        card_logits[mode] = logits
+        del ref, logits
+        res = train_parity(cfg, dev, tokens.numpy().astype("int32"))
+        losses[mode] = res["loss"]
+        used = {k: v for k, v in kc.LAUNCHES.items() if v}
+        emit(phase="350m_long_parity", mode=mode, layers=cfg.num_layers,
+             seq=seq, chunk=cfg.block.causal_chunk, limit=tol,
+             logits_rel_err=logit_err, logits_rel_l2=logit_l2,
+             branches=branches, launches=used, **res)
+        if mode == "float32":
+            errs = (logit_err, res["loss_rel_err"], res["max_grad_rel_err"])
+        else:
+            errs = (logit_l2, res["grads_rel_l2"])
+        if not (finite and res["finite"] and max(errs) <= tol
+                and res["loss_rel_err"] <= min(tol, REL_BF16)):
+            raise AssertionError(
+                f"350m long parity {mode}: logits, loss, gradients {errs}, "
+                f"worst gradient {res['worst_grad']} "
+                f"{res['max_grad_rel_err']} (limit {tol})")
+        other = LONG_MIX[OTHER_MODE[mode]]
+        if (branches != {"kf_seg": cfg.num_layers}
+                or not all(used.get(k) for k in ("kf_seg_rfft", fwd, bwd))
+                or any(used.get(k) for k in other)):
+            raise AssertionError(f"350m long parity {mode} took {branches}, "
+                                 f"launched {used}")
+    loss_err = abs(losses["bfloat16"] - losses["float32"]) / abs(
+        losses["float32"])
+    logit_err = rel_err_rows(card_logits["bfloat16"], card_logits["float32"])
+    logit_l2 = rel_l2_rows(card_logits["bfloat16"], card_logits["float32"])
+    del card_logits
+    emit(phase="350m_long_bf16_vs_fp32", seq=seq, loss=losses,
+         loss_rel_err=loss_err, logits_rel_err=logit_err,
+         logits_rel_l2=logit_l2, limit=REL_BF16)
+    if not loss_err <= REL_BF16:
+        raise AssertionError(f"350m bf16 loss {losses['bfloat16']} against "
+                             f"fp32 {losses['float32']}: {loss_err}")
+    return losses
+
+
+def long_config(seq: int, mode: str):
+    """spectre_350m_config(seq) with its blocks in ``mode``."""
+    from fft_tpu_torch.models.lm import spectre_350m_config
+
+    cfg = spectre_350m_config(seq=seq)
+    return dataclasses.replace(cfg, block=dataclasses.replace(
+        cfg.block, compute_dtype=mode))
+
+
+def serve_long(model, x, reset_launches, launches) -> dict:
+    """The serving path of one 350M configuration on launch counts of its
+    own: scoring 1 x S (ms), a prefill of S/2 tokens (ms), then 8 greedy
+    decode steps (ms a token).  Checks finite outputs, kf_seg on every
+    forward, #9, #7 (the mode's instance, the other never) and #12."""
+    from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS
+    from fft_tpu_torch.models.lm import lm_apply, lm_decode_step, lm_prefill
+
+    cfg = model.cfg
+    seq, layers = x.shape[1], cfg.num_layers
+    fwd, _ = LONG_MIX[cfg.block.compute_dtype]
+    other = LONG_MIX[OTHER_MODE[cfg.block.compute_dtype]]
+    reset_launches()
+    BRANCH_CALLS.clear()
+    logits = lm_apply(model, x)
+    torch.cuda.synchronize()
+    if not (logits.shape == (1, seq, cfg.vocab_size)
+            and logits.dtype == torch.float32 and all_finite(logits)):
+        raise AssertionError(f"350m score at {seq}: {logits.shape} "
+                             f"{logits.dtype} or non-finite")
+    del logits
+    score_ms = wall_ms(lambda: lm_apply(model, x), rounds=2)
+    prompt = x[:, :seq // 2]
+    prefill_ms = wall_ms(lambda: lm_prefill(model, prompt), rounds=2)
+    steps = 8
+    lg, caches = lm_prefill(model, prompt)
+    tok = lg.argmax(-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        lg, caches = lm_decode_step(model, tok, seq // 2 + i, caches)
+        tok = lg.argmax(-1)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+    finite = all_finite(lg)
+    del lg, caches
+    used = launches()
+    branches = dict(BRANCH_CALLS)
+    # 4 scorings and 4 prefills (1 + 2 timed + 1 each), every layer
+    forwards = 8 * layers
+    res = dict(score_ms=score_ms, score_tokens_per_s=seq / (score_ms / 1e3),
+               prefill_tokens=seq // 2, prefill_ms=prefill_ms,
+               decode_ms_per_token=decode_ms, decode_steps=steps,
+               branches=branches,
+               launches={k: v for k, v in used.items() if v})
+    if (not finite or branches != {"kf_seg": forwards}
+            or used["kf_seg_rfft"] != forwards or used[fwd] != forwards
+            or any(used[k] for k in other)
+            or used["fused_decode_mix"] != steps * layers):
+        raise AssertionError(f"350m serving at {seq} "
+                             f"{cfg.block.compute_dtype}: {res}")
+    return res
+
+
+def train_long(model, reset_launches, launches) -> dict:
+    """3 train_steps of one 350M configuration at 1 x S on launch counts of
+    their own (step ms, peak memory from a reset, finite losses), then one
+    more under torch.profiler (device busy ms, wall ms, causal_long.cu's
+    kernels by name).  #9 and #7 launched twice a layer a step (the
+    forward and its recompute), #11 once, the mode's instances only."""
+    from fft_tpu_torch import bench
+    from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS
+    from fft_tpu_torch.train import TrainConfig, train_init, train_step
+
+    cfg = model.cfg
+    seq, layers = cfg.max_seq, cfg.num_layers
+    fwd, bwd = LONG_MIX[cfg.block.compute_dtype]
+    other = LONG_MIX[OTHER_MODE[cfg.block.compute_dtype]]
+    reset_launches()
+    BRANCH_CALLS.clear()
+    state = train_init(model, TrainConfig(), seed=SEED + 1)
+    batches = [torch.randint(0, cfg.vocab_size, (1, seq + 1),
+                             generator=torch.Generator().manual_seed(s))
+               for s in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        m = train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    prof = bench._profile(lambda: train_step(state, batches[0]),
+                          torch.cuda.synchronize, 1, LONG_KERNEL_NAMES)
+    del state
+    for p in model.parameters():
+        p.grad = None
+    model.eval()
+    used = launches()
+    steps = len(batches) + 1
+    res = dict(step_ms=step_ms, median_step_ms=statistics.median(step_ms[1:]),
+               tokens_per_s=seq / (statistics.median(step_ms[1:]) / 1e3),
+               loss=losses, peak_memory_bytes=peak,
+               peak_memory_gb=peak / 1e9, profile=prof,
+               branches=dict(BRANCH_CALLS),
+               launches={k: v for k, v in used.items() if v})
+    if (not all(math.isfinite(v) for v in losses)
+            or res["branches"] != {"kf_seg": 2 * layers * steps}
+            or used["kf_seg_rfft"] != 2 * layers * steps
+            or used[fwd] != 2 * layers * steps
+            or used[bwd] != layers * steps
+            or any(used[k] for k in other)):
+        raise AssertionError(f"350m training at {seq} "
+                             f"{cfg.block.compute_dtype}: {res}")
+    return res
+
+
+def phase_350m_long(dev, reset_launches, launches):
+    """SPECTRE-350M at seq 32768 and 65536, full depth, in fp32 and in bf16
+    (the same weights from seed 0 in both modes): each configuration's
+    serving path (serve_long) and training path (train_long); then the
+    CLI at seq 65536 in bf16, in a temporary HOME: train-lm --preset 350m
+    --bf16 --steps 2 --batch 1 on the default BPE corpus (through the
+    native loader; losses finite and not rising by more than 5%), and
+    generate --preset 350m --bf16.  Returns the launches of the serving,
+    training and CLI paths, each summed over its runs."""
+    import tempfile
+
+    from fft_tpu_torch import cli
+    from fft_tpu_torch.models.lm import SpectreLM, lm_init
+
+    totals = {"serve": {}, "train": {}, "cli": {}}
+
+    def add(path, used):
+        for k, v in used.items():
+            totals[path][k] = totals[path].get(k, 0) + v
+
+    for seq in LONG_SEQS:
+        tokens = torch.randint(0, 50432, (1, seq),
+                               generator=torch.Generator().manual_seed(
+                                   SEED + 6))
+        x = tokens.to(dev)
+        model = lm_init(long_config(seq, "float32"),
+                        torch.Generator().manual_seed(SEED), dev)
+        # the bf16 run starts from the same weights; one model on the card
+        # at a time, so that each peak is its own
+        init = {k: v.to("cpu", copy=True)
+                for k, v in model.state_dict().items()}
+        params = sum(p.numel() for p in model.parameters())
+        for mode in ("float32", "bfloat16"):
+            if mode == "bfloat16":
+                del model
+                torch.cuda.empty_cache()
+                model = SpectreLM(long_config(seq, mode)).to(dev)
+                model.load_state_dict(init)
+                model.eval()
+            t0 = time.perf_counter()
+            serve = serve_long(model, x, reset_launches, launches)
+            add("serve", launches())
+            train = train_long(model, reset_launches, launches)
+            add("train", launches())
+            emit(phase="350m_long", seq=seq, mode=mode, params=params,
+                 chunk=model.cfg.block.causal_chunk, serve=serve,
+                 train=train, seconds=time.perf_counter() - t0)
+        del model, x, init
+        torch.cuda.empty_cache()
+
+    seq = LONG_SEQS[-1]
+    layers = 24
+    home = os.environ.get("HOME")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["HOME"] = tmp              # the corpus cache
+        try:
+            reset_launches()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli.main(["train-lm", "--device", "cuda", "--preset", "350m",
+                          "--seq", str(seq), "--bf16", "--batch", "1",
+                          "--steps", "2", "--log-every", "1"])
+            train_used = launches()
+            add("cli", train_used)
+            reset_launches()
+            gen = io.StringIO()
+            with contextlib.redirect_stdout(gen):
+                cli.main(["generate", "--device", "cuda", "--preset",
+                          "350m", "--seq", str(seq), "--bf16", "--steps",
+                          "8"])
+            gen_used = launches()
+            add("cli", gen_used)
+        finally:
+            if home is None:
+                os.environ.pop("HOME", None)
+            else:
+                os.environ["HOME"] = home
+    lines = buf.getvalue().splitlines()
+    recs = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    notes = [ln for ln in lines if not ln.startswith("{")]
+    losses = [r["loss"] for r in recs]
+    emit(phase="350m_long_cli", seq=seq, mode="bfloat16", lines=recs,
+         notes=notes, train_launches={k: v for k, v in train_used.items()
+                                      if v},
+         generate_chars=len(gen.getvalue()),
+         generate_launches={k: v for k, v in gen_used.items() if v})
+    fwd, bwd = LONG_MIX["bfloat16"]
+    if (len(losses) != 2 or not all(math.isfinite(v) for v in losses)
+            or losses[1] > 1.05 * losses[0]
+            or notes[-1:] != [NATIVE_BPE_LINE]
+            or not all(train_used[k] for k in ("kf_seg_rfft", fwd, bwd))
+            or any(train_used[k] for k in LONG_MIX["float32"])):
+        raise AssertionError(f"cli train-lm --preset 350m --seq {seq} "
+                             f"--bf16: {lines}, launched {train_used}")
+    if (not gen.getvalue().startswith("the ")
+            or gen_used["fused_decode_mix"] != layers * 7
+            or gen_used["banded_inverse"] != layers):
+        raise AssertionError(f"cli generate --preset 350m --seq {seq} "
+                             f"--bf16 printed {gen.getvalue()!r}, launched "
+                             f"{gen_used}")
+    return totals["serve"], totals["train"], totals["cli"]
+
+
 @contextlib.contextmanager
 def stdout_fd_to(path: str):
     """File descriptor 1, which child processes inherit, written to
@@ -2240,6 +2686,9 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 GEMMs accumulate in fp32 throughout, as the CPU's and the
+    # reference's (no bf16 partial sums in split-K reductions)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     from fft_tpu_torch import bench, cli
     from fft_tpu_torch.kernels import build
@@ -2252,6 +2701,13 @@ def main() -> int:
     )
 
     dev = torch.device("cuda")
+    start = time.perf_counter()
+
+    def mark(after: str) -> None:
+        """The run's seconds so far, after a phase (where the time goes)."""
+        emit(phase="elapsed", after=after,
+             seconds=time.perf_counter() - start)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2266,6 +2722,7 @@ def main() -> int:
 
     # 2. kernels vs plain ----------------------------------------------------
     kernel_results = phase_kernels(kc, sm, kd, dev)
+    mark("kernels")
 
     def reset_launches():
         kc.reset_launches()
@@ -2347,6 +2804,7 @@ def main() -> int:
     if not text.startswith("the "):
         raise AssertionError(f"cli generate printed {text!r}")
     emit(phase="cli_generate", prompt="the ", steps=steps, chars=len(text))
+    mark("tiny_serving")
 
     # 5. launches ------------------------------------------------------------
     serve_launches = launches()
@@ -2383,6 +2841,7 @@ def main() -> int:
     if missing or direct:
         raise AssertionError(f"kernels never launched on the training path: "
                              f"{missing}; direct kernels launched: {direct}")
+    mark("tiny_training")
 
     # 7. block -------------------------------------------------------------
     reset_launches()                          # the block's path starts here
@@ -2415,13 +2874,23 @@ def main() -> int:
         raise AssertionError(f"two-pass block: twopass_mix launched "
                              f"{twopass_launches['twopass_mix']} times in "
                              f"{forwards_on} forwards with the flag on")
+    mark("blocks")
 
     # 8. 350m --------------------------------------------------------------
     phase_350m_parity(dev, kc)
     serve_350m, train_350m = phase_350m(dev, kd, reset_launches, launches)
+    mark("350m")
 
     # 8b. 350m checkpoints, restart, BPE -----------------------------------
     serve_ckpt, train_ckpt = phase_350m_ckpt(dev, reset_launches, launches)
+    mark("350m_ckpt")
+
+    # 8c. 350m at seq 32768 and 65536, fp32 and bf16 -----------------------
+    phase_350m_long_parity(dev, kc)
+    mark("350m_long_parity")
+    serve_long, train_long, cli_long = phase_350m_long(dev, reset_launches,
+                                                       launches)
+    mark("350m_long")
 
     summary = []
     for name, cases in kernel_results.items():
@@ -2435,7 +2904,10 @@ def main() -> int:
                        serve_350m=serve_350m[name],
                        train_350m=train_350m[name],
                        ckpt_train_350m=train_ckpt[name],
-                       ckpt_serve_350m=serve_ckpt[name])
+                       ckpt_serve_350m=serve_ckpt[name],
+                       serve_350m_long=serve_long.get(name, 0),
+                       train_350m_long=train_long.get(name, 0),
+                       cli_350m_long=cli_long.get(name, 0))
         summary.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=sum(by_path.values()),
@@ -2445,7 +2917,9 @@ def main() -> int:
             device_ms=main_case["device_ms"],
             plain_device_ms=main_case["plain_device_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
-            library_ms=main_case["library_ms"], shape=main_case["shape"],
+            library_ms=main_case["library_ms"],
+            library_device_ms=main_case["library_device_ms"],
+            shape=main_case["shape"],
             cases=cases))
     print(smi, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

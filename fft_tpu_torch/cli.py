@@ -5,12 +5,14 @@ Usage:
     python -m fft_tpu_torch.cli train-lm [--preset tiny|350m] [--steps N]
         [--batch B] [--seq L] [--lr LR] [--data FILE] [--vocab-size V]
         [--ckpt DIR] [--ckpt-every N] [--resume] [--metrics FILE]
-        [--log-every N] [--eval-every N] [--seed S] [--device cuda|cpu]
+        [--log-every N] [--eval-every N] [--seed S] [--bf16]
+        [--device cuda|cpu]
     python -m fft_tpu_torch.cli tokenize --out FILE [--data TEXT]
         [--vocab-size V] [--max-merges M] [--chars N]
     python -m fft_tpu_torch.cli generate [--preset tiny|350m] [--seq L]
         [--ckpt DIR] [--vocab FILE] [--vocab-size V] [--prompt TEXT]
-        [--steps N] [--temperature T] [--seed S] [--device cuda|cpu]
+        [--steps N] [--temperature T] [--seed S] [--bf16]
+        [--device cuda|cpu]
 
 ``train-lm`` and ``generate`` run on the card unless ``--device cpu`` is
 given; without a card they fail at once.  Training reads a text file or a
@@ -23,13 +25,18 @@ synthetic corpus and the 350M on a BPE corpus built from it (cached under
 latest checkpoint (``python -m fft_tpu_torch.train.supervisor`` restarts a
 failed run that way).  ``generate`` takes weights from ``--ckpt`` (else
 random from ``--seed``) and a BPE tokenizer from ``--vocab`` (else bytes).
-Flags of the JAX CLI whose modules are still queued raise
-``NotImplementedError`` naming their ROADMAP.md item.
+``--bf16`` runs the blocks in ``compute_dtype="bfloat16"`` (the parameters
+stay fp32), as the JAX CLI's; on the card the tiny preset's causal mix
+(#6, #10) has no bf16 variant yet and raises naming its ROADMAP.md item,
+while the 350M's long chunks run #7's and #11's bf16 instances.  Flags of
+the JAX CLI whose modules are still queued raise ``NotImplementedError``
+naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import pathlib
@@ -41,7 +48,6 @@ import torch
 
 # ROADMAP.md items ('Modules to port') of the flags not ported yet
 _PARALLEL = "module 7c, parallel/ on torch.distributed"
-_BF16 = "bf16 fast mode"
 
 
 def _not_ported(flag: str, item: str) -> NotImplementedError:
@@ -51,12 +57,17 @@ def _not_ported(flag: str, item: str) -> NotImplementedError:
 
 
 def _lm_config(args):
-    """The preset's LMConfig at ``--seq`` (and ``--vocab-size``, if given)."""
+    """The preset's LMConfig at ``--seq`` (and ``--vocab-size``, if given),
+    its blocks in bf16 with ``--bf16``."""
     from fft_tpu_torch.models.lm import spectre_350m_config, tiny_lm_config
     vocab = ({"vocab_size": args.vocab_size}
              if getattr(args, "vocab_size", None) else {})
     make = spectre_350m_config if args.preset == "350m" else tiny_lm_config
-    return make(seq=args.seq, **vocab)
+    cfg = make(seq=args.seq, **vocab)
+    if args.bf16:
+        cfg = dataclasses.replace(cfg, block=dataclasses.replace(
+            cfg.block, compute_dtype="bfloat16"))
+    return cfg
 
 
 def _default_bpe_corpus(vocab_size: int) -> str:
@@ -116,7 +127,6 @@ def cmd_train_lm(args) -> None:
     from fft_tpu_torch.utils import MetricsLogger, resolve_device
 
     for flag, value, item in (
-            ("--bf16", args.bf16, _BF16),
             ("--profile", args.profile, "module 7b, utils/prof.py"),
             ("--dp", args.dp > 1, _PARALLEL), ("--sp", args.sp > 1, _PARALLEL),
             ("--tp", args.tp > 1, _PARALLEL), ("--pp", args.pp > 1, _PARALLEL)):
@@ -234,8 +244,6 @@ def cmd_generate(args) -> None:
     from fft_tpu_torch.models.lm import lm_generate, lm_init
     from fft_tpu_torch.utils import resolve_device
 
-    if args.bf16:
-        raise _not_ported("--bf16", _BF16)
     device = resolve_device(args.device)
     cfg = _lm_config(args)
     model = lm_init(cfg, torch.Generator().manual_seed(args.seed), device)

@@ -7,6 +7,15 @@
 //   fused_causal_mix_v3     <- _fused_causal_call_v3      (:931, pallas_call :1020)
 //   fused_causal_mix_bwd_v3 <- _fused_causal_bwd_call_v3  (:2307, pallas_call :2413)
 //
+// #7 and #11 come in two instances each, by the activations' type T: fp32
+// and bf16 (the JAX package's fast mode, compute_dtype="bfloat16").  In the
+// bf16 instances v and ybar are read as bf16 and y and vbar written as
+// bf16; the transforms, the banded sums, the (B, nc, C+1, d) scratch and
+// K and Kbar stay fp32.  The TPU kernels' bf16 copy of K, bf16 scratch and
+// bf16 K-gradient partials (pallas_causal.py:947-949, :2326-2336) exist
+// to fit its VMEM and are not copied: the scratch here lives in HBM, and
+// Kbar's group sums run in a fixed order with no partials.
+//
 // #7 and #11 compute what #6 and #10 compute (causal_fft.cu, causal_bwd.cu);
 // what differs is the chunk.  At C = 2048 one channel's nc segment spectra
 // are nc * 16 KB, so no block holds a channel tile's spectra (#6's design)
@@ -65,6 +74,7 @@
 // (the first from the staging buffer, two 16-element register passes, a
 // radix-2 pass) and its store run.
 
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 
 #include "causal_common.cuh"
@@ -90,6 +100,44 @@ constexpr int kPairT = 4;     // Kbar: a 4 x 4 tile of (c, s) pairs a round
 // a row of Kbar partials in shared memory, padded: the group sums read
 // one partial of 16 rows at once, which then sit in distinct banks
 constexpr int kPartRow = kRowThreads + 1;
+
+// The activations' type T of #7 and #11 (v, ybar in; y, vbar out), read
+// and written as channel pairs: a row of x2 holds d / 2 Pair values.
+// load_async copies one pair into a float2 slot of shared memory (fp32: 8
+// bytes as they are; bf16: its 4 bytes into the slot's first half), and
+// widen turns the slot the calling thread copied into a float2 once its
+// copies have landed (kWidens: bf16 only).  store rounds a pair to T
+// (bf16: to nearest even, as torch's .to(torch.bfloat16)).
+template <class T> struct Act;
+
+template <> struct Act<float> {
+  using Pair = float2;
+  static constexpr bool kWidens = false;
+  __device__ __forceinline__ static void load_async(float2* dst,
+                                                    const Pair* src) {
+    __pipeline_memcpy_async(dst, src, sizeof(Pair));
+  }
+  __device__ __forceinline__ static void widen(float2*) {}
+  __device__ __forceinline__ static Pair store(float a, float b) {
+    return make_float2(a, b);
+  }
+};
+
+template <> struct Act<__nv_bfloat16> {
+  using Pair = __nv_bfloat162;
+  static constexpr bool kWidens = true;
+  __device__ __forceinline__ static void load_async(float2* dst,
+                                                    const Pair* src) {
+    __pipeline_memcpy_async(dst, src, sizeof(Pair));
+  }
+  __device__ __forceinline__ static void widen(float2* slot) {
+    const Pair h = *reinterpret_cast<const Pair*>(slot);
+    *slot = __bfloat1622float2(h);
+  }
+  __device__ __forceinline__ static Pair store(float a, float b) {
+    return __floats2bfloat162_rn(a, b);
+  }
+};
 
 // Async copies of the twiddles of an n-point transform (n = 2^log2n), a
 // table for each radix-2 stage: span H (1, 2, .., n/2) at tws[H - 1 + p] =
@@ -264,18 +312,23 @@ seg_rfft_kernel(const float* __restrict__ x, const float2* __restrict__ tw_g,
 // Async copies of window s of x2 (rows (s-1)C .. (s+1)C-1; with adj, C
 // zeros then rows sC .. sC+C-1) into tile z, row u holding time bitrev(u)
 // (the decimation in time's input order); zeros are stored.  Not
-// committed.
-template <int NP>
-__device__ void load_window(float2* z, const float2* x2, int s, bool adj,
-                            int chunk, int log2n, size_t row2) {
+// committed.  With kWiden (after the copies have landed) each thread
+// instead widens the slots it copied (Act<T>::widen).
+template <int NP, class T, bool kWiden = false>
+__device__ void load_window(float2* z, const typename Act<T>::Pair* x2,
+                            int s, bool adj, int chunk, int log2n,
+                            size_t row2) {
   for (int i = threadIdx.x; i < 2 * chunk * NP; i += blockDim.x) {
     const int p = i % NP, t = bitrev(i / NP, log2n);
     const long row = (long)(s - 1) * chunk + t;
-    if (adj ? t >= chunk : row >= 0)
-      __pipeline_memcpy_async(z + i, x2 + (size_t)row * row2 + p,
-                              sizeof(float2));
-    else
+    if (adj ? t >= chunk : row >= 0) {
+      if (kWiden)
+        Act<T>::widen(z + i);
+      else
+        Act<T>::load_async(z + i, x2 + (size_t)row * row2 + p);
+    } else if (!kWiden) {
       z[i] = make_float2(0.f, 0.f);
+    }
   }
 }
 
@@ -287,10 +340,11 @@ __device__ void load_window(float2* z, const float2* x2, int s, bool adj,
 // there zeroed: the adjoint of the partial irFFT rows C..2C-1
 // (pallas_causal.py:2342-2348).  A block takes one channel tile and
 // windows blockIdx.y * spb .. + spb - 1 in turn.  Shared memory: the
-// 2C-entry stage twiddle table and the (2C, NP) complex tile.
-template <int NP, bool kWide>
+// 2C-entry stage twiddle table and the (2C, NP) complex tile.  T: the
+// type of v and ybar.
+template <int NP, bool kWide, class T>
 __global__ void __launch_bounds__(kFftThreads)
-window_fft_kernel(const float* __restrict__ v, const float* __restrict__ ybar,
+window_fft_kernel(const T* __restrict__ v, const T* __restrict__ ybar,
                   const float2* __restrict__ tw_g, float* __restrict__ vfr,
                   float* __restrict__ vfi, float* __restrict__ afr,
                   float* __restrict__ afi, int batch, int nc, int chunk,
@@ -303,9 +357,10 @@ window_fft_kernel(const float* __restrict__ v, const float* __restrict__ ybar,
   const int tid = threadIdx.x, nt = blockDim.x;
   float2* tws = smem2;                          // stage_twiddles' table
   float2* z = tws + n2;                         // z[u * NP + p]
-  const size_t row2 = (size_t)d / 2;            // float2 per row
-  const float2* x2 = reinterpret_cast<const float2*>(adj ? ybar : v) +
-                     (size_t)b * nc * chunk * row2 + c0 / 2;
+  const size_t row2 = (size_t)d / 2;            // pairs per row
+  const typename Act<T>::Pair* x2 =
+      reinterpret_cast<const typename Act<T>::Pair*>(adj ? ybar : v) +
+      (size_t)b * nc * chunk * row2 + c0 / 2;
   const int s0 = blockIdx.y * spb;
   const int s1 = nc - s0 < spb ? nc : s0 + spb;
 
@@ -314,9 +369,11 @@ window_fft_kernel(const float* __restrict__ v, const float* __restrict__ ybar,
   float2* or2 = reinterpret_cast<float2*>(adj ? afr : vfr);
   float2* oi2 = reinterpret_cast<float2*>(adj ? afi : vfi);
   for (int s = s0; s < s1; ++s) {
-    load_window<NP>(z, x2, s, adj, chunk, log2n, row2);
+    load_window<NP, T>(z, x2, s, adj, chunk, log2n, row2);
     __pipeline_commit();
     __pipeline_wait_prior(0);
+    if (Act<T>::kWidens)
+      load_window<NP, T, true>(z, x2, s, adj, chunk, log2n, row2);
     __syncthreads();
     long_fft<true, kWide>(z, log2n, NP, tws);
     for (int i = tid; i < f2 * NP; i += nt) {
@@ -353,12 +410,12 @@ window_fft_kernel(const float* __restrict__ v, const float* __restrict__ ybar,
 // one inverse FFT of (-1)^f H_s + H_{s+1}, rows 0..C-1.
 // grid = (d / 2NP, nc / spb, B): a block takes one channel tile and spb
 // chunks in turn.  The decimation in frequency leaves time t in tile row
-// bitrev(t): the store walks the rows in order.
-template <bool kAdjoint, int NP, bool kWide>
+// bitrev(t): the store walks the rows in order.  T: the type of out.
+template <bool kAdjoint, int NP, bool kWide, class T>
 __global__ void __launch_bounds__(kFftThreads)
 chunk_inverse_kernel(const float* __restrict__ xr,
                      const float* __restrict__ xi,
-                     const float2* __restrict__ tw_g, float* __restrict__ out,
+                     const float2* __restrict__ tw_g, T* __restrict__ out,
                      int nc, int chunk, int log2n, int d, int spb) {
   extern __shared__ float2 smem2[];
   const int n2 = 2 * chunk, f2 = chunk + 1;
@@ -425,13 +482,14 @@ chunk_inverse_kernel(const float* __restrict__ xr,
     __pipeline_wait_prior(0);
     __syncthreads();
     long_fft<false, kWide>(z, log2n, NP, tws);
-    float2* o2 = reinterpret_cast<float2*>(out) +
-                 ((size_t)b * nc + s) * chunk * row2 + c0 / 2;
+    typename Act<T>::Pair* o2 =
+        reinterpret_cast<typename Act<T>::Pair*>(out) +
+        ((size_t)b * nc + s) * chunk * row2 + c0 / 2;
     for (int i = tid; i < n2 * NP; i += nt) {
       const int p = i % NP, t = bitrev(i / NP, log2n) - t0;
       if (t < 0 || t >= chunk) continue;
       const float2 r = z[i];
-      o2[(size_t)t * row2 + p] = make_float2(r.x * scale, r.y * scale);
+      o2[(size_t)t * row2 + p] = Act<T>::store(r.x * scale, r.y * scale);
     }
     __syncthreads();                            // z is free again
   }
@@ -747,18 +805,28 @@ bool wide_passes(int log2n, int np, int threads) {
 }
 
 // What the C entries pass down (the backward's ybar, rr/ri and Kbar planes
-// are null in the forward).
+// are null in the forward).  v, ybar and out (y or vbar) are of the
+// instance's activation type.
 struct LongArgs {
   bool bwd;
-  const float *v, *kfr, *kfi, *ybar, *tw;
-  float *vfr, *vfi, *rr, *ri, *out, *kbr, *kbi;
+  const void *v;
+  const float *kfr, *kfi;
+  const void *ybar;
+  const float *tw;
+  float *vfr, *vfi, *rr, *ri;
+  void *out;
+  float *kbr, *kbi;
   int b, nc, chunk, d, cols, threads;
   cudaStream_t st;
 };
 
-// The three launches of #7 (fwd) or of #11 (bwd) on the NP-pair tile.
-template <int NP, bool kWide>
+// The three launches of #7 (fwd) or of #11 (bwd) on the NP-pair tile, T
+// the activations' type.
+template <int NP, bool kWide, class T>
 int launch_long(const LongArgs& a) {
+  const T* v = static_cast<const T*>(a.v);
+  const T* ybar = static_cast<const T*>(a.ybar);
+  T* out = static_cast<T*>(a.out);
   const float2* tw2 = reinterpret_cast<const float2*>(a.tw);
   const int log2n = log2_of(2 * a.chunk);
   const size_t smem = fft_tile_smem(a.chunk, NP);
@@ -769,55 +837,56 @@ int launch_long(const LongArgs& a) {
   const dim3 bin_grid(bin_blocks_x(a.d, a.cols),
                       (a.chunk + 1 + kBinRows - 1) / kBinRows, a.b);
   const ProducerK k{a.kfr, a.kfi, a.nc, a.chunk + 1, a.cols};
-  cudaError_t err = set_smem(window_fft_kernel<NP, kWide>, smem);
+  cudaError_t err = set_smem(window_fft_kernel<NP, kWide, T>, smem);
   if (err != cudaSuccess) return (int)err;
-  window_fft_kernel<NP, kWide><<<dim3(a.d / (2 * NP), a.nc / spb,
-                                      a.bwd ? 2 * a.b : a.b),
-                                 a.threads, smem, a.st>>>(
-      a.v, a.ybar, tw2, a.vfr, a.vfi, a.rr, a.ri, a.b, a.nc, a.chunk, log2n,
+  window_fft_kernel<NP, kWide, T><<<dim3(a.d / (2 * NP), a.nc / spb,
+                                         a.bwd ? 2 * a.b : a.b),
+                                    a.threads, smem, a.st>>>(
+      v, ybar, tw2, a.vfr, a.vfi, a.rr, a.ri, a.b, a.nc, a.chunk, log2n,
       a.d, spb);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (a.bwd) {
     bwd_bins_kernel<<<bin_grid, kBinThreads, kBinSmem, a.st>>>(
         a.rr, a.ri, a.vfr, a.vfi, k, a.kbr, a.kbi, a.nc, a.chunk, a.d);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    err = set_smem(chunk_inverse_kernel<true, NP, kWide>, smem);
+    err = set_smem(chunk_inverse_kernel<true, NP, kWide, T>, smem);
     if (err != cudaSuccess) return (int)err;
-    chunk_inverse_kernel<true, NP, kWide><<<fft_grid, a.threads, smem,
-                                            a.st>>>(
-        a.vfr, a.vfi, tw2, a.out, a.nc, a.chunk, log2n, a.d, spb);
+    chunk_inverse_kernel<true, NP, kWide, T><<<fft_grid, a.threads, smem,
+                                               a.st>>>(
+        a.vfr, a.vfi, tw2, out, a.nc, a.chunk, log2n, a.d, spb);
   } else {
     banded_bins_kernel<<<bin_grid, kBinThreads, kBinSmem, a.st>>>(
         a.vfr, a.vfi, k, a.nc, a.chunk, a.d);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    err = set_smem(chunk_inverse_kernel<false, NP, kWide>, smem);
+    err = set_smem(chunk_inverse_kernel<false, NP, kWide, T>, smem);
     if (err != cudaSuccess) return (int)err;
-    chunk_inverse_kernel<false, NP, kWide><<<fft_grid, a.threads, smem,
-                                             a.st>>>(
-        a.vfr, a.vfi, tw2, a.out, a.nc, a.chunk, log2n, a.d, spb);
+    chunk_inverse_kernel<false, NP, kWide, T><<<fft_grid, a.threads, smem,
+                                                a.st>>>(
+        a.vfr, a.vfi, tw2, out, a.nc, a.chunk, log2n, a.d, spb);
   }
   return (int)cudaGetLastError();
 }
 
-template <int NP>
+template <int NP, class T>
 int launch_long_tile(const LongArgs& a) {
   return wide_passes(log2_of(2 * a.chunk), NP, a.threads)
-             ? launch_long<NP, true>(a)
-             : launch_long<NP, false>(a);
+             ? launch_long<NP, true, T>(a)
+             : launch_long<NP, false, T>(a);
 }
 
 // np: channel pairs a transform block (1, 2 or 4); cudaErrorInvalidValue
 // for other plans and shapes.
+template <class T>
 int launch_long_np(const LongArgs& a, int np) {
   if (!long_shape_ok(a.chunk, a.d, a.cols, np, a.threads))
     return (int)cudaErrorInvalidValue;
   switch (np) {
     case 1:
-      return launch_long_tile<1>(a);
+      return launch_long_tile<1, T>(a);
     case 2:
-      return launch_long_tile<2>(a);
+      return launch_long_tile<2, T>(a);
     case 4:
-      return launch_long_tile<4>(a);
+      return launch_long_tile<4, T>(a);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -861,32 +930,61 @@ int fft_kf_seg_rfft(const float* kt, const float* tw, float* kfr, float* kfi,
 // (B, nc, C+1, nc*cols).  vfr/vfi: (B, nc, C+1, d) scratch.  np: channel
 // pairs a transform block (1, 2 or 4); threads: its threads (a multiple of
 // 32 up to 512).  Returns cudaErrorInvalidValue for other plans and shapes.
-int fft_fused_causal_mix_v3(const float* v, const float* kfr,
+// v and y fp32 (fft_fused_causal_mix_v3) or bf16 (_bf16).
+int fft_fused_causal_mix_v3(const void* v, const float* kfr,
                             const float* kfi, const float* tw, float* vfr,
-                            float* vfi, float* out, int b, int nc, int chunk,
+                            float* vfi, void* out, int b, int nc, int chunk,
                             int d, int cols, int np, int threads,
                             void* stream) {
   const LongArgs a{false,   v,       kfr,     kfi, nullptr, tw,
                    vfr,     vfi,     nullptr, nullptr,      out,
                    nullptr, nullptr, b,       nc,  chunk,   d,
                    cols,    threads, static_cast<cudaStream_t>(stream)};
-  return launch_long_np(a, np);
+  return launch_long_np<float>(a, np);
+}
+
+int fft_fused_causal_mix_v3_bf16(const void* v, const float* kfr,
+                                 const float* kfi, const float* tw,
+                                 float* vfr, float* vfi, void* out, int b,
+                                 int nc, int chunk, int d, int cols, int np,
+                                 int threads, void* stream) {
+  const LongArgs a{false,   v,       kfr,     kfi, nullptr, tw,
+                   vfr,     vfi,     nullptr, nullptr,      out,
+                   nullptr, nullptr, b,       nc,  chunk,   d,
+                   cols,    threads, static_cast<cudaStream_t>(stream)};
+  return launch_long_np<__nv_bfloat16>(a, np);
 }
 
 // vbar (B, N, d) and Kbar planes (B, nc, C+1, nc*cols) from v, ybar (B, N,
 // d) and producer-layout K planes.  vfr/vfi, rr/ri: (B, nc, C+1, d)
 // scratch; Vbar is written over V.  np, threads: as fft_fused_causal_mix_v3.
-int fft_fused_causal_mix_bwd_v3(const float* v, const float* kfr,
-                                const float* kfi, const float* ybar,
+// v, ybar and vbar fp32 (fft_fused_causal_mix_bwd_v3) or bf16 (_bf16); K
+// and Kbar fp32 in both.
+int fft_fused_causal_mix_bwd_v3(const void* v, const float* kfr,
+                                const float* kfi, const void* ybar,
                                 const float* tw, float* vfr, float* vfi,
-                                float* rr, float* ri, float* vbar,
+                                float* rr, float* ri, void* vbar,
                                 float* kbr, float* kbi, int b, int nc,
                                 int chunk, int d, int cols, int np,
                                 int threads, void* stream) {
   const LongArgs a{true, v,  kfr,  kfi, ybar, tw,    vfr, vfi,  rr,
                    ri,   vbar, kbr, kbi, b,    nc,    chunk, d, cols,
                    threads, static_cast<cudaStream_t>(stream)};
-  return launch_long_np(a, np);
+  return launch_long_np<float>(a, np);
+}
+
+int fft_fused_causal_mix_bwd_v3_bf16(const void* v, const float* kfr,
+                                     const float* kfi, const void* ybar,
+                                     const float* tw, float* vfr,
+                                     float* vfi, float* rr, float* ri,
+                                     void* vbar, float* kbr, float* kbi,
+                                     int b, int nc, int chunk, int d,
+                                     int cols, int np, int threads,
+                                     void* stream) {
+  const LongArgs a{true, v,  kfr,  kfi, ybar, tw,    vfr, vfi,  rr,
+                   ri,   vbar, kbr, kbi, b,    nc,    chunk, d, cols,
+                   threads, static_cast<cudaStream_t>(stream)};
+  return launch_long_np<__nv_bfloat16>(a, np);
 }
 
 }  // extern "C"

@@ -35,9 +35,17 @@ at every shape of the tiny LM's paths; the direct-DFT kernel of
 (its plan from ``banded_fft_plan``), which is also the direct
 ``fused_causal_mix``'s second launch.
 
-Each public function takes fp32 tensors.  A tensor on the CPU goes to the
-plain version (``*_ref``); a tensor on a CUDA device goes to the kernel, or
-the call raises.  Nothing falls back.  Every kernel launch adds one to
+Each public function takes fp32 tensors, and #7 and #11 also bf16
+activations (the JAX package's fast mode): v and ybar in bf16, y and vbar
+out in v's dtype, K and Kbar fp32, through the ``_bf16`` instances of
+their kernels (launch names ``fused_causal_mix_v3_bf16``,
+``fused_causal_mix_bwd_v3_bf16``), which compute in fp32 as the fp32 ones
+do.  A bf16 tensor on the card that would reach #6 or #10 (or their
+direct kernels) raises ``NotImplementedError`` naming the ROADMAP item
+that ports their bf16 variants; it is never cast to fp32.  A tensor on the
+CPU goes to the plain version (``*_ref``: bf16 in, fp32 inside, the
+output cast to v's dtype); a tensor on a CUDA device goes to the kernel,
+or the call raises.  Nothing falls back.  Every kernel launch adds one to
 ``LAUNCHES[name]``, so a run can show that it went through the kernels.
 
 ``kf_spectra``, ``kf_seg_rfft``, ``fused_causal_mix`` and
@@ -87,13 +95,16 @@ import numpy as np
 import torch
 
 from fft_tpu_torch.kernels.common import (
-    SMEM_MAX, check, launch, on_cpu, stage_twiddles, twiddles,
+    SMEM_MAX, check, launch, no_bf16_variant, on_cpu, stage_twiddles,
+    twiddles,
 )
 from fft_tpu_torch.ops import fftops
 
 LAUNCHES = {"kf_spectra": 0, "fused_causal_mix": 0, "banded_inverse": 0,
             "fused_causal_mix_bwd": 0, "kf_seg_rfft": 0,
             "fused_causal_mix_v3": 0, "fused_causal_mix_bwd_v3": 0,
+            "fused_causal_mix_v3_bf16": 0,
+            "fused_causal_mix_bwd_v3_bf16": 0,
             "kf_spectra_direct": 0, "fused_causal_mix_direct": 0,
             "fused_causal_mix_bwd_direct": 0}
 
@@ -481,7 +492,7 @@ def segment_spectra(v: torch.Tensor, chunk: int) -> torch.Tensor:
 
 def fused_causal_mix_ref(v, kfr, kfi, chunk: int, cols: int) -> torch.Tensor:
     """Segment rFFTs + banded sum + partial irFFT; K in the producer layout
-    (B, nc_j, F2, nc_c*cols)."""
+    (B, nc_j, F2, nc_c*cols).  Computed in fp32; y in v's dtype."""
     b, n, d = v.shape
     nc = n // chunk
     f2 = chunk + 1
@@ -489,7 +500,7 @@ def fused_causal_mix_ref(v, kfr, kfi, chunk: int, cols: int) -> torch.Tensor:
     kr = kfr.reshape(b, nc, f2, nc, cols).permute(0, 3, 1, 2, 4)
     ki = kfi.reshape(b, nc, f2, nc, cols).permute(0, 3, 1, 2, 4)
     y = banded_inverse_ref(vf.real, vf.imag, kr, ki, chunk)
-    return y.reshape(b, n, d)
+    return y.reshape(b, n, d).to(v.dtype)
 
 
 def kf_seg_rfft_ref(kt, chunk: int):
@@ -516,7 +527,8 @@ def fused_causal_mix_bwd_ref(v, kfr, kfi, ybar, chunk: int, cols: int):
     :1096-1182), with torch.fft and index arithmetic in place of the one-hot
     group maps.  With A = R + iI the cotangent of each chunk's banded sum:
     Kbar[dl] = group-sum(A_c conj(V_{c-dl})), Vbar_j = sum_c conj(K[c-j])
-    A_c, then the adjoint of the segment rFFT and the overlap-add."""
+    A_c, then the adjoint of the segment rFFT and the overlap-add.
+    Computed in fp32; vbar in v's dtype, Kbar in K's (fp32)."""
     b, n, d = v.shape
     nc = n // chunk
     f2 = chunk + 1
@@ -549,7 +561,7 @@ def fused_causal_mix_bwd_ref(v, kfr, kfi, ybar, chunk: int, cols: int):
     segbar = 2 * chunk * fftops.irfft(vbar_f * w, 2 * chunk, dim=-2)
     vbar = segbar[:, :, chunk:].clone()
     vbar[:, :-1] += segbar[:, 1:, :chunk]
-    return vbar.reshape(b, n, d), kbar.real.contiguous(), \
+    return vbar.reshape(b, n, d).to(v.dtype), kbar.real.contiguous(), \
         kbar.imag.contiguous()
 
 
@@ -658,11 +670,13 @@ def _fused_causal_mix(v, kfr, kfi, chunk: int, cols: int) -> torch.Tensor:
     ``_fused_causal_call_v3`` (:931), which JAX takes past its v2 kernel's
     memory: three launches of ``csrc/causal_long.cu`` through a (B, nc,
     F2, d) scratch (segment FFTs, the bin-major banded sum in place, one
-    inverse FFT per chunk)."""
+    inverse FFT per chunk).  bf16 v takes #7's bf16 instance
+    (``fused_causal_mix_v3_bf16``) and gives bf16 y; in #6's range it
+    raises (``_mix_kernel``)."""
     if on_cpu(v, kfr, kfi):
         return fused_causal_mix_ref(v, kfr, kfi, chunk, cols)
     name = _mix_kernel("fused_causal_mix", v.shape[1], chunk, v.shape[2],
-                       cols)
+                       cols, v.dtype)
     return _launch_mix(name, v, kfr, kfi, chunk, cols)
 
 
@@ -678,23 +692,31 @@ def fused_causal_mix_direct(v, kfr, kfi, chunk: int, cols: int):
     if n % chunk or not fused_mix_supported(n // chunk, chunk, d, cols):
         raise ValueError(f"fused_causal_mix_direct: unsupported shape n={n} "
                          f"chunk={chunk} d={d} cols={cols}")
+    if v.dtype != torch.float32:
+        raise no_bf16_variant("fused_causal_mix_direct (#6)")
     return _launch_mix("fused_causal_mix_direct", v, kfr, kfi, chunk, cols)
 
 
+def _act_dtype(name: str) -> torch.dtype:
+    """The activations' dtype of launch ``name``: bf16 for the _bf16
+    instances, else fp32."""
+    return torch.bfloat16 if name.endswith("_bf16") else torch.float32
+
+
 def _launch_mix(name: str, v, kfr, kfi, chunk: int, cols: int, plan=None):
-    """Launch ``name`` (fused_causal_mix, its _direct or its _v3) on CUDA
-    tensors; ``plan``: the FFT kernel's (np, gs), ``mix_fft_plan``'s unless
-    given, _v3's transform tile (np, threads), ``LONG_PLAN`` unless given,
-    or _direct's banded_fft_kernel tile (np, threads),
-    ``banded_fft_plan``'s unless given."""
+    """Launch ``name`` (fused_causal_mix, its _direct, its _v3 or _v3_bf16)
+    on CUDA tensors; ``plan``: the FFT kernel's (np, gs), ``mix_fft_plan``'s
+    unless given, _v3's transform tile (np, threads), ``LONG_PLAN`` unless
+    given, or _direct's banded_fft_kernel tile (np, threads),
+    ``banded_fft_plan``'s unless given.  y in v's dtype."""
     b, n, d = v.shape
     nc = n // chunk
     f2 = chunk + 1
-    check("v", v, (b, n, d))
+    check("v", v, (b, n, d), _act_dtype(name))
     check("kfr", kfr, (b, nc, f2, nc * cols))
     check("kfi", kfi, (b, nc, f2, nc * cols))
     tw = twiddles(2 * chunk, v.device)
-    out = torch.empty((b, n, d), dtype=torch.float32, device=v.device)
+    out = torch.empty((b, n, d), dtype=v.dtype, device=v.device)
     if name == "fused_causal_mix":
         launch(LAUNCHES, name, v.device,
                v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), tw.data_ptr(),
@@ -703,7 +725,7 @@ def _launch_mix(name: str, v, kfr, kfi, chunk: int, cols: int, plan=None):
         return out
     vfr = torch.empty((b, nc, f2, d), dtype=torch.float32, device=v.device)
     vfi = torch.empty_like(vfr)
-    if name == "fused_causal_mix_v3":
+    if name.startswith("fused_causal_mix_v3"):
         launch(LAUNCHES, name, v.device,
                v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), tw.data_ptr(),
                vfr.data_ptr(), vfi.data_ptr(), out.data_ptr(), b, nc, chunk,
@@ -717,21 +739,29 @@ def _launch_mix(name: str, v, kfr, kfi, chunk: int, cols: int, plan=None):
     return out
 
 
-def _mix_kernel(base: str, n: int, chunk: int, d: int, cols: int) -> str:
+def _mix_kernel(base: str, n: int, chunk: int, d: int, cols: int,
+                dtype: torch.dtype = torch.float32) -> str:
     """The kernel of ``base`` (fused_causal_mix or its _bwd) that takes
-    this shape on the card: #6's (#10's) where ``fused_mix_supported``
-    holds, else the long-chunk one (_v3); raises where neither does.  In
-    that range each is the FFT kernel of causal_fft.cu where its plan
+    this shape and activation dtype on the card: #6's (#10's) where
+    ``fused_mix_supported`` holds, else the long-chunk one (_v3, or
+    _v3_bf16 for bf16 activations); raises where neither does.  In #6's
+    range each is the FFT kernel of causal_fft.cu where its plan
     (``mix_fft_plan``, ``bwd_fft_plan``) has one, else the direct-DFT one
-    (_direct)."""
+    (_direct); neither has a bf16 variant yet, so bf16 raises there."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{base}: float32 or bfloat16 activations, got "
+                        f"{dtype}")
     nc = n // chunk
     if nc * chunk == n and fused_mix_supported(nc, chunk, d, cols):
+        if dtype != torch.float32:
+            raise no_bf16_variant(
+                f"{base} ({'#6' if base == 'fused_causal_mix' else '#10'})")
         plan = mix_fft_plan if base == "fused_causal_mix" else bwd_fft_plan
         if plan(nc, chunk, d, cols) is None:
             return base + "_direct"
         return base
     if nc * chunk == n and fused_mix_v3_supported(nc, chunk, d, cols):
-        return base + "_v3"
+        return base + ("_v3_bf16" if dtype == torch.bfloat16 else "_v3")
     raise ValueError(f"{base}: unsupported shape n={n} chunk={chunk} d={d} "
                      f"cols={cols} (neither {base} nor {base}_v3 takes it)")
 
@@ -855,11 +885,13 @@ def fused_causal_mix_bwd(v, kfr, kfi, ybar, chunk: int, cols: int):
     and of ybar's adjoint partial irFFT in one, Kbar (each gate group
     summed through shared memory in a fixed order) and Vbar bin-major in
     one, and the adjoint segment FFT with the overlap-add; Kbar is exactly
-    0 for c < delta."""
+    0 for c < delta.  bf16 v and ybar take #11's bf16 instance
+    (``fused_causal_mix_bwd_v3_bf16``): vbar bf16, Kbar fp32 (the primal
+    dtypes); in #10's range bf16 raises (``_mix_kernel``)."""
     if on_cpu(v, kfr, kfi, ybar):
         return fused_causal_mix_bwd_ref(v, kfr, kfi, ybar, chunk, cols)
     name = _mix_kernel("fused_causal_mix_bwd", v.shape[1], chunk, v.shape[2],
-                       cols)
+                       cols, v.dtype)
     return _launch_bwd(name, v, kfr, kfi, ybar, chunk, cols)
 
 
@@ -875,23 +907,26 @@ def fused_causal_mix_bwd_direct(v, kfr, kfi, ybar, chunk: int, cols: int):
     if n % chunk or not fused_mix_supported(n // chunk, chunk, d, cols):
         raise ValueError(f"fused_causal_mix_bwd_direct: unsupported shape "
                          f"n={n} chunk={chunk} d={d} cols={cols}")
+    if v.dtype != torch.float32:
+        raise no_bf16_variant("fused_causal_mix_bwd_direct (#10)")
     return _launch_bwd("fused_causal_mix_bwd_direct", v, kfr, kfi, ybar,
                        chunk, cols)
 
 
 def _launch_bwd(name: str, v, kfr, kfi, ybar, chunk: int, cols: int,
                 plan=None):
-    """Launch ``name`` (fused_causal_mix_bwd, its _direct or its _v3) on
-    CUDA tensors; ``plan``: the FFT kernel's (np, gs, bt),
+    """Launch ``name`` (fused_causal_mix_bwd, its _direct, its _v3 or
+    _v3_bf16) on CUDA tensors; ``plan``: the FFT kernel's (np, gs, bt),
     ``bwd_fft_plan``'s unless given, or _v3's transform tile (np,
-    threads), ``LONG_PLAN`` unless given."""
+    threads), ``LONG_PLAN`` unless given.  vbar in v's dtype, Kbar fp32."""
     b, n, d = v.shape
     nc = n // chunk
     f2 = chunk + 1
-    check("v", v, (b, n, d))
+    act = _act_dtype(name)
+    check("v", v, (b, n, d), act)
     check("kfr", kfr, (b, nc, f2, nc * cols))
     check("kfi", kfi, (b, nc, f2, nc * cols))
-    check("ybar", ybar, (b, n, d))
+    check("ybar", ybar, (b, n, d), act)
     tw = twiddles(2 * chunk, v.device)
     vbar = torch.empty_like(v)
     kbr = torch.empty_like(kfr)
@@ -905,7 +940,7 @@ def _launch_bwd(name: str, v, kfr, kfi, ybar, chunk: int, cols: int,
         scratch = [torch.empty((b, nc, f2, d), dtype=torch.float32,
                                device=v.device) for _ in range(4)]
         tile = (tuple(plan or LONG_PLAN)
-                if name == "fused_causal_mix_bwd_v3" else ())
+                if name.startswith("fused_causal_mix_bwd_v3") else ())
     launch(LAUNCHES, name, v.device,
            v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), ybar.data_ptr(),
            tw.data_ptr(), *(t.data_ptr() for t in scratch),

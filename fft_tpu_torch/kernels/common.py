@@ -13,6 +13,18 @@ from fft_tpu_torch.kernels.build import load_library
 # dynamic shared memory a Hopper block may use
 SMEM_MAX = 232448
 
+# The ROADMAP.md item ('Modules to port') that ports the bf16 variants of
+# the kernels that have none yet (#1-#4, #6, #10)
+BF16_QUEUED = "bf16 for the tiny LM and the non-causal block"
+
+
+def no_bf16_variant(kernel: str) -> NotImplementedError:
+    """The error of a bf16 call on the card that would reach ``kernel``,
+    which has no bf16 variant yet: raised at once, never cast to fp32."""
+    return NotImplementedError(
+        f"{kernel}: no bf16 variant on the card yet (see ROADMAP.md, "
+        f"'Modules to port': {BF16_QUEUED}); run fp32, or on the CPU")
+
 
 @functools.lru_cache(maxsize=None)
 def twiddles_np(n: int) -> np.ndarray:

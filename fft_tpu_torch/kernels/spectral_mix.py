@@ -79,7 +79,8 @@ from typing import Optional
 import torch
 
 from fft_tpu_torch.kernels.common import (
-    SMEM_MAX, check, launch, on_cpu, stage_twiddles, twiddles,
+    SMEM_MAX, check, launch, no_bf16_variant, on_cpu, stage_twiddles,
+    twiddles,
 )
 from fft_tpu_torch.ops import fftops
 
@@ -557,5 +558,13 @@ def spectral_mix(v, g_r, g_i, mem_t: Optional[torch.Tensor],
     forward is the kernel of n_fft's range (``mix_kernel``); the backward
     ``direct_mix_bwd`` up to n_fft 2048, autograd through ``unfused_mix``
     above; mem_t's cotangent is ybar summed over the batch, and the block's
-    frozen memory asks for none.  See ``direct_mix`` for the shapes."""
+    frozen memory asks for none.  See ``direct_mix`` for the shapes.
+
+    bf16 v (the fast mode): no mix kernel has a bf16 variant yet, so on the
+    card the call raises at once, naming the kernel and the ROADMAP item;
+    on the CPU the plain versions take v in fp32 (they compute in fp32)."""
+    if v.dtype != torch.float32:
+        if v.device.type == "cuda":
+            raise no_bf16_variant(f"spectral_mix ({mix_kernel(n_fft)})")
+        v = v.float()
     return _SpectralMix.apply(v, g_r, g_i, mem_t, n_fft)

@@ -13,6 +13,13 @@ the banded kernel takes the chunk (up to 2904), so on the card the plain
 composition runs only where the reference runs jnp too.  The kernel
 functions run their plain PyTorch versions on CPU tensors, so one dispatch
 serves both devices.  ``BRANCH_CALLS`` counts the branch each call took.
+
+In the bf16 fast mode v is bf16 and the output takes its dtype, as JAX's
+(causal_seg.py:139, :160, :187, :202).  The gate and K's spectra stay fp32;
+the fused branches hand bf16 v to the kernels (#7's bf16 instance on the
+card), the others take the segment spectra of v upcast to fp32
+(``kc.segment_spectra``; JAX's ``v.astype(jnp.float32)`` at :173), since
+``torch.fft`` takes no bf16.
 """
 
 from __future__ import annotations
@@ -45,7 +52,8 @@ def segmented_causal_mix(
     chunk: int,
 ) -> torch.Tensor:
     """y[p in chunk c] = sum_{m < n_fft} k_c[m] * v[p-m] for every chunk,
-    via overlap-save block convolution.  Returns (B, N, d) float32."""
+    via overlap-save block convolution.  Returns (B, N, d) in v's
+    dtype."""
     b, n, d = v.shape
     g_groups = gate.shape[2]
     d_g = d // g_groups
@@ -91,7 +99,7 @@ def segmented_causal_mix(
         y = kc.banded_inverse(vf.real.contiguous(), vf.imag.contiguous(),
                               kf.real.contiguous(), kf.imag.contiguous(),
                               chunk)
-        return y.reshape(b, n, d)
+        return y.reshape(b, n, d).to(v.dtype)
 
     # banded causal sum as shifted elementwise multiply-adds, then irfft
     BRANCH_CALLS["composition"] += 1
@@ -100,4 +108,4 @@ def segmented_causal_mix(
     for j in range(nc):
         y_spec[:, j:] += kf[:, j:, j, :, :, None] * vf_grp[:, :nc - j]
     y = fftops.irfft(y_spec.reshape(b, nc, f2, d), c2, dim=-2)[:, :, chunk:]
-    return y.reshape(b, n, d)
+    return y.reshape(b, n, d).to(v.dtype)

@@ -19,9 +19,22 @@ The non-causal multihead picks its branch by the JAX package's rule
 
 Randomness comes from an explicit ``torch.Generator``: dropout on the mixed
 values and the wavelet's on-mask draw only under ``module.train()``, which
-takes the place of the JAX package's ``deterministic=False``.
-``compute_dtype="bfloat16"`` and the ``sp_mesh`` arguments raise
-``NotImplementedError`` naming their ROADMAP.md item.
+takes the place of the JAX package's ``deterministic=False``.  The
+``sp_mesh`` arguments raise ``NotImplementedError`` naming their ROADMAP.md
+item.
+
+``compute_dtype="bfloat16"`` follows the JAX package's casts: the block
+casts its input to bf16 (spectre.py:632), linear layers cast their fp32
+parameters down and LayerNorms compute in fp32 (``layers/common.py``), the
+gate MLP's raw output is fp32 (:87), so gates and spectra are fp32, and
+each mix returns its input's dtype (:249, :329, :477, :539).  The
+parameters stay fp32.  The JAX package's ``precision_for`` (matfft.py
+:39-48) only picks the TPU's MXU passes and has no counterpart here: the
+transforms run in fp32 (``torch.fft`` takes no bf16, so ``fftops``
+upcasts) and the kernels compute in fp32 whatever their input.  On the
+card the causal mix's long-chunk kernels (#7, #11) have bf16 instances;
+a bf16 mix that would reach a kernel without one (#1-#4, #6, #10) raises
+naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -39,7 +52,7 @@ from fft_tpu_torch.kernels import spectral_mix as spectral_mix_kernels
 from fft_tpu_torch.kernels.spectral_mix import spectral_mix, unfused_mix
 from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS, segmented_causal_mix
 from fft_tpu_torch.layers.common import (
-    gelu_exact, layernorm_apply, linear_init,
+    DTYPES, LayerNorm, Linear, gelu_exact, layernorm_apply, linear_init,
 )
 from fft_tpu_torch.ops import (
     attention_pool, complex_circular_conv1d, dct_pool, dct_pool_weights,
@@ -60,8 +73,9 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 def _check_head_config(cfg: SpectreHeadConfig) -> None:
-    if cfg.compute_dtype != "float32":
-        raise _not_ported(f"compute_dtype={cfg.compute_dtype!r}")
+    if cfg.compute_dtype not in DTYPES:
+        raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: one of "
+                         f"{sorted(DTYPES)}")
     if cfg.fft_impl not in ("auto", "pallas"):
         # "jnp"/"matmul" pick among the JAX package's transforms; the port
         # has one path per shape (torch.fft and its kernels)
@@ -147,9 +161,10 @@ def dropout(y: torch.Tensor, p: float,
 
 def _heads_linear(x: torch.Tensor, w: torch.Tensor,
                   b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Per-head linear: x (..., H, i), w (H, o, i) -> (..., H, o)."""
-    y = torch.einsum("...hi,hoi->...ho", x, w)
-    return y if b is None else y + b
+    """Per-head linear: x (..., H, i), w (H, o, i) -> (..., H, o), the
+    parameters cast to x's dtype."""
+    y = torch.einsum("...hi,hoi->...ho", x, w.to(x.dtype))
+    return y if b is None else y + b.to(x.dtype)
 
 
 def spectre_gate(heads: SpectreHeads, cfg: SpectreHeadConfig,
@@ -238,14 +253,14 @@ def causal_chunk_gates(heads: SpectreHeads, cfg: SpectreHeadConfig,
         return excl + x[:, ::causal_chunk]
 
     if cfg.pooling_type == "dct":
-        wbar = dct_pool_weights(cfg.n_fft, device=q.device)[:n]
+        wbar = dct_pool_weights(cfg.n_fft, device=q.device)[:n].to(q.dtype)
         descr = chunk_cum(q * wbar[:, None, None])
     elif cfg.pooling_type == "attention":
         s = _heads_linear(gelu_exact(_heads_linear(
             q, heads.pool_fc1_w, heads.pool_fc1_b)), heads.pool_fc2_w,
             heads.pool_fc2_b)                                # (B, n, H, 1)
-        s0 = _heads_linear(gelu_exact(heads.pool_fc1_b), heads.pool_fc2_w,
-                           heads.pool_fc2_b)                 # (H, 1)
+        s0 = _heads_linear(gelu_exact(heads.pool_fc1_b.to(q.dtype)),
+                           heads.pool_fc2_w, heads.pool_fc2_b)  # (H, 1)
         m = torch.maximum(s.amax(dim=1, keepdim=True), s0)  # (B, 1, H, 1)
         es = torch.exp(s - m)
         starts = torch.arange(n_chunks, device=q.device) * causal_chunk
@@ -306,6 +321,7 @@ def spectre_head_apply_causal(
 
     if memory_fft is not None:
         y = y + fftops.irfft(memory_fft, cfg.n_fft, dim=0)[:n]
+    y = y.to(x.dtype)
     q_pool = layernorm_apply(q.sum(dim=1) / cfg.n_fft, heads.q_norm_w,
                              heads.q_norm_b)
     if not deterministic and cfg.dropout_p > 0.0:
@@ -342,7 +358,7 @@ def spectre_head_apply(
     mem = None if memory_fft is None else memory_fft.reshape(cfg.f_half,
                                                              h * hd)
     out = unfused_mix(v.reshape(b, n, h * hd), _compact_gate(gate), mem,
-                      cfg.n_fft)[:, :n].reshape(b, n, h, hd)
+                      cfg.n_fft)[:, :n].reshape(b, n, h, hd).to(x.dtype)
     if not deterministic and cfg.dropout_p > 0.0:
         out = dropout(out, cfg.dropout_p, generator)
     return out, q_pool
@@ -354,8 +370,8 @@ class WaveletRefinement(nn.Module):
 
     def __init__(self, embed_dim: int):
         super().__init__()
-        self.fc1 = nn.Linear(embed_dim, embed_dim)
-        self.fc2 = nn.Linear(embed_dim, embed_dim)
+        self.fc1 = Linear(embed_dim, embed_dim)
+        self.fc2 = Linear(embed_dim, embed_dim)
 
 
 def wavelet_refinement_apply(
@@ -437,7 +453,7 @@ class SpectreMultiHead(nn.Module):
                              "wavelet_on_rate=0 for causal models")
         self.cfg = cfg
         self.heads = SpectreHeads(cfg.head_config(), cfg.num_heads)
-        self.out_proj = nn.Linear(cfg.embed_dim, cfg.embed_dim, bias=False)
+        self.out_proj = Linear(cfg.embed_dim, cfg.embed_dim, bias=False)
         self.wavelet = WaveletRefinement(cfg.embed_dim)
 
     @torch.no_grad()
@@ -493,6 +509,7 @@ class SpectreMultiHead(nn.Module):
             else:
                 mixed = unfused_mix(v_all, gate, memory_fft,
                                     cfg.n_fft)[:, :n]
+            mixed = mixed.to(x.dtype)
             if self.training and cfg.dropout_p > 0.0:
                 mixed = dropout(mixed, cfg.dropout_p, generator)
         else:
@@ -528,7 +545,7 @@ class SpectreMultiHead(nn.Module):
                 hcfg, chunk)
             if memory_fft is not None:
                 mixed = mixed + fftops.irfft(memory_fft, cfg.n_fft,
-                                             dim=0)[:n]
+                                             dim=0)[:n].to(mixed.dtype)
             if self.training and cfg.dropout_p > 0.0:
                 mixed = dropout(mixed, cfg.dropout_p, generator)
             return self.out_proj(mixed)
@@ -571,15 +588,16 @@ def spectre_multihead_apply(mix: SpectreMultiHead, x: torch.Tensor, *,
 class MLP(nn.Module):
     def __init__(self, d: int, hidden: int):
         super().__init__()
-        self.fc1 = nn.Linear(d, hidden)
-        self.fc2 = nn.Linear(hidden, d)
+        self.fc1 = Linear(d, hidden)
+        self.fc2 = Linear(hidden, d)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(gelu_exact(self.fc1(x)))
 
 
 class SpectreBlock(nn.Module):
-    """Pre-LN residual block: x + mix(LN(x), memory); x + MLP(LN(x)).
+    """Pre-LN residual block: x + mix(LN(x), memory); x + MLP(LN(x)), in
+    ``cfg.compute_dtype`` (the parameters stay fp32).
 
     ``memory_fft`` is the frozen spectral memory, a buffer holding the real
     (2, bins, d) [re; im] pair of the JAX layout (absent when bins == 0)."""
@@ -588,9 +606,9 @@ class SpectreBlock(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = cfg.embed_dim
-        self.ln1 = nn.LayerNorm(d, eps=1e-5)
+        self.ln1 = LayerNorm(d, eps=1e-5)
         self.mix = SpectreMultiHead(cfg)
-        self.ln2 = nn.LayerNorm(d, eps=1e-5)
+        self.ln2 = LayerNorm(d, eps=1e-5)
         self.mlp = MLP(d, cfg.mlp_ratio * d)
         bins = cfg.memory_freq_bins
         self.register_buffer(
@@ -625,6 +643,7 @@ class SpectreBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = x.to(DTYPES[self.cfg.compute_dtype])
         x = x + self.mix(self.ln1(x), memory_fft=self.memory_complex(),
                          generator=generator)
         return x + self.mlp(self.ln2(x))

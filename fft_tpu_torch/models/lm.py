@@ -8,6 +8,13 @@ head.  Serving: the forward,
 batched prefill into per-layer decode caches, the O(F)-per-token decode
 step and generation, all without autograd.  Training calls the
 differentiable ``lm_hidden`` and ``lm_head_matrix`` (``fft_tpu_torch.train``).
+
+With ``compute_dtype="bfloat16"`` the embedding plus position is cast to
+bf16 and the blocks run in bf16, while the logits come out fp32 (the head
+cast down for the product, the product cast up), the decode caches are
+built from the prompt's hidden states in fp32 and decode runs in fp32, as
+in the JAX package (lm.py:158-159, :183-184, :224-238, :269-279).  The
+parameters stay fp32.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from fft_tpu_torch.decode.cache import (
     spectre_block_prefill,
 )
 from fft_tpu_torch.layers.causal_chunk import preferred_causal_chunk
+from fft_tpu_torch.layers.common import DTYPES, LayerNorm
 from fft_tpu_torch.layers.spectre import SpectreBlock, _not_ported
 from fft_tpu_torch.utils.device import resolve_device
 
@@ -92,7 +100,7 @@ class SpectreLM(nn.Module):
         self.pos_emb = nn.Parameter(torch.empty(cfg.max_seq, d))
         self.blocks = nn.ModuleList(
             SpectreBlock(cfg.block) for _ in range(cfg.num_layers))
-        self.ln_f = nn.LayerNorm(d, eps=1e-5)
+        self.ln_f = LayerNorm(d, eps=1e-5)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -106,10 +114,13 @@ class SpectreLM(nn.Module):
         self.ln_f.reset_parameters()
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.tok_emb[tokens] + self.pos_emb[:tokens.shape[-1]]
+        """Token plus position embedding, in the blocks' compute dtype."""
+        h = self.tok_emb[tokens] + self.pos_emb[:tokens.shape[-1]]
+        return h.to(DTYPES[self.cfg.block.compute_dtype])
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
-        return self.ln_f(h) @ self.tok_emb.T
+        """fp32 logits of hidden states h (before the final LN)."""
+        return head_logits(self.ln_f(h), lm_head_matrix(self))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, N) int -> logits (B, N, vocab) float32."""
@@ -170,10 +181,16 @@ def lm_head_matrix(model: SpectreLM) -> torch.Tensor:
     return model.tok_emb.T
 
 
+def head_logits(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """fp32 logits of final-LN hidden states h: the product in h's dtype
+    (the head cast down), cast up, for a stable softmax in either mode."""
+    return (h @ head.to(h.dtype)).float()
+
+
 @torch.no_grad()
 def lm_apply(model: SpectreLM, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, N) -> logits (B, N, vocab)."""
-    return lm_hidden(model, tokens) @ lm_head_matrix(model)
+    """tokens (B, N) -> logits (B, N, vocab) float32."""
+    return head_logits(lm_hidden(model, tokens), lm_head_matrix(model))
 
 
 def lm_decode_init(model: SpectreLM, batch: int) -> List[PrefixFFTCache]:
@@ -199,11 +216,12 @@ def lm_decode_step(model: SpectreLM, token: torch.Tensor, pos: int,
 def lm_prefill(model: SpectreLM, tokens: torch.Tensor
                ) -> Tuple[torch.Tensor, List[PrefixFFTCache]]:
     """One causal forward pass over the prompt builds every layer's decode
-    cache.  Returns (last-position logits (B, vocab), caches)."""
+    cache (from each layer's input in fp32, whatever the compute dtype).
+    Returns (last-position logits (B, vocab), caches)."""
     h = model.embed(tokens)
     caches = lm_decode_init(model, tokens.shape[0])
     for i, block in enumerate(model.blocks):
-        caches[i] = spectre_block_prefill(block, h, caches[i])
+        caches[i] = spectre_block_prefill(block, h.float(), caches[i])
         h = block(h)
     return model.logits(h[:, -1]), caches
 
@@ -221,7 +239,7 @@ def lm_prefill_split(model: SpectreLM, tokens: torch.Tensor
         h = block(h)
     caches = lm_decode_init(model, tokens.shape[0])
     for i, (block, h_in) in enumerate(zip(model.blocks, inputs)):
-        caches[i] = spectre_block_prefill(block, h_in, caches[i])
+        caches[i] = spectre_block_prefill(block, h_in.float(), caches[i])
     return model.logits(h[:, -1]), caches
 
 

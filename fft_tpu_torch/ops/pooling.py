@@ -20,7 +20,9 @@ def attention_pool(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
     x (..., N, d); weights in PyTorch's layout: w1 (..., hidden, d), b1
     (..., hidden), w2 (..., 1, hidden), b2 (..., 1), where the leading axes
-    (stacked heads) broadcast against x's.  Returns (..., d)."""
+    (stacked heads) broadcast against x's.  The weights are cast to x's
+    dtype.  Returns (..., d)."""
+    w1, b1, w2, b2 = (t.to(x.dtype) for t in (w1, b1, w2, b2))
     h = F.gelu(x @ w1.transpose(-1, -2) + b1.unsqueeze(-2),
                approximate="none")
     scores = h @ w2.transpose(-1, -2) + b2.unsqueeze(-2)    # (..., N, 1)

@@ -23,7 +23,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from fft_tpu_torch.models.lm import SpectreLM, lm_head_matrix, lm_hidden
+from fft_tpu_torch.layers.common import DTYPES
+from fft_tpu_torch.models.lm import (
+    SpectreLM, head_logits, lm_head_matrix, lm_hidden,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +39,9 @@ class TrainConfig:
     total_steps: int = 10000
     grad_clip: float = 1.0
     min_lr_ratio: float = 0.1
-    # AdamW first-moment dtype; only None (fp32) is ported
+    # AdamW first-moment dtype: None (the parameters', fp32) or "bfloat16"
+    # (stored in bf16, as optax's adamw(mu_dtype=...)); the second moment
+    # stays fp32
     mu_dtype: Optional[str] = None
 
 
@@ -71,7 +76,7 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 
 class AdamW:
     """``optax.chain(clip_by_global_norm(grad_clip), adamw(schedule, b1, b2,
-    eps=1e-8, weight_decay))`` over ``params``, fp32 moments:
+    eps=1e-8, weight_decay, mu_dtype))`` over ``params``:
 
         g      = g                       if |g| < grad_clip
                  g / |g| * grad_clip     otherwise
@@ -83,21 +88,27 @@ class AdamW:
     parameters: a per-parameter loop costs ~1300 launches a step at the
     tiny LM, host-bound on the card.  The clip stays on the device (no
     sync on the norm).
+
+    With ``mu_dtype="bfloat16"`` mu is stored in bf16 and each step follows
+    optax's ``scale_by_adam``: b1 mu is taken in bf16 (rounded, as jnp's
+    bf16 times a Python float), the sum with (1 - b1) g in fp32, the update
+    from that fp32 mu, and mu stored back rounded to bf16.  nu stays fp32.
     """
 
     eps = 1e-8
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  tcfg: TrainConfig):
-        if tcfg.mu_dtype is not None:
-            raise NotImplementedError(
-                f"mu_dtype={tcfg.mu_dtype!r} is not ported to fft_tpu_torch "
-                "yet: it is queued with the bf16 fast mode (see ROADMAP.md, "
-                "'Modules to port')")
+        if tcfg.mu_dtype not in (None, *DTYPES):
+            raise ValueError(f"mu_dtype={tcfg.mu_dtype!r}: None or one of "
+                             f"{sorted(DTYPES)}")
         self.tcfg = tcfg
         self.schedule = make_schedule(tcfg)
         self.params: List[torch.nn.Parameter] = list(params)
-        self.mu = [torch.zeros_like(p) for p in self.params]
+        mu_dtype = DTYPES.get(tcfg.mu_dtype)
+        self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in self.params]
+        # whether mu is stored in a narrower type than it is computed in
+        self.mu_rounds = mu_dtype not in (None, torch.float32)
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
 
@@ -116,14 +127,20 @@ class AdamW:
         self.count += 1
         bc1 = 1.0 - c.beta1 ** self.count
         bc2 = 1.0 - c.beta2 ** self.count
-        torch._foreach_mul_(self.mu, c.beta1)
-        torch._foreach_add_(self.mu, grads, alpha=1.0 - c.beta1)
+        if self.mu_rounds:
+            mu = [m.float() for m in torch._foreach_mul(self.mu, c.beta1)]
+            torch._foreach_add_(mu, grads, alpha=1.0 - c.beta1)
+            torch._foreach_copy_(self.mu, mu)
+        else:
+            torch._foreach_mul_(self.mu, c.beta1)
+            torch._foreach_add_(self.mu, grads, alpha=1.0 - c.beta1)
+            mu = self.mu
         torch._foreach_mul_(self.nu, c.beta2)
         torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - c.beta2)
         denom = torch._foreach_div(self.nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        u = torch._foreach_div(self.mu, bc1)
+        u = torch._foreach_div(mu, bc1)
         torch._foreach_div_(u, denom)
         torch._foreach_add_(u, self.params, alpha=c.weight_decay)
         torch._foreach_add_(self.params, u, alpha=-lr)
@@ -137,7 +154,7 @@ def make_optimizer(tcfg: TrainConfig,
 
 def _chunk_ce(hc: torch.Tensor, head: torch.Tensor,
               tc: torch.Tensor) -> torch.Tensor:
-    logits = (hc @ head).float()
+    logits = head_logits(hc, head)
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            tc.reshape(-1), reduction="sum")
 

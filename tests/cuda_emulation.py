@@ -8,7 +8,10 @@ code or its speed.
 Supported: __global__/__device__ functions, dim3 launches written as
 ``kernel<<<grid, block, smem, stream>>>(...)`` or as ``cudaLaunchKernelEx``
 with a ``cudaLaunchConfig_t`` (its cluster dimension attribute included),
-``extern __shared__`` arrays, float2, float4, __noinline__, __brev, __clz,
+``extern __shared__`` arrays, float2, float4, cuda_bf16.h's
+``__nv_bfloat16`` and ``__nv_bfloat162`` with ``__bfloat1622float2`` and
+``__floats2bfloat162_rn`` (round to nearest even), __noinline__, __brev,
+__clz,
 __syncthreads, cudaFuncSetAttribute, cudaGetLastError and the occupancy
 queries (all succeed; a query finds room for one block or cluster),
 cuda_pipeline.h's async copies (``__pipeline_memcpy_async`` copies at once;
@@ -53,6 +56,29 @@ struct float4 { float x, y, z, w; };
 inline float2 make_float2(float a, float b) { return float2{a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) {
   return float4{a, b, c, d};
+}
+// cuda_bf16.h's storage types and the two conversions the kernels use
+struct __nv_bfloat16 { unsigned short raw; };
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline float emu_bf16_float(__nv_bfloat16 h) {
+  const unsigned u = (unsigned)h.raw << 16;
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+inline __nv_bfloat16 emu_float_bf16(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, sizeof u);
+  if ((u & 0x7fffffffu) > 0x7f800000u)          // NaN stays a quiet NaN
+    return __nv_bfloat16{(unsigned short)((u >> 16) | 0x40)};
+  u += 0x7fffu + ((u >> 16) & 1u);              // to nearest, ties to even
+  return __nv_bfloat16{(unsigned short)(u >> 16)};
+}
+inline float2 __bfloat1622float2(__nv_bfloat162 h) {
+  return float2{emu_bf16_float(h.x), emu_bf16_float(h.y)};
+}
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return __nv_bfloat162{emu_float_bf16(a), emu_float_bf16(b)};
 }
 inline int __clz(int v) { return v == 0 ? 32 : __builtin_clz((unsigned)v); }
 inline unsigned __brev(unsigned v) {
@@ -217,7 +243,7 @@ def build(source: pathlib.Path, out_dir: pathlib.Path) -> ctypes.CDLL:
     src = re.sub(r"(\w+(?:<[^<>]*>)?)<<<(.*?)>>>\(",
                  lambda m: f"emu_launch({m.group(1)}, {m.group(2)}, ",
                  src, flags=re.S)
-    for header in ("cuda_runtime.h", "cuda_pipeline.h",
+    for header in ("cuda_runtime.h", "cuda_pipeline.h", "cuda_bf16.h",
                    "cooperative_groups.h"):
         (out_dir / header).write_text("#pragma once\n")
     (out_dir / "emu_shim.h").write_text(SHIM)

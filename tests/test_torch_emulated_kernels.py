@@ -5,11 +5,14 @@ machine without nvcc or a card.  spectral_mix.cu (#1, #2), staged_mix.cu
 (#3, at every length), twopass_mix.cu (#4, clusters of 1-8 CTAs at small
 n_fft and the wrapper's plan at 16384; a copy whose step across the
 cluster reads one CTA alone must fail),
-causal_long.cu (#9, #7, #11, at chunks up to 2048), causal.cu's
+causal_long.cu (#9, #7, #11, at chunks up to 2048; #7's and #11's bf16
+instances at nc 3 and 16), causal.cu's
 banded_inverse (#5: both transform paths, every tile plan, both K layouts
 through the direct #6), and decode.cu (#12).  Same bound as on the
 card (max|a-b| / max|b| < 2e-5: FFTs or direct DFTs against pocketfft, all
-fp32).  Skips where there is no host C++ compiler."""
+fp32), and for the bf16 instances 1e-2 on the bf16 outputs (their one
+rounding to bf16 against the plain version's) and 2e-5 on the fp32 Kbar.
+Skips where there is no host C++ compiler."""
 
 import ctypes
 import functools
@@ -25,6 +28,7 @@ from fft_tpu_torch.kernels.common import stage_twiddles_np, twiddles_np
 from tests import cuda_emulation
 
 TOL = 2e-5
+BF16_TOL = 1e-2
 
 
 def _emulated(tmp_path_factory, source, names):
@@ -49,7 +53,9 @@ def lib(tmp_path_factory):
 def long_lib(tmp_path_factory):
     return _emulated(tmp_path_factory, "causal_long.cu",
                      ("fft_kf_seg_rfft", "fft_fused_causal_mix_v3",
-                      "fft_fused_causal_mix_bwd_v3"))
+                      "fft_fused_causal_mix_bwd_v3",
+                      "fft_fused_causal_mix_v3_bf16",
+                      "fft_fused_causal_mix_bwd_v3_bf16"))
 
 
 @pytest.fixture(scope="module")
@@ -411,27 +417,29 @@ def _long_inputs(b, nc, chunk, d, cols):
             _randn(g, b, nc, f2, nc * cols), _randn(g, b, n, d))
 
 
-def _emulated_mix_v3(lib, v, kr, ki, chunk, cols, np_, threads):
+def _emulated_mix_v3(lib, v, kr, ki, chunk, cols, np_, threads,
+                     entry="fft_fused_causal_mix_v3"):
     b, n, d = v.shape
     nc = n // chunk
     scratch = [torch.full((b, nc, chunk + 1, d), float("nan"))
                for _ in range(2)]
     y = torch.empty_like(v)
-    assert lib.fft_fused_causal_mix_v3(
+    assert getattr(lib, entry)(
         _ptr(v), _ptr(kr), _ptr(ki), _ptr(_tw(chunk)),
         *(_ptr(t) for t in scratch), _ptr(y), b, nc, chunk, d, cols, np_,
         threads, None) == 0
     return y
 
 
-def _emulated_bwd_v3(lib, v, kr, ki, ybar, chunk, cols, np_, threads):
+def _emulated_bwd_v3(lib, v, kr, ki, ybar, chunk, cols, np_, threads,
+                     entry="fft_fused_causal_mix_bwd_v3"):
     b, n, d = v.shape
     nc = n // chunk
     scratch = [torch.full((b, nc, chunk + 1, d), float("nan"))
                for _ in range(4)]
     out = [torch.empty_like(v), torch.full_like(kr, float("nan")),
            torch.full_like(ki, float("nan"))]
-    assert lib.fft_fused_causal_mix_bwd_v3(
+    assert getattr(lib, entry)(
         _ptr(v), _ptr(kr), _ptr(ki), _ptr(ybar), _ptr(_tw(chunk)),
         *(_ptr(t) for t in scratch), *(_ptr(t) for t in out), b, nc, chunk,
         d, cols, np_, threads, None) == 0
@@ -456,6 +464,49 @@ def test_emulated_fused_causal_mix_bwd_v3(long_lib, b, nc, chunk, d, cols,
     want = kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk, cols)
     for got, w in zip(out, want):
         assert _rel(got, w) < TOL
+    kbar = out[1].reshape(b, nc, chunk + 1, nc, cols)     # (B, dl, F2, c, G)
+    for dl in range(nc):
+        assert torch.equal(kbar[:, dl, :, :dl],
+                           torch.zeros_like(kbar[:, dl, :, :dl]))
+
+
+# (b, nc, chunk, d, cols, np, threads) of the bf16 instances: nc 3 (B=2,
+# one-channel groups: a pair spans two) and nc 16 (two 8-output tiles, ten
+# 4 x 4 Kbar tiles), each with a tile plan of its own
+LONG_BF16_CASES = [(2, 3, 16, 16, 16, 2, 512), (1, 3, 32, 32, 4, 4, 128),
+                   (1, 16, 8, 16, 4, 2, 96), (1, 16, 16, 32, 2, 1, 64)]
+
+
+@pytest.mark.parametrize("b,nc,chunk,d,cols,np_,threads", LONG_BF16_CASES)
+def test_emulated_fused_causal_mix_v3_bf16(long_lib, b, nc, chunk, d, cols,
+                                           np_, threads):
+    """#7's bf16 instance: bf16 v in, bf16 y out, against the plain
+    version on the same bf16 inputs."""
+    v, kr, ki, _ = _long_inputs(b, nc, chunk, d, cols)
+    v = v.bfloat16()
+    y = _emulated_mix_v3(long_lib, v, kr, ki, chunk, cols, np_, threads,
+                         "fft_fused_causal_mix_v3_bf16")
+    want = kc.fused_causal_mix_ref(v, kr, ki, chunk, cols)
+    assert y.dtype == want.dtype == torch.bfloat16
+    assert _rel(y.float(), want.float()) < BF16_TOL
+
+
+@pytest.mark.parametrize("b,nc,chunk,d,cols,np_,threads", LONG_BF16_CASES)
+def test_emulated_fused_causal_mix_bwd_v3_bf16(long_lib, b, nc, chunk, d,
+                                               cols, np_, threads):
+    """#11's bf16 instance: bf16 v and ybar in, vbar bf16 and Kbar fp32
+    out (the primal dtypes), each against the plain version on the same
+    bf16 inputs; Kbar, summed in fp32 from the same values, within the
+    fp32 bound and exactly 0 where c < delta."""
+    v, kr, ki, ybar = _long_inputs(b, nc, chunk, d, cols)
+    v, ybar = v.bfloat16(), ybar.bfloat16()
+    out = _emulated_bwd_v3(long_lib, v, kr, ki, ybar, chunk, cols, np_,
+                           threads, "fft_fused_causal_mix_bwd_v3_bf16")
+    want = kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk, cols)
+    assert [t.dtype for t in out] == [t.dtype for t in want] == [
+        torch.bfloat16, torch.float32, torch.float32]
+    assert _rel(out[0].float(), want[0].float()) < BF16_TOL
+    assert _rel(out[1], want[1]) < TOL and _rel(out[2], want[2]) < TOL
     kbar = out[1].reshape(b, nc, chunk + 1, nc, cols)     # (B, dl, F2, c, G)
     for dl in range(nc):
         assert torch.equal(kbar[:, dl, :, :dl],

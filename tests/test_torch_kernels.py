@@ -1,9 +1,11 @@
 """The CUDA kernels of fft_tpu_torch against their plain PyTorch versions,
 on the card, at the tiny LM's, BASELINE config 1's and the 350M's shapes
 (#8 and #6 through the FFT kernels of causal_fft.cu and the direct ones of
-causal.cu, the long-chunk kernels #9, #7 and #11, #5 past chunk 853, the decode
-kernel #12 at both LMs' decode shapes, and the non-causal mix past n_fft
-2048: #3 at 2304-8192 and #4 at 16384-65536).  Imports no
+causal.cu, the long-chunk kernels #9, #7 and #11 (also at nc 16 and 32,
+and #7's and #11's bf16 instances), #5 past chunk 853, the decode kernel
+#12 at both LMs' decode shapes and at the 350M's windows of 32768 and
+65536, the non-causal mix past n_fft 2048: #3 at 2304-8192 and #4 at
+16384-65536, and the bf16 calls that must raise).  Imports no
 JAX, so it runs on a machine without it:
 
     FFT_TPU_REAL=1 python -m pytest tests/test_torch_kernels.py -q
@@ -772,3 +774,96 @@ def test_fused_decode_mix_kernel(dev, b, h, n, hd, groups, evict):
                                    n - 1, n - 1)
     assert _rel(prefix, want_prefix) < TOL
     assert _rel(got, want) < TOL
+
+
+# ---------------------------------------------------------------------------
+# the 350M at seq 32768 and 65536, and bf16 (module 5b and the fast mode)
+# ---------------------------------------------------------------------------
+
+# bf16 against the plain version on the same bf16 inputs: only the
+# output's rounding to bf16 differs (the fp32 Kbar within TOL)
+BF16_TOL = 1e-2
+
+
+@pytest.mark.parametrize("nc", [16, 32])
+def test_long_kernels_at_nc_16_and_32(dev, nc):
+    """#7 and #11 (fp32) at the 350M's layer at seq 32768 and 65536."""
+    b, chunk, d, cols = 1, 2048, 1024, 64
+    v, kr, ki, ybar = _long_inputs(dev, b, nc, chunk, d, cols)
+    got = kc.fused_causal_mix(v, kr, ki, chunk, cols)
+    assert _rel(got, kc.fused_causal_mix_ref(v, kr, ki, chunk, cols)) < TOL
+    got = kc.fused_causal_mix_bwd(v, kr, ki, ybar, chunk, cols)
+    want = kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk, cols)
+    for a, w in zip(got, want):
+        assert _rel(a, w) < TOL
+
+
+@pytest.mark.parametrize("b,nc,chunk,d,cols", [
+    (1, 16, 2048, 1024, 64), (1, 32, 2048, 1024, 64), (2, 3, 256, 40, 5)])
+def test_long_kernels_bf16_instances(dev, b, nc, chunk, d, cols):
+    """#7's and #11's bf16 instances: bf16 v and ybar in, y and vbar bf16
+    and Kbar fp32 out, each against the plain version on the same inputs;
+    launched under their own names."""
+    v, kr, ki, ybar = _long_inputs(dev, b, nc, chunk, d, cols)
+    v, ybar = v.bfloat16(), ybar.bfloat16()
+    before = dict(kc.LAUNCHES)
+    y = kc.fused_causal_mix(v, kr, ki, chunk, cols)
+    got = kc.fused_causal_mix_bwd(v, kr, ki, ybar, chunk, cols)
+    torch.cuda.synchronize()
+    for name in ("fused_causal_mix_v3_bf16", "fused_causal_mix_bwd_v3_bf16"):
+        assert kc.LAUNCHES[name] == before[name] + 1
+    for name in ("fused_causal_mix_v3", "fused_causal_mix_bwd_v3"):
+        assert kc.LAUNCHES[name] == before[name]
+    want = kc.fused_causal_mix_ref(v, kr, ki, chunk, cols)
+    assert y.dtype == torch.bfloat16
+    assert _rel(y.float(), want.float()) < BF16_TOL
+    want = kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk, cols)
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.float32,
+                                      torch.float32]
+    assert _rel(got[0].float(), want[0].float()) < BF16_TOL
+    assert _rel(got[1], want[1]) < TOL and _rel(got[2], want[2]) < TOL
+
+
+def test_bf16_refuses_kernels_without_a_bf16_variant(dev):
+    """A bf16 call that would reach #6, #10 or a non-causal mix kernel
+    raises at once, naming the ROADMAP item; so does the tiny LM's
+    train-lm --bf16 on the card."""
+    from fft_tpu_torch import cli
+    from fft_tpu_torch.kernels.common import BF16_QUEUED
+
+    v, kr, ki = _mix_inputs_at(dev, 4, 16, 128, 512, 32, 0)
+    for fn in (lambda: kc.fused_causal_mix(v.bfloat16(), kr, ki, 128, 32),
+               lambda: kc.fused_causal_mix_bwd(v.bfloat16(), kr, ki,
+                                               v.bfloat16(), 128, 32),
+               lambda: sm.spectral_mix(
+                   torch.zeros((2, 1024, 512), device=dev).bfloat16(),
+                   *(torch.zeros((2, 513, 32), device=dev),) * 2, None,
+                   1024)):
+        with pytest.raises(NotImplementedError, match=BF16_QUEUED):
+            fn()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(["train-lm", "--bf16", "--seq", "256", "--batch", "1",
+                  "--steps", "1"])
+
+
+@pytest.mark.parametrize("n", [32768, 65536])
+@pytest.mark.parametrize("evict", [0, 1])
+def test_fused_decode_mix_kernel_at_long_windows(dev, n, evict):
+    """#12 at the 350M's decode windows of seq 32768 and 65536 (F_half
+    16385, 32769), at the last ring slot and position; the decode budget
+    (2e-5, COMPONENTS.md 2.4) for y, a sum of F_half terms."""
+    b, h, hd, groups = 1, 16, 64, 4
+    g = torch.Generator().manual_seed(n + evict)
+    f = n // 2 + 1
+    prefix = torch.complex(_randn(g, dev, b, h, f, hd),
+                           _randn(g, dev, b, h, f, hd))
+    gate = torch.complex(_randn(g, dev, b, h, groups, f),
+                         _randn(g, dev, b, h, groups, f))
+    v_t, v_buf = _randn(g, dev, b, h, hd), _randn(g, dev, b, h, n, hd)
+    want_prefix = prefix.clone()
+    got = kd.fused_decode_mix(prefix, gate, v_t, v_buf, evict, n - 1, n - 2)
+    want = kd.fused_decode_mix_ref(want_prefix, gate, v_t, v_buf, evict,
+                                   n - 1, n - 2)
+    torch.cuda.synchronize()
+    assert _rel(prefix, want_prefix) < TOL
+    assert _rel(got, want) < 2e-5

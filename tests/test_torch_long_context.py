@@ -4,13 +4,19 @@ and #11 its backward against the Pallas kernels in interpret mode (as
 tests/test_pallas_causal.py runs them), the 350M config field for field, and
 a 350M-shaped LM at a narrow width that still takes the long path (seq
 16384, chunk 2048, nc = 8, the kf_seg branch) against JAX's logits and
-jax.grad, through the weight bridge.  The CUDA kernels themselves are
+jax.grad, through the weight bridge; its logits at seq 32768 with nc = 16
+(chunk 2048) and nc = 32 (chunk 1024: chunk 2048 at seq 65536 takes ~80 s
+here), its loss and gradients at nc = 16 and 32 with chunk 512 (seq 8192,
+16384), the prompt dispatch at n_fft 32768 and 65536, kernel #12's plain version
+against the Pallas kernel at the windows of 32768 and 65536 (F_half
+16385, 32769) and the bridge at seq 65536.  The CUDA kernels themselves are
 checked on the card (tests/test_torch_kernels.py, chip_smoke.py) and, at
 small shapes, on the CPU through tests/test_torch_emulated_kernels.py.
 
 Tolerances are max|a-b| / max|b| (tests/golden_utils.py): 1e-5 for one
-fp32 kernel, 1e-4 for gradients and model outputs (fp32 FFT round trips
-summed in other orders on each side)."""
+fp32 kernel, 2e-5 for #12's decode output (COMPONENTS.md 2.4), 1e-4 for
+gradients and model outputs (fp32 FFT round trips summed in other orders
+on each side)."""
 
 import dataclasses
 import functools
@@ -22,10 +28,13 @@ import pytest
 import torch
 
 import fft_tpu.kernels.pallas_causal as pc
+import fft_tpu.kernels.pallas_decode as pd
 import fft_tpu.models.lm as jlm
 import fft_tpu.train as jtrain
 from fft_tpu_torch.convert import to_jax_params
+from fft_tpu.ops import rfft_phasor as jax_rfft_phasor
 from fft_tpu_torch.kernels import causal as kc
+from fft_tpu_torch.kernels import decode as kd
 from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS
 from fft_tpu_torch.layers.spectre import SpectreMultiHead
 from fft_tpu_torch.models import lm as tlm
@@ -36,6 +45,7 @@ from tests.test_torch_train import _grad_tree
 
 KERNEL_TOL = 1e-5
 MODEL_TOL = 1e-4
+DECODE_TOL = 2e-5
 
 
 @pytest.fixture(autouse=True)
@@ -184,14 +194,15 @@ def test_350m_prompt_dispatch_takes_a_kernel_where_jax_does(n, want):
 # a 350M-shaped LM at a narrow width, seq 16384
 # ---------------------------------------------------------------------------
 
-def narrow_350m_config() -> tlm.LMConfig:
-    """spectre_350m_config(seq=16384) cut to 2 layers, d=128, 2 heads x 4
-    groups, vocab 256: chunk 2048 and nc = 8 as at full size, 64 gate
-    lanes, remat on."""
-    cfg = tlm.spectre_350m_config(vocab_size=256, seq=16384)
-    return dataclasses.replace(
-        cfg, num_layers=2,
-        block=dataclasses.replace(cfg.block, embed_dim=128, num_heads=2))
+def narrow_350m_config(seq: int = 16384, chunk=None) -> tlm.LMConfig:
+    """spectre_350m_config(seq) cut to 2 layers, d=128, 2 heads x 4 groups,
+    vocab 256: chunk 2048 (nc = seq / 2048) as at full size unless
+    ``chunk`` is given, remat on."""
+    cfg = tlm.spectre_350m_config(vocab_size=256, seq=seq)
+    block = dataclasses.replace(cfg.block, embed_dim=128, num_heads=2)
+    if chunk is not None:
+        block = dataclasses.replace(block, causal_chunk=chunk)
+    return dataclasses.replace(cfg, num_layers=2, block=block)
 
 
 def test_bridge_round_trip_at_24_layers():
@@ -294,3 +305,160 @@ def test_remat_replays_dropout_draws():
     assert len(ga) == len(gb)
     for a, b in zip(ga, gb):
         assert rel_err(a.numpy(), b.numpy()) < 1e-6
+
+
+# ---------------------------------------------------------------------------
+# module 5b: seq 32768 and 65536 (nc = 16 and 32)
+# ---------------------------------------------------------------------------
+
+# (seq, chunk) of the logits: nc = 16 at the 350M's chunk, nc = 32 at
+# chunk 1024 (at seq 65536 and chunk 2048 the JAX side alone takes ~50 s
+# on the CPU)
+LONG_CASES = [(32768, None), (32768, 1024)]
+# (seq, chunk) of the gradients: nc = 16 and 32 at chunk 512.  The gate
+# MLP's gradients are long sums with cancellation whose fp32 rounding
+# grows with n_fft: at seq 32768 they sat at 1.01-1.05e-4 of JAX's (nc 16
+# at chunk 2048, nc 32 at chunk 1024), and among the 4.2e6 gate values of
+# nc 32 at chunk 1024 some lay within rounding of the modReLU kink, where
+# the two frameworks take different sides (5e-4 in modrelu_bias).  The
+# card holds the full-size chunk 2048 at nc 16 against this CPU path with
+# the kink sides aligned (chip_smoke.py, 350m_long_parity).
+LONG_GRAD_CASES = [(8192, 512), (16384, 512)]
+
+
+@functools.lru_cache(maxsize=None)
+def _long_pair(seq, chunk):
+    cfg = narrow_350m_config(seq, chunk)
+    params, model = lm_pair(cfg, seed=5)
+    batch = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, cfg.max_seq + 1)).astype(np.int32)
+    return cfg, jax_lm_config(cfg), jax.tree.map(jnp.asarray, params), \
+        model, batch
+
+
+@pytest.mark.parametrize("seq,chunk", LONG_CASES)
+def test_narrow_350m_long_logits_match_jax(seq, chunk):
+    """The kf_seg branch at nc = 16 and 32 (#9's and #7's plain versions)
+    against JAX's logits."""
+    cfg, jcfg, jparams, model, batch = _long_pair(seq, chunk)
+    nc = seq // cfg.block.causal_chunk
+    assert nc in (16, 32)
+    ref = jax.jit(jlm.lm_apply, static_argnums=1)(jparams, jcfg,
+                                                  batch[:, :-1])
+    BRANCH_CALLS.clear()
+    got = tlm.lm_apply(model, torch.from_numpy(batch[:, :-1]).long())
+    assert dict(BRANCH_CALLS) == {"kf_seg": cfg.num_layers}
+    assert rel_err(got.numpy(), np.asarray(ref)) < MODEL_TOL
+
+
+@pytest.mark.parametrize("seq,chunk", LONG_GRAD_CASES)
+def test_narrow_350m_long_gradients_match_jax_grad(seq, chunk):
+    """Loss and every gradient at nc = 16 and 32 (#11's plain version),
+    where JAX's fp32 backward is its jnp adjoint (_bwd_plan_v3 is None in
+    fp32 at the 350M's nc 16 and 32), against jax.grad."""
+    cfg, jcfg, jparams, model, batch = _long_pair(seq, chunk)
+    assert pc._bwd_plan_v3(16, 2048, 1024, 64, 4, False) is None
+    assert pc._bwd_plan_v3(32, 2048, 1024, 64, 4, False) is None
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p, bt: jtrain.lm_loss(p, jcfg, bt, deterministic=True)))(
+            jparams, batch)
+    model.train()
+    try:
+        for p in model.parameters():
+            p.grad = None
+        loss = lm_loss(model, torch.from_numpy(batch).long())
+        loss.backward()
+    finally:
+        model.eval()
+    jloss = float(jloss)
+    assert abs(float(loss.detach()) - jloss) / abs(jloss) < MODEL_TOL
+    ours = jax.tree.leaves(_grad_tree(model, cfg))
+    theirs = jax.tree.leaves(jax.tree.map(np.asarray, jgrads))
+    assert len(ours) == len(theirs)
+    for a, b in zip(ours, theirs):
+        if np.abs(b).max() > 0:
+            assert rel_err(a, b) < MODEL_TOL
+        else:
+            assert np.abs(a).max() == 0
+
+
+@pytest.mark.parametrize("seq", [32768, 65536])
+def test_350m_long_prefill_dispatch(seq):
+    """The 350M's config at seq 32768 and 65536 gives JAX's chunk (2048);
+    a prefill of half the window takes the kf_seg branch (#9, then #7) at
+    nc = 8 and 16, where JAX runs its Pallas kernels (at a narrow width
+    here: the branch rule does not look at d past its tiling)."""
+    cfg = tlm.spectre_350m_config(seq=seq)
+    assert cfg.block.causal_chunk == 2048
+    assert _jax_runs_a_kernel(seq // 2, 1024, 64, 2048)
+    block = narrow_350m_config(seq).block
+    mix = SpectreMultiHead(block)
+    mix.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.randn((1, seq // 2, block.embed_dim),
+                    generator=torch.Generator().manual_seed(1))
+    BRANCH_CALLS.clear()
+    with torch.no_grad():
+        y = mix(x)
+    assert dict(BRANCH_CALLS) == {"kf_seg": 1}
+    assert y.shape == x.shape and torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize("n", [32768, 65536])
+@pytest.mark.parametrize("evict", [0, 1])
+def test_fused_decode_mix_ref_at_long_windows(n, evict):
+    """#12's plain version against the Pallas kernel at the windows of the
+    350M at seq 32768 and 65536 (F_half 16385, 32769), at the last ring
+    slot and output position, where the phases k j and k pos pass 2^29:
+    prefix and y, each on its own."""
+    b, h, hd, groups = 1, 2, 8, 2
+    j, pos = n - 1, n - 2
+    f = n // 2 + 1
+    rng = np.random.default_rng(n + evict)
+    pre_r, pre_i = (rng.standard_normal((b, h, f, hd)).astype(np.float32)
+                    for _ in range(2))
+    g_r, g_i = (rng.standard_normal((b, h, groups, f)).astype(np.float32)
+                for _ in range(2))
+    v_t = rng.standard_normal((b, h, hd)).astype(np.float32)
+    v_buf = rng.standard_normal((b, h, n, hd)).astype(np.float32)
+    prefix = torch.complex(torch.from_numpy(pre_r), torch.from_numpy(pre_i))
+    y = kd.fused_decode_mix_ref(
+        prefix, torch.complex(torch.from_numpy(g_r), torch.from_numpy(g_i)),
+        torch.from_numpy(v_t), torch.from_numpy(v_buf), evict, j, pos)
+    delta = (v_t - evict * v_buf[..., j, :])[..., None, :]
+    ph = jax_rfft_phasor(n, j)
+    k = jnp.arange(f, dtype=jnp.float32)
+    phase = (2.0 * np.pi / n) * k * jnp.float32(pos)
+    coef = jnp.full((f,), 2.0).at[0].set(1.0).at[-1].set(1.0)
+    w_r = (coef * jnp.cos(phase) / n)[None, :]
+    w_i = (-coef * jnp.sin(phase) / n)[None, :]
+    want_r, want_i, want_y = pd.fused_decode_mix(
+        jnp.asarray(pre_r), jnp.asarray(pre_i),
+        jnp.asarray(np.swapaxes(g_r, -1, -2)),
+        jnp.asarray(np.swapaxes(g_i, -1, -2)), jnp.asarray(delta),
+        jnp.real(ph)[None, :], jnp.imag(ph)[None, :], w_r, w_i,
+        interpret=True)
+    assert kd.decode_supported(hd, groups)
+    assert rel_err(prefix.real.numpy(), np.asarray(want_r)) < KERNEL_TOL
+    assert rel_err(prefix.imag.numpy(), np.asarray(want_i)) < KERNEL_TOL
+    # y sums 32769 terms of both signs in another order on each side: the
+    # decode budget (COMPONENTS.md 2.4)
+    assert rel_err(y.numpy(), np.asarray(want_y)[:, :, 0]) < DECODE_TOL
+
+
+def test_bridge_round_trip_at_seq_65536():
+    """The weight bridge with the 350M's position table at seq 65536
+    (65536 x d; narrow here), the same parameters in fp32 and bf16 mode:
+    bit-exact both ways."""
+    cfg = tlm.spectre_350m_config(vocab_size=64, seq=65536)
+    cfg = dataclasses.replace(cfg, num_layers=2, block=dataclasses.replace(
+        cfg.block, embed_dim=64, compute_dtype="bfloat16"))
+    params, model = lm_pair(cfg, seed=6)
+    assert model.pos_emb.shape == (65536, 64)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    back = to_jax_params(model.state_dict(), cfg)
+    flat_a, tree_a = jax.tree.flatten(params)
+    flat_b, tree_b = jax.tree.flatten(back)
+    assert tree_a == tree_b
+    for a, b in zip(flat_a, flat_b):
+        assert a.shape == b.shape
+        assert np.array_equal(a.view(np.uint32), b.view(np.uint32))

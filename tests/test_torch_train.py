@@ -279,9 +279,16 @@ def test_schedule_matches_optax():
 
 
 def test_bf16_first_moment_is_queued():
-    with pytest.raises(NotImplementedError, match="bf16"):
+    """mu_dtype="bfloat16" is ported (tests/test_torch_bf16.py holds it
+    against optax): mu is stored in bf16, nu in fp32; another dtype
+    raises."""
+    opt = AdamW([torch.nn.Parameter(torch.zeros(2))],
+                TrainConfig(mu_dtype="bfloat16"))
+    assert opt.mu[0].dtype == torch.bfloat16
+    assert opt.nu[0].dtype == torch.float32
+    with pytest.raises(ValueError, match="mu_dtype"):
         AdamW([torch.nn.Parameter(torch.zeros(2))],
-              TrainConfig(mu_dtype="bfloat16"))
+              TrainConfig(mu_dtype="float16"))
 
 
 # ---------------------------------------------------------------------------
@@ -340,8 +347,8 @@ def test_cli_train_lm_runs_two_steps(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--bf16"], ["--dp", "2"], ["--sp", "2"], ["--tp", "2"], ["--pp", "2"],
-    ["--profile", "trace"],
+    ["--bf16", "--dp", "2"], ["--dp", "2"], ["--sp", "2"], ["--tp", "2"],
+    ["--pp", "2"], ["--profile", "trace"],
 ])
 def test_cli_train_lm_not_ported_flags_raise(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
