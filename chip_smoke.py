@@ -179,16 +179,18 @@ Phases, in order; any failure raises and the exit code is nonzero:
              and banded_inverse once a layer at the prompt.
    8c.       (launch counts of their own) 350m_long: SPECTRE-350M at seq
              32768 and 65536 (chunk 2048, nc 16 and 32), fp32 and bf16.
-             Parity at 2 layers, full width, 32768 tokens, each mode:
-             lm_apply's logits and a train_step's loss and every
-             gradient against the CPU (modReLU sides aligned; in fp32
-             1e-4 max-wise; in bf16 the loss within 1e-2, the logits and
-             the whole gradient vector within 2e-2 in relative L2: see
-             REL_BF16_MODEL), and the card's bf16 loss within 1e-2 of its
-             fp32 loss.  Then at full depth, each (seq, mode):
+             Parity at 2 layers, full width, 32768 tokens, every run with
+             the modReLU sides of the card's bf16 run: a train_step's
+             logits, loss and every gradient against the CPU
+             (fp32: 1e-4 max-wise; bf16: the loss within 1e-2, the logits
+             within 2e-2 and each gradient within 4e-2 max-wise, and a
+             control run on the card whose #11 Kbar drops its farthest lag
+             must fail that check), and the card's bf16 loss within 1e-2 of
+             its fp32 loss.  Then at full depth, each (seq, mode):
              scoring 1 x S, a prefill of S/2 tokens, 8 decode steps (ms),
              3 train_steps (step ms, peak memory from a reset) and one
-             under torch.profiler (busy ms, idle share); kf_seg on every
+             under torch.profiler (busy ms, idle share); fp32 at 32768
+             scoring and one step only; kf_seg on every
              forward, #9, #7 and #11 launched in the mode's instance only
              (the bf16 ones counted apart), #12 once a layer a decode
              step.  Then, in a temporary HOME, the CLI's train-lm
@@ -236,13 +238,16 @@ REL_DECODE = 2e-5      # decode outputs (COMPONENTS.md 2.4)
 # the card against the CPU's and against fp32's (BASELINE.md's bf16
 # budget)
 REL_BF16 = 1e-2
-# bf16: the 2-layer 350M's logits and whole gradient vector on the card
-# against the same bf16 model on the CPU, in relative L2.  Two correct bf16
-# runs that accumulate in other orders round their GEMMs, prefix sums and
-# LayerNorm inputs to other bf16 values (7e4 modReLU kinks flip at 32768
-# tokens): 0.88e-2 and 1.01e-2 on an H100 80GB HBM3 at 700 W (max-wise
-# 1.0e-2 and 2.0e-2, q_norm_w), so REL_BF16 held max-wise is out of reach
-REL_BF16_MODEL = 2e-2
+# bf16: the 2-layer 350M at 32768 tokens on the card against the same bf16
+# model on the CPU (phase 8c), each gradient and the logits max-wise.  Two
+# sound bf16 runs that round GEMM outputs and LayerNorm inputs apart read
+# up to 2.34e-2 on a gradient (q_norm_w, with #7 and #11 run by their
+# plain versions on the card) and 1.05e-2 on the logits; a #11 whose Kbar
+# misses its farthest lag reads 9.8e-2 (H100 80GB HBM3, 700 W; PERF.md,
+# Findings).  The limits sit between; both runs are the check's
+# controls (phase_350m_long_parity).
+REL_BF16_MODEL = 4e-2
+REL_BF16_LOGITS = 2e-2
 SOURCES = {
     "direct_mix": "fft_tpu_torch/csrc/spectral_mix.cu",
     "direct_mix_bwd": "fft_tpu_torch/csrc/spectral_mix.cu",
@@ -336,31 +341,6 @@ def rel_err(a, b) -> float:
         return max(rel_err(x, y) for x, y in zip(a, b))
     a, b = a.detach().double().cpu(), b.detach().double().cpu()
     return float((a - b).abs().max() / b.abs().max())
-
-
-def rel_err_rows(a, b, rows: int = 2048) -> float:
-    """rel_err of two (B, N, ...) tensors taken over slices of ``rows``
-    along dim 1, on b's device: whole-tensor float64 copies of a 32768 x
-    50432 logits tensor would take tens of GB of host memory."""
-    num = den = 0.0
-    for i in range(0, b.shape[1], rows):
-        x = a[:, i:i + rows].to(b.device).double()
-        y = b[:, i:i + rows].double()
-        num = max(num, float((x - y).abs().max()))
-        den = max(den, float(y.abs().max()))
-    return num / den
-
-
-def rel_l2_rows(a, b, rows: int = 2048) -> float:
-    """||a - b|| / ||b|| of two (B, N, ...) tensors, over slices of ``rows``
-    along dim 1 on b's device (see rel_err_rows)."""
-    num = den = 0.0
-    for i in range(0, b.shape[1], rows):
-        x = a[:, i:i + rows].to(b.device).double()
-        y = b[:, i:i + rows].double()
-        num += float(((x - y) ** 2).sum())
-        den += float((y ** 2).sum())
-    return math.sqrt(num / den)
 
 
 def max_abs(a, b) -> float:
@@ -524,33 +504,42 @@ def run_cases(cases) -> dict:
     the bound; emits one line a case and returns them by kernel name."""
     results = {}
     for name, shape, kern, plain, lib, work, main, *opts in cases:
-        # opts: {"tol": the limit (REL_KERNEL unless given), "reps",
-        # "rounds": fewer timed calls where the plain version is slow}
+        # opts: {"tol": the limit (REL_KERNEL unless given; a tuple gives
+        # each output of a tuple its own), "reps", "rounds": fewer calls
+        # timed by events where the plain version is slow; the profiler's
+        # device_ms always takes 10 calls, as it reads low on fewer}
         opts = opts[0] if opts else {}
         tol = opts.get("tol", REL_KERNEL)
         reps, rounds = opts.get("reps", 10), opts.get("rounds", 7)
         got, want = kern(), plain()
         torch.cuda.synchronize()
-        err = rel_err(got, want)
+        if isinstance(tol, tuple):
+            errs = [rel_err(a, w) for a, w in zip(got, want)]
+            ok = all(e <= t for e, t in zip(errs, tol))
+        else:
+            errs = [rel_err(got, want)]
+            ok = errs[0] <= tol
+        err = max(errs)
         abs_err = max_abs(got, want)
         finite = all_finite(got)
         del got, want
-        if not (err <= tol and finite):
-            raise AssertionError(f"{name} [{shape}]: rel_err {err} > "
+        if not (ok and finite):
+            raise AssertionError(f"{name} [{shape}]: rel_err {errs} > "
                                  f"{tol} or non-finite")
         # alternate plain, kernel, kernel, plain on the same card
         p1, k1, k2, p2 = (median_ms(f, reps, rounds)
                           for f in (plain, kern, kern, plain))
         bound_ms, bound_by = bound(*work)
         case = dict(shape=shape, rel_err=err, tol=tol, max_abs_err=abs_err,
+                    **({"rel_errs": errs} if len(errs) > 1 else {}),
                     ms=statistics.median([k1, k2]),
                     plain_ms=statistics.median([p1, p2]),
-                    device_ms=device_ms(kern, reps),
-                    plain_device_ms=device_ms(plain, reps),
+                    device_ms=device_ms(kern),
+                    plain_device_ms=device_ms(plain),
                     library_ms=(None if lib is None
                                 else median_ms(lib, reps, rounds)),
                     library_device_ms=(None if lib is None
-                                       else device_ms(lib, reps)),
+                                       else device_ms(lib)),
                     bound_ms=bound_ms, bound_by=bound_by, main=main)
         emit(phase="kernels", kernel=name, **case)
         results.setdefault(name, []).append(case)
@@ -711,9 +700,10 @@ def long_launch_split(kc, randn) -> None:
     its 8192- and 1024-token prompts (nc=4; nc=1 at C=1024), #7's kernel
     at the tiny LM's nc=16, C=128 (d=512, 32 columns); at the tiny LM's
     training shape (B=8, nc=16, C=128, d=512, 32 columns) #10 as the
-    wrapper dispatches it, #11's kernel and #10's direct kernel; #9 at the
-    350M's layer (B=1, N=16384, C=2048, L=512): which launches take the
-    time.  It takes any tree's ``kernels.causal`` (an older tree has no
+    wrapper dispatches it, #11's kernel and #10's direct kernel; #7 and
+    #11 at the 350M's layer at seq 65536 (nc=32), each instance (fp32,
+    bf16); #9 at the 350M's layer (B=1, N=16384, C=2048, L=512): which
+    launches take the time.  It takes any tree's ``kernels.causal`` (an older tree has no
     ``fused_causal_mix_bwd_direct``: there ``fused_causal_mix_bwd`` is
     the direct kernel), so one call can time two trees' kernels."""
     from fft_tpu_torch import bench
@@ -756,6 +746,27 @@ def long_launch_split(kc, randn) -> None:
                              ms=median_ms(fn),
                              device_ms=prof["device_busy_ms_per_step"],
                              by_launch=prof["top_kernels_ms_per_step"]))
+    # #7 and #11 at the 350M's layer at seq 65536 (nc 32), fp32 and bf16
+    b, nc, c, d, cols = 1, 32, 2048, 1024, 64
+    v, ybar = randn(b, nc * c, d), randn(b, nc * c, d)
+    kr, ki = (randn(b, nc, c + 1, nc * cols) for _ in range(2))
+    for dt, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        vv, yy = v.to(dt), ybar.to(dt)
+        for name, fn in (
+                ("fused_causal_mix_v3", lambda vv=vv: kc.fused_causal_mix(
+                    vv, kr, ki, c, cols)),
+                ("fused_causal_mix_bwd_v3",
+                 lambda vv=vv, yy=yy: kc.fused_causal_mix_bwd(
+                     vv, kr, ki, yy, c, cols))):
+            fn()
+            torch.cuda.synchronize()
+            prof = bench._profile(fn, torch.cuda.synchronize, 10)
+            rows.append(dict(kernel=name + suffix,
+                             shape=f"B={b} nc={nc} C={c} d={d} cols={cols}",
+                             ms=median_ms(fn),
+                             device_ms=prof["device_busy_ms_per_step"],
+                             by_launch=prof["top_kernels_ms_per_step"]))
+    del v, ybar, kr, ki, vv, yy
     b, n, c, lanes = 1, 16384, 2048, 512
     kt = randn(b, n, lanes)
     fn = lambda: kc.kf_seg_rfft(kt, c)                       # noqa: E731
@@ -934,9 +945,10 @@ def long_nc_cases(kc, randn):
     """The 350M's layer at seq 32768 and 65536 (B=1, C=2048, d=1024, 64
     gate columns; nc 16 and 32): #9 over the layer's k_time (nc x 64
     lanes), #7 and #11 in fp32, and their bf16 instances on the same
-    inputs rounded to bf16 (REL_BF16 on the outputs; the main cases of the
-    bf16 instances are nc 32, the CLI's seq 65536).  Fewer timed calls:
-    the plain versions take a few hundred ms a call at nc 32."""
+    inputs rounded to bf16 (REL_BF16 on y and vbar, REL_KERNEL on Kbar,
+    which is summed in fp32 from the same values; the main cases of the
+    bf16 instances are nc 32, the CLI's seq 65536).  Fewer calls timed by
+    events: the plain versions take 20-80 ms a call."""
     cases = []
     b, chunk, d, cols = 1, 2048, 1024, 64
     quick = dict(reps=2, rounds=3)
@@ -960,7 +972,6 @@ def long_nc_cases(kc, randn):
                                 (torch.bfloat16, "_bf16", REL_BF16)):
             vv, yy = v.to(dt), ybar.to(dt)
             act = vb * dt.itemsize // 4          # v's (or y's) bytes
-            opts = dict(quick, tol=tol)
             main = bool(suffix) and nc == 32
             cases.append((
                 "fused_causal_mix_v3" + suffix, shape,
@@ -968,14 +979,16 @@ def long_nc_cases(kc, randn):
                     vv, kr, ki, chunk, cols),
                 lambda vv=vv, kr=kr, ki=ki: kc.fused_causal_mix_ref(
                     vv, kr, ki, chunk, cols),
-                None, (2 * act + kb, 2 * seg + mac), main, opts))
+                None, (2 * act + kb, 2 * seg + mac), main,
+                dict(quick, tol=tol)))
             cases.append((
                 "fused_causal_mix_bwd_v3" + suffix, shape,
                 lambda vv=vv, kr=kr, ki=ki, yy=yy: kc.fused_causal_mix_bwd(
                     vv, kr, ki, yy, chunk, cols),
                 lambda vv=vv, kr=kr, ki=ki, yy=yy:
                     kc.fused_causal_mix_bwd_ref(vv, kr, ki, yy, chunk, cols),
-                None, (3 * act + 2 * kb, 3 * seg + 2 * mac), main, opts))
+                None, (3 * act + 2 * kb, 3 * seg + 2 * mac), main,
+                dict(quick, tol=(tol, REL_KERNEL, REL_KERNEL))))
     return cases
 
 
@@ -1323,7 +1336,7 @@ def mix_cases(sm, randn, b, n, d, cols, mem, main):
 
 
 @contextlib.contextmanager
-def same_modrelu_side(record: bool, sides: list):
+def same_modrelu_side(record: bool, sides: list, flips: list | None = None):
     """The gate's modReLU, ReLU(|z| + b) z / sqrt(|z|^2 + eps^2), has a kink
     at |z| + b = 0.  A few of the ~6.3e6 gate values of a full-width step at
     batch 2 can lie within fp32 rounding of it, so the card and the CPU can
@@ -1332,7 +1345,9 @@ def same_modrelu_side(record: bool, sides: list):
     the mixer parameters upstream of it by up to a few 1e-4, which says
     nothing about the kernels.  With
     ``record`` the card's run appends, per call, which side each value took;
-    otherwise the CPU's run takes those sides, in call order.  A value
+    otherwise the CPU's run (or another run on the card) takes those sides,
+    in call order, appending to ``flips`` (where given) how many values of
+    each call it moved to the other side.  A value
     exactly on the kink (|z| = -b in fp32, as |z| = 0.1 meets the initial
     bias of -0.1) counts as on: torch.clamp's gradient passes there."""
     from fft_tpu_torch.layers import spectre
@@ -1343,7 +1358,9 @@ def same_modrelu_side(record: bool, sides: list):
         if record:
             sides.append((mag + bias >= 0).detach().cpu())
             return plain(z, bias, eps)
-        keep = sides.pop(0)
+        keep = sides.pop(0).to(z.device)
+        if flips is not None:
+            flips.append(int(((mag + bias >= 0) != keep).sum()))
         mag_stable = torch.sqrt(mag * mag + eps * eps)
         return z * (torch.where(keep, mag + bias, 0.0) / mag_stable)
 
@@ -1356,8 +1373,9 @@ def same_modrelu_side(record: bool, sides: list):
 
 def train_parity(cfg, dev, tokens) -> dict:
     """One train_step of ``cfg`` from seed 0 on the card and on the CPU
-    (modReLU kink sides aligned): loss and every parameter gradient."""
-    from fft_tpu_torch.models.lm import lm_hidden, lm_init
+    (modReLU kink sides aligned; the values the CPU moved, in the forward
+    and its recompute): loss and every parameter gradient."""
+    from fft_tpu_torch.models.lm import lm_init
     from fft_tpu_torch.train import TrainConfig, train_init, train_step
 
     def state_on(device):
@@ -1365,21 +1383,14 @@ def train_parity(cfg, dev, tokens) -> dict:
         return train_init(model, TrainConfig(), seed=SEED + 1)
 
     gpu, cpu = state_on(dev), state_on("cpu")
-    sides = []
+    sides, flips = [], []
     with same_modrelu_side(True, sides):
         got = train_step(gpu, tokens)
         torch.cuda.synchronize()
-    with same_modrelu_side(False, list(sides)):
+    with same_modrelu_side(False, list(sides), flips):
         want = train_step(cpu, tokens)
-    cpu_sides = []
-    with torch.no_grad(), same_modrelu_side(True, cpu_sides):
-        lm_hidden(cpu.model, torch.as_tensor(tokens[:, :-1]).long())
-    # the card's forward, then its recompute in backward when remat is on
-    fwd_sides = sides[:len(cpu_sides)]
-    flips = sum(int((a != b).sum()) for a, b in zip(fwd_sides, cpu_sides))
     loss, ref_loss = float(got["loss"]), float(want["loss"])
     grad_errs = {}
-    diff_sq = ref_sq = 0.0             # the whole gradient vector's L2
     for (name, pg), (_, pc) in zip(gpu.model.named_parameters(),
                                    cpu.model.named_parameters()):
         if pc.grad is None or pg.grad is None:   # the unused wavelet MLP
@@ -1388,15 +1399,11 @@ def train_parity(cfg, dev, tokens) -> dict:
                                      "only")
             continue
         grad_errs[name] = rel_err(pg.grad, pc.grad)
-        g, r = pg.grad.double().cpu(), pc.grad.double()
-        diff_sq += float(((g - r) ** 2).sum())
-        ref_sq += float((r ** 2).sum())
     worst = max(grad_errs, key=grad_errs.get)
     return dict(loss=loss, cpu_loss=ref_loss,
-                grads_rel_l2=math.sqrt(diff_sq / ref_sq),
                 loss_rel_err=abs(loss - ref_loss) / abs(ref_loss),
                 max_grad_rel_err=grad_errs[worst], worst_grad=worst,
-                tensors=len(grad_errs), modrelu_sides_aligned=flips,
+                tensors=len(grad_errs), modrelu_sides_aligned=sum(flips),
                 finite=math.isfinite(loss))
 
 
@@ -1644,20 +1651,16 @@ def block_parity(cfg, x, dev) -> dict:
                                   device)
 
     gpu, cpu = block_on(dev), block_on("cpu")
-    sides = []
+    sides, flips = [], []
     MIX_BRANCH_CALLS.clear()
     with same_modrelu_side(True, sides):
         y = spectre_block_apply(gpu, x.to(dev))
         (y ** 2).sum().backward()
         torch.cuda.synchronize()
     branches = dict(MIX_BRANCH_CALLS)
-    with same_modrelu_side(False, list(sides)):
+    with same_modrelu_side(False, list(sides), flips):
         y_cpu = spectre_block_apply(cpu, x)
         (y_cpu ** 2).sum().backward()
-    cpu_sides = []
-    with torch.no_grad(), same_modrelu_side(True, cpu_sides):
-        cpu(x)
-    flips = sum(int((a != b).sum()) for a, b in zip(sides, cpu_sides))
     err = rel_err(y, y_cpu)
     grad_errs = {}
     for (name, pg), (_, pc) in zip(gpu.named_parameters(),
@@ -1678,7 +1681,7 @@ def block_parity(cfg, x, dev) -> dict:
     return dict(batch=x.shape[0], seq=x.shape[1], n_fft=cfg.n_fft,
                 rel_err=err, max_grad_rel_err=grad_errs[worst],
                 worst_grad=worst, tensors=len(grad_errs),
-                modrelu_sides_aligned=flips, branches=branches)
+                modrelu_sides_aligned=sum(flips), branches=branches)
 
 
 def phase_block(dev) -> None:
@@ -2161,75 +2164,209 @@ def phase_350m(dev, kd, reset_launches, launches):
     return serve, train
 
 
+def long_parity_run(cfg, device, tokens, sides, record, swap=None) -> dict:
+    """One train_step of ``cfg`` from seed 0 on ``device``: its loss, its
+    parameter gradients (fp32, on the CPU) and the logits of its forward
+    (fp32, left on ``device``; the train loss's chunked head, kept as its
+    forward makes them: no scoring pass of its own), the modReLUs on the
+    sides in ``sides`` (a list; ``record``: this run appends its own).
+    ``swap``: functions of ``kernels.causal`` replaced for the run (by
+    name), for the checks' controls."""
+    from fft_tpu_torch.kernels import causal as kc
+    from fft_tpu_torch.models.lm import lm_init
+    from fft_tpu_torch.train import TrainConfig, loop, train_init, train_step
+
+    seq = tokens.shape[1] - 1
+    flips, chunks = [], []
+    head, kept = loop.head_logits, {k: getattr(kc, k) for k in swap or {}}
+
+    def keep_head(h, w):
+        out = head(h, w)
+        if sum(c.shape[1] for c in chunks) < seq:  # the forward, not remat
+            chunks.append(out.detach())
+        return out
+
+    state = train_init(lm_init(cfg, torch.Generator().manual_seed(SEED),
+                               device), TrainConfig(), seed=SEED + 1)
+    loop.head_logits = keep_head
+    for k, fn in (swap or {}).items():
+        setattr(kc, k, fn)
+    try:
+        with same_modrelu_side(record, sides if record else list(sides),
+                               flips):
+            loss = float(train_step(state, tokens.numpy().astype("int32"))[
+                "loss"])
+    finally:
+        loop.head_logits = head
+        for k, fn in kept.items():
+            setattr(kc, k, fn)
+    grads = {n: p.grad.detach().float().cpu()
+             for n, p in state.model.named_parameters() if p.grad is not None}
+    return dict(logits=torch.cat(chunks, dim=1), loss=loss, grads=grads,
+                flips=sum(flips))
+
+
+def logit_errs(a, b, rows: int = 2048) -> tuple:
+    """(max|a-b| / max|b|, ||a-b|| / ||b||) of two (B, N, V) tensors in one
+    pass over slices of ``rows`` along dim 1, on a's device (the card's
+    float64 does in seconds what the CPU's does in tens of them)."""
+    num = den = sq = ref_sq = 0.0
+    for i in range(0, b.shape[1], rows):
+        x = a[:, i:i + rows].double()
+        y = b[:, i:i + rows].to(a.device).double()
+        num = max(num, float((x - y).abs().max()))
+        den = max(den, float(y.abs().max()))
+        sq += float(((x - y) ** 2).sum())
+        ref_sq += float((y ** 2).sum())
+    return num / den, math.sqrt(sq / ref_sq)
+
+
+def parity_errs(got: dict, ref: dict) -> dict:
+    """Each gradient's max|a-b| / max|b| and ||a-b|| / ||b||, the loss's
+    and the logits'."""
+    errs = {}
+    for name, r in ref["grads"].items():
+        g, r = got["grads"][name].double(), r.double()
+        errs[name] = (float((g - r).abs().max() / r.abs().max()),
+                      float((g - r).norm() / r.norm()))
+    worst = max(errs, key=lambda n: errs[n][0])
+    logits_rel_err, logits_rel_l2 = logit_errs(got["logits"], ref["logits"])
+    return dict(loss_rel_err=abs(got["loss"] - ref["loss"]) / abs(
+                    ref["loss"]),
+                logits_rel_err=logits_rel_err, logits_rel_l2=logits_rel_l2,
+                grads=errs, tensors=len(errs), worst_grad=worst,
+                max_grad_rel_err=errs[worst][0],
+                max_grad_rel_l2=max(e[1] for e in errs.values()))
+
+
+def bf16_model_ok(res: dict) -> bool:
+    """The bf16 model check: loss within REL_BF16, logits within
+    REL_BF16_LOGITS and each gradient within REL_BF16_MODEL, max-wise."""
+    return (res["loss_rel_err"] <= REL_BF16
+            and res["logits_rel_err"] <= REL_BF16_LOGITS
+            and res["max_grad_rel_err"] <= REL_BF16_MODEL)
+
+
+def drop_last_lag(vbar, kbr, kbi):
+    """The control's fault: Kbar of the farthest lag (dl = nc - 1, the
+    single pair of the last chunk and the first) dropped."""
+    kbr, kbi = kbr.clone(), kbi.clone()
+    kbr[:, -1] = 0
+    kbi[:, -1] = 0
+    return vbar, kbr, kbi
+
+
 def phase_350m_long_parity(dev, kc) -> dict:
     """SPECTRE-350M cut to 2 layers at seq 32768 (nc = 16, the kf_seg
-    branch), in fp32 and in bf16: lm_apply's logits, and a train_step's
-    loss and every gradient, on the card against the same model on the CPU
-    (modReLU kink sides aligned); then the card's bf16 loss against its
-    fp32 loss within REL_BF16, as the JAX package holds its bf16 LM
-    (tests/test_bf16.py:29; the logits' own distance is reported).
+    branch), full width, in fp32 and in bf16, every run with the modReLUs
+    on the sides the card's bf16 run took (same_modrelu_side): a
+    train_step's logits, loss and every gradient on the card against the
+    same model on the CPU (long_parity_run).
 
-    fp32: logits, loss and each gradient max-wise within REL_MODEL.  bf16:
-    the loss within REL_BF16, the logits and the whole gradient vector in
-    relative L2 (||a - b|| / ||b||) within REL_BF16_MODEL; each tensor's
-    max-wise error is reported.  Returns the card's fp32 and bf16
-    losses."""
+    fp32: logits, loss and each gradient max-wise within REL_MODEL.  bf16
+    (bf16_model_ok): the loss within REL_BF16, the logits within
+    REL_BF16_LOGITS and each gradient within REL_BF16_MODEL, max-wise.
+    Two controls on the card go through that same check against the same
+    CPU run: #7 and #11 run by their plain versions must pass it, a #11
+    whose Kbar drops its farthest lag (drop_last_lag) must fail it; the
+    card's fp32 run against the CPU's bf16 one is reported.  Then the
+    card's bf16 loss against its fp32 loss within REL_BF16, as the JAX
+    package holds its bf16 LM (tests/test_bf16.py:29; the logits' own
+    distance is reported).  Returns the card's fp32 and bf16 losses."""
     from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS
-    from fft_tpu_torch.models.lm import lm_apply, lm_init, spectre_350m_config
+    from fft_tpu_torch.models.lm import spectre_350m_config
 
     seq = LONG_SEQS[0]
     base = dataclasses.replace(spectre_350m_config(seq=seq), num_layers=2)
     tokens = torch.randint(0, base.vocab_size, (1, seq + 1),
                            generator=torch.Generator().manual_seed(SEED + 5))
-    card_logits, losses = {}, {}
-    for mode in ("float32", "bfloat16"):
-        cfg = dataclasses.replace(base, block=dataclasses.replace(
-            base.block, compute_dtype=mode))
-        tol = REL_MODEL if mode == "float32" else REL_BF16_MODEL
+    cfgs = {mode: dataclasses.replace(base, block=dataclasses.replace(
+        base.block, compute_dtype=mode)) for mode in ("float32", "bfloat16")}
+    sides = []
+    card, losses = {}, {}
+    for mode in ("bfloat16", "float32"):
         fwd, bwd = LONG_MIX[mode]
         kc.reset_launches()
         BRANCH_CALLS.clear()
-        gpu = lm_init(cfg, torch.Generator().manual_seed(SEED), dev)
-        logits = lm_apply(gpu, tokens[:, :seq].to(dev))
+        card[mode] = long_parity_run(cfgs[mode], dev, tokens, sides,
+                                     record=(mode == "bfloat16"))
         torch.cuda.synchronize()
         branches = dict(BRANCH_CALLS)
-        del gpu
-        cpu = lm_init(cfg, torch.Generator().manual_seed(SEED), "cpu")
-        ref = lm_apply(cpu, tokens[:, :seq])
-        del cpu
-        logit_err = rel_err_rows(ref, logits)
-        logit_l2 = rel_l2_rows(ref, logits)
-        finite = all_finite(logits)
-        card_logits[mode] = logits
-        del ref, logits
-        res = train_parity(cfg, dev, tokens.numpy().astype("int32"))
-        losses[mode] = res["loss"]
         used = {k: v for k, v in kc.LAUNCHES.items() if v}
-        emit(phase="350m_long_parity", mode=mode, layers=cfg.num_layers,
-             seq=seq, chunk=cfg.block.causal_chunk, limit=tol,
-             logits_rel_err=logit_err, logits_rel_l2=logit_l2,
-             branches=branches, launches=used, **res)
-        if mode == "float32":
-            errs = (logit_err, res["loss_rel_err"], res["max_grad_rel_err"])
+        ref = long_parity_run(cfgs[mode], "cpu", tokens, sides, False)
+        res = parity_errs(card[mode], ref)
+        losses[mode] = card[mode]["loss"]
+        finite = (all_finite(card[mode]["logits"])
+                  and math.isfinite(losses[mode]))
+        if mode == "bfloat16":
+            ok = bf16_model_ok(res)
+            # the controls, on the card against the same CPU run: #7 and
+            # #11 run by their plain versions (sound: must pass), and #11's
+            # Kbar missing its farthest lag (a fault: must fail)
+            bwd_kernel = kc.fused_causal_mix_bwd
+            control = {}
+            for name, swap in (
+                    ("plain_7_11", {
+                        "_fused_causal_mix": kc.fused_causal_mix_ref,
+                        "fused_causal_mix_bwd": kc.fused_causal_mix_bwd_ref}),
+                    ("kbar_farthest_lag_dropped", {
+                        "fused_causal_mix_bwd": lambda *a: drop_last_lag(
+                            *bwd_kernel(*a))})):
+                ctl = parity_errs(long_parity_run(
+                    cfgs[mode], dev, tokens, sides, False, swap), ref)
+                control[name] = dict(
+                    passed=bf16_model_ok(ctl), worst_grad=ctl["worst_grad"],
+                    max_grad_rel_err=ctl["max_grad_rel_err"],
+                    logits_rel_err=ctl["logits_rel_err"],
+                    loss_rel_err=ctl["loss_rel_err"])
+            ok = (ok and control["plain_7_11"]["passed"]
+                  and not control["kbar_farthest_lag_dropped"]["passed"])
+            ref_bf16 = ref
         else:
-            errs = (logit_l2, res["grads_rel_l2"])
-        if not (finite and res["finite"] and max(errs) <= tol
-                and res["loss_rel_err"] <= min(tol, REL_BF16)):
+            ok = (res["logits_rel_err"] <= REL_MODEL
+                  and res["loss_rel_err"] <= REL_MODEL
+                  and res["max_grad_rel_err"] <= REL_MODEL)
+            control = None
+        emit(phase="350m_long_parity", mode=mode, layers=base.num_layers,
+             seq=seq, chunk=base.block.causal_chunk,
+             limit=(REL_MODEL if mode == "float32" else dict(
+                 loss=REL_BF16, logits=REL_BF16_LOGITS,
+                 grads=REL_BF16_MODEL)),
+             loss=losses[mode], cpu_loss=ref["loss"],
+             modrelu_sides_moved=dict(card=card[mode]["flips"],
+                                      cpu=ref["flips"]),
+             branches=branches, launches=used, control=control,
+             **{k: v for k, v in res.items() if k != "grads"},
+             grads={k: v[0] for k, v in res["grads"].items()})
+        if mode == "float32":
+            # the card's fp32 run against the CPU's bf16 one, reported: no
+            # limit that passes two sound bf16 runs can fail it, as bf16
+            # rounding is the whole of either distance
+            fp32_vs = parity_errs(card[mode], ref_bf16)
+            del ref_bf16
+            emit(phase="350m_long_fp32_vs_cpu_bf16", seq=seq,
+                 worst_grad=fp32_vs["worst_grad"],
+                 max_grad_rel_err=fp32_vs["max_grad_rel_err"],
+                 logits_rel_err=fp32_vs["logits_rel_err"],
+                 loss_rel_err=fp32_vs["loss_rel_err"])
+        if not (finite and ok):
             raise AssertionError(
-                f"350m long parity {mode}: logits, loss, gradients {errs}, "
+                f"350m long parity {mode}: logits "
+                f"{res.get('logits_rel_err')}, loss {res['loss_rel_err']}, "
                 f"worst gradient {res['worst_grad']} "
-                f"{res['max_grad_rel_err']} (limit {tol})")
+                f"{res['max_grad_rel_err']}; control {control}")
         other = LONG_MIX[OTHER_MODE[mode]]
-        if (branches != {"kf_seg": cfg.num_layers}
+        if (branches != {"kf_seg": 2 * base.num_layers}
                 or not all(used.get(k) for k in ("kf_seg_rfft", fwd, bwd))
                 or any(used.get(k) for k in other)):
             raise AssertionError(f"350m long parity {mode} took {branches}, "
                                  f"launched {used}")
+        del ref
     loss_err = abs(losses["bfloat16"] - losses["float32"]) / abs(
         losses["float32"])
-    logit_err = rel_err_rows(card_logits["bfloat16"], card_logits["float32"])
-    logit_l2 = rel_l2_rows(card_logits["bfloat16"], card_logits["float32"])
-    del card_logits
+    logit_err, logit_l2 = logit_errs(card["bfloat16"]["logits"],
+                                     card["float32"]["logits"])
+    del card
     emit(phase="350m_long_bf16_vs_fp32", seq=seq, loss=losses,
          loss_rel_err=loss_err, logits_rel_err=logit_err,
          logits_rel_l2=logit_l2, limit=REL_BF16)
@@ -2248,11 +2385,12 @@ def long_config(seq: int, mode: str):
         cfg.block, compute_dtype=mode))
 
 
-def serve_long(model, x, reset_launches, launches) -> dict:
+def serve_long(model, x, reset_launches, launches, light=False) -> dict:
     """The serving path of one 350M configuration on launch counts of its
     own: scoring 1 x S (ms), a prefill of S/2 tokens (ms), then 8 greedy
-    decode steps (ms a token).  Checks finite outputs, kf_seg on every
-    forward, #9, #7 (the mode's instance, the other never) and #12."""
+    decode steps (ms a token); ``light``: scoring alone, one checked call
+    and one timed.  Checks finite outputs, kf_seg on every forward, #9, #7
+    (the mode's instance, the other never) and #12."""
     from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS
     from fft_tpu_torch.models.lm import lm_apply, lm_decode_step, lm_prefill
 
@@ -2269,29 +2407,37 @@ def serve_long(model, x, reset_launches, launches) -> dict:
         raise AssertionError(f"350m score at {seq}: {logits.shape} "
                              f"{logits.dtype} or non-finite")
     del logits
-    score_ms = wall_ms(lambda: lm_apply(model, x), rounds=2)
-    prompt = x[:, :seq // 2]
-    prefill_ms = wall_ms(lambda: lm_prefill(model, prompt), rounds=2)
-    steps = 8
-    lg, caches = lm_prefill(model, prompt)
-    tok = lg.argmax(-1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(steps):
-        lg, caches = lm_decode_step(model, tok, seq // 2 + i, caches)
+    if light:
+        t0 = time.perf_counter()
+        lm_apply(model, x)
+        torch.cuda.synchronize()
+        score_ms = (time.perf_counter() - t0) * 1e3
+        prefill_ms = decode_ms = None
+        steps, forwards, finite = 0, 2 * layers, True
+    else:
+        score_ms = wall_ms(lambda: lm_apply(model, x), rounds=2)
+        prompt = x[:, :seq // 2]
+        prefill_ms = wall_ms(lambda: lm_prefill(model, prompt), rounds=2)
+        steps = 8
+        lg, caches = lm_prefill(model, prompt)
         tok = lg.argmax(-1)
-    torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
-    finite = all_finite(lg)
-    del lg, caches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            lg, caches = lm_decode_step(model, tok, seq // 2 + i, caches)
+            tok = lg.argmax(-1)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+        finite = all_finite(lg)
+        del lg, caches
+        # 4 scorings and 4 prefills (1 + 2 timed + 1 each), every layer
+        forwards = 8 * layers
     used = launches()
     branches = dict(BRANCH_CALLS)
-    # 4 scorings and 4 prefills (1 + 2 timed + 1 each), every layer
-    forwards = 8 * layers
     res = dict(score_ms=score_ms, score_tokens_per_s=seq / (score_ms / 1e3),
-               prefill_tokens=seq // 2, prefill_ms=prefill_ms,
-               decode_ms_per_token=decode_ms, decode_steps=steps,
-               branches=branches,
+               prefill_tokens=0 if light else seq // 2,
+               prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
+               decode_steps=steps, branches=branches,
                launches={k: v for k, v in used.items() if v})
     if (not finite or branches != {"kf_seg": forwards}
             or used["kf_seg_rfft"] != forwards or used[fwd] != forwards
@@ -2302,11 +2448,11 @@ def serve_long(model, x, reset_launches, launches) -> dict:
     return res
 
 
-def train_long(model, reset_launches, launches) -> dict:
+def train_long(model, reset_launches, launches, light=False) -> dict:
     """3 train_steps of one 350M configuration at 1 x S on launch counts of
     their own (step ms, peak memory from a reset, finite losses), then one
     more under torch.profiler (device busy ms, wall ms, causal_long.cu's
-    kernels by name).  #9 and #7 launched twice a layer a step (the
+    kernels by name); ``light``: one step, no profile.  #9 and #7 launched twice a layer a step (the
     forward and its recompute), #11 once, the mode's instances only."""
     from fft_tpu_torch import bench
     from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS
@@ -2321,7 +2467,7 @@ def train_long(model, reset_launches, launches) -> dict:
     state = train_init(model, TrainConfig(), seed=SEED + 1)
     batches = [torch.randint(0, cfg.vocab_size, (1, seq + 1),
                              generator=torch.Generator().manual_seed(s))
-               for s in range(3)]
+               for s in range(1 if light else 3)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
@@ -2332,16 +2478,18 @@ def train_long(model, reset_launches, launches) -> dict:
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
     peak = torch.cuda.max_memory_allocated()
-    prof = bench._profile(lambda: train_step(state, batches[0]),
-                          torch.cuda.synchronize, 1, LONG_KERNEL_NAMES)
+    prof = None if light else bench._profile(
+        lambda: train_step(state, batches[0]), torch.cuda.synchronize, 1,
+        LONG_KERNEL_NAMES)
     del state
     for p in model.parameters():
         p.grad = None
     model.eval()
     used = launches()
-    steps = len(batches) + 1
-    res = dict(step_ms=step_ms, median_step_ms=statistics.median(step_ms[1:]),
-               tokens_per_s=seq / (statistics.median(step_ms[1:]) / 1e3),
+    steps = len(batches) + (0 if light else 1)
+    ms = statistics.median(step_ms[1:] or step_ms)
+    res = dict(step_ms=step_ms, median_step_ms=ms,
+               tokens_per_s=seq / (ms / 1e3),
                loss=losses, peak_memory_bytes=peak,
                peak_memory_gb=peak / 1e9, profile=prof,
                branches=dict(BRANCH_CALLS),
@@ -2360,7 +2508,8 @@ def train_long(model, reset_launches, launches) -> dict:
 def phase_350m_long(dev, reset_launches, launches):
     """SPECTRE-350M at seq 32768 and 65536, full depth, in fp32 and in bf16
     (the same weights from seed 0 in both modes): each configuration's
-    serving path (serve_long) and training path (train_long); then the
+    serving path (serve_long) and training path (train_long), fp32 at
+    32768 as scoring and one step (``light``); then the
     CLI at seq 65536 in bf16, in a temporary HOME: train-lm --preset 350m
     --bf16 --steps 2 --batch 1 on the default BPE corpus (through the
     native loader; losses finite and not rising by more than 5%), and
@@ -2397,9 +2546,11 @@ def phase_350m_long(dev, reset_launches, launches):
                 model.load_state_dict(init)
                 model.eval()
             t0 = time.perf_counter()
-            serve = serve_long(model, x, reset_launches, launches)
+            # fp32 at 32768: scoring and one step (the run's time limit)
+            light = (seq, mode) == (LONG_SEQS[0], "float32")
+            serve = serve_long(model, x, reset_launches, launches, light)
             add("serve", launches())
-            train = train_long(model, reset_launches, launches)
+            train = train_long(model, reset_launches, launches, light)
             add("train", launches())
             emit(phase="350m_long", seq=seq, mode=mode, params=params,
                  chunk=model.cfg.block.causal_chunk, serve=serve,

@@ -8,7 +8,8 @@
 //   fused_causal_mix_bwd_v3 <- _fused_causal_bwd_call_v3  (:2307, pallas_call :2413)
 //
 // #7 and #11 come in two instances each, by the activations' type T: fp32
-// and bf16 (the JAX package's fast mode, compute_dtype="bfloat16").  In the
+// and bf16 (the JAX package's fast mode, compute_dtype="bfloat16"), which
+// one C entry each picks by its bf16 flag.  In the
 // bf16 instances v and ybar are read as bf16 and y and vbar written as
 // bf16; the transforms, the banded sums, the (B, nc, C+1, d) scratch and
 // K and Kbar stay fp32.  The TPU kernels' bf16 copy of K, bf16 scratch and
@@ -103,21 +104,17 @@ constexpr int kPartRow = kRowThreads + 1;
 
 // The activations' type T of #7 and #11 (v, ybar in; y, vbar out), read
 // and written as channel pairs: a row of x2 holds d / 2 Pair values.
-// load_async copies one pair into a float2 slot of shared memory (fp32: 8
-// bytes as they are; bf16: its 4 bytes into the slot's first half), and
-// widen turns the slot the calling thread copied into a float2 once its
-// copies have landed (kWidens: bf16 only).  store rounds a pair to T
-// (bf16: to nearest even, as torch's .to(torch.bfloat16)).
+// fp32: load_window copies each pair (8 bytes) into its float2 slot of the
+// tile.  bf16 (kWidens): it copies a tile row's NP pairs (4 NP bytes: at
+// NP = 4 one 16-byte copy of 8 channels) into the first half of the row's
+// 8 NP bytes, and widen_window then turns the row into NP float2 in
+// place.  store rounds a pair to T (bf16: to nearest even, as torch's
+// .to(torch.bfloat16)).
 template <class T> struct Act;
 
 template <> struct Act<float> {
   using Pair = float2;
   static constexpr bool kWidens = false;
-  __device__ __forceinline__ static void load_async(float2* dst,
-                                                    const Pair* src) {
-    __pipeline_memcpy_async(dst, src, sizeof(Pair));
-  }
-  __device__ __forceinline__ static void widen(float2*) {}
   __device__ __forceinline__ static Pair store(float a, float b) {
     return make_float2(a, b);
   }
@@ -126,17 +123,14 @@ template <> struct Act<float> {
 template <> struct Act<__nv_bfloat16> {
   using Pair = __nv_bfloat162;
   static constexpr bool kWidens = true;
-  __device__ __forceinline__ static void load_async(float2* dst,
-                                                    const Pair* src) {
-    __pipeline_memcpy_async(dst, src, sizeof(Pair));
-  }
-  __device__ __forceinline__ static void widen(float2* slot) {
-    const Pair h = *reinterpret_cast<const Pair*>(slot);
-    *slot = __bfloat1622float2(h);
-  }
   __device__ __forceinline__ static Pair store(float a, float b) {
     return __floats2bfloat162_rn(a, b);
   }
+};
+
+// a tile row's NP bf16 pairs, one shared-memory load
+template <int NP> struct alignas(4 * NP) Bf16Row {
+  __nv_bfloat162 h[NP];
 };
 
 // Async copies of the twiddles of an n-point transform (n = 2^log2n), a
@@ -312,22 +306,50 @@ seg_rfft_kernel(const float* __restrict__ x, const float2* __restrict__ tw_g,
 // Async copies of window s of x2 (rows (s-1)C .. (s+1)C-1; with adj, C
 // zeros then rows sC .. sC+C-1) into tile z, row u holding time bitrev(u)
 // (the decimation in time's input order); zeros are stored.  Not
-// committed.  With kWiden (after the copies have landed) each thread
-// instead widens the slots it copied (Act<T>::widen).
-template <int NP, class T, bool kWiden = false>
+// committed.  bf16: a thread copies whole rows (Act), the rows that
+// widen_window's loop gives it.
+template <int NP, class T>
 __device__ void load_window(float2* z, const typename Act<T>::Pair* x2,
                             int s, bool adj, int chunk, int log2n,
                             size_t row2) {
-  for (int i = threadIdx.x; i < 2 * chunk * NP; i += blockDim.x) {
-    const int p = i % NP, t = bitrev(i / NP, log2n);
+  if constexpr (Act<T>::kWidens) {
+    for (int u = threadIdx.x; u < 2 * chunk; u += blockDim.x) {
+      const int t = bitrev(u, log2n);
+      const long row = (long)(s - 1) * chunk + t;
+      float2* dst = z + (size_t)u * NP;
+      if (adj ? t >= chunk : row >= 0) {
+        __pipeline_memcpy_async(dst, x2 + (size_t)row * row2,
+                                sizeof(Bf16Row<NP>));
+      } else {
+        for (int p = 0; p < NP; ++p) dst[p] = make_float2(0.f, 0.f);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < 2 * chunk * NP; i += blockDim.x) {
+      const int p = i % NP, t = bitrev(i / NP, log2n);
+      const long row = (long)(s - 1) * chunk + t;
+      if (adj ? t >= chunk : row >= 0)
+        __pipeline_memcpy_async(z + i, x2 + (size_t)row * row2 + p,
+                                sizeof(float2));
+      else
+        z[i] = make_float2(0.f, 0.f);
+    }
+  }
+}
+
+// bf16: once the calling thread's copies have landed, each row it copied
+// (load_window's rows of this thread) from NP bf16 pairs to NP float2, in
+// place: the row is read whole before any of it is written.
+template <int NP>
+__device__ void widen_window(float2* z, int s, bool adj, int chunk,
+                             int log2n) {
+  for (int u = threadIdx.x; u < 2 * chunk; u += blockDim.x) {
+    const int t = bitrev(u, log2n);
     const long row = (long)(s - 1) * chunk + t;
     if (adj ? t >= chunk : row >= 0) {
-      if (kWiden)
-        Act<T>::widen(z + i);
-      else
-        Act<T>::load_async(z + i, x2 + (size_t)row * row2 + p);
-    } else if (!kWiden) {
-      z[i] = make_float2(0.f, 0.f);
+      float2* dst = z + (size_t)u * NP;
+      const Bf16Row<NP> r = *reinterpret_cast<const Bf16Row<NP>*>(dst);
+      for (int p = 0; p < NP; ++p) dst[p] = __bfloat1622float2(r.h[p]);
     }
   }
 }
@@ -372,8 +394,7 @@ window_fft_kernel(const T* __restrict__ v, const T* __restrict__ ybar,
     load_window<NP, T>(z, x2, s, adj, chunk, log2n, row2);
     __pipeline_commit();
     __pipeline_wait_prior(0);
-    if (Act<T>::kWidens)
-      load_window<NP, T, true>(z, x2, s, adj, chunk, log2n, row2);
+    if constexpr (Act<T>::kWidens) widen_window<NP>(z, s, adj, chunk, log2n);
     __syncthreads();
     long_fft<true, kWide>(z, log2n, NP, tws);
     for (int i = tid; i < f2 * NP; i += nt) {
@@ -875,10 +896,17 @@ int launch_long_tile(const LongArgs& a) {
 }
 
 // np: channel pairs a transform block (1, 2 or 4); cudaErrorInvalidValue
-// for other plans and shapes.
+// for other plans and shapes, and (bf16) for v or ybar not aligned to a
+// row of np pairs.
 template <class T>
 int launch_long_np(const LongArgs& a, int np) {
   if (!long_shape_ok(a.chunk, a.d, a.cols, np, a.threads))
+    return (int)cudaErrorInvalidValue;
+  // bf16 windows arrive as whole rows of np pairs (load_window)
+  const size_t row = (size_t)np * sizeof(typename Act<T>::Pair);
+  if (Act<T>::kWidens &&
+      (reinterpret_cast<size_t>(a.v) % row != 0 ||
+       reinterpret_cast<size_t>(a.ybar) % row != 0))
     return (int)cudaErrorInvalidValue;
   switch (np) {
     case 1:
@@ -929,62 +957,38 @@ int fft_kf_seg_rfft(const float* kt, const float* tw, float* kfr, float* kfi,
 // y (B, N, d) from raw values v (B, N, d) and producer-layout K planes
 // (B, nc, C+1, nc*cols).  vfr/vfi: (B, nc, C+1, d) scratch.  np: channel
 // pairs a transform block (1, 2 or 4); threads: its threads (a multiple of
-// 32 up to 512).  Returns cudaErrorInvalidValue for other plans and shapes.
-// v and y fp32 (fft_fused_causal_mix_v3) or bf16 (_bf16).
+// 32 up to 512).  bf16: nonzero for bf16 v and y, 0 for fp32.  Returns
+// cudaErrorInvalidValue for other plans and shapes.
 int fft_fused_causal_mix_v3(const void* v, const float* kfr,
                             const float* kfi, const float* tw, float* vfr,
                             float* vfi, void* out, int b, int nc, int chunk,
-                            int d, int cols, int np, int threads,
+                            int d, int cols, int np, int threads, int bf16,
                             void* stream) {
   const LongArgs a{false,   v,       kfr,     kfi, nullptr, tw,
                    vfr,     vfi,     nullptr, nullptr,      out,
                    nullptr, nullptr, b,       nc,  chunk,   d,
                    cols,    threads, static_cast<cudaStream_t>(stream)};
-  return launch_long_np<float>(a, np);
-}
-
-int fft_fused_causal_mix_v3_bf16(const void* v, const float* kfr,
-                                 const float* kfi, const float* tw,
-                                 float* vfr, float* vfi, void* out, int b,
-                                 int nc, int chunk, int d, int cols, int np,
-                                 int threads, void* stream) {
-  const LongArgs a{false,   v,       kfr,     kfi, nullptr, tw,
-                   vfr,     vfi,     nullptr, nullptr,      out,
-                   nullptr, nullptr, b,       nc,  chunk,   d,
-                   cols,    threads, static_cast<cudaStream_t>(stream)};
-  return launch_long_np<__nv_bfloat16>(a, np);
+  return bf16 ? launch_long_np<__nv_bfloat16>(a, np)
+              : launch_long_np<float>(a, np);
 }
 
 // vbar (B, N, d) and Kbar planes (B, nc, C+1, nc*cols) from v, ybar (B, N,
 // d) and producer-layout K planes.  vfr/vfi, rr/ri: (B, nc, C+1, d)
-// scratch; Vbar is written over V.  np, threads: as fft_fused_causal_mix_v3.
-// v, ybar and vbar fp32 (fft_fused_causal_mix_bwd_v3) or bf16 (_bf16); K
-// and Kbar fp32 in both.
+// scratch; Vbar is written over V.  np, threads, bf16: as
+// fft_fused_causal_mix_v3 (bf16: v, ybar and vbar bf16; K and Kbar fp32
+// in both).
 int fft_fused_causal_mix_bwd_v3(const void* v, const float* kfr,
                                 const float* kfi, const void* ybar,
                                 const float* tw, float* vfr, float* vfi,
                                 float* rr, float* ri, void* vbar,
                                 float* kbr, float* kbi, int b, int nc,
                                 int chunk, int d, int cols, int np,
-                                int threads, void* stream) {
+                                int threads, int bf16, void* stream) {
   const LongArgs a{true, v,  kfr,  kfi, ybar, tw,    vfr, vfi,  rr,
                    ri,   vbar, kbr, kbi, b,    nc,    chunk, d, cols,
                    threads, static_cast<cudaStream_t>(stream)};
-  return launch_long_np<float>(a, np);
-}
-
-int fft_fused_causal_mix_bwd_v3_bf16(const void* v, const float* kfr,
-                                     const float* kfi, const void* ybar,
-                                     const float* tw, float* vfr,
-                                     float* vfi, float* rr, float* ri,
-                                     void* vbar, float* kbr, float* kbi,
-                                     int b, int nc, int chunk, int d,
-                                     int cols, int np, int threads,
-                                     void* stream) {
-  const LongArgs a{true, v,  kfr,  kfi, ybar, tw,    vfr, vfi,  rr,
-                   ri,   vbar, kbr, kbi, b,    nc,    chunk, d, cols,
-                   threads, static_cast<cudaStream_t>(stream)};
-  return launch_long_np<__nv_bfloat16>(a, np);
+  return bf16 ? launch_long_np<__nv_bfloat16>(a, np)
+              : launch_long_np<float>(a, np);
 }
 
 }  // extern "C"

@@ -39,10 +39,8 @@ _SIGNATURES = {
     "fft_fused_causal_mix_bwd": ([_P] * 10 + [_I] * 8 + [_P], _I),
     "fft_fused_causal_mix_bwd_direct": ([_P] * 12 + [_I] * 5 + [_P], _I),
     "fft_kf_seg_rfft": ([_P] * 4 + [_I] * 6 + [_P], _I),
-    "fft_fused_causal_mix_v3": ([_P] * 7 + [_I] * 7 + [_P], _I),
-    "fft_fused_causal_mix_bwd_v3": ([_P] * 12 + [_I] * 7 + [_P], _I),
-    "fft_fused_causal_mix_v3_bf16": ([_P] * 7 + [_I] * 7 + [_P], _I),
-    "fft_fused_causal_mix_bwd_v3_bf16": ([_P] * 12 + [_I] * 7 + [_P], _I),
+    "fft_fused_causal_mix_v3": ([_P] * 7 + [_I] * 8 + [_P], _I),
+    "fft_fused_causal_mix_bwd_v3": ([_P] * 12 + [_I] * 8 + [_P], _I),
     "fft_direct_mix": ([_P] * 7 + [_I] * 8 + [_P], _I),
     "fft_direct_mix_bwd": ([_P] * 10 + [_I] * 8 + [_P], _I),
     "fft_staged_mix": ([_P] * 7 + [_I] * 7 + [_P], _I),

@@ -697,22 +697,23 @@ def fused_causal_mix_direct(v, kfr, kfi, chunk: int, cols: int):
     return _launch_mix("fused_causal_mix_direct", v, kfr, kfi, chunk, cols)
 
 
-def _act_dtype(name: str) -> torch.dtype:
-    """The activations' dtype of launch ``name``: bf16 for the _bf16
-    instances, else fp32."""
-    return torch.bfloat16 if name.endswith("_bf16") else torch.float32
+def _long_act(name: str, v) -> bool:
+    """Whether launch ``name`` runs its bf16 instance: _v3's for bf16 v
+    (counted under ``name + "_bf16"``); every other kernel takes fp32."""
+    return name.endswith("_v3") and v.dtype == torch.bfloat16
 
 
 def _launch_mix(name: str, v, kfr, kfi, chunk: int, cols: int, plan=None):
-    """Launch ``name`` (fused_causal_mix, its _direct, its _v3 or _v3_bf16)
-    on CUDA tensors; ``plan``: the FFT kernel's (np, gs), ``mix_fft_plan``'s
+    """Launch ``name`` (fused_causal_mix, its _direct or its _v3) on CUDA
+    tensors; ``plan``: the FFT kernel's (np, gs), ``mix_fft_plan``'s
     unless given, _v3's transform tile (np, threads), ``LONG_PLAN`` unless
     given, or _direct's banded_fft_kernel tile (np, threads),
     ``banded_fft_plan``'s unless given.  y in v's dtype."""
     b, n, d = v.shape
     nc = n // chunk
     f2 = chunk + 1
-    check("v", v, (b, n, d), _act_dtype(name))
+    bf16 = _long_act(name, v)
+    check("v", v, (b, n, d), v.dtype if bf16 else torch.float32)
     check("kfr", kfr, (b, nc, f2, nc * cols))
     check("kfi", kfi, (b, nc, f2, nc * cols))
     tw = twiddles(2 * chunk, v.device)
@@ -725,11 +726,11 @@ def _launch_mix(name: str, v, kfr, kfi, chunk: int, cols: int, plan=None):
         return out
     vfr = torch.empty((b, nc, f2, d), dtype=torch.float32, device=v.device)
     vfi = torch.empty_like(vfr)
-    if name.startswith("fused_causal_mix_v3"):
-        launch(LAUNCHES, name, v.device,
+    if name == "fused_causal_mix_v3":
+        launch(LAUNCHES, name + "_bf16" if bf16 else name, v.device,
                v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), tw.data_ptr(),
                vfr.data_ptr(), vfi.data_ptr(), out.data_ptr(), b, nc, chunk,
-               d, cols, *(plan or LONG_PLAN))
+               d, cols, *(plan or LONG_PLAN), int(bf16), entry=name)
         return out
     # the direct kernel's second launch is #5's body on the producer layout
     params = _banded_params(b, nc, chunk, d, cols, v.device, plan)
@@ -743,8 +744,9 @@ def _mix_kernel(base: str, n: int, chunk: int, d: int, cols: int,
                 dtype: torch.dtype = torch.float32) -> str:
     """The kernel of ``base`` (fused_causal_mix or its _bwd) that takes
     this shape and activation dtype on the card: #6's (#10's) where
-    ``fused_mix_supported`` holds, else the long-chunk one (_v3, or
-    _v3_bf16 for bf16 activations); raises where neither does.  In #6's
+    ``fused_mix_supported`` holds, else the long-chunk one (_v3, whose
+    launch runs its bf16 instance for bf16 activations); raises where
+    neither does.  In #6's
     range each is the FFT kernel of causal_fft.cu where its plan
     (``mix_fft_plan``, ``bwd_fft_plan``) has one, else the direct-DFT one
     (_direct); neither has a bf16 variant yet, so bf16 raises there."""
@@ -761,7 +763,7 @@ def _mix_kernel(base: str, n: int, chunk: int, d: int, cols: int,
             return base + "_direct"
         return base
     if nc * chunk == n and fused_mix_v3_supported(nc, chunk, d, cols):
-        return base + ("_v3_bf16" if dtype == torch.bfloat16 else "_v3")
+        return base + "_v3"
     raise ValueError(f"{base}: unsupported shape n={n} chunk={chunk} d={d} "
                      f"cols={cols} (neither {base} nor {base}_v3 takes it)")
 
@@ -915,14 +917,15 @@ def fused_causal_mix_bwd_direct(v, kfr, kfi, ybar, chunk: int, cols: int):
 
 def _launch_bwd(name: str, v, kfr, kfi, ybar, chunk: int, cols: int,
                 plan=None):
-    """Launch ``name`` (fused_causal_mix_bwd, its _direct, its _v3 or
-    _v3_bf16) on CUDA tensors; ``plan``: the FFT kernel's (np, gs, bt),
+    """Launch ``name`` (fused_causal_mix_bwd, its _direct or its _v3) on
+    CUDA tensors; ``plan``: the FFT kernel's (np, gs, bt),
     ``bwd_fft_plan``'s unless given, or _v3's transform tile (np,
     threads), ``LONG_PLAN`` unless given.  vbar in v's dtype, Kbar fp32."""
     b, n, d = v.shape
     nc = n // chunk
     f2 = chunk + 1
-    act = _act_dtype(name)
+    bf16 = _long_act(name, v)
+    act = v.dtype if bf16 else torch.float32
     check("v", v, (b, n, d), act)
     check("kfr", kfr, (b, nc, f2, nc * cols))
     check("kfi", kfi, (b, nc, f2, nc * cols))
@@ -939,13 +942,13 @@ def _launch_bwd(name: str, v, kfr, kfi, ybar, chunk: int, cols: int,
     else:
         scratch = [torch.empty((b, nc, f2, d), dtype=torch.float32,
                                device=v.device) for _ in range(4)]
-        tile = (tuple(plan or LONG_PLAN)
-                if name.startswith("fused_causal_mix_bwd_v3") else ())
-    launch(LAUNCHES, name, v.device,
+        tile = ((*(plan or LONG_PLAN), int(bf16))
+                if name == "fused_causal_mix_bwd_v3" else ())
+    launch(LAUNCHES, name + "_bf16" if bf16 else name, v.device,
            v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), ybar.data_ptr(),
            tw.data_ptr(), *(t.data_ptr() for t in scratch),
            vbar.data_ptr(), kbr.data_ptr(), kbi.data_ptr(), b, nc, chunk,
-           d, cols, *tile)
+           d, cols, *tile, entry=name)
     return vbar, kbr, kbi
 
 

@@ -137,9 +137,13 @@ def test_bf16_dispatch_takes_the_bf16_instances_or_names_the_roadmap():
     for base, short in (("fused_causal_mix", "#6"),
                         ("fused_causal_mix_bwd", "#10")):
         assert kc._mix_kernel(base, 65536, 2048, 1024, 64, bf16) \
-            == base + "_v3_bf16"
+            == base + "_v3"
         assert kc._mix_kernel(base, 32768, 2048, 1024, 64, f32) \
             == base + "_v3"
+        # the _v3 launch runs (and counts) its bf16 instance for bf16 v
+        assert kc._long_act(base + "_v3", torch.empty(1, dtype=bf16))
+        assert not kc._long_act(base + "_v3", torch.empty(1, dtype=f32))
+        assert not kc._long_act(base, torch.empty(1, dtype=bf16))
         assert kc._mix_kernel(base, 2048, 128, 512, 32, f32) == base
         with pytest.raises(NotImplementedError, match=short) as e:
             kc._mix_kernel(base, 2048, 128, 512, 32, bf16)

@@ -53,9 +53,7 @@ def lib(tmp_path_factory):
 def long_lib(tmp_path_factory):
     return _emulated(tmp_path_factory, "causal_long.cu",
                      ("fft_kf_seg_rfft", "fft_fused_causal_mix_v3",
-                      "fft_fused_causal_mix_bwd_v3",
-                      "fft_fused_causal_mix_v3_bf16",
-                      "fft_fused_causal_mix_bwd_v3_bf16"))
+                      "fft_fused_causal_mix_bwd_v3"))
 
 
 @pytest.fixture(scope="module")
@@ -417,32 +415,30 @@ def _long_inputs(b, nc, chunk, d, cols):
             _randn(g, b, nc, f2, nc * cols), _randn(g, b, n, d))
 
 
-def _emulated_mix_v3(lib, v, kr, ki, chunk, cols, np_, threads,
-                     entry="fft_fused_causal_mix_v3"):
+def _emulated_mix_v3(lib, v, kr, ki, chunk, cols, np_, threads):
     b, n, d = v.shape
     nc = n // chunk
     scratch = [torch.full((b, nc, chunk + 1, d), float("nan"))
                for _ in range(2)]
     y = torch.empty_like(v)
-    assert getattr(lib, entry)(
+    assert lib.fft_fused_causal_mix_v3(
         _ptr(v), _ptr(kr), _ptr(ki), _ptr(_tw(chunk)),
         *(_ptr(t) for t in scratch), _ptr(y), b, nc, chunk, d, cols, np_,
-        threads, None) == 0
+        threads, int(v.dtype == torch.bfloat16), None) == 0
     return y
 
 
-def _emulated_bwd_v3(lib, v, kr, ki, ybar, chunk, cols, np_, threads,
-                     entry="fft_fused_causal_mix_bwd_v3"):
+def _emulated_bwd_v3(lib, v, kr, ki, ybar, chunk, cols, np_, threads):
     b, n, d = v.shape
     nc = n // chunk
     scratch = [torch.full((b, nc, chunk + 1, d), float("nan"))
                for _ in range(4)]
     out = [torch.empty_like(v), torch.full_like(kr, float("nan")),
            torch.full_like(ki, float("nan"))]
-    assert getattr(lib, entry)(
+    assert lib.fft_fused_causal_mix_bwd_v3(
         _ptr(v), _ptr(kr), _ptr(ki), _ptr(ybar), _ptr(_tw(chunk)),
         *(_ptr(t) for t in scratch), *(_ptr(t) for t in out), b, nc, chunk,
-        d, cols, np_, threads, None) == 0
+        d, cols, np_, threads, int(v.dtype == torch.bfloat16), None) == 0
     return out
 
 
@@ -484,8 +480,7 @@ def test_emulated_fused_causal_mix_v3_bf16(long_lib, b, nc, chunk, d, cols,
     version on the same bf16 inputs."""
     v, kr, ki, _ = _long_inputs(b, nc, chunk, d, cols)
     v = v.bfloat16()
-    y = _emulated_mix_v3(long_lib, v, kr, ki, chunk, cols, np_, threads,
-                         "fft_fused_causal_mix_v3_bf16")
+    y = _emulated_mix_v3(long_lib, v, kr, ki, chunk, cols, np_, threads)
     want = kc.fused_causal_mix_ref(v, kr, ki, chunk, cols)
     assert y.dtype == want.dtype == torch.bfloat16
     assert _rel(y.float(), want.float()) < BF16_TOL
@@ -501,7 +496,7 @@ def test_emulated_fused_causal_mix_bwd_v3_bf16(long_lib, b, nc, chunk, d,
     v, kr, ki, ybar = _long_inputs(b, nc, chunk, d, cols)
     v, ybar = v.bfloat16(), ybar.bfloat16()
     out = _emulated_bwd_v3(long_lib, v, kr, ki, ybar, chunk, cols, np_,
-                           threads, "fft_fused_causal_mix_bwd_v3_bf16")
+                           threads)
     want = kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk, cols)
     assert [t.dtype for t in out] == [t.dtype for t in want] == [
         torch.bfloat16, torch.float32, torch.float32]
@@ -511,6 +506,30 @@ def test_emulated_fused_causal_mix_bwd_v3_bf16(long_lib, b, nc, chunk, d,
     for dl in range(nc):
         assert torch.equal(kbar[:, dl, :, :dl],
                            torch.zeros_like(kbar[:, dl, :, :dl]))
+
+
+def test_emulated_long_bf16_refuses_rows_out_of_alignment(long_lib):
+    """The bf16 instances copy a window's rows whole (16 bytes at 4 channel
+    pairs): a v or ybar that starts off that alignment is refused with
+    cudaErrorInvalidValue (1), never copied; the fp32 instance takes it."""
+    b, nc, chunk, d, cols = 1, 3, 16, 32, 4
+    v, kr, ki, ybar = _long_inputs(b, nc, chunk, d, cols)
+    scratch = [torch.empty((b, nc, chunk + 1, d)) for _ in range(4)]
+    for bf16, want in ((1, 1), (0, 0)):
+        dt = torch.bfloat16 if bf16 else torch.float32
+        buf = torch.zeros(b * nc * chunk * d + 4, dtype=dt)
+        off = buf[2:2 + v.numel()].view(v.shape)        # 4 or 8 bytes in
+        off.copy_(v)
+        out = torch.empty_like(off)
+        args = (_ptr(kr), _ptr(ki), _ptr(_tw(chunk)))
+        assert long_lib.fft_fused_causal_mix_v3(
+            _ptr(off), *args, *(_ptr(t) for t in scratch[:2]), _ptr(out), b,
+            nc, chunk, d, cols, 4, 128, bf16, None) == want
+        assert long_lib.fft_fused_causal_mix_bwd_v3(
+            _ptr(off), _ptr(kr), _ptr(ki), _ptr(off), _ptr(_tw(chunk)),
+            *(_ptr(t) for t in scratch), _ptr(out), _ptr(torch.empty_like(
+                kr)), _ptr(torch.empty_like(ki)), b, nc, chunk, d, cols, 4,
+            128, bf16, None) == want
 
 
 def test_emulated_kbar_with_a_channel_dropped_fails(tmp_path_factory):
