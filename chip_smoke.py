@@ -5,7 +5,9 @@ backward, the same block past n_fft 2048 (kernels #3 and #4), and BASELINE
 config 4, SPECTRE-350M at seq 16384 (24 layers, d=1024, 16 heads, vocab
 50432), serving and training, and at seq 32768 and 65536 in fp32 and in
 bf16 (#7's and #11's bf16 instances), with both LMs' decode through kernel
-#12,
+#12, and in bf16 (ROADMAP item 3b) the tiny LM, the config-1 block at
+n_fft 1024-65536 and the 350M's prompts of 512 and 600 tokens (the bf16
+instances of #6, #10 and #1-#4),
 random weights from seed 0, through the port's own entry points.  The
 tiny LM's causal mix runs kernels #8 kf_spectra and #6 fused_causal_mix as
 shared-memory FFTs and its backward #10 fused_causal_mix_bwd as FFTs and
@@ -69,7 +71,15 @@ Phases, in order; any failure raises and the exit code is nonzero:
              #11 at the 350M's layer at seq 32768 and 65536 (nc 16 and
              32, long_nc_cases), #7 and #11 also through their bf16
              instances on the same inputs rounded to bf16 (rel_err <=
-             1e-2 on the bf16 outputs; fewer timed calls).
+             1e-2 on the bf16 outputs; fewer timed calls).  The bf16
+             instances of #6 (the FFT kernel at B=4 nc=16 C=128 d=512 and
+             nc=1 C=512 d=1024; the direct kernel at nc=1 C=600), #10 (B=8
+             nc=16), #1 and #2 (B=8 N=1024), #3 (4096 x 2, 8192 x 1) and #4
+             (16384, 65536 x 1) against their plain versions on the same
+             bf16 inputs (1e-2 on bf16 outputs, 2e-5 on fp32 ones), each
+             timed beside its fp32 instance on the same values (fp32_ms,
+             fp32_device_ms), the bound with v, ybar, y and vbar at 2
+             bytes.
 3. score     lm_apply on 4 x 2048 tokens; logits within rel_err 1e-4 of
              the same model and weights on the CPU (where the kernels'
              plain versions run); tokens/s on the card, and 3 calls under
@@ -104,6 +114,17 @@ Phases, in order; any failure raises and the exit code is nonzero:
              steps.  Every kernel of the training path (kf_spectra,
              fused_causal_mix and its backward) was launched during the
              phase, and no direct-DFT kernel was.
+   6b.       (launch counts of its own) the tiny LM in bf16 (--bf16):
+             a train_step at 2 x 2048 on the card against the same bf16
+             model on the CPU on the card's modReLU sides (loss 1e-2,
+             logits 2e-2, each gradient 4e-2, max-wise), with #6 and #10
+             by their plain versions on the card passing and a #10 whose
+             Kbar drops its farthest lag failing the same check; scoring
+             4 x 2048, prefill 4 x 1024, 32 decode steps at B=4, the CLI's
+             generate --bf16, 4 train steps at 8 x 2048 (median of steps
+             2-3, peak memory) and one profiled, train-lm --bf16; #8, the
+             bf16 instances of #6 and #10, #5 and #12 launched, and no
+             fp32 instance of #6 or #10 and no direct kernel.
 7. block     BASELINE config 1's block (fft_impl="pallas", mean pooling,
              memory 16, fp32): forward within rel_err 2e-5 of the same
              weights and input on the CPU, every parameter gradient of
@@ -137,6 +158,17 @@ Phases, in order; any failure raises and the exit code is nonzero:
              fused branch's mem_t ms, and a profile of the forward with
              each.  twopass_mix was launched once in each block forward
              with the flag on (phase 2 times #4 alone against cuFFT).
+   7d.       (launch counts of its own) the config-1 block in bf16, as
+             bench.py builds it: against the same bf16 block on the CPU
+             (output 2e-2, each gradient 4e-2, max-wise), with #1 and #2
+             by their plain versions on the card passing and a #2 whose
+             first gate group's cotangent is dropped failing; 5 steps and
+             3 profiled through bench.run; python -m fft_tpu_torch.bench;
+             4096 x 2 and 8192 x 1 (forward within 2e-2 of the CPU, 3
+             steps, 2 profiled); the forward at 16384-65536 with
+             TWOPASS_ENABLE on and off in turns (16384 within 2e-2 of the
+             CPU).  The bf16 instances of #1-#4 launched, their fp32 ones
+             never, #4 once in each forward with the flag on.
 8. 350m      SPECTRE-350M (spectre_350m_config, seq 16384, chunk 2048).
              Parity at 2 layers and 8192 tokens (nc=4: kf_seg_rfft, the v3
              mix and its backward): logits, loss and every gradient of a
@@ -177,6 +209,12 @@ Phases, in order; any failure raises and the exit code is nonzero:
              with restore_checkpoint and lm_generate on the same encoded
              prompt, fused_decode_mix launched once a layer per decode step
              and banded_inverse once a layer at the prompt.
+   8d.       (launch counts of its own) the 350M in bf16 at full depth:
+             prefills of 512 and 600 tokens (chunk = length, nc = 1: #6's
+             FFT kernel's bf16 instance at 512, its direct kernel's at
+             600, each once a layer a call), logits within 2e-2 of the
+             same prefill with #6's plain version on the card, wall ms and
+             one call profiled.
    8c.       (launch counts of their own) 350m_long: SPECTRE-350M at seq
              32768 and 65536 (chunk 2048, nc 16 and 32), fp32 and bf16.
              Parity at 2 layers, full width, 32768 tokens, every run with
@@ -266,6 +304,13 @@ SOURCES = {
     "fused_decode_mix": "fft_tpu_torch/csrc/decode.cu",
     "staged_mix": "fft_tpu_torch/csrc/staged_mix.cu",
     "twopass_mix": "fft_tpu_torch/csrc/twopass_mix.cu",
+    "fused_causal_mix_bf16": "fft_tpu_torch/csrc/causal_fft.cu",
+    "fused_causal_mix_direct_bf16": "fft_tpu_torch/csrc/causal.cu",
+    "fused_causal_mix_bwd_bf16": "fft_tpu_torch/csrc/causal_fft.cu",
+    "direct_mix_bf16": "fft_tpu_torch/csrc/spectral_mix.cu",
+    "direct_mix_bwd_bf16": "fft_tpu_torch/csrc/spectral_mix.cu",
+    "staged_mix_bf16": "fft_tpu_torch/csrc/staged_mix.cu",
+    "twopass_mix_bf16": "fft_tpu_torch/csrc/twopass_mix.cu",
 }
 REPLACES = {
     "direct_mix": "fft_tpu/kernels/pallas_fft.py:301",
@@ -285,6 +330,13 @@ REPLACES = {
     "fused_decode_mix": "fft_tpu/kernels/pallas_decode.py:71",
     "staged_mix": "fft_tpu/kernels/pallas_fft.py:630",
     "twopass_mix": "fft_tpu/kernels/pallas_fft.py:1156",
+    "fused_causal_mix_bf16": "fft_tpu/kernels/pallas_causal.py:592",
+    "fused_causal_mix_direct_bf16": "fft_tpu/kernels/pallas_causal.py:592",
+    "fused_causal_mix_bwd_bf16": "fft_tpu/kernels/pallas_causal.py:1921",
+    "direct_mix_bf16": "fft_tpu/kernels/pallas_fft.py:301",
+    "direct_mix_bwd_bf16": "fft_tpu/kernels/pallas_fft.py:449",
+    "staged_mix_bf16": "fft_tpu/kernels/pallas_fft.py:630",
+    "twopass_mix_bf16": "fft_tpu/kernels/pallas_fft.py:1156",
 }
 SERVE_KERNELS = ("kf_spectra", "fused_causal_mix", "banded_inverse",
                  "fused_decode_mix")
@@ -313,6 +365,17 @@ LONG_MIX = {"float32": ("fused_causal_mix_v3", "fused_causal_mix_bwd_v3"),
             "bfloat16": ("fused_causal_mix_v3_bf16",
                          "fused_causal_mix_bwd_v3_bf16")}
 OTHER_MODE = {"float32": "bfloat16", "bfloat16": "float32"}
+# the bf16 paths of item 3b: the tiny LM in bf16 (#8, the bf16 instances
+# of #6 and #10, #5 at the CLI's prompt, #12), the 350M's bf16 prefills
+# of 512 and 600 tokens (the FFT #6 and the direct #6 at nc = 1), the
+# config-1 block in bf16 (#1, #2; #3 at 4096-8192; #4 at 16384-65536)
+TINY_BF16_KERNELS = ("kf_spectra", "fused_causal_mix_bf16",
+                     "fused_causal_mix_bwd_bf16", "banded_inverse",
+                     "fused_decode_mix")
+SHORT_350M_BF16 = {512: "fused_causal_mix_bf16",
+                   600: "fused_causal_mix_direct_bf16"}
+BLOCK_BF16_KERNELS = ("direct_mix_bf16", "direct_mix_bwd_bf16",
+                      "staged_mix_bf16", "twopass_mix_bf16")
 # #10's CUDA kernels (causal_fft.cu), by name in the tiny LM's training
 # profile
 BWD_KERNEL_NAMES = ("bwd_window_kernel", "bwd_bins_fft_kernel",
@@ -483,6 +546,8 @@ def phase_kernels(kc, sm, kd, dev):
         cases += mix_cases(sm, randn, 8, n, d, cols, mem,
                            main=(n == 1024 and mem))
     cases += long_mix_cases(sm, randn)
+    cases += bf16_causal_cases(kc, randn)
+    cases += bf16_mix_cases(sm, randn)
 
     direct_sweep(sm, randn)
     staged_sweep(sm, randn)
@@ -507,7 +572,9 @@ def run_cases(cases) -> dict:
         # opts: {"tol": the limit (REL_KERNEL unless given; a tuple gives
         # each output of a tuple its own), "reps", "rounds": fewer calls
         # timed by events where the plain version is slow; the profiler's
-        # device_ms always takes 10 calls, as it reads low on fewer}
+        # device_ms always takes 10 calls, as it reads low on fewer;
+        # "fp32": a bf16 instance's fp32 instance on the same values,
+        # timed in the same turns (fp32_ms, fp32_device_ms)}
         opts = opts[0] if opts else {}
         tol = opts.get("tol", REL_KERNEL)
         reps, rounds = opts.get("reps", 10), opts.get("rounds", 7)
@@ -526,9 +593,16 @@ def run_cases(cases) -> dict:
         if not (ok and finite):
             raise AssertionError(f"{name} [{shape}]: rel_err {errs} > "
                                  f"{tol} or non-finite")
-        # alternate plain, kernel, kernel, plain on the same card
-        p1, k1, k2, p2 = (median_ms(f, reps, rounds)
-                          for f in (plain, kern, kern, plain))
+        # alternate plain, kernel, kernel, plain on the same card (plain,
+        # kernel, fp32, fp32, kernel, plain where the fp32 instance is timed)
+        fp32 = opts.get("fp32")
+        turns = (plain, kern, kern, plain) if fp32 is None else (
+            plain, kern, fp32, fp32, kern, plain)
+        times = [median_ms(f, reps, rounds) for f in turns]
+        p1, k1, k2, p2 = times[0], times[1], times[-2], times[-1]
+        if fp32 is not None:
+            fp32_case = dict(fp32_ms=statistics.median(times[2:4]),
+                             fp32_device_ms=device_ms(fp32))
         bound_ms, bound_by = bound(*work)
         case = dict(shape=shape, rel_err=err, tol=tol, max_abs_err=abs_err,
                     **({"rel_errs": errs} if len(errs) > 1 else {}),
@@ -541,6 +615,8 @@ def run_cases(cases) -> dict:
                     library_device_ms=(None if lib is None
                                        else device_ms(lib)),
                     bound_ms=bound_ms, bound_by=bound_by, main=main)
+        if fp32 is not None:
+            case.update(fp32_case)
         emit(phase="kernels", kernel=name, **case)
         results.setdefault(name, []).append(case)
     return results
@@ -1249,6 +1325,105 @@ def long_mix_cases(sm, randn):
     return cases
 
 
+def bf16_causal_cases(kc, randn):
+    """The bf16 instances of #6 (its FFT kernel at the tiny LM's B=4 nc=16
+    C=128 d=512 and at a 350M prompt of 512 tokens, nc=1 C=512 d=1024;
+    its direct kernel at a 600-token prompt, C=600, where 2C = 1200 takes
+    no FFT plan) and of #10's FFT kernel at the tiny LM's training batch
+    (B=8 nc=16), against their plain versions on the same bf16 inputs
+    (REL_BF16 on y and vbar, REL_KERNEL on the fp32 Kbar), each beside
+    its fp32 instance on the same values; the bound with v, ybar, y and
+    vbar at 2 bytes."""
+    cases = []
+    bf = torch.bfloat16
+    for b, nc, chunk, d, cols, names, main in (
+            (4, 16, 128, 512, 32, ("fused_causal_mix_bf16",), True),
+            (1, 1, 512, 1024, 64, ("fused_causal_mix_bf16",), False),
+            (1, 1, 600, 1024, 64, ("fused_causal_mix_direct_bf16",), True),
+            (8, 16, 128, 512, 32, ("fused_causal_mix_bwd_bf16",), True)):
+        v, ybar = (randn(b, nc * chunk, d).to(bf) for _ in range(2))
+        kr, ki = (randn(b, nc, chunk + 1, nc * cols) for _ in range(2))
+        v32, y32 = v.float(), ybar.float()
+        vb, kb, mac, seg = causal_work(b, nc, chunk, d, cols)
+        act = vb // 2                          # v's (or y's) bf16 bytes
+        shape = f"B={b} nc={nc} C={chunk} d={d} cols={cols}"
+        name = names[0]
+        if name == "fused_causal_mix_bwd_bf16":
+            cases.append((
+                name, shape,
+                lambda v=v, kr=kr, ki=ki, yb=ybar, c=chunk, g=cols:
+                    kc.fused_causal_mix_bwd(v, kr, ki, yb, c, g),
+                lambda v=v, kr=kr, ki=ki, yb=ybar, c=chunk, g=cols:
+                    kc.fused_causal_mix_bwd_ref(v, kr, ki, yb, c, g),
+                None, (3 * act + 2 * kb, 3 * seg + 2 * mac), main,
+                dict(tol=(REL_BF16, REL_KERNEL, REL_KERNEL),
+                     fp32=lambda v=v32, kr=kr, ki=ki, yb=y32, c=chunk,
+                     g=cols: kc.fused_causal_mix_bwd(v, kr, ki, yb, c, g))))
+            continue
+        cases.append((
+            name, shape,
+            lambda v=v, kr=kr, ki=ki, c=chunk, g=cols: kc.fused_causal_mix(
+                v, kr, ki, c, g),
+            lambda v=v, kr=kr, ki=ki, c=chunk, g=cols:
+                kc.fused_causal_mix_ref(v, kr, ki, c, g),
+            None, (2 * act + kb, 2 * seg + mac), main,
+            dict(tol=REL_BF16, fp32=lambda v=v32, kr=kr, ki=ki, c=chunk,
+                 g=cols: kc.fused_causal_mix(v, kr, ki, c, g))))
+    return cases
+
+
+def bf16_mix_cases(sm, randn):
+    """The bf16 instances of #1 and #2 at config 1 (B=8 N=1024 d=512, 32
+    gate columns, memory), #3 at 4096 x 2 and 8192 x 1, #4 at 16384 and
+    65536 x 1, against their plain versions on the same bf16 inputs
+    (REL_BF16 on y and vbar, REL_KERNEL on the fp32 gate cotangent), each
+    beside its fp32 instance on the same values and the cuFFT composition
+    on them upcast (library_ms, the casts included); the bound with v,
+    ybar, y and vbar at 2 bytes."""
+    cases = []
+    bf = torch.bfloat16
+    d, cols = 512, 32
+    for name, b, n, main in (("direct_mix", 8, 1024, True),
+                             ("staged_mix", 2, 4096, True),
+                             ("staged_mix", 1, 8192, False),
+                             ("twopass_mix", 1, 16384, True),
+                             ("twopass_mix", 1, 65536, False)):
+        fh = n // 2 + 1
+        v, ybar = (randn(b, n, d).to(bf) for _ in range(2))
+        gr, gi, mem_t = randn(b, fh, cols), randn(b, fh, cols), randn(n, d)
+        v32, y32 = v.float(), ybar.float()
+        fn = getattr(sm, name)
+        vb, gb, ops = mix_work(b, n, d, cols)
+        fwd_bytes, fwd_ops = fwd_mix_work(b, n, d, cols, True)
+        shape = f"B={b} N={n} d={d} cols={cols} mem=1"
+        cases.append((
+            name + "_bf16", shape,
+            lambda fn=fn, v=v, gr=gr, gi=gi, m=mem_t, n=n: fn(v, gr, gi, m,
+                                                              n),
+            lambda v=v, gr=gr, gi=gi, m=mem_t, n=n: sm.direct_mix_ref(
+                v, gr, gi, m, n),
+            lambda v=v, gr=gr, gi=gi, m=mem_t, n=n: lib_mix(
+                v.float(), gr, gi, m, n).to(bf),
+            (fwd_bytes - vb, fwd_ops), main,
+            dict(tol=REL_BF16, fp32=lambda fn=fn, v=v32, gr=gr, gi=gi,
+                 m=mem_t, n=n: fn(v, gr, gi, m, n))))
+        if name == "direct_mix":
+            cases.append((
+                "direct_mix_bwd_bf16", f"B={b} N={n} d={d} cols={cols}",
+                lambda v=v, gr=gr, gi=gi, yb=ybar, n=n: sm.direct_mix_bwd(
+                    v, gr, gi, yb, n),
+                lambda v=v, gr=gr, gi=gi, yb=ybar, n=n:
+                    sm.direct_mix_bwd_ref(v, gr, gi, yb, n),
+                lambda v=v, gr=gr, gi=gi, yb=ybar, n=n: tuple(
+                    t.to(bf) if i == 0 else t for i, t in enumerate(
+                        lib_mix_bwd(v.float(), gr, gi, yb.float(), n))),
+                (3 * vb // 2 + 2 * gb, 3 * ops + 16 * b * fh * d), main,
+                dict(tol=(REL_BF16, REL_KERNEL, REL_KERNEL),
+                     fp32=lambda v=v32, gr=gr, gi=gi, yb=y32, n=n:
+                         sm.direct_mix_bwd(v, gr, gi, yb, n))))
+    return cases
+
+
 def direct_sweep(sm, randn) -> None:
     """#1 (with memory) and #2 at every n_fft up to 2048 that the layer
     fuses (``mix_kernel``: the even n_fft from 8 to 256, 256 m up to 2048)
@@ -1298,27 +1473,36 @@ def staged_sweep(sm, randn) -> None:
     emit(phase="kernels_staged_sweep", d=128, rel_err=errs)
 
 
-def mix_cases(sm, randn, b, n, d, cols, mem, main):
-    """direct_mix and direct_mix_bwd at one shape, each beside the cuFFT
-    composition of the same function (which the port never calls)."""
-    fh, d_g = n // 2 + 1, d // cols
-    v, ybar = randn(b, n, d), randn(b, n, d)
-    gr, gi = randn(b, fh, cols), randn(b, fh, cols)
-    mem_t = randn(n, d) if mem else None
+def lib_mix_bwd(v, gr, gi, ybar, n):
+    """The cuFFT composition of #2's adjoint (which the port never calls):
+    (vbar, the gate cotangent as one complex plane)."""
+    b, _, d = v.shape
+    fh, cols = n // 2 + 1, gr.shape[-1]
+    d_g = d // cols
     gc = torch.complex(gr, gi)[..., None]
     coef = torch.full((fh, 1), 2.0, device=v.device)
     coef[0] = coef[-1] = 1.0
+    u = torch.fft.rfft(ybar, dim=1).view(b, fh, cols, d_g) * (coef[
+        ..., None] / n)
+    x = torch.fft.rfft(v, dim=1).view(b, fh, cols, d_g)
+    vbar = n * torch.fft.irfft((gc.conj() * u / coef[..., None]).view(
+        b, fh, d), n, dim=1)
+    return vbar, (u * x.conj()).sum(-1)
+
+
+def mix_cases(sm, randn, b, n, d, cols, mem, main):
+    """direct_mix and direct_mix_bwd at one shape, each beside the cuFFT
+    composition of the same function (which the port never calls)."""
+    fh = n // 2 + 1
+    v, ybar = randn(b, n, d), randn(b, n, d)
+    gr, gi = randn(b, fh, cols), randn(b, fh, cols)
+    mem_t = randn(n, d) if mem else None
 
     def lib_fwd():
         return lib_mix(v, gr, gi, mem_t, n)
 
     def lib_bwd():
-        u = torch.fft.rfft(ybar, dim=1).view(b, fh, cols, d_g) * (coef[
-            ..., None] / n)
-        x = torch.fft.rfft(v, dim=1).view(b, fh, cols, d_g)
-        vbar = n * torch.fft.irfft((gc.conj() * u / coef[..., None]).view(
-            b, fh, d), n, dim=1)
-        return vbar, (u * x.conj()).sum(-1)
+        return lib_mix_bwd(v, gr, gi, ybar, n)
 
     vb, gb, ops = mix_work(b, n, d, cols)
     cases = [(
@@ -1407,10 +1591,10 @@ def train_parity(cfg, dev, tokens) -> dict:
                 finite=math.isfinite(loss))
 
 
-def phase_train(cfg, dev) -> None:
+def phase_train(cfg, dev) -> float:
     """Gradient parity with the CPU, 5 steps at the CLI's batch (#10's FFT
     kernel launched once a layer a step, its direct kernel never) and 2
-    more under torch.profiler, the CLI."""
+    more under torch.profiler, the CLI.  Returns the median step ms."""
     from fft_tpu_torch import bench, cli
     from fft_tpu_torch.kernels import causal as kc
     from fft_tpu_torch.models.lm import lm_init
@@ -1469,6 +1653,7 @@ def phase_train(cfg, dev) -> None:
     if not recs or not all(math.isfinite(r["loss"]) for r in recs):
         raise AssertionError(f"cli train-lm printed {buf.getvalue()!r}")
     emit(phase="cli_train_lm", steps=3, lines=recs)
+    return ms
 
 
 def teacher_forced(model, model_cpu, prompts, toks, dev):
@@ -1617,7 +1802,7 @@ def phase_wide_block(dev) -> None:
         MIX_BRANCH_CALLS, spectre_block_apply, spectre_block_init,
     )
 
-    cfg = bench.config1(16384)
+    cfg = bench.config1(16384, "float32")
     x = torch.randn((1, 16384, cfg.embed_dim),
                     generator=torch.Generator().manual_seed(SEED + 7))
     MIX_BRANCH_CALLS.clear()
@@ -1685,14 +1870,15 @@ def block_parity(cfg, x, dev) -> dict:
 
 
 def phase_block(dev) -> None:
-    """BASELINE config 1's block: parity with the CPU, timed steps through
-    the bench, the bench's CLI, and the original constructor's defaults."""
+    """BASELINE config 1's block in fp32: parity with the CPU, timed steps
+    through the bench, and the original constructor's defaults (the
+    bench's CLI, bf16 as bench.py's, runs in phase_block_bf16)."""
     from fft_tpu_torch import bench
     from fft_tpu_torch.layers.spectre import (
         spectre_block_apply, spectre_block_init,
     )
 
-    cfg = bench.config1()
+    cfg = bench.config1(compute_dtype="float32")
 
     def block_on(device, c=cfg):
         return spectre_block_init(c, torch.Generator().manual_seed(SEED),
@@ -1703,19 +1889,9 @@ def phase_block(dev) -> None:
     emit(phase="block_parity", **block_parity(cfg, x, dev))
 
     # step ms, and the device's busy ms a step from 3 profiled steps
-    res = bench.run(steps=5, device=dev, seed=SEED, profile_steps=3)
+    res = bench.run(steps=5, device=dev, seed=SEED, profile_steps=3,
+                    compute_dtype="float32")
     emit(phase="block_steps", steps=5, **res)
-    proc = subprocess.run(
-        [sys.executable, "-m", "fft_tpu_torch.bench", "--steps", "3"],
-        capture_output=True, text=True, timeout=600)
-    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
-    if proc.returncode != 0 or not lines:
-        raise AssertionError(f"python -m fft_tpu_torch.bench failed "
-                             f"({proc.returncode}): {proc.stderr[-2000:]}")
-    rec = json.loads(lines[-1])
-    if not math.isfinite(rec["value"]):
-        raise AssertionError(f"bench printed {rec}")
-    emit(phase="cli_bench", **rec)
 
     # the original constructor's defaults: DCT pooling, wavelet rate 0.1
     # (on for a row with probability 0.1 in training), no memory
@@ -1752,7 +1928,7 @@ def phase_block_1536(dev, sm) -> None:
     factors)."""
     from fft_tpu_torch import bench
 
-    cfg = bench.config1(1536)
+    cfg = bench.config1(1536, "float32")
     x = torch.randn((4, 1536, bench.D),
                     generator=torch.Generator().manual_seed(SEED + 9))
     before = dict(sm.LAUNCHES)
@@ -1775,7 +1951,7 @@ def phase_block_long(dev) -> None:
     from fft_tpu_torch.ops import fftops
 
     for seq, batch in ((4096, 2), (8192, 1)):
-        cfg = bench.config1(seq)
+        cfg = bench.config1(seq, "float32")
         x = torch.randn((batch, seq, bench.D),
                         generator=torch.Generator().manual_seed(SEED + seq))
         res = block_parity(cfg, x, dev)
@@ -1783,7 +1959,7 @@ def phase_block_long(dev) -> None:
         if res["branches"] != {"fused": 1}:
             raise AssertionError(f"block n_fft {seq} took {res['branches']}")
         steps = bench.run(steps=5, batch=batch, seq=seq, device=dev,
-                          seed=SEED, profile_steps=3)
+                          seed=SEED, profile_steps=3, compute_dtype="float32")
         emit(phase="block_long_steps", steps=5, **steps)
         if not math.isfinite(steps["loss"]):
             raise AssertionError(f"block n_fft {seq}: loss {steps['loss']}")
@@ -1847,7 +2023,7 @@ def phase_twopass(dev, sm) -> int:
     default = sm.TWOPASS_ENABLE
     try:
         for n in (16384, 32768, 65536):
-            cfg = bench.config1(n)
+            cfg = bench.config1(n, "float32")
             x = torch.randn((1, n, cfg.embed_dim),
                             generator=torch.Generator().manual_seed(SEED + n))
             rec = dict(n_fft=n, batch=1, seq=n)
@@ -2374,6 +2550,396 @@ def phase_350m_long_parity(dev, kc) -> dict:
         raise AssertionError(f"350m bf16 loss {losses['bfloat16']} against "
                              f"fp32 {losses['float32']}: {loss_err}")
     return losses
+
+
+def bf16_config(cfg):
+    """``cfg`` (an LMConfig) with its blocks in bf16 (the parameters stay
+    fp32)."""
+    return dataclasses.replace(cfg, block=dataclasses.replace(
+        cfg.block, compute_dtype="bfloat16"))
+
+
+def control_summary(ctl: dict) -> dict:
+    """What a control run of the bf16 model check reports."""
+    return dict(passed=bf16_model_ok(ctl), worst_grad=ctl["worst_grad"],
+                max_grad_rel_err=ctl["max_grad_rel_err"],
+                logits_rel_err=ctl["logits_rel_err"],
+                loss_rel_err=ctl["loss_rel_err"])
+
+
+def phase_tiny_bf16(dev) -> dict:
+    """The tiny LM in bf16 at full depth (6 layers, d=512, seq 2048; the
+    CLI's --bf16): a train_step at 2 x 2048 on the card against the same
+    bf16 model on the CPU, every run on the card's bf16 modReLU sides
+    (bf16_model_ok: loss 1e-2, logits 2e-2, each gradient 4e-2, max-wise),
+    with #6 and #10 run by their plain versions on the card (must pass)
+    and a #10 whose Kbar drops its farthest lag (must fail) as controls;
+    then scoring 4 x 2048, prefill 4 x 1024, decode at B=4, the CLI's
+    generate --bf16 (its 4-byte prompt takes #5), 4 train steps at 8 x
+    2048 (median of steps 2-3, peak memory) and one profiled (busy and
+    wall), and train-lm --bf16.  Returns the step's numbers."""
+    from fft_tpu_torch import bench, cli
+    from fft_tpu_torch.kernels import causal as kc
+    from fft_tpu_torch.models.lm import (
+        lm_apply, lm_decode_step, lm_init, lm_prefill, tiny_lm_config,
+    )
+    from fft_tpu_torch.train import TrainConfig, train_init, train_step
+    from fft_tpu_torch.train.data import CharDataset
+
+    cfg = bf16_config(tiny_lm_config())
+    seq = cfg.max_seq
+    data = CharDataset()
+    tokens = torch.from_numpy(next(data.batches(2, seq, seed=SEED)))
+    sides = []
+    card = long_parity_run(cfg, dev, tokens, sides, record=True)
+    torch.cuda.synchronize()
+    ref = long_parity_run(cfg, "cpu", tokens, sides, False)
+    res = parity_errs(card, ref)
+    bwd_kernel = kc.fused_causal_mix_bwd
+    control = {name: control_summary(parity_errs(long_parity_run(
+        cfg, dev, tokens, sides, False, swap), ref)) for name, swap in (
+            ("plain_6_10", {
+                "_fused_causal_mix": kc.fused_causal_mix_ref,
+                "fused_causal_mix_bwd": kc.fused_causal_mix_bwd_ref}),
+            ("kbar_farthest_lag_dropped", {
+                "fused_causal_mix_bwd": lambda *a: drop_last_lag(
+                    *bwd_kernel(*a))}))}
+    ok = (bf16_model_ok(res) and control["plain_6_10"]["passed"]
+          and not control["kbar_farthest_lag_dropped"]["passed"]
+          and all_finite(card["logits"]) and math.isfinite(card["loss"]))
+    emit(phase="tiny_bf16_parity", layers=cfg.num_layers, batch=2, seq=seq,
+         limit=dict(loss=REL_BF16, logits=REL_BF16_LOGITS,
+                    grads=REL_BF16_MODEL),
+         loss=card["loss"], cpu_loss=ref["loss"],
+         modrelu_sides_moved=dict(card=card["flips"], cpu=ref["flips"]),
+         control=control, **{k: v for k, v in res.items() if k != "grads"},
+         grads={k: v[0] for k, v in res["grads"].items()})
+    if not ok:
+        raise AssertionError(f"tiny bf16 parity: {res['worst_grad']} "
+                             f"{res['max_grad_rel_err']}, logits "
+                             f"{res['logits_rel_err']}, loss "
+                             f"{res['loss_rel_err']}; control {control}")
+    del card, ref
+
+    model = lm_init(cfg, torch.Generator().manual_seed(SEED), dev)
+    tg = torch.Generator().manual_seed(SEED + 1)
+    toks = torch.randint(0, cfg.vocab_size, (4, seq), generator=tg).to(dev)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 1024), generator=tg).to(
+        dev)
+    with torch.no_grad():
+        logits = lm_apply(model, toks)
+        torch.cuda.synchronize()
+        if not (logits.shape == (4, seq, cfg.vocab_size)
+                and all_finite(logits)):
+            raise AssertionError("tiny bf16 score: bad shape or non-finite")
+        del logits
+        score_ms = wall_ms(lambda: lm_apply(model, toks))
+        score_prof = bench._profile(lambda: lm_apply(model, toks),
+                                    torch.cuda.synchronize, 3)
+        prefill_ms = wall_ms(lambda: lm_prefill(model, prompts))
+        steps = 32
+
+        def decode_run():
+            lg, cs = lm_prefill(model, prompts)
+            tok = lg.argmax(-1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(steps):
+                lg, cs = lm_decode_step(model, tok, 1024 + i, cs)
+                tok = lg.argmax(-1)
+            torch.cuda.synchronize()
+            if not all_finite(lg):
+                raise AssertionError("tiny bf16 decode: non-finite")
+            return (time.perf_counter() - t0) * 1e3 / steps
+
+        decode_ms = statistics.median(decode_run() for _ in range(3))
+    emit(phase="tiny_bf16_serve", score_batch=4, seq=seq, score_ms=score_ms,
+         score_tokens_per_s=4 * seq / (score_ms / 1e3),
+         score_profile=score_prof, prefill_batch=4, prefill_tokens=1024,
+         prefill_ms=prefill_ms, decode_batch=4, decode_steps=steps,
+         decode_ms_per_token=decode_ms)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["generate", "--device", "cuda", "--bf16", "--steps", "64"])
+    if not buf.getvalue().startswith("the "):
+        raise AssertionError(f"cli generate --bf16 printed "
+                             f"{buf.getvalue()!r}")
+    emit(phase="tiny_bf16_cli_generate", prompt="the ", steps=64,
+         chars=len(buf.getvalue()))
+    del model
+
+    state = train_init(lm_init(cfg, torch.Generator().manual_seed(SEED), dev),
+                       TrainConfig(), seed=SEED + 1)
+    batches = data.batches(8, seq, seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for _ in range(4):
+        batch = next(batches)
+        t0 = time.perf_counter()
+        m = train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"tiny bf16 train: losses {losses}")
+    ms = statistics.median(step_ms[1:3])
+    prof = bench._profile(lambda: train_step(state, batch),
+                          torch.cuda.synchronize, 1, BWD_KERNEL_NAMES)
+    train = dict(batch=8, seq=seq, step_ms=step_ms, median_step_ms=ms,
+                 tokens_per_s=8 * seq / (ms / 1e3), loss=losses,
+                 peak_memory_bytes=peak, profile=prof)
+    emit(phase="tiny_bf16_train", **train)
+    del state
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["train-lm", "--device", "cuda", "--bf16", "--steps", "3"])
+    recs = [json.loads(line) for line in buf.getvalue().splitlines()
+            if line.startswith("{")]
+    if not recs or not all(math.isfinite(r["loss"]) for r in recs):
+        raise AssertionError(f"cli train-lm --bf16 printed "
+                             f"{buf.getvalue()!r}")
+    emit(phase="tiny_bf16_cli_train_lm", steps=3, lines=recs)
+    return train
+
+
+def phase_350m_short_bf16(dev, kc) -> None:
+    """SPECTRE-350M in bf16 at full depth (24 layers, d=1024): prefills of
+    512 and 600 tokens (chunk = length, nc = 1: the FFT #6's bf16 instance
+    at 512, where 2C = 1024; the direct #6's at 600, where 2C = 1200 takes
+    no FFT plan), each once a layer a call; the logits against the same
+    prefill with #6 run by its plain version on the card (max-wise within
+    REL_BF16_LOGITS); wall ms (median of 3) and one call profiled."""
+    from fft_tpu_torch import bench
+    from fft_tpu_torch.models.lm import lm_init, lm_prefill, spectre_350m_config
+
+    cfg = bf16_config(spectre_350m_config())
+    model = lm_init(cfg, torch.Generator().manual_seed(SEED), dev)
+    x = torch.randint(0, cfg.vocab_size, (1, max(SHORT_350M_BF16)),
+                      generator=torch.Generator().manual_seed(SEED + 7)).to(
+                          dev)
+    with torch.no_grad():
+        for length, name in SHORT_350M_BF16.items():
+            prompt = x[:, :length]
+            before = dict(kc.LAUNCHES)
+            lg, _ = lm_prefill(model, prompt)
+            torch.cuda.synchronize()
+            launched = {k: v - before[k] for k, v in kc.LAUNCHES.items()
+                        if v != before[k]}
+            kept = kc._fused_causal_mix
+            kc._fused_causal_mix = kc.fused_causal_mix_ref
+            try:
+                want, _ = lm_prefill(model, prompt)
+            finally:
+                kc._fused_causal_mix = kept
+            err = rel_err(lg, want)
+            ms = wall_ms(lambda: lm_prefill(model, prompt), rounds=3)
+            prof = bench._profile(lambda: lm_prefill(model, prompt),
+                                  torch.cuda.synchronize, 1,
+                                  ("fused_mix_fft_kernel",
+                                   "segment_rfft_kernel",
+                                   "banded_fft_kernel"))
+            emit(phase="350m_short_bf16", prompt=length, layers=cfg.num_layers,
+                 rel_err_vs_plain=err, limit=REL_BF16_LOGITS, launches=launched,
+                 ms=ms, profile=prof)
+            if not (all_finite(lg) and err <= REL_BF16_LOGITS
+                    and launched.get(name) == cfg.num_layers):
+                raise AssertionError(f"350m bf16 prefill {length}: rel_err "
+                                     f"{err}, launches {launched}")
+            del lg, want
+    del model
+
+
+def block_bf16_run(cfg, device, x, sides, record, swap=()) -> dict:
+    """The bf16 block of ``cfg`` from seed 0 on ``device``: y (fp32, on
+    the CPU) and every parameter gradient of sum(y.float() ** 2), the
+    modReLUs on ``sides`` (``record``: this run appends its own).
+    ``swap``: (module or dict, name, value) replaced for the run."""
+    from fft_tpu_torch.layers.spectre import (
+        spectre_block_apply, spectre_block_init,
+    )
+
+    def get(obj, k):
+        return obj[k] if isinstance(obj, dict) else getattr(obj, k)
+
+    def put(obj, k, val):
+        if isinstance(obj, dict):
+            obj[k] = val
+        else:
+            setattr(obj, k, val)
+
+    kept = [(obj, k, get(obj, k)) for obj, k, _ in swap]
+    block = spectre_block_init(cfg, torch.Generator().manual_seed(SEED),
+                               device)
+    for obj, k, val in swap:
+        put(obj, k, val)
+    try:
+        with same_modrelu_side(record, sides if record else list(sides)):
+            y = spectre_block_apply(block, x.to(device))
+            (y.float() ** 2).sum().backward()
+    finally:
+        for obj, k, val in kept:
+            put(obj, k, val)
+    return dict(y=y.detach().float().cpu(),
+                grads={n: p.grad.float().cpu()
+                       for n, p in block.named_parameters()
+                       if p.grad is not None})
+
+
+def block_bf16_errs(got: dict, ref: dict) -> dict:
+    """The output's and each gradient's max|a-b| / max|b|, and whether
+    they pass (output REL_BF16_LOGITS, gradients REL_BF16_MODEL)."""
+    errs = {n: rel_err(g, ref["grads"][n]) for n, g in got["grads"].items()}
+    worst = max(errs, key=errs.get)
+    y_err = rel_err(got["y"], ref["y"])
+    return dict(rel_err=y_err, worst_grad=worst,
+                max_grad_rel_err=errs[worst], tensors=len(errs),
+                passed=(y_err <= REL_BF16_LOGITS
+                        and errs[worst] <= REL_BF16_MODEL))
+
+
+def drop_group(vbar, gbr, gbi):
+    """The block check's fault: #2's cotangent of the first gate group
+    dropped."""
+    gbr, gbi = gbr.clone(), gbi.clone()
+    gbr[..., 0] = 0
+    gbi[..., 0] = 0
+    return vbar, gbr, gbi
+
+
+def phase_block_bf16(dev, sm) -> int:
+    """The config-1 block in bf16, as bench.py builds it: the card's block
+    against the same bf16 block on the CPU (output within REL_BF16_LOGITS,
+    each gradient of sum(y.float() ** 2) within REL_BF16_MODEL, max-wise,
+    on the card's modReLU sides), with #1 and #2 run by their plain
+    versions on the card (must pass) and a #2 whose first gate group's
+    cotangent is dropped (must fail) as controls; 5 timed steps and 3
+    profiled through bench.run, and ``python -m fft_tpu_torch.bench``;
+    4096 x 2 and 8192 x 1 (#3's bf16 instance forward, cuFFT with casts
+    backward): forward within REL_BF16_LOGITS of the CPU, 3 steps and 2
+    profiled; the forward at 16384, 32768 and 65536 with TWOPASS_ENABLE on
+    and off in turns (#4's bf16 instance against the wide branch), at
+    16384 with the flag on within REL_BF16_LOGITS of the CPU.  Returns the
+    forwards run with the flag on (each launches #4 once)."""
+    from fft_tpu_torch import bench
+    from fft_tpu_torch.layers.spectre import (
+        MIX_BRANCH_CALLS, spectre_block_apply, spectre_block_init,
+    )
+
+    cfg = bench.config1()
+    x = torch.randn((bench.B, bench.L, bench.D),
+                    generator=torch.Generator().manual_seed(SEED + 2))
+    sides = []
+    MIX_BRANCH_CALLS.clear()
+    card = block_bf16_run(cfg, dev, x, sides, True)
+    branches = dict(MIX_BRANCH_CALLS)
+    ref = block_bf16_run(cfg, "cpu", x, sides, False)
+    res = block_bf16_errs(card, ref)
+    bwd_kernel = sm.direct_mix_bwd
+    control = {}
+    for name, swap in (
+            ("plain_1_2", ((sm._FORWARD, "direct_mix", sm.direct_mix_ref),
+                           (sm, "direct_mix_bwd", sm.direct_mix_bwd_ref))),
+            ("gate_group_dropped", ((sm, "direct_mix_bwd",
+                                     lambda *a: drop_group(*bwd_kernel(*a))),
+                                    ))):
+        control[name] = block_bf16_errs(
+            block_bf16_run(cfg, dev, x, sides, False, swap), ref)
+    emit(phase="block_bf16_parity", batch=bench.B, seq=bench.L,
+         limit=dict(output=REL_BF16_LOGITS, grads=REL_BF16_MODEL),
+         branches=branches, control=control, **res)
+    if not (res["passed"] and control["plain_1_2"]["passed"]
+            and not control["gate_group_dropped"]["passed"]
+            and all_finite(card["y"]) and branches == {"fused": 1}):
+        raise AssertionError(f"block bf16 parity {res}, branches {branches}, "
+                             f"control {control}")
+    del card, ref
+
+    res = bench.run(steps=5, device=dev, seed=SEED, profile_steps=3)
+    emit(phase="block_bf16_steps", steps=5, **res)
+    proc = subprocess.run(
+        [sys.executable, "-m", "fft_tpu_torch.bench", "--steps", "3"],
+        capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"python -m fft_tpu_torch.bench failed "
+                             f"({proc.returncode}): {proc.stderr[-2000:]}")
+    rec = json.loads(lines[-1])
+    if not (math.isfinite(rec["value"]) and "bfloat16" in rec["config"]):
+        raise AssertionError(f"bench printed {rec}")
+    emit(phase="cli_bench", **rec)
+
+    for seq, batch in ((4096, 2), (8192, 1)):
+        c = bench.config1(seq)
+        xl = torch.randn((batch, seq, bench.D),
+                         generator=torch.Generator().manual_seed(SEED + seq))
+        with torch.no_grad():
+            MIX_BRANCH_CALLS.clear()
+            y = spectre_block_apply(spectre_block_init(
+                c, torch.Generator().manual_seed(SEED), dev), xl.to(dev))
+            torch.cuda.synchronize()
+            branches = dict(MIX_BRANCH_CALLS)
+            err = rel_err(y.float(), spectre_block_apply(spectre_block_init(
+                c, torch.Generator().manual_seed(SEED), "cpu"), xl).float())
+        steps = bench.run(steps=3, batch=batch, seq=seq, device=dev,
+                          seed=SEED, profile_steps=2)
+        emit(phase="block_bf16_long", forward_rel_err=err,
+             limit=REL_BF16_LOGITS, branches=branches, **steps)
+        if not (err <= REL_BF16_LOGITS and branches == {"fused": 1}
+                and math.isfinite(steps["loss"])):
+            raise AssertionError(f"block bf16 n_fft {seq}: rel_err {err}, "
+                                 f"branches {branches}, loss "
+                                 f"{steps['loss']}")
+        del y
+
+    forwards_on = 0
+
+    def forward(block, xd):
+        nonlocal forwards_on
+        forwards_on += bool(sm.TWOPASS_ENABLE)
+        return spectre_block_apply(block, xd)
+
+    default = sm.TWOPASS_ENABLE
+    try:
+        for n in (16384, 32768, 65536):
+            c = bench.config1(n)
+            xl = torch.randn((1, n, bench.D),
+                             generator=torch.Generator().manual_seed(SEED + n))
+            rec = dict(n_fft=n, batch=1)
+            with torch.no_grad():
+                gpu = spectre_block_init(
+                    c, torch.Generator().manual_seed(SEED), dev)
+                xd = xl.to(dev)
+                if n == 16384:
+                    sm.TWOPASS_ENABLE = True
+                    MIX_BRANCH_CALLS.clear()
+                    y = forward(gpu, xd)
+                    torch.cuda.synchronize()
+                    branches = dict(MIX_BRANCH_CALLS)
+                    err = rel_err(y.float(), spectre_block_apply(
+                        spectre_block_init(c, torch.Generator().manual_seed(
+                            SEED), "cpu"), xl).float())
+                    rec.update(rel_err=err, branches=branches)
+                    if not (all_finite(y) and err <= REL_BF16_LOGITS
+                            and branches == {"fused": 1}):
+                        raise AssertionError(
+                            f"two-pass bf16 block n_fft {n}: rel_err {err}, "
+                            f"branches {branches}")
+                    del y
+                rec["block_forward_ms"] = flag_turns(
+                    sm, lambda: forward(gpu, xd))
+                for flag, key in ((False, "wide"), (True, "twopass")):
+                    sm.TWOPASS_ENABLE = flag
+                    rec["forward_profile_" + key] = bench._profile(
+                        lambda: forward(gpu, xd), torch.cuda.synchronize, 2)
+            sm.TWOPASS_ENABLE = default
+            emit(phase="block_bf16_twopass", **rec)
+            del gpu, xd
+    finally:
+        sm.TWOPASS_ENABLE = default
+    return forwards_on
 
 
 def long_config(seq: int, mode: str):
@@ -2984,7 +3550,7 @@ def main() -> int:
 
     # 6. train ---------------------------------------------------------------
     reset_launches()                          # the training path starts here
-    phase_train(cfg, dev)
+    tiny_fp32_step_ms = phase_train(cfg, dev)
     train_launches = launches()
     emit(phase="train_launches", **train_launches)
     missing = [k for k in TRAIN_KERNELS if train_launches[k] == 0]
@@ -2993,6 +3559,23 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the training path: "
                              f"{missing}; direct kernels launched: {direct}")
     mark("tiny_training")
+
+    # 6b. the tiny LM in bf16 ---------------------------------------------
+    reset_launches()                          # the tiny bf16 path
+    tiny_bf16 = phase_tiny_bf16(dev)
+    tiny_bf16_launches = launches()
+    emit(phase="tiny_bf16_launches", **tiny_bf16_launches)
+    missing = [k for k in TINY_BF16_KERNELS if tiny_bf16_launches[k] == 0]
+    fp32 = {k: tiny_bf16_launches[k] for k in (
+        "fused_causal_mix", "fused_causal_mix_bwd",
+        "fused_causal_mix_direct_bf16", *TINY_DIRECT)
+        if tiny_bf16_launches[k]}
+    if missing or fp32:
+        raise AssertionError(f"tiny bf16: never launched {missing}; "
+                             f"launched outside its bf16 kernels {fp32}")
+    emit(phase="tiny_bf16_vs_fp32_step", bf16_step_ms=tiny_bf16[
+        "median_step_ms"], fp32_step_ms=tiny_fp32_step_ms)
+    mark("tiny_bf16")
 
     # 7. block -------------------------------------------------------------
     reset_launches()                          # the block's path starts here
@@ -3027,10 +3610,35 @@ def main() -> int:
                              f"{forwards_on} forwards with the flag on")
     mark("blocks")
 
+    # 7d. the config-1 block in bf16 --------------------------------------
+    reset_launches()                          # the bf16 block's path
+    forwards_on = phase_block_bf16(dev, sm)
+    block_bf16_launches = launches()
+    emit(phase="block_bf16_launches", block_forwards_on=forwards_on,
+         **block_bf16_launches)
+    missing = [k for k in BLOCK_BF16_KERNELS if block_bf16_launches[k] == 0]
+    fp32 = {k: block_bf16_launches[k.removesuffix("_bf16")]
+            for k in BLOCK_BF16_KERNELS
+            if block_bf16_launches[k.removesuffix("_bf16")]}
+    if (missing or fp32
+            or block_bf16_launches["twopass_mix_bf16"] != forwards_on):
+        raise AssertionError(f"bf16 block: never launched {missing}, fp32 "
+                             f"instances launched {fp32}, twopass_mix_bf16 "
+                             f"{block_bf16_launches['twopass_mix_bf16']} in "
+                             f"{forwards_on} forwards with the flag on")
+    mark("block_bf16")
+
     # 8. 350m --------------------------------------------------------------
     phase_350m_parity(dev, kc)
     serve_350m, train_350m = phase_350m(dev, kd, reset_launches, launches)
     mark("350m")
+
+    # 8d. the 350M's bf16 prefills of 512 and 600 tokens -------------------
+    reset_launches()                          # the short bf16 prompts
+    phase_350m_short_bf16(dev, kc)
+    short_bf16_launches = launches()
+    emit(phase="350m_short_bf16_launches", **short_bf16_launches)
+    mark("350m_short_bf16")
 
     # 8b. 350m checkpoints, restart, BPE -----------------------------------
     serve_ckpt, train_ckpt = phase_350m_ckpt(dev, reset_launches, launches)
@@ -3058,7 +3666,10 @@ def main() -> int:
                        ckpt_serve_350m=serve_ckpt[name],
                        serve_350m_long=serve_long.get(name, 0),
                        train_350m_long=train_long.get(name, 0),
-                       cli_350m_long=cli_long.get(name, 0))
+                       cli_350m_long=cli_long.get(name, 0),
+                       tiny_bf16=tiny_bf16_launches[name],
+                       block_bf16=block_bf16_launches[name],
+                       short_350m_bf16=short_bf16_launches[name])
         summary.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=sum(by_path.values()),
@@ -3070,6 +3681,8 @@ def main() -> int:
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
             library_ms=main_case["library_ms"],
             library_device_ms=main_case["library_device_ms"],
+            **{k: main_case[k] for k in ("fp32_ms", "fp32_device_ms")
+               if k in main_case},
             shape=main_case["shape"],
             cases=cases))
     print(smi, flush=True)

@@ -5,12 +5,15 @@ and update, timed; prints ONE JSON line (the port's counterpart of
     python -m fft_tpu_torch.bench [--steps 10] [--device cuda] [--seed 0]
         [--profile N]
 
-The block is the one ``bench.py:79-82`` builds: d=512, 8 heads, n_fft =
+The block is the one ``bench.py:77-82`` builds: d=512, 8 heads, n_fft =
 L = 1024, mean pooling, spectral memory of 16 bins, no wavelet,
-``fft_impl="pallas"`` (the spectral-mix kernels #1 and #2), at B=8, random
-weights and input from ``--seed``.  It runs in fp32: bench.py's bf16 is
-queued with ROADMAP.md's "bf16 fast mode".  A step is bench.py's: the loss
-sum(block(x) ** 2), its gradient, and the update p - 1e-9 * g.  The step
+``compute_dtype="bfloat16"`` (the parameters stay fp32) and
+``fft_impl="pallas"`` (on the card the bf16 instances of the spectral-mix
+kernels #1 and #2), at B=8, random weights and input from ``--seed``.  A
+step is bench.py's: the loss sum(block(x).float() ** 2) (bench.py:86-87),
+its gradient, and the update p - 1e-9 * g.  ``run`` takes the compute
+dtype, so that callers can time the fp32 block too; the command line has
+no flag for it, as bench.py has none.  The step
 time is the median of host-clock times of single steps, each ending in
 ``torch.cuda.synchronize()``, after one warm-up step.  ``--profile N``
 adds where the time goes: ``torch.profiler`` over N more steps on the
@@ -42,11 +45,13 @@ from fft_tpu_torch.utils.device import resolve_device
 B, L, D = 8, 1024, 512
 
 
-def config1(seq: int = L) -> SpectreConfig:
-    """BASELINE config 1's block as bench.py builds it, in fp32."""
+def config1(seq: int = L, compute_dtype: str = "bfloat16") -> SpectreConfig:
+    """BASELINE config 1's block as bench.py builds it (bf16 unless
+    ``compute_dtype`` says otherwise), at n_fft = ``seq``."""
     return SpectreConfig(embed_dim=D, num_heads=8, n_fft=seq,
                          pooling_type="mean", wavelet_on_rate=0.0,
-                         memory_size=16, fft_impl="pallas")
+                         memory_size=16, compute_dtype=compute_dtype,
+                         fft_impl="pallas")
 
 
 def _card(device: torch.device) -> dict:
@@ -97,15 +102,16 @@ def _profile(step, sync, steps: int, match=()) -> dict:
 
 
 def run(steps: int = 10, batch: int = B, seq: int = L, device=None,
-        seed: int = 0, profile_steps: int = 0) -> dict:
+        seed: int = 0, profile_steps: int = 0,
+        compute_dtype: str = "bfloat16") -> dict:
     """Time ``steps`` steps of the config-1 block (``batch`` x ``seq``
-    tokens; the tests run smaller ones on the CPU) after one warm-up;
-    returns the JSON record ``main`` prints."""
+    tokens; the tests run smaller ones on the CPU) in ``compute_dtype``
+    after one warm-up; returns the JSON record ``main`` prints."""
     device = resolve_device(device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    cfg = config1(seq)
+    cfg = config1(seq, compute_dtype)
     block = spectre_block_init(cfg, torch.Generator().manual_seed(seed),
                                device)
     x = torch.randn((batch, seq, D),
@@ -117,7 +123,7 @@ def run(steps: int = 10, batch: int = B, seq: int = L, device=None,
               if not n.startswith("mix.wavelet.")]
 
     def step() -> torch.Tensor:
-        loss = (spectre_block_apply(block, x) ** 2).sum()
+        loss = (spectre_block_apply(block, x).float() ** 2).sum()
         grads = torch.autograd.grad(loss, params)
         with torch.no_grad():
             torch._foreach_add_(params, grads, alpha=-1e-9)
@@ -141,8 +147,9 @@ def run(steps: int = 10, batch: int = B, seq: int = L, device=None,
     out = {"metric": "spectre_block_fwdbwd_tokens_per_sec",
            "value": batch * seq / (ms / 1e3), "unit": "tokens/s",
            "step_ms": ms, "step_ms_all": times, "loss": float(loss.detach()),
-           "config": (f"B={batch} L={seq} d={D} fp32 fft_impl=pallas "
-                      "mean-pool mem=16 wavelet=0 fwd+bwd+update")}
+           "config": (f"B={batch} L={seq} d={D} {compute_dtype} "
+                      "fft_impl=pallas mean-pool mem=16 wavelet=0 "
+                      "fwd+bwd+update")}
     if device.type == "cuda":
         out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
     out.update(_card(device))

@@ -26,9 +26,9 @@ latest checkpoint (``python -m fft_tpu_torch.train.supervisor`` restarts a
 failed run that way).  ``generate`` takes weights from ``--ckpt`` (else
 random from ``--seed``) and a BPE tokenizer from ``--vocab`` (else bytes).
 ``--bf16`` runs the blocks in ``compute_dtype="bfloat16"`` (the parameters
-stay fp32), as the JAX CLI's; on the card the tiny preset's causal mix
-(#6, #10) has no bf16 variant yet and raises naming its ROADMAP.md item,
-while the 350M's long chunks run #7's and #11's bf16 instances.  Flags of
+stay fp32), as the JAX CLI's; on the card the causal mix runs the bf16
+instances of its kernels (#6 and #10 on the tiny preset and the 350M's
+short prompts, #7 and #11 on the 350M's long chunks).  Flags of
 the JAX CLI whose modules are still queued raise ``NotImplementedError``
 naming their ROADMAP.md item.
 """

@@ -7,6 +7,11 @@
 //   fused_causal_mix_direct <- _fused_causal_call    (:592, pallas_call :707)
 //   kf_spectra_direct       <- _kf_spectra_call      (:1428, pallas_call :1482)
 //
+// The direct #6 has an fp32 and a bf16 instance (its C entry's bf16 flag;
+// fft_common.cuh's Act): bf16 v widened as segment_rfft_kernel stages it,
+// bf16 y rounded on banded_fft_kernel's store, the scratch planes fp32.
+// #5 takes fp32 spectra in both modes: its instance is the fp32 one.
+//
 // banded_fft_kernel (#5, and the second launch of the direct #6) computes
 //   acc_c[f, ch] = sum_{j <= c} K[b, c, j, f, g(ch)] V[b, c - j, f, ch]
 //   y[b, c, t, ch] = irfft_2C(acc_c)[C + t],  t = 0..C-1
@@ -173,15 +178,18 @@ __host__ __device__ constexpr int banded_threads_max(int path) {
 // roots (C entries read); tws: the stage twiddles of the 2^log2l-point
 // transform; chirp: w[m], m < 2C; spec: the spectrum of the wrapped
 // conj(w), row order.  Shared memory: the (rows, NP) tile, z[row NP + p].
-template <class K, int NP, int kPath>
+// T: y's type (fp32 for #5; bf16 for the direct #6's bf16 instance, each
+// pair rounded on its store).
+template <class K, int NP, int kPath, class T>
 __global__ void __launch_bounds__(banded_threads_max(kPath))
 banded_fft_kernel(const float* __restrict__ vfr,
                   const float* __restrict__ vfi, K k,
                   const float2* __restrict__ tw,
                   const float2* __restrict__ tws,
                   const float2* __restrict__ chirp,
-                  const float2* __restrict__ spec, float* __restrict__ out,
+                  const float2* __restrict__ spec, T* __restrict__ out,
                   int nc, int chunk, int d, int log2l, int o) {
+  using Pair = typename Act<T>::Pair;
   extern __shared__ float2 smem2[];
   const int n2 = 2 * chunk, f2 = chunk + 1, len = 1 << log2l;
   const int rows = kPath == kChirp ? len : n2;
@@ -251,8 +259,8 @@ banded_fft_kernel(const float* __restrict__ vfr,
   __syncthreads();
 
   // ---- the inverse, rows C..2C-1 stored -----------------------------------
-  float2* o2 = reinterpret_cast<float2*>(out) +
-               ((size_t)b * nc + c) * chunk * row2 + c0 / 2;
+  Pair* o2 = reinterpret_cast<Pair*>(out) +
+             ((size_t)b * nc + c) * chunk * row2 + c0 / 2;
   if (kPath != kChirp) {
     if (kPath == kOddP)
       odd_pass_any<NP, kBandedOdd>(z, o, len, 1, tw, chunk, 1.f);
@@ -264,15 +272,15 @@ banded_fft_kernel(const float* __restrict__ vfr,
       const int p = i % NP, t = time_row(i / NP, o, log2l) - chunk;
       if (t < 0) continue;
       const float2 y = z[i];
-      o2[(size_t)t * row2 + p] = make_float2(y.x * scale, y.y * scale);
+      o2[(size_t)t * row2 + p] = Act<T>::store(y.x * scale, y.y * scale);
     }
     return;
   }
   chirp_convolve<NP>(z, log2l, tws, spec, n2);
   for (int i = tid; i < chunk * NP; i += nt) {
     const int p = i % NP, t = i / NP;
-    o2[(size_t)t * row2 + p] =
-        cmul(z[(size_t)(chunk + t) * NP + p], chirp[chunk + t]);
+    const float2 y = cmul(z[(size_t)(chunk + t) * NP + p], chirp[chunk + t]);
+    o2[(size_t)t * row2 + p] = Act<T>::store(y.x, y.y);
   }
 }
 
@@ -420,42 +428,43 @@ const T* at(int64_t address) {
 
 // One launch; the shared-memory attribute is set once for each device and
 // size (the largest so far), not on every call.
-template <class K, int NP, int kPath>
+template <class K, int NP, int kPath, class T>
 int launch_banded_fft(const BandedParams& a, const float* vfr,
-                      const float* vfi, K k, float* out, cudaStream_t st) {
+                      const float* vfi, K k, T* out, cudaStream_t st) {
   static size_t smem_set[kMaxDevices] = {};
   const size_t smem = banded_fft_smem(a);
   if (smem > smem_set[a.dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        banded_fft_kernel<K, NP, kPath>,
+        banded_fft_kernel<K, NP, kPath, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     smem_set[a.dev] = smem;
   }
   const dim3 grid((unsigned)(a.d / (2 * NP)), (unsigned)a.nc,
                   (unsigned)a.b);
-  banded_fft_kernel<K, NP, kPath><<<grid, (unsigned)a.threads, smem, st>>>(
+  banded_fft_kernel<K, NP, kPath, T><<<grid, (unsigned)a.threads, smem,
+                                       st>>>(
       vfr, vfi, k, at<float2>(a.tw), at<float2>(a.tws), at<float2>(a.chirp),
       at<float2>(a.spec), out, (int)a.nc, (int)a.chunk, (int)a.d,
       log2_of((int)a.len), a.o == 0 ? 1 : (int)a.o);
   return (int)cudaGetLastError();
 }
 
-template <class K, int NP>
+template <class K, int NP, class T>
 int launch_banded_path(const BandedParams& a, const float* vfr,
-                       const float* vfi, K k, float* out, cudaStream_t st) {
+                       const float* vfi, K k, T* out, cudaStream_t st) {
   if (a.o == 0)
-    return launch_banded_fft<K, NP, kChirp>(a, vfr, vfi, k, out, st);
+    return launch_banded_fft<K, NP, kChirp, T>(a, vfr, vfi, k, out, st);
   if (a.o == 1)
-    return launch_banded_fft<K, NP, kPow2>(a, vfr, vfi, k, out, st);
-  return launch_banded_fft<K, NP, kOddP>(a, vfr, vfi, k, out, st);
+    return launch_banded_fft<K, NP, kPow2, T>(a, vfr, vfi, k, out, st);
+  return launch_banded_fft<K, NP, kOddP, T>(a, vfr, vfi, k, out, st);
 }
 
 // The plan and shape checks, then the launch on the NP-pair tile;
 // cudaErrorInvalidValue for what the kernel does not take.
-template <class K>
+template <class K, class T>
 int launch_banded(const BandedParams& a, const float* vfr, const float* vfi,
-                  K k, float* out, cudaStream_t st) {
+                  K k, T* out, cudaStream_t st) {
   const bool pow2 = a.len >= 4 && (a.len & (a.len - 1)) == 0;
   const bool covers = a.o == 0 ? a.len >= 3 * a.chunk - 1
                                : a.o % 2 == 1 && a.o <= kBandedOdd &&
@@ -470,12 +479,28 @@ int launch_banded(const BandedParams& a, const float* vfr, const float* vfi,
     return (int)cudaErrorInvalidValue;
   switch (a.np) {
     case 1:
-      return launch_banded_path<K, 1>(a, vfr, vfi, k, out, st);
+      return launch_banded_path<K, 1, T>(a, vfr, vfi, k, out, st);
     case 2:
-      return launch_banded_path<K, 2>(a, vfr, vfi, k, out, st);
+      return launch_banded_path<K, 2, T>(a, vfr, vfi, k, out, st);
     default:
-      return launch_banded_path<K, 4>(a, vfr, vfi, k, out, st);
+      return launch_banded_path<K, 4, T>(a, vfr, vfi, k, out, st);
   }
+}
+
+// The direct #6's two launches, v and y of type T: the segment spectra
+// into the fp32 scratch planes, then banded_fft_kernel on them
+template <class T>
+int launch_direct_mix(const BandedParams& a, const void* v, const float* kfr,
+                      const float* kfi, float* vfr, float* vfi, void* out,
+                      cudaStream_t st) {
+  const int err = launch_segment_rfft<false, T>(
+      static_cast<const T*>(v), vfr, vfi, at<float>(a.tw), (int)a.b,
+      (int)a.nc, (int)a.chunk, (int)a.d, st);
+  if (err != 0) return err;
+  return launch_banded(
+      a, vfr, vfi,
+      ProducerK{kfr, kfi, (int)a.nc, (int)a.chunk + 1, (int)a.cols},
+      static_cast<T*>(out), st);
 }
 
 }  // namespace
@@ -498,21 +523,17 @@ int fft_banded_inverse(const float* vfr, const float* vfi, const float* kfr,
 // (B, nc, C+1, nc*cols): the direct-DFT segment spectra into the (B, nc,
 // C+1, d) scratch planes vfr/vfi, then banded_fft_kernel on them; params
 // as fft_banded_inverse's (tw, its first table, is the segment
-// transform's too).
-int fft_fused_causal_mix_direct(const float* v, const float* kfr,
+// transform's too).  bf16: nonzero for bf16 v and y (the scratch fp32 in
+// both), 0 for fp32.
+int fft_fused_causal_mix_direct(const void* v, const float* kfr,
                                 const float* kfi, float* vfr, float* vfi,
-                                float* out, const int64_t* params,
+                                void* out, const int64_t* params, int bf16,
                                 void* stream) {
   const BandedParams& a = *reinterpret_cast<const BandedParams*>(params);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = launch_segment_rfft<false>(
-      v, vfr, vfi, at<float>(a.tw), (int)a.b, (int)a.nc, (int)a.chunk,
-      (int)a.d, st);
-  if (err != 0) return err;
-  return launch_banded(
-      a, vfr, vfi,
-      ProducerK{kfr, kfi, (int)a.nc, (int)a.chunk + 1, (int)a.cols}, out,
-      st);
+  return bf16 ? launch_direct_mix<__nv_bfloat16>(a, v, kfr, kfi, vfr, vfi,
+                                                 out, st)
+              : launch_direct_mix<float>(a, v, kfr, kfi, vfr, vfi, out, st);
 }
 
 // K planes (B, nc, C+1, L) from gate planes (B, N/2+1, L).

@@ -17,6 +17,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "fft_common.cuh"
+
 namespace {
 
 constexpr int kLanes = 32;               // contiguous lanes per block
@@ -60,9 +62,11 @@ struct ProducerK {     // (B, nc_j, F2, nc_c * cols): fused_causal_mix
 //     irfft weights coef_f / 2C (1 at DC and Nyquist, 2 elsewhere).  The
 //     imaginary parts at DC and Nyquist come out exactly 0 (the twiddle
 //     table holds exact zeros at 0 and pi), as the reference drops them.
-template <bool kAccbar>
+// T: x's type (fp32, or bf16 widened as it is staged: the direct #6's bf16
+// instance).
+template <bool kAccbar, class T = float>
 __global__ void __launch_bounds__(kThreads)
-segment_rfft_kernel(const float* __restrict__ x, float* __restrict__ outr,
+segment_rfft_kernel(const T* __restrict__ x, float* __restrict__ outr,
                     float* __restrict__ outi, const float2* __restrict__ tw,
                     int nc, int chunk, int d) {
   extern __shared__ float smem[];
@@ -94,7 +98,8 @@ segment_rfft_kernel(const float* __restrict__ x, float* __restrict__ outr,
       for (int r = ty; r < kSegT; r += kRows) {
         const long tr = row0 + t0 + r;
         xs[r * kLanes + tx] = (t0 + r < n2 && tr >= 0 && tr < n)
-                                  ? x[((size_t)b * n + tr) * d + ch]
+                                  ? Act<T>::to_float(
+                                        x[((size_t)b * n + tr) * d + ch])
                                   : 0.f;
       }
       __syncthreads();
@@ -132,17 +137,17 @@ inline size_t segment_smem(int chunk) {
          (size_t)kSegT * kLanes * sizeof(float);
 }
 
-template <bool kAccbar>
-int launch_segment_rfft(const float* x, float* outr, float* outi,
+template <bool kAccbar, class T = float>
+int launch_segment_rfft(const T* x, float* outr, float* outi,
                         const float* tw, int b, int nc, int chunk, int d,
                         cudaStream_t stream) {
   const size_t smem = segment_smem(chunk);
   cudaError_t err = cudaFuncSetAttribute(
-      segment_rfft_kernel<kAccbar>,
+      segment_rfft_kernel<kAccbar, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(d / kLanes, nc, b), block(kLanes, kRows);
-  segment_rfft_kernel<kAccbar><<<grid, block, smem, stream>>>(
+  segment_rfft_kernel<kAccbar, T><<<grid, block, smem, stream>>>(
       x, outr, outi, reinterpret_cast<const float2*>(tw), nc, chunk, d);
   return (int)cudaGetLastError();
 }

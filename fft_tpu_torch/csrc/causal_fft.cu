@@ -8,6 +8,16 @@
 //   fused_causal_mix     <- _fused_causal_call      (:592, pallas_call :707)
 //   fused_causal_mix_bwd <- _fused_causal_bwd_call  (:1921, pallas_call :2036)
 //
+// #6 and #10 come in two instances each, by the activations' type T
+// (fft_common.cuh's Act), which one C entry each picks by its bf16 flag:
+// fp32, and bf16 for the JAX package's fast mode, where v and ybar are
+// read as bf16 (a thread loads pieces of two channel pairs, several in
+// flight, and widens them in registers on their way into the tile: no
+// pass of its own) and y and vbar are written as bf16 (rounded to nearest
+// even on the store); the transforms, the banded sums, the scratch planes, K,
+// Kbar and the staging stay fp32.  The TPU kernels' bf16 scratch and
+// partials fit its VMEM and are not copied.
+//
 // causal.cu and causal_bwd.cu compute the same three functions with direct
 // DFTs (O(n) work an output); kernels/causal.py takes those kernels
 // (kf_spectra_direct, fused_causal_mix_direct, fused_causal_mix_bwd_direct)
@@ -278,14 +288,19 @@ __device__ void stage_k(float2* ks, ProducerK k, int b, int c, int nc,
 // both real), the (2C, gs NP) transform tile, and two buffers of one
 // chunk's staged K column (ks[(j C + f) ng + gl], slot 0 holding
 // (Re K[j][0], Re K[j][C])): one is read while the next chunk's column
-// arrives in the other.
-template <int NP>
+// arrives in the other.  T: the type of v and y (fp32, or bf16: pieces of
+// two pairs a thread, widened and rounded in registers on the way:
+// fft_common.cuh's load_rows and store_pairs).
+template <int NP, class T>
 __global__ void __launch_bounds__(kMixThreads)
-fused_mix_fft_kernel(const float* __restrict__ v, ProducerK k,
-                     const float2* __restrict__ tw_g, float* __restrict__ y,
+fused_mix_fft_kernel(const T* __restrict__ v, ProducerK k,
+                     const float2* __restrict__ tw_g, T* __restrict__ y,
                      int nc, int chunk, int log2p, int o, int d, int gs,
                      int ng) {
+  using Pair = typename Act<T>::Pair;
   constexpr int kCt = 2 * NP;                  // channels a block
+  // pairs a thread stores at once (bf16: a piece, fft_common.cuh)
+  constexpr int kItem = Act<T>::kBf16 ? kPiece<NP> : 1;
   extern __shared__ float2 smem2[];
   const int n2 = 2 * chunk, p_len = n2 / o;
   const int d_g = d / k.cols;
@@ -298,10 +313,10 @@ fused_mix_fft_kernel(const float* __restrict__ v, ProducerK k,
   float2* w = vs + (size_t)nc * chunk * kCt;
   float2* ks = w + (size_t)n2 * gs * NP;        // two buffers of ks_len
   const size_t ks_len = (size_t)nc * chunk * ng;
-  const float2* v2 = reinterpret_cast<const float2*>(v) +
-                     (size_t)b * nc * chunk * row2 + c0 / 2;
-  float2* y2 = reinterpret_cast<float2*>(y) +
-               (size_t)b * nc * chunk * row2 + c0 / 2;
+  const Pair* v2 = reinterpret_cast<const Pair*>(v) +
+                   (size_t)b * nc * chunk * row2 + c0 / 2;
+  Pair* y2 = reinterpret_cast<Pair*>(y) + (size_t)b * nc * chunk * row2 +
+             c0 / 2;
 
   for (int i = tid; i < chunk; i += nt) tw[i] = tw_g[i];
   // chunk 0's K column loads while the segment spectra are taken
@@ -312,15 +327,36 @@ fused_mix_fft_kernel(const float* __restrict__ v, ProducerK k,
     const int g = nc - s0 < gs ? nc - s0 : gs, s = g * NP;
     // rows (s0 - 1) C .. (s0 + g) C - 1: chunk u of them is the upper half
     // of window s0 + u - 1 and the lower half of window s0 + u
-    for (int i = tid; i < (g + 1) * chunk * NP; i += nt) {
-      const int p = i % NP, rr = i / NP;
-      const long row = (long)(s0 - 1) * chunk + rr;
-      const float2 x = row >= 0 ? v2[(size_t)row * row2 + p]
-                                : make_float2(0.f, 0.f);
-      const int u = rr / chunk, t = rr % chunk;
-      if (u >= 1)
-        w[(size_t)time_row(chunk + t, o, log2p) * s + (u - 1) * NP + p] = x;
-      if (u < g) w[(size_t)time_row(t, o, log2p) * s + u * NP + p] = x;
+    if constexpr (Act<T>::kBf16) {
+      // bf16: pieces of two pairs, several in flight a thread, widened in
+      // registers
+      load_rows<NP>(
+          tid, (g + 1) * chunk, nt,
+          [&](int rr) {
+            const long row = (long)(s0 - 1) * chunk + rr;
+            return row >= 0 ? v2 + (size_t)row * row2 : nullptr;
+          },
+          [&](int rr, int p0, const float2 (&x)[kPiece<NP>]) {
+            const int u = rr / chunk, t = rr % chunk;
+            if (u >= 1)
+              put_pairs(w + (size_t)time_row(chunk + t, o, log2p) * s +
+                            (u - 1) * NP + p0, x);
+            if (u < g)
+              put_pairs(w + (size_t)time_row(t, o, log2p) * s + u * NP + p0,
+                        x);
+          });
+    } else {
+      for (int i = tid; i < (g + 1) * chunk * NP; i += nt) {
+        const int p = i % NP, rr = i / NP;
+        const long row = (long)(s0 - 1) * chunk + rr;
+        const float2 x = row >= 0 ? v2[(size_t)row * row2 + p]
+                                  : make_float2(0.f, 0.f);
+        const int u = rr / chunk, t = rr % chunk;
+        if (u >= 1)
+          w[(size_t)time_row(chunk + t, o, log2p) * s + (u - 1) * NP + p] =
+              x;
+        if (u < g) w[(size_t)time_row(t, o, log2p) * s + u * NP + p] = x;
+      }
     }
     __syncthreads();
     fft_passes<true>(w, log2p, o * s, tw, o, -1.f, 0);
@@ -389,11 +425,14 @@ fused_mix_fft_kernel(const float* __restrict__ v, ProducerK k,
     __syncthreads();
     if (o > 1) odd_pass(w, o, p_len, NP, tw, 1, chunk, 1.f);
     fft_passes<false>(w, log2p, o * NP, tw, o, 1.f, 0);
-    for (int i = tid; i < chunk * NP; i += nt) {
-      const int p = i % NP, t = i / NP;
-      const float2 r = w[(size_t)time_row(chunk + t, o, log2p) * NP + p];
-      y2[((size_t)c * chunk + t) * row2 + p] =
-          make_float2(r.x * inv_n2, r.y * inv_n2);
+    for (int i = tid; i < chunk * NP / kItem; i += nt) {
+      const int p0 = i * kItem % NP, t = i * kItem / NP;
+      float2 e[kItem];
+      get_pairs(e, w + (size_t)time_row(chunk + t, o, log2p) * NP + p0);
+#pragma unroll
+      for (int q = 0; q < kItem; ++q)
+        e[q] = make_float2(e[q].x * inv_n2, e[q].y * inv_n2);
+      store_pairs<kItem, T>(y2 + ((size_t)c * chunk + t) * row2 + p0, e);
     }
     // the next chunk syncs before it writes w or refills this ks buffer
   }
@@ -410,13 +449,15 @@ fused_mix_fft_kernel(const float* __restrict__ v, ProducerK k,
 // elsewhere; Im there zeroed: the adjoint of the partial irFFT rows
 // C..2C-1, pallas_causal.py:1122-1127), channels c0 .. c0 + 2 NP - 1 and
 // windows s0 .. s0 + gs - 1 of one batch row.  2C = P O.  Shared memory:
-// C twiddles (of 2C) and the (2C, gs NP) tile.
-template <int NP>
+// C twiddles (of 2C) and the (2C, gs NP) tile.  T: the type of v and ybar
+// (bf16: pieces of two pairs a thread, as fused_mix_fft_kernel).
+template <int NP, class T>
 __global__ void __launch_bounds__(kBwdThreads)
-bwd_window_kernel(const float* __restrict__ v, const float* __restrict__ ybar,
+bwd_window_kernel(const T* __restrict__ v, const T* __restrict__ ybar,
                   const float2* __restrict__ tw_g, float2* __restrict__ vf,
                   float2* __restrict__ af, int batch, int nc, int chunk,
                   int log2p, int o, int d, int gs) {
+  using Pair = typename Act<T>::Pair;
   extern __shared__ float2 smem2[];
   const int n2 = 2 * chunk, p_len = n2 / o, f2 = chunk + 1;
   const bool adj = (int)blockIdx.z >= batch;
@@ -427,11 +468,43 @@ bwd_window_kernel(const float* __restrict__ v, const float* __restrict__ ybar,
   const size_t row2 = (size_t)d / 2;
   float2* tw = smem2;
   float2* w = tw + chunk;                      // w[row * s + q]
-  const float2* x2 = reinterpret_cast<const float2*>(adj ? ybar : v) +
-                     (size_t)b * nc * chunk * row2 + c0 / 2;
+  const Pair* x2 = reinterpret_cast<const Pair*>(adj ? ybar : v) +
+                   (size_t)b * nc * chunk * row2 + c0 / 2;
 
   for (int i = tid; i < chunk; i += nt) tw[i] = tw_g[i];
-  if (adj) {
+  if constexpr (Act<T>::kBf16) {
+    // bf16: pieces of two pairs, several in flight a thread (as
+    // fused_mix_fft_kernel); the adjoint's chunk u is the upper half of
+    // window s0 + u over a lower half of zeros
+    if (adj) {
+      load_rows<NP>(
+          tid, g * chunk, nt,
+          [&](int rr) { return x2 + ((size_t)s0 * chunk + rr) * row2; },
+          [&](int rr, int p0, const float2 (&x)[kPiece<NP>]) {
+            const int u = rr / chunk, t = rr % chunk, q = u * NP + p0;
+            float2 zero[kPiece<NP>];
+            for (int p = 0; p < kPiece<NP>; ++p) zero[p] = make_float2(0.f, 0.f);
+            put_pairs(w + (size_t)time_row(chunk + t, o, log2p) * s + q, x);
+            put_pairs(w + (size_t)time_row(t, o, log2p) * s + q, zero);
+          });
+    } else {
+      load_rows<NP>(
+          tid, (g + 1) * chunk, nt,
+          [&](int rr) {
+            const long row = (long)(s0 - 1) * chunk + rr;
+            return row >= 0 ? x2 + (size_t)row * row2 : nullptr;
+          },
+          [&](int rr, int p0, const float2 (&x)[kPiece<NP>]) {
+            const int u = rr / chunk, t = rr % chunk;
+            if (u >= 1)
+              put_pairs(w + (size_t)time_row(chunk + t, o, log2p) * s +
+                            (u - 1) * NP + p0, x);
+            if (u < g)
+              put_pairs(w + (size_t)time_row(t, o, log2p) * s + u * NP + p0,
+                        x);
+          });
+    }
+  } else if (adj) {
     // chunk u of rows s0 C .. (s0 + g) C - 1 is the upper half of window
     // s0 + u, whose lower half is zeros
     for (int i = tid; i < g * chunk * NP; i += nt) {
@@ -628,12 +701,14 @@ bwd_bins_fft_kernel(const float2* __restrict__ af, float2* vf, ProducerK k,
 // DC and Nyquist and Vbar / 2 between, and a shift by C is (-1)^f, so the
 // two terms are one inverse FFT of (-1)^f H_s + H_{s+1}, rows 0..C-1.
 // Channels c0 .. c0 + 2 NP - 1, chunks s0 .. s0 + gs - 1.  Shared memory:
-// C twiddles and the (2C, gs NP) tile.
-template <int NP>
+// C twiddles and the (2C, gs NP) tile.  T: vbar's type (bf16: pieces of
+// two pairs a thread, rounded on the store).
+template <int NP, class T>
 __global__ void __launch_bounds__(kBwdThreads)
 bwd_inverse_kernel(const float2* __restrict__ vb,
-                   const float2* __restrict__ tw_g, float* __restrict__ vbar,
+                   const float2* __restrict__ tw_g, T* __restrict__ vbar,
                    int nc, int chunk, int log2p, int o, int d, int gs) {
+  using Pair = typename Act<T>::Pair;
   extern __shared__ float2 smem2[];
   const int n2 = 2 * chunk, p_len = n2 / o, f2 = chunk + 1;
   const int c0 = blockIdx.x * 2 * NP, s0 = blockIdx.y * gs, b = blockIdx.z;
@@ -673,12 +748,23 @@ bwd_inverse_kernel(const float2* __restrict__ vb,
   __syncthreads();
   if (o > 1) odd_pass(w, o, p_len, s, tw, 1, chunk, 1.f);
   fft_passes<false>(w, log2p, o * s, tw, o, 1.f, 0);
-  float2* out = reinterpret_cast<float2*>(vbar) +
-                ((size_t)b * nc + s0) * chunk * row2 + c0 / 2;
-  for (Walk it(s); it.r < chunk; it.next(s)) {
-    const int q = it.q, t = it.r, ss = q / NP, p = q % NP;
-    out[((size_t)ss * chunk + t) * row2 + p] =
-        w[(size_t)time_row(t, o, log2p) * s + q];
+  Pair* out = reinterpret_cast<Pair*>(vbar) +
+              ((size_t)b * nc + s0) * chunk * row2 + c0 / 2;
+  if constexpr (Act<T>::kBf16) {
+    // a piece of a row a thread (fft_common.cuh), rounded on its store
+    constexpr int kP = kPiece<NP>, kPer = NP / kP;
+    for (int i = tid; i < chunk * g * kPer; i += nt) {
+      const int p0 = i % kPer * kP, ss = i / kPer % g, t = i / (kPer * g);
+      float2 e[kP];
+      get_pairs(e, w + (size_t)time_row(t, o, log2p) * s + ss * NP + p0);
+      store_pairs<kP, T>(out + ((size_t)ss * chunk + t) * row2 + p0, e);
+    }
+  } else {
+    for (Walk it(s); it.r < chunk; it.next(s)) {
+      const int q = it.q, t = it.r, ss = q / NP, p = q % NP;
+      out[((size_t)ss * chunk + t) * row2 + p] =
+          w[(size_t)time_row(t, o, log2p) * s + q];
+    }
   }
 }
 
@@ -749,23 +835,24 @@ int launch_kf(const float* gr, const float* gi, const float* twn,
   return (int)cudaGetLastError();
 }
 
-template <int NP>
-int launch_mix(const float* v, const float* kfr, const float* kfi,
-               const float* tw, float* out, int b, int nc, int chunk, int d,
+template <int NP, class T>
+int launch_mix(const T* v, const float* kfr, const float* kfi,
+               const float* tw, T* out, int b, int nc, int chunk, int d,
                int cols, int gs, cudaStream_t st) {
   int log2p, o;
   if (!split_odd(2 * chunk, &log2p, &o) || d % (2 * NP) != 0 ||
-      cols < 1 || d % cols != 0 || gs < 1)
+      cols < 1 || d % cols != 0 || gs < 1 || !rows_aligned<T>(v, NP) ||
+      !rows_aligned<T>(out, NP))
     return (int)cudaErrorInvalidValue;
   const int ng = tile_groups(d, cols, 2 * NP);
   const size_t smem = mix_fft_smem(nc, chunk, NP, gs, ng);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mix_fft_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fused_mix_fft_kernel<NP, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const ProducerK k{kfr, kfi, nc, chunk + 1, cols};
-  fused_mix_fft_kernel<NP><<<dim3(d / (2 * NP), b), kMixThreads, smem,
-                             st>>>(
+  fused_mix_fft_kernel<NP, T><<<dim3(d / (2 * NP), b), kMixThreads, smem,
+                                st>>>(
       v, k, reinterpret_cast<const float2*>(tw), out, nc, chunk, log2p, o, d,
       gs, ng);
   return (int)cudaGetLastError();
@@ -773,15 +860,18 @@ int launch_mix(const float* v, const float* kfr, const float* kfi,
 
 // #10's three launches on the NP-pair transform tile: the windows of v and
 // ybar into V and A, the bin-major Kbar and Vbar, the inverse into vbar.
-template <int NP>
-int launch_bwd(const float* v, const float* kfr, const float* kfi,
-               const float* ybar, const float* tw, float* vf, float* af,
-               float* vbar, float* kbr, float* kbi, int b, int nc, int chunk,
+// T: the type of v, ybar and vbar.
+template <int NP, class T>
+int launch_bwd(const T* v, const float* kfr, const float* kfi,
+               const T* ybar, const float* tw, float* vf, float* af,
+               T* vbar, float* kbr, float* kbi, int b, int nc, int chunk,
                int d, int cols, int gs, int bt, cudaStream_t st) {
   int log2p, o;
   if (!split_odd(2 * chunk, &log2p, &o) || d % (2 * NP) != 0 || cols < 1 ||
       d % cols != 0 || nc < 1 || nc > 255 || gs < 1 || bt < 32 ||
-      bt > kBinT || bt % 32 != 0 || d / cols > bt)
+      bt > kBinT || bt % 32 != 0 || d / cols > bt ||
+      !rows_aligned<T>(v, NP) || !rows_aligned<T>(ybar, NP) ||
+      !rows_aligned<T>(vbar, NP))
     return (int)cudaErrorInvalidValue;
   const float2* tw2 = reinterpret_cast<const float2*>(tw);
   float2* vf2 = reinterpret_cast<float2*>(vf);
@@ -789,12 +879,12 @@ int launch_bwd(const float* v, const float* kfr, const float* kfi,
   const size_t smem = bwd_fft_smem(chunk, NP, gs);
   const int windows = (nc + gs - 1) / gs;
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_window_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_window_kernel<NP, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  bwd_window_kernel<NP><<<dim3(d / (2 * NP), windows, 2 * b), kBwdThreads,
-                          smem, st>>>(v, ybar, tw2, vf2, af2, b, nc, chunk,
-                                      log2p, o, d, gs);
+  bwd_window_kernel<NP, T><<<dim3(d / (2 * NP), windows, 2 * b),
+                             kBwdThreads, smem, st>>>(
+      v, ybar, tw2, vf2, af2, b, nc, chunk, log2p, o, d, gs);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   int ng, rows;
@@ -811,14 +901,61 @@ int launch_bwd(const float* v, const float* kfr, const float* kfi,
                                          rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  err = cudaFuncSetAttribute(bwd_inverse_kernel<NP>,
+  err = cudaFuncSetAttribute(bwd_inverse_kernel<NP, T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  bwd_inverse_kernel<NP><<<dim3(d / (2 * NP), windows, b), kBwdThreads,
-                           smem, st>>>(vf2, tw2, vbar, nc, chunk, log2p, o,
-                                       d, gs);
+  bwd_inverse_kernel<NP, T><<<dim3(d / (2 * NP), windows, b), kBwdThreads,
+                              smem, st>>>(vf2, tw2, vbar, nc, chunk, log2p,
+                                          o, d, gs);
   return (int)cudaGetLastError();
+}
+
+// #6 on the tile of np channel pairs (1, 2 or 4)
+template <class T>
+int launch_mix_np(const void* v, const float* kfr, const float* kfi,
+                  const float* tw, void* out, int b, int nc, int chunk,
+                  int d, int cols, int np, int gs, cudaStream_t st) {
+  const T* x = static_cast<const T*>(v);
+  T* y = static_cast<T*>(out);
+  switch (np) {
+    case 1:
+      return launch_mix<1, T>(x, kfr, kfi, tw, y, b, nc, chunk, d, cols, gs,
+                              st);
+    case 2:
+      return launch_mix<2, T>(x, kfr, kfi, tw, y, b, nc, chunk, d, cols, gs,
+                              st);
+    case 4:
+      return launch_mix<4, T>(x, kfr, kfi, tw, y, b, nc, chunk, d, cols, gs,
+                              st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// #10 on the transform tile of np channel pairs (1, 2 or 4)
+template <class T>
+int launch_bwd_np(const void* v, const float* kfr, const float* kfi,
+                  const void* ybar, const float* tw, float* vf, float* af,
+                  void* vbar, float* kbr, float* kbi, int b, int nc,
+                  int chunk, int d, int cols, int np, int gs, int bt,
+                  cudaStream_t st) {
+  const T* x = static_cast<const T*>(v);
+  const T* yb = static_cast<const T*>(ybar);
+  T* xb = static_cast<T*>(vbar);
+  switch (np) {
+    case 1:
+      return launch_bwd<1, T>(x, kfr, kfi, yb, tw, vf, af, xb, kbr, kbi, b,
+                              nc, chunk, d, cols, gs, bt, st);
+    case 2:
+      return launch_bwd<2, T>(x, kfr, kfi, yb, tw, vf, af, xb, kbr, kbi, b,
+                              nc, chunk, d, cols, gs, bt, st);
+    case 4:
+      return launch_bwd<4, T>(x, kfr, kfi, yb, tw, vf, af, xb, kbr, kbi, b,
+                              nc, chunk, d, cols, gs, bt, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -853,24 +990,17 @@ int fft_kf_spectra(const float* gr, const float* gi, const float* twn,
 // y (B, N, d) from raw values v (B, N, d) and producer-layout K planes
 // (B, nc, C+1, nc*cols).  tw: (2C, 2) twiddles (the first C are read).
 // np: channel pairs a block (1, 2 or 4); gs: windows a forward pass.
-int fft_fused_causal_mix(const float* v, const float* kfr, const float* kfi,
-                         const float* tw, float* out, int b, int nc,
+// bf16: nonzero for bf16 v and y (their rows aligned to np pairs), 0 for
+// fp32.
+int fft_fused_causal_mix(const void* v, const float* kfr, const float* kfi,
+                         const float* tw, void* out, int b, int nc,
                          int chunk, int d, int cols, int np, int gs,
-                         void* stream) {
+                         int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (np) {
-    case 1:
-      return launch_mix<1>(v, kfr, kfi, tw, out, b, nc, chunk, d, cols, gs,
-                           st);
-    case 2:
-      return launch_mix<2>(v, kfr, kfi, tw, out, b, nc, chunk, d, cols, gs,
-                           st);
-    case 4:
-      return launch_mix<4>(v, kfr, kfi, tw, out, b, nc, chunk, d, cols, gs,
-                           st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return bf16 ? launch_mix_np<__nv_bfloat16>(v, kfr, kfi, tw, out, b, nc,
+                                             chunk, d, cols, np, gs, st)
+              : launch_mix_np<float>(v, kfr, kfi, tw, out, b, nc, chunk, d,
+                                     cols, np, gs, st);
 }
 
 // vbar (B, N, d) and Kbar planes (B, nc, C+1, nc*cols) from raw values v,
@@ -878,30 +1008,25 @@ int fft_fused_causal_mix(const float* v, const float* kfr, const float* kfi,
 // C+1, nc*cols).  tw: (2C, 2) twiddles (the first C are read).  vf, af:
 // (B, nc, C+1, d, 2) scratch (Vbar is written over vf).  np: channel pairs
 // a transform block (1, 2 or 4); gs: windows a transform block; bt:
-// threads a bin-major block (a multiple of 32 up to 512).  Returns
-// cudaErrorInvalidValue where 2C does not split as P * O, a gate group is
-// wider than bt channels, a bin-major block's staging does not fit shared
-// memory, or the tile does not divide d.
-int fft_fused_causal_mix_bwd(const float* v, const float* kfr,
-                             const float* kfi, const float* ybar,
+// threads a bin-major block (a multiple of 32 up to 512); bf16: nonzero
+// for bf16 v, ybar and vbar (their rows aligned to np pairs; K, Kbar and
+// the scratch fp32 in both).  Returns cudaErrorInvalidValue where 2C does
+// not split as P * O, a gate group is wider than bt channels, a bin-major
+// block's staging does not fit shared memory, or the tile does not divide
+// d.
+int fft_fused_causal_mix_bwd(const void* v, const float* kfr,
+                             const float* kfi, const void* ybar,
                              const float* tw, float* vf, float* af,
-                             float* vbar, float* kbr, float* kbi, int b,
+                             void* vbar, float* kbr, float* kbi, int b,
                              int nc, int chunk, int d, int cols, int np,
-                             int gs, int bt, void* stream) {
+                             int gs, int bt, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (np) {
-    case 1:
-      return launch_bwd<1>(v, kfr, kfi, ybar, tw, vf, af, vbar, kbr, kbi, b,
-                           nc, chunk, d, cols, gs, bt, st);
-    case 2:
-      return launch_bwd<2>(v, kfr, kfi, ybar, tw, vf, af, vbar, kbr, kbi, b,
-                           nc, chunk, d, cols, gs, bt, st);
-    case 4:
-      return launch_bwd<4>(v, kfr, kfi, ybar, tw, vf, af, vbar, kbr, kbi, b,
-                           nc, chunk, d, cols, gs, bt, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return bf16 ? launch_bwd_np<__nv_bfloat16>(v, kfr, kfi, ybar, tw, vf, af,
+                                             vbar, kbr, kbi, b, nc, chunk, d,
+                                             cols, np, gs, bt, st)
+              : launch_bwd_np<float>(v, kfr, kfi, ybar, tw, vf, af, vbar,
+                                     kbr, kbi, b, nc, chunk, d, cols, np,
+                                     gs, bt, st);
 }
 
 }  // extern "C"

@@ -75,7 +75,6 @@
 // (the first from the staging buffer, two 16-element register passes, a
 // radix-2 pass) and its store run.
 
-#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 
 #include "causal_common.cuh"
@@ -102,36 +101,11 @@ constexpr int kPairT = 4;     // Kbar: a 4 x 4 tile of (c, s) pairs a round
 // one partial of 16 rows at once, which then sit in distinct banks
 constexpr int kPartRow = kRowThreads + 1;
 
-// The activations' type T of #7 and #11 (v, ybar in; y, vbar out), read
-// and written as channel pairs: a row of x2 holds d / 2 Pair values.
-// fp32: load_window copies each pair (8 bytes) into its float2 slot of the
-// tile.  bf16 (kWidens): it copies a tile row's NP pairs (4 NP bytes: at
-// NP = 4 one 16-byte copy of 8 channels) into the first half of the row's
-// 8 NP bytes, and widen_window then turns the row into NP float2 in
-// place.  store rounds a pair to T (bf16: to nearest even, as torch's
-// .to(torch.bfloat16)).
-template <class T> struct Act;
-
-template <> struct Act<float> {
-  using Pair = float2;
-  static constexpr bool kWidens = false;
-  __device__ __forceinline__ static Pair store(float a, float b) {
-    return make_float2(a, b);
-  }
-};
-
-template <> struct Act<__nv_bfloat16> {
-  using Pair = __nv_bfloat162;
-  static constexpr bool kWidens = true;
-  __device__ __forceinline__ static Pair store(float a, float b) {
-    return __floats2bfloat162_rn(a, b);
-  }
-};
-
-// a tile row's NP bf16 pairs, one shared-memory load
-template <int NP> struct alignas(4 * NP) Bf16Row {
-  __nv_bfloat162 h[NP];
-};
+// #7's and #11's activations (fft_common.cuh's Act): load_window copies
+// each fp32 pair (8 bytes) into its float2 slot of the tile, or, in bf16,
+// a tile row's NP pairs (Bf16Row: at NP = 4 one 16-byte copy of 8
+// channels) into the first half of the row's 8 NP bytes, which
+// widen_window then turns into NP float2 in place.
 
 // Async copies of the twiddles of an n-point transform (n = 2^log2n), a
 // table for each radix-2 stage: span H (1, 2, .., n/2) at tws[H - 1 + p] =
@@ -312,7 +286,7 @@ template <int NP, class T>
 __device__ void load_window(float2* z, const typename Act<T>::Pair* x2,
                             int s, bool adj, int chunk, int log2n,
                             size_t row2) {
-  if constexpr (Act<T>::kWidens) {
+  if constexpr (Act<T>::kBf16) {
     for (int u = threadIdx.x; u < 2 * chunk; u += blockDim.x) {
       const int t = bitrev(u, log2n);
       const long row = (long)(s - 1) * chunk + t;
@@ -394,7 +368,7 @@ window_fft_kernel(const T* __restrict__ v, const T* __restrict__ ybar,
     load_window<NP, T>(z, x2, s, adj, chunk, log2n, row2);
     __pipeline_commit();
     __pipeline_wait_prior(0);
-    if constexpr (Act<T>::kWidens) widen_window<NP>(z, s, adj, chunk, log2n);
+    if constexpr (Act<T>::kBf16) widen_window<NP>(z, s, adj, chunk, log2n);
     __syncthreads();
     long_fft<true, kWide>(z, log2n, NP, tws);
     for (int i = tid; i < f2 * NP; i += nt) {
@@ -904,7 +878,7 @@ int launch_long_np(const LongArgs& a, int np) {
     return (int)cudaErrorInvalidValue;
   // bf16 windows arrive as whole rows of np pairs (load_window)
   const size_t row = (size_t)np * sizeof(typename Act<T>::Pair);
-  if (Act<T>::kWidens &&
+  if (Act<T>::kBf16 &&
       (reinterpret_cast<size_t>(a.v) % row != 0 ||
        reinterpret_cast<size_t>(a.ybar) % row != 0))
     return (int)cudaErrorInvalidValue;

@@ -17,10 +17,142 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace {
+
+// The activations' type T of the kernels that come in an fp32 and a bf16
+// instance (the JAX package's fast mode, compute_dtype="bfloat16"): v and
+// ybar are read as T and y and vbar written as T; every transform, sum,
+// scratch plane, gate and K stays fp32.  A channel pair is a Pair (8 bytes
+// in fp32, 4 in bf16); to_float widens one value and store rounds a pair
+// to T (bf16: to nearest even, as torch's .to(torch.bfloat16)).
+template <class T> struct Act;
+
+template <> struct Act<float> {
+  using Pair = float2;
+  static constexpr bool kBf16 = false;
+  __device__ __forceinline__ static float to_float(float x) { return x; }
+  __device__ __forceinline__ static Pair store(float a, float b) {
+    return make_float2(a, b);
+  }
+};
+
+template <> struct Act<__nv_bfloat16> {
+  using Pair = __nv_bfloat162;
+  static constexpr bool kBf16 = true;
+  __device__ __forceinline__ static float to_float(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+  __device__ __forceinline__ static Pair store(float a, float b) {
+    return __floats2bfloat162_rn(a, b);
+  }
+};
+
+// NP bf16 channel pairs of one row, moved by one access (4 NP bytes: at NP
+// = 4 one 16-byte load or store of 8 channels)
+template <int NP> struct alignas(4 * NP) Bf16Row {
+  __nv_bfloat162 h[NP];
+};
+
+// The bf16 instances move a tile row of NP pairs in pieces of kPiece<NP>
+// pairs, one a thread: two pairs (8 bytes of bf16 and a 16-byte float4 of
+// the fp32 tile, so that a quarter warp's shared-memory accesses cover
+// the 32 banks once, as the fp32 instances' 16-byte copies do), or one
+// where a row has one pair.
+template <int NP>
+constexpr int kPiece = NP < 2 ? 1 : 2;
+
+// The K pairs x into the fp32 tile at dst (one 16-byte store at K = 2)
+template <int K>
+__device__ __forceinline__ void put_pairs(float2* dst, const float2 (&x)[K]) {
+  if constexpr (K == 2) {
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(x[0].x, x[0].y, x[1].x, x[1].y);
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) dst[k] = x[k];
+  }
+}
+
+// The K pairs of the fp32 tile at src (one 16-byte load at K = 2)
+template <int K>
+__device__ __forceinline__ void get_pairs(float2 (&x)[K],
+                                          const float2* src) {
+  if constexpr (K == 2) {
+    const float4 e = *reinterpret_cast<const float4*>(src);
+    x[0] = make_float2(e.x, e.y);
+    x[1] = make_float2(e.z, e.w);
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) x[k] = src[k];
+  }
+}
+
+// bf16 pieces of `rows` rows of NP pairs: items i = first, first +
+// stride, ... < rows NP / kPiece, item i the pairs p0 = i % (NP / kPiece)
+// kPiece, p0 + 1, ... of row i / (NP / kPiece).  src(row) gives the row's
+// first pair (null for a row of zeros); dst(row, p0, x) takes the piece
+// widened to float2.  A thread loads kPiecesInFlight pieces before it
+// widens and hands on any of them, so that their latencies overlap (at
+// the wrappers' plans that is every piece of a thread's share of the
+// tile, or half of it).
+constexpr int kPiecesInFlight = 16;
+
+template <int NP, class Src, class Dst>
+__device__ __forceinline__ void load_rows(int first, int rows, int stride,
+                                          Src src, Dst dst) {
+  constexpr int kP = kPiece<NP>, kPer = NP / kP;
+  const int count = rows * kPer;
+  for (int i0 = first; i0 < count; i0 += kPiecesInFlight * stride) {
+    Bf16Row<kP> r[kPiecesInFlight];
+#pragma unroll
+    for (int k = 0; k < kPiecesInFlight; ++k) {
+      const int i = i0 + k * stride;
+      const __nv_bfloat162* s = i < count ? src(i / kPer) : nullptr;
+      if (s != nullptr) {
+        r[k] = *reinterpret_cast<const Bf16Row<kP>*>(s + i % kPer * kP);
+      } else {
+#pragma unroll
+        for (int p = 0; p < kP; ++p)
+          r[k].h[p] = __floats2bfloat162_rn(0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPiecesInFlight; ++k) {
+      const int i = i0 + k * stride;
+      if (i >= count) break;
+      float2 x[kP];
+#pragma unroll
+      for (int p = 0; p < kP; ++p) x[p] = __bfloat1622float2(r[k].h[p]);
+      dst(i / kPer, i % kPer * kP, x);
+    }
+  }
+}
+
+// The K pairs x to dst, rounded to T (bf16: one store of the K pairs)
+template <int K, class T>
+__device__ __forceinline__ void store_pairs(typename Act<T>::Pair* dst,
+                                            const float2 (&x)[K]) {
+  if constexpr (Act<T>::kBf16) {
+    Bf16Row<K> r;
+#pragma unroll
+    for (int k = 0; k < K; ++k) r.h[k] = Act<T>::store(x[k].x, x[k].y);
+    *reinterpret_cast<Bf16Row<K>*>(dst) = r;
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) dst[k] = x[k];
+  }
+}
+
+// Whether a bf16 tensor at address a starts on a row of NP pairs (the
+// alignment load_rows and store_pairs need); fp32 always does
+template <class T>
+inline bool rows_aligned(const void* a, int np) {
+  return !Act<T>::kBf16 || reinterpret_cast<size_t>(a) % (4 * np) == 0;
+}
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);

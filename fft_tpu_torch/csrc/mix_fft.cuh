@@ -63,6 +63,13 @@
 // 8 bytes, 8 bytes a (column, CTA of the cluster) of its items, and L NP
 // 8 bytes more for direct_pass's copy where P = 1.
 //
+// The activations' type T (fft_common.cuh's Act): fp32, or bf16 (the JAX
+// package's fast mode), where step 1 loads pieces of two channel pairs a
+// thread (8 bytes), several in flight, and widens them in registers on
+// their way into the tile, while the twiddles' and gates' async copies
+// fly, and step 4 adds mem_t (fp32) and rounds each piece once on its
+// store.
+//
 // No warp shuffles and no atomics: tests/cuda_emulation.py runs it on the
 // CPU, a cluster's CTAs together.  The sources that include this header
 // say which TPU kernel each C entry replaces, what bounds it and which
@@ -391,15 +398,17 @@ __device__ __noinline__ void cross_self(float2* z, const float2* tw,
 
 // y (B, n, d) = irfft(g * rfft(v)) [+ mem_t] for the NP channel pairs of
 // cluster blockIdx.x / CS, batch row blockIdx.y; see the header.  log2p:
-// log2 P; o: O (1 unless kOdd; L where P = 1).
-template <int CS, int NP, int kOdd>
+// log2 P; o: O (1 unless kOdd; L where P = 1).  T: the type of v and y
+// (fft_common.cuh's Act; mem_t fp32 in both).
+template <int CS, int NP, int kOdd, class T>
 __global__ void __launch_bounds__(mix_threads_max(kOdd))
-mix_fft_kernel(const float* __restrict__ v, const float* __restrict__ gr,
+mix_fft_kernel(const T* __restrict__ v, const float* __restrict__ gr,
                const float* __restrict__ gi,
                const float* __restrict__ mem_t,
                const float2* __restrict__ tw, const float2* __restrict__ tws,
-               float* __restrict__ y, int n, int log2p, int o, int d,
+               T* __restrict__ y, int n, int log2p, int o, int d,
                int cols) {
+  using Pair = typename Act<T>::Pair;
   extern __shared__ float2 smem2[];
   const int half = n >> 1, len = n / CS, p_len = 1 << log2p;
   float2* z = smem2;                               // the tile, z[row NP + p]
@@ -426,18 +435,34 @@ mix_fft_kernel(const float* __restrict__ v, const float* __restrict__ gr,
   const bool staged = ca0 / dg == (ca0 + 2 * NP - 1) / dg;
 
   // 1. rows t = r + CS (t1 + O bitrev(t2)) into rows t1 + O t2 of the tile
-  const float2* v2 = reinterpret_cast<const float2*>(v) + base;
-  // a row of the tile in kChunk pieces of kCopy bytes, one a thread, so
-  // that a warp's copies cover whole 32-byte sectors of v
+  const Pair* v2 = reinterpret_cast<const Pair*>(v) + base;
+  // fp32: a row of the tile in kChunk pieces of kCopy bytes, one a thread,
+  // so that a warp's copies cover whole 32-byte sectors of v
   constexpr int kCopy = NP < 2 ? 8 : 16;
   constexpr int kChunk = NP * 8 / kCopy;
-  for (int i = tid; i < len * kChunk; i += nt) {
-    const int u = i / kChunk, c = i % kChunk;
-    const int t = r + CS * time_row(u, kOdd ? o : 1, log2p);
-    __pipeline_memcpy_async(
-        reinterpret_cast<char*>(z + (size_t)u * NP) + c * kCopy,
-        reinterpret_cast<const char*>(v2 + (size_t)t * row2) + c * kCopy,
-        kCopy);
+  if constexpr (Act<T>::kBf16) {
+    // bf16: a thread loads pieces of two pairs (8 bytes), several in
+    // flight, and widens them in registers on their way into the tile
+    // (fft_common.cuh's load_rows), while the twiddles' and gates' async
+    // copies below fly
+    load_rows<NP>(
+        tid, len, nt,
+        [&](int u) {
+          return v2 + (size_t)(r + CS * time_row(u, kOdd ? o : 1, log2p)) *
+                          row2;
+        },
+        [&](int u, int p0, const float2 (&x)[kPiece<NP>]) {
+          put_pairs(z + (size_t)u * NP + p0, x);
+        });
+  } else {
+    for (int i = tid; i < len * kChunk; i += nt) {
+      const int u = i / kChunk, c = i % kChunk;
+      const int t = r + CS * time_row(u, kOdd ? o : 1, log2p);
+      __pipeline_memcpy_async(
+          reinterpret_cast<char*>(z + (size_t)u * NP) + c * kCopy,
+          reinterpret_cast<const char*>(v2 + (size_t)t * row2) + c * kCopy,
+          kCopy);
+    }
   }
   for (int i = tid; i < p_len / 2; i += nt)
     __pipeline_memcpy_async(tws_s + 2 * i, tws + 2 * i, 2 * sizeof(float2));
@@ -535,10 +560,46 @@ mix_fft_kernel(const float* __restrict__ v, const float* __restrict__ gr,
     mix_odd_step<NP, kOdd>(z, scr, o, p_len, CS, tw, half, 1.f);
   tile_fft<false>(z, log2p, seqs, tws_s);
   const float scale = 1.f / (float)n;
-  float2* y2 = reinterpret_cast<float2*>(y) + base;
+  Pair* y2 = reinterpret_cast<Pair*>(y) + base;
   const float2* m2 = mem_t == nullptr
                          ? nullptr
                          : reinterpret_cast<const float2*>(mem_t) + pair0;
+  if constexpr (Act<T>::kBf16) {
+    // bf16: a piece of a row a thread (fft_common.cuh), mem_t (fp32)
+    // added, rounded once; kRows pieces' mem_t loads issued before any is
+    // used
+    constexpr int kP = kPiece<NP>, kPer = NP / kP, kRows = 8;
+    for (int i0 = tid; i0 < len * kPer; i0 += kRows * nt) {
+      float2 m[kRows][kP];
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        const int i = i0 + k * nt, u = i / kPer, p0 = i % kPer * kP;
+        const size_t t =
+            (size_t)(r + CS * time_row(u, kOdd ? o : 1, log2p));
+        if (m2 != nullptr && i < len * kPer) {
+          get_pairs(m[k], m2 + t * row2 + p0);
+        } else {
+#pragma unroll
+          for (int p = 0; p < kP; ++p) m[k][p] = make_float2(0.f, 0.f);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        const int i = i0 + k * nt, u = i / kPer, p0 = i % kPer * kP;
+        if (i >= len * kPer) break;
+        const size_t t =
+            (size_t)(r + CS * time_row(u, kOdd ? o : 1, log2p));
+        float2 e[kP];
+        get_pairs(e, z + (size_t)u * NP + p0);
+#pragma unroll
+        for (int p = 0; p < kP; ++p)
+          e[p] = make_float2(fmaf(e[p].x, scale, m[k][p].x),
+                             fmaf(e[p].y, scale, m[k][p].y));
+        store_pairs<kP, T>(y2 + t * row2 + p0, e);
+      }
+    }
+    return;
+  }
   for (int i = tid; i < len * kChunk; i += nt) {
     const int u = i / kChunk, c = i % kChunk;
     const size_t t =
@@ -575,17 +636,17 @@ __host__ inline bool mix_split_ok(int len, int o, int cs, int k_odd) {
          (o == 1 || (o % 2 == 1 && o <= k_odd && cs == 1));
 }
 
-// One launch of mix_fft_kernel<CS, NP, kOdd> over B batch rows and d / (2
-// NP) clusters of CS CTAs.  Returns cudaErrorInvalidValue for a shape or
+// One launch of mix_fft_kernel<CS, NP, kOdd, T> over B batch rows and d /
+// (2 NP) clusters of CS CTAs.  Returns cudaErrorInvalidValue for a shape or
 // plan the kernel does not take (L = n / CS split as mix_split_ok says, d
 // a multiple of 2 NP, the tile within a block's shared memory, threads a
-// multiple of 32 within the launch bound) and
-// cudaErrorInvalidConfiguration where the card fits no such cluster
-// (cudaOccupancyMaxActiveClusters is 0).
-template <int CS, int NP, int kOdd>
-int launch_mix_fft(const float* v, const float* gr, const float* gi,
+// multiple of 32 within the launch bound; bf16 v or y not aligned to a row
+// of NP pairs) and cudaErrorInvalidConfiguration where the card fits no
+// such cluster (cudaOccupancyMaxActiveClusters is 0).
+template <int CS, int NP, int kOdd, class T = float>
+int launch_mix_fft(const void* v, const float* gr, const float* gi,
                    const float* mem_t, const float* tw, const float* tws,
-                   float* y, int b, int n, int d, int cols, int o,
+                   void* y, int b, int n, int d, int cols, int o,
                    int threads, cudaStream_t st) {
   const int len = n / CS, p_len = o > 0 ? len / o : 0;
   const size_t smem =
@@ -596,9 +657,10 @@ int launch_mix_fft(const float* v, const float* gr, const float* gi,
       (p_len == 1 ? (size_t)len * NP * sizeof(float2) : 0);
   if (len * CS != n || !mix_split_ok(len, o, CS, kOdd) || d % (2 * NP) ||
       cols < 1 || d % cols || smem > kMixSmemMax || threads < 32 ||
-      threads % 32 || threads > mix_threads_max(kOdd))
+      threads % 32 || threads > mix_threads_max(kOdd) ||
+      !rows_aligned<T>(v, NP) || !rows_aligned<T>(y, NP))
     return (int)cudaErrorInvalidValue;
-  auto kernel = mix_fft_kernel<CS, NP, kOdd>;
+  auto kernel = mix_fft_kernel<CS, NP, kOdd, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   // clusters of 16 CTAs: Hopper's largest, past the portable 8
@@ -633,10 +695,11 @@ int launch_mix_fft(const float* v, const float* gr, const float* gi,
     fits_smem = smem;
     fits_threads = threads;
   }
-  err = cudaLaunchKernelEx(&cfg, kernel, v, gr, gi, mem_t,
-                           reinterpret_cast<const float2*>(tw),
-                           reinterpret_cast<const float2*>(tws), y, n,
-                           log2_of(p_len), o, d, cols);
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(v), gr, gi,
+                           mem_t, reinterpret_cast<const float2*>(tw),
+                           reinterpret_cast<const float2*>(tws),
+                           static_cast<T*>(y), n, log2_of(p_len), o, d,
+                           cols);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -57,6 +57,12 @@
 // overlap them.  Plans (kernels/spectral_mix.py::DIRECT_PLAN, BWD_PLAN,
 // from chip_smoke.py's kernels_mix_plan_sweep).
 //
+// Both kernels come in an fp32 and a bf16 instance (the C entries' bf16
+// flag; fft_common.cuh's Act): in bf16 v and ybar are read and y and vbar
+// written as bf16, pieces of two pairs a thread, widened and rounded in
+// registers; the gate, mem_t, the gate cotangent and its scratch stay
+// fp32.  The bf16 instances are the wrappers' plans only.
+//
 // No warp shuffles and no atomics: tests/cuda_emulation.py runs it on the
 // CPU, a cluster's CTAs together.
 
@@ -91,15 +97,18 @@ __device__ __forceinline__ float2 mul_conj(float2 u, float2 x) {
 // CTA blockIdx.x, batch row blockIdx.y; see the header.  L = n = P o
 // (P = 1: o = n, the direct DFT).  tcl: CTAs a cluster.  parts: (B, F, d /
 // (2 NP tcl), 2) float2, the parts of groups a cluster does not hold
-// whole, or null where it holds every group it touches whole.
-template <int NP, int kOdd>
+// whole, or null where it holds every group it touches whole.  T: the
+// type of v, ybar and vbar (fft_common.cuh's Act); the gate cotangent is
+// fp32 in both.
+template <int NP, int kOdd, class T>
 __global__ void __launch_bounds__(mix_threads_max(kOdd))
-mix_bwd_kernel(const float* __restrict__ v, const float* __restrict__ ybar,
+mix_bwd_kernel(const T* __restrict__ v, const T* __restrict__ ybar,
                const float* __restrict__ gr, const float* __restrict__ gi,
                const float2* __restrict__ tw, const float2* __restrict__ tws,
-               float* __restrict__ vbar, float* __restrict__ gbr,
+               T* __restrict__ vbar, float* __restrict__ gbr,
                float* __restrict__ gbi, float2* __restrict__ parts, int n,
                int log2p, int o, int d, int cols, int tcl) {
+  using Pair = typename Act<T>::Pair;
   extern __shared__ float2 smem2[];
   constexpr int W = 2 * NP;                       // channels a CTA
   const int half = n >> 1, fh = half + 1, p_len = 1 << log2p;
@@ -117,21 +126,40 @@ mix_bwd_kernel(const float* __restrict__ v, const float* __restrict__ ybar,
   const size_t g0 = (size_t)b * fh;
 
   // 1. rows t1 + o bitrev(t2) of v and ybar into rows t1 + o t2 of the
-  // tiles, a row in kChunk pieces of kCopy bytes, one a thread
+  // tiles; fp32: a row in kChunk pieces of kCopy bytes, one a thread
   constexpr int kCopy = NP < 2 ? 8 : 16;
   constexpr int kChunk = NP * 8 / kCopy;
-  const char* vb = reinterpret_cast<const char*>(
-      reinterpret_cast<const float2*>(v) + base);
-  const char* yb = reinterpret_cast<const char*>(
-      reinterpret_cast<const float2*>(ybar) + base);
-  for (int i = tid; i < n * kChunk; i += nt) {
-    const int u = i / kChunk, c = i % kChunk;
-    const size_t src =
-        (size_t)time_row(u, o, log2p) * row2 * sizeof(float2) +
-        c * kCopy;
-    char* dst = reinterpret_cast<char*>(z + (size_t)u * NP) + c * kCopy;
-    __pipeline_memcpy_async(dst, vb + src, kCopy);
-    __pipeline_memcpy_async(dst + plane * sizeof(float2), yb + src, kCopy);
+  if constexpr (Act<T>::kBf16) {
+    // bf16: a thread loads pieces of two pairs, several in flight, and
+    // widens them in registers on their way into the tiles
+    // (fft_common.cuh's load_rows): rows u < n of v, then rows n + u of
+    // ybar
+    const Pair* v2 = reinterpret_cast<const Pair*>(v) + base;
+    const Pair* y2 = reinterpret_cast<const Pair*>(ybar) + base;
+    load_rows<NP>(
+        tid, 2 * n, nt,
+        [&](int i) {
+          const int u = i < n ? i : i - n;
+          return (i < n ? v2 : y2) + (size_t)time_row(u, o, log2p) * row2;
+        },
+        [&](int i, int p0, const float2 (&x)[kPiece<NP>]) {
+          put_pairs(z + (size_t)i * NP + p0, x);
+        });
+  } else {
+    const char* vb = reinterpret_cast<const char*>(
+        reinterpret_cast<const float2*>(v) + base);
+    const char* yb = reinterpret_cast<const char*>(
+        reinterpret_cast<const float2*>(ybar) + base);
+    for (int i = tid; i < n * kChunk; i += nt) {
+      const int u = i / kChunk, c = i % kChunk;
+      const size_t src =
+          (size_t)time_row(u, o, log2p) * row2 * sizeof(float2) +
+          c * kCopy;
+      char* dst = reinterpret_cast<char*>(z + (size_t)u * NP) + c * kCopy;
+      __pipeline_memcpy_async(dst, vb + src, kCopy);
+      __pipeline_memcpy_async(dst + plane * sizeof(float2), yb + src,
+                              kCopy);
+    }
   }
   for (int i = tid; i < p_len / 2; i += nt)
     __pipeline_memcpy_async(tws_s + 2 * i, tws + 2 * i, 2 * sizeof(float2));
@@ -216,19 +244,30 @@ mix_bwd_kernel(const float* __restrict__ v, const float* __restrict__ ybar,
   }
 
   // 5. the inverse of v's tile (bit-reversed output: each row back to the
-  // row of v it came from), vbar stored by 16-byte pieces
+  // row of v it came from), vbar stored by 16-byte pieces (bf16: pieces
+  // of two pairs, rounded in registers)
   if constexpr (kOdd > 0)
     mix_odd_step<NP, kOdd>(z, scr, o, p_len, 1, tw, half, 1.f);
   tile_fft<false>(z, log2p, seqs, tws_s, 1);
-  float2* vb2 = reinterpret_cast<float2*>(vbar) + base;
-  for (int i = tid; i < n * kChunk; i += nt) {
-    const int u = i / kChunk, c = i % kChunk;
-    const size_t t = (size_t)time_row(u, o, log2p);
-    if constexpr (NP == 1)
-      vb2[t * row2] = z[u];
-    else
-      reinterpret_cast<float4*>(vb2 + t * row2)[c] =
-          reinterpret_cast<const float4*>(z + (size_t)u * NP)[c];
+  Pair* vb2 = reinterpret_cast<Pair*>(vbar) + base;
+  if constexpr (Act<T>::kBf16) {
+    constexpr int kP = kPiece<NP>, kPer = NP / kP;
+    for (int i = tid; i < n * kPer; i += nt) {
+      const int u = i / kPer, p0 = i % kPer * kP;
+      float2 e[kP];
+      get_pairs(e, z + (size_t)u * NP + p0);
+      store_pairs<kP, T>(vb2 + (size_t)time_row(u, o, log2p) * row2 + p0, e);
+    }
+  } else {
+    for (int i = tid; i < n * kChunk; i += nt) {
+      const int u = i / kChunk, c = i % kChunk;
+      const size_t t = (size_t)time_row(u, o, log2p);
+      if constexpr (NP == 1)
+        vb2[t * row2] = z[u];
+      else
+        reinterpret_cast<float4*>(vb2 + t * row2)[c] =
+            reinterpret_cast<const float4*>(z + (size_t)u * NP)[c];
+    }
   }
   // the cluster's other CTAs may still read this CTA's terms
   if (tcl > 1) cg::this_cluster().sync();
@@ -255,10 +294,10 @@ __global__ void group_sum_kernel(const float2* __restrict__ parts,
   }
 }
 
-template <int NP, int kOdd>
-int launch_mix_bwd(const float* v, const float* ybar, const float* gr,
+template <int NP, int kOdd, class T = float>
+int launch_mix_bwd(const void* v, const void* ybar, const float* gr,
                    const float* gi, const float* tw, const float* tws,
-                   float* vbar, float* gbr, float* gbi, float* parts, int b,
+                   void* vbar, float* gbr, float* gbi, float* parts, int b,
                    int n, int d, int cols, int o, int threads, int tcl,
                    cudaStream_t st) {
   const int p_len = o > 0 ? n / o : 0, dg = cols > 0 ? d / cols : 0;
@@ -273,9 +312,10 @@ int launch_mix_bwd(const float* v, const float* ybar, const float* gr,
       tcl > kBwdClusterMax || d % wc || (parts == nullptr) != whole ||
       (!whole && dg <= wc) ||
       smem > kMixSmemMax || threads < 32 || threads % 32 ||
-      threads > mix_threads_max(kOdd))
+      threads > mix_threads_max(kOdd) || !rows_aligned<T>(v, NP) ||
+      !rows_aligned<T>(ybar, NP) || !rows_aligned<T>(vbar, NP))
     return (int)cudaErrorInvalidValue;
-  auto kernel = mix_bwd_kernel<NP, kOdd>;
+  auto kernel = mix_bwd_kernel<NP, kOdd, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -291,10 +331,12 @@ int launch_mix_bwd(const float* v, const float* ybar, const float* gr,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = tcl > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, kernel, v, ybar, gr, gi,
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(v),
+                           static_cast<const T*>(ybar), gr, gi,
                            reinterpret_cast<const float2*>(tw),
-                           reinterpret_cast<const float2*>(tws), vbar, gbr,
-                           gbi, reinterpret_cast<float2*>(parts), n,
+                           reinterpret_cast<const float2*>(tws),
+                           static_cast<T*>(vbar), gbr, gbi,
+                           reinterpret_cast<float2*>(parts), n,
                            log2_of(p_len), o, d, cols, tcl);
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess || whole) return (int)err;
@@ -317,22 +359,27 @@ extern "C" {
 // stage_twiddles of P = n / (cs o).  o: the odd factor the kernel's split
 // takes (1; 3, 5 or 7 with P >= 4; or n / cs with P = 1, cs = 1).  Plan: cs
 // CTAs a cluster (1, 2), np channel pairs a CTA (2, 4), threads a CTA.
+// bf16: nonzero for bf16 v and y (mem_t fp32), whose instances are the
+// wrapper's plans only (cs 1, np 4: kernels/spectral_mix.py::direct_plan).
 // Returns cudaErrorInvalidValue for a split or plan without an instance.
-int fft_direct_mix(const float* v, const float* gr, const float* gi,
+int fft_direct_mix(const void* v, const float* gr, const float* gi,
                    const float* mem_t, const float* tw, const float* tws,
-                   float* y, int b, int n, int d, int cols, int o, int cs,
-                   int np, int threads, void* stream) {
+                   void* y, int b, int n, int d, int cols, int o, int cs,
+                   int np, int threads, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FFT_DIRECT_CASE(CS, NP, ODD)                                      \
-  if (cs == CS && np == NP && (o > 1) == (ODD > 0))                      \
-    return launch_mix_fft<CS, NP, ODD>(v, gr, gi, mem_t, tw, tws, y, b, n, \
-                                       d, cols, o, threads, st);
-  FFT_DIRECT_CASE(1, 2, 0)
-  FFT_DIRECT_CASE(1, 4, 0)
-  FFT_DIRECT_CASE(2, 2, 0)
-  FFT_DIRECT_CASE(2, 4, 0)
-  FFT_DIRECT_CASE(1, 2, kDirectOdd)
-  FFT_DIRECT_CASE(1, 4, kDirectOdd)
+#define FFT_DIRECT_CASE(CS, NP, ODD, T)                                   \
+  if (cs == CS && np == NP && (o > 1) == (ODD > 0) &&                    \
+      (bf16 != 0) == Act<T>::kBf16)                                      \
+    return launch_mix_fft<CS, NP, ODD, T>(v, gr, gi, mem_t, tw, tws, y, b, \
+                                          n, d, cols, o, threads, st);
+  FFT_DIRECT_CASE(1, 2, 0, float)
+  FFT_DIRECT_CASE(1, 4, 0, float)
+  FFT_DIRECT_CASE(2, 2, 0, float)
+  FFT_DIRECT_CASE(2, 4, 0, float)
+  FFT_DIRECT_CASE(1, 2, kDirectOdd, float)
+  FFT_DIRECT_CASE(1, 4, kDirectOdd, float)
+  FFT_DIRECT_CASE(1, 4, 0, __nv_bfloat16)
+  FFT_DIRECT_CASE(1, 4, kDirectOdd, __nv_bfloat16)
 #undef FFT_DIRECT_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -343,21 +390,26 @@ int fft_direct_mix(const float* v, const float* gr, const float* gi,
 // cluster (1-8, 2 np tcl dividing d).  parts: NULL where 2 np tcl is a
 // multiple of d / cols (the cluster holds whole groups: one launch), else
 // (B, n/2+1, d / (2 np tcl), 2) complex scratch (a second launch sums it).
-int fft_direct_mix_bwd(const float* v, const float* ybar, const float* gr,
+// bf16: nonzero for bf16 v, ybar and vbar (the gate cotangent and the
+// scratch fp32), whose instances are the wrapper's plans only (np 4:
+// kernels/spectral_mix.py::bwd_plan).
+int fft_direct_mix_bwd(const void* v, const void* ybar, const float* gr,
                        const float* gi, const float* tw, const float* tws,
-                       float* vbar, float* gbr, float* gbi, float* parts,
+                       void* vbar, float* gbr, float* gbi, float* parts,
                        int b, int n, int d, int cols, int o, int np,
-                       int threads, int tcl, void* stream) {
+                       int threads, int tcl, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FFT_BWD_CASE(NP, ODD)                                             \
-  if (np == NP && (o > 1) == (ODD > 0))                                  \
-    return launch_mix_bwd<NP, ODD>(v, ybar, gr, gi, tw, tws, vbar, gbr,    \
-                                   gbi, parts, b, n, d, cols, o, threads, \
-                                   tcl, st);
-  FFT_BWD_CASE(2, 0)
-  FFT_BWD_CASE(4, 0)
-  FFT_BWD_CASE(2, kDirectOdd)
-  FFT_BWD_CASE(4, kDirectOdd)
+#define FFT_BWD_CASE(NP, ODD, T)                                          \
+  if (np == NP && (o > 1) == (ODD > 0) && (bf16 != 0) == Act<T>::kBf16)  \
+    return launch_mix_bwd<NP, ODD, T>(v, ybar, gr, gi, tw, tws, vbar, gbr, \
+                                      gbi, parts, b, n, d, cols, o,       \
+                                      threads, tcl, st);
+  FFT_BWD_CASE(2, 0, float)
+  FFT_BWD_CASE(4, 0, float)
+  FFT_BWD_CASE(2, kDirectOdd, float)
+  FFT_BWD_CASE(4, kDirectOdd, float)
+  FFT_BWD_CASE(4, 0, __nv_bfloat16)
+  FFT_BWD_CASE(4, kDirectOdd, __nv_bfloat16)
 #undef FFT_BWD_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -42,28 +42,33 @@ extern "C" {
 // wrapper takes it).  tw: (n, 2) twiddles (the first n/2 are read); tws:
 // stage_twiddles of P = n / (cs O).  Plan: cs CTAs a cluster (1, 2, 4 at
 // O = 1; 1 otherwise), np channel pairs a CTA (2, 4 at O = 1; 1, 2
-// otherwise), threads a CTA (<= 512 at O = 1, <= 256 otherwise).  Returns
-// cudaErrorInvalidValue for another odd factor or a plan it has no
-// instance of.
-int fft_staged_mix(const float* v, const float* gr, const float* gi,
+// otherwise), threads a CTA (<= 512 at O = 1, <= 256 otherwise).  bf16:
+// nonzero for bf16 v and y (mem_t fp32), whose instances are the
+// wrapper's plans only (kernels/spectral_mix.py::STAGED_PLAN, and (1, 2)
+// at the other odd factors).  Returns cudaErrorInvalidValue for another
+// odd factor or a plan it has no instance of.
+int fft_staged_mix(const void* v, const float* gr, const float* gi,
                    const float* mem_t, const float* tw, const float* tws,
-                   float* y, int b, int n, int d, int cols, int cs, int np,
-                   int threads, void* stream) {
+                   void* y, int b, int n, int d, int cols, int cs, int np,
+                   int threads, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int o = n;
   while (o > 0 && o % 2 == 0) o /= 2;
   if (o > 31) return (int)cudaErrorInvalidValue;
-#define FFT_STAGED_CASE(CS, NP, ODD)                                     \
-  if (cs == CS && np == NP && (o > 1) == ODD)                            \
-    return launch_mix_fft<CS, NP, ODD ? 31 : 0>(                         \
+#define FFT_STAGED_CASE(CS, NP, ODD, T)                                  \
+  if (cs == CS && np == NP && (o > 1) == ODD &&                          \
+      (bf16 != 0) == Act<T>::kBf16)                                      \
+    return launch_mix_fft<CS, NP, ODD ? 31 : 0, T>(                      \
         v, gr, gi, mem_t, tw, tws, y, b, n, d, cols, o, threads, st);
-  FFT_STAGED_CASE(1, 2, false)
-  FFT_STAGED_CASE(1, 4, false)
-  FFT_STAGED_CASE(2, 2, false)
-  FFT_STAGED_CASE(2, 4, false)
-  FFT_STAGED_CASE(4, 4, false)
-  FFT_STAGED_CASE(1, 1, true)
-  FFT_STAGED_CASE(1, 2, true)
+  FFT_STAGED_CASE(1, 2, false, float)
+  FFT_STAGED_CASE(1, 4, false, float)
+  FFT_STAGED_CASE(2, 2, false, float)
+  FFT_STAGED_CASE(2, 4, false, float)
+  FFT_STAGED_CASE(4, 4, false, float)
+  FFT_STAGED_CASE(1, 1, true, float)
+  FFT_STAGED_CASE(1, 2, true, float)
+  FFT_STAGED_CASE(2, 4, false, __nv_bfloat16)
+  FFT_STAGED_CASE(1, 2, true, __nv_bfloat16)
 #undef FFT_STAGED_CASE
   return (int)cudaErrorInvalidValue;
 }

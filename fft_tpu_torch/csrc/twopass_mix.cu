@@ -46,26 +46,30 @@ extern "C" {
 // (n, d) or NULL; n a power of two (16384-65536 as the wrapper takes it;
 // any with P = n / cs of at least 4 here).  tw: the (n, 2) twiddles (the
 // first n/2 are read); tws: stage_twiddles of P.  Plan: cs CTAs a cluster
-// (1-16), np channel pairs a CTA (2, 4), threads a CTA (<= 512).
-// Returns cudaErrorInvalidValue for a plan it has no instance of.
-int fft_twopass_mix(const float* v, const float* gr, const float* gi,
+// (1-16), np channel pairs a CTA (2, 4), threads a CTA (<= 512).  bf16:
+// nonzero for bf16 v and y (mem_t fp32), whose instances are the
+// wrapper's plans only (kernels/spectral_mix.py::TWOPASS_PLAN).  Returns
+// cudaErrorInvalidValue for a plan it has no instance of.
+int fft_twopass_mix(const void* v, const float* gr, const float* gi,
                     const float* mem_t, const float* tw, const float* tws,
-                    float* y, int b, int n, int d, int cols, int cs, int np,
-                    int threads, void* stream) {
+                    void* y, int b, int n, int d, int cols, int cs, int np,
+                    int threads, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n & (n - 1)) return (int)cudaErrorInvalidValue;
-#define FFT_TWOPASS_CASE(CS, NP)                                          \
-  if (cs == CS && np == NP)                                               \
-    return launch_mix_fft<CS, NP, 0>(v, gr, gi, mem_t, tw, tws, y, b, n,  \
-                                     d, cols, 1, threads, st);
-  FFT_TWOPASS_CASE(1, 2)
-  FFT_TWOPASS_CASE(2, 2)
-  FFT_TWOPASS_CASE(2, 4)
-  FFT_TWOPASS_CASE(4, 2)
-  FFT_TWOPASS_CASE(4, 4)
-  FFT_TWOPASS_CASE(8, 2)
-  FFT_TWOPASS_CASE(8, 4)
-  FFT_TWOPASS_CASE(16, 4)
+#define FFT_TWOPASS_CASE(CS, NP, T)                                       \
+  if (cs == CS && np == NP && (bf16 != 0) == Act<T>::kBf16)               \
+    return launch_mix_fft<CS, NP, 0, T>(v, gr, gi, mem_t, tw, tws, y, b,  \
+                                        n, d, cols, 1, threads, st);
+  FFT_TWOPASS_CASE(1, 2, float)
+  FFT_TWOPASS_CASE(2, 2, float)
+  FFT_TWOPASS_CASE(2, 4, float)
+  FFT_TWOPASS_CASE(4, 2, float)
+  FFT_TWOPASS_CASE(4, 4, float)
+  FFT_TWOPASS_CASE(8, 2, float)
+  FFT_TWOPASS_CASE(8, 4, float)
+  FFT_TWOPASS_CASE(16, 4, float)
+  FFT_TWOPASS_CASE(8, 4, __nv_bfloat16)
+  FFT_TWOPASS_CASE(16, 4, __nv_bfloat16)
 #undef FFT_TWOPASS_CASE
   return (int)cudaErrorInvalidValue;
 }

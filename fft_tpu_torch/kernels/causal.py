@@ -35,17 +35,21 @@ at every shape of the tiny LM's paths; the direct-DFT kernel of
 (its plan from ``banded_fft_plan``), which is also the direct
 ``fused_causal_mix``'s second launch.
 
-Each public function takes fp32 tensors, and #7 and #11 also bf16
-activations (the JAX package's fast mode): v and ybar in bf16, y and vbar
-out in v's dtype, K and Kbar fp32, through the ``_bf16`` instances of
-their kernels (launch names ``fused_causal_mix_v3_bf16``,
-``fused_causal_mix_bwd_v3_bf16``), which compute in fp32 as the fp32 ones
-do.  A bf16 tensor on the card that would reach #6 or #10 (or their
-direct kernels) raises ``NotImplementedError`` naming the ROADMAP item
-that ports their bf16 variants; it is never cast to fp32.  A tensor on the
-CPU goes to the plain version (``*_ref``: bf16 in, fp32 inside, the
-output cast to v's dtype); a tensor on a CUDA device goes to the kernel,
-or the call raises.  Nothing falls back.  Every kernel launch adds one to
+Each public function takes fp32 tensors, and the causal mix and its
+adjoint also bf16 activations (the JAX package's fast mode): v and ybar in
+bf16, y and vbar out in v's dtype, K and Kbar fp32, through the bf16
+instances of #6 (its FFT and its direct kernel), #10 (its FFT kernel), #7
+and #11, counted under the launch name with ``_bf16`` appended
+(``fused_causal_mix_bf16``, ``fused_causal_mix_direct_bf16``,
+``fused_causal_mix_bwd_bf16``, ``fused_causal_mix_v3_bf16``,
+``fused_causal_mix_bwd_v3_bf16``); they read and write the activations in
+bf16 and compute in fp32 as the fp32 ones do.  The direct #10
+(``fused_causal_mix_bwd_direct``) has no bf16 instance: a bf16 tensor on
+the card that would reach it raises ``NotImplementedError`` naming its
+ROADMAP line; it is never cast to fp32.  A tensor on the CPU goes to the
+plain version (``*_ref``: bf16 in, fp32 inside, the output cast to v's
+dtype); a tensor on a CUDA device goes to the kernel, or the call raises.
+Nothing falls back.  Every kernel launch adds one to
 ``LAUNCHES[name]``, so a run can show that it went through the kernels.
 
 ``kf_spectra``, ``kf_seg_rfft``, ``fused_causal_mix`` and
@@ -95,18 +99,24 @@ import numpy as np
 import torch
 
 from fft_tpu_torch.kernels.common import (
-    SMEM_MAX, check, launch, no_bf16_variant, on_cpu, stage_twiddles,
-    twiddles,
+    SMEM_MAX, check, check_rows, launch, no_bf16_variant, on_cpu,
+    stage_twiddles, twiddles,
 )
 from fft_tpu_torch.ops import fftops
 
 LAUNCHES = {"kf_spectra": 0, "fused_causal_mix": 0, "banded_inverse": 0,
             "fused_causal_mix_bwd": 0, "kf_seg_rfft": 0,
             "fused_causal_mix_v3": 0, "fused_causal_mix_bwd_v3": 0,
+            "fused_causal_mix_bf16": 0, "fused_causal_mix_bwd_bf16": 0,
+            "fused_causal_mix_direct_bf16": 0,
             "fused_causal_mix_v3_bf16": 0,
             "fused_causal_mix_bwd_v3_bf16": 0,
             "kf_spectra_direct": 0, "fused_causal_mix_direct": 0,
             "fused_causal_mix_bwd_direct": 0}
+# the launches with a bf16 instance (the C entry's bf16 flag picks it)
+_BF16_INSTANCES = ("fused_causal_mix", "fused_causal_mix_direct",
+                   "fused_causal_mix_v3", "fused_causal_mix_bwd",
+                   "fused_causal_mix_bwd_v3")
 
 # Shapes of the CUDA blocks (csrc/causal_common.cuh: kLanes, kFreqT;
 # csrc/causal_long.cu: #9's lane pairs kPairs, 8 lanes).
@@ -670,9 +680,9 @@ def _fused_causal_mix(v, kfr, kfi, chunk: int, cols: int) -> torch.Tensor:
     ``_fused_causal_call_v3`` (:931), which JAX takes past its v2 kernel's
     memory: three launches of ``csrc/causal_long.cu`` through a (B, nc,
     F2, d) scratch (segment FFTs, the bin-major banded sum in place, one
-    inverse FFT per chunk).  bf16 v takes #7's bf16 instance
-    (``fused_causal_mix_v3_bf16``) and gives bf16 y; in #6's range it
-    raises (``_mix_kernel``)."""
+    inverse FFT per chunk).  bf16 v takes the bf16 instance of the kernel
+    the shape picks (counted under its name with ``_bf16`` appended) and
+    gives bf16 y."""
     if on_cpu(v, kfr, kfi):
         return fused_causal_mix_ref(v, kfr, kfi, chunk, cols)
     name = _mix_kernel("fused_causal_mix", v.shape[1], chunk, v.shape[2],
@@ -692,15 +702,14 @@ def fused_causal_mix_direct(v, kfr, kfi, chunk: int, cols: int):
     if n % chunk or not fused_mix_supported(n // chunk, chunk, d, cols):
         raise ValueError(f"fused_causal_mix_direct: unsupported shape n={n} "
                          f"chunk={chunk} d={d} cols={cols}")
-    if v.dtype != torch.float32:
-        raise no_bf16_variant("fused_causal_mix_direct (#6)")
     return _launch_mix("fused_causal_mix_direct", v, kfr, kfi, chunk, cols)
 
 
-def _long_act(name: str, v) -> bool:
-    """Whether launch ``name`` runs its bf16 instance: _v3's for bf16 v
-    (counted under ``name + "_bf16"``); every other kernel takes fp32."""
-    return name.endswith("_v3") and v.dtype == torch.bfloat16
+def _act_bf16(name: str, v) -> bool:
+    """Whether launch ``name`` runs its bf16 instance: for bf16 v where it
+    has one (counted under ``name + "_bf16"``); the direct #10 takes fp32
+    alone."""
+    return name in _BF16_INSTANCES and v.dtype == torch.bfloat16
 
 
 def _launch_mix(name: str, v, kfr, kfi, chunk: int, cols: int, plan=None):
@@ -712,31 +721,35 @@ def _launch_mix(name: str, v, kfr, kfi, chunk: int, cols: int, plan=None):
     b, n, d = v.shape
     nc = n // chunk
     f2 = chunk + 1
-    bf16 = _long_act(name, v)
+    bf16 = _act_bf16(name, v)
     check("v", v, (b, n, d), v.dtype if bf16 else torch.float32)
     check("kfr", kfr, (b, nc, f2, nc * cols))
     check("kfi", kfi, (b, nc, f2, nc * cols))
+    check_rows(name, v=v)
     tw = twiddles(2 * chunk, v.device)
     out = torch.empty((b, n, d), dtype=v.dtype, device=v.device)
+    counted = name + "_bf16" if bf16 else name
     if name == "fused_causal_mix":
-        launch(LAUNCHES, name, v.device,
+        launch(LAUNCHES, counted, v.device,
                v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), tw.data_ptr(),
                out.data_ptr(), b, nc, chunk, d, cols,
-               *(plan or mix_fft_plan(nc, chunk, d, cols)))
+               *(plan or mix_fft_plan(nc, chunk, d, cols)), int(bf16),
+               entry=name)
         return out
     vfr = torch.empty((b, nc, f2, d), dtype=torch.float32, device=v.device)
     vfi = torch.empty_like(vfr)
     if name == "fused_causal_mix_v3":
-        launch(LAUNCHES, name + "_bf16" if bf16 else name, v.device,
+        launch(LAUNCHES, counted, v.device,
                v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), tw.data_ptr(),
                vfr.data_ptr(), vfi.data_ptr(), out.data_ptr(), b, nc, chunk,
                d, cols, *(plan or LONG_PLAN), int(bf16), entry=name)
         return out
     # the direct kernel's second launch is #5's body on the producer layout
     params = _banded_params(b, nc, chunk, d, cols, v.device, plan)
-    launch(LAUNCHES, name, v.device,
+    launch(LAUNCHES, counted, v.device,
            v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), vfr.data_ptr(),
-           vfi.data_ptr(), out.data_ptr(), ctypes.addressof(params))
+           vfi.data_ptr(), out.data_ptr(), ctypes.addressof(params),
+           int(bf16), entry=name)
     return out
 
 
@@ -749,19 +762,19 @@ def _mix_kernel(base: str, n: int, chunk: int, d: int, cols: int,
     neither does.  In #6's
     range each is the FFT kernel of causal_fft.cu where its plan
     (``mix_fft_plan``, ``bwd_fft_plan``) has one, else the direct-DFT one
-    (_direct); neither has a bf16 variant yet, so bf16 raises there."""
+    (_direct).  Each has a bf16 instance but the direct #10, so bf16 raises
+    there alone."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{base}: float32 or bfloat16 activations, got "
                         f"{dtype}")
     nc = n // chunk
     if nc * chunk == n and fused_mix_supported(nc, chunk, d, cols):
-        if dtype != torch.float32:
-            raise no_bf16_variant(
-                f"{base} ({'#6' if base == 'fused_causal_mix' else '#10'})")
         plan = mix_fft_plan if base == "fused_causal_mix" else bwd_fft_plan
-        if plan(nc, chunk, d, cols) is None:
-            return base + "_direct"
-        return base
+        if plan(nc, chunk, d, cols) is not None:
+            return base
+        if base + "_direct" not in _BF16_INSTANCES and dtype != torch.float32:
+            raise no_bf16_variant(f"{base}_direct (#10)")
+        return base + "_direct"
     if nc * chunk == n and fused_mix_v3_supported(nc, chunk, d, cols):
         return base + "_v3"
     raise ValueError(f"{base}: unsupported shape n={n} chunk={chunk} d={d} "
@@ -887,9 +900,11 @@ def fused_causal_mix_bwd(v, kfr, kfi, ybar, chunk: int, cols: int):
     and of ybar's adjoint partial irFFT in one, Kbar (each gate group
     summed through shared memory in a fixed order) and Vbar bin-major in
     one, and the adjoint segment FFT with the overlap-add; Kbar is exactly
-    0 for c < delta.  bf16 v and ybar take #11's bf16 instance
-    (``fused_causal_mix_bwd_v3_bf16``): vbar bf16, Kbar fp32 (the primal
-    dtypes); in #10's range bf16 raises (``_mix_kernel``)."""
+    0 for c < delta.  bf16 v and ybar take the bf16 instance of #10's FFT
+    kernel or #11's (``fused_causal_mix_bwd_bf16``,
+    ``fused_causal_mix_bwd_v3_bf16``): vbar bf16, Kbar fp32 (the primal
+    dtypes); where the direct #10 would take the shape bf16 raises
+    (``_mix_kernel``)."""
     if on_cpu(v, kfr, kfi, ybar):
         return fused_causal_mix_bwd_ref(v, kfr, kfi, ybar, chunk, cols)
     name = _mix_kernel("fused_causal_mix_bwd", v.shape[1], chunk, v.shape[2],
@@ -902,7 +917,8 @@ def fused_causal_mix_bwd_direct(v, kfr, kfi, ybar, chunk: int, cols: int):
     always through the direct-DFT kernel (``csrc/causal_bwd.cu``) on CUDA
     tensors, wherever ``fused_mix_supported`` holds; the plain version on
     CPU tensors.  It exists to set the two kernels side by side at one
-    shape."""
+    shape.  It has no bf16 instance: bf16 on the card raises, naming its
+    ROADMAP line."""
     if on_cpu(v, kfr, kfi, ybar):
         return fused_causal_mix_bwd_ref(v, kfr, kfi, ybar, chunk, cols)
     b, n, d = v.shape
@@ -924,12 +940,13 @@ def _launch_bwd(name: str, v, kfr, kfi, ybar, chunk: int, cols: int,
     b, n, d = v.shape
     nc = n // chunk
     f2 = chunk + 1
-    bf16 = _long_act(name, v)
+    bf16 = _act_bf16(name, v)
     act = v.dtype if bf16 else torch.float32
     check("v", v, (b, n, d), act)
     check("kfr", kfr, (b, nc, f2, nc * cols))
     check("kfi", kfi, (b, nc, f2, nc * cols))
     check("ybar", ybar, (b, n, d), act)
+    check_rows(name, v=v, ybar=ybar)
     tw = twiddles(2 * chunk, v.device)
     vbar = torch.empty_like(v)
     kbr = torch.empty_like(kfr)
@@ -938,7 +955,7 @@ def _launch_bwd(name: str, v, kfr, kfi, ybar, chunk: int, cols: int,
         # V and A as complex planes (re, im interleaved); Vbar over V
         scratch = [torch.empty((b, nc, f2, d, 2), dtype=torch.float32,
                                device=v.device) for _ in range(2)]
-        tile = tuple(plan or bwd_fft_plan(nc, chunk, d, cols))
+        tile = (*(plan or bwd_fft_plan(nc, chunk, d, cols)), int(bf16))
     else:
         scratch = [torch.empty((b, nc, f2, d), dtype=torch.float32,
                                device=v.device) for _ in range(4)]

@@ -13,17 +13,17 @@ from fft_tpu_torch.kernels.build import load_library
 # dynamic shared memory a Hopper block may use
 SMEM_MAX = 232448
 
-# The ROADMAP.md item ('Modules to port') that ports the bf16 variants of
-# the kernels that have none yet (#1-#4, #6, #10)
-BF16_QUEUED = "bf16 for the tiny LM and the non-causal block"
+# The ROADMAP.md line (queue 2) that ports the one bf16 instance still
+# missing: the direct-DFT #10 (csrc/causal_bwd.cu)
+BF16_QUEUED = "bf16 instance of the direct #10"
 
 
 def no_bf16_variant(kernel: str) -> NotImplementedError:
     """The error of a bf16 call on the card that would reach ``kernel``,
-    which has no bf16 variant yet: raised at once, never cast to fp32."""
+    which has no bf16 instance yet: raised at once, never cast to fp32."""
     return NotImplementedError(
-        f"{kernel}: no bf16 variant on the card yet (see ROADMAP.md, "
-        f"'Modules to port': {BF16_QUEUED}); run fp32, or on the CPU")
+        f"{kernel}: no bf16 instance on the card yet (see ROADMAP.md, "
+        f"queue 2: {BF16_QUEUED}); run fp32, or on the CPU")
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,6 +85,18 @@ def check(name: str, t: torch.Tensor, shape, dtype=torch.float32) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, want {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def check_rows(name: str, **tensors) -> None:
+    """The bf16 instances read and write whole rows of a tile's channel
+    pairs (up to 16 bytes at once): raise ``ValueError`` for a bf16 tensor
+    that does not start on a 16-byte boundary (a slice of another), which
+    their C entries refuse."""
+    for arg, t in tensors.items():
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name}: bf16 {arg} must start on a 16-byte "
+                             "boundary (the kernel moves whole rows of "
+                             "channel pairs); pass a fresh contiguous copy")
 
 
 _ENTRIES = {}

@@ -183,7 +183,7 @@ def _case(kernel: str, shape, g, stream):
                 tw.data_ptr(), stage_twiddles(n // o, dev).data_ptr(),
                 *(t.data_ptr() for t in outs),
                 None if parts is None else parts.data_ptr(), b, n, d, cols,
-                o, np_, threads, sm.bwd_cluster(d // cols, np_), stream)
+                o, np_, threads, sm.bwd_cluster(d // cols, np_), 0, stream)
         return (args, outs, sm.direct_mix_bwd_ref(v, gr, gi, last, n),
                 (v, last, gr, gi, parts))
     cs, np_, threads = shape[2:]
@@ -193,10 +193,11 @@ def _case(kernel: str, shape, g, stream):
     if kernel == "direct":
         o = sm.direct_split(n, cs)
         args = (*head, stage_twiddles(n // (cs * o), dev).data_ptr(),
-                y.data_ptr(), b, n, d, cols, o, cs, np_, threads, stream)
+                y.data_ptr(), b, n, d, cols, o, cs, np_, threads, 0,
+                stream)
     else:
         args = (*head, stage_twiddles(n // cs, dev).data_ptr(),
-                y.data_ptr(), b, n, d, cols, cs, np_, threads, stream)
+                y.data_ptr(), b, n, d, cols, cs, np_, threads, 0, stream)
     return (args, (y,), (sm.twopass_mix_ref(v, gr, gi, last, n),),
             (v, last, gr, gi))
 

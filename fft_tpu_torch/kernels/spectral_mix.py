@@ -58,7 +58,17 @@ to it.
 A tensor on the CPU goes to the plain version; a tensor on a CUDA device
 goes to the kernel, or the call raises naming the kernel and the reason
 (``_require``): each wrapper takes its own n_fft range, and a shape its
-kernel refuses raises ``ValueError``.  Nothing falls back.  ``mix_kernel``
+kernel refuses raises ``ValueError``.  Nothing falls back.
+
+The activations v and ybar may be fp32 or bf16 (the JAX package's fast
+mode, ``compute_dtype="bfloat16"``); y and vbar come out in v's dtype, the
+gate cotangent and mem_t's in fp32, on both devices.  bf16 on the card
+runs each kernel's bf16 instance (counted under its launch name with
+``_bf16`` appended): v and ybar read as bf16 rows and widened in
+registers, y and vbar rounded once on the store (mem_t added in fp32
+first), everything between in fp32 as the fp32 instance computes it.  The
+plain versions compute in fp32 from the bf16 values and round the
+activation outputs once.  ``mix_kernel``
 is the reference's dispatch to its fused kernels: #4 only with
 ``TWOPASS_ENABLE`` on, which mirrors ``pallas_fft.TWOPASS_ENABLE`` and its
 default.  Every launch adds one to ``LAUNCHES[name]``.
@@ -79,13 +89,13 @@ from typing import Optional
 import torch
 
 from fft_tpu_torch.kernels.common import (
-    SMEM_MAX, check, launch, no_bf16_variant, on_cpu, stage_twiddles,
-    twiddles,
+    SMEM_MAX, check, check_rows, launch, on_cpu, stage_twiddles, twiddles,
 )
 from fft_tpu_torch.ops import fftops
 
 LAUNCHES = {"direct_mix": 0, "direct_mix_bwd": 0, "staged_mix": 0,
-            "twopass_mix": 0}
+            "twopass_mix": 0, "direct_mix_bf16": 0, "direct_mix_bwd_bf16": 0,
+            "staged_mix_bf16": 0, "twopass_mix_bf16": 0}
 
 # The layer's fused branch runs #4 at n_fft 16384-65536 only when this is
 # on: the reference's pallas_fft.TWOPASS_ENABLE and its default (off: on a
@@ -288,11 +298,12 @@ def _irfft_weights(n_fft: int, device) -> torch.Tensor:
 
 def direct_mix_ref(v, g_r, g_i, mem_t: Optional[torch.Tensor],
                    n_fft: int) -> torch.Tensor:
-    """y (B, N, d) = irfft(g * rfft(v), n_fft) [+ mem_t (N, d)]."""
+    """y (B, N, d) = irfft(g * rfft(v), n_fft) [+ mem_t (N, d)], computed
+    in fp32, in v's dtype."""
     d = v.shape[-1]
     g = torch.complex(_expand(g_r, d), _expand(g_i, d))
     y = fftops.irfft(g * fftops.rfft(v, n_fft, dim=-2), n_fft, dim=-2)
-    return y if mem_t is None else y + mem_t
+    return (y if mem_t is None else y + mem_t).to(v.dtype)
 
 
 # #3 and #4 compute #1's function at longer n_fft: the same composition is
@@ -307,7 +318,8 @@ def direct_mix_bwd_ref(v, g_r, g_i, ybar, n_fft: int):
     ``_make_direct_bwd_kernel`` (pallas_fft.py:375-444) computes it.  With
     U = (c / N) rfft(ybar) (c the irfft weights; Im U = 0 at DC and
     Nyquist, where irfft drops Im of its input) and X = rfft(v):
-    vbar = N irfft(conj(g) U / c), gbar = group-sum(U conj(X))."""
+    vbar = N irfft(conj(g) U / c), gbar = group-sum(U conj(X)).  Computed
+    in fp32; vbar in v's dtype, gbar fp32."""
     b, n, d = v.shape
     cols = g_r.shape[-1]
     coef = _irfft_weights(n_fft, v.device)
@@ -320,7 +332,8 @@ def direct_mix_bwd_ref(v, g_r, g_i, ybar, n_fft: int):
     g = torch.complex(_expand(g_r, d), _expand(g_i, d))
     vbar = n_fft * fftops.irfft(g.conj() * u / coef, n_fft, dim=-2)
     gbar = (u * x.conj()).reshape(b, -1, cols, d // cols).sum(-1)
-    return vbar[:, :n], gbar.real.contiguous(), gbar.imag.contiguous()
+    return (vbar[:, :n].to(v.dtype), gbar.real.contiguous(),
+            gbar.imag.contiguous())
 
 
 def unfused_mix(v, gate, memory_fft: Optional[torch.Tensor],
@@ -341,12 +354,19 @@ def unfused_mix(v, gate, memory_fft: Optional[torch.Tensor],
 # Wrappers
 # ---------------------------------------------------------------------------
 
-def _check_forward(v, g_r, g_i, mem_t, n_fft):
+def _act(v) -> torch.dtype:
+    """The activations' dtype a kernel takes for v: bf16 for bf16 v (its
+    bf16 instance), else fp32."""
+    return torch.bfloat16 if v.dtype == torch.bfloat16 else torch.float32
+
+
+def _check_forward(name, v, g_r, g_i, mem_t, n_fft):
     """(b, d, cols) after checking a forward kernel's arguments."""
     b, _, d = v.shape
     cols = g_r.shape[-1]
     fh = n_fft // 2 + 1
-    check("v", v, (b, n_fft, d))
+    check("v", v, (b, n_fft, d), _act(v))
+    check_rows(name, v=v)
     check("g_r", g_r, (b, fh, cols))
     check("g_i", g_i, (b, fh, cols))
     if mem_t is not None:
@@ -376,16 +396,18 @@ def direct_mix(v, g_r, g_i, mem_t: Optional[torch.Tensor],
 def _launch_direct(v, g_r, g_i, mem_t, n_fft: int, plan):
     """y from one launch of #1 with ``plan`` (cs, np, threads); the wrapper
     passes its own plan, chip_smoke.py's sweep others."""
-    b, d, cols = _check_forward(v, g_r, g_i, mem_t, n_fft)
+    b, d, cols = _check_forward("direct_mix", v, g_r, g_i, mem_t, n_fft)
     cs, np_, threads = plan
     o = direct_split(n_fft, cs)
+    bf16 = v.dtype == torch.bfloat16
     y = torch.empty_like(v)
-    launch(LAUNCHES, "direct_mix", v.device,
+    launch(LAUNCHES, "direct_mix_bf16" if bf16 else "direct_mix", v.device,
            v.data_ptr(), g_r.data_ptr(), g_i.data_ptr(),
            None if mem_t is None else mem_t.data_ptr(),
            twiddles(n_fft, v.device).data_ptr(),
            stage_twiddles(n_fft // (cs * o), v.device).data_ptr(),
-           y.data_ptr(), b, n_fft, d, cols, o, cs, np_, threads)
+           y.data_ptr(), b, n_fft, d, cols, o, cs, np_, threads, int(bf16),
+           entry="direct_mix")
     return y
 
 
@@ -412,23 +434,26 @@ def _launch_bwd(v, g_r, g_i, ybar, n_fft: int, plan):
     b, _, d = v.shape
     cols = g_r.shape[-1]
     fh = n_fft // 2 + 1
-    check("v", v, (b, n_fft, d))
+    check("v", v, (b, n_fft, d), _act(v))
     check("g_r", g_r, (b, fh, cols))
     check("g_i", g_i, (b, fh, cols))
-    check("ybar", ybar, (b, n_fft, d))
+    check("ybar", ybar, (b, n_fft, d), _act(v))
+    check_rows("direct_mix_bwd", v=v, ybar=ybar)
     np_, threads = plan
     o = direct_split(n_fft)
+    bf16 = v.dtype == torch.bfloat16
     parts = bwd_parts(b, n_fft, d, cols, np_, v.device)
     vbar = torch.empty_like(v)
     gbr, gbi = torch.empty_like(g_r), torch.empty_like(g_i)
-    launch(LAUNCHES, "direct_mix_bwd", v.device,
+    launch(LAUNCHES, "direct_mix_bwd_bf16" if bf16 else "direct_mix_bwd",
+           v.device,
            v.data_ptr(), ybar.data_ptr(), g_r.data_ptr(), g_i.data_ptr(),
            twiddles(n_fft, v.device).data_ptr(),
            stage_twiddles(n_fft // o, v.device).data_ptr(), vbar.data_ptr(),
            gbr.data_ptr(), gbi.data_ptr(),
            None if parts is None else parts.data_ptr(),
            b, n_fft, d, cols, o, np_, threads,
-           bwd_cluster(d // cols, np_))
+           bwd_cluster(d // cols, np_), int(bf16), entry="direct_mix_bwd")
     return vbar, gbr, gbi
 
 
@@ -456,16 +481,18 @@ def _launch_long(name: str, v, g_r, g_i, mem_t, n_fft: int, plan):
     threads); the wrappers pass their own plans, chip_smoke.py's sweep
     others.  The kernel's per-stage twiddles are those of its P-point
     transforms, P = n_fft / (cs O), O the odd part of n_fft."""
-    b, d, cols = _check_forward(v, g_r, g_i, mem_t, n_fft)
+    b, d, cols = _check_forward(name, v, g_r, g_i, mem_t, n_fft)
     cs, np_, threads = plan
     odd = n_fft // (n_fft & -n_fft)
+    bf16 = v.dtype == torch.bfloat16
     y = torch.empty_like(v)
-    launch(LAUNCHES, name, v.device,
+    launch(LAUNCHES, name + "_bf16" if bf16 else name, v.device,
            v.data_ptr(), g_r.data_ptr(), g_i.data_ptr(),
            None if mem_t is None else mem_t.data_ptr(),
            twiddles(n_fft, v.device).data_ptr(),
            stage_twiddles(n_fft // (cs * odd), v.device).data_ptr(),
-           y.data_ptr(), b, n_fft, d, cols, cs, np_, threads)
+           y.data_ptr(), b, n_fft, d, cols, cs, np_, threads, int(bf16),
+           entry=name)
     return y
 
 
@@ -519,11 +546,13 @@ _FORWARD = {"direct_mix": direct_mix, "staged_mix": staged_mix,
 
 def _unfused_vjp(v, g_r, g_i, ybar, n_fft: int):
     """(vbar, gbar_r, gbar_i): autograd through ``unfused_mix``, JAX's
-    ``jax.vjp`` of ``_unfused_mix`` (pallas_fft.py:869-872)."""
+    ``jax.vjp`` of ``_unfused_mix`` (pallas_fft.py:869-872).  bf16 v and
+    ybar go through cuFFT in fp32 (``fftops`` casts, as the layer's wide
+    branch does); vbar comes back in v's dtype."""
     with torch.enable_grad():
         xs = [t.detach().requires_grad_() for t in (v, g_r, g_i)]
         y = unfused_mix(xs[0], torch.complex(xs[1], xs[2]), None, n_fft)
-        return torch.autograd.grad(y, xs, ybar)
+        return torch.autograd.grad(y, xs, ybar.to(y.dtype))
 
 
 class _SpectralMix(torch.autograd.Function):
@@ -547,8 +576,9 @@ class _SpectralMix(torch.autograd.Function):
             vbar, gbr, gbi = direct_mix_bwd(v, g_r, g_i, ybar, ctx.n_fft)
         else:
             vbar, gbr, gbi = _unfused_vjp(v, g_r, g_i, ybar, ctx.n_fft)
-        # mem_t is added on the store: its cotangent is ybar summed over B
-        mbar = ybar.sum(0) if ctx.needs_input_grad[3] else None
+        # mem_t is added on the store: its cotangent is ybar summed over B,
+        # in mem_t's fp32
+        mbar = ybar.float().sum(0) if ctx.needs_input_grad[3] else None
         return vbar, gbr, gbi, mbar, None
 
 
@@ -560,11 +590,10 @@ def spectral_mix(v, g_r, g_i, mem_t: Optional[torch.Tensor],
     above; mem_t's cotangent is ybar summed over the batch, and the block's
     frozen memory asks for none.  See ``direct_mix`` for the shapes.
 
-    bf16 v (the fast mode): no mix kernel has a bf16 variant yet, so on the
-    card the call raises at once, naming the kernel and the ROADMAP item;
-    on the CPU the plain versions take v in fp32 (they compute in fp32)."""
-    if v.dtype != torch.float32:
-        if v.device.type == "cuda":
-            raise no_bf16_variant(f"spectral_mix ({mix_kernel(n_fft)})")
-        v = v.float()
+    bf16 v (the fast mode) gives bf16 y and a bf16 cotangent of v, the
+    gate's and mem_t's in fp32, on both devices: on the card through the
+    kernels' bf16 instances (and cuFFT above n_fft 2048's backward)."""
+    if v.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"spectral_mix: float32 or bfloat16 v, got "
+                        f"{v.dtype}")
     return _SpectralMix.apply(v, g_r, g_i, mem_t, n_fft)

@@ -16,8 +16,9 @@ serves both devices.  ``BRANCH_CALLS`` counts the branch each call took.
 
 In the bf16 fast mode v is bf16 and the output takes its dtype, as JAX's
 (causal_seg.py:139, :160, :187, :202).  The gate and K's spectra stay fp32;
-the fused branches hand bf16 v to the kernels (#7's bf16 instance on the
-card), the others take the segment spectra of v upcast to fp32
+the fused branches hand bf16 v to the kernels (the bf16 instances of #6
+and #7 on the card, and of #10 and #11 in the backward), the others take
+the segment spectra of v upcast to fp32
 (``kc.segment_spectra``; JAX's ``v.astype(jnp.float32)`` at :173), since
 ``torch.fft`` takes no bf16.
 """

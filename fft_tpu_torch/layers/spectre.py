@@ -32,9 +32,10 @@ parameters stay fp32.  The JAX package's ``precision_for`` (matfft.py
 :39-48) only picks the TPU's MXU passes and has no counterpart here: the
 transforms run in fp32 (``torch.fft`` takes no bf16, so ``fftops``
 upcasts) and the kernels compute in fp32 whatever their input.  On the
-card the causal mix's long-chunk kernels (#7, #11) have bf16 instances;
-a bf16 mix that would reach a kernel without one (#1-#4, #6, #10) raises
-naming the ROADMAP item that ports it.
+card every mix kernel the layers reach has a bf16 instance that reads and
+writes the activations in bf16 (#1-#4 on the fused branch, #6, #7, #10 and
+#11 on the causal one); the direct #10 alone has none and raises, naming
+its ROADMAP line.
 """
 
 from __future__ import annotations

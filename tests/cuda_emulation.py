@@ -9,7 +9,8 @@ Supported: __global__/__device__ functions, dim3 launches written as
 ``kernel<<<grid, block, smem, stream>>>(...)`` or as ``cudaLaunchKernelEx``
 with a ``cudaLaunchConfig_t`` (its cluster dimension attribute included),
 ``extern __shared__`` arrays, float2, float4, cuda_bf16.h's
-``__nv_bfloat16`` and ``__nv_bfloat162`` with ``__bfloat1622float2`` and
+``__nv_bfloat16`` and ``__nv_bfloat162`` with ``__bfloat162float``,
+``__bfloat1622float2`` and
 ``__floats2bfloat162_rn`` (round to nearest even), __noinline__, __brev,
 __clz,
 __syncthreads, cudaFuncSetAttribute, cudaGetLastError and the occupancy
@@ -57,7 +58,7 @@ inline float2 make_float2(float a, float b) { return float2{a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) {
   return float4{a, b, c, d};
 }
-// cuda_bf16.h's storage types and the two conversions the kernels use
+// cuda_bf16.h's storage types and the three conversions the kernels use
 struct __nv_bfloat16 { unsigned short raw; };
 struct __nv_bfloat162 { __nv_bfloat16 x, y; };
 inline float emu_bf16_float(__nv_bfloat16 h) {
@@ -74,6 +75,7 @@ inline __nv_bfloat16 emu_float_bf16(float f) {
   u += 0x7fffu + ((u >> 16) & 1u);              // to nearest, ties to even
   return __nv_bfloat16{(unsigned short)(u >> 16)};
 }
+inline float __bfloat162float(__nv_bfloat16 h) { return emu_bf16_float(h); }
 inline float2 __bfloat1622float2(__nv_bfloat162 h) {
   return float2{emu_bf16_float(h.x), emu_bf16_float(h.y)};
 }

@@ -35,6 +35,7 @@ from fft_tpu_torch import cli
 from fft_tpu_torch.config import SpectreConfig
 from fft_tpu_torch.convert import to_jax_params
 from fft_tpu_torch.kernels import causal as kc
+from fft_tpu_torch.kernels import spectral_mix as sm
 from fft_tpu_torch.kernels.common import BF16_QUEUED
 from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS
 from fft_tpu_torch.models import lm as tlm
@@ -129,27 +130,73 @@ def test_bf16_autograd_keeps_the_primal_dtypes():
         assert torch.equal(x.grad, w)
 
 
-def test_bf16_dispatch_takes_the_bf16_instances_or_names_the_roadmap():
-    """On the card bf16 activations reach #7's and #11's bf16 instances,
-    and raise at once where #6 or #10 would take the shape (no bf16 variant
-    yet), naming the ROADMAP item; fp32 keeps its kernels."""
+def test_bf16_dispatch_takes_the_bf16_instances_or_names_the_roadmap(
+        monkeypatch):
+    """On the card bf16 activations reach the bf16 instances of #6 (its FFT
+    and its direct kernel), of #10's FFT kernel and of #7 and #11; only the
+    direct #10 raises, at once, naming its ROADMAP line; fp32 keeps its
+    kernels."""
     bf16, f32 = torch.bfloat16, torch.float32
-    for base, short in (("fused_causal_mix", "#6"),
-                        ("fused_causal_mix_bwd", "#10")):
-        assert kc._mix_kernel(base, 65536, 2048, 1024, 64, bf16) \
-            == base + "_v3"
-        assert kc._mix_kernel(base, 32768, 2048, 1024, 64, f32) \
-            == base + "_v3"
-        # the _v3 launch runs (and counts) its bf16 instance for bf16 v
-        assert kc._long_act(base + "_v3", torch.empty(1, dtype=bf16))
-        assert not kc._long_act(base + "_v3", torch.empty(1, dtype=f32))
-        assert not kc._long_act(base, torch.empty(1, dtype=bf16))
-        assert kc._mix_kernel(base, 2048, 128, 512, 32, f32) == base
-        with pytest.raises(NotImplementedError, match=short) as e:
-            kc._mix_kernel(base, 2048, 128, 512, 32, bf16)
-        assert BF16_QUEUED in str(e.value) and "ROADMAP" in str(e.value)
+    for base in ("fused_causal_mix", "fused_causal_mix_bwd"):
+        for dt in (bf16, f32):
+            # the 350M's long chunks and the tiny LM's chunk 128
+            assert kc._mix_kernel(base, 65536, 2048, 1024, 64, dt) \
+                == base + "_v3"
+            assert kc._mix_kernel(base, 2048, 128, 512, 32, dt) == base
+        # each launch runs (and counts) its bf16 instance for bf16 v
+        for name in (base, base + "_v3"):
+            assert kc._act_bf16(name, torch.empty(1, dtype=bf16))
+            assert not kc._act_bf16(name, torch.empty(1, dtype=f32))
         with pytest.raises(TypeError):
             kc._mix_kernel(base, 32768, 2048, 1024, 64, torch.float16)
+    # a 350M prompt of 600 tokens: chunk 600, 2C = 1200 = 16 * 75 takes no
+    # FFT plan, so the direct kernels take it
+    assert kc._split_odd(1200) is None
+    assert kc._mix_kernel("fused_causal_mix", 600, 600, 1024, 64, bf16) \
+        == "fused_causal_mix_direct"
+    assert kc._act_bf16("fused_causal_mix_direct",
+                        torch.empty(1, dtype=bf16))
+    assert kc._mix_kernel("fused_causal_mix_bwd", 600, 600, 1024, 64, f32) \
+        == "fused_causal_mix_bwd_direct"
+    with pytest.raises(NotImplementedError, match="#10") as e:
+        kc._mix_kernel("fused_causal_mix_bwd", 600, 600, 1024, 64, bf16)
+    assert BF16_QUEUED in str(e.value) and "ROADMAP" in str(e.value)
+    assert not kc._act_bf16("fused_causal_mix_bwd_direct",
+                            torch.empty(1, dtype=bf16))
+    # the wrappers as they run on the card (on_cpu false), up to the launch,
+    # which is recorded instead: the kernel each call reaches and its
+    # bf16 flag
+    launched = []
+
+    def fake_launch(counts, name, device, *args, entry=None):
+        launched.append((name, args[-1]))
+
+    for mod in (kc, sm):
+        monkeypatch.setattr(mod, "on_cpu", lambda *t: False)
+        monkeypatch.setattr(mod, "launch", fake_launch)
+    v = torch.zeros(1, 600, 1024, dtype=bf16)
+    k = torch.zeros(1, 1, 601, 64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kc.fused_causal_mix_bwd_direct(v, k, k, v, 600, 64)
+    kc.fused_causal_mix_direct(v, k, k, 600, 64)
+    assert launched == [("fused_causal_mix_direct_bf16", 1)]
+    # spectral_mix takes bf16 on every kernel of mix_kernel, forward and
+    # (up to n_fft 2048, #2) backward; y and vbar bf16, the gate's fp32
+    for n, names in ((1024, ["direct_mix_bf16", "direct_mix_bwd_bf16"]),
+                     (4096, ["staged_mix_bf16"]),
+                     (16384, ["twopass_mix_bf16"])):
+        monkeypatch.setattr(sm, "TWOPASS_ENABLE", n == 16384)
+        launched.clear()
+        fh = n // 2 + 1
+        xs = [torch.zeros(1, n, 128, dtype=bf16, requires_grad=True),
+              torch.zeros(1, fh, 8, requires_grad=True),
+              torch.zeros(1, fh, 8, requires_grad=True)]
+        y = sm.spectral_mix(*xs, torch.zeros(n, 128), n)
+        assert y.dtype == bf16
+        if n == 1024:
+            y.backward(torch.zeros_like(y))
+            assert [x.grad.dtype for x in xs] == [bf16, f32, f32]
+        assert launched == [(name, 1) for name in names]
 
 
 # ---------------------------------------------------------------------------

@@ -67,7 +67,14 @@ def _ptr(t):
 
 
 def _rel(a, b) -> float:
+    if a.dtype == torch.bfloat16:
+        a, b = a.float(), b.float()
     return float((a - b).abs().max() / b.abs().max())
+
+
+def _bf16(v) -> int:
+    """The C entries' bf16 flag for activations v."""
+    return int(v.dtype == torch.bfloat16)
 
 
 def _emulated_direct(lib, v, gr, gi, mem_t, n, plan):
@@ -81,7 +88,7 @@ def _emulated_direct(lib, v, gr, gi, mem_t, n, plan):
         _ptr(v), _ptr(gr), _ptr(gi), _ptr(mem_t),
         _ptr(torch.from_numpy(twiddles_np(n))),
         _ptr(torch.from_numpy(stage_twiddles_np(n // (cs * o)))), _ptr(y),
-        b, n, d, gr.shape[-1], o, cs, np_, threads, None) == 0
+        b, n, d, gr.shape[-1], o, cs, np_, threads, _bf16(v), None) == 0
     return y
 
 
@@ -100,7 +107,7 @@ def _emulated_bwd(lib, v, gr, gi, ybar, n, plan):
         _ptr(torch.from_numpy(twiddles_np(n))),
         _ptr(torch.from_numpy(stage_twiddles_np(n // o))),
         *(_ptr(t) for t in out), _ptr(parts), b, n, d, cols, o, np_, threads,
-        sm.bwd_cluster(d // cols, np_), None) == 0
+        sm.bwd_cluster(d // cols, np_), _bf16(v), None) == 0
     return out
 
 
@@ -220,7 +227,8 @@ def _emulated_long_mix(fn, v, gr, gi, mem_t, n, plan):
     assert fn(_ptr(v), _ptr(gr), _ptr(gi), _ptr(mem_t),
               _ptr(torch.from_numpy(twiddles_np(n))),
               _ptr(torch.from_numpy(stage_twiddles_np(n // (cs * odd)))),
-              _ptr(y), b, n, d, gr.shape[-1], cs, np_, threads, None) == 0
+              _ptr(y), b, n, d, gr.shape[-1], cs, np_, threads, _bf16(v),
+              None) == 0
     return y
 
 
@@ -637,7 +645,7 @@ def test_emulated_direct_mix_runs_the_banded_body(causal_lib, b, nc, chunk,
     vfr, vfi = torch.empty(b, nc, f2, d), torch.empty(b, nc, f2, d)
     assert causal_lib.fft_fused_causal_mix_direct(
         _ptr(v), _ptr(kr), _ptr(ki), _ptr(vfr), _ptr(vfi), _ptr(y),
-        ctypes.addressof(params), None) == 0
+        ctypes.addressof(params), 0, None) == 0
     assert _rel(y, kc.fused_causal_mix_ref(v, kr, ki, chunk, cols)) < TOL
 
 
@@ -813,7 +821,7 @@ def _emulated_mix(lib, v, kr, ki, chunk, cols, np_, gs):
     y = torch.empty_like(v)
     assert lib.fft_fused_causal_mix(
         _ptr(v), _ptr(kr), _ptr(ki), _ptr(_tw(chunk)), _ptr(y), b,
-        n // chunk, chunk, d, cols, np_, gs, None) == 0
+        n // chunk, chunk, d, cols, np_, gs, _bf16(v), None) == 0
     return y
 
 
@@ -877,7 +885,7 @@ def _emulated_bwd_fft(lib, v, kr, ki, ybar, chunk, cols, np_, gs, bt):
     assert lib.fft_fused_causal_mix_bwd(
         _ptr(v), _ptr(kr), _ptr(ki), _ptr(ybar), _ptr(_tw(chunk)),
         *(_ptr(t) for t in scratch), *(_ptr(t) for t in out), b, nc, chunk,
-        d, cols, np_, gs, bt, None) == 0
+        d, cols, np_, gs, bt, _bf16(v), None) == 0
     return out
 
 
@@ -934,3 +942,153 @@ def test_emulated_fft_bwd_with_a_channel_dropped_fails(tmp_path_factory):
     want = kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk, cols)
     assert _rel(got[0], want[0]) < TOL
     assert _rel(got[1], want[1]) > TOL and _rel(got[2], want[2]) > TOL
+
+
+# ---------------------------------------------------------------------------
+# the bf16 instances of #6, #10, #1-#4 (ROADMAP item 3b)
+# ---------------------------------------------------------------------------
+
+def _bf16_like(got, want) -> bool:
+    """A bf16 output held to its plain version on the same bf16 inputs:
+    within BF16_TOL max-wise, and equal to it element for element but for
+    at most 1% of the elements (the kernel rounds its fp32 result to
+    nearest even as the plain version's .to(torch.bfloat16) does; the two
+    fp32 results, summed in other orders, straddle a rounding midpoint
+    rarely).  fp32 outputs within TOL."""
+    assert got.dtype == want.dtype
+    if got.dtype != torch.bfloat16:
+        return _rel(got, want) < TOL
+    differ = float((got != want).float().mean())
+    return _rel(got, want) < BF16_TOL and differ <= 1e-2
+
+
+# (b, nc, chunk, d, cols, np, gs) of #6's FFT kernel in bf16: the tiny
+# LM's chunk at nc 16 on the plan's tile, nc 3 (a partial last pass), and
+# a 1-pair tile (a 4-byte row)
+MIX_FFT_BF16 = [(1, 16, 128, 16, 1, 4, 4), (1, 3, 128, 32, 4, 4, 3),
+                (1, 5, 64, 8, 2, 1, 2)]
+
+
+@pytest.mark.parametrize("b,nc,chunk,d,cols,np_,gs", MIX_FFT_BF16)
+def test_emulated_fused_causal_mix_fft_bf16(fft_lib, b, nc, chunk, d, cols,
+                                            np_, gs):
+    v, kr, ki, _ = _long_inputs(b, nc, chunk, d, cols)
+    v = v.bfloat16()
+    got = _emulated_mix(fft_lib, v, kr, ki, chunk, cols, np_, gs)
+    assert _bf16_like(got, kc.fused_causal_mix_ref(v, kr, ki, chunk, cols))
+
+
+# (b, nc, chunk, d, cols, np, gs, bt) of #10's FFT kernels in bf16: the
+# tiny LM's chunk at nc 16, nc 3 with 2-channel groups on a 1-pair tile
+BWD_FFT_BF16 = [(1, 16, 128, 16, 1, 4, 4, 256), (1, 3, 64, 64, 2, 1, 2, 512)]
+
+
+@pytest.mark.parametrize("b,nc,chunk,d,cols,np_,gs,bt", BWD_FFT_BF16)
+def test_emulated_fused_causal_mix_bwd_fft_bf16(fft_lib, b, nc, chunk, d,
+                                                cols, np_, gs, bt):
+    """vbar bf16, Kbar fp32 (within TOL: summed in fp32 from the same
+    values)."""
+    v, kr, ki, ybar = _long_inputs(b, nc, chunk, d, cols)
+    v, ybar = v.bfloat16(), ybar.bfloat16()
+    out = _emulated_bwd_fft(fft_lib, v, kr, ki, ybar, chunk, cols, np_, gs,
+                            bt)
+    want = kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk, cols)
+    assert [t.dtype for t in out] == [torch.bfloat16, torch.float32,
+                                      torch.float32]
+    for got, w in zip(out, want):
+        assert _bf16_like(got, w)
+
+
+@pytest.mark.parametrize("b,nc,chunk,d,cols", [(2, 2, 128, 32, 2),
+                                               (1, 3, 129, 32, 4)])
+def test_emulated_direct_mix_bf16_runs_the_banded_body(causal_lib, b, nc,
+                                                       chunk, d, cols):
+    """The direct #6's bf16 instance: segment_rfft_kernel widening bf16 v,
+    banded_fft_kernel rounding y on its store."""
+    g = torch.Generator().manual_seed(chunk + 1)
+    f2 = chunk + 1
+    v = _randn(g, b, nc * chunk, d).bfloat16()
+    kr, ki = (_randn(g, b, nc, f2, nc * cols) for _ in range(2))
+    _, _, np_, threads = kc.banded_fft_plan(chunk)
+    params = kc._banded_params(b, nc, chunk, d, cols, torch.device("cpu"),
+                               (np_, min(threads, 128)))
+    y = torch.empty_like(v)
+    vfr, vfi = torch.empty(b, nc, f2, d), torch.empty(b, nc, f2, d)
+    assert causal_lib.fft_fused_causal_mix_direct(
+        _ptr(v), _ptr(kr), _ptr(ki), _ptr(vfr), _ptr(vfi), _ptr(y),
+        ctypes.addressof(params), 1, None) == 0
+    assert _bf16_like(y, kc.fused_causal_mix_ref(v, kr, ki, chunk, cols))
+
+
+# (b, n_fft, d, cols, memory) of #1 and #2 in bf16 with the wrappers'
+# plans (their bf16 instances: cs 1, np 4): a power of two, an odd factor
+# (768 = 256 * 3) and a direct DFT (n = 2 mod 4), gate groups of 1, 2 and 16
+# channels (#2's clusters of 1 and 2 CTAs, and a group wider than its
+# cluster through the second launch)
+DIRECT_BF16 = [(2, 64, 16, 8, True), (1, 768, 32, 2, False),
+               (1, 200, 8, 8, True), (1, 256, 64, 2, True)]
+
+
+@pytest.mark.parametrize("b,n,d,cols,mem", DIRECT_BF16)
+def test_emulated_direct_mix_bf16(lib, b, n, d, cols, mem):
+    g = torch.Generator().manual_seed(n + d)
+    fh = n // 2 + 1
+    v, ybar = (_randn(g, b, n, d).bfloat16() for _ in range(2))
+    gr, gi = (_randn(g, b, fh, cols) for _ in range(2))
+    mem_t = _randn(g, n, d) if mem else None
+    y = _emulated_direct(lib, v, gr, gi, mem_t, n, sm.direct_plan(n))
+    assert _bf16_like(y, sm.direct_mix_ref(v, gr, gi, mem_t, n))
+    got = _emulated_bwd(lib, v, gr, gi, ybar, n, sm.bwd_plan(n))
+    want = sm.direct_mix_bwd_ref(v, gr, gi, ybar, n)
+    for a, w in zip(got, want):
+        assert _bf16_like(a, w)
+
+
+@pytest.mark.parametrize("name,b,n,cols", [
+    ("staged_mix", 2, 2304, 4), ("staged_mix", 1, 4096, 1),
+    ("twopass_mix", 1, 16384, 4)])
+def test_emulated_long_mix_bf16(staged_lib, twopass_lib, name, b, n, cols):
+    """#3 (an odd factor, 1 CTA of 2 pairs; 4096, a cluster of 2 CTAs of 4
+    pairs) and #4 (a cluster of 8) in bf16 with the wrappers' plans, with
+    memory."""
+    d = 8
+    v, gr, gi, mem_t = _mix_args(b, n, d, cols, True, n + 1)
+    v = v.bfloat16()
+    if name == "staged_mix":
+        fn, plan = staged_lib.fft_staged_mix, sm.staged_plan(n)
+    else:
+        fn, plan = twopass_lib.fft_twopass_mix, sm.TWOPASS_PLAN[n]
+    y = _emulated_long_mix(fn, v, gr, gi, mem_t, n, plan)
+    assert _bf16_like(y, sm.direct_mix_ref(v, gr, gi, mem_t, n))
+
+
+def test_emulated_bf16_store_truncating_fails(tmp_path_factory):
+    """A copy of fft_common.cuh whose bf16 store truncates instead of
+    rounding to nearest even: #6's bf16 instance then disagrees with its
+    plain version (the checks above see the rounding), while its fp32
+    instance does not."""
+    if cuda_emulation.compiler() is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    src = (kb.CSRC_DIR / "fft_common.cuh").read_text()
+    good = "    return __floats2bfloat162_rn(a, b);"
+    assert src.count(good) == 1
+    out = tmp_path_factory.mktemp("broken_bf16")
+    (out / "fft_common.cuh").write_text(src.replace(good, (
+        "    unsigned ua, ub;\n"
+        "    std::memcpy(&ua, &a, 4);\n"
+        "    std::memcpy(&ub, &b, 4);\n"
+        "    return __nv_bfloat162{__nv_bfloat16{(unsigned short)(ua >> 16)},\n"
+        "                          __nv_bfloat16{(unsigned short)(ub >> 16)}};"
+    )))
+    for name in ("causal_fft.cu", "causal_common.cuh"):
+        (out / name).write_text((kb.CSRC_DIR / name).read_text())
+    lib = cuda_emulation.build(out / "causal_fft.cu", out)
+    argtypes, restype = kb._SIGNATURES["fft_fused_causal_mix"]
+    lib.fft_fused_causal_mix.argtypes = argtypes
+    lib.fft_fused_causal_mix.restype = restype
+    v, kr, ki, _ = _long_inputs(1, 3, 64, 8, 2)
+    want = kc.fused_causal_mix_ref(v, kr, ki, 64, 2)
+    assert _bf16_like(_emulated_mix(lib, v, kr, ki, 64, 2, 4, 2), want)
+    vb = v.bfloat16()
+    got = _emulated_mix(lib, vb, kr, ki, 64, 2, 4, 2)
+    assert not _bf16_like(got, kc.fused_causal_mix_ref(vb, kr, ki, 64, 2))

@@ -5,7 +5,8 @@ causal.cu, the long-chunk kernels #9, #7 and #11 (also at nc 16 and 32,
 and #7's and #11's bf16 instances), #5 past chunk 853, the decode kernel
 #12 at both LMs' decode shapes and at the 350M's windows of 32768 and
 65536, the non-causal mix past n_fft 2048: #3 at 2304-8192 and #4 at
-16384-65536, and the bf16 calls that must raise).  Imports no
+16384-65536, the bf16 instances of #6, #10, #1-#4, and the bf16 calls
+that must raise).  Imports no
 JAX, so it runs on a machine without it:
 
     FFT_TPU_REAL=1 python -m pytest tests/test_torch_kernels.py -q
@@ -825,25 +826,116 @@ def test_long_kernels_bf16_instances(dev, b, nc, chunk, d, cols):
 
 
 def test_bf16_refuses_kernels_without_a_bf16_variant(dev):
-    """A bf16 call that would reach #6, #10 or a non-causal mix kernel
-    raises at once, naming the ROADMAP item; so does the tiny LM's
-    train-lm --bf16 on the card."""
-    from fft_tpu_torch import cli
+    """The direct #10 alone has no bf16 instance: a bf16 call that would
+    reach it (a 600-token chunk, whose 2C = 1200 takes no FFT plan)
+    raises at once, naming its ROADMAP line, and so does calling it by
+    name."""
     from fft_tpu_torch.kernels.common import BF16_QUEUED
 
-    v, kr, ki = _mix_inputs_at(dev, 4, 16, 128, 512, 32, 0)
-    for fn in (lambda: kc.fused_causal_mix(v.bfloat16(), kr, ki, 128, 32),
-               lambda: kc.fused_causal_mix_bwd(v.bfloat16(), kr, ki,
-                                               v.bfloat16(), 128, 32),
-               lambda: sm.spectral_mix(
-                   torch.zeros((2, 1024, 512), device=dev).bfloat16(),
-                   *(torch.zeros((2, 513, 32), device=dev),) * 2, None,
-                   1024)):
+    v, kr, ki = _mix_inputs_at(dev, 1, 1, 600, 1024, 64, 0)
+    vb = v.bfloat16()
+    for fn in (lambda: kc.fused_causal_mix_bwd(vb, kr, ki, vb, 600, 64),
+               lambda: kc.fused_causal_mix_bwd_direct(vb, kr, ki, vb, 600,
+                                                      64)):
         with pytest.raises(NotImplementedError, match=BF16_QUEUED):
             fn()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["train-lm", "--bf16", "--seq", "256", "--batch", "1",
-                  "--steps", "1"])
+
+
+def _bf16_check(got, want, names, before):
+    """Each output against the plain version's (bf16 ones within BF16_TOL,
+    fp32 ones within TOL), the dtypes equal, each of ``names`` launched
+    once and its fp32 instance never."""
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype
+        tol = BF16_TOL if a.dtype == torch.bfloat16 else TOL
+        assert _rel(a.float(), w.float()) < tol
+    launches = {**kc.LAUNCHES, **sm.LAUNCHES}
+    for name in names:
+        assert launches[name] == before[name] + 1, name
+        fp32 = name.removesuffix("_bf16")
+        assert launches[fp32] == before[fp32], fp32
+
+
+@pytest.mark.parametrize("b,nc,chunk,d,cols", [
+    (4, 16, 128, 512, 32), (1, 1, 512, 1024, 64), (2, 3, 128, 64, 8)])
+def test_tiny_causal_kernels_bf16_instances(dev, b, nc, chunk, d, cols):
+    """#6's and #10's FFT kernels in bf16 (the tiny LM's shape, a 350M
+    prompt of 512 tokens, a narrow one): bf16 v and ybar in, y and vbar
+    bf16 and Kbar fp32 out."""
+    v, kr, ki = _mix_inputs_at(dev, b, nc, chunk, d, cols, chunk + nc)
+    v = v.bfloat16()
+    ybar = torch.randn(v.shape, generator=torch.Generator().manual_seed(
+        nc)).to(dev).bfloat16()
+    before = {**kc.LAUNCHES, **sm.LAUNCHES}
+    got = (kc.fused_causal_mix(v, kr, ki, chunk, cols),
+           *kc.fused_causal_mix_bwd(v, kr, ki, ybar, chunk, cols))
+    want = (kc.fused_causal_mix_ref(v, kr, ki, chunk, cols),
+            *kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk, cols))
+    _bf16_check(got, want, ("fused_causal_mix_bf16",
+                            "fused_causal_mix_bwd_bf16"), before)
+
+
+@pytest.mark.parametrize("nc,chunk", [(1, 600), (2, 129)])
+def test_direct_causal_mix_bf16_instance(dev, nc, chunk):
+    """The direct #6 in bf16 (a 350M prompt of 600 tokens, and nc 2 at
+    chunk 129)."""
+    v, kr, ki = _mix_inputs_at(dev, 1, nc, chunk, 1024, 64, chunk)
+    v = v.bfloat16()
+    assert kc._mix_kernel("fused_causal_mix", nc * chunk, chunk, 1024, 64,
+                          torch.bfloat16) == "fused_causal_mix_direct"
+    before = {**kc.LAUNCHES, **sm.LAUNCHES}
+    got = kc.fused_causal_mix(v, kr, ki, chunk, 64)
+    _bf16_check((got,), (kc.fused_causal_mix_ref(v, kr, ki, chunk, 64),),
+                ("fused_causal_mix_direct_bf16",), before)
+
+
+@pytest.mark.parametrize("b,n,mem", [(8, 1024, True), (2, 768, False),
+                                     (2, 200, True)])
+def test_direct_mix_bf16_instances(dev, b, n, mem):
+    """#1 and #2 in bf16: config 1's shape, an odd factor (768 = 256 * 3)
+    and a direct DFT (200); y and vbar bf16, the gate cotangent fp32."""
+    g = torch.Generator().manual_seed(n)
+    d, cols, fh = 512, 32, n // 2 + 1
+    v, ybar = (_randn(g, dev, b, n, d).bfloat16() for _ in range(2))
+    gr, gi = _randn(g, dev, b, fh, cols), _randn(g, dev, b, fh, cols)
+    mem_t = _randn(g, dev, n, d) if mem else None
+    before = {**kc.LAUNCHES, **sm.LAUNCHES}
+    got = (sm.direct_mix(v, gr, gi, mem_t, n),
+           *sm.direct_mix_bwd(v, gr, gi, ybar, n))
+    want = (sm.direct_mix_ref(v, gr, gi, mem_t, n),
+            *sm.direct_mix_bwd_ref(v, gr, gi, ybar, n))
+    _bf16_check(got, want, ("direct_mix_bf16", "direct_mix_bwd_bf16"),
+                before)
+
+
+@pytest.mark.parametrize("name,b,n", [
+    ("staged_mix", 2, 4096), ("staged_mix", 1, 8192),
+    ("staged_mix", 1, 2304), ("twopass_mix", 1, 16384),
+    ("twopass_mix", 1, 65536)])
+def test_long_mix_bf16_instances(dev, name, b, n):
+    """#3 and #4 in bf16 at their plans' lengths (and 2304, an odd
+    factor), with memory."""
+    g = torch.Generator().manual_seed(n)
+    d, cols, fh = 512, 32, n // 2 + 1
+    v = _randn(g, dev, b, n, d).bfloat16()
+    gr, gi = _randn(g, dev, b, fh, cols), _randn(g, dev, b, fh, cols)
+    mem_t = _randn(g, dev, n, d)
+    before = {**kc.LAUNCHES, **sm.LAUNCHES}
+    got = getattr(sm, name)(v, gr, gi, mem_t, n)
+    _bf16_check((got,), (sm.direct_mix_ref(v, gr, gi, mem_t, n),),
+                (name + "_bf16",), before)
+
+
+def test_bf16_refuses_rows_off_alignment(dev):
+    """The bf16 instances move whole rows of channel pairs: a bf16 v that
+    does not start on 16 bytes is refused with a clear error."""
+    g = torch.Generator().manual_seed(1)
+    v = _randn(g, dev, 1, 1024 * 512 + 1).bfloat16()[:, 1:].view(
+        1, 1024, 512)
+    gr = _randn(g, dev, 1, 513, 32)
+    with pytest.raises(ValueError, match="16-byte"):
+        sm.direct_mix(v, gr, gr, None, 1024)
 
 
 @pytest.mark.parametrize("n", [32768, 65536])
