@@ -27,11 +27,11 @@ Phases, in order; any failure raises and the exit code is nonzero:
              output of the backward on its own), with the median ms of both
              over CUDA events (ms: back-to-back calls, so a call the host
              launches more slowly than the card runs it counts the host's
-             time) and the device-busy ms of both from torch.profiler
-             (device_ms, plain_device_ms), the median ms of one PyTorch
-             composition of the same function where there is one
-             (library_ms, and its device-busy ms, library_device_ms;
-             cuFFT), and
+             time) and the device-busy ms from torch.profiler
+             (device_ms; plain_device_ms in a kernel's main case), the
+             median ms of one PyTorch composition of the same function
+             where there is one (library_ms, and its device-busy ms in the
+             main case, library_device_ms; cuFFT), and
              the least time the card could take (bound_ms: bytes over 3.35
              TB/s or FFT-equivalent operations over 67 TFLOP/s fp32).
              direct_mix (#1) and direct_mix_bwd (#2) also at every n_fft
@@ -79,7 +79,12 @@ Phases, in order; any failure raises and the exit code is nonzero:
              bf16 inputs (1e-2 on bf16 outputs, 2e-5 on fp32 ones), each
              timed beside its fp32 instance on the same values (fp32_ms,
              fp32_device_ms), the bound with v, ybar, y and vbar at 2
-             bytes.
+             bytes.  The direct #6 (segment FFTs, csrc/segment_fft.cuh,
+             then #5's body) at the 350M's prompts (B=1, d=1024, 64
+             columns: nc=1 C=600, its main case, and 853; nc=2 C=600)
+             beside its cuFFT composition (lib_direct6), at every chunk
+             128-853 that has no FFT #6 plan at that width, parity only
+             (kernels_direct6_sweep), and the direct #10 at nc=2 C=600.
 3. score     lm_apply on 4 x 2048 tokens; logits within rel_err 1e-4 of
              the same model and weights on the CPU (where the kernels'
              plain versions run); tokens/s on the card, and 3 calls under
@@ -209,12 +214,13 @@ Phases, in order; any failure raises and the exit code is nonzero:
              with restore_checkpoint and lm_generate on the same encoded
              prompt, fused_decode_mix launched once a layer per decode step
              and banded_inverse once a layer at the prompt.
-   8d.       (launch counts of its own) the 350M in bf16 at full depth:
-             prefills of 512 and 600 tokens (chunk = length, nc = 1: #6's
-             FFT kernel's bf16 instance at 512, its direct kernel's at
-             600, each once a layer a call), logits within 2e-2 of the
-             same prefill with #6's plain version on the card, wall ms and
-             one call profiled.
+   8d.       (launch counts of its own) the 350M at full depth, prefills
+             of 512 (bf16), 600 and 853 (bf16 and fp32) and 1500 (bf16)
+             tokens (chunk = length, nc = 1: #6's FFT kernel at 512, its
+             direct kernel at 600 and 853, #5 at 1500, each once a layer
+             a call and no other causal kernel), logits within 2e-2
+             (bf16) or 1e-4 (fp32) of the same prefill with that kernel's
+             plain version on the card, wall ms and one call profiled.
    8c.       (launch counts of their own) 350m_long: SPECTRE-350M at seq
              32768 and 65536 (chunk 2048, nc 16 and 32), fp32 and bf16.
              Parity at 2 layers, full width, 32768 tokens, every run with
@@ -241,9 +247,10 @@ Prints one JSON line per phase, the card's name and power limit as
 nvidia-smi gives them, a JSON line of per-kernel results, and last
 {"ok": true, "device": {...}}.  Without a CUDA device it fails at once.
 
-``tree_compare`` times #5 and the 350M's 1500-token prefill for whichever
-tree's ``fft_tpu_torch`` the process imports; to set two trees side by
-side in one call, run in each tree's root, in turns:
+``tree_compare`` times #5, the direct #6 and the 350M's prefills of 1500
+and 600 tokens for whichever tree's ``fft_tpu_torch`` the process imports;
+to set two trees side by side in one call, run in each tree's root, in
+turns:
 
     python -c 'import importlib.util as u, sys; sys.path.insert(0, "."); \
       s = u.spec_from_file_location("cs", "PATH/chip_smoke.py"); \
@@ -366,14 +373,29 @@ LONG_MIX = {"float32": ("fused_causal_mix_v3", "fused_causal_mix_bwd_v3"),
                          "fused_causal_mix_bwd_v3_bf16")}
 OTHER_MODE = {"float32": "bfloat16", "bfloat16": "float32"}
 # the bf16 paths of item 3b: the tiny LM in bf16 (#8, the bf16 instances
-# of #6 and #10, #5 at the CLI's prompt, #12), the 350M's bf16 prefills
-# of 512 and 600 tokens (the FFT #6 and the direct #6 at nc = 1), the
-# config-1 block in bf16 (#1, #2; #3 at 4096-8192; #4 at 16384-65536)
+# of #6 and #10, #5 at the CLI's prompt, #12), the config-1 block in bf16
+# (#1, #2; #3 at 4096-8192; #4 at 16384-65536)
 TINY_BF16_KERNELS = ("kf_spectra", "fused_causal_mix_bf16",
                      "fused_causal_mix_bwd_bf16", "banded_inverse",
                      "fused_decode_mix")
-SHORT_350M_BF16 = {512: "fused_causal_mix_bf16",
-                   600: "fused_causal_mix_direct_bf16"}
+# the 350M's short prompts (phase 8d, chunk = length, nc = 1): (tokens,
+# mode, the one causal kernel launched once a layer a prefill, the wrapper
+# run by its plain version for the check, the logits' limit against that
+# prefill): the FFT #6 at 512, the direct #6 at 600 and 853 (2C with no FFT
+# plan), #5 at 1500
+SHORT_350M = (
+    (512, "bfloat16", "fused_causal_mix_bf16", "_fused_causal_mix",
+     REL_BF16_LOGITS),
+    (600, "bfloat16", "fused_causal_mix_direct_bf16", "_fused_causal_mix",
+     REL_BF16_LOGITS),
+    (600, "float32", "fused_causal_mix_direct", "_fused_causal_mix",
+     REL_MODEL),
+    (853, "bfloat16", "fused_causal_mix_direct_bf16", "_fused_causal_mix",
+     REL_BF16_LOGITS),
+    (853, "float32", "fused_causal_mix_direct", "_fused_causal_mix",
+     REL_MODEL),
+    (1500, "bfloat16", "banded_inverse", "_banded_inverse",
+     REL_BF16_LOGITS))
 BLOCK_BF16_KERNELS = ("direct_mix_bf16", "direct_mix_bwd_bf16",
                       "staged_mix_bf16", "twopass_mix_bf16")
 # #10's CUDA kernels (causal_fft.cu), by name in the tiny LM's training
@@ -534,7 +556,7 @@ def phase_kernels(kc, sm, kd, dev):
                 lambda v=v, kr=kr, ki=ki: kc.fused_causal_mix_ref(
                     v, kr, ki, chunk, cols),
                 None, (2 * vb + kb, 2 * seg + mac),
-                nc == 16 and name != "fused_causal_mix_v3"))
+                nc == 16 and name == "fused_causal_mix"))
     cases += bwd_cases(kc, randn)
     cases += banded_cases(kc, randn, b, (4, 100), d, cols)
     cases += long_cases(kc, randn)
@@ -548,8 +570,10 @@ def phase_kernels(kc, sm, kd, dev):
     cases += long_mix_cases(sm, randn)
     cases += bf16_causal_cases(kc, randn)
     cases += bf16_mix_cases(sm, randn)
+    cases += direct6_cases(kc, randn)
 
     direct_sweep(sm, randn)
+    direct6_sweep(kc, randn)
     staged_sweep(sm, randn)
     mix_plan_sweep(sm, randn)
     mix_launch_split(sm, randn)
@@ -609,10 +633,13 @@ def run_cases(cases) -> dict:
                     ms=statistics.median([k1, k2]),
                     plain_ms=statistics.median([p1, p2]),
                     device_ms=device_ms(kern),
-                    plain_device_ms=device_ms(plain),
+                    # the profiler's reading of the plain version and the
+                    # library call for a kernel's main case only: the
+                    # others' took ~30 s of the run's 1200
+                    plain_device_ms=device_ms(plain) if main else None,
                     library_ms=(None if lib is None
                                 else median_ms(lib, reps, rounds)),
-                    library_device_ms=(None if lib is None
+                    library_device_ms=(None if lib is None or not main
                                        else device_ms(lib)),
                     bound_ms=bound_ms, bound_by=bound_by, main=main)
         if fp32 is not None:
@@ -1115,6 +1142,109 @@ def banded_cases(kc, randn, b, chunks, d, cols):
     return cases
 
 
+def lib_direct6(v, kfr, kfi, c, cols):
+    """The direct #6 as PyTorch ops (which the port never calls): the
+    windows' torch.fft.rfft of 2C (cuFFT), the banded sum of complex
+    products over the lags on the producer layout, torch.fft.irfft of 2C
+    and rows C..2C-1."""
+    b, n, d = v.shape
+    nc, f2 = n // c, c + 1
+    vs = v.float().view(b, nc, c, d)
+    prev = torch.cat([torch.zeros_like(vs[:, :1]), vs[:, :-1]], 1)
+    vf = torch.fft.rfft(torch.cat([prev, vs], 2), dim=2).view(
+        b, nc, f2, cols, d // cols)
+    kf = torch.complex(kfr, kfi).view(b, nc, f2, nc, cols)  # (b, j, f, c, g)
+    acc = kf[:, 0].permute(0, 2, 1, 3)[..., None] * vf
+    for j in range(1, nc):
+        acc[:, j:] += kf[:, j, :, j:].permute(0, 2, 1, 3)[..., None] * vf[
+            :, :nc - j]
+    return torch.fft.irfft(acc.view(b, nc, f2, d), 2 * c, dim=2)[
+        :, :, c:].reshape(b, n, d)
+
+
+# (B, nc, C, d, cols) of the direct #6 in phase 2, fp32: the 350M's prompt
+# of 600 tokens (the main case; Bluestein at M = 2048), of 853 (M =
+# 4096) and two 600-token chunks (a full window, M = 4096)
+DIRECT6_SHAPES = ((1, 1, 600, 1024, 64), (1, 1, 853, 1024, 64),
+                  (1, 2, 600, 1024, 64))
+
+
+def direct6_cases(kc, randn):
+    """The direct #6 (segment FFTs, then #5's body) at DIRECT6_SHAPES in
+    fp32, each beside the cuFFT composition (library_ms), and the direct
+    #10 at two 600-token chunks (B=1 nc=2 C=600 d=1024, 64 columns), Kbar
+    exactly 0 where c < delta, against their plain versions."""
+    cases = []
+    for b, nc, c, d, cols in DIRECT6_SHAPES:
+        v = randn(b, nc * c, d)
+        kr, ki = (randn(b, nc, c + 1, nc * cols) for _ in range(2))
+        vb, kb, mac, seg = causal_work(b, nc, c, d, cols)
+        cases.append((
+            "fused_causal_mix_direct", f"B={b} nc={nc} C={c} d={d} "
+            f"cols={cols}",
+            lambda v=v, kr=kr, ki=ki, c=c, cols=cols:
+                kc.fused_causal_mix_direct(v, kr, ki, c, cols),
+            lambda v=v, kr=kr, ki=ki, c=c, cols=cols:
+                kc.fused_causal_mix_ref(v, kr, ki, c, cols),
+            lambda v=v, kr=kr, ki=ki, c=c, cols=cols:
+                lib_direct6(v, kr, ki, c, cols),
+            (2 * vb + kb, 2 * seg + mac), (nc, c) == (1, 600)))
+    b, nc, c, d, cols = 1, 2, 600, 1024, 64
+    v, ybar = randn(b, nc * c, d), randn(b, nc * c, d)
+    kr, ki = (randn(b, nc, c + 1, nc * cols) for _ in range(2))
+    vb, kb, mac, seg = causal_work(b, nc, c, d, cols)
+
+    def kern(first=[True]):
+        out = kc.fused_causal_mix_bwd_direct(v, kr, ki, ybar, c, cols)
+        if first[0]:
+            first[0] = False
+            if torch.count_nonzero(out[1].view(b, nc, c + 1, nc, cols)[
+                    :, 1, :, :1]):
+                raise AssertionError("fused_causal_mix_bwd_direct: Kbar "
+                                     "nonzero at c < delta 1")
+        return out
+    cases.append((
+        "fused_causal_mix_bwd_direct", f"B={b} nc={nc} C={c} d={d} "
+        f"cols={cols}", kern,
+        lambda: kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, c, cols), None,
+        (3 * vb + 2 * kb, 3 * seg + 2 * mac), False, dict(reps=3, rounds=3)))
+    return cases
+
+
+def direct6_sweep(kc, randn) -> None:
+    """The direct #6 at every 7th chunk from 128 to 853 where the FFT #6
+    has no plan at the 350M's width (``mix_fft_plan(1, C, 1024, 64)`` is
+    None: the prompts that run the direct #6), and at 853, B=1, nc=1,
+    fp32, against its plain version (REL_KERNEL); untimed.  All 683 such
+    chunks took 54 s of the card's time, past what the run's 1200 s
+    leave (one new cuFFT plan and the plain version's tables a length:
+    PERF.md, Findings)."""
+    d, cols = 1024, 64
+    chunks = [c for c in range(128, 854)
+              if kc.mix_fft_plan(1, c, d, cols) is None]
+    chunks = sorted(set(chunks[::7]) | {chunks[-1]})
+    worst = (0.0, None)
+    # inputs made and errors taken on the card: the plain version's own
+    # tables are most of the host's time a length
+    dev = randn(1).device
+    g = torch.Generator(dev).manual_seed(SEED)
+    for c in chunks:
+        v, kr, ki = (torch.randn(shape, generator=g, device=dev) for shape in
+                     ((1, c, d), (1, 1, c + 1, cols), (1, 1, c + 1, cols)))
+        got = kc.fused_causal_mix_direct(v, kr, ki, c, cols)
+        want = kc.fused_causal_mix_ref(v, kr, ki, c, cols)
+        err = float((got.double() - want.double()).abs().max()
+                    / want.double().abs().max())
+        if not err <= REL_KERNEL:
+            raise AssertionError(f"fused_causal_mix_direct C={c}: rel_err "
+                                 f"{err}")
+        if err >= worst[0]:
+            worst = (err, c)
+    emit(phase="kernels_direct6_sweep", d=d, cols=cols,
+         lengths=len(chunks), first=chunks[0], last=chunks[-1],
+         worst_rel_err=worst[0], worst_chunk=worst[1])
+
+
 # (B, C, d, cols) of banded_plan_sweep: a chunk for each path and tile
 # length (rows 8 to 16384), the 350M's width (d=1024, 64 gate columns) but
 # at the CLI's prompt and C=100, 129 (the tiny LM's width)
@@ -1207,8 +1337,9 @@ def banded_host_split(kc, randn) -> None:
 def banded_launch_split(kc, randn) -> list:
     """#5 at phase 2's shapes (the CLI's prompt, B=4, C=4, d=512, 32
     columns; the 350M's prompts, B=1, d=1024, 64 columns, C 1024, 1499,
-    1500) and the direct #6 at phase 2's (B=4, nc 16, C=128, d=512) and
-    at C=129, nc=3, where the wrappers take it: ms between CUDA events and
+    1500) and the direct #6 at phase 2's (B=4, nc 16, C=128, d=512), at
+    C=129, nc=3, where the wrappers take it, and at DIRECT6_SHAPES (the
+    600-token prompt in bf16 too): ms between CUDA events and
     device ms by CUDA kernel (torch.profiler over 10 calls).  It takes any
     tree's ``kernels.causal``, so one call can time two trees' kernels."""
     from fft_tpu_torch import bench
@@ -1220,13 +1351,16 @@ def banded_launch_split(kc, randn) -> list:
         args = banded_inputs(randn, b, 1, c, d, cols)
         runs.append(("banded_inverse", f"B={b} nc=1 C={c} d={d} cols={cols}",
                      lambda a=args, c=c: kc.banded_inverse(*a, c)))
-    for b, nc, c, d, cols in ((4, 16, 128, 512, 32), (4, 3, 129, 512, 32)):
+    for b, nc, c, d, cols in ((4, 16, 128, 512, 32), (4, 3, 129, 512, 32),
+                              *DIRECT6_SHAPES):
         v = randn(b, nc * c, d)
         kr, ki = (randn(b, nc, c + 1, nc * cols) for _ in range(2))
-        runs.append(("fused_causal_mix_direct",
-                     f"B={b} nc={nc} C={c} d={d} cols={cols}",
-                     lambda v=v, kr=kr, ki=ki, c=c, cols=cols:
-                     kc.fused_causal_mix_direct(v, kr, ki, c, cols)))
+        for vv in (v, v.bfloat16()) if (nc, c) == (1, 600) else (v,):
+            bf = "_bf16" if vv.dtype == torch.bfloat16 else ""
+            runs.append(("fused_causal_mix_direct" + bf,
+                         f"B={b} nc={nc} C={c} d={d} cols={cols}",
+                         lambda v=vv, kr=kr, ki=ki, c=c, cols=cols:
+                         kc.fused_causal_mix_direct(v, kr, ki, c, cols)))
     for name, shape, fn in runs:
         fn()
         torch.cuda.synchronize()
@@ -1366,7 +1500,9 @@ def bf16_causal_cases(kc, randn):
                 v, kr, ki, c, g),
             lambda v=v, kr=kr, ki=ki, c=chunk, g=cols:
                 kc.fused_causal_mix_ref(v, kr, ki, c, g),
-            None, (2 * act + kb, 2 * seg + mac), main,
+            (lambda v=v, kr=kr, ki=ki, c=chunk, g=cols: lib_direct6(
+                v, kr, ki, c, g)) if "direct" in name else None,
+            (2 * act + kb, 2 * seg + mac), main,
             dict(tol=REL_BF16, fp32=lambda v=v32, kr=kr, ki=ki, c=chunk,
                  g=cols: kc.fused_causal_mix(v, kr, ki, c, g))))
     return cases
@@ -2148,16 +2284,19 @@ def prefill_350m(model, x, length: int) -> dict:
     del lg
     ms = wall_ms(lambda: lm_prefill(model, prompt), rounds=3)
     prof = bench._profile(lambda: lm_prefill(model, prompt),
-                          torch.cuda.synchronize, 1, ("banded_fft_kernel",
-                                                      "banded_inverse"))
+                          torch.cuda.synchronize, 1,
+                          ("banded_fft_kernel", "banded_inverse",
+                           "segment_fft_kernel", "segment_rfft_kernel"))
     return dict(ms=ms, profile=prof, calls=1 + 1 + 3 + 1)
 
 
 def tree_compare() -> None:
-    """#5's side of a comparison of two trees in one call: run from a
-    process whose ``fft_tpu_torch`` is the tree to time (this file loaded
-    by its path), it emits banded_launch_split and the full-depth 350M's
-    1500-token prefill (prefill_350m) for that tree."""
+    """One tree's side of a comparison of two trees in one call: run from
+    a process whose ``fft_tpu_torch`` is the tree to time (this file
+    loaded by its path), it emits banded_launch_split (#5 and the direct
+    #6 by CUDA kernel) and the full-depth 350M's prefills (prefill_350m)
+    of 1500 tokens in fp32 (#5) and of 600 tokens in bf16 and fp32 (the
+    direct #6) for that tree."""
     from fft_tpu_torch.kernels import causal as kc
     from fft_tpu_torch.models.lm import lm_init, spectre_350m_config
 
@@ -2170,13 +2309,18 @@ def tree_compare() -> None:
 
     banded_launch_split(kc, randn)
     cfg = spectre_350m_config()
-    model = lm_init(cfg, torch.Generator().manual_seed(SEED), dev)
     x = torch.randint(0, cfg.vocab_size, (1, 1500),
                       generator=torch.Generator().manual_seed(SEED + 4)
                       ).to(dev)
-    res = prefill_350m(model, x, 1500)
-    emit(phase="tree_compare_prefill_1500", tree=kc.__file__,
-         ms=res["ms"], profile=res["profile"])
+    for mode, c, lengths in (("float32", cfg, (1500, 600)),
+                             ("bfloat16", bf16_config(cfg), (600,))):
+        model = lm_init(c, torch.Generator().manual_seed(SEED), dev)
+        with torch.no_grad():
+            for length in lengths:
+                res = prefill_350m(model, x, length)
+                emit(phase=f"tree_compare_prefill_{length}", mode=mode,
+                     tree=kc.__file__, ms=res["ms"], profile=res["profile"])
+        del model
 
 
 def phase_350m(dev, kd, reset_launches, launches):
@@ -2705,51 +2849,60 @@ def phase_tiny_bf16(dev) -> dict:
     return train
 
 
-def phase_350m_short_bf16(dev, kc) -> None:
-    """SPECTRE-350M in bf16 at full depth (24 layers, d=1024): prefills of
-    512 and 600 tokens (chunk = length, nc = 1: the FFT #6's bf16 instance
-    at 512, where 2C = 1024; the direct #6's at 600, where 2C = 1200 takes
-    no FFT plan), each once a layer a call; the logits against the same
-    prefill with #6 run by its plain version on the card (max-wise within
-    REL_BF16_LOGITS); wall ms (median of 3) and one call profiled."""
+def phase_350m_short(dev, kc) -> None:
+    """SPECTRE-350M at full depth (24 layers, d=1024), the prefills of
+    SHORT_350M, each in its mode: chunk = length, nc = 1, so #6's FFT
+    kernel at 512 (2C = 1024), the direct #6 at 600 and 853 (no FFT plan:
+    segment FFTs by Bluestein, then #5's body) and #5 at 1500, each
+    launched once a layer a call and no other causal kernel; the logits
+    against the same prefill with that kernel's wrapper run by its plain
+    version on the card (max-wise within the entry's limit); wall ms
+    (median of 3) and one call profiled."""
     from fft_tpu_torch import bench
     from fft_tpu_torch.models.lm import lm_init, lm_prefill, spectre_350m_config
 
-    cfg = bf16_config(spectre_350m_config())
-    model = lm_init(cfg, torch.Generator().manual_seed(SEED), dev)
-    x = torch.randint(0, cfg.vocab_size, (1, max(SHORT_350M_BF16)),
+    cfg32 = spectre_350m_config()
+    cfgs = {"float32": cfg32, "bfloat16": bf16_config(cfg32)}
+    models = {mode: lm_init(cfg, torch.Generator().manual_seed(SEED), dev)
+              for mode, cfg in cfgs.items()}
+    x = torch.randint(0, cfg32.vocab_size,
+                      (1, max(e[0] for e in SHORT_350M)),
                       generator=torch.Generator().manual_seed(SEED + 7)).to(
                           dev)
+    plain = {"_fused_causal_mix": kc.fused_causal_mix_ref,
+             "_banded_inverse": kc.banded_inverse_ref}
     with torch.no_grad():
-        for length, name in SHORT_350M_BF16.items():
+        for length, mode, name, wrapper, limit in SHORT_350M:
+            model, layers = models[mode], cfgs[mode].num_layers
             prompt = x[:, :length]
             before = dict(kc.LAUNCHES)
             lg, _ = lm_prefill(model, prompt)
             torch.cuda.synchronize()
             launched = {k: v - before[k] for k, v in kc.LAUNCHES.items()
                         if v != before[k]}
-            kept = kc._fused_causal_mix
-            kc._fused_causal_mix = kc.fused_causal_mix_ref
+            kept = getattr(kc, wrapper)
+            setattr(kc, wrapper, plain[wrapper])
             try:
                 want, _ = lm_prefill(model, prompt)
             finally:
-                kc._fused_causal_mix = kept
+                setattr(kc, wrapper, kept)
             err = rel_err(lg, want)
             ms = wall_ms(lambda: lm_prefill(model, prompt), rounds=3)
             prof = bench._profile(lambda: lm_prefill(model, prompt),
                                   torch.cuda.synchronize, 1,
                                   ("fused_mix_fft_kernel",
-                                   "segment_rfft_kernel",
+                                   "segment_fft_kernel",
                                    "banded_fft_kernel"))
-            emit(phase="350m_short_bf16", prompt=length, layers=cfg.num_layers,
-                 rel_err_vs_plain=err, limit=REL_BF16_LOGITS, launches=launched,
+            emit(phase="350m_short", prompt=length, mode=mode, layers=layers,
+                 rel_err_vs_plain=err, limit=limit, launches=launched,
                  ms=ms, profile=prof)
-            if not (all_finite(lg) and err <= REL_BF16_LOGITS
-                    and launched.get(name) == cfg.num_layers):
-                raise AssertionError(f"350m bf16 prefill {length}: rel_err "
-                                     f"{err}, launches {launched}")
+            if not (all_finite(lg) and err <= limit
+                    and launched == {name: layers}):
+                raise AssertionError(f"350m {mode} prefill {length}: "
+                                     f"rel_err {err} (limit {limit}), "
+                                     f"launches {launched}")
             del lg, want
-    del model
+    del models
 
 
 def block_bf16_run(cfg, device, x, sides, record, swap=()) -> dict:
@@ -3633,12 +3786,12 @@ def main() -> int:
     serve_350m, train_350m = phase_350m(dev, kd, reset_launches, launches)
     mark("350m")
 
-    # 8d. the 350M's bf16 prefills of 512 and 600 tokens -------------------
-    reset_launches()                          # the short bf16 prompts
-    phase_350m_short_bf16(dev, kc)
-    short_bf16_launches = launches()
-    emit(phase="350m_short_bf16_launches", **short_bf16_launches)
-    mark("350m_short_bf16")
+    # 8d. the 350M's short prompts: 512-1500 tokens, fp32 and bf16 ----------
+    reset_launches()                          # the short prompts
+    phase_350m_short(dev, kc)
+    short_launches = launches()
+    emit(phase="350m_short_launches", **short_launches)
+    mark("350m_short")
 
     # 8b. 350m checkpoints, restart, BPE -----------------------------------
     serve_ckpt, train_ckpt = phase_350m_ckpt(dev, reset_launches, launches)
@@ -3669,7 +3822,7 @@ def main() -> int:
                        cli_350m_long=cli_long.get(name, 0),
                        tiny_bf16=tiny_bf16_launches[name],
                        block_bf16=block_bf16_launches[name],
-                       short_350m_bf16=short_bf16_launches[name])
+                       short_350m=short_launches[name])
         summary.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=sum(by_path.values()),

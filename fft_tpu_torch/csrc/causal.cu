@@ -1,6 +1,7 @@
-// Segmented causal spectral mix on Hopper: #5 and the direct-DFT #8 and
-// #6 of the causal LM's forward, as a plain C interface loaded with ctypes
-// (fft_tpu_torch/kernels/build.py builds this file with nvcc for sm_90a).
+// Segmented causal spectral mix on Hopper: #5, the direct #6 (FFTs, two
+// launches) and the direct-DFT #8 of the causal LM's forward, as a plain C
+// interface loaded with ctypes (fft_tpu_torch/kernels/build.py builds this
+// file with nvcc for sm_90a).
 //
 // Replaces, from fft_tpu/kernels/pallas_causal.py:
 //   banded_inverse          <- _banded_inverse_call  (:167, pallas_call :205)
@@ -8,7 +9,7 @@
 //   kf_spectra_direct       <- _kf_spectra_call      (:1428, pallas_call :1482)
 //
 // The direct #6 has an fp32 and a bf16 instance (its C entry's bf16 flag;
-// fft_common.cuh's Act): bf16 v widened as segment_rfft_kernel stages it,
+// fft_common.cuh's Act): bf16 v widened as segment_fft_kernel loads it,
 // bf16 y rounded on banded_fft_kernel's store, the scratch planes fp32.
 // #5 takes fp32 spectra in both modes: its instance is the fp32 one.
 //
@@ -39,7 +40,8 @@
 //     it and starts one M-point transform (sign -1, natural out), then
 //     w[t] on the kept rows.  The chirp and the spectrum are built on the
 //     host in float64 (m^2 mod 2n in integers) and rounded once to fp32
-//     (kernels/causal.py::bluestein_np).
+//     (kernels/causal.py::bluestein_np); chirp_convolve (segment_fft.cuh)
+//     is shared with the segment transforms.
 // The stage twiddles of the power-of-two transforms and the odd pass's
 // 2C-point roots are read from device memory (through L1): copied into
 // shared memory beside the tile they ran no faster (PERF.md, Findings).
@@ -56,11 +58,17 @@
 // inside a pass.  Its first design summed the partial inverse directly,
 // C (C + 1) terms a channel at one shared-memory read per two FMAs.
 //
-// The direct-DFT kernels (kf_spectra_kernel and the first launch of the
-// direct #6, causal_common.cuh's segment_rfft_kernel) run only for shapes
-// whose lengths do not factor in causal_fft.cu or whose tiles do not fit a
-// block (kernels/causal.py picks); their inner loops do one broadcast
-// shared-memory read per two FMAs, O(n) work an output.
+// The direct #6 (fused_causal_mix_direct) runs where the FFT #6 of
+// causal_fft.cu has no plan (2C with an odd factor past 31, or tiles that
+// do not fit; kernels/causal.py picks): the 350M's prompts of 128-853
+// tokens at most lengths.  Its first launch, segment_fft_kernel
+// (segment_fft.cuh), writes the windows' spectra by FFTs on chip into
+// (B, nc, C + 1, d) scratch planes, P O passes or Bluestein as #5's
+// inverse; its second is banded_fft_kernel on them (the producer layout
+// of K).  The direct-DFT kf_spectra_kernel (#8) runs only for shapes whose
+// lengths do not factor in causal_fft.cu or whose tiles do not fit a
+// block; its inner loops do one broadcast shared-memory read per two FMAs,
+// O(n) work an output.
 //
 // No warp shuffles and no atomics: tests/cuda_emulation.py runs every
 // kernel here on the CPU.
@@ -70,106 +78,11 @@
 #include "causal_common.cuh"
 #include "fft_common.cuh"
 #include "mix_fft.cuh"
+#include "segment_fft.cuh"
 
 namespace {
 
-// Bluestein's middle step in one pass over a tile of M-point sequences
-// (M = 2^log2m): per 4-row group, the last pass of the transform of sign
-// +1 (spans 2 and 1, decimation in frequency, as span1_pass<false>), the
-// product with spec at the group's rows, and the first pass of the
-// transform of sign -1 (spans 1 and 2, decimation in time, as
-// span1_pass<true>); a group's thread takes its elements in a rotated
-// order, as span1_pass does, to spread the banks.  Ends with
-// __syncthreads.
-template <int NP>
-__device__ void span1_chirp_pass(float2* buf, int log2m,
-                                 const float2* __restrict__ spec) {
-  const int groups = 1 << (log2m - 2);
-  for (Walk it(NP); it.r < groups; it.next(NP)) {
-    float2* x = buf + (size_t)(it.r << 2) * NP + it.q;
-    const float2* w = spec + (it.r << 2);
-    const int rot = it.r & 3;
-    float2 e[4];
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int k = (m + rot) & 3;
-      const float2 t = x[k * NP];
-      if (k == 0) e[0] = t;
-      else if (k == 1) e[1] = t;
-      else if (k == 2) e[2] = t;
-      else e[3] = t;
-    }
-    // sign +1, spans 2 then 1
-    const float2 a0 = cadd(e[0], e[2]), a2 = csub(e[0], e[2]);
-    const float2 a1 = cadd(e[1], e[3]), d3 = csub(e[1], e[3]);
-    const float2 a3 = make_float2(-d3.y, d3.x);
-    const float2 f0 = cmul(cadd(a0, a1), w[0]), f1 = cmul(csub(a0, a1), w[1]);
-    const float2 f2 = cmul(cadd(a2, a3), w[2]), f3 = cmul(csub(a2, a3), w[3]);
-    // sign -1, spans 1 then 2
-    const float2 b0 = cadd(f0, f1), b1 = csub(f0, f1);
-    const float2 b2 = cadd(f2, f3), b3 = csub(f2, f3);
-    const float2 c3 = make_float2(b3.y, -b3.x);
-    e[0] = cadd(b0, b2);
-    e[2] = csub(b0, b2);
-    e[1] = cadd(b1, c3);
-    e[3] = csub(b1, c3);
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int k = (m + rot) & 3;
-      x[k * NP] = k == 0 ? e[0] : k == 1 ? e[1] : k == 2 ? e[2] : e[3];
-    }
-  }
-  __syncthreads();
-}
-
-// Bluestein's cyclic convolution of a tile of M-point sequences (M =
-// 2^log2m >= 64, rows from `live` on zero) with the host's spectrum: the
-// passes of tile_fft<false> (sign +1; its first, a register pass, loads
-// only the rows below `live`), the product with spec in the bit-reversed
-// row order they leave, and the passes of tile_fft<true> (sign -1), the
-// product and the two passes of spans 1 and 2 that meet there in one
-// (span1_chirp_pass).  Natural row order out.
-template <int NP>
-__device__ void chirp_convolve(float2* z, int log2m, const float2* tws,
-                               const float2* spec, int live) {
-  const float2* tw = tws + (1 << (log2m - 1)) - 1;   // the last span's
-  const bool three = (log2m - 2) % 4 == 3;            // tile_fft's split
-  int top = log2m - (three ? 3 : 4);
-  if (three)
-    reg_pass<false, 3, true>(z, log2m, top, NP, tws, 1.f, 1, live);
-  else
-    reg_pass<false, 4, true>(z, log2m, top, NP, tws, 1.f, 1, live);
-  for (; top - 2 >= 4; top -= 4)
-    reg_pass<false, 4>(z, log2m, top - 4, NP, tws, 1.f);
-  for (; top - 2 >= 2; top -= 2)
-    radix4_pass<false>(z, log2m, top - 2, NP, tw, 1, 1.f);
-  if (top == 3) radix2_pass<false>(z, log2m, 2, NP, tw, 1, 1.f);
-  span1_chirp_pass<NP>(z, log2m, spec);
-  int s = 2;
-  if (three) {
-    for (; log2m - s > 3; s += 4)
-      reg_pass<true, 4>(z, log2m, s, NP, tws, -1.f);
-    reg_pass<true, 3>(z, log2m, s, NP, tws, -1.f);
-    return;
-  }
-  for (; log2m - s >= 4; s += 4) reg_pass<true, 4>(z, log2m, s, NP, tws, -1.f);
-  fft_passes<true>(z, log2m, NP, tw, 1, -1.f, s);
-}
-
-// the transform paths of banded_fft_kernel: a power of two (O = 1), an odd
-// factor 3..31, Bluestein
-constexpr int kPow2 = 0;
-constexpr int kOddP = 1;
-constexpr int kChirp = 2;
-constexpr int kBandedOdd = 31;      // the largest odd factor of path 1
 constexpr int kBatch = 4;           // bins a thread sums at once
-constexpr int kMaxDevices = 64;     // devices a process launches on
-
-// threads a block, at most: the O-point pass holds 2 O complex values a
-// thread, so its instances take half
-__host__ __device__ constexpr int banded_threads_max(int path) {
-  return path == kOddP ? 256 : 512;
-}
 
 // y (B, nc, C, d) for channels c0 .. c0 + 2 NP - 1 of output chunk c =
 // blockIdx.y, batch row blockIdx.z, from segment spectra planes vfr/vfi
@@ -421,11 +334,6 @@ size_t banded_fft_smem(const BandedParams& a) {
   return (size_t)(a.o == 0 ? a.len : 2 * a.chunk) * a.np * sizeof(float2);
 }
 
-template <class T>
-const T* at(int64_t address) {
-  return reinterpret_cast<const T*>(address);
-}
-
 // One launch; the shared-memory attribute is set once for each device and
 // size (the largest so far), not on every call.
 template <class K, int NP, int kPath, class T>
@@ -460,23 +368,27 @@ int launch_banded_path(const BandedParams& a, const float* vfr,
   return launch_banded_fft<K, NP, kOddP, T>(a, vfr, vfi, k, out, st);
 }
 
-// The plan and shape checks, then the launch on the NP-pair tile;
-// cudaErrorInvalidValue for what the kernel does not take.
-template <class K, class T>
-int launch_banded(const BandedParams& a, const float* vfr, const float* vfi,
-                  K k, T* out, cudaStream_t st) {
+// Whether banded_fft_kernel refuses the plan and shape.
+bool banded_refused(const BandedParams& a) {
   const bool pow2 = a.len >= 4 && (a.len & (a.len - 1)) == 0;
   const bool covers = a.o == 0 ? a.len >= 3 * a.chunk - 1
                                : a.o % 2 == 1 && a.o <= kBandedOdd &&
                                      a.len * a.o == 2 * a.chunk;
   const int path = a.o == 0 ? kChirp : a.o == 1 ? kPow2 : kOddP;
-  if (a.chunk < 1 || a.b < 1 || a.nc < 1 || a.cols < 1 ||
-      a.d % a.cols != 0 || !pow2 || !covers ||
-      (a.np != 1 && a.np != 2 && a.np != 4) || a.d % (2 * a.np) != 0 ||
-      a.threads < 32 || a.threads % 32 != 0 ||
-      a.threads > banded_threads_max(path) || a.dev < 0 ||
-      a.dev >= kMaxDevices || banded_fft_smem(a) > kMixSmemMax)
-    return (int)cudaErrorInvalidValue;
+  return a.chunk < 1 || a.b < 1 || a.nc < 1 || a.cols < 1 ||
+         a.d % a.cols != 0 || !pow2 || !covers ||
+         (a.np != 1 && a.np != 2 && a.np != 4) || a.d % (2 * a.np) != 0 ||
+         a.threads < 32 || a.threads % 32 != 0 ||
+         a.threads > banded_threads_max(path) || a.dev < 0 ||
+         a.dev >= kMaxDevices || banded_fft_smem(a) > kMixSmemMax;
+}
+
+// The plan and shape checks, then the launch on the NP-pair tile;
+// cudaErrorInvalidValue for what the kernel does not take.
+template <class K, class T>
+int launch_banded(const BandedParams& a, const float* vfr, const float* vfi,
+                  K k, T* out, cudaStream_t st) {
+  if (banded_refused(a)) return (int)cudaErrorInvalidValue;
   switch (a.np) {
     case 1:
       return launch_banded_path<K, 1, T>(a, vfr, vfi, k, out, st);
@@ -488,16 +400,20 @@ int launch_banded(const BandedParams& a, const float* vfr, const float* vfi,
 }
 
 // The direct #6's two launches, v and y of type T: the segment spectra
-// into the fp32 scratch planes, then banded_fft_kernel on them
+// into the fp32 scratch planes, then banded_fft_kernel on them, on its
+// tile of 4 pairs alone (the plan's at every chunk up to 853, which the
+// wrappers give it; so the build holds 3 paths of it, not 9)
 template <class T>
-int launch_direct_mix(const BandedParams& a, const void* v, const float* kfr,
-                      const float* kfi, float* vfr, float* vfi, void* out,
-                      cudaStream_t st) {
-  const int err = launch_segment_rfft<false, T>(
-      static_cast<const T*>(v), vfr, vfi, at<float>(a.tw), (int)a.b,
-      (int)a.nc, (int)a.chunk, (int)a.d, st);
+int launch_direct_mix(const BandedParams& a, const SegmentParams& sp,
+                      const void* v, const float* kfr, const float* kfi,
+                      float* vfr, float* vfi, void* out, cudaStream_t st) {
+  if (sp.b != a.b || sp.nc != a.nc || sp.chunk != a.chunk || sp.d != a.d ||
+      a.np != 4 || banded_refused(a))
+    return (int)cudaErrorInvalidValue;
+  const int err = launch_segment_fft<false, T>(
+      sp, static_cast<const T*>(v), vfr, vfi, st);
   if (err != 0) return err;
-  return launch_banded(
+  return launch_banded_path<ProducerK, 4, T>(
       a, vfr, vfi,
       ProducerK{kfr, kfi, (int)a.nc, (int)a.chunk + 1, (int)a.cols},
       static_cast<T*>(out), st);
@@ -520,20 +436,22 @@ int fft_banded_inverse(const float* vfr, const float* vfi, const float* kfr,
 }
 
 // y (B, N, d) from raw values v (B, N, d) and producer-layout K planes
-// (B, nc, C+1, nc*cols): the direct-DFT segment spectra into the (B, nc,
-// C+1, d) scratch planes vfr/vfi, then banded_fft_kernel on them; params
-// as fft_banded_inverse's (tw, its first table, is the segment
-// transform's too).  bf16: nonzero for bf16 v and y (the scratch fp32 in
-// both), 0 for fp32.
+// (B, nc, C+1, nc*cols): segment_fft_kernel's window spectra into the (B,
+// nc, C+1, d) scratch planes vfr/vfi, then banded_fft_kernel on them;
+// params: BandedParams' 14 integers, as fft_banded_inverse's; seg:
+// SegmentParams' 15 (the same shape).  bf16: nonzero for bf16 v and y
+// (the scratch fp32 in both), 0 for fp32.
 int fft_fused_causal_mix_direct(const void* v, const float* kfr,
                                 const float* kfi, float* vfr, float* vfi,
-                                void* out, const int64_t* params, int bf16,
-                                void* stream) {
+                                void* out, const int64_t* params,
+                                const int64_t* seg, int bf16, void* stream) {
   const BandedParams& a = *reinterpret_cast<const BandedParams*>(params);
+  const SegmentParams& sp = *reinterpret_cast<const SegmentParams*>(seg);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_direct_mix<__nv_bfloat16>(a, v, kfr, kfi, vfr, vfi,
-                                                 out, st)
-              : launch_direct_mix<float>(a, v, kfr, kfi, vfr, vfi, out, st);
+  return bf16 ? launch_direct_mix<__nv_bfloat16>(a, sp, v, kfr, kfi, vfr,
+                                                 vfi, out, st)
+              : launch_direct_mix<float>(a, sp, v, kfr, kfi, vfr, vfi, out,
+                                         st);
 }
 
 // K planes (B, nc, C+1, L) from gate planes (B, N/2+1, L).

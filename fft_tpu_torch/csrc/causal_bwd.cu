@@ -1,9 +1,10 @@
-// The backward of the segmented causal mix on Hopper with direct DFTs: the
-// exact adjoint of fused_causal_mix (causal.cu), as a plain C interface
-// loaded with ctypes.  kernels/causal.py launches it under the name
-// fused_causal_mix_bwd_direct, only for the shapes whose 2C does not split
-// as P * O (O odd <= 31) or whose tiles do not fit causal_fft.cu's #10
-// kernels, which take every shape of the tiny LM's training path.
+// The backward of the segmented causal mix on Hopper where the FFT #10 of
+// causal_fft.cu has no plan: the exact adjoint of fused_causal_mix
+// (causal.cu), as a plain C interface loaded with ctypes.
+// kernels/causal.py launches it under the name fused_causal_mix_bwd_direct,
+// only for the shapes whose 2C does not split as P * O (O odd <= 31) or
+// whose tiles do not fit causal_fft.cu's #10 kernels, which take every
+// shape of the tiny LM's training path.
 //
 // Replaces _fused_causal_bwd_call (fft_tpu/kernels/pallas_causal.py:1921,
 // pallas_call :2036), the VJP of _fused_causal_call; the math is
@@ -21,8 +22,8 @@
 // one grid step to the next; blocks here run in no order, so the adjoint
 // is five launches on one stream, each a grid of independent blocks, with
 // the (B, nc, F2, d) spectra in HBM between them (L2-resident in part):
-//   1. V    = segment rFFTs of v                     (segment_rfft_kernel)
-//   2. A    = adjoint partial irFFT of ybar         (segment_rfft_kernel)
+//   1. V    = segment rFFTs of v                     (segment_fft_kernel)
+//   2. A    = adjoint partial irFFT of ybar         (segment_fft_kernel)
 //   3. Kbar : one block per (chunk, channel span); the gate group's
 //      channels are summed with warp shuffles in a fixed order, so the
 //      result is deterministic and needs no atomics and no second pass
@@ -31,14 +32,19 @@
 //   5. vbar : one block per (chunk, 32 channels): the direct adjoint sums of
 //      segments s and s+1, added in registers (the overlap-add)
 //
-// What bounds it on the H100: launches 1, 2 and 5 are direct DFTs, bound
-// like the forward's by one broadcast shared-memory read per two to four
-// FMAs (at the tiny LM's training shape 3.02 ms of device time on an
-// H100, of which launch 5 takes 1.11, Kbar 0.69, launch 1 0.68: PERF.md);
-// launch 3 by its shuffles (8 per 4 FMAs at 16-channel groups) and its
-// strided writes of Kbar; launch 4 by L2 reads of K and A.
+// Launches 1 and 2 are segment_fft_kernel (segment_fft.cuh): the windows'
+// spectra by FFTs on chip, P O passes where 2C splits so, Bluestein
+// elsewhere, as the direct #6's first launch.  Launches 3-5 are their
+// first design.  What bounds it on the H100: launch 5 is a direct DFT,
+// bound by one broadcast shared-memory read per four FMAs (at the tiny
+// LM's training shape 3.02 ms of device time on an H100 while launches 1
+// and 2 were direct DFTs too, of which launch 5 took 1.11, Kbar 0.69,
+// launch 1 0.68: PERF.md); launch 3 by its shuffles (8 per 4 FMAs at
+// 16-channel groups) and its strided writes of Kbar; launch 4 by L2 reads
+// of K and A.
 
 #include "causal_common.cuh"
+#include "segment_fft.cuh"
 
 namespace {
 
@@ -211,20 +217,24 @@ extern "C" {
 
 // vbar (B, N, d) and Kbar planes (B, nc, C+1, nc*cols) from raw values v,
 // cotangent ybar (both (B, N, d)) and producer-layout K planes (B, nc,
-// C+1, nc*cols).  tw: (2C, 2) twiddles.  vfr/vfi, rr/ri: (B, nc, C+1, d)
-// scratch.
+// C+1, nc*cols).  tw: (2C, 2) twiddles (launch 5).  vfr/vfi, rr/ri: (B,
+// nc, C+1, d) scratch.  seg: SegmentParams' 15 integers (launches 1-2),
+// of the same shape.
 int fft_fused_causal_mix_bwd_direct(const float* v, const float* kfr,
                                     const float* kfi, const float* ybar,
                                     const float* tw, float* vfr, float* vfi,
                                     float* rr, float* ri, float* vbar,
-                                    float* kbr, float* kbi, int b, int nc,
+                                    float* kbr, float* kbi,
+                                    const int64_t* seg, int b, int nc,
                                     int chunk, int d, int cols,
                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = launch_segment_rfft<false>(v, vfr, vfi, tw, b, nc, chunk, d,
-                                       st);
+  const SegmentParams& sp = *reinterpret_cast<const SegmentParams*>(seg);
+  if (sp.b != b || sp.nc != nc || sp.chunk != chunk || sp.d != d)
+    return (int)cudaErrorInvalidValue;
+  int err = launch_segment_fft<false>(sp, v, vfr, vfi, st);
   if (err != 0) return err;
-  err = launch_segment_rfft<true>(ybar, rr, ri, tw, b, nc, chunk, d, st);
+  err = launch_segment_fft<true>(sp, ybar, rr, ri, st);
   if (err != 0) return err;
 
   const int d_g = d / cols;

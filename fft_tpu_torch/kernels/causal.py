@@ -28,9 +28,13 @@ shape picks one of two kernels (``kf_spectra_kernel``, ``_mix_kernel``):
 the FFT kernel of ``causal_fft.cu`` (launch names ``kf_spectra``,
 ``fused_causal_mix``, ``fused_causal_mix_bwd``) wherever its lengths
 factor as P * O (O odd <= 31) and its tiles fit shared memory, which holds
-at every shape of the tiny LM's paths; the direct-DFT kernel of
-``causal.cu`` or ``causal_bwd.cu`` (``kf_spectra_direct``,
-``fused_causal_mix_direct``, ``fused_causal_mix_bwd_direct``) elsewhere.
+at every shape of the tiny LM's paths; the "direct" kernel of ``causal.cu``
+or ``causal_bwd.cu`` (``kf_spectra_direct``, ``fused_causal_mix_direct``,
+``fused_causal_mix_bwd_direct``) elsewhere, as at most of the 350M's
+prompts of 128-853 tokens (chunk = length, nc = 1).  The direct #6 and the
+direct #10's first two launches take their window spectra from
+``segment_fft.cuh``'s FFTs at every chunk (P O passes, else Bluestein);
+the direct #8 and the direct #10's last three launches are direct DFTs.
 ``banded_inverse`` is one launch of ``causal.cu``'s ``banded_fft_kernel``
 (its plan from ``banded_fft_plan``), which is also the direct
 ``fused_causal_mix``'s second launch.
@@ -72,16 +76,22 @@ same banded sum and inverse with the spectra read from HBM: a block per
 channel-pair tile, output chunk and batch row packs each pair's summed
 spectra as one complex spectrum and runs one inverse of length 2C on chip
 (P O passes, or Bluestein's chirp-z through power-of-two passes where 2C
-does not split so), bound by its transforms' shared-memory passes.  Its
-#10 is three launches bound by HBM: window FFTs into two complex (B, nc,
-F2, d) scratch planes, a bin-major launch that stages a bin's A, V and K
-triangle for 256 channels in shared memory and writes Kbar and Vbar, and
-one inverse FFT a chunk.  The direct #8, the direct #6's segment spectra
-and ``causal_bwd.cu``'s kernels are direct DFTs against shared-memory
-twiddle tables, bounded by the shared-memory instruction throughput of their inner loops, not by HBM (the spectra they
-read fit the 50 MB L2 at the tiny LM's shapes); the sequential delta axis of the TPU kernel (scratch carried
-across grid steps) becomes a loop over lags inside one block per output
-chunk.  At chunk 2048 a direct DFT costs 16x the tiny LM's work per
+does not split so), bound by its transforms' shared-memory passes.  The
+direct #6 puts ``segment_fft_kernel`` before it: a block per channel-pair
+tile, window and batch row transforms each pair's window as one complex
+sequence by the same two paths (Bluestein at M >= 3C - 1 for a window
+whose first half is zero, which it never loads, and M >= 4C - 1 for a full
+one) and writes the spectra to a (B, nc, F2, d) HBM scratch; bound by its
+passes too.  Its #10 is three launches bound by HBM: window FFTs into two
+complex (B, nc, F2, d) scratch planes, a bin-major launch that stages a
+bin's A, V and K triangle for 256 channels in shared memory and writes
+Kbar and Vbar, and one inverse FFT a chunk.  The direct #8 and the direct
+#10's last three launches are direct DFTs against shared-memory twiddle
+tables, bounded by the shared-memory instruction throughput of their
+inner loops, not by HBM (the spectra they read fit the 50 MB L2 at the
+tiny LM's shapes); the sequential delta axis of the TPU kernel (scratch
+carried across grid steps) becomes a loop over lags inside one block per
+output chunk.  At chunk 2048 a direct DFT costs 16x the tiny LM's work per
 element and no block holds a channel tile's nc segment spectra, so
 ``causal_long.cu``'s #7 and #11 run three launches each, bound by HBM:
 segment FFTs in shared memory into (B, nc, F2, d) planes, a bin-major
@@ -218,25 +228,49 @@ def _bitrev(n: int) -> np.ndarray:
     return rev
 
 
+def segment_transform(chunk: int):
+    """(L, L_full, O) of segment_fft_kernel's forward transforms of the
+    2C-row windows: where 2C = P O (``_split_odd``) L = L_full = P;
+    else O = 0 and Bluestein: L = ``banded_transform``'s M >= 3C - 1 for
+    the windows whose first half is zero (C input rows, 2C outputs: the
+    lags -(C - 1) .. 2C - 1), L_full the least power of two >= 4C - 1, at
+    least 64, for full windows (the lags -(2C - 1) .. 2C - 1)."""
+    length, o = banded_transform(chunk)
+    if o:
+        return length, length, o
+    full = 64
+    while full < 4 * chunk - 1:
+        full *= 2
+    return length, full, 0
+
+
 @functools.lru_cache(maxsize=None)
-def bluestein_np(chunk: int):
-    """(chirp (2C, 2), spectrum (M, 2)) fp32 for Bluestein's path of
-    banded_fft_kernel, built in float64 and rounded once: w[m] = e^{i pi
-    m^2 / n} (n = 2C; the phase from m^2 mod 2n in integers, so no float
-    square loses it) and the spectrum G(h) / (M n) of the wrapped conj(w),
-    h[m] = conj(w[m]) for m < n and h[M - m] = conj(w[m]) for 0 < m < C,
+def bluestein_np(chunk: int, m_len: int | None = None):
+    """(chirp (2C, 2), spectrum (M, 2)) fp32 for Bluestein's cyclic length
+    M (``banded_transform``'s unless given), shared by banded_fft_kernel's
+    inverse and segment_fft_kernel's forward transforms, built in float64
+    and rounded once: w[m] = e^{i pi m^2 / n} (n = 2C; the phase from m^2
+    mod 2n in integers, so no float square loses it) and the spectrum G(h)
+    / (M n) of the wrapped conj(w): h[m] = conj(w[m]) for the lags 0 <= m
+    < n and h[M - m] = conj(w[m]) for the negative lags 0 < m <= min(n -
+    1, M - n), every lag M holds without overlap (an output reads only the
+    lags its inputs reach: -(C - 1) .. n - 1 for the inverse's rows
+    C..2C-1 and a half-zero window, -(n - 1) .. n - 1 for a full window);
     G the unnormalized transform of sign +1, in bit-reversed row order (the
-    order the kernel's first transform leaves its rows in).  Then rows C..2C-1
-    of the inverse of Z are w[t] G^-(G(Z w) G(h) / (M n))[t] with G^- the
-    transform of sign -1."""
+    order the kernel's first transform leaves its rows in).  Then rows
+    C..2C-1 of the inverse of Z are w[t] G^-(G(Z w) G(h) / (M n))[t] with
+    G^- the transform of sign -1."""
     n = 2 * chunk
-    m_len, o = banded_transform(chunk)
-    assert o == 0, f"chunk {chunk} takes the P O path"
+    if m_len is None:
+        m_len, o = banded_transform(chunk)
+        assert o == 0, f"chunk {chunk} takes the P O path"
+    assert m_len >= 3 * chunk - 1 and _pow2(m_len), (chunk, m_len)
     m = np.arange(n, dtype=np.int64)
     w = np.exp(1j * np.pi * ((m * m) % (2 * n)) / n)
     h = np.zeros(m_len, dtype=np.complex128)
     h[:n] = np.conj(w)
-    h[m_len - np.arange(1, chunk)] = np.conj(w[1:chunk])
+    neg = np.arange(1, min(n - 1, m_len - n) + 1)
+    h[m_len - neg] = np.conj(w[neg])
     spec = np.fft.ifft(h)[_bitrev(m_len)] / n       # G(h) = M ifft(h)
 
     def planes(x):
@@ -270,6 +304,24 @@ def banded_fft_plan(chunk: int):
 # ---------------------------------------------------------------------------
 # Predicates: what the Hopper kernels accept
 # ---------------------------------------------------------------------------
+
+def _segment_rows(nc: int, chunk: int) -> int:
+    """Rows of segment_fft_kernel's tile in the forward (segment_fft.cuh's
+    segment_fft_smem, whose adjoint instance takes L, never more): 2C, or
+    Bluestein's L, or L_full where full windows occur (nc > 1)."""
+    length, full, o = segment_transform(chunk)
+    return 2 * chunk if o else (full if nc > 1 else length)
+
+
+def segment_fft_threads(nc: int, chunk: int) -> int:
+    """Threads a block of segment_fft_kernel (whose tile is 4 channel
+    pairs, segment_fft.cuh's kSegPairs), as ``banded_fft_plan`` takes them:
+    the tile's rows / 2 within ``_BANDED_THREADS``, 256 at most with an odd
+    factor."""
+    lo, hi = _BANDED_THREADS
+    rows, o = _segment_rows(nc, chunk), segment_transform(chunk)[2]
+    return min(max(rows // 2, lo), hi if o <= 1 else 256)
+
 
 def _kf_smem(n_fft: int, chunk: int) -> int:
     return (n_fft + 2 * chunk) * 8 + (2 * _FREQ_T + chunk) * _LANES * 4
@@ -342,7 +394,7 @@ def kf_spectra_supported(n_fft: int, chunk: int, lanes: int) -> bool:
 # ---------------------------------------------------------------------------
 # The shape choice inside #6's and #8's ranges: the FFT kernels of
 # csrc/causal_fft.cu where their lengths factor and their tiles fit, the
-# direct-DFT kernels of csrc/causal.cu elsewhere
+# "direct" kernels of csrc/causal.cu and csrc/causal_bwd.cu elsewhere
 # ---------------------------------------------------------------------------
 
 def _split_odd(n: int):
@@ -580,6 +632,15 @@ def fused_causal_mix_bwd_ref(v, kfr, kfi, ybar, chunk: int, cols: int):
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
+def _chirp_tables(chunk: int, m_len: int, device: torch.device):
+    """Bluestein's chirp and spectrum at cyclic length ``m_len`` on
+    ``device`` (``bluestein_np``), once for each (chunk, M, device): #5's
+    inverse and the segment transforms of half-zero windows share M."""
+    return [torch.from_numpy(t).to(device)
+            for t in bluestein_np(chunk, m_len)]
+
+
+@functools.lru_cache(maxsize=None)
 def _banded_tables(chunk: int, device: torch.device):
     """banded_fft_kernel's tables on ``device``: the 2C-point roots, the
     stage twiddles of its power-of-two transform, and Bluestein's chirp and
@@ -587,9 +648,38 @@ def _banded_tables(chunk: int, device: torch.device):
     length, o = banded_transform(chunk)
     tables = [twiddles(2 * chunk, device), stage_twiddles(length, device)]
     if o == 0:
-        return tables + [torch.from_numpy(t).to(device)
-                         for t in bluestein_np(chunk)]
+        return tables + _chirp_tables(chunk, length, device)
     return tables + tables[:1] * 2
+
+
+@functools.lru_cache(maxsize=None)
+def _segment_tables(chunk: int, device: torch.device):
+    """segment_fft_kernel's tables on ``device``, in SegmentParams' order:
+    the 2C-point roots, Bluestein's chirp, the stage twiddles and spectrum
+    at L and at L_full (``segment_transform``); on the P O path the roots
+    stand in for the chirp and the spectra, which it never reads."""
+    length, full, o = segment_transform(chunk)
+    tw = twiddles(2 * chunk, device)
+    if o:
+        stages = stage_twiddles(length, device)
+        return [tw, tw, stages, tw, stages, tw]
+    chirp, spec = _chirp_tables(chunk, length, device)
+    spec_full = _chirp_tables(chunk, full, device)[1]
+    return [tw, chirp, stage_twiddles(length, device), spec,
+            stage_twiddles(full, device), spec_full]
+
+
+def _segment_params(b, nc, chunk, d, device, threads=None):
+    """segment_fft.cuh's SegmentParams for a shape: the tables' addresses,
+    the shape, the transform (``segment_transform``), threads a block
+    (``segment_fft_threads``' unless given) and the device's index (0 for
+    the CPU, where only the CPU emulation of the kernel reads it), as a
+    ctypes array of 15 int64."""
+    length, full, o = segment_transform(chunk)
+    return (ctypes.c_int64 * 15)(
+        *(t.data_ptr() for t in _segment_tables(chunk, device)), b, nc,
+        chunk, d, length, full, o,
+        threads or segment_fft_threads(nc, chunk), device.index or 0)
 
 
 def _banded_params(b, nc, chunk, d, cols, device, tile=None):
@@ -673,9 +763,11 @@ def _fused_causal_mix(v, kfr, kfi, chunk: int, cols: int) -> torch.Tensor:
     per (channel tile, batch row) the segment spectra by FFTs in shared
     memory, kept there, then each output chunk's banded sum and inverse
     FFT; v read once, no scratch.  Elsewhere in that range
-    ``fused_causal_mix_direct`` (``csrc/causal.cu``): two launches,
-    direct-DFT segment spectra into an HBM scratch, then the banded sum
-    and partial inverse of ``banded_inverse`` on the producer layout.
+    ``fused_causal_mix_direct`` (``csrc/causal.cu``): two launches, the
+    window spectra by FFTs on chip (``csrc/segment_fft.cuh``: P O passes
+    where 2C splits so, else Bluestein) into an HBM scratch, then the
+    banded sum and partial inverse of ``banded_inverse`` on the producer
+    layout.
     Past that range, where ``fused_mix_v3_supported`` holds,
     ``_fused_causal_call_v3`` (:931), which JAX takes past its v2 kernel's
     memory: three launches of ``csrc/causal_long.cu`` through a (B, nc,
@@ -692,10 +784,10 @@ def _fused_causal_mix(v, kfr, kfi, chunk: int, cols: int) -> torch.Tensor:
 
 def fused_causal_mix_direct(v, kfr, kfi, chunk: int, cols: int):
     """y (B, N, d) as ``fused_causal_mix`` computes it, always through the
-    direct-DFT kernel (``csrc/causal.cu``) on CUDA tensors, wherever
-    ``fused_mix_supported`` holds; the plain version on CPU tensors.  No
-    autograd: it exists to set the two kernels side by side at one
-    shape."""
+    direct kernel (``csrc/causal.cu``: segment FFTs, then #5's body) on
+    CUDA tensors, wherever ``fused_mix_supported`` holds; the plain version
+    on CPU tensors.  No autograd: it exists to set the two kernels side by
+    side at one shape."""
     if on_cpu(v, kfr, kfi):
         return fused_causal_mix_ref(v, kfr, kfi, chunk, cols)
     b, n, d = v.shape
@@ -715,9 +807,9 @@ def _act_bf16(name: str, v) -> bool:
 def _launch_mix(name: str, v, kfr, kfi, chunk: int, cols: int, plan=None):
     """Launch ``name`` (fused_causal_mix, its _direct or its _v3) on CUDA
     tensors; ``plan``: the FFT kernel's (np, gs), ``mix_fft_plan``'s
-    unless given, _v3's transform tile (np, threads), ``LONG_PLAN`` unless
-    given, or _direct's banded_fft_kernel tile (np, threads),
-    ``banded_fft_plan``'s unless given.  y in v's dtype."""
+    unless given, or _v3's transform tile (np, threads), ``LONG_PLAN``
+    unless given (_direct takes its kernels' plans, ``_direct_params``).
+    y in v's dtype."""
     b, n, d = v.shape
     nc = n // chunk
     f2 = chunk + 1
@@ -744,13 +836,25 @@ def _launch_mix(name: str, v, kfr, kfi, chunk: int, cols: int, plan=None):
                vfr.data_ptr(), vfi.data_ptr(), out.data_ptr(), b, nc, chunk,
                d, cols, *(plan or LONG_PLAN), int(bf16), entry=name)
         return out
-    # the direct kernel's second launch is #5's body on the producer layout
-    params = _banded_params(b, nc, chunk, d, cols, v.device, plan)
+    # the direct kernel's first launch is the segment FFTs, its second #5's
+    # body on the producer layout
+    blocks = _direct_params(b, nc, chunk, d, cols, v.device)
     launch(LAUNCHES, counted, v.device,
            v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), vfr.data_ptr(),
-           vfi.data_ptr(), out.data_ptr(), ctypes.addressof(params),
+           vfi.data_ptr(), out.data_ptr(), *map(ctypes.addressof, blocks),
            int(bf16), entry=name)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _direct_params(b: int, nc: int, chunk: int, d: int, cols: int,
+                   device: torch.device):
+    """The direct #6's two parameter blocks (BandedParams at
+    ``banded_fft_plan``'s, whose 4 channel pairs are the one tile the
+    direct #6's C entry takes up to chunk 853; SegmentParams), built once
+    for each shape."""
+    return (_banded_params(b, nc, chunk, d, cols, device),
+            _segment_params(b, nc, chunk, d, device))
 
 
 def _mix_kernel(base: str, n: int, chunk: int, d: int, cols: int,
@@ -893,7 +997,8 @@ def fused_causal_mix_bwd(v, kfr, kfi, ybar, chunk: int, cols: int):
     order, no atomics) and Vbar over V; and one inverse FFT per chunk (the
     adjoint segment rFFT with the overlap-add).  Elsewhere in
     that range ``fused_causal_mix_bwd_direct`` (``csrc/causal_bwd.cu``,
-    direct DFTs, five launches).  Past it, where
+    five launches: the segment FFTs of v and of [0 | ybar_s], then Kbar,
+    Vbar and the adjoint segment transform as direct sums).  Past it, where
     ``fused_mix_v3_supported`` holds,
     ``_fused_causal_bwd_call_v3`` (:2307): three launches of
     ``csrc/causal_long.cu`` through the same scratch: the segment FFTs of v
@@ -914,7 +1019,7 @@ def fused_causal_mix_bwd(v, kfr, kfi, ybar, chunk: int, cols: int):
 
 def fused_causal_mix_bwd_direct(v, kfr, kfi, ybar, chunk: int, cols: int):
     """(vbar, kfr_bar, kfi_bar) as ``fused_causal_mix_bwd`` computes them,
-    always through the direct-DFT kernel (``csrc/causal_bwd.cu``) on CUDA
+    always through the direct kernel (``csrc/causal_bwd.cu``) on CUDA
     tensors, wherever ``fused_mix_supported`` holds; the plain version on
     CPU tensors.  It exists to set the two kernels side by side at one
     shape.  It has no bf16 instance: bf16 on the card raises, naming its
@@ -961,11 +1066,16 @@ def _launch_bwd(name: str, v, kfr, kfi, ybar, chunk: int, cols: int,
                                device=v.device) for _ in range(4)]
         tile = ((*(plan or LONG_PLAN), int(bf16))
                 if name == "fused_causal_mix_bwd_v3" else ())
+    # the direct kernel's launches 1-2 are the segment FFTs; params lives
+    # through the call
+    params = (_segment_params(b, nc, chunk, d, v.device)
+              if name == "fused_causal_mix_bwd_direct" else None)
+    seg = () if params is None else (ctypes.addressof(params),)
     launch(LAUNCHES, name + "_bf16" if bf16 else name, v.device,
            v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), ybar.data_ptr(),
            tw.data_ptr(), *(t.data_ptr() for t in scratch),
-           vbar.data_ptr(), kbr.data_ptr(), kbi.data_ptr(), b, nc, chunk,
-           d, cols, *tile, entry=name)
+           vbar.data_ptr(), kbr.data_ptr(), kbi.data_ptr(), *seg, b, nc,
+           chunk, d, cols, *tile, entry=name)
     return vbar, kbr, kbi
 
 

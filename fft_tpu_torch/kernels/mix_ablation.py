@@ -101,7 +101,7 @@ _KERNELS = {
                      for c in (1500, 1024, 854))),
 }
 # headers a kernel's source includes besides mix_fft.cuh and fft_common.cuh
-_HEADERS = {"banded": ("causal_common.cuh",)}
+_HEADERS = {"banded": ("causal_common.cuh", "segment_fft.cuh")}
 
 
 def _sources(variant: str, kernel: str = "mix") -> dict:

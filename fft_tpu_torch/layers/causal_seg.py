@@ -7,8 +7,10 @@
 
 The branch structure is the JAX package's; the predicates are those of the
 Hopper kernels (``fft_tpu_torch.kernels.causal``).  The fused mix runs
-where either of its kernels takes the shape: the direct-DFT one up to chunk
-853, the FFT one (#7's port) for power-of-two chunks up to 2048.  Past both
+where either of its kernel families takes the shape: #6's up to chunk 853
+(its FFT kernel where 2C = P O fits it, else its direct kernel, whose
+segment spectra are FFTs too: P O passes or Bluestein at every chunk), #7's
+for power-of-two chunks up to 2048.  Past both
 the banded kernel takes the chunk (up to 2904), so on the card the plain
 composition runs only where the reference runs jnp too.  The kernel
 functions run their plain PyTorch versions on CPU tensors, so one dispatch

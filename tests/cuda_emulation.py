@@ -21,8 +21,11 @@ commit and wait do nothing), cooperative_groups' thread block clusters
 and ``#include "x.cuh"`` of the source's own directory (inlined).  A
 cluster's blocks run together: all their threads at once, each block with
 its own shared memory and barrier, one barrier for ``cluster.sync()``;
-clusters (a block is a cluster of one) run one after another.  Warp
-shuffles and atomics are not supported.
+clusters (a block is a cluster of one) run one after another.
+``__shfl_xor_sync`` of a float: the 32 threads of a warp (consecutive
+linear thread indices) meet at a barrier of their own, so every lane of
+the warp must call it together, as the kernels do.  Atomics are not
+supported.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import subprocess
 
 SHIM = r"""
 #pragma once
+#include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
@@ -119,6 +123,21 @@ inline thread_local void* emu_smem_ptr = nullptr;
 inline thread_local void* const* emu_cluster_smem = nullptr;
 inline thread_local unsigned emu_cluster_rank = 0;
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+// a warp's exchange for __shfl_xor_sync: each lane writes its value, all
+// meet, each reads its partner's, all meet again before the slots are reused
+struct EmuWarp {
+  std::unique_ptr<std::barrier<>> bar;
+  float slot[32];
+};
+inline thread_local EmuWarp* emu_warp = nullptr;
+inline thread_local unsigned emu_lane = 0;
+inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+  emu_warp->slot[emu_lane] = v;
+  emu_warp->bar->arrive_and_wait();
+  const float r = emu_warp->slot[(emu_lane ^ (unsigned)lane_mask) & 31u];
+  emu_warp->bar->arrive_and_wait();
+  return r;
+}
 namespace cooperative_groups {
 struct cluster_group {
   unsigned block_rank() const { return emu_cluster_rank; }
@@ -155,6 +174,14 @@ void emu_run(F kernel, dim3 grid, dim3 block, size_t smem, unsigned cx,
           bars.emplace_back(new std::barrier<>((std::ptrdiff_t)nt));
         }
         std::barrier<> cluster_bar((std::ptrdiff_t)(nt * cx));
+        const unsigned nw = (nt + 31) / 32;
+        std::vector<std::vector<EmuWarp>> warps(cx);
+        for (unsigned c = 0; c < cx; ++c) {
+          warps[c].resize(nw);
+          for (unsigned w = 0; w < nw; ++w)
+            warps[c][w].bar.reset(new std::barrier<>(
+                (std::ptrdiff_t)std::min(32u, nt - 32 * w)));
+        }
         std::vector<std::thread> ts;
         for (unsigned c = 0; c < cx; ++c)
           for (unsigned t = 0; t < nt; ++t)
@@ -167,6 +194,8 @@ void emu_run(F kernel, dim3 grid, dim3 block, size_t smem, unsigned cx,
               emu_cluster_barrier = &cluster_bar;
               emu_cluster_smem = bases.data();
               emu_cluster_rank = c;
+              emu_warp = &warps[c][t / 32];
+              emu_lane = t % 32;
               kernel(args...);
             });
         for (auto& th : ts) th.join();

@@ -52,16 +52,47 @@ def test_banded_inverse_ref_matches_pallas(b, nc, chunk, d, cols):
     assert rel_err(got, ref) < TOL
 
 
-def test_fused_causal_mix_ref_matches_pallas():
-    rng = np.random.default_rng(3)
-    b, nc, chunk, d, cols = 1, 2, 128, 128, 8
-    assert pc.fused_mix_supported(nc, chunk, d, False, cols)
-    arrs = _planes(rng, (b, nc * chunk, d), (b, nc, chunk + 1, nc * cols),
-                   (b, nc, chunk + 1, nc * cols))
-    ref = np.asarray(pc.fused_causal_mix(*map(jnp.asarray, arrs), chunk,
-                                         cols, False, True))
-    got = kc.fused_causal_mix_ref(*map(torch.from_numpy, arrs), chunk,
-                                  cols).numpy()
+@pytest.mark.parametrize("b,nc,chunk,d,cols", [
+    (1, 2, 128, 128, 8),
+    (1, 1, 600, 64, 8),           # the 350M's 600-token prompt's chunk
+    (1, 2, 129, 64, 8),
+])
+def test_fused_causal_mix_ref_matches_pallas(b, nc, chunk, d, cols):
+    """fused_causal_mix_ref against the JAX function the reference runs at
+    the shape: its fused Pallas kernel in interpret mode where
+    pc.fused_mix_supported holds (chunk 128), else the jnp composition of
+    fft_tpu/layers/causal_seg.py (2C = 1200 and 258 take no Pallas plan),
+    both sides fed the K spectra of one gate (its length-N irfft, then
+    rfft_2C of each segment, by each package's own layer code)."""
+    rng = np.random.default_rng(3 + (chunk != 128) * chunk)
+    n = nc * chunk
+    if chunk == 128:
+        assert pc.fused_mix_supported(nc, chunk, d, False, cols)
+        arrs = _planes(rng, (b, n, d), (b, nc, chunk + 1, nc * cols),
+                       (b, nc, chunk + 1, nc * cols))
+        ref = np.asarray(pc.fused_causal_mix(*map(jnp.asarray, arrs), chunk,
+                                             cols, False, True))
+        got = kc.fused_causal_mix_ref(*map(torch.from_numpy, arrs), chunk,
+                                      cols).numpy()
+        assert rel_err(got, ref) < TOL
+        return
+    from fft_tpu.config import SpectreHeadConfig as JaxHeadConfig
+    from fft_tpu.layers.causal_seg import segmented_causal_mix
+    from fft_tpu_torch.layers.causal_seg import _segment_rfft
+    from fft_tpu_torch.ops import fftops
+
+    assert not pc.fused_mix_supported(nc, chunk, d, False, cols)
+    v = _planes(rng, (b, n, d))[0]
+    f = n // 2 + 1
+    gate = (rng.standard_normal((b, nc, cols, f))
+            + 1j * rng.standard_normal((b, nc, cols, f))).astype(np.complex64)
+    ref = np.asarray(segmented_causal_mix(
+        jnp.asarray(v), jnp.asarray(gate),
+        JaxHeadConfig(embed_dim=d, n_fft=n, fft_impl="auto"), chunk))
+    g_l = torch.from_numpy(gate).permute(0, 3, 1, 2).reshape(b, f, nc * cols)
+    kf = _segment_rfft(fftops.irfft(g_l, n, dim=-2), n, chunk)
+    got = kc.fused_causal_mix_ref(torch.from_numpy(v), kf.real.contiguous(),
+                                  kf.imag.contiguous(), chunk, cols).numpy()
     assert rel_err(got, ref) < TOL
 
 
@@ -300,6 +331,77 @@ def test_bluestein_tables_are_exact_where_they_can_be():
         assert tuple(chirp[0]) == (1.0, 0.0)
         assert spec.shape == (kc.banded_transform(chunk)[0], 2)
         assert spec.dtype == np.float32
+
+
+def _model_segment_bluestein(z, chunk, m_len, half):
+    """segment_fft_kernel's Bluestein path in numpy with the host's fp32
+    tables at cyclic length ``m_len``: the FFT of the 2C-point window z
+    (complex; its first C rows zero where ``half``) as n conj(w y) of the
+    sign +1 chirp-z transform y of conj(z) w, the half-zero window shifted
+    down by C rows and its spectrum times (-1)^f."""
+    n = 2 * chunk
+    chirp, spec = (t[..., 0] + 1j * t[..., 1].astype(np.float64)
+                   for t in kc.bluestein_np(chunk, m_len))
+    t0 = chunk if half else 0
+    a = np.zeros(m_len, np.complex128)
+    a[:n - t0] = np.conj(z[t0:]) * chirp[:n - t0]
+    rows = _bit_reversed(m_len)
+    g = m_len * np.fft.ifft(a)[rows] * spec
+    nat = np.empty_like(g)
+    nat[rows] = g
+    y = np.fft.fft(nat)[:n] * chirp
+    sign = (-1.0) ** np.arange(n) if half else 1.0
+    return n * np.conj(y) * sign
+
+
+@pytest.mark.parametrize("chunk", [129, 600, 853])
+def test_segment_bluestein_model_matches_fft(chunk):
+    """The segment transforms' lengths (``segment_transform``: #5's M >=
+    3C - 1 for the half-zero windows, M >= 4C - 1 for full ones) and
+    tables, modelled in numpy, against numpy's FFT of both kinds of window
+    within 1e-5; a full window at the half-zero windows' M (too short
+    where it is below 4C - 1, as at 129 and 600) fails."""
+    rng = np.random.default_rng(chunk)
+    length, full, o = kc.segment_transform(chunk)
+    assert o == 0 and length == kc.banded_transform(chunk)[0]
+    assert length >= 3 * chunk - 1 and full >= 4 * chunk - 1
+    z = rng.standard_normal(2 * chunk) + 1j * rng.standard_normal(2 * chunk)
+    want = np.fft.fft(z)
+    assert rel_err(_model_segment_bluestein(z, chunk, full, False),
+                   want) < TOL
+    zh = z.copy()
+    zh[:chunk] = 0
+    assert rel_err(_model_segment_bluestein(zh, chunk, length, True),
+                   np.fft.fft(zh)) < TOL
+    if length < 4 * chunk - 1:
+        assert rel_err(_model_segment_bluestein(z, chunk, length, False),
+                       want) > TOL
+
+
+def test_segment_plan_and_tables():
+    """segment_fft_kernel's transform and threads at the 350M's prompts
+    (its tile is 4 pairs): 512 (256 with an odd factor); its tables cached
+    per (chunk, device), Bluestein's shared with #5's at the half-zero
+    windows' M."""
+    cpu = torch.device("cpu")
+    assert kc.segment_transform(600) == (2048, 4096, 0)
+    assert kc.segment_transform(853) == (4096, 4096, 0)
+    assert kc.segment_transform(640) == (256, 256, 5)
+    assert kc.segment_transform(512) == (1024, 1024, 1)
+    assert kc.segment_fft_threads(1, 600) == 512
+    assert kc.segment_fft_threads(2, 853) == 512
+    assert kc.segment_fft_threads(1, 640) == 256
+    assert kc.segment_fft_threads(1, 128) == 128
+    assert kc._segment_rows(2, 853) == 4096
+    assert kc._segment_rows(1, 600) == 2048
+    assert kc._segment_rows(2, 600) == 4096
+    tables = kc._segment_tables(600, cpu)
+    assert tables is kc._segment_tables(600, cpu)
+    banded = kc._banded_tables(600, cpu)
+    assert tables[0] is banded[0] and tables[1] is banded[2]
+    assert tables[3] is banded[3]
+    assert [tuple(t.shape) for t in tables] == [
+        (1200, 2), (1200, 2), (2048, 2), (2048, 2), (4096, 2), (4096, 2)]
 
 
 def _parent_banded_supported(nc, f2, d, cols):

@@ -8,7 +8,10 @@ cluster reads one CTA alone must fail),
 causal_long.cu (#9, #7, #11, at chunks up to 2048; #7's and #11's bf16
 instances at nc 3 and 16), causal.cu's
 banded_inverse (#5: both transform paths, every tile plan, both K layouts
-through the direct #6), and decode.cu (#12).  Same bound as on the
+through the direct #6) and the direct #6 (segment_fft.cuh's segment FFTs:
+P O passes, Bluestein for half-zero and full windows; a copy that sizes
+full windows' Bluestein for 3C - 1 must fail), causal_bwd.cu's direct #10
+(the shim's warp shuffles), and decode.cu (#12).  Same bound as on the
 card (max|a-b| / max|b| < 2e-5: FFTs or direct DFTs against pocketfft, all
 fp32), and for the bf16 instances 1e-2 on the bf16 outputs (their one
 rounding to bf16 against the plain version's) and 2e-5 on the fp32 Kbar.
@@ -628,25 +631,165 @@ def test_emulated_banded_fft_plans(causal_lib, b, nc, chunk, d, cols, plan):
     assert _rel(y, kc.banded_inverse_ref(*args, chunk)) < TOL
 
 
-# (b, nc, chunk, d, cols): the direct #6, whose second launch is #5's body
-# on the producer layout: 2C = 2^8, Bluestein at chunk 129 and 853
-@pytest.mark.parametrize("b,nc,chunk,d,cols", [
-    (2, 2, 128, 32, 2), (1, 3, 129, 32, 4), (1, 2, 853, 32, 8)])
-def test_emulated_direct_mix_runs_the_banded_body(causal_lib, b, nc, chunk,
-                                                  d, cols):
-    g = torch.Generator().manual_seed(chunk)
+def _direct_mix_inputs(b, nc, chunk, d, cols, seed):
+    g = torch.Generator().manual_seed(seed)
     f2 = chunk + 1
     v = _randn(g, b, nc * chunk, d)
     kr, ki = (_randn(g, b, nc, f2, nc * cols) for _ in range(2))
+    return v, kr, ki
+
+
+def _emulated_direct_mix(lib, v, kr, ki, chunk, cols, seg=None):
+    """(y, vfr, vfi) from the direct #6's C entry with the wrapper's tables
+    and parameter blocks (threads capped at 128 for the emulation's speed;
+    ``seg``: another SegmentParams block); y and the scratch start as
+    NaN."""
+    b, n, d = v.shape
+    nc, f2 = n // chunk, chunk + 1
+    cpu = torch.device("cpu")
     _, _, np_, threads = kc.banded_fft_plan(chunk)
-    params = kc._banded_params(b, nc, chunk, d, cols, torch.device("cpu"),
+    params = kc._banded_params(b, nc, chunk, d, cols, cpu,
                                (np_, min(threads, 128)))
+    if seg is None:
+        seg = kc._segment_params(b, nc, chunk, d, cpu,
+                                 min(kc.segment_fft_threads(nc, chunk), 128))
     y = torch.full_like(v, float("nan"))
-    vfr, vfi = torch.empty(b, nc, f2, d), torch.empty(b, nc, f2, d)
-    assert causal_lib.fft_fused_causal_mix_direct(
+    vfr, vfi = (torch.full((b, nc, f2, d), float("nan")) for _ in range(2))
+    assert lib.fft_fused_causal_mix_direct(
         _ptr(v), _ptr(kr), _ptr(ki), _ptr(vfr), _ptr(vfi), _ptr(y),
-        ctypes.addressof(params), 0, None) == 0
+        ctypes.addressof(params), ctypes.addressof(seg), _bf16(v),
+        None) == 0
+    return y, vfr, vfi
+
+
+def _spectra_exact_where_real(vfi, chunk) -> bool:
+    """Im of the segment spectra exactly 0 at DC and Nyquist."""
+    return bool((vfi[:, :, 0] == 0).all() and (vfi[:, :, chunk] == 0).all())
+
+
+# (b, nc, chunk, d, cols): the direct #6, segment FFTs then #5's body on
+# the producer layout: 2C = 2^8; Bluestein at a 600-token prompt (a zero
+# first half, M = 2048), at 853 with a full window (M = 4096) and at 129
+# (M = 512 and 1024); 2C = 1280 = 256 * 5
+DIRECT_MIX_CASES = [(2, 2, 128, 32, 2), (1, 1, 600, 64, 4),
+                    (1, 2, 853, 32, 8), (2, 2, 640, 32, 2),
+                    (1, 3, 129, 32, 4)]
+
+
+@pytest.mark.parametrize("b,nc,chunk,d,cols", DIRECT_MIX_CASES)
+def test_emulated_direct_mix_runs_the_banded_body(causal_lib, b, nc, chunk,
+                                                  d, cols):
+    """y against the plain version, and the first launch's scratch
+    against the windows' rfft_2C (Im exactly 0 at DC and Nyquist)."""
+    v, kr, ki = _direct_mix_inputs(b, nc, chunk, d, cols, chunk)
+    y, vfr, vfi = _emulated_direct_mix(causal_lib, v, kr, ki, chunk, cols)
     assert _rel(y, kc.fused_causal_mix_ref(v, kr, ki, chunk, cols)) < TOL
+    vf = kc.segment_spectra(v, chunk)
+    assert _rel(vfr, vf.real) < TOL and _rel(vfi, vf.imag) < TOL
+    assert _spectra_exact_where_real(vfi, chunk)
+
+
+def test_emulated_segment_fft_refuses_what_it_does_not_take(causal_lib):
+    """The direct #6's C entry returns cudaErrorInvalidValue (1) for a
+    segment transform whose Bluestein length misses 3C - 1 (half-zero
+    windows) or 4C - 1 (full ones), a P O split that does not make 2C, a
+    width its tile of 4 pairs does not divide, threads past the odd path's
+    256 or no multiple of 32, or a shape other than #5's block's, and for
+    a #5 tile other than 4 pairs; y is not written."""
+    cpu = torch.device("cpu")
+    for chunk, nc, d, fields, tile in (
+            (600, 1, 32, {10: 1024}, 4), (600, 2, 32, {11: 2048}, 4),
+            (640, 1, 32, {10: 128, 11: 128}, 4), (640, 1, 32, {13: 48}, 4),
+            (640, 1, 12, {}, 4), (640, 1, 32, {13: 512}, 4),
+            (600, 1, 32, {6: 2}, 4), (600, 1, 32, {}, 2)):
+        v, kr, ki = _direct_mix_inputs(1, nc, chunk, d, 2, 0)
+        seg = kc._segment_params(1, nc, chunk, d, cpu, 128)
+        for i, x in fields.items():
+            seg[i] = x
+        params = kc._banded_params(1, nc, chunk, d, 2, cpu, (tile, 128))
+        y = torch.full_like(v, float("nan"))
+        vfr, vfi = (torch.empty(1, nc, chunk + 1, d) for _ in range(2))
+        assert causal_lib.fft_fused_causal_mix_direct(
+            _ptr(v), _ptr(kr), _ptr(ki), _ptr(vfr), _ptr(vfi), _ptr(y),
+            ctypes.addressof(params), ctypes.addressof(seg), 0, None) == 1
+        assert torch.isnan(y).all()
+
+
+def test_emulated_full_window_bluestein_sized_for_3c_fails(
+        tmp_path_factory):
+    """A copy of segment_fft.cuh that takes Bluestein's M >= 3C - 1 (the
+    half-zero windows' length and tables) for full windows too, as its
+    check allows, must fail against the plain version at C = 600, nc = 2
+    (M = 2048 where the lags of a full window need 4096): the cyclic
+    convolution wraps the lags past M - 2C onto the positive ones."""
+    if cuda_emulation.compiler() is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    src = (kb.CSRC_DIR / "segment_fft.cuh").read_text()
+    good = "a.len_full >= 4 * a.chunk - 1"
+    assert src.count(good) == 1
+    out = tmp_path_factory.mktemp("broken_segment")
+    (out / "segment_fft.cuh").write_text(
+        src.replace(good, "a.len_full >= 3 * a.chunk - 1"))
+    for name in ("causal.cu", "causal_common.cuh", "fft_common.cuh",
+                 "mix_fft.cuh"):
+        (out / name).write_text((kb.CSRC_DIR / name).read_text())
+    lib = cuda_emulation.build(out / "causal.cu", out)
+    argtypes, restype = kb._SIGNATURES["fft_fused_causal_mix_direct"]
+    lib.fft_fused_causal_mix_direct.argtypes = argtypes
+    lib.fft_fused_causal_mix_direct.restype = restype
+    b, nc, chunk, d, cols = 1, 2, 600, 32, 2
+    cpu = torch.device("cpu")
+    length, full, _ = kc.segment_transform(chunk)
+    assert (length, full) == (2048, 4096)
+    seg = kc._segment_params(b, nc, chunk, d, cpu, 128)
+    short = kc._segment_tables(chunk, cpu)
+    seg[4], seg[5], seg[11] = short[2].data_ptr(), short[3].data_ptr(), \
+        length
+    v, kr, ki = _direct_mix_inputs(b, nc, chunk, d, cols, 1)
+    y, vfr, _ = _emulated_direct_mix(lib, v, kr, ki, chunk, cols, seg)
+    vf = kc.segment_spectra(v, chunk)
+    assert _rel(vfr[:, :1], vf.real[:, :1]) < TOL      # the half-zero one
+    assert _rel(vfr[:, 1:], vf.real[:, 1:]) > TOL
+    assert _rel(y, kc.fused_causal_mix_ref(v, kr, ki, chunk, cols)) > TOL
+
+
+@pytest.fixture(scope="module")
+def bwd_direct_lib(tmp_path_factory):
+    return _emulated(tmp_path_factory, "causal_bwd.cu",
+                     ("fft_fused_causal_mix_bwd_direct",))
+
+
+@pytest.mark.parametrize("b,nc,chunk,d,cols", [(1, 2, 600, 32, 2),
+                                               (1, 3, 129, 32, 4)])
+def test_emulated_direct_mix_bwd(bwd_direct_lib, b, nc, chunk, d, cols):
+    """The direct #10 (causal_bwd.cu, five launches, the first two
+    segment_fft_kernel's) against the plain adjoint, each output within
+    TOL; launch 2's A (scratch) is rfft_2C([0 | ybar_s]) times coef_f / 2C
+    with Im exactly 0 at DC and Nyquist."""
+    v, kr, ki = _direct_mix_inputs(b, nc, chunk, d, cols, chunk + 2)
+    ybar = _randn(torch.Generator().manual_seed(chunk + 3), b, nc * chunk, d)
+    f2 = chunk + 1
+    seg = kc._segment_params(b, nc, chunk, d, torch.device("cpu"),
+                             min(kc.segment_fft_threads(nc, chunk), 128))
+    vfr, vfi, rr, ri = (torch.full((b, nc, f2, d), float("nan"))
+                        for _ in range(4))
+    vbar = torch.full_like(v, float("nan"))
+    kbr, kbi = (torch.full_like(kr, float("nan")) for _ in range(2))
+    assert bwd_direct_lib.fft_fused_causal_mix_bwd_direct(
+        _ptr(v), _ptr(kr), _ptr(ki), _ptr(ybar), _ptr(_tw(chunk)),
+        _ptr(vfr), _ptr(vfi), _ptr(rr), _ptr(ri), _ptr(vbar), _ptr(kbr),
+        _ptr(kbi), ctypes.addressof(seg), b, nc, chunk, d, cols,
+        None) == 0
+    want = kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk, cols)
+    for got, w in zip((vbar, kbr, kbi), want):
+        assert _rel(got, w) < TOL
+    ys = ybar.reshape(b, nc, chunk, d)
+    a = torch.fft.rfft(torch.cat([torch.zeros_like(ys), ys], 2), dim=2)
+    coef = torch.full((f2, 1), 2.0 / (2 * chunk))
+    coef[0] = coef[-1] = 1.0 / (2 * chunk)
+    assert _rel(rr, a.real * coef) < TOL
+    assert _rel(ri[:, :, 1:chunk], (a.imag * coef)[:, :, 1:chunk]) < TOL
+    assert _spectra_exact_where_real(ri, chunk)
 
 
 def test_emulated_banded_refuses_what_it_does_not_take(causal_lib):
@@ -680,7 +823,8 @@ def test_emulated_banded_keeping_im_at_dc_and_nyquist_fails(
     out = tmp_path_factory.mktemp("broken_banded")
     broken = out / "causal.cu"
     broken.write_text(src.replace(good, ""))
-    for header in ("causal_common.cuh", "fft_common.cuh", "mix_fft.cuh"):
+    for header in ("causal_common.cuh", "fft_common.cuh", "mix_fft.cuh",
+                   "segment_fft.cuh"):
         (out / header).write_text((kb.CSRC_DIR / header).read_text())
     lib = cuda_emulation.build(broken, out)
     argtypes, restype = kb._SIGNATURES["fft_banded_inverse"]
@@ -1000,24 +1144,19 @@ def test_emulated_fused_causal_mix_bwd_fft_bf16(fft_lib, b, nc, chunk, d,
 
 
 @pytest.mark.parametrize("b,nc,chunk,d,cols", [(2, 2, 128, 32, 2),
-                                               (1, 3, 129, 32, 4)])
+                                               (1, 3, 129, 32, 4),
+                                               (1, 1, 600, 64, 4)])
 def test_emulated_direct_mix_bf16_runs_the_banded_body(causal_lib, b, nc,
                                                        chunk, d, cols):
-    """The direct #6's bf16 instance: segment_rfft_kernel widening bf16 v,
-    banded_fft_kernel rounding y on its store."""
-    g = torch.Generator().manual_seed(chunk + 1)
-    f2 = chunk + 1
-    v = _randn(g, b, nc * chunk, d).bfloat16()
-    kr, ki = (_randn(g, b, nc, f2, nc * cols) for _ in range(2))
-    _, _, np_, threads = kc.banded_fft_plan(chunk)
-    params = kc._banded_params(b, nc, chunk, d, cols, torch.device("cpu"),
-                               (np_, min(threads, 128)))
-    y = torch.empty_like(v)
-    vfr, vfi = torch.empty(b, nc, f2, d), torch.empty(b, nc, f2, d)
-    assert causal_lib.fft_fused_causal_mix_direct(
-        _ptr(v), _ptr(kr), _ptr(ki), _ptr(vfr), _ptr(vfi), _ptr(y),
-        ctypes.addressof(params), 1, None) == 0
+    """The direct #6's bf16 instance: segment_fft_kernel widening bf16 v
+    (its fp32 spectra within TOL of the windows' rfft_2C), banded_fft_kernel
+    rounding y on its store."""
+    v, kr, ki = _direct_mix_inputs(b, nc, chunk, d, cols, chunk + 1)
+    v = v.bfloat16()
+    y, vfr, vfi = _emulated_direct_mix(causal_lib, v, kr, ki, chunk, cols)
     assert _bf16_like(y, kc.fused_causal_mix_ref(v, kr, ki, chunk, cols))
+    vf = kc.segment_spectra(v, chunk)
+    assert _rel(vfr, vf.real) < TOL and _rel(vfi, vf.imag) < TOL
 
 
 # (b, n_fft, d, cols, memory) of #1 and #2 in bf16 with the wrappers'
