@@ -7,8 +7,11 @@ config 4, SPECTRE-350M at seq 16384 (24 layers, d=1024, 16 heads, vocab
 bf16 (#7's and #11's bf16 instances), with both LMs' decode through kernel
 #12, and in bf16 (ROADMAP item 3b) the tiny LM, the config-1 block at
 n_fft 1024-65536 and the 350M's prompts of 512 and 600 tokens (the bf16
-instances of #6, #10 and #1-#4),
-random weights from seed 0, through the port's own entry points.  The
+instances of #6, #10 and #1-#4), BASELINE config 3, the ViT
+(train-vit), and config 5, the hybrid SPECTRE + sliding-window LM (the
+tiny one in fp32 and bf16, the 1B at seq 32768 in bf16: training,
+scoring, hybrid_generate, train-hybrid), random weights from seed 0,
+through the port's own entry points.  The
 tiny LM's causal mix runs kernels #8 kf_spectra and #6 fused_causal_mix as
 shared-memory FFTs and its backward #10 fused_causal_mix_bwd as FFTs and
 bin-major sums (csrc/causal_fft.cu); their direct-DFT kernels
@@ -223,7 +226,7 @@ Phases, in order; any failure raises and the exit code is nonzero:
              plain version on the card, wall ms and one call profiled.
    8c.       (launch counts of their own) 350m_long: SPECTRE-350M at seq
              32768 and 65536 (chunk 2048, nc 16 and 32), fp32 and bf16.
-             Parity at 2 layers, full width, 32768 tokens, every run with
+             Parity at 1 layer, full width, 32768 tokens, every run with
              the modReLU sides of the card's bf16 run: a train_step's
              logits, loss and every gradient against the CPU
              (fp32: 1e-4 max-wise; bf16: the loss within 1e-2, the logits
@@ -234,7 +237,8 @@ Phases, in order; any failure raises and the exit code is nonzero:
              scoring 1 x S, a prefill of S/2 tokens, 8 decode steps (ms),
              3 train_steps (step ms, peak memory from a reset) and one
              under torch.profiler (busy ms, idle share); fp32 at 32768
-             scoring and one step only; kf_seg on every
+             scoring and one step only, at 65536 two steps and no
+             profile (the run's time limit); kf_seg on every
              forward, #9, #7 and #11 launched in the mode's instance only
              (the bf16 ones counted apart), #12 once a layer a decode
              step.  Then, in a temporary HOME, the CLI's train-lm
@@ -242,6 +246,29 @@ Phases, in order; any failure raises and the exit code is nonzero:
              default BPE corpus (native loader; finite losses, the second
              not above the first by 5%) and generate --preset 350m --seq
              65536 --bf16.
+9. vit       (launch counts of its own) the ViT, BASELINE config 3
+             (vit_s_config: 12 layers, d=384, 6 heads, L = 197, 1000
+             classes, the per-head cuFFT branch: no hand-written kernel
+             launches, which the phase checks): parity at 2 layers, B=32,
+             logits, loss and every gradient within 1e-4 of the CPU at the
+             wavelet rate 0.1 (eval: off) and 1.0; 6 train-vit steps
+             (vit_train_step) with the host's synthetic batch timed apart,
+             peak memory, 3 profiled; the CLI's train-vit for 3 steps
+             (phase_vit).
+10. hybrid   (launch counts of their own) the tiny hybrid in fp32 and
+             bf16 (parity of a train step with the CPU: 1e-4, or the bf16
+             rule with #6/#10 plain passing and a Kbar fault failing;
+             train steps at 1 x 2048, scoring, hybrid_generate, teacher-
+             forced decode against the CPU, the CLI's train-hybrid;
+             phase_hybrid_tiny), then the 1B hybrid, BASELINE config 5, at
+             seq 32768 in bf16, full depth (parity at one group at seq 8192
+             under the bf16 rule with #7/#11 plain passing and a Kbar fault
+             failing; 3 train steps at 1 x 32768 with peak memory, scoring,
+             hybrid_generate, the CLI's train-hybrid --preset 1b;
+             phase_hybrid_1b).  #8, #6, #10 (fp32 or bf16) and #12 on the
+             tiny hybrid's paths; #9, #7 and #11's bf16 instances and #12
+             on the 1B's; phase 2 holds each at these shapes against its
+             plain version (hybrid_cases).
 
 Prints one JSON line per phase, the card's name and power limit as
 nvidia-smi gives them, a JSON line of per-kernel results, and last
@@ -550,18 +577,21 @@ def phase_kernels(kc, sm, kd, dev):
                 ("fused_causal_mix_direct", kc.fused_causal_mix_direct),
                 ("fused_causal_mix_v3", lambda *a: kc._launch_mix(
                     "fused_causal_mix_v3", *a))):
+            main = nc == 16 and name == "fused_causal_mix"
             cases.append((
                 name, f"B={b} nc={nc} C={chunk} d={d} cols={cols}",
                 lambda fn=fn, v=v, kr=kr, ki=ki: fn(v, kr, ki, chunk, cols),
                 lambda v=v, kr=kr, ki=ki: kc.fused_causal_mix_ref(
                     v, kr, ki, chunk, cols),
-                None, (2 * vb + kb, 2 * seg + mac),
-                nc == 16 and name == "fused_causal_mix"))
+                (lambda v=v, kr=kr, ki=ki: lib_direct6(v, kr, ki, chunk,
+                                                       cols))
+                if main else None, (2 * vb + kb, 2 * seg + mac), main))
     cases += bwd_cases(kc, randn)
     cases += banded_cases(kc, randn, b, (4, 100), d, cols)
     cases += long_cases(kc, randn)
     cases += long_nc_cases(kc, randn)
     cases += decode_cases(kd, randn)
+    cases += hybrid_cases(kc, kd, randn)
     # the spectral mix: BASELINE config 1 (B=8, N=1024, d=512, H*G=32, with
     # and without memory), then N=2048 and N=256
     for n, mem in ((1024, True), (1024, False), (2048, True), (256, True)):
@@ -642,6 +672,8 @@ def run_cases(cases) -> dict:
                     library_device_ms=(None if lib is None or not main
                                        else device_ms(lib)),
                     bound_ms=bound_ms, bound_by=bound_by, main=main)
+        if hasattr(lib, "release"):
+            lib.release()            # lib_direct6_bwd's kept graph
         if fp32 is not None:
             case.update(fp32_case)
         emit(phase="kernels", kernel=name, **case)
@@ -681,12 +713,14 @@ def bwd_cases(kc, randn):
                             raise AssertionError(
                                 f"{name}: Kbar nonzero at c < delta {dl}")
                 return out
+            main = nc == 16 and name != "fused_causal_mix_bwd_v3"
             cases.append((
                 name, f"B={b} nc={nc} C={chunk} d={d} cols={cols}", kern,
                 lambda v=v, kr=kr, ki=ki, yb=ybar, c=chunk:
                     kc.fused_causal_mix_bwd_ref(v, kr, ki, yb, c, cols),
-                None, (3 * vb + 2 * kb, 3 * seg + 2 * mac),
-                nc == 16 and name != "fused_causal_mix_bwd_v3"))
+                lib_direct6_bwd(v, kr, ki, ybar, chunk, cols)
+                if main and name == "fused_causal_mix_bwd" else None,
+                (3 * vb + 2 * kb, 3 * seg + 2 * mac), main))
     return cases
 
 
@@ -1027,20 +1061,23 @@ def long_cases(kc, randn):
         kr, ki = (randn(b, nc, c + 1, nc * cols) for _ in range(2))
         vb, kb, mac, seg = causal_work(b, nc, c, d, cols)
         shape = f"B={b} nc={nc} C={c} d={d} cols={cols}"
+        main = nc == 8
         cases.append((
             "fused_causal_mix_v3", shape,
             lambda v=v, kr=kr, ki=ki, c=c: kc.fused_causal_mix(v, kr, ki, c,
                                                                cols),
             lambda v=v, kr=kr, ki=ki, c=c: kc.fused_causal_mix_ref(
                 v, kr, ki, c, cols),
-            None, (2 * vb + kb, 2 * seg + mac), nc == 8))
+            (lambda v=v, kr=kr, ki=ki, c=c: lib_direct6(v, kr, ki, c, cols))
+            if main else None, (2 * vb + kb, 2 * seg + mac), main))
         cases.append((
             "fused_causal_mix_bwd_v3", shape,
             lambda v=v, kr=kr, ki=ki, yb=ybar, c=c: kc.fused_causal_mix_bwd(
                 v, kr, ki, yb, c, cols),
             lambda v=v, kr=kr, ki=ki, yb=ybar, c=c:
                 kc.fused_causal_mix_bwd_ref(v, kr, ki, yb, c, cols),
-            None, (3 * vb + 2 * kb, 3 * seg + 2 * mac), nc == 8))
+            lib_direct6_bwd(v, kr, ki, ybar, c, cols) if main else None,
+            (3 * vb + 2 * kb, 3 * seg + 2 * mac), main))
     return cases + banded_cases(kc, randn, b, BANDED_LONG_CHUNKS, d, cols)
 
 
@@ -1076,21 +1113,24 @@ def long_nc_cases(kc, randn):
             vv, yy = v.to(dt), ybar.to(dt)
             act = vb * dt.itemsize // 4          # v's (or y's) bytes
             main = bool(suffix) and nc == 32
+            lib = not suffix or main
             cases.append((
                 "fused_causal_mix_v3" + suffix, shape,
                 lambda vv=vv, kr=kr, ki=ki: kc.fused_causal_mix(
                     vv, kr, ki, chunk, cols),
                 lambda vv=vv, kr=kr, ki=ki: kc.fused_causal_mix_ref(
                     vv, kr, ki, chunk, cols),
-                None, (2 * act + kb, 2 * seg + mac), main,
-                dict(quick, tol=tol)))
+                (lambda vv=vv, kr=kr, ki=ki: lib_direct6(
+                    vv, kr, ki, chunk, cols)) if lib else None,
+                (2 * act + kb, 2 * seg + mac), main, dict(quick, tol=tol)))
             cases.append((
                 "fused_causal_mix_bwd_v3" + suffix, shape,
                 lambda vv=vv, kr=kr, ki=ki, yy=yy: kc.fused_causal_mix_bwd(
                     vv, kr, ki, yy, chunk, cols),
                 lambda vv=vv, kr=kr, ki=ki, yy=yy:
                     kc.fused_causal_mix_bwd_ref(vv, kr, ki, yy, chunk, cols),
-                None, (3 * act + 2 * kb, 3 * seg + 2 * mac), main,
+                lib_direct6_bwd(vv, kr, ki, yy, chunk, cols) if lib else None,
+                (3 * act + 2 * kb, 3 * seg + 2 * mac), main,
                 dict(quick, tol=(tol, REL_KERNEL, REL_KERNEL))))
     return cases
 
@@ -1160,6 +1200,28 @@ def lib_direct6(v, kfr, kfi, c, cols):
             :, :nc - j]
     return torch.fft.irfft(acc.view(b, nc, f2, d), 2 * c, dim=2)[
         :, :, c:].reshape(b, n, d)
+
+
+def lib_direct6_bwd(v, kfr, kfi, ybar, c, cols):
+    """#10 and #11 as PyTorch ops (which the port never calls): the
+    backward of ``lib_direct6`` by autograd (the adjoint cuFFT transforms
+    and products), vbar and the K planes' cotangents Kbar for the
+    cotangent ybar.  Returns a call that runs the backward alone: the
+    forward graph is built on its first call (the timers' warm-up) and
+    kept, so a timed call is ``torch.autograd.grad(..., retain_graph=True)``
+    and nothing more; ``release()`` frees the graph."""
+    graph = []
+
+    def call():
+        if not graph:
+            ins = tuple(t.detach().float().requires_grad_()
+                        for t in (v, kfr, kfi))
+            graph.append((lib_direct6(*ins, c, cols), ins))
+        out, ins = graph[0]
+        return torch.autograd.grad(out, ins, ybar.float(), retain_graph=True)
+
+    call.release = graph.clear
+    return call
 
 
 # (B, nc, C, d, cols) of the direct #6 in phase 2, fp32: the 350M's prompt
@@ -1372,17 +1434,121 @@ def banded_launch_split(kc, randn) -> list:
     return rows
 
 
-def decode_cases(kd, randn):
+def hybrid_cases(kc, kd, randn):
+    """The hybrid LMs' shapes: the tiny hybrid's layer (tiny_hybrid_cases)
+    and the 1B's (hybrid_1b_cases), then #12 at both (hd 64: B=1, H=4, n
+    2048; hd 128: B=1, H=16, n 32768, 2 rows of 128 threads a block)."""
+    return (tiny_hybrid_cases(kc, randn) + hybrid_1b_cases(kc, randn)
+            + decode_cases(kd, randn, ((1, 4, 2048, 64),
+                                       (1, 16, 32768, 128)), False))
+
+
+def kf_case(kc, randn, n, chunk, lanes, label):
+    """#8 at B=1 (n_fft n, chunk, lanes gate lanes) beside its cuFFT
+    composition."""
+    nc = n // chunk
+    gr, gi = randn(1, n // 2 + 1, lanes), randn(1, n // 2 + 1, lanes)
+    return (
+        "kf_spectra", f"B=1 n_fft={n} C={chunk} L={lanes} ({label})",
+        lambda: kc.kf_spectra(gr, gi, n, chunk),
+        lambda: kc.kf_spectra_ref(gr, gi, n, chunk),
+        lambda: torch.fft.rfft(torch.fft.irfft(
+            torch.complex(gr, gi), n, dim=1).reshape(1, nc, chunk, lanes),
+            2 * chunk, dim=2),
+        (4 * 2 * (n // 2 + 1) * lanes + 4 * 2 * nc * (chunk + 1) * lanes,
+         lanes * (fft_ops(n) + nc * fft_ops(2 * chunk))), False)
+
+
+def tiny_hybrid_cases(kc, randn):
+    """The tiny hybrid's layer (B=1, seq 2048, d=256, 4 heads x 4 groups =
+    16 gate columns, chunk 256, nc 8): #8 over its nc x 16 = 128 gate
+    lanes beside its cuFFT composition, #6 and #10 in fp32 and bf16 (their
+    FFT kernels' plans at 2C = 512) beside theirs (lib_direct6 and
+    autograd through it)."""
+    n, chunk, d, cols = 2048, 256, 256, 16
+    nc = n // chunk
+    cases = [kf_case(kc, randn, n, chunk, nc * cols, "tiny hybrid")]
+    vb, kb, mac, seg = causal_work(1, nc, chunk, d, cols)
+    kr, ki = (randn(1, nc, chunk + 1, nc * cols) for _ in range(2))
+    v32, y32 = randn(1, n, d), randn(1, n, d)
+    shape = f"B=1 nc={nc} C={chunk} d={d} cols={cols} (tiny hybrid)"
+    for dt, suffix, tol in ((torch.float32, "", REL_KERNEL),
+                            (torch.bfloat16, "_bf16", REL_BF16)):
+        v, yb = v32.to(dt), y32.to(dt)
+        act = vb * dt.itemsize // 4
+        cases.append((
+            "fused_causal_mix" + suffix, shape,
+            lambda v=v: kc.fused_causal_mix(v, kr, ki, chunk, cols),
+            lambda v=v: kc.fused_causal_mix_ref(v, kr, ki, chunk, cols),
+            lambda v=v: lib_direct6(v, kr, ki, chunk, cols),
+            (2 * act + kb, 2 * seg + mac), False, dict(tol=tol)))
+        cases.append((
+            "fused_causal_mix_bwd" + suffix, shape,
+            lambda v=v, yb=yb: kc.fused_causal_mix_bwd(v, kr, ki, yb, chunk,
+                                                       cols),
+            lambda v=v, yb=yb: kc.fused_causal_mix_bwd_ref(v, kr, ki, yb,
+                                                           chunk, cols),
+            lib_direct6_bwd(v, kr, ki, yb, chunk, cols),
+            (3 * act + 2 * kb, 3 * seg + 2 * mac), False,
+            dict(tol=(tol, REL_KERNEL, REL_KERNEL))))
+    return cases
+
+
+def hybrid_1b_cases(kc, randn):
+    """The 1B hybrid's layer (B=1, seq 32768, d=2048, 16 heads x 4 groups
+    = 64 gate columns, chunk 1024, nc 32, bf16): #9 over its 2048 lanes,
+    the bf16 instances of #7 and #11, each beside its cuFFT composition;
+    fewer timed calls (the plain versions take tens of ms).  And #8 at its
+    parity's seq 8192 (nc 8: 512 gate lanes, which #8 takes whole)."""
+    cases = [kf_case(kc, randn, 8192, 1024, 8 * 64, "1B hybrid, seq 8192")]
+    quick = dict(reps=2, rounds=3)
+    n, chunk, d, cols = 32768, 1024, 2048, 64
+    nc = n // chunk
+    lanes = nc * cols
+    kt = randn(1, n, lanes)
+    cases.append((
+        "kf_seg_rfft", f"B=1 N={n} C={chunk} L={lanes} (1B hybrid)",
+        lambda: kc.kf_seg_rfft(kt, chunk),
+        lambda: kc.kf_seg_rfft_ref(kt, chunk),
+        lambda: torch.fft.rfft(kt.view(1, nc, chunk, lanes), 2 * chunk,
+                               dim=2),
+        (4 * n * lanes + 4 * 2 * nc * (chunk + 1) * lanes,
+         lanes * nc * fft_ops(2 * chunk)), False, quick))
+    vb, kb, mac, seg = causal_work(1, nc, chunk, d, cols)
+    kr, ki = (randn(1, nc, chunk + 1, nc * cols) for _ in range(2))
+    v = randn(1, n, d).to(torch.bfloat16)
+    yb = randn(1, n, d).to(torch.bfloat16)
+    shape = f"B=1 nc={nc} C={chunk} d={d} cols={cols} (1B hybrid)"
+    # v and y (ybar and vbar, v) at 2 bytes: vb is v's fp32 bytes
+    cases.append((
+        "fused_causal_mix_v3_bf16", shape,
+        lambda: kc.fused_causal_mix(v, kr, ki, chunk, cols),
+        lambda: kc.fused_causal_mix_ref(v, kr, ki, chunk, cols),
+        lambda: lib_direct6(v, kr, ki, chunk, cols),
+        (vb + kb, 2 * seg + mac), False, dict(quick, tol=REL_BF16)))
+    cases.append((
+        "fused_causal_mix_bwd_v3_bf16", shape,
+        lambda: kc.fused_causal_mix_bwd(v, kr, ki, yb, chunk, cols),
+        lambda: kc.fused_causal_mix_bwd_ref(v, kr, ki, yb, chunk, cols),
+        lib_direct6_bwd(v, kr, ki, yb, chunk, cols),
+        (3 * vb // 2 + 2 * kb, 3 * seg + 2 * mac), False,
+        dict(quick, tol=(REL_BF16, REL_KERNEL, REL_KERNEL))))
+    return cases
+
+
+def decode_cases(kd, randn, shapes=((4, 8, 2048, 64), (1, 16, 16384, 64)),
+                 mains=True):
     """#12 at the tiny LM's decode shape (B=4, H=8, n 2048) and the 350M's
     (B=1, H=16, n 16384), hd 64, 4 gate groups: evict 0 at the first step
     after a 1024-token prompt (the generate paths' steps) and evict 1 at
-    the window's last slot.  The kernel and the plain version each update
+    the window's last slot (``shapes``: (B, H, n, hd); the hybrids' too,
+    without ``mains``).  The kernel and the plain version each update
     their own copy of one prefix in place; the first calls are compared
     (the prefix and y each on its own), later ones only timed.  No PyTorch
     call computes the fused step (library_ms null)."""
     cases = []
-    for b, h, n in ((4, 8, 2048), (1, 16, 16384)):
-        hd, groups, f = 64, 4, n // 2 + 1
+    for b, h, n, hd in shapes:
+        groups, f = 4, n // 2 + 1
         for evict, j in ((0, 1024), (1, n - 1)):
             prefix = torch.complex(randn(b, h, f, hd), randn(b, h, f, hd))
             gate = torch.complex(randn(b, h, groups, f),
@@ -1407,7 +1573,7 @@ def decode_cases(kd, randn):
                 "fused_decode_mix",
                 f"B={b} H={h} n={n} hd={hd} G={groups} evict={evict}",
                 kern, plain, None, (nbytes, 14 * b * h * f * hd),
-                n == 16384 and evict == 0))
+                mains and n == 16384 and evict == 0))
     return cases
 
 
@@ -1489,7 +1655,8 @@ def bf16_causal_cases(kc, randn):
                     kc.fused_causal_mix_bwd(v, kr, ki, yb, c, g),
                 lambda v=v, kr=kr, ki=ki, yb=ybar, c=chunk, g=cols:
                     kc.fused_causal_mix_bwd_ref(v, kr, ki, yb, c, g),
-                None, (3 * act + 2 * kb, 3 * seg + 2 * mac), main,
+                lib_direct6_bwd(v, kr, ki, ybar, chunk, cols),
+                (3 * act + 2 * kb, 3 * seg + 2 * mac), main,
                 dict(tol=(REL_BF16, REL_KERNEL, REL_KERNEL),
                      fp32=lambda v=v32, kr=kr, ki=ki, yb=y32, c=chunk,
                      g=cols: kc.fused_causal_mix_bwd(v, kr, ki, yb, c, g))))
@@ -1501,7 +1668,7 @@ def bf16_causal_cases(kc, randn):
             lambda v=v, kr=kr, ki=ki, c=chunk, g=cols:
                 kc.fused_causal_mix_ref(v, kr, ki, c, g),
             (lambda v=v, kr=kr, ki=ki, c=chunk, g=cols: lib_direct6(
-                v, kr, ki, c, g)) if "direct" in name else None,
+                v, kr, ki, c, g)) if main else None,
             (2 * act + kb, 2 * seg + mac), main,
             dict(tol=REL_BF16, fp32=lambda v=v32, kr=kr, ki=ki, c=chunk,
                  g=cols: kc.fused_causal_mix(v, kr, ki, c, g))))
@@ -2485,16 +2652,23 @@ def phase_350m(dev, kd, reset_launches, launches):
 
 
 def long_parity_run(cfg, device, tokens, sides, record, swap=None) -> dict:
-    """One train_step of ``cfg`` from seed 0 on ``device``: its loss, its
+    """One train step of ``cfg`` (an LMConfig: train_step; a HybridConfig:
+    hybrid_train_step) from seed 0 on ``device``: its loss, its
     parameter gradients (fp32, on the CPU) and the logits of its forward
     (fp32, left on ``device``; the train loss's chunked head, kept as its
     forward makes them: no scoring pass of its own), the modReLUs on the
     sides in ``sides`` (a list; ``record``: this run appends its own).
     ``swap``: functions of ``kernels.causal`` replaced for the run (by
-    name), for the checks' controls."""
+    name), for the checks' controls.  On the CPU the reference recomputes
+    nothing (remat off, the chunked CE's chunks not checkpointed): the
+    same function with a quarter less CPU work; every forward records its
+    modReLU sides before any recompute does, so the recomputes' entries
+    are left over."""
     from fft_tpu_torch.kernels import causal as kc
+    from fft_tpu_torch.models.hybrid import HybridConfig, hybrid_init
     from fft_tpu_torch.models.lm import lm_init
-    from fft_tpu_torch.train import TrainConfig, loop, train_init, train_step
+    from fft_tpu_torch.train import (
+        TrainConfig, hybrid_train_step, loop, train_init, train_step)
 
     seq = tokens.shape[1] - 1
     flips, chunks = [], []
@@ -2506,18 +2680,28 @@ def long_parity_run(cfg, device, tokens, sides, record, swap=None) -> dict:
             chunks.append(out.detach())
         return out
 
-    state = train_init(lm_init(cfg, torch.Generator().manual_seed(SEED),
-                               device), TrainConfig(), seed=SEED + 1)
+    hybrid = isinstance(cfg, HybridConfig)
+    cpu = torch.device(device).type == "cpu"
+    if cpu:
+        cfg = dataclasses.replace(cfg, remat=False)
+    init = hybrid_init if hybrid else lm_init
+    state = train_init(init(cfg, torch.Generator().manual_seed(SEED), device),
+                       TrainConfig(), seed=SEED + 1, deterministic=hybrid)
+    step = hybrid_train_step if hybrid else train_step
+    ckpt = loop.checkpoint
     loop.head_logits = keep_head
+    if cpu:
+        loop.checkpoint = lambda fn, *a, **kw: fn(*a)
     for k, fn in (swap or {}).items():
         setattr(kc, k, fn)
     try:
         with same_modrelu_side(record, sides if record else list(sides),
                                flips):
-            loss = float(train_step(state, tokens.numpy().astype("int32"))[
+            loss = float(step(state, tokens.numpy().astype("int32"))[
                 "loss"])
     finally:
         loop.head_logits = head
+        loop.checkpoint = ckpt
         for k, fn in kept.items():
             setattr(kc, k, fn)
     grads = {n: p.grad.detach().float().cpu()
@@ -2577,7 +2761,7 @@ def drop_last_lag(vbar, kbr, kbi):
 
 
 def phase_350m_long_parity(dev, kc) -> dict:
-    """SPECTRE-350M cut to 2 layers at seq 32768 (nc = 16, the kf_seg
+    """SPECTRE-350M cut to 1 layer at seq 32768 (nc = 16, the kf_seg
     branch), full width, in fp32 and in bf16, every run with the modReLUs
     on the sides the card's bf16 run took (same_modrelu_side): a
     train_step's logits, loss and every gradient on the card against the
@@ -2597,7 +2781,7 @@ def phase_350m_long_parity(dev, kc) -> dict:
     from fft_tpu_torch.models.lm import spectre_350m_config
 
     seq = LONG_SEQS[0]
-    base = dataclasses.replace(spectre_350m_config(seq=seq), num_layers=2)
+    base = dataclasses.replace(spectre_350m_config(seq=seq), num_layers=1)
     tokens = torch.randint(0, base.vocab_size, (1, seq + 1),
                            generator=torch.Generator().manual_seed(SEED + 5))
     cfgs = {mode: dataclasses.replace(base, block=dataclasses.replace(
@@ -3167,12 +3351,14 @@ def serve_long(model, x, reset_launches, launches, light=False) -> dict:
     return res
 
 
-def train_long(model, reset_launches, launches, light=False) -> dict:
-    """3 train_steps of one 350M configuration at 1 x S on launch counts of
-    their own (step ms, peak memory from a reset, finite losses), then one
-    more under torch.profiler (device busy ms, wall ms, causal_long.cu's
-    kernels by name); ``light``: one step, no profile.  #9 and #7 launched twice a layer a step (the
-    forward and its recompute), #11 once, the mode's instances only."""
+def train_long(model, reset_launches, launches, steps: int = 3,
+               profile: bool = True) -> dict:
+    """``steps`` train_steps of one 350M configuration at 1 x S on launch
+    counts of their own (step ms, peak memory from a reset, finite losses),
+    then, with ``profile``, one more under torch.profiler (device busy ms,
+    wall ms, causal_long.cu's kernels by name).  #9 and #7 launched twice a
+    layer a step (the forward and its recompute), #11 once, the mode's
+    instances only."""
     from fft_tpu_torch import bench
     from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS
     from fft_tpu_torch.train import TrainConfig, train_init, train_step
@@ -3186,7 +3372,7 @@ def train_long(model, reset_launches, launches, light=False) -> dict:
     state = train_init(model, TrainConfig(), seed=SEED + 1)
     batches = [torch.randint(0, cfg.vocab_size, (1, seq + 1),
                              generator=torch.Generator().manual_seed(s))
-               for s in range(1 if light else 3)]
+               for s in range(steps)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
@@ -3197,15 +3383,15 @@ def train_long(model, reset_launches, launches, light=False) -> dict:
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
     peak = torch.cuda.max_memory_allocated()
-    prof = None if light else bench._profile(
+    prof = bench._profile(
         lambda: train_step(state, batches[0]), torch.cuda.synchronize, 1,
-        LONG_KERNEL_NAMES)
+        LONG_KERNEL_NAMES) if profile else None
     del state
     for p in model.parameters():
         p.grad = None
     model.eval()
     used = launches()
-    steps = len(batches) + (0 if light else 1)
+    steps = len(batches) + int(profile)
     ms = statistics.median(step_ms[1:] or step_ms)
     res = dict(step_ms=step_ms, median_step_ms=ms,
                tokens_per_s=seq / (ms / 1e3),
@@ -3227,8 +3413,9 @@ def train_long(model, reset_launches, launches, light=False) -> dict:
 def phase_350m_long(dev, reset_launches, launches):
     """SPECTRE-350M at seq 32768 and 65536, full depth, in fp32 and in bf16
     (the same weights from seed 0 in both modes): each configuration's
-    serving path (serve_long) and training path (train_long), fp32 at
-    32768 as scoring and one step (``light``); then the
+    serving path (serve_long) and training path (train_long): fp32 at
+    32768 as scoring and one step (``light``), fp32 at 65536 with two steps
+    and no profile (the run's time limit); then the
     CLI at seq 65536 in bf16, in a temporary HOME: train-lm --preset 350m
     --bf16 --steps 2 --batch 1 on the default BPE corpus (through the
     native loader; losses finite and not rising by more than 5%), and
@@ -3265,11 +3452,15 @@ def phase_350m_long(dev, reset_launches, launches):
                 model.load_state_dict(init)
                 model.eval()
             t0 = time.perf_counter()
-            # fp32 at 32768: scoring and one step (the run's time limit)
+            # fp32 at 32768: scoring and one step; at 65536 two steps and
+            # no profile (the run's time limit)
             light = (seq, mode) == (LONG_SEQS[0], "float32")
             serve = serve_long(model, x, reset_launches, launches, light)
             add("serve", launches())
-            train = train_long(model, reset_launches, launches, light)
+            fp32 = mode == "float32"
+            train = train_long(model, reset_launches, launches,
+                               steps=1 if light else 2 if fp32 else 3,
+                               profile=not fp32)
             add("train", launches())
             emit(phase="350m_long", seq=seq, mode=mode, params=params,
                  chunk=model.cfg.block.causal_chunk, serve=serve,
@@ -3549,6 +3740,453 @@ def phase_350m_ckpt(dev, reset_launches, launches):
     return serve, train
 
 
+# the ViT (config 3): its train step's batch
+VIT_BATCH = 32
+# the hybrids' paths: the tiny hybrid in each mode (#8, #6 and #10 by their
+# FFT kernels, #12; in fp32 #5 too, at the 24-token forward that the
+# decode check compares with), the 1B in bf16 (#9, #7 and #11, #12)
+HYBRID_TINY_KERNELS = {
+    "float32": ("kf_spectra", "fused_causal_mix", "fused_causal_mix_bwd",
+                "fused_decode_mix", "banded_inverse"),
+    "bfloat16": ("kf_spectra", "fused_causal_mix_bf16",
+                 "fused_causal_mix_bwd_bf16", "fused_decode_mix")}
+HYBRID_1B_KERNELS = ("kf_seg_rfft", "fused_causal_mix_v3_bf16",
+                     "fused_causal_mix_bwd_v3_bf16", "fused_decode_mix")
+
+
+def launched(used: dict, allowed) -> dict:
+    """The kernels of ``used`` launched outside ``allowed``."""
+    return {k: v for k, v in used.items() if v and k not in allowed}
+
+
+def cli_lines(argv) -> list:
+    """The JSON lines ``cli.main(argv)`` prints, each loss finite."""
+    from fft_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    recs = [json.loads(line) for line in buf.getvalue().splitlines()
+            if line.startswith("{")]
+    if not recs or not all(math.isfinite(r["loss"]) for r in recs):
+        raise AssertionError(f"cli {argv} printed {buf.getvalue()!r}")
+    return recs
+
+
+def vit_parity(cfg, dev, imgs, labels) -> dict:
+    """The classification loss of ``cfg`` from seed 0 in eval mode (JAX's
+    deterministic rule: the wavelet on at rate >= 1, off below), forward
+    and backward on the card and on the CPU, modReLU sides aligned: the
+    logits, the loss and every gradient."""
+    from fft_tpu_torch.models.vit import vit_apply, vit_init
+
+    out, sides, flips = {}, [], []
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        model = vit_init(cfg, torch.Generator().manual_seed(SEED), device)
+        record = name == "card"
+        with same_modrelu_side(record, sides if record else list(sides),
+                               None if record else flips):
+            logits = vit_apply(model, torch.from_numpy(imgs).to(device))
+            loss = torch.nn.functional.cross_entropy(
+                logits, torch.from_numpy(labels).to(device).long())
+            loss.backward()
+        out[name] = dict(
+            logits=logits.detach().cpu(), loss=float(loss),
+            grads={n: p.grad.cpu() for n, p in model.named_parameters()
+                   if p.grad is not None})
+    card, cpu = out["card"], out["cpu"]
+    if sorted(card["grads"]) != sorted(cpu["grads"]):
+        raise AssertionError("vit parity: gradients on one device only")
+    grads = {n: rel_err(g, cpu["grads"][n]) for n, g in card["grads"].items()}
+    worst = max(grads, key=grads.get)
+    return dict(logits_rel_err=rel_err(card["logits"], cpu["logits"]),
+                loss=card["loss"], cpu_loss=cpu["loss"],
+                loss_rel_err=abs(card["loss"] - cpu["loss"]) / cpu["loss"],
+                tensors=len(grads), worst_grad=worst,
+                max_grad_rel_err=grads[worst],
+                modrelu_sides_moved=sum(flips),
+                finite=all_finite(card["logits"]) and math.isfinite(
+                    card["loss"]))
+
+
+def phase_vit(dev) -> None:
+    """The ViT, BASELINE config 3 (vit_s_config: 12 layers, d=384, 6
+    heads, n_fft 256, L = 197, 1000 classes, wavelet 0.1, fft_impl
+    "auto": the per-head cuFFT branch, no hand-written kernel).  Parity
+    at 2 layers, full width, B=32 (one synthetic batch): the logits, loss
+    and every gradient within REL_MODEL of the CPU, in eval mode at the
+    config's rate 0.1 (the wavelet off) and at rate 1.0 (on, the Haar
+    pyramid at the odd length 197).  Then 6 train-vit steps at full depth
+    (vit_train_step, optax.adamw's update; the masks drawn in train mode):
+    the host's synthetic batch (32 x 224 x 224 x 3 float32 from numpy)
+    timed apart from the step, step ms (median of steps 2-5), peak
+    memory, 3 profiled (busy, wall, idle share); the CLI's train-vit for 3
+    steps.  No kernel launched; every multihead took the per-head branch."""
+    from fft_tpu_torch import bench
+    from fft_tpu_torch.kernels import causal as kc
+    from fft_tpu_torch.kernels import decode as kd
+    from fft_tpu_torch.kernels import spectral_mix as sm
+    from fft_tpu_torch.layers.spectre import MIX_BRANCH_CALLS
+    from fft_tpu_torch.models.vit import vit_init, vit_s_config
+    from fft_tpu_torch.train import train_init, vit_train_config, \
+        vit_train_step
+    from fft_tpu_torch.train.images import synthetic_image_batches
+
+    cfg = vit_s_config()
+    MIX_BRANCH_CALLS.clear()
+    batches = synthetic_image_batches(VIT_BATCH, cfg.image_size,
+                                      cfg.num_classes, seed=SEED)
+    imgs, labels = next(batches)
+    for rate in (cfg.block.wavelet_on_rate, 1.0):
+        pcfg = dataclasses.replace(cfg, num_layers=2, block=dataclasses.replace(
+            cfg.block, wavelet_on_rate=rate))
+        res = vit_parity(pcfg, dev, imgs, labels)
+        emit(phase="vit_parity", layers=2, batch=VIT_BATCH,
+             seq=cfg.seq_len, wavelet_on_rate=rate, limit=REL_MODEL, **res)
+        if not (res["finite"] and res["logits_rel_err"] <= REL_MODEL
+                and res["loss_rel_err"] <= REL_MODEL
+                and res["max_grad_rel_err"] <= REL_MODEL):
+            raise AssertionError(f"vit parity at rate {rate}: {res}")
+
+    state = train_init(vit_init(cfg, torch.Generator().manual_seed(SEED), dev),
+                       vit_train_config(3e-4), seed=SEED)
+    params = sum(p.numel() for p in state.model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    host_ms, step_ms, losses = [], [], []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        imgs, labels = next(batches)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        m = vit_train_step(state, imgs, labels)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"vit train: losses {losses}")
+    ms = statistics.median(step_ms[1:5])
+    prof = bench._profile(lambda: vit_train_step(state, imgs, labels),
+                          torch.cuda.synchronize, 3)
+    emit(phase="vit_train", batch=VIT_BATCH, seq=cfg.seq_len,
+         layers=cfg.num_layers, params=params, host_batch_ms=host_ms,
+         step_ms=step_ms, median_step_ms=ms,
+         images_per_s=VIT_BATCH / (ms / 1e3), loss=losses,
+         peak_memory_bytes=peak, profile=prof)
+    del state
+    recs = cli_lines(["train-vit", "--device", "cuda", "--steps", "3",
+                      "--log-every", "1"])
+    emit(phase="vit_cli_train_vit", steps=3, lines=recs)
+    used = {**kc.LAUNCHES, **sm.LAUNCHES, **kd.LAUNCHES}
+    branches = dict(MIX_BRANCH_CALLS)
+    if any(used.values()) or set(branches) != {"per_head"}:
+        raise AssertionError(f"vit: kernels launched {launched(used, ())}, "
+                             f"branches {branches}")
+
+
+def hybrid_bf16(cfg):
+    """``cfg`` (a HybridConfig) with its blocks in bf16."""
+    return dataclasses.replace(cfg, block=dataclasses.replace(
+        cfg.block, compute_dtype="bfloat16"))
+
+
+def hybrid_parity(cfg, dev, tokens, controls, label) -> dict:
+    """A hybrid train step on the card against the CPU (long_parity_run,
+    the card's modReLU sides): fp32 within REL_MODEL max-wise; bf16 under
+    bf16_model_ok, with ``controls`` ({name: swap}) run on the card
+    through the same check, "plain..." passing and the fault failing."""
+    from fft_tpu_torch.kernels import causal as kc
+    from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS
+
+    kc.reset_launches()
+    BRANCH_CALLS.clear()
+    sides = []
+    card = long_parity_run(cfg, dev, tokens, sides, record=True)
+    torch.cuda.synchronize()
+    used = {k: v for k, v in kc.LAUNCHES.items() if v}
+    branches = dict(BRANCH_CALLS)
+    ref = long_parity_run(cfg, "cpu", tokens, sides, False)
+    res = parity_errs(card, ref)
+    finite = all_finite(card["logits"]) and math.isfinite(card["loss"])
+    bf16 = cfg.block.compute_dtype == "bfloat16"
+    control = None
+    if bf16:
+        control = {name: control_summary(parity_errs(long_parity_run(
+            cfg, dev, tokens, sides, False, swap), ref))
+            for name, swap in controls.items()}
+        ok = bf16_model_ok(res) and all(
+            c["passed"] == name.startswith("plain")
+            for name, c in control.items())
+    else:
+        ok = (res["logits_rel_err"] <= REL_MODEL
+              and res["loss_rel_err"] <= REL_MODEL
+              and res["max_grad_rel_err"] <= REL_MODEL)
+    emit(phase=label, mode=cfg.block.compute_dtype, groups=cfg.num_groups,
+         seq=tokens.shape[1] - 1, chunk=cfg.block.causal_chunk,
+         limit=(dict(loss=REL_BF16, logits=REL_BF16_LOGITS,
+                     grads=REL_BF16_MODEL) if bf16 else REL_MODEL),
+         loss=card["loss"], cpu_loss=ref["loss"],
+         modrelu_sides_moved=dict(card=card["flips"], cpu=ref["flips"]),
+         branches=branches, launches=used, control=control,
+         **{k: v for k, v in res.items() if k != "grads"},
+         grads={k: v[0] for k, v in res["grads"].items()})
+    if not (finite and ok):
+        raise AssertionError(f"{label} {cfg.block.compute_dtype}: logits "
+                             f"{res['logits_rel_err']}, loss "
+                             f"{res['loss_rel_err']}, worst gradient "
+                             f"{res['worst_grad']} {res['max_grad_rel_err']}"
+                             f"; control {control}")
+    return dict(branches=branches, launches=used)
+
+
+def hybrid_train_run(cfg, dev, tokens, steps: int, profiled: int):
+    """``steps`` hybrid_train_steps of ``cfg`` from seed 0 on ``tokens``
+    (a list of (B, N+1) batches, one a step), then ``profiled`` more under
+    torch.profiler: (step ms, peak memory (from a reset), losses, busy and
+    wall; the trained model in eval mode, its optimizer dropped)."""
+    from fft_tpu_torch import bench
+    from fft_tpu_torch.models.hybrid import hybrid_init
+    from fft_tpu_torch.train import TrainConfig, hybrid_train_step, \
+        train_init
+
+    state = train_init(hybrid_init(cfg, torch.Generator().manual_seed(SEED),
+                                   dev), TrainConfig(), seed=SEED + 1,
+                       deterministic=True)
+    params = sum(p.numel() for p in state.model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        m = hybrid_train_step(state, tokens[i % len(tokens)])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"hybrid train: losses {losses}")
+    prof = bench._profile(lambda: hybrid_train_step(state, tokens[0]),
+                          torch.cuda.synchronize, profiled,
+                          LONG_KERNEL_NAMES + BWD_KERNEL_NAMES)
+    model = state.model
+    del state
+    for p in model.parameters():
+        p.grad = None
+    torch.cuda.empty_cache()
+    return dict(batch=tokens[0].shape[0], seq=tokens[0].shape[1] - 1,
+                params=params, step_ms=step_ms,
+                median_step_ms=statistics.median(step_ms[1:]),
+                loss=losses, peak_memory_bytes=peak, profile=prof), model
+
+
+def hybrid_decode_check(model, model_cpu, toks, dev) -> dict:
+    """Teacher-forced decode of ``toks`` (B, T) from empty caches on the
+    card against the CPU, step by step (REL_MODEL each), and against
+    hybrid_apply on the card: equal at position 0 (REL_MODEL), where the
+    decode's gate descriptor (the window's query sum over N) is the
+    forward's chunk gate; past it the descriptors differ inside a chunk
+    (the reported max).  hybrid_apply at T < chunk tokens takes #5 (chunk
+    = T, nc = 1)."""
+    from fft_tpu_torch.models.hybrid import (
+        hybrid_apply, hybrid_decode_init, hybrid_decode_step)
+
+    fwd = hybrid_apply(model, toks.to(dev))
+    caches = hybrid_decode_init(model, toks.shape[0])
+    ref_caches = hybrid_decode_init(model_cpu, toks.shape[0])
+    errs, vs_fwd = [], []
+    for i in range(toks.shape[1]):
+        logits, caches = hybrid_decode_step(model, toks[:, i].to(dev), i,
+                                            caches)
+        ref, ref_caches = hybrid_decode_step(model_cpu, toks[:, i], i,
+                                             ref_caches)
+        if not all_finite(logits):
+            raise AssertionError(f"hybrid decode step {i}: non-finite")
+        errs.append(rel_err(logits, ref))
+        vs_fwd.append(rel_err(logits, fwd[:, i]))
+    res = dict(steps=toks.shape[1], decode_rel_err=max(errs),
+               vs_apply_first=vs_fwd[0], vs_apply_max=max(vs_fwd))
+    if not (res["decode_rel_err"] <= REL_MODEL
+            and res["vs_apply_first"] <= REL_MODEL):
+        raise AssertionError(f"hybrid decode: {res}")
+    return res
+
+
+def generate_run(model, prompt, steps: int) -> dict:
+    """hybrid_generate of ``steps`` greedy tokens from ``prompt`` (fed
+    token by token), twice: the second's ms a decode step (length + steps
+    - 1 steps) and #12's launches in it."""
+    from fft_tpu_torch.kernels import decode as kd
+    from fft_tpu_torch.models.hybrid import hybrid_generate
+
+    hybrid_generate(model, prompt, steps)
+    torch.cuda.synchronize()
+    before = kd.LAUNCHES["fused_decode_mix"]
+    t0 = time.perf_counter()
+    out = hybrid_generate(model, prompt, steps)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    n = prompt.shape[1] + steps - 1
+    cfg = model.cfg
+    layers = cfg.num_groups * cfg.spectre_per_group
+    launches = kd.LAUNCHES["fused_decode_mix"] - before
+    if not (out.shape == (prompt.shape[0], steps) and int(out.min()) >= 0
+            and int(out.max()) < cfg.vocab_size and launches == layers * n):
+        raise AssertionError(f"hybrid_generate: {tuple(out.shape)}, "
+                             f"#12 launched {launches} (not {layers} x {n})")
+    return dict(prompt=prompt.shape[1], steps=steps, decode_steps=n,
+                ms=ms, ms_per_decode_step=ms / n,
+                fused_decode_launches=launches)
+
+
+def phase_hybrid_tiny(dev, kc, reset_launches, launches) -> dict:
+    """The tiny hybrid (hybrid_tiny_config: 2 x (SPECTRE + SWA), d=256, 4
+    heads x 4 groups, seq 2048, chunk 256, nc 8, window 256) in fp32 and
+    bf16.  Each mode: a train step at 1 x 2048 on the card against the CPU
+    (hybrid_parity; bf16 with #6 and #10 by their plain versions passing
+    and #10's Kbar without its farthest lag failing); then, on launch
+    counts of the mode's own, 5 train steps at 1 x 2048 and 2 profiled,
+    scoring 1 x 2048, hybrid_generate of 32 tokens from a 16-token prompt
+    (ms a decode step, #12 once a SPECTRE layer a step), and the CLI's
+    train-hybrid for 3 steps (--bf16 in bf16).  In fp32 also 24
+    teacher-forced decode steps against the CPU (hybrid_decode_check;
+    decode is fp32 in both modes).  Each mode launches its kernels
+    (HYBRID_TINY_KERNELS) and no other causal kernel.  Returns the
+    launches by mode."""
+    from fft_tpu_torch import bench
+    from fft_tpu_torch.models.hybrid import (
+        hybrid_apply, hybrid_init, hybrid_tiny_config)
+    from fft_tpu_torch.train.data import CharDataset
+
+    data = CharDataset()
+    base = hybrid_tiny_config()
+    seq = base.max_seq
+    batches = data.batches(1, seq, seed=SEED)
+    tokens = [torch.from_numpy(next(batches)) for _ in range(5)]
+    out = {}
+    for mode in ("float32", "bfloat16"):
+        cfg = base if mode == "float32" else hybrid_bf16(base)
+        bwd = kc.fused_causal_mix_bwd
+        par = hybrid_parity(cfg, dev, tokens[0], {
+            "plain_6_10": {"_fused_causal_mix": kc.fused_causal_mix_ref,
+                           "fused_causal_mix_bwd": kc.fused_causal_mix_bwd_ref},
+            "kbar_farthest_lag_dropped": {
+                "fused_causal_mix_bwd": lambda *a: drop_last_lag(*bwd(*a))}},
+            "hybrid_tiny_parity")
+        reset_launches()
+        train, model = hybrid_train_run(cfg, dev, tokens, 5, 2)
+        x = tokens[0][:, :-1].to(dev)
+        logits = hybrid_apply(model, x)
+        if not (logits.shape == (1, seq, cfg.vocab_size)
+                and all_finite(logits)):
+            raise AssertionError("hybrid tiny score: bad shape or non-finite")
+        score_ms = wall_ms(lambda: hybrid_apply(model, x))
+        score_prof = bench._profile(lambda: hybrid_apply(model, x),
+                                    torch.cuda.synchronize, 3)
+        gen = generate_run(model, x[:, :16], 32)
+        decode = None
+        if mode == "float32":
+            model_cpu = hybrid_init(cfg, torch.Generator(), "cpu")
+            model_cpu.load_state_dict(model.state_dict())
+            decode = hybrid_decode_check(model, model_cpu,
+                                         tokens[1][:, :24], dev)
+            del model_cpu
+        del model, logits
+        argv = ["train-hybrid", "--device", "cuda", "--steps", "3",
+                "--log-every", "1"] + (["--bf16"] if mode != "float32"
+                                       else [])
+        recs = cli_lines(argv)
+        used = launches()
+        wrong = launched(used, HYBRID_TINY_KERNELS[mode])
+        missing = [k for k in HYBRID_TINY_KERNELS[mode] if not used[k]]
+        emit(phase="hybrid_tiny", mode=mode, params=train["params"],
+             train=train, score_batch=1, seq=seq, score_ms=score_ms,
+             score_tokens_per_s=seq / (score_ms / 1e3),
+             score_profile=score_prof, generate=gen, decode=decode,
+             cli_train_hybrid=recs, parity_branches=par["branches"],
+             launches={k: v for k, v in used.items() if v})
+        if missing or wrong:
+            raise AssertionError(f"hybrid tiny {mode}: never launched "
+                                 f"{missing}; launched {wrong}")
+        out[mode] = used
+    return out
+
+
+def phase_hybrid_1b(dev, kc, reset_launches, launches) -> dict:
+    """The 1B hybrid, BASELINE config 5 (hybrid_1b_config(seq=32768): 8 x
+    (SPECTRE + SWA) = 16 layers, d=2048, 16 heads x 4 groups, chunk 1024,
+    nc 32, window 1024, bf16, group remat), full depth.  Parity first, at
+    one group (SPECTRE + SWA) of hybrid_1b_config(seq=8192), the same
+    widths at nc 8 (the kf_fused branch: #8 over the 512 gate lanes, then
+    #7; #11 backward): a train step's bf16 loss, logits and every gradient
+    on the card against the CPU's bf16 (bf16_model_ok), with #7 and #11 by
+    their plain versions passing and #11's Kbar without its farthest lag
+    failing.  Then, on launch counts of their own: 3 train steps at 1 x
+    32768 (step ms, peak memory from a reset) and one profiled (busy,
+    wall); with the trained weights scoring 1 x 32768 (hybrid_apply: ms, one call profiled);
+    hybrid_generate of 8 tokens from an 8-token prompt (ms a decode step,
+    #12 once a SPECTRE layer a step); the CLI's train-hybrid --preset 1b
+    --seq 32768 --steps 2.  #9, #7 and #11 in their bf16 instances and
+    #12 launched, no fp32 instance.  Returns the launches."""
+    from fft_tpu_torch import bench
+    from fft_tpu_torch.models.hybrid import hybrid_1b_config, hybrid_apply
+
+    cfg = hybrid_1b_config(seq=32768)
+    pcfg = dataclasses.replace(hybrid_1b_config(seq=8192), num_groups=1)
+    g = torch.Generator().manual_seed(SEED + 7)
+    ptoks = torch.randint(0, cfg.vocab_size, (1, pcfg.max_seq + 1),
+                          generator=g)
+    bwd = kc.fused_causal_mix_bwd
+    t0 = time.perf_counter()
+    par = hybrid_parity(pcfg, dev, ptoks, {
+        "plain_7_11": {"_fused_causal_mix": kc.fused_causal_mix_ref,
+                       "fused_causal_mix_bwd": kc.fused_causal_mix_bwd_ref},
+        "kbar_farthest_lag_dropped": {
+            "fused_causal_mix_bwd": lambda *a: drop_last_lag(*bwd(*a))}},
+        "hybrid_1b_parity")
+    parity_s = time.perf_counter() - t0
+    # at seq 8192 #8 takes the gate lanes (nc x 64 = 512) whole: kf_fused
+    parity_kernels = ("kf_spectra",) + HYBRID_1B_KERNELS[1:3]
+    if (par["branches"] != {"kf_fused": 2}
+            or not all(par["launches"].get(k) for k in parity_kernels)
+            or launched(par["launches"], parity_kernels)):
+        raise AssertionError(f"hybrid 1b parity took {par}")
+
+    reset_launches()
+    tokens = [torch.randint(0, cfg.vocab_size, (1, cfg.max_seq + 1),
+                            generator=g) for _ in range(2)]
+    train, model = hybrid_train_run(cfg, dev, tokens, 3, 1)
+    x = tokens[0][:, :-1].to(dev)
+    logits = hybrid_apply(model, x)
+    if not (logits.shape == (1, cfg.max_seq, cfg.vocab_size)
+            and all_finite(logits)):
+        raise AssertionError("hybrid 1b score: bad shape or non-finite")
+    del logits
+    score_ms = wall_ms(lambda: hybrid_apply(model, x), rounds=3)
+    score_prof = bench._profile(lambda: hybrid_apply(model, x),
+                                torch.cuda.synchronize, 1,
+                                LONG_KERNEL_NAMES)
+    gen = generate_run(model, x[:, :8], 8)
+    del model, x
+    torch.cuda.empty_cache()
+    recs = cli_lines(["train-hybrid", "--device", "cuda", "--preset", "1b",
+                      "--seq", str(cfg.max_seq), "--steps", "2",
+                      "--log-every", "1"])
+    used = launches()
+    wrong = launched(used, HYBRID_1B_KERNELS)
+    missing = [k for k in HYBRID_1B_KERNELS if not used[k]]
+    emit(phase="hybrid_1b", params=train["params"], layers=cfg.num_layers,
+         parity_seconds=parity_s, train=train, score_batch=1,
+         seq=cfg.max_seq, score_ms=score_ms,
+         score_tokens_per_s=cfg.max_seq / (score_ms / 1e3),
+         score_profile=score_prof, generate=gen, cli_train_hybrid=recs,
+         launches={k: v for k, v in used.items() if v})
+    if missing or wrong:
+        raise AssertionError(f"hybrid 1b: never launched {missing}; "
+                             f"launched {wrong}")
+    return used
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3804,6 +4442,17 @@ def main() -> int:
                                                        launches)
     mark("350m_long")
 
+    # 9. the ViT (config 3) ------------------------------------------------
+    reset_launches()                          # the ViT's path: no kernel
+    phase_vit(dev)
+    mark("vit")
+
+    # 10. the hybrid LMs (config 5) ----------------------------------------
+    hybrid_tiny = phase_hybrid_tiny(dev, kc, reset_launches, launches)
+    mark("hybrid_tiny")
+    hybrid_1b = phase_hybrid_1b(dev, kc, reset_launches, launches)
+    mark("hybrid_1b")
+
     summary = []
     for name, cases in kernel_results.items():
         main_case = next(c for c in cases if c["main"])
@@ -3822,7 +4471,10 @@ def main() -> int:
                        cli_350m_long=cli_long.get(name, 0),
                        tiny_bf16=tiny_bf16_launches[name],
                        block_bf16=block_bf16_launches[name],
-                       short_350m=short_launches[name])
+                       short_350m=short_launches[name],
+                       hybrid_tiny=hybrid_tiny["float32"][name],
+                       hybrid_tiny_bf16=hybrid_tiny["bfloat16"][name],
+                       hybrid_1b=hybrid_1b[name])
         summary.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=sum(by_path.values()),

@@ -1,5 +1,5 @@
 """Command-line entry point (mirror of ``fft_tpu/cli.py``: ``train-lm``,
-``tokenize`` and ``generate``).
+``train-hybrid``, ``train-vit``, ``tokenize`` and ``generate``).
 
 Usage:
     python -m fft_tpu_torch.cli train-lm [--preset tiny|350m] [--steps N]
@@ -13,9 +13,17 @@ Usage:
         [--ckpt DIR] [--vocab FILE] [--vocab-size V] [--prompt TEXT]
         [--steps N] [--temperature T] [--seed S] [--bf16]
         [--device cuda|cpu]
+    python -m fft_tpu_torch.cli train-hybrid [--preset tiny|1b] [--steps N]
+        [--batch B] [--seq L] [--lr LR] [--data FILE] [--ckpt DIR]
+        [--ckpt-every N] [--resume] [--bf16] [--metrics FILE]
+        [--log-every N] [--eval-every N] [--seed S] [--device cuda|cpu]
+    python -m fft_tpu_torch.cli train-vit [--steps N] [--batch B]
+        [--data DIR] [--classes K] [--layers L] [--lr LR] [--ckpt DIR]
+        [--ckpt-every N] [--resume] [--metrics FILE] [--log-every N]
+        [--seed S] [--device cuda|cpu]
 
-``train-lm`` and ``generate`` run on the card unless ``--device cpu`` is
-given; without a card they fail at once.  Training reads a text file or a
+The training commands and ``generate`` run on the card unless ``--device
+cpu`` is given; without a card they fail at once.  Training reads a text file or a
 ``.tokens`` BPE stream (with its ``.vocab.json`` sidecar, from
 ``tokenize``) through the native C++ loader, falling back to the Python
 one as the JAX CLI does; without ``--data`` the tiny preset trains on the
@@ -31,11 +39,20 @@ instances of its kernels (#6 and #10 on the tiny preset and the 350M's
 short prompts, #7 and #11 on the 350M's long chunks).  Flags of
 the JAX CLI whose modules are still queued raise ``NotImplementedError``
 naming their ROADMAP.md item.
+
+``train-hybrid`` trains the hybrid SPECTRE + sliding-window LM (config 5;
+``--preset 1b`` is d=2048 at seq 32768 in bf16 with group remat) on
+byte-level windows of ``--data`` or the synthetic corpus, as the JAX CLI's
+``CharDataset``; ``train-vit`` trains the ViT (config 3) on an image
+folder (``--data``, which sets ``--classes``) or synthetic
+class-conditional images, with ``optax.adamw(lr)``'s update
+(``vit_train_config``).  Both checkpoint and resume as ``train-lm``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -119,11 +136,11 @@ def _make_batches(args, data_path, token_mode: bool, seed: int):
 
 def cmd_train_lm(args) -> None:
     from fft_tpu_torch.models.lm import lm_init
-    from fft_tpu_torch.train import TrainConfig, train_init
+    from fft_tpu_torch.train import TrainConfig, lm_loss, train_init, \
+        train_step
     from fft_tpu_torch.train.bpe import Tokenizer, is_token_file, \
         vocab_sidecar
-    from fft_tpu_torch.train.checkpoint import (
-        AsyncCheckpointWriter, latest_step, restore_checkpoint)
+    from fft_tpu_torch.train.checkpoint import AsyncCheckpointWriter
     from fft_tpu_torch.utils import MetricsLogger, resolve_device
 
     for flag, value, item in (
@@ -145,12 +162,7 @@ def cmd_train_lm(args) -> None:
     model = lm_init(cfg, torch.Generator().manual_seed(args.seed), device)
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps)
     state = train_init(model, tcfg, seed=args.seed + 1)
-
-    start = 0
-    if args.resume and args.ckpt and latest_step(args.ckpt) is not None:
-        restore_checkpoint(args.ckpt, state)
-        start = state.step
-        print(f"resumed at step {start}")
+    start = _resume(args, state)
 
     # Resumed runs re-seed by the resumed step so the stream continues with
     # fresh batches instead of repeating the run's first ones.
@@ -166,15 +178,22 @@ def cmd_train_lm(args) -> None:
     # step FFT_TPU_FAULT_STEP on fresh runs only (a transient failure: a
     # resumed run sails past it).
     fault_step = int(os.environ.get("FFT_TPU_FAULT_STEP", "0"))
-    try:
+    with _draining(ckpt_writer, logger):
         _train_lm_loop(args, state, batches, eval_batches, ckpt_writer,
-                       logger, start, fault_step)
+                       logger, start, fault_step, train_step, lm_loss)
+
+
+@contextlib.contextmanager
+def _draining(ckpt_writer, logger):
+    """Close the logger and drain any in-flight checkpoint write, even when
+    the loop raises: a crash must not lose the last checkpoint the
+    supervisor resumes from.  A deferred write error must not replace a
+    training exception already propagating (the real crash cause): it is
+    logged."""
+    try:
+        yield
     finally:
         logger.close()
-        # Drain any in-flight checkpoint write even when the loop raises: a
-        # crash must not lose the last checkpoint the supervisor resumes
-        # from.  A deferred write error must not replace a training
-        # exception already propagating (the real crash cause): log it.
         if ckpt_writer is not None:
             in_flight_exc = sys.exc_info()[0] is not None
             try:
@@ -186,26 +205,37 @@ def cmd_train_lm(args) -> None:
                       f"handling: {ckpt_err!r}", file=sys.stderr)
 
 
-def _train_lm_loop(args, state, batches, eval_batches, ckpt_writer, logger,
-                   start: int, fault_step: int) -> None:
-    from fft_tpu_torch.train import lm_loss, train_step
+def _final_save(args, state, ckpt_writer, start: int) -> None:
+    """The last checkpoint, unless the loop just wrote it or the run
+    resumed past its end (writing the restored state under a directory
+    named args.steps would mislabel it)."""
+    if (ckpt_writer is not None and start < args.steps
+            and args.steps % args.ckpt_every != 0):
+        ckpt_writer.save(state, args.steps)
 
+
+def _train_lm_loop(args, state, batches, eval_batches, ckpt_writer, logger,
+                   start: int, fault_step: int, step_fn, eval_loss) -> None:
+    """The LM loops of train-lm and train-hybrid: ``step_fn(state,
+    batch)`` a step, ``eval_loss(model, tokens)`` on the held-out stream
+    every ``--eval-every`` steps, in eval mode."""
     model = state.model
     device = model.tok_emb.device
     tokens_per_step = args.batch * args.seq
     for i, batch in zip(range(start, args.steps), batches):
         if fault_step and start == 0 and i + 1 == fault_step:
             raise RuntimeError(f"injected fault at step {i + 1}")
-        metrics = train_step(state, batch)
+        metrics = step_fn(state, batch)
         if i % args.log_every == 0 or i == args.steps - 1:
             rec = {"loss": metrics["loss"],
                    "grad_norm": metrics["grad_norm"]}
             if eval_batches is not None and i % args.eval_every == 0:
+                mode = model.training
                 model.eval()
                 with torch.no_grad():
-                    ce = float(lm_loss(model, torch.as_tensor(
+                    ce = float(eval_loss(model, torch.as_tensor(
                         next(eval_batches)).to(device, torch.int64)))
-                model.train()
+                model.train(mode)
                 rec["eval_loss"] = ce
                 rec["eval_ppl"] = float(np.exp(min(ce, 20.0)))
             logger.log(i, rec, tokens=tokens_per_step)
@@ -213,12 +243,101 @@ def _train_lm_loop(args, state, batches, eval_batches, ckpt_writer, logger,
             # the snapshot to host memory is synchronous; the disk write
             # overlaps the next training steps
             ckpt_writer.save(state, i + 1)
-    # Final save, unless the loop just checkpointed the last step or the
-    # run resumed past its end (writing the restored state under a
-    # directory named args.steps would mislabel it).
-    if (ckpt_writer is not None and start < args.steps
-            and args.steps % args.ckpt_every != 0):
-        ckpt_writer.save(state, args.steps)
+    _final_save(args, state, ckpt_writer, start)
+
+
+def _resume(args, state) -> int:
+    """Restore the latest checkpoint under ``--ckpt`` into ``state`` with
+    ``--resume``; the step to start from."""
+    from fft_tpu_torch.train.checkpoint import latest_step, restore_checkpoint
+    if args.resume and args.ckpt and latest_step(args.ckpt) is not None:
+        restore_checkpoint(args.ckpt, state)
+        print(f"resumed at step {state.step}")
+        return state.step
+    return 0
+
+
+def cmd_train_hybrid(args) -> None:
+    """Train the hybrid SPECTRE + SWA LM (BASELINE config 5) on byte-level
+    windows of ``--data`` (else the synthetic corpus)."""
+    from fft_tpu_torch.models.hybrid import (
+        hybrid_1b_config, hybrid_init, hybrid_tiny_config)
+    from fft_tpu_torch.train import (
+        TrainConfig, hybrid_loss, hybrid_train_step, train_init)
+    from fft_tpu_torch.train.checkpoint import AsyncCheckpointWriter
+    from fft_tpu_torch.train.data import CharDataset
+    from fft_tpu_torch.utils import MetricsLogger, resolve_device
+
+    for flag, value, item in (
+            ("--profile", args.profile, "module 7b, utils/prof.py"),
+            ("--dp", args.dp > 1, _PARALLEL),
+            ("--sp", args.sp > 1, _PARALLEL + " (the SWA halo exchange)")):
+        if value:
+            raise _not_ported(flag, item)
+
+    device = resolve_device(args.device)
+    make = hybrid_1b_config if args.preset == "1b" else hybrid_tiny_config
+    cfg = make(seq=args.seq)
+    if args.bf16:
+        cfg = dataclasses.replace(cfg, block=dataclasses.replace(
+            cfg.block, compute_dtype="bfloat16"))
+    model = hybrid_init(cfg, torch.Generator().manual_seed(args.seed), device)
+    tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps)
+    state = train_init(model, tcfg, seed=args.seed + 1, deterministic=True)
+    start = _resume(args, state)
+
+    data = CharDataset(path=args.data)
+    batches = data.batches(args.batch, args.seq, seed=args.seed + start)
+    eval_batches = (data.batches(args.batch, args.seq, seed=args.seed + 7919)
+                    if args.eval_every else None)
+    ckpt_writer = AsyncCheckpointWriter(args.ckpt) if args.ckpt else None
+    logger = MetricsLogger(args.metrics, print_every=args.log_every)
+    with _draining(ckpt_writer, logger):
+        _train_lm_loop(args, state, batches, eval_batches, ckpt_writer,
+                       logger, start, 0, hybrid_train_step, hybrid_loss)
+
+
+def cmd_train_vit(args) -> None:
+    """Train the ViT (BASELINE config 3) on an image folder (``--data``)
+    or synthetic class-conditional images."""
+    from fft_tpu_torch.models.vit import ViTConfig, vit_init
+    from fft_tpu_torch.train import train_init, vit_train_config, \
+        vit_train_step
+    from fft_tpu_torch.train.checkpoint import AsyncCheckpointWriter
+    from fft_tpu_torch.train.images import (ImageFolderDataset,
+                                            synthetic_image_batches)
+    from fft_tpu_torch.utils import MetricsLogger, resolve_device
+
+    device = resolve_device(args.device)
+    dataset = None
+    if args.data is not None:
+        dataset = ImageFolderDataset(args.data)
+        if args.classes != dataset.num_classes:
+            print(f"--classes {args.classes} -> {dataset.num_classes} "
+                  f"(from {args.data})")
+            args.classes = dataset.num_classes
+    cfg = ViTConfig(num_classes=args.classes, num_layers=args.layers)
+    model = vit_init(cfg, torch.Generator().manual_seed(args.seed), device)
+    state = train_init(model, vit_train_config(args.lr), seed=args.seed)
+    start = _resume(args, state)
+
+    # resumed runs continue the data stream from the restored step
+    batches = (dataset.batches(args.batch, seed=args.seed + start)
+               if dataset is not None
+               else synthetic_image_batches(args.batch, cfg.image_size,
+                                            args.classes,
+                                            seed=args.seed + start))
+    ckpt_writer = AsyncCheckpointWriter(args.ckpt) if args.ckpt else None
+    logger = MetricsLogger(args.metrics, print_every=args.log_every)
+    with _draining(ckpt_writer, logger):
+        for i in range(start, args.steps):
+            imgs, labels = next(batches)
+            metrics = vit_train_step(state, imgs, labels)
+            if i % args.log_every == 0:
+                logger.log(i, {"loss": metrics["loss"]})
+            if ckpt_writer is not None and (i + 1) % args.ckpt_every == 0:
+                ckpt_writer.save(state, i + 1)
+        _final_save(args, state, ckpt_writer, start)
 
 
 def cmd_tokenize(args) -> None:
@@ -305,6 +424,47 @@ def main(argv=None):
     lm.add_argument("--device", default="cuda",
                     help="torch device: cuda (the default) or cpu")
     lm.set_defaults(fn=cmd_train_lm)
+
+    hy = sub.add_parser("train-hybrid")
+    hy.add_argument("--preset", default="tiny", choices=["tiny", "1b"])
+    hy.add_argument("--steps", type=int, default=1000)
+    hy.add_argument("--batch", type=int, default=1)
+    hy.add_argument("--seq", type=int, default=2048)
+    hy.add_argument("--lr", type=float, default=1e-4)
+    hy.add_argument("--data", default=None, help="text corpus (byte-level)")
+    hy.add_argument("--ckpt", default=None)
+    hy.add_argument("--ckpt-every", type=int, default=500)
+    hy.add_argument("--resume", action="store_true")
+    hy.add_argument("--bf16", action="store_true")
+    hy.add_argument("--metrics", default=None, help="JSONL metrics file")
+    hy.add_argument("--log-every", type=int, default=10)
+    hy.add_argument("--eval-every", type=int, default=0)
+    hy.add_argument("--profile", default=None)
+    hy.add_argument("--dp", type=int, default=1)
+    hy.add_argument("--sp", type=int, default=1)
+    hy.add_argument("--seed", type=int, default=0)
+    hy.add_argument("--device", default="cuda",
+                    help="torch device: cuda (the default) or cpu")
+    hy.set_defaults(fn=cmd_train_hybrid)
+
+    vit = sub.add_parser("train-vit")
+    vit.add_argument("--steps", type=int, default=100)
+    vit.add_argument("--batch", type=int, default=32)
+    vit.add_argument("--data", default=None,
+                     help="ImageFolder root (class-per-subdir); default: "
+                          "synthetic class-conditional images")
+    vit.add_argument("--classes", type=int, default=1000)
+    vit.add_argument("--layers", type=int, default=12)
+    vit.add_argument("--lr", type=float, default=3e-4)
+    vit.add_argument("--ckpt", default=None)
+    vit.add_argument("--ckpt-every", type=int, default=100)
+    vit.add_argument("--resume", action="store_true")
+    vit.add_argument("--metrics", default=None, help="JSONL metrics file")
+    vit.add_argument("--log-every", type=int, default=10)
+    vit.add_argument("--seed", type=int, default=0)
+    vit.add_argument("--device", default="cuda",
+                     help="torch device: cuda (the default) or cpu")
+    vit.set_defaults(fn=cmd_train_vit)
 
     tz = sub.add_parser("tokenize")
     tz.add_argument("--data", default=None,

@@ -1,7 +1,8 @@
 """Weight bridge between the JAX parameter trees and the port's
 ``state_dict``s: one SPECTRE block (``spectre_block_init``'s tree <->
-``SpectreBlock.state_dict()``) and the LM, which stacks the block's tree
-over layers.
+``SpectreBlock.state_dict()``), the LM and the ViT, which stack the
+block's tree over layers, and the hybrid LM, which stacks its SPECTRE
+blocks over (group, block) and its attention blocks over groups.
 
 The JAX trees are taken as nested dicts of numpy arrays
 (``jax.tree.map(np.asarray, params)``).  Their layout:
@@ -17,11 +18,12 @@ The JAX trees are taken as nested dicts of numpy arrays
 
 Both directions only transpose and slice, so a round trip is bit-exact.
 
-The decode caches bridge too (``cache_from_jax``/``cache_to_jax``), so both
-sides can start from one state: JAX's ``PrefixFFTCache`` keeps the window
-rFFT as real ``prefix_re``/``prefix_im`` planes and, for the LM, stacks
-every field over layers; the port keeps one complex64 ``prefix`` and a list
-of caches, one a layer.
+The decode caches bridge too (``cache_from_jax``/``cache_to_jax``, and
+``swa_cache_from_jax``/``swa_cache_to_jax`` for the attention blocks' ring
+caches), so both sides can start from one state: JAX's ``PrefixFFTCache``
+keeps the window rFFT as real ``prefix_re``/``prefix_im`` planes and, for
+the LM, stacks every field over layers; the port keeps one complex64
+``prefix`` and a list of caches, one a layer.
 """
 
 from __future__ import annotations
@@ -33,7 +35,10 @@ import torch
 
 from fft_tpu_torch.config import SpectreConfig
 from fft_tpu_torch.decode.cache import PrefixFFTCache
+from fft_tpu_torch.layers.attention import SWACache
+from fft_tpu_torch.models.hybrid import HybridConfig
 from fft_tpu_torch.models.lm import LMConfig
+from fft_tpu_torch.models.vit import ViTConfig
 
 # port name in SpectreHeads -> (JAX path under "heads", is a linear kernel)
 _HEAD_KEYS = {
@@ -171,6 +176,111 @@ def to_jax_params(state_dict, cfg: LMConfig):
         "ln_f": {"scale": arr("ln_f.weight"), "bias": arr("ln_f.bias")},
         "blocks": _stack(blocks),
     }
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, order="C"))           # a copy
+
+
+def _index(tree, idx):
+    """Nested dicts of stacked arrays -> the same, each leaf at ``idx``."""
+    if isinstance(tree, dict):
+        return {k: _index(v, idx) for k, v in tree.items()}
+    return np.asarray(tree)[idx]
+
+
+def _linear(lin) -> Dict[str, torch.Tensor]:
+    """A JAX linear {w (fan_in, fan_out)[, b]} -> weight (fan_out, fan_in)
+    [and bias]."""
+    sd = {"weight": _t(np.swapaxes(np.asarray(lin["w"]), -1, -2))}
+    if "b" in lin:
+        sd["bias"] = _t(lin["b"])
+    return sd
+
+
+def _layernorm(ln) -> Dict[str, torch.Tensor]:
+    return {"weight": _t(ln["scale"]), "bias": _t(ln["bias"])}
+
+
+def _prefixed(prefix: str, sd: Dict[str, torch.Tensor]):
+    return {f"{prefix}.{k}": t for k, t in sd.items()}
+
+
+def vit_from_jax_params(tree, cfg: ViTConfig) -> Dict[str, torch.Tensor]:
+    """JAX ViT params (nested dicts of numpy arrays, blocks stacked over
+    layers) -> the port's ``state_dict`` for ``ViT(cfg)``."""
+    sd = {"cls_token": _t(tree["cls_token"]), "pos_emb": _t(tree["pos_emb"])}
+    sd.update(_prefixed("patch_proj", _linear(tree["patch_proj"])))
+    sd.update(_prefixed("head", _linear(tree["head"])))
+    sd.update(_prefixed("ln_f", _layernorm(tree["ln_f"])))
+    for i in range(cfg.num_layers):
+        sd.update(_prefixed(f"blocks.{i}", block_from_jax_params(
+            tree["blocks"], cfg.block, layer=i)))
+    return sd
+
+
+def swa_block_from_jax_params(tree) -> Dict[str, torch.Tensor]:
+    """JAX ``swa_block_init`` params -> the port's ``SWABlock``
+    ``state_dict``."""
+    sd = {}
+    for name in ("ln1", "ln2"):
+        sd.update(_prefixed(name, _layernorm(tree[name])))
+    for name in ("w_q", "w_k", "w_v", "w_o"):
+        sd.update(_prefixed(f"attn.{name}", _linear(tree["attn"][name])))
+    for name in ("fc1", "fc2"):
+        sd.update(_prefixed(f"mlp.{name}", _linear(tree["mlp"][name])))
+    return sd
+
+
+def hybrid_from_jax_params(tree, cfg: HybridConfig
+                           ) -> Dict[str, torch.Tensor]:
+    """JAX hybrid params (nested dicts of numpy arrays: ``spectre`` stacked
+    over (G, S, ...), ``attn`` over (G, ...)) -> the port's ``state_dict``
+    for ``HybridLM(cfg)``."""
+    sd = {"tok_emb": _t(tree["tok_emb"]), "pos_emb": _t(tree["pos_emb"])}
+    sd.update(_prefixed("ln_f", _layernorm(tree["ln_f"])))
+    for g in range(cfg.num_groups):
+        for s in range(cfg.spectre_per_group):
+            sd.update(_prefixed(f"spectre.{g}.{s}", block_from_jax_params(
+                _index(tree["spectre"], (g, s)), cfg.block)))
+        sd.update(_prefixed(f"attn.{g}", swa_block_from_jax_params(
+            _index(tree["attn"], g))))
+    return sd
+
+
+def swa_cache_from_jax(tree, device=None
+                       ) -> Union[SWACache, List[SWACache]]:
+    """JAX's ``SWACache`` (its NamedTuple, or a dict with its field names)
+    -> the port's on ``device``, or a list of caches, one a group, when
+    the fields are stacked over groups (``t`` of shape (G,))."""
+    fields = {k: np.asarray(tree[k] if isinstance(tree, dict)
+                            else getattr(tree, k))
+              for k in ("k_buf", "v_buf", "t")}
+
+    def one(i):
+        a = {k: (v if i is None else v[i]) for k, v in fields.items()}
+        return SWACache(
+            k_buf=_t(a["k_buf"].astype(np.float32)).to(device),
+            v_buf=_t(a["v_buf"].astype(np.float32)).to(device),
+            t=int(a["t"]))
+
+    if fields["t"].ndim == 0:
+        return one(None)
+    return [one(i) for i in range(fields["t"].shape[0])]
+
+
+def swa_cache_to_jax(caches: Union[SWACache, List[SWACache]]):
+    """The port's ring cache (or list, one a group) -> a dict of numpy
+    arrays with the fields of JAX's ``SWACache`` (stacked over groups for
+    a list)."""
+    def one(c: SWACache):
+        return {"k_buf": np.ascontiguousarray(c.k_buf.detach().cpu().numpy()),
+                "v_buf": np.ascontiguousarray(c.v_buf.detach().cpu().numpy()),
+                "t": np.asarray(c.t, np.int32)}
+
+    if isinstance(caches, SWACache):
+        return one(caches)
+    return _stack([one(c) for c in caches])
 
 
 _CACHE_FIELDS = ("prefix_re", "prefix_im", "v_buf", "q_buf", "sum_q", "t")

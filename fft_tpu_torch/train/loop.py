@@ -1,16 +1,19 @@
 """Training loop (mirror of ``fft_tpu/train/loop.py``): AdamW with global-
 norm clipping and a warmup-cosine schedule, written out as optax composes
-them, the chunked next-token loss, and the train step.
+them, the chunked next-token loss, the hybrid LM's loss and the ViT's
+classification loss, and the train steps.
 
 Everything trains except the frozen spectral memory, which is a buffer of
 ``SpectreBlock`` and so is outside the optimizer, as ``optax.masked`` keeps
 it in the JAX package.  Unlike ``torch.optim.AdamW`` the update follows
 optax to the formula: weight decay on every parameter (LayerNorms, biases
 and embeddings included), no epsilon added to the clipping norm, lr 0 at
-the first update.
+the first update.  ``train-vit`` uses ``optax.adamw(lr)`` alone (no clip,
+a constant rate, b2 0.999, weight decay 1e-4): ``vit_train_config`` gives
+the same AdamW those settings.
 
-The JAX train step is a pure function of its state; here ``train_step``
-updates the model, the optimizer's moments and the step count in place.
+The JAX train step is a pure function of its state; here the steps update
+the model, the optimizer's moments and the step count in place.
 """
 
 from __future__ import annotations
@@ -24,9 +27,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from fft_tpu_torch.layers.common import DTYPES
+from fft_tpu_torch.models.hybrid import (
+    HybridLM, hybrid_head_matrix, hybrid_hidden,
+)
 from fft_tpu_torch.models.lm import (
     SpectreLM, head_logits, lm_head_matrix, lm_hidden,
 )
+from fft_tpu_torch.models.vit import ViT, vit_apply
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,12 +44,24 @@ class TrainConfig:
     beta2: float = 0.95
     warmup_steps: int = 100
     total_steps: int = 10000
-    grad_clip: float = 1.0
+    # None: no clipping (optax.adamw alone, as train-vit's)
+    grad_clip: Optional[float] = 1.0
     min_lr_ratio: float = 0.1
     # AdamW first-moment dtype: None (the parameters', fp32) or "bfloat16"
     # (stored in bf16, as optax's adamw(mu_dtype=...)); the second moment
     # stays fp32
     mu_dtype: Optional[str] = None
+
+
+def vit_train_config(learning_rate: float) -> TrainConfig:
+    """``optax.adamw(learning_rate)`` as ``cli train-vit`` builds it: b1
+    0.9, b2 0.999, eps 1e-8, weight decay 1e-4 on every parameter, a
+    constant rate, no clipping.  No warmup and an end value equal to the
+    peak make ``make_schedule`` give exactly ``learning_rate`` at every
+    count."""
+    return TrainConfig(learning_rate=learning_rate, weight_decay=1e-4,
+                       beta2=0.999, grad_clip=None, warmup_steps=0,
+                       min_lr_ratio=1.0)
 
 
 def make_schedule(tcfg: TrainConfig) -> Callable[[int], float]:
@@ -76,7 +95,8 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 
 class AdamW:
     """``optax.chain(clip_by_global_norm(grad_clip), adamw(schedule, b1, b2,
-    eps=1e-8, weight_decay, mu_dtype))`` over ``params``:
+    eps=1e-8, weight_decay, mu_dtype))`` over ``params`` (without the clip
+    where ``grad_clip`` is None):
 
         g      = g                       if |g| < grad_clip
                  g / |g| * grad_clip     otherwise
@@ -121,8 +141,9 @@ class AdamW:
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self.params, grads)]
         norm = global_norm(grads)
-        grads = torch._foreach_mul(grads, torch.where(
-            norm < c.grad_clip, 1.0, c.grad_clip / norm))
+        if c.grad_clip is not None:
+            grads = torch._foreach_mul(grads, torch.where(
+                norm < c.grad_clip, 1.0, c.grad_clip / norm))
         lr = self.schedule(self.count)
         self.count += 1
         bc1 = 1.0 - c.beta1 ** self.count
@@ -189,36 +210,61 @@ def lm_loss(model: SpectreLM, tokens: torch.Tensor, *,
                               logits_chunk)
 
 
+def hybrid_loss(model: HybridLM, tokens: torch.Tensor, *,
+                logits_chunk: int = 2048) -> torch.Tensor:
+    """Next-token cross entropy for the hybrid SPECTRE + SWA LM (config 5),
+    tokens (B, N+1) -> scalar mean nats, through the chunked CE: at seq
+    32k x 50k vocab the full fp32 logits would take 6.6 GB a batch row."""
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    h = hybrid_hidden(model, inputs)
+    return chunked_softmax_ce(h, hybrid_head_matrix(model), targets,
+                              logits_chunk)
+
+
+def classification_loss(model: ViT, images: torch.Tensor,
+                        labels: torch.Tensor, *,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+    """Mean softmax cross entropy of the ViT's fp32 logits against integer
+    labels (config 3).  In train mode the wavelet masks draw from
+    ``generator``."""
+    logits = vit_apply(model, images, generator=generator)
+    return F.cross_entropy(logits, labels.long())
+
+
 @dataclasses.dataclass
 class TrainState:
-    model: SpectreLM
+    model: torch.nn.Module
     optimizer: AdamW
     step: int
     generator: torch.Generator       # dropout masks (JAX: the rng key)
 
 
-def train_init(model: SpectreLM, tcfg: TrainConfig,
-               seed: int = 0) -> TrainState:
-    """Put ``model`` in train mode and build its optimizer; the dropout
-    generator lives on the model's device, seeded with ``seed``."""
-    model.train()
-    device = model.tok_emb.device
-    generator = torch.Generator(device=device).manual_seed(seed)
+def _device(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def train_init(model: torch.nn.Module, tcfg: TrainConfig, seed: int = 0, *,
+               deterministic: bool = False) -> TrainState:
+    """Build ``model``'s optimizer and put it in train mode (dropout and
+    the wavelet's draws on), or leave it in eval mode with
+    ``deterministic`` (the hybrid's train step, JAX's
+    ``deterministic=True``); the generator lives on the model's device,
+    seeded with ``seed``."""
+    model.train(not deterministic)
+    generator = torch.Generator(device=_device(model)).manual_seed(seed)
     return TrainState(model=model,
                       optimizer=make_optimizer(tcfg, model.parameters()),
                       step=0, generator=generator)
 
 
-def train_step(state: TrainState, batch) -> dict:
-    """One optimizer step on an LM batch (B, N+1) of token ids (numpy or
-    torch).  Returns {"loss", "grad_norm" (unclipped), "step"} as the JAX
-    train step's metrics; the parameter gradients stay in ``.grad``."""
-    model = state.model
-    tokens = torch.as_tensor(batch).to(model.tok_emb.device,
-                                       dtype=torch.int64)
+def _optimizer_step(state: TrainState, loss_fn) -> dict:
+    """Zero the gradients, backpropagate ``loss_fn()`` and update.  Returns
+    {"loss", "grad_norm" (unclipped), "step"} as the JAX train steps'
+    metrics; the parameter gradients stay in ``.grad``."""
     for p in state.optimizer.params:
         p.grad = None
-    loss = lm_loss(model, tokens, generator=state.generator)
+    loss = loss_fn()
     loss.backward()
     grad_norm = state.optimizer.step(
         [p.grad for p in state.optimizer.params])
@@ -226,3 +272,34 @@ def train_step(state: TrainState, batch) -> dict:
                "step": state.step}
     state.step += 1
     return metrics
+
+
+def _tokens(state: TrainState, batch) -> torch.Tensor:
+    return torch.as_tensor(batch).to(_device(state.model),
+                                     dtype=torch.int64)
+
+
+def train_step(state: TrainState, batch) -> dict:
+    """One optimizer step on an LM batch (B, N+1) of token ids (numpy or
+    torch); see ``_optimizer_step``."""
+    tokens = _tokens(state, batch)
+    return _optimizer_step(state, lambda: lm_loss(
+        state.model, tokens, generator=state.generator))
+
+
+def hybrid_train_step(state: TrainState, batch) -> dict:
+    """One optimizer step on a hybrid-LM batch (B, N+1), deterministic as
+    JAX's (``train_init(..., deterministic=True)``)."""
+    tokens = _tokens(state, batch)
+    return _optimizer_step(state, lambda: hybrid_loss(state.model, tokens))
+
+
+def vit_train_step(state: TrainState, images, labels) -> dict:
+    """One optimizer step on a ViT batch: images (B, H, W, 3) float32 and
+    labels (B,) integers (numpy or torch), the wavelet masks drawn from the
+    state's generator, as ``cli train-vit``'s step."""
+    dev = _device(state.model)
+    images = torch.as_tensor(images).to(dev, dtype=torch.float32)
+    labels = torch.as_tensor(labels).to(dev, dtype=torch.int64)
+    return _optimizer_step(state, lambda: classification_loss(
+        state.model, images, labels, generator=state.generator))

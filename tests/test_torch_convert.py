@@ -144,6 +144,8 @@ def test_port_never_imports_jax():
             "fft_tpu_torch.bench, "
             "fft_tpu_torch.cli, fft_tpu_torch.convert, fft_tpu_torch.models, "
             "fft_tpu_torch.decode, fft_tpu_torch.layers, "
+            "fft_tpu_torch.models.vit, fft_tpu_torch.models.hybrid, "
+            "fft_tpu_torch.layers.attention, fft_tpu_torch.train.images, "
             "fft_tpu_torch.train.bpe, fft_tpu_torch.train.checkpoint, "
             "fft_tpu_torch.train.data, fft_tpu_torch.train.native_loader, "
             "fft_tpu_torch.train.supervisor; "

@@ -21,8 +21,11 @@ from fft_tpu_torch import bench, cli
 from fft_tpu_torch.config import SpectreConfig
 from fft_tpu_torch.convert import block_from_jax_params, block_to_jax_params
 from fft_tpu_torch.kernels import spectral_mix as sm
+from fft_tpu_torch.layers import attention as tattn
 from fft_tpu_torch.layers import spectre as tsp
+from fft_tpu_torch.models import hybrid as thy
 from fft_tpu_torch.models import lm as tlm
+from fft_tpu_torch.models import vit as tvit
 from tests.golden_utils import (
     load, map_block_params, map_head_params, map_multihead_params, rel_err,
 )
@@ -345,7 +348,8 @@ def test_port_block_init_matches_jax_init_distributions():
 
 @pytest.mark.parametrize("entry", [
     "lm_init", "spectre_block_init", "spectre_multihead_init", "bench",
-    "cli_generate", "cli_train_lm"])
+    "cli_generate", "cli_train_lm", "hybrid_init", "vit_init", "swa_init",
+    "swa_block_init", "swa_cache_init", "cli_train_hybrid", "cli_train_vit"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Without a card, an entry point not asked for the CPU fails at once
     instead of running there."""
@@ -359,6 +363,14 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
         "bench": lambda: bench.run(steps=1, batch=1, seq=64),
         "cli_generate": lambda: cli.main(["generate", "--seq", "256"]),
         "cli_train_lm": lambda: cli.main(["train-lm", "--seq", "256"]),
+        "hybrid_init": lambda: thy.hybrid_init(thy.hybrid_tiny_config(), g),
+        "vit_init": lambda: tvit.vit_init(tvit.vit_s_config(), g),
+        "swa_init": lambda: tattn.swa_init(64, g),
+        "swa_block_init": lambda: tattn.swa_block_init(64, 4, 16, g),
+        "swa_cache_init": lambda: tattn.swa_cache_init(1, 4, 16, 16),
+        "cli_train_hybrid": lambda: cli.main(
+            ["train-hybrid", "--seq", "256"]),
+        "cli_train_vit": lambda: cli.main(["train-vit", "--layers", "1"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
