@@ -31,12 +31,15 @@ Phases, in order; any failure raises and the exit code is nonzero:
              over CUDA events (ms: back-to-back calls, so a call the host
              launches more slowly than the card runs it counts the host's
              time) and the device-busy ms from torch.profiler
-             (device_ms; plain_device_ms in a kernel's main case), the
-             median ms of one PyTorch composition of the same function
+             (device_ms; plain_device_ms in a kernel's main case; each
+             with its *_source: "profiler", or "events" where two
+             profiles held no CUDA span, utils/prof.py's read_profile),
+             the median ms of one PyTorch composition of the same function
              where there is one (library_ms, and its device-busy ms in the
-             main case, library_device_ms; cuFFT), and
-             the least time the card could take (bound_ms: bytes over 3.35
-             TB/s or FFT-equivalent operations over 67 TFLOP/s fp32).
+             main case, library_device_ms; cuFFT), and the least time the
+             card could take (bound_ms, bound_by: utils/prof.py's work
+             model of the kernel, bytes over 3.35 TB/s or FFT-equivalent
+             operations over 67 TFLOP/s fp32).
              direct_mix (#1) and direct_mix_bwd (#2) also at every n_fft
              up to 2048 that the layer fuses, with gate groups of 1, 3, 6,
              16 and 64 channels (kernels_direct_sweep), and staged_mix
@@ -269,6 +272,17 @@ Phases, in order; any failure raises and the exit code is nonzero:
              tiny hybrid's paths; #9, #7 and #11's bf16 instances and #12
              on the 1B's; phase 2 holds each at these shapes against its
              plain version (hybrid_cases).
+11. prof     (launch counts of its own) module 7b: measure_chip_constants
+             (HBM, GEMM bf16 / fp32 / TF32 and csrc/probe.cu's fp32 FMA
+             rate, each beside its published peak, with the card's name
+             and power limit); train-lm and train-hybrid --preset tiny
+             --steps 4 --profile DIR, each writing one trace that names
+             #8's, #6's and #10's CUDA kernels; bench-mix at the JAX CLI's
+             defaults; the tiny LM untied (tie_embeddings=False) at full
+             width, a train step at 2 x 2048 and scoring within 1e-4 of
+             the CPU; the config-1 block with fft_impl="matmul" within
+             2e-5 of "auto" (phase_prof).  #8, #6 and #10 launched, no
+             direct kernel.
 
 Prints one JSON line per phase, the card's name and power limit as
 nvidia-smi gives them, a JSON line of per-kernel results, and last
@@ -292,6 +306,7 @@ import io
 import json
 import math
 import os
+import pathlib
 import shutil
 import statistics
 import subprocess
@@ -299,6 +314,8 @@ import sys
 import time
 
 import torch
+
+from fft_tpu_torch.utils import prof as fprof
 
 SEED = 0
 REL_KERNEL = 2e-5      # direct fp32 DFTs vs cuFFT, different sum orders
@@ -437,29 +454,36 @@ LONG_KERNEL_NAMES = ("seg_rfft_kernel", "window_fft_kernel",
 # file (and a BPE stream)
 NATIVE_LINE = "using native C++ data loader"
 NATIVE_BPE_LINE = "using native C++ data loader (uint16 BPE tokens)"
-# the card's peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s, fp32
-# FLOP/s outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
 
 
 def emit(**kw) -> None:
     print(json.dumps(kw), flush=True)
 
 
+def as_float64(a, b) -> tuple:
+    """a and b in float64 on one device: the card where both are there (a
+    kernel against its plain version; no copy to the host), else the CPU.
+    Every operation on them is exact or correctly rounded in float64 on
+    either device, so the errors read the same."""
+    a, b = a.detach(), b.detach()
+    if a.device != b.device:
+        a, b = a.cpu(), b.cpu()
+    return a.double(), b.double()
+
+
 def rel_err(a, b) -> float:
     """max|a-b| / max|b|; for tuples of outputs, the worst output's."""
     if isinstance(a, tuple):
         return max(rel_err(x, y) for x, y in zip(a, b))
-    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    a, b = as_float64(a, b)
     return float((a - b).abs().max() / b.abs().max())
 
 
 def max_abs(a, b) -> float:
     if isinstance(a, tuple):
         return max(max_abs(x, y) for x, y in zip(a, b))
-    return float((a.detach().double().cpu()
-                  - b.detach().double().cpu()).abs().max())
+    a, b = as_float64(a, b)
+    return float((a - b).abs().max())
 
 
 def all_finite(a) -> bool:
@@ -485,16 +509,18 @@ def median_ms(fn, reps: int = 10, rounds: int = 7) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 10) -> float:
-    """Device-busy ms a call over ``reps`` calls, from torch.profiler's CUDA
-    kernel spans (their union): unlike ``median_ms`` it leaves out the
-    gaps where the card waits for the host to launch the next kernel."""
-    from fft_tpu_torch import bench
-
+def device_ms(fn, reps: int = 10, key: str = "device_ms") -> dict:
+    """{key: device-busy ms a call over ``reps`` calls, key + "_source":
+    where it came from}.  From torch.profiler's CUDA kernel spans (their
+    union, "profiler"): unlike ``median_ms`` it leaves out the gaps where
+    the card waits for the host to launch the next kernel.  Where two
+    profiles hold no span, CUDA events' time ("events", gaps included;
+    ``fprof.read_profile``), never 0."""
     fn()
     torch.cuda.synchronize()
-    return bench._profile(fn, torch.cuda.synchronize,
-                          reps)["device_busy_ms_per_step"]
+    rec = fprof.read_profile(fn, torch.cuda.synchronize, reps)
+    return {key: rec["device_busy_ms_per_step"],
+            key + "_source": rec["device_ms_source"]}
 
 
 def wall_ms(fn, rounds: int = 5) -> float:
@@ -510,34 +536,6 @@ def wall_ms(fn, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
-def fft_ops(n: int) -> float:
-    """Operations of one real FFT of length n (the usual 2.5 n log2 n)."""
-    return 2.5 * n * math.log2(n)
-
-
-def bound(nbytes: float, ops: float):
-    """(least ms the card could take, "bytes" or "operations"): each input
-    byte read once and each output byte written once over the HBM rate,
-    against the FFT-equivalent operations over the fp32 rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def causal_work(b, nc, chunk, d, cols):
-    """(bytes of v or y, bytes of the K pairs the banded sum reads, banded
-    complex multiply-adds' operations, one pass of segment FFTs' operations)
-    for the causal kernels; only K[c, j] with j <= c is ever read."""
-    tri = nc * (nc + 1) // 2
-    return (4 * b * nc * chunk * d, 4 * 2 * b * tri * (chunk + 1) * cols,
-            8 * b * d * tri * (chunk + 1), b * d * nc * fft_ops(2 * chunk))
-
-
-def mix_work(b, n, d, cols):
-    """(bytes of v, bytes of one gate pair, per-channel FFT operations)."""
-    return 4 * b * n * d, 4 * 2 * b * (n // 2 + 1) * cols, b * d * fft_ops(n)
-
-
 def phase_kernels(kc, sm, kd, dev):
     """Each kernel vs its plain version at the slices' shapes."""
     g = torch.Generator().manual_seed(SEED)
@@ -546,14 +544,12 @@ def phase_kernels(kc, sm, kd, dev):
         return torch.randn(shape, generator=g).to(dev)
 
     # (kernel name, shape label, kernel fn, plain fn, library fn or None,
-    #  (bytes, operations), main case of the kernel?)
+    #  the work (fprof.MixCost), main case of the kernel?)
     cases = []
     b, n_fft, chunk, lanes = 4, 2048, 128, 512
     nc = n_fft // chunk
     gr, gi = randn(b, n_fft // 2 + 1, lanes), randn(b, n_fft // 2 + 1, lanes)
-    kf_work = (4 * 2 * b * (n_fft // 2 + 1) * lanes
-               + 4 * 2 * b * nc * (chunk + 1) * lanes,
-               b * lanes * (fft_ops(n_fft) + nc * fft_ops(2 * chunk)))
+    kf_work = fprof.kf_spectra_cost(b, n_fft, chunk, lanes)
     # the two output planes as a tuple (rel_err takes each on its own): a
     # torch.cat would add a copy of 17 MB to the time of a 0.06 ms kernel
     for name, fn in (("kf_spectra", kc.kf_spectra),
@@ -570,7 +566,6 @@ def phase_kernels(kc, sm, kd, dev):
     for nc in (8, 16):
         v = randn(b, nc * chunk, d)
         kr, ki = (randn(b, nc, chunk + 1, nc * cols) for _ in range(2))
-        vb, kb, mac, seg = causal_work(b, nc, chunk, d, cols)
         # #7's kernel (causal_long.cu) takes chunk 128 too: a data point
         for name, fn in (
                 ("fused_causal_mix", kc.fused_causal_mix),
@@ -585,7 +580,8 @@ def phase_kernels(kc, sm, kd, dev):
                     v, kr, ki, chunk, cols),
                 (lambda v=v, kr=kr, ki=ki: lib_direct6(v, kr, ki, chunk,
                                                        cols))
-                if main else None, (2 * vb + kb, 2 * seg + mac), main))
+                if name == "fused_causal_mix" else None,
+                fprof.fused_causal_mix_cost(b, nc, chunk, d, cols), main))
     cases += bwd_cases(kc, randn)
     cases += banded_cases(kc, randn, b, (4, 100), d, cols)
     cases += long_cases(kc, randn)
@@ -656,21 +652,23 @@ def run_cases(cases) -> dict:
         p1, k1, k2, p2 = times[0], times[1], times[-2], times[-1]
         if fp32 is not None:
             fp32_case = dict(fp32_ms=statistics.median(times[2:4]),
-                             fp32_device_ms=device_ms(fp32))
-        bound_ms, bound_by = bound(*work)
+                             **device_ms(fp32, key="fp32_device_ms"))
+        bound_ms, bound_by = work.bound()
         case = dict(shape=shape, rel_err=err, tol=tol, max_abs_err=abs_err,
                     **({"rel_errs": errs} if len(errs) > 1 else {}),
                     ms=statistics.median([k1, k2]),
                     plain_ms=statistics.median([p1, p2]),
-                    device_ms=device_ms(kern),
+                    **device_ms(kern),
                     # the profiler's reading of the plain version and the
                     # library call for a kernel's main case only: the
                     # others' took ~30 s of the run's 1200
-                    plain_device_ms=device_ms(plain) if main else None,
+                    **(device_ms(plain, key="plain_device_ms") if main
+                       else {"plain_device_ms": None}),
                     library_ms=(None if lib is None
                                 else median_ms(lib, reps, rounds)),
-                    library_device_ms=(None if lib is None or not main
-                                       else device_ms(lib)),
+                    **(device_ms(lib, key="library_device_ms")
+                       if lib is not None and main
+                       else {"library_device_ms": None}),
                     bound_ms=bound_ms, bound_by=bound_by, main=main)
         if hasattr(lib, "release"):
             lib.release()            # lib_direct6_bwd's kept graph
@@ -696,7 +694,6 @@ def bwd_cases(kc, randn):
                                 (4, 3, 384, three[:1])):
         v, ybar = randn(b, nc * chunk, d), randn(b, nc * chunk, d)
         kr, ki = (randn(b, nc, chunk + 1, nc * cols) for _ in range(2))
-        vb, kb, mac, seg = causal_work(b, nc, chunk, d, cols)
         fns = {"fused_causal_mix_bwd": kc.fused_causal_mix_bwd,
                "fused_causal_mix_bwd_direct": kc.fused_causal_mix_bwd_direct,
                "fused_causal_mix_bwd_v3": lambda *a: kc._launch_bwd(
@@ -719,8 +716,8 @@ def bwd_cases(kc, randn):
                 lambda v=v, kr=kr, ki=ki, yb=ybar, c=chunk:
                     kc.fused_causal_mix_bwd_ref(v, kr, ki, yb, c, cols),
                 lib_direct6_bwd(v, kr, ki, ybar, chunk, cols)
-                if main and name == "fused_causal_mix_bwd" else None,
-                (3 * vb + 2 * kb, 3 * seg + 2 * mac), main))
+                if name == "fused_causal_mix_bwd" and chunk == 128 else None,
+                fprof.fused_causal_mix_bwd_cost(b, nc, chunk, d, cols), main))
     return cases
 
 
@@ -843,8 +840,6 @@ def long_launch_split(kc, randn) -> None:
     launches take the time.  It takes any tree's ``kernels.causal`` (an older tree has no
     ``fused_causal_mix_bwd_direct``: there ``fused_causal_mix_bwd`` is
     the direct kernel), so one call can time two trees' kernels."""
-    from fft_tpu_torch import bench
-
     rows = []
     for b, nc, c, d, cols in ((1, 8, 2048, 1024, 64), (1, 4, 2048, 1024, 64),
                               (1, 1, 1024, 1024, 64), (4, 16, 128, 512, 32),
@@ -877,11 +872,12 @@ def long_launch_split(kc, randn) -> None:
         for name, fn in runs:
             fn()
             torch.cuda.synchronize()
-            prof = bench._profile(fn, torch.cuda.synchronize, 10)
+            prof = fprof.read_profile(fn, torch.cuda.synchronize, 10)
             rows.append(dict(kernel=name,
                              shape=f"B={b} nc={nc} C={c} d={d} cols={cols}",
                              ms=median_ms(fn),
                              device_ms=prof["device_busy_ms_per_step"],
+                             device_ms_source=prof["device_ms_source"],
                              by_launch=prof["top_kernels_ms_per_step"]))
     # #7 and #11 at the 350M's layer at seq 65536 (nc 32), fp32 and bf16
     b, nc, c, d, cols = 1, 32, 2048, 1024, 64
@@ -897,11 +893,12 @@ def long_launch_split(kc, randn) -> None:
                      vv, kr, ki, yy, c, cols))):
             fn()
             torch.cuda.synchronize()
-            prof = bench._profile(fn, torch.cuda.synchronize, 10)
+            prof = fprof.read_profile(fn, torch.cuda.synchronize, 10)
             rows.append(dict(kernel=name + suffix,
                              shape=f"B={b} nc={nc} C={c} d={d} cols={cols}",
                              ms=median_ms(fn),
                              device_ms=prof["device_busy_ms_per_step"],
+                             device_ms_source=prof["device_ms_source"],
                              by_launch=prof["top_kernels_ms_per_step"]))
     del v, ybar, kr, ki, vv, yy
     b, n, c, lanes = 1, 16384, 2048, 512
@@ -909,10 +906,11 @@ def long_launch_split(kc, randn) -> None:
     fn = lambda: kc.kf_seg_rfft(kt, c)                       # noqa: E731
     fn()
     torch.cuda.synchronize()
-    prof = bench._profile(fn, torch.cuda.synchronize, 10)
+    prof = fprof.read_profile(fn, torch.cuda.synchronize, 10)
     rows.append(dict(kernel="kf_seg_rfft",
                      shape=f"B={b} N={n} C={c} L={lanes}", ms=median_ms(fn),
                      device_ms=prof["device_busy_ms_per_step"],
+                     device_ms_source=prof["device_ms_source"],
                      by_launch=prof["top_kernels_ms_per_step"]))
     emit(phase="kernels_launch_split", rows=rows)
 
@@ -925,8 +923,6 @@ def mix_launch_split(sm, randn, kernels=None) -> None:
     and at the odd factors 9, 17 and 31, #4 at 16384, 32768 and 65536.  It
     takes any tree's ``kernels.spectral_mix``, so one call can time two
     trees' kernels; ``kernels`` (names) keeps those rows alone."""
-    from fft_tpu_torch import bench
-
     rows = []
     for name, b, n, d in (("direct_mix", 8, 1024, 512),
                           ("direct_mix_bwd", 8, 1024, 512),
@@ -948,12 +944,13 @@ def mix_launch_split(sm, randn, kernels=None) -> None:
         fn = lambda f=getattr(sm, name), a=args: f(*a)       # noqa: E731
         fn()
         torch.cuda.synchronize()
-        prof = bench._profile(fn, torch.cuda.synchronize, 10)
+        prof = fprof.read_profile(fn, torch.cuda.synchronize, 10)
         rows.append(dict(kernel=name,
                          shape=f"B={b} N={n} d={d} cols={cols} "
                                f"mem={int(name != 'direct_mix_bwd')}",
                          ms=median_ms(fn),
                          device_ms=prof["device_busy_ms_per_step"],
+                         device_ms_source=prof["device_ms_source"],
                          by_launch=prof["top_kernels_ms_per_step"]))
         del args, fn
     emit(phase="kernels_mix_launch_split", rows=rows)
@@ -1004,7 +1001,7 @@ def mix_plan_sweep(sm, randn) -> None:
                     kernel=name, shape=f"B={b} N={n} d={d}",
                     plan=list(plan), rel_err=err,
                     ms=median_ms(lambda k=kern, p=plan: k(p)),
-                    device_ms=device_ms(lambda k=kern, p=plan: k(p)),
+                    **device_ms(lambda k=kern, p=plan: k(p)),
                     chosen=tuple(plan) == tuple(chosen)))
         del args, mem_t, ybar, want, want_bwd
     for name, b, n in (("staged_mix", 2, 4096), ("staged_mix", 1, 8192),
@@ -1031,7 +1028,7 @@ def mix_plan_sweep(sm, randn) -> None:
                                      f"rel_err {err}")
             rows.append(dict(kernel=name, shape=f"B={b} N={n} d={d}",
                              plan=list(plan), rel_err=err,
-                             ms=median_ms(kern), device_ms=device_ms(kern),
+                             ms=median_ms(kern), **device_ms(kern),
                              chosen=plan == tuple(chosen)))
         del args, want
     emit(phase="kernels_mix_plan_sweep", rows=rows)
@@ -1054,12 +1051,10 @@ def long_cases(kc, randn):
         lambda: kc.kf_seg_rfft_ref(kt, chunk),
         lambda: torch.fft.rfft(kt.view(b, n // chunk, chunk, lanes),
                                2 * chunk, dim=2),
-        (4 * b * n * lanes + 4 * 2 * b * (n // chunk) * (chunk + 1) * lanes,
-         b * lanes * (n // chunk) * fft_ops(2 * chunk)), True))
+        fprof.kf_seg_rfft_cost(b, n, chunk, lanes), True))
     for nc, c in ((8, chunk), (4, chunk), (4, 1024), (1, 1024)):
         v, ybar = randn(b, nc * c, d), randn(b, nc * c, d)
         kr, ki = (randn(b, nc, c + 1, nc * cols) for _ in range(2))
-        vb, kb, mac, seg = causal_work(b, nc, c, d, cols)
         shape = f"B={b} nc={nc} C={c} d={d} cols={cols}"
         main = nc == 8
         cases.append((
@@ -1069,7 +1064,8 @@ def long_cases(kc, randn):
             lambda v=v, kr=kr, ki=ki, c=c: kc.fused_causal_mix_ref(
                 v, kr, ki, c, cols),
             (lambda v=v, kr=kr, ki=ki, c=c: lib_direct6(v, kr, ki, c, cols))
-            if main else None, (2 * vb + kb, 2 * seg + mac), main))
+            if main else None, fprof.fused_causal_mix_cost(b, nc, c, d, cols),
+            main))
         cases.append((
             "fused_causal_mix_bwd_v3", shape,
             lambda v=v, kr=kr, ki=ki, yb=ybar, c=c: kc.fused_causal_mix_bwd(
@@ -1077,7 +1073,7 @@ def long_cases(kc, randn):
             lambda v=v, kr=kr, ki=ki, yb=ybar, c=c:
                 kc.fused_causal_mix_bwd_ref(v, kr, ki, yb, c, cols),
             lib_direct6_bwd(v, kr, ki, ybar, c, cols) if main else None,
-            (3 * vb + 2 * kb, 3 * seg + 2 * mac), main))
+            fprof.fused_causal_mix_bwd_cost(b, nc, c, d, cols), main))
     return cases + banded_cases(kc, randn, b, BANDED_LONG_CHUNKS, d, cols)
 
 
@@ -1101,36 +1097,35 @@ def long_nc_cases(kc, randn):
             lambda kt=kt: kc.kf_seg_rfft_ref(kt, chunk),
             lambda kt=kt, n=n, lanes=lanes: torch.fft.rfft(
                 kt.view(b, n // chunk, chunk, lanes), 2 * chunk, dim=2),
-            (4 * b * n * lanes + 4 * 2 * b * nc * (chunk + 1) * lanes,
-             b * lanes * nc * fft_ops(2 * chunk)), False, quick))
+            fprof.kf_seg_rfft_cost(b, n, chunk, lanes), False, quick))
         del kt
         v, ybar = randn(b, n, d), randn(b, n, d)
         kr, ki = (randn(b, nc, chunk + 1, nc * cols) for _ in range(2))
-        vb, kb, mac, seg = causal_work(b, nc, chunk, d, cols)
         shape = f"B={b} nc={nc} C={chunk} d={d} cols={cols}"
         for dt, suffix, tol in ((torch.float32, "", REL_KERNEL),
                                 (torch.bfloat16, "_bf16", REL_BF16)):
             vv, yy = v.to(dt), ybar.to(dt)
-            act = vb * dt.itemsize // 4          # v's (or y's) bytes
             main = bool(suffix) and nc == 32
-            lib = not suffix or main
             cases.append((
                 "fused_causal_mix_v3" + suffix, shape,
                 lambda vv=vv, kr=kr, ki=ki: kc.fused_causal_mix(
                     vv, kr, ki, chunk, cols),
                 lambda vv=vv, kr=kr, ki=ki: kc.fused_causal_mix_ref(
                     vv, kr, ki, chunk, cols),
-                (lambda vv=vv, kr=kr, ki=ki: lib_direct6(
-                    vv, kr, ki, chunk, cols)) if lib else None,
-                (2 * act + kb, 2 * seg + mac), main, dict(quick, tol=tol)))
+                lambda vv=vv, kr=kr, ki=ki: lib_direct6(
+                    vv, kr, ki, chunk, cols),
+                fprof.fused_causal_mix_cost(b, nc, chunk, d, cols,
+                                           dt.itemsize),
+                main, dict(quick, tol=tol)))
             cases.append((
                 "fused_causal_mix_bwd_v3" + suffix, shape,
                 lambda vv=vv, kr=kr, ki=ki, yy=yy: kc.fused_causal_mix_bwd(
                     vv, kr, ki, yy, chunk, cols),
                 lambda vv=vv, kr=kr, ki=ki, yy=yy:
                     kc.fused_causal_mix_bwd_ref(vv, kr, ki, yy, chunk, cols),
-                lib_direct6_bwd(vv, kr, ki, yy, chunk, cols) if lib else None,
-                (3 * act + 2 * kb, 3 * seg + 2 * mac), main,
+                lib_direct6_bwd(vv, kr, ki, yy, chunk, cols),
+                fprof.fused_causal_mix_bwd_cost(b, nc, chunk, d, cols,
+                                               dt.itemsize), main,
                 dict(quick, tol=(tol, REL_KERNEL, REL_KERNEL))))
     return cases
 
@@ -1144,14 +1139,6 @@ BANDED_LONG_CHUNKS = (1024, 854, 1499, 1500, 1536, 2047, 2904)
 def banded_inputs(randn, b, nc, c, d, cols):
     return (randn(b, nc, c + 1, d), randn(b, nc, c + 1, d),
             randn(b, nc, nc, c + 1, cols), randn(b, nc, nc, c + 1, cols))
-
-
-def banded_work(b, nc, c, d, cols):
-    """(bytes, operations) of #5: V's planes and K's lower triangle read
-    once, y written once; the banded complex multiply-adds and one real
-    inverse FFT of 2C a channel and chunk."""
-    _, kb, mac, seg = causal_work(b, nc, c, d, cols)
-    return 4 * b * nc * (2 * (c + 1) + c) * d + kb, mac + seg
 
 
 def lib_banded(vfr, vfi, kfr, kfi, c):
@@ -1178,7 +1165,7 @@ def banded_cases(kc, randn, b, chunks, d, cols):
             lambda args=args, c=c: kc.banded_inverse(*args, c),
             lambda args=args, c=c: kc.banded_inverse_ref(*args, c),
             lambda args=args, c=c: lib_banded(*args, c),
-            banded_work(b, 1, c, d, cols), c == 1500))
+            fprof.banded_inverse_cost(b, 1, c, d, cols), c == 1500))
     return cases
 
 
@@ -1240,7 +1227,6 @@ def direct6_cases(kc, randn):
     for b, nc, c, d, cols in DIRECT6_SHAPES:
         v = randn(b, nc * c, d)
         kr, ki = (randn(b, nc, c + 1, nc * cols) for _ in range(2))
-        vb, kb, mac, seg = causal_work(b, nc, c, d, cols)
         cases.append((
             "fused_causal_mix_direct", f"B={b} nc={nc} C={c} d={d} "
             f"cols={cols}",
@@ -1250,11 +1236,11 @@ def direct6_cases(kc, randn):
                 kc.fused_causal_mix_ref(v, kr, ki, c, cols),
             lambda v=v, kr=kr, ki=ki, c=c, cols=cols:
                 lib_direct6(v, kr, ki, c, cols),
-            (2 * vb + kb, 2 * seg + mac), (nc, c) == (1, 600)))
+            fprof.fused_causal_mix_cost(b, nc, c, d, cols),
+            (nc, c) == (1, 600)))
     b, nc, c, d, cols = 1, 2, 600, 1024, 64
     v, ybar = randn(b, nc * c, d), randn(b, nc * c, d)
     kr, ki = (randn(b, nc, c + 1, nc * cols) for _ in range(2))
-    vb, kb, mac, seg = causal_work(b, nc, c, d, cols)
 
     def kern(first=[True]):
         out = kc.fused_causal_mix_bwd_direct(v, kr, ki, ybar, c, cols)
@@ -1269,7 +1255,8 @@ def direct6_cases(kc, randn):
         "fused_causal_mix_bwd_direct", f"B={b} nc={nc} C={c} d={d} "
         f"cols={cols}", kern,
         lambda: kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, c, cols), None,
-        (3 * vb + 2 * kb, 3 * seg + 2 * mac), False, dict(reps=3, rounds=3)))
+        fprof.fused_causal_mix_bwd_cost(b, nc, c, d, cols), False,
+        dict(reps=3, rounds=3)))
     return cases
 
 
@@ -1345,7 +1332,7 @@ def banded_plan_sweep(kc, randn) -> None:
             rows.append(dict(shape=f"B={b} nc=1 C={c} d={d} cols={cols}",
                              transform=[length, o], plan=list(plan),
                              rel_err=err, ms=median_ms(kern),
-                             device_ms=device_ms(kern),
+                             **device_ms(kern),
                              chosen=list(plan) == chosen))
         del args, want
     emit(phase="kernels_banded_plan_sweep", rows=rows)
@@ -1404,8 +1391,6 @@ def banded_launch_split(kc, randn) -> list:
     600-token prompt in bf16 too): ms between CUDA events and
     device ms by CUDA kernel (torch.profiler over 10 calls).  It takes any
     tree's ``kernels.causal``, so one call can time two trees' kernels."""
-    from fft_tpu_torch import bench
-
     rows = []
     runs = []
     for b, c, d, cols in ((4, 4, 512, 32), (1, 1024, 1024, 64),
@@ -1426,9 +1411,10 @@ def banded_launch_split(kc, randn) -> list:
     for name, shape, fn in runs:
         fn()
         torch.cuda.synchronize()
-        prof = bench._profile(fn, torch.cuda.synchronize, 10)
+        prof = fprof.read_profile(fn, torch.cuda.synchronize, 10)
         rows.append(dict(kernel=name, shape=shape, ms=median_ms(fn),
                          device_ms=prof["device_busy_ms_per_step"],
+                         device_ms_source=prof["device_ms_source"],
                          by_launch=prof["top_kernels_ms_per_step"]))
     emit(phase="kernels_banded_launch_split", rows=rows)
     return rows
@@ -1455,8 +1441,7 @@ def kf_case(kc, randn, n, chunk, lanes, label):
         lambda: torch.fft.rfft(torch.fft.irfft(
             torch.complex(gr, gi), n, dim=1).reshape(1, nc, chunk, lanes),
             2 * chunk, dim=2),
-        (4 * 2 * (n // 2 + 1) * lanes + 4 * 2 * nc * (chunk + 1) * lanes,
-         lanes * (fft_ops(n) + nc * fft_ops(2 * chunk))), False)
+        fprof.kf_spectra_cost(1, n, chunk, lanes), False)
 
 
 def tiny_hybrid_cases(kc, randn):
@@ -1468,20 +1453,19 @@ def tiny_hybrid_cases(kc, randn):
     n, chunk, d, cols = 2048, 256, 256, 16
     nc = n // chunk
     cases = [kf_case(kc, randn, n, chunk, nc * cols, "tiny hybrid")]
-    vb, kb, mac, seg = causal_work(1, nc, chunk, d, cols)
     kr, ki = (randn(1, nc, chunk + 1, nc * cols) for _ in range(2))
     v32, y32 = randn(1, n, d), randn(1, n, d)
     shape = f"B=1 nc={nc} C={chunk} d={d} cols={cols} (tiny hybrid)"
     for dt, suffix, tol in ((torch.float32, "", REL_KERNEL),
                             (torch.bfloat16, "_bf16", REL_BF16)):
         v, yb = v32.to(dt), y32.to(dt)
-        act = vb * dt.itemsize // 4
         cases.append((
             "fused_causal_mix" + suffix, shape,
             lambda v=v: kc.fused_causal_mix(v, kr, ki, chunk, cols),
             lambda v=v: kc.fused_causal_mix_ref(v, kr, ki, chunk, cols),
             lambda v=v: lib_direct6(v, kr, ki, chunk, cols),
-            (2 * act + kb, 2 * seg + mac), False, dict(tol=tol)))
+            fprof.fused_causal_mix_cost(1, nc, chunk, d, cols, dt.itemsize),
+            False, dict(tol=tol)))
         cases.append((
             "fused_causal_mix_bwd" + suffix, shape,
             lambda v=v, yb=yb: kc.fused_causal_mix_bwd(v, kr, ki, yb, chunk,
@@ -1489,7 +1473,8 @@ def tiny_hybrid_cases(kc, randn):
             lambda v=v, yb=yb: kc.fused_causal_mix_bwd_ref(v, kr, ki, yb,
                                                            chunk, cols),
             lib_direct6_bwd(v, kr, ki, yb, chunk, cols),
-            (3 * act + 2 * kb, 3 * seg + 2 * mac), False,
+            fprof.fused_causal_mix_bwd_cost(1, nc, chunk, d, cols,
+                                           dt.itemsize), False,
             dict(tol=(tol, REL_KERNEL, REL_KERNEL))))
     return cases
 
@@ -1512,26 +1497,25 @@ def hybrid_1b_cases(kc, randn):
         lambda: kc.kf_seg_rfft_ref(kt, chunk),
         lambda: torch.fft.rfft(kt.view(1, nc, chunk, lanes), 2 * chunk,
                                dim=2),
-        (4 * n * lanes + 4 * 2 * nc * (chunk + 1) * lanes,
-         lanes * nc * fft_ops(2 * chunk)), False, quick))
-    vb, kb, mac, seg = causal_work(1, nc, chunk, d, cols)
+        fprof.kf_seg_rfft_cost(1, n, chunk, lanes), False, quick))
     kr, ki = (randn(1, nc, chunk + 1, nc * cols) for _ in range(2))
     v = randn(1, n, d).to(torch.bfloat16)
     yb = randn(1, n, d).to(torch.bfloat16)
     shape = f"B=1 nc={nc} C={chunk} d={d} cols={cols} (1B hybrid)"
-    # v and y (ybar and vbar, v) at 2 bytes: vb is v's fp32 bytes
+    # v and y (ybar and vbar, v) at 2 bytes
     cases.append((
         "fused_causal_mix_v3_bf16", shape,
         lambda: kc.fused_causal_mix(v, kr, ki, chunk, cols),
         lambda: kc.fused_causal_mix_ref(v, kr, ki, chunk, cols),
         lambda: lib_direct6(v, kr, ki, chunk, cols),
-        (vb + kb, 2 * seg + mac), False, dict(quick, tol=REL_BF16)))
+        fprof.fused_causal_mix_cost(1, nc, chunk, d, cols, 2), False,
+        dict(quick, tol=REL_BF16)))
     cases.append((
         "fused_causal_mix_bwd_v3_bf16", shape,
         lambda: kc.fused_causal_mix_bwd(v, kr, ki, yb, chunk, cols),
         lambda: kc.fused_causal_mix_bwd_ref(v, kr, ki, yb, chunk, cols),
         lib_direct6_bwd(v, kr, ki, yb, chunk, cols),
-        (3 * vb // 2 + 2 * kb, 3 * seg + 2 * mac), False,
+        fprof.fused_causal_mix_bwd_cost(1, nc, chunk, d, cols, 2), False,
         dict(quick, tol=(REL_BF16, REL_KERNEL, REL_KERNEL))))
     return cases
 
@@ -1564,15 +1548,11 @@ def decode_cases(kd, randn, shapes=((4, 8, 2048, 64), (1, 16, 16384, 64)),
                 y = kd.fused_decode_mix_ref(p, *args)
                 return torch.view_as_real(p), y
 
-            # the prefix read and written, the gate, v_t, the evicted row
-            # and y; per element 2 multiply-adds, a complex product and
-            # the irFFT's 2 multiply-adds
-            nbytes = (2 * 8 * b * h * f * hd + 8 * b * h * groups * f
-                      + 3 * 4 * b * h * hd)
             cases.append((
                 "fused_decode_mix",
                 f"B={b} H={h} n={n} hd={hd} G={groups} evict={evict}",
-                kern, plain, None, (nbytes, 14 * b * h * f * hd),
+                kern, plain, None,
+                fprof.fused_decode_mix_cost(b, h, n, hd, groups),
                 mains and n == 16384 and evict == 0))
     return cases
 
@@ -1588,13 +1568,10 @@ def lib_mix(v, gr, gi, mem_t, n):
     return y if mem_t is None else y + mem_t
 
 
-def fwd_mix_work(b, n, d, cols, mem):
-    """(bytes, operations) of the forward mix: v, the gate pair and mem_t
-    read once, y written once; two FFTs, the gate's complex products and
-    mem_t's adds."""
-    vb, gb, ops = mix_work(b, n, d, cols)
-    return (2 * vb + gb + (4 * n * d if mem else 0),
-            2 * ops + 6 * b * (n // 2 + 1) * d + (b * n * d if mem else 0))
+# the forward mix kernels' work models by launch name
+MIX_COST = {"direct_mix": fprof.direct_mix_cost,
+            "staged_mix": fprof.staged_mix_cost,
+            "twopass_mix": fprof.twopass_mix_cost}
 
 
 def long_mix_cases(sm, randn):
@@ -1620,7 +1597,7 @@ def long_mix_cases(sm, randn):
                     lambda fn=fn, args=args: fn(*args),
                     lambda plain=plain, args=args: plain(*args),
                     lambda args=args: lib_mix(*args),
-                    fwd_mix_work(b, n, d, cols, mem),
+                    MIX_COST[name](b, n, d, cols, 4, mem),
                     mem and n in (4096, 16384)))
     return cases
 
@@ -1644,8 +1621,6 @@ def bf16_causal_cases(kc, randn):
         v, ybar = (randn(b, nc * chunk, d).to(bf) for _ in range(2))
         kr, ki = (randn(b, nc, chunk + 1, nc * cols) for _ in range(2))
         v32, y32 = v.float(), ybar.float()
-        vb, kb, mac, seg = causal_work(b, nc, chunk, d, cols)
-        act = vb // 2                          # v's (or y's) bf16 bytes
         shape = f"B={b} nc={nc} C={chunk} d={d} cols={cols}"
         name = names[0]
         if name == "fused_causal_mix_bwd_bf16":
@@ -1656,7 +1631,8 @@ def bf16_causal_cases(kc, randn):
                 lambda v=v, kr=kr, ki=ki, yb=ybar, c=chunk, g=cols:
                     kc.fused_causal_mix_bwd_ref(v, kr, ki, yb, c, g),
                 lib_direct6_bwd(v, kr, ki, ybar, chunk, cols),
-                (3 * act + 2 * kb, 3 * seg + 2 * mac), main,
+                fprof.fused_causal_mix_bwd_cost(b, nc, chunk, d, cols, 2),
+                main,
                 dict(tol=(REL_BF16, REL_KERNEL, REL_KERNEL),
                      fp32=lambda v=v32, kr=kr, ki=ki, yb=y32, c=chunk,
                      g=cols: kc.fused_causal_mix_bwd(v, kr, ki, yb, c, g))))
@@ -1667,9 +1643,9 @@ def bf16_causal_cases(kc, randn):
                 v, kr, ki, c, g),
             lambda v=v, kr=kr, ki=ki, c=chunk, g=cols:
                 kc.fused_causal_mix_ref(v, kr, ki, c, g),
-            (lambda v=v, kr=kr, ki=ki, c=chunk, g=cols: lib_direct6(
-                v, kr, ki, c, g)) if main else None,
-            (2 * act + kb, 2 * seg + mac), main,
+            lambda v=v, kr=kr, ki=ki, c=chunk, g=cols: lib_direct6(
+                v, kr, ki, c, g),
+            fprof.fused_causal_mix_cost(b, nc, chunk, d, cols, 2), main,
             dict(tol=REL_BF16, fp32=lambda v=v32, kr=kr, ki=ki, c=chunk,
                  g=cols: kc.fused_causal_mix(v, kr, ki, c, g))))
     return cases
@@ -1696,8 +1672,6 @@ def bf16_mix_cases(sm, randn):
         gr, gi, mem_t = randn(b, fh, cols), randn(b, fh, cols), randn(n, d)
         v32, y32 = v.float(), ybar.float()
         fn = getattr(sm, name)
-        vb, gb, ops = mix_work(b, n, d, cols)
-        fwd_bytes, fwd_ops = fwd_mix_work(b, n, d, cols, True)
         shape = f"B={b} N={n} d={d} cols={cols} mem=1"
         cases.append((
             name + "_bf16", shape,
@@ -1707,7 +1681,7 @@ def bf16_mix_cases(sm, randn):
                 v, gr, gi, m, n),
             lambda v=v, gr=gr, gi=gi, m=mem_t, n=n: lib_mix(
                 v.float(), gr, gi, m, n).to(bf),
-            (fwd_bytes - vb, fwd_ops), main,
+            MIX_COST[name](b, n, d, cols, 2, True), main,
             dict(tol=REL_BF16, fp32=lambda fn=fn, v=v32, gr=gr, gi=gi,
                  m=mem_t, n=n: fn(v, gr, gi, m, n))))
         if name == "direct_mix":
@@ -1720,7 +1694,7 @@ def bf16_mix_cases(sm, randn):
                 lambda v=v, gr=gr, gi=gi, yb=ybar, n=n: tuple(
                     t.to(bf) if i == 0 else t for i, t in enumerate(
                         lib_mix_bwd(v.float(), gr, gi, yb.float(), n))),
-                (3 * vb // 2 + 2 * gb, 3 * ops + 16 * b * fh * d), main,
+                fprof.direct_mix_bwd_cost(b, n, d, cols, 2), main,
                 dict(tol=(REL_BF16, REL_KERNEL, REL_KERNEL),
                      fp32=lambda v=v32, gr=gr, gi=gi, yb=y32, n=n:
                          sm.direct_mix_bwd(v, gr, gi, yb, n))))
@@ -1807,18 +1781,17 @@ def mix_cases(sm, randn, b, n, d, cols, mem, main):
     def lib_bwd():
         return lib_mix_bwd(v, gr, gi, ybar, n)
 
-    vb, gb, ops = mix_work(b, n, d, cols)
     cases = [(
         "direct_mix", f"B={b} N={n} d={d} cols={cols} mem={int(mem)}",
         lambda: sm.direct_mix(v, gr, gi, mem_t, n),
         lambda: sm.direct_mix_ref(v, gr, gi, mem_t, n), lib_fwd,
-        fwd_mix_work(b, n, d, cols, mem), main)]
+        fprof.direct_mix_cost(b, n, d, cols, 4, mem), main)]
     if mem:                 # the adjoint takes no memory: once per shape
         cases.append((
             "direct_mix_bwd", f"B={b} N={n} d={d} cols={cols}",
             lambda: sm.direct_mix_bwd(v, gr, gi, ybar, n),
             lambda: sm.direct_mix_bwd_ref(v, gr, gi, ybar, n), lib_bwd,
-            (3 * vb + 2 * gb, 3 * ops + 16 * b * fh * d), main))
+            fprof.direct_mix_bwd_cost(b, n, d, cols), main))
     return cases
 
 
@@ -1898,7 +1871,7 @@ def phase_train(cfg, dev) -> float:
     """Gradient parity with the CPU, 5 steps at the CLI's batch (#10's FFT
     kernel launched once a layer a step, its direct kernel never) and 2
     more under torch.profiler, the CLI.  Returns the median step ms."""
-    from fft_tpu_torch import bench, cli
+    from fft_tpu_torch import cli
     from fft_tpu_torch.kernels import causal as kc
     from fft_tpu_torch.models.lm import lm_init
     from fft_tpu_torch.train import TrainConfig, train_init, train_step
@@ -1940,8 +1913,8 @@ def phase_train(cfg, dev) -> float:
         raise AssertionError(f"train: non-finite loss {losses} or grad_norm "
                              f"{norms}")
     ms = statistics.median(step_ms[1:])       # the first builds cuFFT plans
-    prof = bench._profile(lambda: train_step(state, batch),
-                          torch.cuda.synchronize, 2, BWD_KERNEL_NAMES)
+    prof = fprof.read_profile(lambda: train_step(state, batch),
+                              torch.cuda.synchronize, 2, BWD_KERNEL_NAMES)
     emit(phase="train_steps", batch=8, seq=seq, step_ms=step_ms,
          median_step_ms=ms, tokens_per_s=8 * seq / (ms / 1e3), loss=losses,
          grad_norm=norms, peak_memory_bytes=peak, bwd_launches_5_steps=bwd,
@@ -2007,7 +1980,6 @@ def both_branches(kd, run, profile):
 
 def decode_profile(model, prompt, pos, tok, steps):
     """torch.profiler over ``steps`` decode steps after a prefill."""
-    from fft_tpu_torch import bench
     from fft_tpu_torch.models.lm import lm_decode_step, lm_prefill
 
     _, caches = lm_prefill(model, prompt)
@@ -2019,7 +1991,7 @@ def decode_profile(model, prompt, pos, tok, steps):
 
     step()
     torch.cuda.synchronize()
-    return bench._profile(step, torch.cuda.synchronize, steps)
+    return fprof.read_profile(step, torch.cuda.synchronize, steps)
 
 
 def phase_decode_wrap(cfg, dev) -> None:
@@ -2286,9 +2258,10 @@ def phase_block_long(dev) -> None:
 
         emit(phase="block_long_backward", n_fft=seq, batch=batch, cols=cols,
              mix_bwd_ms=median_ms(bwd, reps=3, rounds=5),
-             mix_bwd_device_ms=device_ms(bwd, reps=3),
+             **device_ms(bwd, reps=3, key="mix_bwd_device_ms"),
              dropped_forward_ms=median_ms(dropped, reps=3, rounds=5),
-             dropped_forward_device_ms=device_ms(dropped, reps=3))
+             **device_ms(dropped, reps=3,
+                         key="dropped_forward_device_ms"))
         del v, ybar, gr, gi, x_f, g_e     # the next length's peak is its own
 
 
@@ -2359,7 +2332,7 @@ def phase_twopass(dev, sm) -> int:
                     rounds=5)
                 for flag, key in ((False, "wide"), (True, "twopass")):
                     sm.TWOPASS_ENABLE = flag
-                    rec["forward_profile_" + key] = bench._profile(
+                    rec["forward_profile_" + key] = fprof.read_profile(
                         lambda: forward(gpu, xd), torch.cuda.synchronize, 2)
             sm.TWOPASS_ENABLE = default
             emit(phase="twopass_block", **rec)
@@ -2441,7 +2414,6 @@ def prefill_350m(model, x, length: int) -> dict:
     the median wall ms of 3 calls ending in a synchronize, and one call
     under torch.profiler (device busy ms, idle share, kernels by name);
     ``calls``: the prefills run."""
-    from fft_tpu_torch import bench
     from fft_tpu_torch.models.lm import lm_prefill
 
     prompt = x[:, :length]
@@ -2450,9 +2422,9 @@ def prefill_350m(model, x, length: int) -> dict:
         raise AssertionError(f"350m prefill {length}: non-finite")
     del lg
     ms = wall_ms(lambda: lm_prefill(model, prompt), rounds=3)
-    prof = bench._profile(lambda: lm_prefill(model, prompt),
-                          torch.cuda.synchronize, 1,
-                          ("banded_fft_kernel", "banded_inverse",
+    prof = fprof.read_profile(lambda: lm_prefill(model, prompt),
+                              torch.cuda.synchronize, 1,
+                              ("banded_fft_kernel", "banded_inverse",
                            "segment_fft_kernel", "segment_rfft_kernel"))
     return dict(ms=ms, profile=prof, calls=1 + 1 + 3 + 1)
 
@@ -2497,7 +2469,7 @@ def phase_350m(dev, kd, reset_launches, launches):
     the two paths."""
     import tempfile
 
-    from fft_tpu_torch import bench, cli
+    from fft_tpu_torch import cli
     from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS
     from fft_tpu_torch.models.lm import (
         lm_apply, lm_decode_step, lm_init, lm_prefill, spectre_350m_config,
@@ -2541,11 +2513,12 @@ def phase_350m(dev, kd, reset_launches, launches):
                              f"prefills of {cfg.num_layers} layers")
     prefill_ms[1500] = p1500["ms"]
     profiles = {
-        "score": bench._profile(lambda: lm_apply(model, x),
-                                torch.cuda.synchronize, 1, LONG_KERNEL_NAMES),
-        "prefill_1024": bench._profile(lambda: lm_prefill(model, x[:, :1024]),
-                                       torch.cuda.synchronize, 1,
-                                       LONG_KERNEL_NAMES),
+        "score": fprof.read_profile(lambda: lm_apply(model, x),
+                                    torch.cuda.synchronize, 1,
+                                    LONG_KERNEL_NAMES),
+        "prefill_1024": fprof.read_profile(
+            lambda: lm_prefill(model, x[:, :1024]), torch.cuda.synchronize,
+            1, LONG_KERNEL_NAMES),
         "prefill_1500": p1500["profile"]}
     steps = 16
     finite = []
@@ -2617,8 +2590,8 @@ def phase_350m(dev, kd, reset_launches, launches):
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"350m train: non-finite loss {losses}")
     ms = statistics.median(step_ms[1:])
-    prof = bench._profile(lambda: train_step(state, batches[0]),
-                          torch.cuda.synchronize, 1, LONG_KERNEL_NAMES)
+    prof = fprof.read_profile(lambda: train_step(state, batches[0]),
+                              torch.cuda.synchronize, 1, LONG_KERNEL_NAMES)
     emit(phase="350m_train", batch=1, seq=seq, step_ms=step_ms,
          median_step_ms=ms, tokens_per_s=seq / (ms / 1e3), loss=losses,
          peak_memory_bytes=peak, profile=prof)
@@ -2906,7 +2879,7 @@ def phase_tiny_bf16(dev) -> dict:
     generate --bf16 (its 4-byte prompt takes #5), 4 train steps at 8 x
     2048 (median of steps 2-3, peak memory) and one profiled (busy and
     wall), and train-lm --bf16.  Returns the step's numbers."""
-    from fft_tpu_torch import bench, cli
+    from fft_tpu_torch import cli
     from fft_tpu_torch.kernels import causal as kc
     from fft_tpu_torch.models.lm import (
         lm_apply, lm_decode_step, lm_init, lm_prefill, tiny_lm_config,
@@ -2962,8 +2935,8 @@ def phase_tiny_bf16(dev) -> dict:
             raise AssertionError("tiny bf16 score: bad shape or non-finite")
         del logits
         score_ms = wall_ms(lambda: lm_apply(model, toks))
-        score_prof = bench._profile(lambda: lm_apply(model, toks),
-                                    torch.cuda.synchronize, 3)
+        score_prof = fprof.read_profile(lambda: lm_apply(model, toks),
+                                        torch.cuda.synchronize, 3)
         prefill_ms = wall_ms(lambda: lm_prefill(model, prompts))
         steps = 32
 
@@ -3013,8 +2986,8 @@ def phase_tiny_bf16(dev) -> dict:
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"tiny bf16 train: losses {losses}")
     ms = statistics.median(step_ms[1:3])
-    prof = bench._profile(lambda: train_step(state, batch),
-                          torch.cuda.synchronize, 1, BWD_KERNEL_NAMES)
+    prof = fprof.read_profile(lambda: train_step(state, batch),
+                              torch.cuda.synchronize, 1, BWD_KERNEL_NAMES)
     train = dict(batch=8, seq=seq, step_ms=step_ms, median_step_ms=ms,
                  tokens_per_s=8 * seq / (ms / 1e3), loss=losses,
                  peak_memory_bytes=peak, profile=prof)
@@ -3042,7 +3015,6 @@ def phase_350m_short(dev, kc) -> None:
     against the same prefill with that kernel's wrapper run by its plain
     version on the card (max-wise within the entry's limit); wall ms
     (median of 3) and one call profiled."""
-    from fft_tpu_torch import bench
     from fft_tpu_torch.models.lm import lm_init, lm_prefill, spectre_350m_config
 
     cfg32 = spectre_350m_config()
@@ -3072,9 +3044,9 @@ def phase_350m_short(dev, kc) -> None:
                 setattr(kc, wrapper, kept)
             err = rel_err(lg, want)
             ms = wall_ms(lambda: lm_prefill(model, prompt), rounds=3)
-            prof = bench._profile(lambda: lm_prefill(model, prompt),
-                                  torch.cuda.synchronize, 1,
-                                  ("fused_mix_fft_kernel",
+            prof = fprof.read_profile(lambda: lm_prefill(model, prompt),
+                                      torch.cuda.synchronize, 1,
+                                      ("fused_mix_fft_kernel",
                                    "segment_fft_kernel",
                                    "banded_fft_kernel"))
             emit(phase="350m_short", prompt=length, mode=mode, layers=layers,
@@ -3269,7 +3241,7 @@ def phase_block_bf16(dev, sm) -> int:
                     sm, lambda: forward(gpu, xd))
                 for flag, key in ((False, "wide"), (True, "twopass")):
                     sm.TWOPASS_ENABLE = flag
-                    rec["forward_profile_" + key] = bench._profile(
+                    rec["forward_profile_" + key] = fprof.read_profile(
                         lambda: forward(gpu, xd), torch.cuda.synchronize, 2)
             sm.TWOPASS_ENABLE = default
             emit(phase="block_bf16_twopass", **rec)
@@ -3359,7 +3331,6 @@ def train_long(model, reset_launches, launches, steps: int = 3,
     wall ms, causal_long.cu's kernels by name).  #9 and #7 launched twice a
     layer a step (the forward and its recompute), #11 once, the mode's
     instances only."""
-    from fft_tpu_torch import bench
     from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS
     from fft_tpu_torch.train import TrainConfig, train_init, train_step
 
@@ -3383,7 +3354,7 @@ def train_long(model, reset_launches, launches, steps: int = 3,
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
     peak = torch.cuda.max_memory_allocated()
-    prof = bench._profile(
+    prof = fprof.read_profile(
         lambda: train_step(state, batches[0]), torch.cuda.synchronize, 1,
         LONG_KERNEL_NAMES) if profile else None
     del state
@@ -3822,7 +3793,6 @@ def phase_vit(dev) -> None:
     timed apart from the step, step ms (median of steps 2-5), peak
     memory, 3 profiled (busy, wall, idle share); the CLI's train-vit for 3
     steps.  No kernel launched; every multihead took the per-head branch."""
-    from fft_tpu_torch import bench
     from fft_tpu_torch.kernels import causal as kc
     from fft_tpu_torch.kernels import decode as kd
     from fft_tpu_torch.kernels import spectral_mix as sm
@@ -3867,8 +3837,8 @@ def phase_vit(dev) -> None:
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"vit train: losses {losses}")
     ms = statistics.median(step_ms[1:5])
-    prof = bench._profile(lambda: vit_train_step(state, imgs, labels),
-                          torch.cuda.synchronize, 3)
+    prof = fprof.read_profile(lambda: vit_train_step(state, imgs, labels),
+                              torch.cuda.synchronize, 3)
     emit(phase="vit_train", batch=VIT_BATCH, seq=cfg.seq_len,
          layers=cfg.num_layers, params=params, host_batch_ms=host_ms,
          step_ms=step_ms, median_step_ms=ms,
@@ -3945,7 +3915,6 @@ def hybrid_train_run(cfg, dev, tokens, steps: int, profiled: int):
     (a list of (B, N+1) batches, one a step), then ``profiled`` more under
     torch.profiler: (step ms, peak memory (from a reset), losses, busy and
     wall; the trained model in eval mode, its optimizer dropped)."""
-    from fft_tpu_torch import bench
     from fft_tpu_torch.models.hybrid import hybrid_init
     from fft_tpu_torch.train import TrainConfig, hybrid_train_step, \
         train_init
@@ -3966,9 +3935,9 @@ def hybrid_train_run(cfg, dev, tokens, steps: int, profiled: int):
     peak = torch.cuda.max_memory_allocated()
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"hybrid train: losses {losses}")
-    prof = bench._profile(lambda: hybrid_train_step(state, tokens[0]),
-                          torch.cuda.synchronize, profiled,
-                          LONG_KERNEL_NAMES + BWD_KERNEL_NAMES)
+    prof = fprof.read_profile(lambda: hybrid_train_step(state, tokens[0]),
+                              torch.cuda.synchronize, profiled,
+                              LONG_KERNEL_NAMES + BWD_KERNEL_NAMES)
     model = state.model
     del state
     for p in model.parameters():
@@ -4053,7 +4022,6 @@ def phase_hybrid_tiny(dev, kc, reset_launches, launches) -> dict:
     decode is fp32 in both modes).  Each mode launches its kernels
     (HYBRID_TINY_KERNELS) and no other causal kernel.  Returns the
     launches by mode."""
-    from fft_tpu_torch import bench
     from fft_tpu_torch.models.hybrid import (
         hybrid_apply, hybrid_init, hybrid_tiny_config)
     from fft_tpu_torch.train.data import CharDataset
@@ -4081,8 +4049,8 @@ def phase_hybrid_tiny(dev, kc, reset_launches, launches) -> dict:
                 and all_finite(logits)):
             raise AssertionError("hybrid tiny score: bad shape or non-finite")
         score_ms = wall_ms(lambda: hybrid_apply(model, x))
-        score_prof = bench._profile(lambda: hybrid_apply(model, x),
-                                    torch.cuda.synchronize, 3)
+        score_prof = fprof.read_profile(lambda: hybrid_apply(model, x),
+                                        torch.cuda.synchronize, 3)
         gen = generate_run(model, x[:, :16], 32)
         decode = None
         if mode == "float32":
@@ -4128,7 +4096,6 @@ def phase_hybrid_1b(dev, kc, reset_launches, launches) -> dict:
     #12 once a SPECTRE layer a step); the CLI's train-hybrid --preset 1b
     --seq 32768 --steps 2.  #9, #7 and #11 in their bf16 instances and
     #12 launched, no fp32 instance.  Returns the launches."""
-    from fft_tpu_torch import bench
     from fft_tpu_torch.models.hybrid import hybrid_1b_config, hybrid_apply
 
     cfg = hybrid_1b_config(seq=32768)
@@ -4163,9 +4130,9 @@ def phase_hybrid_1b(dev, kc, reset_launches, launches) -> dict:
         raise AssertionError("hybrid 1b score: bad shape or non-finite")
     del logits
     score_ms = wall_ms(lambda: hybrid_apply(model, x), rounds=3)
-    score_prof = bench._profile(lambda: hybrid_apply(model, x),
-                                torch.cuda.synchronize, 1,
-                                LONG_KERNEL_NAMES)
+    score_prof = fprof.read_profile(lambda: hybrid_apply(model, x),
+                                    torch.cuda.synchronize, 1,
+                                    LONG_KERNEL_NAMES)
     gen = generate_run(model, x[:, :8], 8)
     del model, x
     torch.cuda.empty_cache()
@@ -4187,6 +4154,122 @@ def phase_hybrid_1b(dev, kc, reset_launches, launches) -> dict:
     return used
 
 
+# phase 11: the CUDA kernels a train-lm or train-hybrid trace must name
+# (#8, #6 and #10's three launches, csrc/causal_fft.cu)
+PROF_TRACE_KERNELS = ("kf_spectra_fft_kernel", "fused_mix_fft_kernel",
+                      *BWD_KERNEL_NAMES)
+# bench-mix's lines: the JAX CLI's keys, then the port's
+BENCH_MIX_KEYS = ("seq", "block_fwd_ms", "tokens_per_sec", "mix_roofline_ms",
+                  "mix_branch", "device", "name_power_limit")
+
+
+def trace_kernels(logdir) -> tuple:
+    """(the Chrome traces under ``logdir``, the names of their events)."""
+    files = sorted(pathlib.Path(logdir).glob("*.json"))
+    names = set()
+    for f in files:
+        names |= {e.get("name", "") for e in
+                  json.loads(f.read_text())["traceEvents"]}
+    return files, names
+
+
+def phase_prof(dev) -> None:
+    """Module 7b on the card (utils/prof.py): the card's measured rates
+    beside its published peaks (measure_chip_constants, csrc/probe.cu's
+    FMA chain); train-lm and train-hybrid --preset tiny --steps 4
+    --profile DIR, each trace naming #8's, #6's and #10's CUDA kernels;
+    bench-mix at the JAX CLI's defaults; the tiny LM untied
+    (tie_embeddings=False) at full width: a train step at 2 x 2048 and
+    scoring against the CPU (REL_MODEL); the config-1 block (fp32) with
+    fft_impl="matmul" against the same block with "auto": a forward within
+    REL_BLOCK, both on the per-head branch."""
+    import tempfile
+
+    from fft_tpu_torch import bench, cli
+    from fft_tpu_torch.layers.spectre import (
+        MIX_BRANCH_CALLS, spectre_block_init)
+    from fft_tpu_torch.models.lm import lm_apply, lm_init, tiny_lm_config
+    from fft_tpu_torch.train.data import CharDataset
+
+    t0 = time.perf_counter()
+    consts = fprof.measure_chip_constants(dev)
+    emit(phase="prof_chip_constants", seconds=time.perf_counter() - t0,
+         **consts.record())
+    rates = ("hbm_gbps", "tflops_bf16", "tflops_f32", "tflops_tf32",
+             "fp32_gops")
+    if not all(math.isfinite(getattr(consts, k)) and getattr(consts, k) > 0
+               for k in rates):
+        raise AssertionError(f"prof: measured rates {consts}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for cmd in ("train-lm", "train-hybrid"):
+            logdir = os.path.join(tmp, cmd)
+            recs = cli_lines([cmd, "--device", "cuda", "--preset", "tiny",
+                              "--steps", "4", "--log-every", "1",
+                              "--profile", logdir])
+            files, names = trace_kernels(logdir)
+            missing = [k for k in PROF_TRACE_KERNELS
+                       if not any(k in n for n in names)]
+            emit(phase="prof_cli_trace", command=cmd, steps=len(recs),
+                 traces=[f.name for f in files],
+                 trace_bytes=[f.stat().st_size for f in files],
+                 kernels_named=[k for k in PROF_TRACE_KERNELS
+                                if k not in missing])
+            if len(files) != 1 or missing or len(recs) != 4:
+                raise AssertionError(f"{cmd} --profile: traces {files}, "
+                                     f"kernels not named {missing}, "
+                                     f"{len(recs)} steps logged")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["bench-mix", "--device", "cuda"])
+    rows = [json.loads(line) for line in buf.getvalue().splitlines()]
+    emit(phase="prof_bench_mix", rows=rows)
+    if ([r["seq"] for r in rows] != [1024, 4096, 16384]
+            or not all(set(BENCH_MIX_KEYS) <= set(r)
+                       and r["block_fwd_ms"] > 0
+                       and math.isfinite(r["tokens_per_sec"]) for r in rows)):
+        raise AssertionError(f"bench-mix printed {buf.getvalue()!r}")
+
+    cfg = dataclasses.replace(tiny_lm_config(), tie_embeddings=False)
+    toks = next(CharDataset().batches(2, cfg.max_seq, seed=SEED))
+    res = train_parity(cfg, dev, toks)
+    x = torch.from_numpy(toks[:, :-1]).long()
+    model = lm_init(cfg, torch.Generator().manual_seed(SEED), dev)
+    model_cpu = lm_init(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    logits = lm_apply(model, x.to(dev))
+    score_err = rel_err(logits, lm_apply(model_cpu, x))
+    emit(phase="prof_untied_lm", batch=2, seq=cfg.max_seq,
+         score_rel_err=score_err, **res)
+    if not (res["finite"] and res["loss_rel_err"] <= REL_MODEL
+            and res["max_grad_rel_err"] <= REL_MODEL
+            and score_err <= REL_MODEL and all_finite(logits)
+            and "lm_head" in dict(model.named_parameters())):
+        raise AssertionError(f"untied LM: {res}, scoring rel_err "
+                             f"{score_err} (limit {REL_MODEL})")
+    del model, model_cpu, logits
+
+    g = torch.Generator().manual_seed(SEED + 1)
+    xb = torch.randn((bench.B, bench.L, bench.D), generator=g).to(dev)
+    outs = {}
+    MIX_BRANCH_CALLS.clear()
+    for impl in ("auto", "matmul"):
+        cfg = dataclasses.replace(bench.config1(compute_dtype="float32"),
+                                  fft_impl=impl)
+        block = spectre_block_init(cfg, torch.Generator().manual_seed(SEED),
+                                   dev)
+        with torch.no_grad():
+            outs[impl] = block(xb)
+    err = rel_err(outs["matmul"], outs["auto"])
+    emit(phase="prof_fft_impl_matmul", rel_err=err,
+         branches=dict(MIX_BRANCH_CALLS))
+    if not (err <= REL_BLOCK and all_finite(outs["matmul"])
+            and dict(MIX_BRANCH_CALLS) == {"per_head": 2}):
+        raise AssertionError(f"fft_impl='matmul' block: rel_err {err} "
+                             f"(limit {REL_BLOCK}), branches "
+                             f"{dict(MIX_BRANCH_CALLS)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4198,7 +4281,7 @@ def main() -> int:
     # reference's (no bf16 partial sums in split-K reductions)
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
-    from fft_tpu_torch import bench, cli
+    from fft_tpu_torch import cli
     from fft_tpu_torch.kernels import build
     from fft_tpu_torch.kernels import causal as kc
     from fft_tpu_torch.kernels import decode as kd
@@ -4260,8 +4343,8 @@ def main() -> int:
                              f"{tuple(logits.shape)} or non-finite")
     ms = wall_ms(lambda: lm_apply(model, toks.to(dev)))
     toks_dev = toks.to(dev)
-    prof = bench._profile(lambda: lm_apply(model, toks_dev),
-                          torch.cuda.synchronize, 3)
+    prof = fprof.read_profile(lambda: lm_apply(model, toks_dev),
+                              torch.cuda.synchronize, 3)
     emit(phase="score", batch=4, seq=cfg.max_seq, rel_err=err, ms=ms,
          tokens_per_s=4 * cfg.max_seq / (ms / 1e3), profile=prof)
 
@@ -4453,6 +4536,18 @@ def main() -> int:
     hybrid_1b = phase_hybrid_1b(dev, kc, reset_launches, launches)
     mark("hybrid_1b")
 
+    # 11. prof: module 7b, the untied head, fft_impl="matmul" --------------
+    reset_launches()                          # the profiled paths
+    phase_prof(dev)
+    prof_launches = launches()
+    emit(phase="prof_launches", **prof_launches)
+    missing = [k for k in TRAIN_KERNELS if prof_launches[k] == 0]
+    direct = {k: prof_launches[k] for k in TINY_DIRECT if prof_launches[k]}
+    if missing or direct:
+        raise AssertionError(f"prof: never launched {missing}; direct "
+                             f"kernels launched: {direct}")
+    mark("prof")
+
     summary = []
     for name, cases in kernel_results.items():
         main_case = next(c for c in cases if c["main"])
@@ -4474,7 +4569,8 @@ def main() -> int:
                        short_350m=short_launches[name],
                        hybrid_tiny=hybrid_tiny["float32"][name],
                        hybrid_tiny_bf16=hybrid_tiny["bfloat16"][name],
-                       hybrid_1b=hybrid_1b[name])
+                       hybrid_1b=hybrid_1b[name],
+                       prof=prof_launches[name])
         summary.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=sum(by_path.values()),
@@ -4482,6 +4578,7 @@ def main() -> int:
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             device_ms=main_case["device_ms"],
+            device_ms_source=main_case["device_ms_source"],
             plain_device_ms=main_case["plain_device_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
             library_ms=main_case["library_ms"],

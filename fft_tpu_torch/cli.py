@@ -6,7 +6,7 @@ Usage:
         [--batch B] [--seq L] [--lr LR] [--data FILE] [--vocab-size V]
         [--ckpt DIR] [--ckpt-every N] [--resume] [--metrics FILE]
         [--log-every N] [--eval-every N] [--seed S] [--bf16]
-        [--device cuda|cpu]
+        [--profile DIR] [--device cuda|cpu]
     python -m fft_tpu_torch.cli tokenize --out FILE [--data TEXT]
         [--vocab-size V] [--max-merges M] [--chars N]
     python -m fft_tpu_torch.cli generate [--preset tiny|350m] [--seq L]
@@ -16,11 +16,14 @@ Usage:
     python -m fft_tpu_torch.cli train-hybrid [--preset tiny|1b] [--steps N]
         [--batch B] [--seq L] [--lr LR] [--data FILE] [--ckpt DIR]
         [--ckpt-every N] [--resume] [--bf16] [--metrics FILE]
-        [--log-every N] [--eval-every N] [--seed S] [--device cuda|cpu]
+        [--log-every N] [--eval-every N] [--seed S] [--profile DIR]
+        [--device cuda|cpu]
     python -m fft_tpu_torch.cli train-vit [--steps N] [--batch B]
         [--data DIR] [--classes K] [--layers L] [--lr LR] [--ckpt DIR]
         [--ckpt-every N] [--resume] [--metrics FILE] [--log-every N]
         [--seed S] [--device cuda|cpu]
+    python -m fft_tpu_torch.cli bench-mix [--seqs 1024,4096,16384]
+        [--batch 8] [--dim 512] [--device cuda|cpu]
 
 The training commands and ``generate`` run on the card unless ``--device
 cpu`` is given; without a card they fail at once.  Training reads a text file or a
@@ -36,9 +39,11 @@ random from ``--seed``) and a BPE tokenizer from ``--vocab`` (else bytes).
 ``--bf16`` runs the blocks in ``compute_dtype="bfloat16"`` (the parameters
 stay fp32), as the JAX CLI's; on the card the causal mix runs the bf16
 instances of its kernels (#6 and #10 on the tiny preset and the 350M's
-short prompts, #7 and #11 on the 350M's long chunks).  Flags of
-the JAX CLI whose modules are still queued raise ``NotImplementedError``
-naming their ROADMAP.md item.
+short prompts, #7 and #11 on the 350M's long chunks).  ``--profile DIR``
+writes a ``torch.profiler`` Chrome trace of one step after warm-up (the
+third of the run, as the JAX CLI's) into DIR (``utils/prof.py``).  Flags
+of the JAX CLI whose module is still queued (``--dp/--sp/--tp/--pp``,
+module 7c) raise ``NotImplementedError`` naming their ROADMAP.md item.
 
 ``train-hybrid`` trains the hybrid SPECTRE + sliding-window LM (config 5;
 ``--preset 1b`` is d=2048 at seq 32768 in bf16 with group remat) on
@@ -47,6 +52,14 @@ byte-level windows of ``--data`` or the synthetic corpus, as the JAX CLI's
 folder (``--data``, which sets ``--classes``) or synthetic
 class-conditional images, with ``optax.adamw(lr)``'s update
 (``vit_train_config``).  Both checkpoint and resume as ``train-lm``.
+
+``bench-mix`` times the JAX CLI's bf16 block (``embed_dim=--dim``, 8
+heads, n_fft = seq, mean pooling, no wavelet, ``fft_impl="auto"``, seed
+0) at each of ``--seqs``: the forward chained 4 and 16 times, the slope a
+forward (CUDA events on the card, the host clock on the CPU), and prints a
+JSON line a seq with the JAX keys (``seq``, ``block_fwd_ms``,
+``tokens_per_sec``, ``mix_roofline_ms``: ``spectral_mix_cost`` over the
+H100's published peaks), the device and the mix branch the block took.
 """
 
 from __future__ import annotations
@@ -57,7 +70,9 @@ import dataclasses
 import json
 import os
 import pathlib
+import statistics
 import sys
+import time
 
 import numpy as np
 import torch
@@ -144,7 +159,6 @@ def cmd_train_lm(args) -> None:
     from fft_tpu_torch.utils import MetricsLogger, resolve_device
 
     for flag, value, item in (
-            ("--profile", args.profile, "module 7b, utils/prof.py"),
             ("--dp", args.dp > 1, _PARALLEL), ("--sp", args.sp > 1, _PARALLEL),
             ("--tp", args.tp > 1, _PARALLEL), ("--pp", args.pp > 1, _PARALLEL)):
         if value:
@@ -218,14 +232,21 @@ def _train_lm_loop(args, state, batches, eval_batches, ckpt_writer, logger,
                    start: int, fault_step: int, step_fn, eval_loss) -> None:
     """The LM loops of train-lm and train-hybrid: ``step_fn(state,
     batch)`` a step, ``eval_loss(model, tokens)`` on the held-out stream
-    every ``--eval-every`` steps, in eval mode."""
+    every ``--eval-every`` steps, in eval mode; with ``--profile``, a
+    trace of the run's third step (one step after warm-up)."""
+    from fft_tpu_torch.utils import profile_trace
+
     model = state.model
     device = model.tok_emb.device
     tokens_per_step = args.batch * args.seq
     for i, batch in zip(range(start, args.steps), batches):
         if fault_step and start == 0 and i + 1 == fault_step:
             raise RuntimeError(f"injected fault at step {i + 1}")
-        metrics = step_fn(state, batch)
+        if args.profile and i == start + 2:
+            with profile_trace(args.profile, device):
+                metrics = step_fn(state, batch)
+        else:
+            metrics = step_fn(state, batch)
         if i % args.log_every == 0 or i == args.steps - 1:
             rec = {"loss": metrics["loss"],
                    "grad_norm": metrics["grad_norm"]}
@@ -269,7 +290,6 @@ def cmd_train_hybrid(args) -> None:
     from fft_tpu_torch.utils import MetricsLogger, resolve_device
 
     for flag, value, item in (
-            ("--profile", args.profile, "module 7b, utils/prof.py"),
             ("--dp", args.dp > 1, _PARALLEL),
             ("--sp", args.sp > 1, _PARALLEL + " (the SWA halo exchange)")):
         if value:
@@ -392,6 +412,65 @@ def cmd_generate(args) -> None:
     print(args.prompt + text)
 
 
+def cmd_bench_mix(args) -> None:
+    """The JAX CLI's ``bench-mix`` (fft_tpu/cli.py:433-473): the bf16
+    block's forward at each seq, timed as the slope between chains of 4
+    and 16 forwards.  The reference's chain raises (its ``lax.scan``
+    carries the fp32 input into a block that returns bf16); here x is cast
+    to the block's compute dtype first, so every forward of the chain is
+    the same."""
+    from fft_tpu_torch.config import SpectreConfig
+    from fft_tpu_torch.layers.common import DTYPES
+    from fft_tpu_torch.layers.spectre import _mix_branch, spectre_block_init
+    from fft_tpu_torch.utils import resolve_device
+    from fft_tpu_torch.utils.prof import card, events_ms, spectral_mix_cost
+
+    device = resolve_device(args.device)
+    where = card(device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    for seq in (int(s) for s in args.seqs.split(",")):
+        cfg = SpectreConfig(embed_dim=args.dim, num_heads=8, n_fft=seq,
+                            pooling_type="mean", wavelet_on_rate=0.0,
+                            compute_dtype="bfloat16")
+        block = spectre_block_init(cfg, torch.Generator().manual_seed(0),
+                                   device)
+        x = torch.randn((args.batch, seq, args.dim),
+                        generator=torch.Generator().manual_seed(1)).to(
+                            device, DTYPES[cfg.compute_dtype])
+
+        def chain(k):
+            h = x
+            for _ in range(k):
+                h = block(h)
+            return h
+
+        def chain_ms(k) -> float:
+            times = []
+            for _ in range(3):
+                if device.type == "cuda":
+                    times.append(events_ms(lambda: chain(k), sync, 1))
+                else:
+                    t0 = time.perf_counter()
+                    chain(k)
+                    times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times)
+
+        with torch.no_grad():
+            chain(16)                       # plans and kernels built
+            sync()
+            ms = (chain_ms(16) - chain_ms(4)) / 12
+        print(json.dumps({
+            "seq": seq, "block_fwd_ms": ms,
+            "tokens_per_sec": args.batch * seq / (ms / 1e3),
+            "mix_roofline_ms": spectral_mix_cost(
+                args.batch, seq, args.dim).roofline_ms(),
+            "mix_branch": _mix_branch(cfg), **where}))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="fft_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -415,7 +494,9 @@ def main(argv=None):
     lm.add_argument("--log-every", type=int, default=10)
     lm.add_argument("--eval-every", type=int, default=0,
                     help="held-out loss/perplexity every N steps")
-    lm.add_argument("--profile", default=None)
+    lm.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of one step after "
+                         "warm-up into DIR")
     lm.add_argument("--dp", type=int, default=1)
     lm.add_argument("--sp", type=int, default=1)
     lm.add_argument("--tp", type=int, default=1)
@@ -439,7 +520,9 @@ def main(argv=None):
     hy.add_argument("--metrics", default=None, help="JSONL metrics file")
     hy.add_argument("--log-every", type=int, default=10)
     hy.add_argument("--eval-every", type=int, default=0)
-    hy.add_argument("--profile", default=None)
+    hy.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of one step after "
+                         "warm-up into DIR")
     hy.add_argument("--dp", type=int, default=1)
     hy.add_argument("--sp", type=int, default=1)
     hy.add_argument("--seed", type=int, default=0)
@@ -493,6 +576,14 @@ def main(argv=None):
     gen.add_argument("--device", default="cuda",
                      help="torch device: cuda (the default) or cpu")
     gen.set_defaults(fn=cmd_generate)
+
+    bm = sub.add_parser("bench-mix")
+    bm.add_argument("--seqs", default="1024,4096,16384")
+    bm.add_argument("--batch", type=int, default=8)
+    bm.add_argument("--dim", type=int, default=512)
+    bm.add_argument("--device", default="cuda",
+                    help="torch device: cuda (the default) or cpu")
+    bm.set_defaults(fn=cmd_bench_mix)
     args = p.parse_args(argv)
     args.fn(args)
     return 0

@@ -14,7 +14,9 @@ The JAX trees are taken as nested dicts of numpy arrays
 - blocks are stacked on axis 0 (scan over layers);
 - ``modrelu_bias`` is (G, F_half) per head; ``memory_fft`` is a real
   (2, bins, d) pair, the same in both;
-- the embeddings are tied (``tok_emb`` is the LM head).
+- the LM's head is ``tok_emb`` transposed when tied; an untied LM
+  (``tie_embeddings=False``) has its own (d, vocab) ``lm_head`` leaf, the
+  same in both.
 
 Both directions only transpose and slice, so a round trip is bit-exact.
 
@@ -144,14 +146,14 @@ def _stack(trees):
 def from_jax_params(tree, cfg: LMConfig) -> Dict[str, torch.Tensor]:
     """JAX LM params (nested dicts of numpy arrays) -> the port's
     ``state_dict`` for ``SpectreLM(cfg)``."""
-    if not cfg.tie_embeddings:
-        raise NotImplementedError("an untied LM head is not ported")
     sd = {
         "tok_emb": torch.from_numpy(np.array(tree["tok_emb"])),
         "pos_emb": torch.from_numpy(np.array(tree["pos_emb"])),
         "ln_f.weight": torch.from_numpy(np.array(tree["ln_f"]["scale"])),
         "ln_f.bias": torch.from_numpy(np.array(tree["ln_f"]["bias"])),
     }
+    if not cfg.tie_embeddings:
+        sd["lm_head"] = torch.from_numpy(np.array(tree["lm_head"]))
     for i in range(cfg.num_layers):
         block = block_from_jax_params(tree["blocks"], cfg.block, layer=i)
         sd.update((f"blocks.{i}.{k}", t) for k, t in block.items())
@@ -170,12 +172,15 @@ def to_jax_params(state_dict, cfg: LMConfig):
         blocks.append(block_to_jax_params(
             {k[len(prefix):]: t for k, t in state_dict.items()
              if k.startswith(prefix)}, cfg.block))
-    return {
+    tree = {
         "tok_emb": arr("tok_emb"),
         "pos_emb": arr("pos_emb"),
         "ln_f": {"scale": arr("ln_f.weight"), "bias": arr("ln_f.bias")},
         "blocks": _stack(blocks),
     }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = arr("lm_head")
+    return tree
 
 
 def _t(a) -> torch.Tensor:

@@ -171,10 +171,11 @@ def spectre_multihead_decode_step(
     """One decode step for all heads: project, update the cache, gate, mix
     in frequency, pruned single-position irFFT, concat, out_proj.
 
-    With ``kernels.decode.ENABLE`` (and not ``reference_compat``) the
-    update, mix and irFFT are one call of ``fused_decode_mix``, which
-    updates the prefix in place and reads the evicted row of ``v_buf``
-    before this step writes the new one.  ``reference_compat`` takes the
+    With ``kernels.decode.ENABLE`` (and not ``reference_compat``, and
+    ``fft_impl`` "auto" or "pallas", as the reference's
+    decode/cache.py:214-216) the update, mix and irFFT are one call of
+    ``fused_decode_mix``, which updates the prefix in place and reads the
+    evicted row of ``v_buf`` before this step writes the new one.  ``reference_compat`` takes the
     plain branch and reproduces the original's Nyquist sign and frozen
     query sum.
 
@@ -189,7 +190,8 @@ def spectre_multihead_decode_step(
     xh = x_t.reshape(b, h, hd)
     q_t = _heads_linear(xh, mix.heads.w_q)
     v_t = _heads_linear(xh, mix.heads.w_v)
-    if kd.ENABLE and not reference_compat:
+    if (kd.ENABLE and not reference_compat
+            and cfg.fft_impl in fftops.KERNEL_IMPLS):
         t, j, evict = _step_slot(cache)
         _append_query(cache, q_t, t, j, evict, False)
         gate = spectre_gate(mix.heads, hcfg,

@@ -46,6 +46,7 @@ _SIGNATURES = {
     "fft_staged_mix": ([_P] * 7 + [_I] * 8 + [_P], _I),
     "fft_twopass_mix": ([_P] * 7 + [_I] * 8 + [_P], _I),
     "fft_fused_decode_mix": ([_P] * 6 + [_I] * 9 + [_P], _I),
+    "fft_fma_chain": ([_P] + [_I] * 4 + [_P], _I),
 }
 
 _LIB = None

@@ -12,7 +12,9 @@ where either of its kernel families takes the shape: #6's up to chunk 853
 segment spectra are FFTs too: P O passes or Bluestein at every chunk), #7's
 for power-of-two chunks up to 2048.  Past both
 the banded kernel takes the chunk (up to 2904), so on the card the plain
-composition runs only where the reference runs jnp too.  The kernel
+composition runs only where the reference runs jnp too: past the banded
+kernel, and under ``fft_impl`` "jnp" or "matmul", for which the reference
+runs no kernel (``ops/fftops.py``).  The kernel
 functions run their plain PyTorch versions on CPU tensors, so one dispatch
 serves both devices.  ``BRANCH_CALLS`` counts the branch each call took.
 
@@ -65,8 +67,12 @@ def segmented_causal_mix(
         raise ValueError(f"sequence {n} is not a multiple of chunk {chunk}")
     c2 = 2 * chunk
     f2 = chunk + 1
-    fused_ok = (kc.fused_mix_supported(nc, chunk, d, g_groups)
-                or kc.fused_mix_v3_supported(nc, chunk, d, g_groups))
+    # "jnp" and "matmul" take the composition, as the reference's
+    # use_pallas (causal_seg.py:116-118)
+    kernels = cfg.fft_impl in fftops.KERNEL_IMPLS
+    fused_ok = kernels and (
+        kc.fused_mix_supported(nc, chunk, d, g_groups)
+        or kc.fused_mix_v3_supported(nc, chunk, d, g_groups))
 
     # lane-folded producer layout: lane l = c*G + g
     g_l = gate.permute(0, 3, 1, 2).reshape(b, gate.shape[-1], nc * g_groups)
@@ -97,7 +103,7 @@ def segmented_causal_mix(
     kf = kf_l.reshape(b, nc, f2, nc, g_groups).permute(0, 3, 1, 2, 4)
     vf = kc.segment_spectra(v, chunk)                      # (B, nc, F2, d)
 
-    if kc.banded_supported(nc, f2, d, g_groups):
+    if kernels and kc.banded_supported(nc, f2, d, g_groups):
         BRANCH_CALLS["banded"] += 1
         y = kc.banded_inverse(vf.real.contiguous(), vf.imag.contiguous(),
                               kf.real.contiguous(), kf.imag.contiguous(),

@@ -8,7 +8,8 @@ Heads are stacked on a leading axis of their parameters (the JAX package
 - the non-causal head (``spectre_head_apply``) and multihead: the fused
   all-heads branch (``fft_impl="pallas"``, the spectral-mix kernels of
   ``fft_tpu_torch.kernels.spectral_mix``) and the per-head branch
-  (``fft_impl="auto"``: ``torch.fft``, cuFFT on the card);
+  (``fft_impl`` "auto", "jnp" or "matmul": ``torch.fft``, cuFFT on the
+  card; see ``ops/fftops.py``);
 - the wavelet refinement, its wavelet path detached;
 - the causal head, chunk gates (all three poolers, as the decode
   descriptors see them) and segmented multihead branch;
@@ -77,10 +78,9 @@ def _check_head_config(cfg: SpectreHeadConfig) -> None:
     if cfg.compute_dtype not in DTYPES:
         raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: one of "
                          f"{sorted(DTYPES)}")
-    if cfg.fft_impl not in ("auto", "pallas"):
-        # "jnp"/"matmul" pick among the JAX package's transforms; the port
-        # has one path per shape (torch.fft and its kernels)
-        raise _not_ported(f"fft_impl={cfg.fft_impl!r}")
+    if cfg.fft_impl not in fftops.IMPLS:
+        raise ValueError(f"fft_impl={cfg.fft_impl!r}: one of "
+                         f"{fftops.IMPLS}")
 
 
 class SpectreHeads(nn.Module):

@@ -3,8 +3,10 @@
 Token + learned positional embeddings, a stack of causal SPECTRE blocks
 (a Python loop over a ``ModuleList`` where the JAX package scans stacked
 layers, each block under ``torch.utils.checkpoint`` when ``remat`` is set,
-as the JAX package's ``jax.checkpoint``), final LayerNorm and a tied LM
-head.  Serving: the forward,
+as the JAX package's ``jax.checkpoint``), final LayerNorm and the LM
+head: ``tok_emb`` transposed when ``tie_embeddings`` (the default), else
+its own (d, vocab) ``lm_head`` (JAX's lm.py:98-100), which every reader
+of the head takes through ``lm_head_matrix``.  Serving: the forward,
 batched prefill into per-layer decode caches, the O(F)-per-token decode
 step and generation, all without autograd.  Training calls the
 differentiable ``lm_hidden`` and ``lm_head_matrix`` (``fft_tpu_torch.train``).
@@ -33,7 +35,7 @@ from fft_tpu_torch.decode.cache import (
 )
 from fft_tpu_torch.layers.causal_chunk import preferred_causal_chunk
 from fft_tpu_torch.layers.common import DTYPES, LayerNorm
-from fft_tpu_torch.layers.spectre import SpectreBlock, _not_ported
+from fft_tpu_torch.layers.spectre import SpectreBlock
 from fft_tpu_torch.utils.device import resolve_device
 
 
@@ -92,8 +94,6 @@ def spectre_350m_config(vocab_size: int = 50432,
 class SpectreLM(nn.Module):
     def __init__(self, cfg: LMConfig):
         super().__init__()
-        if not cfg.tie_embeddings:
-            raise _not_ported("an untied LM head")
         self.cfg = cfg
         d = cfg.embed_dim
         self.tok_emb = nn.Parameter(torch.empty(cfg.vocab_size, d))
@@ -101,6 +101,8 @@ class SpectreLM(nn.Module):
         self.blocks = nn.ModuleList(
             SpectreBlock(cfg.block) for _ in range(cfg.num_layers))
         self.ln_f = LayerNorm(d, eps=1e-5)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(torch.empty(d, cfg.vocab_size))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -112,6 +114,10 @@ class SpectreLM(nn.Module):
         for block in self.blocks:
             block.reset_parameters(generator)
         self.ln_f.reset_parameters()
+        if not self.cfg.tie_embeddings:
+            # drawn last, so a tied model's draws stay as they were
+            self.lm_head.copy_(torch.randn(self.lm_head.shape,
+                                           generator=generator) * std)
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """Token plus position embedding, in the blocks' compute dtype."""
@@ -177,8 +183,9 @@ def lm_hidden(model: SpectreLM, tokens: torch.Tensor, *,
 
 
 def lm_head_matrix(model: SpectreLM) -> torch.Tensor:
-    """(d, vocab): the tied LM head, tok_emb transposed."""
-    return model.tok_emb.T
+    """(d, vocab): the LM head, tok_emb transposed when tied, else
+    ``lm_head`` (JAX's lm.py:172-173)."""
+    return model.tok_emb.T if model.cfg.tie_embeddings else model.lm_head
 
 
 def head_logits(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:

@@ -5,11 +5,25 @@ are ``torch.fft`` (pocketfft on the CPU, cuFFT on the card).  ``irfft`` drops
 the imaginary part of the DC and Nyquist bins explicitly before the C2R
 transform: pocketfft and cuFFT need not agree on a spectrum that is not
 Hermitian there, and the gates of this model are complex at DC.
+
+``fft_impl`` takes the JAX package's values (``IMPLS``).  There "jnp"
+(XLA's FFT) and "matmul" (``kernels/matfft.py``: DFT stages as MXU
+matmuls, no ``pl.pallas_call``) choose among its transforms and "auto"
+picks one by size; here every one of them is ``torch.fft``, so the three
+compute the same transforms.  Where the reference dispatches on the value
+the port does too: only "pallas" takes the non-causal fused branch
+(fft_tpu/layers/spectre.py:433), and only the values in ``KERNEL_IMPLS``
+take the causal mix's kernels (fft_tpu/layers/causal_seg.py:116-118) and
+the fused decode step (fft_tpu/decode/cache.py:214-216); "jnp" and
+"matmul" take the plain compositions there.
 """
 
 from __future__ import annotations
 
 import torch
+
+IMPLS = ("auto", "jnp", "matmul", "pallas")
+KERNEL_IMPLS = ("auto", "pallas")
 
 
 def rfft(x: torch.Tensor, n: int, dim: int = -2) -> torch.Tensor:

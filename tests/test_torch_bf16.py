@@ -205,7 +205,8 @@ def test_bf16_dispatch_takes_the_bf16_instances_or_names_the_roadmap(
 
 def test_block_bf16_matches_jax_bf16_block():
     """tests/test_bf16.py's block (d=64, 4 heads, n_fft 128, memory 8) in
-    bf16 on both sides, with fft_impl="auto" (the port refuses "matmul"):
+    bf16 on both sides, with fft_impl="auto" (tests/test_bf16.py's
+    "matmul" runs the same transforms in the port):
     the output in bf16, within the bf16 budget of JAX's; and close to the
     port's own fp32 block."""
     cfg32 = SpectreConfig(embed_dim=64, num_heads=4, n_fft=128,

@@ -468,9 +468,9 @@ def test_dispatch_keeps_the_parents_branches(chunk, monkeypatch):
             v = torch.zeros(1, n, d)
             gate = torch.zeros(1, nc, cols, n + 1, dtype=torch.complex64)
             BRANCH_CALLS.clear()
-            causal_seg.segmented_causal_mix(v, gate,
-                                            SimpleNamespace(n_fft=2 * n),
-                                            chunk)
+            causal_seg.segmented_causal_mix(
+                v, gate, SimpleNamespace(n_fft=2 * n, fft_impl="auto"),
+                chunk)
             assert dict(BRANCH_CALLS) == {want: 1}, (nc, chunk, d, cols)
 
 

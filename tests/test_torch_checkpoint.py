@@ -37,18 +37,19 @@ from tests.test_torch_convert import jax_lm_config, lm_pair
 LOSS_TOL = 1e-4        # a model step against JAX's (tests/test_torch_train.py)
 
 
-def _tiny():
+def _tiny(tie: bool = True):
     return LMConfig(
-        vocab_size=32, num_layers=2, max_seq=16,
+        vocab_size=32, num_layers=2, max_seq=16, tie_embeddings=tie,
         block=SpectreConfig(embed_dim=32, num_heads=4, n_fft=16,
                             pooling_type="mean", wavelet_on_rate=0.0,
                             causal=True, causal_chunk=4, memory_size=4))
 
 
-def _state(seed=0, steps=2, tcfg=None):
+def _state(seed=0, steps=2, tcfg=None, tie=True):
     """A small LM's train state after ``steps`` updates (non-zero moments,
-    count and step; the generator advanced)."""
-    model = lm_init(_tiny(), torch.Generator().manual_seed(seed), "cpu")
+    count and step; the generator advanced); ``tie=False``: with its own
+    LM head."""
+    model = lm_init(_tiny(tie), torch.Generator().manual_seed(seed), "cpu")
     state = train_init(model, tcfg or TrainConfig(warmup_steps=1),
                        seed=seed + 1)
     rng = np.random.default_rng(seed)
@@ -115,6 +116,18 @@ def test_roundtrip_is_bit_exact(tmp_path):
     # in place: the optimizer still holds the model's Parameters
     assert all(a is b for a, b in zip(other.optimizer.params, params))
     assert all(a is b for a, b in zip(params, other.model.parameters()))
+
+
+def test_untied_head_roundtrip_is_bit_exact(tmp_path):
+    """An untied LM's lm_head, its moments and the rest restore bit for
+    bit into a fresh state of the same config."""
+    state = _state(seed=3, steps=2, tie=False)
+    want = _tensors(state)
+    assert "model.lm_head" in want and "mu.lm_head" in want
+    ck.save_checkpoint(tmp_path / "ck", state, 2)
+    fresh = _state(seed=4, steps=0, tie=False)
+    ck.restore_checkpoint(tmp_path / "ck", fresh)
+    _assert_equal(_tensors(fresh), want)
 
 
 def test_restored_state_steps_as_the_original(tmp_path):

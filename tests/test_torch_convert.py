@@ -39,7 +39,7 @@ def _leaf_init(path, shape, rng):
         return 1.0 + 0.1 * rng.standard_normal(shape)
     if name == "modrelu_bias":
         return -0.1 + 0.1 * rng.standard_normal(shape)
-    if name in ("tok_emb", "pos_emb"):
+    if name in ("tok_emb", "pos_emb", "lm_head"):
         return 0.02 * rng.standard_normal(shape)
     if name == "memory_fft":
         return rng.standard_normal(shape) / np.sqrt(2.0 * shape[-1])
@@ -115,6 +115,44 @@ def test_bridge_round_trip_is_bit_exact(memory_size):
         assert np.array_equal(a.view(np.uint32), b.view(np.uint32))
 
 
+def untied_lm_config() -> tlm.LMConfig:
+    """2 layers, d=128, 2 heads, n_fft 256, chunk 64, memory of 8 bins,
+    vocab 64 and its own LM head (tie_embeddings=False)."""
+    return tlm.LMConfig(
+        vocab_size=64, num_layers=2, max_seq=256, tie_embeddings=False,
+        block=tcfg.SpectreConfig(
+            embed_dim=128, num_heads=2, n_fft=256, pooling_type="mean",
+            wavelet_on_rate=0.0, causal=True, causal_chunk=64,
+            memory_size=8))
+
+
+def test_untied_head_bridges_bit_exact_with_jax_init_distributions():
+    """The untied head's (d, vocab) lm_head leaf crosses the bridge both
+    ways bit for bit, and lm_init draws it as JAX's (emb_init_std)."""
+    cfg = untied_lm_config()
+    params, model = lm_pair(cfg, seed=4)
+    assert tuple(model.lm_head.shape) == (128, 64)
+    assert torch.equal(model.lm_head, torch.from_numpy(params["lm_head"]))
+    back = to_jax_params(model.state_dict(), cfg)
+    flat_a, tree_a = jax.tree.flatten(params)
+    flat_b, tree_b = jax.tree.flatten(back)
+    assert tree_a == tree_b
+    for a, b in zip(flat_a, flat_b):
+        assert np.array_equal(a.view(np.uint32), b.view(np.uint32))
+    drawn = tlm.lm_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    ref = np.asarray(jax.jit(jlm.lm_init, static_argnums=1)(
+        jax.random.key(0), jax_lm_config(cfg))["lm_head"])
+    got = drawn.lm_head.detach().numpy()
+    se = ref.std() / np.sqrt(ref.size)
+    assert abs(got.mean() - ref.mean()) < 5 * se + 1e-6
+    assert abs(got.std() - ref.std()) < 5 * se / np.sqrt(2) + 1e-6
+    # a tied model draws what it drew before: the head comes last
+    tied = tlm.lm_init(dataclasses.replace(cfg, tie_embeddings=True),
+                       torch.Generator().manual_seed(0), "cpu")
+    assert torch.equal(tied.tok_emb, drawn.tok_emb)
+    assert "lm_head" not in dict(tied.named_parameters())
+
+
 def test_port_init_matches_jax_init_distributions():
     """lm_init draws from the same distributions as the JAX init: the trees
     bridge with the same structure and shapes, and every leaf has the same
@@ -148,7 +186,8 @@ def test_port_never_imports_jax():
             "fft_tpu_torch.layers.attention, fft_tpu_torch.train.images, "
             "fft_tpu_torch.train.bpe, fft_tpu_torch.train.checkpoint, "
             "fft_tpu_torch.train.data, fft_tpu_torch.train.native_loader, "
-            "fft_tpu_torch.train.supervisor; "
+            "fft_tpu_torch.train.supervisor, fft_tpu_torch.utils.prof, "
+            "fft_tpu_torch.kernels.probe; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'fft_tpu.'))"
             " or m == 'fft_tpu'); print(bad); sys.exit(1 if bad else 0)")
@@ -162,6 +201,7 @@ def test_kernel_module_imports_without_nvcc():
     code = ("import fft_tpu_torch.kernels.causal as kc, "
             "fft_tpu_torch.kernels.spectral_mix as sm, "
             "fft_tpu_torch.kernels.decode as kd, "
+            "fft_tpu_torch.kernels.probe as kp, "
             "fft_tpu_torch.kernels.build as kb, "
             "fft_tpu_torch.train.native_loader as nl; "
             "assert kb._LIB is None and nl._LIB is None; print('ok')")

@@ -293,6 +293,59 @@ def test_descriptors_match_jax_step_by_step(port_fused, pooling,
             assert rel_err(descr.numpy(), np.asarray(jdescr)) < TOL_DECODE, i
 
 
+@pytest.mark.parametrize("impl", ["jnp", "matmul"])
+def test_decode_step_with_each_fft_impl_matches_jax(impl):
+    """A decode step built with JAX's other fft_impl values, from a
+    5-token prefill through the wrap, against JAX's step with the same
+    value (both on the plain branch: JAX fuses only under "pallas" and
+    "auto", decode/cache.py:214-216).  1e-5 for "jnp"; for "matmul" 1e-5
+    or twice JAX's own "matmul"-to-"jnp" distance, where larger."""
+    cfg = _desc_cfg("mean", fft_impl=impl)
+    params, block = block_pair(cfg, seed=15)
+    mix = block.mix
+    jmix = jax.tree.map(jnp.asarray, params["mix"])
+    steps = [jax.jit(lambda p, xt, cache, c=c:
+                     jdc.spectre_multihead_decode_step(p, c, xt, cache))
+             for c in (_jax_cfg(cfg), _jax_cfg(_desc_cfg("mean",
+                                                         fft_impl="jnp")))]
+    x = np.random.default_rng(16).standard_normal((2, 20, 32)).astype(
+        np.float32)
+    with torch.no_grad():
+        cache = _mix_prefill(mix, torch.from_numpy(x[:, :5]))
+        jcaches = [_jax_cache(cache)] * 2
+        for i in range(5, 20):
+            y, cache = tdc.spectre_multihead_decode_step(
+                mix, torch.from_numpy(x[:, i]), cache)
+            outs = []
+            for k, step in enumerate(steps):
+                out, jcaches[k] = step(jmix, jnp.asarray(x[:, i]),
+                                       jcaches[k])
+                outs.append(np.asarray(out))
+            tol = max(TOL_KERNEL, 2 * rel_err(outs[0], outs[1]))
+            assert rel_err(y.numpy(), outs[0]) < tol, i
+
+
+@pytest.mark.parametrize("impl,launches", [
+    ("auto", 1), ("pallas", 1), ("jnp", 0), ("matmul", 0)])
+def test_decode_kernel_launches_only_where_jax_fuses(impl, launches,
+                                                     monkeypatch):
+    """#12 launches once a step under "auto" and "pallas" and never under
+    "jnp" or "matmul", counted by the wrapper as on the card (its launch
+    replaced by a counter: the kernel is CUDA only)."""
+    monkeypatch.setattr(kd, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(kd, "launch", lambda counts, name, *a, **k:
+                        counts.__setitem__(name, counts[name] + 1))
+    kd.reset_launches()
+    cfg = _desc_cfg("mean", fft_impl=impl)
+    _, block = block_pair(cfg, seed=17)
+    with torch.no_grad():
+        x = torch.zeros(1, 6, 32)
+        cache = _mix_prefill(block.mix, x[:, :5])
+        tdc.spectre_multihead_decode_step(block.mix, x[:, 5], cache)
+    assert kd.LAUNCHES["fused_decode_mix"] == launches
+    kd.reset_launches()
+
+
 # ---------------------------------------------------------------------------
 # Causal chunk gates of the DCT and attention poolers, and LMs on them
 # ---------------------------------------------------------------------------

@@ -11,7 +11,8 @@ banded_inverse (#5: both transform paths, every tile plan, both K layouts
 through the direct #6) and the direct #6 (segment_fft.cuh's segment FFTs:
 P O passes, Bluestein for half-zero and full windows; a copy that sizes
 full windows' Bluestein for 3C - 1 must fail), causal_bwd.cu's direct #10
-(the shim's warp shuffles), and decode.cu (#12).  Same bound as on the
+(the shim's warp shuffles), decode.cu (#12), and probe.cu (the FMA chain
+of utils/prof.py's measured constants, no TPU kernel).  Same bound as on the
 card (max|a-b| / max|b| < 2e-5: FFTs or direct DFTs against pocketfft, all
 fp32), and for the bf16 instances 1e-2 on the bf16 outputs (their one
 rounding to bf16 against the plain version's) and 2e-5 on the fp32 Kbar.
@@ -26,6 +27,7 @@ import torch
 from fft_tpu_torch.kernels import build as kb
 from fft_tpu_torch.kernels import causal as kc
 from fft_tpu_torch.kernels import decode as kd
+from fft_tpu_torch.kernels import probe
 from fft_tpu_torch.kernels import spectral_mix as sm
 from fft_tpu_torch.kernels.common import stage_twiddles_np, twiddles_np
 from tests import cuda_emulation
@@ -1231,3 +1233,25 @@ def test_emulated_bf16_store_truncating_fails(tmp_path_factory):
     vb = v.bfloat16()
     got = _emulated_mix(lib, vb, kr, ki, 64, 2, 4, 2)
     assert not _bf16_like(got, kc.fused_causal_mix_ref(vb, kr, ki, 64, 2))
+
+
+@pytest.fixture(scope="module")
+def probe_lib(tmp_path_factory):
+    return _emulated(tmp_path_factory, "probe.cu", ("fft_fma_chain",))
+
+
+@pytest.mark.parametrize("n,depth,blocks,threads", [
+    (1000, 16, 2, 64), (4099, 37, 3, 128), (64, 0, 1, 32)])
+def test_emulated_fma_chain(probe_lib, n, depth, blocks, threads):
+    """csrc/probe.cu, the measuring probe of measure_chip_constants (no
+    TPU kernel): every element's chain of ``depth`` fused multiply-adds,
+    over a grid-stride loop of fewer threads than elements, against the
+    plain version's multiply and add a step (one rounding apart a step:
+    2e-5 over these depths)."""
+    x = torch.rand(n, generator=torch.Generator().manual_seed(n)) + 0.5
+    want = probe.fma_chain_ref(x.clone(), depth)
+    assert probe_lib.fft_fma_chain(_ptr(x), n, depth, blocks, threads,
+                                   None) == 0
+    assert _rel(x, want) < TOL
+    assert depth == 0 or not torch.equal(x, torch.rand(
+        n, generator=torch.Generator().manual_seed(n)) + 0.5)

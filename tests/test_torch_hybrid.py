@@ -3,8 +3,9 @@ fft_tpu's on the CPU: the sliding-window attention, its ring decode, the
 model's logits, loss, gradients, train step and greedy generation through
 the weight bridge, remat, bf16, the CLI and the presets.
 
-Both sides run ``fft_impl="auto"`` (the port refuses JAX's "matmul"); the
-port's kernels run their plain versions on CPU tensors.  Tolerances are
+Both sides run ``fft_impl="auto"`` (JAX's tests set "matmul"; the port
+takes it too and runs the same transforms for both); the port's kernels
+run their plain versions on CPU tensors.  Tolerances are
 max|a-b| / max|b| (tests/golden_utils.py): 1e-5 for the attention, 2e-5
 for decode (COMPONENTS.md 2.4), 1e-4 for model logits, losses and
 gradients."""
@@ -13,6 +14,7 @@ import contextlib
 import dataclasses
 import functools
 import io
+import json
 
 import jax
 import jax.numpy as jnp
@@ -442,10 +444,21 @@ def test_cli_train_hybrid_on_the_cpu(tmp_path):
     with contextlib.redirect_stdout(buf):
         cli.main(args[:6] + ["3"] + args[7:] + ["--resume"])
     assert "resumed at step 2" in buf.getvalue()
-    for flag, item in (("--sp", "7c"), ("--dp", "7c"), ("--profile", "7b")):
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main(["train-hybrid", "--device", "cpu", flag,
-                      "x" if flag == "--profile" else "2"])
+    for flag in ("--sp", "--dp"):
+        with pytest.raises(NotImplementedError, match="7c"):
+            cli.main(["train-hybrid", "--device", "cpu", flag, "2"])
+
+
+def test_cli_train_hybrid_profile_writes_a_trace(tmp_path):
+    """--profile DIR traces the run's third step into DIR (JAX's
+    cmd_train_hybrid takes the flag and never reads it)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["train-hybrid", "--device", "cpu", "--seq", "128",
+                  "--steps", "3", "--profile", str(tmp_path / "trace")])
+    traces = list((tmp_path / "trace").iterdir())
+    assert len(traces) == 1 and traces[0].suffix == ".json"
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
 
 
 @pytest.mark.parametrize("name,kw", [("hybrid_tiny_config", {}),

@@ -23,9 +23,11 @@ from fft_tpu_torch.convert import block_from_jax_params, block_to_jax_params
 from fft_tpu_torch.kernels import spectral_mix as sm
 from fft_tpu_torch.layers import attention as tattn
 from fft_tpu_torch.layers import spectre as tsp
+from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS
 from fft_tpu_torch.models import hybrid as thy
 from fft_tpu_torch.models import lm as tlm
 from fft_tpu_torch.models import vit as tvit
+from fft_tpu_torch.utils import prof
 from tests.golden_utils import (
     load, map_block_params, map_head_params, map_multihead_params, rel_err,
 )
@@ -80,16 +82,21 @@ def _jax_block_apply(params, cfg, x):
         params, _jax_cfg(cfg), jnp.asarray(x)))
 
 
-def _check_grads(params, block, cfg, x):
-    """Every parameter gradient of sum(block(x)^2) against jax.grad; the
-    JAX gradient tree goes through the same bridge.  A parameter the port's
-    graph does not reach (the wavelet MLP at rate 0) must have a zero JAX
-    gradient."""
+def _jax_grads(params, cfg, x):
+    """jax.grad of sum(block(x)^2), bridged into the port's names."""
     jcfg = _jax_cfg(cfg)
     grads = jax.jit(jax.grad(
         lambda p: jnp.sum(jsp.spectre_block_apply(p, jcfg, jnp.asarray(x))
                           ** 2)))(params)
-    ref = block_from_jax_params(jax.tree.map(np.asarray, grads), cfg)
+    return block_from_jax_params(jax.tree.map(np.asarray, grads), cfg)
+
+
+def _check_grads(params, block, cfg, x, tol=GRAD_TOL):
+    """Every parameter gradient of sum(block(x)^2) against jax.grad (within
+    ``tol``); the JAX gradient tree goes through the same bridge.  A
+    parameter the port's graph does not reach (the wavelet MLP at rate 0)
+    must have a zero JAX gradient."""
+    ref = _jax_grads(params, cfg, x)
     block.zero_grad(set_to_none=True)
     (block(torch.from_numpy(x)) ** 2).sum().backward()
     scale = max(float(r.abs().max()) for r in ref.values())
@@ -99,10 +106,9 @@ def _check_grads(params, block, cfg, x):
         elif name in _ZERO_GRADS:
             # zero in exact arithmetic: both sides hold rounding only
             assert max(float(p.grad.abs().max()),
-                       float(ref[name].abs().max())) < GRAD_TOL * scale
+                       float(ref[name].abs().max())) < tol * scale
         else:
-            assert rel_err(p.grad.numpy(), ref[name].numpy()) < GRAD_TOL, \
-                name
+            assert rel_err(p.grad.numpy(), ref[name].numpy()) < tol, name
 
 
 @pytest.mark.parametrize("n", [64, 50])
@@ -148,6 +154,50 @@ def test_block_variants_match_jax(name):
         got = block(torch.from_numpy(x)).numpy()
     assert rel_err(got, _jax_block_apply(params, cfg, x)) < TOL
     _check_grads(params, block, cfg, x)
+
+
+@pytest.mark.parametrize("impl", ["jnp", "matmul"])
+@pytest.mark.parametrize("causal", [False, True], ids=["noncausal",
+                                                      "causal"])
+def test_block_fft_impl_matches_jax(impl, causal):
+    """A block built with JAX's other fft_impl values, forward and every
+    gradient against JAX's block with the same value.  The port runs
+    torch.fft for both (the per-head branch; the causal one on the plain
+    composition, as JAX's, which runs no kernel under them).  "jnp": 1e-5
+    on the output and on each gradient; "matmul" (JAX's MXU DFT matmuls):
+    1e-5, or twice JAX's own "matmul"-to-"jnp" distance on the same inputs
+    where that is larger."""
+    extra = dict(causal=True, causal_chunk=16, memory_size=0) if causal \
+        else {}
+    cfg = _cfg(fft_impl=impl, **extra)
+    params, block = block_pair(cfg, seed=21)
+    x = _x(64, seed=22)
+    want = _jax_block_apply(params, cfg, x)
+    tol = grad_tol = TOL
+    if impl == "matmul":
+        jnp_cfg = dataclasses.replace(cfg, fft_impl="jnp")
+        tol = max(tol, 2 * rel_err(want, _jax_block_apply(params, jnp_cfg,
+                                                          x)))
+        ref, ref_jnp = (_jax_grads(params, c, x) for c in (cfg, jnp_cfg))
+        grad_tol = max([grad_tol] + [2 * rel_err(ref[k].numpy(),
+                                                 ref_jnp[k].numpy())
+                                     for k in ref
+                                     if float(ref_jnp[k].abs().max()) > 0])
+    tsp.MIX_BRANCH_CALLS.clear()
+    BRANCH_CALLS.clear()
+    with torch.no_grad():
+        got = block(torch.from_numpy(x)).numpy()
+    assert rel_err(got, want) < tol
+    if causal:
+        assert dict(BRANCH_CALLS) == {"composition": 1}
+    else:
+        assert dict(tsp.MIX_BRANCH_CALLS) == {"per_head": 1}
+    _check_grads(params, block, cfg, x, grad_tol)
+
+
+def test_fft_impl_outside_jax_values_raises():
+    with pytest.raises(ValueError, match="fft_impl"):
+        tsp.SpectreBlock(_cfg(fft_impl="cufft"))
 
 
 @pytest.mark.parametrize("impl", ["auto", "pallas"])
@@ -349,8 +399,9 @@ def test_port_block_init_matches_jax_init_distributions():
 @pytest.mark.parametrize("entry", [
     "lm_init", "spectre_block_init", "spectre_multihead_init", "bench",
     "cli_generate", "cli_train_lm", "hybrid_init", "vit_init", "swa_init",
-    "swa_block_init", "swa_cache_init", "cli_train_hybrid", "cli_train_vit"])
-def test_entry_points_default_to_the_card(entry, monkeypatch):
+    "swa_block_init", "swa_cache_init", "cli_train_hybrid", "cli_train_vit",
+    "cli_bench_mix", "profile_trace", "measure_chip_constants"])
+def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """Without a card, an entry point not asked for the CPU fails at once
     instead of running there."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -371,6 +422,9 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
         "cli_train_hybrid": lambda: cli.main(
             ["train-hybrid", "--seq", "256"]),
         "cli_train_vit": lambda: cli.main(["train-vit", "--layers", "1"]),
+        "cli_bench_mix": lambda: cli.main(["bench-mix", "--seqs", "64"]),
+        "profile_trace": lambda: prof.profile_trace(tmp_path).__enter__(),
+        "measure_chip_constants": prof.measure_chip_constants,
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

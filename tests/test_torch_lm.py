@@ -16,11 +16,16 @@ import pytest
 import torch
 
 import fft_tpu.models.lm as jlm
+import fft_tpu.train as jtrain
 from fft_tpu_torch import cli
 from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS
+from fft_tpu_torch.convert import to_jax_params
 from fft_tpu_torch.models import lm as tlm
+from fft_tpu_torch.train import lm_loss
 from tests.golden_utils import rel_err
-from tests.test_torch_convert import jax_lm_config, lm_pair, small_lm_config
+from tests.test_torch_convert import (
+    jax_lm_config, lm_pair, small_lm_config, untied_lm_config,
+)
 
 TOL = 1e-4
 
@@ -118,3 +123,59 @@ def test_cli_generate_350m_preset():
         assert cli.main(["generate", "--device", "cpu", "--preset", "350m",
                          "--seq", "128", "--steps", "2"]) == 0
     assert buf.getvalue().startswith("the ")
+
+
+@functools.lru_cache(maxsize=None)
+def _untied_pair():
+    cfg = untied_lm_config()
+    params, model = lm_pair(cfg, seed=9)
+    return cfg, jax_lm_config(cfg), jax.tree.map(jnp.asarray, params), model
+
+
+def test_untied_head_logits_loss_and_gradients_match_jax():
+    """tie_embeddings=False: logits, the chunked loss and every gradient
+    (lm_head's and tok_emb's apart) within 1e-4 of JAX's."""
+    cfg, jcfg, params, model = _untied_pair()
+    toks = _tokens(2, cfg.max_seq + 1, 3)
+    ref = np.asarray(jax.jit(jlm.lm_apply, static_argnums=1)(
+        params, jcfg, toks[:, :-1]))
+    got = tlm.lm_apply(model, torch.from_numpy(toks[:, :-1]).long()).numpy()
+    assert rel_err(got, ref) < TOL
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p, t: jtrain.lm_loss(p, jcfg, t, deterministic=True)))(
+            params, toks)
+    model.zero_grad(set_to_none=True)
+    loss = lm_loss(model, torch.from_numpy(toks).long())
+    loss.backward()
+    assert abs(float(loss.detach()) - float(jloss)) < TOL * abs(float(jloss))
+    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+             for k, p in model.named_parameters()}
+    grads.update((k, torch.zeros_like(b)) for k, b in model.named_buffers())
+    got = jax.tree_util.tree_leaves_with_path(to_jax_params(grads, cfg))
+    want = jax.tree.leaves(jax.tree.map(np.asarray, jgrads))
+    assert len(got) == len(want)
+    for (path, a), b in zip(got, want):
+        assert rel_err(a, b) < TOL, jax.tree_util.keystr(path)
+    assert float(model.lm_head.grad.abs().max()) > 0
+    model.zero_grad(set_to_none=True)
+
+
+def test_untied_head_prefill_and_teacher_forced_decode_match_jax():
+    """Prefill logits of 128 tokens, then 4 decode steps fed the same
+    tokens on both sides, through the untied head: within 1e-4."""
+    cfg, jcfg, params, model = _untied_pair()
+    n, steps = 128, 4
+    toks = _tokens(2, n + steps, 5)
+    ref_logits, ref_caches = jax.jit(jlm.lm_prefill, static_argnums=1)(
+        params, jcfg, toks[:, :n])
+    logits, caches = tlm.lm_prefill(model,
+                                    torch.from_numpy(toks[:, :n]).long())
+    assert rel_err(logits.numpy(), np.asarray(ref_logits)) < TOL
+    step = jax.jit(jlm.lm_decode_step, static_argnums=1)
+    for i in range(steps):
+        pos = n + i
+        ref_logits, ref_caches = step(params, jcfg, toks[:, pos], pos,
+                                      ref_caches)
+        logits, caches = tlm.lm_decode_step(
+            model, torch.from_numpy(toks[:, pos]).long(), pos, caches)
+        assert rel_err(logits.numpy(), np.asarray(ref_logits)) < TOL, i

@@ -348,12 +348,28 @@ def test_cli_train_lm_runs_two_steps(tmp_path):
 
 @pytest.mark.parametrize("extra", [
     ["--bf16", "--dp", "2"], ["--dp", "2"], ["--sp", "2"], ["--tp", "2"],
-    ["--pp", "2"], ["--profile", "trace"],
+    ["--pp", "2"],
 ])
 def test_cli_train_lm_not_ported_flags_raise(extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="7c"):
         cli.main(["train-lm", "--device", "cpu", "--seq", "256", "--steps",
                   "1", *extra])
+
+
+def test_cli_train_lm_profile_writes_a_trace(tmp_path):
+    """--profile DIR traces the run's third step (one after warm-up, as the
+    JAX CLI's) into DIR: one Chrome trace holding the step's aten ops."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert cli.main(["train-lm", "--device", "cpu", "--seq", "256",
+                         "--batch", "2", "--steps", "3", "--log-every", "1",
+                         "--profile", str(tmp_path / "trace")]) == 0
+    traces = list((tmp_path / "trace").iterdir())
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+    assert len([ln for ln in buf.getvalue().splitlines()
+                if ln.startswith("{")]) == 3
 
 
 def test_lm_loss_eval_mode_has_no_graph():
