@@ -10,8 +10,10 @@ n_fft 1024-65536 and the 350M's prompts of 512 and 600 tokens (the bf16
 instances of #6, #10 and #1-#4), BASELINE config 3, the ViT
 (train-vit), and config 5, the hybrid SPECTRE + sliding-window LM (the
 tiny one in fp32 and bf16, the 1B at seq 32768 in bf16: training,
-scoring, hybrid_generate, train-hybrid), random weights from seed 0,
-through the port's own entry points.  The
+scoring, hybrid_generate, train-hybrid), and the parallel paths of
+fft_tpu_torch/parallel (DP, head TP, both SP mixes, causal SP, the
+hybrid's halo CP, GPipe) on a 1-rank NCCL group, random weights from seed
+0, through the port's own entry points.  The
 tiny LM's causal mix runs kernels #8 kf_spectra and #6 fused_causal_mix as
 shared-memory FFTs and its backward #10 fused_causal_mix_bwd as FFTs and
 bin-major sums (csrc/causal_fft.cu); their direct-DFT kernels
@@ -283,6 +285,29 @@ Phases, in order; any failure raises and the exit code is nonzero:
              the CPU; the config-1 block with fft_impl="matmul" within
              2e-5 of "auto" (phase_prof).  #8, #6 and #10 launched, no
              direct kernel.
+12. parallel (launch counts of its own) module 7c, fft_tpu_torch/parallel,
+             on a 1-rank NCCL group that parallel.distributed_init builds
+             (explicit rank 0, world 1, a file store in a temporary
+             directory; destroyed after): (a) the tiny LM, 8 x 2048 fp32,
+             3 train_steps under make_mesh(1, 1, 1) against 3 without a
+             mesh (losses and the first step's gradients within 1e-5,
+             #8, #6 and #10 launched as often), then the step ms both ways
+             in turns; (b) sp_segmented_causal_mix at S = 1 at that width,
+             forward and backward, against segmented_causal_mix (2e-5,
+             both on kf_fused); (c) sp_spectral_mix and
+             sp_spectral_mix_strided at S = 1 at 8 x 1024 and 1 x 8192,
+             d=512, forward and backward, against spectral_mix (#1/#2,
+             #3; 2e-5), 4 and 2 all-to-alls a direction, with their ms,
+             and the config-1 block with the wavelet on under tp_mesh
+             (its gathered descriptor) against the block (1e-5);
+             (d) a tiny-hybrid hybrid_train_step with cp_mesh (the SWA
+             halo hop) against one without (1e-5), and pipeline_apply
+             with 1 stage and 2 microbatches over the tiny LM's 6 blocks
+             against the plain stack run a microbatch at a time (output
+             2e-5, also against the whole batch at once; gradients
+             1e-4).  The
+             collectives by kind for each path; every kind of
+             parallel/comm.py is called (phase_parallel).
 
 Prints one JSON line per phase, the card's name and power limit as
 nvidia-smi gives them, a JSON line of per-kernel results, and last
@@ -4270,6 +4295,372 @@ def phase_prof(dev) -> None:
                              f"{dict(MIX_BRANCH_CALLS)}")
 
 
+# phase 12: a parallel path at world size 1 against its no-mesh path on
+# the card: a train step's loss and gradients (which differ only in the
+# rounding of the vocab-parallel cross entropy), the TP block, the
+# hybrid's halo step
+REL_PARALLEL = 1e-5
+
+
+def grads_of(model) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def worst_rel(got: dict, want: dict) -> tuple:
+    """(worst rel_err, its tensor) over the tensors of two dicts."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"gradients of {sorted(set(got) ^ set(want))} "
+                             "on one side only")
+    errs = {k: rel_err(got[k], want[k]) for k in want}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def parallel_lm(dev, mesh, kc, comm) -> dict:
+    """(a) The tiny LM at full width, 8 x 2048, fp32: three train_steps
+    under make_mesh(1, 1, 1) (the model sharded by shard_model at model
+    size 1: the Megatron pair, the vocab-parallel embedding and cross
+    entropy and the data/seq gradient sums all launched) against three
+    without a mesh from the same weights: losses and the first step's
+    gradients within REL_PARALLEL, #8, #6 and #10 launched as often both
+    ways; then the step ms both ways, in turns."""
+    from fft_tpu_torch.models.lm import lm_init, tiny_lm_config
+    from fft_tpu_torch.parallel import shard_model
+    from fft_tpu_torch.train import TrainConfig, train_init, train_step
+    from fft_tpu_torch.train.data import CharDataset
+
+    cfg = tiny_lm_config()
+    batches = CharDataset().batches(8, cfg.max_seq, seed=SEED)
+    bs = [next(batches) for _ in range(3)]
+
+    def run(m):
+        model = lm_init(cfg, torch.Generator().manual_seed(SEED), dev)
+        if m is not None:
+            shard_model(model, m)
+        state = train_init(model, TrainConfig(), seed=SEED + 1)
+        before = {k: kc.LAUNCHES[k] for k in TRAIN_KERNELS}
+        comm.reset_calls()
+        losses, g0 = [], None
+        for i, b in enumerate(bs):
+            met = train_step(state, b, mesh=m)
+            torch.cuda.synchronize()
+            losses.append(float(met["loss"]))
+            if i == 0:
+                g0 = grads_of(model)
+        used = {k: kc.LAUNCHES[k] - before[k] for k in TRAIN_KERNELS}
+        return state, losses, g0, used, dict(comm.CALLS)
+
+    plain, plain_losses, plain_g0, plain_used, _ = run(None)
+    meshed, losses, g0, used, calls = run(mesh)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    grad_err, worst = worst_rel(g0, plain_g0)
+    if not (loss_err <= REL_PARALLEL and grad_err <= REL_PARALLEL
+            and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"parallel LM: loss rel_err {loss_err}, "
+                             f"gradient {worst} rel_err {grad_err} (limit "
+                             f"{REL_PARALLEL})")
+    if used != plain_used or not all(used.values()):
+        raise AssertionError(f"parallel LM: launches {used} with the mesh, "
+                             f"{plain_used} without")
+    times = {"plain": [], "mesh": []}
+    for _ in range(3):
+        for key, st, m in (("plain", plain, None), ("mesh", meshed, mesh)):
+            t0 = time.perf_counter()
+            train_step(st, bs[0], mesh=m)
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t0) * 1e3)
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    return dict(batch=8, seq=cfg.max_seq, losses=losses,
+                plain_losses=plain_losses, loss_rel_err=loss_err,
+                first_step_grad_rel_err=grad_err, worst_grad=worst,
+                launches=used, plain_launches=plain_used, step_ms=ms["mesh"],
+                plain_step_ms=ms["plain"], step_ms_all=times,
+                mesh_overhead_ms=ms["mesh"] - ms["plain"], collectives=calls)
+
+
+def parallel_causal(dev, mesh, comm) -> dict:
+    """(b) sp_segmented_causal_mix at S = 1 at the tiny LM's width (8 x
+    2048, d=512, chunk 128, 32 gate columns), forward and backward, against
+    segmented_causal_mix; both take kf_fused."""
+    from fft_tpu_torch.layers.causal_seg import (
+        BRANCH_CALLS, segmented_causal_mix, sp_segmented_causal_mix)
+    from fft_tpu_torch.models.lm import tiny_lm_config
+
+    cfg = tiny_lm_config().block
+    hc = cfg.head_config()
+    b, n, chunk = 8, cfg.n_fft, cfg.causal_chunk
+    cols = cfg.num_heads * cfg.num_groups
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    v = randn(b, n, cfg.embed_dim).requires_grad_()
+    gate = torch.complex(randn(b, n // chunk, cols, hc.f_half),
+                         randn(b, n // chunk, cols, hc.f_half))
+    gate = (0.1 * gate).requires_grad_()
+    w = randn(b, n, cfg.embed_dim)
+
+    def fwd_bwd(fn):
+        v.grad = gate.grad = None
+        y = fn()
+        (y * w).sum().backward()
+        return y.detach(), v.grad.clone(), torch.view_as_real(
+            gate.grad.clone())
+
+    plain = lambda: segmented_causal_mix(v, gate, hc, chunk)  # noqa: E731
+    sp = lambda: sp_segmented_causal_mix(v, gate, hc, chunk,  # noqa: E731
+                                         mesh)
+    before = BRANCH_CALLS["kf_fused"]
+    want = fwd_bwd(plain)
+    comm.reset_calls()
+    got = fwd_bwd(sp)
+    calls = dict(comm.CALLS)
+    kf = BRANCH_CALLS["kf_fused"] - before
+    err = rel_err(got, want)
+    if err > REL_KERNEL or kf != 2:
+        raise AssertionError(f"causal SP: rel_err {err} (limit {REL_KERNEL}),"
+                             f" kf_fused taken {kf} times of 2")
+    return dict(batch=b, seq=n, chunk=chunk, rel_err=err, branch="kf_fused",
+                collectives=calls,
+                fwd_bwd_ms=median_ms(lambda: fwd_bwd(sp), 2, 3),
+                plain_fwd_bwd_ms=median_ms(lambda: fwd_bwd(plain), 2, 3))
+
+
+def parallel_mixes(dev, mesh, comm) -> list:
+    """(c) Both SP mixes at S = 1 on the config-1 block's shapes (8 x 1024
+    and 1 x 8192, d=512, 64 gate columns, memory), forward and backward,
+    against spectral_mix's fused branch (#1/#2 at 1024, #3 and the cuFFT
+    autograd backward at 8192); ms of each and the all-to-alls."""
+    from fft_tpu_torch.kernels.spectral_mix import spectral_mix
+    from fft_tpu_torch.parallel.dist_fft import (
+        sp_plan_strided, sp_spectral_mix, sp_spectral_mix_strided,
+        sp_stride_permute)
+
+    out = []
+    d, cols = 512, 64
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for b, n in ((8, 1024), (1, 8192)):
+        f = n // 2 + 1
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+
+        v = randn(b, n, d).requires_grad_()
+        g_r = (0.5 * randn(b, f, cols)).requires_grad_()
+        g_i = (0.5 * randn(b, f, cols)).requires_grad_()
+        mem = torch.complex(randn(f, d), randn(f, d)) / math.sqrt(2.0 * d)
+        mem_t = torch.fft.irfft(mem, n, dim=0).contiguous()
+        w = randn(b, n, d)
+        n1 = sp_plan_strided(n, 1)
+
+        def gate_bc():
+            return torch.complex(g_r, g_i).repeat_interleave(d // cols,
+                                                             dim=-1)
+
+        ways = {
+            "fused": lambda: spectral_mix(v, g_r, g_i, mem_t, n),
+            "contiguous": lambda: sp_spectral_mix(
+                v, gate_bc(), mem, n_fft=n, mesh=mesh),
+            "strided": lambda: sp_stride_permute(sp_spectral_mix_strided(
+                sp_stride_permute(v, n1, n // n1), gate_bc(), mem, n_fft=n,
+                mesh=mesh), n1, n // n1, inverse=True)}
+
+        def fwd_bwd(fn):
+            v.grad = g_r.grad = g_i.grad = None
+            y = fn()
+            (y * w).sum().backward()
+            return y.detach(), v.grad.clone(), g_r.grad.clone(), \
+                g_i.grad.clone()
+
+        want = fwd_bwd(ways["fused"])
+        rec = dict(batch=b, n=n, d=d, cols=cols,
+                   fused_ms=median_ms(lambda: fwd_bwd(ways["fused"]), 2, 3))
+        for layout in ("contiguous", "strided"):
+            comm.reset_calls()
+            got = fwd_bwd(ways[layout])
+            a2a = comm.CALLS["all_to_all"]
+            err = rel_err(got, want)
+            expect = 8 if layout == "contiguous" else 4
+            if err > REL_KERNEL or a2a != expect:
+                raise AssertionError(f"SP mix {layout} at {b} x {n}: rel_err"
+                                     f" {err} (limit {REL_KERNEL}), "
+                                     f"{a2a} all-to-alls, not {expect}")
+            rec[layout] = dict(rel_err=err, all_to_all_fwd_bwd=a2a,
+                               ms=median_ms(lambda: fwd_bwd(ways[layout]),
+                                            2, 3))
+        out.append(rec)
+    return out
+
+
+def parallel_tp_block(dev, mesh, comm) -> dict:
+    """(c') The config-1 block (fft_impl="pallas", mean pooling, memory
+    16) with the wavelet on (rate 1.0), 8 x 1024, under tp_mesh at model
+    size 1 (its heads and MLP by Megatron's layout, the wavelet's gate from
+    the gathered descriptor) against the block without a mesh: output and
+    every gradient of sum(y^2), #1 and #2 on both sides."""
+    from fft_tpu_torch.config import SpectreConfig
+    from fft_tpu_torch.layers.spectre import spectre_block_init
+    from fft_tpu_torch.parallel import shard_model
+
+    cfg = SpectreConfig(embed_dim=512, num_heads=8, n_fft=1024,
+                        pooling_type="mean", wavelet_on_rate=1.0,
+                        memory_size=16, fft_impl="pallas")
+    x = torch.randn((8, 1024, 512), generator=torch.Generator(
+        device=dev).manual_seed(SEED + 3), device=dev)
+    res = {}
+    for key, m in (("plain", None), ("tp", mesh)):
+        block = spectre_block_init(cfg, torch.Generator().manual_seed(SEED),
+                                   dev)
+        if m is not None:
+            shard_model(block, m)
+        comm.reset_calls()
+        y = block(x, tp_mesh=m)
+        (y ** 2).sum().backward()
+        torch.cuda.synchronize()
+        res[key] = (y.detach(), grads_of(block), dict(comm.CALLS))
+    y_err = rel_err(res["tp"][0], res["plain"][0])
+    grad_err, worst = worst_rel(res["tp"][1], res["plain"][1])
+    calls = res["tp"][2]
+    if (max(y_err, grad_err) > REL_PARALLEL or not calls["gather_from"]
+            or not calls["copy_to"] or not calls["reduce_from"]):
+        raise AssertionError(f"TP block: output rel_err {y_err}, gradient "
+                             f"{worst} rel_err {grad_err} (limit "
+                             f"{REL_PARALLEL}), collectives {calls}")
+    return dict(batch=8, seq=1024, wavelet_on_rate=1.0, rel_err=y_err,
+                grad_rel_err=grad_err, worst_grad=worst, collectives=calls)
+
+
+def parallel_hybrid_pipeline(dev, mesh, stages, comm) -> dict:
+    """(d) The tiny hybrid (1 x 2048, window 256): a hybrid_train_step
+    with cp_mesh at S = 1 (the SWA blocks' halo hop) against one without;
+    pipeline_apply with 1 stage and 2 microbatches over the tiny LM's 6
+    blocks (fp32, 2 x 2048) against the plain stack a microbatch at a
+    time, output and every block gradient of sum(y^2)."""
+    from fft_tpu_torch.models.hybrid import hybrid_init, hybrid_tiny_config
+    from fft_tpu_torch.models.lm import lm_init, tiny_lm_config
+    from fft_tpu_torch.parallel.pipeline import pipeline_apply
+    from fft_tpu_torch.train import TrainConfig, hybrid_train_step, \
+        train_init
+    from fft_tpu_torch.train.data import CharDataset
+
+    cfg = hybrid_tiny_config()
+    batch = next(CharDataset().batches(1, cfg.max_seq, seed=SEED))
+    res = {}
+    for key, m in (("plain", None), ("cp", mesh)):
+        model = hybrid_init(cfg, torch.Generator().manual_seed(SEED), dev)
+        state = train_init(model, TrainConfig(), seed=SEED + 1,
+                           deterministic=True)
+        comm.reset_calls()
+        met = hybrid_train_step(state, batch, cp_mesh=m)
+        torch.cuda.synchronize()
+        res[key] = (float(met["loss"]), grads_of(model), dict(comm.CALLS))
+    loss_err = abs(res["cp"][0] - res["plain"][0]) / abs(res["plain"][0])
+    grad_err, worst = worst_rel(res["cp"][1], res["plain"][1])
+    if not (loss_err <= REL_PARALLEL and grad_err <= REL_PARALLEL
+            and res["cp"][2]["halo"]):
+        raise AssertionError(f"hybrid CP: loss rel_err {loss_err}, gradient "
+                             f"{worst} rel_err {grad_err}, halo hops "
+                             f"{res['cp'][2]['halo']}")
+    hybrid = dict(batch=1, seq=cfg.max_seq, window=cfg.attn_window,
+                  loss=res["cp"][0], loss_rel_err=loss_err,
+                  grad_rel_err=grad_err, worst_grad=worst,
+                  collectives=res["cp"][2])
+
+    lm = lm_init(tiny_lm_config(), torch.Generator().manual_seed(SEED), dev)
+    h = torch.randn((2, 2048, 512), generator=torch.Generator(
+        device=dev).manual_seed(SEED + 2), device=dev)
+
+    def stack(x):
+        for block in lm.blocks:
+            x = block(x)
+        return x
+
+    # the plain stack on each microbatch (GPipe's arithmetic: a gradient
+    # of the whole batch at once rounds otherwise, and the modReLUs'
+    # kinks turn such roundings into 1e-2 on their bias's gradient)
+    y_plain = torch.cat([stack(h[i:i + 1]) for i in range(2)])
+    for i in range(2):
+        (stack(h[i:i + 1]) ** 2).sum().backward()
+    want = grads_of(lm.blocks)
+    lm.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        whole_err = rel_err(stack(h), y_plain)
+    comm.reset_calls()
+    y = pipeline_apply(lm.blocks, lambda blk, x: blk(x), h, mesh=stages,
+                       num_microbatches=2)
+    (y ** 2).sum().backward()
+    calls = dict(comm.CALLS)
+    y_err = rel_err(y, y_plain)
+    grad_err, worst = worst_rel(grads_of(lm.blocks), want)
+    if max(y_err, whole_err) > REL_BLOCK or grad_err > REL_MODEL:
+        raise AssertionError(f"pipeline: output rel_err {y_err}, the whole "
+                             f"batch's {whole_err} (limit {REL_BLOCK}), "
+                             f"gradient {worst} rel_err {grad_err} (limit "
+                             f"{REL_MODEL})")
+    return dict(hybrid=hybrid, pipeline=dict(
+        batch=2, seq=2048, layers=len(lm.blocks), microbatches=2,
+        rel_err=y_err, whole_batch_rel_err=whole_err, grad_rel_err=grad_err,
+        worst_grad=worst, collectives=calls))
+
+
+def phase_parallel(dev, kc, reset_launches, launches) -> dict:
+    """12. parallel: module 7c on a 1-rank NCCL group, built by
+    distributed_init (explicit rank 0, world 1, a file store in a
+    temporary directory): (a) parallel_lm, (b) parallel_causal, (c)
+    parallel_mixes and parallel_tp_block, (d) parallel_hybrid_pipeline,
+    each with its collectives by kind; every kind of parallel/comm.py is
+    called.
+    Returns the phase's kernel launches; the group is destroyed after."""
+    import tempfile
+
+    import torch.distributed as dist
+    from fft_tpu_torch.parallel import (
+        comm, distributed_init, make_mesh, make_stage_mesh)
+
+    store = tempfile.mkdtemp()
+    distributed_init(f"file://{store}/store", 1, 0, dev)
+    try:
+        backend = dist.get_backend()
+        mesh = make_mesh(1, 1, 1, dev)
+        stages = make_stage_mesh(1, dev)
+        emit(phase="parallel_group", backend=backend,
+             world_size=dist.get_world_size(), mesh=mesh.shape)
+        if backend != "nccl":
+            raise AssertionError(f"parallel: backend {backend}, not nccl")
+        reset_launches()
+        lm = parallel_lm(dev, mesh, kc, comm)
+        emit(phase="parallel_lm", **lm)
+        causal = parallel_causal(dev, mesh, comm)
+        emit(phase="parallel_causal_sp", **causal)
+        mixes = parallel_mixes(dev, mesh, comm)
+        emit(phase="parallel_sp_mixes", cases=mixes)
+        tp_block = parallel_tp_block(dev, mesh, comm)
+        emit(phase="parallel_tp_block", **tp_block)
+        rest = parallel_hybrid_pipeline(dev, mesh, stages, comm)
+        emit(phase="parallel_hybrid_cp", **rest["hybrid"])
+        emit(phase="parallel_pipeline", **rest["pipeline"])
+        used = launches()
+        kinds = set()
+        for calls in (lm["collectives"], causal["collectives"],
+                      tp_block["collectives"], rest["hybrid"]["collectives"],
+                      rest["pipeline"]["collectives"]):
+            kinds |= {k for k, v in calls.items() if v}
+        if mixes:
+            kinds.add("all_to_all")
+        missing = sorted(set(comm.KINDS) - kinds)
+        emit(phase="parallel_launches", kinds_called=sorted(kinds),
+             **{k: v for k, v in used.items() if v})
+        if missing:
+            raise AssertionError(f"parallel: collectives never called: "
+                                 f"{missing}")
+        return used
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4548,6 +4939,10 @@ def main() -> int:
                              f"kernels launched: {direct}")
     mark("prof")
 
+    # 12. parallel: module 7c on a 1-rank NCCL group ---------------------
+    parallel_launches = phase_parallel(dev, kc, reset_launches, launches)
+    mark("parallel")
+
     summary = []
     for name, cases in kernel_results.items():
         main_case = next(c for c in cases if c["main"])
@@ -4570,7 +4965,8 @@ def main() -> int:
                        hybrid_tiny=hybrid_tiny["float32"][name],
                        hybrid_tiny_bf16=hybrid_tiny["bfloat16"][name],
                        hybrid_1b=hybrid_1b[name],
-                       prof=prof_launches[name])
+                       prof=prof_launches[name],
+                       parallel=parallel_launches[name])
         summary.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=sum(by_path.values()),

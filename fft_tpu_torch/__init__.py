@@ -18,6 +18,11 @@ reference.  Module paths and function names mirror the JAX package's:
   the ViT classifier;
 - ``fft_tpu_torch.train``    losses, AdamW, train steps, data (text, BPE,
   images), checkpoints and restarts;
+- ``fft_tpu_torch.parallel`` the (data, seq, model) mesh and its sharding
+  rule, the collectives with their adjoints, the distributed four-step
+  FFT, the GPipe pipeline and the multi-process start-up, on
+  ``torch.distributed`` (NCCL on the card, gloo on the CPU): DP, head TP,
+  SP (non-causal and causal), the hybrid's context parallelism and PP;
 - ``fft_tpu_torch.convert``  the weight bridge from the JAX trees of a
   block, the LM, the ViT and the hybrid (and to them for a block and the
   LM);

@@ -6,7 +6,8 @@ Usage:
         [--batch B] [--seq L] [--lr LR] [--data FILE] [--vocab-size V]
         [--ckpt DIR] [--ckpt-every N] [--resume] [--metrics FILE]
         [--log-every N] [--eval-every N] [--seed S] [--bf16]
-        [--profile DIR] [--device cuda|cpu]
+        [--profile DIR] [--dp N] [--sp N] [--tp N] [--pp N]
+        [--device cuda|cpu]
     python -m fft_tpu_torch.cli tokenize --out FILE [--data TEXT]
         [--vocab-size V] [--max-merges M] [--chars N]
     python -m fft_tpu_torch.cli generate [--preset tiny|350m] [--seq L]
@@ -17,7 +18,7 @@ Usage:
         [--batch B] [--seq L] [--lr LR] [--data FILE] [--ckpt DIR]
         [--ckpt-every N] [--resume] [--bf16] [--metrics FILE]
         [--log-every N] [--eval-every N] [--seed S] [--profile DIR]
-        [--device cuda|cpu]
+        [--dp N] [--sp N] [--device cuda|cpu]
     python -m fft_tpu_torch.cli train-vit [--steps N] [--batch B]
         [--data DIR] [--classes K] [--layers L] [--lr LR] [--ckpt DIR]
         [--ckpt-every N] [--resume] [--metrics FILE] [--log-every N]
@@ -41,9 +42,26 @@ stay fp32), as the JAX CLI's; on the card the causal mix runs the bf16
 instances of its kernels (#6 and #10 on the tiny preset and the 350M's
 short prompts, #7 and #11 on the 350M's long chunks).  ``--profile DIR``
 writes a ``torch.profiler`` Chrome trace of one step after warm-up (the
-third of the run, as the JAX CLI's) into DIR (``utils/prof.py``).  Flags
-of the JAX CLI whose module is still queued (``--dp/--sp/--tp/--pp``,
-module 7c) raise ``NotImplementedError`` naming their ROADMAP.md item.
+third of the run, as the JAX CLI's) into DIR (``utils/prof.py``).
+
+Parallel training (``fft_tpu_torch.parallel``), one process per card::
+
+    torchrun --nproc-per-node N -m fft_tpu_torch.cli train-lm --dp D \
+        --sp S --tp T            # D * S * T == N
+    torchrun --nproc-per-node P -m fft_tpu_torch.cli train-lm --pp P
+    torchrun --nproc-per-node N -m fft_tpu_torch.cli train-hybrid \
+        --dp D --sp S            # D * S == N
+
+``main`` joins the process group first (``distributed_init``: NCCL on the
+card, gloo with ``--device cpu``).  ``--dp/--sp/--tp`` build the (data,
+seq, model) mesh, ``--pp`` alone a pipeline of P stages (the layers must
+split evenly), as the JAX CLI; ``--sp`` switches the causal mix to the
+segmented algorithm.  Flags whose product is not the group's size raise,
+naming the size and the torchrun line.  ``--batch`` stays the global batch:
+every rank draws the same seeded stream and takes its slice, so the losses
+are the single-device run's.  Only the primary rank writes metrics and
+checkpoints; a checkpoint is gathered into the single-device format, so
+``--resume`` at any layout and ``generate --ckpt`` read it.
 
 ``train-hybrid`` trains the hybrid SPECTRE + sliding-window LM (config 5;
 ``--preset 1b`` is d=2048 at seq 32768 in bf16 with group remat) on
@@ -67,6 +85,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import pathlib
@@ -76,16 +95,6 @@ import time
 
 import numpy as np
 import torch
-
-
-# ROADMAP.md items ('Modules to port') of the flags not ported yet
-_PARALLEL = "module 7c, parallel/ on torch.distributed"
-
-
-def _not_ported(flag: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{flag} is not ported to fft_tpu_torch yet (see ROADMAP.md, "
-        f"'Modules to port': {item})")
 
 
 def _lm_config(args):
@@ -149,23 +158,81 @@ def _make_batches(args, data_path, token_mode: bool, seed: int):
                                                seed=seed)
 
 
+def _segmented(cfg):
+    """cfg with the segmented causal mix: sequence parallelism needs the
+    shard-local segmented algorithm (the 2N-FFT path is global)."""
+    return dataclasses.replace(cfg, block=dataclasses.replace(
+        cfg.block, causal_impl="segmented"))
+
+
+def _lm_meshes(args, cfg, device):
+    """(mesh, pp_mesh) of train-lm's flags: the (data, seq, model) mesh,
+    or with ``--pp`` alone a pipeline; (None, None) for one process with
+    no group and no flag (the single-device path)."""
+    import torch.distributed as dist
+    from fft_tpu_torch.parallel import make_mesh, make_stage_mesh
+    if args.pp > 1:
+        if (args.dp, args.sp, args.tp) != (1, 1, 1):
+            raise ValueError("--pp composes with --dp/--sp/--tp through "
+                             "several meshes, which this CLI keeps simple: "
+                             "use --pp alone")
+        if cfg.num_layers % args.pp:
+            raise ValueError(f"{cfg.num_layers} layers do not split into "
+                             f"--pp {args.pp} stages")
+        return None, make_stage_mesh(args.pp, device)
+    if args.dp * args.sp * args.tp == 1 and not dist.is_initialized():
+        return None, None
+    return make_mesh(args.dp, args.sp, args.tp, device), None
+
+
+def _sharded(mesh, pp_mesh):
+    """(gather, shard) state maps of a parallel run for its checkpoints,
+    (None, None) for a single device."""
+    from fft_tpu_torch.parallel import gather_state_dict, shard_state_dict
+    if mesh is None and pp_mesh is None:
+        return None, None
+    return (functools.partial(gather_state_dict, mesh=mesh, pp_mesh=pp_mesh),
+            functools.partial(shard_state_dict, mesh=mesh, pp_mesh=pp_mesh))
+
+
+def _writers(args, gather):
+    """(checkpoint writer or None, metrics logger): the primary rank
+    writes, every rank gathers."""
+    from fft_tpu_torch.parallel import is_primary
+    from fft_tpu_torch.train.checkpoint import AsyncCheckpointWriter
+    from fft_tpu_torch.utils import MetricsLogger
+    primary = is_primary()
+    ckpt_writer = (AsyncCheckpointWriter(args.ckpt, gather=gather,
+                                         write=primary)
+                   if args.ckpt else None)
+    logger = MetricsLogger(args.metrics if primary else None,
+                           print_every=args.log_every, echo=primary)
+    return ckpt_writer, logger
+
+
+def _all_written() -> None:
+    """In a process group, wait until every rank is here: the primary has
+    drained its checkpoint writes, so a run that resumes next (on any
+    rank) sees them."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def cmd_train_lm(args) -> None:
     from fft_tpu_torch.models.lm import lm_init
+    from fft_tpu_torch.parallel import shard_model
     from fft_tpu_torch.train import TrainConfig, lm_loss, train_init, \
         train_step
     from fft_tpu_torch.train.bpe import Tokenizer, is_token_file, \
         vocab_sidecar
-    from fft_tpu_torch.train.checkpoint import AsyncCheckpointWriter
-    from fft_tpu_torch.utils import MetricsLogger, resolve_device
-
-    for flag, value, item in (
-            ("--dp", args.dp > 1, _PARALLEL), ("--sp", args.sp > 1, _PARALLEL),
-            ("--tp", args.tp > 1, _PARALLEL), ("--pp", args.pp > 1, _PARALLEL)):
-        if value:
-            raise _not_ported(flag, item)
+    from fft_tpu_torch.utils import resolve_device
 
     device = resolve_device(args.device)
     cfg = _lm_config(args)
+    if args.sp > 1 and cfg.block.causal:
+        cfg = _segmented(cfg)
+    mesh, pp_mesh = _lm_meshes(args, cfg, device)
     data_path = args.data
     if data_path is None and args.preset == "350m":
         data_path = _default_bpe_corpus(cfg.vocab_size)
@@ -174,15 +241,17 @@ def cmd_train_lm(args) -> None:
         _check_vocab(Tokenizer.load(vocab_sidecar(data_path)).vocab_size,
                      cfg.vocab_size)
     model = lm_init(cfg, torch.Generator().manual_seed(args.seed), device)
+    if mesh is not None or pp_mesh is not None:
+        shard_model(model, mesh, pp_mesh)
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps)
     state = train_init(model, tcfg, seed=args.seed + 1)
-    start = _resume(args, state)
+    gather, shard = _sharded(mesh, pp_mesh)
+    start = _resume(args, state, shard)
 
     # Resumed runs re-seed by the resumed step so the stream continues with
     # fresh batches instead of repeating the run's first ones.
     batches = _make_batches(args, data_path, token_mode, args.seed + start)
-    ckpt_writer = AsyncCheckpointWriter(args.ckpt) if args.ckpt else None
-    logger = MetricsLogger(args.metrics, print_every=args.log_every)
+    ckpt_writer, logger = _writers(args, gather)
     # a separately seeded held-out stream: eval never consumes (or overlaps
     # with) training batches
     eval_batches = (_make_batches(args, data_path, token_mode,
@@ -192,9 +261,14 @@ def cmd_train_lm(args) -> None:
     # step FFT_TPU_FAULT_STEP on fresh runs only (a transient failure: a
     # resumed run sails past it).
     fault_step = int(os.environ.get("FFT_TPU_FAULT_STEP", "0"))
+    step_fn, eval_loss = train_step, lm_loss
+    if mesh is not None or pp_mesh is not None:
+        step_fn = functools.partial(train_step, mesh=mesh, pp_mesh=pp_mesh)
+        eval_loss = functools.partial(lm_loss, mesh=mesh, pp_mesh=pp_mesh)
     with _draining(ckpt_writer, logger):
         _train_lm_loop(args, state, batches, eval_batches, ckpt_writer,
-                       logger, start, fault_step, train_step, lm_loss)
+                       logger, start, fault_step, step_fn, eval_loss)
+    _all_written()
 
 
 @contextlib.contextmanager
@@ -234,6 +308,7 @@ def _train_lm_loop(args, state, batches, eval_batches, ckpt_writer, logger,
     batch)`` a step, ``eval_loss(model, tokens)`` on the held-out stream
     every ``--eval-every`` steps, in eval mode; with ``--profile``, a
     trace of the run's third step (one step after warm-up)."""
+    from fft_tpu_torch.parallel import is_primary
     from fft_tpu_torch.utils import profile_trace
 
     model = state.model
@@ -242,7 +317,7 @@ def _train_lm_loop(args, state, batches, eval_batches, ckpt_writer, logger,
     for i, batch in zip(range(start, args.steps), batches):
         if fault_step and start == 0 and i + 1 == fault_step:
             raise RuntimeError(f"injected fault at step {i + 1}")
-        if args.profile and i == start + 2:
+        if args.profile and i == start + 2 and is_primary():
             with profile_trace(args.profile, device):
                 metrics = step_fn(state, batch)
         else:
@@ -267,12 +342,16 @@ def _train_lm_loop(args, state, batches, eval_batches, ckpt_writer, logger,
     _final_save(args, state, ckpt_writer, start)
 
 
-def _resume(args, state) -> int:
+def _resume(args, state, shard=None) -> int:
     """Restore the latest checkpoint under ``--ckpt`` into ``state`` with
-    ``--resume``; the step to start from."""
+    ``--resume`` (cut to this rank's shard by ``shard``); the step to start
+    from."""
     from fft_tpu_torch.train.checkpoint import latest_step, restore_checkpoint
     if args.resume and args.ckpt and latest_step(args.ckpt) is not None:
-        restore_checkpoint(args.ckpt, state)
+        if shard is None:
+            restore_checkpoint(args.ckpt, state)
+        else:
+            restore_checkpoint(args.ckpt, state, shard=shard)
         print(f"resumed at step {state.step}")
         return state.step
     return 0
@@ -280,27 +359,32 @@ def _resume(args, state) -> int:
 
 def cmd_train_hybrid(args) -> None:
     """Train the hybrid SPECTRE + SWA LM (BASELINE config 5) on byte-level
-    windows of ``--data`` (else the synthetic corpus)."""
+    windows of ``--data`` (else the synthetic corpus).  ``--sp N`` runs
+    context parallel (the SWA blocks' halo exchange, the SPECTRE blocks'
+    sequence-parallel causal mix), ``--dp N`` data parallel."""
+    import torch.distributed as dist
     from fft_tpu_torch.models.hybrid import (
         hybrid_1b_config, hybrid_init, hybrid_tiny_config)
+    from fft_tpu_torch.parallel import make_mesh
     from fft_tpu_torch.train import (
         TrainConfig, hybrid_loss, hybrid_train_step, train_init)
-    from fft_tpu_torch.train.checkpoint import AsyncCheckpointWriter
     from fft_tpu_torch.train.data import CharDataset
-    from fft_tpu_torch.utils import MetricsLogger, resolve_device
-
-    for flag, value, item in (
-            ("--dp", args.dp > 1, _PARALLEL),
-            ("--sp", args.sp > 1, _PARALLEL + " (the SWA halo exchange)")):
-        if value:
-            raise _not_ported(flag, item)
+    from fft_tpu_torch.utils import resolve_device
 
     device = resolve_device(args.device)
     make = hybrid_1b_config if args.preset == "1b" else hybrid_tiny_config
     cfg = make(seq=args.seq)
+    if args.sp > 1:
+        if (args.seq // args.sp) % cfg.attn_window:
+            raise ValueError(f"the shard-local length {args.seq // args.sp} "
+                             "must divide into SWA windows of "
+                             f"{cfg.attn_window}")
+        cfg = _segmented(cfg)
     if args.bf16:
         cfg = dataclasses.replace(cfg, block=dataclasses.replace(
             cfg.block, compute_dtype="bfloat16"))
+    cp_mesh = (make_mesh(args.dp, args.sp, 1, device)
+               if args.dp * args.sp > 1 or dist.is_initialized() else None)
     model = hybrid_init(cfg, torch.Generator().manual_seed(args.seed), device)
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps)
     state = train_init(model, tcfg, seed=args.seed + 1, deterministic=True)
@@ -310,11 +394,16 @@ def cmd_train_hybrid(args) -> None:
     batches = data.batches(args.batch, args.seq, seed=args.seed + start)
     eval_batches = (data.batches(args.batch, args.seq, seed=args.seed + 7919)
                     if args.eval_every else None)
-    ckpt_writer = AsyncCheckpointWriter(args.ckpt) if args.ckpt else None
-    logger = MetricsLogger(args.metrics, print_every=args.log_every)
+    # the hybrid's state is replicated on every rank: no gather
+    ckpt_writer, logger = _writers(args, None)
+    step_fn, eval_loss = hybrid_train_step, hybrid_loss
+    if cp_mesh is not None:
+        step_fn = functools.partial(hybrid_train_step, cp_mesh=cp_mesh)
+        eval_loss = functools.partial(hybrid_loss, cp_mesh=cp_mesh)
     with _draining(ckpt_writer, logger):
         _train_lm_loop(args, state, batches, eval_batches, ckpt_writer,
-                       logger, start, 0, hybrid_train_step, hybrid_loss)
+                       logger, start, 0, step_fn, eval_loss)
+    _all_written()
 
 
 def cmd_train_vit(args) -> None:
@@ -497,10 +586,12 @@ def main(argv=None):
     lm.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of one step after "
                          "warm-up into DIR")
-    lm.add_argument("--dp", type=int, default=1)
-    lm.add_argument("--sp", type=int, default=1)
-    lm.add_argument("--tp", type=int, default=1)
-    lm.add_argument("--pp", type=int, default=1)
+    lm.add_argument("--dp", type=int, default=1, help="data parallel")
+    lm.add_argument("--sp", type=int, default=1, help="sequence parallel")
+    lm.add_argument("--tp", type=int, default=1,
+                    help="tensor (head) parallel")
+    lm.add_argument("--pp", type=int, default=1,
+                    help="pipeline stages (alone: no --dp/--sp/--tp)")
     lm.add_argument("--seed", type=int, default=0)
     lm.add_argument("--device", default="cuda",
                     help="torch device: cuda (the default) or cpu")
@@ -523,8 +614,10 @@ def main(argv=None):
     hy.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of one step after "
                          "warm-up into DIR")
-    hy.add_argument("--dp", type=int, default=1)
-    hy.add_argument("--sp", type=int, default=1)
+    hy.add_argument("--dp", type=int, default=1, help="data parallel")
+    hy.add_argument("--sp", type=int, default=1,
+                    help="context parallel (SWA halo exchange + "
+                         "sequence-parallel SPECTRE)")
     hy.add_argument("--seed", type=int, default=0)
     hy.add_argument("--device", default="cuda",
                     help="torch device: cuda (the default) or cpu")
@@ -585,6 +678,10 @@ def main(argv=None):
                     help="torch device: cuda (the default) or cpu")
     bm.set_defaults(fn=cmd_bench_mix)
     args = p.parse_args(argv)
+    if args.cmd in ("train-lm", "train-hybrid"):
+        # one process per card under torchrun (a no-op otherwise)
+        from fft_tpu_torch.parallel import distributed_init
+        distributed_init(device=args.device)
     args.fn(args)
     return 0
 

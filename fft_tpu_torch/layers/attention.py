@@ -22,8 +22,10 @@ step holds one group's scores at a time (PERF.md gives the peak memory).
 
 The decode cache ``SWACache`` is a ring buffer over the window, updated in
 place with a host-integer position, as ``decode/cache.py``'s
-``PrefixFFTCache``.  The context-parallel ``sliding_window_attention_cp``
-(halo exchange) belongs to ROADMAP module 7c: ``cp_mesh`` raises.
+``PrefixFFTCache``.  Context parallelism (``cp_mesh``, the JAX package's
+:105-147) is ``sliding_window_attention_cp``: the sequence sharded over the
+mesh's ``seq`` axis, one halo hop of each rank's last K/V block to its
+right neighbour, then the same banded attention on the rank's blocks.
 """
 
 from __future__ import annotations
@@ -38,15 +40,8 @@ from torch import nn
 
 from fft_tpu_torch.layers.common import DTYPES, LayerNorm, Linear, linear_init
 from fft_tpu_torch.layers.spectre import MLP
+from fft_tpu_torch.parallel import comm
 from fft_tpu_torch.utils.device import resolve_device
-
-
-def _no_cp_mesh(cp_mesh) -> None:
-    if cp_mesh is not None:
-        raise NotImplementedError(
-            "cp_mesh (context-parallel sliding-window attention, the halo "
-            "exchange) is not ported to fft_tpu_torch yet (see ROADMAP.md, "
-            "'Modules to port': module 7c, parallel/ on torch.distributed)")
 
 
 class SlidingWindowAttention(nn.Module):
@@ -119,17 +114,44 @@ def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
     return out.reshape(b, nb * w, h, hd)[:, :n]
 
 
+def sliding_window_attention_cp(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, window: int, mesh,
+                                seq_axis: str = "seq") -> torch.Tensor:
+    """Context-parallel sliding-window attention: q, k, v (B, n, H, hd) are
+    this rank's n positions of a sequence sharded over ``mesh[seq_axis]``.
+    One halo hop (``comm.halo_right``) brings the previous rank's last
+    (W, H, hd) K and V block (zeros on rank 0, the sequence's start);
+    then the rank's blocks attend locally from global block rank * n / W.
+    The shard-local length must be a multiple of the window."""
+    b, n, h, hd = q.shape
+    w = window
+    if n % w:
+        raise ValueError(f"shard-local length {n} must divide into windows "
+                         f"of {w}")
+    nb = n // w
+    qb, kb, vb = (t.reshape(b, nb, w, h, hd) for t in (q, k, v))
+    halo = comm.halo_right(torch.stack([kb[:, -1], vb[:, -1]]), mesh,
+                           seq_axis)
+    out = _banded_block_attention(qb, kb, vb, halo[0], halo[1],
+                                  mesh.rank(seq_axis) * nb)
+    return out.reshape(b, n, h, hd)
+
+
 def swa_apply(attn: SlidingWindowAttention, x: torch.Tensor, num_heads: int,
               window: int, cp_mesh=None) -> torch.Tensor:
-    """(B, N, d) -> (B, N, d) causal sliding-window multi-head attention."""
-    _no_cp_mesh(cp_mesh)
+    """(B, N, d) -> (B, N, d) causal sliding-window multi-head attention;
+    with ``cp_mesh`` x is this rank's shard of the sequence
+    (``sliding_window_attention_cp``)."""
     b, n, d = x.shape
     hd = d // num_heads
     q = attn.w_q(x).reshape(b, n, num_heads, hd)
     k = attn.w_k(x).reshape(b, n, num_heads, hd)
     v = attn.w_v(x).reshape(b, n, num_heads, hd)
-    out = sliding_window_attention(q, k, v, window).reshape(b, n, d)
-    return attn.w_o(out)
+    if cp_mesh is None:
+        out = sliding_window_attention(q, k, v, window)
+    else:
+        out = sliding_window_attention_cp(q, k, v, window, cp_mesh)
+    return attn.w_o(out.reshape(b, n, d))
 
 
 class SWABlock(nn.Module):

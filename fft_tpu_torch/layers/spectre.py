@@ -21,8 +21,9 @@ The non-causal multihead picks its branch by the JAX package's rule
 Randomness comes from an explicit ``torch.Generator``: dropout on the mixed
 values and the wavelet's on-mask draw only under ``module.train()``, which
 takes the place of the JAX package's ``deterministic=False``.  The
-``sp_mesh`` arguments raise ``NotImplementedError`` naming their ROADMAP.md
-item.
+``sp_mesh`` arguments run sequence parallelism and ``tp_mesh`` head
+parallelism over the axes of a ``parallel.mesh.Mesh`` (the JAX package's
+GSPMD shardings become explicit collectives, ``parallel/comm.py``).
 
 ``compute_dtype="bfloat16"`` follows the JAX package's casts: the block
 casts its input to bf16 (spectre.py:632), linear layers cast their fp32
@@ -52,7 +53,9 @@ from torch import nn
 from fft_tpu_torch.config import SpectreConfig, SpectreHeadConfig
 from fft_tpu_torch.kernels import spectral_mix as spectral_mix_kernels
 from fft_tpu_torch.kernels.spectral_mix import spectral_mix, unfused_mix
-from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS, segmented_causal_mix
+from fft_tpu_torch.layers.causal_seg import (
+    BRANCH_CALLS, segmented_causal_mix, sp_segmented_causal_mix,
+)
 from fft_tpu_torch.layers.common import (
     DTYPES, LayerNorm, Linear, gelu_exact, layernorm_apply, linear_init,
 )
@@ -61,17 +64,15 @@ from fft_tpu_torch.ops import (
     fftops, haar_decompose, haar_reconstruct, interp_complex_1d,
     interp_complex_1d_ref_compat, mean_pool, modrelu,
 )
+from fft_tpu_torch.parallel import comm
+from fft_tpu_torch.parallel.dist_fft import (
+    sp_spectral_mix, sp_spectral_mix_strided,
+)
 from fft_tpu_torch.utils.device import resolve_device
 
 
 # hidden width of the attention pooler's scorer (spectre.py:159-172)
 _POOL_HIDDEN = 256
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to fft_tpu_torch yet (see ROADMAP.md, "
-        "'Modules to port')")
 
 
 def _check_head_config(cfg: SpectreHeadConfig) -> None:
@@ -191,18 +192,48 @@ def spectre_gate(heads: SpectreHeads, cfg: SpectreHeadConfig,
 
 
 def _pool_descriptor(heads: SpectreHeads, cfg: SpectreHeadConfig,
-                     q: torch.Tensor) -> torch.Tensor:
+                     q: torch.Tensor, sp_mesh=None,
+                     sp_layout: str = "contiguous") -> torch.Tensor:
     """The configured pooler over the sequence, then the query LayerNorm:
-    q (B, N, H, hd) -> (B, H, hd)."""
+    q (B, N, H, hd) -> (B, H, hd).  Under ``sp_mesh`` q is this rank's
+    shard of the whole window and the pooler's sums run over all ranks
+    (``comm.all_reduce``; the softmax's max through ``all_reduce_max``)."""
     b, n, h, hd = q.shape
+    if sp_mesh is None:
+        if cfg.pooling_type == "attention":
+            pooled = attention_pool(q.transpose(1, 2), heads.pool_fc1_w,
+                                    heads.pool_fc1_b, heads.pool_fc2_w,
+                                    heads.pool_fc2_b)
+        elif cfg.pooling_type == "dct":
+            pooled = dct_pool(q.reshape(b, n, h * hd)).reshape(b, h, hd)
+        else:
+            pooled = mean_pool(q.transpose(1, 2))
+        return layernorm_apply(pooled, heads.q_norm_w, heads.q_norm_b)
+    if cfg.pooling_type not in ("mean", "attention") and \
+            sp_layout == "strided":
+        # not a bare assert: survives python -O.  The strided layout hands
+        # each shard one residue class of the sequence; DCT pooling reads
+        # positions in order
+        raise ValueError(
+            f"pooling_type={cfg.pooling_type!r} is order-sensitive; "
+            "the strided SP layout needs an order-invariant pooler "
+            "(mean or attention) — use sp_layout='contiguous'")
+    s = sp_mesh.size("seq")
     if cfg.pooling_type == "attention":
-        pooled = attention_pool(q.transpose(1, 2), heads.pool_fc1_w,
-                                heads.pool_fc1_b, heads.pool_fc2_w,
-                                heads.pool_fc2_b)
+        sc = _heads_linear(gelu_exact(_heads_linear(
+            q, heads.pool_fc1_w, heads.pool_fc1_b)), heads.pool_fc2_w,
+            heads.pool_fc2_b)                                # (B, n, H, 1)
+        e = torch.exp(sc - comm.all_reduce_max(sc.amax(dim=1, keepdim=True),
+                                               sp_mesh, "seq"))
+        pooled = (comm.all_reduce((q * e).sum(dim=1), sp_mesh, "seq")
+                  / comm.all_reduce(e.sum(dim=1), sp_mesh, "seq"))
     elif cfg.pooling_type == "dct":
-        pooled = dct_pool(q.reshape(b, n, h * hd)).reshape(b, h, hd)
+        w = dct_pool_weights(n * s, device=q.device)[
+            sp_mesh.rank("seq") * n:][:n].to(q.dtype)
+        pooled = comm.all_reduce((q * w[:, None, None]).sum(dim=1), sp_mesh,
+                                 "seq")
     else:
-        pooled = mean_pool(q.transpose(1, 2))
+        pooled = comm.all_reduce(q.sum(dim=1), sp_mesh, "seq") / (n * s)
     return layernorm_apply(pooled, heads.q_norm_w, heads.q_norm_b)
 
 
@@ -225,7 +256,7 @@ def _compact_gate(gate: torch.Tensor) -> torch.Tensor:
 
 def causal_chunk_gates(heads: SpectreHeads, cfg: SpectreHeadConfig,
                        q: torch.Tensor, n_chunks: int,
-                       causal_chunk: int) -> torch.Tensor:
+                       causal_chunk: int, sp_mesh=None) -> torch.Tensor:
     """Per-chunk gates from causal cumulative descriptors: the configured
     pooler over tokens up to and including each chunk's first position,
     zero-padded to the n_fft window, which is what decode's descriptor sees
@@ -240,9 +271,16 @@ def causal_chunk_gates(heads: SpectreHeads, cfg: SpectreHeadConfig,
       exp(score) q over the prefix sum of exp(score) plus (n_fft - tokens)
       exp(score(0)) for the zero slots.
 
-    q: (B, N, H, hd) -> (B, nc, H, G, F_half) complex."""
+    q: (B, N, H, hd) -> (B, nc, H, G, F_half) complex.
+
+    Under ``sp_mesh`` q holds this rank's n_chunks whole chunks of the
+    sequence: the prefix sums start from the earlier ranks' totals (an
+    all-gather over ``seq``), positions are global, and the attention
+    pooler's max is over all ranks."""
     b, n = q.shape[:2]
     pad_n = n_chunks * causal_chunk
+    rank = 0 if sp_mesh is None else sp_mesh.rank("seq")
+    pos0 = rank * pad_n                       # the first token's position
 
     def chunk_cum(x):
         """(B, n, ...) -> (B, nc, ...): the sum over tokens [0, c C]."""
@@ -251,10 +289,15 @@ def causal_chunk_gates(heads: SpectreHeads, cfg: SpectreHeadConfig,
                           dim=1)
         sums = x.reshape(b, n_chunks, causal_chunk, *x.shape[2:]).sum(dim=2)
         excl = torch.cumsum(sums, dim=1) - sums
+        if sp_mesh is not None:               # the earlier ranks' totals
+            totals = comm.all_gather(sums.sum(dim=1, keepdim=True), sp_mesh,
+                                     "seq", 1)
+            excl = excl + totals[:, :rank].sum(dim=1, keepdim=True)
         return excl + x[:, ::causal_chunk]
 
     if cfg.pooling_type == "dct":
-        wbar = dct_pool_weights(cfg.n_fft, device=q.device)[:n].to(q.dtype)
+        wbar = dct_pool_weights(cfg.n_fft, device=q.device)[
+            pos0:pos0 + n].to(q.dtype)
         descr = chunk_cum(q * wbar[:, None, None])
     elif cfg.pooling_type == "attention":
         s = _heads_linear(gelu_exact(_heads_linear(
@@ -262,9 +305,13 @@ def causal_chunk_gates(heads: SpectreHeads, cfg: SpectreHeadConfig,
             heads.pool_fc2_b)                                # (B, n, H, 1)
         s0 = _heads_linear(gelu_exact(heads.pool_fc1_b.to(q.dtype)),
                            heads.pool_fc2_w, heads.pool_fc2_b)  # (H, 1)
-        m = torch.maximum(s.amax(dim=1, keepdim=True), s0)  # (B, 1, H, 1)
+        smax = s.amax(dim=1, keepdim=True)                   # (B, 1, H, 1)
+        if sp_mesh is not None:
+            smax = comm.all_reduce_max(smax, sp_mesh, "seq")
+        m = torch.maximum(smax, s0)
         es = torch.exp(s - m)
-        starts = torch.arange(n_chunks, device=q.device) * causal_chunk
+        starts = (torch.arange(n_chunks, device=q.device) * causal_chunk
+                  + pos0)
         n_pad = (cfg.n_fft - (starts + 1)).to(q.dtype)
         denom = (chunk_cum(es)
                  + n_pad[None, :, None, None] * torch.exp(s0 - m))
@@ -347,19 +394,36 @@ def spectre_head_apply(
     through ``torch.fft`` (``unfused_mix``).  Requires N <= n_fft.  With
     ``deterministic`` false and dropout_p > 0 the output goes through
     dropout drawn from ``generator``.  Returns (mixed (B, N, H, hd), q_pool
-    (B, H, hd)).  ``sp_mesh`` (sequence parallelism) is not ported."""
-    _no_sp_mesh(sp_mesh, sp_layout)
+    (B, H, hd)).
+
+    With ``sp_mesh`` x is this rank's shard of the whole window (n_fft
+    positions over the ``seq`` ranks), contiguous or, with
+    ``sp_layout="strided"``, in the strided layout
+    (``parallel.dist_fft.sp_stride_permute``), and the mix is the
+    distributed four-step FFT (``sp_spectral_mix`` or
+    ``sp_spectral_mix_strided``); the pooler's sums run over all ranks."""
     b, n, h, hd = x.shape
-    if n > cfg.n_fft:
+    if sp_mesh is None and n > cfg.n_fft:
         raise ValueError(f"sequence {n} exceeds n_fft {cfg.n_fft}")
+    if sp_layout not in ("contiguous", "strided"):
+        raise ValueError(f"sp_layout={sp_layout!r}: 'contiguous' or "
+                         "'strided'")
     q = _heads_linear(x, heads.w_q)
     v = _heads_linear(x, heads.w_v)
-    q_pool = _pool_descriptor(heads, cfg, q)
+    q_pool = _pool_descriptor(heads, cfg, q, sp_mesh, sp_layout)
     gate = _with_pos_phase(spectre_gate(heads, cfg, q_pool), pos_phase)
     mem = None if memory_fft is None else memory_fft.reshape(cfg.f_half,
                                                              h * hd)
-    out = unfused_mix(v.reshape(b, n, h * hd), _compact_gate(gate), mem,
-                      cfg.n_fft)[:, :n].reshape(b, n, h, hd).to(x.dtype)
+    if sp_mesh is None:
+        out = unfused_mix(v.reshape(b, n, h * hd), _compact_gate(gate), mem,
+                          cfg.n_fft)[:, :n]
+    else:
+        mix = (sp_spectral_mix_strided if sp_layout == "strided"
+               else sp_spectral_mix)
+        gate_bc = _compact_gate(gate).repeat_interleave(cfg.d_group, dim=-1)
+        out = mix(v.reshape(b, n, h * hd), gate_bc, mem, n_fft=cfg.n_fft,
+                  mesh=sp_mesh)
+    out = out.reshape(b, n, h, hd).to(x.dtype)
     if not deterministic and cfg.dropout_p > 0.0:
         out = dropout(out, cfg.dropout_p, generator)
     return out, q_pool
@@ -384,19 +448,38 @@ def wavelet_refinement_apply(
     generator: Optional[torch.Generator] = None,
     training: bool = False,
     reference_compat: bool = False,
+    sp_mesh=None,
+    tp_mesh=None,
 ) -> torch.Tensor:
     """Gated straight-through wavelet residual (spectre.py:819-887):
     v + stop_grad(haar_reconstruct(haar_decompose(v))) * gate * mask.  The
     gate MLP trains; the wavelet path is detached.  The mask is per batch
     row: always on for on_rate >= 1; else, in training, drawn with
-    probability on_rate from ``generator``, and off outside training."""
+    probability on_rate from ``generator``, and off outside training.
+
+    Under ``tp_mesh`` v and q_pool hold this rank's heads' channels: the
+    gate is computed from the gathered descriptor and sliced (the pyramid
+    runs per channel).  Under ``sp_mesh`` v is this rank's contiguous shard
+    of the sequence: the detached pyramid runs on the gathered sequence."""
     if on_rate <= 0.0 or (on_rate < 1.0 and not training):
         return v
+    dl = v.shape[-1]
+    if tp_mesh is not None:
+        q_pool = comm.gather_from(q_pool, tp_mesh, "model", -1)
     gate = torch.sigmoid(wavelet.fc2(F.silu(wavelet.fc1(q_pool))))[:, None]
+    if tp_mesh is not None:
+        r = tp_mesh.rank("model")
+        gate = comm.copy_to(gate, tp_mesh, "model")[..., r * dl:(r + 1) * dl]
     with torch.no_grad():
-        coeffs, lengths = haar_decompose(v.detach().transpose(-1, -2),
+        vd = v.detach()
+        if sp_mesh is not None:
+            vd = comm.gather_tensor(vd, sp_mesh, "seq", -2)
+        coeffs, lengths = haar_decompose(vd.transpose(-1, -2),
                                          reference_compat=reference_compat)
         v_ref = haar_reconstruct(coeffs, lengths).transpose(-1, -2)
+        if sp_mesh is not None:
+            n = v.shape[-2]
+            v_ref = v_ref[..., sp_mesh.rank("seq") * n:, :][..., :n, :]
     if on_rate >= 1.0:
         return v + v_ref * gate
     if generator is None:
@@ -408,8 +491,41 @@ def wavelet_refinement_apply(
     return v + v_ref * gate * mask.to(v.dtype)
 
 
-# "fused" | "wide" | "per_head": the branch each non-causal multihead call
-# took (_mix_branch)
+def _local_heads(x: torch.Tensor, heads: SpectreHeads, num_heads: int,
+                 tp_mesh) -> torch.Tensor:
+    """x (B, N, d) -> (B, N, H_l, hd): every head, or under ``tp_mesh``
+    this rank's run of H_l = H / model heads (the parameters ``heads``
+    holds), x entering through ``comm.copy_to``."""
+    b, n, d = x.shape
+    xh = x.reshape(b, n, num_heads, d // num_heads)
+    if tp_mesh is None:
+        return xh
+    hl = heads.w_q.shape[0]
+    r = tp_mesh.rank("model")
+    xh = comm.copy_to(x, tp_mesh, "model").reshape(xh.shape)
+    return xh[:, :, r * hl:(r + 1) * hl]
+
+
+def _local_channels(t: Optional[torch.Tensor], dl: int,
+                    tp_mesh) -> Optional[torch.Tensor]:
+    """This rank's channels (..., dl) of a (..., d) tensor under
+    ``tp_mesh``."""
+    if t is None or tp_mesh is None:
+        return t
+    r = tp_mesh.rank("model")
+    return t[..., r * dl:(r + 1) * dl]
+
+
+def _out_proj(linear: nn.Module, y: torch.Tensor, tp_mesh) -> torch.Tensor:
+    """The output projection; under ``tp_mesh`` its weight holds this
+    rank's input channels and the partial products are summed over
+    ``model`` (``comm.reduce_from``)."""
+    y = linear(y)
+    return y if tp_mesh is None else comm.reduce_from(y, tp_mesh, "model")
+
+
+# "fused" | "wide" | "per_head" | "sp": the branch each non-causal
+# multihead call took (_mix_branch; "sp" under sp_mesh)
 MIX_BRANCH_CALLS = collections.Counter()
 
 
@@ -470,27 +586,50 @@ class SpectreMultiHead(nn.Module):
     def forward(self, x: torch.Tensor,
                 memory_fft: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                pos_phase: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pos_phase: Optional[torch.Tensor] = None, sp_mesh=None,
+                sp_layout: str = "contiguous", tp_mesh=None) -> torch.Tensor:
         """x (B, N, d); memory_fft (F_half, d) complex or None; pos_phase
         (B, F_half) or (F_half,) complex, non-causal only.  In train mode,
-        dropout masks and the wavelet's on-mask come from ``generator``."""
+        dropout masks and the wavelet's on-mask come from ``generator``.
+
+        ``sp_mesh``: x is this rank's shard of the sequence (``seq``
+        axis); the non-causal mix runs the distributed four-step FFT in
+        ``sp_layout`` (the fused branch is off, as in the JAX package), the
+        causal one ``sp_segmented_causal_mix``.  ``tp_mesh``: this module
+        holds its rank's heads (``parallel.mesh.shard_model``), which run
+        on their channels of x, and ``out_proj``'s partial products are
+        summed over ``model``."""
         if self.cfg.causal:
             if pos_phase is not None:
                 raise ValueError("pos_phase is for the non-causal mix")
-            return self._forward_causal(x, memory_fft, generator)
-        return self._forward_noncausal(x, memory_fft, generator, pos_phase)
+            return self._forward_causal(x, memory_fft, generator, sp_mesh,
+                                        tp_mesh)
+        return self._forward_noncausal(x, memory_fft, generator, pos_phase,
+                                       sp_mesh, sp_layout, tp_mesh)
 
-    def _forward_noncausal(self, x, memory_fft, generator, pos_phase):
+    def _forward_noncausal(self, x, memory_fft, generator, pos_phase,
+                           sp_mesh, sp_layout, tp_mesh):
         cfg = self.cfg
         hcfg = self.heads.cfg
         b, n, d = x.shape
-        h, hd = cfg.num_heads, cfg.head_dim
-        if n > cfg.n_fft:
+        if sp_mesh is None and n > cfg.n_fft:
             raise ValueError(f"sequence {n} exceeds n_fft {cfg.n_fft}")
-        xh = x.reshape(b, n, h, hd)
-        branch = _mix_branch(cfg)
+        if (sp_mesh is not None and sp_layout == "strided"
+                and cfg.wavelet_on_rate != 0.0):
+            # not a bare assert: survives python -O.  The strided layout
+            # hands each shard one residue class of the sequence, while the
+            # Haar pyramid pairs adjacent natural positions
+            raise ValueError(
+                "wavelet refinement is order-sensitive and unsupported "
+                "under sp_layout='strided'; use the contiguous SP layout "
+                "or set wavelet_on_rate=0")
+        xh = _local_heads(x, self.heads, cfg.num_heads, tp_mesh)
+        hl, hd = xh.shape[2], xh.shape[3]
+        dl = hl * hd
+        memory_fft = _local_channels(memory_fft, dl, tp_mesh)
+        branch = "sp" if sp_mesh is not None else _mix_branch(cfg)
         MIX_BRANCH_CALLS[branch] += 1
-        if branch != "per_head":
+        if branch in ("fused", "wide"):
             # all heads' mixes are channel-pointwise: ONE d-wide mix with the
             # compact (B, F, H*G) gate
             q = _heads_linear(xh, self.heads.w_q)
@@ -498,7 +637,7 @@ class SpectreMultiHead(nn.Module):
             q_pool = _pool_descriptor(self.heads, hcfg, q)
             gate = _compact_gate(_with_pos_phase(
                 spectre_gate(self.heads, hcfg, q_pool), pos_phase))
-            v_all = F.pad(v.reshape(b, n, d), (0, 0, 0, cfg.n_fft - n))
+            v_all = F.pad(v.reshape(b, n, dl), (0, 0, 0, cfg.n_fft - n))
             if branch == "fused":
                 # the memory enters additively: its irfft is a constant that
                 # the kernel (#1, #3 or #4 by n_fft) adds on its store
@@ -515,48 +654,62 @@ class SpectreMultiHead(nn.Module):
                 mixed = dropout(mixed, cfg.dropout_p, generator)
         else:
             mem_h = (None if memory_fft is None
-                     else memory_fft.reshape(cfg.f_half, h, hd))
+                     else memory_fft.reshape(cfg.f_half, hl, hd))
             mixed, q_pool = spectre_head_apply(
                 self.heads, hcfg, xh, pos_phase=pos_phase, memory_fft=mem_h,
-                generator=generator, deterministic=not self.training)
-            mixed = mixed.reshape(b, n, d)
+                generator=generator, deterministic=not self.training,
+                sp_mesh=sp_mesh, sp_layout=sp_layout)
+            mixed = mixed.reshape(b, n, dl)
         refined = wavelet_refinement_apply(
-            self.wavelet, mixed, q_pool.reshape(b, d), cfg.wavelet_on_rate,
+            self.wavelet, mixed, q_pool.reshape(b, dl), cfg.wavelet_on_rate,
             generator=generator, training=self.training,
-            reference_compat=cfg.wavelet_reference_compat)
-        return self.out_proj(refined)
+            reference_compat=cfg.wavelet_reference_compat, sp_mesh=sp_mesh,
+            tp_mesh=tp_mesh)
+        return _out_proj(self.out_proj, refined, tp_mesh)
 
-    def _forward_causal(self, x, memory_fft, generator):
+    def _forward_causal(self, x, memory_fft, generator, sp_mesh, tp_mesh):
         cfg = self.cfg
         hcfg = self.heads.cfg
         b, n, d = x.shape
-        h, hd = cfg.num_heads, cfg.head_dim
-        xh = x.reshape(b, n, h, hd)
+        xh = _local_heads(x, self.heads, cfg.num_heads, tp_mesh)
+        hl, hd = xh.shape[2], xh.shape[3]
+        dl = hl * hd
+        memory_fft = _local_channels(memory_fft, dl, tp_mesh)
         chunk = min(cfg.causal_chunk, n)
+        if sp_mesh is not None and (cfg.causal_impl != "segmented"
+                                    or n % cfg.causal_chunk):
+            raise ValueError(
+                "causal sequence parallelism runs the segmented algorithm "
+                "on whole chunks: causal_impl='segmented' and a shard-local "
+                f"length ({n}) that is a multiple of causal_chunk "
+                f"({cfg.causal_chunk})")
         if cfg.causal_impl == "segmented" and n % chunk == 0:
             # all heads as ONE d-wide segmented convolution; gate columns
             # h-major then group, so channel ch // d_g == h*G + g
             nc = n // chunk
             q = _heads_linear(xh, self.heads.w_q)
-            v = _heads_linear(xh, self.heads.w_v)
-            gate = causal_chunk_gates(self.heads, hcfg, q, nc, chunk)
-            mixed = segmented_causal_mix(
-                v.reshape(b, n, d),
-                gate.reshape(b, nc, h * cfg.num_groups, cfg.f_half),
-                hcfg, chunk)
+            v = _heads_linear(xh, self.heads.w_v).reshape(b, n, dl)
+            gate = causal_chunk_gates(self.heads, hcfg, q, nc, chunk,
+                                      sp_mesh).reshape(
+                b, nc, hl * cfg.num_groups, cfg.f_half)
+            if sp_mesh is None:
+                mixed = segmented_causal_mix(v, gate, hcfg, chunk)
+            else:
+                mixed = sp_segmented_causal_mix(v, gate, hcfg, chunk, sp_mesh)
             if memory_fft is not None:
-                mixed = mixed + fftops.irfft(memory_fft, cfg.n_fft,
-                                             dim=0)[:n].to(mixed.dtype)
+                pos0 = 0 if sp_mesh is None else sp_mesh.rank("seq") * n
+                mixed = mixed + fftops.irfft(memory_fft, cfg.n_fft, dim=0)[
+                    pos0:pos0 + n].to(mixed.dtype)
             if self.training and cfg.dropout_p > 0.0:
                 mixed = dropout(mixed, cfg.dropout_p, generator)
-            return self.out_proj(mixed)
+            return _out_proj(self.out_proj, mixed, tp_mesh)
         mem_h = (None if memory_fft is None
-                 else memory_fft.reshape(cfg.f_half, h, hd))
+                 else memory_fft.reshape(cfg.f_half, hl, hd))
         mixed, _ = spectre_head_apply_causal(
             self.heads, hcfg, xh, causal_chunk=cfg.causal_chunk,
             causal_impl=cfg.causal_impl, memory_fft=mem_h,
             generator=generator, deterministic=not self.training)
-        return self.out_proj(mixed.reshape(b, n, d))
+        return _out_proj(self.out_proj, mixed.reshape(b, n, dl), tp_mesh)
 
 
 def spectre_multihead_init(cfg: SpectreConfig, generator: torch.Generator,
@@ -570,20 +723,15 @@ def spectre_multihead_init(cfg: SpectreConfig, generator: torch.Generator,
     return mix.to(device).eval()
 
 
-def _no_sp_mesh(sp_mesh, sp_layout: str) -> None:
-    if sp_mesh is not None:
-        raise _not_ported(f"sp_mesh (sp_layout={sp_layout!r}; module 7, "
-                          "DP/TP/SP/PP on torch.distributed)")
-
-
 def spectre_multihead_apply(mix: SpectreMultiHead, x: torch.Tensor, *,
                             memory_fft: Optional[torch.Tensor] = None,
                             generator: Optional[torch.Generator] = None,
                             pos_phase: Optional[torch.Tensor] = None,
-                            sp_mesh=None, sp_layout: str = "contiguous"):
-    _no_sp_mesh(sp_mesh, sp_layout)
+                            sp_mesh=None, sp_layout: str = "contiguous",
+                            tp_mesh=None):
     return mix(x, memory_fft=memory_fft, generator=generator,
-               pos_phase=pos_phase)
+               pos_phase=pos_phase, sp_mesh=sp_mesh, sp_layout=sp_layout,
+               tp_mesh=tp_mesh)
 
 
 class MLP(nn.Module):
@@ -592,8 +740,26 @@ class MLP(nn.Module):
         self.fc1 = Linear(d, hidden)
         self.fc2 = Linear(hidden, d)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu_exact(self.fc1(x)))
+    def forward(self, x: torch.Tensor, tp_mesh=None) -> torch.Tensor:
+        """Under ``tp_mesh`` fc1 holds this rank's rows of the hidden layer
+        and fc2 its columns (Megatron's MLP), and the partial products of
+        fc2 are summed over ``model``.  The biases stay replicated, as in
+        the JAX package's rule: fc1's enters as this rank's slice and fc2's
+        in rank 0's product alone (the others' times 0), so at one rank the
+        arithmetic is the plain layer's to the bit.  Each rank then holds
+        a share of their gradients, which ``parallel.mesh.sync_grads``
+        sums over ``model`` with the other gradient sums."""
+        if tp_mesh is None:
+            return self.fc2(gelu_exact(self.fc1(x)))
+        hl = self.fc1.weight.shape[0]
+        r = tp_mesh.rank("model")
+        x = comm.copy_to(x, tp_mesh, "model")
+        h = gelu_exact(F.linear(x, self.fc1.weight.to(x.dtype),
+                                self.fc1.bias[r * hl:(r + 1) * hl].to(
+                                    x.dtype)))
+        b2 = self.fc2.bias * float(r == 0)
+        return comm.reduce_from(F.linear(h, self.fc2.weight.to(h.dtype),
+                                         b2.to(h.dtype)), tp_mesh, "model")
 
 
 class SpectreBlock(nn.Module):
@@ -643,11 +809,16 @@ class SpectreBlock(nn.Module):
         return mem
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, sp_mesh=None,
+                sp_layout: str = "contiguous", tp_mesh=None) -> torch.Tensor:
+        """``sp_mesh``/``sp_layout``/``tp_mesh``: see
+        ``SpectreMultiHead.forward``; the MLP runs Megatron's layout under
+        ``tp_mesh``."""
         x = x.to(DTYPES[self.cfg.compute_dtype])
         x = x + self.mix(self.ln1(x), memory_fft=self.memory_complex(),
-                         generator=generator)
-        return x + self.mlp(self.ln2(x))
+                         generator=generator, sp_mesh=sp_mesh,
+                         sp_layout=sp_layout, tp_mesh=tp_mesh)
+        return x + self.mlp(self.ln2(x), tp_mesh=tp_mesh)
 
 
 def spectre_block_init(cfg: SpectreConfig, generator: torch.Generator,
@@ -665,7 +836,7 @@ def spectre_block_init(cfg: SpectreConfig, generator: torch.Generator,
 
 def spectre_block_apply(block: SpectreBlock, x: torch.Tensor, *,
                         generator: Optional[torch.Generator] = None,
-                        sp_mesh=None, sp_layout: str = "contiguous"
-                        ) -> torch.Tensor:
-    _no_sp_mesh(sp_mesh, sp_layout)
-    return block(x, generator=generator)
+                        sp_mesh=None, sp_layout: str = "contiguous",
+                        tp_mesh=None) -> torch.Tensor:
+    return block(x, generator=generator, sp_mesh=sp_mesh,
+                 sp_layout=sp_layout, tp_mesh=tp_mesh)

@@ -11,6 +11,13 @@ the 350M checkpoints each block (``models/lm.py``).  The hybrid trains
 with ``deterministic=True`` (no dropout, and its wavelet rate is 0), so no
 generator reaches the blocks.
 
+Context parallelism (``cp_mesh``, a (data, seq, model=1) mesh): the hidden
+states are this rank's rows and positions; the attention blocks exchange
+one K/V halo (``sliding_window_attention_cp``, on the mesh at any ``seq``
+size) and, where ``seq`` is larger than 1, the SPECTRE blocks run the
+causal mix sequence parallel (``sp_segmented_causal_mix``), as the JAX
+package's ``_apply_group`` describes (:109-112).
+
 Decode runs the SPECTRE blocks' prefix-FFT step (kernel #12 on the card)
 and the attention blocks' ring step, one token at a time: the prompt is
 fed token by token, as JAX's ``hybrid_generate`` feeds it.  Decode is
@@ -36,9 +43,11 @@ from fft_tpu_torch.decode.cache import (
 from fft_tpu_torch.layers.attention import (
     SWABlock, SWACache, swa_block_decode_step, swa_cache_init,
 )
-from fft_tpu_torch.layers.common import DTYPES, LayerNorm
+from fft_tpu_torch.layers.common import LayerNorm
 from fft_tpu_torch.layers.spectre import SpectreBlock
-from fft_tpu_torch.models.lm import head_logits
+from fft_tpu_torch.models.lm import (
+    embed_tokens, head_logits, local_batch, seq_shards,
+)
 from fft_tpu_torch.utils.device import resolve_device
 
 
@@ -126,8 +135,7 @@ class HybridLM(nn.Module):
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """Token plus position embedding, in the blocks' compute dtype."""
-        h = self.tok_emb[tokens] + self.pos_emb[:tokens.shape[-1]]
-        return h.to(DTYPES[self.cfg.block.compute_dtype])
+        return embed_tokens(self, tokens)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, N) int -> logits (B, N, vocab) float32."""
@@ -150,17 +158,20 @@ def hybrid_init(cfg: HybridConfig, generator: torch.Generator,
 def _apply_group(model: HybridLM, g: int, h: torch.Tensor,
                  cp_mesh=None) -> torch.Tensor:
     """One layer group: its SPECTRE blocks, then its SWA block."""
+    sp_mesh = cp_mesh if seq_shards(cp_mesh) > 1 else None
     for block in model.spectre[g]:
-        h = block(h)
+        h = block(h, sp_mesh=sp_mesh)
     return model.attn[g](h, cp_mesh=cp_mesh)
 
 
-def hybrid_hidden(model: HybridLM, tokens: torch.Tensor, *,
-                  cp_mesh=None) -> torch.Tensor:
-    """tokens (B, N) -> final-LN hidden states (B, N, d); differentiable.
-    With ``cfg.remat`` and grad enabled each group is recomputed in
-    backward."""
-    h = model.embed(tokens)
+def hybrid_hidden_local(model: HybridLM, tokens: torch.Tensor, *,
+                        cp_mesh=None, pos0: int = 0) -> torch.Tensor:
+    """``hybrid_hidden`` of tokens that are already this rank's shard, at
+    positions pos0..."""
+    if cp_mesh is not None and cp_mesh.size("model") != 1:
+        raise ValueError("the hybrid LM runs no tensor parallelism: its "
+                         "mesh's model axis must be 1")
+    h = embed_tokens(model, tokens, pos0)
     remat = model.cfg.remat and torch.is_grad_enabled()
     for g in range(model.cfg.num_groups):
         if remat:
@@ -171,6 +182,16 @@ def hybrid_hidden(model: HybridLM, tokens: torch.Tensor, *,
     return model.ln_f(h)
 
 
+def hybrid_hidden(model: HybridLM, tokens: torch.Tensor, *,
+                  cp_mesh=None) -> torch.Tensor:
+    """tokens (B, N) -> final-LN hidden states (B, N, d); differentiable.
+    With ``cfg.remat`` and grad enabled each group is recomputed in
+    backward.  With ``cp_mesh`` tokens is the global batch and the result
+    this rank's rows and positions."""
+    tokens, pos0 = local_batch(tokens, cp_mesh)
+    return hybrid_hidden_local(model, tokens, cp_mesh=cp_mesh, pos0=pos0)
+
+
 def hybrid_head_matrix(model: HybridLM) -> torch.Tensor:
     """(d, vocab): the tied head, tok_emb transposed."""
     return model.tok_emb.T
@@ -179,7 +200,8 @@ def hybrid_head_matrix(model: HybridLM) -> torch.Tensor:
 @torch.no_grad()
 def hybrid_apply(model: HybridLM, tokens: torch.Tensor, *,
                  cp_mesh=None) -> torch.Tensor:
-    """tokens (B, N) -> logits (B, N, vocab) float32."""
+    """tokens (B, N) -> logits (B, N, vocab) float32 (this rank's shard
+    with ``cp_mesh``)."""
     return head_logits(hybrid_hidden(model, tokens, cp_mesh=cp_mesh),
                        hybrid_head_matrix(model))
 

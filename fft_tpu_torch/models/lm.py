@@ -11,6 +11,16 @@ batched prefill into per-layer decode caches, the O(F)-per-token decode
 step and generation, all without autograd.  Training calls the
 differentiable ``lm_hidden`` and ``lm_head_matrix`` (``fft_tpu_torch.train``).
 
+Parallel training (``fft_tpu_torch.parallel``): ``lm_hidden`` with a
+(data, seq, model) ``mesh`` takes the global batch and returns this rank's
+shard, its rows of the batch and, where the mesh's ``seq`` axis is larger
+than 1 (the JAX package's rule), its positions of the sequence, every
+block running sequence parallel; the blocks' heads and MLPs run tensor
+parallel over ``model``, and the vocab-sharded ``tok_emb`` is a masked
+lookup summed over ``model``.  With ``pp_mesh`` the block stack runs as a
+GPipe pipeline (``parallel/pipeline.py``), deterministically, as in the
+JAX package.
+
 With ``compute_dtype="bfloat16"`` the embedding plus position is cast to
 bf16 and the blocks run in bf16, while the logits come out fp32 (the head
 cast down for the product, the product cast up), the decode caches are
@@ -36,6 +46,9 @@ from fft_tpu_torch.decode.cache import (
 from fft_tpu_torch.layers.causal_chunk import preferred_causal_chunk
 from fft_tpu_torch.layers.common import DTYPES, LayerNorm
 from fft_tpu_torch.layers.spectre import SpectreBlock
+from fft_tpu_torch.parallel import comm
+from fft_tpu_torch.parallel.mesh import data_slice, seq_slice
+from fft_tpu_torch.parallel.pipeline import pipeline_apply
 from fft_tpu_torch.utils.device import resolve_device
 
 
@@ -121,8 +134,7 @@ class SpectreLM(nn.Module):
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """Token plus position embedding, in the blocks' compute dtype."""
-        h = self.tok_emb[tokens] + self.pos_emb[:tokens.shape[-1]]
-        return h.to(DTYPES[self.cfg.block.compute_dtype])
+        return embed_tokens(self, tokens)
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         """fp32 logits of hidden states h (before the final LN)."""
@@ -146,45 +158,106 @@ def lm_init(cfg: LMConfig, generator: torch.Generator,
 
 
 def _checkpointed(block: SpectreBlock, h: torch.Tensor,
-                  generator: Optional[torch.Generator]) -> torch.Tensor:
+                  generator: Optional[torch.Generator], **kw) -> torch.Tensor:
     """block(h) whose activations are recomputed in backward.  The
     recompute replays the forward's draws from ``generator`` and then puts
     the generator back where backward found it."""
     if generator is None:
-        return checkpoint(block, h, use_reentrant=False)
+        return checkpoint(block, h, use_reentrant=False, **kw)
     start = generator.get_state()
     ran = []
 
     def run(x):
         if not ran:                        # the forward
             ran.append(True)
-            return block(x, generator=generator)
+            return block(x, generator=generator, **kw)
         now = generator.get_state()        # the recompute in backward
         generator.set_state(start)
         try:
-            return block(x, generator=generator)
+            return block(x, generator=generator, **kw)
         finally:
             generator.set_state(now)
 
     return checkpoint(run, h, use_reentrant=False)
 
 
+def seq_shards(mesh) -> int:
+    return 1 if mesh is None else mesh.size("seq")
+
+
+def local_batch(tokens: torch.Tensor, mesh) -> Tuple[torch.Tensor, int]:
+    """(this rank's rows of a global batch, and its positions under SP;
+    the first position) for a ``mesh`` (the whole batch without one)."""
+    if mesh is None:
+        return tokens, 0
+    tokens = tokens[data_slice(mesh, tokens.shape[0])]
+    if seq_shards(mesh) == 1:
+        return tokens, 0
+    sl = seq_slice(mesh, tokens.shape[1])
+    return tokens[:, sl], sl.start
+
+
+def embed_tokens(model: nn.Module, tokens: torch.Tensor, pos0: int = 0,
+                 mesh=None) -> torch.Tensor:
+    """Token plus position embedding of tokens at positions pos0..., in the
+    blocks' compute dtype (the LM's and the hybrid's).  Under ``mesh``
+    ``tok_emb`` holds this rank's rows of the vocab (``model`` axis): a
+    masked lookup summed over ``model``."""
+    n = tokens.shape[-1]
+    if mesh is None:
+        e = model.tok_emb[tokens]
+    else:
+        vl = model.tok_emb.shape[0]
+        idx = tokens - mesh.rank("model") * vl
+        inside = (idx >= 0) & (idx < vl)
+        e = comm.reduce_from(model.tok_emb[idx.clamp(0, vl - 1)]
+                             * inside[..., None], mesh, "model")
+    h = e + model.pos_emb[pos0:pos0 + n]
+    return h.to(DTYPES[model.cfg.block.compute_dtype])
+
+
+def lm_hidden_local(model: SpectreLM, tokens: torch.Tensor, *,
+                    generator: Optional[torch.Generator] = None,
+                    mesh=None, pp_mesh=None, pos0: int = 0) -> torch.Tensor:
+    """``lm_hidden`` of tokens that are already this rank's shard, at
+    positions pos0..."""
+    sp_mesh = mesh if seq_shards(mesh) > 1 else None
+    h = embed_tokens(model, tokens, pos0, mesh)
+    remat = model.cfg.remat and torch.is_grad_enabled()
+    if pp_mesh is not None:
+        h = pipeline_apply(
+            model.blocks, lambda blk, x: (_checkpointed(blk, x, None)
+                                          if remat else blk(x)),
+            h, mesh=pp_mesh)
+        return model.ln_f(h)
+    kw = {} if mesh is None else {"sp_mesh": sp_mesh, "tp_mesh": mesh}
+    for block in model.blocks:
+        h = (_checkpointed(block, h, generator, **kw) if remat
+             else block(h, generator=generator, **kw))
+    return model.ln_f(h)
+
+
 def lm_hidden(model: SpectreLM, tokens: torch.Tensor, *,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              generator: Optional[torch.Generator] = None, mesh=None,
+              pp_mesh=None) -> torch.Tensor:
     """tokens (B, N) -> final-LN hidden states (B, N, d); differentiable.
     In train mode, dropout draws from ``generator``.  With ``cfg.remat``
-    and grad enabled, each block is rematerialized in backward."""
-    h = model.embed(tokens)
-    remat = model.cfg.remat and torch.is_grad_enabled()
-    for block in model.blocks:
-        h = (_checkpointed(block, h, generator) if remat
-             else block(h, generator=generator))
-    return model.ln_f(h)
+    and grad enabled, each block is rematerialized in backward.
+
+    With ``mesh`` (``parallel.make_mesh``, the model cut to this rank's
+    shard by ``parallel.shard_model``) tokens is the global batch and the
+    result this rank's shard: its rows, and its positions where the mesh's
+    ``seq`` axis is larger than 1.  ``pp_mesh``: the blocks are this
+    stage's and run as a pipeline."""
+    tokens, pos0 = local_batch(tokens, mesh)
+    return lm_hidden_local(model, tokens, generator=generator, mesh=mesh,
+                           pp_mesh=pp_mesh, pos0=pos0)
 
 
 def lm_head_matrix(model: SpectreLM) -> torch.Tensor:
     """(d, vocab): the LM head, tok_emb transposed when tied, else
-    ``lm_head`` (JAX's lm.py:172-173)."""
+    ``lm_head`` (JAX's lm.py:172-173); (d, this rank's vocab) for a tied
+    head sharded over ``model``."""
     return model.tok_emb.T if model.cfg.tie_embeddings else model.lm_head
 
 

@@ -19,6 +19,13 @@ Restoring copies into the tensors the state already holds, in place: the
 optimizer keeps the model's ``Parameter`` objects (``AdamW.params``), so
 new Parameters would leave it stepping orphans.  Files are read on the
 CPU and then copied, so the card never holds two copies.
+
+A sharded run (``fft_tpu_torch.parallel``) writes its checkpoint gathered,
+in this same format: ``snapshot``'s ``gather`` turns each rank's shard of
+the model and of the moments into the full state (every rank calls it, the
+primary alone writes), and ``restore_checkpoint``'s ``shard`` cuts a full
+checkpoint down to a rank's shard, so a run resumes at any layout and
+``generate`` reads it.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import os
 import pathlib
 import shutil
 import threading
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -63,17 +70,27 @@ def _param_names(state: TrainState):
     return [names[id(p)] for p in state.optimizer.params]
 
 
-def snapshot(state: TrainState) -> Dict[str, dict]:
+ShardMap = Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]
+
+
+def snapshot(state: TrainState, gather: Optional[ShardMap] = None
+             ) -> Dict[str, dict]:
     """A host copy of everything a resume needs: {file name: contents}.
-    Synchronous, so it sees the state of the step that just ended."""
+    Synchronous, so it sees the state of the step that just ended.
+    ``gather`` maps a rank's shard of a state (model, or moments keyed by
+    parameter name) to the full one."""
     opt = state.optimizer
     names = _param_names(state)
+    full = gather or (lambda sd: sd)
+
+    def host(sd):
+        return {k: _host(v) for k, v in full(sd).items()}
+
     return {
-        MODEL_FILE: {k: _host(v) for k, v in
-                     state.model.state_dict().items()},
+        MODEL_FILE: host(state.model.state_dict()),
         TRAIN_FILE: {
-            "mu": {n: _host(t) for n, t in zip(names, opt.mu)},
-            "nu": {n: _host(t) for n, t in zip(names, opt.nu)},
+            "mu": host(dict(zip(names, opt.mu))),
+            "nu": host(dict(zip(names, opt.nu))),
             "count": int(opt.count),
             "step": int(state.step),
             "generator": {"device": state.generator.device.type,
@@ -122,17 +139,26 @@ class AsyncCheckpointWriter:
     so checkpoints land in step order.  A write's error is raised by the
     next ``wait`` or ``save``.  Call ``wait`` (or use as a context
     manager) before reading ``latest_step`` or exiting.
+
+    ``gather`` (a sharded run): see ``snapshot``; every rank calls
+    ``save``, and only a writer made with ``write=True`` (the primary's)
+    writes.
     """
 
-    def __init__(self, root, *, keep: int = 3):
+    def __init__(self, root, *, keep: int = 3,
+                 gather: Optional[ShardMap] = None, write: bool = True):
         self._root = _path(root)
         self._keep = keep
+        self._gather = gather
+        self._write = write
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
     def save(self, state: TrainState, step: int) -> None:
         self.wait()
-        files = snapshot(state)
+        files = snapshot(state, self._gather)
+        if not self._write:
+            return
         self._root.mkdir(parents=True, exist_ok=True)
 
         def _run():
@@ -186,22 +212,27 @@ def _load(path: pathlib.Path) -> dict:
 
 
 def restore_model(root, model: torch.nn.Module,
-                  step: Optional[int] = None) -> torch.nn.Module:
+                  step: Optional[int] = None,
+                  shard: Optional[ShardMap] = None) -> torch.nn.Module:
     """Copy the model entry of root/<step> (``None``: the latest) into
-    ``model`` in place; a checkpoint of another preset or width raises
-    (``load_state_dict(strict=True)``)."""
-    model.load_state_dict(_load(_step_dir(root, step) / MODEL_FILE),
-                          strict=True)
+    ``model`` in place, cut to a rank's shard by ``shard``; a checkpoint of
+    another preset or width raises (``load_state_dict(strict=True)``)."""
+    sd = _load(_step_dir(root, step) / MODEL_FILE)
+    model.load_state_dict(shard(sd) if shard else sd, strict=True)
     return model
 
 
 def restore_checkpoint(root, target: TrainState,
-                       step: Optional[int] = None) -> TrainState:
+                       step: Optional[int] = None,
+                       shard: Optional[ShardMap] = None) -> TrainState:
     """Restore root/<step> (``None``: the latest) into ``target`` in place:
     the model, the optimizer's moments and count, the step and the
-    dropout generator.  Returns ``target``."""
+    dropout generator, each state cut to this rank's shard by ``shard``
+    (a sharded run).  Returns ``target``."""
     path = _step_dir(root, step)
     train = _load(path / TRAIN_FILE)
+    if shard:
+        train["mu"], train["nu"] = shard(train["mu"]), shard(train["nu"])
     gen = train["generator"]
     if gen["device"] != target.generator.device.type:
         raise ValueError(
@@ -220,7 +251,7 @@ def restore_checkpoint(root, target: TrainState,
                 raise ValueError(f"checkpoint {path}: {key}[{n}] has shape "
                                  f"{tuple(saved[n].shape)}, the model's "
                                  f"{tuple(t.shape)}")
-    restore_model(root, target.model, int(path.name))
+    restore_model(root, target.model, int(path.name), shard)
     with torch.no_grad():
         for key, live in (("mu", opt.mu), ("nu", opt.nu)):
             for n, t in zip(names, live):

@@ -14,6 +14,18 @@ the same AdamW those settings.
 
 The JAX train step is a pure function of its state; here the steps update
 the model, the optimizer's moments and the step count in place.
+
+Parallel steps (``fft_tpu_torch.parallel``): ``train_step(mesh=,
+pp_mesh=)`` and ``hybrid_train_step(cp_mesh=)`` take the global batch on
+every rank and train the rank's shard of the model
+(``parallel.shard_model``).  The loss is the global mean: each rank's sum
+over its tokens, summed over ``data`` and ``seq`` (``comm.reduce_from``),
+over the global token count.  Under tensor parallelism the tied head is
+vocab-sharded, so the cross entropy takes a vocab-parallel logsumexp (max
+and sum over ``model``) and the target's logit from the rank that holds
+it.  The gradients are summed over ``data`` and ``seq``, the clipping norm
+counts each parameter once across the ranks that share it
+(``mesh.global_grad_norm``), and AdamW runs on the local shards.
 """
 
 from __future__ import annotations
@@ -28,12 +40,14 @@ from torch.utils.checkpoint import checkpoint
 
 from fft_tpu_torch.layers.common import DTYPES
 from fft_tpu_torch.models.hybrid import (
-    HybridLM, hybrid_head_matrix, hybrid_hidden,
+    HybridLM, hybrid_head_matrix, hybrid_hidden_local,
 )
 from fft_tpu_torch.models.lm import (
-    SpectreLM, head_logits, lm_head_matrix, lm_hidden,
+    SpectreLM, head_logits, lm_head_matrix, lm_hidden_local, local_batch,
 )
 from fft_tpu_torch.models.vit import ViT, vit_apply
+from fft_tpu_torch.parallel import comm
+from fft_tpu_torch.parallel.mesh import global_grad_norm, sync_grads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,14 +147,18 @@ class AdamW:
         self.count = 0
 
     @torch.no_grad()
-    def step(self, grads: List[Optional[torch.Tensor]]) -> torch.Tensor:
+    def step(self, grads: List[Optional[torch.Tensor]],
+             norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One update from ``grads`` (in the order of ``params``; None is a
-        zero gradient, as JAX gives an unused leaf).  Returns the global
-        norm of the unclipped gradients."""
+        zero gradient, as JAX gives an unused leaf).  ``norm``: the global
+        norm to clip by, where the parameters are shards of a larger tree
+        (else the norm of ``grads``).  Returns the global norm of the
+        unclipped gradients."""
         c = self.tcfg
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self.params, grads)]
-        norm = global_norm(grads)
+        if norm is None:
+            norm = global_norm(grads)
         if c.grad_clip is not None:
             grads = torch._foreach_mul(grads, torch.where(
                 norm < c.grad_clip, 1.0, c.grad_clip / norm))
@@ -180,13 +198,27 @@ def _chunk_ce(hc: torch.Tensor, head: torch.Tensor,
                            tc.reshape(-1), reduction="sum")
 
 
-def chunked_softmax_ce(h: torch.Tensor, head: torch.Tensor,
-                       targets: torch.Tensor,
-                       logits_chunk: int = 2048) -> torch.Tensor:
-    """Mean next-token CE from hidden states (B, N, d), head (d, vocab) and
-    targets (B, N), without keeping the full (B, N, vocab) fp32 logits: the
-    head matmul + softmax runs in sequence chunks that backward recomputes
-    (``torch.utils.checkpoint``, as the JAX package's ``jax.checkpoint``)."""
+def _vocab_parallel_chunk_ce(hc: torch.Tensor, emb: torch.Tensor,
+                             tc: torch.Tensor, mesh) -> torch.Tensor:
+    """The CE sum of a chunk against a tied head whose vocab is sharded
+    over ``model``: emb (V_l, d) holds this rank's rows of ``tok_emb``."""
+    vl = emb.shape[0]
+    logits = head_logits(comm.copy_to(hc, mesh, "model"), emb.T)
+    m = comm.all_reduce_max(logits.amax(dim=-1, keepdim=True), mesh,
+                            "model")
+    sumexp = comm.reduce_from(torch.exp(logits - m).sum(dim=-1), mesh,
+                              "model")
+    idx = tc - mesh.rank("model") * vl
+    inside = (idx >= 0) & (idx < vl)
+    target = logits.gather(-1, idx.clamp(0, vl - 1)[..., None])[..., 0]
+    target = comm.reduce_from(target * inside, mesh, "model")
+    return (torch.log(sumexp) + m[..., 0] - target).sum()
+
+
+def _ce_sum(h: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
+            logits_chunk: int, mesh=None) -> torch.Tensor:
+    """The summed CE over sequence chunks that backward recomputes; with a
+    ``mesh``, ``head`` is this rank's ``tok_emb`` rows (vocab-parallel)."""
     n = h.shape[1]
     chunk = min(logits_chunk, n)
     if n % chunk:
@@ -194,31 +226,73 @@ def chunked_softmax_ce(h: torch.Tensor, head: torch.Tensor,
     total = h.new_zeros((), dtype=torch.float32)
     for i in range(n // chunk):
         sl = slice(i * chunk, (i + 1) * chunk)
-        total = total + checkpoint(_chunk_ce, h[:, sl], head, targets[:, sl],
-                                   use_reentrant=False)
-    return total / (targets.shape[0] * n)
+        if mesh is None:
+            total = total + checkpoint(_chunk_ce, h[:, sl], head,
+                                       targets[:, sl], use_reentrant=False)
+        else:
+            total = total + checkpoint(_vocab_parallel_chunk_ce, h[:, sl],
+                                       head, targets[:, sl], mesh,
+                                       use_reentrant=False)
+    return total
+
+
+def chunked_softmax_ce(h: torch.Tensor, head: torch.Tensor,
+                       targets: torch.Tensor,
+                       logits_chunk: int = 2048) -> torch.Tensor:
+    """Mean next-token CE from hidden states (B, N, d), head (d, vocab) and
+    targets (B, N), without keeping the full (B, N, vocab) fp32 logits: the
+    head matmul + softmax runs in sequence chunks that backward recomputes
+    (``torch.utils.checkpoint``, as the JAX package's ``jax.checkpoint``)."""
+    return (_ce_sum(h, head, targets, logits_chunk)
+            / (targets.shape[0] * h.shape[1]))
+
+
+def _global_mean(total: torch.Tensor, count: int, mesh) -> torch.Tensor:
+    """total / count, the rank's sum made the global one under ``mesh``
+    (summed over ``data`` and ``seq``; each rank backpropagates its own
+    share)."""
+    loss = total / count
+    if mesh is not None:
+        for axis in ("data", "seq"):
+            loss = comm.reduce_from(loss, mesh, axis)
+    return loss
 
 
 def lm_loss(model: SpectreLM, tokens: torch.Tensor, *,
             generator: Optional[torch.Generator] = None,
-            logits_chunk: int = 2048) -> torch.Tensor:
+            logits_chunk: int = 2048, mesh=None,
+            pp_mesh=None) -> torch.Tensor:
     """Next-token cross entropy; tokens (B, N+1) int64 -> scalar mean nats.
-    Dropout (train mode, dropout_p > 0) draws from ``generator``."""
+    Dropout (train mode, dropout_p > 0) draws from ``generator``.  With
+    ``mesh``/``pp_mesh`` tokens is the global batch, the model this rank's
+    shard, and the loss the global mean on every rank."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    h = lm_hidden(model, inputs, generator=generator)
-    return chunked_softmax_ce(h, lm_head_matrix(model), targets,
-                              logits_chunk)
+    count = targets.numel()
+    inputs, pos0 = local_batch(inputs, mesh)
+    targets, _ = local_batch(targets, mesh)
+    h = lm_hidden_local(model, inputs, generator=generator, mesh=mesh,
+                        pp_mesh=pp_mesh, pos0=pos0)
+    if mesh is not None and model.cfg.tie_embeddings:
+        total = _ce_sum(h, model.tok_emb, targets, logits_chunk, mesh)
+    else:
+        total = _ce_sum(h, lm_head_matrix(model), targets, logits_chunk)
+    return _global_mean(total, count, mesh)
 
 
 def hybrid_loss(model: HybridLM, tokens: torch.Tensor, *,
-                logits_chunk: int = 2048) -> torch.Tensor:
+                logits_chunk: int = 2048, cp_mesh=None) -> torch.Tensor:
     """Next-token cross entropy for the hybrid SPECTRE + SWA LM (config 5),
     tokens (B, N+1) -> scalar mean nats, through the chunked CE: at seq
-    32k x 50k vocab the full fp32 logits would take 6.6 GB a batch row."""
+    32k x 50k vocab the full fp32 logits would take 6.6 GB a batch row.
+    With ``cp_mesh`` tokens is the global batch and the loss the global
+    mean."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    h = hybrid_hidden(model, inputs)
-    return chunked_softmax_ce(h, hybrid_head_matrix(model), targets,
-                              logits_chunk)
+    count = targets.numel()
+    inputs, pos0 = local_batch(inputs, cp_mesh)
+    targets, _ = local_batch(targets, cp_mesh)
+    h = hybrid_hidden_local(model, inputs, cp_mesh=cp_mesh, pos0=pos0)
+    return _global_mean(_ce_sum(h, hybrid_head_matrix(model), targets,
+                                logits_chunk), count, cp_mesh)
 
 
 def classification_loss(model: ViT, images: torch.Tensor,
@@ -258,16 +332,27 @@ def train_init(model: torch.nn.Module, tcfg: TrainConfig, seed: int = 0, *,
                       step=0, generator=generator)
 
 
-def _optimizer_step(state: TrainState, loss_fn) -> dict:
+def _optimizer_step(state: TrainState, loss_fn, mesh=None,
+                    pp_mesh=None) -> dict:
     """Zero the gradients, backpropagate ``loss_fn()`` and update.  Returns
     {"loss", "grad_norm" (unclipped), "step"} as the JAX train steps'
-    metrics; the parameter gradients stay in ``.grad``."""
-    for p in state.optimizer.params:
+    metrics; the parameter gradients stay in ``.grad`` (completed by
+    ``sync_grads`` under ``mesh``)."""
+    params = state.optimizer.params
+    for p in params:
         p.grad = None
     loss = loss_fn()
     loss.backward()
-    grad_norm = state.optimizer.step(
-        [p.grad for p in state.optimizer.params])
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in params]
+    norm = None
+    if mesh is not None or pp_mesh is not None:
+        names = {id(p): n for n, p in state.model.named_parameters()}
+        named = [(names[id(p)], g) for p, g in zip(params, grads)]
+        if mesh is not None:
+            sync_grads(named, mesh)
+        norm = global_grad_norm(named, mesh, pp_mesh)
+    grad_norm = state.optimizer.step(grads, norm=norm)
     metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
                "step": state.step}
     state.step += 1
@@ -279,19 +364,34 @@ def _tokens(state: TrainState, batch) -> torch.Tensor:
                                      dtype=torch.int64)
 
 
-def train_step(state: TrainState, batch) -> dict:
+def train_step(state: TrainState, batch, *, mesh=None,
+               pp_mesh=None) -> dict:
     """One optimizer step on an LM batch (B, N+1) of token ids (numpy or
-    torch); see ``_optimizer_step``."""
+    torch); see ``_optimizer_step``.  ``mesh`` (data, seq, model) and
+    ``pp_mesh`` (stage): batch is the global one and the model this rank's
+    shard; the pipeline runs deterministically (eval mode, no generator),
+    as the JAX package's."""
     tokens = _tokens(state, batch)
-    return _optimizer_step(state, lambda: lm_loss(
-        state.model, tokens, generator=state.generator))
+    model = state.model
+    if pp_mesh is None:
+        return _optimizer_step(state, lambda: lm_loss(
+            model, tokens, generator=state.generator, mesh=mesh), mesh)
+    training = model.training
+    model.eval()
+    try:
+        return _optimizer_step(state, lambda: lm_loss(
+            model, tokens, mesh=mesh, pp_mesh=pp_mesh), mesh, pp_mesh)
+    finally:
+        model.train(training)
 
 
-def hybrid_train_step(state: TrainState, batch) -> dict:
+def hybrid_train_step(state: TrainState, batch, *, cp_mesh=None) -> dict:
     """One optimizer step on a hybrid-LM batch (B, N+1), deterministic as
-    JAX's (``train_init(..., deterministic=True)``)."""
+    JAX's (``train_init(..., deterministic=True)``); with ``cp_mesh`` the
+    global batch, context parallel (``models/hybrid.py``)."""
     tokens = _tokens(state, batch)
-    return _optimizer_step(state, lambda: hybrid_loss(state.model, tokens))
+    return _optimizer_step(state, lambda: hybrid_loss(
+        state.model, tokens, cp_mesh=cp_mesh), cp_mesh)
 
 
 def vit_train_step(state: TrainState, images, labels) -> dict:

@@ -11,13 +11,18 @@ from typing import Optional
 
 
 class MetricsLogger:
-    def __init__(self, path: Optional[str] = None, print_every: int = 10):
+    """``echo=False`` prints nothing (the ranks of a parallel run other
+    than the primary, which keep no file either)."""
+
+    def __init__(self, path: Optional[str] = None, print_every: int = 10,
+                 echo: bool = True):
         self.file = None
         if path is not None:
             p = pathlib.Path(path)
             p.parent.mkdir(parents=True, exist_ok=True)
             self.file = p.open("a")
         self.print_every = print_every
+        self.echo = echo
         self._last_time = time.perf_counter()
         self._last_step = None
 
@@ -41,7 +46,7 @@ class MetricsLogger:
         if self.file is not None:
             self.file.write(line + "\n")
             self.file.flush()
-        if step % self.print_every == 0:
+        if self.echo and step % self.print_every == 0:
             print(line, file=sys.stdout, flush=True)
 
     def close(self):

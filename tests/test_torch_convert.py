@@ -187,7 +187,11 @@ def test_port_never_imports_jax():
             "fft_tpu_torch.train.bpe, fft_tpu_torch.train.checkpoint, "
             "fft_tpu_torch.train.data, fft_tpu_torch.train.native_loader, "
             "fft_tpu_torch.train.supervisor, fft_tpu_torch.utils.prof, "
-            "fft_tpu_torch.kernels.probe; "
+            "fft_tpu_torch.kernels.probe, fft_tpu_torch.parallel, "
+            "fft_tpu_torch.parallel.comm, fft_tpu_torch.parallel.mesh, "
+            "fft_tpu_torch.parallel.multihost, "
+            "fft_tpu_torch.parallel.dist_fft, "
+            "fft_tpu_torch.parallel.pipeline, tests.torch_parallel_worker; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'fft_tpu.'))"
             " or m == 'fft_tpu'); print(bad); sys.exit(1 if bad else 0)")

@@ -38,11 +38,13 @@ from fft_tpu_torch.kernels import causal as kc
 from fft_tpu_torch.layers import attention as tattn
 from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS
 from fft_tpu_torch.models import hybrid as thy
+from fft_tpu_torch.parallel import comm, make_mesh
 from fft_tpu_torch.train import (
     TrainConfig, hybrid_loss, hybrid_train_step, train_init,
 )
 from tests.golden_utils import rel_err
 from tests.test_torch_convert import _leaf_init
+from tests.torch_parallel_worker import one_rank_group
 
 ATTN_TOL = 1e-5
 DECODE_TOL = 2e-5
@@ -174,10 +176,18 @@ def test_swa_block_and_its_ring_decode_past_the_wrap():
     assert rel_err(bridged.v_buf.numpy(), cache.v_buf.numpy()) < DECODE_TOL
 
 
-def test_cp_mesh_raises_naming_module_7c():
+def test_cp_mesh_runs_the_halo_exchange_on_one_rank(tmp_path):
+    """On a 1-rank gloo group the context-parallel block launches its halo
+    hop, receives the sequence start's zeros and equals the block without
+    a mesh bit for bit."""
     _, block = _swa_block_pair()
-    with pytest.raises(NotImplementedError, match="7c"):
-        block(torch.zeros(1, 16, 64), cp_mesh=object())
+    x = torch.randn(2, 32, 64, generator=torch.Generator().manual_seed(4))
+    with one_rank_group(tmp_path):
+        mesh = make_mesh(1, 1, 1, device="cpu")
+        comm.reset_calls()
+        got = block(x, cp_mesh=mesh)
+        assert comm.CALLS["halo"] == 1
+    assert torch.equal(got, block(x))
 
 
 # ---------------------------------------------------------------------------
@@ -445,8 +455,9 @@ def test_cli_train_hybrid_on_the_cpu(tmp_path):
         cli.main(args[:6] + ["3"] + args[7:] + ["--resume"])
     assert "resumed at step 2" in buf.getvalue()
     for flag in ("--sp", "--dp"):
-        with pytest.raises(NotImplementedError, match="7c"):
-            cli.main(["train-hybrid", "--device", "cpu", flag, "2"])
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+            cli.main(["train-hybrid", "--device", "cpu", "--seq", "128",
+                      flag, "2"])
 
 
 def test_cli_train_hybrid_profile_writes_a_trace(tmp_path):

@@ -27,11 +27,13 @@ from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS
 from fft_tpu_torch.models import hybrid as thy
 from fft_tpu_torch.models import lm as tlm
 from fft_tpu_torch.models import vit as tvit
+from fft_tpu_torch.parallel import comm, dist_fft, make_mesh
 from fft_tpu_torch.utils import prof
 from tests.golden_utils import (
     load, map_block_params, map_head_params, map_multihead_params, rel_err,
 )
 from tests.test_torch_convert import _leaf_init
+from tests.torch_parallel_worker import one_rank_group
 
 TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -438,18 +440,38 @@ def test_bench_runs_on_the_cpu_when_asked():
     assert set(sm.LAUNCHES.values()) == {0}
 
 
-def test_sequence_parallel_arguments_raise():
+@pytest.mark.parametrize("entry", ["block", "multihead_strided", "head"])
+def test_sequence_parallel_arguments_run_on_one_rank(entry, tmp_path):
+    """The sp_mesh arguments on a 1-rank gloo group: the block (against
+    JAX's), the multihead in the strided layout and the head, each through
+    the distributed four-step FFT, against the same module without a
+    mesh."""
     cfg = _cfg()
-    _, block = block_pair(cfg)
-    x = torch.zeros((1, 64, 128))
-    with pytest.raises(NotImplementedError, match="module 7"):
-        tsp.spectre_block_apply(block, x, sp_mesh=object())
-    with pytest.raises(NotImplementedError, match="module 7"):
-        tsp.spectre_multihead_apply(block.mix, x, sp_mesh=object(),
-                                    sp_layout="strided")
-    with pytest.raises(NotImplementedError, match="module 7"):
-        tsp.spectre_head_apply(block.mix.heads, block.mix.heads.cfg,
-                               x.reshape(1, 64, 2, 64), sp_mesh=object())
+    params, block = block_pair(cfg)
+    x = torch.from_numpy(_x(64, seed=5))
+    with one_rank_group(tmp_path), torch.no_grad():
+        mesh = make_mesh(1, 1, 1, device="cpu")
+        comm.reset_calls()
+        if entry == "block":
+            got = tsp.spectre_block_apply(block, x, sp_mesh=mesh)
+            want = _jax_block_apply(params, cfg, x.numpy())
+        elif entry == "multihead_strided":
+            n1 = dist_fft.sp_plan_strided(64, 1)
+            got = dist_fft.sp_stride_permute(tsp.spectre_multihead_apply(
+                block.mix, dist_fft.sp_stride_permute(x, n1, 64 // n1),
+                sp_mesh=mesh, sp_layout="strided"), n1, 64 // n1,
+                inverse=True)
+            want = tsp.spectre_multihead_apply(block.mix, x)
+        else:
+            heads = block.mix.heads
+            xh = x.reshape(2, 64, 2, 64)
+            got, q_pool = tsp.spectre_head_apply(heads, heads.cfg, xh,
+                                                 sp_mesh=mesh)
+            want, q_want = tsp.spectre_head_apply(heads, heads.cfg, xh)
+            assert rel_err(q_pool, q_want) < TOL
+        assert comm.CALLS["all_to_all"] == (2 if entry == "multihead_strided"
+                                            else 4)
+    assert rel_err(got, want) < TOL
 
 
 def test_bench_profile_needs_the_card():

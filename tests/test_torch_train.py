@@ -350,8 +350,11 @@ def test_cli_train_lm_runs_two_steps(tmp_path):
     ["--bf16", "--dp", "2"], ["--dp", "2"], ["--sp", "2"], ["--tp", "2"],
     ["--pp", "2"],
 ])
-def test_cli_train_lm_not_ported_flags_raise(extra):
-    with pytest.raises(NotImplementedError, match="7c"):
+def test_cli_train_lm_parallel_flags_need_a_process_group(extra):
+    """In one process with no process group, a parallel flag names the
+    group it needs and the torchrun line that launches it."""
+    with pytest.raises(ValueError, match="process group of 2 processes.*"
+                       "torchrun --nproc-per-node 2 -m fft_tpu_torch.cli"):
         cli.main(["train-lm", "--device", "cpu", "--seq", "256", "--steps",
                   "1", *extra])
 
