@@ -1,5 +1,6 @@
 """Smoke run of fft_tpu_torch on one NVIDIA GPU: the tiny LM's serving and
-training paths at full width (6 layers, d=512, 8 heads, seq 2048),
+training paths at full width (6 layers, d=512, 8 heads, seq 2048; training
+also at seq 8192, where the direct kernels take #6 and #10),
 BASELINE config 1's non-causal block (B=8, L=1024, d=512) forward and
 backward, the same block past n_fft 2048 (kernels #3 and #4), and BASELINE
 config 4, SPECTRE-350M at seq 16384 (24 layers, d=1024, 16 heads, vocab
@@ -16,11 +17,12 @@ hybrid's halo CP, GPipe) on a 1-rank NCCL group, random weights from seed
 0, through the port's own entry points.  The
 tiny LM's causal mix runs kernels #8 kf_spectra and #6 fused_causal_mix as
 shared-memory FFTs and its backward #10 fused_causal_mix_bwd as FFTs and
-bin-major sums (csrc/causal_fft.cu); their direct-DFT kernels
+bin-major sums (csrc/causal_fft.cu); their direct kernels
 (csrc/causal.cu: kf_spectra_direct, fused_causal_mix_direct;
-csrc/causal_bwd.cu: fused_causal_mix_bwd_direct), which the wrappers keep
+csrc/causal_bwd.cu: fused_causal_mix_bwd_direct), which the wrappers take
 for shapes the FFT kernels do not take, are checked and timed beside them
-in phase 2 and must not launch on the tiny LM's paths.
+in phase 2 and must not launch on the tiny LM's paths at seq 2048; at seq
+8192 (phase 6c) the direct #6 and #10 are its path.
 
     python3 chip_smoke.py
 
@@ -92,7 +94,17 @@ Phases, in order; any failure raises and the exit code is nonzero:
              columns: nc=1 C=600, its main case, and 853; nc=2 C=600)
              beside its cuFFT composition (lib_direct6), at every chunk
              128-853 that has no FFT #6 plan at that width, parity only
-             (kernels_direct6_sweep), and the direct #10 at nc=2 C=600.
+             (kernels_direct6_sweep).  The direct #10 (csrc/causal_bwd.cu,
+             fp32 and bf16) at the tiny LM's 8 x 8192 (nc 64, its main
+             case) and 8 x 6144, the tiny hybrid's nc 64 (C=256), the
+             350M's 600- and 853-token chunks, with Kbar exactly 0 where
+             c < delta and the same bits on a second run, timed beside
+             its first design (FIRST_DIRECT10, built on its own: parent_ms)
+             and lib_direct6_bwd; side by side with #10's FFT kernel at nc
+             16 and 32; #8 at n_fft 8192 and the direct #6 at nc 64, which
+             run before it at 8 x 8192; its device time by CUDA kernel
+             (kernels_bwd_direct_split) and its lag-tile plans
+             (kernels_bwd_direct_sweep) at 8 x 8192 (bwd_direct_cases).
 3. score     lm_apply on 4 x 2048 tokens; logits within rel_err 1e-4 of
              the same model and weights on the CPU (where the kernels'
              plain versions run); tokens/s on the card, and 3 calls under
@@ -138,6 +150,17 @@ Phases, in order; any failure raises and the exit code is nonzero:
              2-3, peak memory) and one profiled, train-lm --bf16; #8, the
              bf16 instances of #6 and #10, #5 and #12 launched, and no
              fp32 instance of #6 or #10 and no direct kernel.
+   6c.       (launch counts of its own) the tiny LM at seq 8192 (nc 64:
+             #8 at n_fft 8192, the direct #6 and the direct #10, each in
+             the mode's instance; #10's FFT kernel never): parity of 2
+             layers at full width, a train_step at 1 x 8192 against the
+             CPU (fp32: 1e-4; bf16: bf16_model_ok, with #6 and #10 by their
+             plain versions passing and a #10 whose Kbar drops its nearest
+             lag failing; its farthest lag's fault reported), 5 steps at 8
+             x 8192 at full depth in fp32 and bf16 (step ms, peak memory,
+             one profiled: busy, idle, the direct #10's and #6's device ms
+             and share), the CLI's train-lm --preset tiny --seq 8192
+             --bf16 for 2 steps (phase_tiny_long).
 7. block     BASELINE config 1's block (fft_impl="pallas", mean pooling,
              memory 16, fp32): forward within rel_err 2e-5 of the same
              weights and input on the CPU, every parameter gradient of
@@ -372,6 +395,7 @@ SOURCES = {
     "banded_inverse": "fft_tpu_torch/csrc/causal.cu",
     "fused_causal_mix_bwd": "fft_tpu_torch/csrc/causal_fft.cu",
     "fused_causal_mix_bwd_direct": "fft_tpu_torch/csrc/causal_bwd.cu",
+    "fused_causal_mix_bwd_direct_bf16": "fft_tpu_torch/csrc/causal_bwd.cu",
     "kf_seg_rfft": "fft_tpu_torch/csrc/causal_long.cu",
     "fused_causal_mix_v3": "fft_tpu_torch/csrc/causal_long.cu",
     "fused_causal_mix_bwd_v3": "fft_tpu_torch/csrc/causal_long.cu",
@@ -398,6 +422,8 @@ REPLACES = {
     "banded_inverse": "fft_tpu/kernels/pallas_causal.py:167",
     "fused_causal_mix_bwd": "fft_tpu/kernels/pallas_causal.py:1921",
     "fused_causal_mix_bwd_direct": "fft_tpu/kernels/pallas_causal.py:1921",
+    "fused_causal_mix_bwd_direct_bf16":
+        "fft_tpu/kernels/pallas_causal.py:1921",
     "kf_seg_rfft": "fft_tpu/kernels/pallas_causal.py:1596",
     "fused_causal_mix_v3": "fft_tpu/kernels/pallas_causal.py:931",
     "fused_causal_mix_bwd_v3": "fft_tpu/kernels/pallas_causal.py:2307",
@@ -561,8 +587,10 @@ def wall_ms(fn, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
-def phase_kernels(kc, sm, kd, dev):
-    """Each kernel vs its plain version at the slices' shapes."""
+def phase_kernels(kc, sm, kd, dev, first):
+    """Each kernel vs its plain version at the slices' shapes; ``first``:
+    the first design of the direct #10 being built
+    (``start_first_direct10``)."""
     g = torch.Generator().manual_seed(SEED)
 
     def randn(*shape):
@@ -622,6 +650,7 @@ def phase_kernels(kc, sm, kd, dev):
     cases += bf16_causal_cases(kc, randn)
     cases += bf16_mix_cases(sm, randn)
     cases += direct6_cases(kc, randn)
+    cases += bwd_direct_cases(kc, first_direct10(first))
 
     direct_sweep(sm, randn)
     direct6_sweep(kc, randn)
@@ -648,11 +677,17 @@ def run_cases(cases) -> dict:
         # each output of a tuple its own), "reps", "rounds": fewer calls
         # timed by events where the plain version is slow; the profiler's
         # device_ms always takes 10 calls, as it reads low on fewer;
-        # "fp32": a bf16 instance's fp32 instance on the same values,
-        # timed in the same turns (fp32_ms, fp32_device_ms)}
+        # "fp32": a bf16 instance's fp32 instance on the same values, or
+        # "parent": the kernel's earlier design (FIRST_DIRECT10), each
+        # timed in the same turns (fp32_ms, fp32_device_ms; parent_ms,
+        # parent_device_ms); "slow": the plain version and the library
+        # call take tens to hundreds of ms a call, so each is timed by one
+        # call a turn and the profiler reads neither}
         opts = opts[0] if opts else {}
         tol = opts.get("tol", REL_KERNEL)
         reps, rounds = opts.get("reps", 10), opts.get("rounds", 7)
+        slow = opts.get("slow", False)
+        ref_reps, ref_rounds = (1, 1) if slow else (reps, rounds)
         got, want = kern(), plain()
         torch.cuda.synchronize()
         if isinstance(tol, tuple):
@@ -669,15 +704,19 @@ def run_cases(cases) -> dict:
             raise AssertionError(f"{name} [{shape}]: rel_err {errs} > "
                                  f"{tol} or non-finite")
         # alternate plain, kernel, kernel, plain on the same card (plain,
-        # kernel, fp32, fp32, kernel, plain where the fp32 instance is timed)
-        fp32 = opts.get("fp32")
-        turns = (plain, kern, kern, plain) if fp32 is None else (
-            plain, kern, fp32, fp32, kern, plain)
-        times = [median_ms(f, reps, rounds) for f in turns]
+        # kernel, other, other, kernel, plain where the fp32 instance or
+        # the parent design is timed)
+        other = next(((k, opts[k]) for k in ("fp32", "parent") if k in opts),
+                     None)
+        turns = (plain, kern, kern, plain) if other is None else (
+            plain, kern, other[1], other[1], kern, plain)
+        times = [median_ms(f, *((ref_reps, ref_rounds) if f is plain
+                                else (reps, rounds))) for f in turns]
         p1, k1, k2, p2 = times[0], times[1], times[-2], times[-1]
-        if fp32 is not None:
-            fp32_case = dict(fp32_ms=statistics.median(times[2:4]),
-                             **device_ms(fp32, key="fp32_device_ms"))
+        if other is not None:
+            other_case = {other[0] + "_ms": statistics.median(times[2:4]),
+                          **device_ms(other[1],
+                                      key=other[0] + "_device_ms")}
         bound_ms, bound_by = work.bound()
         case = dict(shape=shape, rel_err=err, tol=tol, max_abs_err=abs_err,
                     **({"rel_errs": errs} if len(errs) > 1 else {}),
@@ -687,18 +726,18 @@ def run_cases(cases) -> dict:
                     # the profiler's reading of the plain version and the
                     # library call for a kernel's main case only: the
                     # others' took ~30 s of the run's 1200
-                    **(device_ms(plain, key="plain_device_ms") if main
-                       else {"plain_device_ms": None}),
+                    **(device_ms(plain, key="plain_device_ms")
+                       if main and not slow else {"plain_device_ms": None}),
                     library_ms=(None if lib is None
-                                else median_ms(lib, reps, rounds)),
+                                else median_ms(lib, ref_reps, ref_rounds)),
                     **(device_ms(lib, key="library_device_ms")
-                       if lib is not None and main
+                       if lib is not None and main and not slow
                        else {"library_device_ms": None}),
                     bound_ms=bound_ms, bound_by=bound_by, main=main)
         if hasattr(lib, "release"):
             lib.release()            # lib_direct6_bwd's kept graph
-        if fp32 is not None:
-            case.update(fp32_case)
+        if other is not None:
+            case.update(other_case)
         emit(phase="kernels", kernel=name, **case)
         results.setdefault(name, []).append(case)
     return results
@@ -708,14 +747,17 @@ def bwd_cases(kc, randn):
     """#10 at the tiny LM's training batch (B=8, C=128, d=512, 32 gate
     columns; nc 16, the main case, and 8) through the FFT kernel, the
     direct kernel and #11's (fused_causal_mix_bwd_v3, which takes chunk 128
-    too), all in one call; the FFT kernel at a chunk that is no power of
-    two (C=384: 2C = 256 * 3).  Kbar must be exactly 0 where c < delta
-    (checked here, on the first call of each case)."""
+    too), all in one call; the FFT and the direct kernel side by side at
+    nc 32 (seq 4096, the FFT kernel's last nc at this width); the FFT
+    kernel at a chunk that is no power of two (C=384: 2C = 256 * 3).  On
+    the first call of each case Kbar must be exactly 0 where c < delta and
+    a second run must give the same bits (kbar_checked)."""
     cases = []
     d, cols = 512, 32
     three = ("fused_causal_mix_bwd", "fused_causal_mix_bwd_direct",
              "fused_causal_mix_bwd_v3")
     for b, nc, chunk, names in ((8, 16, 128, three), (8, 8, 128, three),
+                                (8, 32, 128, three[:2]),
                                 (4, 3, 384, three[:1])):
         v, ybar = randn(b, nc * chunk, d), randn(b, nc * chunk, d)
         kr, ki = (randn(b, nc, chunk + 1, nc * cols) for _ in range(2))
@@ -724,18 +766,11 @@ def bwd_cases(kc, randn):
                "fused_causal_mix_bwd_v3": lambda *a: kc._launch_bwd(
                    "fused_causal_mix_bwd_v3", *a)}
         for name in names:
-            def kern(name=name, v=v, kr=kr, ki=ki, yb=ybar, c=chunk,
-                     nc=nc, b=b, first=[True]):
-                out = fns[name](v, kr, ki, yb, c, cols)
-                if first[0]:
-                    first[0] = False
-                    kbar = out[1].view(b, nc, c + 1, nc, cols)
-                    for dl in range(1, nc):
-                        if torch.count_nonzero(kbar[:, dl, :, :dl]):
-                            raise AssertionError(
-                                f"{name}: Kbar nonzero at c < delta {dl}")
-                return out
-            main = nc == 16 and name != "fused_causal_mix_bwd_v3"
+            kern = kbar_checked(
+                lambda name=name, v=v, kr=kr, ki=ki, yb=ybar, c=chunk:
+                    fns[name](v, kr, ki, yb, c, cols), b, nc, chunk, cols,
+                name)
+            main = nc == 16 and name == "fused_causal_mix_bwd"
             cases.append((
                 name, f"B={b} nc={nc} C={chunk} d={d} cols={cols}", kern,
                 lambda v=v, kr=kr, ki=ki, yb=ybar, c=chunk:
@@ -743,6 +778,218 @@ def bwd_cases(kc, randn):
                 lib_direct6_bwd(v, kr, ki, ybar, chunk, cols)
                 if name == "fused_causal_mix_bwd" and chunk == 128 else None,
                 fprof.fused_causal_mix_bwd_cost(b, nc, chunk, d, cols), main))
+    return cases
+
+
+# The direct #10 as it stood before its redesign (launches 3-5 as direct
+# sums: Kbar with warp shuffles, Vbar a lag a pass, vbar a direct DFT),
+# built on its own so that phase 2 times the redesign beside it in one
+# call; no path of the port calls it.
+FIRST_DIRECT10 = "fft_tpu_torch/csrc/first_designs/causal_bwd.cu"
+# (B, nc, C, d, cols) of the direct #10 in phase 2: the tiny LM's training
+# at 8 x 8192 (nc 64, the main case) and 8 x 6144 (nc 48), the tiny
+# hybrid at seq 16384 (nc 64 of C=256, d=256, 16 columns), the 350M's
+# prompts of two 600-token chunks (2C = 1200 = 16 * 75: Bluestein) and of
+# 853 tokens (Bluestein)
+DIRECT10_SHAPES = ((8, 64, 128, 512, 32), (8, 48, 128, 512, 32),
+                   (1, 64, 256, 256, 16), (1, 2, 600, 1024, 64),
+                   (1, 1, 853, 1024, 64))
+
+
+def start_first_direct10():
+    """nvcc of FIRST_DIRECT10 into a library of its own under the port's
+    build directory, started in the background (beside the port's own
+    build); returns (process, library path)."""
+    from fft_tpu_torch.kernels import build
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = build.BUILD_DIR / "first_direct10.so"
+    src = pathlib.Path(__file__).resolve().parent / FIRST_DIRECT10
+    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I",
+           str(build.CSRC_DIR), "-o", str(out), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), out
+
+
+def first_direct10(started):
+    """The first design's C entry (FIRST_DIRECT10, fp32 only) as a call
+    (v, kfr, kfi, ybar, chunk, cols) -> (vbar, kbr, kbi) on CUDA tensors,
+    once its build (``start_first_direct10``) has ended; raises if the
+    build or a launch fails."""
+    import ctypes
+    from fft_tpu_torch.kernels import causal as kc
+    from fft_tpu_torch.kernels.common import twiddles
+
+    proc, path = started
+    log, _ = proc.communicate(timeout=900)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc of {FIRST_DIRECT10} failed:\n{log}")
+    fn = ctypes.CDLL(str(path)).fft_fused_causal_mix_bwd_direct
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(v, kr, ki, ybar, chunk, cols):
+        b, n, d = v.shape
+        nc, f2 = n // chunk, chunk + 1
+        scratch = [torch.empty((b, nc, f2, d), device=v.device)
+                   for _ in range(4)]
+        vbar = torch.empty_like(v)
+        kbr, kbi = torch.empty_like(kr), torch.empty_like(ki)
+        seg = kc._segment_params(b, nc, chunk, d, v.device)
+        err = fn(v.data_ptr(), kr.data_ptr(), ki.data_ptr(), ybar.data_ptr(),
+                 twiddles(2 * chunk, v.device).data_ptr(),
+                 *(t.data_ptr() for t in scratch), vbar.data_ptr(),
+                 kbr.data_ptr(), kbi.data_ptr(), ctypes.addressof(seg), b,
+                 nc, chunk, d, cols,
+                 torch._C._cuda_getCurrentRawStream(v.device.index))
+        if err:
+            raise RuntimeError(f"{FIRST_DIRECT10}: cudaError_t {err}")
+        return vbar, kbr, kbi
+
+    return call
+
+
+def kbar_checked(kern, b, nc, chunk, cols, label):
+    """``kern`` whose first call also checks Kbar: exactly 0 where c <
+    delta, and the same bits (vbar's too) on a second run."""
+    first = [True]
+
+    def call():
+        out = kern()
+        if first[0]:
+            first[0] = False
+            again = kern()
+            kbar = out[1].view(b, nc, chunk + 1, nc, cols)
+            for dl in range(1, nc):
+                if torch.count_nonzero(kbar[:, dl, :, :dl]):
+                    raise AssertionError(f"{label}: Kbar nonzero at c < "
+                                         f"delta {dl}")
+            if not all(torch.equal(x, y) for x, y in zip(out, again)):
+                raise AssertionError(f"{label}: two runs differ")
+        return out
+
+    return call
+
+
+def bwd_direct_cases(kc, first):
+    """The direct #10 (csrc/causal_bwd.cu) at DIRECT10_SHAPES in fp32 and
+    in bf16 (v and ybar rounded to bf16; REL_BF16 on vbar, REL_KERNEL on
+    Kbar), each against its plain version, beside lib_direct6_bwd
+    (library_ms; the bf16 cases' at 8 x 8192 alone) and the bound, Kbar
+    exactly 0 where c < delta and bit-identical across two runs
+    (kbar_checked); the fp32 cases with the first design (``first``,
+    FIRST_DIRECT10) timed in the same turns (parent_ms), the bf16 case at
+    8 x 8192 with the fp32 instance on the same values (fp32_ms).  Then
+    #8 and the direct #6 at the tiny LM's 8 x 8192 (n_fft 8192, 2048 gate
+    lanes; nc 64, fp32 and bf16), which run before it on that path; the
+    direct #10's device time by CUDA kernel and the first design's at 8 x
+    8192 (kernels_bwd_direct_split), and its lag-tile plans there
+    (kernels_bwd_direct_sweep).  Fewer calls timed by events, and at B=8
+    one call a turn of the plain version (36-64 ms) and the library call
+    (119-231 ms); the values drawn on the card (hundreds of MB)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    cases = []
+    quick = dict(reps=3, rounds=3)
+    for b, nc, c, d, cols in DIRECT10_SHAPES:
+        v, ybar = randn(b, nc * c, d), randn(b, nc * c, d)
+        kr, ki = (randn(b, nc, c + 1, nc * cols) for _ in range(2))
+        shape = f"B={b} nc={nc} C={c} d={d} cols={cols}"
+        for dt, suffix, tol in (
+                (torch.float32, "", REL_KERNEL),
+                (torch.bfloat16, "_bf16", (REL_BF16, REL_KERNEL,
+                                           REL_KERNEL))):
+            # every value a call reads is bound now: the loop rebinds them
+            vv, yy = v.to(dt), ybar.to(dt)
+            args = (kr, ki, c, cols)
+            name = "fused_causal_mix_bwd_direct" + suffix
+            kern = kbar_checked(
+                lambda vv=vv, yy=yy, a=args: kc.fused_causal_mix_bwd_direct(
+                    vv, a[0], a[1], yy, a[2], a[3]), b, nc, c, cols, name)
+            main = (b, nc) == (8, 64)
+            other = {"slow": True} if b == 8 else {}
+            if not suffix:
+                other["parent"] = lambda v=v, yb=ybar, a=args: first(
+                    v, a[0], a[1], yb, a[2], a[3])
+            elif main:              # elsewhere the fp32 case's shape times it
+                v32, y32 = vv.float(), yy.float()
+                other["fp32"] = lambda v32=v32, y32=y32, a=args: \
+                    kc.fused_causal_mix_bwd_direct(v32, a[0], a[1], y32,
+                                                   a[2], a[3])
+            cases.append((
+                name, shape, kern,
+                lambda vv=vv, yy=yy, a=args: kc.fused_causal_mix_bwd_ref(
+                    vv, a[0], a[1], yy, a[2], a[3]),
+                lib_direct6_bwd(vv, kr, ki, yy, c, cols)
+                if main or not suffix else None,
+                fprof.fused_causal_mix_bwd_cost(b, nc, c, d, cols,
+                                               dt.itemsize),
+                main, dict(quick, tol=tol, **other)))
+        if (b, nc) == (8, 64):
+            k64 = (kr, ki)
+    # what runs before the direct #10 on the tiny LM's path at 8 x 8192
+    b, n, c, d, cols = 8, 8192, 128, 512, 32
+    nc, lanes = n // c, n // c * cols
+    gr, gi = randn(b, n // 2 + 1, lanes), randn(b, n // 2 + 1, lanes)
+    cases.append((
+        "kf_spectra", f"B={b} n_fft={n} C={c} L={lanes}",
+        lambda: kc.kf_spectra(gr, gi, n, c),
+        lambda: kc.kf_spectra_ref(gr, gi, n, c),
+        lambda: torch.fft.rfft(torch.fft.irfft(
+            torch.complex(gr, gi), n, dim=1).reshape(b, nc, c, lanes),
+            2 * c, dim=2),
+        fprof.kf_spectra_cost(b, n, c, lanes), False, quick))
+    v = randn(b, n, d)
+    kr, ki = k64                    # the direct #10's main case's K planes
+    args = (kr, ki, c, cols)
+    for dt, suffix, tol in ((torch.float32, "", REL_KERNEL),
+                            (torch.bfloat16, "_bf16", REL_BF16)):
+        vv = v.to(dt)
+        cases.append((
+            "fused_causal_mix_direct" + suffix,
+            f"B={b} nc={nc} C={c} d={d} cols={cols}",
+            lambda vv=vv, a=args: kc.fused_causal_mix(vv, *a),
+            lambda vv=vv, a=args: kc.fused_causal_mix_ref(vv, *a),
+            lambda vv=vv, a=args: lib_direct6(vv, *a),
+            fprof.fused_causal_mix_cost(b, nc, c, d, cols, dt.itemsize),
+            False, dict(quick, tol=tol, slow=True)))
+    ybar = randn(b, n, d)
+    v16, y16 = v.bfloat16(), ybar.bfloat16()
+    rows = []
+    for label, fn in (
+            ("fused_causal_mix_bwd_direct",
+             lambda: kc.fused_causal_mix_bwd_direct(v, kr, ki, ybar, c,
+                                                    cols)),
+            ("fused_causal_mix_bwd_direct_bf16",
+             lambda: kc.fused_causal_mix_bwd_direct(v16, kr, ki, y16, c,
+                                                    cols)),
+            ("first_design", lambda: first(v, kr, ki, ybar, c, cols))):
+        fn()
+        torch.cuda.synchronize()
+        prof = fprof.read_profile(fn, torch.cuda.synchronize, 10)
+        rows.append(dict(kernel=label, shape=f"B={b} nc={nc} C={c} d={d} "
+                         f"cols={cols}", ms=median_ms(fn, 5, 3),
+                         device_ms=prof["device_busy_ms_per_step"],
+                         device_ms_source=prof["device_ms_source"],
+                         by_launch=prof["top_kernels_ms_per_step"]))
+    emit(phase="kernels_bwd_direct_split", rows=rows)
+    want = kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, c, cols)
+    sweep = []
+    # (gate groups, bins, segments) a lag tile: 128 or 256 channels a
+    # block (8 or 16 groups), 2 bins of 128, 512 channels; 4 or 8 segments
+    for plan in ((8, 1, 8), (8, 2, 8), (16, 1, 8), (16, 1, 4), (32, 1, 8)):
+        fn = lambda plan=plan: kc._launch_bwd(                # noqa: E731
+            "fused_causal_mix_bwd_direct", v, kr, ki, ybar, c, cols, plan)
+        err = rel_err(fn(), want)
+        if err > REL_KERNEL:
+            raise AssertionError(f"direct #10 plan {plan}: rel_err {err}")
+        sweep.append(dict(plan=plan, rel_err=err, ms=median_ms(fn, 5, 3),
+                          chosen=plan == kc.bwd_direct_plan(nc, c, d, cols)))
+    emit(phase="kernels_bwd_direct_sweep",
+         shape=f"B={b} nc={nc} C={c} d={d} cols={cols}", plans=sweep)
     return cases
 
 
@@ -1245,9 +1492,8 @@ DIRECT6_SHAPES = ((1, 1, 600, 1024, 64), (1, 1, 853, 1024, 64),
 
 def direct6_cases(kc, randn):
     """The direct #6 (segment FFTs, then #5's body) at DIRECT6_SHAPES in
-    fp32, each beside the cuFFT composition (library_ms), and the direct
-    #10 at two 600-token chunks (B=1 nc=2 C=600 d=1024, 64 columns), Kbar
-    exactly 0 where c < delta, against their plain versions."""
+    fp32, each beside the cuFFT composition (library_ms), against its plain
+    version (the direct #10's shapes are bwd_direct_cases')."""
     cases = []
     for b, nc, c, d, cols in DIRECT6_SHAPES:
         v = randn(b, nc * c, d)
@@ -1263,25 +1509,6 @@ def direct6_cases(kc, randn):
                 lib_direct6(v, kr, ki, c, cols),
             fprof.fused_causal_mix_cost(b, nc, c, d, cols),
             (nc, c) == (1, 600)))
-    b, nc, c, d, cols = 1, 2, 600, 1024, 64
-    v, ybar = randn(b, nc * c, d), randn(b, nc * c, d)
-    kr, ki = (randn(b, nc, c + 1, nc * cols) for _ in range(2))
-
-    def kern(first=[True]):
-        out = kc.fused_causal_mix_bwd_direct(v, kr, ki, ybar, c, cols)
-        if first[0]:
-            first[0] = False
-            if torch.count_nonzero(out[1].view(b, nc, c + 1, nc, cols)[
-                    :, 1, :, :1]):
-                raise AssertionError("fused_causal_mix_bwd_direct: Kbar "
-                                     "nonzero at c < delta 1")
-        return out
-    cases.append((
-        "fused_causal_mix_bwd_direct", f"B={b} nc={nc} C={c} d={d} "
-        f"cols={cols}", kern,
-        lambda: kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, c, cols), None,
-        fprof.fused_causal_mix_bwd_cost(b, nc, c, d, cols), False,
-        dict(reps=3, rounds=3)))
     return cases
 
 
@@ -3031,6 +3258,210 @@ def phase_tiny_bf16(dev) -> dict:
     return train
 
 
+# the tiny LM at seq 8192 (chunk 128, nc 64): the kf_fused branch, #8 at
+# n_fft 8192, the direct #6 forward (#6's FFT kernel holds no nc 64
+# spectra) and the direct #10 backward (#10's FFT kernel stages no nc 64
+# segments), by launch name in each mode
+TINY_LONG_SEQ = 8192
+TINY_LONG_KERNELS = {
+    "float32": ("kf_spectra", "fused_causal_mix_direct",
+                "fused_causal_mix_bwd_direct"),
+    "bfloat16": ("kf_spectra", "fused_causal_mix_direct_bf16",
+                 "fused_causal_mix_bwd_direct_bf16")}
+# the direct #10's and the direct #6's CUDA kernels in a profile: the
+# backward's own launches, the transforms of [0 | ybar_s] (kAccbar true),
+# the windows' transforms (the forward's and the backward's V, one
+# instance: split by their launches), #5's body (the forward's second)
+DIRECT_TRACE = ("lag_tiles_kernel", "adjoint_fft_kernel",
+                "segment_fft_kernel<4, 0, true",
+                "segment_fft_kernel<4, 0, false", "banded_fft_kernel")
+
+
+def drop_nearest_lag(vbar, kbr, kbi):
+    """The control's fault at nc 64: Kbar of the nearest lag (dl = 0,
+    every chunk's own segment) dropped; the farthest lag's one chunk pair
+    of 2080 is below what a bf16 model check can see."""
+    kbr, kbi = kbr.clone(), kbi.clone()
+    kbr[:, 0] = 0
+    kbi[:, 0] = 0
+    return vbar, kbr, kbi
+
+
+def tiny_long_steps(cfg, dev, kc, launches, mode) -> dict:
+    """5 train_steps of ``cfg`` at 8 x TINY_LONG_SEQ (step ms, median of
+    steps 2-5, peak memory, finite losses), the mode's kernels launched
+    once a layer a step (the direct #10 in the mode's instance, #10's FFT
+    kernel never), then one step under torch.profiler: busy and idle ms
+    and the direct #10's and the direct #6's device ms and share of it
+    (DIRECT_TRACE; the windows' transforms split by launches)."""
+    from fft_tpu_torch.models.lm import lm_init
+    from fft_tpu_torch.train import TrainConfig, train_init, train_step
+    from fft_tpu_torch.train.data import CharDataset
+
+    seq, layers = cfg.max_seq, cfg.num_layers
+    state = train_init(lm_init(cfg, torch.Generator().manual_seed(SEED), dev),
+                       TrainConfig(), seed=SEED + 1)
+    batches = CharDataset().batches(8, seq, seed=SEED)
+    start = launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for _ in range(5):
+        batch = next(batches)
+        t0 = time.perf_counter()
+        m = train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    used = {k: v - start[k] for k, v in launches().items() if v - start[k]}
+    _, fwd, bwd = TINY_LONG_KERNELS[mode]
+    other = TINY_LONG_KERNELS[OTHER_MODE[mode]]
+    if (used.get(bwd) != 5 * layers or used.get(fwd, 0) < 5 * layers
+            or any(used.get(k) for k in other[1:])
+            or used.get("fused_causal_mix_bwd")
+            or used.get("fused_causal_mix_bwd_bf16")):
+        raise AssertionError(f"tiny long {mode}: 5 steps launched {used}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"tiny long {mode}: losses {losses}")
+    before = dict(kc.LAUNCHES)
+    prof = fprof.read_profile(lambda: train_step(state, batch),
+                              torch.cuda.synchronize, 1, DIRECT_TRACE)
+    n6, n10 = (kc.LAUNCHES[k] - before[k] for k in (fwd, bwd))
+    got = prof["matched_ms_per_step"]
+    direct10 = direct6 = None
+    if None not in got.values() and n6 + n10:
+        win = got["segment_fft_kernel<4, 0, false"]
+        direct10 = (got["lag_tiles_kernel"] + got["adjoint_fft_kernel"]
+                    + got["segment_fft_kernel<4, 0, true"]
+                    + win * n10 / (n6 + n10))
+        direct6 = got["banded_fft_kernel"] + win * n6 / (n6 + n10)
+    busy = prof["device_busy_ms_per_step"]
+    del state
+    return dict(mode=mode, batch=8, seq=seq, layers=layers, step_ms=step_ms,
+                median_step_ms=statistics.median(step_ms[1:]),
+                tokens_per_s=8 * seq / (statistics.median(step_ms[1:]) / 1e3),
+                loss=losses, peak_memory_bytes=peak, launches_5_steps=used,
+                busy_ms=busy, wall_ms=prof["wall_ms_per_step"],
+                idle_share=prof["idle_share"],
+                direct10_ms=direct10, direct6_ms=direct6,
+                direct10_share=None if direct10 is None else direct10 / busy,
+                direct6_share=None if direct6 is None else direct6 / busy,
+                profiled_launches=dict(direct6=n6, direct10=n10),
+                profile=prof)
+
+
+def phase_tiny_long(dev, kc, reset_launches, launches) -> dict:
+    """The tiny LM at seq 8192 (chunk 128, nc 64; TINY_LONG_KERNELS), fp32
+    and bf16.  Parity: 2 layers at full width (d=512, 8 heads x 4 groups),
+    a train_step at 1 x 8192 on the card against the same model on the CPU,
+    every run on the card's bf16 modReLU sides: fp32 logits, loss and each
+    gradient within REL_MODEL; bf16 under bf16_model_ok (loss 1e-2, logits
+    2e-2, each gradient 4e-2, max-wise) with #6 and #10 by their plain
+    versions on the card passing and a #10 whose Kbar drops its nearest
+    lag failing (drop_nearest_lag; the farthest lag's fault is reported).
+    Then 5 steps at 8 x 8192 at full depth in each mode (tiny_long_steps),
+    and 2 steps of the CLI's train-lm --preset tiny --seq 8192 --bf16.
+    Launch counts of its own, set to 0 before the phase: every kernel of
+    TINY_LONG_KERNELS launched, #10's FFT kernel never; returns them."""
+    from fft_tpu_torch import cli
+    from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS
+    from fft_tpu_torch.models.lm import tiny_lm_config
+
+    seq = TINY_LONG_SEQ
+    full = tiny_lm_config(seq=seq)
+    base = dataclasses.replace(full, num_layers=2)
+    tokens = torch.randint(0, base.vocab_size, (1, seq + 1),
+                           generator=torch.Generator().manual_seed(SEED + 7))
+    cfgs = {"float32": base, "bfloat16": bf16_config(base)}
+    sides = []
+    reset_launches()                          # the tiny long path
+    for mode in ("bfloat16", "float32"):
+        kernels = TINY_LONG_KERNELS[mode]
+        BRANCH_CALLS.clear()
+        before = launches()
+        card = long_parity_run(cfgs[mode], dev, tokens, sides,
+                               record=(mode == "bfloat16"))
+        torch.cuda.synchronize()
+        branches = dict(BRANCH_CALLS)
+        used = {k: v - before[k] for k, v in launches().items()
+                if v - before[k]}
+        ref = long_parity_run(cfgs[mode], "cpu", tokens, sides, False)
+        res = parity_errs(card, ref)
+        finite = all_finite(card["logits"]) and math.isfinite(card["loss"])
+        control = None
+        if mode == "bfloat16":
+            bwd_kernel = kc.fused_causal_mix_bwd
+            control = {name: control_summary(parity_errs(long_parity_run(
+                cfgs[mode], dev, tokens, sides, False, swap), ref))
+                for name, swap in (
+                    ("plain_6_10", {
+                        "_fused_causal_mix": kc.fused_causal_mix_ref,
+                        "fused_causal_mix_bwd": kc.fused_causal_mix_bwd_ref}),
+                    ("kbar_nearest_lag_dropped", {
+                        "fused_causal_mix_bwd": lambda *a: drop_nearest_lag(
+                            *bwd_kernel(*a))}),
+                    ("kbar_farthest_lag_dropped", {
+                        "fused_causal_mix_bwd": lambda *a: drop_last_lag(
+                            *bwd_kernel(*a))}))}
+            ok = (bf16_model_ok(res) and control["plain_6_10"]["passed"]
+                  and not control["kbar_nearest_lag_dropped"]["passed"])
+        else:
+            ok = (res["logits_rel_err"] <= REL_MODEL
+                  and res["loss_rel_err"] <= REL_MODEL
+                  and res["max_grad_rel_err"] <= REL_MODEL)
+        emit(phase="tiny_long_parity", mode=mode, layers=base.num_layers,
+             seq=seq, chunk=base.block.causal_chunk,
+             limit=(REL_MODEL if mode == "float32" else dict(
+                 loss=REL_BF16, logits=REL_BF16_LOGITS,
+                 grads=REL_BF16_MODEL)),
+             loss=card["loss"], cpu_loss=ref["loss"],
+             modrelu_sides_moved=dict(card=card["flips"], cpu=ref["flips"]),
+             branches=branches, launches=used, control=control,
+             **{k: v for k, v in res.items() if k != "grads"},
+             grads={k: v[0] for k, v in res["grads"].items()})
+        if not (finite and ok):
+            raise AssertionError(
+                f"tiny long parity {mode}: logits {res['logits_rel_err']}, "
+                f"loss {res['loss_rel_err']}, worst gradient "
+                f"{res['worst_grad']} {res['max_grad_rel_err']}; control "
+                f"{control}")
+        other = TINY_LONG_KERNELS[OTHER_MODE[mode]]
+        if (set(branches) != {"kf_fused"}
+                or not all(used.get(k) for k in kernels)
+                or any(used.get(k) for k in other[1:])):
+            raise AssertionError(f"tiny long parity {mode} took {branches}, "
+                                 f"launched {used}")
+        del card, ref
+    for mode in ("float32", "bfloat16"):
+        cfg = full if mode == "float32" else bf16_config(full)
+        emit(phase="tiny_long_train",
+             **tiny_long_steps(cfg, dev, kc, launches, mode))
+    before = launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["train-lm", "--device", "cuda", "--preset", "tiny",
+                  "--seq", str(seq), "--bf16", "--steps", "2"])
+    recs = [json.loads(line) for line in buf.getvalue().splitlines()
+            if line.startswith("{")]
+    cli_used = {k: v - before[k] for k, v in launches().items()
+                if v - before[k]}
+    if (not recs or not all(math.isfinite(r["loss"]) for r in recs)
+            or not cli_used.get("fused_causal_mix_bwd_direct_bf16")):
+        raise AssertionError(f"cli train-lm --seq {seq} --bf16 printed "
+                             f"{buf.getvalue()!r}, launched {cli_used}")
+    emit(phase="tiny_long_cli_train_lm", seq=seq, steps=2, lines=recs,
+         launches=cli_used)
+    used = launches()
+    missing = [k for m in TINY_LONG_KERNELS.values() for k in m
+               if not used[k]]
+    if missing or used["fused_causal_mix_bwd"] or used[
+            "fused_causal_mix_bwd_bf16"]:
+        raise AssertionError(f"tiny long: never launched {missing}, or #10's "
+                             f"FFT kernel launched ({used})")
+    return used
+
+
 def phase_350m_short(dev, kc) -> None:
     """SPECTRE-350M at full depth (24 layers, d=1024), the prefills of
     SHORT_350M, each in its mode: chunk = length, nc = 1, so #6's FFT
@@ -4696,6 +5127,7 @@ def main() -> int:
         check=True, timeout=60).stdout.strip()
 
     # 1. build ---------------------------------------------------------------
+    first = start_first_direct10()
     build.load_library()
     emit(phase="build", seconds=build.BUILD_INFO["seconds"],
          library=build.BUILD_INFO["path"])
@@ -4703,7 +5135,7 @@ def main() -> int:
         print(build.BUILD_INFO["log"].strip(), flush=True)
 
     # 2. kernels vs plain ----------------------------------------------------
-    kernel_results = phase_kernels(kc, sm, kd, dev)
+    kernel_results = phase_kernels(kc, sm, kd, dev, first)
     mark("kernels")
 
     def reset_launches():
@@ -4842,6 +5274,11 @@ def main() -> int:
         "median_step_ms"], fp32_step_ms=tiny_fp32_step_ms)
     mark("tiny_bf16")
 
+    # 6c. the tiny LM at seq 8192: the direct #6 and #10 -----------------
+    tiny_long_launches = phase_tiny_long(dev, kc, reset_launches, launches)
+    emit(phase="tiny_long_launches", **tiny_long_launches)
+    mark("tiny_long")
+
     # 7. block -------------------------------------------------------------
     reset_launches()                          # the block's path starts here
     phase_block(dev)
@@ -4960,6 +5397,7 @@ def main() -> int:
                        train_350m_long=train_long.get(name, 0),
                        cli_350m_long=cli_long.get(name, 0),
                        tiny_bf16=tiny_bf16_launches[name],
+                       tiny_long=tiny_long_launches[name],
                        block_bf16=block_bf16_launches[name],
                        short_350m=short_launches[name],
                        hybrid_tiny=hybrid_tiny["float32"][name],
@@ -4979,7 +5417,8 @@ def main() -> int:
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
             library_ms=main_case["library_ms"],
             library_device_ms=main_case["library_device_ms"],
-            **{k: main_case[k] for k in ("fp32_ms", "fp32_device_ms")
+            **{k: main_case[k] for k in ("fp32_ms", "fp32_device_ms",
+                                         "parent_ms", "parent_device_ms")
                if k in main_case},
             shape=main_case["shape"],
             cases=cases))

@@ -316,18 +316,6 @@ size_t kf_smem(int n_fft, int chunk) {
          (size_t)(2 * kFreqT + chunk) * kLanes * sizeof(float);
 }
 
-// What the wrappers pass for a shape, cached there (kernels/causal.py::
-// _banded_call): the tables' addresses (the 2C-point roots, the stage
-// twiddles of the len-point transform, Bluestein's chirp and spectrum, the
-// last two unread where o > 0), the shape, the transform (len: P, or
-// Bluestein's M; o: the odd factor, 1 for a power of two, 0 for
-// Bluestein), the plan (np channel pairs and threads a block) and the
-// device, as 64-bit integers in this order.
-struct BandedParams {
-  int64_t tw, tws, chirp, spec, b, nc, chunk, d, cols, len, o, np, threads,
-      dev;
-};
-
 // Dynamic shared memory of banded_fft_kernel, in bytes: the (rows, np)
 // tile, rows = 2C or Bluestein's M (kernels/causal.py::_banded_fft_smem).
 size_t banded_fft_smem(const BandedParams& a) {

@@ -1,6 +1,6 @@
 // Shared by the causal mix's kernels (causal.cu, causal_bwd.cu,
 // causal_fft.cu, causal_long.cu): the block shape of the direct-DFT
-// kernels and the two K layouts.  The segment transforms by FFT are
+// kernels, the two K layouts and the inverse transforms' parameters.  The segment transforms by FFT are
 // segment_fft.cuh's.
 //
 // The direct-DFT kernels (causal.cu's kf_spectra_kernel, causal_bwd.cu's
@@ -18,6 +18,7 @@
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 #include "fft_common.cuh"
 
@@ -51,6 +52,19 @@ struct ProducerK {     // (B, nc_j, F2, nc_c * cols): fused_causal_mix
     return (((size_t)b * nc + j) * f2 + f) * ((size_t)nc * cols) +
            (size_t)c * cols + g;
   }
+};
+
+// What the wrappers pass for a shape to causal.cu's banded_fft_kernel and
+// causal_bwd.cu's adjoint_fft_kernel, which share its inverse transforms
+// (kernels/causal.py::_banded_params, cached there): the tables' addresses
+// (the 2C-point roots, the stage twiddles of the len-point transform,
+// Bluestein's chirp and spectrum, the last two unread where o > 0), the
+// shape, the transform (len: P, or Bluestein's M; o: the odd factor, 1 for
+// a power of two, 0 for Bluestein), the plan (np channel pairs and threads
+// a block) and the device, as 64-bit integers in this order.
+struct BandedParams {
+  int64_t tw, tws, chirp, spec, b, nc, chunk, d, cols, len, o, np, threads,
+      dev;
 };
 
 }  // namespace

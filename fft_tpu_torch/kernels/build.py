@@ -37,7 +37,7 @@ _SIGNATURES = {
     "fft_fused_causal_mix": ([_P] * 5 + [_I] * 8 + [_P], _I),
     "fft_kf_spectra": ([_P] * 6 + [_I] * 6 + [_P], _I),
     "fft_fused_causal_mix_bwd": ([_P] * 10 + [_I] * 9 + [_P], _I),
-    "fft_fused_causal_mix_bwd_direct": ([_P] * 13 + [_I] * 5 + [_P], _I),
+    "fft_fused_causal_mix_bwd_direct": ([_P] * 13 + [_I] * 4 + [_P], _I),
     "fft_kf_seg_rfft": ([_P] * 4 + [_I] * 6 + [_P], _I),
     "fft_fused_causal_mix_v3": ([_P] * 7 + [_I] * 8 + [_P], _I),
     "fft_fused_causal_mix_bwd_v3": ([_P] * 12 + [_I] * 8 + [_P], _I),

@@ -28,13 +28,16 @@ shape picks one of two kernels (``kf_spectra_kernel``, ``_mix_kernel``):
 the FFT kernel of ``causal_fft.cu`` (launch names ``kf_spectra``,
 ``fused_causal_mix``, ``fused_causal_mix_bwd``) wherever its lengths
 factor as P * O (O odd <= 31) and its tiles fit shared memory, which holds
-at every shape of the tiny LM's paths; the "direct" kernel of ``causal.cu``
-or ``causal_bwd.cu`` (``kf_spectra_direct``, ``fused_causal_mix_direct``,
+at the tiny LM's shapes up to nc 32 (#10; #6's below nc 64, #8's at
+n_fft 2048-8192); the "direct" kernel of ``causal.cu`` or ``causal_bwd.cu``
+(``kf_spectra_direct``, ``fused_causal_mix_direct``,
 ``fused_causal_mix_bwd_direct``) elsewhere, as at most of the 350M's
-prompts of 128-853 tokens (chunk = length, nc = 1).  The direct #6 and the
-direct #10's first two launches take their window spectra from
-``segment_fft.cuh``'s FFTs at every chunk (P O passes, else Bluestein);
-the direct #8 and the direct #10's last three launches are direct DFTs.
+prompts of 128-853 tokens (chunk = length, nc = 1) and the tiny LM's
+training from seq 6144 on (nc >= 48, where #10's FFT kernel stages more
+than a block holds).  The direct #6 and the direct #10 take their window
+spectra from ``segment_fft.cuh``'s FFTs at every chunk (P O passes, else
+Bluestein), and the direct #10 its vbar from one inverse FFT a chunk;
+the direct #8 is a direct DFT.
 ``banded_inverse`` is one launch of ``causal.cu``'s ``banded_fft_kernel``
 (its plan from ``banded_fft_plan``), which is also the direct
 ``fused_causal_mix``'s second launch.
@@ -42,15 +45,13 @@ the direct #8 and the direct #10's last three launches are direct DFTs.
 Each public function takes fp32 tensors, and the causal mix and its
 adjoint also bf16 activations (the JAX package's fast mode): v and ybar in
 bf16, y and vbar out in v's dtype, K and Kbar fp32, through the bf16
-instances of #6 (its FFT and its direct kernel), #10 (its FFT kernel), #7
-and #11, counted under the launch name with ``_bf16`` appended
+instances of #6 and #10 (each its FFT and its direct kernel), #7 and
+#11, counted under the launch name with ``_bf16`` appended
 (``fused_causal_mix_bf16``, ``fused_causal_mix_direct_bf16``,
-``fused_causal_mix_bwd_bf16``, ``fused_causal_mix_v3_bf16``,
-``fused_causal_mix_bwd_v3_bf16``); they read and write the activations in
-bf16 and compute in fp32 as the fp32 ones do.  The direct #10
-(``fused_causal_mix_bwd_direct``) has no bf16 instance: a bf16 tensor on
-the card that would reach it raises ``NotImplementedError`` naming its
-ROADMAP line; it is never cast to fp32.  A tensor on the CPU goes to the
+``fused_causal_mix_bwd_bf16``, ``fused_causal_mix_bwd_direct_bf16``,
+``fused_causal_mix_v3_bf16``, ``fused_causal_mix_bwd_v3_bf16``); they read
+and write the activations in bf16 and compute in fp32 as the fp32 ones
+do; a bf16 tensor is never cast to fp32.  A tensor on the CPU goes to the
 plain version (``*_ref``: bf16 in, fp32 inside, the output cast to v's
 dtype); a tensor on a CUDA device goes to the kernel, or the call raises.
 Nothing falls back.  Every kernel launch adds one to
@@ -85,13 +86,20 @@ one) and writes the spectra to a (B, nc, F2, d) HBM scratch; bound by its
 passes too.  Its #10 is three launches bound by HBM: window FFTs into two
 complex (B, nc, F2, d) scratch planes, a bin-major launch that stages a
 bin's A, V and K triangle for 256 channels in shared memory and writes
-Kbar and Vbar, and one inverse FFT a chunk.  The direct #8 and the direct
-#10's last three launches are direct DFTs against shared-memory twiddle
-tables, bounded by the shared-memory instruction throughput of their
-inner loops, not by HBM (the spectra they read fit the 50 MB L2 at the
-tiny LM's shapes); the sequential delta axis of the TPU kernel (scratch
-carried across grid steps) becomes a loop over lags inside one block per
-output chunk.  At chunk 2048 a direct DFT costs 16x the tiny LM's work per
+Kbar and Vbar, and one inverse FFT a chunk; its staging grows with nc,
+past shared memory from nc 48 at the tiny LM's width.  The direct #10
+takes those: after the same window FFTs (segment_fft.cuh), a bin-major
+launch whose blocks walk the (c, s) lag triangle in square tiles of 8
+segments, staging each tile's A, V and K in shared memory by
+double-buffered async copies (86 KB at the tiny LM's width, whatever nc
+is), so A is read (nc / 8 + 1) / 2 times and V and K once (not once a
+lag), Kbar summed a gate group in a fixed order and Vbar in registers;
+then one inverse FFT of 2C a chunk with the overlap-add folded into its
+spectrum (#5's transforms: P O passes or Bluestein).  It moves ~2.9x the
+work model's bytes at 8 x 8192 (A's re-reads, Kbar's zeros, the scratch).
+The direct #8 is a direct DFT against shared-memory twiddle tables,
+bounded by the shared-memory instruction throughput of its inner loops.
+At chunk 2048 a direct DFT costs 16x the tiny LM's work per
 element and no block holds a channel tile's nc segment spectra, so
 ``causal_long.cu``'s #7 and #11 run three launches each, bound by HBM:
 segment FFTs in shared memory into (B, nc, F2, d) planes, a bin-major
@@ -109,8 +117,7 @@ import numpy as np
 import torch
 
 from fft_tpu_torch.kernels.common import (
-    SMEM_MAX, check, check_rows, launch, no_bf16_variant, on_cpu,
-    stage_twiddles, twiddles,
+    SMEM_MAX, check, check_rows, launch, on_cpu, stage_twiddles, twiddles,
 )
 from fft_tpu_torch.ops import fftops
 
@@ -122,11 +129,8 @@ LAUNCHES = {"kf_spectra": 0, "fused_causal_mix": 0, "banded_inverse": 0,
             "fused_causal_mix_v3_bf16": 0,
             "fused_causal_mix_bwd_v3_bf16": 0,
             "kf_spectra_direct": 0, "fused_causal_mix_direct": 0,
-            "fused_causal_mix_bwd_direct": 0}
-# the launches with a bf16 instance (the C entry's bf16 flag picks it)
-_BF16_INSTANCES = ("fused_causal_mix", "fused_causal_mix_direct",
-                   "fused_causal_mix_v3", "fused_causal_mix_bwd",
-                   "fused_causal_mix_bwd_v3")
+            "fused_causal_mix_bwd_direct": 0,
+            "fused_causal_mix_bwd_direct_bf16": 0}
 
 # Shapes of the CUDA blocks (csrc/causal_common.cuh: kLanes, kFreqT;
 # csrc/causal_long.cu: #9's lane pairs kPairs, 8 lanes).
@@ -152,6 +156,15 @@ _MIX_WINDOWS = 4
 _BWD_WINDOWS = 2
 # threads of #10's bin-major block (chip_smoke.py's kernels_bwd_seg_sweep)
 _BWD_BIN_THREADS = 256
+# csrc/causal_bwd.cu's lag_tiles_kernel (the direct #10's third launch):
+# channels a block (whole gate groups, bins filling the rest up to this
+# width) and segments a lag tile at most (its largest instance), the
+# fastest plan of chip_smoke.py's kernels_bwd_direct_sweep at the tiny
+# LM's 8 x 8192 (PERF.md, Findings), and threads a block at most (a
+# wider gate group is walked in slices of this many channels)
+_LAG_WIDTH = 256
+LAG_TILE = 8
+_LAG_THREADS = 512
 # csrc/causal.cu's banded_fft_kernel (#5, the direct #6's second launch):
 # channel pairs a block, the widest that fits shared memory, and threads a
 # block, the tile's rows / 2 within these bounds (256 at most with an odd
@@ -512,6 +525,42 @@ def bwd_fft_plan(nc: int, chunk: int, d: int, cols: int):
     return None
 
 
+def _lag_smem(tile: int, rows: int, ng: int, d_g: int) -> int:
+    """causal_bwd.cu's lag_smem: V and A, two buffers of ``tile`` staged
+    segments each (``rows`` bin rows of ng groups, a padding slot a group,
+    or a slice of ``_LAG_THREADS`` channels of one wider group; an odd
+    length), and two buffers of the tile's K pairs."""
+    wide = ng * d_g > _LAG_THREADS
+    seg = (rows * (_LAG_THREADS + 1 if wide else ng * (d_g + 1))) | 1
+    return (4 * tile * seg + 2 * tile * tile * rows * ng) * 8
+
+
+def _lag_plan(nc: int, d: int, cols: int, tile: int | None = None):
+    """(ng, rows, tile) of csrc/causal_bwd.cu's lag_tiles_kernel at any
+    chunk: ng whole gate groups and ``rows`` bins a block
+    (``_LAG_WIDTH`` channels, or one group where a group is wider, walked
+    in slices of ``_LAG_THREADS`` channels past that), and the most
+    segments a lag tile (``tile``, else ``LAG_TILE``, the kernel's
+    largest; no more than nc needs) whose staging fits shared memory,
+    which does not grow with nc."""
+    d_g = d // cols
+    ng = min(cols, max(1, _LAG_WIDTH // d_g))
+    rows = max(1, _LAG_WIDTH // (ng * d_g))
+    t = min(tile or LAG_TILE, LAG_TILE, 1 << (nc - 1).bit_length())
+    while _lag_smem(t, rows, ng, d_g) > SMEM_MAX:
+        t //= 2
+    return ng, rows, t
+
+
+def bwd_direct_plan(nc: int, chunk: int, d: int, cols: int,
+                    tile: int | None = None):
+    """The direct #10's lag-tile plan (``_lag_plan``) inside
+    ``fused_mix_supported``, else None."""
+    if not fused_mix_supported(nc, chunk, d, cols):
+        return None
+    return _lag_plan(nc, d, cols, tile)
+
+
 def kf_spectra_kernel(n_fft: int, chunk: int, lanes: int) -> str:
     """The kernel ``kf_spectra`` launches for this shape on the card:
     ``kf_spectra`` (the FFT kernel) where ``kf_fft_plan`` has a plan, else
@@ -683,11 +732,11 @@ def _segment_params(b, nc, chunk, d, device, threads=None):
 
 
 def _banded_params(b, nc, chunk, d, cols, device, tile=None):
-    """causal.cu's BandedParams for a shape: the tables' addresses, the
-    shape, the transform, the tile (np, threads; ``banded_fft_plan``'s
-    unless given) and the device's index (0 for the CPU, where only the
-    CPU emulation of the kernel reads it), as a ctypes array of 14
-    int64."""
+    """causal_common.cuh's BandedParams for a shape: the tables'
+    addresses, the shape, the transform, the tile (np, threads;
+    ``banded_fft_plan``'s unless given) and the device's index (0 for the
+    CPU, where only the CPU emulation of the kernel reads it), as a ctypes
+    array of 14 int64."""
     length, o, np_, threads = banded_fft_plan(chunk)
     np_, threads = tile or (np_, threads)
     return (ctypes.c_int64 * 14)(
@@ -797,13 +846,6 @@ def fused_causal_mix_direct(v, kfr, kfi, chunk: int, cols: int):
     return _launch_mix("fused_causal_mix_direct", v, kfr, kfi, chunk, cols)
 
 
-def _act_bf16(name: str, v) -> bool:
-    """Whether launch ``name`` runs its bf16 instance: for bf16 v where it
-    has one (counted under ``name + "_bf16"``); the direct #10 takes fp32
-    alone."""
-    return name in _BF16_INSTANCES and v.dtype == torch.bfloat16
-
-
 def _launch_mix(name: str, v, kfr, kfi, chunk: int, cols: int, plan=None):
     """Launch ``name`` (fused_causal_mix, its _direct or its _v3) on CUDA
     tensors; ``plan``: the FFT kernel's (np, gs), ``mix_fft_plan``'s
@@ -813,7 +855,7 @@ def _launch_mix(name: str, v, kfr, kfi, chunk: int, cols: int, plan=None):
     b, n, d = v.shape
     nc = n // chunk
     f2 = chunk + 1
-    bf16 = _act_bf16(name, v)
+    bf16 = v.dtype == torch.bfloat16
     check("v", v, (b, n, d), v.dtype if bf16 else torch.float32)
     check("kfr", kfr, (b, nc, f2, nc * cols))
     check("kfi", kfi, (b, nc, f2, nc * cols))
@@ -849,10 +891,10 @@ def _launch_mix(name: str, v, kfr, kfi, chunk: int, cols: int, plan=None):
 @functools.lru_cache(maxsize=None)
 def _direct_params(b: int, nc: int, chunk: int, d: int, cols: int,
                    device: torch.device):
-    """The direct #6's two parameter blocks (BandedParams at
-    ``banded_fft_plan``'s, whose 4 channel pairs are the one tile the
-    direct #6's C entry takes up to chunk 853; SegmentParams), built once
-    for each shape."""
+    """The direct #6's and the direct #10's two parameter blocks
+    (BandedParams at ``banded_fft_plan``'s, whose 4 channel pairs are the
+    one tile their C entries take up to chunk 853: #5's body, the direct
+    #10's inverse; SegmentParams), built once for each shape."""
     return (_banded_params(b, nc, chunk, d, cols, device),
             _segment_params(b, nc, chunk, d, device))
 
@@ -860,14 +902,12 @@ def _direct_params(b: int, nc: int, chunk: int, d: int, cols: int,
 def _mix_kernel(base: str, n: int, chunk: int, d: int, cols: int,
                 dtype: torch.dtype = torch.float32) -> str:
     """The kernel of ``base`` (fused_causal_mix or its _bwd) that takes
-    this shape and activation dtype on the card: #6's (#10's) where
-    ``fused_mix_supported`` holds, else the long-chunk one (_v3, whose
-    launch runs its bf16 instance for bf16 activations); raises where
-    neither does.  In #6's
-    range each is the FFT kernel of causal_fft.cu where its plan
-    (``mix_fft_plan``, ``bwd_fft_plan``) has one, else the direct-DFT one
-    (_direct).  Each has a bf16 instance but the direct #10, so bf16 raises
-    there alone."""
+    this shape on the card: #6's (#10's) where ``fused_mix_supported``
+    holds, else the long-chunk one (_v3); raises where neither does.  In
+    #6's range each is the FFT kernel of causal_fft.cu where its plan
+    (``mix_fft_plan``, ``bwd_fft_plan``) has one, else the direct one
+    (_direct).  Every one has a bf16 instance, which its launch runs for
+    bf16 activations."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{base}: float32 or bfloat16 activations, got "
                         f"{dtype}")
@@ -876,8 +916,6 @@ def _mix_kernel(base: str, n: int, chunk: int, d: int, cols: int,
         plan = mix_fft_plan if base == "fused_causal_mix" else bwd_fft_plan
         if plan(nc, chunk, d, cols) is not None:
             return base
-        if base + "_direct" not in _BF16_INSTANCES and dtype != torch.float32:
-            raise no_bf16_variant(f"{base}_direct (#10)")
         return base + "_direct"
     if nc * chunk == n and fused_mix_v3_supported(nc, chunk, d, cols):
         return base + "_v3"
@@ -987,7 +1025,7 @@ def fused_causal_mix_bwd(v, kfr, kfi, ybar, chunk: int, cols: int):
 
     Replaces ``_fused_causal_bwd_call`` (pallas_causal.py:1921) where
     ``fused_mix_supported`` holds.  Where ``bwd_fft_plan`` has a plan
-    (every shape of the tiny LM's training path), three launches of
+    (the tiny LM's training up to nc 32), three launches of
     ``csrc/causal_fft.cu`` through two complex (B, nc, F2, d) scratch
     planes: the segment FFTs of v's windows and of [0 | ybar_s] (the
     adjoint of the partial irFFT) in shared memory, several windows a
@@ -995,21 +1033,22 @@ def fused_causal_mix_bwd(v, kfr, kfi, ybar, chunk: int, cols: int):
     both for 256 channels and K's triangle in shared memory (whole sectors
     of K's rows read), then write Kbar (each gate group summed in a fixed
     order, no atomics) and Vbar over V; and one inverse FFT per chunk (the
-    adjoint segment rFFT with the overlap-add).  Elsewhere in
-    that range ``fused_causal_mix_bwd_direct`` (``csrc/causal_bwd.cu``,
-    five launches: the segment FFTs of v and of [0 | ybar_s], then Kbar,
-    Vbar and the adjoint segment transform as direct sums).  Past it, where
-    ``fused_mix_v3_supported`` holds,
-    ``_fused_causal_bwd_call_v3`` (:2307): three launches of
+    adjoint segment rFFT with the overlap-add).  Elsewhere in that range
+    (from nc 48 at the tiny LM's width, and where 2C does not split so)
+    ``fused_causal_mix_bwd_direct`` (``csrc/causal_bwd.cu``, four
+    launches: the segment FFTs of v and of [0 | ybar_s]; Kbar and Vbar
+    bin-major over the lag triangle in square tiles of segments, whose
+    staging does not grow with nc; one inverse FFT per chunk).  Past it,
+    where ``fused_mix_v3_supported`` holds, ``_fused_causal_bwd_call_v3``
+    (:2307): three launches of
     ``csrc/causal_long.cu`` through the same scratch: the segment FFTs of v
     and of ybar's adjoint partial irFFT in one, Kbar (each gate group
     summed through shared memory in a fixed order) and Vbar bin-major in
     one, and the adjoint segment FFT with the overlap-add; Kbar is exactly
-    0 for c < delta.  bf16 v and ybar take the bf16 instance of #10's FFT
-    kernel or #11's (``fused_causal_mix_bwd_bf16``,
-    ``fused_causal_mix_bwd_v3_bf16``): vbar bf16, Kbar fp32 (the primal
-    dtypes); where the direct #10 would take the shape bf16 raises
-    (``_mix_kernel``)."""
+    0 for c < delta.  bf16 v and ybar take the bf16 instance of the kernel
+    the shape picks (``fused_causal_mix_bwd_bf16``,
+    ``fused_causal_mix_bwd_direct_bf16``, ``fused_causal_mix_bwd_v3_bf16``):
+    vbar bf16, Kbar fp32 (the primal dtypes)."""
     if on_cpu(v, kfr, kfi, ybar):
         return fused_causal_mix_bwd_ref(v, kfr, kfi, ybar, chunk, cols)
     name = _mix_kernel("fused_causal_mix_bwd", v.shape[1], chunk, v.shape[2],
@@ -1019,19 +1058,16 @@ def fused_causal_mix_bwd(v, kfr, kfi, ybar, chunk: int, cols: int):
 
 def fused_causal_mix_bwd_direct(v, kfr, kfi, ybar, chunk: int, cols: int):
     """(vbar, kfr_bar, kfi_bar) as ``fused_causal_mix_bwd`` computes them,
-    always through the direct kernel (``csrc/causal_bwd.cu``) on CUDA
-    tensors, wherever ``fused_mix_supported`` holds; the plain version on
-    CPU tensors.  It exists to set the two kernels side by side at one
-    shape.  It has no bf16 instance: bf16 on the card raises, naming its
-    ROADMAP line."""
+    always through the direct kernel (``csrc/causal_bwd.cu``; its bf16
+    instance for bf16 v and ybar) on CUDA tensors, wherever
+    ``bwd_direct_plan`` has a plan; the plain version on CPU tensors.  It
+    exists to set the two kernels side by side at one shape."""
     if on_cpu(v, kfr, kfi, ybar):
         return fused_causal_mix_bwd_ref(v, kfr, kfi, ybar, chunk, cols)
     b, n, d = v.shape
-    if n % chunk or not fused_mix_supported(n // chunk, chunk, d, cols):
+    if n % chunk or bwd_direct_plan(n // chunk, chunk, d, cols) is None:
         raise ValueError(f"fused_causal_mix_bwd_direct: unsupported shape "
                          f"n={n} chunk={chunk} d={d} cols={cols}")
-    if v.dtype != torch.float32:
-        raise no_bf16_variant("fused_causal_mix_bwd_direct (#10)")
     return _launch_bwd("fused_causal_mix_bwd_direct", v, kfr, kfi, ybar,
                        chunk, cols)
 
@@ -1040,42 +1076,52 @@ def _launch_bwd(name: str, v, kfr, kfi, ybar, chunk: int, cols: int,
                 plan=None):
     """Launch ``name`` (fused_causal_mix_bwd, its _direct or its _v3) on
     CUDA tensors; ``plan``: the FFT kernel's (np, gs, bt),
-    ``bwd_fft_plan``'s unless given, or _v3's transform tile (np,
+    ``bwd_fft_plan``'s unless given, _direct's lag tile (ng, rows, tile),
+    ``bwd_direct_plan``'s unless given, or _v3's transform tile (np,
     threads), ``LONG_PLAN`` unless given.  vbar in v's dtype, Kbar fp32."""
     b, n, d = v.shape
     nc = n // chunk
     f2 = chunk + 1
-    bf16 = _act_bf16(name, v)
+    bf16 = v.dtype == torch.bfloat16
     act = v.dtype if bf16 else torch.float32
     check("v", v, (b, n, d), act)
     check("kfr", kfr, (b, nc, f2, nc * cols))
     check("kfi", kfi, (b, nc, f2, nc * cols))
     check("ybar", ybar, (b, n, d), act)
     check_rows(name, v=v, ybar=ybar)
-    tw = twiddles(2 * chunk, v.device)
     vbar = torch.empty_like(v)
     kbr = torch.empty_like(kfr)
     kbi = torch.empty_like(kfi)
+    counted = name + "_bf16" if bf16 else name
+    if name == "fused_causal_mix_bwd_direct":
+        # launches 1-2 the segment FFTs, 3 Kbar and Vbar (over V), 4 the
+        # inverse (#5's transforms); the parameter blocks live in the cache
+        scratch = [torch.empty((b, nc, f2, d), dtype=torch.float32,
+                               device=v.device) for _ in range(4)]
+        inv, seg = _direct_params(b, nc, chunk, d, cols, v.device)
+        launch(LAUNCHES, counted, v.device,
+               v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), ybar.data_ptr(),
+               *(t.data_ptr() for t in scratch), vbar.data_ptr(),
+               kbr.data_ptr(), kbi.data_ptr(), ctypes.addressof(seg),
+               ctypes.addressof(inv),
+               *(plan or bwd_direct_plan(nc, chunk, d, cols)), int(bf16),
+               entry=name)
+        return vbar, kbr, kbi
+    tw = twiddles(2 * chunk, v.device)
     if name == "fused_causal_mix_bwd":
         # V and A as complex planes (re, im interleaved); Vbar over V
         scratch = [torch.empty((b, nc, f2, d, 2), dtype=torch.float32,
                                device=v.device) for _ in range(2)]
-        tile = (*(plan or bwd_fft_plan(nc, chunk, d, cols)), int(bf16))
+        tile = plan or bwd_fft_plan(nc, chunk, d, cols)
     else:
         scratch = [torch.empty((b, nc, f2, d), dtype=torch.float32,
                                device=v.device) for _ in range(4)]
-        tile = ((*(plan or LONG_PLAN), int(bf16))
-                if name == "fused_causal_mix_bwd_v3" else ())
-    # the direct kernel's launches 1-2 are the segment FFTs; params lives
-    # through the call
-    params = (_segment_params(b, nc, chunk, d, v.device)
-              if name == "fused_causal_mix_bwd_direct" else None)
-    seg = () if params is None else (ctypes.addressof(params),)
-    launch(LAUNCHES, name + "_bf16" if bf16 else name, v.device,
+        tile = plan or LONG_PLAN
+    launch(LAUNCHES, counted, v.device,
            v.data_ptr(), kfr.data_ptr(), kfi.data_ptr(), ybar.data_ptr(),
            tw.data_ptr(), *(t.data_ptr() for t in scratch),
-           vbar.data_ptr(), kbr.data_ptr(), kbi.data_ptr(), *seg, b, nc,
-           chunk, d, cols, *tile, entry=name)
+           vbar.data_ptr(), kbr.data_ptr(), kbi.data_ptr(), b, nc, chunk, d,
+           cols, *tile, int(bf16), entry=name)
     return vbar, kbr, kbi
 
 

@@ -13,18 +13,6 @@ from fft_tpu_torch.kernels.build import load_library
 # dynamic shared memory a Hopper block may use
 SMEM_MAX = 232448
 
-# The ROADMAP.md line (queue 2) that ports the one bf16 instance still
-# missing: the direct-DFT #10 (csrc/causal_bwd.cu)
-BF16_QUEUED = "bf16 instance of the direct #10"
-
-
-def no_bf16_variant(kernel: str) -> NotImplementedError:
-    """The error of a bf16 call on the card that would reach ``kernel``,
-    which has no bf16 instance yet: raised at once, never cast to fp32."""
-    return NotImplementedError(
-        f"{kernel}: no bf16 instance on the card yet (see ROADMAP.md, "
-        f"queue 2: {BF16_QUEUED}); run fp32, or on the CPU")
-
 
 @functools.lru_cache(maxsize=None)
 def twiddles_np(n: int) -> np.ndarray:

@@ -36,7 +36,6 @@ from fft_tpu_torch.config import SpectreConfig
 from fft_tpu_torch.convert import to_jax_params
 from fft_tpu_torch.kernels import causal as kc
 from fft_tpu_torch.kernels import spectral_mix as sm
-from fft_tpu_torch.kernels.common import BF16_QUEUED
 from fft_tpu_torch.layers.causal_seg import BRANCH_CALLS
 from fft_tpu_torch.models import lm as tlm
 from fft_tpu_torch.train import AdamW, TrainConfig, lm_loss
@@ -132,10 +131,9 @@ def test_bf16_autograd_keeps_the_primal_dtypes():
 
 def test_bf16_dispatch_takes_the_bf16_instances_or_names_the_roadmap(
         monkeypatch):
-    """On the card bf16 activations reach the bf16 instances of #6 (its FFT
-    and its direct kernel), of #10's FFT kernel and of #7 and #11; only the
-    direct #10 raises, at once, naming its ROADMAP line; fp32 keeps its
-    kernels."""
+    """On the card bf16 activations reach the bf16 instances of #6 and #10
+    (each its FFT and its direct kernel) and of #7 and #11; none raises or
+    casts to fp32; fp32 keeps its kernels."""
     bf16, f32 = torch.bfloat16, torch.float32
     for base in ("fused_causal_mix", "fused_causal_mix_bwd"):
         for dt in (bf16, f32):
@@ -143,10 +141,6 @@ def test_bf16_dispatch_takes_the_bf16_instances_or_names_the_roadmap(
             assert kc._mix_kernel(base, 65536, 2048, 1024, 64, dt) \
                 == base + "_v3"
             assert kc._mix_kernel(base, 2048, 128, 512, 32, dt) == base
-        # each launch runs (and counts) its bf16 instance for bf16 v
-        for name in (base, base + "_v3"):
-            assert kc._act_bf16(name, torch.empty(1, dtype=bf16))
-            assert not kc._act_bf16(name, torch.empty(1, dtype=f32))
         with pytest.raises(TypeError):
             kc._mix_kernel(base, 32768, 2048, 1024, 64, torch.float16)
     # a 350M prompt of 600 tokens: chunk 600, 2C = 1200 = 16 * 75 takes no
@@ -154,15 +148,9 @@ def test_bf16_dispatch_takes_the_bf16_instances_or_names_the_roadmap(
     assert kc._split_odd(1200) is None
     assert kc._mix_kernel("fused_causal_mix", 600, 600, 1024, 64, bf16) \
         == "fused_causal_mix_direct"
-    assert kc._act_bf16("fused_causal_mix_direct",
-                        torch.empty(1, dtype=bf16))
-    assert kc._mix_kernel("fused_causal_mix_bwd", 600, 600, 1024, 64, f32) \
-        == "fused_causal_mix_bwd_direct"
-    with pytest.raises(NotImplementedError, match="#10") as e:
-        kc._mix_kernel("fused_causal_mix_bwd", 600, 600, 1024, 64, bf16)
-    assert BF16_QUEUED in str(e.value) and "ROADMAP" in str(e.value)
-    assert not kc._act_bf16("fused_causal_mix_bwd_direct",
-                            torch.empty(1, dtype=bf16))
+    for dt in (bf16, f32):
+        assert kc._mix_kernel("fused_causal_mix_bwd", 600, 600, 1024, 64,
+                              dt) == "fused_causal_mix_bwd_direct"
     # the wrappers as they run on the card (on_cpu false), up to the launch,
     # which is recorded instead: the kernel each call reaches and its
     # bf16 flag
@@ -176,10 +164,25 @@ def test_bf16_dispatch_takes_the_bf16_instances_or_names_the_roadmap(
         monkeypatch.setattr(mod, "launch", fake_launch)
     v = torch.zeros(1, 600, 1024, dtype=bf16)
     k = torch.zeros(1, 1, 601, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kc.fused_causal_mix_bwd_direct(v, k, k, v, 600, 64)
+    vbar, kbr, kbi = kc.fused_causal_mix_bwd_direct(v, k, k, v, 600, 64)
+    assert (vbar.dtype, kbr.dtype, kbi.dtype) == (bf16, f32, f32)
     kc.fused_causal_mix_direct(v, k, k, 600, 64)
-    assert launched == [("fused_causal_mix_direct_bf16", 1)]
+    assert launched == [("fused_causal_mix_bwd_direct_bf16", 1),
+                        ("fused_causal_mix_direct_bf16", 1)]
+    # each FFT and long-chunk launch runs (and counts) its bf16 instance for
+    # bf16 v, its fp32 one for fp32 v: the tiny LM's nc 16, chunks of 2048
+    for n, chunk, d, cols, name in ((2048, 128, 512, 32, "fused_causal_mix"),
+                                    (4096, 2048, 64, 8,
+                                     "fused_causal_mix_v3")):
+        nc = n // chunk
+        k = torch.zeros(1, nc, chunk + 1, nc * cols)
+        for dt, flag, suffix in ((bf16, 1, "_bf16"), (f32, 0, "")):
+            launched.clear()
+            v = torch.zeros(1, n, d, dtype=dt, requires_grad=True)
+            y = kc.fused_causal_mix(v, k, k, chunk, cols)
+            y.backward(torch.zeros_like(y))
+            bwd = name.replace("mix", "mix_bwd")
+            assert launched == [(name + suffix, flag), (bwd + suffix, flag)]
     # spectral_mix takes bf16 on every kernel of mix_kernel, forward and
     # (up to n_fft 2048, #2) backward; y and vbar bf16, the gate's fp32
     for n, names in ((1024, ["direct_mix_bf16", "direct_mix_bwd_bf16"]),

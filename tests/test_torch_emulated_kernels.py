@@ -11,8 +11,9 @@ banded_inverse (#5: both transform paths, every tile plan, both K layouts
 through the direct #6) and the direct #6 (segment_fft.cuh's segment FFTs:
 P O passes, Bluestein for half-zero and full windows; a copy that sizes
 full windows' Bluestein for 3C - 1 must fail), causal_bwd.cu's direct #10
-(the shim's warp shuffles), decode.cu (#12), and probe.cu (the FMA chain
-of utils/prof.py's measured constants, no TPU kernel).  Same bound as on the
+(fp32 and bf16, lag tiles of 2 to 4 segments), decode.cu (#12), and
+probe.cu (the FMA chain of utils/prof.py's measured constants, no TPU
+kernel).  Same bound as on the
 card (max|a-b| / max|b| < 2e-5: FFTs or direct DFTs against pocketfft, all
 fp32), and for the bf16 instances 1e-2 on the bf16 outputs (their one
 rounding to bf16 against the plain version's) and 2e-5 on the fp32 Kbar.
@@ -761,31 +762,72 @@ def bwd_direct_lib(tmp_path_factory):
                      ("fft_fused_causal_mix_bwd_direct",))
 
 
-@pytest.mark.parametrize("b,nc,chunk,d,cols", [(1, 2, 600, 32, 2),
-                                               (1, 3, 129, 32, 4)])
-def test_emulated_direct_mix_bwd(bwd_direct_lib, b, nc, chunk, d, cols):
-    """The direct #10 (causal_bwd.cu, five launches, the first two
-    segment_fft_kernel's) against the plain adjoint, each output within
-    TOL; launch 2's A (scratch) is rfft_2C([0 | ybar_s]) times coef_f / 2C
-    with Im exactly 0 at DC and Nyquist."""
+# (b, nc, chunk, d, cols, tile, bf16): the direct #10 at the 350M's 600-
+# token chunk (Bluestein: M = 2048) and at 129 (M = 512); nc 9 at C = 8
+# (2C = 16) over lag tiles of 4 segments, three tile rows; C = 17 (2C = 34,
+# Bluestein at M = 64) over tiles of 2; the bf16 instance at C = 12 (2C =
+# 24 = 8 * 3), five segments in tiles of 2.  Gate groups wider than a
+# block (walked in slices) are held on the card
+# (tests/test_torch_kernels.py): 512-thread blocks are slow to emulate
+DIRECT_BWD_CASES = [(1, 2, 600, 32, 2, None, False),
+                    (1, 3, 129, 32, 4, None, False),
+                    (1, 9, 8, 32, 4, 4, False),
+                    (1, 3, 17, 32, 2, 2, False),
+                    (1, 5, 12, 32, 4, 2, True)]
+
+
+def _direct_bwd_inputs(b, nc, chunk, d, cols, bf16=False):
     v, kr, ki = _direct_mix_inputs(b, nc, chunk, d, cols, chunk + 2)
     ybar = _randn(torch.Generator().manual_seed(chunk + 3), b, nc * chunk, d)
-    f2 = chunk + 1
-    seg = kc._segment_params(b, nc, chunk, d, torch.device("cpu"),
+    if bf16:
+        v, ybar = v.bfloat16(), ybar.bfloat16()
+    return v, kr, ki, ybar
+
+
+def _emulated_direct_bwd(lib, v, kr, ki, ybar, chunk, tile):
+    """(vbar, Kbar's planes, A's planes) from the direct #10's C entry with
+    the wrapper's parameter blocks (threads capped at 128 for the
+    emulation's speed) and ``kc._lag_plan``'s lag tile of at most ``tile``
+    segments; outputs and scratch start as NaN."""
+    b, n, d = v.shape
+    nc, f2, cols = n // chunk, chunk + 1, kr.shape[-1] // (n // chunk)
+    cpu = torch.device("cpu")
+    seg = kc._segment_params(b, nc, chunk, d, cpu,
                              min(kc.segment_fft_threads(nc, chunk), 128))
+    inv = kc._banded_params(b, nc, chunk, d, cols, cpu)
+    inv[12] = min(inv[12], 128)                   # threads
     vfr, vfi, rr, ri = (torch.full((b, nc, f2, d), float("nan"))
                         for _ in range(4))
     vbar = torch.full_like(v, float("nan"))
     kbr, kbi = (torch.full_like(kr, float("nan")) for _ in range(2))
-    assert bwd_direct_lib.fft_fused_causal_mix_bwd_direct(
-        _ptr(v), _ptr(kr), _ptr(ki), _ptr(ybar), _ptr(_tw(chunk)),
-        _ptr(vfr), _ptr(vfi), _ptr(rr), _ptr(ri), _ptr(vbar), _ptr(kbr),
-        _ptr(kbi), ctypes.addressof(seg), b, nc, chunk, d, cols,
-        None) == 0
+    assert lib.fft_fused_causal_mix_bwd_direct(
+        _ptr(v), _ptr(kr), _ptr(ki), _ptr(ybar), _ptr(vfr), _ptr(vfi),
+        _ptr(rr), _ptr(ri), _ptr(vbar), _ptr(kbr), _ptr(kbi),
+        ctypes.addressof(seg), ctypes.addressof(inv),
+        *kc._lag_plan(nc, d, cols, tile), _bf16(v), None) == 0
+    return vbar, kbr, kbi, rr, ri
+
+
+@pytest.mark.parametrize("b,nc,chunk,d,cols,tile,bf16", DIRECT_BWD_CASES)
+def test_emulated_direct_mix_bwd(bwd_direct_lib, b, nc, chunk, d, cols,
+                                 tile, bf16):
+    """The direct #10 (causal_bwd.cu: the segment FFTs of v and ybar, the
+    lag tiles' Kbar and Vbar, one inverse FFT a chunk) against the plain
+    adjoint, vbar and each Kbar plane within TOL (a bf16 vbar within
+    ``_bf16_like``), Kbar exactly 0 for c < delta; launch 2's A (scratch)
+    is rfft_2C([0 | ybar_s]) times coef_f / 2C with Im exactly 0 at DC and
+    Nyquist."""
+    v, kr, ki, ybar = _direct_bwd_inputs(b, nc, chunk, d, cols, bf16)
+    f2 = chunk + 1
+    vbar, kbr, kbi, rr, ri = _emulated_direct_bwd(bwd_direct_lib, v, kr,
+                                                  ki, ybar, chunk, tile)
     want = kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk, cols)
-    for got, w in zip((vbar, kbr, kbi), want):
-        assert _rel(got, w) < TOL
-    ys = ybar.reshape(b, nc, chunk, d)
+    assert _bf16_like(vbar, want[0])
+    assert _rel(kbr, want[1]) < TOL and _rel(kbi, want[2]) < TOL
+    kbar = kbr.view(b, nc, f2, nc, cols)
+    assert all(int(torch.count_nonzero(kbar[:, dl, :, :dl])) == 0
+               for dl in range(nc))
+    ys = ybar.float().reshape(b, nc, chunk, d)
     a = torch.fft.rfft(torch.cat([torch.zeros_like(ys), ys], 2), dim=2)
     coef = torch.full((f2, 1), 2.0 / (2 * chunk))
     coef[0] = coef[-1] = 1.0 / (2 * chunk)

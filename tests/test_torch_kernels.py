@@ -266,6 +266,35 @@ def test_fused_causal_mix_bwd_direct_kernel(dev, nc):
         assert _rel(a, w) < TOL
 
 
+@pytest.mark.parametrize("nc,d,cols,dtype", [
+    (48, 512, 32, torch.float32), (64, 512, 32, torch.float32),
+    (64, 512, 32, torch.bfloat16), (3, 1088, 1, torch.bfloat16)])
+def test_fused_causal_mix_bwd_direct_at_long_nc(dev, nc, d, cols, dtype):
+    """The tiny LM's backward from seq 6144 on (nc 48, 64), where the FFT
+    #10 has no plan, and a gate group of 1088 channels (wider than a
+    block: three slices): the wrapper takes the direct #10 (its bf16
+    instance for bf16 v and ybar), each output against the plain version,
+    Kbar exactly 0 where c < delta."""
+    b, chunk = 1, 128
+    assert kc.bwd_fft_plan(nc, chunk, d, cols) is None
+    v, kr, ki = _mix_inputs_at(dev, b, nc, chunk, d, cols, nc)
+    ybar = _randn(torch.Generator().manual_seed(nc + 1), dev, b, nc * chunk,
+                  d)
+    v, ybar = v.to(dtype), ybar.to(dtype)
+    name = "fused_causal_mix_bwd_direct" + (
+        "_bf16" if dtype == torch.bfloat16 else "")
+    before = dict(kc.LAUNCHES)
+    got = kc.fused_causal_mix_bwd(v, kr, ki, ybar, chunk, cols)
+    torch.cuda.synchronize()
+    assert kc.LAUNCHES[name] == before[name] + 1
+    want = kc.fused_causal_mix_bwd_ref(v, kr, ki, ybar, chunk, cols)
+    tol = (BF16_TOL if dtype == torch.bfloat16 else TOL, TOL, TOL)
+    for a, w, t in zip(got, want, tol):
+        assert a.dtype == w.dtype
+        assert _rel(a.float(), w.float()) < t
+    _assert_kbar_zero_past_c(got[1], b, nc, chunk, cols)
+
+
 def test_fused_causal_mix_bwd_direct_takes_chunk_129(dev):
     """2C = 258 has the odd factor 129: the wrapper sends #10 to the direct
     kernel there."""
@@ -826,19 +855,23 @@ def test_long_kernels_bf16_instances(dev, b, nc, chunk, d, cols):
 
 
 def test_bf16_refuses_kernels_without_a_bf16_variant(dev):
-    """The direct #10 alone has no bf16 instance: a bf16 call that would
-    reach it (a 600-token chunk, whose 2C = 1200 takes no FFT plan)
-    raises at once, naming its ROADMAP line, and so does calling it by
-    name."""
-    from fft_tpu_torch.kernels.common import BF16_QUEUED
-
+    """Every causal kernel has a bf16 instance now: a bf16 backward that
+    reaches the direct #10 (a 600-token chunk, whose 2C = 1200 takes no FFT
+    plan), through the wrapper and by name, runs its bf16 instance (vbar
+    bf16, Kbar fp32, each against the plain version), never its fp32
+    one, and raises nothing."""
     v, kr, ki = _mix_inputs_at(dev, 1, 1, 600, 1024, 64, 0)
+    # a ybar of its own: with ybar = v, Kbar's one lag is real and its
+    # imaginary plane rounding noise on both sides
     vb = v.bfloat16()
-    for fn in (lambda: kc.fused_causal_mix_bwd(vb, kr, ki, vb, 600, 64),
-               lambda: kc.fused_causal_mix_bwd_direct(vb, kr, ki, vb, 600,
-                                                      64)):
-        with pytest.raises(NotImplementedError, match=BF16_QUEUED):
-            fn()
+    yb = _randn(torch.Generator().manual_seed(1), dev, 1, 600,
+                1024).bfloat16()
+    want = kc.fused_causal_mix_bwd_ref(vb, kr, ki, yb, 600, 64)
+    for fn in (kc.fused_causal_mix_bwd, kc.fused_causal_mix_bwd_direct):
+        before = dict(kc.LAUNCHES)
+        got = fn(vb, kr, ki, yb, 600, 64)
+        _bf16_check(got, want, ("fused_causal_mix_bwd_direct_bf16",),
+                    before)
 
 
 def _bf16_check(got, want, names, before):

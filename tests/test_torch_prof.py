@@ -115,6 +115,33 @@ TABLE = [
      "0.0365", "bytes"),
     ("#10 bf16 hybrid", P.fused_causal_mix_bwd_cost, (1, 8, 256, 256, 16, 2),
      "0.0016", "bytes"),
+    ("#10 nc32", P.fused_causal_mix_bwd_cost, (8, 32, 128, 512, 32),
+     "0.143", "bytes"),
+    ("direct #10 nc64", P.fused_causal_mix_bwd_cost, (8, 64, 128, 512, 32),
+     "0.448", "bytes"),
+    ("direct #10 nc48", P.fused_causal_mix_bwd_cost, (8, 48, 128, 512, 32),
+     "0.276", "bytes"),
+    ("direct #10 hybrid nc64", P.fused_causal_mix_bwd_cost,
+     (1, 64, 256, 256, 16), "0.0559", "bytes"),
+    ("direct #10 C600", P.fused_causal_mix_bwd_cost, (1, 2, 600, 1024, 64),
+     "0.0050", "bytes"),
+    ("direct #10 C853", P.fused_causal_mix_bwd_cost, (1, 1, 853, 1024, 64),
+     "0.0034", "bytes"),
+    ("direct #10 bf16 nc64", P.fused_causal_mix_bwd_cost,
+     (8, 64, 128, 512, 32, 2), "0.388", "bytes"),
+    ("direct #10 bf16 nc48", P.fused_causal_mix_bwd_cost,
+     (8, 48, 128, 512, 32, 2), "0.231", "bytes"),
+    ("direct #10 bf16 hybrid nc64", P.fused_causal_mix_bwd_cost,
+     (1, 64, 256, 256, 16, 2), "0.0484", "bytes"),
+    ("direct #10 bf16 C600", P.fused_causal_mix_bwd_cost,
+     (1, 2, 600, 1024, 64, 2), "0.0033", "operations"),
+    ("direct #10 bf16 C853", P.fused_causal_mix_bwd_cost,
+     (1, 1, 853, 1024, 64, 2), "0.0023", "operations"),
+    ("#8 8192", P.kf_spectra_cost, (8, 8192, 128, 2048), "0.483", "bytes"),
+    ("direct #6 nc64", P.fused_causal_mix_cost, (8, 64, 128, 512, 32),
+     "0.244", "bytes"),
+    ("direct #6 bf16 nc64", P.fused_causal_mix_cost, (8, 64, 128, 512, 32, 2),
+     "0.204", "bytes"),
     ("#12 350M", P.fused_decode_mix_cost, (1, 16, 16384, 64, 4), "0.0413",
      "bytes"),
     ("#12 tiny", P.fused_decode_mix_cost, (4, 8, 2048, 64, 4), "0.0103",
