@@ -42,7 +42,14 @@ stay fp32), as the JAX CLI's; on the card the causal mix runs the bf16
 instances of its kernels (#6 and #10 on the tiny preset and the 350M's
 short prompts, #7 and #11 on the 350M's long chunks).  ``--profile DIR``
 writes a ``torch.profiler`` Chrome trace of one step after warm-up (the
-third of the run, as the JAX CLI's) into DIR (``utils/prof.py``).
+third of the run, as the JAX CLI's) into DIR (``utils/prof.py``).  Beside
+the ops and kernels it holds the program's spans, ``user_annotation``
+events named ``fft_tpu_torch.<name>`` on the kernels' clock:
+``train.step`` and its ``train.forward``, ``train.backward`` and
+``train.optimizer``; ``spectre.block`` with its ``spectre.gates``,
+``swa.block`` with its ``swa.attention``, and ``head_ce`` (each again
+inside ``train.backward`` where the remat recomputes it); and
+``swa.attention.backward``, the attention's backward.
 
 Parallel training (``fft_tpu_torch.parallel``), one process per card::
 
@@ -585,7 +592,9 @@ def main(argv=None):
                     help="held-out loss/perplexity every N steps")
     lm.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of one step after "
-                         "warm-up into DIR")
+                         "warm-up into DIR, with the program's spans "
+                         "(fft_tpu_torch.train.forward, .backward, "
+                         ".optimizer, .spectre.block, ...)")
     lm.add_argument("--dp", type=int, default=1, help="data parallel")
     lm.add_argument("--sp", type=int, default=1, help="sequence parallel")
     lm.add_argument("--tp", type=int, default=1,
@@ -613,7 +622,9 @@ def main(argv=None):
     hy.add_argument("--eval-every", type=int, default=0)
     hy.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of one step after "
-                         "warm-up into DIR")
+                         "warm-up into DIR, with the program's spans "
+                         "(fft_tpu_torch.train.forward, .backward, "
+                         ".optimizer, .spectre.block, ...)")
     hy.add_argument("--dp", type=int, default=1, help="data parallel")
     hy.add_argument("--sp", type=int, default=1,
                     help="context parallel (SWA halo exchange + "

@@ -35,6 +35,7 @@ from fft_tpu_torch.ops import (
     attention_pool, dct_pool_weights, fftops, pruned_irfft_single,
     rfft_phasor,
 )
+from fft_tpu_torch.utils.prof import span
 
 
 @dataclasses.dataclass
@@ -224,17 +225,20 @@ def spectre_block_prefill(block: SpectreBlock, x: torch.Tensor,
     in the forward; ``reference_compat=True`` instead adds it into the
     prefix here, the original's documented recipe, where the gate then
     multiplies it."""
-    b, length, d = x.shape
-    h, hd = block.cfg.num_heads, block.cfg.head_dim
-    xh = block.ln1(x).reshape(b, length, h, hd)
-    q = _heads_linear(xh, block.mix.heads.w_q).transpose(1, 2)   # (B,H,L,hd)
-    v = _heads_linear(xh, block.mix.heads.w_v).transpose(1, 2)
-    cache = cache_prefill(cache, q, v)
-    mem = block.memory_complex()
-    if reference_compat and mem is not None:
-        # (F_half, d) -> (1, H, F_half, hd)
-        cache.prefix = cache.prefix + mem.reshape(-1, h, hd).transpose(0, 1)
-    return cache
+    with span("prefill.cache"):
+        b, length, d = x.shape
+        h, hd = block.cfg.num_heads, block.cfg.head_dim
+        xh = block.ln1(x).reshape(b, length, h, hd)
+        # (B, H, L, hd)
+        q = _heads_linear(xh, block.mix.heads.w_q).transpose(1, 2)
+        v = _heads_linear(xh, block.mix.heads.w_v).transpose(1, 2)
+        cache = cache_prefill(cache, q, v)
+        mem = block.memory_complex()
+        if reference_compat and mem is not None:
+            # (F_half, d) -> (1, H, F_half, hd)
+            cache.prefix = (cache.prefix
+                            + mem.reshape(-1, h, hd).transpose(0, 1))
+        return cache
 
 
 def spectre_block_decode_step(

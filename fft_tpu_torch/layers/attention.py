@@ -42,6 +42,7 @@ from fft_tpu_torch.layers.common import DTYPES, LayerNorm, Linear, linear_init
 from fft_tpu_torch.layers.spectre import MLP
 from fft_tpu_torch.parallel import comm
 from fft_tpu_torch.utils.device import resolve_device
+from fft_tpu_torch.utils.prof import backward_span, forward_span
 
 
 class SlidingWindowAttention(nn.Module):
@@ -184,10 +185,16 @@ class SWABlock(nn.Module):
             fc.bias.copy_(b)
 
     def forward(self, x: torch.Tensor, cp_mesh=None) -> torch.Tensor:
-        x = x.to(DTYPES[self.compute_dtype])
-        x = x + swa_apply(self.attn, self.ln1(x), self.num_heads,
-                          self.window, cp_mesh=cp_mesh)
-        return x + self.mlp(self.ln2(x))
+        with forward_span("swa.block"):
+            x = x.to(DTYPES[self.compute_dtype])
+            h = self.ln1(x)
+            with forward_span("swa.attention"):
+                h = backward_span(
+                    "swa.attention.backward",
+                    lambda t: swa_apply(self.attn, t, self.num_heads,
+                                        self.window, cp_mesh=cp_mesh), h)
+            x = x + h
+            return x + self.mlp(self.ln2(x))
 
 
 def swa_block_init(embed_dim: int, num_heads: int, window: int,

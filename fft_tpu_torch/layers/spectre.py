@@ -69,6 +69,7 @@ from fft_tpu_torch.parallel.dist_fft import (
     sp_spectral_mix, sp_spectral_mix_strided,
 )
 from fft_tpu_torch.utils.device import resolve_device
+from fft_tpu_torch.utils.prof import forward_span
 
 
 # hidden width of the attention pooler's scorer (spectre.py:159-172)
@@ -277,49 +278,51 @@ def causal_chunk_gates(heads: SpectreHeads, cfg: SpectreHeadConfig,
     sequence: the prefix sums start from the earlier ranks' totals (an
     all-gather over ``seq``), positions are global, and the attention
     pooler's max is over all ranks."""
-    b, n = q.shape[:2]
-    pad_n = n_chunks * causal_chunk
-    rank = 0 if sp_mesh is None else sp_mesh.rank("seq")
-    pos0 = rank * pad_n                       # the first token's position
+    with forward_span("spectre.gates"):
+        b, n = q.shape[:2]
+        pad_n = n_chunks * causal_chunk
+        rank = 0 if sp_mesh is None else sp_mesh.rank("seq")
+        pos0 = rank * pad_n                   # the first token's position
 
-    def chunk_cum(x):
-        """(B, n, ...) -> (B, nc, ...): the sum over tokens [0, c C]."""
-        if pad_n > n:
-            x = torch.cat([x, x.new_zeros((b, pad_n - n) + x.shape[2:])],
-                          dim=1)
-        sums = x.reshape(b, n_chunks, causal_chunk, *x.shape[2:]).sum(dim=2)
-        excl = torch.cumsum(sums, dim=1) - sums
-        if sp_mesh is not None:               # the earlier ranks' totals
-            totals = comm.all_gather(sums.sum(dim=1, keepdim=True), sp_mesh,
-                                     "seq", 1)
-            excl = excl + totals[:, :rank].sum(dim=1, keepdim=True)
-        return excl + x[:, ::causal_chunk]
+        def chunk_cum(x):
+            """(B, n, ...) -> (B, nc, ...): the sum over tokens [0, c C]."""
+            if pad_n > n:
+                x = torch.cat(
+                    [x, x.new_zeros((b, pad_n - n) + x.shape[2:])], dim=1)
+            sums = x.reshape(b, n_chunks, causal_chunk,
+                             *x.shape[2:]).sum(dim=2)
+            excl = torch.cumsum(sums, dim=1) - sums
+            if sp_mesh is not None:           # the earlier ranks' totals
+                totals = comm.all_gather(sums.sum(dim=1, keepdim=True),
+                                         sp_mesh, "seq", 1)
+                excl = excl + totals[:, :rank].sum(dim=1, keepdim=True)
+            return excl + x[:, ::causal_chunk]
 
-    if cfg.pooling_type == "dct":
-        wbar = dct_pool_weights(cfg.n_fft, device=q.device)[
-            pos0:pos0 + n].to(q.dtype)
-        descr = chunk_cum(q * wbar[:, None, None])
-    elif cfg.pooling_type == "attention":
-        s = _heads_linear(gelu_exact(_heads_linear(
-            q, heads.pool_fc1_w, heads.pool_fc1_b)), heads.pool_fc2_w,
-            heads.pool_fc2_b)                                # (B, n, H, 1)
-        s0 = _heads_linear(gelu_exact(heads.pool_fc1_b.to(q.dtype)),
-                           heads.pool_fc2_w, heads.pool_fc2_b)  # (H, 1)
-        smax = s.amax(dim=1, keepdim=True)                   # (B, 1, H, 1)
-        if sp_mesh is not None:
-            smax = comm.all_reduce_max(smax, sp_mesh, "seq")
-        m = torch.maximum(smax, s0)
-        es = torch.exp(s - m)
-        starts = (torch.arange(n_chunks, device=q.device) * causal_chunk
-                  + pos0)
-        n_pad = (cfg.n_fft - (starts + 1)).to(q.dtype)
-        denom = (chunk_cum(es)
-                 + n_pad[None, :, None, None] * torch.exp(s0 - m))
-        descr = chunk_cum(q * es) / denom
-    else:
-        descr = chunk_cum(q) / cfg.n_fft
-    descr = layernorm_apply(descr, heads.q_norm_w, heads.q_norm_b)
-    return spectre_gate(heads, cfg, descr)
+        if cfg.pooling_type == "dct":
+            wbar = dct_pool_weights(cfg.n_fft, device=q.device)[
+                pos0:pos0 + n].to(q.dtype)
+            descr = chunk_cum(q * wbar[:, None, None])
+        elif cfg.pooling_type == "attention":
+            s = _heads_linear(gelu_exact(_heads_linear(
+                q, heads.pool_fc1_w, heads.pool_fc1_b)), heads.pool_fc2_w,
+                heads.pool_fc2_b)                            # (B, n, H, 1)
+            s0 = _heads_linear(gelu_exact(heads.pool_fc1_b.to(q.dtype)),
+                               heads.pool_fc2_w, heads.pool_fc2_b)   # (H, 1)
+            smax = s.amax(dim=1, keepdim=True)               # (B, 1, H, 1)
+            if sp_mesh is not None:
+                smax = comm.all_reduce_max(smax, sp_mesh, "seq")
+            m = torch.maximum(smax, s0)
+            es = torch.exp(s - m)
+            starts = (torch.arange(n_chunks, device=q.device) * causal_chunk
+                      + pos0)
+            n_pad = (cfg.n_fft - (starts + 1)).to(q.dtype)
+            denom = (chunk_cum(es)
+                     + n_pad[None, :, None, None] * torch.exp(s0 - m))
+            descr = chunk_cum(q * es) / denom
+        else:
+            descr = chunk_cum(q) / cfg.n_fft
+        descr = layernorm_apply(descr, heads.q_norm_w, heads.q_norm_b)
+        return spectre_gate(heads, cfg, descr)
 
 
 def spectre_head_apply_causal(
@@ -814,11 +817,12 @@ class SpectreBlock(nn.Module):
         """``sp_mesh``/``sp_layout``/``tp_mesh``: see
         ``SpectreMultiHead.forward``; the MLP runs Megatron's layout under
         ``tp_mesh``."""
-        x = x.to(DTYPES[self.cfg.compute_dtype])
-        x = x + self.mix(self.ln1(x), memory_fft=self.memory_complex(),
-                         generator=generator, sp_mesh=sp_mesh,
-                         sp_layout=sp_layout, tp_mesh=tp_mesh)
-        return x + self.mlp(self.ln2(x), tp_mesh=tp_mesh)
+        with forward_span("spectre.block"):
+            x = x.to(DTYPES[self.cfg.compute_dtype])
+            x = x + self.mix(self.ln1(x), memory_fft=self.memory_complex(),
+                             generator=generator, sp_mesh=sp_mesh,
+                             sp_layout=sp_layout, tp_mesh=tp_mesh)
+            return x + self.mlp(self.ln2(x), tp_mesh=tp_mesh)
 
 
 def spectre_block_init(cfg: SpectreConfig, generator: torch.Generator,

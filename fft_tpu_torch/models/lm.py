@@ -50,6 +50,7 @@ from fft_tpu_torch.parallel import comm
 from fft_tpu_torch.parallel.mesh import data_slice, seq_slice
 from fft_tpu_torch.parallel.pipeline import pipeline_apply
 from fft_tpu_torch.utils.device import resolve_device
+from fft_tpu_torch.utils.prof import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -298,12 +299,13 @@ def lm_prefill(model: SpectreLM, tokens: torch.Tensor
     """One causal forward pass over the prompt builds every layer's decode
     cache (from each layer's input in fp32, whatever the compute dtype).
     Returns (last-position logits (B, vocab), caches)."""
-    h = model.embed(tokens)
-    caches = lm_decode_init(model, tokens.shape[0])
-    for i, block in enumerate(model.blocks):
-        caches[i] = spectre_block_prefill(block, h.float(), caches[i])
-        h = block(h)
-    return model.logits(h[:, -1]), caches
+    with span("prefill"):
+        h = model.embed(tokens)
+        caches = lm_decode_init(model, tokens.shape[0])
+        for i, block in enumerate(model.blocks):
+            caches[i] = spectre_block_prefill(block, h.float(), caches[i])
+            h = block(h)
+        return model.logits(h[:, -1]), caches
 
 
 @torch.no_grad()

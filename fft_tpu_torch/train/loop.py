@@ -48,6 +48,7 @@ from fft_tpu_torch.models.lm import (
 from fft_tpu_torch.models.vit import ViT, vit_apply
 from fft_tpu_torch.parallel import comm
 from fft_tpu_torch.parallel.mesh import global_grad_norm, sync_grads
+from fft_tpu_torch.utils.prof import forward_span, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,26 +194,28 @@ def make_optimizer(tcfg: TrainConfig,
 
 def _chunk_ce(hc: torch.Tensor, head: torch.Tensor,
               tc: torch.Tensor) -> torch.Tensor:
-    logits = head_logits(hc, head)
-    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                           tc.reshape(-1), reduction="sum")
+    with forward_span("head_ce"):
+        logits = head_logits(hc, head)
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               tc.reshape(-1), reduction="sum")
 
 
 def _vocab_parallel_chunk_ce(hc: torch.Tensor, emb: torch.Tensor,
                              tc: torch.Tensor, mesh) -> torch.Tensor:
     """The CE sum of a chunk against a tied head whose vocab is sharded
     over ``model``: emb (V_l, d) holds this rank's rows of ``tok_emb``."""
-    vl = emb.shape[0]
-    logits = head_logits(comm.copy_to(hc, mesh, "model"), emb.T)
-    m = comm.all_reduce_max(logits.amax(dim=-1, keepdim=True), mesh,
-                            "model")
-    sumexp = comm.reduce_from(torch.exp(logits - m).sum(dim=-1), mesh,
-                              "model")
-    idx = tc - mesh.rank("model") * vl
-    inside = (idx >= 0) & (idx < vl)
-    target = logits.gather(-1, idx.clamp(0, vl - 1)[..., None])[..., 0]
-    target = comm.reduce_from(target * inside, mesh, "model")
-    return (torch.log(sumexp) + m[..., 0] - target).sum()
+    with forward_span("head_ce"):
+        vl = emb.shape[0]
+        logits = head_logits(comm.copy_to(hc, mesh, "model"), emb.T)
+        m = comm.all_reduce_max(logits.amax(dim=-1, keepdim=True), mesh,
+                                "model")
+        sumexp = comm.reduce_from(torch.exp(logits - m).sum(dim=-1), mesh,
+                                  "model")
+        idx = tc - mesh.rank("model") * vl
+        inside = (idx >= 0) & (idx < vl)
+        target = logits.gather(-1, idx.clamp(0, vl - 1)[..., None])[..., 0]
+        target = comm.reduce_from(target * inside, mesh, "model")
+        return (torch.log(sumexp) + m[..., 0] - target).sum()
 
 
 def _ce_sum(h: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
@@ -337,22 +340,27 @@ def _optimizer_step(state: TrainState, loss_fn, mesh=None,
     """Zero the gradients, backpropagate ``loss_fn()`` and update.  Returns
     {"loss", "grad_norm" (unclipped), "step"} as the JAX train steps'
     metrics; the parameter gradients stay in ``.grad`` (completed by
-    ``sync_grads`` under ``mesh``)."""
+    ``sync_grads`` under ``mesh``).  Under a recording profiler the three
+    phases are the spans ``train.forward``, ``train.backward`` and
+    ``train.optimizer`` (``utils/prof.py::span``)."""
     params = state.optimizer.params
     for p in params:
         p.grad = None
-    loss = loss_fn()
-    loss.backward()
-    grads = [torch.zeros_like(p) if p.grad is None else p.grad
-             for p in params]
-    norm = None
-    if mesh is not None or pp_mesh is not None:
-        names = {id(p): n for n, p in state.model.named_parameters()}
-        named = [(names[id(p)], g) for p, g in zip(params, grads)]
-        if mesh is not None:
-            sync_grads(named, mesh)
-        norm = global_grad_norm(named, mesh, pp_mesh)
-    grad_norm = state.optimizer.step(grads, norm=norm)
+    with span("train.forward"):
+        loss = loss_fn()
+    with span("train.backward"):
+        loss.backward()
+    with span("train.optimizer"):
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in params]
+        norm = None
+        if mesh is not None or pp_mesh is not None:
+            names = {id(p): n for n, p in state.model.named_parameters()}
+            named = [(names[id(p)], g) for p, g in zip(params, grads)]
+            if mesh is not None:
+                sync_grads(named, mesh)
+            norm = global_grad_norm(named, mesh, pp_mesh)
+        grad_norm = state.optimizer.step(grads, norm=norm)
     metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
                "step": state.step}
     state.step += 1
@@ -371,27 +379,29 @@ def train_step(state: TrainState, batch, *, mesh=None,
     ``pp_mesh`` (stage): batch is the global one and the model this rank's
     shard; the pipeline runs deterministically (eval mode, no generator),
     as the JAX package's."""
-    tokens = _tokens(state, batch)
-    model = state.model
-    if pp_mesh is None:
-        return _optimizer_step(state, lambda: lm_loss(
-            model, tokens, generator=state.generator, mesh=mesh), mesh)
-    training = model.training
-    model.eval()
-    try:
-        return _optimizer_step(state, lambda: lm_loss(
-            model, tokens, mesh=mesh, pp_mesh=pp_mesh), mesh, pp_mesh)
-    finally:
-        model.train(training)
+    with span("train.step"):
+        tokens = _tokens(state, batch)
+        model = state.model
+        if pp_mesh is None:
+            return _optimizer_step(state, lambda: lm_loss(
+                model, tokens, generator=state.generator, mesh=mesh), mesh)
+        training = model.training
+        model.eval()
+        try:
+            return _optimizer_step(state, lambda: lm_loss(
+                model, tokens, mesh=mesh, pp_mesh=pp_mesh), mesh, pp_mesh)
+        finally:
+            model.train(training)
 
 
 def hybrid_train_step(state: TrainState, batch, *, cp_mesh=None) -> dict:
     """One optimizer step on a hybrid-LM batch (B, N+1), deterministic as
     JAX's (``train_init(..., deterministic=True)``); with ``cp_mesh`` the
     global batch, context parallel (``models/hybrid.py``)."""
-    tokens = _tokens(state, batch)
-    return _optimizer_step(state, lambda: hybrid_loss(
-        state.model, tokens, cp_mesh=cp_mesh), cp_mesh)
+    with span("train.step"):
+        tokens = _tokens(state, batch)
+        return _optimizer_step(state, lambda: hybrid_loss(
+            state.model, tokens, cp_mesh=cp_mesh), cp_mesh)
 
 
 def vit_train_step(state: TrainState, images, labels) -> dict:

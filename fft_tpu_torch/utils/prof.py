@@ -6,6 +6,11 @@ card's peaks as measured here.
 - ``profile_trace(logdir)``: a Chrome trace of the enclosed code (JAX's
   ``jax.profiler`` trace), as ``train-lm --profile`` and ``train-hybrid
   --profile`` take one.
+- ``span(name)``, ``forward_span`` and ``backward_span``: ranges named
+  ``fft_tpu_torch.<name>`` inside the program, recorded only while a
+  profiler records, on the kernels' clock (the train step's forward,
+  backward and optimizer, the blocks, the causal gates, the SWA and its
+  backward, the prefill and its cache build).
 - ``read_profile``: device-busy ms, idle share and kernels by name over a
   few calls.  A profile that holds no CUDA span is taken once more, then
   timed with CUDA events, and the record says which (``device_ms_source``):
@@ -94,6 +99,70 @@ def profile_trace(logdir, device=None):
     prof.export_chrome_trace(str(out))
 
 
+# ---------------------------------------------------------------------------
+# spans inside the program
+# ---------------------------------------------------------------------------
+
+SPAN_PREFIX = "fft_tpu_torch."
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` range named ``fft_tpu_torch.<name>`` while a
+    ``torch.profiler`` records (on this thread, or on the autograd thread
+    that inherited the profiler's state), so it lands in the trace on the
+    kernels' clock; else one shared no-op context, which dispatches no op
+    and adds no autograd node.  The range closes on exceptions too (the
+    non-reentrant checkpoint stops its recompute by raising)."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(SPAN_PREFIX + name)
+
+
+def forward_span(name: str):
+    """``span(name)`` while grad is enabled as well: the spans of forward
+    code that split a training step (again in the remat's recompute).
+    Under ``no_grad`` (prefill, scoring, decode) they stay closed, since
+    nothing there reads them."""
+    if not torch.is_grad_enabled():
+        return _NO_SPAN
+    return span(name)
+
+
+class _BackwardMark(torch.autograd.Function):
+    """Identity whose backward enters ``rf`` (placed on a region's output)
+    or exits it (on the region's input)."""
+
+    @staticmethod
+    def forward(ctx, x, rf, enter: bool):
+        ctx.rf, ctx.enter = rf, enter
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.enter:
+            ctx.rf.__enter__()
+        else:
+            ctx.rf.__exit__(None, None, None)
+        return g, None, None
+
+
+def backward_span(name: str, fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)``, whose backward runs inside a range named
+    ``fft_tpu_torch.<name>`` while a profiler records, grad is on and ``x``
+    requires grad (else ``fn(x)`` alone).  Two identity nodes bracket the
+    region: the output's opens the range, the input's closes it.  The
+    engine runs the ready node of the highest sequence number first, so
+    the nodes made between the two in the forward (the region's, and the
+    gradient accumulation of its parameters) run between them."""
+    if not (torch._C._autograd._profiler_enabled()
+            and torch.is_grad_enabled() and x.requires_grad):
+        return fn(x)
+    rf = torch.profiler.record_function(SPAN_PREFIX + name)
+    return _BackwardMark.apply(fn(_BackwardMark.apply(x, rf, False)), rf,
+                               True)
+
+
 def _trace_events(step, sync, steps: int):
     """(the profiler's events over ``steps`` calls of ``step`` on the card,
     wall ms of those calls)."""
@@ -124,9 +193,14 @@ def events_ms(step, sync, steps: int) -> float:
 
 
 def _cuda_spans(events) -> list:
+    """(start, end, name) of the device's work: events on a CUDA device
+    that are not user annotations (a ``record_function`` range, the
+    program's spans among them, also appears on the device's timeline,
+    from its first kernel to its last)."""
     from torch.autograd import DeviceType
     return sorted((e.time_range.start, e.time_range.end, e.name)
-                  for e in events if e.device_type == DeviceType.CUDA)
+                  for e in events if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation)
 
 
 def read_profile(step, sync, steps: int, match=(), *, trace=_trace_events,

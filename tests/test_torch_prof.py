@@ -203,10 +203,10 @@ def test_profile_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
     assert any(n.startswith("aten::") for n in names)
 
 
-def _event(start, end, name, device=DeviceType.CUDA):
+def _event(start, end, name, device=DeviceType.CUDA, annotation=False):
     return types.SimpleNamespace(
         time_range=types.SimpleNamespace(start=start, end=end), name=name,
-        device_type=device)
+        device_type=device, is_user_annotation=annotation)
 
 
 def test_read_profile_takes_cuda_events_after_two_empty_profiles():
@@ -242,6 +242,26 @@ def test_read_profile_retries_once_then_reads_the_spans():
     assert rec["idle_share"] == pytest.approx(1 - 80e-3 / 2.0)
     assert rec["kernels_per_step"] == 1.5
     assert rec["matched_ms_per_step"]["fft"] == pytest.approx(60e-3 / 2)
+
+
+def test_read_profile_leaves_out_the_spans_on_the_device_timeline():
+    """A ``record_function`` range (a program span) shows on the device's
+    timeline from its first kernel to its last: it is neither busy time
+    nor a kernel, so the gap it covers stays idle."""
+    events = [_event(0.0, 40.0, "gemm"), _event(100.0, 120.0, "fft_b"),
+              _event(0.0, 120.0, P.SPAN_PREFIX + "train.step",
+                     annotation=True),
+              _event(0.0, 40.0, P.SPAN_PREFIX + "train.forward",
+                     annotation=True)]
+    rec = P.read_profile(None, None, 1, ("train",),
+                         trace=lambda *a: (events, 1.0),
+                         timer=lambda *a: pytest.fail("no fallback"))
+    assert rec["device_busy_ms_per_step"] == pytest.approx(60e-3)
+    assert rec["idle_share"] == pytest.approx(1 - 60e-3)
+    assert rec["kernels_per_step"] == 2
+    assert [n for n, _ in rec["top_kernels_ms_per_step"]] == ["gemm",
+                                                              "fft_b"]
+    assert rec["matched_ms_per_step"]["train"] == 0
 
 
 def test_measure_chip_constants_on_the_cpu_at_small_sizes():
